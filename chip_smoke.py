@@ -7,35 +7,50 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    kernels are built from `eagle_tpu_torch/csrc/` (one nvcc per source, in
    parallel) and ptxas' register / shared-memory report is written to DIR.
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes: qmm for each Vicuna-7B projection through the stacked
+   paths' shapes: qmm for each Vicuna-7B projection through the stacked
    entry (layer 5), lm_head and the EAGLE fc through the 2-D entry, one
    Q6_K-form weight and one unpacked weight with bf16 scales and bias, at
-   1, 6, 37 and 512 rows with bf16 compute (relative error
-   <= 1e-2); flash_decode at S=1024, T in {1, 6}, 32 heads of 128 with a
-   holed tag mask, and at T=S=512 as the EAGLE engine's prompt takes it;
-   flash_prefill at T=512 with padded and q_pos=-1 rows
-   (relative error <= 1e-2). Each prints kernel ms, plain ms, the bound
-   (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, whichever is
-   larger) and library_ms (one PyTorch call computing the same function:
-   torch.matmul on a pre-dequantized bf16 weight, or
-   scaled_dot_product_attention with the bool mask — timed here only, the
-   port never calls it). Times are device time from torch.profiler, so the
-   host's launch overhead does not count. A tiny 2-layer model's logits on
-   the card are also held against the CPU plain path (relative error
-   <= 1e-3, f32).
+   1, 6, 37 and 512 rows, and the GGUF path's Q4_0 (packed, f32 scale and
+   bias) and Q8_0 (int8, no bias) forms at 1, 6 and 512 rows, bf16 compute
+   (relative error <= 1e-2); ffn_out_norm and gate_up_act at Vicuna-7B
+   widths for 1 and 6 rows, stacked Q4_0 (layer 5) and the draft's
+   single-layer Q8_0 (relative error <= 1e-2); flash_decode at S=1024,
+   T in {1, 6}, 32 heads of 128 with a holed tag mask, and at T=S=512 as
+   the EAGLE engine's prompt takes it; flash_prefill at T=512 with padded
+   and q_pos=-1 rows (relative error <= 1e-2). Each prints kernel ms, plain
+   ms, the bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
+   whichever is larger) and library_ms (one PyTorch call computing the
+   same function, or for the fused FFN kernels the same product: torch.matmul
+   on a pre-dequantized bf16 weight, or scaled_dot_product_attention with
+   the bool mask — timed here only, the port never calls it). Times are
+   device time from torch.profiler, so the host's launch overhead does not
+   count. A tiny 2-layer model's logits on the card are also held against
+   the CPU plain path (relative error <= 1e-3, f32).
 3. greedy decoding at full width: VICUNA_7B (32 layers, 4096 wide, 11008
    FFN, 32000 vocab), Q4_K packed coded weights synthesized on the card,
    bf16 KV cache, max_seq 1024; a 300-token prompt (bucket 512, prefill
-   kernel), then 64 decoded tokens.
+   kernel), then 64 decoded tokens; EAGLE_TPU_FUSED_FFN unset.
 4. the EAGLE chain engine at full width with a full-width synthetic draft,
    K = 5, 64 new tokens; its tokens are compared with phase 3's, and where
    they differ the target's top-2 logit margin there must be within 1e-2 of
    the logit range (a bf16 near-tie, not a divergence).
-5. every kernel's launch count over the phase 3-4 runs (each > 0) and the
-   plain versions' (each 0); then, outside the counted runs, 8 more greedy
-   decode steps timed on the host clock and traced with torch.profiler
-   (device busy share, kernels per token, the kernels that take the time);
-   then the `kernels` JSON line and, last, the device JSON line.
+5. the launch counts of qmm, flash_decode and flash_prefill over the
+   phase 3-4 runs (each > 0; the fused FFN kernels 0) and the plain
+   versions' (each 0); then, outside the counted runs, 8 more greedy decode
+   steps timed on the host clock and traced with torch.profiler (device
+   busy share, kernels per token, the kernels that take the time).
+6. the GGUF path at full width and depth: a Vicuna-7B-shape Q4_0 GGUF
+   (3.8 GB, laid out as llama-quantize's Q4_0) and an EAGLE Q8_0 draft
+   (0.39 GB) minted with random blocks into a temporary directory (free
+   space logged, files deleted after the load), loaded with the repack on
+   the card (read / upload / repack times, device memory), five tensors
+   checked bit for bit against the CPU repack of the same bytes, then
+   greedy and the EAGLE chain engine with EAGLE_TPU_FUSED_FFN=1 and again
+   unfused, each with its launch counts (fused kernels > 0 only when on,
+   plain versions 0) and decode profile; EAGLE = greedy and fused = unfused
+   tokens up to the near-tie rule. Last, the `kernels` JSON line (the fused
+   kernels' launches come from this phase's fused run) and the device JSON
+   line.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -148,11 +164,13 @@ def phase_device(out_dir: pathlib.Path):
 def qmm_checks(report: dict) -> dict:
     import torch
 
+    from eagle_tpu_torch.gguf import GGMLType
     from eagle_tpu_torch.models.synth import synth_qtensor
     from eagle_tpu_torch.ops.qmm import qmm, qmm_plain, qmm_stacked
     from eagle_tpu_torch.quant.qtensor import Q4_K, Q6_K
 
     gen = torch.Generator(device="cuda").manual_seed(7)
+    Q4_0, Q8_0 = int(GGMLType.Q4_0), int(GGMLType.Q8_0)
     stack, layer = 6, 5
     # (name, N, K, stacked, synth kwargs); per-token decode count of each
     specs = [
@@ -165,8 +183,16 @@ def qmm_checks(report: dict) -> dict:
         ("lm_head_q6k_form", 32000, 4096, False, dict(qtype=Q6_K, coded=True), 0),
         # the remaining branches: unpacked codes with a bias, bf16 scales and bias
         ("wo_int8_bf16", 4096, 4096, True, dict(scale_dtype=torch.bfloat16), 0),
+        # the GGUF path's forms: Q4_0 (packed, f32 scale and bias -8d) and Q8_0
+        # (int8 codes over [-128, 127], f32 scale, no bias; the draft's form,
+        # stacked here so that repeats do not hit in L2)
+        ("wqkv_q4_0", 12288, 4096, True, dict(qtype=Q4_0, packed=True), 0),
+        ("w_down_q4_0", 4096, 11008, True, dict(qtype=Q4_0, packed=True), 0),
+        ("wqkv_q8_0", 12288, 4096, True, dict(qtype=Q8_0), 0),
+        ("fc_w_q8_0", 4096, 8192, True, dict(qtype=Q8_0), 0),
     ]
     rows_list = (1, 6, 37, 512)  # 37: a ragged row tile of either body
+    gguf_rows = (1, 6, 512)
     results = []
     worst = 0.0
     per_token = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
@@ -176,7 +202,7 @@ def qmm_checks(report: dict) -> dict:
         layers = [w.layer(i) for i in range(stack)] if stacked else [w]
         dense = [lw.dequantize(torch.bfloat16).T.contiguous() for lw in layers]  # [K, N]
         w_bytes = nbytes(*layers[0].tensors().values())
-        for rows in rows_list:
+        for rows in gguf_rows if kw["qtype"] in (Q4_0, Q8_0) else rows_list:
             x = torch.randn((rows, k), generator=gen, device="cuda")
             if stacked:
                 got = qmm_stacked(x, w, layer)
@@ -217,6 +243,96 @@ def qmm_checks(report: dict) -> dict:
         f"{per_token['ms']:.3f} ms, bound {per_token['bound_ms']:.3f} ms, library "
         f"{per_token['library_ms']:.3f} ms")
     return dict(per_token, max_abs_err=worst, bound_by="bytes")
+
+
+def ffn_checks(report: dict) -> tuple[dict, dict]:
+    """ffn_out_norm and gate_up_act against their plain versions at
+    Vicuna-7B widths (D 4096, F 11008, H*Dh 4096), 1 and 6 rows, bf16
+    compute: the target's stacked Q4_0 form (layer 5 of 6) and the draft's
+    single-layer Q8_0 form (six copies, cycled so that repeats do not hit in
+    L2). library_ms is torch.matmul of the same rows with the pre-dequantized
+    bf16 weight (the product alone: no single PyTorch call computes the
+    fused epilogue). Returns the 1-row Q4_0 rows of each kernel, with the
+    worst error over all checks."""
+    import torch
+
+    from eagle_tpu_torch.gguf import GGMLType
+    from eagle_tpu_torch.models.synth import synth_qtensor
+    from eagle_tpu_torch.ops.ffn import (ffn_out_norm, ffn_out_norm_plain, gate_up_act,
+                                         gate_up_act_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    d, f, hd, eps, copies = 4096, 11008, 4096, 1e-6, 6
+    bf16 = torch.bfloat16
+    forms = (("q4_0", dict(qtype=int(GGMLType.Q4_0), packed=True), copies),
+             ("q8_0_draft", dict(qtype=int(GGMLType.Q8_0)), 1))
+    results, decode = [], {}
+    worst = {"ffn_out_norm": 0.0, "gate_up_act": 0.0}
+    for form, kw, stack in forms:
+        def variants(n, k):
+            """six (weight, layer) pairs: the layers of one stack, or six
+            single-layer stacks"""
+            if stack > 1:
+                w = synth_qtensor(gen, n, k, stack=stack, **kw)
+                return [(w, i) for i in range(stack)]
+            return [(synth_qtensor(gen, n, k, stack=1, **kw), 0) for _ in range(copies)]
+
+        for name, n, k in (("ffn_out_norm", d, hd), ("gate_up_act", 2 * f, d)):
+            ws = variants(n, k)
+            dense = [w.layer(i).dequantize(bf16).T.contiguous() for w, i in ws]  # [K, N]
+            w_bytes = nbytes(*ws[0][0].layer(0).tensors().values())
+            for rows in (1, 6):
+                w, layer = ws[-1]
+                if name == "ffn_out_norm":
+                    attn = torch.randn((rows, hd), generator=gen, device="cuda")
+                    resid = torch.randn((rows, d), generator=gen, device="cuda")
+                    nw = torch.rand((d,), generator=gen, device="cuda") + 0.5
+                    x, h = ffn_out_norm(attn, resid, nw, w, layer, eps, bf16)
+                    xw, hw = ffn_out_norm_plain(attn, resid, nw, w.layer(layer), eps, bf16)
+                    pairs = ((x, xw), (h, hw))
+                    run = lambda i: ffn_out_norm(attn, resid, nw, *ws[i % copies], eps, bf16)
+                    plain_run = lambda i: ffn_out_norm_plain(
+                        attn, resid, nw, ws[i % copies][0].layer(ws[i % copies][1]), eps, bf16)
+                    lib_in = attn.to(bf16)
+                    io_bytes = rows * hd * 4 + 2 * rows * d * 4 + d * 4 + rows * d * 2
+                else:
+                    hin = torch.randn((rows, d), generator=gen, device="cuda").to(bf16)
+                    got = gate_up_act(hin, w, layer, "silu", bf16)
+                    pairs = ((got, gate_up_act_plain(hin, w.layer(layer), "silu", bf16)),)
+                    run = lambda i: gate_up_act(hin, *ws[i % copies], "silu", bf16)
+                    plain_run = lambda i: gate_up_act_plain(
+                        hin, ws[i % copies][0].layer(ws[i % copies][1]), "silu", bf16)
+                    lib_in = hin
+                    io_bytes = rows * d * 2 + rows * f * 2
+                torch.cuda.synchronize()
+                abs_err = rel = 0.0
+                for got, want in pairs:
+                    if not bool(torch.isfinite(got).all()):
+                        raise AssertionError(f"{name} {form} rows={rows}: non-finite output")
+                    a, r = rel_err(got, want)
+                    abs_err, rel = max(abs_err, a), max(rel, r)
+                if rel > QMM_TOL:
+                    raise AssertionError(f"{name} {form} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
+                worst[name] = max(worst[name], abs_err)
+                ms = device_ms(run, 20)
+                plain = device_ms(plain_run, 3, warmup=1)
+                lib = device_ms(lambda i: torch.matmul(lib_in, dense[i % copies]), 20)
+                b_ms, b_by = bound_ms(w_bytes + io_bytes, 2.0 * rows * k * n)
+                res = dict(name=name, form=form, n=n, k=k, rows=rows, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
+                           rel_err=rel, weight_bytes=w_bytes)
+                results.append(res)
+                log(f"[ffn] {name:12s} {form:10s} N={n:5d} K={k:5d} rows={rows}  kernel {ms:8.4f} ms"
+                    f"  plain {plain:8.3f} ms  bound {b_ms * 1e3:8.2f} us ({b_by})  library "
+                    f"{lib:8.4f} ms  rel err {rel:.2e}")
+                if form == "q4_0" and rows == 1:
+                    decode[name] = dict(res)
+            del ws, dense
+            torch.cuda.empty_cache()
+    report["ffn"] = results
+    for name in decode:
+        decode[name]["max_abs_err"] = worst[name]
+    return decode["ffn_out_norm"], decode["gate_up_act"]
 
 
 def attention_checks(report: dict) -> tuple[dict, dict]:
@@ -362,6 +478,59 @@ def tiny_model_check():
 # phases 3-5
 
 
+CORE_KERNELS = ("qmm", "flash_decode", "flash_prefill")
+
+
+def timed_run(run):
+    """run(on_token) -> (result, TTFT s, seconds after the first token,
+    launch counts at the first token)."""
+    import torch
+
+    from eagle_tpu_torch import _build
+
+    marks = {}
+
+    def on_token(_):
+        if "first" not in marks:
+            torch.cuda.synchronize()
+            marks["first"] = time.perf_counter()
+            marks["counts"] = dict(_build.launches)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = run(on_token)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    return result, marks["first"] - start, end - marks["first"], marks["counts"]
+
+
+def check_near_tie(gen, prompt, want: list, got: list, tag: str, what: str) -> dict | None:
+    """Where two greedy token streams first differ, the target's top-2 logit
+    margin there (full prefill of the common prefix) must be within 1e-2 of
+    the logit range: a bf16 near-tie, not a divergence."""
+    import numpy as np
+    import torch
+
+    diverged = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if diverged is None:
+        log(f"[{tag}] {what}: tokens identical ({len(got)} tokens)")
+        return None
+    seq = list(prompt) + want[:diverged]
+    t = 1024 if len(seq) > 512 else 512
+    padded = np.zeros((1, t), np.int32)
+    padded[0, : len(seq)] = seq
+    lg, _, _ = gen._prefill(torch.from_numpy(padded).cuda(),
+                            torch.tensor([len(seq)], dtype=torch.int32, device="cuda"), t)
+    top2 = torch.topk(lg[0].float(), 2).values
+    margin = float(top2[0] - top2[1])
+    rng = float(lg.max() - lg.min())
+    log(f"[{tag}] {what}: tokens differ first at step {diverged}: target top-2 margin "
+        f"{margin:.4e}, logit range {rng:.4e}")
+    if margin > 1e-2 * rng:
+        raise AssertionError(f"{what}: tokens diverge beyond a bf16 near-tie")
+    return dict(step=diverged, margin=margin, logit_range=rng)
+
+
 def profile_decode(gen, token: int, pos: int, steps: int = 8) -> dict:
     """Time `steps` greedy decode steps on the host clock, then trace the
     same steps with torch.profiler: device busy share of the (unprofiled)
@@ -410,6 +579,7 @@ def main_path(report: dict) -> dict:
     from eagle_tpu_torch.runtime.generate import Generator
     from eagle_tpu_torch.runtime.speculative import EagleChainEngine
 
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)  # the coded Q4_K path: unfused
     cfg = VICUNA_7B
     t0 = time.time()
     params = synth_llama_params(cfg, seed=0, packed=True, coded=True, device="cuda")
@@ -428,29 +598,13 @@ def main_path(report: dict) -> dict:
     eng.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)
     torch.cuda.synchronize()
 
-    def timed(run):
-        marks = {}
-
-        def on_token(_):
-            if "first" not in marks:
-                torch.cuda.synchronize()
-                marks["first"] = time.perf_counter()
-                marks["counts"] = dict(_build.launches)
-
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        result = run(on_token)
-        torch.cuda.synchronize()
-        end = time.perf_counter()
-        return result, marks["first"] - start, end - marks["first"], marks["counts"]
-
     _build.reset_counts()  # ---- main path: counts from here ----
     torch.cuda.reset_peak_memory_stats()
-    greedy, ttft, t_dec, at_first = timed(
+    greedy, ttft, t_dec, at_first = timed_run(
         lambda cb: gen.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
     counts_greedy = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
-    (spec, stats), e_ttft, e_dec, _ = timed(
+    (spec, stats), e_ttft, e_dec, _ = timed_run(
         lambda cb: eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
     launches = dict(_build.launches)
     plain = dict(_build.plain_calls)  # ---- main path ends ----
@@ -468,9 +622,11 @@ def main_path(report: dict) -> dict:
         f"cycles {stats['n_cycles']}")
     log(f"[launches] phases 3-4: {launches}; plain versions: {plain}; "
         f"per decoded token (greedy): {per_token}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in CORE_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    if launches["ffn_out_norm"] or launches["gate_up_act"]:
+        raise AssertionError(f"fused FFN kernels ran on the unfused coded path: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
     if len(greedy) != n_new or len(spec) != n_new:
@@ -487,25 +643,7 @@ def main_path(report: dict) -> dict:
     if int(logits.argmax()) != greedy[0]:
         raise AssertionError("prefill is not deterministic: first token differs")
 
-    diverged = next((i for i, (a, b) in enumerate(zip(greedy, spec)) if a != b), None)
-    divergence = None
-    if diverged is not None:
-        seq = list(prompt) + greedy[:diverged]
-        t = 1024 if len(seq) > 512 else 512
-        padded = np.zeros((1, t), np.int32)
-        padded[0, : len(seq)] = seq
-        lg, _, _ = gen._prefill(torch.from_numpy(padded).cuda(),
-                                torch.tensor([len(seq)], dtype=torch.int32, device="cuda"), t)
-        top2 = torch.topk(lg[0].float(), 2).values
-        margin = float(top2[0] - top2[1])
-        rng = float(lg.max() - lg.min())
-        divergence = dict(step=diverged, margin=margin, logit_range=rng)
-        log(f"[eagle] tokens differ from greedy first at step {diverged}: target top-2 "
-            f"margin {margin:.4e}, logit range {rng:.4e}")
-        if margin > 1e-2 * rng:
-            raise AssertionError("EAGLE output diverges from greedy beyond a bf16 near-tie")
-    else:
-        log(f"[eagle] tokens identical to greedy ({len(spec)} tokens)")
+    divergence = check_near_tie(gen, prompt, greedy, spec, "eagle", "EAGLE vs greedy")
 
     profile = profile_decode(gen, greedy[-1], len(prompt) + n_new - 1)
     report["main_path"] = dict(
@@ -516,6 +654,262 @@ def main_path(report: dict) -> dict:
         decode_profile=profile,
     )
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 6: the GGUF path
+
+
+GGUF_FREE_BYTES = 5 * 2**30  # the two files take 4.2 GB
+
+
+def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -> "np.ndarray":
+    """GGUF blocks of random bytes for an [n, k] tensor of `qtype`, made on
+    the card. Each block's f16 scale d is set to a finite value in
+    [0.5, 1.5) x d_mag (of random sign when `signed`), so that activations
+    stay finite over 32 layers."""
+    import torch
+
+    from eagle_tpu_torch.gguf import GGMLType
+
+    per, size, at = {GGMLType.Q4_0: (32, 18, 0), GGMLType.Q8_0: (32, 34, 0),
+                     GGMLType.Q6_K: (256, 210, 208)}[GGMLType(qtype)]
+    nb = n * k // per
+    raw = torch.randint(0, 256, (nb, size), generator=gen, device="cuda", dtype=torch.uint8)
+    d = (torch.rand(nb, generator=gen, device="cuda") + 0.5) * d_mag
+    if signed:
+        d = d * (torch.randint(0, 2, (nb,), generator=gen, device="cuda") * 2 - 1)
+    raw[:, at:at + 2] = d.half().view(torch.uint8).view(nb, 2)
+    return raw.cpu().numpy().reshape(-1)
+
+
+def mint_gguf_pair(tmp: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.Path]:
+    """Write a Vicuna-7B-shape GGUF laid out as llama-quantize's Q4_0 lays
+    out a llama-7B file (every layer matmul and token_embd Q4_0, output Q6_K,
+    norms F32, llama metadata), and an EAGLE draft GGUF in Q8_0 (one layer,
+    fc, token_embd; fc.bias F32). Weights are random quant blocks."""
+    import torch
+
+    from eagle_tpu_torch.gguf import GGMLType, GGUFWriter
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, f, v, n_layers = 4096, 11008, 32000, 32
+    q4_0, q8_0, q6_k = GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q6_K
+    layer_mats = (("attn_q", d, d), ("attn_k", d, d), ("attn_v", d, d), ("attn_output", d, d),
+                  ("ffn_gate", f, d), ("ffn_up", f, d), ("ffn_down", d, f))
+
+    def writer(path, arch, blocks, file_type):
+        w = GGUFWriter(path)
+        for key, val in {
+            "general.architecture": arch, "general.name": f"{arch} vicuna-7b-shape random",
+            "general.file_type": file_type, f"{arch}.context_length": 2048,
+            f"{arch}.embedding_length": d, f"{arch}.block_count": blocks,
+            f"{arch}.feed_forward_length": f, f"{arch}.attention.head_count": 32,
+            f"{arch}.attention.head_count_kv": 32,
+            f"{arch}.attention.layer_norm_rms_epsilon": 1e-6,
+            f"{arch}.rope.dimension_count": 128, f"{arch}.rope.freq_base": 10000.0,
+            f"{arch}.vocab_size": v,
+        }.items():
+            w.add(key, val)
+        return w
+
+    def add(w, name, n, k, qtype, mag, signed=True):
+        w.add_tensor(name, random_blocks(gen, n, k, qtype, mag, signed), qtype, raw_shape=(n, k))
+
+    def norm():
+        return (torch.rand(d, generator=gen, device="cuda") * 0.4 + 0.8).cpu().numpy()
+
+    target = tmp / "vicuna-7b-q4_0.gguf"
+    w = writer(target, "llama", n_layers, 2)  # LLAMA_FTYPE_MOSTLY_Q4_0
+    add(w, "token_embd.weight", v, d, q4_0, 1.3e-3)
+    for i in range(n_layers):
+        w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
+        for name, n, k in layer_mats:
+            add(w, f"blk.{i}.{name}.weight", n, k, q4_0, 1.3e-3)
+        w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
+    w.add_tensor("output_norm.weight", norm())
+    add(w, "output.weight", v, d, q6_k, 1e-4, signed=False)
+    w.write()
+    del w
+
+    draft = tmp / "eagle-vicuna-7b-q8_0.gguf"
+    w = writer(draft, "eagle", 1, 7)  # LLAMA_FTYPE_MOSTLY_Q8_0
+    add(w, "token_embd.weight", v, d, q8_0, 8e-5)
+    add(w, "fc.weight", d, 2 * d, q8_0, 8e-5)
+    w.add_tensor("fc.bias", (torch.randn(d, generator=gen, device="cuda") * 1e-3).cpu().numpy())
+    for name, n, k in layer_mats:
+        add(w, f"blk.0.{name}.weight", n, k, q8_0, 8e-5)
+    w.add_tensor("blk.0.ffn_norm.weight", norm())
+    w.write()
+    return target, draft
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return torch.equal(a, b)
+
+
+def check_repack(target: pathlib.Path, params: dict) -> list[str]:
+    """Sampled tensors repacked and packed on the card equal the port's
+    repack of the same file bytes on the CPU, bit for bit."""
+    from eagle_tpu_torch.gguf import GGUFReader
+    from eagle_tpu_torch.models.loader import load_tensor
+    from eagle_tpu_torch.quant.qtensor import concat_qtensors
+    from eagle_tpu_torch.quant.serving import prepare_qtensor
+
+    reader = GGUFReader(target)
+
+    def cpu(name, layout="kn"):
+        return load_tensor(reader, name, layout=layout, device="cpu")
+
+    lyr = params["layers"]
+    checks = {
+        "wo layer 0": (lyr["wo"].layer(0), cpu("blk.0.attn_output.weight")),
+        "wo layer 31": (lyr["wo"].layer(31), cpu("blk.31.attn_output.weight")),
+        "w_gate_up layer 7": (lyr["w_gate_up"].layer(7), concat_qtensors(
+            [cpu("blk.7.ffn_gate.weight"), cpu("blk.7.ffn_up.weight")])),
+        "output": (params["output"], cpu("output.weight")),
+        "token_embd": (params["tok_embd"], cpu("token_embd.weight", "nk")),
+    }
+    for what, (card, host) in checks.items():
+        host = prepare_qtensor(host, "f32")
+        ok = (card.group, card.layout, card.packed, card.ggml_type) == (
+            host.group, host.layout, host.packed, host.ggml_type) and all(
+            same_bits(card.tensors()[k], host.tensors()[k]) for k in card.tensors())
+        if not ok:
+            raise AssertionError(f"repack on the card differs from the CPU's: {what}")
+    reader.close()
+    return list(checks)
+
+
+def gguf_path(report: dict) -> dict:
+    """Mint, load and serve the Q4_0 target and the Q8_0 draft at full
+    Vicuna-7B width and depth: greedy and the EAGLE chain engine with the
+    fused FFN block (EAGLE_TPU_FUSED_FFN=1), then both again unfused. Returns
+    the fused run's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.models.loader import load_eagle_params, load_llama_params
+    from eagle_tpu_torch.quant.serving import prepare_params_for_serving
+    from eagle_tpu_torch.runtime.generate import Generator
+    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+
+    torch.cuda.empty_cache()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="eagle_gguf_") as tmp_name:
+        tmp = pathlib.Path(tmp_name)
+        free = shutil.disk_usage(tmp).free
+        log(f"[gguf] {free / 2**30:.1f} GiB free in the temporary directory")
+        if free < GGUF_FREE_BYTES:
+            raise RuntimeError(f"the GGUF phase needs {GGUF_FREE_BYTES / 2**30:.0f} GiB of disk")
+        t0 = time.time()
+        target, draft_path = mint_gguf_pair(tmp, seed=21)
+        out["mint_s"] = time.time() - t0
+        out["file_bytes"] = {"target": target.stat().st_size, "draft": draft_path.stat().st_size}
+        log(f"[gguf] minted {target.name} ({out['file_bytes']['target'] / 1e9:.3f} GB) and "
+            f"{draft_path.name} ({out['file_bytes']['draft'] / 1e9:.3f} GB) in {out['mint_s']:.1f} s")
+
+        torch.cuda.reset_peak_memory_stats()
+        times_t, times_d = {}, {}
+        t0 = time.time()
+        params, cfg, _ = load_llama_params(target, device="cuda", times=times_t)
+        draft, dcfg, _ = load_eagle_params(draft_path, device="cuda", times=times_d)
+        t_load = time.time() - t0
+        t0 = time.time()
+        params = prepare_params_for_serving(params, "f32")
+        draft = prepare_params_for_serving(draft, "f32")
+        torch.cuda.synchronize()
+        t_prep = time.time() - t0
+        out.update(load_s=t_load, prepare_s=t_prep, load_times_target=times_t,
+                   load_times_draft=times_d, device_gib=torch.cuda.memory_allocated() / 2**30,
+                   load_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"[gguf] loaded on the card in {t_load:.2f} s (target "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in times_t.items()) + "; draft "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in times_d.items())
+            + f"), serving prep {t_prep:.2f} s; {out['device_gib']:.2f} GiB on the card, peak "
+            f"{out['load_peak_gib']:.2f} GiB")
+        out["repack_checked"] = check_repack(target, params)
+        log(f"[gguf] repacked on the card == repacked on the CPU, bit for bit: "
+            f"{', '.join(out['repack_checked'])}")
+
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=300)
+    n_new = 65
+    runs = {}
+    fused_launches = None
+    for mode in ("1", "0"):
+        if mode == "1":
+            os.environ["EAGLE_TPU_FUSED_FFN"] = "1"
+        else:
+            os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+        tag = "fused" if mode == "1" else "unfused"
+        gen = Generator(params, cfg, max_seq=1024, batch=1, kv_dtype=torch.bfloat16,
+                        compute_dtype=torch.bfloat16, eos_id=-1)
+        eng = EagleChainEngine(params, draft, cfg, dcfg, n_draft=5, max_seq=1024,
+                               kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=-1)
+        gen.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)  # warm-up
+        eng.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)
+        _build.reset_counts()  # ---- this path: counts from here ----
+        greedy, ttft, t_dec, at_first = timed_run(
+            lambda cb: gen.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
+        counts_greedy = dict(_build.launches)
+        (spec, stats), e_ttft, e_dec, _ = timed_run(
+            lambda cb: eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
+        launches, plain = dict(_build.launches), dict(_build.plain_calls)  # ---- ends ----
+        n_dec = len(greedy) - 1
+        per_token = {k: (counts_greedy[k] - at_first[k]) / n_dec for k in launches}
+        log(f"[gguf {tag}] greedy: TTFT {ttft * 1e3:.1f} ms, decode {n_dec / t_dec:.2f} tokens/s "
+            f"({t_dec / n_dec * 1e3:.2f} ms/token); EAGLE K=5: TTFT {e_ttft * 1e3:.1f} ms, "
+            f"{(len(spec) - 1) / e_dec:.2f} tokens/s, mean_accept_len "
+            f"{stats['mean_accept_len']:.3f}, cycles {stats['n_cycles']}")
+        log(f"[gguf {tag}] launches {launches}; plain versions {plain}; per decoded token "
+            f"(greedy) {per_token}")
+        if len(greedy) != n_new or len(spec) != n_new:
+            raise AssertionError(f"expected {n_new} tokens, got {len(greedy)} / {len(spec)}")
+        if any(plain.values()):
+            raise AssertionError(f"plain versions ran on the GGUF path: {plain}")
+        for k in CORE_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the GGUF path")
+        fused_kernels = launches["ffn_out_norm"] > 0 and launches["gate_up_act"] > 0
+        if fused_kernels != (mode == "1") or (mode == "0" and launches["ffn_out_norm"]):
+            raise AssertionError(f"EAGLE_TPU_FUSED_FFN={mode}: fused FFN launches {launches}")
+        if mode == "1":
+            fused_launches = launches
+        runs[tag] = dict(
+            ttft_ms=ttft * 1e3, decode_tokens_per_s=n_dec / t_dec,
+            decode_ms_per_token=t_dec / n_dec * 1e3, eagle_ttft_ms=e_ttft * 1e3,
+            eagle_tokens_per_s=(len(spec) - 1) / e_dec, eagle_stats=stats, launches=launches,
+            launches_per_decoded_token=per_token, greedy_tokens=greedy, eagle_tokens=spec,
+            eagle_vs_greedy=check_near_tie(gen, prompt, greedy, spec, f"gguf {tag}",
+                                           "EAGLE vs greedy"),
+            decode_profile=profile_decode(gen, greedy[-1], len(prompt) + n_new - 1),
+        )
+        del gen, eng
+    # the unfused generator is the reference for the fused one's tokens
+    gen = Generator(params, cfg, max_seq=1024, batch=1, kv_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, eos_id=-1)
+    out["fused_vs_unfused"] = check_near_tie(gen, prompt, runs["unfused"]["greedy_tokens"],
+                                             runs["fused"]["greedy_tokens"], "gguf",
+                                             "fused vs unfused greedy")
+    out["runs"] = runs
+    report["gguf_path"] = out
+    del gen, params, draft
+    torch.cuda.empty_cache()
+    return fused_launches
 
 
 def main() -> int:
@@ -540,13 +934,20 @@ def main() -> int:
     card = phase_device(out_dir)
     report: dict = {"card": card}
     qmm_row = qmm_checks(report)
+    out_norm_row, gate_up_row = ffn_checks(report)
     dec_row, pre_row = attention_checks(report)
     tiny_model_check()
     launches = main_path(report)
+    # the new kernels' counts come from the path that runs them
+    gguf_launches = gguf_path(report)
+    for k in ("ffn_out_norm", "gate_up_act"):
+        launches[k] = gguf_launches[k]
 
     sources = {"qmm": "eagle_tpu_torch/csrc/qmm.cu",
                "flash_decode": "eagle_tpu_torch/csrc/flash_attention.cu",
-               "flash_prefill": "eagle_tpu_torch/csrc/flash_attention.cu"}
+               "flash_prefill": "eagle_tpu_torch/csrc/flash_attention.cu",
+               "ffn_out_norm": "eagle_tpu_torch/csrc/ffn.cu",
+               "gate_up_act": "eagle_tpu_torch/csrc/ffn.cu"}
 
     def row(name, replaces, vals):
         return {"name": name, "route": "cuda", "source": sources[name],
@@ -562,6 +963,12 @@ def main() -> int:
              shape="T=1, S=1024, 32 heads x 128, bf16 cache"),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
              shape="T=512, S=512, 32 heads x 128, bf16 cache"),
+        dict(row("ffn_out_norm", "eagle_tpu/ops/pallas_ffn.py:257 and :265", out_norm_row),
+             shape="1 row, wo [4096 x 4096] Q4_0 packed, f32 scale and bias, + resid, RMSNorm",
+             launches_from="GGUF path, EAGLE_TPU_FUSED_FFN=1"),
+        dict(row("gate_up_act", "eagle_tpu/ops/pallas_ffn.py:413 and :419", gate_up_row),
+             shape="1 row, w_gate_up [4096 x 22016] Q4_0 packed, f32 scale and bias, SiLU",
+             launches_from="GGUF path, EAGLE_TPU_FUSED_FFN=1"),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.time() - t_start

@@ -1,0 +1,229 @@
+// Fused FFN block kernels for decode and verify rows (R <= 64):
+//
+// ffn_out_norm — replaces eagle_tpu/ops/pallas_ffn.py:_fused_qmm_call with
+//   the epi_out_norm epilogue (pallas_calls at :257 and :265, epilogue :457):
+//     x = resid + attn @ Wo          (f32)
+//     h = round_ct(x * rsqrt(mean(x^2) + eps) * w)
+// gate_up_act — replaces pallas_ffn.py:_gate_up_act_2d (:413 and :419):
+//     a = round_ct(act(h @ Wg) * (h @ Wu)), gate columns [0, F) and up
+//     columns [F, 2F) of one fused weight; act is SiLU or tanh-GELU.
+//
+// Bound on the H100: the weight bytes (Q4_0 packed with f32 scale and bias:
+// 6 bits per weight; wo 12.6 MB and w_gate_up 67.6 MB per Vicuna-7B layer),
+// exactly as the qmm kernel is; the epilogues move a few R x D rows.
+//
+// Design. The TPU kernels keep the whole [R, N] output row resident in VMEM
+// over a K-only grid and fire the epilogue on the last K step. On the card
+// blocks run in parallel over column tiles and K splits, so no block holds
+// a full row or a full K sum. Each op is therefore two kernels:
+// 1. the matmul pass: qmm_kernel itself (qmm_body.cuh), writing per-split
+//    partial sums. For wo it runs as qmm does. For gate/up it runs paired:
+//    a block walks its tile of gate columns, then the matching tile of up
+//    columns (offset F in the same weight), each with its own f32
+//    accumulators, one set live at a time (both sets live took all 255
+//    registers at 8 rows and ran 2.7x slower than qmm over the same bytes
+//    on an H100 80GB HBM3);
+// 2. the epilogue pass, where the full sums first exist: it adds the splits
+//    in a fixed order (deterministic, no atomics). For ffn_out_norm it runs
+//    one block per row: residual add, x^2 reduced over the row, x and h
+//    written. For gate_up_act it is elementwise: act(g) * u, rounded once.
+// With the K split the unfused path's qmm would choose (the wrapper passes
+// it), x, g and u are bit-equal to the unfused path's sums where qmm takes
+// its SIMT body too (every f32 product; bf16 at up to 8 rows). Any row count
+// from 1 to 64 runs as it is: the TPU's pad to 8 rows does not carry over.
+#include <math.h>
+
+#include <type_traits>
+
+#include "qmm_body.cuh"
+
+namespace {
+
+constexpr int kActGelu = 1;  // act: 0 SiLU, 1 tanh-GELU (ACTS in ops/ffn.py)
+constexpr int kNormThreads = 1024;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <bool BF16>
+__device__ __forceinline__ void store_ct(void* p, size_t i, float v) {
+  if constexpr (BF16) {
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(p)[i] = v;
+  }
+}
+
+// grid: R blocks of kNormThreads; partial [splits][R][N], N % 4 == 0, all
+// rows 16-byte aligned. Each thread sums 4 adjacent columns over the splits
+// in split order (8 splits' loads in flight), so one block covers a
+// 4096-wide row in one pass.
+template <bool BF16>
+__global__ void __launch_bounds__(kNormThreads) out_norm_kernel(
+    const float* __restrict__ partial, int splits, const float* __restrict__ resid,
+    const float* __restrict__ norm_w, float* __restrict__ x_out, void* __restrict__ h_out,
+    int R, int N, float eps) {
+  __shared__ float red[kNormThreads / 32];
+  const int r = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t plane = (size_t)R * N, row = (size_t)r * N;
+  float ss = 0.f;
+  for (int n = 4 * threadIdx.x; n < N; n += 4 * kNormThreads) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(partial + s * plane + row + n);
+      v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+    }
+    const float4 rs = *reinterpret_cast<const float4*>(resid + row + n);
+    const float4 xv = make_float4(v.x + rs.x, v.y + rs.y, v.z + rs.z, v.w + rs.w);
+    *reinterpret_cast<float4*>(x_out + row + n) = xv;
+    ss += xv.x * xv.x + xv.y * xv.y + xv.z * xv.z + xv.w * xv.w;
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) red[warp] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < kNormThreads / 32 ? red[lane] : 0.f;
+    t = warp_sum(t);
+    if (lane == 0) red[0] = t;
+  }
+  __syncthreads();
+  const float rs = rsqrtf(red[0] / (float)N + eps);
+  for (int n = 4 * threadIdx.x; n < N; n += 4 * kNormThreads) {  // this thread's own x
+    const float4 xv = *reinterpret_cast<const float4*>(x_out + row + n);
+    const float4 nw = *reinterpret_cast<const float4*>(norm_w + n);
+    store_ct<BF16>(h_out, row + n, xv.x * rs * nw.x);
+    store_ct<BF16>(h_out, row + n + 1, xv.y * rs * nw.y);
+    store_ct<BF16>(h_out, row + n + 2, xv.z * rs * nw.z);
+    store_ct<BF16>(h_out, row + n + 3, xv.w * rs * nw.w);
+  }
+}
+
+__device__ __forceinline__ float act_fn(int act, float g) {
+  if (act == kActGelu) {
+    // tanh approximation: 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
+    const float kBeta = 0.7978845608028654f, kKappa = 0.044715f;
+    const float inner = kBeta * (g + kKappa * (g * g * g));
+    return 0.5f * g * (1.f + tanhf(inner));
+  }
+  return g / (1.f + expf(-g));  // SiLU
+}
+
+// out[i] = round_ct(act(g) * u), g and u the split sums in split order.
+template <bool BF16>
+__global__ void gate_up_epilogue_kernel(const float* __restrict__ partial, int splits,
+                                        void* __restrict__ out, size_t count, int act) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float g = 0.f, u = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    g += partial[(size_t)(2 * s) * count + i];
+    u += partial[(size_t)(2 * s + 1) * count + i];
+  }
+  store_ct<BF16>(out, i, act_fn(act, g) * u);
+}
+
+struct OutNormArgs {
+  const float* x; const int8_t* q; const void* scale; const void* bias;
+  const float* resid; const float* norm_w; float* x_out; void* h_out; float* partial;
+  int R, K, N, scale_kind, bias_kind, splits, gps; float eps; cudaStream_t st;
+};
+
+template <int RB, bool BF16, int G, bool PACKED>
+struct OutNorm {
+  static void run(const OutNormArgs& a) {
+    const dim3 grid((a.N + kColsPerBlock - 1) / kColsPerBlock, a.splits, (a.R + RB - 1) / RB);
+    qmm_kernel<RB, BF16, G, PACKED, false, float><<<grid, kWarps * 32, 0, a.st>>>(
+        a.x, a.q, a.scale, a.bias, nullptr, nullptr, a.partial, a.R, a.K, a.N, a.scale_kind,
+        a.bias_kind, a.gps);
+    out_norm_kernel<BF16><<<a.R, kNormThreads, 0, a.st>>>(a.partial, a.splits, a.resid, a.norm_w,
+                                                          a.x_out, a.h_out, a.R, a.N, a.eps);
+  }
+};
+
+struct GateUpArgs {
+  const void* h; const int8_t* q; const void* scale; const void* bias; void* out;
+  float* partial; int R, K, F, scale_kind, bias_kind, act, splits, gps; cudaStream_t st;
+};
+
+template <int RB, bool BF16, int G, bool PACKED>
+struct GateUp {
+  static void run(const GateUpArgs& a) {
+    using XT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+    const dim3 grid((a.F + kColsPerBlock - 1) / kColsPerBlock, a.splits, (a.R + RB - 1) / RB);
+    qmm_kernel<RB, BF16, G, PACKED, true, XT><<<grid, kWarps * 32, 0, a.st>>>(
+        static_cast<const XT*>(a.h), a.q, a.scale, a.bias, nullptr, nullptr, a.partial, a.R,
+        a.K, 2 * a.F, a.scale_kind, a.bias_kind, a.gps);
+    const size_t count = (size_t)a.R * a.F;
+    gate_up_epilogue_kernel<BF16><<<(unsigned)((count + 255) / 256), 256, 0, a.st>>>(
+        a.partial, a.splits, a.out, count, a.act);
+  }
+};
+
+// Op<RB, BF16, G, PACKED>::run(a) for the runtime form
+template <template <int, bool, int, bool> class Op, int RB, bool BF16, typename A>
+void dispatch_form(int G, int packed, const A& a) {
+  if (G == 16) {
+    packed ? Op<RB, BF16, 16, true>::run(a) : Op<RB, BF16, 16, false>::run(a);
+  } else {
+    packed ? Op<RB, BF16, 32, true>::run(a) : Op<RB, BF16, 32, false>::run(a);
+  }
+}
+
+template <template <int, bool, int, bool> class Op, bool BF16, typename A>
+void dispatch_rb(int rb, int G, int packed, const A& a) {
+  switch (rb) {
+    case 1: dispatch_form<Op, 1, BF16>(G, packed, a); break;
+    case 2: dispatch_form<Op, 2, BF16>(G, packed, a); break;
+    case 4: dispatch_form<Op, 4, BF16>(G, packed, a); break;
+    default: dispatch_form<Op, 8, BF16>(G, packed, a); break;
+  }
+}
+
+template <template <int, bool, int, bool> class Op, typename A>
+void dispatch(int compute_bf16, int rb, int G, int packed, const A& a) {
+  if (compute_bf16) {
+    dispatch_rb<Op, true>(rb, G, packed, a);
+  } else {
+    dispatch_rb<Op, false>(rb, G, packed, a);
+  }
+}
+
+}  // namespace
+
+// x f32 [R, K] (attention rows); Wo layer: q int8 [K, N] or packed [K/2, N],
+// scale/bias [K/G, N] of kind f32 (0) or bf16 (1), bias_kind -1 = none;
+// resid f32 [R, N]; norm_w f32 [N]. Outputs x_out f32 [R, N], h_out [R, N]
+// (bf16 if compute_bf16, else f32); scratch partial f32 [splits, R, N].
+extern "C" int ffn_out_norm_launch(const void* x, const void* q, const void* scale,
+                                   const void* bias, const void* resid, const void* norm_w,
+                                   void* x_out, void* h_out, void* partial, int R, int K, int N,
+                                   int G, int packed, int scale_kind, int bias_kind,
+                                   int compute_bf16, int rb, int splits, int gps, float eps,
+                                   void* stream) {
+  const OutNormArgs a{static_cast<const float*>(x), static_cast<const int8_t*>(q), scale, bias,
+                      static_cast<const float*>(resid), static_cast<const float*>(norm_w),
+                      static_cast<float*>(x_out), h_out, static_cast<float*>(partial), R, K, N,
+                      scale_kind, bias_kind, splits, gps, eps, static_cast<cudaStream_t>(stream)};
+  dispatch<OutNorm>(compute_bf16, rb, G, packed, a);
+  return (int)cudaGetLastError();
+}
+
+// h [R, K] in the compute dtype (bf16 if compute_bf16, else f32); fused
+// weight layer: q [K(/2), 2F], scale/bias [K/G, 2F], gate columns [0, F),
+// up columns [F, 2F); act 0 = SiLU, 1 = tanh-GELU. out [R, F] in the
+// compute dtype; scratch partial f32 [splits, 2, R, F].
+extern "C" int gate_up_act_launch(const void* h, const void* q, const void* scale,
+                                  const void* bias, void* out, void* partial, int R, int K, int F,
+                                  int G, int packed, int scale_kind, int bias_kind,
+                                  int compute_bf16, int act, int rb, int splits, int gps,
+                                  void* stream) {
+  const GateUpArgs a{h, static_cast<const int8_t*>(q), scale, bias, out,
+                     static_cast<float*>(partial), R, K, F, scale_kind, bias_kind, act, splits,
+                     gps, static_cast<cudaStream_t>(stream)};
+  dispatch<GateUp>(compute_bf16, rb, G, packed, a);
+  return (int)cudaGetLastError();
+}

@@ -4,11 +4,8 @@
 // qmatmul_pallas_2d and qmatmul_pallas_stacked). A layer of a stacked weight
 // is chosen by the caller offsetting the pointers; nothing is copied.
 //
-// Rounding points follow the Pallas kernel: the effective scale is an f32
-// product (sup * code when coded), w = q * scale is computed in f32 and
-// rounded to the compute dtype, x is rounded to the compute dtype, products
-// accumulate in f32. The per-group bias is folded as a side product
-// round(xsum_g) * round(bias_g), xsum_g being the f32 sum of x over group g.
+// Rounding points follow the Pallas kernel (qmm_body.cuh, whose inner loop
+// the fused FFN kernels of ffn.cu share).
 //
 // Two bodies behind one entry point:
 // - qmm_kernel (SIMT; decode, verify, any f32 compute). Bound on the H100 at
@@ -33,57 +30,9 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "qmm_body.cuh"
+
 namespace {
-
-constexpr int kKindNone = -1, kKindF32 = 0, kKindBF16 = 1, kKindCode = 2;
-constexpr int kWarps = 8;
-constexpr int kColsPerBlock = 128;  // 32 lanes x 4 adjacent columns
-constexpr uint32_t kMagic = 0x4B000000u;  // 2^23 as f32: (kMagic | n) == 2^23 + n
-constexpr float kTwo23 = 8388608.f;
-
-// a, b <- round_ct(a), round_ct(b): one bf16x2 conversion for the pair
-template <bool BF16>
-__device__ __forceinline__ void round2(float& a, float& b) {
-  if constexpr (BF16) {
-    const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
-    a = __low2float(r);
-    b = __high2float(r);
-  }
-}
-
-// exact f32 q * s for a 4-bit code n in [0, 15]; c = -2^23 * s:
-// fma(2^23 + n, s, -2^23 s) rounds n * s once, as the f32 product does
-__device__ __forceinline__ float deq4(uint32_t n, float s, float c) {
-  return fmaf(__uint_as_float(kMagic | n), s, c);
-}
-
-// the signed byte b (as its low 8 bits) as an exact f32, without I2F
-__device__ __forceinline__ float s8_to_f(uint32_t b) {
-  return __uint_as_float(kMagic | ((b & 0xFFu) ^ 0x80u)) - (kTwo23 + 128.f);
-}
-
-// Four adjacent per-group values at element offset `off` (a multiple of 4).
-__device__ __forceinline__ void load4(const void* p, int kind, size_t off, float o[4]) {
-  if (kind == kKindF32) {
-    const float4 v = *reinterpret_cast<const float4*>(static_cast<const float*>(p) + off);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  } else if (kind == kKindBF16) {
-    const uint2 v = *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + off);
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-    o[0] = __low2float(a); o[1] = __high2float(a);
-    o[2] = __low2float(b); o[3] = __high2float(b);
-  } else {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(static_cast<const int8_t*>(p) + off);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[c] = s8_to_f(v >> (8 * c));
-  }
-}
-
-__device__ __forceinline__ void mul_sup(const float* sup, size_t off, float o[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(sup + off);
-  o[0] = v.x * o[0]; o[1] = v.y * o[1]; o[2] = v.z * o[2]; o[3] = v.w * o[3];
-}
 
 // Sixteen adjacent values: four load4 calls at off, off+4, ...
 __device__ __forceinline__ void load16(const void* p, int kind, size_t off, const float* sup,
@@ -92,142 +41,6 @@ __device__ __forceinline__ void load16(const void* p, int kind, size_t off, cons
   for (int i = 0; i < 4; ++i) {
     load4(p, kind, off + 4 * i, o + 4 * i);
     if (kind == kKindCode) mul_sup(sup, soff + 4 * i, o + 4 * i);
-  }
-}
-
-// grid: (ceil(N/128) column tiles, K splits, ceil(B/RB) row tiles); 256 threads.
-// Warp w of a block walks groups g_begin+w, g_begin+w+8, ... of its split. A
-// group's G (or G/2 packed) weight rows are all loaded before any is used, so
-// each lane keeps that many 4-byte loads in flight.
-template <int RB, bool BF16, int G, bool PACKED>
-__global__ void __launch_bounds__(256) qmm_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ q,
-    const void* __restrict__ scale, const void* __restrict__ bias,
-    const float* __restrict__ sup, const float* __restrict__ sup_min,
-    float* __restrict__ dst, int B, int K, int N,
-    int scale_kind, int bias_kind, int groups_per_split) {
-  constexpr int kQRows = PACKED ? G / 2 : G;  // weight rows per group
-  __shared__ float red[kWarps][RB][kColsPerBlock];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kColsPerBlock + lane * 4;
-  const int r0 = blockIdx.z * RB;
-  const int rows = min(RB, B - r0);
-  const int g_begin = blockIdx.y * groups_per_split;
-  const int g_end = min(K / G, g_begin + groups_per_split);
-  const bool has_bias = bias_kind != kKindNone;
-  const float* xr = x + (size_t)r0 * K;
-
-  float acc[RB][4];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  if (n0 < N) {
-    for (int g = g_begin + warp; g < g_end; g += kWarps) {
-      const int k0 = g * G;
-      const int8_t* qg = q + (size_t)(PACKED ? k0 / 2 : k0) * N + n0;
-      uint32_t qv[kQRows];  // 4 columns' bytes per weight row
-#pragma unroll
-      for (int j = 0; j < kQRows; ++j) qv[j] = *reinterpret_cast<const uint32_t*>(qg + (size_t)j * N);
-      const size_t goff = (size_t)g * N + n0;
-      const size_t soff = (size_t)(k0 / 256) * N + n0;
-      float s[4], b[4] = {0.f, 0.f, 0.f, 0.f};
-      load4(scale, scale_kind, goff, s);
-      if (scale_kind == kKindCode) mul_sup(sup, soff, s);
-      if (has_bias) {
-        load4(bias, bias_kind, goff, b);
-        if (bias_kind == kKindCode) mul_sup(sup_min, soff, b);
-      }
-      float xs[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) xs[r] = 0.f;
-
-      if constexpr (PACKED) {
-        float c[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) c[i] = -kTwo23 * s[i];
-        // packed row j of the group holds k0+j (lo nibble) and k0+j+G/2 (hi)
-#pragma unroll
-        for (int j = 0; j < kQRows; ++j) {
-          float wl[4], wh[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint32_t by = qv[j] >> (8 * i);
-            wl[i] = deq4(by & 0xFu, s[i], c[i]);
-            wh[i] = deq4((by >> 4) & 0xFu, s[i], c[i]);
-            round2<BF16>(wl[i], wh[i]);
-          }
-#pragma unroll
-          for (int r = 0; r < RB; ++r) {
-            if (r < rows) {
-              const float xl = __ldg(xr + (size_t)r * K + k0 + j);
-              const float xh = __ldg(xr + (size_t)r * K + k0 + j + kQRows);
-              xs[r] += xl + xh;
-              float xlc = xl, xhc = xh;
-              round2<BF16>(xlc, xhc);
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                acc[r][i] = fmaf(xhc, wh[i], fmaf(xlc, wl[i], acc[r][i]));
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kQRows; j += 2) {  // two weight rows at a time
-          float w0[4], w1[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            w0[i] = s8_to_f(qv[j] >> (8 * i)) * s[i];
-            w1[i] = s8_to_f(qv[j + 1] >> (8 * i)) * s[i];
-            round2<BF16>(w0[i], w1[i]);
-          }
-#pragma unroll
-          for (int r = 0; r < RB; ++r) {
-            if (r < rows) {
-              const float x0 = __ldg(xr + (size_t)r * K + k0 + j);
-              const float x1 = __ldg(xr + (size_t)r * K + k0 + j + 1);
-              xs[r] += x0 + x1;
-              float x0c = x0, x1c = x1;
-              round2<BF16>(x0c, x1c);
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                acc[r][i] = fmaf(x1c, w1[i], fmaf(x0c, w0[i], acc[r][i]));
-            }
-          }
-        }
-      }
-      if (has_bias) {
-#pragma unroll
-        for (int i = 0; i < 4; i += 2) round2<BF16>(b[i], b[i + 1]);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          float xsc = xs[r], unused = 0.f;
-          round2<BF16>(xsc, unused);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(xsc, b[i], acc[r][i]);
-        }
-      }
-    }
-  }
-
-  // reduce the 8 warps' partial sums in a fixed order
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[warp][r][lane * 4 + c] = acc[r][c];
-  __syncthreads();
-  float* out = dst + (size_t)blockIdx.y * B * N;  // this split's slice
-  for (int e = threadIdx.x; e < RB * kColsPerBlock; e += blockDim.x) {
-    const int r = e / kColsPerBlock, col = e % kColsPerBlock;
-    const int n = blockIdx.x * kColsPerBlock + col;
-    if (r < rows && n < N) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += red[w][r][col];
-      out[(size_t)(r0 + r) * N + n] = v;
-    }
   }
 }
 
@@ -418,7 +231,7 @@ struct Launch {
 template <int RB, bool BF16, int G, bool PACKED>
 void launch(const Launch& a) {
   const dim3 grid((a.N + kColsPerBlock - 1) / kColsPerBlock, a.splits, (a.B + RB - 1) / RB);
-  qmm_kernel<RB, BF16, G, PACKED><<<grid, kWarps * 32, 0, a.stream>>>(
+  qmm_kernel<RB, BF16, G, PACKED, false, float><<<grid, kWarps * 32, 0, a.stream>>>(
       a.x, a.q, a.scale, a.bias, a.sup, a.sup_min, a.dst, a.B, a.K, a.N, a.scale_kind,
       a.bias_kind, a.groups_per_split);
 }

@@ -1,5 +1,6 @@
 """Model hyperparameters (the fields of eagle_tpu's `ModelConfig` that the
-plain pre-norm llama path reads, with the same names and defaults).
+plain pre-norm llama path reads, with the same names and defaults), and
+`ModelConfig.from_gguf_metadata` for the llama and EAGLE architectures.
 
 Fields for other architectures are kept at their defaults so that a config
 carried across from the reference can be checked: `check_plain_llama`
@@ -8,6 +9,13 @@ raises on any setting this slice does not implement."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+from ..gguf.constants import Keys
+
+#: GGUF architectures this slice reads; both store llama's adjacent-pair
+#: rope rows, which the loader un-permutes
+GGUF_ARCHS = ("llama", "eagle")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +69,77 @@ class ModelConfig:
     def v_dim(self) -> int:
         return self.v_head_dim or self.head_dim
 
+    @property
+    def n_q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def n_kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    @staticmethod
+    def from_gguf_metadata(md: dict[str, Any]) -> "ModelConfig":
+        """The config of a llama or EAGLE GGUF, read as the reference reads
+        it (eagle_tpu/models/config.py:173); any other architecture raises
+        NotImplementedError."""
+        arch = md[Keys.General.ARCHITECTURE]
+        if arch not in GGUF_ARCHS:
+            raise NotImplementedError(f"GGUF architecture {arch!r} is not ported yet")
+
+        def k(pattern: str, default=None):
+            v = md.get(pattern.format(arch=arch), default)
+            if v is None:
+                raise KeyError(f"missing GGUF key {pattern.format(arch=arch)}")
+            return v
+
+        n_embd = int(k(Keys.LLM.EMBEDDING_LENGTH))
+        n_heads = int(k(Keys.Attention.HEAD_COUNT))
+        head_dim = int(k(Keys.Attention.KEY_LENGTH, n_embd // n_heads))
+        vocab_size = md.get(Keys.LLM.VOCAB_SIZE.format(arch=arch))
+        if vocab_size is None:
+            vocab_size = len(md[Keys.Tokenizer.LIST])
+        if md.get(f"{arch}.rope.scaling.yarn_log_multiplier"):
+            raise NotImplementedError("YaRN attention scaling is not ported yet")
+        if f"{arch}.attention.scale" in md:
+            attn_scale = float(md[f"{arch}.attention.scale"])
+        elif f"{arch}.attention.query_pre_attn_scalar" in md:
+            attn_scale = float(md[f"{arch}.attention.query_pre_attn_scalar"]) ** -0.5
+        else:
+            attn_scale = None
+        # keys the plain block does not implement are read all the same, so
+        # that check_plain_llama refuses such a file instead of ignoring them
+        opt = lambda key, default: md.get(f"{arch}.{key}", default) or default
+        return ModelConfig(
+            arch=arch,
+            vocab_size=int(vocab_size),
+            n_embd=n_embd,
+            n_layers=int(k(Keys.LLM.BLOCK_COUNT)),
+            n_heads=n_heads,
+            n_kv_heads=int(k(Keys.Attention.HEAD_COUNT_KV, n_heads)),
+            head_dim=head_dim,
+            n_ff=int(k(Keys.LLM.FEED_FORWARD_LENGTH)),
+            rms_eps=float(k(Keys.Attention.LAYERNORM_RMS_EPS, 1e-5)),
+            rope_base=float(md.get(Keys.Rope.FREQ_BASE.format(arch=arch), 10000.0)),
+            rope_dim=int(md.get(Keys.Rope.DIMENSION_COUNT.format(arch=arch), head_dim)),
+            n_ctx_train=int(k(Keys.LLM.CONTEXT_LENGTH, 2048)),
+            rope_scaling=md.get(Keys.Rope.SCALING_TYPE.format(arch=arch)),
+            rope_scale_factor=float(md.get(Keys.Rope.SCALING_FACTOR.format(arch=arch), 1.0)),
+            rope_orig_ctx=int(md.get(Keys.Rope.SCALING_ORIG_CTX.format(arch=arch), 0) or 0),
+            rope_attn_factor=float(
+                md.get(Keys.Rope.SCALING_ATTN_FACTOR.format(arch=arch), 1.0) or 1.0),
+            is_eagle=(arch == "eagle"),
+            swa_window=int(opt("attention.sliding_window", 0)),
+            clamp_kqv=float(opt("attention.clamp_kqv", 0.0)),
+            attn_softcap=float(opt("attn_logit_softcapping", 0.0)),
+            final_softcap=float(opt("final_logit_softcapping", 0.0)),
+            embd_scale=float(opt("embedding_scale", 1.0)),
+            attn_scale=attn_scale,
+            parallel_blocks=bool(opt("use_parallel_residual", False)),
+            logit_scale=float(opt("logit_scale", 1.0)),
+            resid_scale=float(opt("residual_scale", 1.0)),
+            v_head_dim=int(opt("attention.value_length", 0)),
+        )
+
 
 #: (field, value the plain llama block needs)
 _PLAIN = (
@@ -69,7 +148,7 @@ _PLAIN = (
     ("parallel_blocks", False), ("logit_scale", 1.0), ("has_pos_embd", False),
     ("use_alibi", False), ("mrope_sections", ()), ("head_counts", ()),
     ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
-    ("v_head_dim", 0), ("clamp_kqv", 0.0), ("nonparam_norms", False),
+    ("clamp_kqv", 0.0), ("nonparam_norms", False),
 )
 
 
@@ -79,5 +158,7 @@ def check_plain_llama(cfg: ModelConfig) -> None:
     bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PLAIN if getattr(cfg, k) != v]
     if cfg.rope_dim != cfg.head_dim:
         bad.append(f"rope_dim={cfg.rope_dim} (partial rotary)")
+    if cfg.v_dim != cfg.head_dim:
+        bad.append(f"v_head_dim={cfg.v_head_dim}")
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")

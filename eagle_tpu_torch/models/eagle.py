@@ -17,7 +17,7 @@ from ..ops.norms import rms_norm
 from ..ops.rope import rope_freqs_cfg
 from ..runtime.kvcache import KVCache
 from .config import ModelConfig, check_plain_llama
-from .llama import _layer_step, check_layer_keys, embed_lookup
+from .llama import _layer_step, check_layer_keys, embed_lookup, fused_ffn_mode
 
 _DRAFT_KEYS = {"tok_embd", "fc_w", "fc_b", "layers"}
 
@@ -64,7 +64,7 @@ def eagle_forward(
         mask = mask[..., :kv_limit]
     x = _layer_step(
         cfg, inv_freq, positions, slots, mask, compute_dtype, x,
-        draft_params["layers"], 0, kv.k, kv.v, kv_limit=kv_limit,
+        draft_params["layers"], 0, kv.k, kv.v, kv_limit=kv_limit, fused_ffn=fused_ffn_mode(),
     )
     feat_post = rms_norm(x, None, cfg.rms_eps)  # unweighted: no output_norm tensor
     logits = None

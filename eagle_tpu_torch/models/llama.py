@@ -13,11 +13,14 @@ The cache is updated in place: each layer writes its K/V rows into `kv.k` /
 
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..ops.ffn import MAX_ROWS as FFN_MAX_ROWS
+from ..ops.ffn import ffn_block, supports_ffn_block
 from ..ops.flash_attention import flash_attention_cached, flash_attention_prefill
 from ..ops.matmul import qmatmul, qmatmul_layer
 from ..ops.norms import rms_norm
@@ -47,11 +50,27 @@ def check_layer_keys(layers: dict[str, Any]) -> None:
 
 
 def embed_lookup(tok_embd: QTensor | torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Gather embedding rows as f32 (dense tables; quantized tables come with
-    the GGUF loader)."""
+    """Gather embedding rows as f32. A quantized table (an "nk" QTensor, as
+    the GGUF loader gives it) is gathered at its quantized width and only the
+    gathered rows are dequantized: q * scale (+ bias) in f32."""
     if isinstance(tok_embd, QTensor):
-        raise NotImplementedError("quantized embedding tables are not ported yet")
+        if tok_embd.layout != "nk" or tok_embd.packed or tok_embd.coded:
+            raise NotImplementedError("quantized embedding tables must be unpacked 'nk' "
+                                      "with materialized scales")
+        g = tok_embd.group
+        q = tok_embd.q[tokens].float()  # [..., D]
+        d = q.shape[-1]
+        out = q.reshape(*q.shape[:-1], d // g, g) * tok_embd.scale[tokens].float()[..., None]
+        if tok_embd.bias is not None:
+            out = out + tok_embd.bias[tokens].float()[..., None]
+        return out.reshape(q.shape)
     return tok_embd[tokens].float()
+
+
+def fused_ffn_mode() -> str:
+    """EAGLE_TPU_FUSED_FFN, read once per forward as the reference reads it:
+    "0" (default) off, "1" or "all" both fused stages, "wo" the first only."""
+    return os.environ.get("EAGLE_TPU_FUSED_FFN", "0")
 
 
 def _write_rows(cache: torch.Tensor, li: int, slots: torch.Tensor, rows: torch.Tensor) -> None:
@@ -75,8 +94,13 @@ def _layer_step(
     v_cache: torch.Tensor,
     kv_limit: int | None = None,
     slot_tags: torch.Tensor | None = None,  # [B, S<=lim] tags: prefill kernel
+    fused_ffn: str = "0",  # fused_ffn_mode() of the forward
 ) -> torch.Tensor:
-    """One transformer layer; returns the new residual stream."""
+    """One transformer layer; returns the new residual stream. With
+    `fused_ffn` "1"/"all"/"wo", at most 64 rows and weights that
+    `supports_ffn_block` admits, the attention output, residual add, FFN
+    norm and FFN go through the fused block (ops/ffn.py), as the reference's
+    llama.py:549-577 does; otherwise through qmm and plain ops."""
     b, t, _ = x.shape
     h, h_kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn_in = rms_norm(x, layers["attn_norm"][li], cfg.rms_eps) if "attn_norm" in layers else x
@@ -100,6 +124,17 @@ def _layer_step(
         attn = flash_attention_cached(q, k_cache, v_cache, mask, li,
                                       scale=cfg.attn_scale, s_limit=lim)
 
+    d = x.shape[-1]
+    rows = b * t
+    if (fused_ffn in ("1", "all", "wo") and rows <= FFN_MAX_ROWS
+            and supports_ffn_block(layers, cfg)):
+        out = ffn_block(
+            attn.reshape(rows, h * dh), x.reshape(rows, d), layers["ffn_norm"][li],
+            layers["wo"], layers["w_gate_up"], layers["w_down"], li, rms_eps=cfg.rms_eps,
+            act_fn=cfg.act, compute_dtype=compute_dtype,
+            stages="wo" if fused_ffn == "wo" else "all",
+        )
+        return out.reshape(b, t, d)
     x = x + qmatmul_layer(attn.reshape(b, t, -1), layers["wo"], li, compute_dtype)
     ffn_in = rms_norm(x, layers["ffn_norm"][li], cfg.rms_eps) if "ffn_norm" in layers else x
     gate_up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype)
@@ -141,13 +176,14 @@ def llama_forward(
     if kv_limit is not None:
         kv_limit = min(kv_limit, mask.shape[-1])
         mask = mask[..., :kv_limit]
+    fused = fused_ffn_mode()
     slot_tags = None
     if causal_tags_prefill:
         slot_tags = kv.slot_pos[:, : kv_limit if kv_limit else kv.slot_pos.shape[1]]
     for li in range(layers["wqkv"].q.shape[0]):
         x = _layer_step(
             cfg, inv_freq, positions, slots, mask, compute_dtype, x, layers, li,
-            kv.k, kv.v, kv_limit=kv_limit, slot_tags=slot_tags,
+            kv.k, kv.v, kv_limit=kv_limit, slot_tags=slot_tags, fused_ffn=fused,
         )
     hidden = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     logits = qmatmul(hidden, params["output"], compute_dtype) if return_logits else None

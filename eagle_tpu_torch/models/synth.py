@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from .._device import resolve_device
+from ..gguf.constants import GGMLType
 from ..quant.qtensor import Q4_K, Q6_K, QTensor
 from .config import ModelConfig
 
@@ -25,7 +26,8 @@ VICUNA_7B = ModelConfig(
 )
 
 #: ggml type -> (group, q range [lo, hi), has bias)
-_FORMATS = {Q4_K: (32, 0, 16, True), Q6_K: (16, -32, 32, False)}
+_FORMATS = {Q4_K: (32, 0, 16, True), Q6_K: (16, -32, 32, False),
+            int(GGMLType.Q4_0): (32, 0, 16, True), int(GGMLType.Q8_0): (32, -128, 128, False)}
 
 
 def _uniform(gen, shape, lo, hi, device):

@@ -1,0 +1,204 @@
+"""Fused FFN block for decode and verify rows: the `ffn_out_norm` and
+`gate_up_act` CUDA kernels (csrc/ffn.cu), their wrappers and plain PyTorch
+versions, and `ffn_block` (port of eagle_tpu/ops/pallas_ffn.py:
+`supports_ffn_block`, `_fused_qmm_call` with `epi_out_norm`,
+`_gate_up_act_2d`, `ffn_block_pallas`).
+
+    x = resid + attn @ Wo ;  h = round_ct(rms_norm(x) * w)     ffn_out_norm
+    a = round_ct(act(h @ Wg) * (h @ Wu))                       gate_up_act
+    out = a @ Wdown + x                                        qmm + add
+
+`ffn_out_norm` replaces pallas_ffn.py:257/:265 (`_fused_qmm_call` with the
+`epi_out_norm` epilogue), `gate_up_act` replaces :413/:419
+(`_gate_up_act_2d`). Bound on the H100: the weight bytes, as for qmm
+(Q4_0 packed, f32 scale and bias: wo 12.58 MB and w_gate_up 67.63 MB per
+Vicuna-7B layer). The design (csrc/ffn.cu): the matmul pass is the qmm
+SIMT body with the split qmm would choose for the same product, and the
+epilogue runs in a second pass where the full row of sums first exists, so
+x, gate and up are bit-equal to the unfused path's and the fused block
+only saves launches (residual add, norm, split, activation, multiply).
+
+On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
+launches the kernel or raises."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..quant.qtensor import QTensor
+from .matmul import qmatmul_layer
+from .qmm import _ALIGN, _KINDS, qmm_math, simt_config
+
+MAX_ROWS = 64  # decode and verify rows; prefill stays unfused
+ACTS = {"silu": 0, "gelu": 1}
+_OUT_NORM_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+_GATE_UP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+def supports_ffn_block(layers: dict, cfg) -> bool:
+    """The plain pre-norm FFN with a fused gate_up: no sandwich norms, no MoE
+    router, quantized "kn" layer-stacked weights with materialized scales and
+    128-aligned extents (the reference's gate, `pallas_ffn.py:47`)."""
+    if any(k in layers for k in ("post_attn_norm", "post_ffn_norm", "ffn_gate_inp")):
+        return False
+    if "ffn_norm" not in layers or "w_gate_up" not in layers:
+        return False
+    if getattr(cfg, "act", "silu") not in ACTS:
+        return False
+    ws = [layers.get("wo"), layers.get("w_gate_up"), layers.get("w_down")]
+    for w in ws:
+        if not isinstance(w, QTensor) or w.layout != "kn" or w.q.dim() != 3:
+            return False
+        if w.coded:
+            return False
+        k = w.q.shape[1] * (2 if w.packed else 1)
+        n = w.q.shape[2]
+        if n % 128 != 0 or k % (2 * w.group if w.packed else w.group) != 0:
+            return False
+        if w.group % 8 != 0:
+            return False
+    return ws[1].q.shape[2] % 256 == 0  # gate/up split: an even, 128-aligned width
+
+
+def _act(name: str, g: torch.Tensor) -> torch.Tensor:
+    return F.silu(g) if name == "silu" else F.gelu(g, approximate="tanh")
+
+
+def ffn_out_norm_plain(attn, resid, norm_w, wo: QTensor, eps: float, compute_dtype):
+    """Plain version of `ffn_out_norm` for one layer's "kn" weight: x = o +
+    resid in f32, the mean of x^2 over the true width, h cast once."""
+    _build.plain_calls["ffn_out_norm"] += 1
+    x = qmm_math(attn, wo, compute_dtype) + resid.float()
+    ms = (x * x).mean(dim=-1, keepdim=True)
+    return x, (x * torch.rsqrt(ms + eps) * norm_w.float()).to(compute_dtype)
+
+
+def gate_up_act_plain(h, w: QTensor, act: str, compute_dtype):
+    """Plain version of `gate_up_act` for one layer's fused "kn" weight."""
+    _build.plain_calls["gate_up_act"] += 1
+    gate, up = qmm_math(h, w, compute_dtype).chunk(2, dim=-1)
+    return (_act(act, gate) * up).to(compute_dtype)
+
+
+def _check(x: torch.Tensor, w: QTensor, layer: int, compute_dtype) -> tuple[int, int]:
+    """(K, N) of a layer-stacked weight the kernels take, else raise."""
+    if w.layout != "kn" or w.q.dim() != 3 or w.coded:
+        raise ValueError("the fused FFN kernels take layer-stacked 'kn' weights with "
+                         "materialized scales")
+    if not 0 <= layer < w.q.shape[0]:
+        raise IndexError(f"layer {layer} outside the stack of {w.q.shape[0]}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be f32 or bf16, got {compute_dtype}")
+    k = w.q.shape[1] * (2 if w.packed else 1)
+    n = w.q.shape[2]
+    if w.group not in (16, 32) or k % w.group or n % 128 or w.q.dtype != torch.int8:
+        raise ValueError(f"need int8 q, G in (16, 32), K % G == 0, N % 128 == 0 "
+                         f"(K={k}, N={n}, G={w.group})")
+    rows = x.shape[0]
+    if not 1 <= rows <= MAX_ROWS or x.shape[1] != k:
+        raise ValueError(f"x is {tuple(x.shape)}; need 1..{MAX_ROWS} rows of K={k}")
+    for name, t in (("scale", w.scale), ("bias", w.bias)):
+        if t is not None and t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name} must be f32 or bf16, got {t.dtype}")
+    for name, t in (("q", w.q), ("scale", w.scale), ("bias", w.bias)):
+        if t is not None and (t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    return k, n
+
+
+def _lp(t: torch.Tensor | None, layer: int) -> int | None:
+    """Pointer to layer `layer` of a stacked operand, checked for the
+    kernel's 4-column vector loads."""
+    if t is None:
+        return None
+    p = t.data_ptr() + layer * t.stride(0) * t.element_size()
+    if p % _ALIGN[t.dtype]:
+        raise ValueError(f"{t.dtype} operand at {p:#x} is not {_ALIGN[t.dtype]}-byte aligned")
+    return p
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _bias_kind(w: QTensor) -> int:
+    return -1 if w.bias is None else _KINDS[w.bias.dtype]
+
+
+def ffn_out_norm(attn: torch.Tensor, resid: torch.Tensor, norm_w: torch.Tensor, wo: QTensor,
+                 layer: int, eps: float, compute_dtype=torch.bfloat16):
+    """attn [R, H*Dh], resid [R, D] -> (x = resid + attn @ Wo[layer] f32
+    [R, D], h = round_ct(rms_norm(x) * norm_w) [R, D]), R <= 64."""
+    if attn.device.type == "cpu":
+        return ffn_out_norm_plain(attn, resid, norm_w, wo.layer(layer), eps, compute_dtype)
+    k, n = _check(attn, wo, layer, compute_dtype)
+    r = attn.shape[0]
+    fn = _build.kernel("ffn_out_norm_launch", _OUT_NORM_ARGS)
+    xf = attn.float().contiguous()
+    # the epilogue reads resid and norm_w four columns at a time
+    rf, nw = (_aligned16(t.float().contiguous()) for t in (resid, norm_w))
+    if tuple(rf.shape) != (r, n) or tuple(nw.shape) != (n,):
+        raise ValueError(f"resid {tuple(rf.shape)} / norm {tuple(nw.shape)} do not match [{r}, {n}]")
+    rb, splits, gps = simt_config(r, k, n, wo.group)
+    x_out = torch.empty((r, n), dtype=torch.float32, device=attn.device)
+    h_out = torch.empty((r, n), dtype=compute_dtype, device=attn.device)
+    partial = torch.empty((splits, r, n), dtype=torch.float32, device=attn.device)
+    rc = fn(xf.data_ptr(), _lp(wo.q, layer), _lp(wo.scale, layer), _lp(wo.bias, layer),
+            rf.data_ptr(), nw.data_ptr(), x_out.data_ptr(), h_out.data_ptr(), partial.data_ptr(),
+            r, k, n, wo.group, int(wo.packed), _KINDS[wo.scale.dtype], _bias_kind(wo),
+            int(compute_dtype == torch.bfloat16), rb, splits, gps, float(eps),
+            torch.cuda.current_stream(attn.device).cuda_stream)
+    _build.check(rc, "ffn_out_norm_launch")
+    _build.launches["ffn_out_norm"] += 1
+    return x_out, h_out
+
+
+def gate_up_act(h: torch.Tensor, w_gate_up: QTensor, layer: int, act: str = "silu",
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """h [R, D] -> round_ct(act(h @ Wg) * (h @ Wu)) [R, F] in the compute
+    dtype, gate columns [0, F) and up columns [F, 2F) of the fused weight."""
+    if act not in ACTS:
+        raise ValueError(f"act {act!r}")
+    if h.device.type == "cpu":
+        return gate_up_act_plain(h, w_gate_up.layer(layer), act, compute_dtype)
+    k, two_f = _check(h, w_gate_up, layer, compute_dtype)
+    if two_f % 256:
+        raise ValueError(f"the fused gate/up width {two_f} must be a multiple of 256")
+    f, r = two_f // 2, h.shape[0]
+    fn = _build.kernel("gate_up_act_launch", _GATE_UP_ARGS)
+    hc = h.to(compute_dtype).contiguous()
+    # the unfused path's split for the same [R, K] @ [K, 2F] product
+    rb, splits, gps = simt_config(r, k, two_f, w_gate_up.group)
+    out = torch.empty((r, f), dtype=compute_dtype, device=h.device)
+    partial = torch.empty((splits, 2, r, f), dtype=torch.float32, device=h.device)
+    rc = fn(hc.data_ptr(), _lp(w_gate_up.q, layer), _lp(w_gate_up.scale, layer),
+            _lp(w_gate_up.bias, layer), out.data_ptr(), partial.data_ptr(), r, k, f,
+            w_gate_up.group, int(w_gate_up.packed), _KINDS[w_gate_up.scale.dtype],
+            _bias_kind(w_gate_up), int(compute_dtype == torch.bfloat16), ACTS[act], rb, splits,
+            gps, torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(rc, "gate_up_act_launch")
+    _build.launches["gate_up_act"] += 1
+    return out
+
+
+def ffn_block(attn, resid, norm_w, wo: QTensor, w_gate_up: QTensor, w_down: QTensor, layer: int,
+              *, rms_eps: float, act_fn: str = "silu", compute_dtype=torch.bfloat16,
+              stages: str = "all") -> torch.Tensor:
+    """resid + FFN(rms_norm(resid + attn @ Wo)) for one layer of R <= 64
+    rows; returns the next residual stream [R, D] f32. `stages` "all" fuses
+    both stages, "wo" only the first (gate/up then go through qmm, split,
+    activation and multiply). Stage 3 stays `a @ Wdown + x`, as in the
+    reference."""
+    if stages not in ("all", "wo"):
+        raise ValueError(f"stages {stages!r}")
+    x, h = ffn_out_norm(attn, resid, norm_w, wo, layer, rms_eps, compute_dtype)
+    if stages == "wo":
+        gate, up = qmatmul_layer(h, w_gate_up, layer, compute_dtype).chunk(2, dim=-1)
+        a = (_act(act_fn, gate) * up).to(compute_dtype)
+    else:
+        a = gate_up_act(h, w_gate_up, layer, act_fn, compute_dtype)
+    return qmatmul_layer(a, w_down, layer, compute_dtype) + x

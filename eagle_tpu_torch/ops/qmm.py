@@ -39,12 +39,12 @@ def _dims(w: QTensor) -> tuple[int, int]:
     return k, n
 
 
-def qmm_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain version of the kernel for one 2-D "kn" weight, at the kernel's
-    rounding points: w = round_ct(q * scale_f32), y = round_ct(x) @ w with
-    f32 accumulation, plus round_ct(xsum_g) @ round_ct(bias). x [B, K] -> f32
-    [B, N]."""
-    _build.plain_calls["qmm"] += 1
+def qmm_math(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch for one 2-D "kn" weight, at
+    its rounding points: w = round_ct(q * scale_f32), y = round_ct(x) @ w
+    with f32 accumulation, plus round_ct(xsum_g) @ round_ct(bias). x [B, K]
+    -> f32 [B, N]. Shared by the plain versions of qmm and of the fused FFN
+    kernels (ops/ffn.py), which count their own calls."""
     k, n = _dims(w)
     g = w.group
     b = x.shape[0]
@@ -57,6 +57,12 @@ def qmm_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torc
         xs = xf.reshape(b, k // g, g).sum(-1)
         y = y + xs.to(compute_dtype).float() @ bias.to(compute_dtype).float()
     return y
+
+
+def qmm_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the kernel (`qmm_math`), counted."""
+    _build.plain_calls["qmm"] += 1
+    return qmm_math(x, w, compute_dtype)
 
 
 def _check(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
@@ -98,6 +104,20 @@ _TC_ALIGN = 16
 _TC_ROWS = 64  # rows per block of the tensor-core body (csrc/qmm.cu)
 
 
+def simt_config(b: int, k: int, n: int, group: int) -> tuple[int, int, int]:
+    """(rows per block, K splits, groups per split) of the SIMT body for
+    [b, k] @ [k, n]. The fused FFN kernels take the same configuration for
+    the same product, so their sums are the qmm kernel's to the bit."""
+    rb = 1 if b == 1 else 2 if b == 2 else 4 if b <= 4 else 8
+    tiles = -(-n // _COLS) * -(-b // rb)
+    n_groups = k // group
+    # split K until there are ~4 blocks per SM, each warp walking whole groups
+    splits = min(max(1, -(-4 * _SMS // tiles)), max(1, n_groups // _WARPS))
+    gps = -(-n_groups // splits)
+    gps = -(-gps // _WARPS) * _WARPS if splits > 1 else gps
+    return rb, -(-n_groups // gps), gps
+
+
 def _ptr(t: torch.Tensor | None, layer: int | None, align: int | None = None) -> int | None:
     if t is None:
         return None
@@ -127,14 +147,7 @@ def _launch(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> t
             xf = xf.clone()
         rb, splits, gps = _TC_ROWS, 1, k // w.group
     else:
-        rb = 1 if b == 1 else 2 if b == 2 else 4 if b <= 4 else 8
-        tiles = -(-n // _COLS) * -(-b // rb)
-        n_groups = k // w.group
-        # split K until there are ~4 blocks per SM, each warp walking whole groups
-        splits = min(max(1, -(-4 * _SMS // tiles)), max(1, n_groups // _WARPS))
-        gps = -(-n_groups // splits)
-        gps = -(-gps // _WARPS) * _WARPS if splits > 1 else gps
-        splits = -(-n_groups // gps)
+        rb, splits, gps = simt_config(b, k, n, w.group)
     out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
     partial = torch.empty((splits, b, n), dtype=torch.float32, device=xf.device) if splits > 1 else None
     align = _TC_ALIGN if tc else None

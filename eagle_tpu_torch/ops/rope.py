@@ -8,9 +8,10 @@ from __future__ import annotations
 import torch
 
 
-def rope_freqs(head_dim: int, base: float, scale_factor: float = 1.0,
-               device="cpu") -> torch.Tensor:
-    """Inverse frequencies [head_dim/2] (f32)."""
+def rope_freqs(head_dim: int, base: float, scale_factor: float = 1.0, *,
+               device) -> torch.Tensor:
+    """Inverse frequencies [head_dim/2] (f32) on `device` (the caller's
+    activations' device; there is no default)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     inv_freq = 1.0 / (base**exponent)
     return inv_freq / scale_factor
@@ -41,7 +42,7 @@ def rope_mscale_cfg(cfg) -> float:
     return float(getattr(cfg, "rope_attn_factor", 1.0))
 
 
-def rope_freqs_cfg(cfg, device="cpu") -> tuple[torch.Tensor, float]:
+def rope_freqs_cfg(cfg, *, device) -> tuple[torch.Tensor, float]:
     """(inv_freq [rope_dim/2], mscale) from a ModelConfig: unscaled or
     linear (`rope_scale_factor`) frequencies."""
     _check_not_yarn(cfg)

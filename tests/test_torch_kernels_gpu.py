@@ -1,10 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over every branch at small shapes: qmm (packed / unpacked, coded / f32 /
-bf16 scales, bias or none, G = 32 and 16, each row-tile size of the SIMT
-body and the tensor-core body, f32 and bf16 compute, 2-D and stacked),
-flash_decode and flash_prefill (f32 and bf16 caches, head_dim 64 and 128,
-GQA, key splits, s_limit, rows that see nothing), and greedy tokens of a
-tiny model on the card against the CPU.
+bf16 scales, bias or none, G = 32 and 16, the Q4_0 and Q8_0 forms, each
+row-tile size of the SIMT body and the tensor-core body, f32 and bf16
+compute, 2-D and stacked), flash_decode and flash_prefill (f32 and bf16
+caches, head_dim 64 and 128, GQA, key splits, s_limit, rows that see
+nothing), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
+scales, bias or none, G = 32 and 16, SiLU / tanh-GELU, 1 to 64 rows, L = 1
+and stacked, f32 and bf16 compute), and greedy tokens of a tiny model on the
+card against the CPU, unfused and fused.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -28,6 +31,9 @@ from eagle_tpu_torch import _build
 from eagle_tpu_torch.models.config import ModelConfig
 from eagle_tpu_torch.models.synth import synth_llama_params, synth_qtensor
 from eagle_tpu_torch.ops import flash_attention as fa
+from eagle_tpu_torch.gguf.constants import GGMLType
+from eagle_tpu_torch.ops.ffn import (ffn_out_norm, ffn_out_norm_plain, gate_up_act,
+                                     gate_up_act_plain)
 from eagle_tpu_torch.ops.qmm import qmm, qmm_plain, qmm_stacked
 from eagle_tpu_torch.quant.qtensor import Q4_K, Q6_K, QTensor
 from eagle_tpu_torch.runtime.generate import Generator
@@ -35,6 +41,7 @@ from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+Q4_0, Q8_0 = int(GGMLType.Q4_0), int(GGMLType.Q8_0)
 
 
 @pytest.fixture
@@ -75,6 +82,10 @@ WEIGHTS = {
     "q6k_int8_bf16": lambda g, n, k, s: synth_qtensor(g, n, k, Q6_K, s,
                                                       scale_dtype=torch.bfloat16),
     "packed_g16_f32": lambda g, n, k, s: _packed_g16(g, n, k, s),
+    # the GGUF path's forms: Q4_0 (packed nibbles, f32 scale, f32 bias -8d)
+    # and Q8_0 (int8 codes over the whole [-128, 127], f32 scale, no bias)
+    "q4_0_packed_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_0, s, packed=True),
+    "q8_0_int8_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q8_0, s),
 }
 
 
@@ -166,3 +177,73 @@ def test_tiny_greedy_tokens_card_equal_cpu(cuda):
                         compute_dtype=torch.float32, eos_id=-1, device=dev)
         toks.append(gen.generate(prompt, max_new_tokens=24, stop_at_eos=False, chunk=8))
     assert toks[0] == toks[1]
+
+
+# weight forms the fused FFN kernels take (materialized scales only)
+FFN_FORMS = {
+    "q4_0_packed_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_0, s, packed=True),
+    "q4_0_packed_bf16": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_0, s, packed=True,
+                                                         scale_dtype=torch.bfloat16),
+    "q4_0_int8_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_0, s),
+    "q8_0_int8_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q8_0, s),
+    "q6k_int8_bf16_g16": lambda g, n, k, s: synth_qtensor(g, n, k, Q6_K, s,
+                                                          scale_dtype=torch.bfloat16),
+}
+FFN_ROWS = [1, 2, 6, 9, 33, 64]
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("stack", [1, 3])
+@pytest.mark.parametrize("rows", FFN_ROWS)
+@pytest.mark.parametrize("form", sorted(FFN_FORMS))
+def test_ffn_out_norm_matches_plain(cuda, form, rows, stack, compute):
+    wo = FFN_FORMS[form](cuda, 256, 384, stack)
+    attn = torch.randn((rows, 384), generator=cuda, device="cuda")
+    resid = torch.randn((rows, 256), generator=cuda, device="cuda")
+    nw = torch.rand((256,), generator=cuda, device="cuda") + 0.5
+    layer = stack - 1
+    _build.reset_counts()
+    x, h = ffn_out_norm(attn, resid, nw, wo, layer, 1e-6, compute)
+    assert _build.launches["ffn_out_norm"] == 1 and _build.plain_calls["ffn_out_norm"] == 0
+    xw, hw = ffn_out_norm_plain(attn, resid, nw, wo.layer(layer), 1e-6, compute)
+    assert x.dtype == torch.float32 and h.dtype == compute
+    _close(x, xw, TOL[compute])
+    _close(h, hw, TOL[compute])
+    if rows <= 8 or compute == torch.float32:
+        # where qmm takes its SIMT body too, the matmul pass is that body with
+        # qmm's own K split: the same sums, bit for bit
+        assert torch.equal(x, qmm_stacked(attn, wo, layer, compute) + resid)
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("stack", [1, 3])
+@pytest.mark.parametrize("rows", FFN_ROWS)
+@pytest.mark.parametrize("form", sorted(FFN_FORMS))
+def test_gate_up_act_matches_plain(cuda, form, rows, stack, act, compute):
+    w = FFN_FORMS[form](cuda, 2 * 384, 256, stack)
+    h = torch.randn((rows, 256), generator=cuda, device="cuda").to(compute)
+    layer = stack - 1
+    _build.reset_counts()
+    got = gate_up_act(h, w, layer, act, compute)
+    assert _build.launches["gate_up_act"] == 1 and _build.plain_calls["gate_up_act"] == 0
+    assert got.dtype == compute and tuple(got.shape) == (rows, 384)
+    _close(got, gate_up_act_plain(h, w.layer(layer), act, compute), TOL[compute])
+
+
+def test_tiny_greedy_fused_equals_unfused(cuda, monkeypatch):
+    """A 2-layer Q4_0-form model on the card: fused-FFN greedy tokens equal
+    the unfused ones (f32 compute), and the fused kernels ran."""
+    cfg = ModelConfig(vocab_size=512, n_embd=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      head_dim=64, n_ff=512, rms_eps=1e-6, rope_dim=64)
+    params = synth_llama_params(cfg, qtype=Q4_0, seed=3, packed=True, device="cuda")
+    prompt = np.random.default_rng(0).integers(0, 512, size=21).tolist()
+    toks = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("EAGLE_TPU_FUSED_FFN", mode)
+        _build.reset_counts()
+        gen = Generator(params, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device="cuda")
+        toks[mode] = gen.generate(prompt, max_new_tokens=24, stop_at_eos=False, chunk=8)
+        assert (_build.launches["gate_up_act"] > 0) == (mode == "1")
+    assert toks["0"] == toks["1"]

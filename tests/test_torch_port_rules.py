@@ -26,8 +26,14 @@ FORBIDDEN = ("jax", "jaxlib", "eagle_tpu")
 
 
 def _port_files():
-    files = sorted((ROOT / "eagle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    files = sorted(f for f in (ROOT / "eagle_tpu_torch").rglob("*.py")
+                   if ".build" not in f.parts)  # build outputs, not sources
+    files.append(ROOT / "chip_smoke.py")
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for must in ("eagle_tpu_torch/gguf/reader.py", "eagle_tpu_torch/gguf/writer.py",
+                 "eagle_tpu_torch/gguf/constants.py", "eagle_tpu_torch/models/loader.py",
+                 "eagle_tpu_torch/quant/serving.py", "eagle_tpu_torch/ops/ffn.py"):
+        assert must in names
     return files
 
 
@@ -57,10 +63,12 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
 
 @pytest.mark.parametrize("entry", ["KVCache.create", "synth_llama_params",
                                    "synth_eagle_params", "Generator", "EagleChainEngine",
-                                   "params_from_numpy"])
+                                   "params_from_numpy", "load_llama_params",
+                                   "load_eagle_params"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from eagle_tpu_torch.convert import params_from_numpy
+    from eagle_tpu_torch.models.loader import load_eagle_params, load_llama_params
     from eagle_tpu_torch.models.synth import synth_eagle_params, synth_llama_params
     from eagle_tpu_torch.runtime.generate import Generator
     from eagle_tpu_torch.runtime.kvcache import KVCache
@@ -73,6 +81,8 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         "Generator": lambda: Generator({}, TINY, max_seq=16),
         "EagleChainEngine": lambda: EagleChainEngine({}, {}, TINY, max_seq=16),
         "params_from_numpy": lambda: params_from_numpy({}),
+        "load_llama_params": lambda: load_llama_params("no-such-file.gguf"),
+        "load_eagle_params": lambda: load_eagle_params("no-such-file.gguf"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -120,8 +130,19 @@ def _meta_weight(stack=None):
     )
 
 
-@pytest.mark.parametrize("call", ["qmm", "qmm_stacked", "flash_decode", "flash_prefill"])
+def _meta_ffn_weight(n, k):
+    """A stacked Q4_0-form weight (packed, f32 scale and bias) on `meta`."""
+    kw = dict(device="meta")
+    return QTensor(q=torch.empty((2, k // 2, n), dtype=torch.int8, **kw),
+                   scale=torch.empty((2, k // 32, n), **kw),
+                   bias=torch.empty((2, k // 32, n), **kw), group=32, layout="kn", packed=True)
+
+
+@pytest.mark.parametrize("call", ["qmm", "qmm_stacked", "flash_decode", "flash_prefill",
+                                  "ffn_out_norm", "gate_up_act"])
 def test_device_tensor_without_kernel_raises(no_kernels, call):
+    from eagle_tpu_torch.ops.ffn import ffn_out_norm, gate_up_act
+
     meta = dict(device="meta")
     x = torch.empty((1, 256), **meta)
     q = torch.empty((1, 1, 4, 64), **meta)
@@ -134,6 +155,11 @@ def test_device_tensor_without_kernel_raises(no_kernels, call):
         "flash_prefill": lambda: flash_attention_prefill(
             q, cache, cache, torch.empty((1, 1), dtype=torch.int32, **meta),
             torch.empty((1, 128), dtype=torch.int32, **meta), 0),
+        "ffn_out_norm": lambda: ffn_out_norm(
+            torch.empty((1, 256), **meta), torch.empty((1, 128), **meta),
+            torch.empty((128,), **meta), _meta_ffn_weight(128, 256), 1, 1e-6),
+        "gate_up_act": lambda: gate_up_act(torch.empty((1, 256), **meta),
+                                           _meta_ffn_weight(256, 256), 1),
     }
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fns[call]()

@@ -55,3 +55,71 @@ def jax_cfg_to_torch(cfg):
 
     names = {f.name for f in dataclasses.fields(TorchCfg)}
     return TorchCfg(**{k: v for k, v in dataclasses.asdict(cfg).items() if k in names})
+
+
+def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0):
+    """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
+    minted with the reference's GGUFWriter, which quantizes float weights:
+    layer matmul weights in `layer_type`, output in `out_type`, token_embd in
+    `emb_type`, the draft's matmul weights and embedding in `draft_type`;
+    norms and fc.bias F32. Returns (target path, draft path)."""
+    from eagle_tpu.gguf.writer import GGUFWriter
+    from eagle_tpu.tools.train_draft import _base_metadata
+
+    jcfg, _ = tiny_cfgs()
+    rng = np.random.default_rng(seed)
+    d, f, v = jcfg.n_embd, jcfg.n_ff, jcfg.vocab_size
+    nq, nkv = jcfg.n_heads * jcfg.head_dim, jcfg.n_kv_heads * jcfg.head_dim
+
+    def mat(n, k, scale=0.05):
+        return (rng.standard_normal((n, k)) * scale).astype(np.float32)
+
+    def norm():
+        return rng.uniform(0.8, 1.2, d).astype(np.float32)
+
+    def layer(w, i, qtype, attn_norm=True):
+        if attn_norm:
+            w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
+        for name, (n, k) in (("attn_q", (nq, d)), ("attn_k", (nkv, d)), ("attn_v", (nkv, d)),
+                             ("attn_output", (d, nq)), ("ffn_gate", (f, d)), ("ffn_up", (f, d)),
+                             ("ffn_down", (d, f))):
+            w.add_tensor(f"blk.{i}.{name}.weight", mat(n, k), ggml_type=qtype)
+        w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
+
+    target = tmp_path / "target.gguf"
+    w = GGUFWriter(target)
+    for k, val in _base_metadata(jcfg, "llama").items():
+        w.add(k, val)
+    w.add_tensor("token_embd.weight", mat(v, d, 0.5), ggml_type=emb_type)
+    for i in range(jcfg.n_layers):
+        layer(w, i, layer_type)
+    w.add_tensor("output_norm.weight", norm())
+    w.add_tensor("output.weight", mat(v, d), ggml_type=out_type)
+    w.write()
+
+    draft = tmp_path / "draft.gguf"
+    w = GGUFWriter(draft)
+    for k, val in _base_metadata(dataclasses.replace(jcfg, n_layers=1), "eagle").items():
+        w.add(k, val)
+    w.add_tensor("token_embd.weight", mat(v, d, 0.5), ggml_type=draft_type)
+    w.add_tensor("fc.weight", mat(d, 2 * d), ggml_type=draft_type)
+    w.add_tensor("fc.bias", (rng.standard_normal(d) * 0.01).astype(np.float32))
+    layer(w, 0, draft_type, attn_norm=False)
+    w.write()
+    return target, draft
+
+
+def assert_bits_equal(got, want, what=""):
+    """A port tensor and a reference array hold the same bits (floats are
+    compared as integers, so -0.0 and NaN payloads count)."""
+    got = got.detach().cpu()
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape, (what, tuple(got.shape), want.shape)
+    if got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16).numpy(), want.view(np.int16)
+    else:
+        got = got.numpy()
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    if got.dtype.kind == "f":
+        got, want = got.view(f"i{got.itemsize}"), want.view(f"i{want.itemsize}")
+    np.testing.assert_array_equal(got, want, err_msg=what)
