@@ -22,9 +22,10 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    whichever is larger) and library_ms (one PyTorch call computing the
    same function, or for the fused FFN kernels the same product: torch.matmul
    on a pre-dequantized bf16 weight, or scaled_dot_product_attention with
-   the bool mask — timed here only, the port never calls it). Times are
-   device time from torch.profiler, so the host's launch overhead does not
-   count. A tiny 2-layer model's logits on the card are also held against
+   the bool mask — timed here only, the port never calls it). Times are per
+   call of a CUDA-graph replay timed with CUDA events
+   (`eagle_tpu_torch/timing.py:device_ms`), so the host's launch overhead
+   does not count. A tiny 2-layer model's logits on the card are also held against
    the CPU plain path (relative error <= 1e-3, f32).
 3. greedy decoding at full width: VICUNA_7B (32 layers, 4096 wide, 11008
    FFN, 32000 vocab), Q4_K packed coded weights synthesized on the card,
@@ -48,9 +49,24 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    greedy and the EAGLE chain engine with EAGLE_TPU_FUSED_FFN=1 and again
    unfused, each with its launch counts (fused kernels > 0 only when on,
    plain versions 0) and decode profile; EAGLE = greedy and fused = unfused
-   tokens up to the near-tie rule. Last, the `kernels` JSON line (the fused
-   kernels' launches come from this phase's fused run) and the device JSON
-   line.
+   tokens up to the near-tie rule.
+7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
+   its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
+   each variant held against its plain version (relative error <= 1e-2),
+   then timed with the launch counts read over that run (qmm and qmm_i4 >
+   0, plain versions 0); before it, qmm_i4 and qmm_i4_stacked against
+   qmm_i4_plain at the benchmark's shape and at the 7B projections (12288 x
+   4096, 4096 x 11008) for 1, 8, 37 and 512 rows, with kernel ms, plain ms,
+   the bound and library_ms (torch.matmul on the pre-dequantized bf16
+   weight).
+8. the other GGUF formats (Q4_1, Q5_0, Q5_1, Q8_1, Q2_K, Q3_K, Q5_K, IQ4_NL,
+   IQ4_XS, IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M): one
+   [11008 x 4096] tensor of random blocks each, written with the port's
+   writer, repacked on the card and held bit for bit against the CPU's
+   repack of the same bytes, prepared for serving and run through qmm
+   against its plain version at 1, 6 and 512 rows (Q5_K also coded; IQ1_M
+   at G = 8). Last, the `kernels` JSON line (the fused kernels' launches come
+   from phase 6's fused run, qmm_i4's from phase 7) and the device JSON line.
 """
 
 from __future__ import annotations
@@ -65,53 +81,17 @@ import sys
 import time
 import warnings
 
+from eagle_tpu_torch.timing import device_ms, device_us
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 QMM_TOL = 1e-2
 ATTN_TOL = 1e-2
 TINY_TOL = 1e-3
-PROFILE_TRIES = 3  # a torch.profiler trace now and then holds no device event
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def device_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Device time per call of every kernel `fn(i)` launches, summed from a
-    torch.profiler trace: the host's launch overhead (Python wrappers,
-    ctypes) does not count, and a kernel's time is what the card spent in
-    it. A trace now and then comes back with no device events at all; it
-    is taken again, up to PROFILE_TRIES times, and then the function raises:
-    events around a loop of launches would time the host, not the kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                fn(i)
-            torch.cuda.synchronize()
-        total_us = sum(device_us(e) for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / reps / 1e3
-        log(f"[profile] trace {attempt + 1} of {PROFILE_TRIES} holds no device time; tracing again")
-    raise RuntimeError("torch.profiler saw no device time: kernel time not measured")
-
-
-def device_us(event) -> float:
-    """Device time (us) of one key_averages() entry that ran on the card (a
-    kernel, copy or fill); 0 for host-side operators, whose self device
-    time repeats their kernels' time."""
-    from torch.autograd import DeviceType
-
-    if event.device_type != DeviceType.CUDA:
-        return 0.0
-    dev = getattr(event, "self_device_time_total", None)
-    return dev if dev is not None else getattr(event, "self_cuda_time_total", 0)
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -665,21 +645,33 @@ GGUF_FREE_BYTES = 5 * 2**30  # the two files take 4.2 GB
 
 def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -> "np.ndarray":
     """GGUF blocks of random bytes for an [n, k] tensor of `qtype`, made on
-    the card. Each block's f16 scale d is set to a finite value in
-    [0.5, 1.5) x d_mag (of random sign when `signed`), so that activations
-    stay finite over 32 layers."""
+    the card. Each f16 field of a block (`F16_FIELDS`) is set to a finite
+    value in [0.5, 1.5) x d_mag (of random sign when `signed`), so that
+    activations stay finite over 32 layers. IQ1_M has no f16 field: its
+    scale is the top nibbles of its four scale words, set here the same way."""
     import torch
 
-    from eagle_tpu_torch.gguf import GGMLType
+    from eagle_tpu_torch.gguf.constants import F16_FIELDS, GGML_TYPE_TRAITS, GGMLType
 
-    per, size, at = {GGMLType.Q4_0: (32, 18, 0), GGMLType.Q8_0: (32, 34, 0),
-                     GGMLType.Q6_K: (256, 210, 208)}[GGMLType(qtype)]
-    nb = n * k // per
-    raw = torch.randint(0, 256, (nb, size), generator=gen, device="cuda", dtype=torch.uint8)
-    d = (torch.rand(nb, generator=gen, device="cuda") + 0.5) * d_mag
-    if signed:
-        d = d * (torch.randint(0, 2, (nb,), generator=gen, device="cuda") * 2 - 1)
-    raw[:, at:at + 2] = d.half().view(torch.uint8).view(nb, 2)
+    tr = GGML_TYPE_TRAITS[GGMLType(qtype)]
+    nb = n * k // tr.block_size
+    raw = torch.randint(0, 256, (nb, tr.type_size), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+
+    def scale_bytes():
+        d = (torch.rand(nb, generator=gen, device="cuda") + 0.5) * d_mag
+        if signed:
+            d = d * (torch.randint(0, 2, (nb,), generator=gen, device="cuda") * 2 - 1)
+        return d.half().view(torch.uint8).view(nb, 2)
+
+    for at in F16_FIELDS[GGMLType(qtype)]:
+        raw[:, at:at + 2] = scale_bytes()
+    if GGMLType(qtype) == GGMLType.IQ1_M:
+        bits = scale_bytes().to(torch.int32)
+        bits = bits[:, 0] | (bits[:, 1] << 8)
+        for word in range(4):  # nibble `word` of d is the top nibble of word `word`
+            hi = 48 + 2 * word + 1
+            raw[:, hi] = (raw[:, hi] & 0x0F) | (((bits >> (4 * word)) & 0xF) << 4).to(torch.uint8)
     return raw.cpu().numpy().reshape(-1)
 
 
@@ -911,6 +903,199 @@ def gguf_path(report: dict) -> dict:
     torch.cuda.empty_cache()
     return fused_launches
 
+# --------------------------------------------------------------------------
+# phase 7: the kernel benchmark, and qmm_i4 at the 7B projections
+
+
+def qmm_i4_checks(report: dict) -> dict:
+    """qmm_i4 (2-D entry, layer 0) and qmm_i4_stacked (layer 5) against
+    qmm_i4_plain, bf16 compute, int4 weights with bf16 scale and bias, at
+    kernel_bench's default shape (N 11008, K 4096, 8 rows) and the 7B
+    projections (N, K) = (12288, 4096) and (4096, 11008) at 1, 8, 37 and 512
+    rows (relative error <= 1e-2). Timed over a stack of six layers, cycled,
+    so that repeats do not hit in L2; library_ms is torch.matmul on the
+    pre-dequantized bf16 weight. Returns the default shape's row, with the
+    worst error over all checks."""
+    import torch
+
+    from eagle_tpu_torch.ops.qmm import qmm_i4, qmm_i4_plain, qmm_i4_stacked
+    from eagle_tpu_torch.quant.qtensor import QTensor, pack_int4
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    stack, g, bf16 = 6, 32, torch.bfloat16
+    results, worst, default = [], 0.0, None
+    for name, n, k, rows_list in (("kernel_bench", 11008, 4096, (8,)),
+                                  ("wqkv", 12288, 4096, (1, 8, 37, 512)),
+                                  ("w_down", 4096, 11008, (1, 8, 37, 512))):
+        q = torch.randint(-8, 8, (stack, k, n), generator=gen, device="cuda", dtype=torch.int8)
+        w = QTensor(q=pack_int4(q, g), group=g, layout="kn", int4=True,
+                    scale=(torch.rand((stack, k // g, n), generator=gen, device="cuda") * 1e-2
+                           ).to(bf16),
+                    bias=(torch.randn((stack, k // g, n), generator=gen, device="cuda") * 1e-3
+                          ).to(bf16))
+        del q
+        layers = [w.layer(i) for i in range(stack)]
+        dense = [lw.dequantize(bf16).T.contiguous() for lw in layers]  # [K, N]
+        w_bytes = nbytes(*layers[0].tensors().values())
+        for rows in rows_list:
+            x = torch.randn((rows, k), generator=gen, device="cuda")
+            for entry, got, want in (
+                    ("2-D", qmm_i4(x, layers[0]), qmm_i4_plain(x, layers[0])),
+                    ("stacked", qmm_i4_stacked(x, w, 5), qmm_i4_plain(x, layers[5]))):
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(got, want)
+                if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"qmm_i4 {entry} {name} rows={rows}: rel err {rel:.3e}")
+                worst = max(worst, abs_err)
+            reps = 20 if rows < 512 else 5
+            ms = device_ms(lambda i: qmm_i4_stacked(x, w, i % stack), reps)
+            plain = device_ms(lambda i: qmm_i4_plain(x, layers[i % stack]), 3, warmup=1)
+            xb = x.to(bf16)
+            lib = device_ms(lambda i: torch.matmul(xb, dense[i % stack]), reps)
+            b_ms, b_by = bound_ms(w_bytes + rows * k * 4 + rows * n * 4, 2.0 * rows * k * n)
+            res = dict(name=name, n=n, k=k, rows=rows, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel,
+                       weight_bytes=w_bytes)
+            results.append(res)
+            log(f"[qmm_i4] {name:12s} N={n:5d} K={k:5d} rows={rows:3d}  kernel {ms:8.4f} ms  "
+                f"plain {plain:8.3f} ms  bound {b_ms * 1e3:8.2f} us ({b_by})  "
+                f"library {lib:8.4f} ms  rel err {rel:.2e}")
+            if name == "kernel_bench":
+                default = dict(res)
+        del w, layers, dense
+        torch.cuda.empty_cache()
+    report["qmm_i4"] = results
+    default["max_abs_err"] = worst
+    return default
+
+
+def kernel_bench_path(report: dict) -> dict:
+    """The slice's path: `python -m eagle_tpu_torch.tools.kernel_bench` at
+    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant.
+    Each variant's output is first held against its plain version (outside
+    the counted run), then the benchmark runs without the check: the launch
+    counts come from that run alone. Returns its launch counts."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.tools import kernel_bench as kb
+
+    args = kb.parse_args(["--variants", ",".join(kb.VARIANTS)])
+    log(f"[kernel_bench] x[{args.b}, {args.k}] @ W[{args.k}, {args.n}], G={args.group}")
+    bench = kb.Bench(args, kb.variant_names(args.variants), torch.device("cuda"))
+    checked = bench.check()
+    _build.reset_counts()  # ---- this path: counts from here ----
+    timed = bench.time()
+    launches, plain = dict(_build.launches), dict(_build.plain_calls)  # ---- ends ----
+    log(f"[kernel_bench] launches {launches}; plain versions {plain}")
+    if launches["qmm_i4"] <= 0 or launches["qmm"] <= 0:
+        raise AssertionError(f"kernel_bench did not launch qmm and qmm_i4: {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran in the timed kernel_bench run: {plain}")
+    report["kernel_bench"] = dict(checked=checked, timed=timed, launches=launches)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 8: the remaining GGUF formats
+
+
+NEW_FORMATS = ("Q4_1", "Q5_0", "Q5_1", "Q8_1", "Q2_K", "Q3_K", "Q5_K", "IQ4_NL", "IQ4_XS",
+               "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S", "IQ1_S", "IQ1_M")
+
+
+def format_checks(report: dict) -> list[dict]:
+    """Each format the port added in this slice: one [11008 x 4096] tensor of
+    random blocks (finite f16 scales) written with the port's writer, loaded
+    "kn" with the repack on the card and on the CPU (equal bit for bit),
+    prepared for serving ("f32": Q4_1 nibble-packs), then qmm against its
+    plain version at 1, 6 and 512 rows (relative error <= 1e-2). Q5_K goes
+    through the coded load too. Times at 1 row are taken over copies of the
+    weight that take twice the L2."""
+    import math
+    import tempfile
+
+    import torch
+
+    from eagle_tpu_torch.gguf import GGMLType, GGUFReader, GGUFWriter
+    from eagle_tpu_torch.models.loader import load_tensor
+    from eagle_tpu_torch.ops.qmm import qmm, qmm_plain
+    from eagle_tpu_torch.quant.serving import prepare_qtensor
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    n, k = 11008, 4096
+    results = []
+    saved = os.environ.get("EAGLE_TPU_CODED_LOAD")
+    with tempfile.TemporaryDirectory(prefix="eagle_formats_") as tmp_name:
+        path = pathlib.Path(tmp_name) / "formats.gguf"
+        w = GGUFWriter(path)
+        w.add("general.architecture", "llama")
+        for name in NEW_FORMATS:
+            w.add_tensor(name, random_blocks(gen, n, k, int(GGMLType[name]), 1e-3, True),
+                         GGMLType[name], raw_shape=(n, k))
+        w.write()
+        del w
+        reader = GGUFReader(path)
+        cases = [(name, "0") for name in NEW_FORMATS] + [("Q5_K", "1")]
+        for name, coded in cases:
+            os.environ["EAGLE_TPU_CODED_LOAD"] = coded
+            t0 = time.time()
+            card = load_tensor(reader, name, layout="kn", device="cuda")
+            torch.cuda.synchronize()
+            t_card = time.time() - t0
+            host = load_tensor(reader, name, layout="kn", device="cpu")
+            same = (card.group, card.coded, card.ggml_type) == (host.group, host.coded,
+                                                                host.ggml_type) and all(
+                same_bits(card.tensors()[f], host.tensors()[f]) for f in card.tensors())
+            if not same:
+                raise AssertionError(f"{name}: repack on the card differs from the CPU's")
+            for f, t in card.tensors().items():
+                if t is not None and t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"{name}: non-finite {f}")
+            wq = prepare_qtensor(card, "f32")
+            del host
+            tag = f"{name}{' coded' if coded == '1' else ''}"
+            w_bytes = nbytes(*wq.tensors().values())
+            worst = 0.0
+            for rows in (1, 6, 512):
+                x = torch.randn((rows, k), generator=gen, device="cuda")
+                got, want = qmm(x, wq), qmm_plain(x, wq)
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(got, want)
+                if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"qmm {tag} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
+                worst = max(worst, rel)
+            x = torch.randn((1, k), generator=gen, device="cuda")
+            c = max(2, math.ceil(2 * 50 * 2**20 / w_bytes))
+            ws = [wq] + [dataclasses.replace(wq, **{f: None if t is None else t.clone()
+                                                   for f, t in wq.tensors().items()})
+                         for _ in range(c - 1)]
+            ms = device_ms(lambda i: qmm(x, ws[i % c]), 20)
+            plain = device_ms(lambda i: qmm_plain(x, ws[i % c]), 3, warmup=1)
+            dense = [wq.dequantize(torch.bfloat16).T.contiguous(), None]
+            dense[1] = dense[0].clone()
+            xb = x.to(torch.bfloat16)
+            lib = device_ms(lambda i: torch.matmul(xb, dense[i % 2]), 20)
+            b_ms, b_by = bound_ms(w_bytes + k * 4 + n * 4, 2.0 * k * n)
+            res = dict(format=tag, group=wq.group, packed=wq.packed, coded=wq.coded,
+                       load_card_s=t_card, weight_bytes=w_bytes, ms=ms, plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib, worst_rel_err=worst,
+                       copies=c)
+            results.append(res)
+            log(f"[format] {tag:10s} G={wq.group:2d}{' packed' if wq.packed else ''}: card repack "
+                f"== CPU repack; qmm 1/6/512 rows rel err <= {worst:.1e}; 1 row: kernel "
+                f"{ms:8.4f} ms  plain {plain:7.3f} ms  bound {b_ms * 1e3:6.2f} us ({b_by})  "
+                f"library {lib:7.4f} ms  ({w_bytes / 1e6:.1f} MB, {c} copies)")
+            del card, wq, ws, dense
+            torch.cuda.empty_cache()
+        reader.close()
+    if saved is None:
+        os.environ.pop("EAGLE_TPU_CODED_LOAD", None)
+    else:
+        os.environ["EAGLE_TPU_CODED_LOAD"] = saved
+    report["formats"] = results
+    return results
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -930,24 +1115,36 @@ def main() -> int:
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     t_start = time.time()
+    seconds: dict[str, float] = {}
 
-    card = phase_device(out_dir)
-    report: dict = {"card": card}
-    qmm_row = qmm_checks(report)
-    out_norm_row, gate_up_row = ffn_checks(report)
-    dec_row, pre_row = attention_checks(report)
-    tiny_model_check()
-    launches = main_path(report)
-    # the new kernels' counts come from the path that runs them
-    gguf_launches = gguf_path(report)
+    def phase(name: str, fn, *a):
+        t0 = time.time()
+        out = fn(*a)
+        seconds[name] = time.time() - t0
+        log(f"[time] phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    card = phase("1", phase_device, out_dir)
+    report: dict = {"card": card, "phase_seconds": seconds}
+    qmm_row = phase("2 qmm", qmm_checks, report)
+    out_norm_row, gate_up_row = phase("2 ffn", ffn_checks, report)
+    dec_row, pre_row = phase("2 attention", attention_checks, report)
+    phase("2 tiny model", tiny_model_check)
+    launches = phase("3-5", main_path, report)
+    # the later kernels' counts come from the paths that run them
+    gguf_launches = phase("6", gguf_path, report)
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
+    i4_row = phase("7 qmm_i4", qmm_i4_checks, report)
+    launches["qmm_i4"] = phase("7 kernel_bench", kernel_bench_path, report)["qmm_i4"]
+    phase("8", format_checks, report)
 
     sources = {"qmm": "eagle_tpu_torch/csrc/qmm.cu",
                "flash_decode": "eagle_tpu_torch/csrc/flash_attention.cu",
                "flash_prefill": "eagle_tpu_torch/csrc/flash_attention.cu",
                "ffn_out_norm": "eagle_tpu_torch/csrc/ffn.cu",
-               "gate_up_act": "eagle_tpu_torch/csrc/ffn.cu"}
+               "gate_up_act": "eagle_tpu_torch/csrc/ffn.cu",
+               "qmm_i4": "eagle_tpu_torch/csrc/qmm_i4.cu"}
 
     def row(name, replaces, vals):
         return {"name": name, "route": "cuda", "source": sources[name],
@@ -969,6 +1166,9 @@ def main() -> int:
         dict(row("gate_up_act", "eagle_tpu/ops/pallas_ffn.py:413 and :419", gate_up_row),
              shape="1 row, w_gate_up [4096 x 22016] Q4_0 packed, f32 scale and bias, SiLU",
              launches_from="GGUF path, EAGLE_TPU_FUSED_FFN=1"),
+        dict(row("qmm_i4", "eagle_tpu/ops/pallas_qmm.py:600 and :839", i4_row),
+             shape="kernel_bench default: 8 rows, [4096 x 11008] int4, G 32, bf16 scale and bias",
+             launches_from="kernel_bench, every ported variant"),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.time() - t_start

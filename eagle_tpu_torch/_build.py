@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last reset (one per wrapper call that
 #: launched the kernel)
 launches: dict[str, int] = {"qmm": 0, "flash_decode": 0, "flash_prefill": 0,
-                             "ffn_out_norm": 0, "gate_up_act": 0}
+                             "ffn_out_norm": 0, "gate_up_act": 0, "qmm_i4": 0}
 #: kernel name -> calls of its plain PyTorch version since the last reset
 plain_calls: dict[str, int] = {k: 0 for k in launches}
 

@@ -5,7 +5,9 @@
 a dict of arrays plus its static fields (`q`, `scale`, `bias`, `sup`,
 `sup_min`, `group`, `layout`, `packed`, optionally `ggml_type`), so the port
 never sees a JAX type. Layouts stay the reference's ("kn" QTensors,
-layer-stacked)."""
+layer-stacked). A `q` of dtype int4 (`np.asarray` of a JAX int4 array gives
+ml_dtypes' int4, one value per byte) becomes the port's `int4` form: signed
+nibbles, two per byte."""
 
 from __future__ import annotations
 
@@ -15,16 +17,19 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .quant.qtensor import Q4_K, QTensor
+from .quant.qtensor import Q4_K, QTensor, pack_int4
 
 _QT_ARRAYS = ("q", "scale", "bias", "sup", "sup_min")
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """np array (bfloat16 included, as ml_dtypes gives it) -> torch tensor."""
+    """np array (bfloat16 and int4 included, as ml_dtypes gives them; int4
+    becomes int8) -> torch tensor."""
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype.name == "int4":
+        a = a.astype(np.int8)
     return torch.from_numpy(a).to(device)
 
 
@@ -37,10 +42,15 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if is_qtensor_dict(tree):
         arrays = {k: None if tree.get(k) is None else tensor_from_numpy(tree[k], dev)
                   for k in _QT_ARRAYS}
+        group, layout = int(tree["group"]), str(tree.get("layout", "nk"))
+        int4 = np.asarray(tree["q"]).dtype.name == "int4"
+        if int4:
+            if layout != "kn":
+                raise NotImplementedError("int4 QTensors are 'kn' only")
+            arrays["q"] = pack_int4(arrays["q"], group)
         return QTensor(
-            **arrays, group=int(tree["group"]), layout=str(tree.get("layout", "nk")),
-            packed=bool(tree.get("packed", False)),
-            ggml_type=int(tree.get("ggml_type", Q4_K)),
+            **arrays, group=group, layout=layout, packed=bool(tree.get("packed", False)),
+            ggml_type=int(tree.get("ggml_type", Q4_K)), int4=int4,
         )
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}

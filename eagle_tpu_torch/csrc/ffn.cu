@@ -166,7 +166,9 @@ struct GateUp {
 // Op<RB, BF16, G, PACKED>::run(a) for the runtime form
 template <template <int, bool, int, bool> class Op, int RB, bool BF16, typename A>
 void dispatch_form(int G, int packed, const A& a) {
-  if (G == 16) {
+  if (G == 8) {
+    packed ? Op<RB, BF16, 8, true>::run(a) : Op<RB, BF16, 8, false>::run(a);
+  } else if (G == 16) {
     packed ? Op<RB, BF16, 16, true>::run(a) : Op<RB, BF16, 16, false>::run(a);
   } else {
     packed ? Op<RB, BF16, 32, true>::run(a) : Op<RB, BF16, 32, false>::run(a);

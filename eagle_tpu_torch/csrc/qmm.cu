@@ -57,7 +57,7 @@ __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
 // ---- tensor-core body (bf16 compute, prefill) ----
 constexpr int kTcRows = 64;   // output rows per block
 constexpr int kTcCols = 128;  // output columns per block
-constexpr int kTcK = 64;      // K per step: 2 groups of 32 or 4 of 16
+constexpr int kTcK = 64;      // K per step: 2 groups of 32, 4 of 16 or 8 of 8
 constexpr int kTcKx = 80;     // + one group-sum column per group, padded to 16
 constexpr int kAStride = 88;  // bf16; row strides off a multiple of 128 bytes
 constexpr int kBStride = 136;
@@ -68,7 +68,8 @@ constexpr int kTcSmem = kTcSmemAB > kTcSmemC ? kTcSmemAB : kTcSmemC;
 
 // grid: (ceil(N/128), ceil(B/64)); 256 threads = 8 warps as 2 (rows) x 4
 // (columns), each warp owning a 32 x 32 block of 2 x 2 wmma tiles. Needs
-// K % 64 == 0 and N % 16 == 0 (checked by the wrapper).
+// K % 64 == 0 and N % 16 == 0 (checked by the wrapper). G = 8 (IQ1_M) puts
+// 8 groups, and 8 group-sum columns, in a step.
 template <int G, bool PACKED>
 __global__ void __launch_bounds__(256) qmm_tc_kernel(
     const float* __restrict__ x, const int8_t* __restrict__ q,
@@ -123,7 +124,20 @@ __global__ void __launch_bounds__(256) qmm_tc_kernel(
       __nv_bfloat162* dstA = reinterpret_cast<__nv_bfloat162*>(As + r * kAStride + c0);
 #pragma unroll
       for (int i = 0; i < 8; ++i) dstA[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      if (has_bias && (G == 16 || (tid & 1) == 0)) As[r * kAStride + kTcK + c0 / G] = __float2bfloat16(sum);
+      if constexpr (G == 8) {  // the 16 values span two groups
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s0 += v[i];
+          s1 += v[8 + i];
+        }
+        if (has_bias) {
+          As[r * kAStride + kTcK + c0 / G] = __float2bfloat16(s0);
+          As[r * kAStride + kTcK + c0 / G + 1] = __float2bfloat16(s1);
+        }
+      } else if (has_bias && (G == 16 || (tid & 1) == 0)) {
+        As[r * kAStride + kTcK + c0 / G] = __float2bfloat16(sum);
+      }
     }
     {  // weights: 16 columns from (tid%8)*16, dequantized to the compute dtype
       const int nc = (tid & 7) * 16, n = n0 + nc;
@@ -246,7 +260,9 @@ void launch_tc(const Launch& a) {
 
 template <int RB, bool BF16>
 void dispatch_form(int G, int packed, const Launch& a) {
-  if (G == 16) {
+  if (G == 8) {
+    packed ? launch<RB, BF16, 8, true>(a) : launch<RB, BF16, 8, false>(a);
+  } else if (G == 16) {
     packed ? launch<RB, BF16, 16, true>(a) : launch<RB, BF16, 16, false>(a);
   } else {
     packed ? launch<RB, BF16, 32, true>(a) : launch<RB, BF16, 32, false>(a);
@@ -267,7 +283,7 @@ void dispatch_rb(int rb, int G, int packed, const Launch& a) {
 
 // x f32 [B, K]; q int8 [K, N] or packed [K/2, N]; scale/bias [K/G, N] of
 // kind f32 (0), bf16 (1) or int8 codes (2, with sup/sup_min f32 [K/256, N]);
-// bias_kind -1 = no bias. out f32 [B, N]; partial f32 [splits, B, N] when
+// bias_kind -1 = no bias; G in {8, 16, 32}. out f32 [B, N]; partial f32 [splits, B, N] when
 // splits > 1 (else unused). rb in {1, 2, 4, 8}: rows per block of the SIMT
 // body; rb = 64 takes the tensor-core body (bf16 compute, splits = 1).
 extern "C" int qmm_launch(const void* x, const void* q, const void* scale,
@@ -281,7 +297,9 @@ extern "C" int qmm_launch(const void* x, const void* q, const void* scale,
                  static_cast<float*>(splits > 1 ? partial : out), B, K, N, scale_kind,
                  bias_kind, splits, groups_per_split, st};
   if (rb == kTcRows) {
-    if (G == 16) {
+    if (G == 8) {
+      packed ? launch_tc<8, true>(a) : launch_tc<8, false>(a);
+    } else if (G == 16) {
       packed ? launch_tc<16, true>(a) : launch_tc<16, false>(a);
     } else {
       packed ? launch_tc<32, true>(a) : launch_tc<32, false>(a);

@@ -2,8 +2,10 @@
 eagle_tpu/gguf/constants.py: `GGMLType`, `TypeTraits`, `GGUFValueType`,
 `Keys`, `ggml_row_bytes`).
 
-Only the tensor types of the llama/EAGLE path are listed: F32, F16 and the
-block formats Q4_0, Q8_0, Q4_K and Q6_K. The values are ggml's
+The tensor types listed are F32, F16 and the block formats the repack takes:
+the affine formats Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K,
+Q5_K, Q6_K, IQ4_NL and IQ4_XS, and the codebook formats IQ2_XXS, IQ2_XS,
+IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M. The values are ggml's
 (ggml/include/ggml.h), so a file with any other type fails to parse with a
 ValueError naming the type id."""
 
@@ -21,14 +23,30 @@ K_SCALE_SIZE = 12
 
 
 class GGMLType(enum.IntEnum):
-    """ggml tensor data types read by this slice (ggml.h values)."""
+    """ggml tensor data types read by the port (ggml.h values)."""
 
     F32 = 0
     F16 = 1
     Q4_0 = 2
+    Q4_1 = 3
+    Q5_0 = 6
+    Q5_1 = 7
     Q8_0 = 8
+    Q8_1 = 9
+    Q2_K = 10
+    Q3_K = 11
     Q4_K = 12
+    Q5_K = 13
     Q6_K = 14
+    IQ2_XXS = 16
+    IQ2_XS = 17
+    IQ3_XXS = 18
+    IQ1_S = 19
+    IQ4_NL = 20
+    IQ3_S = 21
+    IQ2_S = 22
+    IQ4_XS = 23
+    IQ1_M = 29
 
 
 @dataclass(frozen=True)
@@ -41,9 +59,39 @@ GGML_TYPE_TRAITS: dict[GGMLType, TypeTraits] = {
     GGMLType.F32: TypeTraits(1, 4),
     GGMLType.F16: TypeTraits(1, 2),
     GGMLType.Q4_0: TypeTraits(32, 2 + 16),
+    GGMLType.Q4_1: TypeTraits(32, 4 + 16),
+    GGMLType.Q5_0: TypeTraits(32, 2 + 4 + 16),
+    GGMLType.Q5_1: TypeTraits(32, 4 + 4 + 16),
     GGMLType.Q8_0: TypeTraits(32, 2 + 32),
+    GGMLType.Q8_1: TypeTraits(32, 4 + 32),
+    GGMLType.Q2_K: TypeTraits(QK_K, 4 + QK_K // 16 + QK_K // 4),
+    GGMLType.Q3_K: TypeTraits(QK_K, 2 + QK_K // 4 + QK_K // 8 + 12),
     GGMLType.Q4_K: TypeTraits(QK_K, 4 + K_SCALE_SIZE + QK_K // 2),
+    GGMLType.Q5_K: TypeTraits(QK_K, 4 + K_SCALE_SIZE + QK_K // 2 + QK_K // 8),
     GGMLType.Q6_K: TypeTraits(QK_K, 2 + QK_K // 16 + 3 * QK_K // 4),
+    GGMLType.IQ4_NL: TypeTraits(32, 2 + 16),
+    GGMLType.IQ4_XS: TypeTraits(QK_K, 2 + 2 + QK_K // 64 + QK_K // 2),
+    # codebook formats (ggml-common.h's block structs)
+    GGMLType.IQ2_XXS: TypeTraits(QK_K, 2 + QK_K // 4),
+    GGMLType.IQ2_XS: TypeTraits(QK_K, 2 + QK_K // 4 + QK_K // 32),
+    GGMLType.IQ2_S: TypeTraits(QK_K, 2 + QK_K // 4 + QK_K // 16),
+    GGMLType.IQ3_XXS: TypeTraits(QK_K, 2 + 3 * QK_K // 8),
+    GGMLType.IQ3_S: TypeTraits(QK_K, 2 + 13 * QK_K // 32 + QK_K // 64),
+    GGMLType.IQ1_S: TypeTraits(QK_K, 2 + QK_K // 8 + QK_K // 16),
+    GGMLType.IQ1_M: TypeTraits(QK_K, QK_K // 8 + QK_K // 16 + QK_K // 32),
+}
+
+
+#: byte offsets of the f16 fields in one block (d; dmin or m; Q8_1's s).
+#: IQ1_M has none: its f16 scale is the top nibbles of the four u16 scale
+#: words at bytes 48-55, word w holding bits 4w .. 4w+3.
+F16_FIELDS: dict[GGMLType, tuple[int, ...]] = {
+    GGMLType.Q4_0: (0,), GGMLType.Q4_1: (0, 2), GGMLType.Q5_0: (0,), GGMLType.Q5_1: (0, 2),
+    GGMLType.Q8_0: (0,), GGMLType.Q8_1: (0, 2), GGMLType.Q2_K: (80, 82), GGMLType.Q3_K: (108,),
+    GGMLType.Q4_K: (0, 2), GGMLType.Q5_K: (0, 2), GGMLType.Q6_K: (208,),
+    GGMLType.IQ4_NL: (0,), GGMLType.IQ4_XS: (0,), GGMLType.IQ2_XXS: (0,),
+    GGMLType.IQ2_XS: (0,), GGMLType.IQ2_S: (0,), GGMLType.IQ3_XXS: (0,), GGMLType.IQ3_S: (0,),
+    GGMLType.IQ1_S: (0,), GGMLType.IQ1_M: (),
 }
 
 

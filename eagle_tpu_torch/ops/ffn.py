@@ -95,8 +95,8 @@ def _check(x: torch.Tensor, w: QTensor, layer: int, compute_dtype) -> tuple[int,
         raise ValueError(f"compute dtype must be f32 or bf16, got {compute_dtype}")
     k = w.q.shape[1] * (2 if w.packed else 1)
     n = w.q.shape[2]
-    if w.group not in (16, 32) or k % w.group or n % 128 or w.q.dtype != torch.int8:
-        raise ValueError(f"need int8 q, G in (16, 32), K % G == 0, N % 128 == 0 "
+    if w.group not in (8, 16, 32) or k % w.group or n % 128 or w.q.dtype != torch.int8:
+        raise ValueError(f"need int8 q, G in (8, 16, 32), K % G == 0, N % 128 == 0 "
                          f"(K={k}, N={n}, G={w.group})")
     rows = x.shape[0]
     if not 1 <= rows <= MAX_ROWS or x.shape[1] != k:

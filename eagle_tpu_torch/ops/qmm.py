@@ -16,7 +16,14 @@ weight to device memory. Prefill (more than 8 rows, bf16) is bound by
 operations and takes the tensor-core body: 64 x 128 tiles, each weight tile
 dequantized into shared memory only. The TPU's batch pad to 8 rows and its
 tile pickers do not carry over: any row count from 1 to 512 runs in one
-launch."""
+launch. G = 8 (IQ1_M) runs in both bodies as G = 16 and 32 do.
+
+The `qmm_i4` kernel (csrc/qmm_i4.cu) is the counterpart of
+`qmatmul_pallas_2d_i4` / `qmatmul_pallas_stacked_i4` (pallas_qmm.py's
+`_qmm_kernel_i4`): weights of the `int4` form, signed nibbles with the scale
+AND the bias applied to every weight in the compute dtype. Only the kernel
+benchmark (tools/kernel_bench.py) makes such weights; the model path never
+routes them, as in the reference."""
 
 from __future__ import annotations
 
@@ -45,6 +52,8 @@ def qmm_math(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch
     with f32 accumulation, plus round_ct(xsum_g) @ round_ct(bias). x [B, K]
     -> f32 [B, N]. Shared by the plain versions of qmm and of the fused FFN
     kernels (ops/ffn.py), which count their own calls."""
+    if w.int4:
+        raise ValueError("int4 weights take qmm_i4, not qmm")
     k, n = _dims(w)
     g = w.group
     b = x.shape[0]
@@ -66,14 +75,15 @@ def qmm_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torc
 
 
 def _check(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
-    if w.layout != "kn":
-        raise ValueError("qmm takes 'kn' layout weights")
+    if w.layout != "kn" or w.int4:
+        raise ValueError("qmm takes 'kn' layout weights that are not int4")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"qmm compute dtype must be f32 or bf16, got {compute_dtype}")
     k, n = _dims(w)
     g = w.group
-    if g not in (16, 32) or k % g or n % 4:
-        raise ValueError(f"qmm needs G in (16, 32), K % G == 0, N % 4 == 0 (K={k}, N={n}, G={g})")
+    if g not in (8, 16, 32) or k % g or n % 4:
+        raise ValueError(f"qmm needs G in (8, 16, 32), K % G == 0, N % 4 == 0 "
+                         f"(K={k}, N={n}, G={g})")
     if w.packed and g % 2:
         raise ValueError("packed weights need an even group")
     if w.q.dtype != torch.int8:
@@ -165,35 +175,119 @@ def _launch(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> t
     return out
 
 
+def _apply(x: torch.Tensor, w: QTensor, layer: int | None, compute_dtype, name: str, plain,
+           check, launch) -> torch.Tensor:
+    """x [..., K] against a 2-D weight (`layer` None) or layer `layer` of a
+    stack, read in place: CPU tensors take the plain version, CUDA tensors
+    launch the kernel."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    if x.device.type == "cpu":
+        out = plain(x2, w if layer is None else w.layer(layer), compute_dtype)
+    else:
+        if layer is None and w.q.dim() != 2:
+            raise ValueError(f"{name} takes a 2-D weight; use {name}_stacked for a layer stack")
+        if layer is not None:
+            if w.q.dim() != 3:
+                raise ValueError(f"{name}_stacked takes a layer-stacked [L, ...] weight")
+            if not 0 <= layer < w.q.shape[0]:
+                raise IndexError(f"layer {layer} outside the stack of {w.q.shape[0]}")
+        check(x2, w, compute_dtype)
+        out = launch(x2, w, layer, compute_dtype)
+    return out.reshape(*lead, -1)
+
+
 def qmm(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x [..., K] @ dequant(w)^T -> [..., N] f32 for a 2-D "kn" weight
     (counterpart of `qmatmul_pallas`). CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
-    lead, k = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, k)
-    if x.device.type == "cpu":
-        out = qmm_plain(x2, w, compute_dtype)
-    else:
-        if w.q.dim() != 2:
-            raise ValueError("qmm takes a 2-D weight; use qmm_stacked for a layer stack")
-        _check(x2, w, compute_dtype)
-        out = _launch(x2, w, None, compute_dtype)
-    return out.reshape(*lead, -1)
+    return _apply(x, w, None, compute_dtype, "qmm", qmm_plain, _check, _launch)
 
 
 def qmm_stacked(x: torch.Tensor, w: QTensor, layer: int,
                 compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Matmul against layer `layer` of a layer-stacked "kn" weight, read in
     place (counterpart of `qmatmul_pallas_stacked_nd`)."""
-    lead, k = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, k)
-    if x.device.type == "cpu":
-        out = qmm_plain(x2, w.layer(layer), compute_dtype)
-    else:
-        if w.q.dim() != 3:
-            raise ValueError("qmm_stacked takes a layer-stacked [L, ...] weight")
-        if not 0 <= layer < w.q.shape[0]:
-            raise IndexError(f"layer {layer} outside the stack of {w.q.shape[0]}")
-        _check(x2, w, compute_dtype)
-        out = _launch(x2, w, layer, compute_dtype)
-    return out.reshape(*lead, -1)
+    return _apply(x, w, layer, compute_dtype, "qmm", qmm_plain, _check, _launch)
+
+
+# ---------------------------------------------------------------------------
+# qmm_i4: int4 weights (csrc/qmm_i4.cu)
+# ---------------------------------------------------------------------------
+
+_I4_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def qmm_i4_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the qmm_i4 kernel for one 2-D int4 "kn" weight, at
+    the reference's rounding points (`_qmm_kernel_i4`): w = round_ct(q *
+    round_ct(scale)), w = round_ct(w + round_ct(bias)), y = round_ct(x) @ w
+    with f32 accumulation. x [B, K] -> f32 [B, N]."""
+    _build.plain_calls["qmm_i4"] += 1
+    if not w.int4:
+        raise ValueError("qmm_i4 takes int4 weights")
+    k, n = _dims(w)
+    g = w.group
+    ct = compute_dtype
+    wd = w.unpack().q.to(ct).reshape(k // g, g, n) * w.scale.to(ct)[:, None, :]
+    if w.bias is not None:
+        wd = wd + w.bias.to(ct)[:, None, :]
+    return x.float().to(ct).float() @ wd.reshape(k, n).float()
+
+
+def _check_i4(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
+    if w.layout != "kn" or not w.int4 or w.coded:
+        raise ValueError("qmm_i4 takes int4 'kn' weights with materialized scales")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"qmm_i4 compute dtype must be f32 or bf16, got {compute_dtype}")
+    k, n = _dims(w)
+    g = w.group
+    if g not in (16, 32) or k % g or n % 4:
+        raise ValueError(f"qmm_i4 needs G in (16, 32), K % G == 0, N % 4 == 0 "
+                         f"(K={k}, N={n}, G={g})")
+    if w.q.dtype != torch.int8:
+        raise ValueError(f"q must hold int8 nibble pairs, got {w.q.dtype}")
+    for name, t in (("scale", w.scale), ("bias", w.bias)):
+        if t is not None and t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name} must be f32 or bf16, got {t.dtype}")
+    for name, t in (("q", w.q), ("scale", w.scale), ("bias", w.bias)):
+        if t is not None and (t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+
+
+def _launch_i4(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> torch.Tensor:
+    fn = _build.kernel("qmm_i4_launch", _I4_ARGTYPES)
+    k, n = _dims(w)
+    b = x2.shape[0]
+    if x2.shape[1] != k:
+        raise ValueError(f"x has K={x2.shape[1]}, weight K={k}")
+    if b == 0:
+        return x2.new_empty((0, n))
+    xf = x2.float().contiguous()
+    rb, splits, gps = simt_config(b, k, n, w.group)
+    out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
+    partial = torch.empty((splits, b, n), dtype=torch.float32, device=xf.device) if splits > 1 else None
+    rc = fn(
+        xf.data_ptr(), _ptr(w.q, layer), _ptr(w.scale, layer), _ptr(w.bias, layer),
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        b, k, n, w.group, _KINDS[w.scale.dtype], -1 if w.bias is None else _KINDS[w.bias.dtype],
+        int(compute_dtype == torch.bfloat16), rb, splits, gps,
+        torch.cuda.current_stream(xf.device).cuda_stream,
+    )
+    _build.check(rc, "qmm_i4_launch")
+    _build.launches["qmm_i4"] += 1
+    return out
+
+
+def qmm_i4(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [..., K] @ w -> [..., N] f32 for a 2-D int4 "kn" weight
+    (counterpart of `qmatmul_pallas_2d_i4`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    return _apply(x, w, None, compute_dtype, "qmm_i4", qmm_i4_plain, _check_i4, _launch_i4)
+
+
+def qmm_i4_stacked(x: torch.Tensor, w: QTensor, layer: int,
+                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Matmul against layer `layer` of a layer-stacked int4 "kn" weight, read
+    in place (counterpart of `qmatmul_pallas_stacked_i4`)."""
+    return _apply(x, w, layer, compute_dtype, "qmm_i4", qmm_i4_plain, _check_i4, _launch_i4)

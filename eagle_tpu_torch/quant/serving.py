@@ -2,7 +2,7 @@
 eagle_tpu/quant/serving.py: `_pack_q`, `prepare_qtensor`,
 `prepare_params_for_serving`).
 
-- nibble packing of 4-bit "kn" codes (Q4_0, Q4_K): two codes per byte, with
+- nibble packing of 4-bit "kn" codes (Q4_0, Q4_1, Q4_K): two codes per byte, with
   packed row j of a group holding (j, j + G/2) as (lo, hi);
 - `scale_mode` "f32" keeps the exact f32 scale products; "bf16" rounds
   materialized scales and biases to bf16 (coded scales stay as they are).
@@ -20,7 +20,7 @@ from ..gguf.constants import GGMLType
 from .qtensor import QTensor
 
 #: formats whose codes fit [0, 16) after repack
-PACKABLE_TYPES = (GGMLType.Q4_0, GGMLType.Q4_K)
+PACKABLE_TYPES = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q4_K)
 
 
 def _pack_q(q: torch.Tensor, group: int) -> torch.Tensor:

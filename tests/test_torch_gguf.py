@@ -131,9 +131,9 @@ def test_writer_refuses_what_it_cannot_encode(tmp_path):
 
 
 def test_reader_refuses_unported_types(tmp_path):
-    path = tmp_path / "q5.gguf"
+    path = tmp_path / "q8k.gguf"  # Q8_K: ggml's activation format, no weight repack
     w = JWriter(path)
-    w.add_tensor("w", np.zeros((2, 32), np.float32), ggml_type=JGGMLType.Q5_0)
+    w.add_tensor("w", np.zeros((2, 256), np.float32), ggml_type=JGGMLType.Q8_K)
     w.write()
     with pytest.raises(ValueError, match="not ported"):
         GGUFReader(path)

@@ -1,13 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over every branch at small shapes: qmm (packed / unpacked, coded / f32 /
-bf16 scales, bias or none, G = 32 and 16, the Q4_0 and Q8_0 forms, each
-row-tile size of the SIMT body and the tensor-core body, f32 and bf16
-compute, 2-D and stacked), flash_decode and flash_prefill (f32 and bf16
+bf16 scales, bias or none, G = 32, 16 and 8, the Q4_0, Q8_0 and IQ1_M
+forms, each row-tile size of the SIMT body and the tensor-core body, f32
+and bf16 compute, 2-D and stacked), qmm_i4 (2-D and stacked, f32 / bf16
+scale and bias, bias or none, G = 32 and 16, f32 and bf16 compute, ragged
+row tiles and K splits), flash_decode and flash_prefill (f32 and bf16
 caches, head_dim 64 and 128, GQA, key splits, s_limit, rows that see
 nothing), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
-scales, bias or none, G = 32 and 16, SiLU / tanh-GELU, 1 to 64 rows, L = 1
-and stacked, f32 and bf16 compute), and greedy tokens of a tiny model on the
-card against the CPU, unfused and fused.
+scales, bias or none, G = 32, 16 and 8, SiLU / tanh-GELU, 1 to 64 rows,
+L = 1 and stacked, f32 and bf16 compute), and greedy tokens of a tiny model
+on the card against the CPU, unfused and fused.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -34,8 +36,9 @@ from eagle_tpu_torch.ops import flash_attention as fa
 from eagle_tpu_torch.gguf.constants import GGMLType
 from eagle_tpu_torch.ops.ffn import (ffn_out_norm, ffn_out_norm_plain, gate_up_act,
                                      gate_up_act_plain)
-from eagle_tpu_torch.ops.qmm import qmm, qmm_plain, qmm_stacked
-from eagle_tpu_torch.quant.qtensor import Q4_K, Q6_K, QTensor
+from eagle_tpu_torch.ops.qmm import (qmm, qmm_i4, qmm_i4_plain, qmm_i4_stacked, qmm_plain,
+                                     qmm_stacked)
+from eagle_tpu_torch.quant.qtensor import Q4_K, Q6_K, QTensor, pack_int4
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
 
@@ -69,6 +72,21 @@ def _packed_g16(gen, n, k, stack=None):
     return QTensor(q=q, scale=scale, bias=bias, group=16, layout="kn", packed=True)
 
 
+def _g8(gen, n, k, stack=None, packed=False):
+    """A weight with groups of 8 and an f32 bias, as IQ1_M repacks (codes in
+    {-1, 0, 1}), or packed random nibbles."""
+    lead = () if stack is None else (stack,)
+    if packed:
+        q = torch.randint(-128, 128, lead + (k // 2, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        q = torch.randint(-1, 2, lead + (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand(lead + (k // 8, n), generator=gen, device="cuda") * 1e-2
+    bias = scale * 0.125 * (torch.randint(0, 2, scale.shape, generator=gen, device="cuda") * 2 - 1)
+    return QTensor(q=q, scale=scale, bias=bias, group=8, ggml_type=int(GGMLType.IQ1_M),
+                   layout="kn", packed=packed)
+
+
 # name -> weight maker (gen, n, k, stack)
 WEIGHTS = {
     "q4k_packed_coded": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_K, s, packed=True, coded=True),
@@ -86,6 +104,9 @@ WEIGHTS = {
     # and Q8_0 (int8 codes over the whole [-128, 127], f32 scale, no bias)
     "q4_0_packed_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_0, s, packed=True),
     "q8_0_int8_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q8_0, s),
+    # groups of 8: the IQ1_M form, and packed nibbles
+    "iq1m_int8_g8": lambda g, n, k, s: _g8(g, n, k, s),
+    "packed_g8_f32": lambda g, n, k, s: _g8(g, n, k, s, packed=True),
 }
 
 
@@ -102,12 +123,62 @@ def test_qmm_kernel_matches_plain(cuda, name, rows, compute):
 
 
 @pytest.mark.parametrize("rows", [1, 6, 70])
-@pytest.mark.parametrize("name", ["q4k_packed_coded", "q6k_int8_coded"])
+@pytest.mark.parametrize("name", ["q4k_packed_coded", "q6k_int8_coded", "iq1m_int8_g8"])
 def test_qmm_stacked_kernel_matches_plain(cuda, name, rows):
     w = WEIGHTS[name](cuda, 512, 1024, 3)
     x = torch.randn((rows, 1024), generator=cuda, device="cuda")
     for layer in (0, 2):
         _close(qmm_stacked(x, w, layer), qmm_plain(x, w.layer(layer)), TOL[torch.bfloat16])
+
+
+def _int4_weight(gen, n, k, group, stack, scale_dtype, bias):
+    lead = () if stack is None else (stack,)
+    q = torch.randint(-8, 8, lead + (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = (torch.rand(lead + (k // group, n), generator=gen, device="cuda") * 1e-2)
+    b = torch.randn(lead + (k // group, n), generator=gen, device="cuda") * 1e-3
+    return QTensor(q=pack_int4(q, group), scale=scale.to(scale_dtype),
+                   bias=b.to(scale_dtype) if bias else None, group=group, layout="kn",
+                   int4=True)
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16], ids=["s_f32", "s_bf16"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("rows", [1, 2, 5, 8, 37, 70])
+@pytest.mark.parametrize("stack", [None, 3], ids=["2d", "stacked"])
+def test_qmm_i4_kernel_matches_plain(cuda, stack, rows, group, bias, scale_dtype, compute):
+    """Every branch of qmm_i4: each row tile (1, 2, 4, 8 rows and ragged
+    ones), K splits (small N at K = 1024), both entries."""
+    w = _int4_weight(cuda, 256, 1024, group, stack, scale_dtype, bias)
+    x = torch.randn((rows, 1024), generator=cuda, device="cuda")
+    for layer in ((None,) if stack is None else (0, 2)):
+        _build.reset_counts()
+        if stack is None:
+            got, want = qmm_i4(x, w, compute), qmm_i4_plain(x, w, compute)
+        else:
+            got = qmm_i4_stacked(x, w, layer, compute)
+            want = qmm_i4_plain(x, w.layer(layer), compute)
+        assert _build.launches["qmm_i4"] == 1 and _build.plain_calls["qmm_i4"] == 1
+        _close(got, want, TOL[compute])
+
+
+def test_qmm_i4_refuses_what_it_cannot_take(cuda):
+    x = torch.randn((2, 256), generator=cuda, device="cuda")
+    w = _int4_weight(cuda, 64, 256, 32, None, torch.bfloat16, True)
+    bad = {
+        "group 8": dataclasses.replace(w, group=8, scale=torch.zeros((32, 64), device="cuda"),
+                                       bias=None),
+        "not int4": dataclasses.replace(w, int4=False, packed=True),
+        "int8 scale": dataclasses.replace(w, scale=w.scale.to(torch.int8)),
+        "stacked into the 2-D entry": dataclasses.replace(w, q=w.q[None], scale=w.scale[None],
+                                                          bias=w.bias[None]),
+    }
+    for what, bw in bad.items():
+        with pytest.raises(ValueError):
+            qmm_i4(x, bw)
+    with pytest.raises(ValueError):
+        qmm(x, w)  # qmm does not read int4 weights
 
 
 def _cache(gen, dtype, d, h_kv, s=256, n_layers=2):
@@ -188,6 +259,7 @@ FFN_FORMS = {
     "q8_0_int8_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q8_0, s),
     "q6k_int8_bf16_g16": lambda g, n, k, s: synth_qtensor(g, n, k, Q6_K, s,
                                                           scale_dtype=torch.bfloat16),
+    "iq1m_int8_f32_g8": lambda g, n, k, s: _g8(g, n, k, s),
 }
 FFN_ROWS = [1, 2, 6, 9, 33, 64]
 

@@ -5,16 +5,18 @@ backend).
 
 Variants: Q4_0 layers with a Q6_K output, Q4_0 embeddings and a Q8_0 draft
 (the Vicuna-7B Q4_0 path); Q4_K layers and draft with coded load (default)
-and with `EAGLE_TPU_CODED_LOAD=0`. Checks:
+and with `EAGLE_TPU_CODED_LOAD=0`; one file per family of the other formats:
+Q4_1 (nibble-packed at serving), Q5_K (coded load) and IQ1_M (groups of 8;
+random codebook blocks, the reference has no encoder for it). Checks:
 - configs equal, every loaded leaf bit-equal, before and after
   `prepare_params_for_serving` (the port fuses the draft's q/k/v and
   gate/up at load; the reference's draft is fused with its own
   `fuse_layer_weights` for the comparison);
 - logits of a prefill and two decode steps at rtol 1e-4 in f32 (the port
   folds group biases as a side product and sums attention in another order);
-- greedy and chain tokens identical to the reference's, and, for Q4_0, also
-  with the fused FFN block on (`EAGLE_TPU_FUSED_FFN=1`), whose plain versions
-  do the unfused arithmetic in f32."""
+- greedy and chain tokens identical to the reference's, and, for Q4_0 and
+  IQ1_M, also with the fused FFN block on (`EAGLE_TPU_FUSED_FFN=1`), whose
+  plain versions do the unfused arithmetic in f32."""
 
 import dataclasses
 
@@ -49,7 +51,14 @@ VARIANTS = {
     "q4_0": (J.Q4_0, J.Q6_K, J.Q4_0, J.Q8_0, None),
     "q4_k_coded": (J.Q4_K, J.Q6_K, J.Q4_K, J.Q4_K, None),
     "q4_k_products": (J.Q4_K, J.Q6_K, J.Q4_K, J.Q4_K, "0"),
+    "q4_1": (J.Q4_1, J.Q6_K, J.Q4_1, J.Q4_1, None),
+    "q5_k_coded": (J.Q5_K, J.Q5_K, J.Q5_K, J.Q5_K, None),
+    "iq1_m": (J.IQ1_M, J.IQ1_M, J.IQ1_M, J.IQ1_M, None),
 }
+#: variants whose layer weights nibble-pack at serving
+PACKED = {"q4_0", "q4_k_coded", "q4_k_products", "q4_1"}
+#: variants whose tokens are also checked with the fused FFN block
+FUSED = {"q4_0", "iq1_m"}
 
 
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
@@ -109,7 +118,8 @@ def test_leaves_bit_equal(loaded, prepared):
     if prepared:
         jt, jd = jprepare(jt), jprepare(jd)
         tt, td = prepare_params_for_serving(tt), prepare_params_for_serving(td)
-        assert tt["layers"]["wo"].packed and not tt["tok_embd"].packed
+        assert tt["layers"]["wo"].packed == (loaded["name"] in PACKED)
+        assert not tt["tok_embd"].packed
     _same_tree(tt, jt, "target")
     _same_tree(td, jd, "draft")
 
@@ -152,7 +162,7 @@ def test_tokens_identical(loaded, monkeypatch):
         compute_dtype=jnp.float32, backend="xla", eos_id=-1).generate(
         prompt, max_new_tokens=N_NEW, stop_at_eos=False)
     assert ref_chain == want
-    fused_modes = ["0", "1"] if loaded["name"] == "q4_0" else ["0"]
+    fused_modes = ["0", "1"] if loaded["name"] in FUSED else ["0"]
     for mode in fused_modes:
         monkeypatch.setenv("EAGLE_TPU_FUSED_FFN", mode)
         _build.reset_counts()

@@ -7,7 +7,8 @@
 - `generate` refuses an empty prompt, the one input that would build a
   negative cache slot;
 - a kernel wrapper given a non-CPU tensor and no buildable kernel raises and
-  never runs the plain version."""
+  never runs the plain version;
+- the codebook grids are read from the port's own copy of `iq_grids.npz`."""
 
 import ast
 import pathlib
@@ -18,7 +19,7 @@ import torch
 from eagle_tpu_torch import _build
 from eagle_tpu_torch.models.config import ModelConfig
 from eagle_tpu_torch.ops.flash_attention import flash_attention_cached, flash_attention_prefill
-from eagle_tpu_torch.ops.qmm import qmm, qmm_stacked
+from eagle_tpu_torch.ops.qmm import qmm, qmm_i4, qmm_i4_stacked, qmm_stacked
 from eagle_tpu_torch.quant.qtensor import QTensor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -32,7 +33,9 @@ def _port_files():
     names = {str(f.relative_to(ROOT)) for f in files}
     for must in ("eagle_tpu_torch/gguf/reader.py", "eagle_tpu_torch/gguf/writer.py",
                  "eagle_tpu_torch/gguf/constants.py", "eagle_tpu_torch/models/loader.py",
-                 "eagle_tpu_torch/quant/serving.py", "eagle_tpu_torch/ops/ffn.py"):
+                 "eagle_tpu_torch/quant/serving.py", "eagle_tpu_torch/ops/ffn.py",
+                 "eagle_tpu_torch/quant/iq_blocks.py", "eagle_tpu_torch/tools/kernel_bench.py",
+                 "eagle_tpu_torch/timing.py"):
         assert must in names
     return files
 
@@ -138,8 +141,17 @@ def _meta_ffn_weight(n, k):
                    bias=torch.empty((2, k // 32, n), **kw), group=32, layout="kn", packed=True)
 
 
+def _meta_int4_weight(stack=None):
+    lead = () if stack is None else (stack,)
+    kw = dict(device="meta")
+    return QTensor(q=torch.empty(lead + (128, 64), dtype=torch.int8, **kw),
+                   scale=torch.empty(lead + (8, 64), dtype=torch.bfloat16, **kw),
+                   bias=torch.empty(lead + (8, 64), dtype=torch.bfloat16, **kw),
+                   group=32, layout="kn", int4=True)
+
+
 @pytest.mark.parametrize("call", ["qmm", "qmm_stacked", "flash_decode", "flash_prefill",
-                                  "ffn_out_norm", "gate_up_act"])
+                                  "ffn_out_norm", "gate_up_act", "qmm_i4", "qmm_i4_stacked"])
 def test_device_tensor_without_kernel_raises(no_kernels, call):
     from eagle_tpu_torch.ops.ffn import ffn_out_norm, gate_up_act
 
@@ -160,6 +172,31 @@ def test_device_tensor_without_kernel_raises(no_kernels, call):
             torch.empty((128,), **meta), _meta_ffn_weight(128, 256), 1, 1e-6),
         "gate_up_act": lambda: gate_up_act(torch.empty((1, 256), **meta),
                                            _meta_ffn_weight(256, 256), 1),
+        "qmm_i4": lambda: qmm_i4(x, _meta_int4_weight()),
+        "qmm_i4_stacked": lambda: qmm_i4_stacked(x, _meta_int4_weight(stack=2), 1),
     }
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fns[call]()
+
+
+def test_iq_grids_come_from_the_port(monkeypatch):
+    """The codebook formats read the port's copy of iq_grids.npz (the same
+    bytes as the reference's), never a file of the JAX package."""
+    import numpy as np
+
+    from eagle_tpu_torch.quant import iq_blocks
+
+    own = ROOT / "eagle_tpu_torch" / "quant" / "iq_grids.npz"
+    assert iq_blocks.NPZ == own and own.is_file()
+    assert own.read_bytes() == (ROOT / "eagle_tpu" / "quant" / "iq_grids.npz").read_bytes()
+    opened = []
+    real_load = np.load
+    monkeypatch.setattr(np, "load", lambda path, *a, **k: (opened.append(path),
+                                                           real_load(path, *a, **k))[1])
+    iq_blocks._host_grids.cache_clear()
+    try:
+        grids = iq_blocks._host_grids()
+    finally:
+        iq_blocks._host_grids.cache_clear()
+    assert opened == [own]
+    assert grids["ksigns"].shape == (128,) and grids["iq1s"].shape == (2048, 8)

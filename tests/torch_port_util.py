@@ -57,12 +57,47 @@ def jax_cfg_to_torch(cfg):
     return TorchCfg(**{k: v for k, v in dataclasses.asdict(cfg).items() if k in names})
 
 
+def random_blocks(rng, qtype, n: int, k: int, d_mag: float = 2e-3) -> np.ndarray:
+    """Random block bytes of an [n, k] tensor of `qtype` (a reference
+    GGMLType) whose f16 fields are finite, in [0.5, 1.5) x d_mag with a
+    random sign; IQ1_M's scale nibbles likewise. Every code and sub-scale
+    pattern occurs."""
+    from eagle_tpu.gguf.constants import GGML_TYPE_TRAITS, GGMLType
+    from eagle_tpu_torch.gguf.constants import F16_FIELDS
+
+    tr = GGML_TYPE_TRAITS[qtype]
+    nb = n * k // tr.block_size
+    raw = rng.integers(0, 256, (nb, tr.type_size), dtype=np.uint8)
+
+    def scales():
+        d = rng.uniform(0.5, 1.5, nb) * d_mag * rng.choice([-1.0, 1.0], nb)
+        return d.astype(np.float16).view(np.uint8).reshape(nb, 2)
+
+    for at in F16_FIELDS[int(qtype)]:
+        raw[:, at:at + 2] = scales()
+    if qtype == GGMLType.IQ1_M:
+        bits = scales().view("<u2")[:, 0].astype(np.int32)
+        for word in range(4):  # nibble `word` of d: the top nibble of scale word `word`
+            hi = 48 + 2 * word + 1
+            raw[:, hi] = (raw[:, hi] & 0x0F) | (((bits >> (4 * word)) & 0xF) << 4)
+    return raw.reshape(-1)
+
+
+def has_encoder(qtype) -> bool:
+    """Whether the reference's writer can quantize float weights to `qtype`
+    (the codebook formats have no encoder)."""
+    from eagle_tpu.quant.blocks import SUPPORTED_QUANT_TYPES
+
+    return qtype in SUPPORTED_QUANT_TYPES
+
+
 def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
     `emb_type`, the draft's matmul weights and embedding in `draft_type`;
-    norms and fc.bias F32. Returns (target path, draft path)."""
+    norms and fc.bias F32. A format without an encoder (the codebook ones)
+    gets `random_blocks`. Returns (target path, draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
@@ -71,8 +106,13 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     d, f, v = jcfg.n_embd, jcfg.n_ff, jcfg.vocab_size
     nq, nkv = jcfg.n_heads * jcfg.head_dim, jcfg.n_kv_heads * jcfg.head_dim
 
-    def mat(n, k, scale=0.05):
-        return (rng.standard_normal((n, k)) * scale).astype(np.float32)
+    def qmat(w, name, n, k, qtype, scale=0.05):
+        if has_encoder(qtype):
+            w.add_tensor(name, (rng.standard_normal((n, k)) * scale).astype(np.float32),
+                         ggml_type=qtype)
+        else:
+            w.add_tensor(name, random_blocks(rng, qtype, n, k), ggml_type=qtype,
+                         raw_shape=(n, k))
 
     def norm():
         return rng.uniform(0.8, 1.2, d).astype(np.float32)
@@ -83,26 +123,26 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
         for name, (n, k) in (("attn_q", (nq, d)), ("attn_k", (nkv, d)), ("attn_v", (nkv, d)),
                              ("attn_output", (d, nq)), ("ffn_gate", (f, d)), ("ffn_up", (f, d)),
                              ("ffn_down", (d, f))):
-            w.add_tensor(f"blk.{i}.{name}.weight", mat(n, k), ggml_type=qtype)
+            qmat(w, f"blk.{i}.{name}.weight", n, k, qtype)
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
 
     target = tmp_path / "target.gguf"
     w = GGUFWriter(target)
     for k, val in _base_metadata(jcfg, "llama").items():
         w.add(k, val)
-    w.add_tensor("token_embd.weight", mat(v, d, 0.5), ggml_type=emb_type)
+    qmat(w, "token_embd.weight", v, d, emb_type, 0.5)
     for i in range(jcfg.n_layers):
         layer(w, i, layer_type)
     w.add_tensor("output_norm.weight", norm())
-    w.add_tensor("output.weight", mat(v, d), ggml_type=out_type)
+    qmat(w, "output.weight", v, d, out_type)
     w.write()
 
     draft = tmp_path / "draft.gguf"
     w = GGUFWriter(draft)
     for k, val in _base_metadata(dataclasses.replace(jcfg, n_layers=1), "eagle").items():
         w.add(k, val)
-    w.add_tensor("token_embd.weight", mat(v, d, 0.5), ggml_type=draft_type)
-    w.add_tensor("fc.weight", mat(d, 2 * d), ggml_type=draft_type)
+    qmat(w, "token_embd.weight", v, d, draft_type, 0.5)
+    qmat(w, "fc.weight", d, 2 * d, draft_type)
     w.add_tensor("fc.bias", (rng.standard_normal(d) * 0.01).astype(np.float32))
     layer(w, 0, draft_type, attn_norm=False)
     w.write()
