@@ -17,7 +17,9 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    single-layer Q8_0 (relative error <= 1e-2); flash_decode at S=1024,
    T in {1, 6}, 32 heads of 128 with a holed tag mask, and at T=S=512 as
    the EAGLE engine's prompt takes it; flash_prefill at T=512 with padded
-   and q_pos=-1 rows (relative error <= 1e-2). Each prints kernel ms, plain
+   and q_pos=-1 rows, one of them inside a 64-row tile (relative error <=
+   1e-2); both kernels at g = 4 (8 kv heads) for T = 6 and 20 at s_limit
+   300, with a fully masked row (checks only). Each prints kernel ms, plain
    ms, the bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
    whichever is larger) and library_ms (one PyTorch call computing the
    same function, or for the fused FFN kernels the same product: torch.matmul
@@ -377,6 +379,7 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
     tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
     q_pos = torch.arange(t, dtype=torch.int32, device="cuda")[None].clone()
     q_pos[:, -8:] = -1  # rows that see nothing: the uniform average
+    q_pos[:, 100] = -1  # one inside a 64-row tile whose other rows see keys
     q = torch.randn((b, t, h, d), generator=gen, device="cuda")
     got = fa.flash_attention_prefill(q, k_cache, v_cache, q_pos, tags, layer, s_limit=lim)
     want = fa.flash_attention_prefill_plain(q, k_cache, v_cache, q_pos, tags, layer, s_limit=lim)
@@ -385,9 +388,11 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
     if rel > ATTN_TOL or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"flash_prefill: rel err {rel:.3e} > {ATTN_TOL}")
     uniform = v_cache[layer, :, :, :lim].float().mean(dim=2)  # [B, H, D]
-    _, rel_u = rel_err(got[:, -1], uniform)
-    if rel_u > ATTN_TOL:
-        raise AssertionError(f"flash_prefill: q_pos=-1 row is not the uniform average ({rel_u:.2e})")
+    for row in (100, t - 1):
+        _, rel_u = rel_err(got[:, row], uniform)
+        if rel_u > ATTN_TOL:
+            raise AssertionError(f"flash_prefill: q_pos=-1 row {row} is not the uniform average "
+                                 f"({rel_u:.2e})")
     ms = device_ms(lambda i: fa.flash_attention_prefill(q, k_cache, v_cache, q_pos, tags, layer,
                                                        s_limit=lim), 10)
     plain = device_ms(lambda i: fa.flash_attention_prefill_plain(q, k_cache, v_cache, q_pos, tags,
@@ -407,7 +412,55 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
     report["attention"] = results
     del k_cache, v_cache
     torch.cuda.empty_cache()
+    report["attention_gqa"] = gqa_checks(gen)
     return decode, prefill
+
+
+def gqa_checks(gen) -> list[dict]:
+    """Both kernels at g = 4 (32 query heads over 8 kv heads of 128, bf16
+    cache, s_limit 300) against their plain versions: T = 6 and 20 give 24
+    and 80 rows per kv head, across a 16- and a 64-row tile edge; a row that
+    sees nothing comes out as the uniform average of V over [0, 300)."""
+    import torch
+
+    from eagle_tpu_torch.ops import flash_attention as fa
+    from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+
+    b, h, h_kv, d, s, lim, layer = 1, 32, 8, 128, 512, 300, 0
+    k_cache = torch.randn((1, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v_cache = torch.randn((1, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+    tags[:, :290] = torch.arange(290, dtype=torch.int32, device="cuda")
+    tags[:, 40:44] = -1
+    uniform = v_cache[layer, :, :, :lim].float().mean(dim=2).repeat_interleave(h // h_kv, dim=1)
+    out = []
+    for t in (6, 20):
+        pos = (270 + torch.arange(t, dtype=torch.int32, device="cuda"))[None].clone()
+        q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+        mask = causal_mask_from_tags(tags[:, :lim], pos)
+        mask[:, t // 2] = False
+        q_pos = pos.clone()
+        q_pos[:, t // 2] = -1
+        for name, got, want in (
+                ("flash_decode", fa.flash_attention_cached(q, k_cache, v_cache, mask, layer,
+                                                           s_limit=lim),
+                 fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, layer, s_limit=lim)),
+                ("flash_prefill", fa.flash_attention_prefill(q, k_cache, v_cache, q_pos, tags,
+                                                             layer, s_limit=lim),
+                 fa.flash_attention_prefill_plain(q, k_cache, v_cache, q_pos, tags, layer,
+                                                  s_limit=lim))):
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(got, want)
+            _, rel_u = rel_err(got[:, t // 2], uniform)
+            if rel > ATTN_TOL or rel_u > ATTN_TOL or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name} g=4 T={t} s_limit={lim}: rel err {rel:.3e}, "
+                                     f"masked row {rel_u:.3e}")
+            plan = fa._plan(t * h // h_kv, lim, d, torch.bfloat16, b * h_kv, name == "flash_prefill")
+            log(f"[{name}] g=4 T={t} ({t * h // h_kv} rows per kv head) S={lim}: rel err "
+                f"{rel:.2e}, masked row = uniform average ({rel_u:.1e}); {plan}")
+            out.append(dict(name=name, g=4, t=t, s=lim, max_abs_err=abs_err, rel_err=rel,
+                            plan=plan._asdict()))
+    return out
 
 
 def tiny_model_check():

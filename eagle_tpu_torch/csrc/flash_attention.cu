@@ -1,5 +1,5 @@
 // Flash attention over the layer-stacked, head-major, position-tagged KV
-// cache [L, B, H_kv, S, D]. Two kernels share one body:
+// cache [L, B, H_kv, S, D]. Two kernels, each with two bodies:
 //   flash_decode  <- eagle_tpu/ops/pallas_attention.py:_flash_kernel
 //                    (flash_attention_cached): a bool mask [B, T, S_read]
 //                    computed outside, read per key tile — decode (T=1),
@@ -13,18 +13,47 @@
 // cache dtype; scores accumulate in f32 and are scaled; masked scores are
 // -1e30; the online softmax keeps f32 m / l / acc with m starting at -1e30
 // (so a fully masked row comes out as the uniform average of V over the
-// s_limit keys, as in the reference); p is rounded to the cache dtype for
-// the PV product; the denominator is clamped at 1e-20; only keys
-// [0, s_limit) are read; the output is f32 [B, T, H, D].
+// s_limit keys, as in the reference); l sums the unrounded p, and p is
+// rounded to the cache dtype for the PV product; the denominator is clamped
+// at 1e-20; only keys [0, s_limit) are read; the output is f32 [B, T, H, D].
 //
-// Bound on the H100: decode is bound by the bytes of K and V (2 x S x D per
-// kv head per layer). One warp owns RPW query rows and one lane owns one
-// key of a 32-key tile held in shared memory (rows padded so lanes hit
-// distinct banks). Few query rows give few blocks, so the key range is also
-// split across blocks (flash-decoding): each split writes its (m, l, acc)
-// and a combine kernel merges them. The TPU's pad of T*g to 8 rows does not
-// carry over. Prefill uses the same SIMT body — correct, far from the
-// tensor-core bound; wgmma and TMA are later work.
+// Which body serves which cache (ops/flash_attention.py:_plan picks it):
+// - bf16 cache: the tensor-core body (flash_tc_kernel). Decode and verify
+//   (T*g <= 16) are bound by the bytes of K and V (2 x S x D x 2 per kv
+//   head per layer: 5.0 us at S = 1024, 32 heads of 128, on 3.35 TB/s); so
+//   is T = S = 512 (7.5 us against 4.3 GFLOP, 4.4 us at 989 TFLOP/s), if
+//   the products run on the tensor cores. So: QK^T and PV are
+//   mma.sync.m16n8k16 bf16 products with f32 sums (FlashAttention-2 layout:
+//   a warp owns 16 query rows, the scores stay in the accumulator registers,
+//   the online softmax runs on them with quad shuffles, and P is re-packed
+//   from the accumulators into A fragments for PV); K comes from shared
+//   memory with ldmatrix, V with ldmatrix.trans. K/V tiles of 64 keys go
+//   through a 3-stage ring in shared memory (2 where a third would keep a
+//   second block off the SM) filled by cp.async, 16 bytes a thread,
+//   zero-filled past the split's end; the 16-byte chunks of a row are
+//   XOR-swizzled, so ldmatrix's eight rows hit distinct banks without
+//   padding. The decode mask tile [t rows, 64 keys] (or the prefill's 64
+//   slot tags) comes in with the K tile. A block has RB = 16, 32, 64 or 128
+//   query rows on 4 warps (8 at 128 rows, which halves the K/V tiles that
+//   prompt blocks re-read from L2); below 64 rows the warps of one 16-row
+//   tile split each key tile between them, so no warp computes on rows that
+//   do not exist while keys wait; their (m, l, acc) merge in shared memory
+//   at the end (a warp that saw all keys of its rows stores them from its
+//   registers). At T = S = 512 the loop is held by the mma.sync pipe and
+//   its latencies with two warps per scheduler (4.3 GFLOP); wgmma is the
+//   next step there. The softmax
+//   runs in the log2 domain (exp2 with a log2(e) factor on the scaled
+//   score); a masked score is the constant -1e30 * log2(e) and m starts
+//   there, so a fully masked row still gets p = 1 for every key.
+// - f32 cache: the SIMT body (flash_body): one warp owns RPW query rows and
+//   one lane one key of a 32-key tile; exact f32 FMAs, as the tests and the
+//   tiny model's f32 path expect (the tensor cores' TF32 would change the
+//   numbers).
+// Few query rows give few blocks, so both bodies also split the key range
+// across blocks (flash-decoding): each split writes its (m, l, acc) and a
+// combine kernel merges them. No key tile is skipped: a row that sees no
+// key averages every key of [0, s_limit), so causal tile skipping would be
+// exact only for rows that see some key.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,24 +61,15 @@
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kTile = 32;  // keys per tile: one per lane
+constexpr int kTile = 32;  // SIMT body: keys per tile, one per lane
 constexpr float kNegInf = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 template <typename T> __device__ __forceinline__ float round_t(float v);
 template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 struct Args {
   const float* q;          // [B, T, H, D]
@@ -63,6 +83,7 @@ struct Args {
   float* part_l;
   float* part_acc;         // [splits, B, H_kv, TG, D]
   int B, T, H, H_kv, S_full, s_lim, tag_stride, splits, keys_per_split;
+  int mask_vec16;          // mask rows 16-byte aligned: copied with cp.async
   float scale;
 };
 
@@ -212,6 +233,393 @@ __global__ void __launch_bounds__(kWarps * 32) flash_prefill_kernel(Args a) {
   flash_body<T, D, RPW, true>(a);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16 cache).
+
+constexpr int kKeys = 64;  // keys per ring tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;  // a masked score, log2 domain
+constexpr int kTwoBlockSmem = 115712;  // a ring that lets two blocks share an SM
+
+// Shared memory of one block (ops/flash_attention.py:_plan computes the same
+// sizes). A stage holds K [64][D] and V [64][D] bf16, then the mask tile
+// [RB][64] bytes (decode) or 64 int32 tags (prefill). The 16-byte chunk c of
+// key row r lies at chunk c ^ (r & 7) of its row, so the eight rows that one
+// ldmatrix reads hit 32 distinct banks without padding. After the key loop
+// the ring is reused to merge the warps' (acc, m, l).
+template <int D, int RB, bool TAGS>
+struct TcShape {
+  static constexpr int kWarps = RB > 64 ? RB / 16 : 4;  // 128 rows: 8 warps
+  static constexpr int kKV = kKeys * D * 2;
+  static constexpr int kExtra = TAGS ? kKeys * 4 : RB * kKeys;
+  static constexpr int kStage = 2 * kKV + kExtra;
+  static constexpr int kStages = RB > 64 || 3 * kStage <= kTwoBlockSmem ? 3 : 2;
+  static constexpr int kMergeStride = D + 4;  // floats per merged row: no bank conflicts
+  static constexpr int kMerge = kWarps * 16 * (kMergeStride + 2) * 4;
+  static constexpr int kSmem = kStages * kStage > kMerge ? kStages * kStage : kMerge;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !in (the source is not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0, exp2(0) = 1
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D, int RB, bool TAGS>
+__global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32, RB > 64 ? 1 : 2)
+    flash_tc_kernel(Args a) {
+  using S = TcShape<D, RB, TAGS>;
+  constexpr int kWarps = S::kWarps;
+  constexpr int RT = RB / 16;      // 16-row tiles per block
+  constexpr int KW = kWarps / RT;  // warps per row tile, each on its own keys
+  constexpr int KPW = kKeys / KW;  // keys per warp per tile
+  constexpr int NB = KPW / 8;      // n8 score blocks per warp
+  constexpr int KD = D / 16;       // k16 steps over D
+  constexpr int ND = D / 8;        // n8 output blocks
+  constexpr int kThreads = kWarps * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = a.H / a.H_kv, TG = a.T * gq;
+  const int b = blockIdx.x / a.H_kv, kvh = blockIdx.x % a.H_kv;
+  const int row0 = blockIdx.y * RB;
+  const int split = blockIdx.z;
+  const int s_begin = split * a.keys_per_split;
+  const int s_end = min(a.s_lim, s_begin + a.keys_per_split);
+  const int n_tiles = (s_end - s_begin + kKeys - 1) / kKeys;
+  const int kw0 = (warp % KW) * KPW;  // the warp's first key in a tile
+  const int qr = lane >> 2, qc = lane & 3;  // fragment row (and +8), column pair
+  const int t_lo = row0 / gq;  // first query position of the block (mask tile row 0)
+
+  const size_t head = ((size_t)b * a.H_kv + kvh) * a.S_full;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + head * D;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + head * D;
+
+  // Copies of key tile j into ring slot j % kStages.
+  auto load_tile = [&](int j) {
+    unsigned char* st = smem + (j % S::kStages) * S::kStage;
+    const uint32_t st32 = smem_u32(st);
+    const int s0 = s_begin + j * kKeys;
+    constexpr int kChunks = D / 8;  // 16-byte chunks per key row
+#pragma unroll
+    for (int c = threadIdx.x; c < kKeys * kChunks; c += kThreads) {
+      const int key = c / kChunks, part = c % kChunks;
+      const int s = s0 + key;
+      const bool in = s < s_end;
+      const size_t off = (size_t)(in ? s : 0) * D + part * 8;
+      const uint32_t dst = st32 + key * D * 2 + ((part ^ (key & 7)) << 4);
+      cp_async16(dst, kg + off, in);
+      cp_async16(dst + S::kKV, vg + off, in);
+    }
+    unsigned char* ex = st + 2 * S::kKV;
+    if (TAGS) {
+      const int32_t* tg = a.slot_pos + (size_t)b * a.tag_stride;
+      for (int i = threadIdx.x; i < kKeys; i += kThreads) {
+        const bool in = s0 + i < s_end;
+        cp_async4(smem_u32(ex) + 4 * i, tg + (in ? s0 + i : 0), in);
+      }
+    } else {
+      const int n_t = min(a.T, (row0 + RB - 1) / gq + 1) - t_lo;
+      const uint8_t* mrow = a.mask + ((size_t)b * a.T + t_lo) * a.s_lim;
+      if (a.mask_vec16) {  // s_lim % 16 == 0: a chunk is wholly in or out
+        for (int c = threadIdx.x; c < n_t * (kKeys / 16); c += kThreads) {
+          const int tr = c / (kKeys / 16), s = s0 + (c % (kKeys / 16)) * 16;
+          const bool in = s < s_end;
+          cp_async16(smem_u32(ex) + c * 16, mrow + (size_t)tr * a.s_lim + (in ? s : 0), in);
+        }
+      } else {  // unaligned rows: plain loads (the slot is free: see the loop)
+        for (int e = threadIdx.x; e < n_t * kKeys; e += kThreads) {
+          const int tr = e / kKeys, s = s0 + e % kKeys;
+          ex[e] = s < s_end ? mrow[(size_t)tr * a.s_lim + s] : 0;
+        }
+      }
+    }
+  };
+
+  // q fragments of the warp's 16 rows, rounded to bf16 (A layout of m16n8k16)
+  const int rA = row0 + (warp / KW) * 16 + qr;
+  const int rows[2] = {rA, rA + 8};
+  uint32_t qa[KD][4];
+  int qpos[2], tl[2], tlr[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = rows[hr];
+    const bool real = r < TG;
+    const int t = real ? r / gq : 0;
+    const float* qrow = a.q + (((size_t)b * a.T + t) * a.H + kvh * gq + (real ? r % gq : 0)) * D;
+    qpos[hr] = (TAGS && real) ? a.q_pos[(size_t)b * a.T + t] : -1;
+    tl[hr] = real ? t - t_lo : -1;
+    tlr[hr] = real ? t - t_lo : 0;  // a mask tile row that may be read
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // the wrapper passes q 16-byte aligned and D is even: float2 loads
+        const float2 v = real ? *reinterpret_cast<const float2*>(qrow + kk * 16 + half * 8 + 2 * qc)
+                              : make_float2(0.f, 0.f);
+        qa[kk][half * 2 + hr] = pack_bf16(v.x, v.y);
+      }
+    }
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m2[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
+  const float scale2 = a.scale * kLog2e;
+
+#pragma unroll
+  for (int j = 0; j < S::kStages - 1; ++j) {
+    if (j < n_tiles) load_tile(j);
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<S::kStages - 2>();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1's slot
+    if (j + S::kStages - 1 < n_tiles) load_tile(j + S::kStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (j % S::kStages) * S::kStage;
+    const uint32_t ks = smem_u32(st), vs = ks + S::kKV;
+    const unsigned char* ex = st + 2 * S::kKV;
+    const int s0 = s_begin + j * kKeys;
+
+    float sc[NB][4];
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      sc[jb][0] = sc[jb][1] = sc[jb][2] = sc[jb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; kk += 2) {
+        uint32_t kb[4];  // B fragments of k16 steps kk and kk + 1
+        // rows kw0 + jb*8 + (lane & 7): chunks 2kk .. 2kk + 3, swizzled
+        ldmatrix_x4(ks + (kw0 + jb * 8 + (lane & 7)) * D * 2 +
+                        (((kk * 2 + (lane >> 3)) ^ (lane & 7)) << 4),
+                    kb);
+        mma_bf16(sc[jb], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[jb], qa[kk + 1], kb[2], kb[3]);
+      }
+    }
+
+    float mx[2] = {m2[0], m2[1]};
+    const int in_split = s_end - s0;  // keys of this tile inside the split
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const int key = kw0 + jb * 8 + 2 * qc;  // even: the pair (key, key + 1)
+      bool vis[2][2];  // [row A / B][key / key + 1]
+      if constexpr (TAGS) {
+        const int2 tg = *reinterpret_cast<const int2*>(ex + 4 * key);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          vis[hr][0] = tg.x >= 0 && tg.x <= qpos[hr];
+          vis[hr][1] = tg.y >= 0 && tg.y <= qpos[hr];
+        }
+      } else {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const unsigned mb = *reinterpret_cast<const uint16_t*>(ex + tlr[hr] * kKeys + key);
+          vis[hr][0] = tl[hr] >= 0 && (mb & 0xffu);
+          vis[hr][1] = tl[hr] >= 0 && (mb >> 8);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1, c = e & 1;
+        // past the split: -inf, so p = 0 and m is unchanged
+        const float v = key + c >= in_split ? -INFINITY
+                        : vis[hr][c]        ? sc[jb][e] * scale2
+                                            : kNegInf2;
+        sc[jb][e] = v;
+        mx[hr] = fmaxf(mx[hr], v);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      alpha[hr] = fast_exp2(m2[hr] - mx[hr]);
+      m2[hr] = mx[hr];
+    }
+
+    uint32_t pa[NB / 2][4];  // P as A fragments, one per k16 step of keys
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const float p0 = fast_exp2(sc[jb][0] - m2[0]), p1 = fast_exp2(sc[jb][1] - m2[0]);
+      const float p2 = fast_exp2(sc[jb][2] - m2[1]), p3 = fast_exp2(sc[jb][3] - m2[1]);
+      ls[0] += p0 + p1;  // l sums the unrounded p
+      ls[1] += p2 + p3;
+      pa[jb / 2][(jb % 2) * 2] = pack_bf16(p0, p1);
+      pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + ls[hr];
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk) {
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t vb[4];  // B fragments of output blocks n and n + 1
+        ldmatrix_x4_trans(vs + (kw0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * D * 2 +
+                              (((n + (lane >> 4)) ^ (lane & 7)) << 4),
+                          vb);
+        mma_bf16(o[n], pa[kk], vb[0], vb[1]);
+        mma_bf16(o[n + 1], pa[kk], vb[2], vb[3]);
+      }
+    }
+  }
+
+  if constexpr (KW == 1) {  // the warp saw every key of its rows: store from registers
+    cp_async_wait<0>();
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float lr = l[hr];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int r = rows[hr];
+      if (r >= TG) continue;
+      const int t = gq == 1 ? r : r / gq, h = kvh * gq + (r - t * gq);
+      if (a.splits == 1) {
+        const float inv = 1.f / fmaxf(lr, 1e-20f);
+        float* orow = a.out + (((size_t)b * a.T + t) * a.H + h) * D + 2 * qc;
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+          *reinterpret_cast<float2*>(orow + n * 8) =
+              make_float2(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+      } else {
+        const size_t pr = (((size_t)split * a.B + b) * a.H_kv + kvh) * TG + r;
+        if (qc == 0) {
+          a.part_m[pr] = m2[hr] * kLn2;  // the combine kernel works in the natural domain
+          a.part_l[pr] = lr;
+        }
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+          *reinterpret_cast<float2*>(a.part_acc + pr * D + n * 8 + 2 * qc) =
+              make_float2(o[n][2 * hr], o[n][2 * hr + 1]);
+      }
+    }
+    return;
+  }
+  // Below 64 rows the warps of a row tile saw different keys: merge them in
+  // shared memory, then write the rows or the split's partial state.
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is no longer read
+  float* macc = reinterpret_cast<float*>(smem);  // [warps][16][kMergeStride]
+  float* mm = macc + kWarps * 16 * S::kMergeStride;  // [warps][16]
+  float* ml = mm + kWarps * 16;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    if (qc == 0) {
+      mm[warp * 16 + qr + 8 * hr] = m2[hr];
+      ml[warp * 16 + qr + 8 * hr] = l[hr];
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    float* p = macc + (warp * 16 + qr) * S::kMergeStride + n * 8 + 2 * qc;
+    *reinterpret_cast<float2*>(p) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(p + 8 * S::kMergeStride) = make_float2(o[n][2], o[n][3]);
+  }
+  __syncthreads();
+  constexpr int kLanesPerRow = D / 4;  // each thread merges 4 features of a row
+  constexpr int kRowStep = kThreads / kLanesPerRow;
+  const int d0 = (threadIdx.x % kLanesPerRow) * 4;
+  for (int rr = threadIdx.x / kLanesPerRow; rr < RB; rr += kRowStep) {
+    const int r = row0 + rr;
+    if (r >= TG) break;  // rows beyond TG come last
+    const int w0 = (rr / 16) * KW, fr = rr % 16;
+    float mmax = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < KW; ++w) mmax = fmaxf(mmax, mm[(w0 + w) * 16 + fr]);
+    float lsum = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < KW; ++w) {
+      const float wt = fast_exp2(mm[(w0 + w) * 16 + fr] - mmax);
+      const float4 v =
+          *reinterpret_cast<const float4*>(macc + ((w0 + w) * 16 + fr) * S::kMergeStride + d0);
+      lsum += ml[(w0 + w) * 16 + fr] * wt;
+      acc.x += v.x * wt;
+      acc.y += v.y * wt;
+      acc.z += v.z * wt;
+      acc.w += v.w * wt;
+    }
+    const int t = gq == 1 ? r : r / gq, h = kvh * gq + (r - t * gq);
+    if (a.splits == 1) {
+      const float inv = 1.f / fmaxf(lsum, 1e-20f);
+      *reinterpret_cast<float4*>(a.out + (((size_t)b * a.T + t) * a.H + h) * D + d0) =
+          make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    } else {
+      const size_t pr = (((size_t)split * a.B + b) * a.H_kv + kvh) * TG + r;
+      if (d0 == 0) {
+        a.part_m[pr] = mmax * kLn2;  // the combine kernel works in the natural domain
+        a.part_l[pr] = lsum;
+      }
+      *reinterpret_cast<float4*>(a.part_acc + pr * D + d0) = acc;
+    }
+  }
+}
+
 // Merge the key splits: one thread per (b, kvh, row, d).
 __global__ void flash_combine_kernel(Args a, int D) {
   const int g = a.H / a.H_kv, TG = a.T * g;
@@ -220,7 +628,9 @@ __global__ void flash_combine_kernel(Args a, int D) {
   if (e >= rows * D) return;
   const size_t row = e / D;
   const int d = e % D;
-  float mx = kNegInf;
+  // -inf, not kNegInf: the tensor-core body's m of a fully masked row is
+  // -1e30 * log2(e) * ln(2), which may round below -1e30
+  float mx = -INFINITY;
   for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, a.part_m[s * rows + row]);
   float l = 0.f, acc = 0.f;
   for (int s = 0; s < a.splits; ++s) {
@@ -235,48 +645,79 @@ __global__ void flash_combine_kernel(Args a, int D) {
   a.out[(((size_t)b * a.T + t) * a.H + h) * D + d] = acc / fmaxf(l, 1e-20f);
 }
 
-template <typename T, int D, int RPW>
-void launch(bool tags, const Args& a, cudaStream_t st) {
-  const int g = a.H / a.H_kv;
-  const int rows = a.T * g;
-  const dim3 grid(a.B * a.H_kv, (rows + kWarps * RPW - 1) / (kWarps * RPW), a.splits);
+int grid_y(const Args& a, int rows_per_block) {
+  return (a.T * (a.H / a.H_kv) + rows_per_block - 1) / rows_per_block;
+}
+
+template <int D, int RPW>
+void launch_simt(bool tags, const Args& a, cudaStream_t st) {
+  const dim3 grid(a.B * a.H_kv, grid_y(a, kWarps * RPW), a.splits);
   if (tags) {
-    flash_prefill_kernel<T, D, RPW><<<grid, kWarps * 32, 0, st>>>(a);
+    flash_prefill_kernel<float, D, RPW><<<grid, kWarps * 32, 0, st>>>(a);
   } else {
-    flash_decode_kernel<T, D, RPW><<<grid, kWarps * 32, 0, st>>>(a);
+    flash_decode_kernel<float, D, RPW><<<grid, kWarps * 32, 0, st>>>(a);
   }
 }
 
-template <typename T, int D>
-void dispatch_rpw(int rpw, bool tags, const Args& a, cudaStream_t st) {
-  if (rpw == 1) {
-    launch<T, D, 1>(tags, a, st);
-  } else {
-    launch<T, D, 4>(tags, a, st);
+template <int D, int RB, bool TAGS>
+int launch_tc(const Args& a, int smem_bytes, cudaStream_t st) {
+  using S = TcShape<D, RB, TAGS>;
+  if (smem_bytes != S::kSmem) return (int)cudaErrorInvalidValue;  // the plan disagrees
+  static bool attr_set = false;  // above 48 KB a block must ask for its shared memory
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<D, RB, TAGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid(a.B * a.H_kv, grid_y(a, RB), a.splits);
+  flash_tc_kernel<D, RB, TAGS><<<grid, S::kWarps * 32, S::kSmem, st>>>(a);
+  return 0;
+}
+
+template <int D, bool TAGS>
+int dispatch_tc_rb(int rows_per_block, const Args& a, int smem_bytes, cudaStream_t st) {
+  switch (rows_per_block) {
+    case 16: return launch_tc<D, 16, TAGS>(a, smem_bytes, st);
+    case 32: return launch_tc<D, 32, TAGS>(a, smem_bytes, st);
+    case 64: return launch_tc<D, 64, TAGS>(a, smem_bytes, st);
+    case 128: return launch_tc<D, 128, TAGS>(a, smem_bytes, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-void dispatch_d(int D, int rpw, bool tags, const Args& a, cudaStream_t st) {
-  if (D == 64) {
-    dispatch_rpw<T, 64>(rpw, tags, a, st);
-  } else {
-    dispatch_rpw<T, 128>(rpw, tags, a, st);
+template <int D>
+int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_bytes,
+             cudaStream_t st) {
+  if (bf16) {
+    return tags ? dispatch_tc_rb<D, true>(rows_per_block, a, smem_bytes, st)
+                : dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
   }
+  if (rows_per_block == kWarps) {
+    launch_simt<D, 1>(tags, a, st);
+  } else if (rows_per_block == 4 * kWarps) {
+    launch_simt<D, 4>(tags, a, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 }  // namespace
 
 // tags = 0: flash_decode (mask given); tags = 1: flash_prefill (q_pos and
 // slot_pos given). k/v point at the layer's [B, H_kv, S_full, D] block.
-// D in {64, 128}; rpw in {1, 4} query rows per warp. With splits > 1 the
-// part_* buffers hold the per-split state and a combine kernel runs.
+// D in {64, 128}. A bf16 cache takes the tensor-core body with
+// rows_per_block in {16, 32, 64, 128} and smem_bytes its dynamic shared memory;
+// an f32 cache the SIMT body with rows_per_block in {4, 16} (1 or 4 rows per
+// warp). With splits > 1 the part_* buffers hold the per-split state and a
+// combine kernel runs.
 extern "C" int flash_launch(int tags, const void* q, const void* k, const void* v,
                             const void* mask, const void* q_pos, const void* slot_pos,
                             void* out, void* part_m, void* part_l, void* part_acc,
                             int B, int T, int H, int H_kv, int D, int S_full, int s_lim,
-                            int tag_stride, int cache_bf16, int rpw, int splits,
-                            int keys_per_split, float scale, void* stream) {
+                            int tag_stride, int cache_bf16, int rows_per_block, int splits,
+                            int keys_per_split, int smem_bytes, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a;
   a.q = static_cast<const float*>(q);
@@ -291,12 +732,17 @@ extern "C" int flash_launch(int tags, const void* q, const void* k, const void* 
   a.part_acc = static_cast<float*>(part_acc);
   a.B = B; a.T = T; a.H = H; a.H_kv = H_kv; a.S_full = S_full; a.s_lim = s_lim;
   a.tag_stride = tag_stride; a.splits = splits; a.keys_per_split = keys_per_split;
+  a.mask_vec16 = s_lim % 16 == 0 && reinterpret_cast<uintptr_t>(mask) % 16 == 0;
   a.scale = scale;
-  if (cache_bf16) {
-    dispatch_d<__nv_bfloat16>(D, rpw, tags != 0, a, st);
+  int rc;
+  if (D == 64) {
+    rc = dispatch<64>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
+  } else if (D == 128) {
+    rc = dispatch<128>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
   } else {
-    dispatch_d<float>(D, rpw, tags != 0, a, st);
+    rc = (int)cudaErrorInvalidValue;
   }
+  if (rc != 0) return rc;
   if (splits > 1) {
     const size_t n = (size_t)B * H_kv * T * (H / H_kv) * D;
     flash_combine_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(a, D);

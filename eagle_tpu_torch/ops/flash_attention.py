@@ -8,32 +8,83 @@ EAGLE engine's prompt, with a bool mask computed outside. `flash_attention_
 prefill` replaces `_flash_prefill_kernel` (via `flash_attention_prefill`):
 the mask is rebuilt in the kernel from query positions and slot tags.
 
-Bound on the H100: at decode the bytes of K and V over [0, s_limit). The
-kernel streams 32-key tiles through shared memory and splits the key range
-across blocks when the query rows alone give too few blocks (one kv head per
-block at decode), merging the splits with a combine kernel. The TPU gates
-(`supports_flash`: S >= 512, T*g <= 256; `supports_flash_prefill`: T >= 256)
-and the pad of T*g to 8 rows do not carry over: on the card every attention
-of the slice's path takes one of these two kernels."""
+Bound on the H100: at decode and verify the bytes of K and V over [0,
+s_limit) (5.0 us at S = 1024, 32 kv heads of 128, bf16); at T = S = 512 the
+bytes too (7.5 us), if QK^T and PV run on the tensor cores (4.3 GFLOP, 4.4
+us at 989 TFLOP/s). `_plan` picks each call's body and grid from the cache
+dtype and the shapes alone:
+- a bf16 cache takes the tensor-core body: mma.sync bf16 products with the
+  scores kept in registers, K/V tiles of 64 keys in a ring of shared memory
+  filled by cp.async, blocks of 16, 32, 64 or 128 query rows (4 warps, 8
+  at 128 rows; below 64 rows the warps of a 16-row tile split each key
+  tile, so no warp works on rows that do not exist);
+- an f32 cache takes the SIMT body (exact f32 FMAs, 32-key tiles), so the
+  f32 path's numbers stay those of an f32 dot.
+Both split the key range across blocks (flash-decoding) when the query rows
+alone give fewer than 132 blocks, merging the splits with a combine kernel.
+The TPU gates (`supports_flash`: S >= 512, T*g <= 256;
+`supports_flash_prefill`: T >= 256) and the pad of T*g to 8 rows do not
+carry over: on the card every attention of the slice's path takes one of
+these two kernels."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from .attention import gqa_attention
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
              + [ctypes.c_float, ctypes.c_void_p])
 _SMS = 132
 _WARPS = 4  # warps per block (csrc/flash_attention.cu)
-_TILE = 32  # keys per tile
+_TILE = 32  # SIMT body: keys per tile
+_KEYS = 64  # tensor-core body: keys per ring tile
+_ROW_BLOCKS = (128, 64, 32, 16)  # tensor-core body: query rows per block, largest first
+_TWO_BLOCK_SMEM = 115712  # a ring that lets two blocks share an SM
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+class Plan(NamedTuple):
+    body: str  # "mma" (bf16 cache, tensor cores) or "simt" (f32 cache)
+    rows_per_block: int
+    splits: int
+    keys_per_split: int
+    smem_bytes: int  # dynamic shared memory ("mma"; the SIMT body's is static)
+
+
+def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool) -> Plan:
+    """Body, block and key split of one call: `tg` = T*g query rows per kv
+    head, keys [0, lim), head_dim d, cache dtype, `units` = B*H_kv, `tags`
+    for flash_prefill. Splits are whole tiles, none empty."""
+    if dtype == torch.bfloat16:
+        # the largest row block that leaves no 16-row warp tile wholly padded
+        rb = next(r for r in _ROW_BLOCKS if _cdiv(tg, r) * r - tg < 16)
+        tile = _KEYS
+    else:
+        rb = _WARPS * (1 if tg <= 2 * _WARPS else 4)
+        tile = _TILE
+    warps = max(_WARPS, rb // 16) if dtype == torch.bfloat16 else _WARPS
+    blocks = units * _cdiv(tg, rb) * warps // _WARPS  # in blocks of 4 warps
+    splits = 1
+    if dtype != torch.bfloat16 or blocks < _SMS:  # aim at ~2 blocks per SM
+        splits = max(1, min(_cdiv(2 * _SMS, blocks), _cdiv(lim, tile)))
+    kps = _cdiv(_cdiv(lim, splits), tile) * tile
+    splits = _cdiv(lim, kps)
+    if dtype != torch.bfloat16:
+        return Plan("simt", rb, splits, kps, 0)
+    # csrc/flash_attention.cu:TcShape: K and V [64][d] bf16 per stage, then
+    # the mask tile [rb][64] bytes or 64 int32 tags
+    stage = 2 * _KEYS * d * 2 + (_KEYS * 4 if tags else rb * _KEYS)
+    stages = 3 if rb > 64 or 3 * stage <= _TWO_BLOCK_SMEM else 2
+    merge = warps * 16 * (d + 4 + 2) * 4
+    return Plan("mma", rb, splits, kps, max(stages * stage, merge))
 
 
 def flash_attention_cached_plain(q, k_cache, v_cache, mask, layer, scale=None, s_limit=None):
@@ -77,10 +128,14 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
         if x.device != q.device or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:  # 16-byte cp.async chunks
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     for name, x in (("mask", mask), ("q_pos", q_pos), ("slot_pos", slot_pos)):
         if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     qf = q.float().contiguous()
+    if qf.data_ptr() % 16:  # a view at an odd offset: the kernel reads float2 pairs
+        qf = qf.clone()
     if tags:
         if q_pos.shape != (b, t) or slot_pos.shape[0] != b or slot_pos.shape[1] < lim:
             raise ValueError("q_pos must be [B, T] and slot_pos [B, >= s_limit]")
@@ -94,12 +149,8 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
         mask = mask.contiguous().view(torch.uint8)
         tag_stride = 0
     tg = t * (h // h_kv)
-    rpw = 1 if tg <= 2 * _WARPS else 4
-    # key splits: enough blocks for ~2 per SM, each split a whole number of tiles
-    blocks = b * h_kv * _cdiv(tg, _WARPS * rpw)
-    splits = max(1, min(_cdiv(2 * _SMS, blocks), _cdiv(lim, _TILE)))
-    kps = _cdiv(_cdiv(lim, splits), _TILE) * _TILE
-    splits = _cdiv(lim, kps)
+    plan = _plan(tg, lim, d, k_cache.dtype, b * h_kv, tags)
+    splits = plan.splits
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     part = [None, None, None]
     if splits > 1:
@@ -114,7 +165,8 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
         q_pos.data_ptr() if tags else None, slot_pos.data_ptr() if tags else None,
         out.data_ptr(), *[None if p is None else p.data_ptr() for p in part],
         b, t, h, h_kv, d, s_full, lim, tag_stride,
-        int(k_cache.dtype == torch.bfloat16), rpw, splits, kps,
+        int(k_cache.dtype == torch.bfloat16), plan.rows_per_block, splits,
+        plan.keys_per_split, plan.smem_bytes,
         float(d**-0.5 if scale is None else scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

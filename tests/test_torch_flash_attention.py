@@ -104,3 +104,180 @@ def test_prefill_equals_decode_kernel_plain_on_tag_mask(rng):
     a = fa.flash_attention_cached(q, tk, tv, torch.from_numpy(np.array(mask)), 0)
     b = fa.flash_attention_prefill(q, tk, tv, torch.from_numpy(q_pos), torch.from_numpy(tags), 0)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# --- GQA g = 4 and s_limit = 300 ----------------------------------------------
+
+H4, S4 = 8, 384  # 8 query heads over 2 kv heads (g = 4), 384 slots
+
+
+def _cache_g4(rng, dtype):
+    k = rng.standard_normal((L, B, HKV, S4, D)).astype(np.float32)
+    v = rng.standard_normal((L, B, HKV, S4, D)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    return (jnp.asarray(k, jdt), jnp.asarray(v, jdt), torch.from_numpy(k).to(tdt),
+            torch.from_numpy(v).to(tdt))
+
+
+def _tags_g4(m: int):
+    tags = np.full((B, S4), -1, np.int32)
+    tags[:, :m] = np.arange(m)
+    tags[:, 17:19] = -1  # rolled-back holes
+    return tags
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 6])
+@pytest.mark.parametrize("s_limit", [256, None])
+def test_decode_gqa4_matches_pallas(rng, dtype, t, s_limit):
+    """g = 4 (T*g = 4 and 24 rows) with a fully masked row, at read bounds
+    that are whole 128-key tiles of the reference kernel."""
+    jk, jv, tk, tv = _cache_g4(rng, dtype)
+    m = 200
+    tags = _tags_g4(m + t)
+    q_pos = (m + np.arange(t, dtype=np.int32))[None].repeat(B, 0)
+    lim = s_limit or S4
+    mask = np.ascontiguousarray(
+        np.array(causal_mask_from_tags(jnp.asarray(tags), jnp.asarray(q_pos)))[..., :lim])
+    mask[1, t - 1] = False
+    q = rng.standard_normal((B, t, H4, D)).astype(np.float32)
+    want = flash_attention_cached(jnp.asarray(q), jk, jv, jnp.asarray(mask), jnp.int32(1),
+                                  interpret=True, s_limit=s_limit)
+    got = fa.flash_attention_cached(torch.from_numpy(q), tk, tv, torch.from_numpy(mask), 1,
+                                    s_limit=s_limit)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_prefill_gqa4_matches_pallas(rng, dtype):
+    jk, jv, tk, tv = _cache_g4(rng, dtype)
+    t, n = 24, 20  # 96 rows: a 64-row tile and a ragged one
+    tags = _tags_g4(n)
+    q_pos = np.arange(t, dtype=np.int32)[None].repeat(B, 0)
+    q_pos[:, n:] = -1
+    q_pos[0, 5] = -1  # a row inside the tile that sees nothing
+    q = rng.standard_normal((B, t, H4, D)).astype(np.float32)
+    want = flash_attention_prefill(jnp.asarray(q), jk, jv, jnp.asarray(q_pos),
+                                   jnp.asarray(tags), jnp.int32(0), interpret=True)
+    got = fa.flash_attention_prefill(torch.from_numpy(q), tk, tv, torch.from_numpy(q_pos),
+                                     torch.from_numpy(tags), 0)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_s_limit_300_matches_pallas_on_visible_keys(rng, dtype, kind):
+    """s_limit = 300 at g = 4 with visible keys up to slot 299. The reference
+    kernel reads whole 128-key tiles below s_limit (see the next test), so it
+    runs here at 384 with slots [300, 384) invisible: every row that sees a
+    key agrees. A row that sees nothing is the uniform average of V over
+    [0, 300) in the port."""
+    jk, jv, tk, tv = _cache_g4(rng, dtype)
+    t, lim = 6, 300
+    tags = _tags_g4(S4)
+    q_pos = (294 + np.arange(t, dtype=np.int32))[None].repeat(B, 0)
+    q = rng.standard_normal((B, t, H4, D)).astype(np.float32)
+    tq = torch.from_numpy(q)
+    if kind == "decode":
+        mask = np.array(causal_mask_from_tags(jnp.asarray(tags), jnp.asarray(q_pos)))
+        mask[:, :, lim:] = False
+        mask[1, 2] = False
+        want = flash_attention_cached(jnp.asarray(q), jk, jv, jnp.asarray(mask), jnp.int32(1),
+                                      interpret=True, s_limit=S4)
+        got = fa.flash_attention_cached(tq, tk, tv, torch.from_numpy(
+            np.ascontiguousarray(mask[..., :lim])), 1, s_limit=lim)
+    else:
+        q_pos[1, 2] = -1
+        ref_tags = tags.copy()
+        ref_tags[:, lim:] = -1
+        want = flash_attention_prefill(jnp.asarray(q), jk, jv, jnp.asarray(q_pos),
+                                       jnp.asarray(ref_tags), jnp.int32(1), interpret=True,
+                                       s_limit=S4)
+        got = fa.flash_attention_prefill(tq, tk, tv, torch.from_numpy(q_pos),
+                                         torch.from_numpy(tags), 1, s_limit=lim)
+    keep = np.ones((B, t), bool)
+    keep[1, 2] = False
+    _close(got[torch.from_numpy(keep)], np.asarray(want)[keep], dtype)
+    uniform = tv[1, 1, :, :lim].float().mean(dim=1).repeat_interleave(H4 // HKV, dim=0)
+    _close(got[1, 2], uniform.numpy(), dtype)
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_pallas_reads_whole_tiles_below_s_limit(rng, kind):
+    """The reference's divergence at an s_limit that is not a multiple of its
+    128-key tile: `_flash_call` / `_flash_prefill_call` run s_limit // 128
+    tiles, so at 300 they read slots [0, 256) only, which is the port's
+    plain version at s_limit = 256. The reference's callers pass buckets of
+    128 x 2^k, where the two agree; the port reads [0, s_limit) exactly."""
+    jk, jv, tk, tv = _cache_g4(rng, "f32")
+    t = 6
+    tags = _tags_g4(S4)
+    q_pos = (290 + np.arange(t, dtype=np.int32))[None].repeat(B, 0)
+    q = rng.standard_normal((B, t, H4, D)).astype(np.float32)
+    tq = torch.from_numpy(q)
+    if kind == "decode":
+        mask = np.array(causal_mask_from_tags(jnp.asarray(tags), jnp.asarray(q_pos)))
+        want = flash_attention_cached(jnp.asarray(q), jk, jv, jnp.asarray(mask[..., :300]),
+                                      jnp.int32(0), interpret=True, s_limit=300)
+        at_256 = fa.flash_attention_cached(tq, tk, tv, torch.from_numpy(
+            np.ascontiguousarray(mask[..., :256])), 0, s_limit=256)
+        at_300 = fa.flash_attention_cached(tq, tk, tv, torch.from_numpy(
+            np.ascontiguousarray(mask[..., :300])), 0, s_limit=300)
+    else:
+        want = flash_attention_prefill(jnp.asarray(q), jk, jv, jnp.asarray(q_pos),
+                                       jnp.asarray(tags), jnp.int32(0), interpret=True,
+                                       s_limit=300)
+        args = (tq, tk, tv, torch.from_numpy(q_pos), torch.from_numpy(tags), 0)
+        at_256 = fa.flash_attention_prefill(*args, s_limit=256)
+        at_300 = fa.flash_attention_prefill(*args, s_limit=300)
+    _close(at_256, want, "f32")
+    assert float(np.abs(at_300.numpy() - np.asarray(want)).max()) > 1e-2
+
+
+# --- the wrapper's launch plan (pure Python; the card runs what it says) -------
+
+SMS, SMEM_BLOCK, SMEM_SM = 132, 227 * 1024, 228 * 1024
+
+
+@pytest.mark.parametrize("tags", [False, True], ids=["decode", "prefill"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("lim", [96, 300, 512, 1024])
+@pytest.mark.parametrize("tg", [1, 6, 24, 80, 512])
+def test_plan_covers_keys_and_card(tg, lim, d, dtype, tags):
+    """At the main path's 32 kv heads: the body follows the dtype, the splits
+    cover [0, lim) in whole tiles with none empty, the grid reaches 132
+    blocks of 4 warps where the keys allow it (a 128-row block has 8 warps),
+    no 16-row warp tile of the tensor-core body is only padding, and the
+    shared memory fits (two tensor-core blocks per SM below 128 rows)."""
+    units = 32
+    plan = fa._plan(tg, lim, d, dtype, units, tags)
+    tile = 64 if dtype == torch.bfloat16 else 32
+    assert plan.body == ("mma" if dtype == torch.bfloat16 else "simt")
+    assert plan.keys_per_split % tile == 0
+    assert (plan.splits - 1) * plan.keys_per_split < lim <= plan.splits * plan.keys_per_split
+    warps = max(4, plan.rows_per_block // 16) if plan.body == "mma" else 4
+    blocks = units * -(-tg // plan.rows_per_block) * plan.splits * warps // 4
+    assert blocks >= SMS or plan.splits == -(-lim // tile)
+    if plan.body == "mma":
+        assert plan.rows_per_block in (16, 32, 64, 128)
+        assert -(-tg // plan.rows_per_block) * plan.rows_per_block - tg < 16
+        assert plan.smem_bytes <= SMEM_BLOCK
+        if plan.rows_per_block < 128:
+            assert 2 * (plan.smem_bytes + 1024) <= SMEM_SM
+        stage = 2 * 64 * d * 2 + (256 if tags else plan.rows_per_block * 64)
+        assert plan.smem_bytes >= 2 * stage  # a K/V ring of at least two tiles
+    else:
+        assert plan.rows_per_block in (4, 16) and plan.smem_bytes == 0
+
+
+@pytest.mark.parametrize("tg,lim,tags,want", [
+    (1, 1024, False, (16, 8, 128)),  # decode: 32 heads x 8 splits = 256 blocks
+    (6, 1024, False, (16, 8, 128)),  # chain verify
+    (1, 512, False, (16, 8, 64)),
+    (512, 512, False, (128, 1, 512)),  # the EAGLE engine's prompt: 128 blocks of 8 warps
+    (512, 512, True, (128, 1, 512)),  # the greedy prompt
+])
+def test_plan_at_main_path_shapes(tg, lim, tags, want):
+    plan = fa._plan(tg, lim, 128, torch.bfloat16, 32, tags)
+    assert (plan.rows_per_block, plan.splits, plan.keys_per_split) == want

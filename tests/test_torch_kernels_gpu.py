@@ -226,6 +226,71 @@ def test_flash_prefill_matches_plain(cuda, dtype, d, h, h_kv):
     _close(got, want, TOL[dtype])
 
 
+# (T*g, g) of the tensor-core body's cases: one 16-row tile (1, 6), a 16-row
+# edge (24), 64-row blocks (64), a 64-row edge (80), a ragged 128-row block
+# (120) and the prompt bucket (512)
+TC_ROWS = [(tg, g) for tg in (1, 6, 24, 64, 80, 120, 512) for g in (1, 2, 4) if tg % g == 0]
+
+
+def _tc_case(gen, tg, g, d, s_limit):
+    """A bf16 cache of 2 kv heads and 384 slots, 250 of them tagged with
+    rolled-back holes, and T = tg / g query positions spread over them."""
+    k_cache, v_cache = _cache(gen, torch.bfloat16, d, 2, s=384)
+    lim = s_limit or k_cache.shape[3]
+    t, n = tg // g, min(250, lim)
+    tags = torch.full((2, k_cache.shape[3]), -1, dtype=torch.int32, device="cuda")
+    tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    tags[:, 10:14] = -1
+    pos = (torch.arange(t, device="cuda") * n // t + (n - 1 if t == 1 else 0)).to(torch.int32)
+    q = torch.randn((2, t, 2 * g, d), generator=gen, device="cuda")
+    return k_cache, v_cache, lim, tags, pos[None].repeat(2, 1).contiguous(), q
+
+
+def _uniform_rows(got, v_cache, layer, lim, g, b, t):
+    """Row (b, t) of `got` is the uniform average of V over [0, lim)."""
+    uniform = v_cache[layer, b, :, :lim].float().mean(dim=1).repeat_interleave(g, dim=0)
+    _close(got[b, t], uniform, 1e-2)
+
+
+@pytest.mark.parametrize("s_limit", [96, 300, None], ids=["s96", "s300", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tg,g", TC_ROWS)
+def test_flash_decode_tensor_core_body(cuda, tg, g, d, s_limit):
+    """The bf16 body at every row-block size, ragged key ends, GQA, key
+    splits, holed tags and a fully masked row inside a row tile."""
+    k_cache, v_cache, lim, tags, pos, q = _tc_case(cuda, tg, g, d, s_limit)
+    t = q.shape[1]
+    mask = causal_mask_from_tags(tags[:, :lim], pos)
+    mask[1, t // 2] = False  # a row that sees nothing: the uniform average
+    plan = fa._plan(tg, lim, d, torch.bfloat16, 2 * 2, False)
+    assert plan.body == "mma" and plan.splits > 1  # 4 kv-head units: always split
+    _build.reset_counts()
+    got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
+    assert _build.launches["flash_decode"] == 1 and _build.plain_calls["flash_decode"] == 0
+    _close(got, fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, 1, s_limit=s_limit),
+           TOL[torch.bfloat16])
+    _uniform_rows(got, v_cache, 1, lim, g, 1, t // 2)
+
+
+@pytest.mark.parametrize("s_limit", [96, 300, None], ids=["s96", "s300", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tg,g", TC_ROWS)
+def test_flash_prefill_tensor_core_body(cuda, tg, g, d, s_limit):
+    """flash_prefill's bf16 body over the same cases: the tag mask built in
+    registers, q_pos = -1 rows inside a tile and at the end."""
+    k_cache, v_cache, lim, tags, q_pos, q = _tc_case(cuda, tg, g, d, s_limit)
+    t = q.shape[1]
+    q_pos[1, t // 2] = -1
+    q_pos[0, -1] = -1
+    _build.reset_counts()
+    got = fa.flash_attention_prefill(q, k_cache, v_cache, q_pos, tags, 0, s_limit=s_limit)
+    assert _build.launches["flash_prefill"] == 1 and _build.plain_calls["flash_prefill"] == 0
+    want = fa.flash_attention_prefill_plain(q, k_cache, v_cache, q_pos, tags, 0, s_limit=s_limit)
+    _close(got, want, TOL[torch.bfloat16])
+    _uniform_rows(got, v_cache, 0, lim, g, 1, t // 2)
+    _uniform_rows(got, v_cache, 0, lim, g, 0, t - 1)
+
+
 def test_tiny_greedy_tokens_card_equal_cpu(cuda):
     """Greedy tokens of a 2-layer model through the kernels on the card equal
     the plain path's on the CPU (same weights, f32 compute and cache)."""
