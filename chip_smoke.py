@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (eagle_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--parent-report FILE]
 
 Phases (any failed check raises and exits nonzero; nothing is caught):
 1. device line: the card's name and power limit, the nvcc version; the
@@ -12,7 +12,12 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    Q6_K-form weight and one unpacked weight with bf16 scales and bias, at
    1, 6, 37 and 512 rows, and the GGUF path's Q4_0 (packed, f32 scale and
    bias) and Q8_0 (int8, no bias) forms at 1, 6 and 512 rows, bf16 compute
-   (relative error <= 1e-2); ffn_out_norm and gate_up_act at Vicuna-7B
+   (relative error <= 1e-2); every one of these forms also through the
+   tensor-core body at 9, 37, 64, 65, 128, 300 and 512 rows (checks only),
+   and one line for the prefill qmm per prompt (32 x 4 projections +
+   lm_head at 512 rows: kernel, bound, library ms), each 512-row time as a
+   ratio to library_ms (and, with --parent-report, to the kernel of the
+   tree that wrote that report); ffn_out_norm and gate_up_act at Vicuna-7B
    widths for 1 and 6 rows, stacked Q4_0 (layer 5) and the draft's
    single-layer Q8_0 (relative error <= 1e-2); flash_decode at S=1024,
    T in {1, 6}, 32 heads of 128 with a holed tag mask, and at T=S=512 as
@@ -37,8 +42,10 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    K = 5, 64 new tokens; its tokens are compared with phase 3's, and where
    they differ the target's top-2 logit margin there must be within 1e-2 of
    the logit range (a bf16 near-tie, not a divergence).
-5. the launch counts of qmm, flash_decode and flash_prefill over the
-   phase 3-4 runs (each > 0; the fused FFN kernels 0) and the plain
+5. the launch counts of qmm (SIMT body), qmm_tc (its tensor-core body),
+   flash_decode and flash_prefill over the phase 3-4 runs (each > 0; the
+   fused FFN kernels 0; qmm_tc exactly 129 for the greedy prompt, and more
+   for the EAGLE prompt, whose draft also runs at 512 rows) and the plain
    versions' (each 0); then, outside the counted runs, 8 more greedy decode
    steps timed on the host clock and traced with torch.profiler (device
    busy share, kernels per token, the kernels that take the time).
@@ -56,11 +63,12 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
    then timed with the launch counts read over that run (qmm and qmm_i4 >
-   0, plain versions 0); before it, qmm_i4 and qmm_i4_stacked against
+   0, plain versions 0), and again with the int4 variants at 512 rows
+   (qmm_i4_tc > 0); before it, qmm_i4 and qmm_i4_stacked against
    qmm_i4_plain at the benchmark's shape and at the 7B projections (12288 x
-   4096, 4096 x 11008) for 1, 8, 37 and 512 rows, with kernel ms, plain ms,
-   the bound and library_ms (torch.matmul on the pre-dequantized bf16
-   weight).
+   4096, 4096 x 11008) for 1, 8 (SIMT body), 37 and 512 rows (tensor-core
+   body), with kernel ms, plain ms, the bound and library_ms (torch.matmul
+   on the pre-dequantized bf16 weight).
 8. the other GGUF formats (Q4_1, Q5_0, Q5_1, Q8_1, Q2_K, Q3_K, Q5_K, IQ4_NL,
    IQ4_XS, IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M): one
    [11008 x 4096] tensor of random blocks each, written with the port's
@@ -68,7 +76,8 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    repack of the same bytes, prepared for serving and run through qmm
    against its plain version at 1, 6 and 512 rows (Q5_K also coded; IQ1_M
    at G = 8). Last, the `kernels` JSON line (the fused kernels' launches come
-   from phase 6's fused run, qmm_i4's from phase 7) and the device JSON line.
+   from phase 6's fused run, qmm_i4's and qmm_i4_tc's from phase 7; qmm_tc's
+   row is the prefill body at wqkv, 512 rows) and the device JSON line.
 """
 
 from __future__ import annotations
@@ -86,6 +95,10 @@ import warnings
 from eagle_tpu_torch.timing import device_ms, device_us
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+TC_CHECK_ROWS = (9, 37, 64, 65, 128, 300, 512)  # both row tiles and their ragged edges
+#: kernel rows of a report of the same script from another tree (--parent-report), by
+#: (kernel, name, rows): ratios to them are printed beside this run's times
+PARENT: dict = {}
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 QMM_TOL = 1e-2
 ATTN_TOL = 1e-2
@@ -101,6 +114,24 @@ def rel_err(got, want) -> tuple[float, float]:
     d = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     return d, d / max(scale, 1e-30)
+
+
+def load_parent(path: str | None) -> None:
+    if not path:
+        return
+    rep = json.loads(pathlib.Path(path).read_text())
+    for kernel in ("qmm", "qmm_i4"):
+        for r in rep.get(kernel, []):
+            PARENT[(kernel, r["name"], r["rows"])] = r["ms"]
+
+
+def log_ratios(kernel: str, res: dict) -> None:
+    """One line: this run's time against library_ms and, with a parent
+    report, against the parent's kernel at the same shape."""
+    parent = PARENT.get((kernel, res["name"], res["rows"]))
+    vs = f", parent {parent:.4f} ms = {parent / res['ms']:.2f}x this" if parent else ""
+    log(f"[ratio] {kernel} {res['name']} rows={res['rows']}: {res['ms']:.4f} ms = "
+        f"{res['ms'] / res['library_ms']:.2f}x library ({res['library_ms']:.4f} ms){vs}")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -143,9 +174,13 @@ def phase_device(out_dir: pathlib.Path):
 # phase 2
 
 
-def qmm_checks(report: dict) -> dict:
+def qmm_checks(report: dict) -> tuple[dict, dict]:
+    """qmm against qmm_plain at the main paths' shapes and forms; returns the
+    per-token row (1 row, SIMT body) and the wqkv row at 512 rows (tensor-core
+    body), each with the worst error of its body."""
     import torch
 
+    from eagle_tpu_torch import _build
     from eagle_tpu_torch.gguf import GGMLType
     from eagle_tpu_torch.models.synth import synth_qtensor
     from eagle_tpu_torch.ops.qmm import qmm, qmm_plain, qmm_stacked
@@ -176,14 +211,31 @@ def qmm_checks(report: dict) -> dict:
     rows_list = (1, 6, 37, 512)  # 37: a ragged row tile of either body
     gguf_rows = (1, 6, 512)
     results = []
-    worst = 0.0
+    worst = worst_tc = 0.0
     per_token = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    per_prompt = dict(per_token)
+    tc_row = None
     for name, n, k, stacked, kw, count in specs:
         kw = {"qtype": Q4_K, **kw}
         w = synth_qtensor(gen, n, k, stack=stack if stacked else None, **kw)
         layers = [w.layer(i) for i in range(stack)] if stacked else [w]
         dense = [lw.dequantize(torch.bfloat16).T.contiguous() for lw in layers]  # [K, N]
         w_bytes = nbytes(*layers[0].tensors().values())
+        # the tensor-core body's row tiles (64, 128) and their ragged edges:
+        # checked only
+        for rows in TC_CHECK_ROWS:
+            x = torch.randn((rows, k), generator=gen, device="cuda")
+            _build.reset_counts()
+            got = qmm_stacked(x, w, layer) if stacked else qmm(x, w)
+            if _build.launches["qmm_tc"] != 1:
+                raise AssertionError(f"qmm {name} rows={rows}: not the tensor-core body")
+            want = qmm_plain(x, layers[layer if stacked else 0])
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(got, want)
+            if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"qmm {name} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
+            worst_tc = max(worst_tc, abs_err)
+        log(f"[qmm] {name:16s} tensor-core body at rows {TC_CHECK_ROWS}: rel err <= {QMM_TOL}")
         for rows in gguf_rows if kw["qtype"] in (Q4_0, Q8_0) else rows_list:
             x = torch.randn((rows, k), generator=gen, device="cuda")
             if stacked:
@@ -218,13 +270,27 @@ def qmm_checks(report: dict) -> dict:
             if rows == 1 and count:
                 for key in per_token:
                     per_token[key] += count * res[key]
+            if rows > 8:
+                worst_tc = max(worst_tc, abs_err)
+            if rows == 512 and count:
+                for key in per_prompt:
+                    per_prompt[key] += count * res[key]
+            if rows == 512:
+                log_ratios("qmm", res)
+            if name == "wqkv" and rows == 512:
+                tc_row = dict(res)
         del w, layers, dense
         torch.cuda.empty_cache()
     report["qmm"] = results
+    report["qmm_prefill_per_prompt"] = per_prompt
     log(f"[qmm] per decoded token (32 x 4 projections + lm_head, 1 row): kernel "
         f"{per_token['ms']:.3f} ms, bound {per_token['bound_ms']:.3f} ms, library "
         f"{per_token['library_ms']:.3f} ms")
-    return dict(per_token, max_abs_err=worst, bound_by="bytes")
+    log(f"[qmm] prefill per prompt (32 x 4 projections + lm_head, 512 rows, tensor-core body): "
+        f"kernel {per_prompt['ms']:.3f} ms, bound {per_prompt['bound_ms']:.3f} ms, library "
+        f"{per_prompt['library_ms']:.3f} ms")
+    tc_row["max_abs_err"] = worst_tc
+    return dict(per_token, max_abs_err=worst, bound_by="bytes"), tc_row
 
 
 def ffn_checks(report: dict) -> tuple[dict, dict]:
@@ -511,7 +577,8 @@ def tiny_model_check():
 # phases 3-5
 
 
-CORE_KERNELS = ("qmm", "flash_decode", "flash_prefill")
+CORE_KERNELS = ("qmm", "qmm_tc", "flash_decode", "flash_prefill")
+PROMPT_QMM = 32 * 4 + 1  # a prompt's 512-row products: 4 per layer and lm_head
 
 
 def timed_run(run):
@@ -655,6 +722,14 @@ def main_path(report: dict) -> dict:
         f"cycles {stats['n_cycles']}")
     log(f"[launches] phases 3-4: {launches}; plain versions: {plain}; "
         f"per decoded token (greedy): {per_token}")
+    log(f"[launches] greedy prompt (300 tokens, bucket 512): qmm_tc {at_first['qmm_tc']}, "
+        f"qmm {at_first['qmm']}; EAGLE prompt and decode: qmm_tc "
+        f"{launches['qmm_tc'] - counts_greedy['qmm_tc']}")
+    if at_first["qmm_tc"] != PROMPT_QMM:
+        raise AssertionError(f"greedy prompt: {at_first['qmm_tc']} tensor-core qmm launches, "
+                             f"expected {PROMPT_QMM}")
+    if launches["qmm_tc"] - counts_greedy["qmm_tc"] <= PROMPT_QMM:
+        raise AssertionError("EAGLE prompt: the draft's prompt products missed the tensor-core body")
     for k in CORE_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
@@ -683,6 +758,7 @@ def main_path(report: dict) -> dict:
         ttft_ms=ttft * 1e3, decode_tokens_per_s=dec_tps, decode_ms_per_token=t_dec / n_dec * 1e3,
         peak_gib=peak / 2**30, eagle_ttft_ms=e_ttft * 1e3, eagle_tokens_per_s=eagle_tps,
         eagle_stats=stats, launches=launches, launches_per_decoded_token=per_token,
+        launches_at_first_token=at_first,
         plain_calls=plain, divergence=divergence, greedy_tokens=greedy, eagle_tokens=spec,
         decode_profile=profile,
     )
@@ -965,18 +1041,21 @@ def qmm_i4_checks(report: dict) -> dict:
     qmm_i4_plain, bf16 compute, int4 weights with bf16 scale and bias, at
     kernel_bench's default shape (N 11008, K 4096, 8 rows) and the 7B
     projections (N, K) = (12288, 4096) and (4096, 11008) at 1, 8, 37 and 512
-    rows (relative error <= 1e-2). Timed over a stack of six layers, cycled,
-    so that repeats do not hit in L2; library_ms is torch.matmul on the
-    pre-dequantized bf16 weight. Returns the default shape's row, with the
-    worst error over all checks."""
+    rows (relative error <= 1e-2); 1 and 8 rows take the SIMT body, 37 and
+    512 the tensor-core body (asserted by the launch counters). Timed over a
+    stack of six layers, cycled, so that repeats do not hit in L2;
+    library_ms is torch.matmul on the pre-dequantized bf16 weight. Returns
+    the default shape's row and the wqkv row at 512 rows, each with the
+    worst error of its body."""
     import torch
 
+    from eagle_tpu_torch import _build
     from eagle_tpu_torch.ops.qmm import qmm_i4, qmm_i4_plain, qmm_i4_stacked
     from eagle_tpu_torch.quant.qtensor import QTensor, pack_int4
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     stack, g, bf16 = 6, 32, torch.bfloat16
-    results, worst, default = [], 0.0, None
+    results, worst, worst_tc, default, tc_row = [], 0.0, 0.0, None, None
     for name, n, k, rows_list in (("kernel_bench", 11008, 4096, (8,)),
                                   ("wqkv", 12288, 4096, (1, 8, 37, 512)),
                                   ("w_down", 4096, 11008, (1, 8, 37, 512))):
@@ -992,6 +1071,8 @@ def qmm_i4_checks(report: dict) -> dict:
         w_bytes = nbytes(*layers[0].tensors().values())
         for rows in rows_list:
             x = torch.randn((rows, k), generator=gen, device="cuda")
+            route = "qmm_i4_tc" if rows > 8 else "qmm_i4"
+            _build.reset_counts()
             for entry, got, want in (
                     ("2-D", qmm_i4(x, layers[0]), qmm_i4_plain(x, layers[0])),
                     ("stacked", qmm_i4_stacked(x, w, 5), qmm_i4_plain(x, layers[5]))):
@@ -999,7 +1080,12 @@ def qmm_i4_checks(report: dict) -> dict:
                 abs_err, rel = rel_err(got, want)
                 if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
                     raise AssertionError(f"qmm_i4 {entry} {name} rows={rows}: rel err {rel:.3e}")
-                worst = max(worst, abs_err)
+                if rows > 8:
+                    worst_tc = max(worst_tc, abs_err)
+                else:
+                    worst = max(worst, abs_err)
+            if _build.launches[route] != 2:
+                raise AssertionError(f"qmm_i4 {name} rows={rows}: not the {route} route")
             reps = 20 if rows < 512 else 5
             ms = device_ms(lambda i: qmm_i4_stacked(x, w, i % stack), reps)
             plain = device_ms(lambda i: qmm_i4_plain(x, layers[i % stack]), 3, warmup=1)
@@ -1015,11 +1101,16 @@ def qmm_i4_checks(report: dict) -> dict:
                 f"library {lib:8.4f} ms  rel err {rel:.2e}")
             if name == "kernel_bench":
                 default = dict(res)
+            if rows in (37, 512):
+                log_ratios("qmm_i4", res)
+            if name == "wqkv" and rows == 512:
+                tc_row = dict(res)
         del w, layers, dense
         torch.cuda.empty_cache()
     report["qmm_i4"] = results
     default["max_abs_err"] = worst
-    return default
+    tc_row["max_abs_err"] = worst_tc
+    return default, tc_row
 
 
 def kernel_bench_path(report: dict) -> dict:
@@ -1033,20 +1124,28 @@ def kernel_bench_path(report: dict) -> dict:
     from eagle_tpu_torch import _build
     from eagle_tpu_torch.tools import kernel_bench as kb
 
-    args = kb.parse_args(["--variants", ",".join(kb.VARIANTS)])
-    log(f"[kernel_bench] x[{args.b}, {args.k}] @ W[{args.k}, {args.n}], G={args.group}")
-    bench = kb.Bench(args, kb.variant_names(args.variants), torch.device("cuda"))
-    checked = bench.check()
-    _build.reset_counts()  # ---- this path: counts from here ----
-    timed = bench.time()
-    launches, plain = dict(_build.launches), dict(_build.plain_calls)  # ---- ends ----
-    log(f"[kernel_bench] launches {launches}; plain versions {plain}")
-    if launches["qmm_i4"] <= 0 or launches["qmm"] <= 0:
-        raise AssertionError(f"kernel_bench did not launch qmm and qmm_i4: {launches}")
-    if any(plain.values()):
-        raise AssertionError(f"plain versions ran in the timed kernel_bench run: {plain}")
-    report["kernel_bench"] = dict(checked=checked, timed=timed, launches=launches)
-    return launches
+    runs = {}
+    # the defaults (8 rows: SIMT bodies), then the int4 variants at a
+    # 512-row prefill (the tensor-core body of qmm_i4)
+    for tag, argv in (("default", ["--variants", ",".join(kb.VARIANTS)]),
+                      ("512 rows", ["--variants", "int4,i4stacked", "--b", "512"])):
+        args = kb.parse_args(argv)
+        log(f"[kernel_bench] {tag}: x[{args.b}, {args.k}] @ W[{args.k}, {args.n}], G={args.group}")
+        bench = kb.Bench(args, kb.variant_names(args.variants), torch.device("cuda"))
+        checked = bench.check()
+        _build.reset_counts()  # ---- this path: counts from here ----
+        timed = bench.time()
+        launches, plain = dict(_build.launches), dict(_build.plain_calls)  # ---- ends ----
+        log(f"[kernel_bench] {tag}: launches {launches}; plain versions {plain}")
+        want = ("qmm", "qmm_i4") if tag == "default" else ("qmm_i4_tc",)
+        if any(launches[k] <= 0 for k in want):
+            raise AssertionError(f"kernel_bench {tag} did not launch {want}: {launches}")
+        if any(plain.values()):
+            raise AssertionError(f"plain versions ran in the timed kernel_bench run: {plain}")
+        runs[tag] = dict(checked=checked, timed=timed, launches=launches)
+    report["kernel_bench"] = runs
+    return {"qmm_i4": runs["default"]["launches"]["qmm_i4"],
+            "qmm_i4_tc": runs["512 rows"]["launches"]["qmm_i4_tc"]}
 
 
 # --------------------------------------------------------------------------
@@ -1153,6 +1252,9 @@ def format_checks(report: dict) -> list[dict]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out", help="directory for the detailed report")
+    ap.add_argument("--parent-report", default=None,
+                    help="chip_smoke_report.json written by another tree on the same card: "
+                         "print each qmm/qmm_i4 time as a ratio to its kernel there")
     args = ap.parse_args()
 
     import torch
@@ -1177,9 +1279,10 @@ def main() -> int:
         log(f"[time] phase {name}: {seconds[name]:.1f} s")
         return out
 
+    load_parent(args.parent_report)
     card = phase("1", phase_device, out_dir)
     report: dict = {"card": card, "phase_seconds": seconds}
-    qmm_row = phase("2 qmm", qmm_checks, report)
+    qmm_row, qmm_tc_row = phase("2 qmm", qmm_checks, report)
     out_norm_row, gate_up_row = phase("2 ffn", ffn_checks, report)
     dec_row, pre_row = phase("2 attention", attention_checks, report)
     phase("2 tiny model", tiny_model_check)
@@ -1188,8 +1291,8 @@ def main() -> int:
     gguf_launches = phase("6", gguf_path, report)
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
-    i4_row = phase("7 qmm_i4", qmm_i4_checks, report)
-    launches["qmm_i4"] = phase("7 kernel_bench", kernel_bench_path, report)["qmm_i4"]
+    i4_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
+    launches.update(phase("7 kernel_bench", kernel_bench_path, report))
     phase("8", format_checks, report)
 
     sources = {"qmm": "eagle_tpu_torch/csrc/qmm.cu",
@@ -1197,7 +1300,9 @@ def main() -> int:
                "flash_prefill": "eagle_tpu_torch/csrc/flash_attention.cu",
                "ffn_out_norm": "eagle_tpu_torch/csrc/ffn.cu",
                "gate_up_act": "eagle_tpu_torch/csrc/ffn.cu",
-               "qmm_i4": "eagle_tpu_torch/csrc/qmm_i4.cu"}
+               "qmm_i4": "eagle_tpu_torch/csrc/qmm_i4.cu",
+               "qmm_tc": "eagle_tpu_torch/csrc/qmm.cu",
+               "qmm_i4_tc": "eagle_tpu_torch/csrc/qmm_i4.cu"}
 
     def row(name, replaces, vals):
         return {"name": name, "route": "cuda", "source": sources[name],
@@ -1222,6 +1327,15 @@ def main() -> int:
         dict(row("qmm_i4", "eagle_tpu/ops/pallas_qmm.py:600 and :839", i4_row),
              shape="kernel_bench default: 8 rows, [4096 x 11008] int4, G 32, bf16 scale and bias",
              launches_from="kernel_bench, every ported variant"),
+        dict(row("qmm_tc", "eagle_tpu/ops/pallas_qmm.py:513 and :758", qmm_tc_row),
+             shape="prefill: wqkv [12288 x 4096] Q4_K packed coded, 512 rows (tensor-core body, "
+                   "csrc/qmm_tc.cuh)",
+             launches_per_prompt=report["main_path"]["launches_at_first_token"]["qmm_tc"],
+             launches_from="phases 3-4: greedy and EAGLE prompts"),
+        dict(row("qmm_i4_tc", "eagle_tpu/ops/pallas_qmm.py:600 and :839", i4_tc_row),
+             shape="prefill: wqkv [12288 x 4096] int4, G 32, bf16 scale and bias, 512 rows "
+                   "(tensor-core body, csrc/qmm_tc.cuh)",
+             launches_from="kernel_bench --b 512, variants int4 and i4stacked"),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.time() - t_start

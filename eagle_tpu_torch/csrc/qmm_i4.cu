@@ -3,8 +3,8 @@
 // with q signed in [-8, 7] and no zero-point. Port of
 // eagle_tpu/ops/pallas_qmm.py:_qmm_kernel_i4, reached there through
 // qmatmul_pallas_2d_i4 (pallas_call at :600) and qmatmul_pallas_stacked_i4
-// (:839). One kernel serves both: a layer of a stacked weight is chosen by
-// the caller offsetting the pointers; nothing is copied.
+// (:839). Both entries here serve both: a layer of a stacked weight is
+// chosen by the caller offsetting the pointers; nothing is copied.
 //
 // q is stored as int8 [K/2, N] of two's-complement nibbles: within each
 // group of G K-rows, packed row j holds values (j, j + G/2) in its (lo, hi)
@@ -15,26 +15,35 @@
 //   q, scale and bias round to the compute dtype (q exactly);
 //   w = round_ct(q * scale), then w = round_ct(w + bias);
 //   x rounds to the compute dtype; products accumulate in f32.
-// With f32 compute the product and the sum are single f32 operations
-// (__fmul_rn, __fadd_rn: never contracted into an FMA). bf16 rounding uses
-// __floats2bfloat162_rn, which rounds each of its two values to nearest
-// even exactly as __float2bfloat16_rn does, in one instruction.
+// The product and the sum are single f32 operations (__fmul_rn, __fadd_rn:
+// never contracted into an FMA). bf16 rounding uses __floats2bfloat162_rn,
+// which rounds each of its two values to nearest even exactly as
+// __float2bfloat16_rn does, in one instruction.
 //
-// Bound on the H100: at decode-size B the bytes. At kernel_bench's default
-// shape (K 4096, N 11008, B 8, G 32, bf16 scale and bias) they are q
-// 22,544,384 + scale and bias 5,636,096 + x and y ~0.5 MB = ~28.7 MB, 8.6 us
-// at 3.35 TB/s, against 0.73 us of bf16 operations. So the body is qmm's
-// SIMT body (qmm_body.cuh) in a file of its own: each lane reads 4 adjacent
-// columns (one 128-byte line per warp and packed row), a warp loads all G/2
-// packed rows of a group before it uses any, so that many loads are in
-// flight, K is split over warps and blocks to fill the 132 SMs, and the
-// partial sums of K splits are added in a fixed order by a second kernel (no
-// atomics). No dequantized weight is written to device memory.
+// Two bodies, chosen by ops/qmm.py (`_route`), as for qmm:
+// - qmm_i4_kernel (SIMT; 1-8 rows, and any row count in f32). Bound on the
+//   H100 by the bytes: at kernel_bench's default shape (K 4096, N 11008, B
+//   8, G 32, bf16 scale and bias) q 22,544,384 + scale and bias 5,636,096 +
+//   x and y ~0.5 MB = ~28.7 MB, 8.6 us at 3.35 TB/s, against 0.73 us of bf16
+//   operations. qmm's SIMT structure (qmm_body.cuh): each lane reads 4
+//   adjacent columns, a warp loads all G/2 packed rows of a group before it
+//   uses any, K is split over warps and blocks to fill the 132 SMs, and the
+//   partial sums of K splits are added in a fixed order by a second kernel.
+// - qmm_tc_kernel<.., kFormInt4> (qmm_tc.cuh; bf16 compute, more than 8
+//   rows). Bound by operations at 512 rows, by bytes at 37. The SIMT body
+//   re-read every weight once per 8-row tile there; this one runs qmm's
+//   tensor-core main loop (x prologue, `wgmma.mma_async` on 64/128 x 256
+//   tiles, a 3-4 stage ring filled by TMA under mbarriers, the weight tile
+//   dequantized in shared memory at the rounding points above, in bf16
+//   pairs, while the previous step's wgmma runs, K splits to fill the card)
+//   with the bias applied per weight.
+// No dequantized weight is written to device memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "qmm_body.cuh"
+#include "qmm_tc.cuh"
 
 namespace {
 
@@ -196,6 +205,49 @@ extern "C" int qmm_i4_launch(const void* x, const void* q, const void* scale, co
   } else {
     dispatch_rb<false>(rb, G, has_bias, a);
   }
+  if (splits > 1) {
+    const size_t count = (size_t)B * N;
+    qmm_i4_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(partial), static_cast<float*>(out), count, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int BM>
+cudaError_t tc_i4_group(int G, const TcArgs& a, int splits, int smem, cudaStream_t st) {
+  return G == 16 ? tc_launch<BM, 16, kFormInt4>(a, splits, smem, st)
+                 : tc_launch<BM, 32, kFormInt4>(a, splits, smem, st);
+}
+
+}  // namespace
+
+// The tensor-core body (bf16 compute; the wrapper sends it more than 8
+// rows). x f32 [B, K]; xb bf16 [B, K] is scratch that the x prologue fills;
+// weight operands as qmm_i4_launch's. bm in {64, 128}: rows per block;
+// stages in {3, 4}; split z of `splits` runs K steps of 64 [z *
+// steps_per_split, ...) into partial [splits, B, N] (out directly when
+// splits == 1); smem: dynamic shared memory bytes, at least the layout's
+// (ops/qmm.py:_tc_plan).
+extern "C" int qmm_i4_tc_launch(const void* x, void* xb, const void* q, const void* scale,
+                                const void* bias, void* out, void* partial, int B, int K, int N,
+                                int G, int scale_kind, int bias_kind, int bm, int stages,
+                                int splits, int steps_per_split, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((bm != 64 && bm != 128) || (G != 16 && G != 32) || K % kTcK || N % 16)
+    return (int)cudaErrorInvalidValue;
+  auto* xbp = static_cast<__nv_bfloat16*>(xb);
+  tc_x_prologue<32><<<dim3((K / 4 + 255) / 256, B), 256, 0, st>>>(
+      static_cast<const float*>(x), xbp, nullptr, K, 0);
+  const int bias_bytes = bias_kind == kKindNone ? 0 : tc_kind_bytes(bias_kind);
+  TcArgs a{xbp, nullptr, static_cast<const int8_t*>(q), scale, bias, nullptr, nullptr,
+           static_cast<float*>(splits > 1 ? partial : out), B, K, N, 0, scale_kind, bias_kind,
+           steps_per_split, stages,
+           tc_layout(bm, kFormInt4, G, tc_kind_bytes(scale_kind), 0, bias_bytes, stages)};
+  const cudaError_t e = bm == 128 ? tc_i4_group<128>(G, a, splits, smem, st)
+                                  : tc_i4_group<64>(G, a, splits, smem, st);
+  if (e != cudaSuccess) return (int)e;
   if (splits > 1) {
     const size_t count = (size_t)B * N;
     qmm_i4_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(

@@ -1,33 +1,49 @@
-"""Fused dequant + matmul: the `qmm` CUDA kernel (csrc/qmm.cu), its wrapper
-and its plain PyTorch version.
+"""Fused dequant + matmul: the `qmm` CUDA kernels (csrc/qmm.cu), their
+wrapper and their plain PyTorch version.
 
 Replaces eagle_tpu/ops/pallas_qmm.py:_qmm_kernel, reached there through
-`qmatmul_pallas` / `qmatmul_pallas_2d` (2-D weights: lm_head, EAGLE fc_w) and
-`qmatmul_pallas_stacked_nd` / `qmatmul_pallas_stacked` (layer-stacked
-weights, layer chosen by scalar prefetch). Here both are one kernel: a layer
-is chosen by offsetting the weight pointers by `layer x stride`, no copy.
+`qmatmul_pallas` / `qmatmul_pallas_2d` (pallas_call at :513; 2-D weights:
+lm_head, EAGLE fc_w) and `qmatmul_pallas_stacked_nd` /
+`qmatmul_pallas_stacked` (:758; layer-stacked weights, layer chosen by
+scalar prefetch). Here both are one entry: a layer is chosen by offsetting
+the weight pointers by `layer x stride`, no copy.
 
-Bound on the H100: at decode the bytes of the quantized weights (Q4_K packed
-with codes: 4.75 bits per weight, ~3.9 GB per 7B token), so the SIMT body
-reads each weight byte once per row tile with coalesced 4-column vectors,
-keeps a whole quant group's loads in flight per warp, splits K over warps
-and blocks to fill the 132 SMs at small N, and never writes a dequantized
-weight to device memory. Prefill (more than 8 rows, bf16) is bound by
-operations and takes the tensor-core body: 64 x 128 tiles, each weight tile
-dequantized into shared memory only. The TPU's batch pad to 8 rows and its
-tile pickers do not carry over: any row count from 1 to 512 runs in one
-launch. G = 8 (IQ1_M) runs in both bodies as G = 16 and 32 do.
+Two bodies, picked by `_route` (the same for qmm_i4):
+- 1-8 rows, or f32 compute at any row count (decode, verify): the SIMT
+  body (csrc/qmm_body.cuh). Bound on the H100 by the bytes of the quantized
+  weights (Q4_K packed with codes: 4.75 bits per weight, ~3.9 GB per 7B
+  token), so it reads each weight byte once per row tile with coalesced
+  4-column vectors, keeps a whole quant group's loads in flight per warp,
+  splits K over warps and blocks (`simt_config`) to fill the 132 SMs at
+  small N, and never writes a dequantized weight to device memory.
+- more than 8 rows in bf16 (prefill; 512 rows for a 300-token prompt):
+  the tensor-core body (csrc/qmm_tc.cuh), bound by operations there. An x
+  prologue rounds x to bf16 and takes the group sums once per call; the
+  main loop runs `wgmma.mma_async` on 64- or 128-row x 256-column tiles,
+  fed by a 3-4 stage ring that one producer thread fills by TMA, with each
+  64-deep weight tile dequantized into shared memory while the previous
+  step's wgmma runs, the bias side product as trailing wgmma steps over the
+  groups, and K splits where the tiles are fewer than the SMs (`_tc_plan`).
+  Its pace is set by the dequant, at 2-3x the time of one torch.matmul on a
+  pre-dequantized bf16 weight. Every form takes
+  it: packed / int8, coded / f32 / bf16 scales, bias or none, G = 8, 16,
+  32, 2-D or stacked. It needs K % 64 == 0, N % 16 == 0 and 16-byte
+  aligned operands (layer offsets included) and raises on anything else.
+The TPU's batch pad to 8 rows and its tile pickers do not carry over: any
+row count from 1 to 512 runs in one call.
 
-The `qmm_i4` kernel (csrc/qmm_i4.cu) is the counterpart of
-`qmatmul_pallas_2d_i4` / `qmatmul_pallas_stacked_i4` (pallas_qmm.py's
-`_qmm_kernel_i4`): weights of the `int4` form, signed nibbles with the scale
-AND the bias applied to every weight in the compute dtype. Only the kernel
-benchmark (tools/kernel_bench.py) makes such weights; the model path never
-routes them, as in the reference."""
+The `qmm_i4` kernels (csrc/qmm_i4.cu) are the counterpart of
+`qmatmul_pallas_2d_i4` / `qmatmul_pallas_stacked_i4` (pallas_qmm.py:600 and
+:839, `_qmm_kernel_i4`): weights of the `int4` form, signed nibbles with
+the scale AND the bias applied to every weight in the compute dtype, with
+the same two bodies (the tensor-core one at qmm_i4's rounding points).
+Only the kernel benchmark (tools/kernel_bench.py) makes such weights; the
+model path never routes them, as in the reference."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +52,7 @@ from ..quant.qtensor import QTensor
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_TC_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _SMS = 132  # H100 SXM streaming multiprocessors
 _COLS = 128  # output columns per block (csrc/qmm.cu)
 _WARPS = 8  # K-walking warps per block
@@ -56,16 +73,26 @@ def qmm_math(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch
         raise ValueError("int4 weights take qmm_i4, not qmm")
     k, n = _dims(w)
     g = w.group
-    b = x.shape[0]
-    xf = x.float()
     scale, bias = w.effective_scale_bias()
     q = w.unpack().q
     wd = (q.float().reshape(k // g, g, n) * scale[:, None, :]).reshape(k, n)
-    y = xf.to(compute_dtype).float() @ wd.to(compute_dtype).float()
+    xc, xs = x_prologue_plain(x, g, bias is not None, compute_dtype)
+    y = xc.float() @ wd.to(compute_dtype).float()
     if bias is not None:
-        xs = xf.reshape(b, k // g, g).sum(-1)
-        y = y + xs.to(compute_dtype).float() @ bias.to(compute_dtype).float()
+        y = y + xs.float() @ bias.to(compute_dtype).float()
     return y
+
+
+def x_prologue_plain(x: torch.Tensor, group: int, sums: bool,
+                     compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """What the tensor-core body's x prologue (csrc/qmm_tc.cuh:tc_x_prologue)
+    computes, at the reference's rounding points: x [B, K] rounded to the
+    compute dtype, and with `sums` the f32 sum of each group of `group`
+    values of the unrounded x, rounded to the compute dtype [B, K/G] (the
+    kernel pads its copy to `gp` columns with zeros)."""
+    xf = x.float()
+    xs = xf.reshape(x.shape[0], -1, group).sum(-1).to(compute_dtype) if sums else None
+    return xf.to(compute_dtype), xs
 
 
 def qmm_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -108,10 +135,106 @@ def _check(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
 
 
 #: alignment the SIMT body's vector loads need (4 adjacent columns per lane);
-#: the tensor-core body loads 16 bytes at a time from every operand
+#: the tensor-core body's TMA copies need 16-byte bases and row strides
 _ALIGN = {torch.float32: 16, torch.bfloat16: 8, torch.int8: 4}
 _TC_ALIGN = 16
-_TC_ROWS = 64  # rows per block of the tensor-core body (csrc/qmm.cu)
+
+# the tensor-core body (csrc/qmm_tc.cuh)
+_TC_COLS = 256  # weight columns per block
+_TC_K = 64  # K per step
+_TC_SPLIT_K = 256  # K splits cut here: whole groups, whole sup rows of coded weights
+_TC_MAX_SMEM = 232448  # 227 KB of dynamic shared memory per block
+_TC_B_SLOT = _TC_K * _TC_COLS * 2
+_TC_FILL = 0.9  # least share of the SMs a plan's blocks cover, where the shape allows
+_TC_STEP_BYTES = 4.8e6  # bytes of partial sums that cost as much as one block-step
+
+
+class TcForm(NamedTuple):
+    """What the tensor-core body's ring holds per step for a weight: q as
+    "packed" nibbles, "int8" or "int4" nibbles; the bytes of a scale (4 f32,
+    2 bf16, 1 code); coded (a sup row per step); the bytes of a bias (0:
+    none)."""
+    q: str
+    scale_bytes: int
+    coded: bool
+    bias_bytes: int
+
+
+class TcPlan(NamedTuple):
+    rows: int  # output rows per block (64 or 128)
+    cols: int  # output columns per block
+    stages: int  # ring stages (3 or 4)
+    splits: int  # K splits (grid z)
+    steps_per_split: int  # K steps of 64 per split (the last split may have fewer)
+    groups_per_split: int
+    smem_bytes: int  # dynamic shared memory of the main loop
+
+
+def tc_form(w: QTensor) -> TcForm:
+    size = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+    q = "int4" if w.int4 else "packed" if w.packed else "int8"
+    return TcForm(q, size[w.scale.dtype], w.coded,
+                  0 if w.bias is None else size[w.bias.dtype])
+
+
+def _tc_layout(rows: int, group: int, form: TcForm, stages: int) -> int:
+    """Dynamic shared memory of the main loop (csrc/qmm_tc.cuh:tc_layout):
+    `stages` ring stages, each the bf16 x tile and the raw weight tile,
+    rounded to 1 KB; two bf16 B slots; four mbarriers; 1 KB to align the
+    base."""
+    stage = rows * 128
+    stage += (_TC_K if form.q == "int8" else _TC_K // 2) * _TC_COLS
+    stage += (_TC_K // group) * _TC_COLS * form.scale_bytes
+    stage += _TC_COLS * 4 if form.coded else 0
+    stage += (_TC_K // group) * _TC_COLS * form.bias_bytes if form.q == "int4" else 0
+    stage = -(-stage // 1024) * 1024
+    return stages * stage + 2 * _TC_B_SLOT + 64 + 1024
+
+
+def _tc_plan(b: int, k: int, n: int, group: int, form: TcForm) -> TcPlan:
+    """Row tile, ring stages and K splits of the tensor-core body for
+    [b, k] @ [k, n]: 128-row tiles above 64 rows, else 64; 4 stages where
+    they fit in 227 KB, else 3; K cut on 256-row boundaries into the splits
+    that give the least estimated time, among those that put a block on at
+    least 90 % of the 132 SMs (where the shape has that many tiles and
+    steps). The estimate counts the block-steps on the busiest SM (waves x
+    steps per split) plus the partial sums' traffic, written and read back
+    by the reduce kernel, at 4.8 MB per block-step (an H100 block-step at
+    512 rows took about 1.6 us, in which ~3 TB/s moves ~4.8 MB). Raises on
+    a shape the body does not take."""
+    if k % _TC_K or n % 16 or group not in (8, 16, 32):
+        raise ValueError(f"the tensor-core qmm body needs K % 64 == 0, N % 16 == 0 and G in "
+                         f"(8, 16, 32) (K={k}, N={n}, G={group})")
+    rows = 64 if b <= 64 else 128
+    stages = 4 if _tc_layout(rows, group, form, 4) <= _TC_MAX_SMEM else 3
+    smem = _tc_layout(rows, group, form, stages)
+    if smem > _TC_MAX_SMEM:
+        raise ValueError(f"the tensor-core qmm body needs {smem} bytes of shared memory")
+    tiles = -(-n // _TC_COLS) * -(-b // rows)
+    quantum = _TC_SPLIT_K // _TC_K
+    units = -(-(k // _TC_K) // quantum)
+    fill = min(_TC_FILL * _SMS, tiles * units)
+    best = None
+    for per in range(units, 0, -1):  # units of 256 K rows per split
+        splits = -(-units // per)
+        blocks = tiles * splits
+        if blocks < fill:
+            continue
+        est = -(-blocks // _SMS) * per * quantum
+        if splits > 1:
+            est += (2 * splits + 1) * b * n * 4 / _TC_STEP_BYTES
+        if best is None or est < best[0]:
+            best = (est, per, splits)
+    _, per, splits = best
+    return TcPlan(rows, _TC_COLS, stages, splits, per * quantum, per * quantum * _TC_K // group,
+                  smem)
+
+
+def _route(b: int, compute_dtype) -> str:
+    """Which body a call takes (qmm and qmm_i4 alike): "tc" (tensor cores)
+    for bf16 compute and more than 8 rows, where the SIMT body would re-read
+    every weight byte per 8 rows and is bound by its FMA rate; else "simt"."""
+    return "tc" if compute_dtype == torch.bfloat16 and b > 8 else "simt"
 
 
 def simt_config(b: int, k: int, n: int, group: int) -> tuple[int, int, int]:
@@ -140,35 +263,56 @@ def _ptr(t: torch.Tensor | None, layer: int | None, align: int | None = None) ->
     return p
 
 
+def _scratch_x(x2: torch.Tensor) -> torch.Tensor:
+    """x as contiguous f32 whose base the prologue's 16-byte loads take."""
+    xf = x2.float().contiguous()
+    return xf.clone() if xf.data_ptr() % _TC_ALIGN else xf
+
+
 def _launch(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> torch.Tensor:
-    fn = _build.kernel("qmm_launch", _ARGTYPES)
     k, n = _dims(w)
     b = x2.shape[0]
+    tc = _route(b, compute_dtype) == "tc"
+    fn = _build.kernel("qmm_tc_launch" if tc else "qmm_launch", _TC_ARGTYPES if tc else _ARGTYPES)
     if x2.shape[1] != k:
         raise ValueError(f"x has K={x2.shape[1]}, weight K={k}")
     if b == 0:
         return x2.new_empty((0, n))
-    xf = x2.float().contiguous()
-    # more than 8 rows in bf16 go to the tensor cores (the SIMT body re-reads
-    # every weight byte per 8 rows there and is bound by its FMA rate)
-    tc = compute_dtype == torch.bfloat16 and b > 8 and k % 64 == 0 and n % 16 == 0
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
     if tc:
-        if xf.data_ptr() % _TC_ALIGN:
-            xf = xf.clone()
-        rb, splits, gps = _TC_ROWS, 1, k // w.group
-    else:
-        rb, splits, gps = simt_config(b, k, n, w.group)
+        plan = _tc_plan(b, k, n, w.group, tc_form(w))
+        xf = _scratch_x(x2)
+        xb = torch.empty((b, k), dtype=torch.bfloat16, device=xf.device)
+        gp = -(-(k // w.group) // 8) * 8 + _TC_K  # group sums, padded for the last step
+        xsum = (torch.empty((b, gp), dtype=torch.bfloat16, device=xf.device)
+                if w.bias is not None else None)
+        out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
+        partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=xf.device)
+                   if plan.splits > 1 else None)
+        a = _TC_ALIGN
+        rc = fn(
+            xf.data_ptr(), xb.data_ptr(), None if xsum is None else xsum.data_ptr(),
+            _ptr(w.q, layer, a), _ptr(w.scale, layer, a), _ptr(w.bias, layer, a),
+            _ptr(w.sup, layer, a), _ptr(w.sup_min, layer, a), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            gp, b, k, n, w.group, int(w.packed), _KINDS[w.scale.dtype],
+            -1 if w.bias is None else _KINDS[w.bias.dtype], plan.rows, plan.stages,
+            plan.splits, plan.steps_per_split, plan.smem_bytes, stream,
+        )
+        _build.check(rc, "qmm_tc_launch")
+        _build.launches["qmm_tc"] += 1
+        return out
+    xf = x2.float().contiguous()
+    rb, splits, gps = simt_config(b, k, n, w.group)
     out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
     partial = torch.empty((splits, b, n), dtype=torch.float32, device=xf.device) if splits > 1 else None
-    align = _TC_ALIGN if tc else None
     rc = fn(
-        xf.data_ptr(), _ptr(w.q, layer, align), _ptr(w.scale, layer, align),
-        _ptr(w.bias, layer, align), _ptr(w.sup, layer, align), _ptr(w.sup_min, layer, align),
+        xf.data_ptr(), _ptr(w.q, layer), _ptr(w.scale, layer), _ptr(w.bias, layer),
+        _ptr(w.sup, layer), _ptr(w.sup_min, layer),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
         b, k, n, w.group, int(w.packed), _KINDS[w.scale.dtype],
         -1 if w.bias is None else _KINDS[w.bias.dtype],
-        int(compute_dtype == torch.bfloat16), rb, splits, gps,
-        torch.cuda.current_stream(xf.device).cuda_stream,
+        int(compute_dtype == torch.bfloat16), rb, splits, gps, stream,
     )
     _build.check(rc, "qmm_launch")
     _build.launches["qmm"] += 1
@@ -216,6 +360,7 @@ def qmm_stacked(x: torch.Tensor, w: QTensor, layer: int,
 # ---------------------------------------------------------------------------
 
 _I4_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_I4_TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def qmm_i4_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -256,13 +401,35 @@ def _check_i4(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
 
 
 def _launch_i4(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> torch.Tensor:
-    fn = _build.kernel("qmm_i4_launch", _I4_ARGTYPES)
     k, n = _dims(w)
     b = x2.shape[0]
+    tc = _route(b, compute_dtype) == "tc"
+    fn = _build.kernel("qmm_i4_tc_launch" if tc else "qmm_i4_launch",
+                       _I4_TC_ARGTYPES if tc else _I4_ARGTYPES)
     if x2.shape[1] != k:
         raise ValueError(f"x has K={x2.shape[1]}, weight K={k}")
     if b == 0:
         return x2.new_empty((0, n))
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    bias_kind = -1 if w.bias is None else _KINDS[w.bias.dtype]
+    if tc:
+        plan = _tc_plan(b, k, n, w.group, tc_form(w))
+        xf = _scratch_x(x2)
+        xb = torch.empty((b, k), dtype=torch.bfloat16, device=xf.device)
+        out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
+        partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=xf.device)
+                   if plan.splits > 1 else None)
+        a = _TC_ALIGN
+        rc = fn(
+            xf.data_ptr(), xb.data_ptr(), _ptr(w.q, layer, a), _ptr(w.scale, layer, a),
+            _ptr(w.bias, layer, a), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            b, k, n, w.group, _KINDS[w.scale.dtype], bias_kind, plan.rows, plan.stages,
+            plan.splits, plan.steps_per_split, plan.smem_bytes, stream,
+        )
+        _build.check(rc, "qmm_i4_tc_launch")
+        _build.launches["qmm_i4_tc"] += 1
+        return out
     xf = x2.float().contiguous()
     rb, splits, gps = simt_config(b, k, n, w.group)
     out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
@@ -270,9 +437,8 @@ def _launch_i4(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -
     rc = fn(
         xf.data_ptr(), _ptr(w.q, layer), _ptr(w.scale, layer), _ptr(w.bias, layer),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
-        b, k, n, w.group, _KINDS[w.scale.dtype], -1 if w.bias is None else _KINDS[w.bias.dtype],
-        int(compute_dtype == torch.bfloat16), rb, splits, gps,
-        torch.cuda.current_stream(xf.device).cuda_stream,
+        b, k, n, w.group, _KINDS[w.scale.dtype], bias_kind,
+        int(compute_dtype == torch.bfloat16), rb, splits, gps, stream,
     )
     _build.check(rc, "qmm_i4_launch")
     _build.launches["qmm_i4"] += 1

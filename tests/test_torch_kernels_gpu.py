@@ -118,8 +118,71 @@ def test_qmm_kernel_matches_plain(cuda, name, rows, compute):
     x = torch.randn((rows, 512), generator=cuda, device="cuda")
     _build.reset_counts()
     got = qmm(x, w, compute)
-    assert _build.launches["qmm"] == 1 and _build.plain_calls["qmm"] == 0
+    route = "qmm_tc" if compute == torch.bfloat16 and rows > 8 else "qmm"
+    assert _build.launches[route] == 1 and sum(_build.launches.values()) == 1
+    assert _build.plain_calls["qmm"] == 0
     _close(got, qmm_plain(x, w, compute), TOL[compute])
+
+
+TC_ROWS = [9, 37, 64, 65, 128, 300]  # both row tiles (64, 128) and their ragged edges
+
+
+@pytest.mark.parametrize("rows", TC_ROWS)
+@pytest.mark.parametrize("name", sorted(WEIGHTS))
+def test_qmm_tensor_core_route_matches_plain(cuda, name, rows):
+    """The tensor-core body on every form: N = 400 leaves a ragged 256-column
+    tile, K = 1280 runs 20 steps of 64 through the 3-4 stage ring, cut into
+    K splits of 256 at these small tile counts; bias or none takes the
+    trailing side-product steps or not."""
+    w = WEIGHTS[name](cuda, 400, 1280, None)
+    x = torch.randn((rows, 1280), generator=cuda, device="cuda")
+    _build.reset_counts()
+    got = qmm(x, w)
+    assert _build.launches["qmm_tc"] == 1 and _build.launches["qmm"] == 0
+    assert _build.plain_calls["qmm"] == 0
+    _close(got, qmm_plain(x, w), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("rows", [37, 300])
+@pytest.mark.parametrize("name", ["q4k_packed_coded", "q6k_int8_coded", "iq1m_int8_g8",
+                                  "q4_0_packed_f32", "q8_0_int8_f32", "packed_g16_f32"])
+def test_qmm_tensor_core_route_stacked(cuda, name, rows):
+    """The layer offset of a stack (layers 1 and 2 of 3) on the tensor-core
+    body, one K split and several (K = 2048: 8 splits at 37 rows, 1 at 300
+    with N = 4096)."""
+    for n, k in ((512, 2048), (4096, 2048)):
+        w = WEIGHTS[name](cuda, n, k, 3)
+        x = torch.randn((rows, k), generator=cuda, device="cuda")
+        for layer in (1, 2):
+            _build.reset_counts()
+            got = qmm_stacked(x, w, layer)
+            assert _build.launches["qmm_tc"] == 1
+            _close(got, qmm_plain(x, w.layer(layer)), TOL[torch.bfloat16])
+
+
+def test_qmm_tensor_core_route_refuses_what_it_cannot_take(cuda):
+    """The tensor-core body raises, and never falls back to the SIMT body,
+    on an operand off 16 bytes (a layer whose base is misaligned) or a
+    shape it does not take (K % 64, N % 16)."""
+    x = torch.randn((37, 512), generator=cuda, device="cuda")
+    w = WEIGHTS["q4k_packed_coded"](cuda, 256, 512, 2)
+    store = torch.zeros(w.q.numel() + 8, dtype=torch.int8, device="cuda")
+    q_off = store[8:].view(w.q.shape)  # contiguous, 8 bytes off a 16-byte boundary
+    q_off.copy_(w.q)
+    bad = dataclasses.replace(w, q=q_off)
+    _build.reset_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        qmm_stacked(x, bad, 1)
+    assert _build.launches["qmm"] == 0 and _build.launches["qmm_tc"] == 0
+    _close(qmm_stacked(x[:8], bad, 1), qmm_plain(x[:8], w.layer(1)), TOL[torch.bfloat16])
+    for n, k in ((256, 288), (264, 512)):  # K % 64, N % 16
+        wk = WEIGHTS["q4_0_packed_f32"](cuda, n, k, None)
+        with pytest.raises(ValueError, match="tensor-core"):
+            qmm(torch.randn((37, k), generator=cuda, device="cuda"), wk)
+    wi = _int4_weight(cuda, 264, 512, 32, None, torch.bfloat16, True)
+    with pytest.raises(ValueError, match="tensor-core"):
+        qmm_i4(x, wi)
+    assert _build.launches["qmm_tc"] == 0 and _build.launches["qmm_i4_tc"] == 0
 
 
 @pytest.mark.parametrize("rows", [1, 6, 70])
@@ -159,8 +222,31 @@ def test_qmm_i4_kernel_matches_plain(cuda, stack, rows, group, bias, scale_dtype
         else:
             got = qmm_i4_stacked(x, w, layer, compute)
             want = qmm_i4_plain(x, w.layer(layer), compute)
-        assert _build.launches["qmm_i4"] == 1 and _build.plain_calls["qmm_i4"] == 1
+        route = "qmm_i4_tc" if compute == torch.bfloat16 and rows > 8 else "qmm_i4"
+        assert _build.launches[route] == 1 and sum(_build.launches.values()) == 1
+        assert _build.plain_calls["qmm_i4"] == 1
         _close(got, want, TOL[compute])
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16], ids=["s_f32", "s_bf16"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("rows", TC_ROWS)
+@pytest.mark.parametrize("stack", [None, 3], ids=["2d", "stacked"])
+def test_qmm_i4_tensor_core_route_matches_plain(cuda, stack, rows, group, bias, scale_dtype):
+    """qmm_i4's tensor-core body at its rounding points: N = 400 (a ragged
+    256-column tile), K = 1280 (20 ring steps, K splits), both row tiles,
+    both entries (layers 0 and 2 of a stack)."""
+    w = _int4_weight(cuda, 400, 1280, group, stack, scale_dtype, bias)
+    x = torch.randn((rows, 1280), generator=cuda, device="cuda")
+    for layer in ((None,) if stack is None else (0, 2)):
+        _build.reset_counts()
+        if stack is None:
+            got, want = qmm_i4(x, w), qmm_i4_plain(x, w)
+        else:
+            got, want = qmm_i4_stacked(x, w, layer), qmm_i4_plain(x, w.layer(layer))
+        assert _build.launches["qmm_i4_tc"] == 1 and _build.launches["qmm_i4"] == 0
+        _close(got, want, TOL[torch.bfloat16])
 
 
 def test_qmm_i4_refuses_what_it_cannot_take(cuda):

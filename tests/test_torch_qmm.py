@@ -103,3 +103,97 @@ def test_dense_weight_matmul(rng):
     x = rng.standard_normal((2, 128)).astype(np.float32)
     got = qmatmul(torch.from_numpy(x), torch.from_numpy(wd), compute_dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), x @ wd.T, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core body's planner, routing and x prologue (no card needed)
+# ---------------------------------------------------------------------------
+
+from eagle_tpu_torch.ops.qmm import (TcForm, _route, _tc_layout, _tc_plan,  # noqa: E402
+                                     x_prologue_plain)
+
+# (q form, scale bytes, coded, bias bytes): every form the body takes
+TC_FORMS = {
+    "packed_coded": TcForm("packed", 1, True, 1),
+    "packed_f32": TcForm("packed", 4, False, 4),
+    "packed_bf16_nobias": TcForm("packed", 2, False, 0),
+    "int8_coded": TcForm("int8", 1, True, 1),
+    "int8_f32": TcForm("int8", 4, False, 0),
+    "int8_bf16": TcForm("int8", 2, False, 2),
+    "int4_f32_bias": TcForm("int4", 4, False, 4),
+    "int4_bf16_nobias": TcForm("int4", 2, False, 0),
+}
+# (N, K) of every product the prefill runs at Vicuna-7B width, and the EAGLE fc
+MAIN_SHAPES = {"wqkv": (12288, 4096), "wo": (4096, 4096), "w_gate_up": (22016, 4096),
+               "w_down": (4096, 11008), "lm_head": (32000, 4096), "fc_w": (4096, 8192)}
+
+
+def _groups(form):
+    return (16, 32) if form.coded or form.q == "int4" else (8, 16, 32)
+
+
+@pytest.mark.parametrize("rows", [9, 37, 64, 65, 300, 512])
+@pytest.mark.parametrize("form", sorted(TC_FORMS))
+def test_tc_plan_fits_and_covers(form, rows):
+    """Shared memory within 227 KB; the row and column tiles cover [B, N];
+    the K splits cover K exactly once, on 256-row boundaries (whole groups,
+    whole sup rows), with the groups per split that G gives."""
+    f = TC_FORMS[form]
+    for n, k in list(MAIN_SHAPES.values()) + [(400, 1280), (256, 512)]:
+        for g in _groups(f):
+            p = _tc_plan(rows, k, n, g, f)
+            assert p.smem_bytes == _tc_layout(p.rows, g, f, p.stages) <= 232448
+            assert p.stages in (3, 4) and p.rows == (64 if rows <= 64 else 128)
+            assert -(-rows // p.rows) * p.rows >= rows and p.cols == 256
+            steps = k // 64
+            assert p.splits * p.steps_per_split >= steps > (p.splits - 1) * p.steps_per_split
+            assert p.splits == 1 or p.steps_per_split % 4 == 0
+            assert p.groups_per_split * g == p.steps_per_split * 64
+
+
+@pytest.mark.parametrize("name", sorted(MAIN_SHAPES))
+def test_tc_plan_fills_the_card(name):
+    """Every main-path product at 512 rows (and qmm_i4's 37-row case) puts a
+    block on at least 90 % of the 132 SMs, and 4 stages fit its forms."""
+    n, k = MAIN_SHAPES[name]
+    cases = [(512, TC_FORMS["packed_coded"], 32), (512, TC_FORMS["packed_f32"], 32),
+             (512, TC_FORMS["int8_f32"], 32), (37, TC_FORMS["int4_bf16_nobias"], 32),
+             (512, TC_FORMS["int4_f32_bias"], 32)]
+    for rows, f, g in cases:
+        p = _tc_plan(rows, k, n, g, f)
+        blocks = -(-n // p.cols) * -(-rows // p.rows) * p.splits
+        assert blocks >= 0.9 * 132, (name, rows, p)
+        assert p.stages == 4
+
+
+def test_tc_plan_refuses_shapes_the_body_cannot_take():
+    f = TC_FORMS["packed_f32"]
+    for k, n, g in ((288, 256, 32), (512, 264, 32), (512, 256, 64)):
+        with pytest.raises(ValueError, match="tensor-core"):
+            _tc_plan(37, k, n, g, f)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 7, 8, 9, 37, 512])
+def test_route(rows):
+    """bf16 and more than 8 rows take the tensor-core body, in qmm and
+    qmm_i4 alike; f32 compute or up to 8 rows the SIMT body."""
+    assert _route(rows, torch.bfloat16) == ("tc" if rows > 8 else "simt")
+    assert _route(rows, torch.float32) == "simt"
+
+
+@pytest.mark.parametrize("group", [8, 16, 32])
+def test_x_prologue_plain_matches_reference_group_sums(rng, group):
+    """The prologue's plain version: x rounded to bf16 as JAX rounds it, and
+    the group sums of the unrounded x (the reference's side-product operand,
+    pallas_qmm.py: x.reshape(b, k // g, g).sum(-1), cast to the compute
+    dtype) within one bf16 rounding (the two sum in another order)."""
+    x = (rng.standard_normal((37, 512)) * 3).astype(np.float32)
+    xb, xs = x_prologue_plain(torch.from_numpy(x), group, True)
+    want_x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(xb.float().numpy(), want_x)
+    want = np.asarray(jnp.asarray(x).reshape(37, 512 // group, group).sum(axis=-1)
+                      .astype(jnp.bfloat16).astype(jnp.float32))
+    got = xs.float().numpy()
+    assert got.shape == (37, 512 // group) and xs.dtype == torch.bfloat16
+    np.testing.assert_allclose(got, want, rtol=2 ** -8, atol=1e-6)
+    assert x_prologue_plain(torch.from_numpy(x), group, False)[1] is None

@@ -154,3 +154,18 @@ def test_int4_concat_needs_one_form(rng):
     with pytest.raises(ValueError):
         concat_qtensors([w, dataclasses.replace(w, int4=False)])
     assert isinstance(fused, QTensor)
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("rows", [9, 37, 70])
+def test_qmm_i4_prefill_rows_match_pallas(rng, rows, group, bias):
+    """The row counts that take the tensor-core body on the card (more than
+    8, bf16): the plain version against the reference's interpret-mode
+    kernel at bf16, ragged 64- and 128-row tiles included."""
+    ref, w, _ = _int4_ref(rng, group, bias)
+    x = rng.standard_normal((rows, K)).astype(np.float32)
+    want = qmatmul_pallas_2d_i4(jnp.asarray(x), ref, compute_dtype=jnp.bfloat16, interpret=True)
+    got = qmm_i4(torch.from_numpy(x), w, compute_dtype=torch.bfloat16)
+    assert tuple(got.shape) == (rows, N)
+    _close(got, want)
