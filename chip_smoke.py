@@ -13,13 +13,18 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    1, 6, 37 and 512 rows, and the GGUF path's Q4_0 (packed, f32 scale and
    bias) and Q8_0 (int8, no bias) forms at 1, 6 and 512 rows, bf16 compute
    (relative error <= 1e-2); every one of these forms also through the
-   tensor-core body at 9, 37, 64, 65, 128, 300 and 512 rows (checks only),
-   and one line for the prefill qmm per prompt (32 x 4 projections +
-   lm_head at 512 rows: kernel, bound, library ms), each 512-row time as a
-   ratio to library_ms (and, with --parent-report, to the kernel of the
-   tree that wrote that report); ffn_out_norm and gate_up_act at Vicuna-7B
-   widths for 1 and 6 rows, stacked Q4_0 (layer 5) and the draft's
-   single-layer Q8_0 (relative error <= 1e-2); flash_decode at S=1024,
+   wgmma body at 9, 37, 64, 65, 128, 300 and 512 rows and through the
+   small-row mma.sync body (qmm_mma) at 2, 3, 6 and 8 rows (checks only),
+   one line for the prefill qmm per prompt (32 x 4 projections + lm_head at
+   512 rows) and one for the qmm of an EAGLE verify cycle (the same at 6
+   rows: kernel, bound, library ms), each 6- and 512-row time as a ratio to
+   library_ms (and, with --parent-report, to the kernel of the tree that
+   wrote that report); qmm and qmm_i4 at the shapes only the SIMT body takes
+   (N = 4001, N = 4100, K = 4128) at 1, 6 and 37 rows, with the route each
+   took, qmm at N = 4001 timed; ffn_out_norm and gate_up_act at Vicuna-7B
+   widths for 1, 2, 6, 9, 33 and 64 rows (timed at 1 and 6, the 6-row
+   times as ratios), stacked Q4_0 (layer 5) and the draft's single-layer
+   Q8_0 (relative error <= 1e-2); flash_decode at S=1024,
    T in {1, 6}, 32 heads of 128 with a holed tag mask, and at T=S=512 as
    the EAGLE engine's prompt takes it; flash_prefill at T=512 with padded
    and q_pos=-1 rows, one of them inside a 64-row tile (relative error <=
@@ -42,10 +47,12 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    K = 5, 64 new tokens; its tokens are compared with phase 3's, and where
    they differ the target's top-2 logit margin there must be within 1e-2 of
    the logit range (a bf16 near-tie, not a divergence).
-5. the launch counts of qmm (SIMT body), qmm_tc (its tensor-core body),
-   flash_decode and flash_prefill over the phase 3-4 runs (each > 0; the
-   fused FFN kernels 0; qmm_tc exactly 129 for the greedy prompt, and more
-   for the EAGLE prompt, whose draft also runs at 512 rows) and the plain
+5. the launch counts of qmm (SIMT body), qmm_tc (its wgmma body), qmm_mma
+   (its small-row body), flash_decode and flash_prefill over the phase 3-4
+   runs (each > 0; the fused FFN kernels 0; qmm_tc exactly 129 for the
+   greedy prompt, and more for the EAGLE prompt, whose draft also runs at
+   512 rows; qmm_mma 0 for greedy and exactly 129 per EAGLE verify cycle)
+   and the plain
    versions' (each 0); then, outside the counted runs, 8 more greedy decode
    steps timed on the host clock and traced with torch.profiler (device
    busy share, kernels per token, the kernels that take the time).
@@ -57,13 +64,14 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    checked bit for bit against the CPU repack of the same bytes, then
    greedy and the EAGLE chain engine with EAGLE_TPU_FUSED_FFN=1 and again
    unfused, each with its launch counts (fused kernels > 0 only when on,
-   plain versions 0) and decode profile; EAGLE = greedy and fused = unfused
-   tokens up to the near-tie rule.
+   qmm_mma 65 per verify cycle fused and 129 unfused, plain versions 0) and
+   decode profile; EAGLE = greedy and fused = unfused tokens up to the
+   near-tie rule.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
-   then timed with the launch counts read over that run (qmm and qmm_i4 >
-   0, plain versions 0), and again with the int4 variants at 512 rows
+   then timed with the launch counts read over that run (qmm_mma and
+   qmm_i4 > 0, plain versions 0), and again with the int4 variants at 512 rows
    (qmm_i4_tc > 0); before it, qmm_i4 and qmm_i4_stacked against
    qmm_i4_plain at the benchmark's shape and at the 7B projections (12288 x
    4096, 4096 x 11008) for 1, 8 (SIMT body), 37 and 512 rows (tensor-core
@@ -77,7 +85,8 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    against its plain version at 1, 6 and 512 rows (Q5_K also coded; IQ1_M
    at G = 8). Last, the `kernels` JSON line (the fused kernels' launches come
    from phase 6's fused run, qmm_i4's and qmm_i4_tc's from phase 7; qmm_tc's
-   row is the prefill body at wqkv, 512 rows) and the device JSON line.
+   row is the prefill body at wqkv, 512 rows, qmm_mma's the verify body at
+   wqkv, 6 rows) and the device JSON line.
 """
 
 from __future__ import annotations
@@ -96,6 +105,9 @@ from eagle_tpu_torch.timing import device_ms, device_us
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 TC_CHECK_ROWS = (9, 37, 64, 65, 128, 300, 512)  # both row tiles and their ragged edges
+MMA_CHECK_ROWS = (2, 3, 6, 8)  # qmm's small-row tensor-core route (qmm_mma)
+FFN_CHECK_ROWS = (1, 2, 6, 9, 33, 64)  # the fused kernels' SIMT (1) and tensor-core rows
+VERIFY_ROWS = 6  # the EAGLE chain's verify forward: K + 1 rows at K = 5
 #: kernel rows of a report of the same script from another tree (--parent-report), by
 #: (kernel, name, rows): ratios to them are printed beside this run's times
 PARENT: dict = {}
@@ -123,6 +135,8 @@ def load_parent(path: str | None) -> None:
     for kernel in ("qmm", "qmm_i4"):
         for r in rep.get(kernel, []):
             PARENT[(kernel, r["name"], r["rows"])] = r["ms"]
+    for r in rep.get("ffn", []):
+        PARENT[("ffn", f"{r['name']}/{r['form']}", r["rows"])] = r["ms"]
 
 
 def log_ratios(kernel: str, res: dict) -> None:
@@ -174,10 +188,11 @@ def phase_device(out_dir: pathlib.Path):
 # phase 2
 
 
-def qmm_checks(report: dict) -> tuple[dict, dict]:
+def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
     """qmm against qmm_plain at the main paths' shapes and forms; returns the
-    per-token row (1 row, SIMT body) and the wqkv row at 512 rows (tensor-core
-    body), each with the worst error of its body."""
+    per-token row (1 row, SIMT body), the wqkv row at 512 rows (wgmma body)
+    and the wqkv row at 6 rows (small-row mma.sync body), each with the
+    worst error of its body."""
     import torch
 
     from eagle_tpu_torch import _build
@@ -211,10 +226,11 @@ def qmm_checks(report: dict) -> tuple[dict, dict]:
     rows_list = (1, 6, 37, 512)  # 37: a ragged row tile of either body
     gguf_rows = (1, 6, 512)
     results = []
-    worst = worst_tc = 0.0
+    worst = worst_tc = worst_mma = 0.0
     per_token = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     per_prompt = dict(per_token)
-    tc_row = None
+    per_verify = dict(per_token)
+    tc_row = mma_row = None
     for name, n, k, stacked, kw, count in specs:
         kw = {"qtype": Q4_K, **kw}
         w = synth_qtensor(gen, n, k, stack=stack if stacked else None, **kw)
@@ -236,6 +252,20 @@ def qmm_checks(report: dict) -> tuple[dict, dict]:
                 raise AssertionError(f"qmm {name} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
             worst_tc = max(worst_tc, abs_err)
         log(f"[qmm] {name:16s} tensor-core body at rows {TC_CHECK_ROWS}: rel err <= {QMM_TOL}")
+        # the small-row tensor-core body (qmm_mma) at verify rows: checked only
+        for rows in MMA_CHECK_ROWS:
+            x = torch.randn((rows, k), generator=gen, device="cuda")
+            _build.reset_counts()
+            got = qmm_stacked(x, w, layer) if stacked else qmm(x, w)
+            if _build.launches["qmm_mma"] != 1:
+                raise AssertionError(f"qmm {name} rows={rows}: not the small-row body")
+            want = qmm_plain(x, layers[layer if stacked else 0])
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(got, want)
+            if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"qmm {name} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
+            worst_mma = max(worst_mma, abs_err)
+        log(f"[qmm] {name:16s} small-row body at rows {MMA_CHECK_ROWS}: rel err <= {QMM_TOL}")
         for rows in gguf_rows if kw["qtype"] in (Q4_0, Q8_0) else rows_list:
             x = torch.randn((rows, k), generator=gen, device="cuda")
             if stacked:
@@ -272,25 +302,108 @@ def qmm_checks(report: dict) -> tuple[dict, dict]:
                     per_token[key] += count * res[key]
             if rows > 8:
                 worst_tc = max(worst_tc, abs_err)
+            elif rows > 1:
+                worst_mma = max(worst_mma, abs_err)
             if rows == 512 and count:
                 for key in per_prompt:
                     per_prompt[key] += count * res[key]
-            if rows == 512:
+            if rows == VERIFY_ROWS and count:
+                for key in per_verify:
+                    per_verify[key] += count * res[key]
+            if rows in (VERIFY_ROWS, 512):
                 log_ratios("qmm", res)
             if name == "wqkv" and rows == 512:
                 tc_row = dict(res)
+            if name == "wqkv" and rows == VERIFY_ROWS:
+                mma_row = dict(res)
         del w, layers, dense
         torch.cuda.empty_cache()
     report["qmm"] = results
     report["qmm_prefill_per_prompt"] = per_prompt
+    report["qmm_per_verify_cycle"] = per_verify
     log(f"[qmm] per decoded token (32 x 4 projections + lm_head, 1 row): kernel "
         f"{per_token['ms']:.3f} ms, bound {per_token['bound_ms']:.3f} ms, library "
         f"{per_token['library_ms']:.3f} ms")
     log(f"[qmm] prefill per prompt (32 x 4 projections + lm_head, 512 rows, tensor-core body): "
         f"kernel {per_prompt['ms']:.3f} ms, bound {per_prompt['bound_ms']:.3f} ms, library "
         f"{per_prompt['library_ms']:.3f} ms")
+    log(f"[qmm] per EAGLE verify cycle (32 x 4 projections + lm_head, {VERIFY_ROWS} rows, "
+        f"small-row body): kernel {per_verify['ms']:.3f} ms, bound {per_verify['bound_ms']:.3f} "
+        f"ms, library {per_verify['library_ms']:.3f} ms")
     tc_row["max_abs_err"] = worst_tc
-    return dict(per_token, max_abs_err=worst, bound_by="bytes"), tc_row
+    mma_row["max_abs_err"] = worst_mma
+    return dict(per_token, max_abs_err=worst, bound_by="bytes"), tc_row, mma_row
+
+
+def ragged_checks(report: dict) -> None:
+    """qmm and qmm_i4 at shapes the tensor-core bodies cannot address and
+    the reference serves with a whole-N tile: N = 4001 (N % 4 != 0), N = 4100
+    (N % 16 != 0), K = 4128 (K % 64 != 0), at 1, 6 and 37 rows, bf16
+    compute, through the stacked entry (layer 2 of 3), against the plain
+    versions (relative error <= 1e-2); the route each call took is printed
+    (the SIMT body for all of them, masked at the last column where N % 4 !=
+    0). qmm at N = 4001, K = 4096 is timed at 1 and 6 rows, with its bound
+    and library_ms."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.gguf import GGMLType
+    from eagle_tpu_torch.models.synth import synth_qtensor
+    from eagle_tpu_torch.ops.qmm import (qmm_i4_plain, qmm_i4_stacked, qmm_plain, qmm_stacked)
+    from eagle_tpu_torch.quant.qtensor import Q4_K, QTensor, pack_int4
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bf16 = torch.bfloat16
+    results = []
+
+    def int4(n, k):
+        q = torch.randint(-8, 8, (3, k, n), generator=gen, device="cuda", dtype=torch.int8)
+        return QTensor(q=pack_int4(q, 32), group=32, layout="kn", int4=True,
+                       scale=(torch.rand((3, k // 32, n), generator=gen, device="cuda") * 1e-2
+                              ).to(bf16),
+                       bias=(torch.randn((3, k // 32, n), generator=gen, device="cuda") * 1e-3
+                             ).to(bf16))
+
+    forms = (("q4_0", lambda n, k: synth_qtensor(gen, n, k, int(GGMLType.Q4_0), 3, packed=True),
+              qmm_stacked, qmm_plain),
+             ("q4k_coded", lambda n, k: synth_qtensor(gen, n, k, Q4_K, 3, packed=True, coded=True),
+              qmm_stacked, qmm_plain),
+             ("int4", int4, qmm_i4_stacked, qmm_i4_plain))
+    for form, make, run, plain in forms:
+        for n, k in ((4001, 4096), (4100, 4096), (4096, 4128)):
+            if form == "q4k_coded" and k % 256:
+                continue  # coded weights have K % 256 == 0
+            w = make(n, k)
+            for rows in (1, 6, 37):
+                x = torch.randn((rows, k), generator=gen, device="cuda")
+                _build.reset_counts()
+                got = run(x, w, 2)
+                route = [name for name, c in _build.launches.items() if c]
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(got, plain(x, w.layer(2)))
+                if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{form} N={n} K={k} rows={rows}: rel err {rel:.3e}")
+                log(f"[ragged] {form:9s} N={n} K={k} rows={rows:2d}: route {route}, rel err "
+                    f"{rel:.2e}")
+                if form == "q4_0" and n == 4001 and rows in (1, VERIFY_ROWS):
+                    lw = w.layer(2)
+                    dense = lw.dequantize(bf16).T.contiguous()
+                    xb = x.to(bf16)
+                    ms = device_ms(lambda i: run(x, w, i % 3), 20)
+                    plain_ms = device_ms(lambda i: plain(x, lw), 3, warmup=1)
+                    lib = device_ms(lambda i: torch.matmul(xb, dense), 20)
+                    w_bytes = nbytes(*lw.tensors().values())
+                    b_ms, b_by = bound_ms(w_bytes + rows * k * 4 + rows * n * 4,
+                                          2.0 * rows * k * n)
+                    res = dict(name=f"{form}_n{n}", n=n, k=k, rows=rows, route=route, ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                               max_abs_err=abs_err, rel_err=rel)
+                    results.append(res)
+                    log(f"[ragged] {form} N={n} K={k} rows={rows}: kernel {ms:.4f} ms, plain "
+                        f"{plain_ms:.3f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), library "
+                        f"{lib:.4f} ms")
+            del w
+    report["ragged"] = results
 
 
 def ffn_checks(report: dict) -> tuple[dict, dict]:
@@ -298,10 +411,13 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
     Vicuna-7B widths (D 4096, F 11008, H*Dh 4096), 1 and 6 rows, bf16
     compute: the target's stacked Q4_0 form (layer 5 of 6) and the draft's
     single-layer Q8_0 form (six copies, cycled so that repeats do not hit in
-    L2). library_ms is torch.matmul of the same rows with the pre-dequantized
-    bf16 weight (the product alone: no single PyTorch call computes the
-    fused epilogue). Returns the 1-row Q4_0 rows of each kernel, with the
-    worst error over all checks."""
+    L2), checked at 1, 2, 6, 9, 33 and 64 rows (the SIMT body at 1 row, the
+    small-row tensor-core body above) and timed at 1 and 6 rows, each 6-row
+    time as a ratio to library_ms and, with --parent-report, to the parent's
+    kernel. library_ms is torch.matmul of the same rows with the
+    pre-dequantized bf16 weight (the product alone: no single PyTorch call
+    computes the fused epilogue). Returns the 1-row Q4_0 rows of each
+    kernel, with the worst error over all checks."""
     import torch
 
     from eagle_tpu_torch.gguf import GGMLType
@@ -329,7 +445,7 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
             ws = variants(n, k)
             dense = [w.layer(i).dequantize(bf16).T.contiguous() for w, i in ws]  # [K, N]
             w_bytes = nbytes(*ws[0][0].layer(0).tensors().values())
-            for rows in (1, 6):
+            for rows in FFN_CHECK_ROWS:
                 w, layer = ws[-1]
                 if name == "ffn_out_norm":
                     attn = torch.randn((rows, hd), generator=gen, device="cuda")
@@ -362,6 +478,9 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
                 if rel > QMM_TOL:
                     raise AssertionError(f"{name} {form} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
                 worst[name] = max(worst[name], abs_err)
+                if rows not in (1, VERIFY_ROWS):
+                    log(f"[ffn] {name:12s} {form:10s} rows={rows}: rel err {rel:.2e}")
+                    continue
                 ms = device_ms(run, 20)
                 plain = device_ms(plain_run, 3, warmup=1)
                 lib = device_ms(lambda i: torch.matmul(lib_in, dense[i % copies]), 20)
@@ -375,6 +494,8 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
                     f"{lib:8.4f} ms  rel err {rel:.2e}")
                 if form == "q4_0" and rows == 1:
                     decode[name] = dict(res)
+                if rows == VERIFY_ROWS:
+                    log_ratios("ffn", dict(res, name=f"{name}/{form}"))
             del ws, dense
             torch.cuda.empty_cache()
     report["ffn"] = results
@@ -577,8 +698,10 @@ def tiny_model_check():
 # phases 3-5
 
 
-CORE_KERNELS = ("qmm", "qmm_tc", "flash_decode", "flash_prefill")
+CORE_KERNELS = ("qmm", "qmm_tc", "qmm_mma", "flash_decode", "flash_prefill")
 PROMPT_QMM = 32 * 4 + 1  # a prompt's 512-row products: 4 per layer and lm_head
+VERIFY_QMM = 32 * 4 + 1  # a verify forward's 6-row products, unfused
+VERIFY_QMM_FUSED = 32 * 2 + 1  # with the fused FFN block: wqkv, w_down, lm_head
 
 
 def timed_run(run):
@@ -730,6 +853,13 @@ def main_path(report: dict) -> dict:
                              f"expected {PROMPT_QMM}")
     if launches["qmm_tc"] - counts_greedy["qmm_tc"] <= PROMPT_QMM:
         raise AssertionError("EAGLE prompt: the draft's prompt products missed the tensor-core body")
+    verify_mma = launches["qmm_mma"] - counts_greedy["qmm_mma"]
+    log(f"[launches] EAGLE: qmm_mma {verify_mma} over {stats['n_cycles']} verify cycles "
+        f"({verify_mma / max(1, stats['n_cycles']):.1f} per cycle); greedy: qmm_mma "
+        f"{counts_greedy['qmm_mma']}")
+    if counts_greedy["qmm_mma"] or verify_mma != VERIFY_QMM * stats["n_cycles"]:
+        raise AssertionError(f"qmm_mma: {counts_greedy['qmm_mma']} greedy launches, {verify_mma} "
+                             f"in {stats['n_cycles']} verify cycles (expected {VERIFY_QMM} each)")
     for k in CORE_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
@@ -1005,6 +1135,10 @@ def gguf_path(report: dict) -> dict:
         for k in CORE_KERNELS:
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the GGUF path")
+        per_cycle = VERIFY_QMM_FUSED if mode == "1" else VERIFY_QMM
+        if launches["qmm_mma"] != per_cycle * stats["n_cycles"]:
+            raise AssertionError(f"{tag}: {launches['qmm_mma']} qmm_mma launches in "
+                                 f"{stats['n_cycles']} verify cycles, expected {per_cycle} each")
         fused_kernels = launches["ffn_out_norm"] > 0 and launches["gate_up_act"] > 0
         if fused_kernels != (mode == "1") or (mode == "0" and launches["ffn_out_norm"]):
             raise AssertionError(f"EAGLE_TPU_FUSED_FFN={mode}: fused FFN launches {launches}")
@@ -1125,8 +1259,9 @@ def kernel_bench_path(report: dict) -> dict:
     from eagle_tpu_torch.tools import kernel_bench as kb
 
     runs = {}
-    # the defaults (8 rows: SIMT bodies), then the int4 variants at a
-    # 512-row prefill (the tensor-core body of qmm_i4)
+    # the defaults (8 rows: qmm's small-row tensor-core body, qmm_i4's SIMT
+    # body), then the int4 variants at a 512-row prefill (the tensor-core
+    # body of qmm_i4)
     for tag, argv in (("default", ["--variants", ",".join(kb.VARIANTS)]),
                       ("512 rows", ["--variants", "int4,i4stacked", "--b", "512"])):
         args = kb.parse_args(argv)
@@ -1137,7 +1272,7 @@ def kernel_bench_path(report: dict) -> dict:
         timed = bench.time()
         launches, plain = dict(_build.launches), dict(_build.plain_calls)  # ---- ends ----
         log(f"[kernel_bench] {tag}: launches {launches}; plain versions {plain}")
-        want = ("qmm", "qmm_i4") if tag == "default" else ("qmm_i4_tc",)
+        want = ("qmm_mma", "qmm_i4") if tag == "default" else ("qmm_i4_tc",)
         if any(launches[k] <= 0 for k in want):
             raise AssertionError(f"kernel_bench {tag} did not launch {want}: {launches}")
         if any(plain.values()):
@@ -1282,7 +1417,8 @@ def main() -> int:
     load_parent(args.parent_report)
     card = phase("1", phase_device, out_dir)
     report: dict = {"card": card, "phase_seconds": seconds}
-    qmm_row, qmm_tc_row = phase("2 qmm", qmm_checks, report)
+    qmm_row, qmm_tc_row, qmm_mma_row = phase("2 qmm", qmm_checks, report)
+    phase("2 ragged", ragged_checks, report)
     out_norm_row, gate_up_row = phase("2 ffn", ffn_checks, report)
     dec_row, pre_row = phase("2 attention", attention_checks, report)
     phase("2 tiny model", tiny_model_check)
@@ -1302,7 +1438,8 @@ def main() -> int:
                "gate_up_act": "eagle_tpu_torch/csrc/ffn.cu",
                "qmm_i4": "eagle_tpu_torch/csrc/qmm_i4.cu",
                "qmm_tc": "eagle_tpu_torch/csrc/qmm.cu",
-               "qmm_i4_tc": "eagle_tpu_torch/csrc/qmm_i4.cu"}
+               "qmm_i4_tc": "eagle_tpu_torch/csrc/qmm_i4.cu",
+               "qmm_mma": "eagle_tpu_torch/csrc/qmm_mma.cuh"}
 
     def row(name, replaces, vals):
         return {"name": name, "route": "cuda", "source": sources[name],
@@ -1336,6 +1473,11 @@ def main() -> int:
              shape="prefill: wqkv [12288 x 4096] int4, G 32, bf16 scale and bias, 512 rows "
                    "(tensor-core body, csrc/qmm_tc.cuh)",
              launches_from="kernel_bench --b 512, variants int4 and i4stacked"),
+        dict(row("qmm_mma", "eagle_tpu/ops/pallas_qmm.py:513 and :758", qmm_mma_row),
+             shape="verify: wqkv [12288 x 4096] Q4_K packed coded, 6 rows (small-row mma.sync "
+                   "body, csrc/qmm_mma.cuh)",
+             launches_per_verify_cycle=VERIFY_QMM,
+             launches_from="phases 3-4: the EAGLE chain's verify forwards"),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.time() - t_start

@@ -16,26 +16,35 @@
 // over a K-only grid and fire the epilogue on the last K step. On the card
 // blocks run in parallel over column tiles and K splits, so no block holds
 // a full row or a full K sum. Each op is therefore two kernels:
-// 1. the matmul pass: qmm_kernel itself (qmm_body.cuh), writing per-split
-//    partial sums. For wo it runs as qmm does. For gate/up it runs paired:
-//    a block walks its tile of gate columns, then the matching tile of up
-//    columns (offset F in the same weight), each with its own f32
-//    accumulators, one set live at a time (both sets live took all 255
-//    registers at 8 rows and ran 2.7x slower than qmm over the same bytes
-//    on an H100 80GB HBM3);
+// 1. the matmul pass, writing per-split partial sums, on one of qmm's
+//    bodies with qmm's plan for the same product (ops/ffn.py:_body):
+//    - 1 row and f32 compute: qmm_kernel (qmm_body.cuh). For wo it runs as
+//      qmm does; for gate/up it runs paired: a block walks its tile of gate
+//      columns, then the matching tile of up columns (offset F in the same
+//      weight), each with its own f32 accumulators, one set live at a time
+//      (both sets live took all 255 registers at 8 rows and ran 2.7x slower
+//      than qmm over the same bytes on an H100 80GB HBM3);
+//    - bf16 at 2-64 rows: qmm_mma_kernel (qmm_mma.cuh), each weight
+//      dequantized once into a bf16 tile and `mma.sync` products over up to
+//      four m16 row tiles; paired, a block takes 128 gate columns and the
+//      matching 128 up columns together (the accumulators of 64 rows fit).
+//      The SIMT body's FMA per weight and row made 6 rows cost 2.0-3.2x one
+//      row; this body costs 1.0-1.2x (chip_smoke.py, H100 80GB HBM3, 700 W).
 // 2. the epilogue pass, where the full sums first exist: it adds the splits
 //    in a fixed order (deterministic, no atomics). For ffn_out_norm it runs
 //    one block per row: residual add, x^2 reduced over the row, x and h
 //    written. For gate_up_act it is elementwise: act(g) * u, rounded once.
-// With the K split the unfused path's qmm would choose (the wrapper passes
+// With the plan the unfused path's qmm would choose (the wrapper passes
 // it), x, g and u are bit-equal to the unfused path's sums where qmm takes
-// its SIMT body too (every f32 product; bf16 at up to 8 rows). Any row count
-// from 1 to 64 runs as it is: the TPU's pad to 8 rows does not carry over.
+// the same body too (every f32 product; bf16 at up to 8 rows). Any row
+// count from 1 to 64 runs as it is: the TPU's pad to 8 rows does not carry
+// over.
 #include <math.h>
 
 #include <type_traits>
 
 #include "qmm_body.cuh"
+#include "qmm_mma.cuh"
 
 namespace {
 
@@ -132,6 +141,12 @@ struct OutNormArgs {
   int R, K, N, scale_kind, bias_kind, splits, gps; float eps; cudaStream_t st;
 };
 
+template <bool BF16>
+void out_norm_epilogue(const OutNormArgs& a) {
+  out_norm_kernel<BF16><<<a.R, kNormThreads, 0, a.st>>>(a.partial, a.splits, a.resid, a.norm_w,
+                                                        a.x_out, a.h_out, a.R, a.N, a.eps);
+}
+
 template <int RB, bool BF16, int G, bool PACKED>
 struct OutNorm {
   static void run(const OutNormArgs& a) {
@@ -139,8 +154,7 @@ struct OutNorm {
     qmm_kernel<RB, BF16, G, PACKED, false, float><<<grid, kWarps * 32, 0, a.st>>>(
         a.x, a.q, a.scale, a.bias, nullptr, nullptr, a.partial, a.R, a.K, a.N, a.scale_kind,
         a.bias_kind, a.gps);
-    out_norm_kernel<BF16><<<a.R, kNormThreads, 0, a.st>>>(a.partial, a.splits, a.resid, a.norm_w,
-                                                          a.x_out, a.h_out, a.R, a.N, a.eps);
+    out_norm_epilogue<BF16>(a);
   }
 };
 
@@ -148,6 +162,13 @@ struct GateUpArgs {
   const void* h; const int8_t* q; const void* scale; const void* bias; void* out;
   float* partial; int R, K, F, scale_kind, bias_kind, act, splits, gps; cudaStream_t st;
 };
+
+template <bool BF16>
+void gate_up_epilogue(const GateUpArgs& a) {
+  const size_t count = (size_t)a.R * a.F;
+  gate_up_epilogue_kernel<BF16><<<(unsigned)((count + 255) / 256), 256, 0, a.st>>>(
+      a.partial, a.splits, a.out, count, a.act);
+}
 
 template <int RB, bool BF16, int G, bool PACKED>
 struct GateUp {
@@ -157,9 +178,7 @@ struct GateUp {
     qmm_kernel<RB, BF16, G, PACKED, true, XT><<<grid, kWarps * 32, 0, a.st>>>(
         static_cast<const XT*>(a.h), a.q, a.scale, a.bias, nullptr, nullptr, a.partial, a.R,
         a.K, 2 * a.F, a.scale_kind, a.bias_kind, a.gps);
-    const size_t count = (size_t)a.R * a.F;
-    gate_up_epilogue_kernel<BF16><<<(unsigned)((count + 255) / 256), 256, 0, a.st>>>(
-        a.partial, a.splits, a.out, count, a.act);
+    gate_up_epilogue<BF16>(a);
   }
 };
 
@@ -229,3 +248,42 @@ extern "C" int gate_up_act_launch(const void* h, const void* q, const void* scal
   dispatch<GateUp>(compute_bf16, rb, G, packed, a);
   return (int)cudaGetLastError();
 }
+
+// The matmul passes on the small-row tensor-core body (qmm_mma.cuh; bf16
+// compute, 2-64 rows), with the same epilogues: arguments as above, minus
+// compute_bf16 and rb, plus the plan's steps_per_split and dynamic shared
+// memory bytes (ops/qmm.py:_mma_plan).
+extern "C" int ffn_out_norm_mma_launch(const void* x, const void* q, const void* scale,
+                                       const void* bias, const void* resid, const void* norm_w,
+                                       void* x_out, void* h_out, void* partial, int R, int K,
+                                       int N, int G, int packed, int scale_kind, int bias_kind,
+                                       int splits, int steps_per_split, int smem, float eps,
+                                       void* stream) {
+  const OutNormArgs a{static_cast<const float*>(x), static_cast<const int8_t*>(q), scale, bias,
+                      static_cast<const float*>(resid), static_cast<const float*>(norm_w),
+                      static_cast<float*>(x_out), h_out, static_cast<float*>(partial), R, K, N,
+                      scale_kind, bias_kind, splits, 0, eps, static_cast<cudaStream_t>(stream)};
+  const MmaArgs m{x, a.q, scale, bias, nullptr, nullptr, a.partial, R, K, N, scale_kind, bias_kind,
+                  steps_per_split, {}};
+  const cudaError_t e = mma_run<false, float, kMmaMaxRows>(m, G, packed, splits, smem, a.st);
+  if (e != cudaSuccess) return (int)e;
+  out_norm_epilogue<true>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gate_up_act_mma_launch(const void* h, const void* q, const void* scale,
+                                      const void* bias, void* out, void* partial, int R, int K,
+                                      int F, int G, int packed, int scale_kind, int bias_kind,
+                                      int act, int splits, int steps_per_split, int smem,
+                                      void* stream) {
+  const GateUpArgs a{h, static_cast<const int8_t*>(q), scale, bias, out,
+                     static_cast<float*>(partial), R, K, F, scale_kind, bias_kind, act, splits, 0,
+                     static_cast<cudaStream_t>(stream)};
+  const MmaArgs m{h, a.q, scale, bias, nullptr, nullptr, a.partial, R, K, 2 * F, scale_kind,
+                  bias_kind, steps_per_split, {}};
+  const cudaError_t e = mma_run<true, __nv_bfloat16, kMmaMaxRows>(m, G, packed, splits, smem, a.st);
+  if (e != cudaSuccess) return (int)e;
+  gate_up_epilogue<true>(a);
+  return (int)cudaGetLastError();
+}
+

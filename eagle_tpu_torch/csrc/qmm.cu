@@ -10,10 +10,12 @@
 // products accumulate in f32; the per-group bias is the side product
 // round_ct(xsum_g) * round_ct(bias_g).
 //
-// Two bodies, chosen by ops/qmm.py (`_route`):
-// - qmm_kernel (SIMT, qmm_body.cuh; 1-8 rows, and any row count in f32:
-//   decode and verify). Bound on the H100 by the weight bytes (4.75 bits
-//   per weight for Q4_K packed with codes). Every weight byte is read once
+// Three bodies, chosen by ops/qmm.py (`_route`) from the shape alone:
+// - qmm_kernel (SIMT, qmm_body.cuh; 1 row, f32 compute at any row count,
+//   and the shapes the tensor-core bodies cannot address: K % 64 != 0,
+//   N % 16 != 0; at N % 4 != 0 it loads element by element, masked at the
+//   last column). Bound on the H100 by the weight bytes (4.75 bits per
+//   weight for Q4_K packed with codes). Every weight byte is read once
 //   per row tile, 4 adjacent columns per lane (one 128-byte line per warp
 //   and weight row); a warp loads all rows of a quant group before it uses
 //   any, so many loads are in flight; K is split across warps and blocks so
@@ -22,6 +24,12 @@
 //   small kernel (deterministic, no atomics). The integer-to-float step uses
 //   the 2^23 magic number and bf16 rounding goes two values per
 //   instruction: conversion instructions run at a quarter of the FMA rate.
+// - qmm_mma_kernel (qmm_mma.cuh; bf16 compute, 2-8 rows: the EAGLE verify
+//   forward). Bound by the weight bytes as at one row; the SIMT body paid an
+//   FMA per weight and row there. Each weight is dequantized once into a
+//   bf16 tile that `mma.sync.m16n8k16` reads for all rows at once, from a
+//   3-stage `cp.async` ring; K splits reduced as above. Held by the latency
+//   of its barrier-separated phases per 64-deep step (see qmm_mma.cuh).
 // - qmm_tc_kernel (qmm_tc.cuh; bf16 compute, more than 8 rows: prefill).
 //   Bound by operations at 512 rows. An x prologue rounds x to bf16 and
 //   takes the group sums once per call; the main loop runs `wgmma.mma_async`
@@ -30,13 +38,15 @@
 //   with each bf16 weight tile dequantized in shared memory while the
 //   previous step's wgmma runs; the bias side product is a few trailing
 //   wgmma steps over the group dimension; K splits fill the card when the
-//   tiles are few. Every form (packed / int8, coded / f32 / bf16 scales,
-//   bias or none, G = 8, 16, 32, 2-D or stacked) takes it.
+//   tiles are few.
+// Every form (packed / int8, coded / f32 / bf16 scales, bias or none, G = 8,
+// 16, 32, 2-D or stacked) takes every body.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "qmm_body.cuh"
+#include "qmm_mma.cuh"
 #include "qmm_tc.cuh"
 
 namespace {
@@ -58,32 +68,32 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int RB, bool BF16, int G, bool PACKED>
+template <int RB, bool BF16, int G, bool PACKED, bool VEC>
 void launch(const Launch& a) {
   const dim3 grid((a.N + kColsPerBlock - 1) / kColsPerBlock, a.splits, (a.B + RB - 1) / RB);
-  qmm_kernel<RB, BF16, G, PACKED, false, float><<<grid, kWarps * 32, 0, a.stream>>>(
+  qmm_kernel<RB, BF16, G, PACKED, false, float, VEC><<<grid, kWarps * 32, 0, a.stream>>>(
       a.x, a.q, a.scale, a.bias, a.sup, a.sup_min, a.dst, a.B, a.K, a.N, a.scale_kind,
       a.bias_kind, a.groups_per_split);
 }
 
-template <int RB, bool BF16>
+template <int RB, bool BF16, bool VEC>
 void dispatch_form(int G, int packed, const Launch& a) {
   if (G == 8) {
-    packed ? launch<RB, BF16, 8, true>(a) : launch<RB, BF16, 8, false>(a);
+    packed ? launch<RB, BF16, 8, true, VEC>(a) : launch<RB, BF16, 8, false, VEC>(a);
   } else if (G == 16) {
-    packed ? launch<RB, BF16, 16, true>(a) : launch<RB, BF16, 16, false>(a);
+    packed ? launch<RB, BF16, 16, true, VEC>(a) : launch<RB, BF16, 16, false, VEC>(a);
   } else {
-    packed ? launch<RB, BF16, 32, true>(a) : launch<RB, BF16, 32, false>(a);
+    packed ? launch<RB, BF16, 32, true, VEC>(a) : launch<RB, BF16, 32, false, VEC>(a);
   }
 }
 
-template <bool BF16>
+template <bool BF16, bool VEC>
 void dispatch_rb(int rb, int G, int packed, const Launch& a) {
   switch (rb) {
-    case 1: dispatch_form<1, BF16>(G, packed, a); break;
-    case 2: dispatch_form<2, BF16>(G, packed, a); break;
-    case 4: dispatch_form<4, BF16>(G, packed, a); break;
-    default: dispatch_form<8, BF16>(G, packed, a); break;
+    case 1: dispatch_form<1, BF16, VEC>(G, packed, a); break;
+    case 2: dispatch_form<2, BF16, VEC>(G, packed, a); break;
+    case 4: dispatch_form<4, BF16, VEC>(G, packed, a); break;
+    default: dispatch_form<8, BF16, VEC>(G, packed, a); break;
   }
 }
 
@@ -93,7 +103,7 @@ void dispatch_rb(int rb, int G, int packed, const Launch& a) {
 // kind f32 (0), bf16 (1) or int8 codes (2, with sup/sup_min f32 [K/256, N]);
 // bias_kind -1 = no bias; G in {8, 16, 32}. out f32 [B, N]; partial f32 [splits, B, N] when
 // splits > 1 (else unused). rb in {1, 2, 4, 8}: rows per block of the SIMT
-// body (qmm_tc_launch below is the tensor-core body).
+// body (qmm_mma_launch and qmm_tc_launch below are the tensor-core bodies).
 extern "C" int qmm_launch(const void* x, const void* q, const void* scale,
                           const void* bias, const void* sup, const void* sup_min,
                           void* out, void* partial, int B, int K, int N, int G,
@@ -104,10 +114,11 @@ extern "C" int qmm_launch(const void* x, const void* q, const void* scale,
                  static_cast<const float*>(sup), static_cast<const float*>(sup_min),
                  static_cast<float*>(splits > 1 ? partial : out), B, K, N, scale_kind,
                  bias_kind, splits, groups_per_split, st};
+  const bool vec = N % 4 == 0;  // else the masked column edge
   if (compute_bf16) {
-    dispatch_rb<true>(rb, G, packed, a);
+    vec ? dispatch_rb<true, true>(rb, G, packed, a) : dispatch_rb<true, false>(rb, G, packed, a);
   } else {
-    dispatch_rb<false>(rb, G, packed, a);
+    vec ? dispatch_rb<false, true>(rb, G, packed, a) : dispatch_rb<false, false>(rb, G, packed, a);
   }
   if (splits > 1) {
     const size_t count = (size_t)B * N;
@@ -176,3 +187,28 @@ extern "C" int qmm_tc_launch(const void* x, void* xb, void* xsum, const void* q,
   }
   return (int)cudaGetLastError();
 }
+
+// The small-row tensor-core body (bf16 compute; the wrapper sends it 2-8
+// rows). x f32 [B, K]; weight operands as qmm_launch's; split y of `splits`
+// runs K steps of 64 [y * steps_per_split, ...) into partial [splits, B, N]
+// (out directly when splits == 1); smem: dynamic shared memory bytes, at
+// least the layout's (ops/qmm.py:_mma_plan).
+extern "C" int qmm_mma_launch(const void* x, const void* q, const void* scale, const void* bias,
+                              const void* sup, const void* sup_min, void* out, void* partial,
+                              int B, int K, int N, int G, int packed, int scale_kind,
+                              int bias_kind, int splits, int steps_per_split, int smem,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MmaArgs a{x, static_cast<const int8_t*>(q), scale, bias, static_cast<const float*>(sup),
+            static_cast<const float*>(sup_min), static_cast<float*>(splits > 1 ? partial : out),
+            B, K, N, scale_kind, bias_kind, steps_per_split, {}};
+  const cudaError_t e = mma_run<false, float, 8>(a, G, packed, splits, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  if (splits > 1) {
+    const size_t count = (size_t)B * N;
+    qmm_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(partial), static_cast<float*>(out), count, splits);
+  }
+  return (int)cudaGetLastError();
+}
+

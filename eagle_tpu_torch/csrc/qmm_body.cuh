@@ -72,6 +72,55 @@ __device__ __forceinline__ void mul_sup(const float* sup, size_t off, float o[4]
   o[0] = v.x * o[0]; o[1] = v.y * o[1]; o[2] = v.z * o[2]; o[3] = v.w * o[3];
 }
 
+// The same at a column edge that is not a multiple of 4 (VEC false: N % 4
+// != 0, so rows are not 4-byte aligned): the first `nv` values element by
+// element, zeros after. VEC true is the vector path above.
+template <bool VEC>
+__device__ __forceinline__ void load4v(const void* p, int kind, size_t off, int nv, float o[4]) {
+  if constexpr (VEC) {
+    load4(p, kind, off, o);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      o[c] = 0.f;
+      if (c < nv) {
+        if (kind == kKindF32) {
+          o[c] = __ldg(static_cast<const float*>(p) + off + c);
+        } else if (kind == kKindBF16) {
+          o[c] = __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(p) + off + c));
+        } else {
+          o[c] = s8_to_f((uint32_t)__ldg(static_cast<const int8_t*>(p) + off + c));
+        }
+      }
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void mul_supv(const float* sup, size_t off, int nv, float o[4]) {
+  if constexpr (VEC) {
+    mul_sup(sup, off, o);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < nv) o[c] = __ldg(sup + off + c) * o[c];
+  }
+}
+
+// the bytes of 4 adjacent columns of one q row (the first `nv` when !VEC)
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_q4(const int8_t* p, int nv) {
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < nv) v |= (uint32_t)(uint8_t)__ldg(p + c) << (8 * c);
+    return v;
+  }
+}
+
 // grid: (column tiles, K splits, ceil(B/RB) row tiles); 256 threads. One
 // quantized "kn" weight: q int8 [K, N] or packed [K/2, N]; scale/bias
 // [K/G, N] of kind f32, bf16 or int8 codes (with sup/sup_min f32 [K/256, N]);
@@ -85,8 +134,10 @@ __device__ __forceinline__ void mul_sup(const float* sup, size_t off, float o[4]
 // Warp w of a block walks groups g_begin+w, g_begin+w+8, ... of its split. A
 // group's G (or G/2 packed) weight rows are all loaded before any is used, so
 // each lane keeps that many 4-byte loads in flight. The block's warps are
-// summed in a fixed order.
-template <int RB, bool BF16, int G, bool PACKED, bool PAIRED, typename XT>
+// summed in a fixed order. VEC (N % 4 == 0, every shape the fused kernels
+// take) loads 4 columns as one vector; without it (qmm at N % 4 != 0) the
+// loads go element by element, masked at the last column.
+template <int RB, bool BF16, int G, bool PACKED, bool PAIRED, typename XT, bool VEC = true>
 __global__ void __launch_bounds__(256) qmm_kernel(
     const XT* __restrict__ x, const int8_t* __restrict__ q,
     const void* __restrict__ scale, const void* __restrict__ bias,
@@ -110,6 +161,7 @@ __global__ void __launch_bounds__(256) qmm_kernel(
   for (int pass = 0; pass < kPasses; ++pass) {
     const int c0 = blockIdx.x * kColsPerBlock + lane * 4;  // column in the plane
     const int n0 = pass * ncols + c0;                      // column of the weight
+    const int nv = min(4, ncols - c0);                     // columns of this lane
     float acc[RB][4];
 #pragma unroll
     for (int r = 0; r < RB; ++r)
@@ -123,15 +175,15 @@ __global__ void __launch_bounds__(256) qmm_kernel(
         uint32_t qv[kQRows];  // 4 columns' bytes per weight row
 #pragma unroll
         for (int j = 0; j < kQRows; ++j)
-          qv[j] = __ldg(reinterpret_cast<const unsigned int*>(qg + (size_t)j * N));
+          qv[j] = load_q4<VEC>(qg + (size_t)j * N, nv);
         const size_t goff = (size_t)g * N + n0;
         const size_t soff = (size_t)(k0 / 256) * N + n0;
         float s[4], b[4] = {0.f, 0.f, 0.f, 0.f};
-        load4(scale, scale_kind, goff, s);
-        if (scale_kind == kKindCode) mul_sup(sup, soff, s);
+        load4v<VEC>(scale, scale_kind, goff, nv, s);
+        if (scale_kind == kKindCode) mul_supv<VEC>(sup, soff, nv, s);
         if (has_bias) {
-          load4(bias, bias_kind, goff, b);
-          if (bias_kind == kKindCode) mul_sup(sup_min, soff, b);
+          load4v<VEC>(bias, bias_kind, goff, nv, b);
+          if (bias_kind == kKindCode) mul_supv<VEC>(sup_min, soff, nv, b);
         }
         float xs[RB];
 #pragma unroll

@@ -21,7 +21,9 @@
 // __float2bfloat16_rn does, in one instruction.
 //
 // Two bodies, chosen by ops/qmm.py (`_route`), as for qmm:
-// - qmm_i4_kernel (SIMT; 1-8 rows, and any row count in f32). Bound on the
+// - qmm_i4_kernel (SIMT; 1-8 rows, any row count in f32, and the shapes the
+//   tensor-core body cannot address: K % 64 != 0, N % 16 != 0; at N % 4 !=
+//   0 it loads element by element, masked at the last column). Bound on the
 //   H100 by the bytes: at kernel_bench's default shape (K 4096, N 11008, B
 //   8, G 32, bf16 scale and bias) q 22,544,384 + scale and bias 5,636,096 +
 //   x and y ~0.5 MB = ~28.7 MB, 8.6 us at 3.35 TB/s, against 0.73 us of bf16
@@ -65,8 +67,9 @@ __global__ void qmm_i4_reduce_kernel(const float* __restrict__ partial,
 
 // grid: (ceil(N/128), K splits, ceil(B/RB)); 256 threads. Warp w of a block
 // walks groups g_begin+w, g_begin+w+8, ... of its split; the block's 8
-// warps are summed in a fixed order into dst [splits][B][N].
-template <int RB, bool BF16, int G, bool BIAS>
+// warps are summed in a fixed order into dst [splits][B][N]. VEC: N % 4 ==
+// 0 (4-column vector loads), else element loads masked at N.
+template <int RB, bool BF16, int G, bool BIAS, bool VEC>
 __global__ void __launch_bounds__(256) qmm_i4_kernel(
     const float* __restrict__ x, const int8_t* __restrict__ q,
     const void* __restrict__ scale, const void* __restrict__ bias,
@@ -77,6 +80,7 @@ __global__ void __launch_bounds__(256) qmm_i4_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n0 = blockIdx.x * kColsPerBlock + lane * 4;
+  const int nv = min(4, N - n0);  // columns of this lane (VEC: N % 4 == 0, all 4)
   const int r0 = blockIdx.z * RB;
   const int rows = min(RB, B - r0);
   const int g_begin = blockIdx.y * groups_per_split;
@@ -96,11 +100,11 @@ __global__ void __launch_bounds__(256) qmm_i4_kernel(
       uint32_t qv[kHalf];  // 4 columns' bytes per packed row
 #pragma unroll
       for (int j = 0; j < kHalf; ++j)
-        qv[j] = __ldg(reinterpret_cast<const unsigned int*>(qg + (size_t)j * N));
+        qv[j] = load_q4<VEC>(qg + (size_t)j * N, nv);
       const size_t goff = (size_t)g * N + n0;
       float s[4], b[4] = {0.f, 0.f, 0.f, 0.f};
-      load4(scale, scale_kind, goff, s);
-      if (BIAS) load4(bias, bias_kind, goff, b);
+      load4v<VEC>(scale, scale_kind, goff, nv, s);
+      if (BIAS) load4v<VEC>(bias, bias_kind, goff, nv, b);
       round2<BF16>(s[0], s[1]);
       round2<BF16>(s[2], s[3]);
       round2<BF16>(b[0], b[1]);
@@ -158,30 +162,30 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int RB, bool BF16, int G, bool BIAS>
+template <int RB, bool BF16, int G, bool BIAS, bool VEC>
 void launch(const Launch& a) {
   const dim3 grid((a.N + kColsPerBlock - 1) / kColsPerBlock, a.splits, (a.B + RB - 1) / RB);
-  qmm_i4_kernel<RB, BF16, G, BIAS><<<grid, kWarps * 32, 0, a.stream>>>(
+  qmm_i4_kernel<RB, BF16, G, BIAS, VEC><<<grid, kWarps * 32, 0, a.stream>>>(
       a.x, a.q, a.scale, a.bias, a.dst, a.B, a.K, a.N, a.scale_kind, a.bias_kind,
       a.groups_per_split);
 }
 
-template <int RB, bool BF16>
+template <int RB, bool BF16, bool VEC>
 void dispatch_form(int G, bool has_bias, const Launch& a) {
   if (G == 16) {
-    has_bias ? launch<RB, BF16, 16, true>(a) : launch<RB, BF16, 16, false>(a);
+    has_bias ? launch<RB, BF16, 16, true, VEC>(a) : launch<RB, BF16, 16, false, VEC>(a);
   } else {
-    has_bias ? launch<RB, BF16, 32, true>(a) : launch<RB, BF16, 32, false>(a);
+    has_bias ? launch<RB, BF16, 32, true, VEC>(a) : launch<RB, BF16, 32, false, VEC>(a);
   }
 }
 
-template <bool BF16>
+template <bool BF16, bool VEC>
 void dispatch_rb(int rb, int G, bool has_bias, const Launch& a) {
   switch (rb) {
-    case 1: dispatch_form<1, BF16>(G, has_bias, a); break;
-    case 2: dispatch_form<2, BF16>(G, has_bias, a); break;
-    case 4: dispatch_form<4, BF16>(G, has_bias, a); break;
-    default: dispatch_form<8, BF16>(G, has_bias, a); break;
+    case 1: dispatch_form<1, BF16, VEC>(G, has_bias, a); break;
+    case 2: dispatch_form<2, BF16, VEC>(G, has_bias, a); break;
+    case 4: dispatch_form<4, BF16, VEC>(G, has_bias, a); break;
+    default: dispatch_form<8, BF16, VEC>(G, has_bias, a); break;
   }
 }
 
@@ -200,10 +204,11 @@ extern "C" int qmm_i4_launch(const void* x, const void* q, const void* scale, co
                  static_cast<float*>(splits > 1 ? partial : out), B, K, N, scale_kind,
                  bias_kind, splits, groups_per_split, st};
   const bool has_bias = bias_kind != kKindNone;
+  const bool vec = N % 4 == 0;  // else the masked column edge
   if (compute_bf16) {
-    dispatch_rb<true>(rb, G, has_bias, a);
+    vec ? dispatch_rb<true, true>(rb, G, has_bias, a) : dispatch_rb<true, false>(rb, G, has_bias, a);
   } else {
-    dispatch_rb<false>(rb, G, has_bias, a);
+    vec ? dispatch_rb<false, true>(rb, G, has_bias, a) : dispatch_rb<false, false>(rb, G, has_bias, a);
   }
   if (splits > 1) {
     const size_t count = (size_t)B * N;

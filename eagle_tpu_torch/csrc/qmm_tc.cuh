@@ -54,6 +54,7 @@
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <stdint.h>
 
+#include "mma_sync.cuh"
 #include "qmm_body.cuh"
 
 namespace {
@@ -115,10 +116,6 @@ struct TcMaps {
 };
 
 // ---- PTX ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // this thread's shared-memory writes (st.shared) become visible to the
 // async proxy that wgmma reads through
@@ -330,11 +327,6 @@ __device__ __forceinline__ void tc_global8(const void* p, int kind, size_t off, 
   load4(p, kind, off + 4, o + 4);
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // 2^23 + byte p of w, as an f32 (p in 0..3): one byte permute
 __device__ __forceinline__ float tc_magic_byte(uint32_t w, int p) {
   return __uint_as_float(__byte_perm(w, kMagic, 0x7540 + p));
@@ -389,7 +381,7 @@ __device__ __forceinline__ void tc_dequant(const uint8_t* sb, const TcLayout& L,
       for (int c = 0; c < 4; ++c) {
         const uint32_t w = wd[c >> 1];
         const int p = 2 * (c & 1);
-        o[c] = bf16x2_bits((tc_magic_byte(w, p) - (kTwo23 + 128.f)) * s[2 * c],
+        o[c] = pack_bf16((tc_magic_byte(w, p) - (kTwo23 + 128.f)) * s[2 * c],
                            (tc_magic_byte(w, p + 1) - (kTwo23 + 128.f)) * s[2 * c + 1]);
       }
       *tc_b_at(bs, kr, uc) = make_uint4(o[0], o[1], o[2], o[3]);
@@ -414,9 +406,9 @@ __device__ __forceinline__ void tc_dequant(const uint8_t* sb, const TcLayout& L,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int p = 2 * (c & 1);
-        ol[c] = bf16x2_bits(fmaf(tc_magic_byte(lo[c >> 1], p), s[2 * c], cs[2 * c]),
+        ol[c] = pack_bf16(fmaf(tc_magic_byte(lo[c >> 1], p), s[2 * c], cs[2 * c]),
                             fmaf(tc_magic_byte(lo[c >> 1], p + 1), s[2 * c + 1], cs[2 * c + 1]));
-        oh[c] = bf16x2_bits(fmaf(tc_magic_byte(hi[c >> 1], p), s[2 * c], cs[2 * c]),
+        oh[c] = pack_bf16(fmaf(tc_magic_byte(hi[c >> 1], p), s[2 * c], cs[2 * c]),
                             fmaf(tc_magic_byte(hi[c >> 1], p + 1), s[2 * c + 1], cs[2 * c + 1]));
       }
       *tc_b_at(bs, klo, uc) = make_uint4(ol[0], ol[1], ol[2], ol[3]);
@@ -488,8 +480,8 @@ __device__ __forceinline__ void tc_dequant_bias(const TcArgs& a, uint8_t* bs, in
         for (int c = 0; c < 8; ++c) b[c] = sm[c] * b[c];
       }
     }
-    *tc_b_at(bs, gr, uc) = make_uint4(bf16x2_bits(b[0], b[1]), bf16x2_bits(b[2], b[3]),
-                                      bf16x2_bits(b[4], b[5]), bf16x2_bits(b[6], b[7]));
+    *tc_b_at(bs, gr, uc) = make_uint4(pack_bf16(b[0], b[1]), pack_bf16(b[2], b[3]),
+                                      pack_bf16(b[4], b[5]), pack_bf16(b[6], b[7]));
   }
 }
 

@@ -12,11 +12,18 @@ versions, and `ffn_block` (port of eagle_tpu/ops/pallas_ffn.py:
 `epi_out_norm` epilogue), `gate_up_act` replaces :413/:419
 (`_gate_up_act_2d`). Bound on the H100: the weight bytes, as for qmm
 (Q4_0 packed, f32 scale and bias: wo 12.58 MB and w_gate_up 67.63 MB per
-Vicuna-7B layer). The design (csrc/ffn.cu): the matmul pass is the qmm
-SIMT body with the split qmm would choose for the same product, and the
-epilogue runs in a second pass where the full row of sums first exists, so
-x, gate and up are bit-equal to the unfused path's and the fused block
-only saves launches (residual add, norm, split, activation, multiply).
+Vicuna-7B layer). The design (csrc/ffn.cu): a matmul pass, then an
+epilogue pass where the full row of sums first exists. The matmul pass is
+one of qmm's bodies with qmm's plan for the same product (`_body`):
+- 1 row and f32 compute: the SIMT body (csrc/qmm_body.cuh, `simt_config`);
+- bf16 at 2-64 rows: the small-row tensor-core body (csrc/qmm_mma.cuh,
+  `_mma_plan`), gate and up tiles in one block for `gate_up_act`; each
+  weight is dequantized once and `mma.sync` covers 16 rows, so 6 rows cost
+  1.0-1.2x one row (the SIMT body paid 2.0-3.2x; `chip_smoke.py`, H100
+  80GB HBM3 at 700 W).
+Where qmm takes the same body (1-8 rows in bf16, any f32 product) x, gate
+and up are bit-equal to the unfused path's sums, and the fused block only
+saves launches (residual add, norm, split, activation, multiply).
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches the kernel or raises."""
@@ -31,12 +38,15 @@ import torch.nn.functional as F
 from .. import _build
 from ..quant.qtensor import QTensor
 from .matmul import qmatmul_layer
-from .qmm import _ALIGN, _KINDS, qmm_math, simt_config
+from .qmm import _ALIGN, _KINDS, _TC_ALIGN, _mma_plan, _route, qmm_math, simt_config, tc_form
 
 MAX_ROWS = 64  # decode and verify rows; prefill stays unfused
 ACTS = {"silu": 0, "gelu": 1}
 _OUT_NORM_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
 _GATE_UP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_OUT_NORM_MMA_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                      + [ctypes.c_float, ctypes.c_void_p])
+_GATE_UP_MMA_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def supports_ffn_block(layers: dict, cfg) -> bool:
@@ -110,15 +120,27 @@ def _check(x: torch.Tensor, w: QTensor, layer: int, compute_dtype) -> tuple[int,
     return k, n
 
 
-def _lp(t: torch.Tensor | None, layer: int) -> int | None:
-    """Pointer to layer `layer` of a stacked operand, checked for the
-    kernel's 4-column vector loads."""
+def _lp(t: torch.Tensor | None, layer: int, align: int | None = None) -> int | None:
+    """Pointer to layer `layer` of a stacked operand, checked for the SIMT
+    body's 4-column vector loads (or `align`: the tensor-core body's 16-byte
+    copies)."""
     if t is None:
         return None
     p = t.data_ptr() + layer * t.stride(0) * t.element_size()
-    if p % _ALIGN[t.dtype]:
-        raise ValueError(f"{t.dtype} operand at {p:#x} is not {_ALIGN[t.dtype]}-byte aligned")
+    align = align or _ALIGN[t.dtype]
+    if p % align:
+        raise ValueError(f"{t.dtype} operand at {p:#x} is not {align}-byte aligned")
     return p
+
+
+def _body(rows: int, k: int, n: int, w: QTensor, compute_dtype) -> str:
+    """The matmul pass's body: "simt" (csrc/qmm_body.cuh, with
+    `simt_config`) where qmm's own `_route` takes it (1 row, f32 compute,
+    K % 64 != 0), else "mma" (csrc/qmm_mma.cuh, with `_mma_plan`: bf16 at
+    2-64 rows; qmm takes the same body at 2-8 rows, and its prefill body
+    beyond). Either way the plan is the one qmm would take for the same
+    product with that body."""
+    return "simt" if _route(rows, k, n, compute_dtype, tc_form(w)) == "simt" else "mma"
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -137,21 +159,37 @@ def ffn_out_norm(attn: torch.Tensor, resid: torch.Tensor, norm_w: torch.Tensor, 
         return ffn_out_norm_plain(attn, resid, norm_w, wo.layer(layer), eps, compute_dtype)
     k, n = _check(attn, wo, layer, compute_dtype)
     r = attn.shape[0]
-    fn = _build.kernel("ffn_out_norm_launch", _OUT_NORM_ARGS)
     xf = attn.float().contiguous()
     # the epilogue reads resid and norm_w four columns at a time
     rf, nw = (_aligned16(t.float().contiguous()) for t in (resid, norm_w))
     if tuple(rf.shape) != (r, n) or tuple(nw.shape) != (n,):
         raise ValueError(f"resid {tuple(rf.shape)} / norm {tuple(nw.shape)} do not match [{r}, {n}]")
-    rb, splits, gps = simt_config(r, k, n, wo.group)
     x_out = torch.empty((r, n), dtype=torch.float32, device=attn.device)
     h_out = torch.empty((r, n), dtype=compute_dtype, device=attn.device)
+    mma = _body(r, k, n, wo, compute_dtype) == "mma"
+    fn = (_build.kernel("ffn_out_norm_mma_launch", _OUT_NORM_MMA_ARGS) if mma
+          else _build.kernel("ffn_out_norm_launch", _OUT_NORM_ARGS))
+    stream = torch.cuda.current_stream(attn.device).cuda_stream
+    if mma:
+        plan = _mma_plan(r, k, n, wo.group, tc_form(wo))
+        partial = torch.empty((plan.splits, r, n), dtype=torch.float32, device=attn.device)
+        a = _TC_ALIGN
+        rc = fn(
+            _aligned16(xf).data_ptr(), _lp(wo.q, layer, a), _lp(wo.scale, layer, a),
+            _lp(wo.bias, layer, a), rf.data_ptr(), nw.data_ptr(), x_out.data_ptr(),
+            h_out.data_ptr(), partial.data_ptr(), r, k, n, wo.group, int(wo.packed),
+            _KINDS[wo.scale.dtype], _bias_kind(wo), plan.splits, plan.steps_per_split,
+            plan.smem_bytes, float(eps), stream)
+        _build.check(rc, "ffn_out_norm_mma_launch")
+        _build.launches["ffn_out_norm"] += 1
+        return x_out, h_out
+    rb, splits, gps = simt_config(r, k, n, wo.group)
     partial = torch.empty((splits, r, n), dtype=torch.float32, device=attn.device)
-    rc = fn(xf.data_ptr(), _lp(wo.q, layer), _lp(wo.scale, layer), _lp(wo.bias, layer),
-            rf.data_ptr(), nw.data_ptr(), x_out.data_ptr(), h_out.data_ptr(), partial.data_ptr(),
-            r, k, n, wo.group, int(wo.packed), _KINDS[wo.scale.dtype], _bias_kind(wo),
-            int(compute_dtype == torch.bfloat16), rb, splits, gps, float(eps),
-            torch.cuda.current_stream(attn.device).cuda_stream)
+    rc = fn(
+        xf.data_ptr(), _lp(wo.q, layer), _lp(wo.scale, layer), _lp(wo.bias, layer),
+        rf.data_ptr(), nw.data_ptr(), x_out.data_ptr(), h_out.data_ptr(), partial.data_ptr(),
+        r, k, n, wo.group, int(wo.packed), _KINDS[wo.scale.dtype], _bias_kind(wo),
+        int(compute_dtype == torch.bfloat16), rb, splits, gps, float(eps), stream)
     _build.check(rc, "ffn_out_norm_launch")
     _build.launches["ffn_out_norm"] += 1
     return x_out, h_out
@@ -169,17 +207,33 @@ def gate_up_act(h: torch.Tensor, w_gate_up: QTensor, layer: int, act: str = "sil
     if two_f % 256:
         raise ValueError(f"the fused gate/up width {two_f} must be a multiple of 256")
     f, r = two_f // 2, h.shape[0]
-    fn = _build.kernel("gate_up_act_launch", _GATE_UP_ARGS)
     hc = h.to(compute_dtype).contiguous()
-    # the unfused path's split for the same [R, K] @ [K, 2F] product
-    rb, splits, gps = simt_config(r, k, two_f, w_gate_up.group)
     out = torch.empty((r, f), dtype=compute_dtype, device=h.device)
+    w = w_gate_up
+    mma = _body(r, k, two_f, w, compute_dtype) == "mma"
+    fn = (_build.kernel("gate_up_act_mma_launch", _GATE_UP_MMA_ARGS) if mma
+          else _build.kernel("gate_up_act_launch", _GATE_UP_ARGS))
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    if mma:
+        # qmm's plan for the same [R, K] @ [K, 2F] product
+        plan = _mma_plan(r, k, two_f, w.group, tc_form(w), paired=True)
+        partial = torch.empty((plan.splits, 2, r, f), dtype=torch.float32, device=h.device)
+        a = _TC_ALIGN
+        rc = fn(
+            _aligned16(hc).data_ptr(), _lp(w.q, layer, a), _lp(w.scale, layer, a),
+            _lp(w.bias, layer, a), out.data_ptr(), partial.data_ptr(), r, k, f, w.group,
+            int(w.packed), _KINDS[w.scale.dtype], _bias_kind(w), ACTS[act], plan.splits,
+            plan.steps_per_split, plan.smem_bytes, stream)
+        _build.check(rc, "gate_up_act_mma_launch")
+        _build.launches["gate_up_act"] += 1
+        return out
+    # the unfused path's split for the same [R, K] @ [K, 2F] product
+    rb, splits, gps = simt_config(r, k, two_f, w.group)
     partial = torch.empty((splits, 2, r, f), dtype=torch.float32, device=h.device)
-    rc = fn(hc.data_ptr(), _lp(w_gate_up.q, layer), _lp(w_gate_up.scale, layer),
-            _lp(w_gate_up.bias, layer), out.data_ptr(), partial.data_ptr(), r, k, f,
-            w_gate_up.group, int(w_gate_up.packed), _KINDS[w_gate_up.scale.dtype],
-            _bias_kind(w_gate_up), int(compute_dtype == torch.bfloat16), ACTS[act], rb, splits,
-            gps, torch.cuda.current_stream(h.device).cuda_stream)
+    rc = fn(
+        hc.data_ptr(), _lp(w.q, layer), _lp(w.scale, layer), _lp(w.bias, layer), out.data_ptr(),
+        partial.data_ptr(), r, k, f, w.group, int(w.packed), _KINDS[w.scale.dtype],
+        _bias_kind(w), int(compute_dtype == torch.bfloat16), ACTS[act], rb, splits, gps, stream)
     _build.check(rc, "gate_up_act_launch")
     _build.launches["gate_up_act"] += 1
     return out

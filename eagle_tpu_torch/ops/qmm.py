@@ -8,27 +8,44 @@ lm_head, EAGLE fc_w) and `qmatmul_pallas_stacked_nd` /
 scalar prefetch). Here both are one entry: a layer is chosen by offsetting
 the weight pointers by `layer x stride`, no copy.
 
-Two bodies, picked by `_route` (the same for qmm_i4):
-- 1-8 rows, or f32 compute at any row count (decode, verify): the SIMT
-  body (csrc/qmm_body.cuh). Bound on the H100 by the bytes of the quantized
-  weights (Q4_K packed with codes: 4.75 bits per weight, ~3.9 GB per 7B
-  token), so it reads each weight byte once per row tile with coalesced
-  4-column vectors, keeps a whole quant group's loads in flight per warp,
-  splits K over warps and blocks (`simt_config`) to fill the 132 SMs at
-  small N, and never writes a dequantized weight to device memory.
-- more than 8 rows in bf16 (prefill; 512 rows for a 300-token prompt):
-  the tensor-core body (csrc/qmm_tc.cuh), bound by operations there. An x
-  prologue rounds x to bf16 and takes the group sums once per call; the
-  main loop runs `wgmma.mma_async` on 64- or 128-row x 256-column tiles,
-  fed by a 3-4 stage ring that one producer thread fills by TMA, with each
-  64-deep weight tile dequantized into shared memory while the previous
-  step's wgmma runs, the bias side product as trailing wgmma steps over the
+Three bodies, picked by `_route` from the shape alone (qmm_i4 takes the
+first and the last):
+- "simt", csrc/qmm_body.cuh: 1 row (decode), f32 compute at any row count,
+  and every shape the tensor-core bodies cannot address (K % 64 != 0 or
+  N % 16 != 0; any N >= 1, masked at the last column when N % 4 != 0).
+  Bound on the H100 by the bytes of the quantized weights (Q4_K packed with
+  codes: 4.75 bits per weight, ~3.9 GB per 7B token), so it reads each
+  weight byte once per row tile with coalesced 4-column vectors, keeps a
+  whole quant group's loads in flight per warp, splits K over warps and
+  blocks (`simt_config`) to fill the 132 SMs at small N, and never writes a
+  dequantized weight to device memory. At 2-8 rows it pays one f32 FMA per
+  weight and row: 2.3-2.9x its 1-row time at 6 rows (`chip_smoke.py` on an
+  H100 80GB HBM3 at 700 W, as the other times here).
+- "mma", csrc/qmm_mma.cuh: bf16 at 2-8 rows (the EAGLE verify forward,
+  K + 1 = 6 rows; kernel_bench's 8). Each weight is dequantized once per
+  call into a bf16 tile in shared memory (a 3-stage `cp.async` ring feeds
+  it) and `mma.sync.m16n8k16` products cover 16 rows at once, the bias side
+  product as a fifth k16 block of each step; K splits from `_mma_plan`. Its
+  time is flat from 2 to 8 rows, 1.2-1.4x the SIMT body's 1-row time over
+  the same bytes (18-25 % of the byte bound at 6 rows): what holds it is
+  the latency of each 64-deep step's copy, dequant and product phases,
+  which the block's barriers serialize. The fused FFN kernels (ops/ffn.py)
+  take the same body for their matmul pass at 2-64 rows.
+- "tc", csrc/qmm_tc.cuh: bf16 above 8 rows (prefill; 512 rows for a
+  300-token prompt), bound by operations there. An x prologue rounds x to
+  bf16 and takes the group sums once per call; the main loop runs
+  `wgmma.mma_async` on 64- or 128-row x 256-column tiles, fed by a 3-4
+  stage ring that one producer thread fills by TMA, with each 64-deep
+  weight tile dequantized into shared memory while the previous step's
+  wgmma runs, the bias side product as trailing wgmma steps over the
   groups, and K splits where the tiles are fewer than the SMs (`_tc_plan`).
-  Its pace is set by the dequant, at 2-3x the time of one torch.matmul on a
-  pre-dequantized bf16 weight. Every form takes
-  it: packed / int8, coded / f32 / bf16 scales, bias or none, G = 8, 16,
-  32, 2-D or stacked. It needs K % 64 == 0, N % 16 == 0 and 16-byte
-  aligned operands (layer offsets included) and raises on anything else.
+  Its pace is set by the dequant, at 2-3x the time of one torch.matmul on
+  a pre-dequantized bf16 weight.
+Every form takes the tensor-core bodies: packed / int8, coded / f32 / bf16
+scales, bias or none, G = 8, 16, 32, 2-D or stacked; they need 16-byte
+aligned operands (layer offsets included) and raise on anything else: no
+route is chosen by catching an error, and a CUDA tensor never falls back to
+the plain version.
 The TPU's batch pad to 8 rows and its tile pickers do not carry over: any
 row count from 1 to 512 runs in one call.
 
@@ -36,7 +53,7 @@ The `qmm_i4` kernels (csrc/qmm_i4.cu) are the counterpart of
 `qmatmul_pallas_2d_i4` / `qmatmul_pallas_stacked_i4` (pallas_qmm.py:600 and
 :839, `_qmm_kernel_i4`): weights of the `int4` form, signed nibbles with
 the scale AND the bias applied to every weight in the compute dtype, with
-the same two bodies (the tensor-core one at qmm_i4's rounding points).
+the SIMT and wgmma bodies (the latter at qmm_i4's rounding points).
 Only the kernel benchmark (tools/kernel_bench.py) makes such weights; the
 model path never routes them, as in the reference."""
 
@@ -53,6 +70,7 @@ from ..quant.qtensor import QTensor
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _TC_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_MMA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _SMS = 132  # H100 SXM streaming multiprocessors
 _COLS = 128  # output columns per block (csrc/qmm.cu)
 _WARPS = 8  # K-walking warps per block
@@ -108,8 +126,8 @@ def _check(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
         raise ValueError(f"qmm compute dtype must be f32 or bf16, got {compute_dtype}")
     k, n = _dims(w)
     g = w.group
-    if g not in (8, 16, 32) or k % g or n % 4:
-        raise ValueError(f"qmm needs G in (8, 16, 32), K % G == 0, N % 4 == 0 "
+    if g not in (8, 16, 32) or k % g or n < 1:
+        raise ValueError(f"qmm needs G in (8, 16, 32), K % G == 0, N >= 1 "
                          f"(K={k}, N={n}, G={g})")
     if w.packed and g % 2:
         raise ValueError("packed weights need an even group")
@@ -163,7 +181,7 @@ class TcForm(NamedTuple):
 class TcPlan(NamedTuple):
     rows: int  # output rows per block (64 or 128)
     cols: int  # output columns per block
-    stages: int  # ring stages (3 or 4)
+    stages: int  # ring stages
     splits: int  # K splits (grid z)
     steps_per_split: int  # K steps of 64 per split (the last split may have fewer)
     groups_per_split: int
@@ -230,11 +248,107 @@ def _tc_plan(b: int, k: int, n: int, group: int, form: TcForm) -> TcPlan:
                   smem)
 
 
-def _route(b: int, compute_dtype) -> str:
-    """Which body a call takes (qmm and qmm_i4 alike): "tc" (tensor cores)
-    for bf16 compute and more than 8 rows, where the SIMT body would re-read
-    every weight byte per 8 rows and is bound by its FMA rate; else "simt"."""
-    return "tc" if compute_dtype == torch.bfloat16 and b > 8 else "simt"
+def _route(b: int, k: int, n: int, compute_dtype, form: TcForm) -> str:
+    """Which body a [b, k] @ [k, n] call takes, from its shape alone (qmm and
+    qmm_i4 alike):
+    - "simt": f32 compute at any row count, 1 row (decode), and every shape
+      the tensor-core bodies cannot address: K % 64 != 0 or N % 16 != 0 (their
+      64-deep steps and 16-byte row copies); the SIMT body takes any N >= 1;
+    - "mma": bf16 at 2-8 rows (verify), qmm only (`qmm_mma_kernel`,
+      csrc/qmm_mma.cuh: each weight dequantized once, 16 rows per product);
+      qmm_i4 keeps the SIMT body there;
+    - "tc": bf16 at more than 8 rows (prefill: the wgmma body,
+      csrc/qmm_tc.cuh)."""
+    if compute_dtype != torch.bfloat16 or b == 1 or k % _TC_K or n % 16:
+        return "simt"
+    if b <= 8:
+        return "simt" if form.q == "int4" else "mma"
+    return "tc"
+
+
+# the small-row tensor-core body (csrc/qmm_mma.cuh)
+_MMA_COLS = 256  # weight columns per block
+_MMA_STAGES = 3
+_MMA_MAX_ROWS = 64
+#: time of one 64-deep step of a block, by blocks per SM (us), and the rate
+#: at which partial sums are written and read back (bytes per us): from
+#: H100 80GB HBM3 measurements of this body at 6 rows
+_MMA_STEP_US = {1: 2.3, 2: 3.9}
+_MMA_BYTES_PER_US = 3.0e6
+
+
+class MmaPlan(NamedTuple):
+    cols: int  # weight columns per block
+    stages: int  # ring stages
+    splits: int  # K splits (grid y)
+    steps_per_split: int  # K steps of 64 per split (the last split may have fewer)
+    groups_per_split: int
+    smem_bytes: int  # dynamic shared memory
+
+
+def _mma_stage(group: int, form: TcForm) -> int:
+    """Bytes of one ring stage of the small-row body: the raw weight tile of
+    one 64-deep step (q, scale rows, sup when coded, bias rows, sup_min when
+    coded with a bias), rounded to 128 bytes."""
+    stage = (_TC_K if form.q == "int8" else _TC_K // 2) * _MMA_COLS
+    stage += (_TC_K // group) * _MMA_COLS * form.scale_bytes
+    stage += _MMA_COLS * 4 if form.coded else 0
+    stage += (_TC_K // group) * _MMA_COLS * form.bias_bytes
+    stage += _MMA_COLS * 4 if form.coded and form.bias_bytes else 0
+    return -(-stage // 128) * 128
+
+
+def _mma_layout(rows: int, group: int, form: TcForm, steps_per_split: int) -> int:
+    """Dynamic shared memory of the small-row body (csrc/qmm_mma.cuh:
+    mma_layout): 3 ring stages, the bf16 B tile, the split's x rows in bf16
+    and, with a bias, the side product's B tile (16 x 256 bf16) and the
+    rows' group sums (16 bf16 per step, rows rounded to 128 bytes)."""
+    side = 0
+    if form.bias_bytes:
+        side = 16 * _MMA_COLS * 2 + rows * -(-steps_per_split * 2 // 8) * 8 * 16
+    return (_MMA_STAGES * _mma_stage(group, form) + _TC_B_SLOT
+            + rows * steps_per_split * _TC_K * 2 + side)
+
+
+def _mma_plan(b: int, k: int, n: int, group: int, form: TcForm, paired: bool = False) -> MmaPlan:
+    """K splits of the small-row body for [b, k] @ [k, n], all b <= 64 rows
+    in each block (`paired`: n = 2F, gate and up tiles together; the same
+    tiles and splits as unpaired). K is cut on 64-row steps (whole groups),
+    on 256-row boundaries for coded weights (whole sup rows). Among the cuts
+    whose shared memory fits 227 KB it prefers those that put a block on
+    every SM (where the shape has that many tiles and steps), then those
+    that let two blocks share an SM (one block of 8 warps hides too little
+    latency), then the least estimated time: waves of blocks x steps per
+    split x the time of a step at that occupancy, plus the partial sums
+    written and read back. Raises on a shape the body does not take."""
+    if (not 1 <= b <= _MMA_MAX_ROWS or k % _TC_K or n % (256 if paired else 16)
+            or group not in (8, 16, 32) or form.q == "int4"):
+        raise ValueError(f"the small-row tensor-core body needs 1-64 rows, K % 64 == 0, "
+                         f"N % {256 if paired else 16} == 0, G in (8, 16, 32) and no int4 "
+                         f"(rows={b}, K={k}, N={n}, G={group}, q={form.q})")
+    tiles = -(-n // _MMA_COLS)
+    quantum = _TC_SPLIT_K // _TC_K if form.coded else 1
+    units = -(-(k // _TC_K) // quantum)
+    fill = min(_SMS, tiles * units)
+    stage = _mma_stage(group, form)
+    best = None
+    for per in range(units, 0, -1):  # units of K steps per split
+        smem = _mma_layout(b, group, form, per * quantum)
+        if smem > _TC_MAX_SMEM:
+            continue
+        splits = -(-units // per)
+        blocks = tiles * splits
+        per_sm = 2 if smem <= _TC_MAX_SMEM // 2 else 1
+        est = (-(-blocks // (per_sm * _SMS)) * per * quantum * _MMA_STEP_US[per_sm]
+               + (2 * splits + 1) * b * n * 4 * (splits > 1) / _MMA_BYTES_PER_US)
+        key = (blocks < fill, per_sm == 1, est)
+        if best is None or key < best[0]:
+            best = (key, per, splits, smem)
+    if best is None:
+        raise ValueError(f"the small-row tensor-core body cannot hold {b} rows in 227 KB")
+    _, per, splits, smem = best
+    steps = per * quantum
+    return MmaPlan(_MMA_COLS, _MMA_STAGES, splits, steps, steps * _TC_K // group, smem)
 
 
 def simt_config(b: int, k: int, n: int, group: int) -> tuple[int, int, int]:
@@ -263,8 +377,16 @@ def _ptr(t: torch.Tensor | None, layer: int | None, align: int | None = None) ->
     return p
 
 
+def _simt_align(n: int) -> int | None:
+    """The alignment the SIMT body needs of its operands: its 4-column
+    vector loads' (None: `_ALIGN`) where N % 4 == 0, else none beyond the
+    element's own (it loads element by element at such N)."""
+    return None if n % 4 == 0 else 1
+
+
 def _scratch_x(x2: torch.Tensor) -> torch.Tensor:
-    """x as contiguous f32 whose base the prologue's 16-byte loads take."""
+    """x as contiguous f32 whose base the tensor-core bodies' 16-byte loads
+    take."""
     xf = x2.float().contiguous()
     return xf.clone() if xf.data_ptr() % _TC_ALIGN else xf
 
@@ -272,14 +394,18 @@ def _scratch_x(x2: torch.Tensor) -> torch.Tensor:
 def _launch(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> torch.Tensor:
     k, n = _dims(w)
     b = x2.shape[0]
-    tc = _route(b, compute_dtype) == "tc"
-    fn = _build.kernel("qmm_tc_launch" if tc else "qmm_launch", _TC_ARGTYPES if tc else _ARGTYPES)
     if x2.shape[1] != k:
         raise ValueError(f"x has K={x2.shape[1]}, weight K={k}")
     if b == 0:
         return x2.new_empty((0, n))
+    route = _route(b, k, n, compute_dtype, tc_form(w))
+    fn = _build.kernel(*{"tc": ("qmm_tc_launch", _TC_ARGTYPES),
+                         "mma": ("qmm_mma_launch", _MMA_ARGTYPES),
+                         "simt": ("qmm_launch", _ARGTYPES)}[route])
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    if tc:
+    bias_kind = -1 if w.bias is None else _KINDS[w.bias.dtype]
+    a = _TC_ALIGN
+    if route == "tc":
         plan = _tc_plan(b, k, n, w.group, tc_form(w))
         xf = _scratch_x(x2)
         xb = torch.empty((b, k), dtype=torch.bfloat16, device=xf.device)
@@ -289,29 +415,43 @@ def _launch(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> t
         out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
         partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=xf.device)
                    if plan.splits > 1 else None)
-        a = _TC_ALIGN
         rc = fn(
             xf.data_ptr(), xb.data_ptr(), None if xsum is None else xsum.data_ptr(),
             _ptr(w.q, layer, a), _ptr(w.scale, layer, a), _ptr(w.bias, layer, a),
             _ptr(w.sup, layer, a), _ptr(w.sup_min, layer, a), out.data_ptr(),
             None if partial is None else partial.data_ptr(),
-            gp, b, k, n, w.group, int(w.packed), _KINDS[w.scale.dtype],
-            -1 if w.bias is None else _KINDS[w.bias.dtype], plan.rows, plan.stages,
-            plan.splits, plan.steps_per_split, plan.smem_bytes, stream,
+            gp, b, k, n, w.group, int(w.packed), _KINDS[w.scale.dtype], bias_kind, plan.rows,
+            plan.stages, plan.splits, plan.steps_per_split, plan.smem_bytes, stream,
         )
         _build.check(rc, "qmm_tc_launch")
         _build.launches["qmm_tc"] += 1
+        return out
+    if route == "mma":
+        plan = _mma_plan(b, k, n, w.group, tc_form(w))
+        xf = _scratch_x(x2)
+        out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
+        partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=xf.device)
+                   if plan.splits > 1 else None)
+        rc = fn(
+            xf.data_ptr(), _ptr(w.q, layer, a), _ptr(w.scale, layer, a), _ptr(w.bias, layer, a),
+            _ptr(w.sup, layer, a), _ptr(w.sup_min, layer, a), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            b, k, n, w.group, int(w.packed), _KINDS[w.scale.dtype], bias_kind, plan.splits,
+            plan.steps_per_split, plan.smem_bytes, stream,
+        )
+        _build.check(rc, "qmm_mma_launch")
+        _build.launches["qmm_mma"] += 1
         return out
     xf = x2.float().contiguous()
     rb, splits, gps = simt_config(b, k, n, w.group)
     out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
     partial = torch.empty((splits, b, n), dtype=torch.float32, device=xf.device) if splits > 1 else None
+    sa = _simt_align(n)
     rc = fn(
-        xf.data_ptr(), _ptr(w.q, layer), _ptr(w.scale, layer), _ptr(w.bias, layer),
-        _ptr(w.sup, layer), _ptr(w.sup_min, layer),
+        xf.data_ptr(), _ptr(w.q, layer, sa), _ptr(w.scale, layer, sa), _ptr(w.bias, layer, sa),
+        _ptr(w.sup, layer, sa), _ptr(w.sup_min, layer, sa),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
-        b, k, n, w.group, int(w.packed), _KINDS[w.scale.dtype],
-        -1 if w.bias is None else _KINDS[w.bias.dtype],
+        b, k, n, w.group, int(w.packed), _KINDS[w.scale.dtype], bias_kind,
         int(compute_dtype == torch.bfloat16), rb, splits, gps, stream,
     )
     _build.check(rc, "qmm_launch")
@@ -387,8 +527,8 @@ def _check_i4(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
         raise ValueError(f"qmm_i4 compute dtype must be f32 or bf16, got {compute_dtype}")
     k, n = _dims(w)
     g = w.group
-    if g not in (16, 32) or k % g or n % 4:
-        raise ValueError(f"qmm_i4 needs G in (16, 32), K % G == 0, N % 4 == 0 "
+    if g not in (16, 32) or k % g or n < 1:
+        raise ValueError(f"qmm_i4 needs G in (16, 32), K % G == 0, N >= 1 "
                          f"(K={k}, N={n}, G={g})")
     if w.q.dtype != torch.int8:
         raise ValueError(f"q must hold int8 nibble pairs, got {w.q.dtype}")
@@ -403,13 +543,13 @@ def _check_i4(x: torch.Tensor, w: QTensor, compute_dtype) -> None:
 def _launch_i4(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> torch.Tensor:
     k, n = _dims(w)
     b = x2.shape[0]
-    tc = _route(b, compute_dtype) == "tc"
-    fn = _build.kernel("qmm_i4_tc_launch" if tc else "qmm_i4_launch",
-                       _I4_TC_ARGTYPES if tc else _I4_ARGTYPES)
     if x2.shape[1] != k:
         raise ValueError(f"x has K={x2.shape[1]}, weight K={k}")
     if b == 0:
         return x2.new_empty((0, n))
+    tc = _route(b, k, n, compute_dtype, tc_form(w)) == "tc"
+    fn = _build.kernel("qmm_i4_tc_launch" if tc else "qmm_i4_launch",
+                       _I4_TC_ARGTYPES if tc else _I4_ARGTYPES)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     bias_kind = -1 if w.bias is None else _KINDS[w.bias.dtype]
     if tc:
@@ -434,8 +574,9 @@ def _launch_i4(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -
     rb, splits, gps = simt_config(b, k, n, w.group)
     out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
     partial = torch.empty((splits, b, n), dtype=torch.float32, device=xf.device) if splits > 1 else None
+    sa = _simt_align(n)
     rc = fn(
-        xf.data_ptr(), _ptr(w.q, layer), _ptr(w.scale, layer), _ptr(w.bias, layer),
+        xf.data_ptr(), _ptr(w.q, layer, sa), _ptr(w.scale, layer, sa), _ptr(w.bias, layer, sa),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
         b, k, n, w.group, _KINDS[w.scale.dtype], bias_kind,
         int(compute_dtype == torch.bfloat16), rb, splits, gps, stream,

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over every branch at small shapes: qmm (packed / unpacked, coded / f32 /
 bf16 scales, bias or none, G = 32, 16 and 8, the Q4_0, Q8_0 and IQ1_M
-forms, each row-tile size of the SIMT body and the tensor-core body, f32
-and bf16 compute, 2-D and stacked), qmm_i4 (2-D and stacked, f32 / bf16
+forms, each row-tile size of the SIMT body, the small-row tensor-core
+body (2-8 rows) and the wgmma body, f32 and bf16 compute, 2-D and stacked,
+and the shapes only the SIMT body takes: N % 4 != 0, N % 16 != 0, K % 64
+!= 0), qmm_i4 (2-D and stacked, f32 / bf16
 scale and bias, bias or none, G = 32 and 16, f32 and bf16 compute, ragged
 row tiles and K splits), flash_decode and flash_prefill (f32 and bf16
 caches, head_dim 64 and 128, GQA, key splits, s_limit, rows that see
@@ -36,8 +38,8 @@ from eagle_tpu_torch.ops import flash_attention as fa
 from eagle_tpu_torch.gguf.constants import GGMLType
 from eagle_tpu_torch.ops.ffn import (ffn_out_norm, ffn_out_norm_plain, gate_up_act,
                                      gate_up_act_plain)
-from eagle_tpu_torch.ops.qmm import (qmm, qmm_i4, qmm_i4_plain, qmm_i4_stacked, qmm_plain,
-                                     qmm_stacked)
+from eagle_tpu_torch.ops.qmm import (_route, qmm, qmm_i4, qmm_i4_plain, qmm_i4_stacked,
+                                     qmm_plain, qmm_stacked, tc_form)
 from eagle_tpu_torch.quant.qtensor import Q4_K, Q6_K, QTensor, pack_int4
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
@@ -118,10 +120,74 @@ def test_qmm_kernel_matches_plain(cuda, name, rows, compute):
     x = torch.randn((rows, 512), generator=cuda, device="cuda")
     _build.reset_counts()
     got = qmm(x, w, compute)
-    route = "qmm_tc" if compute == torch.bfloat16 and rows > 8 else "qmm"
+    route = _counter("qmm", _route(rows, 512, 256, compute, tc_form(w)))
     assert _build.launches[route] == 1 and sum(_build.launches.values()) == 1
     assert _build.plain_calls["qmm"] == 0
     _close(got, qmm_plain(x, w, compute), TOL[compute])
+
+
+def _counter(kernel: str, route: str) -> str:
+    """The launch counter of a route of qmm or qmm_i4."""
+    return {"simt": kernel, "mma": kernel + "_mma", "tc": kernel + "_tc"}[route]
+
+
+@pytest.mark.parametrize("stack", [None, 3], ids=["2d", "stacked"])
+@pytest.mark.parametrize("rows", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("name", sorted(WEIGHTS))
+def test_qmm_small_row_route_matches_plain(cuda, name, rows, stack):
+    """The small-row tensor-core body (bf16, 2-8 rows) on every form: N = 400
+    leaves a ragged 256-column tile, K = 1280 runs 20 steps of 64 through
+    the 3-stage ring, cut into K splits; layers 1 and 2 of a stack."""
+    w = WEIGHTS[name](cuda, 400, 1280, stack)
+    x = torch.randn((rows, 1280), generator=cuda, device="cuda")
+    for layer in ((None,) if stack is None else (1, 2)):
+        _build.reset_counts()
+        if stack is None:
+            got, want = qmm(x, w), qmm_plain(x, w)
+        else:
+            got, want = qmm_stacked(x, w, layer), qmm_plain(x, w.layer(layer))
+        assert _build.launches["qmm_mma"] == 1 and sum(_build.launches.values()) == 1
+        _close(got, want, TOL[torch.bfloat16])
+
+
+# (K, N) the tensor-core bodies cannot address: N % 4 != 0, N % 16 != 0 with
+# N % 4 == 0, K % 64 != 0 (not for coded weights, whose K is a multiple of 256)
+RAGGED = [(1024, 250), (1024, 260), (1056, 256)]
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 6, 37])
+@pytest.mark.parametrize("name,k,n", [(name, k, n) for name in sorted(WEIGHTS) for k, n in RAGGED
+                                      if "coded" not in name or k % 256 == 0])
+def test_qmm_ragged_shapes(cuda, name, k, n, rows, compute):
+    """qmm answers at the shapes the reference serves with a whole-N tile, on
+    the route `_route` picks from the shape (the SIMT body, masked at the
+    last column where N % 4 != 0), 2-D and at layer 2 of a stack."""
+    for stack in (None, 3):
+        w = WEIGHTS[name](cuda, n, k, stack)
+        x = torch.randn((rows, k), generator=cuda, device="cuda")
+        _build.reset_counts()
+        got = qmm(x, w, compute) if stack is None else qmm_stacked(x, w, 2, compute)
+        route = _counter("qmm", _route(rows, k, n, compute, tc_form(w)))
+        assert route == "qmm" and _build.launches["qmm"] == 1
+        assert sum(_build.launches.values()) == 1
+        _close(got, qmm_plain(x, w if stack is None else w.layer(2), compute), TOL[compute])
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 6, 37])
+@pytest.mark.parametrize("k,n", RAGGED)
+@pytest.mark.parametrize("group", [16, 32])
+def test_qmm_i4_ragged_shapes(cuda, group, k, n, rows, compute):
+    for stack in (None, 3):
+        w = _int4_weight(cuda, n, k, group, stack, torch.bfloat16, True)
+        x = torch.randn((rows, k), generator=cuda, device="cuda")
+        _build.reset_counts()
+        got = qmm_i4(x, w, compute) if stack is None else qmm_i4_stacked(x, w, 2, compute)
+        assert _route(rows, k, n, compute, tc_form(w)) == "simt"
+        assert _build.launches["qmm_i4"] == 1 and sum(_build.launches.values()) == 1
+        want = qmm_i4_plain(x, w if stack is None else w.layer(2), compute)
+        _close(got, want, TOL[compute])
 
 
 TC_ROWS = [9, 37, 64, 65, 128, 300]  # both row tiles (64, 128) and their ragged edges
@@ -161,9 +227,10 @@ def test_qmm_tensor_core_route_stacked(cuda, name, rows):
 
 
 def test_qmm_tensor_core_route_refuses_what_it_cannot_take(cuda):
-    """The tensor-core body raises, and never falls back to the SIMT body,
-    on an operand off 16 bytes (a layer whose base is misaligned) or a
-    shape it does not take (K % 64, N % 16)."""
+    """The tensor-core bodies raise, and never fall back to the SIMT body,
+    on an operand off 16 bytes (a layer whose base is misaligned); a shape
+    they do not take (K % 64, N % 16) is routed to the SIMT body from the
+    shape, before any launch."""
     x = torch.randn((37, 512), generator=cuda, device="cuda")
     w = WEIGHTS["q4k_packed_coded"](cuda, 256, 512, 2)
     store = torch.zeros(w.q.numel() + 8, dtype=torch.int8, device="cuda")
@@ -171,18 +238,21 @@ def test_qmm_tensor_core_route_refuses_what_it_cannot_take(cuda):
     q_off.copy_(w.q)
     bad = dataclasses.replace(w, q=q_off)
     _build.reset_counts()
-    with pytest.raises(ValueError, match="aligned"):
-        qmm_stacked(x, bad, 1)
-    assert _build.launches["qmm"] == 0 and _build.launches["qmm_tc"] == 0
-    _close(qmm_stacked(x[:8], bad, 1), qmm_plain(x[:8], w.layer(1)), TOL[torch.bfloat16])
+    for rows in (37, 6):  # the wgmma body, the small-row body
+        with pytest.raises(ValueError, match="aligned"):
+            qmm_stacked(x[:rows], bad, 1)
+    assert sum(_build.launches.values()) == 0
+    _close(qmm_stacked(x[:1], bad, 1), qmm_plain(x[:1], w.layer(1)), TOL[torch.bfloat16])
     for n, k in ((256, 288), (264, 512)):  # K % 64, N % 16
         wk = WEIGHTS["q4_0_packed_f32"](cuda, n, k, None)
-        with pytest.raises(ValueError, match="tensor-core"):
-            qmm(torch.randn((37, k), generator=cuda, device="cuda"), wk)
+        xk = torch.randn((37, k), generator=cuda, device="cuda")
+        _build.reset_counts()
+        _close(qmm(xk, wk), qmm_plain(xk, wk), TOL[torch.bfloat16])
+        assert _build.launches["qmm"] == 1 and sum(_build.launches.values()) == 1
     wi = _int4_weight(cuda, 264, 512, 32, None, torch.bfloat16, True)
-    with pytest.raises(ValueError, match="tensor-core"):
-        qmm_i4(x, wi)
-    assert _build.launches["qmm_tc"] == 0 and _build.launches["qmm_i4_tc"] == 0
+    _build.reset_counts()
+    _close(qmm_i4(x, wi), qmm_i4_plain(x, wi), TOL[torch.bfloat16])
+    assert _build.launches["qmm_i4"] == 1 and sum(_build.launches.values()) == 1
 
 
 @pytest.mark.parametrize("rows", [1, 6, 70])

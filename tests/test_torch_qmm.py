@@ -16,7 +16,7 @@ import torch
 
 from eagle_tpu.gguf.constants import GGMLType
 from eagle_tpu.models.synth import synth_qtensor
-from eagle_tpu.ops.pallas_qmm import qmatmul_pallas, qmatmul_pallas_stacked
+from eagle_tpu.ops.pallas_qmm import qmatmul_pallas, qmatmul_pallas_2d, qmatmul_pallas_stacked
 from eagle_tpu_torch import _build
 from eagle_tpu_torch.convert import params_from_numpy
 from eagle_tpu_torch.ops.matmul import qmatmul, qmatmul_layer
@@ -109,8 +109,8 @@ def test_dense_weight_matmul(rng):
 # the tensor-core body's planner, routing and x prologue (no card needed)
 # ---------------------------------------------------------------------------
 
-from eagle_tpu_torch.ops.qmm import (TcForm, _route, _tc_layout, _tc_plan,  # noqa: E402
-                                     x_prologue_plain)
+from eagle_tpu_torch.ops.qmm import (TcForm, _mma_layout, _mma_plan, _route,  # noqa: E402
+                                     _tc_layout, _tc_plan, x_prologue_plain)
 
 # (q form, scale bytes, coded, bias bytes): every form the body takes
 TC_FORMS = {
@@ -175,10 +175,99 @@ def test_tc_plan_refuses_shapes_the_body_cannot_take():
 
 @pytest.mark.parametrize("rows", [1, 2, 7, 8, 9, 37, 512])
 def test_route(rows):
-    """bf16 and more than 8 rows take the tensor-core body, in qmm and
-    qmm_i4 alike; f32 compute or up to 8 rows the SIMT body."""
-    assert _route(rows, torch.bfloat16) == ("tc" if rows > 8 else "simt")
-    assert _route(rows, torch.float32) == "simt"
+    """At shapes every body takes: bf16 at 2-8 rows takes the small-row
+    tensor-core body (qmm only; qmm_i4 keeps the SIMT body there), above 8
+    rows the wgmma body, in qmm and qmm_i4 alike; f32 compute or 1 row the
+    SIMT body."""
+    for n, k in MAIN_SHAPES.values():
+        for form in TC_FORMS.values():
+            want = ("simt" if rows == 1 else "tc" if rows > 8
+                    else "simt" if form.q == "int4" else "mma")
+            assert _route(rows, k, n, torch.bfloat16, form) == want
+            assert _route(rows, k, n, torch.float32, form) == "simt"
+
+
+@pytest.mark.parametrize("rows", [1, 2, 6, 8, 9, 37, 64])
+@pytest.mark.parametrize("k,n", [(4096, 4001), (4096, 4100), (4128, 4096), (4096, 100),
+                                 (512, 250)])
+def test_route_ragged_shapes(k, n, rows):
+    """Shapes the tensor-core bodies cannot address (N % 16 != 0, K % 64 !=
+    0; N % 4 != 0 among them) take the SIMT body at every row count, decided
+    from the shape before any launch."""
+    for form in TC_FORMS.values():
+        for dt in (torch.bfloat16, torch.float32):
+            assert _route(rows, k, n, dt, form) == "simt"
+
+
+# the fused FFN and draft shapes (N, K) beside the target's
+MMA_SHAPES = {**MAIN_SHAPES, "ffn_wo": (4096, 4096), "draft_gate_up": (22016, 4096),
+              "small": (400, 1280), "tiny": (256, 512)}
+MMA_FORMS = {name: f for name, f in TC_FORMS.items() if f.q != "int4"}
+
+
+@pytest.mark.parametrize("rows", [2, 3, 6, 8, 9, 33, 64])
+@pytest.mark.parametrize("form", sorted(MMA_FORMS))
+def test_mma_plan_fits_and_covers(form, rows):
+    """The small-row body's plan: shared memory within 227 KB and equal to
+    the layout; one block column holds every row and the column tiles cover
+    N; the K splits cover K exactly once, on 64-row steps (whole groups),
+    on 256-row boundaries for coded weights (whole sup rows), with the
+    groups per split that G gives; the paired pass takes the same plan."""
+    f = MMA_FORMS[form]
+    for n, k in MMA_SHAPES.values():
+        for g in _groups(f):
+            p = _mma_plan(rows, k, n, g, f)
+            assert p.smem_bytes == _mma_layout(rows, g, f, p.steps_per_split) <= 232448
+            assert p.cols == 256 and -(-n // p.cols) * p.cols >= n and p.stages == 3
+            steps = k // 64
+            assert p.splits * p.steps_per_split >= steps > (p.splits - 1) * p.steps_per_split
+            assert not f.coded or p.steps_per_split % 4 == 0
+            assert p.groups_per_split * g == p.steps_per_split * 64
+            if n % 256 == 0:
+                assert _mma_plan(rows, k, n, g, f, paired=True) == p
+
+
+@pytest.mark.parametrize("rows", [2, 6, 8, 33, 64])
+@pytest.mark.parametrize("name", sorted(MMA_SHAPES))
+def test_mma_plan_fills_the_card(name, rows):
+    """Every main-path product (the target's, the fused FFN's and the
+    draft's) puts at least one block on each of the 132 SMs, in every form,
+    and two blocks fit an SM at verify rows."""
+    n, k = MMA_SHAPES[name]
+    if n * k < 4096 * 4096:
+        return  # the small test shapes have fewer tiles x steps than SMs
+    for f in MMA_FORMS.values():
+        p = _mma_plan(rows, k, n, 32, f)
+        assert -(-n // p.cols) * p.splits >= 132, (name, rows, p)
+        assert rows > 8 or p.smem_bytes <= 232448 // 2, (name, rows, p)
+
+
+def test_mma_plan_refuses_shapes_the_body_cannot_take():
+    f = MMA_FORMS["packed_f32"]
+    for b, k, n, g in ((0, 512, 256, 32), (65, 512, 256, 32), (6, 288, 256, 32),
+                       (6, 512, 264, 32), (6, 512, 256, 64)):
+        with pytest.raises(ValueError, match="small-row"):
+            _mma_plan(b, k, n, g, f)
+    with pytest.raises(ValueError, match="small-row"):
+        _mma_plan(6, 512, 384, 32, f, paired=True)  # gate/up halves of 128 columns
+    with pytest.raises(ValueError, match="small-row"):
+        _mma_plan(6, 512, 256, 32, TC_FORMS["int4_f32_bias"])
+
+
+@pytest.mark.parametrize("rows", [1, 3, 9])
+@pytest.mark.parametrize("n", [250, 100])
+@pytest.mark.parametrize("branch", ["q4k_packed_coded_bias", "q4k_int8_f32_nobias",
+                                    "q6k_int8_bf16_g16"])
+def test_qmm_plain_ragged_n_matches_pallas(rng, branch, n, rows):
+    """The widths the kernels now take (N % 4 != 0, N % 16 != 0; the SIMT
+    body on the card): the plain version against the reference's 2-D kernel,
+    which takes a whole-N tile there (pallas_qmm.py:426-427)."""
+    ref, w = _weight(rng, branch, n=n)
+    x = rng.standard_normal((rows, 512)).astype(np.float32)
+    want = qmatmul_pallas_2d(jnp.asarray(x), ref, compute_dtype=jnp.float32, interpret=True)
+    got = qmm(torch.from_numpy(x), w, compute_dtype=torch.float32)
+    assert tuple(got.shape) == (rows, n)
+    _close(got, want)
 
 
 @pytest.mark.parametrize("group", [8, 16, 32])

@@ -40,13 +40,13 @@ def _close(got, want, rtol=1e-5):
     assert err <= rtol * float(np.abs(want).max()), err
 
 
-def _int4_ref(rng, group, bias, stack=None):
+def _int4_ref(rng, group, bias, stack=None, n=N):
     """A reference int4 QTensor (bf16 scale and bias, as kernel_bench makes
     them) and its port counterpart through params_from_numpy."""
     lead = () if stack is None else (stack,)
-    q = rng.integers(-8, 8, size=lead + (K, N)).astype(np.int8)
-    s = (rng.standard_normal(lead + (K // group, N)) * 0.01).astype(np.float32)
-    b = (rng.standard_normal(lead + (K // group, N)) * 0.001).astype(np.float32)
+    q = rng.integers(-8, 8, size=lead + (K, n)).astype(np.int8)
+    s = (rng.standard_normal(lead + (K // group, n)) * 0.01).astype(np.float32)
+    b = (rng.standard_normal(lead + (K // group, n)) * 0.001).astype(np.float32)
     ref = JQTensor(q=jnp.asarray(q).astype(jnp.int4), scale=jnp.asarray(s, jnp.bfloat16),
                    bias=jnp.asarray(b, jnp.bfloat16) if bias else None, group=group,
                    layout="kn")
@@ -168,4 +168,18 @@ def test_qmm_i4_prefill_rows_match_pallas(rng, rows, group, bias):
     want = qmatmul_pallas_2d_i4(jnp.asarray(x), ref, compute_dtype=jnp.bfloat16, interpret=True)
     got = qmm_i4(torch.from_numpy(x), w, compute_dtype=torch.bfloat16)
     assert tuple(got.shape) == (rows, N)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 9])
+@pytest.mark.parametrize("n", [250, 100])
+def test_qmm_i4_plain_ragged_n_matches_pallas(rng, n, rows):
+    """The widths qmm_i4 now takes (N % 4 != 0, N % 16 != 0; the SIMT body
+    on the card): the plain version against the reference's 2-D kernel,
+    which takes a whole-N tile there (pallas_qmm.py:574), at bf16."""
+    ref, w, _ = _int4_ref(rng, 32, True, n=n)
+    x = rng.standard_normal((rows, K)).astype(np.float32)
+    want = qmatmul_pallas_2d_i4(jnp.asarray(x), ref, compute_dtype=jnp.bfloat16, interpret=True)
+    got = qmm_i4(torch.from_numpy(x), w, compute_dtype=torch.bfloat16)
+    assert tuple(got.shape) == (rows, n)
     _close(got, want)
