@@ -14,16 +14,18 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    bias) and Q8_0 (int8, no bias) forms at 1, 6 and 512 rows, bf16 compute
    (relative error <= 1e-2); every one of these forms also through the
    wgmma body at 9, 37, 64, 65, 128, 300 and 512 rows and through the
-   small-row mma.sync body (qmm_mma) at 2, 3, 6 and 8 rows (checks only),
-   one line for the prefill qmm per prompt (32 x 4 projections + lm_head at
-   512 rows) and one for the qmm of an EAGLE verify cycle (the same at 6
-   rows: kernel, bound, library ms), each 6- and 512-row time as a ratio to
-   library_ms (and, with --parent-report, to the kernel of the tree that
-   wrote that report); qmm and qmm_i4 at the shapes only the SIMT body takes
-   (N = 4001, N = 4100, K = 4128) at 1, 6 and 37 rows, with the route each
-   took, qmm at N = 4001 timed; ffn_out_norm and gate_up_act at Vicuna-7B
-   widths for 1, 2, 6, 9, 33 and 64 rows (timed at 1 and 6, the 6-row
-   times as ratios), stacked Q4_0 (layer 5) and the draft's single-layer
+   small-row mma.sync body (qmm_mma) at 2, 3, 6 and 8 rows (checks only);
+   every 1-row call asserted to take the 1-row body (qmm_gemv); one line for the decode
+   qmm per token (32 x 4 projections + lm_head at 1 row, with
+   --parent-report also as a ratio to the parent's), one for the prefill
+   qmm per prompt (the same at 512 rows) and one for the qmm of an EAGLE
+   verify cycle (at 6 rows: kernel, bound, library ms), each 1-, 6- and
+   512-row time as a ratio to library_ms (and, with --parent-report, to the
+   kernel of the tree that wrote that report); qmm and qmm_i4 at the shapes
+   only the SIMT body takes (N = 4001, N = 4100, K = 4128) at 1, 6 and 37
+   rows, asserted to take it, qmm at N = 4001 timed; ffn_out_norm and
+   gate_up_act at Vicuna-7B widths for 1, 2, 6, 9, 33 and 64 rows (timed at
+   1 and 6, those times as ratios), stacked Q4_0 (layer 5) and the draft's single-layer
    Q8_0 (relative error <= 1e-2); flash_decode at S=1024,
    T in {1, 6}, 32 heads of 128 with a holed tag mask, and at T=S=512 as
    the EAGLE engine's prompt takes it; flash_prefill at T=512 with padded
@@ -38,7 +40,8 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    call of a CUDA-graph replay timed with CUDA events
    (`eagle_tpu_torch/timing.py:device_ms`), so the host's launch overhead
    does not count. A tiny 2-layer model's logits on the card are also held against
-   the CPU plain path (relative error <= 1e-3, f32).
+   the CPU plain path (relative error <= 1e-3, f32); its forward's launch
+   counts (every f32 product on the SIMT qmm body) are the SIMT row's.
 3. greedy decoding at full width: VICUNA_7B (32 layers, 4096 wide, 11008
    FFN, 32000 vocab), Q4_K packed coded weights synthesized on the card,
    bf16 KV cache, max_seq 1024; a 300-token prompt (bucket 512, prefill
@@ -47,12 +50,13 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    K = 5, 64 new tokens; its tokens are compared with phase 3's, and where
    they differ the target's top-2 logit margin there must be within 1e-2 of
    the logit range (a bf16 near-tie, not a divergence).
-5. the launch counts of qmm (SIMT body), qmm_tc (its wgmma body), qmm_mma
-   (its small-row body), flash_decode and flash_prefill over the phase 3-4
-   runs (each > 0; the fused FFN kernels 0; qmm_tc exactly 129 for the
-   greedy prompt, and more for the EAGLE prompt, whose draft also runs at
-   512 rows; qmm_mma 0 for greedy and exactly 129 per EAGLE verify cycle)
-   and the plain
+5. the launch counts of qmm_gemv (qmm's 1-row body), qmm_tc (its wgmma
+   body), qmm_mma (its small-row body), flash_decode and flash_prefill over
+   the phase 3-4 runs (each > 0; the fused FFN kernels 0; qmm_gemv exactly
+   129 per greedily decoded token and the SIMT qmm body 0; qmm_tc exactly
+   129 for the greedy prompt, and more for the EAGLE prompt, whose draft
+   also runs at 512 rows; qmm_mma 0 for greedy and exactly 129 per EAGLE
+   verify cycle; the draft's 1-row products printed) and the plain
    versions' (each 0); then, outside the counted runs, 8 more greedy decode
    steps timed on the host clock and traced with torch.profiler (device
    busy share, kernels per token, the kernels that take the time).
@@ -63,8 +67,10 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    the card (read / upload / repack times, device memory), five tensors
    checked bit for bit against the CPU repack of the same bytes, then
    greedy and the EAGLE chain engine with EAGLE_TPU_FUSED_FFN=1 and again
-   unfused, each with its launch counts (fused kernels > 0 only when on,
-   qmm_mma 65 per verify cycle fused and 129 unfused, plain versions 0) and
+   unfused, each with its launch counts (fused kernels > 0 only when on;
+   per greedily decoded token 65 qmm_gemv, 32 ffn_out_norm and 32
+   gate_up_act fused, 129 qmm_gemv unfused; qmm_mma 65 per verify cycle
+   fused and 129 unfused; plain versions 0) and
    decode profile; EAGLE = greedy and fused = unfused tokens up to the
    near-tie rule.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
@@ -84,9 +90,11 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    repack of the same bytes, prepared for serving and run through qmm
    against its plain version at 1, 6 and 512 rows (Q5_K also coded; IQ1_M
    at G = 8). Last, the `kernels` JSON line (the fused kernels' launches come
-   from phase 6's fused run, qmm_i4's and qmm_i4_tc's from phase 7; qmm_tc's
-   row is the prefill body at wqkv, 512 rows, qmm_mma's the verify body at
-   wqkv, 6 rows) and the device JSON line.
+   from phase 6's fused run, qmm_i4's and qmm_i4_tc's from phase 7, the
+   SIMT qmm's from phase 2's f32 model; qmm_gemv's row is the decode qmm
+   per token, qmm's the SIMT body at N = 4001, 1 row, qmm_tc's the prefill
+   body at wqkv, 512 rows, qmm_mma's the verify body at wqkv, 6 rows) and
+   the device JSON line.
 """
 
 from __future__ import annotations
@@ -137,6 +145,9 @@ def load_parent(path: str | None) -> None:
             PARENT[(kernel, r["name"], r["rows"])] = r["ms"]
     for r in rep.get("ffn", []):
         PARENT[("ffn", f"{r['name']}/{r['form']}", r["rows"])] = r["ms"]
+    tok = rep.get("qmm_per_decoded_token")
+    if tok:
+        PARENT[("qmm_token", "per_token", 1)] = tok["ms"]
 
 
 def log_ratios(kernel: str, res: dict) -> None:
@@ -190,9 +201,9 @@ def phase_device(out_dir: pathlib.Path):
 
 def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
     """qmm against qmm_plain at the main paths' shapes and forms; returns the
-    per-token row (1 row, SIMT body), the wqkv row at 512 rows (wgmma body)
-    and the wqkv row at 6 rows (small-row mma.sync body), each with the
-    worst error of its body."""
+    per-token row (1 row, the gemv body), the wqkv row at 512 rows (wgmma
+    body) and the wqkv row at 6 rows (small-row mma.sync body), each with
+    the worst error of its body."""
     import torch
 
     from eagle_tpu_torch import _build
@@ -226,7 +237,7 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
     rows_list = (1, 6, 37, 512)  # 37: a ragged row tile of either body
     gguf_rows = (1, 6, 512)
     results = []
-    worst = worst_tc = worst_mma = 0.0
+    worst = worst_tc = worst_mma = 0.0  # worst: the gemv body (1 row)
     per_token = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     per_prompt = dict(per_token)
     per_verify = dict(per_token)
@@ -268,10 +279,14 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
         log(f"[qmm] {name:16s} small-row body at rows {MMA_CHECK_ROWS}: rel err <= {QMM_TOL}")
         for rows in gguf_rows if kw["qtype"] in (Q4_0, Q8_0) else rows_list:
             x = torch.randn((rows, k), generator=gen, device="cuda")
+            _build.reset_counts()
             if stacked:
                 got = qmm_stacked(x, w, layer)
             else:
                 got = qmm(x, w)
+            if rows == 1 and (_build.launches["qmm_gemv"] != 1
+                              or sum(_build.launches.values()) != 1):
+                raise AssertionError(f"qmm {name} rows=1: not the gemv body: {_build.launches}")
             want = qmm_plain(x, layers[layer if stacked else 0])
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
@@ -279,7 +294,9 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
             abs_err, rel = rel_err(got, want)
             if rel > QMM_TOL:
                 raise AssertionError(f"qmm {name} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
-            worst = max(worst, abs_err)
+            if rows == 1:
+                worst = max(worst, abs_err)
+                log(f"[qmm] {name:16s} gemv body at rows (1,): rel err {rel:.2e} <= {QMM_TOL}")
             reps = 20 if rows < 512 else 5
             # cycle over the stack's layers so that repeats do not hit in L2
             if stacked:
@@ -310,7 +327,7 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
             if rows == VERIFY_ROWS and count:
                 for key in per_verify:
                     per_verify[key] += count * res[key]
-            if rows in (VERIFY_ROWS, 512):
+            if rows in (1, VERIFY_ROWS, 512):
                 log_ratios("qmm", res)
             if name == "wqkv" and rows == 512:
                 tc_row = dict(res)
@@ -321,9 +338,13 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
     report["qmm"] = results
     report["qmm_prefill_per_prompt"] = per_prompt
     report["qmm_per_verify_cycle"] = per_verify
-    log(f"[qmm] per decoded token (32 x 4 projections + lm_head, 1 row): kernel "
+    report["qmm_per_decoded_token"] = per_token
+    parent_tok = PARENT.get(("qmm_token", "per_token", 1))
+    vs = (f", parent {parent_tok:.3f} ms = {parent_tok / per_token['ms']:.2f}x this"
+          if parent_tok else "")
+    log(f"[qmm] per decoded token (32 x 4 projections + lm_head, 1 row, gemv body): kernel "
         f"{per_token['ms']:.3f} ms, bound {per_token['bound_ms']:.3f} ms, library "
-        f"{per_token['library_ms']:.3f} ms")
+        f"{per_token['library_ms']:.3f} ms{vs}")
     log(f"[qmm] prefill per prompt (32 x 4 projections + lm_head, 512 rows, tensor-core body): "
         f"kernel {per_prompt['ms']:.3f} ms, bound {per_prompt['bound_ms']:.3f} ms, library "
         f"{per_prompt['library_ms']:.3f} ms")
@@ -335,7 +356,7 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
     return dict(per_token, max_abs_err=worst, bound_by="bytes"), tc_row, mma_row
 
 
-def ragged_checks(report: dict) -> None:
+def ragged_checks(report: dict) -> dict:
     """qmm and qmm_i4 at shapes the tensor-core bodies cannot address and
     the reference serves with a whole-N tile: N = 4001 (N % 4 != 0), N = 4100
     (N % 16 != 0), K = 4128 (K % 64 != 0), at 1, 6 and 37 rows, bf16
@@ -343,7 +364,7 @@ def ragged_checks(report: dict) -> None:
     versions (relative error <= 1e-2); the route each call took is printed
     (the SIMT body for all of them, masked at the last column where N % 4 !=
     0). qmm at N = 4001, K = 4096 is timed at 1 and 6 rows, with its bound
-    and library_ms."""
+    and library_ms. Returns the 1-row N = 4001 row (the SIMT body)."""
     import torch
 
     from eagle_tpu_torch import _build
@@ -364,6 +385,7 @@ def ragged_checks(report: dict) -> None:
                        bias=(torch.randn((3, k // 32, n), generator=gen, device="cuda") * 1e-3
                              ).to(bf16))
 
+    simt_row = None
     forms = (("q4_0", lambda n, k: synth_qtensor(gen, n, k, int(GGMLType.Q4_0), 3, packed=True),
               qmm_stacked, qmm_plain),
              ("q4k_coded", lambda n, k: synth_qtensor(gen, n, k, Q4_K, 3, packed=True, coded=True),
@@ -383,6 +405,8 @@ def ragged_checks(report: dict) -> None:
                 abs_err, rel = rel_err(got, plain(x, w.layer(2)))
                 if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
                     raise AssertionError(f"{form} N={n} K={k} rows={rows}: rel err {rel:.3e}")
+                if route != (["qmm_i4"] if form == "int4" else ["qmm"]):
+                    raise AssertionError(f"{form} N={n} K={k} rows={rows}: route {route}, not SIMT")
                 log(f"[ragged] {form:9s} N={n} K={k} rows={rows:2d}: route {route}, rel err "
                     f"{rel:.2e}")
                 if form == "q4_0" and n == 4001 and rows in (1, VERIFY_ROWS):
@@ -399,11 +423,14 @@ def ragged_checks(report: dict) -> None:
                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                                max_abs_err=abs_err, rel_err=rel)
                     results.append(res)
+                    if rows == 1:
+                        simt_row = dict(res)
                     log(f"[ragged] {form} N={n} K={k} rows={rows}: kernel {ms:.4f} ms, plain "
                         f"{plain_ms:.3f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), library "
                         f"{lib:.4f} ms")
             del w
     report["ragged"] = results
+    return simt_row
 
 
 def ffn_checks(report: dict) -> tuple[dict, dict]:
@@ -494,7 +521,7 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
                     f"{lib:8.4f} ms  rel err {rel:.2e}")
                 if form == "q4_0" and rows == 1:
                     decode[name] = dict(res)
-                if rows == VERIFY_ROWS:
+                if rows in (1, VERIFY_ROWS):
                     log_ratios("ffn", dict(res, name=f"{name}/{form}"))
             del ws, dense
             torch.cuda.empty_cache()
@@ -650,11 +677,14 @@ def gqa_checks(gen) -> list[dict]:
     return out
 
 
-def tiny_model_check():
+def tiny_model_check() -> dict:
     """A 2-layer model's logits through the kernels on the card against the
-    plain path on the CPU, same weights, f32 compute and cache."""
+    plain path on the CPU, same weights, f32 compute and cache. Every qmm of
+    an f32 forward takes the SIMT body: returns the launch counts of the
+    card's forward, counted from zero."""
     import torch
 
+    from eagle_tpu_torch import _build
     from eagle_tpu_torch.models.config import ModelConfig
     from eagle_tpu_torch.models.llama import llama_forward
     from eagle_tpu_torch.models.synth import synth_llama_params
@@ -676,6 +706,7 @@ def tiny_model_check():
     cpu_params = to_cpu(params)
     toks = torch.randint(0, 512, (1, 20), generator=torch.Generator().manual_seed(0))
     outs = []
+    _build.reset_counts()  # ---- the card's f32 forward: counts from here ----
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
         kv = KVCache.create(2, 1, 128, 2, 64, torch.float32, device=dev)
         logits = []
@@ -688,18 +719,28 @@ def tiny_model_check():
                                causal_tags_prefill=tags_prefill)
             logits.append(fo.logits.cpu())
         outs.append(torch.cat(logits, dim=1))
+        if dev == "cuda":
+            launches = dict(_build.launches)  # ---- ends ----
     _, rel = rel_err(outs[0], outs[1])
     if rel > TINY_TOL:
         raise AssertionError(f"tiny model: card vs CPU rel err {rel:.3e} > {TINY_TOL}")
-    log(f"[tiny] 2-layer model logits, kernels on the card vs plain on the CPU: rel err {rel:.2e}")
+    log(f"[tiny] 2-layer model logits, kernels on the card vs plain on the CPU: rel err {rel:.2e}; "
+        f"launches {launches}")
+    if launches["qmm"] <= 0 or launches["qmm_gemv"] or launches["qmm_mma"] or launches["qmm_tc"]:
+        raise AssertionError(f"tiny f32 model: qmm took another body than SIMT: {launches}")
+    return launches
 
 
 # --------------------------------------------------------------------------
 # phases 3-5
 
 
-CORE_KERNELS = ("qmm", "qmm_tc", "qmm_mma", "flash_decode", "flash_prefill")
+#: kernels that every main path runs (the SIMT qmm body left them: phase 2's
+#: f32 model and ragged shapes hold its launches)
+CORE_KERNELS = ("qmm_gemv", "qmm_tc", "qmm_mma", "flash_decode", "flash_prefill")
 PROMPT_QMM = 32 * 4 + 1  # a prompt's 512-row products: 4 per layer and lm_head
+DECODE_QMM = 32 * 4 + 1  # a decoded token's 1-row products, unfused
+DECODE_QMM_FUSED = 32 * 2 + 1  # with the fused FFN block: wqkv, w_down, lm_head
 VERIFY_QMM = 32 * 4 + 1  # a verify forward's 6-row products, unfused
 VERIFY_QMM_FUSED = 32 * 2 + 1  # with the fused FFN block: wqkv, w_down, lm_head
 
@@ -860,6 +901,15 @@ def main_path(report: dict) -> dict:
     if counts_greedy["qmm_mma"] or verify_mma != VERIFY_QMM * stats["n_cycles"]:
         raise AssertionError(f"qmm_mma: {counts_greedy['qmm_mma']} greedy launches, {verify_mma} "
                              f"in {stats['n_cycles']} verify cycles (expected {VERIFY_QMM} each)")
+    eagle_gemv = launches["qmm_gemv"] - counts_greedy["qmm_gemv"]
+    log(f"[launches] greedy decode per token: qmm_gemv {per_token['qmm_gemv']:.1f}, SIMT qmm "
+        f"{per_token['qmm']:.1f}; EAGLE (the draft's 1-row products): qmm_gemv {eagle_gemv} over "
+        f"{stats['n_cycles']} cycles ({eagle_gemv / max(1, stats['n_cycles']):.1f} per cycle), "
+        f"SIMT qmm {launches['qmm'] - counts_greedy['qmm']}")
+    if per_token["qmm_gemv"] != DECODE_QMM or per_token["qmm"]:
+        raise AssertionError(f"greedy decode: {per_token['qmm_gemv']} qmm_gemv and "
+                             f"{per_token['qmm']} SIMT qmm launches per token, expected "
+                             f"{DECODE_QMM} and 0")
     for k in CORE_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
@@ -1135,6 +1185,15 @@ def gguf_path(report: dict) -> dict:
         for k in CORE_KERNELS:
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the GGUF path")
+        want_tok = {"qmm_gemv": DECODE_QMM_FUSED if mode == "1" else DECODE_QMM,
+                    "ffn_out_norm": 32 if mode == "1" else 0,
+                    "gate_up_act": 32 if mode == "1" else 0}
+        log(f"[gguf {tag}] greedy decode per token: "
+            + ", ".join(f"{k} {per_token[k]:.1f}" for k in (*want_tok, "qmm"))
+            + f"; EAGLE qmm_gemv {launches['qmm_gemv'] - counts_greedy['qmm_gemv']}, SIMT qmm "
+            f"{launches['qmm'] - counts_greedy['qmm']}")
+        if any(per_token[k] != v for k, v in want_tok.items()):
+            raise AssertionError(f"{tag}: launches per decoded token {per_token}, expected {want_tok}")
         per_cycle = VERIFY_QMM_FUSED if mode == "1" else VERIFY_QMM
         if launches["qmm_mma"] != per_cycle * stats["n_cycles"]:
             raise AssertionError(f"{tag}: {launches['qmm_mma']} qmm_mma launches in "
@@ -1417,12 +1476,13 @@ def main() -> int:
     load_parent(args.parent_report)
     card = phase("1", phase_device, out_dir)
     report: dict = {"card": card, "phase_seconds": seconds}
-    qmm_row, qmm_tc_row, qmm_mma_row = phase("2 qmm", qmm_checks, report)
-    phase("2 ragged", ragged_checks, report)
+    gemv_row, qmm_tc_row, qmm_mma_row = phase("2 qmm", qmm_checks, report)
+    simt_row = phase("2 ragged", ragged_checks, report)
     out_norm_row, gate_up_row = phase("2 ffn", ffn_checks, report)
     dec_row, pre_row = phase("2 attention", attention_checks, report)
-    phase("2 tiny model", tiny_model_check)
-    launches = phase("3-5", main_path, report)
+    tiny_launches = phase("2 tiny model", tiny_model_check)
+    # a copy: the main path's own counts stay as its report holds them
+    launches = dict(phase("3-5", main_path, report))
     # the later kernels' counts come from the paths that run them
     gguf_launches = phase("6", gguf_path, report)
     for k in ("ffn_out_norm", "gate_up_act"):
@@ -1432,6 +1492,7 @@ def main() -> int:
     phase("8", format_checks, report)
 
     sources = {"qmm": "eagle_tpu_torch/csrc/qmm.cu",
+               "qmm_gemv": "eagle_tpu_torch/csrc/qmm_gemv.cuh",
                "flash_decode": "eagle_tpu_torch/csrc/flash_attention.cu",
                "flash_prefill": "eagle_tpu_torch/csrc/flash_attention.cu",
                "ffn_out_norm": "eagle_tpu_torch/csrc/ffn.cu",
@@ -1449,8 +1510,17 @@ def main() -> int:
                 "bound_by": vals["bound_by"], "library_ms": vals["library_ms"]}
 
     kernels = [
-        dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", qmm_row),
-             shape="one decoded token: 32 x (wqkv, wo, w_gate_up, w_down) + lm_head, 1 row"),
+        dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
+             shape="SIMT body (csrc/qmm_body.cuh): Q4_0 [4001 x 4096], 1 row (N % 4 != 0)",
+             launches_per_decoded_token=report["main_path"]["launches_per_decoded_token"]["qmm"],
+             launches_from="phases 3-4 (no main-path product takes the SIMT body)",
+             f32_model_launches=tiny_launches["qmm"]),
+        dict(row("qmm_gemv", "eagle_tpu/ops/pallas_qmm.py:513 and :758", gemv_row),
+             shape="one decoded token: 32 x (wqkv, wo, w_gate_up, w_down) + lm_head, 1 row, "
+                   "Q4_K packed coded (1-row tensor-core body, csrc/qmm_gemv.cuh)",
+             launches_per_decoded_token=report["main_path"]["launches_per_decoded_token"][
+                 "qmm_gemv"],
+             launches_from="phases 3-4: greedy decode and the EAGLE draft"),
         dict(row("flash_decode", "eagle_tpu/ops/pallas_attention.py:116", dec_row),
              shape="T=1, S=1024, 32 heads x 128, bf16 cache"),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),

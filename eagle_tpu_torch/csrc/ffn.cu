@@ -18,10 +18,13 @@
 // a full row or a full K sum. Each op is therefore two kernels:
 // 1. the matmul pass, writing per-split partial sums, on one of qmm's
 //    bodies with qmm's plan for the same product (ops/ffn.py:_body):
-//    - 1 row and f32 compute: qmm_kernel (qmm_body.cuh). For wo it runs as
-//      qmm does; for gate/up it runs paired: a block walks its tile of gate
-//      columns, then the matching tile of up columns (offset F in the same
-//      weight), each with its own f32 accumulators, one set live at a time
+//    - ffn_out_norm at 1 bf16 row: qmm_gemv_kernel (qmm_gemv.cuh), with
+//      qmm's _gemv_plan, so x is qmm's sum + resid to the bit;
+//    - f32 compute, and gate_up_act at 1 row: qmm_kernel (qmm_body.cuh).
+//      For wo it runs as qmm does; for gate/up it runs paired: a block
+//      walks its tile of gate columns, then the matching tile of up
+//      columns (offset F in the same weight), each with its own f32
+//      accumulators, one set live at a time
 //      (both sets live took all 255 registers at 8 rows and ran 2.7x slower
 //      than qmm over the same bytes on an H100 80GB HBM3);
 //    - bf16 at 2-64 rows: qmm_mma_kernel (qmm_mma.cuh), each weight
@@ -36,7 +39,8 @@
 //    written. For gate_up_act it is elementwise: act(g) * u, rounded once.
 // With the plan the unfused path's qmm would choose (the wrapper passes
 // it), x, g and u are bit-equal to the unfused path's sums where qmm takes
-// the same body too (every f32 product; bf16 at up to 8 rows). Any row
+// the same body too (every f32 product; bf16 at 2-8 rows, and x at 1
+// row). Any row
 // count from 1 to 64 runs as it is: the TPU's pad to 8 rows does not carry
 // over.
 #include <math.h>
@@ -44,6 +48,7 @@
 #include <type_traits>
 
 #include "qmm_body.cuh"
+#include "qmm_gemv.cuh"
 #include "qmm_mma.cuh"
 
 namespace {
@@ -287,3 +292,26 @@ extern "C" int gate_up_act_mma_launch(const void* h, const void* q, const void* 
   return (int)cudaGetLastError();
 }
 
+
+// ffn_out_norm's matmul pass on the 1-row tensor-core body (qmm_gemv.cuh;
+// bf16 compute, one row), with the same epilogue: arguments as
+// ffn_out_norm_launch's for R = 1, minus compute_bf16, rb and gps, plus the
+// plan's ring stages, steps_per_split and dynamic shared memory bytes
+// (ops/qmm.py:_gemv_plan, qmm's plan for the same product).
+extern "C" int ffn_out_norm_gemv_launch(const void* x, const void* q, const void* scale,
+                                        const void* bias, const void* resid, const void* norm_w,
+                                        void* x_out, void* h_out, void* partial, int K, int N,
+                                        int G, int packed, int scale_kind, int bias_kind,
+                                        int stages, int splits, int steps_per_split, int smem,
+                                        float eps, void* stream) {
+  const OutNormArgs a{static_cast<const float*>(x), static_cast<const int8_t*>(q), scale, bias,
+                      static_cast<const float*>(resid), static_cast<const float*>(norm_w),
+                      static_cast<float*>(x_out), h_out, static_cast<float*>(partial), 1, K, N,
+                      scale_kind, bias_kind, splits, 0, eps, static_cast<cudaStream_t>(stream)};
+  const GemvArgs m{a.x, a.q, scale, bias, nullptr, nullptr, a.partial, K, N, scale_kind,
+                   bias_kind, stages, steps_per_split, 0, 0, 0, 0, {}};
+  const cudaError_t e = gemv_run(m, G, packed, splits, smem, a.st);
+  if (e != cudaSuccess) return (int)e;
+  out_norm_epilogue<true>(a);
+  return (int)cudaGetLastError();
+}

@@ -10,11 +10,11 @@
 // products accumulate in f32; the per-group bias is the side product
 // round_ct(xsum_g) * round_ct(bias_g).
 //
-// Three bodies, chosen by ops/qmm.py (`_route`) from the shape alone:
-// - qmm_kernel (SIMT, qmm_body.cuh; 1 row, f32 compute at any row count,
-//   and the shapes the tensor-core bodies cannot address: K % 64 != 0,
-//   N % 16 != 0; at N % 4 != 0 it loads element by element, masked at the
-//   last column). Bound on the H100 by the weight bytes (4.75 bits per
+// Four bodies, chosen by ops/qmm.py (`_route`) from the shape alone:
+// - qmm_kernel (SIMT, qmm_body.cuh; f32 compute at any row count, and the
+//   shapes the tensor-core bodies cannot address: K % 64 != 0, N % 16 !=
+//   0; at N % 4 != 0 it loads element by element, masked at the last
+//   column). Bound on the H100 by the weight bytes (4.75 bits per
 //   weight for Q4_K packed with codes). Every weight byte is read once
 //   per row tile, 4 adjacent columns per lane (one 128-byte line per warp
 //   and weight row); a warp loads all rows of a quant group before it uses
@@ -24,6 +24,12 @@
 //   small kernel (deterministic, no atomics). The integer-to-float step uses
 //   the 2^23 magic number and bf16 rounding goes two values per
 //   instruction: conversion instructions run at a quarter of the FMA rate.
+// - qmm_gemv_kernel (qmm_gemv.cuh; bf16 compute, 1 row: decode). Bound by
+//   the weight bytes; the SIMT body reached 23-36 % of that bound there,
+//   held by its per-group load-then-compute order and ~4.5 issue slots per
+//   weight. A 3-stage cp.async ring of raw weight tiles runs ahead of the
+//   math; x is staged once per block; each weight becomes a bf16 A operand
+//   of mma.sync.m16n8k16 in three instructions. K splits reduced as below.
 // - qmm_mma_kernel (qmm_mma.cuh; bf16 compute, 2-8 rows: the EAGLE verify
 //   forward). Bound by the weight bytes as at one row; the SIMT body paid an
 //   FMA per weight and row there. Each weight is dequantized once into a
@@ -46,6 +52,7 @@
 #include <stdint.h>
 
 #include "qmm_body.cuh"
+#include "qmm_gemv.cuh"
 #include "qmm_mma.cuh"
 #include "qmm_tc.cuh"
 
@@ -212,3 +219,28 @@ extern "C" int qmm_mma_launch(const void* x, const void* q, const void* scale, c
   return (int)cudaGetLastError();
 }
 
+
+// The 1-row tensor-core body (bf16 compute; the wrapper sends it one row at
+// K % 64 == 0, N % 16 == 0 and any form but int4). x f32 [1, K]; weight
+// operands as qmm_launch's; split y of `splits` runs K steps of 64
+// [y * steps_per_split, ...) into partial [splits, 1, N] (out directly when
+// splits == 1); stages: ring stages (2-6); smem: dynamic shared memory
+// bytes, at least the layout's (ops/qmm.py:_gemv_plan).
+extern "C" int qmm_gemv_launch(const void* x, const void* q, const void* scale, const void* bias,
+                               const void* sup, const void* sup_min, void* out, void* partial,
+                               int K, int N, int G, int packed, int scale_kind, int bias_kind,
+                               int stages, int splits, int steps_per_split, int smem,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GemvArgs a{static_cast<const float*>(x), static_cast<const int8_t*>(q), scale, bias,
+                   static_cast<const float*>(sup), static_cast<const float*>(sup_min),
+                   static_cast<float*>(splits > 1 ? partial : out), K, N, scale_kind, bias_kind,
+                   stages, steps_per_split, 0, 0, 0, 0, {}};
+  const cudaError_t e = gemv_run(a, G, packed, splits, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  if (splits > 1) {
+    qmm_reduce_kernel<<<(unsigned)((N + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(partial), static_cast<float*>(out), (size_t)N, splits);
+  }
+  return (int)cudaGetLastError();
+}

@@ -15,15 +15,19 @@ versions, and `ffn_block` (port of eagle_tpu/ops/pallas_ffn.py:
 Vicuna-7B layer). The design (csrc/ffn.cu): a matmul pass, then an
 epilogue pass where the full row of sums first exists. The matmul pass is
 one of qmm's bodies with qmm's plan for the same product (`_body`):
-- 1 row and f32 compute: the SIMT body (csrc/qmm_body.cuh, `simt_config`);
+- ffn_out_norm at 1 bf16 row: the 1-row tensor-core body
+  (csrc/qmm_gemv.cuh, `_gemv_plan`), as qmm's decode products;
+- f32 compute, and gate_up_act's paired pass at 1 row: the SIMT body
+  (csrc/qmm_body.cuh, `simt_config`);
 - bf16 at 2-64 rows: the small-row tensor-core body (csrc/qmm_mma.cuh,
   `_mma_plan`), gate and up tiles in one block for `gate_up_act`; each
   weight is dequantized once and `mma.sync` covers 16 rows, so 6 rows cost
   1.0-1.2x one row (the SIMT body paid 2.0-3.2x; `chip_smoke.py`, H100
   80GB HBM3 at 700 W).
-Where qmm takes the same body (1-8 rows in bf16, any f32 product) x, gate
-and up are bit-equal to the unfused path's sums, and the fused block only
-saves launches (residual add, norm, split, activation, multiply).
+Where qmm takes the same body (x at 1-8 rows in bf16, gate and up at 2-8,
+any f32 product) they are bit-equal to the unfused path's sums, and the
+fused block only saves launches (residual add, norm, split, activation,
+multiply).
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches the kernel or raises."""
@@ -38,12 +42,14 @@ import torch.nn.functional as F
 from .. import _build
 from ..quant.qtensor import QTensor
 from .matmul import qmatmul_layer
-from .qmm import _ALIGN, _KINDS, _TC_ALIGN, _mma_plan, _route, qmm_math, simt_config, tc_form
+from .qmm import (_ALIGN, _KINDS, _TC_ALIGN, _gemv_plan, _mma_plan, _route, qmm_math, simt_config,
+                  tc_form)
 
 MAX_ROWS = 64  # decode and verify rows; prefill stays unfused
 ACTS = {"silu": 0, "gelu": 1}
 _OUT_NORM_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
 _GATE_UP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+#: the argument types of ffn_out_norm_mma_launch and of ffn_out_norm_gemv_launch
 _OUT_NORM_MMA_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                       + [ctypes.c_float, ctypes.c_void_p])
 _GATE_UP_MMA_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -133,14 +139,18 @@ def _lp(t: torch.Tensor | None, layer: int, align: int | None = None) -> int | N
     return p
 
 
-def _body(rows: int, k: int, n: int, w: QTensor, compute_dtype) -> str:
+def _body(rows: int, k: int, n: int, w: QTensor, compute_dtype, paired: bool = False) -> str:
     """The matmul pass's body: "simt" (csrc/qmm_body.cuh, with
-    `simt_config`) where qmm's own `_route` takes it (1 row, f32 compute,
-    K % 64 != 0), else "mma" (csrc/qmm_mma.cuh, with `_mma_plan`: bf16 at
-    2-64 rows; qmm takes the same body at 2-8 rows, and its prefill body
-    beyond). Either way the plan is the one qmm would take for the same
-    product with that body."""
-    return "simt" if _route(rows, k, n, compute_dtype, tc_form(w)) == "simt" else "mma"
+    `simt_config`) where qmm's own `_route` takes it (f32 compute, K % 64 !=
+    0) and for the paired gate/up pass at 1 row; "gemv" (csrc/qmm_gemv.cuh,
+    with `_gemv_plan`) for the unpaired pass at 1 bf16 row, as qmm; else
+    "mma" (csrc/qmm_mma.cuh, with `_mma_plan`: bf16 at 2-64 rows; qmm takes
+    the same body at 2-8 rows, and its prefill body beyond). Either way the
+    plan is the one qmm would take for the same product with that body."""
+    route = _route(rows, k, n, compute_dtype, tc_form(w))
+    if route == "gemv":
+        return "simt" if paired else "gemv"
+    return "simt" if route == "simt" else "mma"
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -166,11 +176,25 @@ def ffn_out_norm(attn: torch.Tensor, resid: torch.Tensor, norm_w: torch.Tensor, 
         raise ValueError(f"resid {tuple(rf.shape)} / norm {tuple(nw.shape)} do not match [{r}, {n}]")
     x_out = torch.empty((r, n), dtype=torch.float32, device=attn.device)
     h_out = torch.empty((r, n), dtype=compute_dtype, device=attn.device)
-    mma = _body(r, k, n, wo, compute_dtype) == "mma"
-    fn = (_build.kernel("ffn_out_norm_mma_launch", _OUT_NORM_MMA_ARGS) if mma
-          else _build.kernel("ffn_out_norm_launch", _OUT_NORM_ARGS))
+    body = _body(r, k, n, wo, compute_dtype)
+    fn = _build.kernel(*{"mma": ("ffn_out_norm_mma_launch", _OUT_NORM_MMA_ARGS),
+                         "gemv": ("ffn_out_norm_gemv_launch", _OUT_NORM_MMA_ARGS),
+                         "simt": ("ffn_out_norm_launch", _OUT_NORM_ARGS)}[body])
     stream = torch.cuda.current_stream(attn.device).cuda_stream
-    if mma:
+    if body == "gemv":
+        plan = _gemv_plan(k, n, wo.group, tc_form(wo))  # qmm's plan for the same product
+        partial = torch.empty((plan.splits, 1, n), dtype=torch.float32, device=attn.device)
+        a = _TC_ALIGN
+        rc = fn(
+            _aligned16(xf).data_ptr(), _lp(wo.q, layer, a), _lp(wo.scale, layer, a),
+            _lp(wo.bias, layer, a), rf.data_ptr(), nw.data_ptr(), x_out.data_ptr(),
+            h_out.data_ptr(), partial.data_ptr(), k, n, wo.group, int(wo.packed),
+            _KINDS[wo.scale.dtype], _bias_kind(wo), plan.stages, plan.splits,
+            plan.steps_per_split, plan.smem_bytes, float(eps), stream)
+        _build.check(rc, "ffn_out_norm_gemv_launch")
+        _build.launches["ffn_out_norm"] += 1
+        return x_out, h_out
+    if body == "mma":
         plan = _mma_plan(r, k, n, wo.group, tc_form(wo))
         partial = torch.empty((plan.splits, r, n), dtype=torch.float32, device=attn.device)
         a = _TC_ALIGN
@@ -210,7 +234,7 @@ def gate_up_act(h: torch.Tensor, w_gate_up: QTensor, layer: int, act: str = "sil
     hc = h.to(compute_dtype).contiguous()
     out = torch.empty((r, f), dtype=compute_dtype, device=h.device)
     w = w_gate_up
-    mma = _body(r, k, two_f, w, compute_dtype) == "mma"
+    mma = _body(r, k, two_f, w, compute_dtype, paired=True) == "mma"
     fn = (_build.kernel("gate_up_act_mma_launch", _GATE_UP_MMA_ARGS) if mma
           else _build.kernel("gate_up_act_launch", _GATE_UP_ARGS))
     stream = torch.cuda.current_stream(h.device).cuda_stream

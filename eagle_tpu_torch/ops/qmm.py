@@ -8,19 +8,26 @@ lm_head, EAGLE fc_w) and `qmatmul_pallas_stacked_nd` /
 scalar prefetch). Here both are one entry: a layer is chosen by offsetting
 the weight pointers by `layer x stride`, no copy.
 
-Three bodies, picked by `_route` from the shape alone (qmm_i4 takes the
-first and the last):
-- "simt", csrc/qmm_body.cuh: 1 row (decode), f32 compute at any row count,
-  and every shape the tensor-core bodies cannot address (K % 64 != 0 or
-  N % 16 != 0; any N >= 1, masked at the last column when N % 4 != 0).
-  Bound on the H100 by the bytes of the quantized weights (Q4_K packed with
-  codes: 4.75 bits per weight, ~3.9 GB per 7B token), so it reads each
-  weight byte once per row tile with coalesced 4-column vectors, keeps a
-  whole quant group's loads in flight per warp, splits K over warps and
-  blocks (`simt_config`) to fill the 132 SMs at small N, and never writes a
-  dequantized weight to device memory. At 2-8 rows it pays one f32 FMA per
-  weight and row: 2.3-2.9x its 1-row time at 6 rows (`chip_smoke.py` on an
-  H100 80GB HBM3 at 700 W, as the other times here).
+Four bodies, picked by `_route` from the shape alone (qmm_i4 takes the
+SIMT and the wgmma one):
+- "simt", csrc/qmm_body.cuh: f32 compute at any row count, every shape the
+  tensor-core bodies cannot address (K % 64 != 0 or N % 16 != 0; any N >=
+  1, masked at the last column when N % 4 != 0), and qmm_i4 at 1-8 rows.
+  It reads each weight byte once per row tile with coalesced 4-column
+  vectors, keeps a whole quant group's loads in flight per warp, splits K
+  over warps and blocks (`simt_config`) to fill the 132 SMs at small N,
+  and never writes a dequantized weight to device memory; at one bf16 row
+  it reached 23-36 % of the byte bound (`chip_smoke.py` on an H100 80GB
+  HBM3 at 700 W, as the other times here).
+- "gemv", csrc/qmm_gemv.cuh: bf16 at 1 row (decode), bound by the bytes of
+  the quantized weights (Q4_K packed with codes: 4.75 bits per weight,
+  ~3.9 GB per 7B token). A 3-stage `cp.async` ring of raw 64-deep weight
+  tiles per 256-column block, x staged once per block as bf16 pairs, the
+  weights dequantized in registers (one AND-OR into a magic-number float,
+  one FFMA, half a bf16 pair conversion each) straight into the A operand
+  of `mma.sync.m16n8k16`, K splits from `_gemv_plan`. Its pace is set by
+  that arithmetic, not by the copies. ffn_out_norm (ops/ffn.py) takes the
+  same body and plan for its matmul pass at 1 row.
 - "mma", csrc/qmm_mma.cuh: bf16 at 2-8 rows (the EAGLE verify forward,
   K + 1 = 6 rows; kernel_bench's 8). Each weight is dequantized once per
   call into a bf16 tile in shared memory (a 3-stage `cp.async` ring feeds
@@ -60,6 +67,7 @@ model path never routes them, as in the reference."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -70,6 +78,7 @@ from ..quant.qtensor import QTensor
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _TC_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+#: the argument types of qmm_mma_launch and of qmm_gemv_launch
 _MMA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _SMS = 132  # H100 SXM streaming multiprocessors
 _COLS = 128  # output columns per block (csrc/qmm.cu)
@@ -209,6 +218,7 @@ def _tc_layout(rows: int, group: int, form: TcForm, stages: int) -> int:
     return stages * stage + 2 * _TC_B_SLOT + 64 + 1024
 
 
+@functools.lru_cache(maxsize=None)  # pure: the wrappers ask per launch
 def _tc_plan(b: int, k: int, n: int, group: int, form: TcForm) -> TcPlan:
     """Row tile, ring stages and K splits of the tensor-core body for
     [b, k] @ [k, n]: 128-row tiles above 64 rows, else 64; 4 stages where
@@ -251,18 +261,21 @@ def _tc_plan(b: int, k: int, n: int, group: int, form: TcForm) -> TcPlan:
 def _route(b: int, k: int, n: int, compute_dtype, form: TcForm) -> str:
     """Which body a [b, k] @ [k, n] call takes, from its shape alone (qmm and
     qmm_i4 alike):
-    - "simt": f32 compute at any row count, 1 row (decode), and every shape
-      the tensor-core bodies cannot address: K % 64 != 0 or N % 16 != 0 (their
-      64-deep steps and 16-byte row copies); the SIMT body takes any N >= 1;
+    - "simt": f32 compute at any row count, every shape the tensor-core
+      bodies cannot address: K % 64 != 0 or N % 16 != 0 (their 64-deep steps
+      and 16-byte row copies; the SIMT body takes any N >= 1), and int4
+      weights at 1-8 rows;
+    - "gemv": bf16 at 1 row (decode), qmm only (`qmm_gemv_kernel`,
+      csrc/qmm_gemv.cuh: a `cp.async` ring of raw weight tiles, `mma.sync`
+      products with the weights as the A operand);
     - "mma": bf16 at 2-8 rows (verify), qmm only (`qmm_mma_kernel`,
       csrc/qmm_mma.cuh: each weight dequantized once, 16 rows per product);
-      qmm_i4 keeps the SIMT body there;
     - "tc": bf16 at more than 8 rows (prefill: the wgmma body,
       csrc/qmm_tc.cuh)."""
-    if compute_dtype != torch.bfloat16 or b == 1 or k % _TC_K or n % 16:
+    if compute_dtype != torch.bfloat16 or k % _TC_K or n % 16:
         return "simt"
     if b <= 8:
-        return "simt" if form.q == "int4" else "mma"
+        return "simt" if form.q == "int4" else "gemv" if b == 1 else "mma"
     return "tc"
 
 
@@ -310,6 +323,7 @@ def _mma_layout(rows: int, group: int, form: TcForm, steps_per_split: int) -> in
             + rows * steps_per_split * _TC_K * 2 + side)
 
 
+@functools.lru_cache(maxsize=None)  # pure: the wrappers ask per launch
 def _mma_plan(b: int, k: int, n: int, group: int, form: TcForm, paired: bool = False) -> MmaPlan:
     """K splits of the small-row body for [b, k] @ [k, n], all b <= 64 rows
     in each block (`paired`: n = 2F, gate and up tiles together; the same
@@ -349,6 +363,89 @@ def _mma_plan(b: int, k: int, n: int, group: int, form: TcForm, paired: bool = F
     _, per, splits, smem = best
     steps = per * quantum
     return MmaPlan(_MMA_COLS, _MMA_STAGES, splits, steps, steps * _TC_K // group, smem)
+
+
+# the 1-row tensor-core body (csrc/qmm_gemv.cuh)
+_GEMV_COLS = 256  # weight columns per block: 8 warps x 32
+_GEMV_STAGES = 3
+_GEMV_FILL = 1.9  # blocks per SM a plan reaches for, where the shape allows
+#: a block's fixed cost (x staged, the ring's first fill, the store) in steps
+#: of 64 (H100 80GB HBM3, 700 W: splits of 4 steps cost about 6 steps' time)
+_GEMV_BLOCK_STEPS = 2
+
+
+class GemvPlan(NamedTuple):
+    cols: int  # weight columns per block
+    stages: int  # ring stages
+    splits: int  # K splits (grid y)
+    steps_per_split: int  # K steps of 64 per split (the last split may have fewer)
+    groups_per_split: int
+    smem_bytes: int  # dynamic shared memory
+
+
+def _gemv_stage(group: int, form: TcForm) -> int:
+    """Bytes of one ring stage of the 1-row body: the raw weight tile of one
+    64-deep step (the q rows, the scale rows, sup when coded, the bias rows
+    and sup_min when coded with a bias, each 256 columns wide), rounded to
+    128 bytes."""
+    stage = (_TC_K if form.q == "int8" else _TC_K // 2) * _GEMV_COLS
+    stage += (_TC_K // group) * _GEMV_COLS * form.scale_bytes
+    stage += _GEMV_COLS * 4 if form.coded else 0
+    stage += (_TC_K // group) * _GEMV_COLS * form.bias_bytes
+    stage += _GEMV_COLS * 4 if form.coded and form.bias_bytes else 0
+    return -(-stage // 128) * 128
+
+
+def _gemv_layout(group: int, form: TcForm, stages: int, steps_per_split: int) -> int:
+    """Dynamic shared memory of the 1-row body (csrc/qmm_gemv.cuh:
+    gemv_layout): `stages` ring stages, the split's x as bf16 pairs (128
+    bytes per step) and, with a bias, its group sums (one f32 each)."""
+    side = steps_per_split * (_TC_K // group) * 4 if form.bias_bytes else 0
+    return stages * _gemv_stage(group, form) + steps_per_split * 128 + side
+
+
+@functools.lru_cache(maxsize=None)  # pure: the wrappers ask per launch
+def _gemv_plan(k: int, n: int, group: int, form: TcForm) -> GemvPlan:
+    """Ring stages and K splits of the 1-row body for [1, k] @ [k, n]. The
+    ring has 3 stages (2 where 3 do not fit 227 KB): on an H100 80GB HBM3
+    more stages ran slower (wqkv 24.7 us at 6, 21.9 at 3), two steps in
+    flight per block being enough behind the body's arithmetic (three
+    blocks of 256 threads share an SM: the kernel's register cap). K is cut on 64-row steps (whole groups), on 256-row
+    boundaries for coded weights (whole sup rows), into the splits that
+    give the least estimated time among those that put about two blocks on
+    every SM (1.9 x 132, where the shape has that many tiles and steps; one
+    block per SM hid too little latency): the blocks on the busiest SM x
+    (the steps per split + a block's fixed cost), plus the partial sums
+    written and read back (in steps of one block-step per SM). Raises on a
+    shape the body does not take."""
+    if k % _TC_K or n % 16 or group not in (8, 16, 32) or form.q == "int4":
+        raise ValueError(f"the 1-row gemv qmm body needs K % 64 == 0, N % 16 == 0, G in "
+                         f"(8, 16, 32) and no int4 (K={k}, N={n}, G={group}, q={form.q})")
+    tiles = -(-n // _GEMV_COLS)
+    quantum = _TC_SPLIT_K // _TC_K if form.coded else 1
+    units = -(-(k // _TC_K) // quantum)
+    fill = min(_GEMV_FILL * _SMS, tiles * units)
+    stage = _gemv_stage(group, form)
+    best = None
+    for per in range(units, 0, -1):  # units of K steps per split
+        steps = per * quantum
+        stages = _GEMV_STAGES
+        if _gemv_layout(group, form, stages, steps) > _TC_MAX_SMEM:
+            stages = 2
+        smem = _gemv_layout(group, form, stages, steps)
+        if smem > _TC_MAX_SMEM:
+            continue
+        splits = -(-units // per)
+        blocks = tiles * splits
+        est = (-(-blocks // _SMS) * (steps + _GEMV_BLOCK_STEPS)
+               + (2 * splits + 1) * n * 4 * (splits > 1) / (_SMS * stage))
+        key = (blocks < fill, est)
+        if best is None or key < best[0]:
+            best = (key, GemvPlan(_GEMV_COLS, stages, splits, steps, steps * _TC_K // group,
+                                  smem))
+    if best is None:
+        raise ValueError(f"the 1-row gemv qmm body cannot hold K={k} in 227 KB")
+    return best[1]
 
 
 def simt_config(b: int, k: int, n: int, group: int) -> tuple[int, int, int]:
@@ -401,6 +498,7 @@ def _launch(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> t
     route = _route(b, k, n, compute_dtype, tc_form(w))
     fn = _build.kernel(*{"tc": ("qmm_tc_launch", _TC_ARGTYPES),
                          "mma": ("qmm_mma_launch", _MMA_ARGTYPES),
+                         "gemv": ("qmm_gemv_launch", _MMA_ARGTYPES),
                          "simt": ("qmm_launch", _ARGTYPES)}[route])
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     bias_kind = -1 if w.bias is None else _KINDS[w.bias.dtype]
@@ -425,6 +523,22 @@ def _launch(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -> t
         )
         _build.check(rc, "qmm_tc_launch")
         _build.launches["qmm_tc"] += 1
+        return out
+    if route == "gemv":
+        plan = _gemv_plan(k, n, w.group, tc_form(w))
+        xf = _scratch_x(x2)
+        out = torch.empty((1, n), dtype=torch.float32, device=xf.device)
+        partial = (torch.empty((plan.splits, 1, n), dtype=torch.float32, device=xf.device)
+                   if plan.splits > 1 else None)
+        rc = fn(
+            xf.data_ptr(), _ptr(w.q, layer, a), _ptr(w.scale, layer, a), _ptr(w.bias, layer, a),
+            _ptr(w.sup, layer, a), _ptr(w.sup_min, layer, a), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            k, n, w.group, int(w.packed), _KINDS[w.scale.dtype], bias_kind, plan.stages,
+            plan.splits, plan.steps_per_split, plan.smem_bytes, stream,
+        )
+        _build.check(rc, "qmm_gemv_launch")
+        _build.launches["qmm_gemv"] += 1
         return out
     if route == "mma":
         plan = _mma_plan(b, k, n, w.group, tc_form(w))

@@ -251,23 +251,28 @@ def test_forward_reads_the_switch(monkeypatch):
 @pytest.mark.parametrize("form", sorted(FORMS))
 def test_matmul_pass_takes_qmm_plan(rng, form, rows):
     """The fused kernels' matmul pass picks its body from qmm's own route
-    and, on the small-row tensor-core body, qmm's plan for the same product
-    (the gate/up pass paired): so at up to 8 rows in bf16, where qmm takes
-    that body too, its sums are qmm's. 1 row and f32 keep the SIMT body,
-    and shapes the body cannot address (K % 64 != 0) fall to SIMT as well."""
+    and, on the tensor-core bodies, qmm's plan for the same product (the
+    gate/up pass paired): so at up to 8 rows in bf16, where qmm takes that
+    body too, its sums are qmm's. At 1 bf16 row ffn_out_norm's pass takes
+    the 1-row body with qmm's `_gemv_plan`, and the paired gate/up pass the
+    SIMT body; f32 keeps the SIMT body, and shapes the bodies cannot address
+    (K % 64 != 0) fall to SIMT as well."""
     from eagle_tpu_torch.ops.ffn import _body
-    from eagle_tpu_torch.ops.qmm import _mma_plan, _route, tc_form
+    from eagle_tpu_torch.ops.qmm import _gemv_plan, _mma_plan, _route, tc_form
 
     _, (wo, wgu, _) = _weights(rng, form, 2)
     for w, n, k, paired in ((wo, D, HD, False), (wgu, 2 * F, D, True),
                             (wo, 4096, 4096, False), (wgu, 22016, 4096, True)):
         f = tc_form(w)
-        assert _body(rows, k, n, w, torch.float32) == "simt"
-        want = "simt" if rows == 1 else "mma"
-        assert _body(rows, k, n, w, torch.bfloat16) == want
-        assert _body(rows, k + 32, n, w, torch.bfloat16) == "simt"
-        if rows <= 8:
-            assert _route(rows, k, n, torch.bfloat16, f) == want
+        assert _body(rows, k, n, w, torch.float32, paired) == "simt"
+        want = ("simt" if paired else "gemv") if rows == 1 else "mma"
+        assert _body(rows, k, n, w, torch.bfloat16, paired) == want
+        assert _body(rows, k + 32, n, w, torch.bfloat16, paired) == "simt"
+        if rows <= 8:  # qmm takes the 1-row body where the paired pass keeps SIMT
+            assert _route(rows, k, n, torch.bfloat16, f) == ("gemv" if rows == 1 else want)
+        if rows == 1:
+            p = _gemv_plan(k, n, w.group, f)
+            assert p.splits * p.steps_per_split >= k // 64
         if want == "mma":
             assert (_mma_plan(rows, k, n, w.group, f, paired=paired)
                     == _mma_plan(rows, k, n, w.group, f))

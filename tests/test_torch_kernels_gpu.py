@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over every branch at small shapes: qmm (packed / unpacked, coded / f32 /
 bf16 scales, bias or none, G = 32, 16 and 8, the Q4_0, Q8_0 and IQ1_M
-forms, each row-tile size of the SIMT body, the small-row tensor-core
-body (2-8 rows) and the wgmma body, f32 and bf16 compute, 2-D and stacked,
+forms, each row-tile size of the SIMT body, the 1-row tensor-core body,
+the small-row tensor-core body (2-8 rows) and the wgmma body, f32 and bf16 compute, 2-D and stacked,
 and the shapes only the SIMT body takes: N % 4 != 0, N % 16 != 0, K % 64
 != 0), qmm_i4 (2-D and stacked, f32 / bf16
 scale and bias, bias or none, G = 32 and 16, f32 and bf16 compute, ragged
@@ -128,7 +128,8 @@ def test_qmm_kernel_matches_plain(cuda, name, rows, compute):
 
 def _counter(kernel: str, route: str) -> str:
     """The launch counter of a route of qmm or qmm_i4."""
-    return {"simt": kernel, "mma": kernel + "_mma", "tc": kernel + "_tc"}[route]
+    return {"simt": kernel, "gemv": kernel + "_gemv", "mma": kernel + "_mma",
+            "tc": kernel + "_tc"}[route]
 
 
 @pytest.mark.parametrize("stack", [None, 3], ids=["2d", "stacked"])
@@ -147,6 +148,32 @@ def test_qmm_small_row_route_matches_plain(cuda, name, rows, stack):
         else:
             got, want = qmm_stacked(x, w, layer), qmm_plain(x, w.layer(layer))
         assert _build.launches["qmm_mma"] == 1 and sum(_build.launches.values()) == 1
+        _close(got, want, TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["ksplit", "nosplit"])
+@pytest.mark.parametrize("stack", [None, 3], ids=["2d", "stacked"])
+@pytest.mark.parametrize("name", sorted(WEIGHTS))
+def test_qmm_gemv_route_matches_plain(cuda, name, stack, split):
+    """The 1-row tensor-core body (bf16, one row) on every form: N = 400
+    leaves a ragged 256-column tile; K = 1280 runs in K splits, K = 64 (256
+    for coded weights) in one; layers 1 and 2 of a stack. One launch of
+    qmm_gemv per call, no plain version."""
+    from eagle_tpu_torch.ops.qmm import _gemv_plan
+
+    probe = WEIGHTS[name](cuda, 16, 256, None)
+    n, k = (400, 1280) if split else (272, 256 if probe.coded else 64)
+    w = WEIGHTS[name](cuda, n, k, stack)
+    assert (_gemv_plan(k, n, w.group, tc_form(w)).splits > 1) == split
+    x = torch.randn((1, k), generator=cuda, device="cuda")
+    for layer in ((None,) if stack is None else (1, 2)):
+        _build.reset_counts()
+        if stack is None:
+            got, want = qmm(x, w), qmm_plain(x, w)
+        else:
+            got, want = qmm_stacked(x, w, layer), qmm_plain(x, w.layer(layer))
+        assert _build.launches["qmm_gemv"] == 1 and sum(_build.launches.values()) == 1
+        assert _build.plain_calls["qmm"] == 1  # the reference call above only
         _close(got, want, TOL[torch.bfloat16])
 
 
@@ -230,7 +257,8 @@ def test_qmm_tensor_core_route_refuses_what_it_cannot_take(cuda):
     """The tensor-core bodies raise, and never fall back to the SIMT body,
     on an operand off 16 bytes (a layer whose base is misaligned); a shape
     they do not take (K % 64, N % 16) is routed to the SIMT body from the
-    shape, before any launch."""
+    shape, before any launch. The SIMT body (f32 compute) takes the
+    misaligned layer."""
     x = torch.randn((37, 512), generator=cuda, device="cuda")
     w = WEIGHTS["q4k_packed_coded"](cuda, 256, 512, 2)
     store = torch.zeros(w.q.numel() + 8, dtype=torch.int8, device="cuda")
@@ -238,11 +266,13 @@ def test_qmm_tensor_core_route_refuses_what_it_cannot_take(cuda):
     q_off.copy_(w.q)
     bad = dataclasses.replace(w, q=q_off)
     _build.reset_counts()
-    for rows in (37, 6):  # the wgmma body, the small-row body
+    for rows in (37, 6, 1):  # the wgmma body, the small-row body, the 1-row body
         with pytest.raises(ValueError, match="aligned"):
             qmm_stacked(x[:rows], bad, 1)
     assert sum(_build.launches.values()) == 0
-    _close(qmm_stacked(x[:1], bad, 1), qmm_plain(x[:1], w.layer(1)), TOL[torch.bfloat16])
+    _close(qmm_stacked(x[:1], bad, 1, torch.float32),
+           qmm_plain(x[:1], w.layer(1), torch.float32), TOL[torch.float32])
+    assert _build.launches["qmm"] == 1 and sum(_build.launches.values()) == 1
     for n, k in ((256, 288), (264, 512)):  # K % 64, N % 16
         wk = WEIGHTS["q4_0_packed_f32"](cuda, n, k, None)
         xk = torch.randn((37, k), generator=cuda, device="cuda")
@@ -503,8 +533,9 @@ def test_ffn_out_norm_matches_plain(cuda, form, rows, stack, compute):
     _close(x, xw, TOL[compute])
     _close(h, hw, TOL[compute])
     if rows <= 8 or compute == torch.float32:
-        # where qmm takes its SIMT body too, the matmul pass is that body with
-        # qmm's own K split: the same sums, bit for bit
+        # at these rows the matmul pass takes qmm's own body and plan (SIMT in
+        # f32, the gemv body at 1 bf16 row, mma.sync at 2-8): the same sums,
+        # bit for bit
         assert torch.equal(x, qmm_stacked(attn, wo, layer, compute) + resid)
 
 

@@ -109,8 +109,9 @@ def test_dense_weight_matmul(rng):
 # the tensor-core body's planner, routing and x prologue (no card needed)
 # ---------------------------------------------------------------------------
 
-from eagle_tpu_torch.ops.qmm import (TcForm, _mma_layout, _mma_plan, _route,  # noqa: E402
-                                     _tc_layout, _tc_plan, x_prologue_plain)
+from eagle_tpu_torch.ops.qmm import (TcForm, _gemv_layout, _gemv_plan,  # noqa: E402
+                                     _mma_layout, _mma_plan, _route, _tc_layout, _tc_plan,
+                                     x_prologue_plain)
 
 # (q form, scale bytes, coded, bias bytes): every form the body takes
 TC_FORMS = {
@@ -175,14 +176,14 @@ def test_tc_plan_refuses_shapes_the_body_cannot_take():
 
 @pytest.mark.parametrize("rows", [1, 2, 7, 8, 9, 37, 512])
 def test_route(rows):
-    """At shapes every body takes: bf16 at 2-8 rows takes the small-row
-    tensor-core body (qmm only; qmm_i4 keeps the SIMT body there), above 8
-    rows the wgmma body, in qmm and qmm_i4 alike; f32 compute or 1 row the
-    SIMT body."""
+    """At shapes every body takes: bf16 at 1 row takes the 1-row tensor-core
+    body and at 2-8 rows the small-row one (qmm only; qmm_i4 keeps the SIMT
+    body there), above 8 rows the wgmma body, in qmm and qmm_i4 alike; f32
+    compute the SIMT body."""
     for n, k in MAIN_SHAPES.values():
         for form in TC_FORMS.values():
-            want = ("simt" if rows == 1 else "tc" if rows > 8
-                    else "simt" if form.q == "int4" else "mma")
+            want = ("tc" if rows > 8 else "simt" if form.q == "int4"
+                    else "gemv" if rows == 1 else "mma")
             assert _route(rows, k, n, torch.bfloat16, form) == want
             assert _route(rows, k, n, torch.float32, form) == "simt"
 
@@ -252,6 +253,67 @@ def test_mma_plan_refuses_shapes_the_body_cannot_take():
         _mma_plan(6, 512, 384, 32, f, paired=True)  # gate/up halves of 128 columns
     with pytest.raises(ValueError, match="small-row"):
         _mma_plan(6, 512, 256, 32, TC_FORMS["int4_f32_bias"])
+
+
+# (N, K) of every 1-row product on the decode paths: the target's, the fused
+# FFN's wo and the draft's, beside two small test shapes
+GEMV_SHAPES = {**MMA_SHAPES, "draft_wqkv": (12288, 4096)}
+
+
+@pytest.mark.parametrize("form", sorted(MMA_FORMS))
+def test_gemv_plan_fits_and_covers(form):
+    """The 1-row body's plan: shared memory within 227 KB and equal to the
+    layout, 3 ring stages (2 where 3 do not fit); the column tiles cover N;
+    the K splits
+    cover K exactly once, on 64-row steps (whole groups), on 256-row
+    boundaries for coded weights (whole sup rows), with the groups per split
+    that G gives."""
+    f = MMA_FORMS[form]
+    for n, k in GEMV_SHAPES.values():
+        for g in _groups(f):
+            p = _gemv_plan(k, n, g, f)
+            assert p.smem_bytes == _gemv_layout(g, f, p.stages, p.steps_per_split) <= 232448
+            assert p.stages in (2, 3) and p.cols == 256 and -(-n // p.cols) * p.cols >= n
+            steps = k // 64
+            assert p.splits * p.steps_per_split >= steps > (p.splits - 1) * p.steps_per_split
+            assert not f.coded or p.steps_per_split % 4 == 0
+            assert p.groups_per_split * g == p.steps_per_split * 64
+
+
+@pytest.mark.parametrize("name", sorted(GEMV_SHAPES))
+def test_gemv_plan_fills_the_card(name):
+    """Every main-path 1-row product, in every form, puts about two blocks
+    on each of the 132 SMs (at least 1.9 x 132 where the shape has that many
+    tiles and steps, and a block on every SM in any case), with 3 ring
+    stages, in shared memory that lets three blocks (the kernel's register
+    cap) share an SM."""
+    n, k = GEMV_SHAPES[name]
+    if n * k < 4096 * 4096:
+        return  # the small test shapes have fewer tiles x steps than SMs
+    for f in MMA_FORMS.values():
+        p = _gemv_plan(k, n, 32, f)
+        tiles = -(-n // p.cols)
+        units = k // 64 // (4 if f.coded else 1)
+        blocks = tiles * p.splits
+        assert blocks >= min(1.9 * 132, tiles * units) and blocks >= 132, (name, f, p)
+        assert p.stages == 3 and 3 * (p.smem_bytes + 1024) <= 233472, (name, f, p)
+
+
+def test_gemv_plan_refuses_shapes_the_body_cannot_take():
+    """The 1-row body refuses K % 64 != 0, N % 16 != 0, G outside (8, 16, 32)
+    and int4 weights, and `_route` sends none of them there, nor more than
+    one row."""
+    f = MMA_FORMS["packed_f32"]
+    for k, n, g in ((288, 256, 32), (512, 264, 32), (512, 256, 64)):
+        with pytest.raises(ValueError, match="gemv"):
+            _gemv_plan(k, n, g, f)
+    with pytest.raises(ValueError, match="gemv"):
+        _gemv_plan(512, 256, 32, TC_FORMS["int4_f32_bias"])
+    assert _route(1, 512, 256, torch.bfloat16, TC_FORMS["int4_f32_bias"]) == "simt"
+    for b in (2, 6, 8):
+        assert _route(b, 512, 256, torch.bfloat16, f) != "gemv"
+    for k, n in ((288, 256), (512, 264)):
+        assert _route(1, k, n, torch.bfloat16, f) == "simt"
 
 
 @pytest.mark.parametrize("rows", [1, 3, 9])
