@@ -23,10 +23,15 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    512-row time as a ratio to library_ms (and, with --parent-report, to the
    kernel of the tree that wrote that report); qmm and qmm_i4 at the shapes
    only the SIMT body takes (N = 4001, N = 4100, K = 4128) at 1, 6 and 37
-   rows, asserted to take it, qmm at N = 4001 timed; ffn_out_norm and
-   gate_up_act at Vicuna-7B widths for 1, 2, 6, 9, 33 and 64 rows (timed at
-   1 and 6, those times as ratios), stacked Q4_0 (layer 5) and the draft's single-layer
-   Q8_0 (relative error <= 1e-2); flash_decode at S=1024,
+   rows, asserted to take it, qmm at N = 4001 timed; qmm_i4 and
+   qmm_i4_stacked at the 7B projections on the small-row body (qmm_i4_mma)
+   at 2, 3, 6 and 8 rows, G 32 with bf16 scale and bias and G 16 with an
+   f32 scale and no bias (checks only); ffn_out_norm and gate_up_act at
+   Vicuna-7B widths for 1, 2, 6, 9, 33 and 64 rows (timed at 1 and 6, those
+   times as ratios), stacked Q4_0 (layer 5) and the draft's single-layer
+   Q8_0 (relative error <= 1e-2), gate_up_act at 1 row asserted to take the
+   paired 1-row body and to equal silu(g) * u from qmm_stacked's sums bit
+   for bit; flash_decode at S=1024,
    T in {1, 6}, 32 heads of 128 with a holed tag mask, and at T=S=512 as
    the EAGLE engine's prompt takes it; flash_prefill at T=512 with padded
    and q_pos=-1 rows, one of them inside a 64-row tile (relative error <=
@@ -77,12 +82,14 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
    then timed with the launch counts read over that run (qmm_mma and
-   qmm_i4 > 0, plain versions 0), and again with the int4 variants at 512 rows
-   (qmm_i4_tc > 0); before it, qmm_i4 and qmm_i4_stacked against
-   qmm_i4_plain at the benchmark's shape and at the 7B projections (12288 x
-   4096, 4096 x 11008) for 1, 8 (SIMT body), 37 and 512 rows (tensor-core
-   body), with kernel ms, plain ms, the bound and library_ms (torch.matmul
-   on the pre-dequantized bf16 weight).
+   qmm_i4_mma > 0, plain versions 0), and again with the int4 variants at 1
+   row (qmm_i4 > 0) and at 512 rows (qmm_i4_tc > 0); before it, qmm_i4 and
+   qmm_i4_stacked against qmm_i4_plain at the benchmark's shape (1 and 8
+   rows) and at the 7B projections (12288 x 4096, 4096 x 11008) for 1 (SIMT
+   body), 2, 3, 6, 8 (small-row body), 37 and 512 rows (wgmma body), with
+   kernel ms, plain ms, the bound and library_ms (torch.matmul on the
+   pre-dequantized bf16 weight), and at 2-8 rows the SIMT body's time
+   beside (the route of those rows before the small-row body took them).
 8. the other GGUF formats (Q4_1, Q5_0, Q5_1, Q8_1, Q2_K, Q3_K, Q5_K, IQ4_NL,
    IQ4_XS, IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M): one
    [11008 x 4096] tensor of random blocks each, written with the port's
@@ -90,8 +97,10 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    repack of the same bytes, prepared for serving and run through qmm
    against its plain version at 1, 6 and 512 rows (Q5_K also coded; IQ1_M
    at G = 8). Last, the `kernels` JSON line (the fused kernels' launches come
-   from phase 6's fused run, qmm_i4's and qmm_i4_tc's from phase 7, the
-   SIMT qmm's from phase 2's f32 model; qmm_gemv's row is the decode qmm
+   from phase 6's fused run, qmm_i4's, qmm_i4_mma's and qmm_i4_tc's from
+   phase 7's kernel_bench runs (no model path makes int4 weights; the main
+   path's count of qmm_i4_mma, 0, stands beside it), the SIMT qmm's from
+   phase 2's f32 model; qmm_gemv's row is the decode qmm
    per token, qmm's the SIMT body at N = 4001, 1 row, qmm_tc's the prefill
    body at wqkv, 512 rows, qmm_mma's the verify body at wqkv, 6 rows) and
    the device JSON line.
@@ -114,7 +123,7 @@ from eagle_tpu_torch.timing import device_ms, device_us
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 TC_CHECK_ROWS = (9, 37, 64, 65, 128, 300, 512)  # both row tiles and their ragged edges
 MMA_CHECK_ROWS = (2, 3, 6, 8)  # qmm's small-row tensor-core route (qmm_mma)
-FFN_CHECK_ROWS = (1, 2, 6, 9, 33, 64)  # the fused kernels' SIMT (1) and tensor-core rows
+FFN_CHECK_ROWS = (1, 2, 6, 9, 33, 64)  # the fused kernels' 1-row and small-row bodies
 VERIFY_ROWS = 6  # the EAGLE chain's verify forward: K + 1 rows at K = 5
 #: kernel rows of a report of the same script from another tree (--parent-report), by
 #: (kernel, name, rows): ratios to them are printed beside this run's times
@@ -371,19 +380,14 @@ def ragged_checks(report: dict) -> dict:
     from eagle_tpu_torch.gguf import GGMLType
     from eagle_tpu_torch.models.synth import synth_qtensor
     from eagle_tpu_torch.ops.qmm import (qmm_i4_plain, qmm_i4_stacked, qmm_plain, qmm_stacked)
-    from eagle_tpu_torch.quant.qtensor import Q4_K, QTensor, pack_int4
+    from eagle_tpu_torch.quant.qtensor import Q4_K
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     bf16 = torch.bfloat16
     results = []
 
     def int4(n, k):
-        q = torch.randint(-8, 8, (3, k, n), generator=gen, device="cuda", dtype=torch.int8)
-        return QTensor(q=pack_int4(q, 32), group=32, layout="kn", int4=True,
-                       scale=(torch.rand((3, k // 32, n), generator=gen, device="cuda") * 1e-2
-                              ).to(bf16),
-                       bias=(torch.randn((3, k // 32, n), generator=gen, device="cuda") * 1e-3
-                             ).to(bf16))
+        return int4_stack(gen, n, k, 3)
 
     simt_row = None
     forms = (("q4_0", lambda n, k: synth_qtensor(gen, n, k, int(GGMLType.Q4_0), 3, packed=True),
@@ -433,24 +437,86 @@ def ragged_checks(report: dict) -> dict:
     return simt_row
 
 
+def int4_stack(gen, n: int, k: int, stack: int, group: int = 32, scale_dtype=None,
+               bias: bool = True):
+    """A layer stack of int4 "kn" weights (kernel_bench's form: signed
+    nibbles, bf16 scale and bias by default), random from `gen`."""
+    import torch
+
+    from eagle_tpu_torch.quant.qtensor import QTensor, pack_int4
+
+    sd = scale_dtype or torch.bfloat16
+    q = torch.randint(-8, 8, (stack, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand((stack, k // group, n), generator=gen, device="cuda") * 1e-2
+    b = torch.randn((stack, k // group, n), generator=gen, device="cuda") * 1e-3
+    return QTensor(q=pack_int4(q, group), group=group, layout="kn", int4=True,
+                   scale=scale.to(sd), bias=b.to(sd) if bias else None)
+
+
+def qmm_i4_small_row_checks(report: dict) -> float:
+    """qmm_i4 and qmm_i4_stacked (layer 2 of 3) against qmm_i4_plain on the
+    small-row tensor-core body (qmm_i4_mma), bf16 compute, at the 7B
+    projections (N, K) = (12288, 4096) and (4096, 11008) and at 2, 3, 6 and
+    8 rows: kernel_bench's form (G 32, bf16 scale and bias) and G 16 with
+    an f32 scale and no bias (relative error <= 1e-2; checks only, phase 7
+    times them). Each call is asserted to launch qmm_i4_mma once. Returns
+    the largest abs error."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.ops.qmm import qmm_i4, qmm_i4_plain, qmm_i4_stacked
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    worst, results = 0.0, []
+    for form, kw in (("g32_bf16_bias", {}),
+                     ("g16_f32_nobias", dict(group=16, scale_dtype=torch.float32, bias=False))):
+        for name, n, k in (("wqkv", 12288, 4096), ("w_down", 4096, 11008)):
+            w = int4_stack(gen, n, k, 3, **kw)
+            for rows in MMA_CHECK_ROWS:
+                x = torch.randn((rows, k), generator=gen, device="cuda")
+                for entry in ("2-D", "stacked"):
+                    _build.reset_counts()
+                    got = qmm_i4(x, w.layer(2)) if entry == "2-D" else qmm_i4_stacked(x, w, 2)
+                    launched = dict(_build.launches)
+                    abs_err, rel = rel_err(got, qmm_i4_plain(x, w.layer(2)))
+                    if launched["qmm_i4_mma"] != 1 or sum(launched.values()) != 1:
+                        raise AssertionError(f"qmm_i4 {entry} {name} {form} rows={rows}: not the "
+                                             f"small-row body: {launched}")
+                    if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+                        raise AssertionError(f"qmm_i4 {entry} {name} {form} rows={rows}: rel err "
+                                             f"{rel:.3e} > {QMM_TOL}")
+                    worst = max(worst, abs_err)
+                    results.append(dict(name=name, form=form, rows=rows, entry=entry,
+                                        max_abs_err=abs_err, rel_err=rel))
+            log(f"[qmm_i4] {name:8s} {form:14s} small-row body at rows {MMA_CHECK_ROWS}, 2-D and "
+                f"stacked: rel err <= {max(r['rel_err'] for r in results):.2e}")
+            del w
+    report["qmm_i4_small_row_checks"] = results
+    return worst
+
+
 def ffn_checks(report: dict) -> tuple[dict, dict]:
     """ffn_out_norm and gate_up_act against their plain versions at
     Vicuna-7B widths (D 4096, F 11008, H*Dh 4096), 1 and 6 rows, bf16
     compute: the target's stacked Q4_0 form (layer 5 of 6) and the draft's
     single-layer Q8_0 form (six copies, cycled so that repeats do not hit in
-    L2), checked at 1, 2, 6, 9, 33 and 64 rows (the SIMT body at 1 row, the
-    small-row tensor-core body above) and timed at 1 and 6 rows, each 6-row
-    time as a ratio to library_ms and, with --parent-report, to the parent's
-    kernel. library_ms is torch.matmul of the same rows with the
+    L2), checked at 1, 2, 6, 9, 33 and 64 rows (the 1-row tensor-core body
+    at 1 row, gate_up_act's paired and asserted bit-equal to silu(g) * u
+    from qmm_stacked's sums; the small-row tensor-core body above) and timed
+    at 1 and 6 rows, each time as a ratio to library_ms and, with
+    --parent-report, to the parent's kernel. library_ms is torch.matmul of the same rows with the
     pre-dequantized bf16 weight (the product alone: no single PyTorch call
     computes the fused epilogue). Returns the 1-row Q4_0 rows of each
     kernel, with the worst error over all checks."""
     import torch
 
+    import torch.nn.functional as F
+
     from eagle_tpu_torch.gguf import GGMLType
     from eagle_tpu_torch.models.synth import synth_qtensor
-    from eagle_tpu_torch.ops.ffn import (ffn_out_norm, ffn_out_norm_plain, gate_up_act,
+    from eagle_tpu_torch.ops.ffn import (_body, ffn_out_norm, ffn_out_norm_plain, gate_up_act,
                                          gate_up_act_plain)
+    from eagle_tpu_torch.ops.qmm import qmm_stacked
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     d, f, hd, eps, copies = 4096, 11008, 4096, 1e-6, 6
@@ -490,6 +556,15 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
                     hin = torch.randn((rows, d), generator=gen, device="cuda").to(bf16)
                     got = gate_up_act(hin, w, layer, "silu", bf16)
                     pairs = ((got, gate_up_act_plain(hin, w.layer(layer), "silu", bf16)),)
+                    if rows == 1:  # the paired 1-row body: g and u are qmm's sums
+                        if _body(1, k, n, w, bf16, paired=True) != "gemv":
+                            raise AssertionError(f"gate_up_act {form} rows=1: not the gemv body")
+                        g, u = qmm_stacked(hin, w, layer).chunk(2, dim=-1)
+                        if not torch.equal(got, (F.silu(g) * u).to(bf16)):
+                            raise AssertionError(f"gate_up_act {form} rows=1: not act(g) * u of "
+                                                 f"qmm's sums, bit for bit")
+                        log(f"[ffn] gate_up_act  {form:10s} rows=1: gemv body, bit-equal to "
+                            f"silu(g) * u from qmm_stacked's sums")
                     run = lambda i: gate_up_act(hin, *ws[i % copies], "silu", bf16)
                     plain_run = lambda i: gate_up_act_plain(
                         hin, ws[i % copies][0].layer(ws[i % copies][1]), "silu", bf16)
@@ -1229,42 +1304,74 @@ def gguf_path(report: dict) -> dict:
 # phase 7: the kernel benchmark, and qmm_i4 at the 7B projections
 
 
-def qmm_i4_checks(report: dict) -> dict:
+I4_ROWS = (1, 2, 3, 6, 8, 37, 512)  # qmm_i4's SIMT (1), small-row (2-8) and wgmma rows
+
+
+def i4_route(rows: int) -> str:
+    """qmm_i4's launch counter at `rows` bf16 rows at the 7B shapes."""
+    return "qmm_i4" if rows == 1 else "qmm_i4_mma" if rows <= 8 else "qmm_i4_tc"
+
+
+def simt_i4_ms(x, w, stack: int) -> float:
+    """qmm_i4's SIMT body (the parent's route for 2-8 bf16 rows, still the
+    route at 1 row and in f32) at x's rows over the stack's layers, cycled:
+    launched here through its C entry, since the wrapper now routes these
+    rows to the small-row body; timed beside it, not counted."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.ops.qmm import _I4_ARGTYPES, _KINDS, _ptr, simt_config
+
+    fn = _build.kernel("qmm_i4_launch", _I4_ARGTYPES)
+    (b, k), n = x.shape, w.shape[0]
+    rb, splits, gps = simt_config(b, k, n, w.group)
+    xf = x.float().contiguous()
+    out = torch.empty((b, n), dtype=torch.float32, device="cuda")
+    partial = torch.empty((splits, b, n), dtype=torch.float32, device="cuda")
+    bias_kind = -1 if w.bias is None else _KINDS[w.bias.dtype]
+
+    def run(i):
+        layer = i % stack
+        rc = fn(xf.data_ptr(), _ptr(w.q, layer), _ptr(w.scale, layer), _ptr(w.bias, layer),
+                out.data_ptr(), partial.data_ptr(), b, k, n, w.group, _KINDS[w.scale.dtype],
+                bias_kind, 1, rb, splits, gps, torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "qmm_i4_launch")
+
+    return device_ms(run, 20)
+
+
+def qmm_i4_checks(report: dict) -> tuple[dict, dict, dict]:
     """qmm_i4 (2-D entry, layer 0) and qmm_i4_stacked (layer 5) against
     qmm_i4_plain, bf16 compute, int4 weights with bf16 scale and bias, at
-    kernel_bench's default shape (N 11008, K 4096, 8 rows) and the 7B
-    projections (N, K) = (12288, 4096) and (4096, 11008) at 1, 8, 37 and 512
-    rows (relative error <= 1e-2); 1 and 8 rows take the SIMT body, 37 and
-    512 the tensor-core body (asserted by the launch counters). Timed over a
-    stack of six layers, cycled, so that repeats do not hit in L2;
-    library_ms is torch.matmul on the pre-dequantized bf16 weight. Returns
-    the default shape's row and the wqkv row at 512 rows, each with the
-    worst error of its body."""
+    kernel_bench's default shape (N 11008, K 4096) at 1 and 8 rows and the
+    7B projections (N, K) = (12288, 4096) and (4096, 11008) at 1, 2, 3, 6,
+    8, 37 and 512 rows (relative error <= 1e-2); 1 row takes the SIMT body,
+    2-8 rows the small-row body, 37 and 512 the wgmma body (asserted by the
+    launch counters). Timed over a stack of six layers, cycled, so that
+    repeats do not hit in L2; library_ms is torch.matmul on the
+    pre-dequantized bf16 weight; at 2-8 rows the SIMT body that took them
+    before is timed beside (`simt_ms`). Returns the default shape's rows at
+    1 row (SIMT) and 8 rows (small-row body) and the wqkv row at 512 rows,
+    each with the worst error of its body."""
     import torch
 
     from eagle_tpu_torch import _build
     from eagle_tpu_torch.ops.qmm import qmm_i4, qmm_i4_plain, qmm_i4_stacked
-    from eagle_tpu_torch.quant.qtensor import QTensor, pack_int4
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    stack, g, bf16 = 6, 32, torch.bfloat16
-    results, worst, worst_tc, default, tc_row = [], 0.0, 0.0, None, None
-    for name, n, k, rows_list in (("kernel_bench", 11008, 4096, (8,)),
-                                  ("wqkv", 12288, 4096, (1, 8, 37, 512)),
-                                  ("w_down", 4096, 11008, (1, 8, 37, 512))):
-        q = torch.randint(-8, 8, (stack, k, n), generator=gen, device="cuda", dtype=torch.int8)
-        w = QTensor(q=pack_int4(q, g), group=g, layout="kn", int4=True,
-                    scale=(torch.rand((stack, k // g, n), generator=gen, device="cuda") * 1e-2
-                           ).to(bf16),
-                    bias=(torch.randn((stack, k // g, n), generator=gen, device="cuda") * 1e-3
-                          ).to(bf16))
-        del q
+    stack, bf16 = 6, torch.bfloat16
+    results, rows_of = [], {}
+    worst = {"qmm_i4": 0.0, "qmm_i4_mma": 0.0, "qmm_i4_tc": 0.0}
+    for name, n, k, rows_list in (("kernel_bench", 11008, 4096, (1, 8)),
+                                  ("wqkv", 12288, 4096, I4_ROWS),
+                                  ("w_down", 4096, 11008, I4_ROWS)):
+        w = int4_stack(gen, n, k, stack)
         layers = [w.layer(i) for i in range(stack)]
         dense = [lw.dequantize(bf16).T.contiguous() for lw in layers]  # [K, N]
         w_bytes = nbytes(*layers[0].tensors().values())
         for rows in rows_list:
             x = torch.randn((rows, k), generator=gen, device="cuda")
-            route = "qmm_i4_tc" if rows > 8 else "qmm_i4"
+            route = i4_route(rows)
             _build.reset_counts()
             for entry, got, want in (
                     ("2-D", qmm_i4(x, layers[0]), qmm_i4_plain(x, layers[0])),
@@ -1273,37 +1380,37 @@ def qmm_i4_checks(report: dict) -> dict:
                 abs_err, rel = rel_err(got, want)
                 if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
                     raise AssertionError(f"qmm_i4 {entry} {name} rows={rows}: rel err {rel:.3e}")
-                if rows > 8:
-                    worst_tc = max(worst_tc, abs_err)
-                else:
-                    worst = max(worst, abs_err)
-            if _build.launches[route] != 2:
-                raise AssertionError(f"qmm_i4 {name} rows={rows}: not the {route} route")
+                worst[route] = max(worst[route], abs_err)
+            if _build.launches[route] != 2 or sum(_build.launches.values()) != 2:
+                raise AssertionError(f"qmm_i4 {name} rows={rows}: not the {route} route: "
+                                     f"{_build.launches}")
             reps = 20 if rows < 512 else 5
             ms = device_ms(lambda i: qmm_i4_stacked(x, w, i % stack), reps)
             plain = device_ms(lambda i: qmm_i4_plain(x, layers[i % stack]), 3, warmup=1)
             xb = x.to(bf16)
             lib = device_ms(lambda i: torch.matmul(xb, dense[i % stack]), reps)
             b_ms, b_by = bound_ms(w_bytes + rows * k * 4 + rows * n * 4, 2.0 * rows * k * n)
-            res = dict(name=name, n=n, k=k, rows=rows, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel,
-                       weight_bytes=w_bytes)
+            res = dict(name=name, n=n, k=k, rows=rows, route=route, ms=ms, plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
+                       rel_err=rel, weight_bytes=w_bytes)
+            simt = ""
+            if route == "qmm_i4_mma":
+                res["simt_ms"] = simt_i4_ms(x, w, stack)
+                simt = f"  SIMT body {res['simt_ms']:8.4f} ms = {res['simt_ms'] / ms:.2f}x this"
             results.append(res)
             log(f"[qmm_i4] {name:12s} N={n:5d} K={k:5d} rows={rows:3d}  kernel {ms:8.4f} ms  "
                 f"plain {plain:8.3f} ms  bound {b_ms * 1e3:8.2f} us ({b_by})  "
-                f"library {lib:8.4f} ms  rel err {rel:.2e}")
-            if name == "kernel_bench":
-                default = dict(res)
-            if rows in (37, 512):
+                f"library {lib:8.4f} ms  rel err {rel:.2e}{simt}")
+            if rows in (1, 8, 37, 512):
                 log_ratios("qmm_i4", res)
-            if name == "wqkv" and rows == 512:
-                tc_row = dict(res)
+            if (name == "kernel_bench" and rows in (1, 8)) or (name == "wqkv" and rows == 512):
+                rows_of[route] = dict(res)
         del w, layers, dense
         torch.cuda.empty_cache()
     report["qmm_i4"] = results
-    default["max_abs_err"] = worst
-    tc_row["max_abs_err"] = worst_tc
-    return default, tc_row
+    for route, res in rows_of.items():
+        res["max_abs_err"] = worst[route]
+    return rows_of["qmm_i4"], rows_of["qmm_i4_mma"], rows_of["qmm_i4_tc"]
 
 
 def kernel_bench_path(report: dict) -> dict:
@@ -1318,10 +1425,11 @@ def kernel_bench_path(report: dict) -> dict:
     from eagle_tpu_torch.tools import kernel_bench as kb
 
     runs = {}
-    # the defaults (8 rows: qmm's small-row tensor-core body, qmm_i4's SIMT
-    # body), then the int4 variants at a 512-row prefill (the tensor-core
-    # body of qmm_i4)
+    # the defaults (8 rows: the small-row tensor-core body of qmm and
+    # qmm_i4), then the int4 variants at 1 row (qmm_i4's SIMT body) and at a
+    # 512-row prefill (the wgmma body of qmm_i4)
     for tag, argv in (("default", ["--variants", ",".join(kb.VARIANTS)]),
+                      ("1 row", ["--variants", "int4,i4stacked", "--b", "1"]),
                       ("512 rows", ["--variants", "int4,i4stacked", "--b", "512"])):
         args = kb.parse_args(argv)
         log(f"[kernel_bench] {tag}: x[{args.b}, {args.k}] @ W[{args.k}, {args.n}], G={args.group}")
@@ -1331,14 +1439,16 @@ def kernel_bench_path(report: dict) -> dict:
         timed = bench.time()
         launches, plain = dict(_build.launches), dict(_build.plain_calls)  # ---- ends ----
         log(f"[kernel_bench] {tag}: launches {launches}; plain versions {plain}")
-        want = ("qmm_mma", "qmm_i4") if tag == "default" else ("qmm_i4_tc",)
+        want = {"default": ("qmm_mma", "qmm_i4_mma"), "1 row": ("qmm_i4",),
+                "512 rows": ("qmm_i4_tc",)}[tag]
         if any(launches[k] <= 0 for k in want):
             raise AssertionError(f"kernel_bench {tag} did not launch {want}: {launches}")
         if any(plain.values()):
             raise AssertionError(f"plain versions ran in the timed kernel_bench run: {plain}")
         runs[tag] = dict(checked=checked, timed=timed, launches=launches)
     report["kernel_bench"] = runs
-    return {"qmm_i4": runs["default"]["launches"]["qmm_i4"],
+    return {"qmm_i4": runs["1 row"]["launches"]["qmm_i4"],
+            "qmm_i4_mma": runs["default"]["launches"]["qmm_i4_mma"],
             "qmm_i4_tc": runs["512 rows"]["launches"]["qmm_i4_tc"]}
 
 
@@ -1478,6 +1588,7 @@ def main() -> int:
     report: dict = {"card": card, "phase_seconds": seconds}
     gemv_row, qmm_tc_row, qmm_mma_row = phase("2 qmm", qmm_checks, report)
     simt_row = phase("2 ragged", ragged_checks, report)
+    i4_mma_check_err = phase("2 qmm_i4", qmm_i4_small_row_checks, report)
     out_norm_row, gate_up_row = phase("2 ffn", ffn_checks, report)
     dec_row, pre_row = phase("2 attention", attention_checks, report)
     tiny_launches = phase("2 tiny model", tiny_model_check)
@@ -1487,7 +1598,8 @@ def main() -> int:
     gguf_launches = phase("6", gguf_path, report)
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
-    i4_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
+    i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
+    i4_mma_row["max_abs_err"] = max(i4_mma_row["max_abs_err"], i4_mma_check_err)
     launches.update(phase("7 kernel_bench", kernel_bench_path, report))
     phase("8", format_checks, report)
 
@@ -1500,7 +1612,8 @@ def main() -> int:
                "qmm_i4": "eagle_tpu_torch/csrc/qmm_i4.cu",
                "qmm_tc": "eagle_tpu_torch/csrc/qmm.cu",
                "qmm_i4_tc": "eagle_tpu_torch/csrc/qmm_i4.cu",
-               "qmm_mma": "eagle_tpu_torch/csrc/qmm_mma.cuh"}
+               "qmm_mma": "eagle_tpu_torch/csrc/qmm_mma.cuh",
+               "qmm_i4_mma": "eagle_tpu_torch/csrc/qmm_mma.cuh"}
 
     def row(name, replaces, vals):
         return {"name": name, "route": "cuda", "source": sources[name],
@@ -1529,11 +1642,19 @@ def main() -> int:
              shape="1 row, wo [4096 x 4096] Q4_0 packed, f32 scale and bias, + resid, RMSNorm",
              launches_from="GGUF path, EAGLE_TPU_FUSED_FFN=1"),
         dict(row("gate_up_act", "eagle_tpu/ops/pallas_ffn.py:413 and :419", gate_up_row),
-             shape="1 row, w_gate_up [4096 x 22016] Q4_0 packed, f32 scale and bias, SiLU",
+             shape="1 row, w_gate_up [4096 x 22016] Q4_0 packed, f32 scale and bias, SiLU (matmul "
+                   "pass on the 1-row body, paired, csrc/qmm_gemv.cuh)",
              launches_from="GGUF path, EAGLE_TPU_FUSED_FFN=1"),
         dict(row("qmm_i4", "eagle_tpu/ops/pallas_qmm.py:600 and :839", i4_row),
-             shape="kernel_bench default: 8 rows, [4096 x 11008] int4, G 32, bf16 scale and bias",
-             launches_from="kernel_bench, every ported variant"),
+             shape="kernel_bench shape, 1 row: [4096 x 11008] int4, G 32, bf16 scale and bias "
+                   "(SIMT body)",
+             launches_from="kernel_bench --b 1, variants int4 and i4stacked"),
+        dict(row("qmm_i4_mma", "eagle_tpu/ops/pallas_qmm.py:600 and :839", i4_mma_row),
+             shape="kernel_bench default: 8 rows, [4096 x 11008] int4, G 32, bf16 scale and bias "
+                   "(small-row mma.sync body, csrc/qmm_mma.cuh via csrc/qmm_i4.cu)",
+             main_path_launches=report["main_path"]["launches"]["qmm_i4_mma"],
+             launches_from="kernel_bench at its defaults, every ported variant (no model path "
+                           "makes int4 weights)"),
         dict(row("qmm_tc", "eagle_tpu/ops/pallas_qmm.py:513 and :758", qmm_tc_row),
              shape="prefill: wqkv [12288 x 4096] Q4_K packed coded, 512 rows (tensor-core body, "
                    "csrc/qmm_tc.cuh)",

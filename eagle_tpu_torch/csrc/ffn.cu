@@ -18,15 +18,19 @@
 // a full row or a full K sum. Each op is therefore two kernels:
 // 1. the matmul pass, writing per-split partial sums, on one of qmm's
 //    bodies with qmm's plan for the same product (ops/ffn.py:_body):
-//    - ffn_out_norm at 1 bf16 row: qmm_gemv_kernel (qmm_gemv.cuh), with
-//      qmm's _gemv_plan, so x is qmm's sum + resid to the bit;
-//    - f32 compute, and gate_up_act at 1 row: qmm_kernel (qmm_body.cuh).
-//      For wo it runs as qmm does; for gate/up it runs paired: a block
-//      walks its tile of gate columns, then the matching tile of up
-//      columns (offset F in the same weight), each with its own f32
-//      accumulators, one set live at a time
-//      (both sets live took all 255 registers at 8 rows and ran 2.7x slower
-//      than qmm over the same bytes on an H100 80GB HBM3);
+//    - bf16 at 1 row: qmm_gemv_kernel (qmm_gemv.cuh), with qmm's
+//      _gemv_plan; paired for gate/up, a block takes 128 gate columns and
+//      the matching 128 up columns, one half per four warps. x, g and u are
+//      qmm's sums (+ resid) to the bit. The SIMT pass it replaced at 1 row
+//      kept one quant group's loads in flight per warp and re-rounded x in
+//      every lane: 43 % of the byte bound on Q4_0 w_gate_up (H100 80GB
+//      HBM3, 700 W).
+//    - f32 compute, K % 64 != 0: qmm_kernel (qmm_body.cuh). For wo it runs
+//      as qmm does; for gate/up it runs paired: a block walks its tile of
+//      gate columns, then the matching tile of up columns (offset F in the
+//      same weight), each with its own f32 accumulators, one set live at a
+//      time (both sets live took all 255 registers at 8 rows and ran 2.7x
+//      slower than qmm over the same bytes on an H100 80GB HBM3);
 //    - bf16 at 2-64 rows: qmm_mma_kernel (qmm_mma.cuh), each weight
 //      dequantized once into a bf16 tile and `mma.sync` products over up to
 //      four m16 row tiles; paired, a block takes 128 gate columns and the
@@ -39,10 +43,8 @@
 //    written. For gate_up_act it is elementwise: act(g) * u, rounded once.
 // With the plan the unfused path's qmm would choose (the wrapper passes
 // it), x, g and u are bit-equal to the unfused path's sums where qmm takes
-// the same body too (every f32 product; bf16 at 2-8 rows, and x at 1
-// row). Any row
-// count from 1 to 64 runs as it is: the TPU's pad to 8 rows does not carry
-// over.
+// the same body too (every f32 product; bf16 at 1-8 rows). Any row count
+// from 1 to 64 runs as it is: the TPU's pad to 8 rows does not carry over.
 #include <math.h>
 
 #include <type_traits>
@@ -270,7 +272,9 @@ extern "C" int ffn_out_norm_mma_launch(const void* x, const void* q, const void*
                       scale_kind, bias_kind, splits, 0, eps, static_cast<cudaStream_t>(stream)};
   const MmaArgs m{x, a.q, scale, bias, nullptr, nullptr, a.partial, R, K, N, scale_kind, bias_kind,
                   steps_per_split, {}};
-  const cudaError_t e = mma_run<false, float, kMmaMaxRows>(m, G, packed, splits, smem, a.st);
+  const cudaError_t e =
+      packed ? mma_run<kFormPacked, false, float, kMmaMaxRows>(m, G, splits, smem, a.st)
+             : mma_run<kFormInt8, false, float, kMmaMaxRows>(m, G, splits, smem, a.st);
   if (e != cudaSuccess) return (int)e;
   out_norm_epilogue<true>(a);
   return (int)cudaGetLastError();
@@ -286,7 +290,9 @@ extern "C" int gate_up_act_mma_launch(const void* h, const void* q, const void* 
                      static_cast<cudaStream_t>(stream)};
   const MmaArgs m{h, a.q, scale, bias, nullptr, nullptr, a.partial, R, K, 2 * F, scale_kind,
                   bias_kind, steps_per_split, {}};
-  const cudaError_t e = mma_run<true, __nv_bfloat16, kMmaMaxRows>(m, G, packed, splits, smem, a.st);
+  const cudaError_t e =
+      packed ? mma_run<kFormPacked, true, __nv_bfloat16, kMmaMaxRows>(m, G, splits, smem, a.st)
+             : mma_run<kFormInt8, true, __nv_bfloat16, kMmaMaxRows>(m, G, splits, smem, a.st);
   if (e != cudaSuccess) return (int)e;
   gate_up_epilogue<true>(a);
   return (int)cudaGetLastError();
@@ -310,8 +316,29 @@ extern "C" int ffn_out_norm_gemv_launch(const void* x, const void* q, const void
                       scale_kind, bias_kind, splits, 0, eps, static_cast<cudaStream_t>(stream)};
   const GemvArgs m{a.x, a.q, scale, bias, nullptr, nullptr, a.partial, K, N, scale_kind,
                    bias_kind, stages, steps_per_split, 0, 0, 0, 0, {}};
-  const cudaError_t e = gemv_run(m, G, packed, splits, smem, a.st);
+  const cudaError_t e = gemv_run<false, float>(m, G, packed, splits, smem, a.st);
   if (e != cudaSuccess) return (int)e;
   out_norm_epilogue<true>(a);
+  return (int)cudaGetLastError();
+}
+
+// gate_up_act's matmul pass on the 1-row tensor-core body, paired
+// (qmm_gemv.cuh; bf16 compute, one row), with the same epilogue: arguments
+// as gate_up_act_mma_launch's for R = 1, h bf16 [1, K], plus the plan's
+// ring stages (ops/qmm.py:_gemv_plan for the [1, K] @ [K, 2F] product, as
+// qmm takes it).
+extern "C" int gate_up_act_gemv_launch(const void* h, const void* q, const void* scale,
+                                       const void* bias, void* out, void* partial, int K, int F,
+                                       int G, int packed, int scale_kind, int bias_kind, int act,
+                                       int stages, int splits, int steps_per_split, int smem,
+                                       void* stream) {
+  const GateUpArgs a{h, static_cast<const int8_t*>(q), scale, bias, out,
+                     static_cast<float*>(partial), 1, K, F, scale_kind, bias_kind, act, splits, 0,
+                     static_cast<cudaStream_t>(stream)};
+  const GemvArgs m{h, a.q, scale, bias, nullptr, nullptr, a.partial, K, 2 * F, scale_kind,
+                   bias_kind, stages, steps_per_split, 0, 0, 0, 0, {}};
+  const cudaError_t e = gemv_run<true, __nv_bfloat16>(m, G, packed, splits, smem, a.st);
+  if (e != cudaSuccess) return (int)e;
+  gate_up_epilogue<true>(a);
   return (int)cudaGetLastError();
 }

@@ -209,7 +209,8 @@ extern "C" int qmm_mma_launch(const void* x, const void* q, const void* scale, c
   MmaArgs a{x, static_cast<const int8_t*>(q), scale, bias, static_cast<const float*>(sup),
             static_cast<const float*>(sup_min), static_cast<float*>(splits > 1 ? partial : out),
             B, K, N, scale_kind, bias_kind, steps_per_split, {}};
-  const cudaError_t e = mma_run<false, float, 8>(a, G, packed, splits, smem, st);
+  const cudaError_t e = packed ? mma_run<kFormPacked, false, float, 8>(a, G, splits, smem, st)
+                               : mma_run<kFormInt8, false, float, 8>(a, G, splits, smem, st);
   if (e != cudaSuccess) return (int)e;
   if (splits > 1) {
     const size_t count = (size_t)B * N;
@@ -236,7 +237,7 @@ extern "C" int qmm_gemv_launch(const void* x, const void* q, const void* scale, 
                    static_cast<const float*>(sup), static_cast<const float*>(sup_min),
                    static_cast<float*>(splits > 1 ? partial : out), K, N, scale_kind, bias_kind,
                    stages, steps_per_split, 0, 0, 0, 0, {}};
-  const cudaError_t e = gemv_run(a, G, packed, splits, smem, st);
+  const cudaError_t e = gemv_run<false, float>(a, G, packed, splits, smem, st);
   if (e != cudaSuccess) return (int)e;
   if (splits > 1) {
     qmm_reduce_kernel<<<(unsigned)((N + 255) / 256), 256, 0, st>>>(

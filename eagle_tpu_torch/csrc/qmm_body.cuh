@@ -49,6 +49,18 @@ __device__ __forceinline__ float s8_to_f(uint32_t b) {
 __device__ __forceinline__ float ldx(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldx(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
 
+// four adjacent activation values at p (16- or 8-byte aligned) as f32
+__device__ __forceinline__ void ldx4(const float* p, float v[4]) {
+  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+__device__ __forceinline__ void ldx4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
+}
+
 // Four adjacent per-group values at element offset `off` (a multiple of 4).
 __device__ __forceinline__ void load4(const void* p, int kind, size_t off, float o[4]) {
   if (kind == kKindF32) {

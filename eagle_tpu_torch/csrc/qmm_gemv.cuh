@@ -1,8 +1,9 @@
 // The 1-row tensor-core body (qmm_gemv_kernel): qmm's route for one row in
-// bf16 (decode; csrc/qmm.cu) and the matmul pass of ffn_out_norm at one
-// bf16 row (csrc/ffn.cu), as qmm_mma.cuh is the 2-64-row body of both. One
-// definition, so ffn_out_norm's sums are qmm's to the bit where both take
-// this body with the same plan (ops/qmm.py:_gemv_plan).
+// bf16 (decode; csrc/qmm.cu) and the matmul pass of both fused FFN kernels
+// at one bf16 row (csrc/ffn.cu), as qmm_mma.cuh is the 2-64-row body of
+// all three. One definition, so the fused kernels' sums (x of ffn_out_norm,
+// g and u of gate_up_act) are qmm's to the bit where both take this body
+// with the same plan (ops/qmm.py:_gemv_plan).
 //
 // Bound on the H100 by the weight bytes (Q4_K packed with codes: 4.75 bits
 // per weight, 1.17 ms per Vicuna-7B token at 3.35 TB/s). The SIMT body
@@ -40,11 +41,18 @@
 // - The bias side product round(xsum_g) * round(bias_g) is an FFMA per
 //   group and column on the lane that holds the group first, summed over
 //   the quad by two shuffles at the end (in a fixed order).
+// - PAIRED (gate_up_act): tile columns [0, 128) are 128 gate columns of
+//   the fused [K, 2F] weight and [128, 256) the matching up columns (offset
+//   F), so warps 0-3 sum the gate half and warps 4-7 the up half; only the
+//   copies' source columns change. A column keeps its lane and A row (both
+//   halves are whole warps), its K order and its splits, so g and u are
+//   qmm's sums over the same weight to the bit, and the block writes them
+//   to [splits][2][F], which is [splits][2F] at the weight's own columns.
 // - K splits (grid y) on step boundaries, on 256-row boundaries for coded
 //   weights (ops/qmm.py:_gemv_plan); the reduce kernel (qmm) or the
 //   epilogue (ffn) adds them in split order.
-// Needs one row, K % 64 == 0, N % 16 == 0 and 16-byte aligned operands
-// (checked by the wrappers).
+// Needs one row, K % 64 == 0, N % 16 == 0 (N % 256 paired) and 16-byte
+// aligned operands (checked by the wrappers).
 #pragma once
 
 #include "mma_sync.cuh"
@@ -82,13 +90,13 @@ __host__ __device__ inline GemvLayout gemv_layout(int form, int G, int scale_byt
 }
 
 struct GemvArgs {
-  const float* x;  // [K] f32: the one row
+  const void* x;  // [K] f32 or bf16 (XT): the one row
   const int8_t* q;
   const void* scale;
   const void* bias;
   const float* sup;
   const float* sup_min;
-  float* dst;  // [splits][N]
+  float* dst;  // [splits][N] ([splits][2][N / 2] paired)
   int K, N, scale_kind, bias_kind, stages, steps_per_split;
   // 2^23, 2^19, 2^15, 2^11 as f32 bits, from the host, so that they sit in
   // registers and each field takes one AND-OR (field_f)
@@ -155,8 +163,9 @@ struct GemvScales {
 };
 
 // grid (ceil(N / 256), splits); 256 threads; dynamic shared memory
-// a.lay.total. Split y runs K steps [y * steps_per_split, ...).
-template <int G, bool PACKED>
+// a.lay.total. Split y runs K steps [y * steps_per_split, ...). XT: x's
+// type (bf16 for the gate/up pass, whose h is in the compute dtype).
+template <int G, bool PACKED, bool PAIRED, typename XT>
 __global__ void __launch_bounds__(kGemvThreads, 3) qmm_gemv_kernel(const __grid_constant__ GemvArgs a) {
   constexpr int kGroups = kTcK / G;  // quant groups per step
   constexpr int kQRows = PACKED ? kTcK / 2 : kTcK;
@@ -170,7 +179,11 @@ __global__ void __launch_bounds__(kGemvThreads, 3) qmm_gemv_kernel(const __grid_
   const int s_begin = blockIdx.y * a.steps_per_split;
   const int n_steps = min(a.steps_per_split, a.K / kTcK - s_begin);
   const int k_begin = s_begin * kTcK;
-  const int wc0 = blockIdx.x * kGemvCols;
+  // the weight columns of the tile's two 128-column halves (gate and up
+  // when paired); tile column c is weight column wcol(c)
+  const int wc0 = PAIRED ? blockIdx.x * 128 : blockIdx.x * kGemvCols;
+  const int wc1 = PAIRED ? a.N / 2 + blockIdx.x * 128 : wc0 + 128;
+  auto wcol = [&](int c) { return c < 128 ? wc0 + c : wc1 + (c - 128); };
   const bool coded = a.scale_kind == kKindCode;
   const bool has_bias = a.bias_kind != kKindNone;
   const uint32_t smem32 = smem_u32(smem);
@@ -186,9 +199,9 @@ __global__ void __launch_bounds__(kGemvThreads, 3) qmm_gemv_kernel(const __grid_
   // boundaries), further pieces (G = 8, f32 rows) worked out per step.
   constexpr int kSh = PACKED ? 3 : 4;  // row block of a lane: 8 packed or 16 int8 rows
   const int qc = (tid & 15) * 16;
-  const bool q_in = wc0 + qc < a.N;
+  const bool q_in = wcol(qc) < a.N;
   const int8_t* q_next =
-      a.q + (size_t)((PACKED ? k_begin / 2 : k_begin) + (tid >> 4)) * a.N + wc0 + (q_in ? qc : 0);
+      a.q + (size_t)((PACKED ? k_begin / 2 : k_begin) + (tid >> 4)) * a.N + (q_in ? wcol(qc) : 0);
   uint32_t q_dst[kQChunks];
 #pragma unroll
   for (int j = 0; j < kQChunks; ++j) q_dst[j] = gemv_q_at<kSh>((tid >> 4) + 16 * j, qc);
@@ -217,9 +230,9 @@ __global__ void __launch_bounds__(kGemvThreads, 3) qmm_gemv_kernel(const __grid_
     }
     // piece rel: row rel / (16 << lg) of the array's step rows, columns
     // 16 / 2^lg at a time
-    const int col = (rel & ((16 << lg) - 1)) << (4 - lg);
-    in = wc0 + col < a.N;
-    src += ((size_t)(row + (rel >> (4 + lg))) * a.N + wc0 + (in ? col : 0)) << lg;
+    const int col = (rel & ((16 << lg) - 1)) << (4 - lg);  // a piece never straddles a half
+    in = wcol(col) < a.N;
+    src += ((size_t)(row + (rel >> (4 + lg))) * a.N + (in ? wcol(col) : 0)) << lg;
     dst += rel * 16;
   };
   const char* aux_next = nullptr;
@@ -260,7 +273,7 @@ __global__ void __launch_bounds__(kGemvThreads, 3) qmm_gemv_kernel(const __grid_
   // weights are in flight; with a bias, the group sums
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem + L.x);
   float* xsum = reinterpret_cast<float*>(smem + L.xsum);
-  const float* xg = a.x + k_begin;
+  const XT* xg = static_cast<const XT*>(a.x) + k_begin;
   for (int u = tid; u < n_steps * kGemvUnits; u += kGemvThreads) {
     const int v = u % kGemvUnits;
     int ka, kb;
@@ -271,17 +284,17 @@ __global__ void __launch_bounds__(kGemvThreads, 3) qmm_gemv_kernel(const __grid_
       ka = gemv_int8_row(v);
       kb = ka + 4;
     }
-    const float* xt = xg + (u / kGemvUnits) * kTcK;
-    xs[u - v + gemv_x_slot(v)] = pack_bf16(__ldg(xt + ka), __ldg(xt + kb));
+    const XT* xt = xg + (u / kGemvUnits) * kTcK;
+    xs[u - v + gemv_x_slot(v)] = pack_bf16(ldx(xt + ka), ldx(xt + kb));
   }
   if (has_bias) {
     for (int gi = tid; gi < n_steps * kGroups; gi += kGemvThreads) {
-      const float4* p = reinterpret_cast<const float4*>(xg + gi * G);
       float s = 0.f;
 #pragma unroll
       for (int i = 0; i < G / 4; ++i) {
-        const float4 v = __ldg(p + i);
-        s += (v.x + v.y) + (v.z + v.w);
+        float v[4];
+        ldx4(xg + gi * G + 4 * i, v);
+        s += (v[0] + v[1]) + (v[2] + v[3]);
       }
       xsum[gi] = __bfloat162float(__float2bfloat16_rn(s));
     }
@@ -418,34 +431,36 @@ __global__ void __launch_bounds__(kGemvThreads, 3) qmm_gemv_kernel(const __grid_
     bacc[c] += __shfl_xor_sync(0xffffffffu, bacc[c], 1);
     bacc[c] += __shfl_xor_sync(0xffffffffu, bacc[c], 2);
   }
-  const int col = wc0 + cl;
+  const int col = wcol(cl);  // 4 columns, never straddling a half
   if (qd == 0 && col < a.N)
     *reinterpret_cast<float4*>(a.dst + (size_t)blockIdx.y * a.N + col) =
         make_float4(acc[0][0] + bacc[0], acc[0][2] + bacc[1], acc[1][0] + bacc[2],
                     acc[1][2] + bacc[3]);
 }
 
-template <int G, bool PACKED>
+template <int G, bool PACKED, bool PAIRED, typename XT>
 cudaError_t gemv_launch(const GemvArgs& a, int splits, int smem, cudaStream_t st) {
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(qmm_gemv_kernel<G, PACKED>,
+    cudaError_t e = cudaFuncSetAttribute(qmm_gemv_kernel<G, PACKED, PAIRED, XT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
     if (e == cudaSuccess)  // three blocks of up to 75 KB on one SM
-      e = cudaFuncSetAttribute(qmm_gemv_kernel<G, PACKED>,
+      e = cudaFuncSetAttribute(qmm_gemv_kernel<G, PACKED, PAIRED, XT>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((a.N + kGemvCols - 1) / kGemvCols, splits);
-  qmm_gemv_kernel<G, PACKED><<<grid, kGemvThreads, smem, st>>>(a);
+  qmm_gemv_kernel<G, PACKED, PAIRED, XT><<<grid, kGemvThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-// Fill in a.lay for the form and launch. Refuses a shape the body does not
-// take or a plan whose shared memory does not hold the layout.
-inline cudaError_t gemv_run(GemvArgs a, int G, int packed, int splits, int smem, cudaStream_t st) {
+// Fill in a.lay for the form and launch (PAIRED: the gate/up pass over a
+// fused [K, 2F] weight, N = 2F). Refuses a shape the body does not take or
+// a plan whose shared memory does not hold the layout.
+template <bool PAIRED, typename XT>
+cudaError_t gemv_run(GemvArgs a, int G, int packed, int splits, int smem, cudaStream_t st) {
   const int bias_bytes = a.bias_kind == kKindNone ? 0 : tc_kind_bytes(a.bias_kind);
   a.lay = gemv_layout(packed ? kFormPacked : kFormInt8, G, tc_kind_bytes(a.scale_kind),
                       a.scale_kind == kKindCode, bias_bytes, a.stages, a.steps_per_split);
@@ -453,16 +468,18 @@ inline cudaError_t gemv_run(GemvArgs a, int G, int packed, int splits, int smem,
   a.m19 = 0x49000000u;
   a.m15 = 0x47000000u;
   a.m11 = 0x45000000u;
-  if (a.K % kTcK || a.N % 16 || (G != 8 && G != 16 && G != 32) || a.stages < 2 ||
-      a.stages > kGemvMaxStages || splits < 1 || smem < a.lay.total || smem > kTcMaxSmem)
+  if (a.K % kTcK || a.N % (PAIRED ? 256 : 16) || (G != 8 && G != 16 && G != 32) ||
+      a.stages < 2 || a.stages > kGemvMaxStages || splits < 1 || smem < a.lay.total ||
+      smem > kTcMaxSmem)
     return cudaErrorInvalidValue;
   if (G == 8)
-    return packed ? gemv_launch<8, true>(a, splits, smem, st) : gemv_launch<8, false>(a, splits, smem, st);
+    return packed ? gemv_launch<8, true, PAIRED, XT>(a, splits, smem, st)
+                  : gemv_launch<8, false, PAIRED, XT>(a, splits, smem, st);
   if (G == 16)
-    return packed ? gemv_launch<16, true>(a, splits, smem, st)
-                  : gemv_launch<16, false>(a, splits, smem, st);
-  return packed ? gemv_launch<32, true>(a, splits, smem, st)
-                : gemv_launch<32, false>(a, splits, smem, st);
+    return packed ? gemv_launch<16, true, PAIRED, XT>(a, splits, smem, st)
+                  : gemv_launch<16, false, PAIRED, XT>(a, splits, smem, st);
+  return packed ? gemv_launch<32, true, PAIRED, XT>(a, splits, smem, st)
+                : gemv_launch<32, false, PAIRED, XT>(a, splits, smem, st);
 }
 
 }  // namespace

@@ -20,17 +20,23 @@
 // which rounds each of its two values to nearest even exactly as
 // __float2bfloat16_rn does, in one instruction.
 //
-// Two bodies, chosen by ops/qmm.py (`_route`), as for qmm:
-// - qmm_i4_kernel (SIMT; 1-8 rows, any row count in f32, and the shapes the
-//   tensor-core body cannot address: K % 64 != 0, N % 16 != 0; at N % 4 !=
-//   0 it loads element by element, masked at the last column). Bound on the
-//   H100 by the bytes: at kernel_bench's default shape (K 4096, N 11008, B
-//   8, G 32, bf16 scale and bias) q 22,544,384 + scale and bias 5,636,096 +
-//   x and y ~0.5 MB = ~28.7 MB, 8.6 us at 3.35 TB/s, against 0.73 us of bf16
-//   operations. qmm's SIMT structure (qmm_body.cuh): each lane reads 4
-//   adjacent columns, a warp loads all G/2 packed rows of a group before it
-//   uses any, K is split over warps and blocks to fill the 132 SMs, and the
-//   partial sums of K splits are added in a fixed order by a second kernel.
+// Three bodies, chosen by ops/qmm.py (`_route`), as for qmm:
+// - qmm_i4_kernel (SIMT; 1 row, any row count in f32, and the shapes the
+//   tensor-core bodies cannot address: K % 64 != 0, N % 16 != 0; at N % 4
+//   != 0 it loads element by element, masked at the last column). Bound on
+//   the H100 by the bytes: at wqkv (K 4096, N 12288, G 32, bf16 scale and
+//   bias, 1 row) 9.4 us at 3.35 TB/s. qmm's SIMT structure (qmm_body.cuh):
+//   each lane reads 4 adjacent columns, a warp loads all G/2 packed rows of
+//   a group before it uses any, K is split over warps and blocks to fill
+//   the 132 SMs, and the partial sums of K splits are added in a fixed
+//   order by a second kernel. It pays one f32 multiply, one add and two
+//   bf16 roundings per weight, then an FMA per weight and row.
+// - qmm_mma_kernel<.., kFormInt4> (qmm_mma.cuh; bf16 compute, 2-8 rows).
+//   Bound by the bytes as at one row. The SIMT body took 2.4x its 1-row
+//   time at 8 rows; this one dequantizes each weight once, in bf16 pairs at
+//   the rounding points above, into a bf16 tile that `mma.sync` reads for
+//   all rows at once, from a 3-stage `cp.async` ring; K splits added by
+//   qmm_i4_reduce_kernel in split order.
 // - qmm_tc_kernel<.., kFormInt4> (qmm_tc.cuh; bf16 compute, more than 8
 //   rows). Bound by operations at 512 rows, by bytes at 37. The SIMT body
 //   re-read every weight once per 8-row tile there; this one runs qmm's
@@ -45,6 +51,7 @@
 #include <stdint.h>
 
 #include "qmm_body.cuh"
+#include "qmm_mma.cuh"
 #include "qmm_tc.cuh"
 
 namespace {
@@ -252,6 +259,29 @@ extern "C" int qmm_i4_tc_launch(const void* x, void* xb, const void* q, const vo
            tc_layout(bm, kFormInt4, G, tc_kind_bytes(scale_kind), 0, bias_bytes, stages)};
   const cudaError_t e = bm == 128 ? tc_i4_group<128>(G, a, splits, smem, st)
                                   : tc_i4_group<64>(G, a, splits, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  if (splits > 1) {
+    const size_t count = (size_t)B * N;
+    qmm_i4_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(partial), static_cast<float*>(out), count, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The small-row tensor-core body (bf16 compute; the wrapper sends it 2-8
+// rows). x f32 [B, K]; weight operands as qmm_i4_launch's; split y of
+// `splits` runs K steps of 64 [y * steps_per_split, ...) into partial
+// [splits, B, N] (out directly when splits == 1); smem: dynamic shared
+// memory bytes, at least the layout's (ops/qmm.py:_mma_plan).
+extern "C" int qmm_i4_mma_launch(const void* x, const void* q, const void* scale,
+                                 const void* bias, void* out, void* partial, int B, int K, int N,
+                                 int G, int scale_kind, int bias_kind, int splits,
+                                 int steps_per_split, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const MmaArgs a{x, static_cast<const int8_t*>(q), scale, bias, nullptr, nullptr,
+                  static_cast<float*>(splits > 1 ? partial : out), B, K, N, scale_kind,
+                  bias_kind, steps_per_split, {}};
+  const cudaError_t e = mma_run<kFormInt4, false, float, 8>(a, G, splits, smem, st);
   if (e != cudaSuccess) return (int)e;
   if (splits > 1) {
     const size_t count = (size_t)B * N;

@@ -1,9 +1,12 @@
-// The small-row tensor-core body (qmm_mma_kernel): qmm's route for 2-8 rows
-// in bf16 (csrc/qmm.cu) and the matmul pass of the fused FFN kernels for
-// 2-64 rows in bf16 (csrc/ffn.cu), as qmm_body.cuh is the SIMT body of both
-// and qmm_tc.cuh the wgmma prefill body of qmm. One definition, so the fused
+// The small-row tensor-core body (qmm_mma_kernel): the route of qmm and of
+// qmm_i4 for 2-8 rows in bf16 (csrc/qmm.cu, csrc/qmm_i4.cu) and the matmul
+// pass of the fused FFN kernels for 2-64 rows in bf16 (csrc/ffn.cu), as
+// qmm_body.cuh is the SIMT body of qmm and the fused kernels and qmm_tc.cuh
+// the wgmma prefill body of qmm and qmm_i4. One definition, so the fused
 // kernels' matmul sums are qmm's to the bit where both take this body with
-// the same plan.
+// the same plan. FORM is qmm_tc.cuh's: packed or int8 (qmm's rounding
+// points, the bias as a side product) or int4 (qmm_i4's: the bias added to
+// every weight inside tc_dequant, so no side product).
 //
 // Bound on the H100 at verify rows: the weight bytes (Q4_K packed with codes
 // 4.75 bits per weight, Q4_0 6, Q8_0 9), as at one row. The SIMT body pays
@@ -24,8 +27,9 @@
 // - A block takes 256 weight columns over one K split and all R <= 64 rows
 //   (1-4 m16 tiles; rows past R read row R - 1 and are never stored). 256
 //   threads (8 warps); warp w owns columns [32w, 32w + 32).
-// - The raw weight tile of each 64-deep K step (q bytes, packed or int8;
-//   the scale rows; sup for coded weights; the bias rows and sup_min) goes
+// - The raw weight tile of each 64-deep K step (q bytes, packed or int8
+//   or int4 nibbles; the scale rows; sup for coded weights; the bias rows
+//   and sup_min) goes
 //   through a 3-stage ring in shared memory filled by 16-byte `cp.async`
 //   from every thread (zero-filled past N), two steps in flight while the
 //   third is used.
@@ -36,20 +40,26 @@
 //   reads V. The "kn" weight needs no re-layout.
 // - x is staged once per block: the block's K range of every row, rounded to
 //   bf16, swizzled for conflict-free `ldmatrix` (the A operand), and with a
-//   bias the f32 sum of each group of the unrounded x, rounded to bf16.
-// - The bias side product round(xsum_g) * round(bias_g) runs on the tensor
-//   cores as a fifth k16 block of each step: A holds the rows' group sums of
-//   the step's groups (bf16, zero past them), B the groups' biases (bf16,
-//   code * sup_min when coded, zero rows past them), so it costs 4 more
-//   products per m16 tile instead of an FFMA per group, row and column.
+//   bias (not int4) the f32 sum of each group of the unrounded x, rounded to
+//   bf16.
+// - int4 (qmm_i4): the bias rows go through the ring with the scale rows and
+//   tc_dequant applies w = round(round(q * s) + b) per weight in bf16 pairs;
+//   x needs no group sums and the step no fifth block. The SIMT body paid
+//   an FMA per weight and row and two f32 roundings per weight, so 8 rows
+//   cost it 2.4x one row over the same bytes.
+// - qmm's bias side product round(xsum_g) * round(bias_g) runs on the
+//   tensor cores as a fifth k16 block of each step: A holds the rows' group
+//   sums of the step's groups (bf16, zero past them), B the groups' biases
+//   (bf16, code * sup_min when coded, zero rows past them), so it costs 4
+//   more products per m16 tile instead of an FFMA per group, row and column.
 // - PAIRED (gate_up_act): the block's columns are 128 gate columns and the
 //   128 matching up columns (offset F), written to [splits][2][R][F].
 // - K splits (grid y) on step boundaries, on 256-row boundaries for coded
 //   weights, fill the card; the reduce kernel (qmm) or the epilogue (ffn)
 //   adds them in a fixed order (no atomics). ops/qmm.py:_mma_plan picks them
 //   and computes the same shared-memory layout as mma_layout below.
-// Needs K % 64 == 0, N % 16 == 0 (N % 256 paired), 1 <= R <= 64 and 16-byte
-// aligned operands (checked by the wrappers).
+// Needs K % 64 == 0, N % 16 == 0 (N % 256 paired), 1 <= R <= 64, G 16 or
+// 32 for int4 and 16-byte aligned operands (checked by the wrappers).
 #pragma once
 
 #include "mma_sync.cuh"
@@ -64,8 +74,8 @@ constexpr int kMmaThreads = 256;
 constexpr int kMmaMaxRows = 64;  // 4 m16 tiles
 
 // Byte offsets within one ring stage, then after the ring the B tile, the
-// side product's B tile (with a bias), the x tile and the group sums (with
-// a bias); ops/qmm.py:_mma_layout computes the same.
+// side product's B tile (with a bias, not int4), the x tile and the group
+// sums (the same); ops/qmm.py:_mma_layout computes the same.
 struct MmaLayout {
   int q, scale, sup, bias, sup_min, stage, bslot, bside, x, xside, total;
 };
@@ -87,11 +97,12 @@ __host__ __device__ inline MmaLayout mma_layout(int R, int form, int G, int scal
   l.bias = l.sup + (coded ? kMmaCols * 4 : 0);
   l.sup_min = l.bias + (kMmaK / G) * kMmaCols * bias_bytes;
   l.stage = tc_round_up(l.sup_min + (coded && bias_bytes ? kMmaCols * 4 : 0), 128);
+  const bool side = bias_bytes && form != kFormInt4;  // the bias side product
   l.bslot = kMmaStages * l.stage;
   l.bside = l.bslot + kTcBSlot;
-  l.x = l.bside + (bias_bytes ? kMmaSideB : 0);
+  l.x = l.bside + (side ? kMmaSideB : 0);
   l.xside = l.x + R * steps_per_split * kMmaK * 2;
-  l.total = l.xside + (bias_bytes ? R * mma_side_row(steps_per_split) : 0);
+  l.total = l.xside + (side ? R * mma_side_row(steps_per_split) : 0);
   return l;
 }
 
@@ -134,18 +145,6 @@ __device__ __forceinline__ void mma_copy_kind(uint32_t dst, const void* src, int
   }
 }
 
-// 4 x values at p as f32 (f32 or bf16 input)
-__device__ __forceinline__ void mma_load_x4(const float* p, float v[4]) {
-  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-}
-__device__ __forceinline__ void mma_load_x4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
-}
-
 // byte offset of 16-byte chunk c of x row r in shared memory: the low three
 // bits of c XOR-ed with r, so ldmatrix's eight rows hit distinct banks
 __device__ __forceinline__ int mma_x_at(int r, int c, int row_bytes) {
@@ -163,9 +162,9 @@ __device__ __forceinline__ int mma_side_at(int k, int col) {
 // a.lay.total. Split y runs K steps [y * steps_per_split, ...). MT: m16
 // tiles of accumulators (1: up to 16 rows, every verify; 4: up to 64, the
 // tiles past R skipped).
-template <int G, bool PACKED, bool PAIRED, typename XT, int MT>
+template <int G, int FORM, bool PAIRED, typename XT, int MT>
 __global__ void __launch_bounds__(kMmaThreads, 2) qmm_mma_kernel(const __grid_constant__ MmaArgs a) {
-  constexpr int FORM = PACKED ? kFormPacked : kFormInt8;
+  constexpr int kQRows = FORM == kFormInt8 ? kMmaK : kMmaK / 2;  // q rows per step
   constexpr int kGroups = kMmaK / G;  // quant groups per step
   extern __shared__ __align__(16) uint8_t smem[];
   const MmaLayout& L = a.lay;
@@ -181,17 +180,18 @@ __global__ void __launch_bounds__(kMmaThreads, 2) qmm_mma_kernel(const __grid_co
   const int wc1 = PAIRED ? F + blockIdx.x * 128 : wc0 + 128;
   const bool coded = a.scale_kind == kKindCode;
   const bool has_bias = a.bias_kind != kKindNone;
+  const bool side = has_bias && FORM != kFormInt4;  // the bias side product
   const uint32_t smem32 = smem_u32(smem);
-  TcLayout tl{};  // where tc_dequant finds q, the scales and sup in a stage
+  TcLayout tl{};  // where tc_dequant finds q, the scales, sup and (int4) the bias in a stage
   tl.q = L.q;
   tl.scale = L.scale;
   tl.sup = L.sup;
+  tl.bias = L.bias;
 
   auto load_stage = [&](int t) {
     const uint32_t st = smem32 + (t % kMmaStages) * L.stage;
     const int k0 = (s_begin + t) * kMmaK;
-    mma_copy_rows<1>(st + L.q, a.q, PACKED ? kMmaK / 2 : kMmaK, PACKED ? k0 / 2 : k0, a.N, wc0,
-                     wc1);
+    mma_copy_rows<1>(st + L.q, a.q, kQRows, k0 / (kMmaK / kQRows), a.N, wc0, wc1);
     mma_copy_kind(st + L.scale, a.scale, kGroups, k0 / G, a.N, wc0, wc1, a.scale_kind);
     if (coded) mma_copy_rows<4>(st + L.sup, a.sup, 1, k0 / 256, a.N, wc0, wc1);
     if (has_bias) {
@@ -206,15 +206,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2) qmm_mma_kernel(const __grid_co
     cp_async_commit();
   }
 
-  // x of this split, while the first steps' weights are in flight; with a
-  // bias, the group sums of step t at [16 t, 16 t + kGroups) of the sums'
-  // row, zeros after, and the side product's B tile zeroed (rows past
+  // x of this split, while the first steps' weights are in flight; with the
+  // side product, the group sums of step t at [16 t, 16 t + kGroups) of the
+  // sums' row, zeros after, and the side product's B tile zeroed (rows past
   // kGroups stay zero)
   uint8_t* xs = smem + L.x;
   uint8_t* xside = smem + L.xside;
   uint8_t* bside = smem + L.bside;
   const XT* xg = static_cast<const XT*>(a.x);
-  if (has_bias) {
+  if (side) {
     for (int i = tid; i < kMmaSideB / 16; i += kMmaThreads)
       reinterpret_cast<uint4*>(bside)[i] = make_uint4(0u, 0u, 0u, 0u);
     for (int i = tid; i < a.R * n_steps * (16 - kGroups); i += kMmaThreads) {
@@ -231,11 +231,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2) qmm_mma_kernel(const __grid_co
     const int r = in ? e / q4 : 0, p = in ? e - r * q4 : 0;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
     if (in) {
-      mma_load_x4(xg + (size_t)r * a.K + k_begin + 4 * p, v);
+      ldx4(xg + (size_t)r * a.K + k_begin + 4 * p, v);
       *reinterpret_cast<uint2*>(xs + mma_x_at(r, p >> 1, xs_row) + (p & 1) * 8) =
           make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
     }
-    if (has_bias) {  // G / 4 adjacent lanes hold one group (q4 % 16 == 0)
+    if (side) {  // G / 4 adjacent lanes hold one group (q4 % 16 == 0)
       float s = (v[0] + v[1]) + (v[2] + v[3]);
 #pragma unroll
       for (int off = 1; off < G / 4; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -264,7 +264,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) qmm_mma_kernel(const __grid_co
     cp_async_commit();
     const uint8_t* st = smem + (t % kMmaStages) * L.stage;
     tc_dequant<G, FORM>(st, tl, bs, a.scale_kind, a.bias_kind, warp, lane);
-    if (has_bias) {  // this step's biases, rounded to bf16, as rows of the side tile
+    if (side) {  // this step's biases, rounded to bf16, as rows of the side tile
       for (int i = tid; i < kGroups * (kMmaCols / 2); i += kMmaThreads) {
         const int gl = i / (kMmaCols / 2), c = 2 * (i % (kMmaCols / 2));
         const int idx = gl * kMmaCols + c;
@@ -313,7 +313,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) qmm_mma_kernel(const __grid_co
       }
     }
 
-    if (has_bias) {  // the side product: group sums x biases, a fifth k16 block
+    if (side) {  // the side product: group sums x biases, a fifth k16 block
       uint32_t b[4][2];
       const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
@@ -362,51 +362,49 @@ __global__ void __launch_bounds__(kMmaThreads, 2) qmm_mma_kernel(const __grid_co
   }
 }
 
-template <int G, bool PACKED, bool PAIRED, typename XT, int MT>
+template <int G, int FORM, bool PAIRED, typename XT, int MT>
 cudaError_t mma_launch(const MmaArgs& a, int splits, int smem, cudaStream_t st) {
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(qmm_mma_kernel<G, PACKED, PAIRED, XT, MT>,
+    const cudaError_t e = cudaFuncSetAttribute(qmm_mma_kernel<G, FORM, PAIRED, XT, MT>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                kTcMaxSmem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((a.N + kMmaCols - 1) / kMmaCols, splits);
-  qmm_mma_kernel<G, PACKED, PAIRED, XT, MT><<<grid, kMmaThreads, smem, st>>>(a);
+  qmm_mma_kernel<G, FORM, PAIRED, XT, MT><<<grid, kMmaThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool PAIRED, typename XT, int MT>
-cudaError_t mma_group(const MmaArgs& a, int G, int packed, int splits, int smem, cudaStream_t st) {
-  if (G == 8) {
-    return packed ? mma_launch<8, true, PAIRED, XT, MT>(a, splits, smem, st)
-                  : mma_launch<8, false, PAIRED, XT, MT>(a, splits, smem, st);
+// G = 8 only for qmm's forms: int4 groups are 16 or 32 (mma_run refuses 8)
+template <int FORM, bool PAIRED, typename XT, int MT>
+cudaError_t mma_group(const MmaArgs& a, int G, int splits, int smem, cudaStream_t st) {
+  if constexpr (FORM != kFormInt4) {
+    if (G == 8) return mma_launch<8, FORM, PAIRED, XT, MT>(a, splits, smem, st);
   }
-  if (G == 16) {
-    return packed ? mma_launch<16, true, PAIRED, XT, MT>(a, splits, smem, st)
-                  : mma_launch<16, false, PAIRED, XT, MT>(a, splits, smem, st);
-  }
-  return packed ? mma_launch<32, true, PAIRED, XT, MT>(a, splits, smem, st)
-                : mma_launch<32, false, PAIRED, XT, MT>(a, splits, smem, st);
+  if (G == 16) return mma_launch<16, FORM, PAIRED, XT, MT>(a, splits, smem, st);
+  return mma_launch<32, FORM, PAIRED, XT, MT>(a, splits, smem, st);
 }
 
 // Fill in a.lay for the form and launch, with one m16 tile up to 16 rows
-// and four above (MAX_ROWS: the most rows the caller sends, 8 for qmm, 64
-// for the fused passes, so that qmm builds no 4-tile kernel). Refuses a shape the body does not take
-// or a plan whose shared memory does not hold the layout.
-template <bool PAIRED, typename XT, int MAX_ROWS>
-cudaError_t mma_run(MmaArgs a, int G, int packed, int splits, int smem, cudaStream_t st) {
+// and four above (MAX_ROWS: the most rows the caller sends, 8 for qmm and
+// qmm_i4, 64 for the fused passes, so that qmm builds no 4-tile kernel).
+// Refuses a shape the body does not take or a plan whose shared memory does
+// not hold the layout.
+template <int FORM, bool PAIRED, typename XT, int MAX_ROWS>
+cudaError_t mma_run(MmaArgs a, int G, int splits, int smem, cudaStream_t st) {
   const int bias_bytes = a.bias_kind == kKindNone ? 0 : tc_kind_bytes(a.bias_kind);
-  a.lay = mma_layout(a.R, packed ? kFormPacked : kFormInt8, G, tc_kind_bytes(a.scale_kind),
-                     a.scale_kind == kKindCode, bias_bytes, a.steps_per_split);
+  a.lay = mma_layout(a.R, FORM, G, tc_kind_bytes(a.scale_kind), a.scale_kind == kKindCode,
+                     bias_bytes, a.steps_per_split);
   if (a.R < 1 || a.R > MAX_ROWS || a.K % kMmaK || a.N % (PAIRED ? 2 * 128 : 16) ||
-      (G != 8 && G != 16 && G != 32) || smem < a.lay.total || smem > kTcMaxSmem)
+      (G != 16 && G != 32 && (G != 8 || FORM == kFormInt4)) || smem < a.lay.total ||
+      smem > kTcMaxSmem)
     return cudaErrorInvalidValue;
   if constexpr (MAX_ROWS > 16) {
-    if (a.R > 16) return mma_group<PAIRED, XT, MAX_ROWS / 16>(a, G, packed, splits, smem, st);
+    if (a.R > 16) return mma_group<FORM, PAIRED, XT, MAX_ROWS / 16>(a, G, splits, smem, st);
   }
-  return mma_group<PAIRED, XT, 1>(a, G, packed, splits, smem, st);
+  return mma_group<FORM, PAIRED, XT, 1>(a, G, splits, smem, st);
 }
 
 }  // namespace

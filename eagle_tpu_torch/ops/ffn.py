@@ -15,19 +15,20 @@ versions, and `ffn_block` (port of eagle_tpu/ops/pallas_ffn.py:
 Vicuna-7B layer). The design (csrc/ffn.cu): a matmul pass, then an
 epilogue pass where the full row of sums first exists. The matmul pass is
 one of qmm's bodies with qmm's plan for the same product (`_body`):
-- ffn_out_norm at 1 bf16 row: the 1-row tensor-core body
-  (csrc/qmm_gemv.cuh, `_gemv_plan`), as qmm's decode products;
-- f32 compute, and gate_up_act's paired pass at 1 row: the SIMT body
-  (csrc/qmm_body.cuh, `simt_config`);
+- 1 bf16 row: the 1-row tensor-core body (csrc/qmm_gemv.cuh, `_gemv_plan`),
+  as qmm's decode products; gate_up_act's pass paired, a block's gate and
+  up halves of 128 columns each (the SIMT pass before it reached 43 % of
+  the byte bound on Q4_0 w_gate_up);
+- f32 compute, and K % 64 != 0: the SIMT body (csrc/qmm_body.cuh,
+  `simt_config`);
 - bf16 at 2-64 rows: the small-row tensor-core body (csrc/qmm_mma.cuh,
   `_mma_plan`), gate and up tiles in one block for `gate_up_act`; each
   weight is dequantized once and `mma.sync` covers 16 rows, so 6 rows cost
   1.0-1.2x one row (the SIMT body paid 2.0-3.2x; `chip_smoke.py`, H100
   80GB HBM3 at 700 W).
-Where qmm takes the same body (x at 1-8 rows in bf16, gate and up at 2-8,
-any f32 product) they are bit-equal to the unfused path's sums, and the
-fused block only saves launches (residual add, norm, split, activation,
-multiply).
+Where qmm takes the same body (x, gate and up at 1-8 rows in bf16, any f32
+product) they are bit-equal to the unfused path's sums, and the fused block
+only saves launches (residual add, norm, split, activation, multiply).
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches the kernel or raises."""
@@ -52,6 +53,7 @@ _GATE_UP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 #: the argument types of ffn_out_norm_mma_launch and of ffn_out_norm_gemv_launch
 _OUT_NORM_MMA_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                       + [ctypes.c_float, ctypes.c_void_p])
+#: the argument types of gate_up_act_mma_launch and of gate_up_act_gemv_launch
 _GATE_UP_MMA_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
@@ -142,15 +144,13 @@ def _lp(t: torch.Tensor | None, layer: int, align: int | None = None) -> int | N
 def _body(rows: int, k: int, n: int, w: QTensor, compute_dtype, paired: bool = False) -> str:
     """The matmul pass's body: "simt" (csrc/qmm_body.cuh, with
     `simt_config`) where qmm's own `_route` takes it (f32 compute, K % 64 !=
-    0) and for the paired gate/up pass at 1 row; "gemv" (csrc/qmm_gemv.cuh,
-    with `_gemv_plan`) for the unpaired pass at 1 bf16 row, as qmm; else
-    "mma" (csrc/qmm_mma.cuh, with `_mma_plan`: bf16 at 2-64 rows; qmm takes
-    the same body at 2-8 rows, and its prefill body beyond). Either way the
-    plan is the one qmm would take for the same product with that body."""
+    0); "gemv" (csrc/qmm_gemv.cuh, with `_gemv_plan`) at 1 bf16 row, as
+    qmm, the gate/up pass `paired`; else "mma" (csrc/qmm_mma.cuh, with
+    `_mma_plan`: bf16 at 2-64 rows; qmm takes the same body at 2-8 rows, and
+    its prefill body beyond). Either way the plan is the one qmm would take
+    for the same product with that body."""
     route = _route(rows, k, n, compute_dtype, tc_form(w))
-    if route == "gemv":
-        return "simt" if paired else "gemv"
-    return "simt" if route == "simt" else "mma"
+    return route if route in ("simt", "gemv") else "mma"
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -234,11 +234,24 @@ def gate_up_act(h: torch.Tensor, w_gate_up: QTensor, layer: int, act: str = "sil
     hc = h.to(compute_dtype).contiguous()
     out = torch.empty((r, f), dtype=compute_dtype, device=h.device)
     w = w_gate_up
-    mma = _body(r, k, two_f, w, compute_dtype, paired=True) == "mma"
-    fn = (_build.kernel("gate_up_act_mma_launch", _GATE_UP_MMA_ARGS) if mma
-          else _build.kernel("gate_up_act_launch", _GATE_UP_ARGS))
+    body = _body(r, k, two_f, w, compute_dtype, paired=True)
+    fn = _build.kernel(*{"mma": ("gate_up_act_mma_launch", _GATE_UP_MMA_ARGS),
+                         "gemv": ("gate_up_act_gemv_launch", _GATE_UP_MMA_ARGS),
+                         "simt": ("gate_up_act_launch", _GATE_UP_ARGS)}[body])
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    if mma:
+    if body == "gemv":
+        plan = _gemv_plan(k, two_f, w.group, tc_form(w))  # qmm's plan for [1, K] @ [K, 2F]
+        partial = torch.empty((plan.splits, 2, 1, f), dtype=torch.float32, device=h.device)
+        a = _TC_ALIGN
+        rc = fn(
+            _aligned16(hc).data_ptr(), _lp(w.q, layer, a), _lp(w.scale, layer, a),
+            _lp(w.bias, layer, a), out.data_ptr(), partial.data_ptr(), k, f, w.group,
+            int(w.packed), _KINDS[w.scale.dtype], _bias_kind(w), ACTS[act], plan.stages,
+            plan.splits, plan.steps_per_split, plan.smem_bytes, stream)
+        _build.check(rc, "gate_up_act_gemv_launch")
+        _build.launches["gate_up_act"] += 1
+        return out
+    if body == "mma":
         # qmm's plan for the same [R, K] @ [K, 2F] product
         plan = _mma_plan(r, k, two_f, w.group, tc_form(w), paired=True)
         partial = torch.empty((plan.splits, 2, r, f), dtype=torch.float32, device=h.device)

@@ -8,11 +8,11 @@ lm_head, EAGLE fc_w) and `qmatmul_pallas_stacked_nd` /
 scalar prefetch). Here both are one entry: a layer is chosen by offsetting
 the weight pointers by `layer x stride`, no copy.
 
-Four bodies, picked by `_route` from the shape alone (qmm_i4 takes the
-SIMT and the wgmma one):
+Four bodies, picked by `_route` from the shape alone (qmm_i4 takes all
+but the 1-row one):
 - "simt", csrc/qmm_body.cuh: f32 compute at any row count, every shape the
   tensor-core bodies cannot address (K % 64 != 0 or N % 16 != 0; any N >=
-  1, masked at the last column when N % 4 != 0), and qmm_i4 at 1-8 rows.
+  1, masked at the last column when N % 4 != 0), and qmm_i4 at 1 row.
   It reads each weight byte once per row tile with coalesced 4-column
   vectors, keeps a whole quant group's loads in flight per warp, splits K
   over warps and blocks (`simt_config`) to fill the 132 SMs at small N,
@@ -26,8 +26,9 @@ SIMT and the wgmma one):
   weights dequantized in registers (one AND-OR into a magic-number float,
   one FFMA, half a bf16 pair conversion each) straight into the A operand
   of `mma.sync.m16n8k16`, K splits from `_gemv_plan`. Its pace is set by
-  that arithmetic, not by the copies. ffn_out_norm (ops/ffn.py) takes the
-  same body and plan for its matmul pass at 1 row.
+  that arithmetic, not by the copies. The fused FFN kernels (ops/ffn.py)
+  take the same body and plan for their matmul pass at 1 row, gate_up_act
+  paired.
 - "mma", csrc/qmm_mma.cuh: bf16 at 2-8 rows (the EAGLE verify forward,
   K + 1 = 6 rows; kernel_bench's 8). Each weight is dequantized once per
   call into a bf16 tile in shared memory (a 3-stage `cp.async` ring feeds
@@ -37,7 +38,8 @@ SIMT and the wgmma one):
   the same bytes (18-25 % of the byte bound at 6 rows): what holds it is
   the latency of each 64-deep step's copy, dequant and product phases,
   which the block's barriers serialize. The fused FFN kernels (ops/ffn.py)
-  take the same body for their matmul pass at 2-64 rows.
+  take the same body for their matmul pass at 2-64 rows, and qmm_i4 at 2-8
+  rows (its bias applied per weight in the dequant, no side product).
 - "tc", csrc/qmm_tc.cuh: bf16 above 8 rows (prefill; 512 rows for a
   300-token prompt), bound by operations there. An x prologue rounds x to
   bf16 and takes the group sums once per call; the main loop runs
@@ -60,7 +62,8 @@ The `qmm_i4` kernels (csrc/qmm_i4.cu) are the counterpart of
 `qmatmul_pallas_2d_i4` / `qmatmul_pallas_stacked_i4` (pallas_qmm.py:600 and
 :839, `_qmm_kernel_i4`): weights of the `int4` form, signed nibbles with
 the scale AND the bias applied to every weight in the compute dtype, with
-the SIMT and wgmma bodies (the latter at qmm_i4's rounding points).
+the SIMT, small-row and wgmma bodies (the last two at qmm_i4's rounding
+points).
 Only the kernel benchmark (tools/kernel_bench.py) makes such weights; the
 model path never routes them, as in the reference."""
 
@@ -264,18 +267,21 @@ def _route(b: int, k: int, n: int, compute_dtype, form: TcForm) -> str:
     - "simt": f32 compute at any row count, every shape the tensor-core
       bodies cannot address: K % 64 != 0 or N % 16 != 0 (their 64-deep steps
       and 16-byte row copies; the SIMT body takes any N >= 1), and int4
-      weights at 1-8 rows;
+      weights at 1 row;
     - "gemv": bf16 at 1 row (decode), qmm only (`qmm_gemv_kernel`,
       csrc/qmm_gemv.cuh: a `cp.async` ring of raw weight tiles, `mma.sync`
       products with the weights as the A operand);
-    - "mma": bf16 at 2-8 rows (verify), qmm only (`qmm_mma_kernel`,
-      csrc/qmm_mma.cuh: each weight dequantized once, 16 rows per product);
+    - "mma": bf16 at 2-8 rows (verify; kernel_bench's 8 for int4), qmm and
+      qmm_i4 (`qmm_mma_kernel`, csrc/qmm_mma.cuh: each weight dequantized
+      once, 16 rows per product);
     - "tc": bf16 at more than 8 rows (prefill: the wgmma body,
       csrc/qmm_tc.cuh)."""
     if compute_dtype != torch.bfloat16 or k % _TC_K or n % 16:
         return "simt"
+    if b == 1:
+        return "simt" if form.q == "int4" else "gemv"
     if b <= 8:
-        return "simt" if form.q == "int4" else "gemv" if b == 1 else "mma"
+        return "mma"
     return "tc"
 
 
@@ -301,8 +307,9 @@ class MmaPlan(NamedTuple):
 
 def _mma_stage(group: int, form: TcForm) -> int:
     """Bytes of one ring stage of the small-row body: the raw weight tile of
-    one 64-deep step (q, scale rows, sup when coded, bias rows, sup_min when
-    coded with a bias), rounded to 128 bytes."""
+    one 64-deep step (q: 64 int8 rows, or 32 of packed or int4 nibbles;
+    scale rows, sup when coded, bias rows, sup_min when coded with a bias),
+    rounded to 128 bytes."""
     stage = (_TC_K if form.q == "int8" else _TC_K // 2) * _MMA_COLS
     stage += (_TC_K // group) * _MMA_COLS * form.scale_bytes
     stage += _MMA_COLS * 4 if form.coded else 0
@@ -314,10 +321,11 @@ def _mma_stage(group: int, form: TcForm) -> int:
 def _mma_layout(rows: int, group: int, form: TcForm, steps_per_split: int) -> int:
     """Dynamic shared memory of the small-row body (csrc/qmm_mma.cuh:
     mma_layout): 3 ring stages, the bf16 B tile, the split's x rows in bf16
-    and, with a bias, the side product's B tile (16 x 256 bf16) and the
-    rows' group sums (16 bf16 per step, rows rounded to 128 bytes)."""
+    and, with qmm's bias side product (a bias, not int4), the side
+    product's B tile (16 x 256 bf16) and the rows' group sums (16 bf16 per
+    step, rows rounded to 128 bytes)."""
     side = 0
-    if form.bias_bytes:
+    if form.bias_bytes and form.q != "int4":
         side = 16 * _MMA_COLS * 2 + rows * -(-steps_per_split * 2 // 8) * 8 * 16
     return (_MMA_STAGES * _mma_stage(group, form) + _TC_B_SLOT
             + rows * steps_per_split * _TC_K * 2 + side)
@@ -335,10 +343,11 @@ def _mma_plan(b: int, k: int, n: int, group: int, form: TcForm, paired: bool = F
     latency), then the least estimated time: waves of blocks x steps per
     split x the time of a step at that occupancy, plus the partial sums
     written and read back. Raises on a shape the body does not take."""
+    groups = (16, 32) if form.q == "int4" else (8, 16, 32)
     if (not 1 <= b <= _MMA_MAX_ROWS or k % _TC_K or n % (256 if paired else 16)
-            or group not in (8, 16, 32) or form.q == "int4"):
+            or group not in groups):
         raise ValueError(f"the small-row tensor-core body needs 1-64 rows, K % 64 == 0, "
-                         f"N % {256 if paired else 16} == 0, G in (8, 16, 32) and no int4 "
+                         f"N % {256 if paired else 16} == 0 and G in {groups} "
                          f"(rows={b}, K={k}, N={n}, G={group}, q={form.q})")
     tiles = -(-n // _MMA_COLS)
     quantum = _TC_SPLIT_K // _TC_K if form.coded else 1
@@ -615,6 +624,7 @@ def qmm_stacked(x: torch.Tensor, w: QTensor, layer: int,
 
 _I4_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _I4_TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_I4_MMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def qmm_i4_plain(x: torch.Tensor, w: QTensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -661,19 +671,20 @@ def _launch_i4(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -
         raise ValueError(f"x has K={x2.shape[1]}, weight K={k}")
     if b == 0:
         return x2.new_empty((0, n))
-    tc = _route(b, k, n, compute_dtype, tc_form(w)) == "tc"
-    fn = _build.kernel("qmm_i4_tc_launch" if tc else "qmm_i4_launch",
-                       _I4_TC_ARGTYPES if tc else _I4_ARGTYPES)
+    route = _route(b, k, n, compute_dtype, tc_form(w))
+    fn = _build.kernel(*{"tc": ("qmm_i4_tc_launch", _I4_TC_ARGTYPES),
+                         "mma": ("qmm_i4_mma_launch", _I4_MMA_ARGTYPES),
+                         "simt": ("qmm_i4_launch", _I4_ARGTYPES)}[route])
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     bias_kind = -1 if w.bias is None else _KINDS[w.bias.dtype]
-    if tc:
+    a = _TC_ALIGN
+    if route == "tc":
         plan = _tc_plan(b, k, n, w.group, tc_form(w))
         xf = _scratch_x(x2)
         xb = torch.empty((b, k), dtype=torch.bfloat16, device=xf.device)
         out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
         partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=xf.device)
                    if plan.splits > 1 else None)
-        a = _TC_ALIGN
         rc = fn(
             xf.data_ptr(), xb.data_ptr(), _ptr(w.q, layer, a), _ptr(w.scale, layer, a),
             _ptr(w.bias, layer, a), out.data_ptr(),
@@ -683,6 +694,21 @@ def _launch_i4(x2: torch.Tensor, w: QTensor, layer: int | None, compute_dtype) -
         )
         _build.check(rc, "qmm_i4_tc_launch")
         _build.launches["qmm_i4_tc"] += 1
+        return out
+    if route == "mma":
+        plan = _mma_plan(b, k, n, w.group, tc_form(w))
+        xf = _scratch_x(x2)
+        out = torch.empty((b, n), dtype=torch.float32, device=xf.device)
+        partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=xf.device)
+                   if plan.splits > 1 else None)
+        rc = fn(
+            xf.data_ptr(), _ptr(w.q, layer, a), _ptr(w.scale, layer, a), _ptr(w.bias, layer, a),
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            b, k, n, w.group, _KINDS[w.scale.dtype], bias_kind, plan.splits,
+            plan.steps_per_split, plan.smem_bytes, stream,
+        )
+        _build.check(rc, "qmm_i4_mma_launch")
+        _build.launches["qmm_i4_mma"] += 1
         return out
     xf = x2.float().contiguous()
     rb, splits, gps = simt_config(b, k, n, w.group)

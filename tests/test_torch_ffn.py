@@ -253,10 +253,10 @@ def test_matmul_pass_takes_qmm_plan(rng, form, rows):
     """The fused kernels' matmul pass picks its body from qmm's own route
     and, on the tensor-core bodies, qmm's plan for the same product (the
     gate/up pass paired): so at up to 8 rows in bf16, where qmm takes that
-    body too, its sums are qmm's. At 1 bf16 row ffn_out_norm's pass takes
-    the 1-row body with qmm's `_gemv_plan`, and the paired gate/up pass the
-    SIMT body; f32 keeps the SIMT body, and shapes the bodies cannot address
-    (K % 64 != 0) fall to SIMT as well."""
+    body too, its sums are qmm's. At 1 bf16 row both passes take the 1-row
+    body with qmm's `_gemv_plan` for the same product (the gate/up pass
+    paired, [1, K] @ [K, 2F]); f32 keeps the SIMT body, and shapes the
+    bodies cannot address (K % 64 != 0) fall to SIMT as well."""
     from eagle_tpu_torch.ops.ffn import _body
     from eagle_tpu_torch.ops.qmm import _gemv_plan, _mma_plan, _route, tc_form
 
@@ -265,14 +265,14 @@ def test_matmul_pass_takes_qmm_plan(rng, form, rows):
                             (wo, 4096, 4096, False), (wgu, 22016, 4096, True)):
         f = tc_form(w)
         assert _body(rows, k, n, w, torch.float32, paired) == "simt"
-        want = ("simt" if paired else "gemv") if rows == 1 else "mma"
+        want = "gemv" if rows == 1 else "mma"
         assert _body(rows, k, n, w, torch.bfloat16, paired) == want
         assert _body(rows, k + 32, n, w, torch.bfloat16, paired) == "simt"
-        if rows <= 8:  # qmm takes the 1-row body where the paired pass keeps SIMT
-            assert _route(rows, k, n, torch.bfloat16, f) == ("gemv" if rows == 1 else want)
-        if rows == 1:
+        if rows <= 8:  # qmm takes the same body for the same product
+            assert _route(rows, k, n, torch.bfloat16, f) == want
+        if rows == 1:  # n = 2F for the paired pass: a block's two halves are one tile
             p = _gemv_plan(k, n, w.group, f)
-            assert p.splits * p.steps_per_split >= k // 64
+            assert p.splits * p.steps_per_split >= k // 64 and n % p.cols == 0
         if want == "mma":
             assert (_mma_plan(rows, k, n, w.group, f, paired=paired)
                     == _mma_plan(rows, k, n, w.group, f))

@@ -2,15 +2,17 @@
 over every branch at small shapes: qmm (packed / unpacked, coded / f32 /
 bf16 scales, bias or none, G = 32, 16 and 8, the Q4_0, Q8_0 and IQ1_M
 forms, each row-tile size of the SIMT body, the 1-row tensor-core body,
-the small-row tensor-core body (2-8 rows) and the wgmma body, f32 and bf16 compute, 2-D and stacked,
-and the shapes only the SIMT body takes: N % 4 != 0, N % 16 != 0, K % 64
-!= 0), qmm_i4 (2-D and stacked, f32 / bf16
-scale and bias, bias or none, G = 32 and 16, f32 and bf16 compute, ragged
-row tiles and K splits), flash_decode and flash_prefill (f32 and bf16
+the small-row tensor-core body (2-8 rows) and the wgmma body, f32 and bf16
+compute, 2-D and stacked, and the shapes only the SIMT body takes: N % 4
+!= 0, N % 16 != 0, K % 64 != 0), qmm_i4 (2-D and stacked, f32 / bf16
+scale and bias, bias or none, G = 32 and 16, f32 and bf16 compute, the
+SIMT, small-row and wgmma bodies, ragged row tiles and K splits),
+flash_decode and flash_prefill (f32 and bf16
 caches, head_dim 64 and 128, GQA, key splits, s_limit, rows that see
 nothing), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
 scales, bias or none, G = 32, 16 and 8, SiLU / tanh-GELU, 1 to 64 rows,
-L = 1 and stacked, f32 and bf16 compute), and greedy tokens of a tiny model
+L = 1 and stacked, f32 and bf16 compute; at 1 bf16 row gate_up_act bit for
+bit against act(g) * u from qmm's sums), and greedy tokens of a tiny model
 on the card against the CPU, unfused and fused.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
@@ -311,8 +313,9 @@ def _int4_weight(gen, n, k, group, stack, scale_dtype, bias):
 @pytest.mark.parametrize("rows", [1, 2, 5, 8, 37, 70])
 @pytest.mark.parametrize("stack", [None, 3], ids=["2d", "stacked"])
 def test_qmm_i4_kernel_matches_plain(cuda, stack, rows, group, bias, scale_dtype, compute):
-    """Every branch of qmm_i4: each row tile (1, 2, 4, 8 rows and ragged
-    ones), K splits (small N at K = 1024), both entries."""
+    """Every branch of qmm_i4: each row tile of the SIMT body in f32 (1, 2,
+    4, 8 rows and ragged ones), the small-row body at 2-8 bf16 rows and the
+    wgmma body above, K splits (small N at K = 1024), both entries."""
     w = _int4_weight(cuda, 256, 1024, group, stack, scale_dtype, bias)
     x = torch.randn((rows, 1024), generator=cuda, device="cuda")
     for layer in ((None,) if stack is None else (0, 2)):
@@ -322,7 +325,7 @@ def test_qmm_i4_kernel_matches_plain(cuda, stack, rows, group, bias, scale_dtype
         else:
             got = qmm_i4_stacked(x, w, layer, compute)
             want = qmm_i4_plain(x, w.layer(layer), compute)
-        route = "qmm_i4_tc" if compute == torch.bfloat16 and rows > 8 else "qmm_i4"
+        route = _counter("qmm_i4", _route(rows, 1024, 256, compute, tc_form(w)))
         assert _build.launches[route] == 1 and sum(_build.launches.values()) == 1
         assert _build.plain_calls["qmm_i4"] == 1
         _close(got, want, TOL[compute])
@@ -346,6 +349,34 @@ def test_qmm_i4_tensor_core_route_matches_plain(cuda, stack, rows, group, bias, 
         else:
             got, want = qmm_i4_stacked(x, w, layer), qmm_i4_plain(x, w.layer(layer))
         assert _build.launches["qmm_i4_tc"] == 1 and _build.launches["qmm_i4"] == 0
+        _close(got, want, TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["ksplit", "nosplit"])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16], ids=["s_f32", "s_bf16"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("rows", [2, 3, 6, 8])
+@pytest.mark.parametrize("stack", [None, 3], ids=["2d", "stacked"])
+def test_qmm_i4_small_row_route_matches_plain(cuda, stack, rows, group, bias, scale_dtype,
+                                              split):
+    """qmm_i4's small-row body (bf16, 2-8 rows) at qmm_i4's rounding points:
+    N = 400 leaves a ragged 256-column tile and K = 1280 runs 20 steps in K
+    splits; N = 272, K = 64 one step in one split; both entries (layers 1
+    and 2 of a stack). One launch of qmm_i4_mma per call, no plain
+    version."""
+    from eagle_tpu_torch.ops.qmm import _mma_plan
+
+    n, k = (400, 1280) if split else (272, 64)
+    w = _int4_weight(cuda, n, k, group, stack, scale_dtype, bias)
+    assert (_mma_plan(rows, k, n, group, tc_form(w)).splits > 1) == split
+    x = torch.randn((rows, k), generator=cuda, device="cuda")
+    for layer in ((None,) if stack is None else (1, 2)):
+        _build.reset_counts()
+        got = qmm_i4(x, w) if stack is None else qmm_i4_stacked(x, w, layer)
+        assert _build.launches["qmm_i4_mma"] == 1 and sum(_build.launches.values()) == 1
+        assert _build.plain_calls["qmm_i4"] == 0
+        want = qmm_i4_plain(x, w if stack is None else w.layer(layer))
         _close(got, want, TOL[torch.bfloat16])
 
 
@@ -553,6 +584,36 @@ def test_gate_up_act_matches_plain(cuda, form, rows, stack, act, compute):
     assert _build.launches["gate_up_act"] == 1 and _build.plain_calls["gate_up_act"] == 0
     assert got.dtype == compute and tuple(got.shape) == (rows, 384)
     _close(got, gate_up_act_plain(h, w.layer(layer), act, compute), TOL[compute])
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["ksplit", "nosplit"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("form", sorted(FFN_FORMS))
+def test_gate_up_act_one_row_equals_unfused_sums(cuda, form, act, split):
+    """At 1 bf16 row gate_up_act's matmul pass is the paired 1-row body with
+    qmm's plan for the same [1, K] @ [K, 2F] product, so g and u are the
+    unfused path's sums, qmm_stacked's on the fused weight split at F, to the
+    bit: the output equals round_bf16(act(g) * u) built from them, bit for
+    bit (the epilogue's expf / tanhf and PyTorch's SiLU and tanh-GELU are
+    the same f32 operations in the same order). K = 1280 runs in K splits,
+    K = 64 in one; layer 2 of a stack of 3."""
+    from eagle_tpu_torch.ops.ffn import _act, _body
+    from eagle_tpu_torch.ops.qmm import _gemv_plan
+
+    k, f = (1280, 384) if split else (64, 384)
+    w = FFN_FORMS[form](cuda, 2 * f, k, 3)
+    assert _body(1, k, 2 * f, w, torch.bfloat16, paired=True) == "gemv"
+    assert (_gemv_plan(k, 2 * f, w.group, tc_form(w)).splits > 1) == split
+    h = torch.randn((1, k), generator=cuda, device="cuda").to(torch.bfloat16)
+    _build.reset_counts()
+    got = gate_up_act(h, w, 2, act, torch.bfloat16)
+    assert _build.launches["gate_up_act"] == 1 and sum(_build.launches.values()) == 1
+    g, u = qmm_stacked(h, w, 2).chunk(2, dim=-1)
+    assert _build.launches["qmm_gemv"] == 1 and _build.plain_calls["gate_up_act"] == 0
+    want = (_act(act, g) * u).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (1, f)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    _close(got, gate_up_act_plain(h, w.layer(2), act, torch.bfloat16), TOL[torch.bfloat16])
 
 
 def test_tiny_greedy_fused_equals_unfused(cuda, monkeypatch):

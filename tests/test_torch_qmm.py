@@ -177,13 +177,13 @@ def test_tc_plan_refuses_shapes_the_body_cannot_take():
 @pytest.mark.parametrize("rows", [1, 2, 7, 8, 9, 37, 512])
 def test_route(rows):
     """At shapes every body takes: bf16 at 1 row takes the 1-row tensor-core
-    body and at 2-8 rows the small-row one (qmm only; qmm_i4 keeps the SIMT
-    body there), above 8 rows the wgmma body, in qmm and qmm_i4 alike; f32
-    compute the SIMT body."""
+    body (qmm only; qmm_i4 keeps the SIMT body there), at 2-8 rows the
+    small-row one and above 8 rows the wgmma body, in qmm and qmm_i4 alike;
+    f32 compute the SIMT body."""
     for n, k in MAIN_SHAPES.values():
         for form in TC_FORMS.values():
-            want = ("tc" if rows > 8 else "simt" if form.q == "int4"
-                    else "gemv" if rows == 1 else "mma")
+            want = ("tc" if rows > 8 else "mma" if rows > 1
+                    else "simt" if form.q == "int4" else "gemv")
             assert _route(rows, k, n, torch.bfloat16, form) == want
             assert _route(rows, k, n, torch.float32, form) == "simt"
 
@@ -203,7 +203,28 @@ def test_route_ragged_shapes(k, n, rows):
 # the fused FFN and draft shapes (N, K) beside the target's
 MMA_SHAPES = {**MAIN_SHAPES, "ffn_wo": (4096, 4096), "draft_gate_up": (22016, 4096),
               "small": (400, 1280), "tiny": (256, 512)}
-MMA_FORMS = {name: f for name, f in TC_FORMS.items() if f.q != "int4"}
+# the small-row body takes every form (qmm's and qmm_i4's), the 1-row body
+# every form but int4
+MMA_FORMS = TC_FORMS
+GEMV_FORMS = {name: f for name, f in TC_FORMS.items() if f.q != "int4"}
+
+
+def _cxx_mma_layout(rows, group, f, steps_per_split):
+    """csrc/qmm_mma.cuh:mma_layout's total, line by line (kMmaK 64, 256
+    columns, 3 stages): the ring stage's q, scale, sup, bias and sup_min
+    rows rounded to 128 bytes, the bf16 B tile, qmm's side tile (a bias,
+    not int4), the x rows and qmm's group sums."""
+    up = lambda v, m: -(-v // m) * m
+    scale = (64 if f.q == "int8" else 32) * 256
+    sup = scale + (64 // group) * 256 * f.scale_bytes
+    bias = sup + (256 * 4 if f.coded else 0)
+    sup_min = bias + (64 // group) * 256 * f.bias_bytes
+    stage = up(sup_min + (256 * 4 if f.coded and f.bias_bytes else 0), 128)
+    side = bool(f.bias_bytes) and f.q != "int4"
+    bside = 3 * stage + 64 * 256 * 2
+    x = bside + (16 * 256 * 2 if side else 0)
+    xside = x + rows * steps_per_split * 64 * 2
+    return xside + (rows * up(steps_per_split * 2, 8) * 16 if side else 0)
 
 
 @pytest.mark.parametrize("rows", [2, 3, 6, 8, 9, 33, 64])
@@ -213,12 +234,15 @@ def test_mma_plan_fits_and_covers(form, rows):
     the layout; one block column holds every row and the column tiles cover
     N; the K splits cover K exactly once, on 64-row steps (whole groups),
     on 256-row boundaries for coded weights (whole sup rows), with the
-    groups per split that G gives; the paired pass takes the same plan."""
+    groups per split that G gives; the paired pass takes the same plan. The
+    layout is the C++ one (`_cxx_mma_layout`): int4 holds its bias rows in
+    the stage and no side tile or group sums."""
     f = MMA_FORMS[form]
     for n, k in MMA_SHAPES.values():
         for g in _groups(f):
             p = _mma_plan(rows, k, n, g, f)
             assert p.smem_bytes == _mma_layout(rows, g, f, p.steps_per_split) <= 232448
+            assert p.smem_bytes == _cxx_mma_layout(rows, g, f, p.steps_per_split)
             assert p.cols == 256 and -(-n // p.cols) * p.cols >= n and p.stages == 3
             steps = k // 64
             assert p.splits * p.steps_per_split >= steps > (p.splits - 1) * p.steps_per_split
@@ -244,15 +268,22 @@ def test_mma_plan_fills_the_card(name, rows):
 
 
 def test_mma_plan_refuses_shapes_the_body_cannot_take():
+    """Rows outside 1-64, K % 64, N % 16 (N % 256 paired), G outside (8,
+    16, 32), and int4 at G = 8 (qmm_i4's groups are 16 and 32); int4 at G
+    16 and 32 is taken."""
     f = MMA_FORMS["packed_f32"]
+    i4 = TC_FORMS["int4_f32_bias"]
     for b, k, n, g in ((0, 512, 256, 32), (65, 512, 256, 32), (6, 288, 256, 32),
                        (6, 512, 264, 32), (6, 512, 256, 64)):
-        with pytest.raises(ValueError, match="small-row"):
-            _mma_plan(b, k, n, g, f)
+        for form in (f, i4):
+            with pytest.raises(ValueError, match="small-row"):
+                _mma_plan(b, k, n, g, form)
     with pytest.raises(ValueError, match="small-row"):
         _mma_plan(6, 512, 384, 32, f, paired=True)  # gate/up halves of 128 columns
     with pytest.raises(ValueError, match="small-row"):
-        _mma_plan(6, 512, 256, 32, TC_FORMS["int4_f32_bias"])
+        _mma_plan(6, 512, 256, 8, i4)
+    for g in (16, 32):
+        assert _mma_plan(6, 512, 256, g, i4).splits >= 1
 
 
 # (N, K) of every 1-row product on the decode paths: the target's, the fused
@@ -260,7 +291,7 @@ def test_mma_plan_refuses_shapes_the_body_cannot_take():
 GEMV_SHAPES = {**MMA_SHAPES, "draft_wqkv": (12288, 4096)}
 
 
-@pytest.mark.parametrize("form", sorted(MMA_FORMS))
+@pytest.mark.parametrize("form", sorted(GEMV_FORMS))
 def test_gemv_plan_fits_and_covers(form):
     """The 1-row body's plan: shared memory within 227 KB and equal to the
     layout, 3 ring stages (2 where 3 do not fit); the column tiles cover N;
@@ -268,7 +299,7 @@ def test_gemv_plan_fits_and_covers(form):
     cover K exactly once, on 64-row steps (whole groups), on 256-row
     boundaries for coded weights (whole sup rows), with the groups per split
     that G gives."""
-    f = MMA_FORMS[form]
+    f = GEMV_FORMS[form]
     for n, k in GEMV_SHAPES.values():
         for g in _groups(f):
             p = _gemv_plan(k, n, g, f)
@@ -290,7 +321,7 @@ def test_gemv_plan_fills_the_card(name):
     n, k = GEMV_SHAPES[name]
     if n * k < 4096 * 4096:
         return  # the small test shapes have fewer tiles x steps than SMs
-    for f in MMA_FORMS.values():
+    for f in GEMV_FORMS.values():
         p = _gemv_plan(k, n, 32, f)
         tiles = -(-n // p.cols)
         units = k // 64 // (4 if f.coded else 1)
@@ -303,7 +334,7 @@ def test_gemv_plan_refuses_shapes_the_body_cannot_take():
     """The 1-row body refuses K % 64 != 0, N % 16 != 0, G outside (8, 16, 32)
     and int4 weights, and `_route` sends none of them there, nor more than
     one row."""
-    f = MMA_FORMS["packed_f32"]
+    f = GEMV_FORMS["packed_f32"]
     for k, n, g in ((288, 256, 32), (512, 264, 32), (512, 256, 64)):
         with pytest.raises(ValueError, match="gemv"):
             _gemv_plan(k, n, g, f)
