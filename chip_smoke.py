@@ -52,31 +52,43 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    bf16 KV cache, max_seq 1024; a 300-token prompt (bucket 512, prefill
    kernel), then 64 decoded tokens; EAGLE_TPU_FUSED_FFN unset.
 4. the EAGLE chain engine at full width with a full-width synthetic draft,
-   K = 5, 64 new tokens; its tokens are compared with phase 3's, and where
-   they differ the target's top-2 logit margin there must be within 1e-2 of
-   the logit range (a bf16 near-tie, not a divergence).
-5. the launch counts of qmm_gemv (qmm's 1-row body), qmm_tc (its wgmma
-   body), qmm_mma (its small-row body), flash_decode and flash_prefill over
-   the phase 3-4 runs (each > 0; the fused FFN kernels 0; qmm_gemv exactly
-   129 per greedily decoded token and the SIMT qmm body 0; qmm_tc exactly
-   129 for the greedy prompt, and more for the EAGLE prompt, whose draft
-   also runs at 512 rows; qmm_mma 0 for greedy and exactly 129 per EAGLE
-   verify cycle; the draft's 1-row products printed) and the plain
-   versions' (each 0); then, outside the counted runs, 8 more greedy decode
-   steps timed on the host clock and traced with torch.profiler (device
-   busy share, kernels per token, the kernels that take the time).
+   K = 5, 64 new tokens. Phases 3-4 run `serve_cell`: greedy and EAGLE,
+   each eager (`cuda_graphs=False`) and graphed (one CUDA graph replay per
+   decode step and per dispatch of EAGLE cycles, `runtime/graphs.py`), EAGLE
+   graphed at 1 and 4 cycles per dispatch; the graphed engines are warmed
+   first (their graphs captured at the runs' buckets), then every variant
+   is timed 3 times (min / median / max of tokens/s, TTFT and wall ms per
+   token or cycle: the host's spread). Graphed tokens must equal eager
+   tokens bit for bit, greedy and EAGLE alike, and no step or cycle of a
+   graphed engine may run eagerly after the warm-up. EAGLE's tokens are
+   compared with greedy's, and where they differ the target's top-2 logit
+   margin there must be within 1e-2 of the logit range (a bf16 near-tie,
+   not a divergence). The graphed step's and cycle's device ms come from
+   CUDA events around back-to-back replays, beside the wall ms and the idle
+   share; the eager step is traced with torch.profiler (device busy share,
+   kernels per token, the kernels that take the time).
+5. the launch counts, read from zero for every run, replays counted as
+   launches: per greedily decoded token exactly 129 qmm_gemv (qmm's 1-row
+   body) and no SIMT qmm, eager and graphed; per EAGLE cycle computed
+   exactly 129 qmm_mma (its small-row body); qmm_tc (its wgmma body)
+   exactly 129 for the greedy prompt, and more for the EAGLE prompt, whose
+   draft also runs at 512 rows; qmm_mma 0 for greedy; the draft's 1-row
+   products printed; qmm_gemv, qmm_tc, qmm_mma, flash_decode and
+   flash_prefill each > 0 over the default path (graphed greedy + graphed
+   EAGLE at 1 cycle per dispatch, counted together: the main path of the
+   `kernels` line), the fused FFN kernels 0, the plain versions 0.
 6. the GGUF path at full width and depth: a Vicuna-7B-shape Q4_0 GGUF
    (3.8 GB, laid out as llama-quantize's Q4_0) and an EAGLE Q8_0 draft
    (0.39 GB) minted with random blocks into a temporary directory (free
    space logged, files deleted after the load), loaded with the repack on
    the card (read / upload / repack times, device memory), five tensors
    checked bit for bit against the CPU repack of the same bytes, then
-   greedy and the EAGLE chain engine with EAGLE_TPU_FUSED_FFN=1 and again
-   unfused, each with its launch counts (fused kernels > 0 only when on;
-   per greedily decoded token 65 qmm_gemv, 32 ffn_out_norm and 32
-   gate_up_act fused, 129 qmm_gemv unfused; qmm_mma 65 per verify cycle
-   fused and 129 unfused; plain versions 0) and
-   decode profile; EAGLE = greedy and fused = unfused tokens up to the
+   `serve_cell` with EAGLE_TPU_FUSED_FFN=1 and again unfused (per greedily
+   decoded token 65 qmm_gemv, 32 ffn_out_norm and 32 gate_up_act fused,
+   129 qmm_gemv unfused; qmm_mma 65 per cycle fused and 129 unfused; fused
+   kernels > 0 only when on; plain versions 0), whether the fused block
+   pays under graphs (graphed device ms per token and median tokens/s,
+   fused against unfused), and fused = unfused greedy tokens up to the
    near-tie rule.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
@@ -822,12 +834,15 @@ VERIFY_QMM_FUSED = 32 * 2 + 1  # with the fused FFN block: wqkv, w_down, lm_head
 
 def timed_run(run):
     """run(on_token) -> (result, TTFT s, seconds after the first token,
-    launch counts at the first token)."""
+    launch counts at the first token, ms the host spent in Python's garbage
+    collector during the run)."""
+    import gc
+
     import torch
 
     from eagle_tpu_torch import _build
 
-    marks = {}
+    marks = {"gc_ms": 0.0}
 
     def on_token(_):
         if "first" not in marks:
@@ -835,12 +850,23 @@ def timed_run(run):
             marks["first"] = time.perf_counter()
             marks["counts"] = dict(_build.launches)
 
+    def on_gc(phase, _info):
+        if phase == "start":
+            marks["gc_start"] = time.perf_counter()
+        elif "gc_start" in marks:
+            marks["gc_ms"] += (time.perf_counter() - marks.pop("gc_start")) * 1e3
+
     torch.cuda.synchronize()
-    start = time.perf_counter()
-    result = run(on_token)
-    torch.cuda.synchronize()
-    end = time.perf_counter()
-    return result, marks["first"] - start, end - marks["first"], marks["counts"]
+    gc.callbacks.append(on_gc)
+    try:
+        start = time.perf_counter()
+        result = run(on_token)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        gc.callbacks.remove(on_gc)
+    return (result, marks["first"] - start, end - marks["first"], marks["counts"],
+            marks["gc_ms"])
 
 
 def check_near_tie(gen, prompt, want: list, got: list, tag: str, what: str) -> dict | None:
@@ -909,14 +935,290 @@ def profile_decode(gen, token: int, pos: int, steps: int = 8) -> dict:
             "idle_share": 1 - busy_us / wall_us, "kernels_per_token": n_kernels, "top": top}
 
 
+REPS = 3  # timed runs of each variant: min / median / max, the host's spread
+#: (name, graphed, cycles per dispatch; None for greedy); the first two are
+#: the user's default path (graphs on, C = 1), counted together
+VARIANTS = (("greedy graphed", True, None), ("eagle graphed C=1", True, 1),
+            ("greedy eager", False, None), ("eagle eager C=1", False, 1),
+            ("eagle graphed C=4", True, 4))
+
+
+def spread(xs: list) -> dict:
+    s = sorted(xs)
+    return {"min": s[0], "median": s[len(s) // 2], "max": s[-1], "in_run_order": xs}
+
+
+def fmt(s: dict, digits: int = 2) -> str:
+    return f"{s['min']:.{digits}f} / {s['median']:.{digits}f} / {s['max']:.{digits}f}"
+
+
+class CardSampler:
+    """The card's SM and memory clocks (MHz), power draw (W) and temperature
+    (C), sampled by `nvidia-smi -lms 100` while the block runs: the clocks
+    and power beside a timed window. The process is stopped on exit."""
+
+    FIELDS = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={','.join(self.FIELDS)}",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:  # a field the card does not report
+                continue
+        self.summary = ({f: [min(r[i] for r in rows), max(r[i] for r in rows)]
+                         for i, f in enumerate(self.FIELDS)} if rows else None)
+        return False
+
+    def line(self) -> str:
+        if not self.summary:
+            return "clocks and power not measured"
+        s = self.summary
+        return (f"SM clock {s['clocks.sm'][0]:.0f}-{s['clocks.sm'][1]:.0f} MHz, memory clock "
+                f"{s['clocks.mem'][0]:.0f}-{s['clocks.mem'][1]:.0f} MHz, power "
+                f"{s['power.draw'][0]:.0f}-{s['power.draw'][1]:.0f} W, "
+                f"{s['temperature.gpu'][0]:.0f}-{s['temperature.gpu'][1]:.0f} C")
+
+
+def graphed_device_ms(gen, eng, prompt, token: int, pos: int, steps: int = 16,
+                      cycles: int = 8) -> dict:
+    """Device ms of the graphed bodies: CUDA events around back-to-back
+    replays of a decode step (`steps` of them from `pos`, in `windows`
+    windows; the median window is `step_ms`), and of an EAGLE cycle at 1
+    and 4 cycles per dispatch (`cycles` each, from a fresh prompt). The
+    events bracket the card's work, the gaps between a graph's kernels
+    included, as long as the host enqueues ahead of the card: beside them
+    the host's time until the replays were enqueued and until they ended,
+    and one step's enqueue after a synchronize. No body may run eagerly
+    here (every graph is warm)."""
+    import torch
+
+    from eagle_tpu_torch.runtime.sampling import SamplerConfig
+
+    def events(name, fn, n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        enqueued = time.perf_counter()
+        end.record()
+        end.synchronize()
+        out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        out[f"{name}_enqueue_ms"] = (enqueued - t0) * 1e3 / n
+        out[f"{name}_ms"] = start.elapsed_time(end) / n
+
+    eager = gen.graphs.eager, eng.graphs.eager
+    tok = torch.tensor([token], dtype=torch.int32, device="cuda")
+    scfg = SamplerConfig(greedy=True)
+    limit = gen.kv_read_bucket(pos + steps)
+    out: dict = {}
+    windows = {"step_ms": [], "step_enqueue_ms": [], "step_wall_ms": []}
+    for _ in range(5):
+        events("step", lambda: gen._decode_chunk(tok, pos, scfg, steps, kv_limit=limit), steps)
+        for k in windows:
+            windows[k].append(out[k])
+    out.update({k: sorted(v)[len(v) // 2] for k, v in windows.items()})
+    out["step_windows"] = windows
+    launch = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen._decode_chunk(tok, pos, scfg, 1, kv_limit=limit)
+        launch.append((time.perf_counter() - t0) * 1e3)
+    out["step_launch_ms"] = min(launch)
+    for c in (1, 4):
+        eng.generate(prompt, max_new_tokens=1)  # the state reset, the prompt's first token
+        n_past = int(eng.state.n_past[0])
+        lim = eng.kv_read_bucket(n_past + c * (eng.K + 2))
+        if eng.kv_read_bucket(n_past + cycles * (eng.K + 2)) != lim:
+            raise AssertionError("the timed cycles would leave the warmed bucket")
+        events(f"cycle_c{c}",
+               lambda: [eng._multi_cycle(c, kv_limit=lim) for _ in range(cycles // c)], cycles)
+    if (gen.graphs.eager, eng.graphs.eager) != eager:
+        raise AssertionError("a body ran eagerly while the graphs were timed")
+    return out
+
+
+def serve_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, want_tok: dict,
+               per_cycle: int, fused: bool) -> dict:
+    """Greedy and the EAGLE chain engine (K = 5) on one model, eager and
+    graphed, each variant of VARIANTS timed REPS times. Every run's launch
+    counts are read from zero: per greedily decoded token they must equal
+    `want_tok`, per EAGLE cycle computed `per_cycle` qmm_mma, and no plain
+    version runs. Graphed tokens must equal eager tokens bit for bit, and no
+    step or cycle of a graphed engine may run eagerly after its warm-up."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.runtime.generate import Generator
+    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+
+    gens = {g: Generator(params, cfg, max_seq=1024, batch=1, kv_dtype=torch.bfloat16,
+                         compute_dtype=torch.bfloat16, eos_id=-1, cuda_graphs=g)
+            for g in (False, True)}
+    engs = {g: EagleChainEngine(params, draft, cfg, dcfg, n_draft=5, max_seq=1024,
+                                kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                eos_id=-1, cuda_graphs=g)
+            for g in (False, True)}
+    gens[False].generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)  # warm-up
+    engs[False].generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)
+    # the graphed engines' warm-up: each step and dispatch graph this cell
+    # replays is captured here, at the runs' own buckets
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # capture empties the cache too: count only what stays
+    reserved = torch.cuda.memory_reserved()
+    gens[True].generate(prompt, max_new_tokens=n_new, stop_at_eos=False)
+    for c in (1, 4):
+        engs[True].generate(prompt, max_new_tokens=n_new, stop_at_eos=False,
+                            cycles_per_dispatch=c)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    graph_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    warm = {"greedy": gens[True].graphs.eager, "eagle": engs[True].graphs.eager}
+    log(f"[{tag}] graphs captured in the warm-up: greedy {gens[True].graphs.captures}, "
+        f"EAGLE {engs[True].graphs.captures} (1 and 4 cycles per dispatch); device memory "
+        f"reserved by the warm-up (graph pools, output buffers): {graph_mib:.1f} MiB")
+
+    res: dict = {v[0]: {"ttft_ms": [], "tokens_per_s": [], "wall_ms_per_step": [], "gc_ms": []}
+                 for v in VARIANTS}
+    tokens: dict = {}
+    sampler = CardSampler()
+    with sampler:  # clocks and power beside the timed runs
+        for rep in range(REPS):
+            for name, graphed, cycles in VARIANTS:
+                if name != "eagle graphed C=1":  # the default path's two runs count together
+                    _build.reset_counts()
+                before = dict(_build.launches)
+                if cycles is None:
+                    gen = gens[graphed]
+                    toks, ttft, t_dec, at_first, gc_ms = timed_run(
+                        lambda cb: gen.generate(prompt, max_new_tokens=n_new, stop_at_eos=False,
+                                                on_token=cb))
+                    n_dec = len(toks) - 1
+                    per_token = {k: (_build.launches[k] - at_first[k]) / n_dec
+                                 for k in _build.launches}
+                    if any(per_token[k] != v for k, v in want_tok.items()):
+                        raise AssertionError(f"{tag} {name}: launches per decoded token "
+                                             f"{per_token}, expected {want_tok}")
+                    steps, stats = n_dec, None
+                    if rep == 0:
+                        res[name].update(launches_per_decoded_token=per_token,
+                                         launches_at_first_token=at_first)
+                else:
+                    eng = engs[graphed]
+                    run0 = eng.cycles_run
+                    (toks, stats), ttft, t_dec, _, gc_ms = timed_run(
+                        lambda cb: eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False,
+                                                on_token=cb, cycles_per_dispatch=cycles))
+                    steps = eng.cycles_run - run0  # cycles computed, overshoot included
+                    mma = _build.launches["qmm_mma"] - before["qmm_mma"]
+                    if mma != per_cycle * steps:
+                        raise AssertionError(f"{tag} {name}: {mma} qmm_mma launches in {steps} "
+                                             f"cycles, expected {per_cycle} each")
+                    if rep == 0:
+                        res[name].update(stats=stats, cycles_run=steps,
+                                         qmm_mma_per_cycle=mma / steps)
+                if any(_build.plain_calls.values()):
+                    raise AssertionError(f"{tag} {name}: plain versions ran: {_build.plain_calls}")
+                if len(toks) != n_new:
+                    raise AssertionError(f"{tag} {name}: {len(toks)} tokens, expected {n_new}")
+                res[name]["ttft_ms"].append(ttft * 1e3)
+                res[name]["tokens_per_s"].append((len(toks) - 1) / t_dec)
+                res[name]["wall_ms_per_step"].append(t_dec / steps * 1e3)
+                res[name]["gc_ms"].append(gc_ms)
+                if rep == 0:
+                    res[name]["launches"] = dict(_build.launches)
+                kind = "greedy" if cycles is None else "eagle"
+                if tokens.setdefault(kind, toks) != toks:
+                    raise AssertionError(f"{tag} {name} (run {rep}): tokens differ from the "
+                                         f"{kind} run before, bit for bit")
+    eager_after = {"greedy": gens[True].graphs.eager - warm["greedy"],
+                   "eagle": engs[True].graphs.eager - warm["eagle"]}
+    log(f"[{tag}] graphed tokens == eager tokens, bit for bit: greedy ({n_new}) and EAGLE "
+        f"C=1 and C=4 ({n_new}), {REPS} runs each; eager bodies after the warm-up: "
+        f"{eager_after} (replays: greedy {gens[True].graphs.replays}, EAGLE "
+        f"{engs[True].graphs.replays})")
+    if any(eager_after.values()):
+        raise AssertionError(f"{tag}: a graphed engine ran a body eagerly: {eager_after}")
+    main = res["eagle graphed C=1"]["launches"]  # the default path: greedy + EAGLE, graphed
+    for k in CORE_KERNELS:
+        if main[k] <= 0:
+            raise AssertionError(f"{tag}: kernel {k} was not launched on the default path")
+    if (main["ffn_out_norm"] > 0 and main["gate_up_act"] > 0) != fused or (
+            not fused and main["ffn_out_norm"]):
+        raise AssertionError(f"{tag}: fused FFN launches {main} with fused={fused}")
+
+    for name, _, cycles in VARIANTS:
+        r = res[name]
+        for key in ("ttft_ms", "tokens_per_s", "wall_ms_per_step"):
+            r[key] = spread(r[key])
+        extra = ""
+        if cycles:
+            st = r["stats"]
+            extra = (f", mean_accept_len {st['mean_accept_len']:.3f}, accept_rate "
+                     f"{st['accept_rate']:.3f}, {st['n_cycles']} cycles ({r['cycles_run']} "
+                     f"computed), qmm_mma {r['qmm_mma_per_cycle']:.0f} per cycle")
+        order = ", ".join(f"{v:.2f}" for v in r["tokens_per_s"]["in_run_order"])
+        extra += (", Python's garbage collector " + " / ".join(f"{v:.1f}" for v in r["gc_ms"])
+                  + " ms (in run order)")
+        log(f"[{tag}] {name}: tokens/s min / median / max {fmt(r['tokens_per_s'])} ({order} "
+            f"in run order), TTFT ms "
+            f"{fmt(r['ttft_ms'], 1)}, wall ms per {'token' if cycles is None else 'cycle'} "
+            f"{fmt(r['wall_ms_per_step'])}{extra}")
+    per_token = res["greedy graphed"]["launches_per_decoded_token"]
+    log(f"[{tag}] launches per decoded token (graphed, replays counted): "
+        + ", ".join(f"{k} {per_token[k]:.1f}" for k in (*want_tok, "flash_decode")))
+
+    greedy = tokens["greedy"]
+    dev = graphed_device_ms(gens[True], engs[True], prompt, greedy[-1], len(prompt) + n_new - 1)
+    wall_tok = res["greedy graphed"]["wall_ms_per_step"]["median"]
+    wall_cyc = {c: res[f"eagle graphed C={c}"]["wall_ms_per_step"]["median"] for c in (1, 4)}
+    # idle: 1 - device / wall of the median timed run (the device time comes
+    # from the replays above, so within about 1 % of noise it may read < 0)
+    dev["idle_share_decode"] = 1 - dev["step_ms"] / wall_tok
+    for c in (1, 4):
+        dev[f"idle_share_eagle_c{c}"] = 1 - dev[f"cycle_c{c}_ms"] / wall_cyc[c]
+    log(f"[{tag}] graphed decode step: device {dev['step_ms']:.3f} ms/token (CUDA events over "
+        f"16 replays; host wall {dev['step_wall_ms']:.3f}), wall {wall_tok:.3f} ms/token "
+        f"(median run), idle {100 * dev['idle_share_decode']:.1f}%; EAGLE cycle: device "
+        f"{dev['cycle_c1_ms']:.3f} ms (C=1) / {dev['cycle_c4_ms']:.3f} ms (C=4) (host wall "
+        f"{dev['cycle_c1_wall_ms']:.3f} / {dev['cycle_c4_wall_ms']:.3f}), wall "
+        f"{wall_cyc[1]:.3f} / {wall_cyc[4]:.3f} ms (median runs), idle "
+        f"{100 * dev['idle_share_eagle_c1']:.1f}% / {100 * dev['idle_share_eagle_c4']:.1f}%")
+    w = dev["step_windows"]
+    log(f"[{tag}] graphed step, 5 windows of 16 replays: device "
+        + " / ".join(f"{v:.3f}" for v in w["step_ms"]) + " ms, host enqueued after "
+        + " / ".join(f"{v:.3f}" for v in w["step_enqueue_ms"]) + " ms, ended after "
+        + " / ".join(f"{v:.3f}" for v in w["step_wall_ms"])
+        + f" ms per step; one step enqueued in {dev['step_launch_ms']:.3f} ms after a "
+        f"synchronize (min of 5)")
+    log(f"[{tag}] the card over the timed runs: {sampler.line()}")
+    return dict(variants=res, graphed_device=dev, graph_warmup_mib=graph_mib,
+                card_during_runs=sampler.summary,
+                greedy_tokens=greedy,
+                eagle_tokens=tokens["eagle"], eager_after_warmup=eager_after,
+                eagle_vs_greedy=check_near_tie(gens[False], prompt, greedy, tokens["eagle"],
+                                               tag, "EAGLE vs greedy"),
+                eager_decode_profile=profile_decode(gens[False], greedy[-1],
+                                                    len(prompt) + n_new - 1),
+                gen=gens[False])
+
+
 def main_path(report: dict) -> dict:
     import numpy as np
     import torch
 
-    from eagle_tpu_torch import _build
     from eagle_tpu_torch.models.synth import VICUNA_7B, synth_eagle_params, synth_llama_params
-    from eagle_tpu_torch.runtime.generate import Generator
-    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
 
     os.environ.pop("EAGLE_TPU_FUSED_FFN", None)  # the coded Q4_K path: unfused
     cfg = VICUNA_7B
@@ -929,71 +1231,34 @@ def main_path(report: dict) -> dict:
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=300)
     n_new = 65  # the prefill's token + 64 decoded
 
-    gen = Generator(params, cfg, max_seq=1024, batch=1, kv_dtype=torch.bfloat16,
-                    compute_dtype=torch.bfloat16, eos_id=-1)
-    eng = EagleChainEngine(params, draft, cfg, n_draft=5, max_seq=1024,
-                           kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=-1)
-    gen.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)  # warm-up
-    eng.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)
-    torch.cuda.synchronize()
-
-    _build.reset_counts()  # ---- main path: counts from here ----
     torch.cuda.reset_peak_memory_stats()
-    greedy, ttft, t_dec, at_first = timed_run(
-        lambda cb: gen.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
-    counts_greedy = dict(_build.launches)
+    cell = serve_cell("q4_k", params, draft, cfg, None, prompt, n_new,
+                      {"qmm_gemv": DECODE_QMM, "qmm": 0}, VERIFY_QMM, fused=False)
     peak = torch.cuda.max_memory_allocated()
-    (spec, stats), e_ttft, e_dec, _ = timed_run(
-        lambda cb: eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
-    launches = dict(_build.launches)
-    plain = dict(_build.plain_calls)  # ---- main path ends ----
-
-    n_dec = len(greedy) - 1
-    per_token = {k: (counts_greedy[k] - at_first[k]) / n_dec for k in launches}
-    dec_tps = n_dec / t_dec
-    eagle_tps = (len(spec) - 1) / e_dec
-    log(f"[greedy] prompt {len(prompt)} (bucket 512), {n_dec} decoded: TTFT {ttft * 1e3:.1f} ms, "
-        f"decode {dec_tps:.2f} tokens/s ({t_dec / n_dec * 1e3:.2f} ms/token), "
-        f"peak {peak / 2**30:.2f} GiB")
-    log(f"[eagle] K=5: TTFT {e_ttft * 1e3:.1f} ms, {len(spec) - 1} tokens after the first in "
-        f"{e_dec * 1e3:.1f} ms = {eagle_tps:.2f} tokens/s, mean_accept_len "
-        f"{stats['mean_accept_len']:.3f}, accept_rate {stats['accept_rate']:.3f}, "
-        f"cycles {stats['n_cycles']}")
-    log(f"[launches] phases 3-4: {launches}; plain versions: {plain}; "
-        f"per decoded token (greedy): {per_token}")
+    log(f"[q4_k] peak device memory over the cell (eager and graphed greedy and EAGLE "
+        f"engines, max_seq 1024): {peak / 2**30:.2f} GiB")
+    gen = cell.pop("gen")
+    res = cell["variants"]
+    at_first = res["greedy graphed"]["launches_at_first_token"]
+    counts_greedy = res["greedy graphed"]["launches"]
+    launches = res["eagle graphed C=1"]["launches"]  # greedy + EAGLE, the default path
+    log(f"[launches] phases 3-4 (graphed greedy + EAGLE C=1, replays counted): {launches}")
     log(f"[launches] greedy prompt (300 tokens, bucket 512): qmm_tc {at_first['qmm_tc']}, "
         f"qmm {at_first['qmm']}; EAGLE prompt and decode: qmm_tc "
-        f"{launches['qmm_tc'] - counts_greedy['qmm_tc']}")
+        f"{launches['qmm_tc'] - counts_greedy['qmm_tc']}; greedy qmm_mma "
+        f"{counts_greedy['qmm_mma']}")
     if at_first["qmm_tc"] != PROMPT_QMM:
         raise AssertionError(f"greedy prompt: {at_first['qmm_tc']} tensor-core qmm launches, "
                              f"expected {PROMPT_QMM}")
     if launches["qmm_tc"] - counts_greedy["qmm_tc"] <= PROMPT_QMM:
         raise AssertionError("EAGLE prompt: the draft's prompt products missed the tensor-core body")
-    verify_mma = launches["qmm_mma"] - counts_greedy["qmm_mma"]
-    log(f"[launches] EAGLE: qmm_mma {verify_mma} over {stats['n_cycles']} verify cycles "
-        f"({verify_mma / max(1, stats['n_cycles']):.1f} per cycle); greedy: qmm_mma "
-        f"{counts_greedy['qmm_mma']}")
-    if counts_greedy["qmm_mma"] or verify_mma != VERIFY_QMM * stats["n_cycles"]:
-        raise AssertionError(f"qmm_mma: {counts_greedy['qmm_mma']} greedy launches, {verify_mma} "
-                             f"in {stats['n_cycles']} verify cycles (expected {VERIFY_QMM} each)")
+    if counts_greedy["qmm_mma"]:
+        raise AssertionError(f"greedy decode ran {counts_greedy['qmm_mma']} qmm_mma launches")
     eagle_gemv = launches["qmm_gemv"] - counts_greedy["qmm_gemv"]
-    log(f"[launches] greedy decode per token: qmm_gemv {per_token['qmm_gemv']:.1f}, SIMT qmm "
-        f"{per_token['qmm']:.1f}; EAGLE (the draft's 1-row products): qmm_gemv {eagle_gemv} over "
-        f"{stats['n_cycles']} cycles ({eagle_gemv / max(1, stats['n_cycles']):.1f} per cycle), "
-        f"SIMT qmm {launches['qmm'] - counts_greedy['qmm']}")
-    if per_token["qmm_gemv"] != DECODE_QMM or per_token["qmm"]:
-        raise AssertionError(f"greedy decode: {per_token['qmm_gemv']} qmm_gemv and "
-                             f"{per_token['qmm']} SIMT qmm launches per token, expected "
-                             f"{DECODE_QMM} and 0")
-    for k in CORE_KERNELS:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    if launches["ffn_out_norm"] or launches["gate_up_act"]:
-        raise AssertionError(f"fused FFN kernels ran on the unfused coded path: {launches}")
-    if any(plain.values()):
-        raise AssertionError(f"plain versions ran on the main path: {plain}")
-    if len(greedy) != n_new or len(spec) != n_new:
-        raise AssertionError(f"expected {n_new} tokens, got {len(greedy)} / {len(spec)}")
+    n_cyc = res["eagle graphed C=1"]["cycles_run"]
+    log(f"[launches] EAGLE (the draft's 1-row products): qmm_gemv {eagle_gemv} over {n_cyc} "
+        f"cycles ({eagle_gemv / n_cyc:.1f} per cycle), SIMT qmm "
+        f"{launches['qmm'] - counts_greedy['qmm']}")
 
     # the prompt's logits: finite, of the expected shape, and the first token
     t = 512
@@ -1003,20 +1268,13 @@ def main_path(report: dict) -> dict:
                                 torch.tensor([len(prompt)], dtype=torch.int32, device="cuda"), t)
     if tuple(logits.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite")
-    if int(logits.argmax()) != greedy[0]:
+    if int(logits.argmax()) != cell["greedy_tokens"][0]:
         raise AssertionError("prefill is not deterministic: first token differs")
 
-    divergence = check_near_tie(gen, prompt, greedy, spec, "eagle", "EAGLE vs greedy")
-
-    profile = profile_decode(gen, greedy[-1], len(prompt) + n_new - 1)
     report["main_path"] = dict(
-        ttft_ms=ttft * 1e3, decode_tokens_per_s=dec_tps, decode_ms_per_token=t_dec / n_dec * 1e3,
-        peak_gib=peak / 2**30, eagle_ttft_ms=e_ttft * 1e3, eagle_tokens_per_s=eagle_tps,
-        eagle_stats=stats, launches=launches, launches_per_decoded_token=per_token,
-        launches_at_first_token=at_first,
-        plain_calls=plain, divergence=divergence, greedy_tokens=greedy, eagle_tokens=spec,
-        decode_profile=profile,
-    )
+        cell, peak_gib=peak / 2**30, launches=launches,
+        launches_per_decoded_token=res["greedy graphed"]["launches_per_decoded_token"],
+        launches_at_first_token=at_first)
     return launches
 
 
@@ -1169,20 +1427,20 @@ def check_repack(target: pathlib.Path, params: dict) -> list[str]:
 
 def gguf_path(report: dict) -> dict:
     """Mint, load and serve the Q4_0 target and the Q8_0 draft at full
-    Vicuna-7B width and depth: greedy and the EAGLE chain engine with the
-    fused FFN block (EAGLE_TPU_FUSED_FFN=1), then both again unfused. Returns
-    the fused run's launch counts."""
+    Vicuna-7B width and depth: `serve_cell` (greedy and the EAGLE chain
+    engine, eager and graphed) with the fused FFN block
+    (EAGLE_TPU_FUSED_FFN=1), then again unfused, and whether the fused
+    block pays under graphs. Returns the fused default path's launch
+    counts."""
     import shutil
     import tempfile
 
     import numpy as np
     import torch
 
-    from eagle_tpu_torch import _build
     from eagle_tpu_torch.models.loader import load_eagle_params, load_llama_params
     from eagle_tpu_torch.quant.serving import prepare_params_for_serving
     from eagle_tpu_torch.runtime.generate import Generator
-    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
 
     torch.cuda.empty_cache()
     out: dict = {}
@@ -1225,69 +1483,30 @@ def gguf_path(report: dict) -> dict:
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=300)
     n_new = 65
     runs = {}
-    fused_launches = None
     for mode in ("1", "0"):
         if mode == "1":
             os.environ["EAGLE_TPU_FUSED_FFN"] = "1"
         else:
             os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
-        tag = "fused" if mode == "1" else "unfused"
-        gen = Generator(params, cfg, max_seq=1024, batch=1, kv_dtype=torch.bfloat16,
-                        compute_dtype=torch.bfloat16, eos_id=-1)
-        eng = EagleChainEngine(params, draft, cfg, dcfg, n_draft=5, max_seq=1024,
-                               kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=-1)
-        gen.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)  # warm-up
-        eng.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)
-        _build.reset_counts()  # ---- this path: counts from here ----
-        greedy, ttft, t_dec, at_first = timed_run(
-            lambda cb: gen.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
-        counts_greedy = dict(_build.launches)
-        (spec, stats), e_ttft, e_dec, _ = timed_run(
-            lambda cb: eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False, on_token=cb))
-        launches, plain = dict(_build.launches), dict(_build.plain_calls)  # ---- ends ----
-        n_dec = len(greedy) - 1
-        per_token = {k: (counts_greedy[k] - at_first[k]) / n_dec for k in launches}
-        log(f"[gguf {tag}] greedy: TTFT {ttft * 1e3:.1f} ms, decode {n_dec / t_dec:.2f} tokens/s "
-            f"({t_dec / n_dec * 1e3:.2f} ms/token); EAGLE K=5: TTFT {e_ttft * 1e3:.1f} ms, "
-            f"{(len(spec) - 1) / e_dec:.2f} tokens/s, mean_accept_len "
-            f"{stats['mean_accept_len']:.3f}, cycles {stats['n_cycles']}")
-        log(f"[gguf {tag}] launches {launches}; plain versions {plain}; per decoded token "
-            f"(greedy) {per_token}")
-        if len(greedy) != n_new or len(spec) != n_new:
-            raise AssertionError(f"expected {n_new} tokens, got {len(greedy)} / {len(spec)}")
-        if any(plain.values()):
-            raise AssertionError(f"plain versions ran on the GGUF path: {plain}")
-        for k in CORE_KERNELS:
-            if launches[k] <= 0:
-                raise AssertionError(f"kernel {k} was not launched on the GGUF path")
+        tag = "gguf fused" if mode == "1" else "gguf unfused"
         want_tok = {"qmm_gemv": DECODE_QMM_FUSED if mode == "1" else DECODE_QMM,
                     "ffn_out_norm": 32 if mode == "1" else 0,
-                    "gate_up_act": 32 if mode == "1" else 0}
-        log(f"[gguf {tag}] greedy decode per token: "
-            + ", ".join(f"{k} {per_token[k]:.1f}" for k in (*want_tok, "qmm"))
-            + f"; EAGLE qmm_gemv {launches['qmm_gemv'] - counts_greedy['qmm_gemv']}, SIMT qmm "
-            f"{launches['qmm'] - counts_greedy['qmm']}")
-        if any(per_token[k] != v for k, v in want_tok.items()):
-            raise AssertionError(f"{tag}: launches per decoded token {per_token}, expected {want_tok}")
-        per_cycle = VERIFY_QMM_FUSED if mode == "1" else VERIFY_QMM
-        if launches["qmm_mma"] != per_cycle * stats["n_cycles"]:
-            raise AssertionError(f"{tag}: {launches['qmm_mma']} qmm_mma launches in "
-                                 f"{stats['n_cycles']} verify cycles, expected {per_cycle} each")
-        fused_kernels = launches["ffn_out_norm"] > 0 and launches["gate_up_act"] > 0
-        if fused_kernels != (mode == "1") or (mode == "0" and launches["ffn_out_norm"]):
-            raise AssertionError(f"EAGLE_TPU_FUSED_FFN={mode}: fused FFN launches {launches}")
-        if mode == "1":
-            fused_launches = launches
-        runs[tag] = dict(
-            ttft_ms=ttft * 1e3, decode_tokens_per_s=n_dec / t_dec,
-            decode_ms_per_token=t_dec / n_dec * 1e3, eagle_ttft_ms=e_ttft * 1e3,
-            eagle_tokens_per_s=(len(spec) - 1) / e_dec, eagle_stats=stats, launches=launches,
-            launches_per_decoded_token=per_token, greedy_tokens=greedy, eagle_tokens=spec,
-            eagle_vs_greedy=check_near_tie(gen, prompt, greedy, spec, f"gguf {tag}",
-                                           "EAGLE vs greedy"),
-            decode_profile=profile_decode(gen, greedy[-1], len(prompt) + n_new - 1),
-        )
-        del gen, eng
+                    "gate_up_act": 32 if mode == "1" else 0, "qmm": 0}
+        cell = serve_cell(tag, params, draft, cfg, dcfg, prompt, n_new, want_tok,
+                          VERIFY_QMM_FUSED if mode == "1" else VERIFY_QMM, fused=mode == "1")
+        cell.pop("gen")
+        runs[tag.split()[1]] = cell
+    fused_launches = runs["fused"]["variants"]["eagle graphed C=1"]["launches"]
+    dev = {k: runs[k]["graphed_device"]["step_ms"] for k in ("fused", "unfused")}
+    tps = {k: runs[k]["variants"]["greedy graphed"]["tokens_per_s"]["median"]
+           for k in ("fused", "unfused")}
+    out["fused_pays_under_graphs"] = dict(device_ms_per_token=dev, median_tokens_per_s=tps,
+                                          pays=dev["fused"] < dev["unfused"]
+                                          and tps["fused"] > tps["unfused"])
+    log(f"[gguf] fused FFN block under graphs: device {dev['fused']:.3f} ms/token fused vs "
+        f"{dev['unfused']:.3f} unfused, greedy median {tps['fused']:.2f} vs "
+        f"{tps['unfused']:.2f} tokens/s: "
+        + ("pays" if out["fused_pays_under_graphs"]["pays"] else "does not pay on both"))
     # the unfused generator is the reference for the fused one's tokens
     gen = Generator(params, cfg, max_seq=1024, batch=1, kv_dtype=torch.bfloat16,
                     compute_dtype=torch.bfloat16, eos_id=-1)

@@ -2,11 +2,15 @@
 eagle_tpu/runtime/generate.py: `pad_bucket`, `Generator` with `kv_read_bucket`,
 `_prefill`, `_decode_chunk`, `generate`).
 
-The reference runs each decode chunk as one compiled `lax.scan`; here a
-chunk is a Python loop of eager forwards whose tokens stay on the device
-until the chunk ends. Prompt lengths are bucketed to powers of two, as in
-the reference, so the two take the same shapes. Session files, context
-shift and self-extend are not ported yet."""
+The reference runs each decode chunk as one compiled `lax.scan`. Here the
+scan's carry (the token, its position and the chunk's tokens) lives in
+static device buffers, and one step is an in-place body over them: on the
+card it is one CUDA graph per attention-read bucket (`runtime/graphs.py`),
+replayed once a step with no host sync inside the chunk; on the CPU, or
+with `cuda_graphs=False`, the same body runs eagerly. The prompt runs
+eagerly. Prompt lengths are bucketed to powers of two, as in the
+reference, so the two take the same shapes. Session files, context shift
+and self-extend are not ported yet."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 from .._device import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import llama_forward
+from .graphs import StepGraphs
 from .kvcache import KVCache, causal_mask_from_tags
 from .sampling import SamplerConfig, check_greedy, sample
 
@@ -40,6 +45,7 @@ class Generator:
     compute_dtype: Any = torch.bfloat16
     eos_id: int = 2
     device: Any = "cuda"
+    cuda_graphs: bool = True  # replay each decode step as a CUDA graph on the card
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -47,6 +53,13 @@ class Generator:
             self.cfg.n_layers, self.batch, self.max_seq, self.cfg.n_kv_heads,
             self.cfg.head_dim, dtype=self.kv_dtype, device=self.device,
         )
+        # the scan's carry: the token to decode, its position, and the
+        # decoded token history (step at position p writes slot p)
+        b, dev = self.batch, self.device
+        self._tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self._pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self._hist = torch.zeros((b, self.max_seq), dtype=torch.int32, device=dev)
+        self.graphs = StepGraphs(self.cuda_graphs and dev.type == "cuda")
 
     def kv_read_bucket(self, slot_end: int) -> int:
         """Attention-read bound for a chunk whose highest written cache slot
@@ -70,25 +83,38 @@ class Generator:
         b_idx = torch.arange(b, device=self.device)
         return out.logits[b_idx, last], out.hidden[b_idx, last], out.kv
 
+    def _step(self, scfg: SamplerConfig, kv_limit: int | None) -> None:
+        """One decode step in place: the token in `_tok` at position `_pos`
+        goes through the model, its successor lands in `_tok` and in the
+        history at slot `_pos`, and `_pos` advances."""
+        p = self._pos[:, None]
+        self.kv.with_tags(p, p)
+        mask = causal_mask_from_tags(self.kv.slot_pos, p)
+        fo = llama_forward(
+            self.params, self.cfg, self._tok[:, None], p, self.kv, p, mask,
+            compute_dtype=self.compute_dtype, kv_limit=kv_limit,
+        )
+        nxt = sample(fo.logits[:, 0], scfg)
+        self._hist.scatter_(1, p.long(), nxt[:, None])
+        self._tok.copy_(nxt)
+        self._pos.add_(1)
+
     def _decode_chunk(self, first_token: torch.Tensor, start_pos: int,
                       scfg: SamplerConfig, n_steps: int,
                       kv_limit: int | None = None) -> torch.Tensor:
         """Decode `n_steps` tokens after `first_token` [B] at positions
-        start_pos.. (slot == position). Returns tokens [B, n_steps] on the
-        device."""
-        tok = first_token
-        toks = []
-        for i in range(n_steps):
-            p = torch.full((self.batch, 1), start_pos + i, dtype=torch.int32, device=self.device)
-            self.kv.with_tags(p, p)
-            mask = causal_mask_from_tags(self.kv.slot_pos, p)
-            fo = llama_forward(
-                self.params, self.cfg, tok[:, None], p, self.kv, p, mask,
-                compute_dtype=self.compute_dtype, kv_limit=kv_limit,
-            )
-            tok = sample(fo.logits[:, 0], scfg)
-            toks.append(tok)
-        return torch.stack(toks, dim=1)
+        start_pos.. (slot == position), one step body (or its graph's
+        replay) each. Returns tokens [B, n_steps] on the device."""
+        if not 0 <= start_pos <= self.max_seq - n_steps:
+            raise ValueError(f"steps at {start_pos}..{start_pos + n_steps} leave the "
+                             f"cache's {self.max_seq} slots")
+        self._tok.copy_(first_token)
+        self._pos.fill_(start_pos)
+        static = (self.kv.k, self.kv.v, self.kv.slot_pos, self._tok, self._pos, self._hist)
+        for _ in range(n_steps):
+            self.graphs.run(("step", kv_limit, scfg), lambda: self._step(scfg, kv_limit),
+                            static)
+        return self._hist[:, start_pos:start_pos + n_steps].clone()
 
     def generate(
         self,

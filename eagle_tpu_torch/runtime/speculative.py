@@ -1,7 +1,7 @@
 """EAGLE chain speculative decoding (port of
 eagle_tpu/runtime/speculative.py: `EagleChainEngine` with `fresh_state`,
-`_prefill`, the all-greedy `fast_greedy` branch of `_cycle`, and `generate`
-with one cycle per dispatch).
+`_prefill`, the all-greedy `fast_greedy` branch of `_cycle`, `_multi_cycle`
+and `generate` with `cycles_per_dispatch`).
 
 A cycle: K draft steps (feature autoregression) -> one verify forward over
 [last token + K drafts] -> exact-prefix greedy acceptance -> KV rollback by
@@ -12,10 +12,15 @@ position i; draft pair (x_i, f_{i-1}) lives at draft position i-1, f_j being
 the target hidden state at position j (post- or pre-final-norm per
 `feature_source`).
 
-The KV caches in the state are updated in place by each forward; rollback
-rewrites their tags in place. Stochastic acceptance, `_multi_cycle` /
-`cycles_per_dispatch` (a fix for a remote device link; CUDA graphs are the
-card's counterpart) and the batcher's per-row controls are not ported yet."""
+Unlike the functional reference, the engine keeps one `SpecState` for its
+life: `fresh_state` resets it in place, the prefill and every cycle write it
+in place (each forward writes its cache's K/V rows, rollback rewrites the
+tags), and a dispatch of C cycles writes its tokens into static [C, ...]
+buffers. So C chained cycles are one in-place body: on the card one CUDA
+graph per (C, attention-read bucket) (`runtime/graphs.py`), the reference's
+compiled `lax.scan`; on the CPU, or with `cuda_graphs=False`, the same body
+runs eagerly. The prompt runs eagerly. Stochastic acceptance and the
+batcher's per-row controls are not ported yet."""
 
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from ..models.config import ModelConfig
 from ..models.eagle import eagle_forward
 from ..models.llama import llama_forward
 from .generate import pad_bucket
+from .graphs import StepGraphs
 from .kvcache import KVCache, causal_mask_from_tags
 from .sampling import SamplerConfig, check_greedy, sample
 
@@ -45,9 +51,9 @@ class SpecState:
 
 class CycleOutput(NamedTuple):
     state: SpecState
-    tokens: torch.Tensor  # [B, K+1] output tokens (accepted drafts + correction)
-    n_out: torch.Tensor  # [B] how many of `tokens` are real output (n_acc + 1)
-    n_accepted: torch.Tensor  # [B] accepted draft tokens this cycle
+    tokens: torch.Tensor  # [C, B, K+1] output tokens (accepted drafts + correction)
+    n_out: torch.Tensor  # [C, B] how many of `tokens` are real output (n_acc + 1)
+    n_accepted: torch.Tensor  # [C, B] accepted draft tokens in each cycle
 
 
 class EagleChainEngine:
@@ -69,6 +75,7 @@ class EagleChainEngine:
         sampler: SamplerConfig | None = None,
         eos_id: int = 2,
         device="cuda",
+        cuda_graphs: bool = True,  # replay each dispatch as a CUDA graph on the card
     ):
         if feature_source not in ("post_norm", "pre_norm"):
             raise ValueError(f"feature_source {feature_source!r}")
@@ -85,6 +92,10 @@ class EagleChainEngine:
         self.scfg = sampler or SamplerConfig(greedy=True)
         check_greedy(self.scfg)
         self.eos_id = eos_id
+        self.state = self._new_state()  # static for the engine's life
+        self._outs: dict[int, CycleOutput] = {}  # static output buffers per C
+        self.graphs = StepGraphs(cuda_graphs and self.device.type == "cuda")
+        self.cycles_run = 0  # cycles computed, overshoot included
 
     def kv_read_bucket(self, slot_end: int) -> int:
         """Attention-read bound covering cache slots < slot_end."""
@@ -93,7 +104,7 @@ class EagleChainEngine:
     def _pick_feature(self, post: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
         return post if self.feature_source == "post_norm" else pre
 
-    def fresh_state(self) -> SpecState:
+    def _new_state(self) -> SpecState:
         b, dev = self.batch, self.device
         return SpecState(
             tgt_kv=KVCache.create(self.tcfg.n_layers, b, self.max_seq, self.tcfg.n_kv_heads,
@@ -105,12 +116,24 @@ class EagleChainEngine:
             n_past=torch.zeros((b,), dtype=torch.int32, device=dev),
         )
 
+    def fresh_state(self) -> SpecState:
+        """The engine's state, reset in place to a new one's: empty tags and
+        zeros."""
+        st = self.state
+        for kv in (st.tgt_kv, st.dft_kv):
+            kv.k.zero_()
+            kv.v.zero_()
+            kv.slot_pos.fill_(-1)
+        for t in (st.last_token, st.feature, st.n_past):
+            t.zero_()
+        return st
+
     def _prefill(self, state: SpecState, tokens: torch.Tensor, n_valid: torch.Tensor,
                  t: int) -> SpecState:
         """Target prefill over the padded prompt + draft prefill over the
-        shifted (token, feature) pairs; picks the first output token. The
-        prompt runs through the decode/verify attention at T = t (no
-        causal_tags_prefill), as in the reference."""
+        shifted (token, feature) pairs; picks the first output token, all in
+        `state` in place. The prompt runs through the decode/verify
+        attention at T = t (no causal_tags_prefill), as in the reference."""
         b = tokens.shape[0]
         positions = torch.arange(t, dtype=torch.int32, device=self.device).repeat(b, 1)
         valid = positions < n_valid[:, None]
@@ -135,19 +158,19 @@ class EagleChainEngine:
         )
         b_idx = torch.arange(b, device=self.device)
         last = (n_valid - 1).long()
-        return SpecState(
-            tgt_kv=tgt_kv, dft_kv=dft_kv,
-            last_token=sample(tout.logits[b_idx, last], self.scfg),
-            feature=feats[b_idx, last],
-            n_past=n_valid.to(torch.int32),
-        )
+        state.last_token.copy_(sample(tout.logits[b_idx, last], self.scfg))
+        state.feature.copy_(feats[b_idx, last])
+        state.n_past.copy_(n_valid)
+        return state
 
-    def _cycle(self, state: SpecState, kv_limit: int | None = None) -> CycleOutput:
+    def _cycle(self, state: SpecState, out: CycleOutput, ci: int,
+               kv_limit: int | None = None) -> None:
         """One greedy speculative cycle (the reference's `fast_greedy`
-        branch: argmax drafts, exact-match prefix acceptance)."""
+        branch: argmax drafts, exact-match prefix acceptance). Advances
+        `state` in place and writes row `ci` of `out`'s buffers."""
         b, K = self.batch, self.K
         b_idx = torch.arange(b, device=self.device)
-        m = state.n_past  # [B]
+        m = state.n_past  # [B]; overwritten last
 
         # ---- 1. draft K tokens (feature autoregression) ----
         tok, feat, dkv = state.last_token, state.feature, state.dft_kv
@@ -156,12 +179,12 @@ class EagleChainEngine:
             pos = (m - 1 + k)[:, None]  # draft position of this pair
             dkv.with_tags(pos, pos)
             mask = causal_mask_from_tags(dkv.slot_pos, pos)
-            out = eagle_forward(
+            dout = eagle_forward(
                 self.dp, self.tp, self.dcfg, tok[:, None], feat[:, None], pos,
                 dkv, pos, mask, compute_dtype=self.compute_dtype, kv_limit=kv_limit,
             )
-            tok = sample(out.logits[:, 0], self.scfg)
-            feat = self._pick_feature(out.feature, out.feature_pre)[:, 0]
+            tok = sample(dout.logits[:, 0], self.scfg)
+            feat = self._pick_feature(dout.feature, dout.feature_pre)[:, 0]
             drafts.append(tok)
         drafts = torch.stack(drafts, dim=1)  # [B, K]; drafts[:, k] = candidate for x_{m+1+k}
 
@@ -184,16 +207,53 @@ class EagleChainEngine:
         idx = n_acc.long()
         tgt_kv.rollback(keep_below=new_m)
         dkv.rollback(keep_below=new_m - 1)
-        new_state = SpecState(
-            tgt_kv=tgt_kv, dft_kv=dkv,
-            last_token=t_true[b_idx, idx], feature=feats[b_idx, idx], n_past=new_m,
-        )
-        return CycleOutput(state=new_state, tokens=t_true, n_out=n_acc + 1, n_accepted=n_acc)
+        out.tokens[ci].copy_(t_true)
+        out.n_out[ci].copy_(n_acc + 1)
+        out.n_accepted[ci].copy_(n_acc)
+        state.last_token.copy_(t_true[b_idx, idx])
+        state.feature.copy_(feats[b_idx, idx])
+        state.n_past.copy_(new_m)
+
+    def _multi_cycle(self, n_cycles: int, kv_limit: int | None = None) -> CycleOutput:
+        """`n_cycles` chained speculative cycles on the engine's state in ONE
+        dispatch (one graph replay on the card), the reference's scanned
+        `_multi_cycle`. Returns the state and the per-cycle outputs [C, B,
+        ...]; they are static buffers, overwritten by the next dispatch of
+        the same C. `kv_limit` must bound the LAST cycle's reads."""
+        out = self._outs.get(n_cycles)
+        if out is None:
+            b, dev = self.batch, self.device
+            out = CycleOutput(
+                state=self.state,
+                tokens=torch.zeros((n_cycles, b, self.K + 1), dtype=torch.int32, device=dev),
+                n_out=torch.zeros((n_cycles, b), dtype=torch.int32, device=dev),
+                n_accepted=torch.zeros((n_cycles, b), dtype=torch.int32, device=dev),
+            )
+            self._outs[n_cycles] = out
+        st = self.state
+
+        def body():
+            for ci in range(n_cycles):
+                self._cycle(st, out, ci, kv_limit=kv_limit)
+
+        static = (st.tgt_kv.k, st.tgt_kv.v, st.tgt_kv.slot_pos, st.dft_kv.k, st.dft_kv.v,
+                  st.dft_kv.slot_pos, st.last_token, st.feature, st.n_past, out.tokens,
+                  out.n_out, out.n_accepted)
+        self.graphs.run(("cycles", n_cycles, kv_limit), body, static)
+        self.cycles_run += n_cycles
+        return out
 
     def generate(self, prompt_tokens, max_new_tokens: int = 128, stop_at_eos: bool = True,
-                 on_token=None) -> tuple[list[int], dict]:
+                 on_token=None, cycles_per_dispatch: int | None = None) -> tuple[list[int], dict]:
         """Returns (tokens, stats). Output is identical to non-speculative
-        greedy decoding (the draft only changes speed)."""
+        greedy decoding (the draft only changes speed).
+
+        `cycles_per_dispatch` C > 1 chains C cycles in one dispatch
+        (`_multi_cycle`), as in the reference: stop conditions (eos,
+        max_new) are checked between dispatches, and the cycles after a stop
+        are computed and discarded, left out of the stats. Near `max_seq`
+        the dispatches wind down to single cycles. The reference's C = 1
+        branch is the same loop with one cycle."""
         state = self.fresh_state()
         prompt = np.asarray(prompt_tokens, dtype=np.int32)
         n = len(prompt)
@@ -210,22 +270,32 @@ class EagleChainEngine:
         if on_token:
             on_token(out[0])
         n_cycles = n_drafted = n_accepted = 0
+        C = max(1, cycles_per_dispatch or 1)
+        n_past = n  # state.n_past[0], followed on the host: no read of its own
         while len(out) < max_new_tokens and not (stop_at_eos and out[-1] == self.eos_id):
-            n_past = int(state.n_past[0])
             if n_past + self.K + 2 >= self.max_seq:
                 break
-            res = self._cycle(state, kv_limit=self.kv_read_bucket(n_past + self.K + 2))
-            state = res.state
-            toks = res.tokens[0].tolist()
-            k = int(res.n_out[0])
-            n_cycles += 1
-            n_drafted += self.K
-            n_accepted += int(res.n_accepted[0])
-            for tk in toks[:k]:
-                out.append(int(tk))
-                if on_token:
-                    on_token(int(tk))
-                if (stop_at_eos and tk == self.eos_id) or len(out) >= max_new_tokens:
+            # full C only if the LAST chained cycle stays in range; otherwise
+            # wind down to single cycles
+            c = C if n_past + C * (self.K + 2) < self.max_seq else 1
+            res = self._multi_cycle(c, kv_limit=self.kv_read_bucket(n_past + c * (self.K + 2)))
+            rows = torch.cat([res.tokens[:, 0], res.n_out[:, :1], res.n_accepted[:, :1]],
+                             dim=1).tolist()  # [c, K+3]: one read of the dispatch
+            n_past += sum(row[self.K + 1] for row in rows)  # each cycle: m + n_out
+            for row in rows:
+                toks, k, acc = row[: self.K + 1], row[self.K + 1], row[self.K + 2]
+                n_cycles += 1
+                n_drafted += self.K
+                n_accepted += acc
+                done = False
+                for tk in toks[:k]:
+                    out.append(tk)
+                    if on_token:
+                        on_token(tk)
+                    if (stop_at_eos and tk == self.eos_id) or len(out) >= max_new_tokens:
+                        done = True
+                        break
+                if done:
                     break
         stats = {
             "n_cycles": n_cycles,

@@ -12,8 +12,11 @@ caches, head_dim 64 and 128, GQA, key splits, s_limit, rows that see
 nothing), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
 scales, bias or none, G = 32, 16 and 8, SiLU / tanh-GELU, 1 to 64 rows,
 L = 1 and stacked, f32 and bf16 compute; at 1 bf16 row gate_up_act bit for
-bit against act(g) * u from qmm's sums), and greedy tokens of a tiny model
-on the card against the CPU, unfused and fused.
+bit against act(g) * u from qmm's sums), greedy tokens of a tiny model
+on the card against the CPU, unfused and fused, and the engines' CUDA
+graphs (graphed tokens equal to the eager path's bit for bit, greedy and
+EAGLE at 1 and 3 cycles per dispatch; replays counted as launches; a new
+cache or fused-FFN mode captures another graph).
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -35,7 +38,7 @@ import torch
 
 from eagle_tpu_torch import _build
 from eagle_tpu_torch.models.config import ModelConfig
-from eagle_tpu_torch.models.synth import synth_llama_params, synth_qtensor
+from eagle_tpu_torch.models.synth import synth_eagle_params, synth_llama_params, synth_qtensor
 from eagle_tpu_torch.ops import flash_attention as fa
 from eagle_tpu_torch.gguf.constants import GGMLType
 from eagle_tpu_torch.ops.ffn import (ffn_out_norm, ffn_out_norm_plain, gate_up_act,
@@ -44,7 +47,9 @@ from eagle_tpu_torch.ops.qmm import (_route, qmm, qmm_i4, qmm_i4_plain, qmm_i4_s
                                      qmm_plain, qmm_stacked, tc_form)
 from eagle_tpu_torch.quant.qtensor import Q4_K, Q6_K, QTensor, pack_int4
 from eagle_tpu_torch.runtime.generate import Generator
-from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+from eagle_tpu_torch.runtime.kvcache import KVCache, causal_mask_from_tags
+from eagle_tpu_torch.runtime.sampling import SamplerConfig
+from eagle_tpu_torch.runtime.speculative import EagleChainEngine
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -632,3 +637,108 @@ def test_tiny_greedy_fused_equals_unfused(cuda, monkeypatch):
         toks[mode] = gen.generate(prompt, max_new_tokens=24, stop_at_eos=False, chunk=8)
         assert (_build.launches["gate_up_act"] > 0) == (mode == "1")
     assert toks["0"] == toks["1"]
+
+
+# ---- one dispatch per decode step / group of EAGLE cycles (runtime/graphs.py)
+
+TINY_CFG = ModelConfig(vocab_size=512, n_embd=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                       head_dim=64, n_ff=512, rms_eps=1e-6, rope_dim=64)
+
+
+def _tiny_bf16(qtype=Q4_K, coded=True):
+    """A 2-layer target and its draft on the card, bf16 compute and cache:
+    the decode and draft products take the 1-row body, verify the small-row
+    one."""
+    tp = synth_llama_params(TINY_CFG, qtype=qtype, seed=3, packed=True, coded=coded,
+                            device="cuda")
+    dp = synth_eagle_params(TINY_CFG, qtype=qtype, seed=4, packed=True, device="cuda")
+    return tp, dp
+
+
+def _bf16_gen(params, graphed):
+    return Generator(params, TINY_CFG, max_seq=256, kv_dtype=torch.bfloat16,
+                     compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                     cuda_graphs=graphed)
+
+
+PROMPT = np.random.default_rng(0).integers(0, 512, size=21).tolist()
+
+
+def test_graphed_generator_equals_eager(cuda):
+    """Graphed greedy tokens equal the eager path's bit for bit, and
+    `_build.launches` after N replays is N times one eager step's."""
+    tp, _ = _tiny_bf16()
+    eager, graphed = _bf16_gen(tp, False), _bf16_gen(tp, True)
+    want = eager.generate(PROMPT, max_new_tokens=40, stop_at_eos=False, chunk=8)
+    got = graphed.generate(PROMPT, max_new_tokens=40, stop_at_eos=False, chunk=8)
+    assert got == want
+    assert graphed.graphs.captures == graphed.graphs.eager == 1  # one bucket (128)
+    assert graphed.graphs.replays == 38 and eager.graphs.eager == 39
+    scfg = SamplerConfig(greedy=True)
+    tok = torch.tensor([want[-1]], dtype=torch.int32, device="cuda")
+    pos = len(PROMPT) + 39
+    _build.reset_counts()
+    eager._decode_chunk(tok, pos, scfg, 1, kv_limit=128)
+    one = {k: v for k, v in _build.launches.items() if v}
+    assert one["qmm_gemv"] == 2 * 4 + 1 and one["flash_decode"] == 2
+    _build.reset_counts()
+    toks = graphed._decode_chunk(tok, pos, scfg, 7, kv_limit=128)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {k: 7 * v for k, v in one.items()}
+    assert graphed.graphs.eager == 1 and graphed.graphs.replays == 38 + 7
+    assert sum(_build.plain_calls.values()) == 0
+    assert toks[0, 0].item() == eager._decode_chunk(tok, pos, scfg, 1, kv_limit=128)[0, 0].item()
+
+
+@pytest.mark.parametrize("cycles", [1, 3])
+def test_graphed_chain_engine_equals_eager(cuda, cycles):
+    """Graphed EAGLE tokens and stats at C cycles per dispatch equal the
+    eager C = 1 run's; after the warm-up no cycle runs eagerly, and at C = 1
+    a graphed run counts the eager run's launches."""
+    tp, dp = _tiny_bf16()
+
+    def engine(graphed):
+        return EagleChainEngine(tp, dp, TINY_CFG, n_draft=3, max_seq=256,
+                                kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                eos_id=-1, device="cuda", cuda_graphs=graphed)
+
+    eager, graphed = engine(False), engine(True)
+    _build.reset_counts()
+    want = eager.generate(PROMPT, max_new_tokens=30, stop_at_eos=False)
+    eager_launches = dict(_build.launches)
+    graphed.generate(PROMPT, max_new_tokens=30, stop_at_eos=False, cycles_per_dispatch=cycles)
+    warm = graphed.graphs.eager
+    _build.reset_counts()
+    got = graphed.generate(PROMPT, max_new_tokens=30, stop_at_eos=False,
+                           cycles_per_dispatch=cycles)
+    assert got == want
+    assert graphed.graphs.eager == warm and graphed.graphs.replays > 0
+    assert _build.launches["qmm_mma"] > 0 and sum(_build.plain_calls.values()) == 0
+    if cycles == 1:
+        assert dict(_build.launches) == eager_launches
+
+
+def test_graph_recaptures_on_a_new_cache(cuda):
+    tp, _ = _tiny_bf16()
+    gen = _bf16_gen(tp, True)
+    want = gen.generate(PROMPT, max_new_tokens=20, stop_at_eos=False, chunk=8)
+    assert gen.graphs.captures == 1
+    gen.kv = KVCache.create(TINY_CFG.n_layers, 1, 256, TINY_CFG.n_kv_heads, TINY_CFG.head_dim,
+                            torch.bfloat16, device="cuda")
+    assert gen.generate(PROMPT, max_new_tokens=20, stop_at_eos=False, chunk=8) == want
+    assert gen.graphs.captures == 2 and gen.graphs.eager == 2
+
+
+def test_graph_per_fused_ffn_mode(cuda, monkeypatch):
+    """EAGLE_TPU_FUSED_FFN is read while a step is captured: switching it
+    takes another graph, and switching back replays the first."""
+    tp, _ = _tiny_bf16(Q4_0, coded=False)
+    gen = _bf16_gen(tp, True)
+    toks = []
+    for mode in ("0", "1", "0"):
+        monkeypatch.setenv("EAGLE_TPU_FUSED_FFN", mode)
+        _build.reset_counts()
+        toks.append(gen.generate(PROMPT, max_new_tokens=20, stop_at_eos=False, chunk=8))
+        assert (_build.launches["gate_up_act"] > 0) == (mode == "1")
+    assert gen.graphs.captures == 2 and gen.graphs.replays == 3 * 19 - 2
+    assert toks[0] == toks[2]
