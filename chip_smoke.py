@@ -13,7 +13,9 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    1, 6, 37 and 512 rows, and the GGUF path's Q4_0 (packed, f32 scale and
    bias) and Q8_0 (int8, no bias) forms at 1, 6 and 512 rows, bf16 compute
    (relative error <= 1e-2); every one of these forms also through the
-   wgmma body at 9, 37, 64, 65, 128, 300 and 512 rows and through the
+   wgmma body at 9, 37, 64, 65, 128, 300 and 512 rows (and the main
+   forms timed at the tree verify forwards' 29 and 32 rows, with one line
+   for the qmm of each tree verify, 129 launches) and through the
    small-row mma.sync body (qmm_mma) at 2, 3, 6 and 8 rows (checks only);
    every 1-row call asserted to take the 1-row body (qmm_gemv); one line for the decode
    qmm per token (32 x 4 projections + lm_head at 1 row, with
@@ -27,13 +29,15 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    qmm_i4_stacked at the 7B projections on the small-row body (qmm_i4_mma)
    at 2, 3, 6 and 8 rows, G 32 with bf16 scale and bias and G 16 with an
    f32 scale and no bias (checks only); ffn_out_norm and gate_up_act at
-   Vicuna-7B widths for 1, 2, 6, 9, 33 and 64 rows (timed at 1 and 6, those
-   times as ratios), stacked Q4_0 (layer 5) and the draft's single-layer
+   Vicuna-7B widths for 1, 2, 6, 9, 32, 33 and 64 rows (timed at 1, 6 and
+   32, those times as ratios), stacked Q4_0 (layer 5) and the draft's single-layer
    Q8_0 (relative error <= 1e-2), gate_up_act at 1 row asserted to take the
    paired 1-row body and to equal silu(g) * u from qmm_stacked's sums bit
    for bit; flash_decode at S=1024,
-   T in {1, 6}, 32 heads of 128 with a holed tag mask, and at T=S=512 as
-   the EAGLE engine's prompt takes it; flash_prefill at T=512 with padded
+   T in {1, 6}, 32 heads of 128 with a holed tag mask, at T = 29 under the
+   static tree's ancestor mask and T = 32 under an EAGLE-2 window mask
+   (the tree verify forwards), and at T=S=512 as the EAGLE engine's prompt
+   takes it; flash_prefill at T=512 with padded
    and q_pos=-1 rows, one of them inside a 64-row tile (relative error <=
    1e-2); both kernels at g = 4 (8 kv heads) for T = 6 and 20 at s_limit
    300, with a fully masked row (checks only). Each prints kernel ms, plain
@@ -77,6 +81,24 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    flash_prefill each > 0 over the default path (graphed greedy + graphed
    EAGLE at 1 cycle per dispatch, counted together: the main path of the
    `kernels` line), the fused FFN kernels 0, the plain versions 0.
+tree. the tree engines on phase 3's model after the same prompt:
+   EagleTreeEngine at the reference's default TreeSpec((4, 2, 2)) (29
+   verify rows; draft levels of 1, 4 and 8 rows) eager and graphed, and
+   EagleTree2Engine at its defaults (beam 8, depth 6, 32 verify rows) eager
+   and graphed at 1 and 4 cycles per dispatch, 64 new tokens, 3 timed runs
+   each (`[q4_k tree]` lines: tokens/s, TTFT, wall ms per cycle,
+   mean_accept_len; graphed: device ms per cycle from CUDA events over 8
+   replayed cycles, idle share). Every run's launches per computed cycle
+   must equal what `tree_cycle_launches` derives from the code (129
+   qmm_tc per verify, the draft's qmm_gemv and qmm_mma, flash_decode),
+   graphed tokens must equal eager tokens bit for bit, no cycle may run
+   eagerly after the warm-up, and the tokens equal greedy's up to a bf16
+   near-tie. Then each engine graphed with an oracle draft (its logits
+   boosted at the greedy continuation, read from a device tensor): tokens
+   equal greedy's and every cycle accepts the full depth; its tokens/s is
+   an upper bound. The tree path's launch counts (each engine's graphed
+   C = 1 run, from zero) stand in the `kernels` line as
+   `tree_path_launches`.
 6. the GGUF path at full width and depth: a Vicuna-7B-shape Q4_0 GGUF
    (3.8 GB, laid out as llama-quantize's Q4_0) and an EAGLE Q8_0 draft
    (0.39 GB) minted with random blocks into a temporary directory (free
@@ -89,7 +111,9 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    kernels > 0 only when on; plain versions 0), whether the fused block
    pays under graphs (graphed device ms per token and median tokens/s,
    fused against unfused), and fused = unfused greedy tokens up to the
-   near-tie rule.
+   near-tie rule; then EagleTree2Engine graphed at C = 1 on each (3 runs;
+   fused: 32 of each fused kernel per verify, plus the draft's), its
+   tokens fused against unfused under the same rule.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -135,8 +159,11 @@ from eagle_tpu_torch.timing import device_ms, device_us
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 TC_CHECK_ROWS = (9, 37, 64, 65, 128, 300, 512)  # both row tiles and their ragged edges
 MMA_CHECK_ROWS = (2, 3, 6, 8)  # qmm's small-row tensor-core route (qmm_mma)
-FFN_CHECK_ROWS = (1, 2, 6, 9, 33, 64)  # the fused kernels' 1-row and small-row bodies
+FFN_CHECK_ROWS = (1, 2, 6, 9, 32, 33, 64)  # the fused kernels' 1-row and small-row bodies
 VERIFY_ROWS = 6  # the EAGLE chain's verify forward: K + 1 rows at K = 5
+TREE_SPEC = (4, 2, 2)  # the reference's default TreeSpec: 29 verify rows
+TREE2 = dict(beam=8, depth=6, n_verify=32)  # the reference's EagleTree2Engine defaults
+TREE_ROWS = (29, 32)  # the tree engines' verify forwards
 #: kernel rows of a report of the same script from another tree (--parent-report), by
 #: (kernel, name, rows): ratios to them are printed beside this run's times
 PARENT: dict = {}
@@ -256,12 +283,14 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
         ("fc_w_q8_0", 4096, 8192, True, dict(qtype=Q8_0), 0),
     ]
     rows_list = (1, 6, 37, 512)  # 37: a ragged row tile of either body
+    tree_rows = (1, 6, *TREE_ROWS, 37, 512)  # the forms of a verify forward
     gguf_rows = (1, 6, 512)
     results = []
     worst = worst_tc = worst_mma = 0.0  # worst: the gemv body (1 row)
     per_token = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     per_prompt = dict(per_token)
     per_verify = dict(per_token)
+    per_tree = {r: dict(per_token) for r in TREE_ROWS}
     tc_row = mma_row = None
     for name, n, k, stacked, kw, count in specs:
         kw = {"qtype": Q4_K, **kw}
@@ -298,7 +327,8 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
                 raise AssertionError(f"qmm {name} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
             worst_mma = max(worst_mma, abs_err)
         log(f"[qmm] {name:16s} small-row body at rows {MMA_CHECK_ROWS}: rel err <= {QMM_TOL}")
-        for rows in gguf_rows if kw["qtype"] in (Q4_0, Q8_0) else rows_list:
+        for rows in (gguf_rows if kw["qtype"] in (Q4_0, Q8_0) else
+                     tree_rows if count else rows_list):
             x = torch.randn((rows, k), generator=gen, device="cuda")
             _build.reset_counts()
             if stacked:
@@ -348,7 +378,10 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
             if rows == VERIFY_ROWS and count:
                 for key in per_verify:
                     per_verify[key] += count * res[key]
-            if rows in (1, VERIFY_ROWS, 512):
+            if rows in TREE_ROWS:
+                for key in per_tree[rows]:
+                    per_tree[rows][key] += count * res[key]
+            if rows in (1, VERIFY_ROWS, *TREE_ROWS, 512):
                 log_ratios("qmm", res)
             if name == "wqkv" and rows == 512:
                 tc_row = dict(res)
@@ -359,6 +392,7 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
     report["qmm"] = results
     report["qmm_prefill_per_prompt"] = per_prompt
     report["qmm_per_verify_cycle"] = per_verify
+    report["qmm_per_tree_verify"] = per_tree
     report["qmm_per_decoded_token"] = per_token
     parent_tok = PARENT.get(("qmm_token", "per_token", 1))
     vs = (f", parent {parent_tok:.3f} ms = {parent_tok / per_token['ms']:.2f}x this"
@@ -372,6 +406,10 @@ def qmm_checks(report: dict) -> tuple[dict, dict, dict]:
     log(f"[qmm] per EAGLE verify cycle (32 x 4 projections + lm_head, {VERIFY_ROWS} rows, "
         f"small-row body): kernel {per_verify['ms']:.3f} ms, bound {per_verify['bound_ms']:.3f} "
         f"ms, library {per_verify['library_ms']:.3f} ms")
+    for rows, r in per_tree.items():
+        log(f"[qmm] per tree verify (32 x 4 projections + lm_head, {rows} rows, tensor-core "
+            f"body, 129 launches): kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms")
     tc_row["max_abs_err"] = worst_tc
     mma_row["max_abs_err"] = worst_mma
     return dict(per_token, max_abs_err=worst, bound_by="bytes"), tc_row, mma_row
@@ -512,11 +550,12 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
     Vicuna-7B widths (D 4096, F 11008, H*Dh 4096), 1 and 6 rows, bf16
     compute: the target's stacked Q4_0 form (layer 5 of 6) and the draft's
     single-layer Q8_0 form (six copies, cycled so that repeats do not hit in
-    L2), checked at 1, 2, 6, 9, 33 and 64 rows (the 1-row tensor-core body
-    at 1 row, gate_up_act's paired and asserted bit-equal to silu(g) * u
-    from qmm_stacked's sums; the small-row tensor-core body above) and timed
-    at 1 and 6 rows, each time as a ratio to library_ms and, with
-    --parent-report, to the parent's kernel. library_ms is torch.matmul of the same rows with the
+    L2), checked at 1, 2, 6, 9, 32, 33 and 64 rows (the 1-row tensor-core
+    body at 1 row, gate_up_act's paired and asserted bit-equal to silu(g) *
+    u from qmm_stacked's sums; the small-row tensor-core body above) and
+    timed at 1, 6 and 32 rows (decode, chain verify, EAGLE-2 verify),
+    each time as a ratio to library_ms and, with --parent-report, to the
+    parent's kernel. library_ms is torch.matmul of the same rows with the
     pre-dequantized bf16 weight (the product alone: no single PyTorch call
     computes the fused epilogue). Returns the 1-row Q4_0 rows of each
     kernel, with the worst error over all checks."""
@@ -592,7 +631,7 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
                 if rel > QMM_TOL:
                     raise AssertionError(f"{name} {form} rows={rows}: rel err {rel:.3e} > {QMM_TOL}")
                 worst[name] = max(worst[name], abs_err)
-                if rows not in (1, VERIFY_ROWS):
+                if rows not in (1, VERIFY_ROWS, TREE_ROWS[1]):
                     log(f"[ffn] {name:12s} {form:10s} rows={rows}: rel err {rel:.2e}")
                     continue
                 ms = device_ms(run, 20)
@@ -608,8 +647,7 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
                     f"{lib:8.4f} ms  rel err {rel:.2e}")
                 if form == "q4_0" and rows == 1:
                     decode[name] = dict(res)
-                if rows in (1, VERIFY_ROWS):
-                    log_ratios("ffn", dict(res, name=f"{name}/{form}"))
+                log_ratios("ffn", dict(res, name=f"{name}/{form}"))
             del ws, dense
             torch.cuda.empty_cache()
     report["ffn"] = results
@@ -619,11 +657,14 @@ def ffn_checks(report: dict) -> tuple[dict, dict]:
 
 
 def attention_checks(report: dict) -> tuple[dict, dict]:
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
     from eagle_tpu_torch.ops import flash_attention as fa
     from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+    from eagle_tpu_torch.runtime.tree import TreeSpec, _tree_mask
+    from eagle_tpu_torch.runtime.tree2 import _window_tree_mask
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     n_layers, b, h, d, s = 2, 1, 32, 128, 1024
@@ -633,7 +674,7 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
     decode = {}
     worst = 0.0
     results = []
-    # (T, cache slots [0, lim), tags): decode and chain verify after 900
+    # (mask kind, T, s_limit, mask): decode and chain verify after 900
     # tokens with rolled-back holes; the EAGLE engine's prompt (300 tokens in
     # a 512 bucket), which takes this kernel too
     cases = []
@@ -641,19 +682,46 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
         tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
         tags[:, : 900 + t] = torch.arange(900 + t, dtype=torch.int32, device="cuda")
         tags[:, 100:140] = -1
-        cases.append((t, s, tags, 900 + torch.arange(t, dtype=torch.int32, device="cuda")))
+        pos = 900 + torch.arange(t, dtype=torch.int32, device="cuda")
+        cases.append(("causal", t, s, causal_mask_from_tags(tags, pos[None])))
     tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
     tags[:, :300] = torch.arange(300, dtype=torch.int32, device="cuda")
-    cases.append((512, 512, tags, torch.arange(512, dtype=torch.int32, device="cuda")))
-    for t, lim, tags, pos in cases:
-        mask = causal_mask_from_tags(tags[:, :lim], pos[None])
+    pos = torch.arange(512, dtype=torch.int32, device="cuda")
+    cases.append(("causal", 512, 512, causal_mask_from_tags(tags[:, :512], pos[None])))
+    # the tree verify forwards after 900 committed tokens with holes: the
+    # static tree's ancestor mask (29 rows) and an EAGLE-2 window of 32 rows
+    # (a random tree: each row's parent an earlier row)
+    base = torch.full((b,), 900, dtype=torch.int32, device="cuda")
+    spec = TreeSpec(TREE_SPEC)
+    tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+    tags[:, :900] = torch.arange(900, dtype=torch.int32, device="cuda")
+    tags[:, 100:140] = -1
+    ids = torch.arange(spec.n_nodes, dtype=torch.int32, device="cuda")
+    depth = torch.from_numpy(spec.depth).cuda()
+    tags[:, 900:900 + spec.n_nodes] = 900 + depth
+    cases.append(("tree", spec.n_nodes, s, _tree_mask(
+        tags, (900 + depth)[None], base, ids, torch.from_numpy(spec.ancestor).cuda(),
+        spec.n_nodes)))
+    n = TREE2["n_verify"]
+    rng = np.random.default_rng(11)
+    parent = [-1] + [int(rng.integers(0, j)) for j in range(1, n)]
+    anc = torch.eye(n, dtype=torch.bool)
+    rows_depth = [0] * n
+    for j in range(1, n):
+        anc[j] |= anc[parent[j]]
+        rows_depth[j] = rows_depth[parent[j]] + 1
+    depth = torch.tensor(rows_depth, dtype=torch.int32, device="cuda")
+    tags[:, 900:900 + n] = 900 + depth
+    cases.append(("tree2", n, s, _window_tree_mask(tags, (900 + depth)[None], base,
+                                                   anc.cuda()[None])))
+    for kind, t, lim, mask in cases:
         q = torch.randn((b, t, h, d), generator=gen, device="cuda")
         got = fa.flash_attention_cached(q, k_cache, v_cache, mask, layer, s_limit=lim)
         want = fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, layer, s_limit=lim)
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, want)
         if rel > ATTN_TOL or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"flash_decode T={t}: rel err {rel:.3e} > {ATTN_TOL}")
+            raise AssertionError(f"flash_decode T={t} {kind} mask: rel err {rel:.3e} > {ATTN_TOL}")
         worst = max(worst, abs_err)
         reps = 50 if t < 512 else 10
         ms = device_ms(lambda i: fa.flash_attention_cached(q, k_cache, v_cache, mask, layer,
@@ -666,11 +734,12 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
         lib = device_ms(lambda i: F.scaled_dot_product_attention(qb, kl, vl, attn_mask=am), reps)
         b_ms, b_by = bound_ms(2 * b * h * lim * d * 2 + nbytes(q, mask) + q.numel() * 4,
                               4.0 * b * h * t * lim * d)
-        res = dict(name="flash_decode", t=t, s=lim, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
+        res = dict(name="flash_decode", mask=kind, t=t, s=lim, ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
         results.append(res)
-        log(f"[flash_decode] T={t} S={lim} H={h} D={d}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"bound {b_ms * 1e3:.2f} us ({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
+        log(f"[flash_decode] T={t} S={lim} H={h} D={d} {kind} mask  kernel {ms:.4f} ms  plain "
+            f"{plain:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library {lib:.4f} ms  rel err "
+            f"{rel:.2e}")
         if t == 1:
             decode = dict(res)
     decode["max_abs_err"] = worst
@@ -896,12 +965,43 @@ def check_near_tie(gen, prompt, want: list, got: list, tag: str, what: str) -> d
     return dict(step=diverged, margin=margin, logit_range=rng)
 
 
-def profile_decode(gen, token: int, pos: int, steps: int = 8) -> dict:
-    """Time `steps` greedy decode steps on the host clock, then trace the
-    same steps with torch.profiler: device busy share of the (unprofiled)
-    wall time and the kernels that take the device time."""
+def profile_steps(run, n: int, what: str, unit: str, tag: str = "profile") -> dict:
+    """Time `run()` (n eager steps or cycles, warmed by the caller) on the
+    host clock, then trace it again with torch.profiler: device busy share
+    of the (unprofiled) wall time and the kernels that take the device
+    time, per `unit`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(device_us(e), e.key, e.count) for e in prof.key_averages() if device_us(e) > 0]
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    n_kernels = sum(r[2] for r in rows) / n
+    if busy_us == 0:
+        log(f"[{tag}] torch.profiler saw no device time: device busy share not measured")
+        return {f"wall_ms_per_{unit}": wall_us / n / 1e3, f"device_ms_per_{unit}": None}
+    log(f"[{tag}] {n} {what}: wall {wall_us / n / 1e3:.3f} ms/{unit}, device busy "
+        f"{busy_us / n / 1e3:.3f} ms/{unit} ({100 * busy_us / wall_us:.1f}% of wall, idle "
+        f"{100 - 100 * busy_us / wall_us:.1f}%), {n_kernels:.0f} device kernels/{unit}")
+    top = []
+    for dev, key, count in rows[:8]:
+        log(f"[{tag}]   {dev / n / 1e3:8.3f} ms/{unit}  {count // n:5d} calls/{unit}  {key[:90]}")
+        top.append({"kernel": key, f"ms_per_{unit}": dev / n / 1e3, f"calls_per_{unit}": count / n})
+    return {f"wall_ms_per_{unit}": wall_us / n / 1e3, f"device_ms_per_{unit}": busy_us / n / 1e3,
+            "idle_share": 1 - busy_us / wall_us, f"kernels_per_{unit}": n_kernels, "top": top}
+
+
+def profile_decode(gen, token: int, pos: int, steps: int = 8) -> dict:
+    """`profile_steps` over `steps` eager greedy decode steps."""
+    import torch
 
     from eagle_tpu_torch.runtime.sampling import SamplerConfig
 
@@ -909,30 +1009,21 @@ def profile_decode(gen, token: int, pos: int, steps: int = 8) -> dict:
     scfg = SamplerConfig(greedy=True)
     limit = gen.kv_read_bucket(pos + steps)
     gen._decode_chunk(tok, pos, scfg, 2, kv_limit=limit)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gen._decode_chunk(tok, pos, scfg, steps, kv_limit=limit)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gen._decode_chunk(tok, pos, scfg, steps, kv_limit=limit)
-        torch.cuda.synchronize()
-    rows = [(device_us(e), e.key, e.count) for e in prof.key_averages() if device_us(e) > 0]
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    n_kernels = sum(r[2] for r in rows) / steps
-    if busy_us == 0:
-        log("[profile] torch.profiler saw no device time: device busy share not measured")
-        return {"wall_ms_per_token": wall_us / steps / 1e3, "device_ms_per_token": None}
-    log(f"[profile] {steps} decode steps: wall {wall_us / steps / 1e3:.3f} ms/token, device busy "
-        f"{busy_us / steps / 1e3:.3f} ms/token ({100 * busy_us / wall_us:.1f}% of wall, idle "
-        f"{100 - 100 * busy_us / wall_us:.1f}%), {n_kernels:.0f} device kernels/token")
-    top = []
-    for dev, key, count in rows[:8]:
-        log(f"[profile]   {dev / steps / 1e3:8.3f} ms/token  {count // steps:5d} calls/token  {key[:90]}")
-        top.append({"kernel": key, "ms_per_token": dev / steps / 1e3, "calls_per_token": count / steps})
-    return {"wall_ms_per_token": wall_us / steps / 1e3, "device_ms_per_token": busy_us / steps / 1e3,
-            "idle_share": 1 - busy_us / wall_us, "kernels_per_token": n_kernels, "top": top}
+    return profile_steps(lambda: gen._decode_chunk(tok, pos, scfg, steps, kv_limit=limit),
+                         steps, "decode steps", "token")
+
+
+def profile_cycles(eng, prompt, tag: str, cycles: int = 4) -> dict:
+    """`profile_steps` over `cycles` eager cycles of `eng` from a fresh
+    prompt, all at one read bucket, which the last cycle's window must fit
+    below."""
+    eng.generate(prompt, max_new_tokens=1)
+    lim = eng.kv_read_bucket(int(eng.state.n_past[0]) + cycles * (eng.K + 2))
+    eng._multi_cycle(1, kv_limit=lim)  # warm
+    out = profile_steps(lambda: [eng._multi_cycle(1, kv_limit=lim) for _ in range(cycles)],
+                        cycles, "eager cycles", "cycle", tag)
+    check_window(eng, 1, lim)
+    return out
 
 
 REPS = 3  # timed runs of each variant: min / median / max, the host's spread
@@ -989,6 +1080,45 @@ class CardSampler:
                 f"{s['temperature.gpu'][0]:.0f}-{s['temperature.gpu'][1]:.0f} C")
 
 
+def timed_events(fn, n: int) -> dict:
+    """CUDA events around `fn()` (n steps or cycles of enqueued work): device
+    ms per step (`ms`), and the host's ms per step until `fn` returned
+    (`enqueue_ms`) and until the work ended (`wall_ms`)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    enqueued = time.perf_counter()
+    end.record()
+    end.synchronize()
+    return {"ms": start.elapsed_time(end) / n, "enqueue_ms": (enqueued - t0) * 1e3 / n,
+            "wall_ms": (time.perf_counter() - t0) * 1e3 / n}
+
+
+def cycle_device_ms(eng, prompt, c: int, cycles: int = 8) -> dict:
+    """`timed_events` over `cycles` graphed cycles of `eng` at C = c cycles
+    per dispatch, from a fresh prompt, at the read bucket `generate` takes
+    for the first dispatch (warmed by the caller); the last cycle's window
+    must fit below it."""
+    eng.generate(prompt, max_new_tokens=1)  # the state reset, the prompt's first token
+    n_past = int(eng.state.n_past[0])
+    lim = eng.kv_read_bucket(n_past + c * (eng.K + 2))
+    out = timed_events(lambda: [eng._multi_cycle(c, kv_limit=lim) for _ in range(cycles // c)],
+                       cycles)
+    check_window(eng, c, lim)
+    return out
+
+
+def check_window(eng, c: int, lim: int) -> None:
+    """The last cycle run at C = c read its whole window below `lim`."""
+    last_start = int(eng.state.n_past[0]) - int(eng._outs[c].n_out[-1, 0])
+    if last_start + eng.K + 2 > lim:
+        raise AssertionError("the cycles left the read bucket")
+
+
 def graphed_device_ms(gen, eng, prompt, token: int, pos: int, steps: int = 16,
                       cycles: int = 8) -> dict:
     """Device ms of the graphed bodies: CUDA events around back-to-back
@@ -1005,17 +1135,7 @@ def graphed_device_ms(gen, eng, prompt, token: int, pos: int, steps: int = 16,
     from eagle_tpu_torch.runtime.sampling import SamplerConfig
 
     def events(name, fn, n):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        fn()
-        enqueued = time.perf_counter()
-        end.record()
-        end.synchronize()
-        out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n
-        out[f"{name}_enqueue_ms"] = (enqueued - t0) * 1e3 / n
-        out[f"{name}_ms"] = start.elapsed_time(end) / n
+        out.update({f"{name}_{k}": v for k, v in timed_events(fn, n).items()})
 
     eager = gen.graphs.eager, eng.graphs.eager
     tok = torch.tensor([token], dtype=torch.int32, device="cuda")
@@ -1037,13 +1157,8 @@ def graphed_device_ms(gen, eng, prompt, token: int, pos: int, steps: int = 16,
         launch.append((time.perf_counter() - t0) * 1e3)
     out["step_launch_ms"] = min(launch)
     for c in (1, 4):
-        eng.generate(prompt, max_new_tokens=1)  # the state reset, the prompt's first token
-        n_past = int(eng.state.n_past[0])
-        lim = eng.kv_read_bucket(n_past + c * (eng.K + 2))
-        if eng.kv_read_bucket(n_past + cycles * (eng.K + 2)) != lim:
-            raise AssertionError("the timed cycles would leave the warmed bucket")
-        events(f"cycle_c{c}",
-               lambda: [eng._multi_cycle(c, kv_limit=lim) for _ in range(cycles // c)], cycles)
+        out.update({f"cycle_c{c}_{k}": v
+                    for k, v in cycle_device_ms(eng, prompt, c, cycles).items()})
     if (gen.graphs.eager, eng.graphs.eager) != eager:
         raise AssertionError("a body ran eagerly while the graphs were timed")
     return out
@@ -1214,6 +1329,219 @@ def serve_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, want_tok:
                 gen=gens[False])
 
 
+# --------------------------------------------------------------------------
+# the tree engines (runtime/tree.py, runtime/tree2.py)
+
+
+def tree_engine(kind: str, params, draft, cfg, dcfg, graphed: bool):
+    """The reference's default static tree (TreeSpec((4, 2, 2)): 29 verify
+    rows) or EAGLE-2 engine (beam 8, depth 6, 32 verify rows), bf16."""
+    import torch
+
+    from eagle_tpu_torch.runtime.tree import EagleTreeEngine, TreeSpec
+    from eagle_tpu_torch.runtime.tree2 import EagleTree2Engine
+
+    kw = dict(max_seq=1024, kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=-1,
+              cuda_graphs=graphed)
+    if kind == "tree":
+        return EagleTreeEngine(params, draft, cfg, dcfg, tree=TreeSpec(TREE_SPEC), **kw)
+    return EagleTree2Engine(params, draft, cfg, dcfg, **TREE2, **kw)
+
+
+def tree_cycle_launches(eng, fused: bool, draft_fused: bool) -> dict:
+    """Launches per computed cycle, derived from the code: the verify
+    forward over N > 8 rows (32 layers of 4 products, or 2 with the fused
+    FFN block, + lm_head, all on the wgmma body: qmm_tc; 32 flash_decode; 32
+    of each fused kernel when fused) and one draft forward per drafted level
+    of L rows (fc, the layer's 4 products or 2 fused, lm_head: qmm_gemv at 1
+    row, qmm_mma at 2-8 rows; one flash_decode; one of each fused kernel
+    when the draft's layer takes the fused block). The static tree drafts
+    levels of 1, 4 and 8 nodes; EAGLE-2 the root and D - 1 levels of M."""
+    levels = ([len(lv) for lv in eng.tree.levels[:-1]] if hasattr(eng, "tree")
+              else [1] + [eng.M] * (eng.D - 1))
+    want = {"qmm_tc": 32 * (2 if fused else 4) + 1, "qmm_gemv": 0, "qmm_mma": 0, "qmm": 0,
+            "flash_decode": 32 + len(levels), "flash_prefill": 0,
+            "ffn_out_norm": 32 * fused, "gate_up_act": 32 * fused}
+    for rows in levels:
+        want["qmm_gemv" if rows == 1 else "qmm_mma"] += 2 + (2 if draft_fused else 4)
+        want["ffn_out_norm"] += draft_fused
+        want["gate_up_act"] += draft_fused
+    return want
+
+
+def oracle_forward(real, seq):
+    """`eagle_forward` with 1e4 added to its logits at the target's greedy
+    continuation, read from the device tensor `seq` (prompt + greedy
+    tokens): the pair at draft position p proposes x_{p+2}. No host read,
+    so a graph captures it; there are no ties with the boost."""
+    import torch
+
+    def forward(*args, **kw):
+        out = real(*args, **kw)
+        if out.logits is None:  # the prompt's draft pass
+            return out
+        want = seq[(args[5].long() + 2).clamp(max=seq.numel() - 1)]  # [B, T]
+        boosted = out.logits.scatter_add(-1, want[..., None],
+                                         torch.full_like(out.logits[..., :1], 1e4))
+        return out._replace(logits=boosted)
+
+    return forward
+
+
+def tree_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, greedy: list, gen,
+              variants, fused: bool, draft_fused: bool) -> dict:
+    """The tree engines on one model: each (kind, graphed, C) of `variants`
+    timed REPS times after the warm-up (every graph captured at the runs'
+    buckets). Every run's launch counts are read from zero: per computed
+    cycle they must equal `tree_cycle_launches`, and no plain version runs.
+    Graphed tokens must equal eager tokens bit for bit, no cycle of a
+    graphed engine may run eagerly after its warm-up, and the tokens equal
+    greedy's up to a bf16 near-tie. Per variant: tokens/s, TTFT, wall ms per
+    cycle, mean_accept_len; per graphed variant the device ms per cycle
+    (CUDA events over 8 replayed cycles) and the idle share."""
+    import torch
+
+    from eagle_tpu_torch import _build
+
+    engs = {}
+    for kind, graphed, _ in variants:
+        if (kind, graphed) not in engs:
+            engs[(kind, graphed)] = tree_engine(kind, params, draft, cfg, dcfg, graphed)
+    for (kind, graphed), eng in engs.items():
+        if not graphed:
+            eng.generate(prompt[:40], max_new_tokens=4, stop_at_eos=False)
+    for kind, graphed, c in variants:
+        if graphed:
+            engs[(kind, True)].generate(prompt, max_new_tokens=n_new, stop_at_eos=False,
+                                        cycles_per_dispatch=c)
+    warm = {k: e.graphs.eager for k, e in engs.items() if k[1]}
+    res: dict = {}
+    tokens: dict = {}
+    sampler = CardSampler()
+    with sampler:
+        for rep in range(REPS):
+            for kind, graphed, c in variants:
+                name = f"{kind} {'graphed' if graphed else 'eager'} C={c}"
+                eng = engs[(kind, graphed)]
+                want = tree_cycle_launches(eng, fused, draft_fused)
+                r = res.setdefault(name, {"tokens_per_s": [], "ttft_ms": [],
+                                          "wall_ms_per_cycle": []})
+                run0 = eng.cycles_run
+                _build.reset_counts()
+                (toks, stats), ttft, t_dec, at_first, _ = timed_run(
+                    lambda cb: eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False,
+                                            on_token=cb, cycles_per_dispatch=c))
+                cycles = eng.cycles_run - run0
+                per_cycle = {k: (_build.launches[k] - at_first[k]) / cycles for k in want}
+                if per_cycle != want:
+                    raise AssertionError(f"{tag} {name}: launches per cycle {per_cycle}, "
+                                         f"expected {want}")
+                if any(_build.plain_calls.values()):
+                    raise AssertionError(f"{tag} {name}: plain versions ran: {_build.plain_calls}")
+                if len(toks) != n_new:
+                    raise AssertionError(f"{tag} {name}: {len(toks)} tokens, expected {n_new}")
+                if tokens.setdefault(kind, toks) != toks:
+                    raise AssertionError(f"{tag} {name} (run {rep}): tokens differ from the "
+                                         f"{kind} run before, bit for bit")
+                r["tokens_per_s"].append((len(toks) - 1) / t_dec)
+                r["ttft_ms"].append(ttft * 1e3)
+                r["wall_ms_per_cycle"].append(t_dec / cycles * 1e3)
+                if rep == 0:
+                    r.update(stats=stats, cycles_run=cycles, launches_per_cycle=per_cycle,
+                             launches=dict(_build.launches))
+    eager_after = {f"{k[0]} graphed": e.graphs.eager - warm[k] for k, e in engs.items() if k[1]}
+    if any(eager_after.values()):
+        raise AssertionError(f"{tag}: a graphed tree engine ran a cycle eagerly: {eager_after}")
+    for name, r in res.items():
+        missing = [k for k in ("qmm_gemv", "qmm_mma", "qmm_tc", "flash_decode")
+                   if r["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"{tag} {name}: kernels {missing} were not launched")
+    for kind, graphed, c in variants:
+        if graphed:
+            res[f"{kind} graphed C={c}"]["device"] = cycle_device_ms(engs[(kind, True)], prompt, c)
+    if any(e.graphs.eager != warm[k] for k, e in engs.items() if k[1]):
+        raise AssertionError(f"{tag}: a tree cycle ran eagerly while the graphs were timed")
+    for name, r in res.items():
+        for key in ("tokens_per_s", "ttft_ms", "wall_ms_per_cycle"):
+            r[key] = spread(r[key])
+        st = r["stats"]
+        dev = ""
+        if "device" in r:
+            r["idle_share"] = 1 - r["device"]["ms"] / r["wall_ms_per_cycle"]["median"]
+            dev = (f", device {r['device']['ms']:.3f} ms per cycle (CUDA events over 8 replayed "
+                   f"cycles), idle {100 * r['idle_share']:.1f}%")
+        log(f"[{tag}] {name}: tokens/s min / median / max {fmt(r['tokens_per_s'])}, TTFT ms "
+            f"{fmt(r['ttft_ms'], 1)}, wall ms per cycle {fmt(r['wall_ms_per_cycle'])}{dev}, "
+            f"mean_accept_len {st['mean_accept_len']:.3f}, {st['n_cycles']} cycles "
+            f"({r['cycles_run']} computed)")
+    for kind in tokens:
+        name = next(n for n in res if n.startswith(kind))
+        log(f"[{tag}] {kind} launches per computed cycle (derived from the code, asserted in "
+            f"every run): " + ", ".join(f"{k} {v:.0f}" for k, v in
+                                        res[name]["launches_per_cycle"].items() if v))
+    log(f"[{tag}] graphed tree tokens == eager tokens, bit for bit, {REPS} runs each; eager "
+        f"cycles after the warm-up: {eager_after}; the card over the timed runs: {sampler.line()}")
+    profiles = {kind: profile_cycles(eng, prompt, f"{tag} {kind} eager profile")
+                for (kind, graphed), eng in engs.items() if not graphed}
+    vs_greedy = {kind: check_near_tie(gen, prompt, greedy, toks, tag, f"{kind} vs greedy")
+                 for kind, toks in tokens.items()}
+    del engs
+    torch.cuda.empty_cache()
+    return dict(variants=res, tokens=tokens, vs_greedy=vs_greedy, eager_after_warmup=eager_after,
+                card_during_runs=sampler.summary, eager_cycle_profiles=profiles)
+
+
+def oracle_runs(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, greedy: list, gen,
+                oracle_seq: list) -> dict:
+    """Each tree engine, graphed at C = 1, with `oracle_forward` in place of
+    its draft forward: every drafted path holds the target's greedy
+    continuation, so every cycle must accept the full depth (cycles wholly
+    before a bf16 near-tie divergence from greedy, if one shows). This is
+    the only run on the card that compacts accepted rows and hands the
+    feature on past the root. Its tokens/s is an upper bound, not a result."""
+    import torch
+
+    from eagle_tpu_torch.runtime import tree, tree2
+
+    seq = torch.tensor(list(prompt) + list(oracle_seq), dtype=torch.int64, device="cuda")
+    out = {}
+    for kind, mod in (("tree", tree), ("tree2", tree2)):
+        real = mod.eagle_forward
+        mod.eagle_forward = oracle_forward(real, seq)
+        try:
+            eng = tree_engine(kind, params, draft, cfg, dcfg, graphed=True)
+            eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False)  # captures
+            warm = eng.graphs.eager
+            tps, runs = [], []
+            for _ in range(REPS):
+                run, _, t_dec, _, _ = timed_run(
+                    lambda cb: eng.generate(prompt, max_new_tokens=n_new, stop_at_eos=False,
+                                            on_token=cb))
+                tps.append((len(run[0]) - 1) / t_dec)
+                runs.append(run)
+        finally:
+            mod.eagle_forward = real
+        depth = eng.out_width - 1
+        toks, stats = runs[0]
+        if eng.graphs.eager != warm or any(r != runs[0] for r in runs):
+            raise AssertionError(f"{tag} oracle {kind}: a cycle ran eagerly after the warm-up, "
+                                 f"or the runs differ")
+        tie = check_near_tie(gen, prompt, greedy, toks, tag, f"oracle {kind} vs greedy")
+        full = stats["n_cycles"] if tie is None else tie["step"] // (depth + 1)
+        if stats["n_accepted"] < depth * full:
+            raise AssertionError(f"{tag} oracle {kind}: {stats}, expected {depth} accepted "
+                                 f"per cycle")
+        out[kind] = dict(stats=stats, tokens_per_s=spread(tps), vs_greedy=tie)
+        log(f"[{tag}] oracle {kind} graphed C=1 (upper bound, not a result): tokens/s min / "
+            f"median / max {fmt(out[kind]['tokens_per_s'])}, mean_accept_len "
+            f"{stats['mean_accept_len']:.3f} ({stats['n_accepted']} accepted in "
+            f"{stats['n_cycles']} cycles; depth {depth})")
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def main_path(report: dict) -> dict:
     import numpy as np
     import torch
@@ -1275,7 +1603,25 @@ def main_path(report: dict) -> dict:
         cell, peak_gib=peak / 2**30, launches=launches,
         launches_per_decoded_token=res["greedy graphed"]["launches_per_decoded_token"],
         launches_at_first_token=at_first)
-    return launches
+    return launches, dict(params=params, draft=draft, cfg=cfg, prompt=prompt, n_new=n_new,
+                          greedy=cell["greedy_tokens"], gen=gen)
+
+
+def tree_phase(report: dict, q4k: dict) -> dict:
+    """The tree engines on the Q4_K cell after the same prompt: the static
+    tree eager and graphed, EAGLE-2 eager, graphed at C = 1 and at C = 4;
+    then the oracle runs. Returns the launch counts of each engine's
+    graphed C = 1 run (the tree path's default), read from zero."""
+    m = q4k
+    cell = tree_cell("q4_k tree", m["params"], m["draft"], m["cfg"], None, m["prompt"],
+                     m["n_new"], m["greedy"], m["gen"],
+                     (("tree", False, 1), ("tree", True, 1), ("tree2", False, 1),
+                      ("tree2", True, 1), ("tree2", True, 4)), fused=False, draft_fused=False)
+    longer = m["gen"].generate(m["prompt"], max_new_tokens=m["n_new"] + 8, stop_at_eos=False)
+    cell["oracle"] = oracle_runs("q4_k tree", m["params"], m["draft"], m["cfg"], None,
+                                 m["prompt"], m["n_new"], m["greedy"], m["gen"], longer)
+    report["tree_path"] = cell
+    return {k: cell["variants"][f"{k} graphed C=1"]["launches"] for k in ("tree", "tree2")}
 
 
 # --------------------------------------------------------------------------
@@ -1439,6 +1785,7 @@ def gguf_path(report: dict) -> dict:
     import torch
 
     from eagle_tpu_torch.models.loader import load_eagle_params, load_llama_params
+    from eagle_tpu_torch.ops.ffn import supports_ffn_block
     from eagle_tpu_torch.quant.serving import prepare_params_for_serving
     from eagle_tpu_torch.runtime.generate import Generator
 
@@ -1494,7 +1841,11 @@ def gguf_path(report: dict) -> dict:
                     "gate_up_act": 32 if mode == "1" else 0, "qmm": 0}
         cell = serve_cell(tag, params, draft, cfg, dcfg, prompt, n_new, want_tok,
                           VERIFY_QMM_FUSED if mode == "1" else VERIFY_QMM, fused=mode == "1")
-        cell.pop("gen")
+        fused = mode == "1"
+        cell["tree2"] = tree_cell(f"{tag} tree2", params, draft, cfg, dcfg, prompt, n_new,
+                                  cell["greedy_tokens"], cell.pop("gen"), (("tree2", True, 1),),
+                                  fused=fused,
+                                  draft_fused=fused and supports_ffn_block(draft["layers"], dcfg))
         runs[tag.split()[1]] = cell
     fused_launches = runs["fused"]["variants"]["eagle graphed C=1"]["launches"]
     dev = {k: runs[k]["graphed_device"]["step_ms"] for k in ("fused", "unfused")}
@@ -1513,6 +1864,9 @@ def gguf_path(report: dict) -> dict:
     out["fused_vs_unfused"] = check_near_tie(gen, prompt, runs["unfused"]["greedy_tokens"],
                                              runs["fused"]["greedy_tokens"], "gguf",
                                              "fused vs unfused greedy")
+    out["tree2_fused_vs_unfused"] = check_near_tie(
+        gen, prompt, runs["unfused"]["tree2"]["tokens"]["tree2"],
+        runs["fused"]["tree2"]["tokens"]["tree2"], "gguf", "EAGLE-2 fused vs unfused")
     out["runs"] = runs
     report["gguf_path"] = out
     del gen, params, draft
@@ -1812,7 +2166,10 @@ def main() -> int:
     dec_row, pre_row = phase("2 attention", attention_checks, report)
     tiny_launches = phase("2 tiny model", tiny_model_check)
     # a copy: the main path's own counts stay as its report holds them
-    launches = dict(phase("3-5", main_path, report))
+    main_launches, q4k = phase("3-5", main_path, report)
+    launches = dict(main_launches)
+    tree_launches = phase("tree", tree_phase, report, q4k)
+    del q4k
     # the later kernels' counts come from the paths that run them
     gguf_launches = phase("6", gguf_path, report)
     for k in ("ffn_out_norm", "gate_up_act"):
@@ -1839,7 +2196,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": vals["max_abs_err"], "ms": vals["ms"],
                 "plain_ms": vals["plain_ms"], "bound_ms": vals["bound_ms"],
-                "bound_by": vals["bound_by"], "library_ms": vals["library_ms"]}
+                "bound_by": vals["bound_by"], "library_ms": vals["library_ms"],
+                "tree_path_launches": {k: c[name] for k, c in tree_launches.items()}}
 
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),

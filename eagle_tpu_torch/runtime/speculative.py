@@ -51,7 +51,7 @@ class SpecState:
 
 class CycleOutput(NamedTuple):
     state: SpecState
-    tokens: torch.Tensor  # [C, B, K+1] output tokens (accepted drafts + correction)
+    tokens: torch.Tensor  # [C, B, out_width] output tokens (accepted drafts + correction)
     n_out: torch.Tensor  # [C, B] how many of `tokens` are real output (n_acc + 1)
     n_accepted: torch.Tensor  # [C, B] accepted draft tokens in each cycle
 
@@ -83,7 +83,8 @@ class EagleChainEngine:
         self.tp, self.dp = target_params, draft_params
         self.tcfg = target_cfg
         self.dcfg = draft_cfg or dataclasses.replace(target_cfg, n_layers=1, is_eagle=True)
-        self.K = n_draft
+        self.K = n_draft  # draft window: generate()'s overflow margin and n_drafted per cycle
+        self.out_width = n_draft + 1  # columns of a cycle's output row (drafts + bonus)
         self.max_seq = max_seq
         self.batch = batch
         self.kv_dtype = kv_dtype
@@ -219,13 +220,14 @@ class EagleChainEngine:
         dispatch (one graph replay on the card), the reference's scanned
         `_multi_cycle`. Returns the state and the per-cycle outputs [C, B,
         ...]; they are static buffers, overwritten by the next dispatch of
-        the same C. `kv_limit` must bound the LAST cycle's reads."""
+        the same C. `kv_limit` must bound the LAST cycle's reads. The
+        subclasses' `_cycle` (the tree engines') is what runs here."""
         out = self._outs.get(n_cycles)
         if out is None:
             b, dev = self.batch, self.device
             out = CycleOutput(
                 state=self.state,
-                tokens=torch.zeros((n_cycles, b, self.K + 1), dtype=torch.int32, device=dev),
+                tokens=torch.zeros((n_cycles, b, self.out_width), dtype=torch.int32, device=dev),
                 n_out=torch.zeros((n_cycles, b), dtype=torch.int32, device=dev),
                 n_accepted=torch.zeros((n_cycles, b), dtype=torch.int32, device=dev),
             )
@@ -279,11 +281,12 @@ class EagleChainEngine:
             # wind down to single cycles
             c = C if n_past + C * (self.K + 2) < self.max_seq else 1
             res = self._multi_cycle(c, kv_limit=self.kv_read_bucket(n_past + c * (self.K + 2)))
+            w = self.out_width
             rows = torch.cat([res.tokens[:, 0], res.n_out[:, :1], res.n_accepted[:, :1]],
-                             dim=1).tolist()  # [c, K+3]: one read of the dispatch
-            n_past += sum(row[self.K + 1] for row in rows)  # each cycle: m + n_out
+                             dim=1).tolist()  # [c, w + 2]: one read of the dispatch
+            n_past += sum(row[w] for row in rows)  # each cycle: m + n_out
             for row in rows:
-                toks, k, acc = row[: self.K + 1], row[self.K + 1], row[self.K + 2]
+                toks, k, acc = row[:w], row[w], row[w + 1]
                 n_cycles += 1
                 n_drafted += self.K
                 n_accepted += acc

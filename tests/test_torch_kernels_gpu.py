@@ -15,8 +15,10 @@ L = 1 and stacked, f32 and bf16 compute; at 1 bf16 row gate_up_act bit for
 bit against act(g) * u from qmm's sums), greedy tokens of a tiny model
 on the card against the CPU, unfused and fused, and the engines' CUDA
 graphs (graphed tokens equal to the eager path's bit for bit, greedy and
-EAGLE at 1 and 3 cycles per dispatch; replays counted as launches; a new
-cache or fused-FFN mode captures another graph).
+EAGLE at 1 and 3 cycles per dispatch, the tree engines at 1-3 with and
+without an oracle draft; replays counted as launches; a new cache or
+fused-FFN mode captures another graph), and flash_decode under the tree
+engines' ancestor masks.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -49,6 +51,7 @@ from eagle_tpu_torch.quant.qtensor import Q4_K, Q6_K, QTensor, pack_int4
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.kvcache import KVCache, causal_mask_from_tags
 from eagle_tpu_torch.runtime.sampling import SamplerConfig
+from eagle_tpu_torch.runtime import tree, tree2
 from eagle_tpu_torch.runtime.speculative import EagleChainEngine
 
 pytestmark = pytest.mark.gpu
@@ -742,3 +745,108 @@ def test_graph_per_fused_ffn_mode(cuda, monkeypatch):
         assert (_build.launches["gate_up_act"] > 0) == (mode == "1")
     assert gen.graphs.captures == 2 and gen.graphs.replays == 3 * 19 - 2
     assert toks[0] == toks[2]
+
+
+# ---- the tree engines (runtime/tree.py, runtime/tree2.py)
+
+
+@pytest.mark.parametrize("s_limit", [96, 300, None], ids=["s96", "s300", "full"])
+@pytest.mark.parametrize("kind,t,g", [("tree", 4, 1), ("tree", 29, 2), ("tree2", 8, 2),
+                                      ("tree2", 16, 4), ("tree2", 32, 2)])
+def test_flash_decode_tree_masks(cuda, kind, t, g, s_limit):
+    """flash_decode under the tree engines' masks, where a row sees the
+    committed prefix (holed tags) and its own ancestors in the node window:
+    `_tree_mask` for a drafted level of TreeSpec((4, 2, 2)) (4 rows) and
+    its whole verify (29 rows), `_window_tree_mask` for EAGLE-2 windows of
+    a random tree (8-32 rows); T*g 4-64 rows per kv head."""
+    k_cache, v_cache = _cache(cuda, torch.bfloat16, 64, 2, s=384)
+    lim = s_limit or k_cache.shape[3]
+    spec = tree.TreeSpec((4, 2, 2))
+    n = spec.n_nodes if kind == "tree" else t
+    base = lim - n - 3  # the window ends below the read bound
+    tags = torch.full((2, k_cache.shape[3]), -1, dtype=torch.int32, device="cuda")
+    tags[:, :base] = torch.arange(base, dtype=torch.int32, device="cuda")
+    tags[:, 10:14] = -1
+    bases = torch.full((2,), base, dtype=torch.int32, device="cuda")
+    if kind == "tree":
+        depth = torch.from_numpy(spec.depth).cuda()
+        lo = 0 if t == n else 1  # the verify's rows, or level 1's
+        ids = torch.arange(lo, lo + t, dtype=torch.int32, device="cuda")
+        tags[:, base:base + n] = base + depth
+        mask = tree._tree_mask(tags[:, :lim], (base + depth[ids.long()])[None].repeat(2, 1),
+                               bases, ids, torch.from_numpy(spec.ancestor).cuda(), n)
+    else:
+        rng = np.random.default_rng(t)
+        parent = [-1] + [int(rng.integers(0, j)) for j in range(1, t)]
+        anc, dep = torch.eye(t, dtype=torch.bool), [0] * t
+        for j in range(1, t):
+            anc[j] |= anc[parent[j]]
+            dep[j] = dep[parent[j]] + 1
+        depth = torch.tensor(dep, dtype=torch.int32, device="cuda")
+        tags[:, base:base + t] = base + depth
+        mask = tree2._window_tree_mask(tags[:, :lim], (base + depth)[None].repeat(2, 1), bases,
+                                       anc.cuda()[None].repeat(2, 1, 1))
+    q = torch.randn((2, t, 2 * g, 64), generator=cuda, device="cuda")
+    _build.reset_counts()
+    got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
+    assert _build.launches["flash_decode"] == 1 and _build.plain_calls["flash_decode"] == 0
+    _close(got, fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, 1, s_limit=s_limit),
+           TOL[torch.bfloat16])
+
+
+def _oracle(real, seq):
+    """`eagle_forward` with its logits boosted at the target's greedy
+    continuation (`seq`: prompt + greedy tokens; the pair at draft position
+    p proposes x_{p+2}), device ops only, so graphs capture it."""
+
+    def forward(*args, **kw):
+        out = real(*args, **kw)
+        if out.logits is None:
+            return out
+        want = seq[(args[5].long() + 2).clamp(max=seq.numel() - 1)]
+        return out._replace(logits=out.logits.scatter_add(
+            -1, want[..., None], torch.full_like(out.logits[..., :1], 1e4)))
+
+    return forward
+
+
+@pytest.mark.parametrize("kind,cycles,with_oracle", [
+    ("tree", 1, False), ("tree", 2, True), ("tree2", 1, False), ("tree2", 3, False),
+    ("tree2", 1, True), ("tree2", 3, True)])
+def test_graphed_tree_engine_equals_eager(cuda, kind, cycles, with_oracle, monkeypatch):
+    """Graphed tree tokens and stats at C cycles per dispatch equal the
+    eager C = 1 run's (the static tree's verify takes 29 rows, EAGLE-2's 13:
+    the wgmma body); after the warm-up no cycle runs eagerly, and at C = 1
+    a graphed run counts the eager run's launches. With the oracle draft
+    the runs accept drafts, so compaction and the feature handoff past the
+    root are replayed too."""
+    tp, dp = _tiny_bf16()
+    mod = tree if kind == "tree" else tree2
+    if with_oracle:
+        greedy = _bf16_gen(tp, False).generate(PROMPT, max_new_tokens=40, stop_at_eos=False)
+        seq = torch.tensor(PROMPT + greedy, dtype=torch.int64, device="cuda")
+        monkeypatch.setattr(mod, "eagle_forward", _oracle(mod.eagle_forward, seq))
+
+    def engine(graphed):
+        kw = dict(max_seq=256, kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                  eos_id=-1, device="cuda", cuda_graphs=graphed)
+        if kind == "tree":
+            return tree.EagleTreeEngine(tp, dp, TINY_CFG, tree=tree.TreeSpec((4, 2, 2)), **kw)
+        return tree2.EagleTree2Engine(tp, dp, TINY_CFG, beam=4, depth=3, n_verify=13, **kw)
+
+    eager, graphed = engine(False), engine(True)
+    _build.reset_counts()
+    want = eager.generate(PROMPT, max_new_tokens=30, stop_at_eos=False)
+    eager_launches = dict(_build.launches)
+    graphed.generate(PROMPT, max_new_tokens=30, stop_at_eos=False, cycles_per_dispatch=cycles)
+    warm = graphed.graphs.eager
+    _build.reset_counts()
+    got = graphed.generate(PROMPT, max_new_tokens=30, stop_at_eos=False,
+                           cycles_per_dispatch=cycles)
+    assert got == want
+    assert graphed.graphs.eager == warm and graphed.graphs.replays > 0
+    assert _build.launches["qmm_tc"] > 0 and sum(_build.plain_calls.values()) == 0
+    if cycles == 1:
+        assert dict(_build.launches) == eager_launches
+    if with_oracle:
+        assert want[1]["n_accepted"] > 0

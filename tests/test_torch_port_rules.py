@@ -35,7 +35,8 @@ def _port_files():
                  "eagle_tpu_torch/gguf/constants.py", "eagle_tpu_torch/models/loader.py",
                  "eagle_tpu_torch/quant/serving.py", "eagle_tpu_torch/ops/ffn.py",
                  "eagle_tpu_torch/quant/iq_blocks.py", "eagle_tpu_torch/tools/kernel_bench.py",
-                 "eagle_tpu_torch/timing.py"):
+                 "eagle_tpu_torch/timing.py", "eagle_tpu_torch/runtime/tree.py",
+                 "eagle_tpu_torch/runtime/tree2.py"):
         assert must in names
     return files
 
@@ -66,6 +67,7 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
 
 @pytest.mark.parametrize("entry", ["KVCache.create", "synth_llama_params",
                                    "synth_eagle_params", "Generator", "EagleChainEngine",
+                                   "EagleTreeEngine", "EagleTree2Engine",
                                    "params_from_numpy", "load_llama_params",
                                    "load_eagle_params"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
@@ -76,6 +78,8 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
     from eagle_tpu_torch.runtime.generate import Generator
     from eagle_tpu_torch.runtime.kvcache import KVCache
     from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+    from eagle_tpu_torch.runtime.tree import EagleTreeEngine
+    from eagle_tpu_torch.runtime.tree2 import EagleTree2Engine
 
     calls = {
         "KVCache.create": lambda: KVCache.create(1, 1, 16, 2, 64),
@@ -83,6 +87,8 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         "synth_eagle_params": lambda: synth_eagle_params(TINY),
         "Generator": lambda: Generator({}, TINY, max_seq=16),
         "EagleChainEngine": lambda: EagleChainEngine({}, {}, TINY, max_seq=16),
+        "EagleTreeEngine": lambda: EagleTreeEngine({}, {}, TINY, max_seq=16),
+        "EagleTree2Engine": lambda: EagleTree2Engine({}, {}, TINY, max_seq=16),
         "params_from_numpy": lambda: params_from_numpy({}),
         "load_llama_params": lambda: load_llama_params("no-such-file.gguf"),
         "load_eagle_params": lambda: load_eagle_params("no-such-file.gguf"),
@@ -91,17 +97,20 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         calls[entry]()
 
 
-@pytest.mark.parametrize("entry", ["Generator", "EagleChainEngine"])
+@pytest.mark.parametrize("entry", ["Generator", "EagleChainEngine", "EagleTreeEngine",
+                                   "EagleTree2Engine"])
 def test_empty_prompt_raises(entry):
     """An empty prompt would put the first decode or draft slot at -1, which
     the reference's scatter drops and PyTorch's `scatter_` refuses."""
     from eagle_tpu_torch.runtime.generate import Generator
     from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+    from eagle_tpu_torch.runtime.tree import EagleTreeEngine
+    from eagle_tpu_torch.runtime.tree2 import EagleTree2Engine
 
-    if entry == "Generator":
-        runner = Generator({}, TINY, max_seq=16, device="cpu")
-    else:
-        runner = EagleChainEngine({}, {}, TINY, max_seq=16, device="cpu")
+    cls = {"Generator": Generator, "EagleChainEngine": EagleChainEngine,
+           "EagleTreeEngine": EagleTreeEngine, "EagleTree2Engine": EagleTree2Engine}[entry]
+    args = ({},) if entry == "Generator" else ({}, {})
+    runner = cls(*args, TINY, max_seq=16, device="cpu")
     with pytest.raises(ValueError, match="at least one token"):
         runner.generate([], max_new_tokens=4)
 
