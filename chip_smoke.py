@@ -60,9 +60,10 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    each eager (`cuda_graphs=False`) and graphed (one CUDA graph replay per
    decode step and per dispatch of EAGLE cycles, `runtime/graphs.py`), EAGLE
    graphed at 1 and 4 cycles per dispatch; the graphed engines are warmed
-   first (their graphs captured at the runs' buckets), then every variant
-   is timed 3 times (min / median / max of tokens/s, TTFT and wall ms per
-   token or cycle: the host's spread). Graphed tokens must equal eager
+   first (their graphs captured at the runs' buckets), then every graphed
+   variant is timed 3 times (min / median / max of tokens/s, TTFT and wall
+   ms per token or cycle: the host's spread) and every eager one once.
+   Graphed tokens must equal eager
    tokens bit for bit, greedy and EAGLE alike, and no step or cycle of a
    graphed engine may run eagerly after the warm-up. EAGLE's tokens are
    compared with greedy's, and where they differ the target's top-2 logit
@@ -86,10 +87,11 @@ tree. the tree engines on phase 3's model after the same prompt:
    verify rows; draft levels of 1, 4 and 8 rows) eager and graphed, and
    EagleTree2Engine at its defaults (beam 8, depth 6, 32 verify rows) eager
    and graphed at 1 and 4 cycles per dispatch, 64 new tokens, 3 timed runs
-   each (`[q4_k tree]` lines: tokens/s, TTFT, wall ms per cycle,
-   mean_accept_len; graphed: device ms per cycle from CUDA events over 8
-   replayed cycles, idle share). Every run's launches per computed cycle
-   must equal what `tree_cycle_launches` derives from the code (129
+   of each graphed variant and 1 of each eager one (`[q4_k tree]` lines:
+   tokens/s, TTFT, wall ms per cycle, mean_accept_len; graphed: device ms
+   per cycle from CUDA events over 8 replayed cycles, idle share). Every
+   run's launches per computed cycle must equal what `tree_cycle_launches`
+   derives from the code (129
    qmm_tc per verify, the draft's qmm_gemv and qmm_mma, flash_decode),
    graphed tokens must equal eager tokens bit for bit, no cycle may run
    eagerly after the warm-up, and the tokens equal greedy's up to a bf16
@@ -102,7 +104,8 @@ tree. the tree engines on phase 3's model after the same prompt:
 6. the GGUF path at full width and depth: a Vicuna-7B-shape Q4_0 GGUF
    (3.8 GB, laid out as llama-quantize's Q4_0) and an EAGLE Q8_0 draft
    (0.39 GB) minted with random blocks into a temporary directory (free
-   space logged, files deleted after the load), loaded with the repack on
+   space logged; the target carries an SPM vocabulary of 32,000 pieces,
+   `spm_vocab`; the files stay for phase cli), loaded with the repack on
    the card (read / upload / repack times, device memory), five tensors
    checked bit for bit against the CPU repack of the same bytes, then
    `serve_cell` with EAGLE_TPU_FUSED_FFN=1 and again unfused (per greedily
@@ -114,6 +117,30 @@ tree. the tree engines on phase 3's model after the same prompt:
    near-tie rule; then EagleTree2Engine graphed at C = 1 on each (3 runs;
    fused: 32 of each fused kernel per verify, plus the draft's), its
    tokens fused against unfused under the same rule.
+cli. the normal entry point on phase 6's files (unfused): three runs of
+   `python -m eagle_tpu_torch.tools.cli -m target --draft draft -p PROMPT
+   -n 64` as subprocesses, two at a time (PROMPT: ~300 tokens of the
+   vocabulary's words), at the defaults (temp 0.8, top-k 40, top-p 0.95,
+   min-p 0.05, seed 0) twice and with --temp 0; each must exit 0 and print
+   its text and its `[speculative]` line, the two default runs the same
+   text. Then one `Engine` from the files (the chain at the CLI's defaults,
+   max_seq 2048, graphed) and from its loaded params `Generator`, the chain
+   at C = 1 and 4, the static tree (4, 2, 2) and EAGLE-2 (8, 6, 32), all
+   sampled at the defaults from seed 0: eager once, graphed once to
+   capture and 3 timed graphed runs (`[cli sampled]` lines: tokens/s, TTFT,
+   wall and device ms per token or cycle, idle share, accept_rate and
+   mean_accept_len), every run's tokens equal bit for bit, no eager body
+   after the capture, launches per token or cycle as the greedy cells'
+   (129 qmm_gemv per token, 129 qmm_mma per chain verify,
+   `tree_cycle_launches` per tree cycle). On these random weights the
+   defaults leave one token per step, so each engine runs again under a
+   flat chain (top-k 40, temperature a quarter of the prompt's top-1 to
+   top-40 logit gap): eager == graphed bit for bit, seed 1 another stream
+   (`[cli flat]` lines). At temp 0 each speculative engine's tokens equal
+   the greedy Generator's up to a bf16 near-tie, and the in-process greedy
+   chain's text the CLI's --temp 0 text; the sampler's share of the device
+   time is each sampled cell's device ms less phase 6's greedy cell's
+   (`sampler_share`).
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -151,6 +178,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1027,6 +1055,9 @@ def profile_cycles(eng, prompt, tag: str, cycles: int = 4) -> dict:
 
 
 REPS = 3  # timed runs of each variant: min / median / max, the host's spread
+#: an eager variant runs once: it holds the graphed runs' tokens, and no user
+#: path runs eagerly (it kept the script's time within its budget)
+EAGER_REPS = 1
 #: (name, graphed, cycles per dispatch; None for greedy); the first two are
 #: the user's default path (graphs on, C = 1), counted together
 VARIANTS = (("greedy graphed", True, None), ("eagle graphed C=1", True, 1),
@@ -1211,6 +1242,8 @@ def serve_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, want_tok:
     with sampler:  # clocks and power beside the timed runs
         for rep in range(REPS):
             for name, graphed, cycles in VARIANTS:
+                if not graphed and rep >= EAGER_REPS:
+                    continue
                 if name != "eagle graphed C=1":  # the default path's two runs count together
                     _build.reset_counts()
                 before = dict(_build.launches)
@@ -1421,6 +1454,8 @@ def tree_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, greedy: li
     with sampler:
         for rep in range(REPS):
             for kind, graphed, c in variants:
+                if not graphed and rep >= EAGER_REPS:
+                    continue
                 name = f"{kind} {'graphed' if graphed else 'eager'} C={c}"
                 eng = engs[(kind, graphed)]
                 want = tree_cycle_launches(eng, fused, draft_fused)
@@ -1666,8 +1701,9 @@ def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -
 def mint_gguf_pair(tmp: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.Path]:
     """Write a Vicuna-7B-shape GGUF laid out as llama-quantize's Q4_0 lays
     out a llama-7B file (every layer matmul and token_embd Q4_0, output Q6_K,
-    norms F32, llama metadata), and an EAGLE draft GGUF in Q8_0 (one layer,
-    fc, token_embd; fc.bias F32). Weights are random quant blocks."""
+    norms F32, llama metadata and an SPM vocabulary of 32,000 pieces,
+    `spm_vocab`), and an EAGLE draft GGUF in Q8_0 (one layer, fc,
+    token_embd; fc.bias F32). Weights are random quant blocks."""
     import torch
 
     from eagle_tpu_torch.gguf import GGMLType, GGUFWriter
@@ -1701,6 +1737,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.
 
     target = tmp / "vicuna-7b-q4_0.gguf"
     w = writer(target, "llama", n_layers, 2)  # LLAMA_FTYPE_MOSTLY_Q4_0
+    for key, val in spm_vocab(v, seed).items():
+        w.add(key, val)
     add(w, "token_embd.weight", v, d, q4_0, 1.3e-3)
     for i in range(n_layers):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
@@ -1771,15 +1809,14 @@ def check_repack(target: pathlib.Path, params: dict) -> list[str]:
     return list(checks)
 
 
-def gguf_path(report: dict) -> dict:
-    """Mint, load and serve the Q4_0 target and the Q8_0 draft at full
-    Vicuna-7B width and depth: `serve_cell` (greedy and the EAGLE chain
-    engine, eager and graphed) with the fused FFN block
+def gguf_path(report: dict, tmp: pathlib.Path) -> tuple[dict, pathlib.Path, pathlib.Path]:
+    """Mint (into `tmp`), load and serve the Q4_0 target and the Q8_0 draft
+    at full Vicuna-7B width and depth: `serve_cell` (greedy and the EAGLE
+    chain engine, eager and graphed) with the fused FFN block
     (EAGLE_TPU_FUSED_FFN=1), then again unfused, and whether the fused
-    block pays under graphs. Returns the fused default path's launch
-    counts."""
+    block pays under graphs. Returns the fused default path's launch counts
+    and the two files' paths (kept for phase cli)."""
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -1791,41 +1828,39 @@ def gguf_path(report: dict) -> dict:
 
     torch.cuda.empty_cache()
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="eagle_gguf_") as tmp_name:
-        tmp = pathlib.Path(tmp_name)
-        free = shutil.disk_usage(tmp).free
-        log(f"[gguf] {free / 2**30:.1f} GiB free in the temporary directory")
-        if free < GGUF_FREE_BYTES:
-            raise RuntimeError(f"the GGUF phase needs {GGUF_FREE_BYTES / 2**30:.0f} GiB of disk")
-        t0 = time.time()
-        target, draft_path = mint_gguf_pair(tmp, seed=21)
-        out["mint_s"] = time.time() - t0
-        out["file_bytes"] = {"target": target.stat().st_size, "draft": draft_path.stat().st_size}
-        log(f"[gguf] minted {target.name} ({out['file_bytes']['target'] / 1e9:.3f} GB) and "
-            f"{draft_path.name} ({out['file_bytes']['draft'] / 1e9:.3f} GB) in {out['mint_s']:.1f} s")
+    free = shutil.disk_usage(tmp).free
+    log(f"[gguf] {free / 2**30:.1f} GiB free in the temporary directory")
+    if free < GGUF_FREE_BYTES:
+        raise RuntimeError(f"the GGUF phase needs {GGUF_FREE_BYTES / 2**30:.0f} GiB of disk")
+    t0 = time.time()
+    target, draft_path = mint_gguf_pair(tmp, seed=21)
+    out["mint_s"] = time.time() - t0
+    out["file_bytes"] = {"target": target.stat().st_size, "draft": draft_path.stat().st_size}
+    log(f"[gguf] minted {target.name} ({out['file_bytes']['target'] / 1e9:.3f} GB) and "
+        f"{draft_path.name} ({out['file_bytes']['draft'] / 1e9:.3f} GB) in {out['mint_s']:.1f} s")
 
-        torch.cuda.reset_peak_memory_stats()
-        times_t, times_d = {}, {}
-        t0 = time.time()
-        params, cfg, _ = load_llama_params(target, device="cuda", times=times_t)
-        draft, dcfg, _ = load_eagle_params(draft_path, device="cuda", times=times_d)
-        t_load = time.time() - t0
-        t0 = time.time()
-        params = prepare_params_for_serving(params, "f32")
-        draft = prepare_params_for_serving(draft, "f32")
-        torch.cuda.synchronize()
-        t_prep = time.time() - t0
-        out.update(load_s=t_load, prepare_s=t_prep, load_times_target=times_t,
-                   load_times_draft=times_d, device_gib=torch.cuda.memory_allocated() / 2**30,
-                   load_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        log(f"[gguf] loaded on the card in {t_load:.2f} s (target "
-            + ", ".join(f"{k} {v:.2f} s" for k, v in times_t.items()) + "; draft "
-            + ", ".join(f"{k} {v:.2f} s" for k, v in times_d.items())
-            + f"), serving prep {t_prep:.2f} s; {out['device_gib']:.2f} GiB on the card, peak "
-            f"{out['load_peak_gib']:.2f} GiB")
-        out["repack_checked"] = check_repack(target, params)
-        log(f"[gguf] repacked on the card == repacked on the CPU, bit for bit: "
-            f"{', '.join(out['repack_checked'])}")
+    torch.cuda.reset_peak_memory_stats()
+    times_t, times_d = {}, {}
+    t0 = time.time()
+    params, cfg, _ = load_llama_params(target, device="cuda", times=times_t)
+    draft, dcfg, _ = load_eagle_params(draft_path, device="cuda", times=times_d)
+    t_load = time.time() - t0
+    t0 = time.time()
+    params = prepare_params_for_serving(params, "f32")
+    draft = prepare_params_for_serving(draft, "f32")
+    torch.cuda.synchronize()
+    t_prep = time.time() - t0
+    out.update(load_s=t_load, prepare_s=t_prep, load_times_target=times_t,
+               load_times_draft=times_d, device_gib=torch.cuda.memory_allocated() / 2**30,
+               load_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[gguf] loaded on the card in {t_load:.2f} s (target "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in times_t.items()) + "; draft "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in times_d.items())
+        + f"), serving prep {t_prep:.2f} s; {out['device_gib']:.2f} GiB on the card, peak "
+        f"{out['load_peak_gib']:.2f} GiB")
+    out["repack_checked"] = check_repack(target, params)
+    log(f"[gguf] repacked on the card == repacked on the CPU, bit for bit: "
+        f"{', '.join(out['repack_checked'])}")
 
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=300)
     n_new = 65
@@ -1871,7 +1906,297 @@ def gguf_path(report: dict) -> dict:
     report["gguf_path"] = out
     del gen, params, draft
     torch.cuda.empty_cache()
-    return fused_launches
+    return fused_launches, target, draft_path
+
+# --------------------------------------------------------------------------
+# phase cli: the normal entry point on phase 6's files
+
+
+CLI_NEW = 64  # the CLI runs' -n
+FLAT_NEW = 24  # new tokens of the flat-chain checks
+CLI_CONFIGS = (("plain", 1), ("chain", 1), ("chain", 4), ("tree", 1), ("tree2", 1))
+
+
+def spm_vocab(v: int, seed: int) -> dict:
+    """Vicuna's tokenizer layout as GGUF metadata, built as the reference's
+    tests build one (tests/test_tokenizer.py): <unk>, <s>, </s>, the 256
+    byte tokens <0x00>-<0xFF>, then '▁' and the letters with and without
+    it, then seeded words and fragments (70 % '▁'-prefixed) with all their
+    prefixes, so merges reach whole words; scores descend; BOS 1, EOS 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    ttypes = [2, 3, 3] + [6] * 256
+    pieces = ["▁"] + letters + ["▁" + c for c in letters]
+    seen = set(pieces)
+    while len(tokens) + len(pieces) < v:
+        w = "".join(rng.choice(letters, size=int(rng.integers(2, 9))))
+        w = "▁" + w if rng.random() < 0.7 else w
+        for i in range(2, len(w) + 1):
+            if w[:i] not in seen:
+                seen.add(w[:i])
+                pieces.append(w[:i])
+    pieces = pieces[: v - len(tokens)]
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens + pieces,
+            "tokenizer.ggml.scores": np.asarray([0.0] * len(tokens) + [-float(i) for i in
+                                                                      range(len(pieces))],
+                                                np.float32),
+            "tokenizer.ggml.token_type": np.asarray(ttypes + [1] * len(pieces), np.int32),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+            "tokenizer.ggml.add_bos_token": True}
+
+
+def cli_prompt(tokens: list, n_words: int = 300, seed: int = 5) -> str:
+    """About `n_words` tokens of text: seeded whole '▁' words of the vocab."""
+    import numpy as np
+
+    words = [t[1:] for t in tokens if t.startswith("▁") and len(t) >= 4 and t[1:].isalpha()]
+    rng = np.random.default_rng(seed)
+    return " ".join(words[i] for i in rng.integers(0, len(words), n_words))
+
+
+def run_clis(target, draft, prompt: str) -> dict:
+    """The three CLI runs as subprocesses, at most two at a time (a load
+    peaks at ~22 GiB on the card): the defaults twice (seed 0) and --temp 0.
+    Each must exit 0 and print its text and its `[speculative]` line; the
+    two default runs must print the same text."""
+    env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
+    base = [sys.executable, "-m", "eagle_tpu_torch.tools.cli", "-m", str(target), "--draft",
+            str(draft), "-p", prompt, "-n", str(CLI_NEW)]
+    runs = {"default": base, "default again": base, "temp 0": base + ["--temp", "0"]}
+    t0 = time.time()
+    out = {}
+    done = {}
+    for group in (("default", "temp 0"), ("default again",)):
+        procs = {k: subprocess.Popen(runs[k], cwd=pathlib.Path(__file__).resolve().parent,
+                                     env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True) for k in group}
+        done.update({k: (p, *p.communicate(timeout=600)) for k, p in procs.items()})
+    for name in runs:
+        p, stdout, stderr = done[name]
+        lines = [ln for ln in stderr.splitlines() if ln.startswith("[")]
+        spec = [ln for ln in lines if ln.startswith("[speculative] accept_rate=")]
+        if p.returncode != 0 or not stdout.strip() or not spec:
+            raise AssertionError(f"cli {name}: exit {p.returncode}, stdout {stdout[-400:]!r}, "
+                                 f"stderr {stderr[-2000:]}")
+        out[name] = dict(text=stdout.rstrip("\n"), lines=lines)
+        log(f"[cli] {name}: exit 0, {' '.join(lines)}; text {stdout.strip()[:80]!r}...")
+    if out["default"]["text"] != out["default again"]["text"]:
+        raise AssertionError("cli: two seed-0 runs at the defaults printed different text")
+    log(f"[cli] the two seed-0 runs printed the same text ({len(out['default']['text'])} "
+        f"characters); three runs in {time.time() - t0:.1f} s")
+    return out
+
+
+def sampler_share(report: dict, res: dict) -> dict:
+    """The sampler's device ms per token and per cycle on the path itself:
+    each sampled cell's graphed device ms (CUDA events over replays) less
+    the greedy cell's that phase 6 measured on the same files, unfused:
+    the greedy step, the chain cycle at C = 1 and 4, EAGLE-2 at C = 1 (no
+    greedy static-tree cell runs on these files). Phase 6's chain takes
+    post-norm features and this phase's Engine pre-norm ones, which moves
+    nothing on the verify's side."""
+    unfused = report["gguf_path"]["runs"]["unfused"]
+    dev = unfused["graphed_device"]
+    greedy = {"plain": dev["step_ms"], "chain C=1": dev["cycle_c1_ms"],
+              "chain C=4": dev["cycle_c4_ms"],
+              "tree2 C=1": unfused["tree2"]["variants"]["tree2 graphed C=1"]["device"]["ms"]}
+    out = {name: dict(sampled_ms=res[name]["device"]["ms"], greedy_ms=ms,
+                      share_ms=res[name]["device"]["ms"] - ms) for name, ms in greedy.items()}
+    log("[cli] the sampler's share of the device time (sampled cell less phase 6's greedy "
+        "cell, ms per token or cycle): " + "; ".join(
+            f"{k} {v['sampled_ms']:.3f} - {v['greedy_ms']:.3f} = {v['share_ms']:.3f}"
+            for k, v in out.items()))
+    return out
+
+
+def flat_sampler_checks(eng, ids, generate) -> dict:
+    """Where the defaults leave one token per step (top-p 0.95 and min-p
+    0.05 over a random model's peaked logits), a draw decides nothing. So
+    every engine runs again under a flat chain (top-k 40, temperature a
+    quarter of the prompt's top-1 to top-40 logit gap, top-p and min-p
+    off): eager once and graphed twice from seed 0, the same tokens bit for
+    bit, no eager body after the capture, seed 1 another stream."""
+    import numpy as np
+    import torch
+
+    from eagle_tpu_torch.runtime.sampling import SamplerConfig
+
+    gen = eng._plain_generator()
+    t = 512
+    padded = np.zeros((1, t), np.int32)
+    padded[0, : len(ids)] = ids
+    logits, _, _ = gen._prefill(torch.from_numpy(padded).cuda(),
+                                torch.tensor([len(ids)], dtype=torch.int32, device="cuda"), t)
+    top = torch.topk(logits[0].float(), 40).values
+    flat = SamplerConfig(temperature=float(top[0] - top[-1]) / 4, top_k=40, top_p=1.0,
+                         min_p=0.0)
+    out = {"sampler": dataclasses.asdict(flat)}
+    for kind in ("plain", "chain", "tree", "tree2"):
+        e = gen if kind == "plain" else eng.make_engine(kind, sampler=flat)
+        e.graphs.enabled = False
+        want, stats = generate(e, 1, scfg=flat, n=FLAT_NEW)
+        e.graphs.enabled = True
+        generate(e, 1, scfg=flat, n=FLAT_NEW)  # the capture
+        warm = e.graphs.eager
+        again = generate(e, 1, scfg=flat, n=FLAT_NEW)[0]
+        other = generate(e, 1, seed=1, scfg=flat, n=FLAT_NEW)[0]
+        if again != want or e.graphs.eager != warm or other == want:
+            raise AssertionError(f"cli flat {kind}: graphed != eager, an eager body after the "
+                                 f"capture, or seed 1 gave seed 0's stream")
+        out[kind] = dict(distinct_tokens=len(set(want)), stats=stats)
+        log(f"[cli flat] {kind}: temp {flat.temperature:.3f}, top-k 40: graphed == eager bit for "
+            f"bit, seed 1 another stream; {len(set(want))} distinct tokens of {len(want)}"
+            + ("" if stats is None else f", accept_rate {stats['accept_rate']:.3f}, "
+                                        f"mean_accept_len {stats['mean_accept_len']:.3f}"))
+        if kind != "plain":
+            del e
+            torch.cuda.empty_cache()
+    return out
+
+
+def cli_path(report: dict, target, draft) -> None:
+    """The normal entry point on phase 6's minted files: three CLI runs as
+    subprocesses, then one `Engine` (the chain, the CLI's defaults, graphed)
+    and from its loaded params `Generator`, the chain at C = 1 and 4, the
+    static tree (4, 2, 2) and EAGLE-2 (8, 6, 32), all sampled at the CLI's
+    defaults: each eager once, graphed once to capture and 3 timed graphed
+    runs, all from seed 0 and all giving the same tokens bit for bit, no
+    eager body after the capture, launches per token and per cycle as the
+    greedy cells'. Then `flat_sampler_checks`, and at temp 0 each engine
+    against the greedy Generator under the near-tie rule."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.gguf import GGUFReader
+    from eagle_tpu_torch.runtime.generate import Generator
+    from eagle_tpu_torch.runtime.sampling import SamplerConfig
+
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    out: dict = {}
+    with GGUFReader(target) as reader:
+        prompt = cli_prompt(reader.metadata["tokenizer.ggml.tokens"])
+    out["runs"] = run_clis(target, draft, prompt)
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, draft_path=draft, sampler=SamplerConfig()))
+    torch.cuda.synchronize()
+    out["load_s"] = time.time() - t0
+    tok = eng.tokenizer
+    ids = tok.encode(prompt)
+    log(f"[cli] Engine (chain, the CLI's defaults: temp 0.8, top-k 40, top-p 0.95, min-p "
+        f"0.05; max_seq {eng.cfg.max_seq}, {eng.cfg.feature_source} features) loaded in "
+        f"{out['load_s']:.1f} s; the prompt is {len(ids)} tokens ({len(prompt)} characters)")
+
+    sampler = SamplerConfig()
+    engines = {"plain": eng._plain_generator(), "chain": eng.engine,
+               "tree": eng.make_engine("tree"), "tree2": eng.make_engine("tree2")}
+
+    def generate(e, c, cb=None, seed=0, scfg=sampler, n=CLI_NEW):
+        if isinstance(e, Generator):
+            return e.generate(ids, n, sampler=scfg, seed=seed, stop_at_eos=False,
+                              on_token=cb), None
+        return e.generate(ids, n, seed=seed, stop_at_eos=False, on_token=cb,
+                          cycles_per_dispatch=c)
+
+    res: dict = {}
+    eager: dict = {}  # each engine's eager tokens (the chain's at C = 1 serve C = 4 too)
+    card = CardSampler()
+    with card:
+        for kind, c in CLI_CONFIGS:
+            name = f"{kind} C={c}" if kind != "plain" else "plain"
+            e = engines[kind]
+            if kind not in eager:
+                e.graphs.enabled = False
+                eager[kind] = generate(e, c)[0]
+                e.graphs.enabled = True
+            want = eager[kind]
+            if generate(e, c)[0] != want:  # the capture run
+                raise AssertionError(f"cli {name}: graphed tokens differ from eager tokens")
+            warm = e.graphs.eager
+            r = res[name] = {"tokens_per_s": [], "ttft_ms": [], "wall_ms_per_step": []}
+            for _ in range(REPS):
+                run0 = getattr(e, "cycles_run", 0)
+                _build.reset_counts()
+                (toks, stats), ttft, t_dec, at_first, _ = timed_run(
+                    lambda cb: generate(e, c, cb))
+                if toks != want:
+                    raise AssertionError(f"cli {name}: graphed tokens differ from eager tokens")
+                if any(_build.plain_calls.values()):
+                    raise AssertionError(f"cli {name}: plain versions ran: {_build.plain_calls}")
+                steps = (e.cycles_run - run0) if stats else len(toks) - 1
+                per = {k: (_build.launches[k] - at_first[k]) / steps for k in _build.launches}
+                if kind == "plain":
+                    want_per = {"qmm_gemv": DECODE_QMM, "qmm": 0}
+                elif kind == "chain":
+                    want_per = {"qmm_mma": VERIFY_QMM}
+                else:
+                    want_per = tree_cycle_launches(e, False, False)
+                if any(per[k] != v for k, v in want_per.items()):
+                    raise AssertionError(f"cli {name}: launches per step {per}, expected "
+                                         f"{want_per}")
+                r["tokens_per_s"].append((len(toks) - 1) / t_dec)
+                r["ttft_ms"].append(ttft * 1e3)
+                r["wall_ms_per_step"].append(t_dec / steps * 1e3)
+                r.update(stats=stats, launches_per_step={k: v for k, v in per.items() if v})
+            if e.graphs.eager != warm:
+                raise AssertionError(f"cli {name}: a body ran eagerly after the warm-up")
+            if kind == "plain":
+                pos = len(ids) + CLI_NEW - 1
+                lim = e.kv_read_bucket(pos + 16)
+                last = torch.tensor([want[-1]], dtype=torch.int32, device="cuda")
+                r["device"] = timed_events(
+                    lambda: e._decode_chunk(last, pos, sampler, 16, kv_limit=lim), 16)
+            else:
+                r["device"] = cycle_device_ms(e, ids, c)
+            if e.graphs.eager != warm:
+                raise AssertionError(f"cli {name}: a body ran eagerly while timed")
+    for name, r in res.items():
+        for key in ("tokens_per_s", "ttft_ms", "wall_ms_per_step"):
+            r[key] = spread(r[key])
+        r["idle_share"] = 1 - r["device"]["ms"] / r["wall_ms_per_step"]["median"]
+        st = r["stats"]
+        unit = "token" if st is None else "cycle"
+        extra = "" if st is None else (f", accept_rate {st['accept_rate']:.3f}, "
+                                       f"mean_accept_len {st['mean_accept_len']:.3f}, "
+                                       f"{st['n_cycles']} cycles")
+        log(f"[cli sampled] {name}: tokens/s min / median / max {fmt(r['tokens_per_s'])}, "
+            f"TTFT ms {fmt(r['ttft_ms'], 1)}, wall ms per {unit} {fmt(r['wall_ms_per_step'])}, "
+            f"device {r['device']['ms']:.3f} ms per {unit} (CUDA events over replays), idle "
+            f"{100 * r['idle_share']:.1f}%{extra}; launches per {unit}: "
+            + ", ".join(f"{k} {v:g}" for k, v in r["launches_per_step"].items()))
+    log(f"[cli sampled] graphed tokens == eager tokens, bit for bit ({REPS} timed runs and the "
+        f"capture run each, seed 0); the card over the runs: {card.line()}")
+    same = generate(engines["chain"], 1, seed=1)[0] == eager["chain"]
+    log(f"[cli] at the defaults seed 1 gives {'the same' if same else 'another'} chain stream "
+        f"as seed 0 ({len(set(eager['chain']))} distinct tokens in it; logged only: on random "
+        f"weights the defaults may leave one token per step, so the flat chain asserts it)")
+    out["flat"] = flat_sampler_checks(eng, ids, generate)
+
+    greedy_cfg = SamplerConfig(temperature=0.0, greedy=True)
+    gen = engines["plain"]
+    ref_toks, _ = generate(gen, 1, scfg=greedy_cfg)
+    out["temp0"] = {}
+    for kind in ("chain", "tree", "tree2"):
+        e = eng.make_engine(kind, sampler=greedy_cfg)
+        toks, stats = generate(e, 1)
+        out["temp0"][kind] = dict(stats=stats, vs_plain=check_near_tie(
+            gen, ids, ref_toks, toks, "cli temp 0", f"{kind} vs Generator"))
+        if kind == "chain":
+            text = tok.decode([t for t in toks if t != tok.eos_id], skip_special=True)
+            if text != out["runs"]["temp 0"]["text"]:
+                raise AssertionError("cli temp 0: the CLI's --temp 0 text differs from the "
+                                     "in-process greedy chain's text")
+            log("[cli temp 0] the CLI's --temp 0 text == the in-process greedy chain's text")
+        del e
+        torch.cuda.empty_cache()
+    out["sampler_share_ms"] = sampler_share(report, res)
+    out.update(variants=res, card_during_runs=card.summary, prompt_tokens=len(ids))
+    report["cli_path"] = out
+    del engines, eng
+    torch.cuda.empty_cache()
 
 # --------------------------------------------------------------------------
 # phase 7: the kernel benchmark, and qmm_i4 at the 7B projections
@@ -2171,7 +2496,9 @@ def main() -> int:
     tree_launches = phase("tree", tree_phase, report, q4k)
     del q4k
     # the later kernels' counts come from the paths that run them
-    gguf_launches = phase("6", gguf_path, report)
+    with tempfile.TemporaryDirectory(prefix="eagle_gguf_") as tmp:  # phases 6 and cli
+        gguf_launches, target, draft = phase("6", gguf_path, report, pathlib.Path(tmp))
+        phase("cli", cli_path, report, target, draft)
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)

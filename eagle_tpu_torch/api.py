@@ -1,0 +1,173 @@
+"""High-level engine API: load a GGUF target (and an EAGLE draft), tokenize,
+generate (port of eagle_tpu/api.py: `EngineConfig`, `Engine` with its load,
+tokenizer and engine choice, `_plain_generator` and `generate_text`).
+
+One object owns the target (+ draft) params on the device, the tokenizer
+from the target's metadata and the engine: `Generator` without a draft,
+else `EagleChainEngine`, `EagleTreeEngine` (`tree_branching`) or
+`EagleTree2Engine` (`tree2`). It runs on the card unless `device="cpu"`.
+What the port lacks raises NotImplementedError naming its ROADMAP item."""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from ._device import resolve_device
+from .gguf import GGUFReader, Keys
+from .models.loader import load_eagle_params, load_llama_params
+from .quant.serving import prepare_params_for_serving
+from .runtime.generate import Generator
+from .runtime.sampling import SamplerConfig, check_sampler
+from .runtime.speculative import EagleChainEngine
+from .runtime.tree import EagleTreeEngine, TreeSpec
+from .runtime.tree2 import EagleTree2Engine
+from .tokenizer import tokenizer_from_gguf_metadata
+
+_ITEM5 = "ROADMAP queue 1, item 5"
+_ITEM7 = "ROADMAP queue 1, item 7"
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    model_path: str | Path = ""
+    draft_path: str | Path | None = None  # EAGLE gguf
+    lora_path: str | Path | None = None  # not ported (ROADMAP queue 1, item 9)
+    lora_scale: float | None = None
+    max_seq: int = 2048
+    batch: int = 1  # > 1 is the continuous batcher (not ported: ROADMAP queue 1, item 6)
+    n_draft: int = 5  # chain draft length
+    #: speculative cycles chained per dispatch (one CUDA graph replay on the
+    #: card); applied to the chain and EAGLE-2 engines, as in the reference
+    cycles_per_dispatch: int = 1
+    tree_branching: tuple[int, ...] | None = None  # static tree mode
+    tree2: tuple[int, int, int] | None = None  # (beam, depth, n_verify): EAGLE-2
+    lookahead: tuple[int, int, int] | None = None  # not ported (ROADMAP queue 1, item 7)
+    compute_dtype: Any = torch.bfloat16
+    kv_dtype: Any = torch.bfloat16
+    feature_source: str = "pre_norm"
+    sampler: SamplerConfig = dataclasses.field(default_factory=lambda: SamplerConfig(greedy=True))
+    #: serving scale stream: "f32" (ggml's exact products) or "bf16"
+    scale_mode: str = "f32"
+    paged: bool = False  # not ported (ROADMAP queue 1, item 6)
+    device: Any = "cuda"
+
+
+def _refuse(cfg: EngineConfig) -> None:
+    if cfg.lora_path or cfg.lora_scale is not None:
+        raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP queue 1, item 9)")
+    if cfg.batch > 1 or cfg.paged:
+        raise NotImplementedError("batch > 1 and paged KV serve through the batchers, not "
+                                  "ported yet (ROADMAP queue 1, item 6)")
+    if cfg.lookahead:
+        raise NotImplementedError(f"lookahead decoding is not ported yet ({_ITEM7})")
+    check_sampler(cfg.sampler)
+
+
+class Engine:
+    def __init__(self, cfg: EngineConfig):
+        _refuse(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        with GGUFReader(cfg.model_path) as reader:
+            arch = reader.metadata.get(Keys.General.ARCHITECTURE)
+        if arch != "llama":  # recurrent and every other architecture
+            raise NotImplementedError(f"architecture {arch!r} is not ported yet (ROADMAP queue "
+                                      "1, item 8); the port loads llama targets")
+        self.params, self.model_cfg, self.metadata = load_llama_params(
+            cfg.model_path, device=self.device)
+        self.params = prepare_params_for_serving(self.params, scale_mode=cfg.scale_mode)
+        self.tokenizer = tokenizer_from_gguf_metadata(self.metadata)
+        self.draft_params = self.draft_cfg = None
+        if cfg.draft_path:
+            self.draft_params, self.draft_cfg, _ = load_eagle_params(cfg.draft_path,
+                                                                     device=self.device)
+            self.draft_params = prepare_params_for_serving(self.draft_params,
+                                                           scale_mode=cfg.scale_mode)
+        self.engine = self.make_engine()
+
+    def _engine_kw(self) -> dict:
+        c = self.cfg
+        return dict(max_seq=c.max_seq, compute_dtype=c.compute_dtype, kv_dtype=c.kv_dtype,
+                    eos_id=self.tokenizer.eos_id, device=self.device)
+
+    def make_engine(self, kind: str | None = None, sampler: SamplerConfig | None = None):
+        """An engine over the loaded params: "plain" (`Generator`), "chain",
+        "tree" (the config's `tree_branching`, else the reference's default
+        (4, 2, 2)) or "tree2" (the config's `tree2`, else beam 8, depth 6,
+        32 verify rows). By default the config's choice: without a draft
+        "plain", else "tree2", "tree" or "chain". Another sampler or engine
+        kind over the same params costs no load."""
+        c = self.cfg
+        if kind is None:
+            kind = ("plain" if self.draft_params is None else "tree2" if c.tree2
+                    else "tree" if c.tree_branching else "chain")
+        kw = self._engine_kw()
+        if kind == "plain":
+            return Generator(self.params, self.model_cfg, **kw)
+        if self.draft_params is None:
+            raise ValueError(f"a {kind!r} engine needs a draft (draft_path)")
+        spec = (self.params, self.draft_params, self.model_cfg, self.draft_cfg)
+        kw.update(feature_source=c.feature_source, sampler=sampler or c.sampler)
+        if kind == "tree2":
+            bm, dpt, nv = c.tree2 or (8, 6, 32)
+            eng = EagleTree2Engine(*spec, beam=bm, depth=dpt, n_verify=nv, **kw)
+        elif kind == "tree":
+            eng = EagleTreeEngine(*spec, tree=TreeSpec(c.tree_branching or (4, 2, 2)), **kw)
+        elif kind == "chain":
+            eng = EagleChainEngine(*spec, n_draft=c.n_draft, **kw)
+        else:
+            raise ValueError(f"engine kind {kind!r}")
+        if c.cycles_per_dispatch > 1 and kind != "tree":  # as the reference: not the static tree
+            eng.cycles_per_dispatch = int(c.cycles_per_dispatch)
+        return eng
+
+    def _plain_generator(self) -> Generator:
+        """A non-speculative generator over the same target params."""
+        if not hasattr(self, "_plain"):
+            self._plain = self.make_engine("plain")
+        return self._plain
+
+    def generate_text(
+        self,
+        prompt: str,
+        max_new_tokens: int = 256,
+        sampler: SamplerConfig | None = None,
+        seed: int = 0,
+        grammar: str | None = None,
+        json_schema: dict | str | None = None,
+        session_path: str | None = None,
+        session_cache_all: bool = False,
+    ) -> tuple[str, dict]:
+        """(text, stats) for `prompt`. A speculative engine samples with the
+        config's sampler (`sampler` is for `Generator`, as in the reference);
+        stats holds the speculative counts."""
+        if grammar or json_schema:
+            raise NotImplementedError(f"grammar-constrained decoding is not ported yet ({_ITEM7})")
+        if session_path or session_cache_all:
+            raise NotImplementedError(f"prompt-cache sessions are not ported yet ({_ITEM7})")
+        ids = self.tokenizer.encode(prompt)
+        if isinstance(self.engine, Generator):
+            out = self.engine.generate(ids, max_new_tokens=max_new_tokens,
+                                       sampler=sampler or self.cfg.sampler, seed=seed)
+            stats: dict = {}
+        else:
+            out, stats = self.engine.generate(ids, max_new_tokens=max_new_tokens, seed=seed)
+        text = self.tokenizer.decode([t for t in out if t != self.tokenizer.eos_id],
+                                     skip_special=True)
+        return text, stats
+
+    def chat_session(self, *args, **kwargs):
+        raise NotImplementedError(f"chat sessions and templates are not ported yet ({_ITEM5})")
+
+    def infill(self, *args, **kwargs):
+        raise NotImplementedError(f"fill-in-the-middle is not ported yet ({_ITEM7})")
+
+    def rerank(self, *args, **kwargs):
+        raise NotImplementedError(f"rerank is not ported yet ({_ITEM5})")
+
+    def embed(self, *args, **kwargs):
+        raise NotImplementedError(f"embeddings are not ported yet ({_ITEM5})")

@@ -1,6 +1,6 @@
 """GGUF/GGML constants for the formats and keys the port reads (port of
 eagle_tpu/gguf/constants.py: `GGMLType`, `TypeTraits`, `GGUFValueType`,
-`Keys`, `ggml_row_bytes`).
+`Keys` with the SPM tokenizer's keys, `TokenType`, `ggml_row_bytes`).
 
 The tensor types listed are F32, F16 and the block formats the repack takes:
 the affine formats Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K,
@@ -145,7 +145,29 @@ class Keys:
         SCALING_ATTN_FACTOR = "{arch}.rope.scaling.attn_factor"
 
     class Tokenizer:
+        MODEL = "tokenizer.ggml.model"
         LIST = "tokenizer.ggml.tokens"
+        TOKEN_TYPE = "tokenizer.ggml.token_type"
+        SCORES = "tokenizer.ggml.scores"
+        BOS_ID = "tokenizer.ggml.bos_token_id"
+        EOS_ID = "tokenizer.ggml.eos_token_id"
+        UNK_ID = "tokenizer.ggml.unknown_token_id"
+        PAD_ID = "tokenizer.ggml.padding_token_id"
+        ADD_BOS = "tokenizer.ggml.add_bos_token"
+        ADD_EOS = "tokenizer.ggml.add_eos_token"
+        ADD_SPACE_PREFIX = "tokenizer.ggml.add_space_prefix"
+
+
+class TokenType(enum.IntEnum):
+    """Token classes stored in tokenizer.ggml.token_type."""
+
+    UNDEFINED = 0
+    NORMAL = 1
+    UNKNOWN = 2
+    CONTROL = 3
+    USER_DEFINED = 4
+    UNUSED = 5
+    BYTE = 6
 
 
 def ggml_row_bytes(ggml_type: GGMLType, n_elements: int) -> int:

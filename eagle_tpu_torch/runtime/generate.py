@@ -9,8 +9,14 @@ card it is one CUDA graph per attention-read bucket (`runtime/graphs.py`),
 replayed once a step with no host sync inside the chunk; on the CPU, or
 with `cuda_graphs=False`, the same body runs eagerly. The prompt runs
 eagerly. Prompt lengths are bucketed to powers of two, as in the
-reference, so the two take the same shapes. Session files, context shift
-and self-extend are not ported yet."""
+reference, so the two take the same shapes.
+
+A sampled step draws its Gumbel noise from the engine's `CounterRNG`
+(seeded by `generate(..., seed=)`, the reference's `PRNGKey(seed)`), whose
+counter the step advances on the device, so a replayed step draws anew and
+a graphed run gives the eager run's tokens. The step's graph key holds the
+sampler config its body bakes in. Session files, context shift and
+self-extend are not ported yet."""
 
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from ..models.config import ModelConfig
 from ..models.llama import llama_forward
 from .graphs import StepGraphs
 from .kvcache import KVCache, causal_mask_from_tags
-from .sampling import SamplerConfig, check_greedy, sample
+from .sampling import CounterRNG, SamplerConfig, check_sampler, draw
 
 
 def pad_bucket(n: int, minimum: int = 16) -> int:
@@ -59,6 +65,7 @@ class Generator:
         self._tok = torch.zeros((b,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((b,), dtype=torch.int32, device=dev)
         self._hist = torch.zeros((b, self.max_seq), dtype=torch.int32, device=dev)
+        self.rng = CounterRNG(device=dev)
         self.graphs = StepGraphs(self.cuda_graphs and dev.type == "cuda")
 
     def kv_read_bucket(self, slot_end: int) -> int:
@@ -94,7 +101,7 @@ class Generator:
             self.params, self.cfg, self._tok[:, None], p, self.kv, p, mask,
             compute_dtype=self.compute_dtype, kv_limit=kv_limit,
         )
-        nxt = sample(fo.logits[:, 0], scfg)
+        nxt = draw(fo.logits[:, 0], scfg, self.rng)
         self._hist.scatter_(1, p.long(), nxt[:, None])
         self._tok.copy_(nxt)
         self._pos.add_(1)
@@ -110,7 +117,8 @@ class Generator:
                              f"cache's {self.max_seq} slots")
         self._tok.copy_(first_token)
         self._pos.fill_(start_pos)
-        static = (self.kv.k, self.kv.v, self.kv.slot_pos, self._tok, self._pos, self._hist)
+        static = (self.kv.k, self.kv.v, self.kv.slot_pos, self._tok, self._pos, self._hist,
+                  self.rng.seed, self.rng.counter)
         for _ in range(n_steps):
             self.graphs.run(("step", kv_limit, scfg), lambda: self._step(scfg, kv_limit),
                             static)
@@ -121,13 +129,26 @@ class Generator:
         prompt_tokens,
         max_new_tokens: int = 128,
         sampler: SamplerConfig | None = None,
+        seed: int = 0,
         chunk: int = 32,
         stop_at_eos: bool = True,
+        context_shift_keep: int | None = None,
+        grp_attn_n: int = 1,
         on_token=None,
+        session_path=None,
+        session_cache_all: bool = False,
     ) -> list[int]:
-        """Single-sequence generation; returns the generated token ids."""
+        """Single-sequence generation; returns the generated token ids. The
+        first token is drawn from the prompt's logits, then one per step;
+        `seed` starts the draws' stream."""
         scfg = sampler or SamplerConfig(greedy=True)
-        check_greedy(scfg)
+        check_sampler(scfg)
+        if context_shift_keep is not None or grp_attn_n > 1:
+            raise NotImplementedError("context shift and self-extend are not ported yet "
+                                      "(ROADMAP queue 1, item 6)")
+        if session_path is not None or session_cache_all:
+            raise NotImplementedError("prompt-cache sessions (runtime/state_io.py) are not "
+                                      "ported yet (ROADMAP queue 1, item 7)")
         prompt = np.asarray(prompt_tokens, dtype=np.int32)
         n = len(prompt)
         if n < 1:  # the last prompt row and the first decode slot would be -1
@@ -141,7 +162,8 @@ class Generator:
             torch.from_numpy(padded).to(self.device),
             torch.tensor([n] * self.batch, dtype=torch.int32, device=self.device), t,
         )
-        first = sample(logits, scfg)
+        self.rng.reset(seed)
+        first = draw(logits, scfg, self.rng)
         out = [int(first[0])]
         if on_token:
             on_token(out[0])

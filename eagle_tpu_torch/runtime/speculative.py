@@ -1,11 +1,18 @@
 """EAGLE chain speculative decoding (port of
 eagle_tpu/runtime/speculative.py: `EagleChainEngine` with `fresh_state`,
-`_prefill`, the all-greedy `fast_greedy` branch of `_cycle`, `_multi_cycle`
-and `generate` with `cycles_per_dispatch`).
+`_prefill`, both branches of `_cycle`, `_multi_cycle` and `generate` with
+`seed` and `cycles_per_dispatch`).
 
 A cycle: K draft steps (feature autoregression) -> one verify forward over
-[last token + K drafts] -> exact-prefix greedy acceptance -> KV rollback by
-tag invalidation -> feature handoff. Output equals plain greedy decoding.
+[last token + K drafts] -> acceptance -> KV rollback by tag invalidation ->
+feature handoff. With a greedy sampler (`fast_greedy`) the drafts are
+argmaxes and acceptance is the exact-match prefix, so the output equals
+plain greedy decoding. Otherwise the drafts are drawn from the draft's
+transformed distribution q (kept in a static [B, K, V] buffer), the verify
+gives p over [B, K+1, V] under the same per-row chain, and
+`speculative_accept` takes min(1, p/q) with a residual resample: the output
+is distributed as plain sampling. Draws come from the state's `CounterRNG`,
+seeded by `generate(..., seed=)`.
 
 Indexing (EAGLE's shifted sequence): target token x_i lives at target
 position i; draft pair (x_i, f_{i-1}) lives at draft position i-1, f_j being
@@ -19,8 +26,7 @@ tags), and a dispatch of C cycles writes its tokens into static [C, ...]
 buffers. So C chained cycles are one in-place body: on the card one CUDA
 graph per (C, attention-read bucket) (`runtime/graphs.py`), the reference's
 compiled `lax.scan`; on the CPU, or with `cuda_graphs=False`, the same body
-runs eagerly. The prompt runs eagerly. Stochastic acceptance and the
-batcher's per-row controls are not ported yet."""
+runs eagerly. The prompt runs eagerly. The batcher is not ported yet."""
 
 from __future__ import annotations
 
@@ -37,7 +43,15 @@ from ..models.llama import llama_forward
 from .generate import pad_bucket
 from .graphs import StepGraphs
 from .kvcache import KVCache, causal_mask_from_tags
-from .sampling import SamplerConfig, check_greedy, sample
+from .sampling import (
+    BatchedSamplerParams,
+    CounterRNG,
+    SamplerConfig,
+    check_sampler,
+    draw,
+    speculative_accept,
+    transformed_probs_batched,
+)
 
 
 @dataclasses.dataclass
@@ -47,6 +61,7 @@ class SpecState:
     last_token: torch.Tensor  # [B] sampled but not yet decoded by the target
     feature: torch.Tensor  # [B, D] target feature at position n_past-1
     n_past: torch.Tensor  # [B] committed target tokens (m)
+    rng: CounterRNG  # the draws' (seed, counter): the reference's `key`
 
 
 class CycleOutput(NamedTuple):
@@ -91,7 +106,15 @@ class EagleChainEngine:
         self.compute_dtype = compute_dtype
         self.feature_source = feature_source
         self.scfg = sampler or SamplerConfig(greedy=True)
-        check_greedy(self.scfg)
+        check_sampler(self.scfg)
+        #: per-row sampler parameters (every row the engine's sampler); a
+        #: greedy sampler takes the `fast_greedy` cycle, any other the
+        #: stochastic one
+        self.bsampler = BatchedSamplerParams.create(batch, self.scfg, n_draft=n_draft,
+                                                    device=self.device)
+        self.fast_greedy = self.scfg.is_greedy
+        self._q: torch.Tensor | None = None  # the drafts' q [B, K, V], made at first use
+        self.cycles_per_dispatch = 1  # generate()'s default C
         self.eos_id = eos_id
         self.state = self._new_state()  # static for the engine's life
         self._outs: dict[int, CycleOutput] = {}  # static output buffers per C
@@ -115,11 +138,12 @@ class EagleChainEngine:
             last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
             feature=torch.zeros((b, self.tcfg.n_embd), dtype=torch.float32, device=dev),
             n_past=torch.zeros((b,), dtype=torch.int32, device=dev),
+            rng=CounterRNG(device=dev),
         )
 
     def fresh_state(self) -> SpecState:
-        """The engine's state, reset in place to a new one's: empty tags and
-        zeros."""
+        """The engine's state, reset in place to a new one's: empty tags,
+        zeros, and the stream of seed 0."""
         st = self.state
         for kv in (st.tgt_kv, st.dft_kv):
             kv.k.zero_()
@@ -127,6 +151,7 @@ class EagleChainEngine:
             kv.slot_pos.fill_(-1)
         for t in (st.last_token, st.feature, st.n_past):
             t.zero_()
+        st.rng.reset(0)
         return st
 
     def _prefill(self, state: SpecState, tokens: torch.Tensor, n_valid: torch.Tensor,
@@ -159,19 +184,26 @@ class EagleChainEngine:
         )
         b_idx = torch.arange(b, device=self.device)
         last = (n_valid - 1).long()
-        state.last_token.copy_(sample(tout.logits[b_idx, last], self.scfg))
+        state.last_token.copy_(draw(tout.logits[b_idx, last], self.scfg, state.rng))
         state.feature.copy_(feats[b_idx, last])
         state.n_past.copy_(n_valid)
         return state
 
     def _cycle(self, state: SpecState, out: CycleOutput, ci: int,
                kv_limit: int | None = None) -> None:
-        """One greedy speculative cycle (the reference's `fast_greedy`
-        branch: argmax drafts, exact-match prefix acceptance). Advances
-        `state` in place and writes row `ci` of `out`'s buffers."""
+        """One speculative cycle: with a greedy sampler, the reference's
+        `fast_greedy` branch (argmax drafts, exact-match prefix acceptance);
+        otherwise drafts drawn from q and stochastic acceptance against p
+        (`speculative_accept`). Advances `state` in place and writes row `ci`
+        of `out`'s buffers."""
         b, K = self.batch, self.K
         b_idx = torch.arange(b, device=self.device)
         m = state.n_past  # [B]; overwritten last
+        fast_greedy, bs = self.fast_greedy, self.bsampler
+        if not fast_greedy:  # the cycle's noise in two draws: K drafts + the correction
+            greedy_rows = bs.greedy | (bs.temperature <= 0)
+            gumbel = state.rng.gumbel((K + 1, b, self.tcfg.vocab_size))
+            uniform = state.rng.uniform((b, K))
 
         # ---- 1. draft K tokens (feature autoregression) ----
         tok, feat, dkv = state.last_token, state.feature, state.dft_kv
@@ -184,7 +216,13 @@ class EagleChainEngine:
                 self.dp, self.tp, self.dcfg, tok[:, None], feat[:, None], pos,
                 dkv, pos, mask, compute_dtype=self.compute_dtype, kv_limit=kv_limit,
             )
-            tok = sample(dout.logits[:, 0], self.scfg)
+            if fast_greedy:
+                tok = torch.argmax(dout.logits[:, 0], dim=-1).to(torch.int32)
+            else:  # a draw from q; greedy rows take its argmax
+                q = transformed_probs_batched(dout.logits[:, 0], bs)  # [B, V]
+                self._q[:, k].copy_(q)
+                drawn = torch.argmax(gumbel[k] + torch.log(q + 1e-30), dim=-1)
+                tok = torch.where(greedy_rows, torch.argmax(q, dim=-1), drawn).to(torch.int32)
             feat = self._pick_feature(dout.feature, dout.feature_pre)[:, 0]
             drafts.append(tok)
         drafts = torch.stack(drafts, dim=1)  # [B, K]; drafts[:, k] = candidate for x_{m+1+k}
@@ -199,10 +237,15 @@ class EagleChainEngine:
             compute_dtype=self.compute_dtype, kv_limit=kv_limit, slots_contiguous=True,
         )
 
-        # ---- 3. exact-prefix acceptance ----
-        t_true = sample(tout.logits, self.scfg)  # [B, K+1]
-        match = drafts == t_true[:, :K]
-        n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        # ---- 3. acceptance ----
+        if fast_greedy:  # exact-prefix match against the target's argmax
+            t_true = torch.argmax(tout.logits, dim=-1).to(torch.int32)  # [B, K+1]
+            match = drafts == t_true[:, :K]
+            n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        else:  # min(1, p/q) with a residual resample, per-row chains on both sides
+            p = transformed_probs_batched(tout.logits, bs)  # [B, K+1, V]
+            t_true, n_acc = speculative_accept(drafts, self._q, p, bs.spec_k, greedy_rows,
+                                               uniform, gumbel[K])
         new_m = m + n_acc + 1
         feats = self._pick_feature(tout.hidden, tout.hidden_pre)
         idx = n_acc.long()
@@ -233,30 +276,40 @@ class EagleChainEngine:
             )
             self._outs[n_cycles] = out
         st = self.state
+        if not self.fast_greedy and self._q is None:
+            self._q = torch.zeros((self.batch, self.K, self.tcfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
 
         def body():
             for ci in range(n_cycles):
                 self._cycle(st, out, ci, kv_limit=kv_limit)
 
         static = (st.tgt_kv.k, st.tgt_kv.v, st.tgt_kv.slot_pos, st.dft_kv.k, st.dft_kv.v,
-                  st.dft_kv.slot_pos, st.last_token, st.feature, st.n_past, out.tokens,
-                  out.n_out, out.n_accepted)
+                  st.dft_kv.slot_pos, st.last_token, st.feature, st.n_past, st.rng.seed,
+                  st.rng.counter, out.tokens, out.n_out, out.n_accepted,
+                  *self.bsampler.tensors(),
+                  *(() if self._q is None else (self._q,)))
         self.graphs.run(("cycles", n_cycles, kv_limit), body, static)
         self.cycles_run += n_cycles
         return out
 
-    def generate(self, prompt_tokens, max_new_tokens: int = 128, stop_at_eos: bool = True,
-                 on_token=None, cycles_per_dispatch: int | None = None) -> tuple[list[int], dict]:
+    def generate(self, prompt_tokens, max_new_tokens: int = 128, seed: int = 0,
+                 stop_at_eos: bool = True, on_token=None,
+                 cycles_per_dispatch: int | None = None) -> tuple[list[int], dict]:
         """Returns (tokens, stats). Output is identical to non-speculative
-        greedy decoding (the draft only changes speed).
+        greedy decoding, or distributed as non-speculative sampling under
+        the same sampler (the draft only changes speed); `seed` starts the
+        draws' stream.
 
         `cycles_per_dispatch` C > 1 chains C cycles in one dispatch
         (`_multi_cycle`), as in the reference: stop conditions (eos,
         max_new) are checked between dispatches, and the cycles after a stop
         are computed and discarded, left out of the stats. Near `max_seq`
         the dispatches wind down to single cycles. The reference's C = 1
-        branch is the same loop with one cycle."""
+        branch is the same loop with one cycle. Without
+        `cycles_per_dispatch`, C is the engine's `cycles_per_dispatch`."""
         state = self.fresh_state()
+        state.rng.reset(seed)
         prompt = np.asarray(prompt_tokens, dtype=np.int32)
         n = len(prompt)
         if n < 1:  # the last prompt row and the first draft slot would be -1
@@ -272,7 +325,7 @@ class EagleChainEngine:
         if on_token:
             on_token(out[0])
         n_cycles = n_drafted = n_accepted = 0
-        C = max(1, cycles_per_dispatch or 1)
+        C = max(1, cycles_per_dispatch or self.cycles_per_dispatch)
         n_past = n  # state.n_past[0], followed on the host: no read of its own
         while len(out) < max_new_tokens and not (stop_at_eos and out[-1] == self.eos_id):
             if n_past + self.K + 2 >= self.max_seq:

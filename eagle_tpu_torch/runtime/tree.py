@@ -1,4 +1,4 @@
-"""EAGLE tree speculation, greedy (port of eagle_tpu/runtime/tree.py:
+"""EAGLE tree speculation (port of eagle_tpu/runtime/tree.py:
 `TreeSpec`, `_tree_mask`, `_compact_kv` and `EagleTreeEngine` with its
 `_tree_cycle`).
 
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..models.eagle import eagle_forward
 from ..models.llama import llama_forward
 from .kvcache import KVCache
-from .sampling import sample, top_k
+from .sampling import draw, top_k
 from .speculative import CycleOutput, EagleChainEngine, SpecState
 
 
@@ -146,7 +146,7 @@ class EagleTreeEngine(EagleChainEngine):
 
     def _cycle(self, state: SpecState, out: CycleOutput, ci: int,
                kv_limit: int | None = None) -> None:
-        """One greedy tree cycle (the reference's `_tree_cycle`): advances
+        """One tree cycle (the reference's `_tree_cycle`): advances
         `state` in place and writes row `ci` of `out`'s buffers."""
         tree, b, dev = self.tree, self.batch, self.device
         n = tree.n_nodes
@@ -192,9 +192,15 @@ class EagleTreeEngine(EagleChainEngine):
             self.tp, self.tcfg, node_tokens, v_pos, tgt_kv, v_slots, mask,
             compute_dtype=self.compute_dtype, kv_limit=kv_limit, slots_contiguous=True,
         )
-        t_argmax = sample(tout.logits, self.scfg)  # [B, N]
+        # the target's decision per node: its argmax, or one draw of the
+        # sampler chain, then the exact-match walk below. Sample-then-match
+        # keeps the output distributed as plain sampling: the expansion is a
+        # deterministic top-k, so a node proposes a fixed candidate set C,
+        # and no distribution-preserving scheme accepts with more than
+        # P(x in C), which the draw and the match reach.
+        t_argmax = draw(tout.logits, self.scfg, state.rng)  # [B, N]
 
-        # ---- 3. greedy path acceptance walk (static depth loop) ----
+        # ---- 3. path acceptance walk (static depth loop) ----
         cur = torch.zeros((b,), dtype=torch.int64, device=dev)
         alive = torch.ones((b,), dtype=torch.bool, device=dev)
         n_acc = torch.zeros((b,), dtype=torch.int32, device=dev)

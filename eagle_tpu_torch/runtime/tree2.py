@@ -1,4 +1,4 @@
-"""EAGLE-2 dynamic draft trees, greedy (port of eagle_tpu/runtime/tree2.py:
+"""EAGLE-2 dynamic draft trees (port of eagle_tpu/runtime/tree2.py:
 `_window_tree_mask` and `EagleTree2Engine` with its `_tree2_cycle`).
 
 Each level expands only the globally most probable nodes (beam search over
@@ -30,7 +30,7 @@ import torch
 from ..models.eagle import eagle_forward
 from ..models.llama import llama_forward
 from .kvcache import causal_mask_from_tags
-from .sampling import sample, top_k
+from .sampling import draw, top_k
 from .speculative import CycleOutput, EagleChainEngine, SpecState
 from .tree import _compact_kv, _emit
 
@@ -86,7 +86,7 @@ class EagleTree2Engine(EagleChainEngine):
 
     def _cycle(self, state: SpecState, out: CycleOutput, ci: int,
                kv_limit: int | None = None) -> None:
-        """One greedy EAGLE-2 cycle (the reference's `_tree2_cycle`):
+        """One EAGLE-2 cycle (the reference's `_tree2_cycle`):
         advances `state` in place and writes row `ci` of `out`'s buffers."""
         b, M, D, W, N = self.batch, self.M, self.D, self.W, self.N
         dev = self.device
@@ -162,7 +162,13 @@ class EagleTree2Engine(EagleChainEngine):
             self.tp, self.tcfg, vt, v_pos, tgt_kv, v_slots, mask,
             compute_dtype=self.compute_dtype, kv_limit=kv_limit, slots_contiguous=True,
         )
-        t_true = sample(tout.logits, self.scfg)  # [B, N]
+        # the target's decision per node: its argmax, or one draw of the
+        # sampler chain, then the exact-match walk below. Sample-then-match
+        # keeps the output distributed as plain sampling: the expansion is a
+        # deterministic top-k, so a node proposes a fixed candidate set C,
+        # and no distribution-preserving scheme accepts with more than
+        # P(x in C), which the draw and the match reach.
+        t_true = draw(tout.logits, self.scfg, state.rng)  # [B, N]
 
         # ---- acceptance walk over the dynamic topology ----
         sel_par = cand_par.gather(1, sel)  # [B, N] parents' candidate ids

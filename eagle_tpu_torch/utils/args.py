@@ -1,0 +1,186 @@
+"""The declarative option registry of the command-line tools (port of the
+rows of eagle_tpu/utils/args.py that its `cli` and `tokenize` tools
+materialize, with `build_parser`, `sampler_from_args` and
+`apply_log_args`).
+
+Every option is one `Opt` row: flags, type / default / choices / help, an
+EAGLE_ARG_<NAME> environment fallback (explicit flag > environment >
+declared default) and the tools that take it. The port adds `--device`
+(its counterpart of `--backend`). The flags of features the port does not
+have yet stay in the parser with `refused` naming their ROADMAP item:
+`check_refused` raises NotImplementedError when one is given, so a
+reference command line either runs or names what is missing."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Opt:
+    """One declarative option row."""
+
+    flags: tuple[str, ...]
+    help: str = ""
+    type: Any = None
+    default: Any = None
+    choices: tuple | None = None
+    action: str | None = None  # "store_true" / "store_false"
+    metavar: str | None = None
+    required: bool = False
+    #: tool-name mask; None = common (every tool)
+    tools: tuple[str, ...] | None = None
+    #: EAGLE_ARG_<NAME> fallback; None disables
+    env: str | None = ""
+    #: what the port lacks for this flag (a ROADMAP item), when it lacks it
+    refused: str | None = None
+
+    @property
+    def dest(self) -> str:
+        long = next((f for f in self.flags if f.startswith("--")), self.flags[-1])
+        return long.lstrip("-").replace("-", "_")
+
+    @property
+    def env_name(self) -> str | None:
+        if self.env is None:
+            return None
+        return f"EAGLE_ARG_{(self.env or self.dest).upper()}"
+
+    def resolve_default(self):
+        """EAGLE_ARG_<NAME> overrides the declared default (never an
+        explicit flag)."""
+        v = os.environ.get(self.env_name) if self.env_name else None
+        if v is None:
+            return self.default
+        if self.action in ("store_true", "store_false"):
+            return v not in ("0", "false", "")
+        return (self.type or str)(v)
+
+
+TOOLS = ("cli", "tokenize")
+
+_ITEM5 = "chat and its templates (ROADMAP queue 1, item 5)"
+_ITEM7 = "the rest of the runtime (ROADMAP queue 1, item 7)"
+
+REGISTRY: tuple[Opt, ...] = (
+    # ---- model / runtime --------------------------------------------------
+    Opt(("-m", "--model"), "target GGUF path", required=True, tools=("cli", "tokenize")),
+    Opt(("--ctx",), "context length", type=int, default=2048, tools=("cli",)),
+    Opt(("--device",), "device: the card (cuda) or the plain PyTorch path (cpu)",
+        default="cuda", choices=("cuda", "cpu"), tools=("cli",)),
+    Opt(("--backend",), "the reference's compute backend", choices=(None, "xla", "pallas"),
+        refused="the reference's XLA / Pallas choice: the port runs its CUDA kernels "
+                "(--device cuda) or their plain versions (--device cpu)"),
+    Opt(("--lora",), "LoRA adapter GGUF (merged at load)", tools=("cli",),
+        refused="LoRA adapters (ROADMAP queue 1, item 9)"),
+    Opt(("--lora-scale",), "LoRA alpha override", type=float, tools=("cli",),
+        refused="LoRA adapters (ROADMAP queue 1, item 9)"),
+    # ---- speculation ------------------------------------------------------
+    Opt(("--draft",), "EAGLE draft GGUF (enables speculation)", tools=("cli",)),
+    Opt(("--n-draft",), "chain draft length", type=int, default=5, tools=("cli",)),
+    Opt(("--cycles-per-dispatch",), "speculative cycles chained per dispatch (one CUDA "
+        "graph replay on the card)", type=int, default=1, tools=("cli",)),
+    Opt(("--tree",), "tree branching factors, e.g. 4,2,2", tools=("cli",)),
+    Opt(("--tree2",), "EAGLE-2 dynamic draft tree, e.g. 8,6,32",
+        metavar="BEAM,DEPTH,NVERIFY", tools=("cli",)),
+    Opt(("--lookahead",), "model-free lookahead decoding (W,N,G)", metavar="W,N,G",
+        tools=("cli",), refused=f"lookahead decoding: {_ITEM7}"),
+    Opt(("--feature-source",), "EAGLE feature tap", default="pre_norm",
+        choices=("pre_norm", "post_norm"), tools=("cli",)),
+    # ---- sampling -----------------------------------------------------------
+    Opt(("--temp",), "sampling temperature", type=float, default=0.8, tools=("cli",)),
+    Opt(("--top-k",), "top-k", type=int, default=40, tools=("cli",)),
+    Opt(("--top-p",), "top-p", type=float, default=0.95, tools=("cli",)),
+    Opt(("--min-p",), "min-p", type=float, default=0.05, tools=("cli",)),
+    Opt(("--repeat-penalty",), "repetition penalty (1.0: off; any other value needs the "
+        "stateful samplers, ROADMAP queue 1, item 7)", type=float, default=1.0,
+        tools=("cli",)),
+    Opt(("--seed",), "sampling seed", type=int, default=0, tools=("cli",)),
+    # ---- generation / prompt ------------------------------------------------
+    Opt(("-p", "--prompt"), "prompt text", tools=("cli", "tokenize")),
+    Opt(("-n", "--n-predict"), "tokens to generate", type=int, default=128, tools=("cli",)),
+    Opt(("--grammar",), "GBNF grammar constraining output", tools=("cli",),
+        refused=f"grammar-constrained decoding: {_ITEM7}"),
+    Opt(("--json-schema",), "JSON schema constraining output", tools=("cli",),
+        refused=f"grammar-constrained decoding: {_ITEM7}"),
+    Opt(("--prompt-cache",), "session file: save/resume the prompt's KV state",
+        tools=("cli",), refused=f"prompt-cache sessions: {_ITEM7}"),
+    Opt(("--prompt-cache-all",), "also cache generated output in the session",
+        action="store_true", tools=("cli",), refused=f"prompt-cache sessions: {_ITEM7}"),
+    # ---- chat ---------------------------------------------------------------
+    Opt(("--chat",), "interactive conversation mode", action="store_true", tools=("cli",),
+        refused=_ITEM5),
+    Opt(("--system",), "system prompt (chat mode)", tools=("cli",), refused=_ITEM5),
+    Opt(("--chat-template",), "built-in chat template name", tools=("cli",), refused=_ITEM5),
+    Opt(("--jinja",), "execute the GGUF's embedded jinja chat template",
+        action="store_true", tools=("cli",), refused=_ITEM5),
+    # ---- logging ------------------------------------------------------------
+    Opt(("--log-level",), "log verbosity", choices=(None, "error", "warn", "info", "debug")),
+    Opt(("--log-file",), "log destination file"),
+)
+
+
+def _rows(tool: str):
+    assert tool in TOOLS, tool
+    return [o for o in REGISTRY if o.tools is None or tool in o.tools]
+
+
+def build_parser(tool: str, prog: str | None = None,
+                 description: str | None = None) -> argparse.ArgumentParser:
+    """`tool`'s parser from the registry, with EAGLE_ARG_* fallbacks resolved
+    into the defaults; a `required` row is met by its variable."""
+    ap = argparse.ArgumentParser(prog or f"eagle-tpu-torch {tool}", description=description)
+    for opt in _rows(tool):
+        kw: dict[str, Any] = {"help": opt.help or None, "dest": opt.dest}
+        default = opt.resolve_default()
+        if opt.action:
+            kw["action"] = opt.action
+            if default is not None:
+                kw["default"] = default
+        else:
+            kw.update(type=opt.type, default=default, choices=opt.choices, metavar=opt.metavar)
+            if opt.required and default is None:
+                kw["required"] = True
+            kw = {k: v for k, v in kw.items() if v is not None or k == "default"}
+        if opt.env_name and kw.get("help"):
+            kw["help"] = f"{kw['help']} [{opt.env_name}]"
+        ap.add_argument(*opt.flags, **kw)
+    return ap
+
+
+def check_refused(args: argparse.Namespace, tool: str) -> None:
+    """Raise NotImplementedError for the first given flag (one away from its
+    default) that the port does not have yet, naming what is missing."""
+    for opt in _rows(tool):
+        if opt.refused and getattr(args, opt.dest, opt.default) not in (opt.default, False):
+            raise NotImplementedError(f"{opt.flags[-1]}: {opt.refused}")
+
+
+#: CLI dest -> SamplerConfig field
+SAMPLING_ARG_FIELDS = {
+    "temp": "temperature",
+    "top_k": "top_k",
+    "top_p": "top_p",
+    "min_p": "min_p",
+    "repeat_penalty": "penalty_repeat",
+}
+
+
+def sampler_from_args(args):
+    """SamplerConfig from parsed registry args (greedy iff temp <= 0)."""
+    from ..runtime.sampling import SamplerConfig
+
+    return SamplerConfig(
+        **{f: getattr(args, d) for d, f in SAMPLING_ARG_FIELDS.items()},
+        greedy=args.temp <= 0,
+    )
+
+
+def apply_log_args(args) -> None:
+    from .logging import setup_logging
+
+    if getattr(args, "log_level", None) or getattr(args, "log_file", None):
+        setup_logging(level=args.log_level, log_file=args.log_file)

@@ -1,0 +1,88 @@
+"""The port's command-line tools and refusals on the CPU: `tools.cli.main`
+(`--device cpu`) on a tiny GGUF pair with an SPM vocabulary prints the text
+and the `[speculative]` line, `tools.tokenize` the ids; every flag, config
+and entry point the port does not have yet raises NotImplementedError
+naming its ROADMAP item; the entry points default to the card."""
+
+import pytest
+import torch
+
+from eagle_tpu_torch.api import Engine, EngineConfig
+from eagle_tpu_torch.runtime.generate import Generator
+from eagle_tpu_torch.runtime.sampling import SamplerConfig
+from eagle_tpu_torch.tools import cli, tokenize
+from torch_port_util import tiny_engine_pair
+
+PROMPT = "the quick brown fox jumps over a lazy dog and then"
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    return tiny_engine_pair(tmp_path_factory.mktemp("cli"), PROMPT)
+
+
+@pytest.fixture(scope="module")
+def engine(pair):
+    return Engine(EngineConfig(model_path=pair[0], draft_path=pair[1], max_seq=128,
+                               compute_dtype=torch.float32, kv_dtype=torch.float32, device="cpu"))
+
+
+def test_cli_prints_text_and_speculative_line(pair, capsys):
+    assert cli.main(["-m", str(pair[0]), "--draft", str(pair[1]), "-p", PROMPT, "-n", "8",
+                     "--device", "cpu", "--ctx", "128", "--seed", "3"]) == 0
+    out, err = capsys.readouterr()
+    assert out.strip() and "[load]" in err and "[perf]" in err
+    assert "[speculative] accept_rate=" in err and "mean_accept_len=" in err
+    assert tokenize.main(["-m", str(pair[0]), "-p", "the fox", "--ids"]) == 0
+    ids = [int(x) for x in capsys.readouterr().out.split()]
+    assert ids[0] == 1 and len(ids) == 3
+
+
+REFUSED_FLAGS = [(["--lora", "a.gguf"], "item 9"), (["--lora-scale", "0.5"], "item 9"),
+                 (["--lookahead", "4,3,2"], "item 7"), (["--grammar", "root ::= \"a\""], "item 7"),
+                 (["--json-schema", "{}"], "item 7"), (["--prompt-cache", "s.bin"], "item 7"),
+                 (["--prompt-cache-all"], "item 7"), (["--chat"], "item 5"),
+                 (["--system", "hi"], "item 5"), (["--chat-template", "vicuna"], "item 5"),
+                 (["--jinja"], "item 5"), (["--backend", "xla"], "--device"),
+                 (["--repeat-penalty", "1.1"], "item 7")]
+
+
+@pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=[f[0][0] for f in REFUSED_FLAGS])
+def test_cli_refuses_what_is_not_ported(pair, flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(["-m", str(pair[0]), "-p", "a", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(lora_path="a.gguf"), "item 9"), (dict(batch=2), "item 6"), (dict(paged=True), "item 6"),
+    (dict(lookahead=(4, 3, 2)), "item 7"), (dict(sampler=SamplerConfig(mirostat=2)), "item 7")])
+def test_engine_config_refusals(pair, kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Engine(EngineConfig(model_path=pair[0], device="cpu", **kw))
+
+
+def test_entry_point_refusals(engine):
+    eng = engine
+    for call, item in ((lambda: eng.generate_text("a", grammar="root ::= \"a\""), "item 7"),
+                       (lambda: eng.generate_text("a", json_schema={"type": "object"}), "item 7"),
+                       (lambda: eng.generate_text("a", session_path="s.bin"), "item 7"),
+                       (lambda: eng.chat_session(), "item 5"),
+                       (lambda: eng.infill("a", "b"), "item 7"),
+                       (lambda: eng.rerank("a", ["b"]), "item 5"),
+                       (lambda: eng.embed(["a"]), "item 5")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+    gen = eng._plain_generator()
+    assert isinstance(gen, Generator)
+    for kw, item in ((dict(context_shift_keep=4), "item 6"), (dict(grp_attn_n=2), "item 6"),
+                     (dict(session_path="s.bin"), "item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            gen.generate([1, 5, 6], 4, **kw)
+
+
+def test_engine_defaults_to_the_card(pair):
+    assert EngineConfig().device == "cuda" and EngineConfig().feature_source == "pre_norm"
+    assert cli.build_argparser().parse_args(["-m", "x"]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(EngineConfig(model_path=pair[0]))

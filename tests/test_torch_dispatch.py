@@ -28,7 +28,11 @@ from eagle_tpu_torch.convert import params_from_numpy
 from eagle_tpu_torch.runtime import graphs
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.speculative import EagleChainEngine
-from torch_port_util import tiny_cfgs, tree_to_numpy
+from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
+    background_cpu, tiny_cfgs, tree_to_numpy,
+)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 K = 2  # drafts per cycle, as the reference's test
 

@@ -31,7 +31,11 @@ from eagle_tpu_torch.models.llama import _layer_step, llama_forward
 from eagle_tpu_torch.models.synth import synth_llama_params
 from eagle_tpu_torch.ops.ffn import ffn_block, ffn_out_norm, gate_up_act, supports_ffn_block
 from eagle_tpu_torch.runtime.kvcache import KVCache, causal_mask_from_tags
-from torch_port_util import qtensor_to_numpy
+from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
+    background_cpu, qtensor_to_numpy,
+)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 D, F, HD = 256, 512, 256  # model width, FFN width, attention width (4 heads of 64)
 EPS = 1e-6

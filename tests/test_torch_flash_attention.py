@@ -18,7 +18,9 @@ from eagle_tpu.ops.pallas_attention import flash_attention_cached, flash_attenti
 from eagle_tpu.runtime.kvcache import causal_mask_from_tags
 from eagle_tpu_torch import _build
 from eagle_tpu_torch.ops import flash_attention as fa
-import torch_port_util  # noqa: F401  (one PyTorch thread per test worker)
+from torch_port_util import background_cpu  # noqa: F401  (background_cpu: a fixture)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 L, B, H, HKV, D, S = 3, 2, 4, 2, 64, 256
 TOL = {"f32": 1e-5, "bf16": 1e-2}

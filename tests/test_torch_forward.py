@@ -22,7 +22,11 @@ from eagle_tpu_torch.convert import params_from_numpy
 from eagle_tpu_torch.models.eagle import eagle_forward
 from eagle_tpu_torch.models.llama import llama_forward
 from eagle_tpu_torch.runtime.kvcache import KVCache, causal_mask_from_tags
-from torch_port_util import tiny_cfgs, tree_to_numpy
+from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
+    background_cpu, tiny_cfgs, tree_to_numpy,
+)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 MAX_SEQ = 128
 

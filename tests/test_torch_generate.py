@@ -19,7 +19,11 @@ from eagle_tpu.runtime.speculative import EagleChainEngine as JaxEngine
 from eagle_tpu_torch.convert import params_from_numpy
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.speculative import EagleChainEngine
-from torch_port_util import tiny_cfgs, tree_to_numpy
+from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
+    background_cpu, tiny_cfgs, tree_to_numpy,
+)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 MAX_SEQ = 128
 N_NEW = 20

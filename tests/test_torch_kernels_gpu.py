@@ -18,7 +18,9 @@ graphs (graphed tokens equal to the eager path's bit for bit, greedy and
 EAGLE at 1 and 3 cycles per dispatch, the tree engines at 1-3 with and
 without an oracle draft; replays counted as launches; a new cache or
 fused-FFN mode captures another graph), and flash_decode under the tree
-engines' ancestor masks.
+engines' ancestor masks; sampled decoding (`-k sample`): `speculative_accept`'s
+marginal, draws that advance across graph replays, and every sampled engine
+graphed == eager from the same seed.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -850,3 +852,103 @@ def test_graphed_tree_engine_equals_eager(cuda, kind, cycles, with_oracle, monke
         assert dict(_build.launches) == eager_launches
     if with_oracle:
         assert want[1]["n_accepted"] > 0
+
+
+# ---- sampled decoding on the card (runtime/sampling.py; `-k sample`)
+
+SAMPLED = SamplerConfig()  # the CLI's defaults: temp 0.8, top-k 40, top-p 0.95, min-p 0.05
+
+
+def test_sample_speculative_accept_marginal_on_the_card(cuda):
+    """The first emitted token's marginal equals p within total variation
+    0.02 (V = 16, 40,000 rows; noise alone ~0.006), with the draws of a
+    `CounterRNG` on the card."""
+    from eagle_tpu_torch.runtime.sampling import CounterRNG, speculative_accept
+
+    rng = np.random.default_rng(0)
+    v, k, n = 16, 2, 40000
+
+    def dist(temp=1.0):
+        p = np.exp(rng.standard_normal(v) * temp)
+        return torch.tensor(p / p.sum(), dtype=torch.float32, device="cuda")
+
+    p0, p1, p2, q0, q1 = dist(2.0), dist(), dist(), dist(2.0), dist()
+    gen = CounterRNG(seed=1, device="cuda")
+    q = torch.stack([q0, q1])
+    drafts = torch.argmax(gen.gumbel((n, k, v)) + torch.log(q), dim=-1).to(torch.int32)
+    tokens, n_acc = speculative_accept(
+        drafts, q.expand(n, k, v), torch.stack([p0, p1, p2]).expand(n, k + 1, v),
+        torch.full((n,), k, dtype=torch.int32, device="cuda"),
+        torch.zeros(n, dtype=torch.bool, device="cuda"), gen.uniform((n, k)), gen.gumbel((n, v)))
+    emp = torch.bincount(tokens[:, 0].long(), minlength=v).double() / n
+    assert float(0.5 * (emp - p0.double()).abs().sum()) < 0.02
+    assert bool((n_acc == 0).any()) and bool((n_acc > 0).any())
+
+
+def test_sample_draws_advance_across_replays(cuda):
+    """A graph that captured a draw draws anew at each replay, with the
+    values an eager run of the same (seed, counter) gives."""
+    from eagle_tpu_torch.runtime.sampling import CounterRNG
+
+    gen = CounterRNG(seed=9, device="cuda")
+    out = torch.zeros((4, 1000), device="cuda")
+    row = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def body():
+        out.index_copy_(0, row.view(1), gen.uniform((1, 1000)))
+        row.add_(1)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()  # the warm-up draws row 0
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for _ in range(3):
+        graph.replay()
+    eager = CounterRNG(seed=9, device="cuda")
+    want = torch.cat([eager.uniform((1, 1000)) for _ in range(4)])
+    assert int(gen.counter) == 4 and torch.equal(out, want)
+    assert len({tuple(r[:8].tolist()) for r in out}) == 4
+
+
+@pytest.mark.parametrize("kind,cycles", [("plain", 1), ("chain", 1), ("chain", 2), ("chain", 3),
+                                         ("tree", 1), ("tree", 2), ("tree2", 1), ("tree2", 2),
+                                         ("tree2", 3)])
+def test_sampled_engine_graphed_equals_eager(cuda, kind, cycles):
+    """Sampled at the CLI's defaults, graphed tokens (and stats) at C
+    cycles per dispatch equal the eager C = 1 run's from the same seed bit
+    for bit; after the warm-up no body runs eagerly; another seed gives
+    another stream; no plain version runs."""
+    tp, dp = _tiny_bf16()
+    kw = dict(max_seq=256, kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=-1,
+              device="cuda")
+
+    def engine(graphed):
+        if kind == "plain":
+            return Generator(tp, TINY_CFG, cuda_graphs=graphed, **kw)
+        spec = dict(sampler=SAMPLED, cuda_graphs=graphed, **kw)
+        if kind == "chain":
+            return EagleChainEngine(tp, dp, TINY_CFG, n_draft=3, **spec)
+        if kind == "tree":
+            return tree.EagleTreeEngine(tp, dp, TINY_CFG, tree=tree.TreeSpec((4, 2, 2)), **spec)
+        return tree2.EagleTree2Engine(tp, dp, TINY_CFG, beam=4, depth=3, n_verify=13, **spec)
+
+    def run(eng, seed, c):
+        if kind == "plain":
+            return eng.generate(PROMPT, max_new_tokens=30, sampler=SAMPLED, seed=seed,
+                                stop_at_eos=False, chunk=8)
+        return eng.generate(PROMPT, max_new_tokens=30, seed=seed, stop_at_eos=False,
+                            cycles_per_dispatch=c)
+
+    eager, graphed = engine(False), engine(True)
+    want = run(eager, 4, 1)
+    assert run(graphed, 4, cycles) == want  # the warm-up captures
+    warm = graphed.graphs.eager
+    _build.reset_counts()
+    assert run(graphed, 4, cycles) == want
+    assert run(graphed, 5, cycles) != want
+    assert graphed.graphs.eager == warm and graphed.graphs.replays > 0
+    assert sum(_build.plain_calls.values()) == 0

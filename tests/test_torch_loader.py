@@ -42,7 +42,11 @@ from eagle_tpu_torch.quant.serving import prepare_params_for_serving
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.kvcache import KVCache, causal_mask_from_tags
 from eagle_tpu_torch.runtime.speculative import EagleChainEngine
-from torch_port_util import assert_bits_equal, write_tiny_gguf_pair
+from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
+    assert_bits_equal, background_cpu, write_tiny_gguf_pair,
+)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 MAX_SEQ = 128
 N_NEW = 16

@@ -3,7 +3,8 @@
 - nothing in `eagle_tpu_torch/` or `chip_smoke.py` imports jax or the JAX
   package (an AST scan of every import);
 - an entry point built with its default device (the card) raises on a host
-  without CUDA instead of falling back to the CPU;
+  without CUDA instead of falling back to the CPU (the engines, the loaders,
+  `api.Engine` and the CLI among them);
 - `generate` refuses an empty prompt, the one input that would build a
   negative cache slot;
 - a kernel wrapper given a non-CPU tensor and no buildable kernel raises and
@@ -36,7 +37,11 @@ def _port_files():
                  "eagle_tpu_torch/quant/serving.py", "eagle_tpu_torch/ops/ffn.py",
                  "eagle_tpu_torch/quant/iq_blocks.py", "eagle_tpu_torch/tools/kernel_bench.py",
                  "eagle_tpu_torch/timing.py", "eagle_tpu_torch/runtime/tree.py",
-                 "eagle_tpu_torch/runtime/tree2.py"):
+                 "eagle_tpu_torch/runtime/tree2.py", "eagle_tpu_torch/runtime/sampling.py",
+                 "eagle_tpu_torch/tokenizer/__init__.py", "eagle_tpu_torch/tokenizer/spm.py",
+                 "eagle_tpu_torch/api.py", "eagle_tpu_torch/utils/args.py",
+                 "eagle_tpu_torch/utils/logging.py", "eagle_tpu_torch/tools/cli.py",
+                 "eagle_tpu_torch/tools/tokenize.py"):
         assert must in names
     return files
 
@@ -69,10 +74,12 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
                                    "synth_eagle_params", "Generator", "EagleChainEngine",
                                    "EagleTreeEngine", "EagleTree2Engine",
                                    "params_from_numpy", "load_llama_params",
-                                   "load_eagle_params"])
+                                   "load_eagle_params", "Engine", "cli"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from eagle_tpu_torch.api import Engine, EngineConfig
     from eagle_tpu_torch.convert import params_from_numpy
+    from eagle_tpu_torch.tools import cli
     from eagle_tpu_torch.models.loader import load_eagle_params, load_llama_params
     from eagle_tpu_torch.models.synth import synth_eagle_params, synth_llama_params
     from eagle_tpu_torch.runtime.generate import Generator
@@ -92,6 +99,8 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         "params_from_numpy": lambda: params_from_numpy({}),
         "load_llama_params": lambda: load_llama_params("no-such-file.gguf"),
         "load_eagle_params": lambda: load_eagle_params("no-such-file.gguf"),
+        "Engine": lambda: Engine(EngineConfig(model_path="no-such-file.gguf")),
+        "cli": lambda: cli.main(["-m", "no-such-file.gguf", "-p", "a"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

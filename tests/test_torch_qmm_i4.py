@@ -28,7 +28,11 @@ from eagle_tpu_torch import _build
 from eagle_tpu_torch.convert import params_from_numpy
 from eagle_tpu_torch.ops.qmm import qmm, qmm_i4, qmm_i4_stacked, qmm_stacked
 from eagle_tpu_torch.quant.qtensor import QTensor, pack_int4
-from torch_port_util import qtensor_to_numpy, random_blocks
+from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
+    background_cpu, qtensor_to_numpy, random_blocks,
+)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 K, N = 4096, 256
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

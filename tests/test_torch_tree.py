@@ -33,7 +33,11 @@ from eagle_tpu_torch.runtime import tree, tree2
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.kvcache import KVCache
 from eagle_tpu_torch.runtime.sampling import top_k
-from torch_port_util import tiny_cfgs, tree_to_numpy
+from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
+    background_cpu, tiny_cfgs, tree_to_numpy,
+)
+
+pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
 
 MAX_NEW = 24
 TREES = [(3,), (2, 2), (4, 2, 2)]
@@ -62,10 +66,15 @@ def _engine(s, kind, arg):
 
 
 def _reference(s, kind, arg):
-    cls, kw = ((jtree.EagleTreeEngine, dict(tree=jtree.TreeSpec(arg))) if kind == "tree" else
-               (jtree2.EagleTree2Engine, dict(zip(("beam", "depth", "n_verify"), arg))))
-    return cls(s["jt"], s["jd"], s["jcfg"], max_seq=128, kv_dtype=jnp.float32,
-               compute_dtype=jnp.float32, backend="xla", eos_id=-1, **kw)
+    """The reference's engine for (kind, arg), made once per module: its
+    compiled programs (the prefill among them) serve every test of it."""
+    cache = s.setdefault("reference_engines", {})
+    if (kind, arg) not in cache:
+        cls, kw = ((jtree.EagleTreeEngine, dict(tree=jtree.TreeSpec(arg))) if kind == "tree" else
+                   (jtree2.EagleTree2Engine, dict(zip(("beam", "depth", "n_verify"), arg))))
+        cache[(kind, arg)] = cls(s["jt"], s["jd"], s["jcfg"], max_seq=128, kv_dtype=jnp.float32,
+                                 compute_dtype=jnp.float32, backend="xla", eos_id=-1, **kw)
+    return cache[(kind, arg)]
 
 
 def oracle(real, seq: torch.Tensor, boost: float = 1e4):

@@ -5,18 +5,72 @@ those tests use.
 Importing this module sets PyTorch to one intra-op thread: the suite runs
 in parallel pytest workers, and one thread per core in each worker
 oversubscribes the host and slows the timing tests of other files, while
-the tiny shapes here gain nothing from more threads."""
+the tiny shapes here gain nothing from more threads. The reference's side
+is not held by that: compiling its engines on XLA's CPU runtime keeps two
+to three cores busy per worker, whatever XLA's thread flags say. The
+`background_cpu` fixture runs a module's threads at idle priority instead
+(the modules that run reference engines use it)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 
 import numpy as np
+import pytest
 import torch
 
 from eagle_tpu.quant.qtensor import QTensor as JaxQTensor
 
 torch.set_num_threads(1)
+
+
+def _set_policy(policy: int) -> None:
+    """Every thread of this process to scheduling `policy` (threads made
+    later inherit their creator's)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setscheduler(int(tid), policy, os.sched_param(0))
+        except ProcessLookupError:  # the thread ended meanwhile
+            pass
+
+
+def _can_leave_idle() -> bool:
+    """Whether a thread of this process may return from SCHED_IDLE (that
+    takes CAP_SYS_NICE or a high enough RLIMIT_NICE), tried on a thread
+    made for it."""
+    ok = []
+
+    def probe():
+        try:
+            os.sched_setscheduler(0, os.SCHED_IDLE, os.sched_param(0))
+            os.sched_setscheduler(0, os.SCHED_OTHER, os.sched_param(0))
+            ok.append(True)
+        except OSError:
+            pass
+
+    t = threading.Thread(target=probe)
+    t.start()
+    t.join()
+    return bool(ok)
+
+
+@pytest.fixture(scope="module")
+def background_cpu():
+    """Run the module with every thread of this worker at idle priority
+    (SCHED_IDLE): the port's modules, which compile and run the reference's
+    engines on XLA, use any core, but only the cycles no other test of the
+    parallel run wants, so they cannot slow the reference's wall-clock
+    tests. The former policy is restored afterwards; where it could not be
+    (no CAP_SYS_NICE), the module runs at normal priority."""
+    if not hasattr(os, "SCHED_IDLE") or not _can_leave_idle():
+        yield False
+        return
+    before = os.sched_getscheduler(0)
+    _set_policy(os.SCHED_IDLE)
+    yield True
+    _set_policy(before)
 
 
 def qtensor_to_numpy(qt: JaxQTensor) -> dict:
@@ -91,13 +145,15 @@ def has_encoder(qtype) -> bool:
     return qtype in SUPPORTED_QUANT_TYPES
 
 
-def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0):
+def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0,
+                         target_metadata: dict | None = None):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
     `emb_type`, the draft's matmul weights and embedding in `draft_type`;
     norms and fc.bias F32. A format without an encoder (the codebook ones)
-    gets `random_blocks`. Returns (target path, draft path)."""
+    gets `random_blocks`. `target_metadata` adds keys to the target's
+    metadata (a tokenizer). Returns (target path, draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
@@ -128,7 +184,7 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
 
     target = tmp_path / "target.gguf"
     w = GGUFWriter(target)
-    for k, val in _base_metadata(jcfg, "llama").items():
+    for k, val in {**_base_metadata(jcfg, "llama"), **(target_metadata or {})}.items():
         w.add(k, val)
     qmat(w, "token_embd.weight", v, d, emb_type, 0.5)
     for i in range(jcfg.n_layers):
@@ -147,6 +203,57 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     layer(w, 0, draft_type, attn_norm=False)
     w.write()
     return target, draft
+
+
+def spm_metadata(words: str, v: int = 512, seed: int = 0) -> dict:
+    """An SPM vocabulary of `v` pieces as GGUF metadata, built as
+    tests/test_tokenizer.py builds one: <unk>, <s>, </s>, the 256 byte
+    tokens, then '▁' and the letters with and without it, every '▁'-prefix
+    of the `words` given, then seeded prefix-closed words; scores descend."""
+    rng = np.random.default_rng(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    ttypes = [2, 3, 3] + [6] * 256
+    pieces = ["▁"] + list(letters) + ["▁" + c for c in letters]
+    for word in words.split():
+        pieces += ["▁" + word[:i] for i in range(2, len(word) + 1)]
+    pieces = list(dict.fromkeys(pieces))
+    while len(tokens) + len(pieces) < v:
+        w = "▁" + "".join(rng.choice(list(letters), size=int(rng.integers(2, 6))))
+        pieces = list(dict.fromkeys(pieces + [w[:i] for i in range(2, len(w) + 1)]))
+    pieces = pieces[: v - len(tokens)]
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens + pieces,
+            "tokenizer.ggml.scores": np.asarray(
+                [0.0] * len(tokens) + [-float(i) for i in range(len(pieces))], np.float32),
+            "tokenizer.ggml.token_type": np.asarray(ttypes + [1] * len(pieces), np.int32),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+            "tokenizer.ggml.add_bos_token": True}
+
+
+def tiny_engine_pair(tmp_path, words: str):
+    """A tiny Q8_0 target and draft GGUF pair whose target carries
+    `spm_metadata(words)`: what `eagle_tpu_torch.api.Engine` and the CLI
+    load."""
+    from eagle_tpu.gguf.constants import GGMLType
+
+    q8 = GGMLType.Q8_0
+    return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=3,
+                                target_metadata=spm_metadata(words))
+
+
+ENGINE_PROMPT = "the quick brown fox jumps over a lazy dog and then"
+ENGINE_KINDS = {"plain": {}, "chain": {}, "tree": {"tree_branching": (3,)},
+                "tree2": {"tree2": (2, 1, 3)}}  # one level each: the reference compiles them fast
+
+
+def tiny_port_engine(pair, kind: str):
+    """The port's `Engine` of ENGINE_KINDS `kind` on a `tiny_engine_pair`,
+    f32 on the CPU."""
+    from eagle_tpu_torch.api import Engine, EngineConfig
+
+    return Engine(EngineConfig(model_path=pair[0], draft_path=None if kind == "plain" else pair[1],
+                               max_seq=128, compute_dtype=torch.float32,
+                               kv_dtype=torch.float32, device="cpu", **ENGINE_KINDS[kind]))
 
 
 def assert_bits_equal(got, want, what=""):
