@@ -141,6 +141,26 @@ cli. the normal entry point on phase 6's files (unfused): three runs of
    chain's text the CLI's --temp 0 text; the sampler's share of the device
    time is each sampled cell's device ms less phase 6's greedy cell's
    (`sampler_share`).
+serve. continuous batching on phase 6's files (unfused, K = 5, greedy):
+   `Engine(batch=4, max_seq=2048)` and its `ContinuousBatcher`; prompts of
+   ~40, 150, 300 and 700 tokens (two submitted, three steps, the other two;
+   64 new tokens each) must give the graphed single-sequence chain's
+   tokens up to the near-tie rule, a second graphed run the same tokens
+   with no eager body, the eager batched run the same tokens bit for bit.
+   Then 1, 2 and 4 concurrent requests of the 300-token prompt, 3 timed
+   runs each (`[serve]` lines: aggregate tokens/s, TTFT per request, the
+   host's ms per step, the idle share against the device ms of a batched
+   cycle at B = 4 from CUDA events over 8 replays); launches per batched
+   cycle asserted (129 qmm_tc for the 24-row verify, 30 qmm_mma for five
+   4-row draft steps, 37 flash_decode); a spec_k = 1 slot beside two
+   spec_k = 5 slots under an oracle draft (at most 1 and exactly 5 drafts
+   accepted per cycle, greedy tokens); qmm at the serving shapes (24, 4 and
+   64 rows) and flash_decode at B = 4, T = 6 on the served weights
+   (`[serve kernel]` lines: kernel, plain, bound, library ms). Last, the
+   engine freed, `python -m eagle_tpu_torch.server.server -np 4` as a
+   subprocess: four concurrent /completion requests and one streamed chat
+   must equal the in-process batcher's texts, /metrics count 5 requests,
+   and SIGTERM end it with exit 0 and no traceback (`[serve http]`).
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -2199,6 +2219,476 @@ def cli_path(report: dict, target, draft) -> None:
     torch.cuda.empty_cache()
 
 # --------------------------------------------------------------------------
+# phase serve: continuous batching and the HTTP server on phase 6's files
+
+
+SERVE_WORDS = (40, 150, 300, 700)  # the four requests' prompts, in vocabulary words
+SERVE_SLOTS = 4
+SERVE_NEW = 64  # new tokens per in-process request
+SERVE_HTTP_NEW = 32  # n_predict of the HTTP requests
+SERVE_STREAMS = (1, 2, 4)
+#: the HTTP requests' prompts, in words: short, so that every cycle of them reads the
+#: same attention bucket (128) whatever order the server admits them in; the batched
+#: tokens of a row then depend on nothing of the other rows
+SERVE_HTTP_WORDS = (24, 32, 40, 48)
+SERVE_CHAT_WORDS = 8  # the chat request's one user message (chatml: the files carry no template)
+
+
+def batch_run(b, prompts: list, n_new: int, stagger: bool = True, sampler=None,
+              stop_at_eos: bool = False) -> list:
+    """Each prompt through the batcher: two submitted, three steps, then the
+    rest (or all at once), each as soon as a slot is free; returns each
+    request's tokens."""
+    toks: list = [[] for _ in prompts]
+    waiting = list(range(len(prompts)))
+    steps = 0
+    while waiting or b.n_active or b.n_pending:
+        while waiting and not (stagger and waiting[0] >= 2 and steps < 3):
+            i = waiting[0]
+            if b.submit(prompts[i], max_new_tokens=n_new, stop_at_eos=stop_at_eos,
+                        sampler=sampler, on_token=toks[i].append) is None:
+                break
+            waiting.pop(0)
+        b.step()
+        steps += 1
+    return toks
+
+
+def stream_runs(b, ids: list, n: int) -> dict:
+    """`n` concurrent requests of the same prompt, all submitted at once:
+    aggregate tokens/s, each request's TTFT (submit to its first token,
+    which the batcher reads on the host), the host's ms per step with every
+    request generating (no prefill chunk in it)."""
+    import torch
+
+    first: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = [b.submit(ids, max_new_tokens=SERVE_NEW, stop_at_eos=False,
+                      on_token=lambda _t, i=i: first.setdefault(i, time.perf_counter()))
+             for i in range(n)]
+    steps = []
+    while b.n_active or b.n_pending:
+        full = b.n_pending == 0 and b.n_active == n
+        s0 = time.perf_counter()
+        b.step()
+        if full:
+            steps.append((time.perf_counter() - s0) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(s.generated) for s in slots)
+    return dict(tokens_per_s=n_tok / wall, ttft_ms=[(first[i] - t0) * 1e3 for i in range(n)],
+                step_ms=sorted(steps)[len(steps) // 2], steps=len(steps), tokens=n_tok)
+
+
+def batched_cycle_device(b, ids: list) -> dict:
+    """Device ms per batched cycle at B = 4 with every row generating: CUDA
+    events over 8 back-to-back replays of the masked cycle (the graph
+    the steps replay), and the launches of one replay."""
+    from eagle_tpu_torch import _build
+
+    ce = b.engine
+    for i in range(SERVE_SLOTS):
+        b.submit(ids, max_new_tokens=10_000, stop_at_eos=False, request_id=f"timed {i}")
+    while b.n_pending:
+        b.step()
+    b.step()
+    lim = ce.kv_read_bucket(int(b.n_past.max()) + 9 * (ce.K + 1) + ce.K + 2)
+    warm = ce.graphs.eager
+
+    def cycles(n):
+        for _ in range(n):
+            ce._multi_cycle(1, kv_limit=lim, active=b._active_mask)
+
+    cycles(1)  # the bucket's graph, if the runs have not captured it
+    out = timed_events(lambda: cycles(8), 8)
+    out["captured_here"] = ce.graphs.eager - warm
+    _build.reset_counts()
+    cycles(1)
+    out["launches"] = {k: v for k, v in _build.launches.items() if v}
+    out["plain_calls"] = {k: v for k, v in _build.plain_calls.items() if v}
+    for i in range(SERVE_SLOTS):
+        b.abort(f"timed {i}")
+    return out
+
+
+def spec_k_check(b, ids: list, greedy: list, gen) -> dict:
+    """One spec_k = 1 slot beside two spec_k = 5 slots of the same prompt,
+    eagerly, with an oracle draft (`oracle_forward`: it proposes the greedy
+    continuation, so uncapped rows accept the full depth): every row's
+    tokens equal the greedy ones up to the near-tie rule, the capped row
+    accepts at most 1 draft per cycle and an uncapped one 5 at least once."""
+    import torch
+
+    from eagle_tpu_torch.runtime import speculative
+
+    ce = b.engine
+    seq = torch.tensor(list(ids) + greedy, dtype=torch.int64, device="cuda")
+    real, graphed = speculative.eagle_forward, ce.graphs.enabled
+    speculative.eagle_forward = oracle_forward(real, seq)
+    ce.graphs.enabled = False
+    try:
+        slots = [b.submit(ids, max_new_tokens=SERVE_NEW, stop_at_eos=False, spec_k=k)
+                 for k in (1, 5, 5)]
+        most = [0, 0, 0]  # the cap holds on every row, active or not
+        ce._outs[1].n_accepted.zero_()
+        while b.n_active or b.n_pending:
+            b.step()
+            acc = ce._outs[1].n_accepted[0].tolist()
+            most = [max(m, acc[s.id]) for m, s in zip(most, slots)]
+    finally:
+        speculative.eagle_forward = real
+        ce.graphs.enabled = graphed
+    for i, s in enumerate(slots):
+        check_near_tie(gen, ids, greedy, s.generated, "serve spec_k",
+                       f"spec_k {(1, 5, 5)[i]} slot (oracle draft) vs the single-sequence chain")
+    if most[0] > 1 or max(most[1:]) != ce.K:
+        raise AssertionError(f"spec_k: most drafts accepted per cycle {most} (capped row "
+                             f"first), expected <= 1 and {ce.K}")
+    log(f"[serve] spec_k: the spec_k = 1 slot accepts at most {most[0]} draft per cycle, the "
+        f"spec_k = 5 slots {most[1:]} (oracle draft); every slot's tokens the greedy ones")
+    return dict(most_accepted=most)
+
+
+def serve_http(target, draft, prompts: list, chat: list, want: dict, tmp: pathlib.Path
+               ) -> dict:
+    """`python -m eagle_tpu_torch.server.server -m target --draft draft -np 4`
+    as a subprocess: four concurrent /completion requests (temperature 0,
+    n_predict 32) and one streamed /v1/chat/completions; each content must
+    equal the in-process batcher's text, the stream's chunks must join to
+    the in-process tokens' pieces (the server streams each token's piece, as
+    the reference: a byte token that is not whole UTF-8 streams as "", where
+    the text decodes the bytes together), /metrics must count 5 requests,
+    and SIGTERM must end the server with exit 0 and no traceback on its
+    stderr."""
+    import concurrent.futures
+    import signal
+    import socket
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
+    err_path = tmp / "server.stderr"
+    t0 = time.time()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "eagle_tpu_torch.server.server", "-m", str(target),
+             "--draft", str(draft), "-np", str(SERVE_SLOTS), "--host", "127.0.0.1",
+             "--port", str(port)],
+            cwd=pathlib.Path(__file__).resolve().parent, env=env, stdout=subprocess.DEVNULL,
+            stderr=err)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"server exited {proc.returncode} before it answered: "
+                                     f"{err_path.read_text()[-3000:]}")
+            try:
+                urllib.request.urlopen(base + "/health", timeout=2)
+                break
+            except OSError:
+                if time.time() - t0 > 300:
+                    raise
+                time.sleep(0.25)
+        up_s = time.time() - t0
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.read().decode()
+
+        t1 = time.time()
+        with concurrent.futures.ThreadPoolExecutor(5) as ex:
+            completions = [ex.submit(post, "/completion", {
+                "prompt": p, "n_predict": SERVE_HTTP_NEW, "temperature": 0}) for p in prompts]
+            stream = ex.submit(post, "/v1/chat/completions", {
+                "messages": chat, "max_tokens": SERVE_HTTP_NEW, "temperature": 0,
+                "stream": True})
+            contents = [json.loads(f.result())["content"] for f in completions]
+            frames = [ln[6:] for ln in stream.result().split("\n") if ln.startswith("data: ")]
+        requests_s = time.time() - t1
+        for i, (got, exp) in enumerate(zip(contents, want["completions"])):
+            if got != exp:
+                raise AssertionError(f"/completion {i}: {got[:200]!r} != the in-process "
+                                     f"batcher's {exp[:200]!r}")
+        if frames[-1] != "[DONE]":
+            raise AssertionError(f"the chat stream did not end with [DONE]: {frames[-3:]}")
+        joined = "".join(json.loads(f)["choices"][0]["delta"].get("content", "")
+                         for f in frames[:-1])
+        if joined != want["chat_pieces"]:
+            raise AssertionError(f"streamed chat {joined[:200]!r} != the in-process tokens' "
+                                 f"pieces {want['chat_pieces'][:200]!r}")
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = dict(line.split() for line in r.read().decode().splitlines()
+                           if line and not line.startswith("#"))
+        if metrics["eagle_tpu_requests_total"] != "5":
+            raise AssertionError(f"/metrics counts {metrics['eagle_tpu_requests_total']} "
+                                 f"requests, not 5")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    stderr = err_path.read_text()
+    if proc.returncode != 0 or "Traceback" in stderr:
+        raise AssertionError(f"server: exit {proc.returncode} after SIGTERM, stderr "
+                             f"{stderr[-3000:]}")
+    log(f"[serve http] the server answered /health {up_s:.1f} s after its start (load "
+        f"included); 4 concurrent /completion + 1 streamed chat in {requests_s:.2f} s: every "
+        f"content == the in-process batcher's text, the {len(frames) - 2} streamed chunks join "
+        f"to its chat tokens' pieces (== its chat text: {want['chat_pieces'].strip() == want['chat']}"
+        f"), /metrics counts 5 requests; SIGTERM: exit 0, stderr "
+        f"{' | '.join(stderr.split(chr(10))[-3:]).strip()!r}")
+    return dict(up_s=up_s, requests_s=requests_s, metrics=metrics,
+                stream_frames=len(frames))
+
+
+def serve_kernels(eng) -> dict:
+    """The kernels at the serving shapes, on the served Q4_0 / Q8_0 weights
+    (kernel ms, plain ms, bound and library ms, rel err <= 1e-2): qmm of the
+    batched verify (24 rows: `qmm_tc`), of a draft step at 4 rows
+    (`qmm_mma`) and of a 64-row prompt chunk (`qmm_tc`), with their sums
+    per cycle and per chunk; flash_decode at B = 4, T = 6 over a cache of
+    the batcher's shape (2,048 + spill slots, s_limit 512, four rows at
+    n_past 301-360). Stacked weights cycle over the layers (the library
+    over 4 dequantized layers) so that repeats do not hit in the L2; the
+    draft's single layer cannot."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.ops import flash_attention as fa
+    from eagle_tpu_torch.ops.qmm import qmm, qmm_plain, qmm_stacked
+    from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tl, dl = eng.params["layers"], eng.draft_params["layers"]
+    proj = ("wqkv", "wo", "w_gate_up", "w_down")
+    target = [(n, tl[n], 32) for n in proj] + [("lm_head", eng.params["output"], 1)]
+    draft = ([("fc_w (draft)", eng.draft_params["fc_w"], 1)]
+             + [(f"{n} (draft)", dl[n], 1) for n in proj]
+             + [("lm_head (draft step)", eng.params["output"], 1)])
+    out: dict = {"qmm": []}
+    for what, rows, specs, route in (("verify", 4 * 6, target, "qmm_tc"),
+                                     ("draft step", 4, draft, "qmm_mma"),
+                                     ("prompt chunk", 64, target, "qmm_tc")):
+        total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        for name, w, count in specs:
+            stack = w.q.shape[0] if w.q.dim() == 3 else 0
+            layers = [w.layer(i) for i in range(min(stack, 4))] if stack else [w]
+            n, k = layers[0].shape
+            x = torch.randn((rows, k), generator=gen, device="cuda")
+            _build.reset_counts()
+            got = qmm_stacked(x, w, 0) if stack else qmm(x, w)
+            if _build.launches[route] != 1:
+                raise AssertionError(f"serve qmm {name} rows={rows}: not {route}")
+            abs_err, rel = rel_err(got, qmm_plain(x, layers[0]))
+            if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"serve qmm {name} rows={rows}: rel err {rel:.3e}")
+            if stack:
+                ms = device_ms(lambda i: qmm_stacked(x, w, i % stack), max(2 * stack, 20))
+            else:
+                ms = device_ms(lambda i: qmm(x, w), 20)
+            plain = device_ms(lambda i: qmm_plain(x, layers[i % len(layers)]), 3, warmup=1)
+            dense = [lw.dequantize(torch.bfloat16).T.contiguous() for lw in layers]
+            xb = x.to(torch.bfloat16)
+            lib = device_ms(lambda i: torch.matmul(xb, dense[i % len(dense)]), 20)
+            del dense
+            b_ms, b_by = bound_ms(nbytes(*layers[0].tensors().values()) + rows * k * 4
+                                  + rows * n * 4, 2.0 * rows * k * n)
+            res = dict(name=name, rows=rows, route=route, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel,
+                       per=what, count=count)
+            out["qmm"].append(res)
+            for key in total:
+                total[key] += count * res[key]
+            log(f"[serve kernel] qmm {name:22s} N={n:5d} K={k:5d} rows={rows:2d} ({route})  "
+                f"kernel {ms:.4f} ms  plain {plain:.3f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
+                f"library {lib:.4f} ms  rel err {rel:.2e}")
+        out[f"qmm per {what}"] = total
+        log(f"[serve kernel] qmm per {what} ({sum(c for _, _, c in specs)} launches, {rows} "
+            f"rows): kernel {total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, plain "
+            f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms")
+        torch.cuda.empty_cache()
+
+    b, t, h, d, s, lim = 4, 6, 32, 128, 2048 + 2 * (eng.engine.K + 1), 512
+    k_cache = torch.randn((2, b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v_cache = torch.randn((2, b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    n_past = torch.tensor([301, 320, 340, 360], dtype=torch.int32, device="cuda")
+    pos = n_past[:, None] + torch.arange(t, dtype=torch.int32, device="cuda")[None]
+    slots = torch.arange(s, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+    tags = torch.where(slots < (n_past[:, None] + t), slots, -1)
+    mask = causal_mask_from_tags(tags[:, :lim], pos)
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+    got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=lim)
+    abs_err, rel = rel_err(got, fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, 1,
+                                                                 s_limit=lim))
+    if rel > ATTN_TOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"serve flash_decode B=4 T=6: rel err {rel:.3e}")
+    ms = device_ms(lambda i: fa.flash_attention_cached(q, k_cache, v_cache, mask, i % 2,
+                                                       s_limit=lim), 50)
+    plain = device_ms(lambda i: fa.flash_attention_cached_plain(q, k_cache, v_cache, mask,
+                                                               i % 2, s_limit=lim), 10)
+    qb = q.transpose(1, 2).to(torch.bfloat16)
+    kl, vl = k_cache[1, :, :, :lim], v_cache[1, :, :, :lim]
+    lib = device_ms(lambda i: F.scaled_dot_product_attention(qb, kl, vl,
+                                                             attn_mask=mask[:, None]), 50)
+    b_ms, b_by = bound_ms(2 * b * h * lim * d * 2 + nbytes(q, mask) + q.numel() * 4,
+                          4.0 * b * h * t * lim * d)
+    out["flash_decode"] = dict(b=b, t=t, s_limit=lim, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
+    log(f"[serve kernel] flash_decode B={b} T={t} S={lim} H={h} D={d} (a batch-row stride of "
+        f"{s} slots)  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms * 1e3:.2f} us "
+        f"({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
+    del k_cache, v_cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
+    """Continuous batching on the card, at full Vicuna-7B width and depth on
+    phase 6's files (unfused, K = 5, greedy): `Engine(batch=4)` and its
+    `ContinuousBatcher`. Four prompts of about 40, 150, 300 and 700 tokens,
+    two submitted, three steps, then the other two, 64 new tokens each:
+    each slot's tokens equal the graphed single-sequence chain's up to the
+    near-tie rule; a second graphed run gives the same tokens with no eager
+    body; the eager batched run the same tokens bit for bit. Then 1, 2 and
+    4 concurrent requests of the 300-token prompt, 3 runs each (`[serve]`
+    lines: aggregate tokens/s, TTFT per request, the host's ms per step),
+    the device ms per batched cycle at B = 4 (CUDA events over replays),
+    the idle share and the launches per cycle; the spec_k check
+    (`spec_k_check`); then the texts of the HTTP requests in process, the
+    engine freed, and `serve_http`. Returns the 4-stream runs' launches."""
+    import gc
+
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.gguf import GGUFReader
+    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+    from eagle_tpu_torch.server.chat_templates import apply_template
+    from eagle_tpu_torch.utils.args import sampler_from_request
+
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    with GGUFReader(target) as reader:
+        vocab = reader.metadata["tokenizer.ggml.tokens"]
+    texts = [cli_prompt(vocab, n, seed=20 + i) for i, n in enumerate(SERVE_WORDS)]
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, draft_path=draft, batch=SERVE_SLOTS,
+                              max_seq=2048))
+    torch.cuda.synchronize()
+    out: dict = {"load_s": time.time() - t0}
+    tok, b, ce = eng.tokenizer, eng.batcher, eng.engine
+    prompts = [tok.encode(t) for t in texts]
+    out["prompt_tokens"] = [len(p) for p in prompts]
+    log(f"[serve] Engine(batch={SERVE_SLOTS}, max_seq 2048, greedy, K = {ce.K}) and its "
+        f"ContinuousBatcher loaded in {out['load_s']:.1f} s; prompts of {out['prompt_tokens']} "
+        f"tokens; device memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    single = EagleChainEngine(eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg,
+                              n_draft=ce.K, max_seq=2048, feature_source=eng.cfg.feature_source,
+                              eos_id=tok.eos_id)
+    want = [single.generate(p, SERVE_NEW, stop_at_eos=False)[0] for p in prompts]
+    del single
+    gen = eng._plain_generator()
+    got = batch_run(b, prompts, SERVE_NEW)  # captures the masked cycle's graphs
+    ties = [check_near_tie(gen, p, w, g, "serve", f"slot of the {len(p)}-token prompt vs the "
+                           "graphed single-sequence chain")
+            for p, w, g in zip(prompts, want, got)]
+    warm = ce.graphs.eager
+    if batch_run(b, prompts, SERVE_NEW) != got or ce.graphs.eager != warm:
+        raise AssertionError("serve: a second graphed batched run gave other tokens or ran a "
+                             "body eagerly")
+    ce.graphs.enabled = False
+    eager = batch_run(b, prompts, SERVE_NEW)
+    ce.graphs.enabled = True
+    if eager != got:
+        raise AssertionError("serve: batched graphed tokens differ from batched eager tokens")
+    log(f"[serve] batched graphed == batched eager, bit for bit ({SERVE_SLOTS} slots, staggered "
+        f"submission, {SERVE_NEW} tokens each); a second graphed run: the same tokens, no eager "
+        f"body; {ce.graphs.captures} graphs captured")
+    out.update(near_ties=ties, graphs_captured=ce.graphs.captures)
+
+    mid = prompts[2]
+    for n in SERVE_STREAMS:  # the warm-up: the graphs of the runs' buckets
+        stream_runs(b, mid, n)
+    warm = ce.graphs.eager
+    runs: dict = {}
+    card = CardSampler()
+    with card:
+        for n in SERVE_STREAMS:
+            if n == SERVE_STREAMS[-1]:
+                _build.reset_counts()
+            runs[n] = [stream_runs(b, mid, n) for _ in range(REPS)]
+            if n == SERVE_STREAMS[-1]:
+                launches = dict(_build.launches)
+                if any(_build.plain_calls.values()):
+                    raise AssertionError(f"serve: plain versions ran: {_build.plain_calls}")
+    if ce.graphs.eager != warm:
+        raise AssertionError("serve: a body ran eagerly in the timed runs")
+    dev = batched_cycle_device(b, mid)
+    per = dev["launches"]
+    want_per = {"qmm_tc": VERIFY_QMM, "qmm_mma": 6 * ce.K, "flash_decode": 32 + ce.K}
+    if any(per.get(k, 0) != v for k, v in want_per.items()) or dev["plain_calls"] or \
+            per.get("qmm_gemv", 0):
+        raise AssertionError(f"serve: launches per batched cycle {per}, expected {want_per} "
+                             f"and no qmm_gemv or plain version")
+    out["streams"] = {}
+    for n, rs in runs.items():
+        r = dict(tokens_per_s=spread([x["tokens_per_s"] for x in rs]),
+                 step_ms=spread([x["step_ms"] for x in rs]),
+                 ttft_ms=[x["ttft_ms"] for x in rs])
+        r["idle_share"] = 1 - dev["ms"] / r["step_ms"]["median"]
+        out["streams"][n] = r
+        log(f"[serve] {n} concurrent request(s) of the {len(mid)}-token prompt, {SERVE_NEW} "
+            f"tokens each: aggregate tokens/s min / median / max {fmt(r['tokens_per_s'])}; TTFT "
+            f"ms per request (submit to first token, run 1) "
+            f"{', '.join(f'{t:.1f}' for t in r['ttft_ms'][0])}; host ms per step with every "
+            f"request generating {fmt(r['step_ms'])}; idle {100 * r['idle_share']:.1f}% of a "
+            f"step against the device ms of a batched cycle")
+    log(f"[serve] batched cycle at B = {SERVE_SLOTS}, every row generating: device "
+        f"{dev['ms']:.3f} ms (CUDA events over 8 replays; enqueue {dev['enqueue_ms']:.3f} ms); "
+        f"launches per cycle: " + ", ".join(f"{k} {v}" for k, v in sorted(per.items()))
+        + f" ({VERIFY_QMM} qmm_tc: the {SERVE_SLOTS * (ce.K + 1)}-row verify; "
+          f"{6 * ce.K} qmm_mma: {ce.K} draft steps at {SERVE_SLOTS} rows); the card over the "
+          f"stream runs: {card.line()}")
+    out.update(cycle_device=dev, card_during_runs=card.summary)
+    out["spec_k"] = spec_k_check(b, mid, want[2], gen)
+    out["kernels"] = serve_kernels(eng)
+
+    # the HTTP requests' texts, in process, as the server will run them
+    greedy = sampler_from_request({"temperature": 0}, eng.cfg.sampler)
+    http_texts = [cli_prompt(vocab, n, seed=40 + i) for i, n in enumerate(SERVE_HTTP_WORDS)]
+    chat = [{"role": "user", "content": cli_prompt(vocab, SERVE_CHAT_WORDS, seed=50)}]
+    http_ids = [tok.encode(t) for t in http_texts] + [tok.encode(apply_template(chat))]
+    toks = batch_run(b, http_ids, SERVE_HTTP_NEW, stagger=False, sampler=greedy,
+                     stop_at_eos=True)
+    if max(len(p) for p in http_ids) + SERVE_HTTP_NEW + 2 * ce.K + 4 > 128:
+        raise AssertionError("serve: the HTTP prompts leave the 128-slot attention bucket")
+
+    def text(t):
+        return tok.decode([x for x in t if x != tok.eos_id], skip_special=True)
+
+    want_http = {"completions": [text(t) for t in toks[:4]], "chat": text(toks[4]).strip(),
+                 "chat_pieces": "".join(tok.piece(t) for t in toks[4] if t != tok.eos_id)}
+    del eng, b, ce, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve] the engine freed: device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out["http"] = serve_http(target, draft, http_texts, chat, want_http, tmp)
+    report["serve_path"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 7: the kernel benchmark, and qmm_i4 at the 7B projections
 
 
@@ -2499,6 +2989,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="eagle_gguf_") as tmp:  # phases 6 and cli
         gguf_launches, target, draft = phase("6", gguf_path, report, pathlib.Path(tmp))
         phase("cli", cli_path, report, target, draft)
+        serve_launches = phase("serve", serve_path, report, target, draft, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -2524,7 +3015,8 @@ def main() -> int:
                 "max_abs_err": vals["max_abs_err"], "ms": vals["ms"],
                 "plain_ms": vals["plain_ms"], "bound_ms": vals["bound_ms"],
                 "bound_by": vals["bound_by"], "library_ms": vals["library_ms"],
-                "tree_path_launches": {k: c[name] for k, c in tree_launches.items()}}
+                "tree_path_launches": {k: c[name] for k, c in tree_launches.items()},
+                "serve_path_launches": serve_launches[name]}
 
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),

@@ -5,8 +5,11 @@ tokenizer and engine choice, `_plain_generator` and `generate_text`).
 One object owns the target (+ draft) params on the device, the tokenizer
 from the target's metadata and the engine: `Generator` without a draft,
 else `EagleChainEngine`, `EagleTreeEngine` (`tree_branching`) or
-`EagleTree2Engine` (`tree2`). It runs on the card unless `device="cpu"`.
-What the port lacks raises NotImplementedError naming its ROADMAP item."""
+`EagleTree2Engine` (`tree2`). With `batch` > 1 and a chain draft it also
+owns a `ContinuousBatcher` over a chain engine of `batch` rows, as the
+reference (the tree engines and `Generator` take no batch there either).
+It runs on the card unless `device="cpu"`. What the port lacks raises
+NotImplementedError naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from .models.loader import load_eagle_params, load_llama_params
 from .quant.serving import prepare_params_for_serving
 from .runtime.generate import Generator
 from .runtime.sampling import SamplerConfig, check_sampler
+from .runtime.scheduler import ContinuousBatcher
 from .runtime.speculative import EagleChainEngine
 from .runtime.tree import EagleTreeEngine, TreeSpec
 from .runtime.tree2 import EagleTree2Engine
@@ -38,7 +42,7 @@ class EngineConfig:
     lora_path: str | Path | None = None  # not ported (ROADMAP queue 1, item 9)
     lora_scale: float | None = None
     max_seq: int = 2048
-    batch: int = 1  # > 1 is the continuous batcher (not ported: ROADMAP queue 1, item 6)
+    batch: int = 1  # > 1 with a chain draft: continuous-batching slots
     n_draft: int = 5  # chain draft length
     #: speculative cycles chained per dispatch (one CUDA graph replay on the
     #: card); applied to the chain and EAGLE-2 engines, as in the reference
@@ -52,15 +56,15 @@ class EngineConfig:
     sampler: SamplerConfig = dataclasses.field(default_factory=lambda: SamplerConfig(greedy=True))
     #: serving scale stream: "f32" (ggml's exact products) or "bf16"
     scale_mode: str = "f32"
-    paged: bool = False  # not ported (ROADMAP queue 1, item 6)
+    paged: bool = False  # paged KV serving: not ported (ROADMAP queue 1, item 6)
     device: Any = "cuda"
 
 
 def _refuse(cfg: EngineConfig) -> None:
     if cfg.lora_path or cfg.lora_scale is not None:
         raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP queue 1, item 9)")
-    if cfg.batch > 1 or cfg.paged:
-        raise NotImplementedError("batch > 1 and paged KV serve through the batchers, not "
+    if cfg.paged:
+        raise NotImplementedError("paged KV serving (the paged pool and batcher) is not "
                                   "ported yet (ROADMAP queue 1, item 6)")
     if cfg.lookahead:
         raise NotImplementedError(f"lookahead decoding is not ported yet ({_ITEM7})")
@@ -88,6 +92,9 @@ class Engine:
             self.draft_params = prepare_params_for_serving(self.draft_params,
                                                            scale_mode=cfg.scale_mode)
         self.engine = self.make_engine()
+        self.batcher = None
+        if cfg.batch > 1 and type(self.engine) is EagleChainEngine:
+            self.batcher = ContinuousBatcher(self.engine)
 
     def _engine_kw(self) -> dict:
         c = self.cfg
@@ -118,7 +125,7 @@ class Engine:
         elif kind == "tree":
             eng = EagleTreeEngine(*spec, tree=TreeSpec(c.tree_branching or (4, 2, 2)), **kw)
         elif kind == "chain":
-            eng = EagleChainEngine(*spec, n_draft=c.n_draft, **kw)
+            eng = EagleChainEngine(*spec, n_draft=c.n_draft, batch=c.batch, **kw)
         else:
             raise ValueError(f"engine kind {kind!r}")
         if c.cycles_per_dispatch > 1 and kind != "tree":  # as the reference: not the static tree

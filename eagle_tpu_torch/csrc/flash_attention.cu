@@ -85,6 +85,7 @@ struct Args {
   float* part_l;
   float* part_acc;         // [splits, B, H_kv, TG, D]
   int B, T, H, H_kv, S_full, s_lim, tag_stride, splits, keys_per_split;
+  long long batch_stride;  // elements between batch rows of k and v
   int mask_vec16;          // mask rows 16-byte aligned: copied with cp.async
   float scale;
 };
@@ -137,9 +138,9 @@ __device__ __forceinline__ void flash_body(const Args& a) {
     for (int c = 0; c < kDL; ++c) acc[i][c] = 0.f;
   }
 
-  const size_t head = ((size_t)b * a.H_kv + kvh) * a.S_full;
-  const T* kg = static_cast<const T*>(a.k) + head * D;
-  const T* vg = static_cast<const T*>(a.v) + head * D;
+  const size_t head = (size_t)b * a.batch_stride + (size_t)kvh * a.S_full * D;
+  const T* kg = static_cast<const T*>(a.k) + head;
+  const T* vg = static_cast<const T*>(a.v) + head;
 
   for (int s0 = s_begin; s0 < s_end; s0 += kTile) {
     __syncthreads();  // previous tile consumed (and qs written, first time)
@@ -294,9 +295,9 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32, RB > 64 ? 1
   const int qr = lane >> 2, qc = lane & 3;  // fragment row (and +8), column pair
   const int t_lo = row0 / gq;  // first query position of the block (mask tile row 0)
 
-  const size_t head = ((size_t)b * a.H_kv + kvh) * a.S_full;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + head * D;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + head * D;
+  const size_t head = (size_t)b * a.batch_stride + (size_t)kvh * a.S_full * D;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + head;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + head;
 
   // Copies of key tile j into ring slot j % kStages.
   auto load_tile = [&](int j) {
@@ -656,7 +657,8 @@ int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_b
 }  // namespace
 
 // tags = 0: flash_decode (mask given); tags = 1: flash_prefill (q_pos and
-// slot_pos given). k/v point at the layer's [B, H_kv, S_full, D] block.
+// slot_pos given). k/v point at the layer's [B, H_kv, S_full, D] block,
+// batch rows batch_stride elements apart (H_kv * S_full * D when whole).
 // D in {64, 128}. A bf16 cache takes the tensor-core body with
 // rows_per_block in {16, 32, 64, 128} and smem_bytes its dynamic shared memory;
 // an f32 cache the SIMT body with rows_per_block in {4, 16} (1 or 4 rows per
@@ -667,7 +669,8 @@ extern "C" int flash_launch(int tags, const void* q, const void* k, const void* 
                             void* out, void* part_m, void* part_l, void* part_acc,
                             int B, int T, int H, int H_kv, int D, int S_full, int s_lim,
                             int tag_stride, int cache_bf16, int rows_per_block, int splits,
-                            int keys_per_split, int smem_bytes, float scale, void* stream) {
+                            int keys_per_split, int smem_bytes, long long batch_stride,
+                            float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a;
   a.q = static_cast<const float*>(q);
@@ -682,6 +685,7 @@ extern "C" int flash_launch(int tags, const void* q, const void* k, const void* 
   a.part_acc = static_cast<float*>(part_acc);
   a.B = B; a.T = T; a.H = H; a.H_kv = H_kv; a.S_full = S_full; a.s_lim = s_lim;
   a.tag_stride = tag_stride; a.splits = splits; a.keys_per_split = keys_per_split;
+  a.batch_stride = batch_stride;
   a.mask_vec16 = s_lim % 16 == 0 && reinterpret_cast<uintptr_t>(mask) % 16 == 0;
   a.scale = scale;
   int rc;

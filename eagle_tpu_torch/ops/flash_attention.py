@@ -22,6 +22,9 @@ dtype and the shapes alone:
   f32 path's numbers stay those of an f32 dot.
 Both split the key range across blocks (flash-decoding) when the query rows
 alone give fewer than 132 blocks, merging the splits with a combine kernel.
+The cache may be a view whose batch rows are apart (the batcher's row of a
+[L, B, ...] cache, `KVCache.row`): the kernels take the batch stride, and
+each row's [H_kv, S, D] must be contiguous.
 The TPU gates (`supports_flash`: S >= 512, T*g <= 256;
 `supports_flash_prefill`: T >= 256) and the pad of T*g to 8 rows do not
 carry over: on the card every attention of the slice's path takes one of
@@ -38,7 +41,7 @@ from .. import _build
 from .attention import gqa_attention
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
 _SMS = 132
 _WARPS = 4  # warps per block (csrc/flash_attention.cu)
 _TILE = 32  # SIMT body: keys per tile
@@ -125,11 +128,16 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
     lim = s_limit or s_full
     if not 0 < lim <= s_full:
         raise ValueError(f"s_limit {lim} outside (0, {s_full}]")
+    row = (h_kv * s_full * dk, s_full * dk, dk, 1)  # a batch row's strides, contiguous
+    batch_stride = k_cache.stride(1)
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.device != q.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {q.device}")
-        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:  # 16-byte cp.async chunks
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+        if x.device != q.device or x.stride()[2:] != row[1:] or x.stride(1) != batch_stride:
+            raise ValueError(f"{name} must be on {q.device} with contiguous batch rows "
+                             f"(strides {x.stride()})")
+        if x.stride(0) < cb * row[0] and n_layers > 1 or batch_stride < row[0] and cb > 1:
+            raise ValueError(f"{name}'s layers or batch rows overlap (strides {x.stride()})")
+        if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or batch_stride % 8):
+            raise ValueError(f"{name}'s rows must start on 16-byte boundaries")  # cp.async
     for name, x in (("mask", mask), ("q_pos", q_pos), ("slot_pos", slot_pos)):
         if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -166,7 +174,7 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
         out.data_ptr(), *[None if p is None else p.data_ptr() for p in part],
         b, t, h, h_kv, d, s_full, lim, tag_stride,
         int(k_cache.dtype == torch.bfloat16), plan.rows_per_block, splits,
-        plan.keys_per_split, plan.smem_bytes,
+        plan.keys_per_split, plan.smem_bytes, batch_stride,
         float(d**-0.5 if scale is None else scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

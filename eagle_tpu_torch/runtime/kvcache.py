@@ -8,7 +8,12 @@ after speculation rewrites tags only, never K/V data.
 
 Unlike the functional reference, the port updates in place: `with_tags` and
 `rollback` modify `slot_pos` and return the same cache, and the model
-forward writes K/V rows into `k`/`v` directly."""
+forward writes K/V rows into `k`/`v` directly.
+
+A cache may carry `spill` slots past its `max_seq` (k/v [L, B, H_kv, S +
+spill, D], tags [B, S + spill]): the reference's scatter drops a write past
+the cache, PyTorch's `scatter_` cannot, so such writes land there. No read
+covers them: every attention bound (`kv_limit`) is at most `max_seq`."""
 
 from __future__ import annotations
 
@@ -24,33 +29,42 @@ class KVCache:
     k: torch.Tensor  # [L, B, H_kv, S, D]
     v: torch.Tensor  # [L, B, H_kv, S, D]
     slot_pos: torch.Tensor  # [B, S] int32, position tag per slot, -1 = empty
+    spill: int = 0  # slots past max_seq that take writes past the cache
 
     @property
     def max_seq(self) -> int:
-        return self.k.shape[3]
+        return self.k.shape[3] - self.spill
 
     @staticmethod
     def create(n_layers, batch, max_seq, n_kv_heads, head_dim, dtype=torch.bfloat16,
-               device="cuda") -> "KVCache":
+               device="cuda", spill: int = 0) -> "KVCache":
         dev = resolve_device(device)
         if dtype not in (torch.bfloat16, torch.float32):
             raise NotImplementedError(f"KV cache dtype {dtype} is not ported yet")
-        shape = (n_layers, batch, n_kv_heads, max_seq, head_dim)
+        shape = (n_layers, batch, n_kv_heads, max_seq + spill, head_dim)
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=dev),
             v=torch.zeros(shape, dtype=dtype, device=dev),
-            slot_pos=torch.full((batch, max_seq), -1, dtype=torch.int32, device=dev),
+            slot_pos=torch.full((batch, max_seq + spill), -1, dtype=torch.int32, device=dev),
+            spill=spill,
         )
+
+    def row(self, i: int) -> "KVCache":
+        """Batch row i as a B = 1 cache of views: writes go to this cache."""
+        return KVCache(self.k[:, i:i + 1], self.v[:, i:i + 1], self.slot_pos[i:i + 1],
+                       self.spill)
 
     def with_tags(self, slots: torch.Tensor, positions: torch.Tensor, valid=None) -> "KVCache":
         """Tag `slots` [B,T] with `positions` [B,T] in place (the K/V write
         happens in the model forward; tags define visibility). `valid` [B,T]
-        bool tags masked-out entries -1. Slots must lie in [0, S): the
-        reference's scatter drops an out-of-range slot, while `scatter_`
+        bool tags masked-out entries -1. Slots must lie in [0, S + spill):
+        the reference's scatter drops an out-of-range slot, while `scatter_`
         raises on the CPU and hits a device-side assert on CUDA. The callers
         never build a negative slot: prefill slots are an `arange`, decode
-        slots start at the prompt length and draft slots one below it, and
-        both `generate`s refuse an empty prompt."""
+        slots start at the prompt length and draft slots one below it, both
+        `generate`s refuse an empty prompt, and a prompt chunk sends its rows
+        outside [0, S) to the last spill slot (`EagleChainEngine.
+        _prefill_chunk`)."""
         pos = positions if valid is None else torch.where(valid, positions, -1)
         self.slot_pos.scatter_(1, slots.long(), pos.to(torch.int32))
         return self

@@ -248,18 +248,19 @@ class BatchedSamplerParams:
 
     def set_row(self, i: int, cfg: SamplerConfig,
                 spec_k: int | None = None) -> "BatchedSamplerParams":
-        """Params with row i configured from `cfg` (a new object; the
-        reference's functional update)."""
-        upd = {}
+        """Configure row i from `cfg` IN PLACE and return self: the tensors
+        keep their addresses, so a CUDA graph that holds them reads the new
+        row at its next replay (the reference returns a new object)."""
         for name in ("temperature", "top_k", "top_p", "min_p", "penalty_repeat", "penalty_freq",
                      "penalty_present", "greedy"):
-            t = getattr(self, name).clone()
-            t[i] = getattr(cfg, name)
-            upd[name] = t
+            getattr(self, name)[i] = getattr(cfg, name)
         if spec_k is not None:
-            upd["spec_k"] = self.spec_k.clone()
-            upd["spec_k"][i] = spec_k
-        return dataclasses.replace(self, **upd)
+            self.spec_k[i] = spec_k
+        return self
+
+    def row(self, i: int) -> "BatchedSamplerParams":
+        """Row i as a one-row view of the same tensors."""
+        return BatchedSamplerParams(*(t[i:i + 1] for t in self.tensors()))
 
 
 def _rows(x: torch.Tensor, ndim: int) -> torch.Tensor:

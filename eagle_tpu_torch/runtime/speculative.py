@@ -1,7 +1,8 @@
 """EAGLE chain speculative decoding (port of
 eagle_tpu/runtime/speculative.py: `EagleChainEngine` with `fresh_state`,
-`_prefill`, both branches of `_cycle`, `_multi_cycle` and `generate` with
-`seed` and `cycles_per_dispatch`).
+`set_row_sampler`, `_prefill`, `_prefill_chunk`, both branches of `_cycle`
+with its freeze of inactive rows, `_multi_cycle` and `generate` with `seed`
+and `cycles_per_dispatch`).
 
 A cycle: K draft steps (feature autoregression) -> one verify forward over
 [last token + K drafts] -> acceptance -> KV rollback by tag invalidation ->
@@ -26,7 +27,20 @@ tags), and a dispatch of C cycles writes its tokens into static [C, ...]
 buffers. So C chained cycles are one in-place body: on the card one CUDA
 graph per (C, attention-read bucket) (`runtime/graphs.py`), the reference's
 compiled `lax.scan`; on the CPU, or with `cuda_graphs=False`, the same body
-runs eagerly. The prompt runs eagerly. The batcher is not ported yet."""
+runs eagerly. The prompt runs eagerly.
+
+The continuous batcher (`runtime/scheduler.py`) drives the same state: one
+row per slot, each prompt admitted by `_prefill_chunk` on the row's views,
+and one masked cycle (`_multi_cycle(1, active=...)`) over every row per
+step. A masked cycle keeps the inactive rows' tags, last token, feature and
+n_past as they were (their K/V data slots may change), with `active` in a
+static buffer that the host writes when it changes (a copy from the host
+waits for the card, so replays of an unchanged batch queue up). The
+cycle's graph is keyed also on `fast_greedy` (every row's sampler greedy,
+per dispatch, as the reference's `_cycle_jit`) and on whether it is
+masked. The caches carry 2 (K + 1) spill slots (`runtime/kvcache.py`): a
+row's cycle writes up to K past its n_past, and a freed row keeps the
+n_past of its last cycle."""
 
 from __future__ import annotations
 
@@ -49,6 +63,7 @@ from .sampling import (
     SamplerConfig,
     check_sampler,
     draw,
+    sample_batched,
     speculative_accept,
     transformed_probs_batched,
 )
@@ -107,19 +122,33 @@ class EagleChainEngine:
         self.feature_source = feature_source
         self.scfg = sampler or SamplerConfig(greedy=True)
         check_sampler(self.scfg)
-        #: per-row sampler parameters (every row the engine's sampler); a
-        #: greedy sampler takes the `fast_greedy` cycle, any other the
-        #: stochastic one
+        #: per-row sampler parameters (every row the engine's sampler until
+        #: `set_row_sampler`), written in place: the cycle's graphs hold them
         self.bsampler = BatchedSamplerParams.create(batch, self.scfg, n_draft=n_draft,
                                                     device=self.device)
-        self.fast_greedy = self.scfg.is_greedy
+        #: host-side greediness per row: all greedy takes the `fast_greedy`
+        #: cycle, any sampled row the stochastic one
+        self._row_greedy = [self.scfg.is_greedy] * batch
         self._q: torch.Tensor | None = None  # the drafts' q [B, K, V], made at first use
+        self._active = torch.ones((batch,), dtype=torch.bool, device=self.device)
+        self._active_host = [True] * batch  # what `_active` holds: written only on a change
         self.cycles_per_dispatch = 1  # generate()'s default C
         self.eos_id = eos_id
         self.state = self._new_state()  # static for the engine's life
         self._outs: dict[int, CycleOutput] = {}  # static output buffers per C
         self.graphs = StepGraphs(cuda_graphs and self.device.type == "cuda")
         self.cycles_run = 0  # cycles computed, overshoot included
+
+    @property
+    def fast_greedy(self) -> bool:
+        return all(self._row_greedy)
+
+    def set_row_sampler(self, i: int, cfg: SamplerConfig, spec_k: int | None = None) -> None:
+        """Row i's sampler (and its cap on accepted drafts per cycle), in
+        place; keeps the all-greedy flag that picks the cycle's branch."""
+        check_sampler(cfg)
+        self.bsampler.set_row(i, cfg, spec_k=spec_k)
+        self._row_greedy[i] = cfg.is_greedy
 
     def kv_read_bucket(self, slot_end: int) -> int:
         """Attention-read bound covering cache slots < slot_end."""
@@ -129,12 +158,12 @@ class EagleChainEngine:
         return post if self.feature_source == "post_norm" else pre
 
     def _new_state(self) -> SpecState:
-        b, dev = self.batch, self.device
+        b, dev, spill = self.batch, self.device, 2 * (self.K + 1)
         return SpecState(
             tgt_kv=KVCache.create(self.tcfg.n_layers, b, self.max_seq, self.tcfg.n_kv_heads,
-                                  self.tcfg.head_dim, self.kv_dtype, device=dev),
+                                  self.tcfg.head_dim, self.kv_dtype, device=dev, spill=spill),
             dft_kv=KVCache.create(1, b, self.max_seq, self.dcfg.n_kv_heads,
-                                  self.dcfg.head_dim, self.kv_dtype, device=dev),
+                                  self.dcfg.head_dim, self.kv_dtype, device=dev, spill=spill),
             last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
             feature=torch.zeros((b, self.tcfg.n_embd), dtype=torch.float32, device=dev),
             n_past=torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -189,16 +218,70 @@ class EagleChainEngine:
         state.n_past.copy_(n_valid)
         return state
 
+    def _prefill_chunk(self, slot: int, tokens: torch.Tensor, start: int, n_valid: int) -> None:
+        """One prompt chunk of row `slot`: `tokens` [ct] at absolute
+        positions start..start+ct of a prompt of `n_valid` tokens, on the
+        row's views of the engine's state (the reference's
+        `_prefill_chunk` on the batcher's B = 1 slice, without
+        `feat_every`). The first chunk clears the row's tags. Draft pairs
+        are shifted one back, the chunk-boundary feature coming from the
+        row's `feature`; on the final chunk the row's first output token is
+        drawn with its own sampler. Rows at positions outside [0, max_seq)
+        (the draft's pair at -1, padding past the cache) write to the last
+        spill slot, as the reference's scatter leaves every tag they would
+        touch as it was."""
+        st, ct, s = self.state, tokens.shape[0], self.max_seq
+        tkv, dkv = st.tgt_kv.row(slot), st.dft_kv.row(slot)
+        if start == 0:
+            tkv.slot_pos.fill_(-1)
+            dkv.slot_pos.fill_(-1)
+        spill_slot = tkv.slot_pos.shape[1] - 1
+        lim = self.kv_read_bucket(start + ct)
+        positions = start + torch.arange(ct, dtype=torch.int32, device=self.device)[None, :]
+        w = torch.where(positions < s, positions, spill_slot)
+        tkv.with_tags(w, positions, valid=positions < n_valid)
+        mask = causal_mask_from_tags(tkv.slot_pos, positions)
+        tout = llama_forward(
+            self.tp, self.tcfg, tokens[None, :], positions, tkv, w, mask,
+            compute_dtype=self.compute_dtype, kv_limit=lim, slots_contiguous=True,
+        )
+        feats = self._pick_feature(tout.hidden, tout.hidden_pre)
+
+        # draft pair for token x_i uses f_{i-1}: the boundary feature for i = start
+        d_feats = torch.cat([st.feature[slot:slot + 1, None], feats[:, :-1]], dim=1)
+        d_pos = positions - 1
+        d_w = torch.where((d_pos >= 0) & (d_pos < s), d_pos, spill_slot)
+        dkv.with_tags(d_w, d_pos, valid=(d_pos >= 0) & (d_pos < n_valid - 1))
+        d_mask = causal_mask_from_tags(dkv.slot_pos, d_pos)
+        eagle_forward(
+            self.dp, self.tp, self.dcfg, tokens[None, :], d_feats, d_pos, dkv, d_w, d_mask,
+            compute_dtype=self.compute_dtype, return_logits=False, kv_limit=lim,
+        )
+
+        done = min(n_valid, start + ct)  # tokens processed so far
+        last = min(max(done - start - 1, 0), ct - 1)
+        gumbel = st.rng.gumbel((1, self.tcfg.vocab_size))
+        if done >= n_valid:
+            st.last_token[slot:slot + 1].copy_(
+                sample_batched(tout.logits[:, last], self.bsampler.row(slot), gumbel))
+        st.feature[slot].copy_(feats[0, last])
+        st.n_past[slot] = done
+
     def _cycle(self, state: SpecState, out: CycleOutput, ci: int,
-               kv_limit: int | None = None) -> None:
-        """One speculative cycle: with a greedy sampler, the reference's
-        `fast_greedy` branch (argmax drafts, exact-match prefix acceptance);
-        otherwise drafts drawn from q and stochastic acceptance against p
-        (`speculative_accept`). Advances `state` in place and writes row `ci`
-        of `out`'s buffers."""
+               kv_limit: int | None = None, active: torch.Tensor | None = None) -> None:
+        """One speculative cycle: with every row greedy, the reference's
+        `fast_greedy` branch (argmax drafts, exact-match prefix acceptance,
+        each row's `spec_k` cap); otherwise drafts drawn from q and
+        stochastic acceptance against p (`speculative_accept`). Advances
+        `state` in place and writes row `ci` of `out`'s buffers. With
+        `active` [B] bool, the other rows' tags and scalars come out as they
+        went in (their K/V data slots may be written)."""
         b, K = self.batch, self.K
         b_idx = torch.arange(b, device=self.device)
         m = state.n_past  # [B]; overwritten last
+        if active is not None:  # the inactive rows' state, restored at the end
+            frozen = [t.clone() for t in (state.tgt_kv.slot_pos, state.dft_kv.slot_pos,
+                                          state.last_token, state.feature, state.n_past)]
         fast_greedy, bs = self.fast_greedy, self.bsampler
         if not fast_greedy:  # the cycle's noise in two draws: K drafts + the correction
             greedy_rows = bs.greedy | (bs.temperature <= 0)
@@ -241,7 +324,8 @@ class EagleChainEngine:
         if fast_greedy:  # exact-prefix match against the target's argmax
             t_true = torch.argmax(tout.logits, dim=-1).to(torch.int32)  # [B, K+1]
             match = drafts == t_true[:, :K]
-            n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+            n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+            n_acc = torch.minimum(n_acc, bs.spec_k.to(n_acc.dtype)).to(torch.int32)
         else:  # min(1, p/q) with a residual resample, per-row chains on both sides
             p = transformed_probs_batched(tout.logits, bs)  # [B, K+1, V]
             t_true, n_acc = speculative_accept(drafts, self._q, p, bs.spec_k, greedy_rows,
@@ -257,14 +341,22 @@ class EagleChainEngine:
         state.last_token.copy_(t_true[b_idx, idx])
         state.feature.copy_(feats[b_idx, idx])
         state.n_past.copy_(new_m)
+        if active is not None:
+            for t, old in zip((state.tgt_kv.slot_pos, state.dft_kv.slot_pos, state.last_token,
+                               state.feature, state.n_past), frozen):
+                keep = active.view(-1, *([1] * (t.dim() - 1)))
+                t.copy_(torch.where(keep, t, old))
 
-    def _multi_cycle(self, n_cycles: int, kv_limit: int | None = None) -> CycleOutput:
+    def _multi_cycle(self, n_cycles: int, kv_limit: int | None = None,
+                     active=None) -> CycleOutput:
         """`n_cycles` chained speculative cycles on the engine's state in ONE
         dispatch (one graph replay on the card), the reference's scanned
         `_multi_cycle`. Returns the state and the per-cycle outputs [C, B,
         ...]; they are static buffers, overwritten by the next dispatch of
-        the same C. `kv_limit` must bound the LAST cycle's reads. The
-        subclasses' `_cycle` (the tree engines') is what runs here."""
+        the same C. `kv_limit` must bound the LAST cycle's reads. `active`
+        [B] bool (the batcher's) masks the cycles: it is copied into a
+        static buffer. The subclasses' `_cycle` (the tree engines') is what
+        runs here, unmasked."""
         out = self._outs.get(n_cycles)
         if out is None:
             b, dev = self.batch, self.device
@@ -275,21 +367,28 @@ class EagleChainEngine:
                 n_accepted=torch.zeros((n_cycles, b), dtype=torch.int32, device=dev),
             )
             self._outs[n_cycles] = out
-        st = self.state
-        if not self.fast_greedy and self._q is None:
+        st, fast = self.state, self.fast_greedy
+        if not fast and self._q is None:
             self._q = torch.zeros((self.batch, self.K, self.tcfg.vocab_size),
                                   dtype=torch.float32, device=self.device)
+        mask = {}
+        if active is not None:
+            rows = [bool(a) for a in active]
+            if rows != self._active_host:
+                self._active.copy_(torch.tensor(rows))
+                self._active_host = rows
+            mask = {"active": self._active}
 
         def body():
             for ci in range(n_cycles):
-                self._cycle(st, out, ci, kv_limit=kv_limit)
+                self._cycle(st, out, ci, kv_limit=kv_limit, **mask)
 
         static = (st.tgt_kv.k, st.tgt_kv.v, st.tgt_kv.slot_pos, st.dft_kv.k, st.dft_kv.v,
                   st.dft_kv.slot_pos, st.last_token, st.feature, st.n_past, st.rng.seed,
-                  st.rng.counter, out.tokens, out.n_out, out.n_accepted,
+                  st.rng.counter, out.tokens, out.n_out, out.n_accepted, self._active,
                   *self.bsampler.tensors(),
                   *(() if self._q is None else (self._q,)))
-        self.graphs.run(("cycles", n_cycles, kv_limit), body, static)
+        self.graphs.run(("cycles", n_cycles, kv_limit, fast, bool(mask)), body, static)
         self.cycles_run += n_cycles
         return out
 

@@ -1,0 +1,436 @@
+"""HTTP inference server, the llama-server equivalent (port of
+eagle_tpu/server/server.py: `ServerMetrics`, `InferenceServer` and `main`).
+
+Usage:
+  python -m eagle_tpu_torch.server.server -m target.gguf [--draft draft.gguf]
+      [-np 4] [--host 0.0.0.0] [--port 8080] [--ctx 2048] [--device cuda]
+
+Endpoints, bodies, SSE chunks and status codes as the reference's
+`build_app`:
+  GET  /, /index.html          the built-in chat page
+  GET  /health, /props, /metrics (Prometheus text), /slots
+  POST /tokenize, /detokenize
+  POST /completion, /v1/completions, /v1/chat/completions (`stream`: SSE
+       `data: {...}` lines; the chat stream ends with `data: [DONE]`)
+What the port lacks answers 501 naming its ROADMAP item: /infill,
+/rerank, /v1/rerank, /v1/embeddings, /embedding, POST /slots/{id} (slot
+save / restore), `tools` in a chat request, `grammar` / `json_schema`.
+
+The front is the standard library's `ThreadingHTTPServer` (the card's host
+has no aiohttp): one thread per connection. Device work runs on one
+thread: with `-np 1` an inference worker drains a queue of jobs for the
+single-stream engine; with `-np N` > 1 and a chain draft, `BatcherWorker`
+drives the `ContinuousBatcher` and every request, streamed or not, takes a
+slot with its own sampler (the reference drops a batched request's sampler
+and streams outside the batcher).
+
+A request's fault answers 400 (a bad body, a prompt that does not fit a
+slot), 501 (not ported) or 500 (any other exception, a failed kernel or
+step among them), with `{"error": ...}`. SIGTERM or SIGINT stops the
+server: it closes its socket, ends its workers and `main` returns 0."""
+
+from __future__ import annotations
+
+import concurrent.futures
+import json
+import queue
+import signal
+import sys
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any
+
+from ..utils.args import sampler_from_request
+
+_ITEM5 = "ROADMAP queue 1, item 5"
+_ITEM6 = "ROADMAP queue 1, item 6"
+_ITEM7 = "ROADMAP queue 1, item 7"
+REFUSED_POSTS = {
+    "/infill": f"fill-in-the-middle is not ported yet ({_ITEM7})",
+    "/rerank": f"rerank is not ported yet ({_ITEM5})",
+    "/v1/rerank": f"rerank is not ported yet ({_ITEM5})",
+    "/v1/embeddings": f"embeddings are not ported yet ({_ITEM5})",
+    "/embedding": f"embeddings are not ported yet ({_ITEM5})",
+}
+
+
+class HTTPError(Exception):
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+
+
+@dataclass
+class ServerMetrics:
+    requests_total: int = 0
+    tokens_generated_total: int = 0
+    tokens_prompt_total: int = 0
+    started_at: float = field(default_factory=time.time)
+    lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def add(self, **counts: int) -> None:
+        with self.lock:
+            for k, v in counts.items():
+                setattr(self, k, getattr(self, k) + v)
+
+    def prometheus(self) -> str:
+        lines = [
+            "# TYPE eagle_tpu_requests_total counter",
+            f"eagle_tpu_requests_total {self.requests_total}",
+            "# TYPE eagle_tpu_tokens_generated_total counter",
+            f"eagle_tpu_tokens_generated_total {self.tokens_generated_total}",
+            "# TYPE eagle_tpu_tokens_prompt_total counter",
+            f"eagle_tpu_tokens_prompt_total {self.tokens_prompt_total}",
+            "# TYPE eagle_tpu_uptime_seconds gauge",
+            f"eagle_tpu_uptime_seconds {time.time() - self.started_at:.1f}",
+        ]
+        return "\n".join(lines) + "\n"
+
+
+def _refuse_constraints(body: dict) -> None:
+    fmt = body.get("response_format")
+    if body.get("grammar") or body.get("json_schema") or (
+            isinstance(fmt, dict) and fmt.get("schema")):
+        raise HTTPError(501, f"grammar-constrained decoding is not ported yet ({_ITEM7})")
+
+
+class InferenceServer:
+    def __init__(self, engine, model_name: str = "eagle-tpu", use_jinja: bool = False):
+        if use_jinja:
+            raise NotImplementedError(f"--jinja is not ported yet ({_ITEM5})")
+        self.engine = engine
+        self.model_name = model_name
+        self.metrics = ServerMetrics()
+        self._jobs: queue.Queue = queue.Queue()
+        self._worker = threading.Thread(target=self._work, daemon=True,
+                                        name="eagle-tpu-torch-inference")
+        self._worker.start()
+        self.batch_worker = None
+        if getattr(engine, "batcher", None) is not None:
+            from .batch_worker import BatcherWorker
+
+            self.batch_worker = BatcherWorker(engine.batcher)
+            self.batch_worker.start()
+        self.httpd: ThreadingHTTPServer | None = None
+        self._serving: threading.Thread | None = None
+
+    # -- the single-stream worker ----------------------------------------
+
+    def _work(self):
+        while True:
+            fut, fn = self._jobs.get()
+            if fn is None:
+                return
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # surfaced to the request
+                fut.set_exception(e)
+
+    def _submit_job(self, fn) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._jobs.put((fut, fn))
+        return fut
+
+    def _generate(self, ids: list[int], body: dict) -> queue.Queue:
+        """Start one generation; returns the queue it reports to: ("tok",
+        id) per token, then ("done", tokens, stats) or ("error", exc)."""
+        sampler = sampler_from_request(body, self.engine.cfg.sampler)
+        max_new = int(body.get("max_tokens", body.get("n_predict", 128)))
+        seed = int(body.get("seed", 0))
+        q: queue.Queue = queue.Queue()
+
+        def on_token(tok):
+            q.put(("tok", int(tok)))
+
+        if self.batch_worker is not None:
+            from .batch_worker import BatchRequest
+
+            self.batch_worker.submit(BatchRequest(
+                prompt_ids=ids, max_new=max_new, on_token=on_token, sampler=sampler,
+                on_done=lambda toks: q.put(("done", list(toks), {"batched": True})),
+                on_error=lambda e: q.put(("error", e))))
+            return q
+
+        def work():
+            eng = self.engine.engine
+            if self.engine.draft_params is not None:  # the engine's own sampler, as the reference
+                return eng.generate(ids, max_new_tokens=max_new, seed=seed, on_token=on_token)
+            return eng.generate(ids, max_new_tokens=max_new, sampler=sampler, seed=seed,
+                                on_token=on_token), {}
+
+        fut = self._submit_job(work)
+        fut.add_done_callback(lambda f: q.put(
+            ("error", f.exception()) if f.exception() else ("done", *f.result())))
+        return q
+
+    @staticmethod
+    def _events(q: queue.Queue):
+        """The generation's events up to its end: ("tok", id) ..., then
+        ("done", tokens, stats) or ("error", exc)."""
+        while True:
+            ev = q.get()
+            yield ev
+            if ev[0] != "tok":
+                return
+
+    # -- handlers ---------------------------------------------------------
+
+    def handle_props(self) -> dict:
+        mc = self.engine.model_cfg
+        return {"model": self.model_name, "n_ctx": self.engine.cfg.max_seq, "n_embd": mc.n_embd,
+                "n_layers": mc.n_layers, "vocab_size": mc.vocab_size,
+                "speculative": self.engine.draft_params is not None}
+
+    def handle_slots(self) -> list:
+        if self.batch_worker is None:
+            return []
+
+        def snap(b):
+            return [{"id": s.id, "state": s.state, "request_id": s.request_id,
+                     "n_generated": len(s.generated), "prompt_len": s.prompt_len}
+                    for s in b.slots]
+
+        return self.batch_worker.call(snap).result()
+
+    def _complete(self, prompt: str, body: dict) -> dict:
+        _refuse_constraints(body)
+        t0 = time.time()
+        ids = self.engine.tokenizer.encode(prompt)
+        self.metrics.add(requests_total=1, tokens_prompt_total=len(ids))
+        *_, end = self._events(self._generate(ids, body))
+        if end[0] == "error":
+            raise end[1]
+        _, toks, stats = end
+        self.metrics.add(tokens_generated_total=len(toks))
+        eos = self.engine.tokenizer.eos_id
+        text = self.engine.tokenizer.decode([t for t in toks if t != eos], skip_special=True)
+        dt = time.time() - t0
+        return {"text": text, "tokens": toks, "stats": stats,
+                "timings": {"total_s": dt, "predicted_n": len(toks),
+                            "predicted_per_second": len(toks) / max(1e-9, dt)}}
+
+    def _stream(self, out, prompt: str, body: dict, chat: bool) -> None:
+        """SSE: one `data:` line per token (llama.cpp's `stream: true`, or
+        OpenAI chat.completion.chunk frames), then the final frame(s)."""
+        ids = self.engine.tokenizer.encode(prompt)
+        self.metrics.add(requests_total=1)
+        events = self._events(self._generate(ids, body))
+        out.start_sse()
+        eos = self.engine.tokenizer.eos_id
+        cid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
+
+        def chunk(delta, finish):
+            return {"id": cid, "object": "chat.completion.chunk", "created": int(time.time()),
+                    "model": self.model_name,
+                    "choices": [{"index": 0, "delta": delta, "finish_reason": finish}]}
+
+        sent, stopped = 0, False
+        for ev in events:
+            if ev[0] == "error":  # the headers are out: the fault ends the stream
+                out.sse({"error": f"{type(ev[1]).__name__}: {ev[1]}"})
+                return
+            if ev[0] == "done" or stopped:  # past eos: drained, not sent
+                continue
+            tok = ev[1]
+            sent += 1
+            piece = self.engine.tokenizer.piece(tok) if tok != eos else ""
+            out.sse(chunk({"content": piece}, None) if chat
+                    else {"content": piece, "token": tok, "stop": False})
+            stopped = tok == eos
+        self.metrics.add(tokens_generated_total=sent)
+        if chat:
+            out.sse(chunk({}, "stop"))
+            out.sse_raw("[DONE]")
+        else:
+            out.sse({"content": "", "stop": True, "tokens_predicted": sent})
+
+    def handle_completion(self, out, body: dict):
+        if body.get("stream"):
+            _refuse_constraints(body)
+            return self._stream(out, body.get("prompt", ""), body, chat=False)
+        res = self._complete(body.get("prompt", ""), body)
+        return {"content": res["text"], "tokens_predicted": res["timings"]["predicted_n"],
+                "stop": True, "timings": res["timings"], "speculative": res["stats"]}
+
+    def handle_v1_completions(self, out, body: dict):
+        res = self._complete(body.get("prompt", ""), body)
+        return {"id": f"cmpl-{uuid.uuid4().hex[:12]}", "object": "text_completion",
+                "created": int(time.time()), "model": self.model_name,
+                "choices": [{"index": 0, "text": res["text"], "finish_reason": "stop"}],
+                "usage": {"prompt_tokens": self.metrics.tokens_prompt_total,
+                          "completion_tokens": res["timings"]["predicted_n"]}}
+
+    def handle_v1_chat(self, out, body: dict):
+        from .chat_templates import apply_template
+
+        if body.get("tools"):
+            raise HTTPError(501, f"tool calls are not ported yet ({_ITEM7})")
+        _refuse_constraints(body)
+        prompt = apply_template(list(body.get("messages", [])), template=body.get("template"),
+                                jinja_src=self.engine.metadata.get("tokenizer.chat_template"))
+        if body.get("stream"):
+            return self._stream(out, prompt, body, chat=True)
+        res = self._complete(prompt, body)
+        return {"id": f"chatcmpl-{uuid.uuid4().hex[:12]}", "object": "chat.completion",
+                "created": int(time.time()), "model": self.model_name,
+                "choices": [{"index": 0,
+                             "message": {"role": "assistant", "content": res["text"].strip()},
+                             "finish_reason": "stop"}]}
+
+    def route(self, method: str, path: str, out, body_bytes: bytes | None):
+        """Answer one request through `out` (the handler)."""
+        if method == "GET":
+            if path in ("/", "/index.html"):
+                from .webui import INDEX_HTML
+
+                return out.send(200, "text/html", INDEX_HTML)
+            gets = {"/health": lambda: {"status": "ok"}, "/props": self.handle_props,
+                    "/slots": self.handle_slots}
+            if path == "/metrics":
+                return out.send(200, "text/plain", self.metrics.prometheus())
+            if path in gets:
+                return out.send_json(200, gets[path]())
+        elif method == "POST":
+            if path in REFUSED_POSTS:
+                raise HTTPError(501, REFUSED_POSTS[path])
+            if path.startswith("/slots/"):
+                raise HTTPError(501, f"slot save / restore needs runtime/state_io.py, not "
+                                     f"ported yet ({_ITEM6})")
+            posts = {"/tokenize": self._tokenize, "/detokenize": self._detokenize,
+                     "/completion": self.handle_completion,
+                     "/v1/completions": self.handle_v1_completions,
+                     "/v1/chat/completions": self.handle_v1_chat}
+            if path in posts:
+                try:
+                    body = json.loads(body_bytes or b"{}")
+                except json.JSONDecodeError as e:
+                    raise HTTPError(400, f"the body is not JSON: {e}") from None
+                res = posts[path](out, body)
+                if res is not None:
+                    out.send_json(200, res)
+                return None
+        raise HTTPError(404, f"no {method} {path}")
+
+    def _tokenize(self, out, body: dict) -> dict:
+        return {"tokens": self.engine.tokenizer.encode(body.get("content", ""))}
+
+    def _detokenize(self, out, body: dict) -> dict:
+        return {"content": self.engine.tokenizer.decode(body.get("tokens", []))}
+
+    # -- serving ------------------------------------------------------------
+
+    def start(self, host: str = "0.0.0.0", port: int = 8080) -> tuple[str, int]:
+        """Serve on a thread; returns the bound (host, port) (port 0 picks a
+        free one)."""
+        self.httpd = ThreadingHTTPServer((host, port), _handler(self))
+        self.httpd.daemon_threads = True
+        self._serving = threading.Thread(target=self.httpd.serve_forever, daemon=True,
+                                         name="eagle-tpu-torch-http")
+        self._serving.start()
+        return self.httpd.server_address[:2]
+
+    def stop(self) -> None:
+        """Close the socket and end the workers."""
+        if self.httpd is not None:
+            self.httpd.shutdown()
+            self.httpd.server_close()
+            self._serving.join()
+            self.httpd = None
+        self._jobs.put((None, None))
+        self._worker.join()
+        if self.batch_worker is not None:
+            self.batch_worker.shutdown()
+            self.batch_worker.join()
+
+    def run(self, host: str = "0.0.0.0", port: int = 8080) -> None:
+        """Serve until SIGTERM or SIGINT, then stop."""
+        stop = threading.Event()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *_: stop.set())
+        host, port = self.start(host, port)
+        print(f"[server] listening on http://{host}:{port}", file=sys.stderr, flush=True)
+        stop.wait()
+        self.stop()
+        print("[server] stopped", file=sys.stderr, flush=True)
+
+
+def _handler(server: InferenceServer):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # no per-request lines on stderr
+            pass
+
+        def send(self, status: int, ctype: str, text: str) -> None:
+            data = text.encode()
+            self.send_response(status)
+            self.send_header("Content-Type", f"{ctype}; charset=utf-8")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def send_json(self, status: int, obj: Any) -> None:
+            self.send(status, "application/json", json.dumps(obj))
+
+        def start_sse(self) -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.end_headers()
+            self.close_connection = True  # the stream ends with the connection
+
+        def sse(self, obj: Any) -> None:
+            self.sse_raw(json.dumps(obj))
+
+        def sse_raw(self, text: str) -> None:
+            self.wfile.write(f"data: {text}\n\n".encode())
+            self.wfile.flush()
+
+        def _serve(self, method: str) -> None:
+            n = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(n) if n else None
+            try:
+                server.route(method, self.path.split("?")[0], self, body)
+            except HTTPError as e:
+                self.send_json(e.status, {"error": str(e)})
+            except NotImplementedError as e:
+                self.send_json(501, {"error": str(e)})
+            except ValueError as e:
+                self.send_json(400, {"error": str(e)})
+            except Exception as e:  # a failed kernel or step: the request gets it
+                self.send_json(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def do_GET(self):
+            self._serve("GET")
+
+        def do_POST(self):
+            self._serve("POST")
+
+    return Handler
+
+
+def main(argv=None) -> int:
+    from ..api import Engine, EngineConfig
+    from ..utils.args import apply_log_args, build_parser, check_refused
+
+    args = build_parser("server").parse_args(argv)
+    check_refused(args, "server")
+    apply_log_args(args)
+    cfg = EngineConfig(
+        model_path=args.model,
+        draft_path=args.draft,
+        n_draft=args.n_draft,
+        cycles_per_dispatch=args.cycles_per_dispatch,
+        tree_branching=tuple(int(x) for x in args.tree.split(",")) if args.tree else None,
+        max_seq=args.ctx,
+        batch=args.parallel,
+        feature_source=args.feature_source,
+        device=args.device,
+    )
+    InferenceServer(Engine(cfg)).run(host=args.host, port=args.port)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

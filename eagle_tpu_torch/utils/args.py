@@ -1,7 +1,7 @@
 """The declarative option registry of the command-line tools (port of the
-rows of eagle_tpu/utils/args.py that its `cli` and `tokenize` tools
-materialize, with `build_parser`, `sampler_from_args` and
-`apply_log_args`).
+rows of eagle_tpu/utils/args.py that its `cli`, `server` and `tokenize`
+tools materialize, with `build_parser`, `sampler_from_args`,
+`sampler_from_request` and `apply_log_args`).
 
 Every option is one `Opt` row: flags, type / default / choices / help, an
 EAGLE_ARG_<NAME> environment fallback (explicit flag > environment >
@@ -60,49 +60,50 @@ class Opt:
         return (self.type or str)(v)
 
 
-TOOLS = ("cli", "tokenize")
+TOOLS = ("cli", "server", "tokenize")
 
 _ITEM5 = "chat and its templates (ROADMAP queue 1, item 5)"
 _ITEM7 = "the rest of the runtime (ROADMAP queue 1, item 7)"
+_PAGED = "paged KV serving (ROADMAP queue 1, item 6: the paged pool and batcher)"
+_LORA = "LoRA adapters (ROADMAP queue 1, item 9)"
+_CS = ("cli", "server")
 
 REGISTRY: tuple[Opt, ...] = (
     # ---- model / runtime --------------------------------------------------
-    Opt(("-m", "--model"), "target GGUF path", required=True, tools=("cli", "tokenize")),
-    Opt(("--ctx",), "context length", type=int, default=2048, tools=("cli",)),
+    Opt(("-m", "--model"), "target GGUF path", required=True,
+        tools=("cli", "server", "tokenize")),
+    Opt(("--ctx",), "context length", type=int, default=2048, tools=_CS),
     Opt(("--device",), "device: the card (cuda) or the plain PyTorch path (cpu)",
-        default="cuda", choices=("cuda", "cpu"), tools=("cli",)),
+        default="cuda", choices=("cuda", "cpu"), tools=_CS),
     Opt(("--backend",), "the reference's compute backend", choices=(None, "xla", "pallas"),
         refused="the reference's XLA / Pallas choice: the port runs its CUDA kernels "
                 "(--device cuda) or their plain versions (--device cpu)"),
-    Opt(("--lora",), "LoRA adapter GGUF (merged at load)", tools=("cli",),
-        refused="LoRA adapters (ROADMAP queue 1, item 9)"),
-    Opt(("--lora-scale",), "LoRA alpha override", type=float, tools=("cli",),
-        refused="LoRA adapters (ROADMAP queue 1, item 9)"),
+    Opt(("--lora",), "LoRA adapter GGUF (merged at load)", tools=_CS, refused=_LORA),
+    Opt(("--lora-scale",), "LoRA alpha override", type=float, tools=_CS, refused=_LORA),
     # ---- speculation ------------------------------------------------------
-    Opt(("--draft",), "EAGLE draft GGUF (enables speculation)", tools=("cli",)),
-    Opt(("--n-draft",), "chain draft length", type=int, default=5, tools=("cli",)),
+    Opt(("--draft",), "EAGLE draft GGUF (enables speculation)", tools=_CS),
+    Opt(("--n-draft",), "chain draft length", type=int, default=5, tools=_CS),
     Opt(("--cycles-per-dispatch",), "speculative cycles chained per dispatch (one CUDA "
-        "graph replay on the card)", type=int, default=1, tools=("cli",)),
-    Opt(("--tree",), "tree branching factors, e.g. 4,2,2", tools=("cli",)),
+        "graph replay on the card)", type=int, default=1, tools=_CS),
+    Opt(("--tree",), "tree branching factors, e.g. 4,2,2", tools=_CS),
     Opt(("--tree2",), "EAGLE-2 dynamic draft tree, e.g. 8,6,32",
         metavar="BEAM,DEPTH,NVERIFY", tools=("cli",)),
     Opt(("--lookahead",), "model-free lookahead decoding (W,N,G)", metavar="W,N,G",
         tools=("cli",), refused=f"lookahead decoding: {_ITEM7}"),
     Opt(("--feature-source",), "EAGLE feature tap", default="pre_norm",
-        choices=("pre_norm", "post_norm"), tools=("cli",)),
-    # ---- sampling -----------------------------------------------------------
-    Opt(("--temp",), "sampling temperature", type=float, default=0.8, tools=("cli",)),
-    Opt(("--top-k",), "top-k", type=int, default=40, tools=("cli",)),
-    Opt(("--top-p",), "top-p", type=float, default=0.95, tools=("cli",)),
-    Opt(("--min-p",), "min-p", type=float, default=0.05, tools=("cli",)),
+        choices=("pre_norm", "post_norm"), tools=_CS),
+    # ---- sampling (the server's per-request overrides read these rows) ------
+    Opt(("--temp",), "sampling temperature", type=float, default=0.8, tools=_CS),
+    Opt(("--top-k",), "top-k", type=int, default=40, tools=_CS),
+    Opt(("--top-p",), "top-p", type=float, default=0.95, tools=_CS),
+    Opt(("--min-p",), "min-p", type=float, default=0.05, tools=_CS),
     Opt(("--repeat-penalty",), "repetition penalty (1.0: off; any other value needs the "
-        "stateful samplers, ROADMAP queue 1, item 7)", type=float, default=1.0,
-        tools=("cli",)),
+        "stateful samplers, ROADMAP queue 1, item 7)", type=float, default=1.0, tools=_CS),
     Opt(("--seed",), "sampling seed", type=int, default=0, tools=("cli",)),
     # ---- generation / prompt ------------------------------------------------
     Opt(("-p", "--prompt"), "prompt text", tools=("cli", "tokenize")),
     Opt(("-n", "--n-predict"), "tokens to generate", type=int, default=128, tools=("cli",)),
-    Opt(("--grammar",), "GBNF grammar constraining output", tools=("cli",),
+    Opt(("--grammar",), "GBNF grammar constraining output", tools=_CS,
         refused=f"grammar-constrained decoding: {_ITEM7}"),
     Opt(("--json-schema",), "JSON schema constraining output", tools=("cli",),
         refused=f"grammar-constrained decoding: {_ITEM7}"),
@@ -116,7 +117,18 @@ REGISTRY: tuple[Opt, ...] = (
     Opt(("--system",), "system prompt (chat mode)", tools=("cli",), refused=_ITEM5),
     Opt(("--chat-template",), "built-in chat template name", tools=("cli",), refused=_ITEM5),
     Opt(("--jinja",), "execute the GGUF's embedded jinja chat template",
-        action="store_true", tools=("cli",), refused=_ITEM5),
+        action="store_true", tools=_CS, refused=_ITEM5),
+    # ---- server -------------------------------------------------------------
+    Opt(("--host",), "bind address", default="0.0.0.0", tools=("server",)),
+    Opt(("--port",), "port", type=int, default=8080, tools=("server",)),
+    Opt(("--parallel", "-np"), "number of server slots (continuous batching)",
+        type=int, default=1, tools=("server",), env="n_parallel"),
+    Opt(("--paged",), "serve KV from a shared page pool with prefix reuse",
+        action="store_true", tools=("server",), refused=_PAGED),
+    Opt(("--kv-pages",), "page-pool size (< batch*ctx/page-size oversubscribes)",
+        type=int, tools=("server",), refused=_PAGED),
+    Opt(("--page-size",), "KV page size", type=int, default=64, tools=("server",),
+        refused=_PAGED),
     # ---- logging ------------------------------------------------------------
     Opt(("--log-level",), "log verbosity", choices=(None, "error", "warn", "info", "debug")),
     Opt(("--log-file",), "log destination file"),
@@ -177,6 +189,25 @@ def sampler_from_args(args):
         **{f: getattr(args, d) for d, f in SAMPLING_ARG_FIELDS.items()},
         greedy=args.temp <= 0,
     )
+
+
+#: request-JSON key -> (SamplerConfig field, cast): the server API's names
+#: for the same parameters as the flags
+SAMPLING_REQUEST_KEYS = {
+    "temperature": ("temperature", float),
+    "top_k": ("top_k", int),
+    "top_p": ("top_p", float),
+    "min_p": ("min_p", float),
+    "repeat_penalty": ("penalty_repeat", float),
+}
+
+
+def sampler_from_request(body: dict, default):
+    """A request's SamplerConfig: `default` with the request's overrides;
+    greedy iff the effective temperature is <= 0."""
+    upd = {f: cast(body[key]) for key, (f, cast) in SAMPLING_REQUEST_KEYS.items() if key in body}
+    cfg = dataclasses.replace(default, **upd) if upd else default
+    return dataclasses.replace(cfg, greedy=cfg.temperature <= 0.0)
 
 
 def apply_log_args(args) -> None:

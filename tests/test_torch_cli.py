@@ -1,8 +1,10 @@
 """The port's command-line tools and refusals on the CPU: `tools.cli.main`
 (`--device cpu`) on a tiny GGUF pair with an SPM vocabulary prints the text
-and the `[speculative]` line, `tools.tokenize` the ids; every flag, config
-and entry point the port does not have yet raises NotImplementedError
-naming its ROADMAP item; the entry points default to the card."""
+and the `[speculative]` line, `tools.tokenize` the ids; every flag of the
+CLI and the server, config and entry point the port does not have yet
+raises NotImplementedError naming its ROADMAP item; `batch` > 1 with a
+chain draft builds the continuous batcher; the entry points default to the
+card."""
 
 import pytest
 import torch
@@ -10,6 +12,8 @@ import torch
 from eagle_tpu_torch.api import Engine, EngineConfig
 from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.sampling import SamplerConfig
+from eagle_tpu_torch.runtime.scheduler import ContinuousBatcher
+from eagle_tpu_torch.server import server
 from eagle_tpu_torch.tools import cli, tokenize
 from torch_port_util import tiny_engine_pair
 
@@ -54,11 +58,39 @@ def test_cli_refuses_what_is_not_ported(pair, flags, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(lora_path="a.gguf"), "item 9"), (dict(batch=2), "item 6"), (dict(paged=True), "item 6"),
+    (dict(lora_path="a.gguf"), "item 9"), (dict(lora_scale=0.5), "item 9"),
+    (dict(paged=True, batch=2), "item 6"),
     (dict(lookahead=(4, 3, 2)), "item 7"), (dict(sampler=SamplerConfig(mirostat=2)), "item 7")])
 def test_engine_config_refusals(pair, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Engine(EngineConfig(model_path=pair[0], device="cpu", **kw))
+
+
+SERVER_REFUSED = [(["--paged"], "item 6"), (["--kv-pages", "16"], "item 6"),
+                  (["--page-size", "16"], "item 6"), (["--jinja"], "item 5"),
+                  (["--grammar", "root ::= \"a\""], "item 7"), (["--lora", "a.gguf"], "item 9"),
+                  (["--lora-scale", "0.5"], "item 9"), (["--backend", "xla"], "--device")]
+
+
+@pytest.mark.parametrize("flags,item", SERVER_REFUSED, ids=[f[0][0] for f in SERVER_REFUSED])
+def test_server_refuses_what_is_not_ported(pair, flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        server.main(["-m", str(pair[0]), "--device", "cpu", "-np", "2", *flags])
+
+
+@pytest.mark.parametrize("kind", ["chain", "tree", "plain"])
+def test_batch_engine_builds_the_batcher(pair, kind):
+    """As the reference: a chain draft with batch > 1 gets a batcher over a
+    batch-row chain engine; the tree engines and Generator get none."""
+    extra = {"chain": {}, "tree": dict(tree_branching=(2,)), "plain": {}}[kind]
+    eng = Engine(EngineConfig(model_path=pair[0], draft_path=None if kind == "plain" else pair[1],
+                              batch=3, max_seq=128, compute_dtype=torch.float32,
+                              kv_dtype=torch.float32, device="cpu", **extra))
+    if kind == "chain":
+        assert isinstance(eng.batcher, ContinuousBatcher) and eng.batcher.batch == 3
+        assert eng.engine.batch == 3 and eng.batcher.engine is eng.engine
+    else:
+        assert eng.batcher is None
 
 
 def test_entry_point_refusals(engine):

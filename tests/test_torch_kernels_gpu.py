@@ -952,3 +952,113 @@ def test_sampled_engine_graphed_equals_eager(cuda, kind, cycles):
     assert run(graphed, 5, cycles) != want
     assert graphed.graphs.eager == warm and graphed.graphs.replays > 0
     assert sum(_build.plain_calls.values()) == 0
+
+
+# ---- continuous batching (runtime/scheduler.py): row views and masked cycles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("view", ["row2", "every_other"])
+@pytest.mark.parametrize("kernel", ["flash_decode", "flash_prefill"])
+def test_flash_kernels_on_a_row_view(cuda, kernel, view, dtype, d):
+    """Both kernels on a view of a B = 4 cache whose batch rows are apart
+    (the batcher's `KVCache.row`, and every other row): the batch stride
+    is passed, nothing is copied, and the result is the plain version's."""
+    shape = (2, 4, 2, 256, d)
+    k_full = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    v_full = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    rows = slice(2, 3) if view == "row2" else slice(0, 4, 2)
+    k_cache, v_cache = k_full[:, rows], v_full[:, rows]
+    assert not k_cache.is_contiguous()
+    b, t = k_cache.shape[1], 20
+    tags = torch.full((b, 256), -1, dtype=torch.int32, device="cuda")
+    tags[:, :150] = torch.arange(150, dtype=torch.int32, device="cuda")
+    pos = (torch.arange(t, device="cuda", dtype=torch.int32) + 130)[None].repeat(b, 1)
+    q = torch.randn((b, t, 4, d), generator=cuda, device="cuda")
+    _build.reset_counts()
+    mask = causal_mask_from_tags(tags[:, :160], pos)
+    if kernel == "flash_decode":
+        got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=160)
+    else:
+        got = fa.flash_attention_prefill(q, k_cache, v_cache, pos, tags, 1, s_limit=160)
+    assert _build.launches[kernel] == 1 and _build.plain_calls[kernel] == 0
+    want = fa.flash_attention_cached_plain(q, k_cache.contiguous(), v_cache.contiguous(), mask,
+                                           1, s_limit=160)
+    _close(got, want, TOL[dtype])
+
+
+def _batch_engine(tp, dp, graphed, batch=3):
+    return EagleChainEngine(tp, dp, TINY_CFG, n_draft=3, max_seq=256, batch=batch,
+                            kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=-1,
+                            device="cuda", cuda_graphs=graphed)
+
+
+def _state_rows(eng, rows):
+    st = eng.state
+    return [t[rows].clone() for t in (st.tgt_kv.slot_pos, st.dft_kv.slot_pos, st.last_token,
+                                      st.feature, st.n_past)]
+
+
+def test_batched_cycle_graphed_equals_eager_with_an_inactive_row(cuda):
+    """A B = 3 batcher, row 2 parked and row 1 admitted in chunks while row
+    0 generates: graphed tokens and tags equal the eager run's bit for bit,
+    no body runs eagerly after the capture, and a replayed masked cycle
+    leaves the inactive rows' tags and scalars as they were."""
+    from eagle_tpu_torch.runtime.scheduler import ContinuousBatcher
+
+    tp, dp = _tiny_bf16()
+    prompts = [PROMPT, np.random.default_rng(1).integers(0, 512, size=90).tolist()]
+    runs = {}
+    for graphed in (False, True):
+        eng = _batch_engine(tp, dp, graphed)
+        b = ContinuousBatcher(eng, prefill_chunk=32)
+        s0 = b.submit(prompts[0], max_new_tokens=40, stop_at_eos=False)
+        for _ in range(3):
+            b.step()
+        s1 = b.submit(prompts[1], max_new_tokens=12, stop_at_eos=False)
+        b.step()  # row 1's first chunk: row 1 inactive in this cycle
+        frozen = _state_rows(eng, [1, 2])
+        eng._multi_cycle(1, kv_limit=eng.kv_read_bucket(int(b.n_past.max()) + 8),
+                         active=b._active_mask)
+        b.n_past[0] = int(eng.state.n_past[0])  # the extra cycle, for the host's mirror
+        for old, new in zip(frozen, _state_rows(eng, [1, 2])):
+            assert torch.equal(old.view(torch.int32) if old.is_floating_point() else old,
+                               new.view(torch.int32) if new.is_floating_point() else new)
+        b.run_until_done(max_steps=200)
+        runs[graphed] = (s0.generated, s1.generated, eng.state.tgt_kv.slot_pos.clone(),
+                         eng.state.dft_kv.slot_pos.clone())
+        if graphed:  # every eager body was a capture's warm-up
+            assert eng.graphs.replays > 0 and eng.graphs.eager == eng.graphs.captures
+    for got, want in zip(runs[True], runs[False]):
+        assert (torch.equal(got, want) if isinstance(got, torch.Tensor) else got == want)
+
+
+def test_set_row_sampler_after_capture_takes_effect(cuda):
+    """A row's sampler set after the stochastic cycle's capture reaches the
+    next replay (the rows are written in place): top-k 1 at temperature 1
+    draws the argmax, so that row gives the greedy batched tokens, with no
+    new capture."""
+    from eagle_tpu_torch.runtime.scheduler import ContinuousBatcher
+
+    tp, dp = _tiny_bf16()
+    hot = SamplerConfig(temperature=1.5, top_k=0, top_p=1.0, min_p=0.0)
+    first = SamplerConfig(temperature=1.0, top_k=1, top_p=1.0, min_p=0.0)
+    greedy_eng = _batch_engine(tp, dp, False, batch=2)
+    gb = ContinuousBatcher(greedy_eng)
+    gb.submit(PROMPT, max_new_tokens=30, stop_at_eos=False)
+    want = gb.submit(PROMPT[:15], max_new_tokens=30, stop_at_eos=False)
+    gb.run_until_done(max_steps=200)
+
+    eng = _batch_engine(tp, dp, True, batch=2)
+    b = ContinuousBatcher(eng)
+    for p in (PROMPT, PROMPT[:15]):
+        b.submit(p, max_new_tokens=30, stop_at_eos=False, sampler=hot)
+    b.run_until_done(max_steps=200)  # captures the stochastic cycle
+    captures = eng.graphs.captures
+    b.submit(PROMPT, max_new_tokens=30, stop_at_eos=False, sampler=hot)
+    got = b.submit(PROMPT[:15], max_new_tokens=30, stop_at_eos=False, sampler=first)
+    assert not eng.fast_greedy
+    b.run_until_done(max_steps=200)
+    assert got.generated == want.generated
+    assert eng.graphs.captures == captures and eng.graphs.replays > 0

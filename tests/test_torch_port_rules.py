@@ -41,7 +41,9 @@ def _port_files():
                  "eagle_tpu_torch/tokenizer/__init__.py", "eagle_tpu_torch/tokenizer/spm.py",
                  "eagle_tpu_torch/api.py", "eagle_tpu_torch/utils/args.py",
                  "eagle_tpu_torch/utils/logging.py", "eagle_tpu_torch/tools/cli.py",
-                 "eagle_tpu_torch/tools/tokenize.py"):
+                 "eagle_tpu_torch/tools/tokenize.py", "eagle_tpu_torch/runtime/scheduler.py",
+                 "eagle_tpu_torch/server/server.py", "eagle_tpu_torch/server/batch_worker.py",
+                 "eagle_tpu_torch/server/chat_templates.py", "eagle_tpu_torch/server/webui.py"):
         assert must in names
     return files
 
@@ -74,11 +76,12 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
                                    "synth_eagle_params", "Generator", "EagleChainEngine",
                                    "EagleTreeEngine", "EagleTree2Engine",
                                    "params_from_numpy", "load_llama_params",
-                                   "load_eagle_params", "Engine", "cli"])
+                                   "load_eagle_params", "Engine", "cli", "server"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from eagle_tpu_torch.api import Engine, EngineConfig
     from eagle_tpu_torch.convert import params_from_numpy
+    from eagle_tpu_torch.server import server
     from eagle_tpu_torch.tools import cli
     from eagle_tpu_torch.models.loader import load_eagle_params, load_llama_params
     from eagle_tpu_torch.models.synth import synth_eagle_params, synth_llama_params
@@ -101,6 +104,7 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         "load_eagle_params": lambda: load_eagle_params("no-such-file.gguf"),
         "Engine": lambda: Engine(EngineConfig(model_path="no-such-file.gguf")),
         "cli": lambda: cli.main(["-m", "no-such-file.gguf", "-p", "a"]),
+        "server": lambda: server.main(["-m", "no-such-file.gguf", "-np", "2"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -34,7 +34,7 @@ from eagle_tpu_torch.runtime.generate import Generator
 from eagle_tpu_torch.runtime.kvcache import KVCache
 from eagle_tpu_torch.runtime.sampling import top_k
 from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
-    background_cpu, tiny_cfgs, tree_to_numpy,
+    background_cpu, oracle, tiny_cfgs, tree_to_numpy,
 )
 
 pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
@@ -75,23 +75,6 @@ def _reference(s, kind, arg):
         cache[(kind, arg)] = cls(s["jt"], s["jd"], s["jcfg"], max_seq=128, kv_dtype=jnp.float32,
                                  compute_dtype=jnp.float32, backend="xla", eos_id=-1, **kw)
     return cache[(kind, arg)]
-
-
-def oracle(real, seq: torch.Tensor, boost: float = 1e4):
-    """`eagle_forward` with `boost` added to its logits at the target's
-    greedy continuation: the pair at draft position p proposes x_{p+2}
-    (`seq` holds the prompt and the greedy tokens). Device ops only."""
-
-    def forward(*args, **kw):
-        out = real(*args, **kw)
-        if out.logits is None:  # the prompt's draft pass
-            return out
-        want = seq[(args[5].long() + 2).clamp(max=seq.numel() - 1)]  # [B, T]
-        boosted = out.logits.scatter_add(-1, want[..., None],
-                                         torch.full_like(out.logits[..., :1], boost))
-        return out._replace(logits=boosted)
-
-    return forward
 
 
 def _seq(s):

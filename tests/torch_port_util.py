@@ -256,6 +256,23 @@ def tiny_port_engine(pair, kind: str):
                                kv_dtype=torch.float32, device="cpu", **ENGINE_KINDS[kind]))
 
 
+def oracle(real, seq: torch.Tensor, boost: float = 1e4):
+    """`eagle_forward` with `boost` added to its logits at the target's
+    greedy continuation: the pair at draft position p proposes x_{p+2}
+    (`seq` holds the prompt and the greedy tokens). Device ops only."""
+
+    def forward(*args, **kw):
+        out = real(*args, **kw)
+        if out.logits is None:  # the prompt's draft pass
+            return out
+        want = seq[(args[5].long() + 2).clamp(min=0, max=seq.numel() - 1)]  # [B, T]
+        boosted = out.logits.scatter_add(-1, want[..., None],
+                                         torch.full_like(out.logits[..., :1], boost))
+        return out._replace(logits=boosted)
+
+    return forward
+
+
 def assert_bits_equal(got, want, what=""):
     """A port tensor and a reference array hold the same bits (floats are
     compared as integers, so -0.0 and NaN payloads count)."""
