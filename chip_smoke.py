@@ -39,7 +39,9 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    (the tree verify forwards), and at T=S=512 as the EAGLE engine's prompt
    takes it; flash_prefill at T=512 with padded
    and q_pos=-1 rows, one of them inside a 64-row tile (relative error <=
-   1e-2); both kernels at g = 4 (8 kv heads) for T = 6 and 20 at s_limit
+   1e-2), and as a chat turn's feed at an offset runs it: T = 16, 32 and
+   64 rows (3 of them padding) from positions 300, 700 and 960, s_limit 512
+   or 1024, at g = 1 and 4 (T = 32 from 700 at S = 1024 timed); both kernels at g = 4 (8 kv heads) for T = 6 and 20 at s_limit
    300, with a fully masked row (checks only). Each prints kernel ms, plain
    ms, the bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
    whichever is larger) and library_ms (one PyTorch call computing the
@@ -141,6 +143,27 @@ cli. the normal entry point on phase 6's files (unfused): three runs of
    chain's text the CLI's --temp 0 text; the sampler's share of the device
    time is each sampled cell's device ms less phase 6's greedy cell's
    (`sampler_share`).
+chat. a conversation over the live cache on phase 6's files (unfused,
+   greedy, the vicuna template): `python -m eagle_tpu_torch.tools.cli
+   --chat --chat-template vicuna --temp 0 -n 48` as a subprocess with three
+   user turns (~120, 60 and 200 words of the vocabulary) on stdin; then
+   in process `Engine.chat_session()` on the same turns: graphed once to
+   capture, 3 timed graphed runs and one eager session (`cuda_graphs=
+   False`), all the same tokens bit for bit, the CLI's output the session's
+   stream; each feed (`Generator._extend` at the cache's position) exactly
+   129 qmm_tc and 32 flash_prefill launches; per turn the feed's host ms
+   (to the first token), its device ms (CUDA events) and decode tokens/s
+   (`[chat]` lines); each turn's tokens against one graphed
+   `Generator.generate` over the conversation so far, up to a bf16
+   near-tie. A session on a 512-slot cache whose third turn shifts the
+   context: graphed twice and eager once, bit for bit, the second graphed
+   run capturing no graph (`[chat shift]`: the shift's device ms). The
+   server (`-np 1`, in process on the loaded engine): /v1/embeddings and
+   /rerank once each (`[chat server]`); qmm at a feed's 16, 32 and 64 rows
+   (`[chat kernel]`); `Engine.embed` and `rerank` on a 2-layer model of
+   phase 2's widths, f32, on the card against the CPU (relative error <=
+   1e-3). The launch counts of the first timed session, from zero, stand in
+   the `kernels` line as `chat_path_launches`.
 serve. continuous batching on phase 6's files (unfused, K = 5, greedy):
    `Engine(batch=4, max_seq=2048)` and its `ContinuousBatcher`; prompts of
    ~40, 150, 300 and 700 tokens (two submitted, three steps, the other two;
@@ -262,6 +285,19 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def prefill_bound(q, k_cache, q_pos, tags, lim: int) -> tuple[float, str]:
+    """bound_ms of one flash_prefill call on this run's data: K and V of the
+    slots that some query row sees, each read once, the tags of [0, lim), q
+    and q_pos read and the f32 output written; two matmuls over the visible
+    (query, key) pairs."""
+    b, t, h, d = q.shape
+    vis = (tags[:, None, :lim] >= 0) & (tags[:, None, :lim] <= q_pos[:, :, None])
+    slots, pairs = int(vis.any(dim=1).sum()), int(vis.sum())
+    kv_bytes = 2 * slots * k_cache.shape[2] * d * k_cache.element_size()
+    return bound_ms(kv_bytes + 4 * b * lim + nbytes(q, q_pos) + q.numel() * 4,
+                    4.0 * pairs * h * d)
 
 
 # --------------------------------------------------------------------------
@@ -820,18 +856,89 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
     qb = q.transpose(1, 2).to(torch.bfloat16)
     lib = device_ms(lambda i: F.scaled_dot_product_attention(
         qb, k_cache[layer, :, :, :lim], v_cache[layer, :, :, :lim], attn_mask=vis[:, None]), 10)
-    b_ms, b_by = bound_ms(2 * b * h * lim * d * 2 + nbytes(q, q_pos, tags) + q.numel() * 4,
-                          4.0 * b * h * t * lim * d)
+    b_ms, b_by = prefill_bound(q, k_cache, q_pos, tags, lim)
     prefill = dict(name="flash_prefill", t=t, s=lim, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
     results.append(prefill)
     log(f"[flash_prefill] T={t} S={lim} H={h} D={d}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
         f"bound {b_ms * 1e3:.2f} us ({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
+    results += prefill_offset_checks(gen, k_cache, v_cache, layer)
     report["attention"] = results
     del k_cache, v_cache
     torch.cuda.empty_cache()
     report["attention_gqa"] = gqa_checks(gen)
     return decode, prefill
+
+
+#: a chat turn's feed at an offset (`Generator._extend`): (T, real rows n,
+#: first q position, s_limit); rows n..T-1 are padding (positions past the
+#: feed, tags unwritten). The last three are phase chat's feeds (`CHAT_FEEDS`).
+CHAT_FEEDS = [(256, 138, 0, 256), (128, 79, 185, 512), (256, 219, 311, 1024)]
+OFFSET_FEEDS = [(t, t - 3, q0, lim) for q0, lim in ((300, 512), (700, 1024), (960, 1024))
+                for t in (16, 32, 64)] + CHAT_FEEDS
+OFFSET_TIMED = [(32, 29, 700, 1024)] + CHAT_FEEDS
+
+
+def prefill_offset_checks(gen, k_cache, v_cache, layer: int) -> list[dict]:
+    """flash_prefill as a chat turn's feed runs it: T = 16, 32 and 64 query
+    rows (3 of them padding) at positions from 300, 700 and 960 over the
+    tags of the history below them, s_limit 512 or 1024, and phase chat's
+    three feeds (T = 256 / 128 / 256 from 0 / 185 / 311, with their padding
+    rows), at g = 1 (32 kv heads) and g = 4 (8), against the plain version
+    (relative error <= 1e-2); `OFFSET_TIMED` at g = 1 timed (kernel, plain,
+    bound, library ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.ops import flash_attention as fa
+
+    b, h, d, s = k_cache.shape[1], k_cache.shape[2], k_cache.shape[4], k_cache.shape[3]
+    caches = {1: (k_cache, v_cache), 4: (k_cache[:, :, :h // 4].contiguous(),
+                                         v_cache[:, :, :h // 4].contiguous())}
+    out, worst = [], 0.0
+    for g, (kc, vc) in caches.items():
+        for feed in OFFSET_FEEDS:
+            t, n, q0, lim = feed
+            slots = torch.arange(s, dtype=torch.int32, device="cuda")[None]
+            tags = torch.where(slots < q0 + n, slots, -1)
+            q_pos = q0 + torch.arange(t, dtype=torch.int32, device="cuda")[None]
+            q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+            got = fa.flash_attention_prefill(q, kc, vc, q_pos, tags, layer, s_limit=lim)
+            want = fa.flash_attention_prefill_plain(q, kc, vc, q_pos, tags, layer, s_limit=lim)
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(got, want)
+            plan = fa._plan(t * g, lim, d, torch.bfloat16, b * h // g, True)
+            if rel > ATTN_TOL or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash_prefill at an offset: T={t} (n={n}) from {q0} "
+                                     f"S={lim} g={g} ({plan}): rel err {rel:.3e} > {ATTN_TOL}")
+            worst = max(worst, rel)
+            if feed in CHAT_FEEDS:
+                log(f"[flash_prefill] phase chat's feed T={t} (n={n}) from q={q0} S={lim} g={g}: "
+                    f"rel err {rel:.2e}; {plan}")
+            if feed not in OFFSET_TIMED or g != 1:
+                continue
+            reps = 50 if t <= 64 else 20
+            ms = device_ms(lambda i: fa.flash_attention_prefill(q, kc, vc, q_pos, tags, layer,
+                                                               s_limit=lim), reps)
+            plain = device_ms(lambda i: fa.flash_attention_prefill_plain(
+                q, kc, vc, q_pos, tags, layer, s_limit=lim), 10)
+            vis = (tags[:, None, :lim] >= 0) & (tags[:, None, :lim] <= q_pos[:, :, None])
+            qb = q.transpose(1, 2).to(torch.bfloat16)
+            kl, vl = kc[layer, :, :, :lim], vc[layer, :, :, :lim]
+            lib = device_ms(lambda i: F.scaled_dot_product_attention(
+                qb, kl, vl, attn_mask=vis[:, None]), reps)
+            b_ms, b_by = prefill_bound(q, kc, q_pos, tags, lim)
+            what = "phase chat's feed" if feed in CHAT_FEEDS else "a chat feed at an offset"
+            out.append(dict(name="flash_prefill", what=what, t=t, n=n, q0=q0, s=lim, ms=ms,
+                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                            max_abs_err=abs_err, rel_err=rel, plan=plan._asdict()))
+            log(f"[flash_prefill] {what}: T={t} ({t - n} padded) from q={q0} S={lim} H={h} "
+                f"D={d}  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms * 1e3:.2f} us "
+                f"({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
+    log(f"[flash_prefill] feeds at an offset: T 16-64 from q 300 / 700 / 960, S 512 / 1024, "
+        f"and phase chat's three, g 1 and 4 ({2 * len(OFFSET_FEEDS)} checks): worst rel err "
+        f"{worst:.2e}")
+    return out
 
 
 def gqa_checks(gen) -> list[dict]:
@@ -1718,18 +1825,20 @@ def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -
     return raw.cpu().numpy().reshape(-1)
 
 
-def mint_gguf_pair(tmp: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.Path]:
-    """Write a Vicuna-7B-shape GGUF laid out as llama-quantize's Q4_0 lays
-    out a llama-7B file (every layer matmul and token_embd Q4_0, output Q6_K,
-    norms F32, llama metadata and an SPM vocabulary of 32,000 pieces,
-    `spm_vocab`), and an EAGLE draft GGUF in Q8_0 (one layer, fc,
-    token_embd; fc.bias F32). Weights are random quant blocks."""
+def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, v: int = 32000,
+                   n_layers: int = 32, n_heads: int = 32,
+                   tag: str = "vicuna-7b") -> tuple[pathlib.Path, pathlib.Path]:
+    """Write a Vicuna-7B-shape GGUF (or one of the widths given) laid out as
+    llama-quantize's Q4_0 lays out a llama-7B file (every layer matmul and
+    token_embd Q4_0, output Q6_K, norms F32, llama metadata and an SPM
+    vocabulary of `v` pieces, `spm_vocab`), and an EAGLE draft GGUF in Q8_0
+    (one layer, fc, token_embd; fc.bias F32). Weights are random quant
+    blocks."""
     import torch
 
     from eagle_tpu_torch.gguf import GGMLType, GGUFWriter
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    d, f, v, n_layers = 4096, 11008, 32000, 32
     q4_0, q8_0, q6_k = GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q6_K
     layer_mats = (("attn_q", d, d), ("attn_k", d, d), ("attn_v", d, d), ("attn_output", d, d),
                   ("ffn_gate", f, d), ("ffn_up", f, d), ("ffn_down", d, f))
@@ -1737,13 +1846,13 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.
     def writer(path, arch, blocks, file_type):
         w = GGUFWriter(path)
         for key, val in {
-            "general.architecture": arch, "general.name": f"{arch} vicuna-7b-shape random",
+            "general.architecture": arch, "general.name": f"{arch} {tag}-shape random",
             "general.file_type": file_type, f"{arch}.context_length": 2048,
             f"{arch}.embedding_length": d, f"{arch}.block_count": blocks,
-            f"{arch}.feed_forward_length": f, f"{arch}.attention.head_count": 32,
-            f"{arch}.attention.head_count_kv": 32,
+            f"{arch}.feed_forward_length": f, f"{arch}.attention.head_count": n_heads,
+            f"{arch}.attention.head_count_kv": n_heads,
             f"{arch}.attention.layer_norm_rms_epsilon": 1e-6,
-            f"{arch}.rope.dimension_count": 128, f"{arch}.rope.freq_base": 10000.0,
+            f"{arch}.rope.dimension_count": d // n_heads, f"{arch}.rope.freq_base": 10000.0,
             f"{arch}.vocab_size": v,
         }.items():
             w.add(key, val)
@@ -1755,7 +1864,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.
     def norm():
         return (torch.rand(d, generator=gen, device="cuda") * 0.4 + 0.8).cpu().numpy()
 
-    target = tmp / "vicuna-7b-q4_0.gguf"
+    target = tmp / f"{tag}-q4_0.gguf"
     w = writer(target, "llama", n_layers, 2)  # LLAMA_FTYPE_MOSTLY_Q4_0
     for key, val in spm_vocab(v, seed).items():
         w.add(key, val)
@@ -1770,7 +1879,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.
     w.write()
     del w
 
-    draft = tmp / "eagle-vicuna-7b-q8_0.gguf"
+    draft = tmp / f"eagle-{tag}-q8_0.gguf"
     w = writer(draft, "eagle", 1, 7)  # LLAMA_FTYPE_MOSTLY_Q8_0
     add(w, "token_embd.weight", v, d, q8_0, 8e-5)
     add(w, "fc.weight", d, 2 * d, q8_0, 8e-5)
@@ -2219,6 +2328,362 @@ def cli_path(report: dict, target, draft) -> None:
     torch.cuda.empty_cache()
 
 # --------------------------------------------------------------------------
+# phase chat: a conversation over the live cache on phase 6's files
+
+CHAT_WORDS = (120, 60, 200)  # the three user turns
+CHAT_NEW = 48  # new tokens per turn
+CHAT_SHIFT_SEQ = 512  # the cache whose third turn shifts the context
+
+
+def chat_texts(tokens: list) -> list[str]:
+    return [cli_prompt(tokens, n, seed=20 + i) for i, n in enumerate(CHAT_WORDS)]
+
+
+def chat_cli(target, draft, texts: list) -> str:
+    """`python -m eagle_tpu_torch.tools.cli --chat --chat-template vicuna
+    --temp 0` as a subprocess, the three turns on stdin: it must exit 0 and
+    print a `[perf]` line per turn. Returns its stdout."""
+    env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
+    cmd = [sys.executable, "-m", "eagle_tpu_torch.tools.cli", "-m", str(target), "--draft",
+           str(draft), "--chat", "--chat-template", "vicuna", "--temp", "0", "-n",
+           str(CHAT_NEW)]
+    t0 = time.time()
+    p = subprocess.run(cmd, input="\n".join(texts) + "\n", cwd=pathlib.Path(__file__).resolve()
+                       .parent, env=env, capture_output=True, text=True, timeout=600)
+    perf = [ln for ln in p.stderr.splitlines() if ln.startswith("[perf]")]
+    if p.returncode != 0 or len(perf) != len(texts):
+        raise AssertionError(f"chat cli: exit {p.returncode}, stdout {p.stdout[-400:]!r}, "
+                             f"stderr {p.stderr[-2000:]}")
+    log(f"[chat cli] exit 0 in {time.time() - t0:.1f} s (load included); {' | '.join(perf)}")
+    return p.stdout
+
+
+def chat_turns(session, texts: list) -> list[dict]:
+    """The session's turns, each timed: the feed's host ms (the turn's start
+    to its first token, synchronized), its device ms (CUDA events around
+    `Generator._extend`), its rows and launches, decode tokens/s after the
+    first token, and the turn's tokens."""
+    import torch
+
+    from eagle_tpu_torch import _build
+
+    gen = session.gen
+    real = gen._extend
+    rec: dict = {}
+
+    def extend(*a, **k):
+        before = dict(_build.launches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **k)
+        end.record()
+        rec.update(events=(start, end), rows=a[0].shape[1], n=a[2], start=a[1], launches={
+            n: c - before.get(n, 0) for n, c in _build.launches.items() if c != before.get(n, 0)})
+        return out
+
+    gen._extend = extend
+    turns = []
+    try:
+        for text in texts:
+            marks: dict = {"toks": []}
+
+            def on_token(tok, marks=marks):
+                if "first" not in marks:
+                    torch.cuda.synchronize()
+                    marks["first"] = time.perf_counter()
+                marks["toks"].append(tok)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.ask(text, max_new_tokens=CHAT_NEW, on_token=on_token)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            first = marks.get("first", t1)
+            n = len(session.last_out)
+            turns.append(dict(out=list(session.last_out), streamed=marks["toks"],
+                              context=list(session.fed[:session.last_prompt_len]),
+                              rows=rec["rows"], n=rec["n"], start=rec["start"],
+                              launches=rec["launches"], pos=session.pos,
+                              feed_ms=(first - t0) * 1e3,
+                              feed_device_ms=rec["events"][0].elapsed_time(rec["events"][1]),
+                              decode_tps=(n - 1) / max(t1 - first, 1e-9)))
+    finally:
+        del gen._extend
+    return turns
+
+
+def chat_shift(eng, texts: list) -> dict:
+    """A session on a 512-slot cache whose third turn shifts the context:
+    graphed twice and eager once, the same tokens bit for bit; every shift
+    keeps the cache's data pointers; in the second graphed run no graph is
+    captured and no step runs eagerly, neither after its shift nor over the
+    whole session; the shift's device ms by CUDA events."""
+    import torch
+
+    from eagle_tpu_torch.runtime.chat import ChatSession
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    kw = dict(eng._engine_kw(), max_seq=CHAT_SHIFT_SEQ)
+    graphed = Generator(eng.params, eng.model_cfg, **kw)
+    eager = Generator(eng.params, eng.model_cfg, cuda_graphs=False, **kw)
+    shifts: list = []
+
+    def run(gen):
+        real = gen.shift_context
+
+        def shift(*a):
+            ptrs = [x.data_ptr() for x in (gen.kv.k, gen.kv.v, gen.kv.slot_pos)]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            real(*a)
+            end.record()
+            end.synchronize()
+            if [x.data_ptr() for x in (gen.kv.k, gen.kv.v, gen.kv.slot_pos)] != ptrs:
+                raise AssertionError("chat shift: the shift replaced the cache's tensors")
+            shifts.append(dict(keep=a[0], discard=a[1], ms=start.elapsed_time(end),
+                               host_ms=(time.perf_counter() - t0) * 1e3,
+                               graphs=(gen.graphs.captures, gen.graphs.eager)))
+
+        gen.shift_context = shift
+        gen.kv.rollback(torch.zeros((1,), dtype=torch.int32, device="cuda"))
+        s = ChatSession(gen, eng.tokenizer, template="vicuna")
+        outs, n_fed = [], 0
+        for text in texts:
+            n_fed += len(s.turn_tokens(text))
+            s.ask(text, max_new_tokens=CHAT_NEW)
+            n_fed += len(s.last_out) - 1
+            outs.append(list(s.last_out))
+        del gen.shift_context
+        if s.pos >= n_fed:
+            raise AssertionError(f"chat shift: no context shift ({s.pos} of {n_fed} fed)")
+        return outs
+
+    first = run(graphed)
+    before = (graphed.graphs.captures, graphed.graphs.eager)
+    n_first = len(shifts)
+    again = run(graphed)
+    after = (graphed.graphs.captures, graphed.graphs.eager)
+    at_shift = shifts[n_first]["graphs"]  # the second graphed run's first shift
+    want = run(eager)
+    if not first == again == want:
+        raise AssertionError("chat shift: graphed and eager sessions differ")
+    if after != at_shift:
+        raise AssertionError(f"chat shift: the second graphed session captured after its shift "
+                             f"(captures, eager bodies {at_shift} -> {after})")
+    if after != before:
+        raise AssertionError(f"chat shift: the second graphed session captured (captures, eager "
+                             f"bodies {before} -> {after})")
+    shift = shifts[n_first]
+    log(f"[chat shift] max_seq {CHAT_SHIFT_SEQ}: {len(shifts) // 3} shift(s) per session (keep "
+        f"{shift['keep']}, discard {shift['discard']}), {shift['ms']:.3f} ms of device time, "
+        f"{shift['host_ms']:.3f} ms host; graphed (twice) == eager bit for bit; the cache kept "
+        f"its pointers; the second graphed session captured nothing, after its shift or "
+        f"before ({after[0]} graphs, {after[1]} eager bodies)")
+    return dict(shifts=shifts, captures=after[0])
+
+
+def chat_embed_check(tmp: pathlib.Path) -> dict:
+    """`Engine.embed` (mean and last) and `rerank` on a 2-layer model of
+    phase 2's widths (a tiny GGUF of this script's layout), f32, on the card
+    against the CPU: relative error <= 1e-3."""
+    import numpy as np
+    import torch
+
+    from eagle_tpu_torch.api import Engine, EngineConfig
+
+    target, _ = mint_gguf_pair(tmp, seed=23, d=256, f=512, v=512, n_layers=2, n_heads=4,
+                               tag="tiny")
+    texts = ["the first text to embed", "a second one", "and a third, somewhat longer text"]
+    out: dict = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(EngineConfig(model_path=target, max_seq=128, compute_dtype=torch.float32,
+                                  kv_dtype=torch.float32, device=dev))
+        out[dev] = ([np.stack(eng.embed(texts, pooling=p)) for p in ("mean", "last")]
+                    + [np.asarray(eng.rerank(texts[0], texts[1:]))])
+    worst = 0.0
+    for what, got, want in zip(("embed mean", "embed last", "rerank"), out["cuda"], out["cpu"]):
+        _, rel = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+        if rel > TINY_TOL or not np.isfinite(got).all():
+            raise AssertionError(f"chat: {what} on the card vs the CPU: rel err {rel:.3e}")
+        worst = max(worst, rel)
+    log(f"[chat embed] tiny 2-layer model, f32: embed (mean, last) and rerank on the card vs "
+        f"the CPU: worst rel err {worst:.2e}")
+    return dict(rel_err=worst)
+
+
+def chat_server(eng, texts: list) -> dict:
+    """The server (`-np 1`) on the loaded engine: /v1/embeddings and /rerank
+    once each; 4,096-wide unit vectors, and the rerank's scores the
+    in-process `Engine.rerank`'s, ranked."""
+    import urllib.request
+
+    import numpy as np
+
+    from eagle_tpu_torch.server.server import InferenceServer
+
+    srv = InferenceServer(eng, model_name="vicuna-7b-shape")
+    host, port = srv.start("127.0.0.1", 0)
+
+    def post(path, body):
+        req = urllib.request.Request(f"http://{host}:{port}{path}", json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        t0 = time.time()
+        emb = post("/v1/embeddings", {"input": texts[1:]})
+        docs = [texts[1], texts[0][:200], texts[2][:300]]
+        rr = post("/rerank", {"query": texts[1][:200], "documents": docs})
+        dt = time.time() - t0
+    finally:
+        srv.stop()
+    vecs = [np.asarray(d["embedding"]) for d in emb["data"]]
+    if [v.shape for v in vecs] != [(eng.model_cfg.n_embd,)] * 2 or \
+            any(abs(np.linalg.norm(v) - 1) > 1e-3 or not np.isfinite(v).all() for v in vecs):
+        raise AssertionError(f"chat server: embeddings {[v.shape for v in vecs]}")
+    want = eng.rerank(texts[1][:200], docs)
+    got = {r["index"]: r["relevance_score"] for r in rr["results"]}
+    scores = [r["relevance_score"] for r in rr["results"]]
+    if sorted(got) != [0, 1, 2] or scores != sorted(scores, reverse=True) or \
+            max(abs(got[i] - want[i]) for i in got) > 1e-3:
+        raise AssertionError(f"chat server: rerank {rr['results']} against {want}")
+    log(f"[chat server] -np 1: /v1/embeddings (2 x {eng.model_cfg.n_embd}, unit norm) and "
+        f"/rerank (scores {', '.join(f'{x:.4f}' for x in scores)}, as Engine.rerank) in "
+        f"{dt:.2f} s")
+    return dict(rerank=scores, seconds=dt)
+
+
+def chat_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
+    """The chat on phase 6's files (unfused, greedy, the vicuna template):
+    the CLI's `--chat` as a subprocess; then in process `Engine.
+    chat_session()` over three turns of ~120, 60 and 200 words, 48 new
+    tokens each: graphed once to capture and 3 timed runs (`[chat]` lines:
+    feed host ms, feed device ms, decode tokens/s per turn), the timed runs'
+    and an eager session's tokens equal bit for bit, the CLI's output the
+    session's stream; each feed 129 qmm_tc and 32 flash_prefill launches;
+    each turn's tokens against one graphed `Generator.generate` over the
+    conversation so far, up to a bf16 near-tie; `chat_shift`,
+    `chat_embed_check` and `chat_server`. Returns the launch counts of the
+    first timed session, counted from zero (the chat path)."""
+    import gc
+
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.gguf import GGUFReader
+    from eagle_tpu_torch.runtime.chat import ChatSession
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    with GGUFReader(target) as reader:
+        texts = chat_texts(reader.metadata["tokenizer.ggml.tokens"])
+    cli_out = chat_cli(target, draft, texts)
+    eng = Engine(EngineConfig(model_path=target, draft_path=draft))
+    tok = eng.tokenizer
+    graphed = eng.chat_session(template="vicuna")
+    if graphed.gen is not eng._plain_generator() or not graphed.gen.graphs.enabled:
+        raise AssertionError("chat: the session is not on the engine's graphed Generator")
+
+    def session(gen=None):
+        if gen is None:
+            graphed.gen.kv.rollback(torch.zeros((1,), dtype=torch.int32, device="cuda"))
+            return eng.chat_session(template="vicuna")
+        return ChatSession(gen, tok, template="vicuna")
+
+    warm = chat_turns(session(), texts)  # captures the step graphs
+    runs = []
+    for i in range(3):
+        _build.reset_counts()  # ---- the chat path: counts from here ----
+        runs.append(chat_turns(session(), texts))
+        if i == 0:
+            launches = dict(_build.launches)  # ---- ends ----
+    eager_gen = Generator(eng.params, eng.model_cfg, cuda_graphs=False, **eng._engine_kw())
+    eager = chat_turns(session(eager_gen), texts)
+    del eager_gen
+    toks = [t["out"] for t in warm]
+    for name, r in [("eager", eager)] + [(f"graphed run {i + 1}", r) for i, r in enumerate(runs)]:
+        if [t["out"] for t in r] != toks:
+            raise AssertionError(f"chat: the {name} session's tokens differ from the first's")
+    stream = "".join("> " + "".join(tok.decode([t], skip_special=True) for t in turn["streamed"])
+                     for turn in warm) + "> "
+    if cli_out != stream:
+        raise AssertionError(f"chat: the CLI printed {cli_out[:300]!r}..., the session "
+                             f"{stream[:300]!r}...")
+    feeds = [(t["rows"], t["n"], t["start"], graphed.gen.kv_read_bucket(t["start"] + t["rows"]))
+             for t in warm]
+    if feeds != CHAT_FEEDS:
+        raise AssertionError(f"chat: the feeds {feeds} are not those phase 2 holds flash_prefill "
+                             f"to ({CHAT_FEEDS})")
+    for t, turn in enumerate(warm + eager):
+        got = {k: turn["launches"].get(k, 0) for k in ("qmm_tc", "flash_prefill", "qmm_gemv")}
+        if got != {"qmm_tc": PROMPT_QMM, "flash_prefill": 32, "qmm_gemv": 0}:
+            raise AssertionError(f"chat: feed {t % 3 + 1} launched {turn['launches']}")
+    for k in CORE_KERNELS[:2] + ("flash_decode", "flash_prefill"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"chat: the path launched no {k}: {launches}")
+    if any(_build.plain_calls.values()):
+        raise AssertionError(f"chat: plain versions ran: {_build.plain_calls}")
+
+    mono = Generator(eng.params, eng.model_cfg, **eng._engine_kw())
+    ties = []
+    for i, turn in enumerate(warm):
+        want = mono.generate(turn["context"], max_new_tokens=len(turn["out"]),
+                             stop_at_eos=False)
+        ties.append(check_near_tie(mono, turn["context"], want, turn["out"], "chat",
+                                   f"turn {i + 1} (a {turn['n']}-token feed at "
+                                   f"{turn['start']}) vs one monolithic greedy run"))
+    del mono
+    out: dict = {"turns": []}
+    for i in range(len(texts)):
+        per = [r[i] for r in runs]
+        row = dict(rows=warm[i]["rows"], n=warm[i]["n"], start=warm[i]["start"],
+                   context=len(warm[i]["context"]), pos=warm[i]["pos"],
+                   feed_ms=[p["feed_ms"] for p in per],
+                   feed_device_ms=[p["feed_device_ms"] for p in per],
+                   decode_tps=[p["decode_tps"] for p in per], eager_feed_ms=eager[i]["feed_ms"],
+                   launches=warm[i]["launches"], near_tie=ties[i])
+        out["turns"].append(row)
+        log(f"[chat] turn {i + 1}: a {row['n']}-token feed at {row['start']} ({row['rows']}-row "
+            f"bucket), then {len(toks[i])} tokens: feed {fmt(spread(row['feed_ms']))} ms host "
+            f"to the first token, CUDA-event span {fmt(spread(row['feed_device_ms']), 3)} ms "
+            f"(eager session {row['eager_feed_ms']:.1f} ms host); decode "
+            f"{fmt(spread(row['decode_tps']))} t/s (3 graphed runs)")
+    log(f"[chat] graphed == eager bit for bit over 3 turns; the CLI's replies equal the "
+        f"session's; per feed {PROMPT_QMM} qmm_tc and 32 flash_prefill; chat path launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    # the device's busy time in one feed: turn 2's again, at its offset (it
+    # rewrites the same rows), traced
+    t2 = warm[1]
+    fed = torch.zeros((1, t2["rows"]), dtype=torch.int32, device="cuda")
+    fed[0, :t2["n"]] = torch.tensor(t2["context"][-t2["n"]:], dtype=torch.int32)
+    gen = graphed.gen
+    out["feed_profile"] = profile_steps(
+        lambda: gen._extend(fed, t2["start"], t2["n"], t2["rows"],
+                            kv_limit=gen.kv_read_bucket(t2["start"] + t2["rows"])),
+        1, f"feed of turn 2 ({t2['n']} tokens at {t2['start']})", "feed", tag="chat profile")
+    out["shift"] = chat_shift(eng, texts)
+    out["server"] = chat_server(eng, texts)
+    # qmm of a feed at 16 to 256 rows on the served Q4_0 weights (the kernel
+    # table's rows; the turns' feeds take 256 / 128 / 256; a feed's rows do
+    # not depend on its offset)
+    out["qmm"] = []
+    rng = torch.Generator(device="cuda").manual_seed(19)
+    for rows in (16, 32, 64, 128, 256):
+        out[f"qmm per {rows}-row feed"] = qmm_sum("chat kernel", f"{rows}-row feed", rows,
+                                                  target_qmm_specs(eng.params), "qmm_tc", rng,
+                                                  out["qmm"])
+    del eng, graphed, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["embed"] = chat_embed_check(tmp)
+    report["chat"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase serve: continuous batching and the HTTP server on phase 6's files
 
 
@@ -2449,73 +2914,93 @@ def serve_http(target, draft, prompts: list, chat: list, want: dict, tmp: pathli
                 stream_frames=len(frames))
 
 
+def target_qmm_specs(params) -> list:
+    """(name, weight, launches) of a target forward's products: the four
+    stacked projections of each of the 32 layers and lm_head."""
+    tl = params["layers"]
+    return ([(n, tl[n], 32) for n in ("wqkv", "wo", "w_gate_up", "w_down")]
+            + [("lm_head", params["output"], 1)])
+
+
+def qmm_sum(tag: str, what: str, rows: int, specs: list, route: str, gen,
+            results: list) -> dict:
+    """qmm at `rows` rows for each (name, weight, launches) of `specs`, held
+    against its plain version (rel err <= 1e-2) and asserted to take `route`,
+    then timed: kernel, plain, bound and library ms. Stacked weights cycle
+    over the layers (the library over 4 dequantized layers) so that repeats
+    do not hit in the L2; a single layer cannot. Each call's result goes to
+    `results`; returns the sums over the launches of one `what`."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.ops.qmm import qmm, qmm_plain, qmm_stacked
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for name, w, count in specs:
+        stack = w.q.shape[0] if w.q.dim() == 3 else 0
+        layers = [w.layer(i) for i in range(min(stack, 4))] if stack else [w]
+        n, k = layers[0].shape
+        x = torch.randn((rows, k), generator=gen, device="cuda")
+        _build.reset_counts()
+        got = qmm_stacked(x, w, 0) if stack else qmm(x, w)
+        if _build.launches[route] != 1:
+            raise AssertionError(f"{tag} qmm {name} rows={rows}: not {route}")
+        abs_err, rel = rel_err(got, qmm_plain(x, layers[0]))
+        if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag} qmm {name} rows={rows}: rel err {rel:.3e}")
+        if stack:
+            ms = device_ms(lambda i: qmm_stacked(x, w, i % stack), max(2 * stack, 20))
+        else:
+            ms = device_ms(lambda i: qmm(x, w), 20)
+        plain = device_ms(lambda i: qmm_plain(x, layers[i % len(layers)]), 3, warmup=1)
+        dense = [lw.dequantize(torch.bfloat16).T.contiguous() for lw in layers]
+        xb = x.to(torch.bfloat16)
+        lib = device_ms(lambda i: torch.matmul(xb, dense[i % len(dense)]), 20)
+        del dense
+        b_ms, b_by = bound_ms(nbytes(*layers[0].tensors().values()) + rows * k * 4
+                              + rows * n * 4, 2.0 * rows * k * n)
+        res = dict(name=name, rows=rows, route=route, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel,
+                   per=what, count=count)
+        results.append(res)
+        for key in total:
+            total[key] += count * res[key]
+        log(f"[{tag}] qmm {name:22s} N={n:5d} K={k:5d} rows={rows:2d} ({route})  "
+            f"kernel {ms:.4f} ms  plain {plain:.3f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
+            f"library {lib:.4f} ms  rel err {rel:.2e}")
+    log(f"[{tag}] qmm per {what} ({sum(c for _, _, c in specs)} launches, {rows} "
+        f"rows): kernel {total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, plain "
+        f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return total
+
+
 def serve_kernels(eng) -> dict:
     """The kernels at the serving shapes, on the served Q4_0 / Q8_0 weights
     (kernel ms, plain ms, bound and library ms, rel err <= 1e-2): qmm of the
     batched verify (24 rows: `qmm_tc`), of a draft step at 4 rows
     (`qmm_mma`) and of a 64-row prompt chunk (`qmm_tc`), with their sums
-    per cycle and per chunk; flash_decode at B = 4, T = 6 over a cache of
-    the batcher's shape (2,048 + spill slots, s_limit 512, four rows at
-    n_past 301-360). Stacked weights cycle over the layers (the library
-    over 4 dequantized layers) so that repeats do not hit in the L2; the
-    draft's single layer cannot."""
+    per cycle and per chunk (`qmm_sum`); flash_decode at B = 4, T = 6 over a
+    cache of the batcher's shape (2,048 + spill slots, s_limit 512, four
+    rows at n_past 301-360)."""
     import torch
     import torch.nn.functional as F
 
-    from eagle_tpu_torch import _build
     from eagle_tpu_torch.ops import flash_attention as fa
-    from eagle_tpu_torch.ops.qmm import qmm, qmm_plain, qmm_stacked
     from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    tl, dl = eng.params["layers"], eng.draft_params["layers"]
-    proj = ("wqkv", "wo", "w_gate_up", "w_down")
-    target = [(n, tl[n], 32) for n in proj] + [("lm_head", eng.params["output"], 1)]
+    dl = eng.draft_params["layers"]
+    target = target_qmm_specs(eng.params)
     draft = ([("fc_w (draft)", eng.draft_params["fc_w"], 1)]
-             + [(f"{n} (draft)", dl[n], 1) for n in proj]
+             + [(f"{n} (draft)", dl[n], 1) for n in ("wqkv", "wo", "w_gate_up", "w_down")]
              + [("lm_head (draft step)", eng.params["output"], 1)])
     out: dict = {"qmm": []}
     for what, rows, specs, route in (("verify", 4 * 6, target, "qmm_tc"),
                                      ("draft step", 4, draft, "qmm_mma"),
                                      ("prompt chunk", 64, target, "qmm_tc")):
-        total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        for name, w, count in specs:
-            stack = w.q.shape[0] if w.q.dim() == 3 else 0
-            layers = [w.layer(i) for i in range(min(stack, 4))] if stack else [w]
-            n, k = layers[0].shape
-            x = torch.randn((rows, k), generator=gen, device="cuda")
-            _build.reset_counts()
-            got = qmm_stacked(x, w, 0) if stack else qmm(x, w)
-            if _build.launches[route] != 1:
-                raise AssertionError(f"serve qmm {name} rows={rows}: not {route}")
-            abs_err, rel = rel_err(got, qmm_plain(x, layers[0]))
-            if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"serve qmm {name} rows={rows}: rel err {rel:.3e}")
-            if stack:
-                ms = device_ms(lambda i: qmm_stacked(x, w, i % stack), max(2 * stack, 20))
-            else:
-                ms = device_ms(lambda i: qmm(x, w), 20)
-            plain = device_ms(lambda i: qmm_plain(x, layers[i % len(layers)]), 3, warmup=1)
-            dense = [lw.dequantize(torch.bfloat16).T.contiguous() for lw in layers]
-            xb = x.to(torch.bfloat16)
-            lib = device_ms(lambda i: torch.matmul(xb, dense[i % len(dense)]), 20)
-            del dense
-            b_ms, b_by = bound_ms(nbytes(*layers[0].tensors().values()) + rows * k * 4
-                                  + rows * n * 4, 2.0 * rows * k * n)
-            res = dict(name=name, rows=rows, route=route, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel,
-                       per=what, count=count)
-            out["qmm"].append(res)
-            for key in total:
-                total[key] += count * res[key]
-            log(f"[serve kernel] qmm {name:22s} N={n:5d} K={k:5d} rows={rows:2d} ({route})  "
-                f"kernel {ms:.4f} ms  plain {plain:.3f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
-                f"library {lib:.4f} ms  rel err {rel:.2e}")
-        out[f"qmm per {what}"] = total
-        log(f"[serve kernel] qmm per {what} ({sum(c for _, _, c in specs)} launches, {rows} "
-            f"rows): kernel {total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, plain "
-            f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms")
-        torch.cuda.empty_cache()
+        out[f"qmm per {what}"] = qmm_sum("serve kernel", what, rows, specs, route, gen,
+                                         out["qmm"])
 
     b, t, h, d, s, lim = 4, 6, 32, 128, 2048 + 2 * (eng.engine.K + 1), 512
     k_cache = torch.randn((2, b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -2989,6 +3474,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="eagle_gguf_") as tmp:  # phases 6 and cli
         gguf_launches, target, draft = phase("6", gguf_path, report, pathlib.Path(tmp))
         phase("cli", cli_path, report, target, draft)
+        chat_launches = phase("chat", chat_path, report, target, draft, pathlib.Path(tmp))
         serve_launches = phase("serve", serve_path, report, target, draft, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
@@ -3016,7 +3502,8 @@ def main() -> int:
                 "plain_ms": vals["plain_ms"], "bound_ms": vals["bound_ms"],
                 "bound_by": vals["bound_by"], "library_ms": vals["library_ms"],
                 "tree_path_launches": {k: c[name] for k, c in tree_launches.items()},
-                "serve_path_launches": serve_launches[name]}
+                "serve_path_launches": serve_launches[name],
+                "chat_path_launches": chat_launches.get(name, 0)}
 
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
@@ -3033,7 +3520,10 @@ def main() -> int:
         dict(row("flash_decode", "eagle_tpu/ops/pallas_attention.py:116", dec_row),
              shape="T=1, S=1024, 32 heads x 128, bf16 cache"),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
-             shape="T=512, S=512, 32 heads x 128, bf16 cache"),
+             shape="T=512, S=512, 32 heads x 128, bf16 cache",
+             chat_feeds=[{k: v for k, v in r.items() if k in (
+                 "t", "n", "q0", "s", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "max_abs_err")} for r in report["attention"] if "feed" in r.get("what", "")]),
         dict(row("ffn_out_norm", "eagle_tpu/ops/pallas_ffn.py:257 and :265", out_norm_row),
              shape="1 row, wo [4096 x 4096] Q4_0 packed, f32 scale and bias, + resid, RMSNorm",
              launches_from="GGUF path, EAGLE_TPU_FUSED_FFN=1"),

@@ -1,6 +1,7 @@
 """High-level engine API: load a GGUF target (and an EAGLE draft), tokenize,
-generate (port of eagle_tpu/api.py: `EngineConfig`, `Engine` with its load,
-tokenizer and engine choice, `_plain_generator` and `generate_text`).
+generate, chat, embed (port of eagle_tpu/api.py: `EngineConfig`, `Engine`
+with its load, tokenizer and engine choice, `_plain_generator`,
+`chat_session`, `generate_text`, `rerank` and `embed` for llama targets).
 
 One object owns the target (+ draft) params on the device, the tokenizer
 from the target's metadata and the engine: `Generator` without a draft,
@@ -8,8 +9,10 @@ else `EagleChainEngine`, `EagleTreeEngine` (`tree_branching`) or
 `EagleTree2Engine` (`tree2`). With `batch` > 1 and a chain draft it also
 owns a `ContinuousBatcher` over a chain engine of `batch` rows, as the
 reference (the tree engines and `Generator` take no batch there either).
-It runs on the card unless `device="cpu"`. What the port lacks raises
-NotImplementedError naming its ROADMAP item."""
+A chat session and the embeddings run on a plain `Generator`'s forward
+over the same target params, as the reference's. It runs on the card
+unless `device="cpu"`. What the port lacks raises NotImplementedError
+naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -17,13 +20,16 @@ import dataclasses
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 from ._device import resolve_device
 from .gguf import GGUFReader, Keys
 from .models.loader import load_eagle_params, load_llama_params
 from .quant.serving import prepare_params_for_serving
-from .runtime.generate import Generator
+from .models.llama import llama_forward
+from .runtime.generate import Generator, pad_bucket
+from .runtime.kvcache import KVCache, causal_mask_from_tags
 from .runtime.sampling import SamplerConfig, check_sampler
 from .runtime.scheduler import ContinuousBatcher
 from .runtime.speculative import EagleChainEngine
@@ -31,8 +37,8 @@ from .runtime.tree import EagleTreeEngine, TreeSpec
 from .runtime.tree2 import EagleTree2Engine
 from .tokenizer import tokenizer_from_gguf_metadata
 
-_ITEM5 = "ROADMAP queue 1, item 5"
 _ITEM7 = "ROADMAP queue 1, item 7"
+_ITEM8 = "ROADMAP queue 1, item 8"
 
 
 @dataclasses.dataclass
@@ -167,14 +173,57 @@ class Engine:
                                      skip_special=True)
         return text, stats
 
-    def chat_session(self, *args, **kwargs):
-        raise NotImplementedError(f"chat sessions and templates are not ported yet ({_ITEM5})")
+    def chat_session(self, system: str | None = None, template: str | None = None,
+                     use_jinja: bool = False):
+        """Multi-turn chat with the cache kept across turns (llama-cli's
+        conversation mode), non-speculative as the reference's: on the
+        engine itself when it is a `Generator`, else on a plain one over the
+        same target params. The template defaults to the GGUF's own."""
+        from .runtime.chat import ChatSession
+
+        gen = self.engine if isinstance(self.engine, Generator) else self._plain_generator()
+        return ChatSession(gen, self.tokenizer, template=template,
+                           jinja_src=self.metadata.get("tokenizer.chat_template"),
+                           use_jinja=use_jinja, system=system)
 
     def infill(self, *args, **kwargs):
         raise NotImplementedError(f"fill-in-the-middle is not ported yet ({_ITEM7})")
 
-    def rerank(self, *args, **kwargs):
-        raise NotImplementedError(f"rerank is not ported yet ({_ITEM5})")
+    def rerank(self, query: str, documents: list[str]) -> list[float]:
+        """Relevance scores query -> documents: the cosine of their
+        embeddings, the reference's fallback for a causal model without a
+        classification head. A head (`cls` tensors, which come with the
+        bert family) is not ported."""
+        if self.params.get("cls") is not None:
+            raise NotImplementedError(f"the rank-pooling classification head (cls) comes with "
+                                      f"the bert family, not ported yet ({_ITEM8})")
+        qv = self.embed([query])[0]
+        return [float(np.dot(qv, dv)) for dv in self.embed(documents)]
 
-    def embed(self, *args, **kwargs):
-        raise NotImplementedError(f"embeddings are not ported yet ({_ITEM5})")
+    def embed(self, texts: list[str], pooling: str = "mean", normalize: bool = True):
+        """Sequence embeddings (llama-embedding): the pooled final-norm
+        hidden states of one forward over a fresh cache of the padded
+        length, pooling "mean" or "last", as f32 numpy vectors."""
+        mc = self.model_cfg
+        if mc.arch in ("bert", "nomic-bert"):
+            raise NotImplementedError(f"encoder embedding models ({mc.arch}) are not ported "
+                                      f"yet ({_ITEM8})")
+        out = []
+        for text in texts:
+            ids = self.tokenizer.encode(text)
+            n, t = len(ids), pad_bucket(len(ids))
+            padded = torch.zeros((1, t), dtype=torch.int32)
+            padded[0, :n] = torch.tensor(ids, dtype=torch.int32)
+            kv = KVCache.create(mc.n_layers, 1, t, mc.n_kv_heads, mc.head_dim,
+                                dtype=self.cfg.kv_dtype, device=self.device)
+            pos = torch.arange(t, dtype=torch.int32, device=self.device)[None, :]
+            kv.with_tags(pos, pos, valid=pos < n)
+            mask = causal_mask_from_tags(kv.slot_pos, pos)
+            fo = llama_forward(self.params, mc, padded.to(self.device), pos, kv, pos, mask,
+                               compute_dtype=self.cfg.compute_dtype, return_logits=False)
+            h = fo.hidden[0, :n].float().cpu().numpy()
+            v = h.mean(0) if pooling == "mean" else h[-1]
+            if normalize:
+                v = v / (np.linalg.norm(v) + 1e-9)
+            out.append(v.astype(np.float32))
+        return out

@@ -1,22 +1,24 @@
 """Autoregressive generation, non-speculative (port of
 eagle_tpu/runtime/generate.py: `pad_bucket`, `Generator` with `kv_read_bucket`,
-`_prefill`, `_decode_chunk`, `generate`).
+`_prefill`, `_extend`, `_decode_chunk`, `generate` with `context_shift_keep`).
 
 The reference runs each decode chunk as one compiled `lax.scan`. Here the
 scan's carry (the token, its position and the chunk's tokens) lives in
 static device buffers, and one step is an in-place body over them: on the
 card it is one CUDA graph per attention-read bucket (`runtime/graphs.py`),
 replayed once a step with no host sync inside the chunk; on the CPU, or
-with `cuda_graphs=False`, the same body runs eagerly. The prompt runs
-eagerly. Prompt lengths are bucketed to powers of two, as in the
+with `cuda_graphs=False`, the same body runs eagerly. The prompt, and a
+feed at an offset on the live cache (`_extend`, what a chat turn runs),
+run eagerly. Prompt lengths are bucketed to powers of two, as in the
 reference, so the two take the same shapes.
 
 A sampled step draws its Gumbel noise from the engine's `CounterRNG`
 (seeded by `generate(..., seed=)`, the reference's `PRNGKey(seed)`), whose
 counter the step advances on the device, so a replayed step draws anew and
 a graphed run gives the eager run's tokens. The step's graph key holds the
-sampler config its body bakes in. Session files, context shift and
-self-extend are not ported yet."""
+sampler config its body bakes in. A context shift (`kvcache.context_shift`)
+moves the cache's rows in place, so the step graphs replay across it.
+Session files and self-extend are not ported yet."""
 
 from __future__ import annotations
 
@@ -29,8 +31,9 @@ import torch
 from .._device import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import llama_forward
+from ..ops.rope import rope_freqs_cfg
 from .graphs import StepGraphs
-from .kvcache import KVCache, causal_mask_from_tags
+from .kvcache import KVCache, causal_mask_from_tags, context_shift
 from .sampling import CounterRNG, SamplerConfig, check_sampler, draw
 
 
@@ -55,9 +58,10 @@ class Generator:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        # one spill slot: a feed's rows past the cache write there, tag -1
         self.kv = KVCache.create(
             self.cfg.n_layers, self.batch, self.max_seq, self.cfg.n_kv_heads,
-            self.cfg.head_dim, dtype=self.kv_dtype, device=self.device,
+            self.cfg.head_dim, dtype=self.kv_dtype, device=self.device, spill=1,
         )
         # the scan's carry: the token to decode, its position, and the
         # decoded token history (step at position p writes slot p)
@@ -89,6 +93,34 @@ class Generator:
         last = (n_valid - 1).long()
         b_idx = torch.arange(b, device=self.device)
         return out.logits[b_idx, last], out.hidden[b_idx, last], out.kv
+
+    def _extend(self, tokens: torch.Tensor, start: int, n_valid: int, t: int, kv_limit: int):
+        """Prefill at an offset: feed `tokens` [B, t] (the first `n_valid` of
+        each row real) at positions start..start+t-1 on top of the live
+        cache (a chat turn's feed). Returns (last_logits [B, V], kv); the
+        cache fills in place and keeps its data pointers. Rows past the
+        cache, whose writes the reference's scatter drops, write the spill
+        slot with tag -1."""
+        if start < 0 or not 0 < n_valid <= t:
+            raise ValueError(f"a feed of {n_valid} rows padded to {t} at {start}")
+        b, s = tokens.shape[0], self.max_seq
+        offs = torch.arange(t, dtype=torch.int32, device=self.device).repeat(b, 1)
+        positions = start + offs
+        slots = torch.where(positions < s, positions, s)
+        kv = self.kv.with_tags(slots, positions, valid=(offs < n_valid) & (positions < s))
+        mask = causal_mask_from_tags(kv.slot_pos, positions)
+        out = llama_forward(
+            self.params, self.cfg, tokens, positions, kv, slots, mask,
+            compute_dtype=self.compute_dtype, kv_limit=kv_limit,
+            causal_tags_prefill=True,  # the prefill flash kernel
+        )
+        return out.logits[:, n_valid - 1], out.kv
+
+    def shift_context(self, n_keep: int, n_discard: int) -> None:
+        """`kvcache.context_shift` on this engine's cache, with its rope
+        frequencies (no mscale: the keys carry theirs from the forward)."""
+        inv_freq, _ = rope_freqs_cfg(self.cfg, device=self.device)
+        context_shift(self.kv, inv_freq, n_keep, n_discard)
 
     def _step(self, scfg: SamplerConfig, kv_limit: int | None) -> None:
         """One decode step in place: the token in `_tok` at position `_pos`
@@ -140,11 +172,14 @@ class Generator:
     ) -> list[int]:
         """Single-sequence generation; returns the generated token ids. The
         first token is drawn from the prompt's logits, then one per step;
-        `seed` starts the draws' stream."""
+        `seed` starts the draws' stream. `context_shift_keep`: past
+        max_seq, evict half of the context after the first
+        `context_shift_keep` tokens (llama.cpp's --keep) instead of
+        stopping."""
         scfg = sampler or SamplerConfig(greedy=True)
         check_sampler(scfg)
-        if context_shift_keep is not None or grp_attn_n > 1:
-            raise NotImplementedError("context shift and self-extend are not ported yet "
+        if grp_attn_n > 1:
+            raise NotImplementedError("self-extend group attention is not ported yet "
                                       "(ROADMAP queue 1, item 6)")
         if session_path is not None or session_cache_all:
             raise NotImplementedError("prompt-cache sessions (runtime/state_io.py) are not "
@@ -172,7 +207,11 @@ class Generator:
         pos = n
         tok = first
         while len(out) < max_new_tokens:
-            if pos + chunk + 1 >= self.max_seq:
+            if context_shift_keep is not None and pos + chunk + 1 >= self.max_seq:
+                n_discard = (self.max_seq - context_shift_keep) // 2
+                self.shift_context(context_shift_keep, n_discard)
+                pos -= n_discard
+            elif pos + chunk + 1 >= self.max_seq:
                 break
             steps = min(chunk, max_new_tokens - len(out))
             toks = self._decode_chunk(tok, pos, scfg, steps,

@@ -1,6 +1,6 @@
 """KV cache — static-shape, position-tagged (port of
 eagle_tpu/runtime/kvcache.py: `KVCache.create`, `with_tags`, `rollback`,
-`causal_mask_from_tags`).
+`causal_mask_from_tags` and `context_shift` for bf16 and f32 caches).
 
 The cache is k/v [L, B, H_kv, S, D] plus a per-slot position tag array
 `slot_pos` [B, S] (-1 = empty). Masks are computed from the tags; rollback
@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from .._device import resolve_device
+from ..ops.rope import apply_rope
 
 
 @dataclasses.dataclass
@@ -80,3 +81,27 @@ def causal_mask_from_tags(slot_pos: torch.Tensor, q_positions: torch.Tensor) -> 
     """Boolean attention mask [B, T, S]: slot visible iff non-empty and its
     position <= the query token's position."""
     return (slot_pos[:, None, :] >= 0) & (slot_pos[:, None, :] <= q_positions[:, :, None])
+
+
+def context_shift(kv: KVCache, inv_freq: torch.Tensor, n_keep: int, n_discard: int) -> KVCache:
+    """Evict `n_discard` tokens after the first `n_keep`, slide the rest down
+    and re-rotate the moved keys by -n_discard positions, in place (llama.cpp's
+    context shift, main.cpp:553-577). The keys are roped on the cache dtype's
+    values and cast back, as the reference's `astype(buf.dtype)`; the tags of
+    the moved slots drop by n_discard and the tail that slid away empties.
+    The source and target ranges overlap, so the moved rows go through a
+    temporary. Slots past `max_seq` (the spill) are untouched."""
+    s = kv.max_seq
+    start = n_keep + n_discard
+    if n_keep < 0 or n_discard <= 0 or start > s:
+        raise ValueError(f"context shift keep={n_keep} discard={n_discard} on {s} slots")
+    m = s - start
+    # [L, B, H, m, D] -> [L, B, m, H, D]: apply_rope's [..., T, H, D]
+    moved = kv.k[:, :, :, start:s].transpose(2, 3)
+    neg = torch.full((m,), -n_discard, dtype=torch.int32, device=kv.k.device)
+    kv.k[:, :, :, n_keep:n_keep + m] = apply_rope(moved, neg, inv_freq).transpose(2, 3)
+    kv.v[:, :, :, n_keep:n_keep + m] = kv.v[:, :, :, start:s].clone()
+    tags = kv.slot_pos[:, start:s]
+    kv.slot_pos[:, n_keep:n_keep + m] = torch.where(tags >= 0, tags - n_discard, -1)
+    kv.slot_pos[:, s - n_discard:s] = -1
+    return kv

@@ -5,16 +5,19 @@ every family of `TEMPLATES`, `detect_template`, `apply_template` and
 The GGUF usually embeds the Jinja source at `tokenizer.chat_template`; the
 family is detected by substring and applied by a native renderer. The
 template literals are wire-format data and match the reference's byte for
-byte (tests/test_torch_chat_templates.py). Executing the embedded Jinja
-source (`render_jinja`, `use_jinja`, the server's `--jinja`) is not ported:
-jinja2 is not among the card host's packages, so it raises
-NotImplementedError naming ROADMAP queue 1, item 5."""
+byte (tests/test_torch_chat_templates.py). The chat session
+(`runtime/chat.py`) and the server's chat endpoint use them. Executing the
+embedded Jinja source (`render_jinja`, `use_jinja`, `--jinja`) is not
+ported: jinja2 is not among the card host's packages, so it raises
+NotImplementedError saying so."""
 
 from __future__ import annotations
 
 from typing import Callable
 
 Msg = dict  # {"role": ..., "content": ...}
+JINJA_REFUSED = ("executing the GGUF's jinja chat template (--jinja) is not ported: jinja2 is "
+                 "not among the card host's packages; the built-in families are")
 
 
 def _trim(s: str) -> str:
@@ -482,8 +485,7 @@ def detect_template(jinja_src: str | None) -> str:
 def render_jinja(jinja_src: str, messages: list[Msg], add_assistant: bool = True,
                  bos_token: str = "", eos_token: str = "", tools: list | None = None) -> str:
     """Executing the model's own template is not ported."""
-    raise NotImplementedError("executing the GGUF's jinja chat template (--jinja) is not "
-                              "ported yet (ROADMAP queue 1, item 5)")
+    raise NotImplementedError(JINJA_REFUSED)
 
 
 def format_single(

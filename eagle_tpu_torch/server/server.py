@@ -12,9 +12,11 @@ Endpoints, bodies, SSE chunks and status codes as the reference's
   POST /tokenize, /detokenize
   POST /completion, /v1/completions, /v1/chat/completions (`stream`: SSE
        `data: {...}` lines; the chat stream ends with `data: [DONE]`)
-What the port lacks answers 501 naming its ROADMAP item: /infill,
-/rerank, /v1/rerank, /v1/embeddings, /embedding, POST /slots/{id} (slot
-save / restore), `tools` in a chat request, `grammar` / `json_schema`.
+  POST /embedding, /v1/embeddings, /rerank, /v1/rerank (`Engine.embed`,
+       `Engine.rerank` on the target's params)
+What the port lacks answers 501 naming its ROADMAP item: /infill, POST
+/slots/{id} (slot save / restore), `tools` in a chat request, `grammar` /
+`json_schema`.
 
 The front is the standard library's `ThreadingHTTPServer` (the card's host
 has no aiohttp): one thread per connection. Device work runs on one
@@ -22,7 +24,9 @@ thread: with `-np 1` an inference worker drains a queue of jobs for the
 single-stream engine; with `-np N` > 1 and a chain draft, `BatcherWorker`
 drives the `ContinuousBatcher` and every request, streamed or not, takes a
 slot with its own sampler (the reference drops a batched request's sampler
-and streams outside the batcher).
+and streams outside the batcher). Embeddings and rerank run outside the
+batcher, on the thread that drives the device: the inference worker, or
+the batch worker between two steps.
 
 A request's fault answers 400 (a bad body, a prompt that does not fit a
 slot), 501 (not ported) or 500 (any other exception, a failed kernel or
@@ -45,15 +49,10 @@ from typing import Any
 
 from ..utils.args import sampler_from_request
 
-_ITEM5 = "ROADMAP queue 1, item 5"
 _ITEM6 = "ROADMAP queue 1, item 6"
 _ITEM7 = "ROADMAP queue 1, item 7"
 REFUSED_POSTS = {
     "/infill": f"fill-in-the-middle is not ported yet ({_ITEM7})",
-    "/rerank": f"rerank is not ported yet ({_ITEM5})",
-    "/v1/rerank": f"rerank is not ported yet ({_ITEM5})",
-    "/v1/embeddings": f"embeddings are not ported yet ({_ITEM5})",
-    "/embedding": f"embeddings are not ported yet ({_ITEM5})",
 }
 
 
@@ -100,7 +99,9 @@ def _refuse_constraints(body: dict) -> None:
 class InferenceServer:
     def __init__(self, engine, model_name: str = "eagle-tpu", use_jinja: bool = False):
         if use_jinja:
-            raise NotImplementedError(f"--jinja is not ported yet ({_ITEM5})")
+            from .chat_templates import JINJA_REFUSED
+
+            raise NotImplementedError(JINJA_REFUSED)
         self.engine = engine
         self.model_name = model_name
         self.metrics = ServerMetrics()
@@ -165,6 +166,13 @@ class InferenceServer:
         fut.add_done_callback(lambda f: q.put(
             ("error", f.exception()) if f.exception() else ("done", *f.result())))
         return q
+
+    def _on_device(self, fn):
+        """Run `fn()` on the thread that drives the device: the inference
+        worker, or with a batcher its worker between two steps."""
+        if self.batch_worker is not None:
+            return self.batch_worker.call(lambda _batcher: fn()).result()
+        return self._submit_job(fn).result()
 
     @staticmethod
     def _events(q: queue.Queue):
@@ -280,6 +288,33 @@ class InferenceServer:
                              "message": {"role": "assistant", "content": res["text"].strip()},
                              "finish_reason": "stop"}]}
 
+    def handle_rerank(self, out, body: dict) -> dict:
+        """Jina/TEI-style rerank: {"query": ..., "documents"|"texts": [...],
+        "top_n": k, "return_documents": bool}."""
+        query = body.get("query")
+        if not isinstance(query, str):
+            raise HTTPError(400, '"query" must be a string')
+        docs = body.get("documents") or body.get("texts") or []
+        if not docs:
+            raise HTTPError(400, '"documents" must be a non-empty string array')
+        self.metrics.add(requests_total=1)
+        scores = self._on_device(lambda: self.engine.rerank(query, docs))
+        ranked = sorted(range(len(docs)), key=lambda i: -scores[i])
+        top_n = int(body.get("top_n", len(docs)))
+        return {"model": self.model_name,
+                "results": [{"index": i, "relevance_score": scores[i]}
+                            | ({"document": {"text": docs[i]}} if body.get("return_documents")
+                               else {}) for i in ranked[:top_n]]}
+
+    def handle_v1_embeddings(self, out, body: dict) -> dict:
+        inputs = body.get("input", body.get("content", ""))
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        vecs = self._on_device(lambda: self.engine.embed(inputs))
+        return {"object": "list", "model": self.model_name,
+                "data": [{"object": "embedding", "index": i, "embedding": v.tolist()}
+                         for i, v in enumerate(vecs)]}
+
     def route(self, method: str, path: str, out, body_bytes: bytes | None):
         """Answer one request through `out` (the handler)."""
         if method == "GET":
@@ -302,7 +337,10 @@ class InferenceServer:
             posts = {"/tokenize": self._tokenize, "/detokenize": self._detokenize,
                      "/completion": self.handle_completion,
                      "/v1/completions": self.handle_v1_completions,
-                     "/v1/chat/completions": self.handle_v1_chat}
+                     "/v1/chat/completions": self.handle_v1_chat,
+                     "/rerank": self.handle_rerank, "/v1/rerank": self.handle_rerank,
+                     "/v1/embeddings": self.handle_v1_embeddings,
+                     "/embedding": self.handle_v1_embeddings}
             if path in posts:
                 try:
                     body = json.loads(body_bytes or b"{}")

@@ -1,14 +1,19 @@
 """Command-line generation, the llama-cli equivalent (port of
-eagle_tpu/tools/cli.py:main, without the chat loop).
+eagle_tpu/tools/cli.py: `main` and `chat_loop`).
 
 Usage:
   python -m eagle_tpu_torch.tools.cli -m model.gguf -p "prompt" [-n 128]
       [--draft eagle.gguf] [--tree 4,2,2 | --tree2 8,6,32] [--temp 0.8]
       [--top-k 40] [--top-p 0.95] [--min-p 0.05] [--seed 0] [--device cuda]
+  python -m eagle_tpu_torch.tools.cli -m model.gguf --chat
+      [--chat-template vicuna] [--system "..."] [-n 128] [--temp 0]
 
 Prints the text on stdout and `[load]`, `[perf]` and, with a draft,
 `[speculative] accept_rate=... mean_accept_len=... cycles=...` on stderr,
-as the reference does. It runs on the card unless `--device cpu`."""
+as the reference does. With `--chat` each line on stdin is one user turn
+(`/exit` or end of input quits): the reply streams to stdout and a
+`[perf]` line per turn goes to stderr; the session is non-speculative, as
+the reference's. It runs on the card unless `--device cpu`."""
 
 from __future__ import annotations
 
@@ -20,6 +25,37 @@ def build_argparser():
     from ..utils.args import build_parser
 
     return build_parser("cli")
+
+
+def chat_loop(eng, args, sampler) -> int:
+    """The reference's conversation loop (examples/main): each line from
+    stdin is one user turn; only the template's diff is fed, the cache keeps
+    the shared history."""
+    session = eng.chat_session(system=args.system, template=args.chat_template,
+                               use_jinja=args.jinja)
+    print("== chat mode (ctrl-d or /exit to quit) ==", file=sys.stderr)
+    while True:
+        try:
+            line = input("> ")
+        except EOFError:
+            break
+        if line.strip() in ("/exit", "/quit"):
+            break
+        if not line.strip():
+            continue
+        t0 = time.time()
+        n_tok = [0]
+
+        def stream(tok_id, _n=n_tok):
+            _n[0] += 1
+            print(eng.tokenizer.decode([tok_id], skip_special=True), end="", flush=True)
+
+        session.ask(line, max_new_tokens=args.n_predict, sampler=sampler, seed=args.seed,
+                    on_token=stream)
+        dt = time.time() - t0
+        print(f"\n[perf] {n_tok[0]} tokens in {dt:.2f}s "
+              f"({n_tok[0] / max(dt, 1e-9):.1f} t/s, ctx {session.pos})", file=sys.stderr)
+    return 0
 
 
 def _ints(spec: str | None):
@@ -50,6 +86,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     eng = Engine(cfg)
     print(f"[load] {time.time() - t0:.1f}s model={args.model}", file=sys.stderr)
+
+    if args.chat:
+        return chat_loop(eng, args, sampler)
 
     t0 = time.time()
     text, stats = eng.generate_text(

@@ -18,6 +18,8 @@ import dataclasses
 import os
 from typing import Any
 
+from ..server.chat_templates import JINJA_REFUSED
+
 
 @dataclasses.dataclass(frozen=True)
 class Opt:
@@ -62,7 +64,6 @@ class Opt:
 
 TOOLS = ("cli", "server", "tokenize")
 
-_ITEM5 = "chat and its templates (ROADMAP queue 1, item 5)"
 _ITEM7 = "the rest of the runtime (ROADMAP queue 1, item 7)"
 _PAGED = "paged KV serving (ROADMAP queue 1, item 6: the paged pool and batcher)"
 _LORA = "LoRA adapters (ROADMAP queue 1, item 9)"
@@ -112,12 +113,11 @@ REGISTRY: tuple[Opt, ...] = (
     Opt(("--prompt-cache-all",), "also cache generated output in the session",
         action="store_true", tools=("cli",), refused=f"prompt-cache sessions: {_ITEM7}"),
     # ---- chat ---------------------------------------------------------------
-    Opt(("--chat",), "interactive conversation mode", action="store_true", tools=("cli",),
-        refused=_ITEM5),
-    Opt(("--system",), "system prompt (chat mode)", tools=("cli",), refused=_ITEM5),
-    Opt(("--chat-template",), "built-in chat template name", tools=("cli",), refused=_ITEM5),
+    Opt(("--chat",), "interactive conversation mode", action="store_true", tools=("cli",)),
+    Opt(("--system",), "system prompt (chat mode)", tools=("cli",)),
+    Opt(("--chat-template",), "built-in chat template name", tools=("cli",)),
     Opt(("--jinja",), "execute the GGUF's embedded jinja chat template",
-        action="store_true", tools=_CS, refused=_ITEM5),
+        action="store_true", tools=_CS, refused=JINJA_REFUSED),
     # ---- server -------------------------------------------------------------
     Opt(("--host",), "bind address", default="0.0.0.0", tools=("server",)),
     Opt(("--port",), "port", type=int, default=8080, tools=("server",)),

@@ -45,9 +45,8 @@ def test_cli_prints_text_and_speculative_line(pair, capsys):
 REFUSED_FLAGS = [(["--lora", "a.gguf"], "item 9"), (["--lora-scale", "0.5"], "item 9"),
                  (["--lookahead", "4,3,2"], "item 7"), (["--grammar", "root ::= \"a\""], "item 7"),
                  (["--json-schema", "{}"], "item 7"), (["--prompt-cache", "s.bin"], "item 7"),
-                 (["--prompt-cache-all"], "item 7"), (["--chat"], "item 5"),
-                 (["--system", "hi"], "item 5"), (["--chat-template", "vicuna"], "item 5"),
-                 (["--jinja"], "item 5"), (["--backend", "xla"], "--device"),
+                 (["--prompt-cache-all"], "item 7"),
+                 (["--jinja"], "jinja2"), (["--backend", "xla"], "--device"),
                  (["--repeat-penalty", "1.1"], "item 7")]
 
 
@@ -67,7 +66,7 @@ def test_engine_config_refusals(pair, kw, item):
 
 
 SERVER_REFUSED = [(["--paged"], "item 6"), (["--kv-pages", "16"], "item 6"),
-                  (["--page-size", "16"], "item 6"), (["--jinja"], "item 5"),
+                  (["--page-size", "16"], "item 6"), (["--jinja"], "jinja2"),
                   (["--grammar", "root ::= \"a\""], "item 7"), (["--lora", "a.gguf"], "item 9"),
                   (["--lora-scale", "0.5"], "item 9"), (["--backend", "xla"], "--device")]
 
@@ -98,15 +97,12 @@ def test_entry_point_refusals(engine):
     for call, item in ((lambda: eng.generate_text("a", grammar="root ::= \"a\""), "item 7"),
                        (lambda: eng.generate_text("a", json_schema={"type": "object"}), "item 7"),
                        (lambda: eng.generate_text("a", session_path="s.bin"), "item 7"),
-                       (lambda: eng.chat_session(), "item 5"),
-                       (lambda: eng.infill("a", "b"), "item 7"),
-                       (lambda: eng.rerank("a", ["b"]), "item 5"),
-                       (lambda: eng.embed(["a"]), "item 5")):
+                       (lambda: eng.infill("a", "b"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             call()
     gen = eng._plain_generator()
     assert isinstance(gen, Generator)
-    for kw, item in ((dict(context_shift_keep=4), "item 6"), (dict(grp_attn_n=2), "item 6"),
+    for kw, item in ((dict(grp_attn_n=2), "item 6"),
                      (dict(session_path="s.bin"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             gen.generate([1, 5, 6], 4, **kw)

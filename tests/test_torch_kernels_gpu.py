@@ -20,7 +20,11 @@ without an oracle draft; replays counted as launches; a new cache or
 fused-FFN mode captures another graph), and flash_decode under the tree
 engines' ancestor masks; sampled decoding (`-k sample`): `speculative_accept`'s
 marginal, draws that advance across graph replays, and every sampled engine
-graphed == eager from the same seed.
+graphed == eager from the same seed; the chat's kernels (`-k "offset or
+feed or shift or embed"`): flash_prefill as a feed at an offset runs it, a
+feed (`Generator._extend`) then graphed decode equal to eager, a context
+shift under live step graphs (no capture after it), `Engine.embed` and
+`rerank` on the card against the CPU.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -1062,3 +1066,114 @@ def test_set_row_sampler_after_capture_takes_effect(cuda):
     b.run_until_done(max_steps=200)
     assert got.generated == want.generated
     assert eng.graphs.captures == captures and eng.graphs.replays > 0
+
+
+# ---- chat over a live cache: a feed at an offset, the context shift, embed
+
+#: (T, real rows n, q0, s_limit): three padding rows, then chip_smoke.py's
+#: phase chat feeds (256-row blocks from 0, 128 rows from 185, 256 from 311)
+OFFSET_FEEDS = [(16, 13, 300, 512), (32, 29, 700, 1024), (64, 61, 960, 1024),
+                (256, 138, 0, 256), (128, 79, 185, 512), (256, 219, 311, 1024)]
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("t,n,q0,s_limit", OFFSET_FEEDS)
+def test_flash_prefill_at_an_offset(cuda, t, n, q0, s_limit, g):
+    """A chat turn's feed (`Generator._extend`): T query rows from position
+    q0 over the history's tags, rows n..T-1 padding (positions past the
+    feed, tags unwritten), bf16, head_dim 128, GQA."""
+    k_cache, v_cache = _cache(cuda, torch.bfloat16, 128, 4, s=1024)
+    slots = torch.arange(1024, dtype=torch.int32, device="cuda")[None].repeat(2, 1)
+    tags = torch.where(slots < q0 + n, slots, -1)
+    q_pos = (q0 + torch.arange(t, dtype=torch.int32, device="cuda"))[None].repeat(2, 1)
+    q = torch.randn((2, t, 4 * g, 128), generator=cuda, device="cuda")
+    _build.reset_counts()
+    got = fa.flash_attention_prefill(q, k_cache, v_cache, q_pos, tags, 1, s_limit=s_limit)
+    assert _build.launches["flash_prefill"] == 1 and _build.plain_calls["flash_prefill"] == 0
+    want = fa.flash_attention_prefill_plain(q, k_cache, v_cache, q_pos, tags, 1,
+                                            s_limit=s_limit)
+    _close(got, want, TOL[torch.bfloat16])
+
+
+def _feed(gen, ids, start):
+    from eagle_tpu_torch.runtime.generate import pad_bucket
+
+    t = pad_bucket(len(ids))
+    p = torch.zeros((1, t), dtype=torch.int32, device="cuda")
+    p[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    return gen._extend(p, start, len(ids), t, kv_limit=gen.kv_read_bucket(start + t))[0]
+
+
+def test_graphed_decode_after_a_feed_equals_eager(cuda):
+    """A prompt, a feed of 20 tokens at its end (`_extend`: 9 qmm_tc and 2
+    flash_prefill on the tiny model, the cache's pointers kept), then a
+    graphed decode chunk: the eager run's tokens bit for bit."""
+    tp, _ = _tiny_bf16()
+    feed = np.random.default_rng(2).integers(0, 512, size=20).tolist()
+    out = {}
+    for graphed in (False, True):
+        gen = _bf16_gen(tp, graphed)
+        gen.generate(PROMPT, max_new_tokens=1)
+        ptrs = [x.data_ptr() for x in (gen.kv.k, gen.kv.v, gen.kv.slot_pos)]
+        _build.reset_counts()
+        logits = _feed(gen, feed, len(PROMPT))
+        assert _build.launches["qmm_tc"] == 2 * 4 + 1 and _build.launches["flash_prefill"] == 2
+        assert [x.data_ptr() for x in (gen.kv.k, gen.kv.v, gen.kv.slot_pos)] == ptrs
+        first = logits.argmax(-1).to(torch.int32)
+        toks = gen._decode_chunk(first, len(PROMPT) + len(feed), SamplerConfig(greedy=True),
+                                 16, kv_limit=128)
+        out[graphed] = (logits.clone(), toks.tolist())
+    assert torch.equal(out[True][0], out[False][0]) and out[True][1] == out[False][1]
+
+
+def test_context_shift_under_live_graphs_replays(cuda):
+    """`generate(context_shift_keep=)` past a 256-slot cache: the shift moves
+    the rows in place, so the steps after it replay the graphs captured
+    before it (none captured after), and the tokens equal the eager run's."""
+    tp, _ = _tiny_bf16()
+    runs = {}
+    for graphed in (False, True):
+        gen = _bf16_gen(tp, graphed)
+        at_shift = []
+        real = gen.shift_context
+        gen.shift_context = lambda *a, g=gen, r=real: (at_shift.append(g.graphs.captures), r(*a))
+        runs[graphed] = gen.generate(PROMPT, max_new_tokens=400, stop_at_eos=False,
+                                     context_shift_keep=8)
+        assert len(at_shift) >= 1
+        if graphed:
+            assert gen.graphs.captures == at_shift[0] and gen.graphs.replays > 0
+    assert runs[True] == runs[False] and len(runs[True]) == 400
+
+
+def test_embed_on_the_card_matches_the_cpu(cuda):
+    """`Engine.embed` (mean and last) and `rerank` over the tiny model's
+    params, f32, on the card against the CPU (relative error <= 1e-3)."""
+    from eagle_tpu_torch.api import Engine, EngineConfig
+
+    class Words:  # a stand-in tokenizer: one id per byte
+        eos_id, bos_id = 2, 1
+
+        def encode(self, text, add_bos=True):
+            return [1] * add_bos + [3 + b for b in text.encode()]
+
+    cpu_params = synth_llama_params(TINY_CFG, seed=3, packed=True, coded=True, device="cpu")
+    texts = ["the first text", "a second one", "and a third, longer text to embed"]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine.__new__(Engine)
+        eng.cfg = EngineConfig(compute_dtype=torch.float32, kv_dtype=torch.float32, device=dev)
+        eng.device, eng.model_cfg, eng.tokenizer = torch.device(dev), TINY_CFG, Words()
+        eng.params = params_to(cpu_params, dev)
+        got[dev] = [np.stack(eng.embed(texts, pooling=p)) for p in ("mean", "last")] + [
+            np.asarray(eng.rerank(texts[0], texts[1:]))]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        _close(torch.from_numpy(a), torch.from_numpy(b), 1e-3)
+
+
+def params_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: params_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, **{k: None if v is None else v.to(dev)
+                                            for k, v in tree.tensors().items()})
+    return tree.to(dev)

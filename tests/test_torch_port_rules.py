@@ -43,7 +43,8 @@ def _port_files():
                  "eagle_tpu_torch/utils/logging.py", "eagle_tpu_torch/tools/cli.py",
                  "eagle_tpu_torch/tools/tokenize.py", "eagle_tpu_torch/runtime/scheduler.py",
                  "eagle_tpu_torch/server/server.py", "eagle_tpu_torch/server/batch_worker.py",
-                 "eagle_tpu_torch/server/chat_templates.py", "eagle_tpu_torch/server/webui.py"):
+                 "eagle_tpu_torch/server/chat_templates.py", "eagle_tpu_torch/server/webui.py",
+                 "eagle_tpu_torch/runtime/chat.py"):
         assert must in names
     return files
 
@@ -76,7 +77,8 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
                                    "synth_eagle_params", "Generator", "EagleChainEngine",
                                    "EagleTreeEngine", "EagleTree2Engine",
                                    "params_from_numpy", "load_llama_params",
-                                   "load_eagle_params", "Engine", "cli", "server"])
+                                   "load_eagle_params", "Engine", "cli", "server",
+                                   "ChatSession", "cli --chat"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from eagle_tpu_torch.api import Engine, EngineConfig
@@ -85,6 +87,7 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
     from eagle_tpu_torch.tools import cli
     from eagle_tpu_torch.models.loader import load_eagle_params, load_llama_params
     from eagle_tpu_torch.models.synth import synth_eagle_params, synth_llama_params
+    from eagle_tpu_torch.runtime.chat import ChatSession
     from eagle_tpu_torch.runtime.generate import Generator
     from eagle_tpu_torch.runtime.kvcache import KVCache
     from eagle_tpu_torch.runtime.speculative import EagleChainEngine
@@ -105,6 +108,8 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         "Engine": lambda: Engine(EngineConfig(model_path="no-such-file.gguf")),
         "cli": lambda: cli.main(["-m", "no-such-file.gguf", "-p", "a"]),
         "server": lambda: server.main(["-m", "no-such-file.gguf", "-np", "2"]),
+        "ChatSession": lambda: ChatSession(Generator({}, TINY, max_seq=16), tokenizer=None),
+        "cli --chat": lambda: cli.main(["-m", "no-such-file.gguf", "--chat"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -65,7 +65,7 @@ def models(tmp_path_factory):
     td, tdcfg, _ = loader.load_eagle_params(draft, device="cpu")
     return dict(jt=prepare_params_for_serving(jt), jd=prepare_params_for_serving(jd),
                 jcfg=jcfg, jdcfg=jdcfg, tt=port_serving(tt), td=port_serving(td),
-                tcfg=tcfg, tdcfg=tdcfg, ref={}, port={})
+                tcfg=tcfg, tdcfg=tdcfg, ref={}, port={}, chunk={})
 
 
 def port_engine(m, batch: int, role: str = "batcher") -> EagleChainEngine:
@@ -86,6 +86,16 @@ def ref_engine(m, batch: int) -> JaxEngine:
             m["jt"], m["jd"], m["jcfg"], m["jdcfg"], n_draft=K, max_seq=MAX_SEQ, batch=batch,
             kv_dtype=jnp.float32, compute_dtype=jnp.float32, backend="xla", eos_id=-1)
     return m["ref"][batch]
+
+
+def ref_batcher(m, batch: int, chunk: int) -> JaxBatcher:
+    """A reference batcher on the module's engine for `batch`. The reference
+    jits its prompt-chunk program per batcher, and that program reads
+    nothing of the batcher but its engine: every batcher over one engine
+    takes the first one's, so the reference compiles it once per module."""
+    b = JaxBatcher(ref_engine(m, batch), prefill_chunk=chunk)
+    b._chunk_c = m["chunk"].setdefault(batch, b._chunk_c)
+    return b
 
 
 def single(m, prompt, n):
@@ -217,7 +227,7 @@ class FedRNG:
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_batcher_matches_reference(models, name, monkeypatch):
     fn, batch, chunk = SCENARIOS[name]
-    want, _ = fn(JaxBatcher(ref_engine(models, batch), prefill_chunk=chunk),
+    want, _ = fn(ref_batcher(models, batch, chunk),
                  lambda c: jsampling.SamplerConfig(**dataclasses.asdict(c)))
     eng = port_engine(models, batch)
     batcher = ContinuousBatcher(eng, prefill_chunk=chunk)
@@ -344,7 +354,7 @@ def test_rows_outside_the_cache_keep_the_reference_tags(models, case):
     is then recycled by the overflow guard."""
     n = 20 if case == "first_chunk" else MAX_SEQ - 1
     (p,) = prompts(12, n)
-    jb = JaxBatcher(ref_engine(models, 2), prefill_chunk=16)
+    jb = ref_batcher(models, 2, 16)
     b = ContinuousBatcher(port_engine(models, 2), prefill_chunk=16)
     slots = []
     for bt in (jb, b):

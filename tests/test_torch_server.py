@@ -8,6 +8,8 @@ at 3 slots (the continuous batcher):
   /v1/chat/completions, streamed and not, give the same bodies apart from
   ids and times (`content`, `tokens_predicted`, the speculative stats,
   every SSE chunk's content and token);
+- /embedding, /v1/embeddings, /rerank and /v1/rerank give the reference's
+  bodies (floats to 1e-4) and status codes;
 - /tokenize and /detokenize round trip, /metrics counts the requests,
   /slots lists the slots, /props and the web page are served;
 - what the port lacks answers 501 naming its ROADMAP item;
@@ -195,9 +197,7 @@ def test_tokenize_props_slots_and_page(servers):
     assert ctype.startswith("text/html") and html == get(servers["ref"] + "/")[1]
 
 
-REFUSED = [("/infill", {"input_prefix": "a"}, "item 7"), ("/rerank", {"query": "a"}, "item 5"),
-           ("/v1/rerank", {"query": "a"}, "item 5"), ("/v1/embeddings", {"input": "a"}, "item 5"),
-           ("/embedding", {"content": "a"}, "item 5"), ("/slots/0?action=save", {}, "item 6"),
+REFUSED = [("/infill", {"input_prefix": "a"}, "item 7"), ("/slots/0?action=save", {}, "item 6"),
            ("/v1/chat/completions", {"messages": CHAT, "tools": [{"type": "function"}]},
             "item 7"),
            ("/completion", {"prompt": "a", "grammar": "root ::= \"a\""}, "item 7"),
@@ -210,6 +210,54 @@ def test_not_ported_answers_501(servers, path, body, item):
     with pytest.raises(urllib.error.HTTPError) as e:
         post(servers["port"] + path, body)
     assert e.value.code == 501 and item in json.loads(e.value.read())["error"]
+
+
+EMBEDS = [("/embedding", {"content": "the lazy dog"}),
+          ("/v1/embeddings", {"input": ["the fox", "a lazy dog and then"]}),
+          ("/rerank", {"query": "the fox", "documents": ["a lazy dog", "the quick brown fox",
+                                                        "over"], "top_n": 2}),
+          ("/v1/rerank", {"query": "the fox", "texts": ["a dog", "the fox"],
+                          "return_documents": True}),
+          ("/rerank", {"query": "the fox"})]  # no documents: 400
+
+
+def _close(got, want):
+    """Bodies equal, floats to 1e-4 (the two packages' f32 forwards)."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(_close(got[k], want[k]) for k in want)
+    if isinstance(want, list):
+        return len(got) == len(want) and all(_close(g, w) for g, w in zip(got, want))
+    if isinstance(want, float):
+        return got == pytest.approx(want, rel=1e-4, abs=1e-5)
+    return got == want
+
+
+def _answer(url, body):
+    try:
+        return 200, post(url, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@pytest.fixture(scope="module")
+def ref_answers():
+    """The reference server's answers by request: they do not depend on its
+    slots, so the reference computes each once per module."""
+    return {}
+
+
+@pytest.mark.parametrize("path,body", EMBEDS,
+                         ids=[f"{e[0]}-{'-'.join(sorted(e[1]))}" for e in EMBEDS])
+def test_embeddings_and_rerank_match_reference(servers, ref_answers, path, body):
+    """The reference's bodies and status codes, outside the batcher at 3
+    slots as at one."""
+    key = json.dumps([path, body])
+    if key not in ref_answers:
+        ref_answers[key] = _answer(servers["ref"] + path, body)
+    (code, got), (want_code, want) = _answer(servers["port"] + path, body), ref_answers[key]
+    assert code == want_code and _close(got, want), (got, want)
+    if code == 200 and "embedding" in path:
+        assert all(abs(sum(x * x for x in d["embedding"]) - 1) < 1e-4 for d in got["data"])
 
 
 def test_batched_request_keeps_its_temperature(servers):
