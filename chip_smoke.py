@@ -184,6 +184,31 @@ serve. continuous batching on phase 6's files (unfused, K = 5, greedy):
    subprocess: four concurrent /completion requests and one streamed chat
    must equal the in-process batcher's texts, /metrics count 5 requests,
    and SIGTERM end it with exit 0 and no traceback (`[serve http]`).
+paged. paged and int8 serving on phase 6's files (unfused, K = 5, greedy):
+   `Engine(batch=4, max_seq=2048, paged=True, page_size=64, kv_pages=64)`,
+   64 pages of 64 rows against 4 x 2,048 addressable slots. (a) 1, 2 and 4
+   streams of phase serve's 301-token prompt, the prefix cache off, 3 timed
+   runs each (`[paged]` lines: aggregate tokens/s, TTFT, host ms per step,
+   idle share, pool pages in use; the batched cycle's device ms): a slot
+   against phase serve's dense batcher up to the near-tie rule, graphed ==
+   eager bit for bit, no graph captured after the warm-up although the page
+   tables change, 129 qmm_tc per batched verify and 134 per 64-row chunk
+   (the target's 129 and the draft's 5), no flash kernel (the paged read is
+   the plain one, as the reference's); (b) 4 requests sharing a 256-token
+   prefix, the cache on against off: 3 hits, 768 tokens skipped, TTFT per
+   request, the same tokens up to the near-tie rule (`[paged prefix]`);
+   (c) the pool at int8 and the dense chain engine and `Generator` at
+   int8: graphed == eager bit for bit, the first divergence from bf16,
+   device ms per batched cycle, chain cycle and decode step against bf16
+   (`[paged int8]`); (d) a slot saved mid-stream, restored into a fresh
+   paged batcher (bit for bit) and a dense one (near-tie rule), resumed; a
+   prompt-cache session's TTFT without and with the file (`[paged slot]`);
+   (e) Self-Extend (grp_attn_n 4, grp_attn_w 512) on a 900-token prompt at
+   max_seq 1024: graphed == eager, the shift's device ms (`[paged
+   self-extend]`); (f) the CLI with --prompt-cache twice, and the server
+   with `--paged --kv-pages 64 -np 4` as subprocesses: a streamed
+   /completion whose slot is saved mid-stream, a /completion, the slot
+   restored, SIGTERM exit 0 (`[paged cli]`, `[paged http]`).
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -1097,6 +1122,16 @@ def check_near_tie(gen, prompt, want: list, got: list, tag: str, what: str) -> d
     """Where two greedy token streams first differ, the target's top-2 logit
     margin there (full prefill of the common prefix) must be within 1e-2 of
     the logit range: a bf16 near-tie, not a divergence."""
+    res = first_divergence(gen, prompt, want, got, tag, what)
+    if res is not None and res["margin"] > 1e-2 * res["logit_range"]:
+        raise AssertionError(f"{what}: tokens diverge beyond a bf16 near-tie")
+    return res
+
+
+def first_divergence(gen, prompt, want: list, got: list, tag: str, what: str) -> dict | None:
+    """The step where two greedy token streams first differ and the target's
+    top-2 logit margin there (full prefill of the common prefix), logged;
+    None when they are identical."""
     import numpy as np
     import torch
 
@@ -1115,8 +1150,6 @@ def check_near_tie(gen, prompt, want: list, got: list, tag: str, what: str) -> d
     rng = float(lg.max() - lg.min())
     log(f"[{tag}] {what}: tokens differ first at step {diverged}: target top-2 margin "
         f"{margin:.4e}, logit range {rng:.4e}")
-    if margin > 1e-2 * rng:
-        raise AssertionError(f"{what}: tokens diverge beyond a bf16 near-tie")
     return dict(step=diverged, margin=margin, logit_range=rng)
 
 
@@ -3100,6 +3133,7 @@ def serve_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
         f"submission, {SERVE_NEW} tokens each); a second graphed run: the same tokens, no eager "
         f"body; {ce.graphs.captures} graphs captured")
     out.update(near_ties=ties, graphs_captured=ce.graphs.captures)
+    out["prompt_301"] = dict(ids=prompts[2], dense_batched=got[2], single=want[2])
 
     mid = prompts[2]
     for n in SERVE_STREAMS:  # the warm-up: the graphs of the runs' buckets
@@ -3170,6 +3204,544 @@ def serve_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     out["http"] = serve_http(target, draft, http_texts, chat, want_http, tmp)
     report["serve_path"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase paged: the paged pool, prefix reuse, int8 caches, slot files, sessions,
+# Self-Extend and the paged server, on phase 6's files
+
+
+PAGED_PAGES = 64  # target pool pages of PAGE_ROWS rows: 2x oversubscribed at 4 x 2,048
+PAGE_ROWS = 64
+PAGED_CHECK_NEW = 16  # new tokens of the eager-vs-graphed and int8 checks
+PREFIX_TOKENS, SUFFIX_TOKENS = 256, 45  # phase paged's shared-prefix requests
+#: the qmm_tc launches of one 64-row prompt chunk: the target's forward (128
+#: per-layer products + lm_head) and the draft's pass over the chunk (fc and
+#: its layer's four products; no lm_head)
+CHUNK_QMM = 129 + 5
+
+
+def paged_streams(b, ids, n: int, n_new: int = SERVE_NEW) -> dict:
+    """`n` concurrent requests of `ids`, all submitted at once (`stream_runs`,
+    also returning each request's tokens and the most pool pages held)."""
+    import torch
+
+    first: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = [b.submit(ids, max_new_tokens=n_new, stop_at_eos=False,
+                      on_token=lambda _t, i=i: first.setdefault(i, time.perf_counter()))
+             for i in range(n)]
+    steps, peak = [], 0
+    while b.n_active or b.n_pending:
+        full = b.n_pending == 0 and b.n_active == n
+        s0 = time.perf_counter()
+        b.step()
+        if full:
+            steps.append((time.perf_counter() - s0) * 1e3)
+        peak = max(peak, b.pages_in_use()["tgt"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(s.generated) for s in slots)
+    return dict(tokens_per_s=n_tok / wall, ttft_ms=[(first[i] - t0) * 1e3 for i in range(n)],
+                step_ms=sorted(steps)[len(steps) // 2] if steps else None, tokens=n_tok,
+                generated=[list(s.generated) for s in slots], peak_pages=peak)
+
+
+def prefix_runs(b, prompts: list, cache: bool) -> dict:
+    """The shared-prefix requests with the prefix cache on or off: the first
+    alone until its prompt is in (registered when on), then the other three
+    at once; TTFT per request (submit to its first token) and the tokens."""
+    import torch
+
+    b.prefix_cache = cache
+    before = dict(b.stats)
+    first, t_sub = {}, {}
+
+    def submit(i):
+        torch.cuda.synchronize()
+        t_sub[i] = time.perf_counter()
+        return b.submit(prompts[i], max_new_tokens=SERVE_NEW, stop_at_eos=False,
+                        on_token=lambda _t, i=i: first.setdefault(i, time.perf_counter()))
+
+    slots = [submit(0)]
+    while slots[0].state != "generating":
+        b.step()
+    slots += [submit(i) for i in range(1, len(prompts))]
+    b.run_until_done(max_steps=10_000)
+    torch.cuda.synchronize()
+    return dict(ttft_ms=[(first[i] - t_sub[i]) * 1e3 for i in range(len(prompts))],
+                generated=[list(s.generated) for s in slots],
+                stats={k: b.stats[k] - before[k] for k in b.stats})
+
+
+def eager_tokens(eng, run):
+    """run() with the engine's graphs off (every body eager)."""
+    eng.graphs.enabled = False
+    try:
+        return run()
+    finally:
+        eng.graphs.enabled = True
+
+
+def decode_device_ms(gen, ids: list, steps: int = 16) -> float:
+    """Device ms per graphed decode step of `gen` after `ids` (CUDA events
+    over `steps` replays at the read bucket `generate` takes there)."""
+    import torch
+
+    from eagle_tpu_torch.runtime.sampling import SamplerConfig
+
+    out = gen.generate(ids, max_new_tokens=2, stop_at_eos=False)
+    tok = torch.tensor([out[-1]], dtype=torch.int32, device="cuda")
+    scfg, pos = SamplerConfig(greedy=True), len(ids) + 1
+    lim = gen.kv_read_bucket(pos + steps)
+    gen._decode_chunk(tok, pos, scfg, steps, kv_limit=lim)  # the bucket's graph
+    eager = gen.graphs.eager
+    ms = timed_events(lambda: gen._decode_chunk(tok, pos, scfg, steps, kv_limit=lim), steps)
+    if gen.graphs.eager != eager:
+        raise AssertionError("a decode step ran eagerly while it was timed")
+    return ms["ms"]
+
+
+def int8_checks(eng, gen, ids: list, bf16_paged: list) -> dict:
+    """(c): the int8 pool (`Engine(..., paged=True, kv_dtype=torch.int8)`) and
+    the dense chain engine and `Generator` at int8 on the 301-token prompt:
+    graphed == eager bit for bit; the first divergence from bf16 (step and
+    margin); device ms per batched cycle, per chain cycle and per decode
+    step against bf16."""
+    import gc
+
+    import torch
+
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.runtime.generate import Generator
+    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+
+    cfg = dataclasses.replace(eng.cfg, kv_dtype=torch.int8)
+    e8 = Engine(cfg)
+    b8, c8 = e8.batcher, e8.engine
+    b8.prefix_cache = False
+    got = paged_streams(b8, ids, 4, PAGED_CHECK_NEW)["generated"]  # captures
+    eager = eager_tokens(c8, lambda: paged_streams(b8, ids, 4, PAGED_CHECK_NEW)["generated"])
+    if got != eager:
+        raise AssertionError("paged int8: graphed and eager tokens differ")
+    out: dict = {"paged_vs_bf16": first_divergence(
+        gen, ids, bf16_paged[:PAGED_CHECK_NEW], got[0], "paged int8",
+        "the int8 pool's slot vs the bf16 pool's")}
+    out["cycle"] = batched_cycle_device(b8, ids)
+    per = out["cycle"]["launches"]
+    if per.get("qmm_tc", 0) != VERIFY_QMM or per.get("flash_decode", 0):
+        raise AssertionError(f"paged int8: launches per batched cycle {per}")
+    del e8, b8, c8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = (eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg)
+    chains, gens = {}, {}
+    for name, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        chains[name] = EagleChainEngine(*spec, n_draft=5, max_seq=2048, kv_dtype=dt,
+                                        feature_source=eng.cfg.feature_source,
+                                        eos_id=eng.tokenizer.eos_id)
+        gens[name] = Generator(eng.params, eng.model_cfg, max_seq=2048, kv_dtype=dt,
+                               eos_id=eng.tokenizer.eos_id)
+    c8 = chains["int8"]
+    g1 = c8.generate(ids, PAGED_CHECK_NEW, stop_at_eos=False)[0]
+    e1 = eager_tokens(c8, lambda: c8.generate(ids, PAGED_CHECK_NEW, stop_at_eos=False)[0])
+    if g1 != e1:
+        raise AssertionError("dense int8 chain: graphed and eager tokens differ")
+    bf = chains["bf16"].generate(ids, PAGED_CHECK_NEW, stop_at_eos=False)[0]
+    out["chain_vs_bf16"] = first_divergence(gen, ids, bf, g1, "paged int8",
+                                            "the dense int8 chain vs the bf16 chain")
+    for name in chains:
+        chains[name].generate(ids, 2, stop_at_eos=False)
+        lim = chains[name].kv_read_bucket(len(ids) + 8 * 7)
+        chains[name]._multi_cycle(1, kv_limit=lim)  # the bucket's graph
+        out[f"chain_cycle_ms_{name}"] = cycle_device_ms(chains[name], ids, 1)["ms"]
+        out[f"decode_ms_{name}"] = decode_device_ms(gens[name], ids)
+    log(f"[paged int8] the int8 pool (4 streams, {PAGED_CHECK_NEW} tokens) and the dense "
+        f"int8 chain: graphed == eager bit for bit; device ms per batched cycle "
+        f"{out['cycle']['ms']:.3f} (launches {per}); per chain cycle int8 "
+        f"{out['chain_cycle_ms_int8']:.3f} vs bf16 {out['chain_cycle_ms_bf16']:.3f}; per decode "
+        f"step int8 {out['decode_ms_int8']:.3f} vs bf16 {out['decode_ms_bf16']:.3f}")
+    del chains, gens, c8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def slot_checks(eng, ids: list, tmp: pathlib.Path) -> dict:
+    """(d): a slot saved mid-stream (20 tokens of 64) in the paged batcher,
+    restored into a fresh paged batcher and into a dense one over the same
+    engine, resumed: the uninterrupted run's tokens, bit for bit in the
+    paged batcher, up to the near-tie rule in the dense one (whose cycle
+    reads the rows through flash_decode, the pool through the plain read,
+    each as the reference's engines read them). Then the
+    prompt-cache session in process: TTFT of the first run (the whole prompt)
+    and of the second (the session's prefix reused)."""
+    import torch
+
+    from eagle_tpu_torch.runtime.paged_batcher import PagedBatcher
+    from eagle_tpu_torch.runtime.scheduler import ContinuousBatcher
+
+    b, ce = eng.batcher, eng.engine
+    s = b.submit(ids, max_new_tokens=SERVE_NEW, stop_at_eos=False)
+    while len(s.generated) < 20:
+        b.step()
+    path = tmp / "paged_slot.bin"
+    t0 = time.perf_counter()
+    b.save_slot(s.id, path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    b.run_until_done()
+    want = list(s.generated)
+    out = {"save_ms": save_ms, "file_mb": path.stat().st_size / 2**20}
+    for name, nb in (("paged", lambda: PagedBatcher(ce, n_pages=PAGED_PAGES,
+                                                    page_size=PAGE_ROWS)),
+                     ("dense", lambda: ContinuousBatcher(ce))):
+        b2 = nb()
+        t0 = time.perf_counter()
+        r = b2.restore_slot(path, slot_id=2)
+        out[f"restore_ms_{name}"] = (time.perf_counter() - t0) * 1e3
+        b2.resume_slot(2)
+        b2.run_until_done()
+        if name == "paged" and r.generated != want:
+            raise AssertionError("slot: the paged save restored paged gave other tokens")
+        if name == "dense":  # flash_decode reads the dense cache, the plain read the pool
+            out["dense_restore"] = check_near_tie(
+                eng._plain_generator(), ids, want, r.generated, "paged slot",
+                "the paged save restored into a dense batcher vs the uninterrupted run")
+    gen = eng._plain_generator()
+    sess = tmp / "paged_session.bin"
+    for run in ("first", "second"):
+        first = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.generate(ids, 8, stop_at_eos=False, session_path=sess,
+                     on_token=lambda _t: first.setdefault("t", time.perf_counter()))
+        out[f"session_ttft_ms_{run}"] = (first["t"] - t0) * 1e3
+        out[f"session_reused_{run}"] = gen.session_prefix_reused
+    if out["session_reused_second"] != len(ids) - 1:
+        raise AssertionError(f"session: the second run reused {out['session_reused_second']}")
+    log(f"[paged slot] a slot saved after 20 of {SERVE_NEW} tokens ({out['file_mb']:.1f} MiB in "
+        f"{save_ms:.1f} ms), restored into a fresh paged batcher ({out['restore_ms_paged']:.1f} "
+        f"ms) and a dense one ({out['restore_ms_dense']:.1f} ms) and resumed: the uninterrupted "
+        f"tokens bit for bit; a prompt-cache session: TTFT {out['session_ttft_ms_first']:.1f} ms, "
+        f"then {out['session_ttft_ms_second']:.1f} ms with {out['session_reused_second']} "
+        f"tokens reused")
+    return out
+
+
+def self_extend_check(eng, vocab, tok) -> dict:
+    """(e): `Generator.generate(grp_attn_n=4, grp_attn_w=512)` on a 900-token
+    prompt at max_seq 1024, graphed twice and eager once: the same tokens bit
+    for bit, and the shifts' device ms (CUDA events around each; (f)'s
+    subprocesses load meanwhile)."""
+    import torch
+
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    ids = tok.encode(cli_prompt(vocab, 900, seed=70))[:900]
+    gen = Generator(eng.params, eng.model_cfg, max_seq=1024, eos_id=tok.eos_id)
+    shifts: list = []
+    real = gen.self_extend
+
+    def timed(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real(*a)
+        ev[1].record()
+        ev[1].synchronize()
+        shifts.append(ev[0].elapsed_time(ev[1]))
+        return res
+
+    gen.self_extend = timed
+
+    def run():
+        return gen.generate(ids, 80, stop_at_eos=False, grp_attn_n=4, grp_attn_w=512)
+
+    got = [run(), run()]
+    captures = gen.graphs.captures
+    got.append(eager_tokens(gen, run))
+    if not got[0] == got[1] == got[2] or len(got[0]) != 80:
+        raise AssertionError("self-extend: graphed and eager tokens differ")
+    if gen.graphs.captures != captures:
+        raise AssertionError("self-extend: the second graphed run captured a graph")
+    tags = gen.kv.slot_pos[0, :1024]
+    out = dict(shift_ms=shifts, n_shifts=len(shifts) // 3, max_tag=int(tags.max()),
+               slots=int((tags >= 0).sum()))
+    log(f"[paged self-extend] grp_attn_n 4, grp_attn_w 512, a {len(ids)}-token prompt at "
+        f"max_seq 1024, 80 tokens: graphed twice == eager, bit for bit; {out['n_shifts']} "
+        f"shift(s) per run, device ms {', '.join(f'{x:.3f}' for x in shifts)}; "
+        f"{out['slots']} slots tagged, positions up to {out['max_tag']}")
+    del gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_sessions(target, session_prompt: str, tmp: pathlib.Path, env: dict, cwd) -> dict:
+    """The CLI with `--prompt-cache` twice (no draft, greedy, 8 tokens):
+    each exits 0 with the same text; the first reuses 0 cached tokens, the
+    second the prompt's. Returns their `[perf]` and `[session]` lines."""
+    sess = tmp / "cli.session"
+    cli = [sys.executable, "-m", "eagle_tpu_torch.tools.cli", "-m", str(target), "-p",
+           session_prompt, "-n", "8", "--temp", "0", "--prompt-cache", str(sess)]
+    runs = []
+    for _ in range(2):
+        r = subprocess.run(cli, cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in r.stderr.splitlines() if ln.startswith(("[session]", "[perf]"))]
+        if r.returncode != 0 or not r.stdout.strip():
+            raise AssertionError(f"cli --prompt-cache: exit {r.returncode}: {r.stderr[-2000:]}")
+        runs.append((r.stdout, lines))
+    if runs[0][0] != runs[1][0] or "reused 0 " not in runs[0][1][-1] \
+            or "reused 0 " in runs[1][1][-1]:
+        raise AssertionError(f"cli --prompt-cache: {runs}")
+    return {"lines": [r[1] for r in runs]}
+
+
+def paged_http_start(target, draft, tmp: pathlib.Path, session_prompt: str) -> dict:
+    """(f) begun: the server with `--paged --kv-pages 64 -np 4` and, on a
+    thread, `cli_sessions`, both as subprocesses that load while the phase
+    goes on in process. `paged_http` finishes them."""
+    import concurrent.futures
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
+    cwd = pathlib.Path(__file__).resolve().parent
+    err_path = tmp / "paged_server.stderr"
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "eagle_tpu_torch.server.server", "-m", str(target),
+             "--draft", str(draft), "-np", "4", "--paged", "--kv-pages", str(PAGED_PAGES),
+             "--page-size", str(PAGE_ROWS), "--host", "127.0.0.1", "--port", str(port)],
+            cwd=cwd, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    return dict(proc=proc, base=f"http://127.0.0.1:{port}", err_path=err_path, t0=time.time(),
+                tmp=tmp, prompt=session_prompt, pool=pool,
+                cli=pool.submit(cli_sessions, target, session_prompt, tmp, env, cwd))
+
+
+def paged_http(ctx: dict) -> dict:
+    """(f) finished: once the server answers /health, a streamed /completion
+    whose slot 0 is saved while it streams, a /completion, the file restored
+    into slot 0 (resumed), then SIGTERM: exit 0 and no traceback; and the CLI
+    pair's result."""
+    import signal
+    import urllib.request
+
+    proc, base, err_path = ctx["proc"], ctx["base"], ctx["err_path"]
+    out: dict = {}
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"paged server exited {proc.returncode}: "
+                                     f"{err_path.read_text()[-3000:]}")
+            try:
+                urllib.request.urlopen(base + "/health", timeout=2)
+                break
+            except OSError:
+                if time.time() - ctx["t0"] > 300:
+                    raise
+                time.sleep(0.25)
+        out["up_s"] = time.time() - ctx["t0"]
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read().decode())
+
+        slot_file = str(ctx["tmp"] / "paged_http_slot.bin")
+        req = urllib.request.Request(base + "/completion", json.dumps({
+            "prompt": ctx["prompt"], "n_predict": 96, "temperature": 0,
+            "stream": True}).encode(), {"Content-Type": "application/json"})
+        frames = 0
+        with urllib.request.urlopen(req, timeout=300) as r:
+            for line in r:
+                if line.startswith(b"data: "):
+                    frames += 1
+                    if frames == 8:
+                        out["save"] = post("/slots/0?action=save", {"filename": slot_file})
+        out["completion"] = post("/completion", {"prompt": ctx["prompt"], "n_predict": 16,
+                                                 "temperature": 0})["content"]
+        out["restore"] = post("/slots/0?action=restore", {"filename": slot_file})
+        if out["save"]["result"]["prompt_len"] < 1 or out["restore"]["result"]["state"] != \
+                "generating" or not out["completion"]:
+            raise AssertionError(f"paged server: {out}")
+        out["cli"] = ctx["cli"].result()
+    finally:
+        ctx["pool"].shutdown(wait=True)
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    stderr = err_path.read_text()
+    if proc.returncode != 0 or "Traceback" in stderr:
+        raise AssertionError(f"paged server: exit {proc.returncode} after SIGTERM, stderr "
+                             f"{stderr[-3000:]}")
+    runs = out["cli"]["lines"]
+    log(f"[paged cli] --prompt-cache twice: the same text; {' | '.join(runs[0])} then "
+        f"{' | '.join(runs[1])}")
+    log(f"[paged http] --paged --kv-pages {PAGED_PAGES} -np 4 answered /health {out['up_s']:.1f} "
+        f"s after its start (loading beside (e) and the CLI runs); "
+        f"slot 0 saved while its stream ran ({frames} chunks, "
+        f"{len(out['save']['result']['generated'])} tokens saved), a /completion, the file "
+        f"restored into slot 0 and resumed ({out['restore']['result']}); SIGTERM: exit 0")
+    return out
+
+
+def paged_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
+    """Paged and int8 serving on phase 6's files (unfused, K = 5, greedy):
+    `Engine(batch=4, max_seq=2048, paged=True, page_size=64, kv_pages=64)`,
+    64 pages of 64 rows against 4 x 2,048 addressable slots.
+    (a) 1, 2 and 4 streams of phase serve's 301-token prompt, 64 tokens each,
+    the prefix cache off: tokens against phase serve's dense batcher (near-tie
+    rule), graphed == eager bit for bit, no capture after the warm-up, 129
+    qmm_tc per batched verify and CHUNK_QMM per 64-row chunk, no flash_decode
+    (the paged read is the plain one), `[paged]` lines; (b) prefix reuse: 4
+    requests sharing 256 tokens, each with its own 45, the cache on against
+    off (`[paged prefix]`); (c) `int8_checks`; (d) `slot_checks`; (e)
+    `self_extend_check`; then the engine freed and `paged_http`. Returns the
+    4-stream runs' launches."""
+    import gc
+
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.gguf import GGUFReader
+
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    with GGUFReader(target) as reader:
+        vocab = reader.metadata["tokenizer.ggml.tokens"]
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, draft_path=draft, batch=SERVE_SLOTS,
+                              max_seq=2048, paged=True, page_size=PAGE_ROWS,
+                              kv_pages=PAGED_PAGES))
+    torch.cuda.synchronize()
+    out: dict = {"load_s": time.time() - t0}
+    tok, b, ce = eng.tokenizer, eng.batcher, eng.engine
+    serve = report["serve_path"]["prompt_301"]
+    mid = serve["ids"]
+    gen = eng._plain_generator()
+    log(f"[paged] Engine(batch={SERVE_SLOTS}, max_seq 2048, paged, {PAGED_PAGES} pages of "
+        f"{PAGE_ROWS} rows) loaded in {out['load_s']:.1f} s; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # (a) the pool, the prefix cache off: the cells of phase serve
+    parts: dict = {}
+    t_part = time.time()
+    b.prefix_cache = False
+    first = paged_streams(b, mid, 1)  # the warm-up: one graph serves every run's bucket
+    out["vs_dense"] = check_near_tie(gen, mid, serve["dense_batched"], first["generated"][0],
+                                     "paged", "a paged slot vs phase serve's dense batcher")
+    captures, eager = ce.graphs.captures, ce.graphs.eager
+    runs: dict = {}
+    card = CardSampler()
+    with card:
+        for n in SERVE_STREAMS:
+            if n == SERVE_STREAMS[-1]:
+                _build.reset_counts()
+            runs[n] = [paged_streams(b, mid, n) for _ in range(REPS)]
+            if n == SERVE_STREAMS[-1]:
+                launches = dict(_build.launches)
+                if any(_build.plain_calls.values()):
+                    raise AssertionError(f"paged: plain versions ran: {_build.plain_calls}")
+    if (ce.graphs.captures, ce.graphs.eager) != (captures, eager):
+        raise AssertionError("paged: a graph was captured or a body ran eagerly after the "
+                             "warm-up, across page-table changes")
+    graphed = paged_streams(b, mid, 4, PAGED_CHECK_NEW)["generated"]
+    if eager_tokens(ce, lambda: paged_streams(b, mid, 4, PAGED_CHECK_NEW)["generated"]) \
+            != graphed or graphed[0] != runs[4][0]["generated"][0][:PAGED_CHECK_NEW]:
+        raise AssertionError("paged: graphed and eager tokens differ")
+    dev = batched_cycle_device(b, mid)
+    per = dev["launches"]
+    want_per = {"qmm_tc": VERIFY_QMM, "qmm_mma": 6 * ce.K}
+    if any(per.get(k, 0) != v for k, v in want_per.items()) or per.get("flash_decode", 0) \
+            or dev["plain_calls"]:
+        raise AssertionError(f"paged: launches per batched cycle {per}, expected {want_per} "
+                             f"and no flash_decode or plain version")
+    s = b.submit(mid, max_new_tokens=1, stop_at_eos=False, request_id="chunk")
+    b._flush_admissions()
+    _build.reset_counts()
+    b._advance_prefill()
+    chunk = {k: v for k, v in _build.launches.items() if v}
+    b.abort("chunk")
+    if chunk.get("qmm_tc", 0) != CHUNK_QMM or chunk.get("flash_prefill", 0) or \
+            chunk.get("flash_decode", 0):
+        raise AssertionError(f"paged: launches per 64-row chunk {chunk}, expected "
+                             f"{CHUNK_QMM} qmm_tc and no flash kernel")
+    dense = report["serve_path"]
+    out["streams"] = {}
+    for n, rs in runs.items():
+        r = dict(tokens_per_s=spread([x["tokens_per_s"] for x in rs]),
+                 step_ms=spread([x["step_ms"] for x in rs]),
+                 ttft_ms=[x["ttft_ms"] for x in rs], peak_pages=max(x["peak_pages"] for x in rs))
+        r["idle_share"] = 1 - dev["ms"] / r["step_ms"]["median"]
+        out["streams"][n] = r
+        d = dense["streams"][n]["tokens_per_s"]["median"]
+        log(f"[paged] {n} concurrent request(s) of the {len(mid)}-token prompt, {SERVE_NEW} "
+            f"tokens each: aggregate tokens/s min / median / max {fmt(r['tokens_per_s'])} "
+            f"(dense, phase serve: median {d:.2f}); TTFT ms per request (run 1) "
+            f"{', '.join(f'{t:.1f}' for t in r['ttft_ms'][0])}; host ms per step "
+            f"{fmt(r['step_ms'])}; idle {100 * r['idle_share']:.1f}%; pool pages in use at most "
+            f"{r['peak_pages']} of {PAGED_PAGES}")
+    log(f"[paged] batched cycle at B = {SERVE_SLOTS}, every row generating: device "
+        f"{dev['ms']:.3f} ms (dense, phase serve: {dense['cycle_device']['ms']:.3f}; CUDA "
+        f"events over 8 replays); launches per cycle: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(per.items()))
+        + f"; per 64-row chunk: " + ", ".join(f"{k} {v}" for k, v in sorted(chunk.items()))
+        + f"; graphed == eager ({PAGED_CHECK_NEW} tokens, 4 streams); {ce.graphs.captures} "
+          f"graphs, none captured after the warm-up; the card: {card.line()}")
+    out.update(cycle_device=dev, chunk_launches=chunk, card_during_runs=card.summary)
+    parts["a"] = time.time() - t_part
+
+    # (b) prefix reuse
+    t_part = time.time()
+    base = tok.encode(cli_prompt(vocab, 300, seed=60))[:PREFIX_TOKENS]
+    prompts = [base + tok.encode(cli_prompt(vocab, 60, seed=61 + i), add_bos=False)[
+        :SUFFIX_TOKENS] for i in range(4)]
+    off = prefix_runs(b, prompts, cache=False)
+    on = prefix_runs(b, prompts, cache=True)
+    for i, (w, g) in enumerate(zip(off["generated"], on["generated"])):
+        check_near_tie(gen, prompts[i], w, g, "paged prefix",
+                       f"request {i}, prefix cache on vs off")
+    if on["stats"]["prefix_hits"] != 3 or on["stats"]["prefill_tokens_skipped"] != \
+            3 * PREFIX_TOKENS:
+        raise AssertionError(f"paged prefix: {on['stats']}")
+    out["prefix"] = dict(on=on, off=off)
+    log(f"[paged prefix] 4 requests of {len(prompts[0])} tokens sharing {PREFIX_TOKENS}: "
+        f"{on['stats']}; TTFT ms per request, the cache on "
+        f"{', '.join(f'{t:.1f}' for t in on['ttft_ms'])} against off "
+        f"{', '.join(f'{t:.1f}' for t in off['ttft_ms'])}")
+    b.prefix_cache = False
+    parts["b"] = time.time() - t_part
+
+    t_part = time.time()
+    out["int8"] = int8_checks(eng, gen, mid, runs[4][0]["generated"][0])
+    parts["c"] = time.time() - t_part
+    t_part = time.time()
+    out["slots"] = slot_checks(eng, mid, tmp)
+    parts["d"] = time.time() - t_part
+    # (f) begins: its subprocesses load beside (e)
+    http = paged_http_start(target, draft, tmp, tok.decode(mid[1:], skip_special=True))
+    t_part = time.time()
+    out["self_extend"] = self_extend_check(eng, vocab, tok)
+    parts["e"] = time.time() - t_part
+    del eng, b, ce, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part = time.time()
+    out["http"] = paged_http(http)
+    parts["f"] = time.time() - t_part
+    out["part_seconds"] = parts
+    log("[paged] seconds per part: " + ", ".join(f"({k}) {v:.1f}" for k, v in parts.items()))
+    report["paged_path"] = out
     return launches
 
 
@@ -3476,6 +4048,7 @@ def main() -> int:
         phase("cli", cli_path, report, target, draft)
         chat_launches = phase("chat", chat_path, report, target, draft, pathlib.Path(tmp))
         serve_launches = phase("serve", serve_path, report, target, draft, pathlib.Path(tmp))
+        paged_launches = phase("paged", paged_path, report, target, draft, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -3503,6 +4076,7 @@ def main() -> int:
                 "bound_by": vals["bound_by"], "library_ms": vals["library_ms"],
                 "tree_path_launches": {k: c[name] for k, c in tree_launches.items()},
                 "serve_path_launches": serve_launches[name],
+                "paged_path_launches": paged_launches[name],
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     kernels = [

@@ -1,14 +1,17 @@
 """High-level engine API: load a GGUF target (and an EAGLE draft), tokenize,
 generate, chat, embed (port of eagle_tpu/api.py: `EngineConfig`, `Engine`
 with its load, tokenizer and engine choice, `_plain_generator`,
-`chat_session`, `generate_text`, `rerank` and `embed` for llama targets).
+`chat_session`, `generate_text` with prompt-cache sessions, `rerank` and
+`embed` for llama targets).
 
 One object owns the target (+ draft) params on the device, the tokenizer
 from the target's metadata and the engine: `Generator` without a draft,
 else `EagleChainEngine`, `EagleTreeEngine` (`tree_branching`) or
 `EagleTree2Engine` (`tree2`). With `batch` > 1 and a chain draft it also
-owns a `ContinuousBatcher` over a chain engine of `batch` rows, as the
-reference (the tree engines and `Generator` take no batch there either).
+owns a `ContinuousBatcher` over a chain engine of `batch` rows, or with
+`paged` a `PagedBatcher` over a pool of `kv_pages` pages of `page_size`
+rows, as the reference (the tree engines and `Generator` take no batch
+there either). The caches are bf16, f32 or int8 (`kv_dtype`).
 A chat session and the embeddings run on a plain `Generator`'s forward
 over the same target params, as the reference's. It runs on the card
 unless `device="cpu"`. What the port lacks raises NotImplementedError
@@ -31,6 +34,7 @@ from .models.llama import llama_forward
 from .runtime.generate import Generator, pad_bucket
 from .runtime.kvcache import KVCache, causal_mask_from_tags
 from .runtime.sampling import SamplerConfig, check_sampler
+from .runtime.paged_batcher import PagedBatcher
 from .runtime.scheduler import ContinuousBatcher
 from .runtime.speculative import EagleChainEngine
 from .runtime.tree import EagleTreeEngine, TreeSpec
@@ -62,16 +66,15 @@ class EngineConfig:
     sampler: SamplerConfig = dataclasses.field(default_factory=lambda: SamplerConfig(greedy=True))
     #: serving scale stream: "f32" (ggml's exact products) or "bf16"
     scale_mode: str = "f32"
-    paged: bool = False  # paged KV serving: not ported (ROADMAP queue 1, item 6)
+    paged: bool = False  # batch > 1: serve from a shared page pool with prefix reuse
+    kv_pages: int | None = None  # pool pages (default batch * pages per slot)
+    page_size: int = 64
     device: Any = "cuda"
 
 
 def _refuse(cfg: EngineConfig) -> None:
     if cfg.lora_path or cfg.lora_scale is not None:
         raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP queue 1, item 9)")
-    if cfg.paged:
-        raise NotImplementedError("paged KV serving (the paged pool and batcher) is not "
-                                  "ported yet (ROADMAP queue 1, item 6)")
     if cfg.lookahead:
         raise NotImplementedError(f"lookahead decoding is not ported yet ({_ITEM7})")
     check_sampler(cfg.sampler)
@@ -100,7 +103,12 @@ class Engine:
         self.engine = self.make_engine()
         self.batcher = None
         if cfg.batch > 1 and type(self.engine) is EagleChainEngine:
-            self.batcher = ContinuousBatcher(self.engine)
+            if cfg.paged:
+                mp = -(-cfg.max_seq // cfg.page_size)
+                self.batcher = PagedBatcher(self.engine, n_pages=cfg.kv_pages or cfg.batch * mp,
+                                            page_size=cfg.page_size)
+            else:
+                self.batcher = ContinuousBatcher(self.engine)
 
     def _engine_kw(self) -> dict:
         c = self.cfg
@@ -157,16 +165,27 @@ class Engine:
     ) -> tuple[str, dict]:
         """(text, stats) for `prompt`. A speculative engine samples with the
         config's sampler (`sampler` is for `Generator`, as in the reference);
-        stats holds the speculative counts."""
+        stats holds the speculative counts. With `session_path` the prompt
+        runs on a plain `Generator` (the reference's main.cpp is not
+        speculative), reusing and then rewriting the session file's cached
+        prefix; stats holds `session_prefix_reused`. An engine whose state
+        is a page pool generates through its `PagedBatcher`."""
         if grammar or json_schema:
             raise NotImplementedError(f"grammar-constrained decoding is not ported yet ({_ITEM7})")
-        if session_path or session_cache_all:
-            raise NotImplementedError(f"prompt-cache sessions are not ported yet ({_ITEM7})")
         ids = self.tokenizer.encode(prompt)
-        if isinstance(self.engine, Generator):
-            out = self.engine.generate(ids, max_new_tokens=max_new_tokens,
-                                       sampler=sampler or self.cfg.sampler, seed=seed)
-            stats: dict = {}
+        sampler = sampler or self.cfg.sampler
+        if session_path or isinstance(self.engine, Generator):
+            gen = self.engine if isinstance(self.engine, Generator) else self._plain_generator()
+            out = gen.generate(ids, max_new_tokens=max_new_tokens, sampler=sampler, seed=seed,
+                               session_path=session_path, session_cache_all=session_cache_all)
+            stats: dict = ({"session_prefix_reused": gen.session_prefix_reused}
+                           if session_path else {})
+        elif isinstance(self.batcher, PagedBatcher):
+            slot = self.batcher.submit(ids, max_new_tokens=max_new_tokens)
+            if slot is None:
+                raise RuntimeError("every slot of the paged batcher is busy")
+            self.batcher.run_until_done()
+            out, stats = list(slot.generated), {}
         else:
             out, stats = self.engine.generate(ids, max_new_tokens=max_new_tokens, seed=seed)
         text = self.tokenizer.decode([t for t in out if t != self.tokenizer.eos_id],

@@ -4,7 +4,7 @@
 x = ReLU(FC([embed(token); feature])) -> one llama decoder layer with no
 input norm -> unweighted RMSNorm (no output_norm weight) -> the TARGET
 model's lm_head. `feature` at step i is the hidden state of token i-1. The
-single-layer draft cache is updated in place."""
+single-layer draft cache (dense, int8 or paged) is updated in place."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from ..ops.norms import rms_norm
 from ..ops.rope import rope_freqs_cfg
 from ..runtime.kvcache import KVCache
 from .config import ModelConfig, check_plain_llama
-from .llama import _layer_step, check_layer_keys, embed_lookup, fused_ffn_mode
+from .llama import _layer_step, cache_kw, check_layer_keys, embed_lookup, fused_ffn_mode, read_bound
 
 _DRAFT_KEYS = {"tok_embd", "fc_w", "fc_b", "layers"}
 
@@ -59,12 +59,11 @@ def eagle_forward(
     x = torch.relu(x)
 
     inv_freq, _ = rope_freqs_cfg(cfg, device=x.device)
-    if kv_limit is not None:
-        kv_limit = min(kv_limit, mask.shape[-1])
-        mask = mask[..., :kv_limit]
+    kv_limit, mask = read_bound(kv, kv_limit, mask)
     x = _layer_step(
         cfg, inv_freq, positions, slots, mask, compute_dtype, x,
         draft_params["layers"], 0, kv.k, kv.v, kv_limit=kv_limit, fused_ffn=fused_ffn_mode(),
+        **cache_kw(kv),
     )
     feat_post = rms_norm(x, None, cfg.rms_eps)  # unweighted: no output_norm tensor
     logits = None

@@ -1,6 +1,7 @@
 """Autoregressive generation, non-speculative (port of
 eagle_tpu/runtime/generate.py: `pad_bucket`, `Generator` with `kv_read_bucket`,
-`_prefill`, `_extend`, `_decode_chunk`, `generate` with `context_shift_keep`).
+`_prefill`, `_extend`, `_decode_chunk`, `generate` with `context_shift_keep`,
+Self-Extend group attention (`grp_attn_n`) and prompt-cache sessions).
 
 The reference runs each decode chunk as one compiled `lax.scan`. Here the
 scan's carry (the token, its position and the chunk's tokens) lives in
@@ -17,8 +18,14 @@ A sampled step draws its Gumbel noise from the engine's `CounterRNG`
 counter the step advances on the device, so a replayed step draws anew and
 a graphed run gives the eager run's tokens. The step's graph key holds the
 sampler config its body bakes in. A context shift (`kvcache.context_shift`)
-moves the cache's rows in place, so the step graphs replay across it.
-Session files and self-extend are not ported yet."""
+and a Self-Extend step (`kvcache.self_extend_shift`) rewrite the cache in
+place, so the step graphs replay across them. The step's cache slot and
+rope position are separate carries: they differ under Self-Extend, where
+positions are compressed and every token keeps its own slot.
+
+The cache may be int8 (`kv_dtype=torch.int8`). A session file
+(`runtime/state_io.py`, the reference's format) seeds the cache with the
+longest cached prefix of the prompt, and only the rest is fed."""
 
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ from ..models.config import ModelConfig
 from ..models.llama import llama_forward
 from ..ops.rope import rope_freqs_cfg
 from .graphs import StepGraphs
-from .kvcache import KVCache, causal_mask_from_tags, context_shift
+from .kvcache import KVCache, causal_mask_from_tags, context_shift, self_extend_shift
 from .sampling import CounterRNG, SamplerConfig, check_sampler, draw
 
 
@@ -63,14 +70,16 @@ class Generator:
             self.cfg.n_layers, self.batch, self.max_seq, self.cfg.n_kv_heads,
             self.cfg.head_dim, dtype=self.kv_dtype, device=self.device, spill=1,
         )
-        # the scan's carry: the token to decode, its position, and the
-        # decoded token history (step at position p writes slot p)
+        # the scan's carry: the token to decode, its rope position, its cache
+        # slot, and the decoded token history (the step at slot s writes s)
         b, dev = self.batch, self.device
         self._tok = torch.zeros((b,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self._slot = torch.zeros((b,), dtype=torch.int32, device=dev)
         self._hist = torch.zeros((b, self.max_seq), dtype=torch.int32, device=dev)
         self.rng = CounterRNG(device=dev)
         self.graphs = StepGraphs(self.cuda_graphs and dev.type == "cuda")
+        self.session_prefix_reused = 0  # the last generate's session prefix
 
     def kv_read_bucket(self, slot_end: int) -> int:
         """Attention-read bound for a chunk whose highest written cache slot
@@ -122,39 +131,78 @@ class Generator:
         inv_freq, _ = rope_freqs_cfg(self.cfg, device=self.device)
         context_shift(self.kv, inv_freq, n_keep, n_discard)
 
+    def self_extend(self, n_past: int, ga_i: int, ga_n: int, ga_w: int) -> tuple[int, int]:
+        """`kvcache.self_extend_shift` on this engine's cache (the rope
+        frequencies without mscale, as `shift_context`); returns (n_past,
+        ga_i) after it."""
+        inv_freq, _ = rope_freqs_cfg(self.cfg, device=self.device)
+        return self_extend_shift(self.kv, inv_freq, n_past, ga_i, ga_n, ga_w)
+
     def _step(self, scfg: SamplerConfig, kv_limit: int | None) -> None:
         """One decode step in place: the token in `_tok` at position `_pos`
-        goes through the model, its successor lands in `_tok` and in the
-        history at slot `_pos`, and `_pos` advances."""
-        p = self._pos[:, None]
-        self.kv.with_tags(p, p)
+        and cache slot `_slot` goes through the model, its successor lands
+        in `_tok` and in the history at `_slot`, and both advance."""
+        p, sl = self._pos[:, None], self._slot[:, None]
+        self.kv.with_tags(sl, p)
         mask = causal_mask_from_tags(self.kv.slot_pos, p)
         fo = llama_forward(
-            self.params, self.cfg, self._tok[:, None], p, self.kv, p, mask,
+            self.params, self.cfg, self._tok[:, None], p, self.kv, sl, mask,
             compute_dtype=self.compute_dtype, kv_limit=kv_limit,
         )
         nxt = draw(fo.logits[:, 0], scfg, self.rng)
-        self._hist.scatter_(1, p.long(), nxt[:, None])
+        self._hist.scatter_(1, sl.long(), nxt[:, None])
         self._tok.copy_(nxt)
         self._pos.add_(1)
+        self._slot.add_(1)
 
     def _decode_chunk(self, first_token: torch.Tensor, start_pos: int,
                       scfg: SamplerConfig, n_steps: int,
-                      kv_limit: int | None = None) -> torch.Tensor:
+                      kv_limit: int | None = None, start_slot: int | None = None
+                      ) -> torch.Tensor:
         """Decode `n_steps` tokens after `first_token` [B] at positions
-        start_pos.. (slot == position), one step body (or its graph's
-        replay) each. Returns tokens [B, n_steps] on the device."""
-        if not 0 <= start_pos <= self.max_seq - n_steps:
-            raise ValueError(f"steps at {start_pos}..{start_pos + n_steps} leave the "
+        start_pos.. and cache slots start_slot.. (by default the positions),
+        one step body (or its graph's replay) each. Returns tokens [B,
+        n_steps] on the device."""
+        slot = start_pos if start_slot is None else start_slot
+        if not 0 <= slot <= self.max_seq - n_steps:
+            raise ValueError(f"steps at {slot}..{slot + n_steps} leave the "
                              f"cache's {self.max_seq} slots")
         self._tok.copy_(first_token)
         self._pos.fill_(start_pos)
-        static = (self.kv.k, self.kv.v, self.kv.slot_pos, self._tok, self._pos, self._hist,
+        self._slot.fill_(slot)
+        static = (*self.kv.tensors(), self._tok, self._pos, self._slot, self._hist,
                   self.rng.seed, self.rng.counter)
         for _ in range(n_steps):
             self.graphs.run(("step", kv_limit, scfg), lambda: self._step(scfg, kv_limit),
                             static)
-        return self._hist[:, start_pos:start_pos + n_steps].clone()
+        return self._hist[:, slot:slot + n_steps].clone()
+
+    def _prompt(self, prompt: np.ndarray, session_path) -> torch.Tensor:
+        """The prompt's last logits [B, V], the cache filled: with a session
+        file, its longest prefix shared with the prompt (at most n - 1
+        tokens: the last one is fed for its logits, as main.cpp) goes into
+        the cache and the rest is fed at an offset; else the whole prompt."""
+        n = len(prompt)
+        n_matched = 0
+        if session_path:
+            from .state_io import insert_session_kv, load_prompt_session, session_prefix_len
+
+            loaded = load_prompt_session(session_path, self.kv)
+            if loaded is not None:
+                sess_tokens, arrs = loaded
+                n_matched = min(session_prefix_len(sess_tokens, prompt), n - 1)
+                if n_matched > 0:
+                    insert_session_kv(self.kv, arrs, n_matched)
+        self.session_prefix_reused = n_matched
+        part = prompt[n_matched:]
+        t = pad_bucket(len(part))
+        padded = np.zeros((self.batch, t), np.int32)
+        padded[0, :len(part)] = part
+        tokens = torch.from_numpy(padded).to(self.device)
+        if n_matched:
+            return self._extend(tokens, n_matched, len(part), t, self.kv_read_bucket(n))[0]
+        n_valid = torch.tensor([n] * self.batch, dtype=torch.int32, device=self.device)
+        return self._prefill(tokens, n_valid, t)[0]
 
     def generate(
         self,
@@ -166,6 +214,7 @@ class Generator:
         stop_at_eos: bool = True,
         context_shift_keep: int | None = None,
         grp_attn_n: int = 1,
+        grp_attn_w: int = 512,
         on_token=None,
         session_path=None,
         session_cache_all: bool = False,
@@ -175,53 +224,71 @@ class Generator:
         `seed` starts the draws' stream. `context_shift_keep`: past
         max_seq, evict half of the context after the first
         `context_shift_keep` tokens (llama.cpp's --keep) instead of
-        stopping."""
+        stopping. `grp_attn_n` > 1: Self-Extend group attention with
+        window `grp_attn_w` (main.cpp's --grp-attn-n / --grp-attn-w).
+        `session_path`: a prompt-cache session file, read before and
+        written after (not after a shift or under Self-Extend, where slots
+        are no longer token ordinals); `session_cache_all` caches the
+        continuation too."""
         scfg = sampler or SamplerConfig(greedy=True)
         check_sampler(scfg)
-        if grp_attn_n > 1:
-            raise NotImplementedError("self-extend group attention is not ported yet "
-                                      "(ROADMAP queue 1, item 6)")
-        if session_path is not None or session_cache_all:
-            raise NotImplementedError("prompt-cache sessions (runtime/state_io.py) are not "
-                                      "ported yet (ROADMAP queue 1, item 7)")
         prompt = np.asarray(prompt_tokens, dtype=np.int32)
         n = len(prompt)
         if n < 1:  # the last prompt row and the first decode slot would be -1
             raise ValueError("generate needs a prompt of at least one token")
         # a reused Generator must not leak stale rows into the mask
         self.kv.rollback(torch.zeros((self.batch,), dtype=torch.int32, device=self.device))
-        t = pad_bucket(n)
-        padded = np.zeros((self.batch, t), np.int32)
-        padded[0, :n] = prompt
-        logits, _, self.kv = self._prefill(
-            torch.from_numpy(padded).to(self.device),
-            torch.tensor([n] * self.batch, dtype=torch.int32, device=self.device), t,
-        )
+        logits = self._prompt(prompt, session_path)
         self.rng.reset(seed)
         first = draw(logits, scfg, self.rng)
         out = [int(first[0])]
+        shifted = False  # a context shift or Self-Extend: slots no longer token ordinals
+
+        def finish():
+            if session_path and not shifted:
+                from .state_io import save_prompt_session
+
+                # the last sampled token was never fed: no KV row of its own
+                end = n + len(out) - 1 if session_cache_all else n
+                toks = list(prompt) + out if session_cache_all else list(prompt)
+                save_prompt_session(session_path, toks[:end], self.kv, end)
+            return out
+
         if on_token:
             on_token(out[0])
         if stop_at_eos and out[-1] == self.eos_id:
-            return out
-        pos = n
+            return finish()
+        pos = slot = n
+        ga_i = 0
         tok = first
         while len(out) < max_new_tokens:
-            if context_shift_keep is not None and pos + chunk + 1 >= self.max_seq:
+            if grp_attn_n > 1:
+                while pos >= ga_i + grp_attn_w:
+                    shifted = True
+                    pos, ga_i = self.self_extend(pos, ga_i, grp_attn_n, grp_attn_w)
+                if slot + chunk + 1 >= self.max_seq:
+                    break
+                steps = min(chunk, max_new_tokens - len(out), ga_i + grp_attn_w - pos)
+            elif context_shift_keep is not None and pos + chunk + 1 >= self.max_seq:
                 n_discard = (self.max_seq - context_shift_keep) // 2
                 self.shift_context(context_shift_keep, n_discard)
+                shifted = True
                 pos -= n_discard
+                slot = pos
+                steps = min(chunk, max_new_tokens - len(out))
             elif pos + chunk + 1 >= self.max_seq:
                 break
-            steps = min(chunk, max_new_tokens - len(out))
-            toks = self._decode_chunk(tok, pos, scfg, steps,
-                                      kv_limit=self.kv_read_bucket(pos + steps))
+            else:
+                steps = min(chunk, max_new_tokens - len(out))
+            toks = self._decode_chunk(tok, pos, scfg, steps, start_slot=slot,
+                                      kv_limit=self.kv_read_bucket(slot + steps))
             for tk in toks[0].tolist():
                 out.append(int(tk))
                 if on_token:
                     on_token(int(tk))
                 if stop_at_eos and tk == self.eos_id:
-                    return out
+                    return finish()
             pos += steps
+            slot += steps
             tok = toks[:, -1]
-        return out
+        return finish()

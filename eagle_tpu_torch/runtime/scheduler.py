@@ -1,6 +1,7 @@
 """Continuous batching over the chain engine's rows (port of
 eagle_tpu/runtime/scheduler.py: `Slot` and `ContinuousBatcher` with
-`submit`, `abort`, `step`, `run_until_done` and the paged batcher's hooks).
+`submit`, `abort`, `step`, `run_until_done`, `save_slot`, `restore_slot`,
+`resume_slot` and the paged batcher's hooks).
 
 A fixed batch of B slots, each an independent sequence in its own row of
 the engine's caches. Prompt prefill is chunked: each step admits at most
@@ -16,9 +17,12 @@ mirrors every row's n_past (a chunk sets it, a cycle adds `n_out` to the
 generating rows), so a step reads the device once, for the cycle's tokens
 and counts. Parked rows sit at n_past = 1 so draft positions stay >= 0.
 
+A slot saves to and restores from a per-sequence state file
+(`runtime/state_io.py`): the same file for a dense and a paged batcher, so
+either restores what the other saved.
+
 Unlike the reference, `submit` refuses a prompt that leaves no room in a
-slot (the reference's cache writes would clamp into its last slots), and
-slot save / restore wait for `runtime/state_io.py`."""
+slot (the reference's cache writes would clamp into its last slots)."""
 
 from __future__ import annotations
 
@@ -30,8 +34,6 @@ import torch
 
 from .sampling import SamplerConfig
 from .speculative import EagleChainEngine
-
-_STATE_IO = "slot save / restore need runtime/state_io.py, not ported yet (ROADMAP queue 1, item 6)"
 
 
 @dataclass
@@ -64,11 +66,20 @@ class ContinuousBatcher:
         self.batch = engine.batch
         self.prefill_chunk = prefill_chunk
         self.slots = [Slot(id=i, eos_id=engine.eos_id) for i in range(self.batch)]
-        self.state = engine.fresh_state()
+        self.state = self._fresh_state()
         self.state.n_past.fill_(1)  # parked
         self.n_past = np.ones(self.batch, np.int64)  # the host's mirror of state.n_past
         self._active_mask = np.zeros(self.batch, bool)
         self._prefill_queue: list[Slot] = []
+        #: stride at which prompt chunks also return boundary features (0:
+        #: off; the paged batcher sets its page size) and the last chunk's
+        #: (start, features [ct // stride, D] on the device), for the hooks
+        self._feat_every = 0
+        self._chunk_feats: tuple[int, torch.Tensor] | None = None
+
+    def _fresh_state(self):
+        """The engine's state, reset for this batcher: dense caches."""
+        return self.engine.fresh_dense_state()
 
     # ------------------------------------------------------------------
 
@@ -176,8 +187,13 @@ class ContinuousBatcher:
         chunk[:n] = prompt[slot.consumed: slot.consumed + n]
         self._before_prefill_chunk(slot, n)
         eng = self.engine
-        eng._prefill_chunk(slot.id, torch.from_numpy(chunk).to(eng.device), slot.consumed,
-                           len(prompt))
+        start = slot.consumed
+        tokens = torch.from_numpy(chunk).to(eng.device)
+        if self._feat_every:
+            self._chunk_feats = (start, eng._prefill_chunk(slot.id, tokens, start, len(prompt),
+                                                           feat_every=self._feat_every))
+        else:
+            eng._prefill_chunk(slot.id, tokens, start, len(prompt))
         slot.consumed += n
         self.n_past[slot.id] = slot.consumed
         finished = slot.consumed >= len(prompt)
@@ -218,15 +234,63 @@ class ContinuousBatcher:
                     and self.n_past[slot.id] + eng.K + 2 >= self.slot_capacity(slot.id)):
                 self._free(slot)
 
+    # -- per-slot state save / restore (server.cpp:3690, 3760) ----------
+
+    def _slot_extra(self, slot: Slot) -> dict:
+        return {"generated": list(slot.generated), "prompt_len": slot.prompt_len,
+                "max_new": slot.max_new, "stop_at_eos": slot.stop_at_eos}
+
     def save_slot(self, slot_id: int, path) -> dict:
-        raise NotImplementedError(_STATE_IO)
+        """Write one slot's sequence state (its cache rows, counters and
+        feature) and its host-side progress to `path`; returns the saved
+        progress."""
+        from .state_io import save_seq_state
+
+        extra = self._slot_extra(self.slots[slot_id])
+        save_seq_state(self.state, slot_id, path, extra=extra)
+        return extra
+
+    def _restore_into(self, slot_id: int, path) -> dict:
+        from .state_io import load_seq_state
+
+        return load_seq_state(self.state, slot_id, path)[1]
 
     def restore_slot(self, path, slot_id: int | None = None):
-        raise NotImplementedError(_STATE_IO)
+        """Load a saved sequence into a free slot (by default the first),
+        paused until `resume_slot`. Returns the Slot, or None when no slot
+        is free."""
+        if slot_id is None:
+            free = [s for s in self.slots if s.state == "free"]
+            if not free:
+                return None
+            slot_id = free[0].id
+        slot = self.slots[slot_id]
+        if slot.state != "free":
+            self._free(slot)
+        extra = self._restore_into(slot_id, path)
+        self.n_past[slot_id] = int(self.state.n_past[slot_id])
+        slot.state = "restored"
+        slot.request_id = None
+        slot.prompt = None
+        slot.generated = list(extra.get("generated", []))
+        slot.prompt_len = int(extra.get("prompt_len", 0))
+        slot.max_new = int(extra.get("max_new", 0))
+        slot.stop_at_eos = bool(extra.get("stop_at_eos", True))
+        return slot
 
     def resume_slot(self, slot_id: int, max_new_tokens: int | None = None,
                     on_token: Callable | None = None, sampler: SamplerConfig | None = None):
-        raise NotImplementedError(_STATE_IO)
+        """Continue generating on a restored slot."""
+        slot = self.slots[slot_id]
+        if slot.state != "restored":
+            raise ValueError(f"slot {slot_id} is {slot.state}, not restored")
+        if max_new_tokens is not None:
+            slot.max_new = max_new_tokens
+        slot.on_token = on_token
+        self.engine.set_row_sampler(slot_id, sampler or self.engine.scfg, spec_k=self.engine.K)
+        slot.state = "generating"
+        self._active_mask[slot_id] = True
+        return slot
 
     def run_until_done(self, max_steps: int = 10_000):
         steps = 0

@@ -1,8 +1,8 @@
 """EAGLE chain speculative decoding (port of
 eagle_tpu/runtime/speculative.py: `EagleChainEngine` with `fresh_state`,
-`set_row_sampler`, `_prefill`, `_prefill_chunk`, both branches of `_cycle`
-with its freeze of inactive rows, `_multi_cycle` and `generate` with `seed`
-and `cycles_per_dispatch`).
+`fresh_paged_state`, `set_row_sampler`, `_prefill`, `_prefill_chunk` with
+`feat_every`, both branches of `_cycle` with its freeze of inactive rows,
+`_multi_cycle` and `generate` with `seed` and `cycles_per_dispatch`).
 
 A cycle: K draft steps (feature autoregression) -> one verify forward over
 [last token + K drafts] -> acceptance -> KV rollback by tag invalidation ->
@@ -40,7 +40,14 @@ cycle's graph is keyed also on `fast_greedy` (every row's sampler greedy,
 per dispatch, as the reference's `_cycle_jit`) and on whether it is
 masked. The caches carry 2 (K + 1) spill slots (`runtime/kvcache.py`): a
 row's cycle writes up to K past its n_past, and a freed row keeps the
-n_past of its last cycle."""
+n_past of its last cycle.
+
+The caches may be int8 (`kv_dtype=torch.int8`). `fresh_paged_state` makes
+both caches page pools (`runtime/paged_kv.py`) for the paged batcher
+(`runtime/paged_batcher.py`), which owns their allocators: the chunk, the
+cycle and the rollback run unchanged over them (the forward does the page
+indirection), and the graphs' static inputs include the page tables,
+which the batcher rewrites in place."""
 
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from ..models.llama import llama_forward
 from .generate import pad_bucket
 from .graphs import StepGraphs
 from .kvcache import KVCache, causal_mask_from_tags
+from .paged_kv import PagedKVCache
 from .sampling import (
     BatchedSamplerParams,
     CounterRNG,
@@ -71,8 +79,8 @@ from .sampling import (
 
 @dataclasses.dataclass
 class SpecState:
-    tgt_kv: KVCache
-    dft_kv: KVCache
+    tgt_kv: KVCache | PagedKVCache
+    dft_kv: KVCache | PagedKVCache
     last_token: torch.Tensor  # [B] sampled but not yet decoded by the target
     feature: torch.Tensor  # [B, D] target feature at position n_past-1
     n_past: torch.Tensor  # [B] committed target tokens (m)
@@ -157,13 +165,19 @@ class EagleChainEngine:
     def _pick_feature(self, post: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
         return post if self.feature_source == "post_norm" else pre
 
-    def _new_state(self) -> SpecState:
+    def _dense_caches(self) -> tuple[KVCache, KVCache]:
         b, dev, spill = self.batch, self.device, 2 * (self.K + 1)
+        return (KVCache.create(self.tcfg.n_layers, b, self.max_seq, self.tcfg.n_kv_heads,
+                               self.tcfg.head_dim, self.kv_dtype, device=dev, spill=spill),
+                KVCache.create(1, b, self.max_seq, self.dcfg.n_kv_heads,
+                               self.dcfg.head_dim, self.kv_dtype, device=dev, spill=spill))
+
+    def _new_state(self) -> SpecState:
+        b, dev = self.batch, self.device
+        tgt, dft = self._dense_caches()
         return SpecState(
-            tgt_kv=KVCache.create(self.tcfg.n_layers, b, self.max_seq, self.tcfg.n_kv_heads,
-                                  self.tcfg.head_dim, self.kv_dtype, device=dev, spill=spill),
-            dft_kv=KVCache.create(1, b, self.max_seq, self.dcfg.n_kv_heads,
-                                  self.dcfg.head_dim, self.kv_dtype, device=dev, spill=spill),
+            tgt_kv=tgt,
+            dft_kv=dft,
             last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
             feature=torch.zeros((b, self.tcfg.n_embd), dtype=torch.float32, device=dev),
             n_past=torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -172,16 +186,45 @@ class EagleChainEngine:
 
     def fresh_state(self) -> SpecState:
         """The engine's state, reset in place to a new one's: empty tags,
-        zeros, and the stream of seed 0."""
+        zeros (unmapped page tables for a paged state), and the stream of
+        seed 0."""
         st = self.state
-        for kv in (st.tgt_kv, st.dft_kv):
-            kv.k.zero_()
-            kv.v.zero_()
-            kv.slot_pos.fill_(-1)
+        st.tgt_kv.reset()
+        st.dft_kv.reset()
         for t in (st.last_token, st.feature, st.n_past):
             t.zero_()
         st.rng.reset(0)
         return st
+
+    def fresh_dense_state(self) -> SpecState:
+        """`fresh_state` on dense caches: a paged state's pools are replaced
+        by dense caches first (a dense batcher over an engine that served a
+        paged one)."""
+        if self.paged:
+            self.state.tgt_kv, self.state.dft_kv = self._dense_caches()
+        return self.fresh_state()
+
+    @property
+    def paged(self) -> bool:
+        return isinstance(self.state.tgt_kv, PagedKVCache)
+
+    def fresh_paged_state(self, n_pages: int, page_size: int = 64,
+                          dft_n_pages: int | None = None) -> SpecState:
+        """The engine's state replaced by a paged one: the target and draft
+        caches become page pools of `n_pages` (`dft_n_pages`) pages shared
+        by every row, each row addressing max_seq positions (rounded up to
+        a page) with the dense caches' spill as tag columns. For a
+        `PagedBatcher`, which owns the allocators."""
+        b, dev, spill = self.batch, self.device, 2 * (self.K + 1)
+        mp = -(-self.max_seq // page_size)
+        st = self.state
+        st.tgt_kv = PagedKVCache.create(self.tcfg.n_layers, b, n_pages, mp, page_size,
+                                        self.tcfg.n_kv_heads, self.tcfg.head_dim,
+                                        self.kv_dtype, device=dev, spill=spill)
+        st.dft_kv = PagedKVCache.create(1, b, dft_n_pages or n_pages, mp, page_size,
+                                        self.dcfg.n_kv_heads, self.dcfg.head_dim,
+                                        self.kv_dtype, device=dev, spill=spill)
+        return self.fresh_state()
 
     def _prefill(self, state: SpecState, tokens: torch.Tensor, n_valid: torch.Tensor,
                  t: int) -> SpecState:
@@ -218,12 +261,16 @@ class EagleChainEngine:
         state.n_past.copy_(n_valid)
         return state
 
-    def _prefill_chunk(self, slot: int, tokens: torch.Tensor, start: int, n_valid: int) -> None:
+    def _prefill_chunk(self, slot: int, tokens: torch.Tensor, start: int, n_valid: int,
+                       feat_every: int = 0) -> torch.Tensor | None:
         """One prompt chunk of row `slot`: `tokens` [ct] at absolute
         positions start..start+ct of a prompt of `n_valid` tokens, on the
         row's views of the engine's state (the reference's
-        `_prefill_chunk` on the batcher's B = 1 slice, without
-        `feat_every`). The first chunk clears the row's tags. Draft pairs
+        `_prefill_chunk` on the batcher's B = 1 slice). With `feat_every`
+        > 0 (dividing ct) it returns the features at every in-chunk stride
+        boundary [ct // feat_every, D] on the device: row m is the feature
+        of position start + (m+1)*feat_every - 1 (rows past n_valid are
+        garbage). The first chunk clears the row's tags. Draft pairs
         are shifted one back, the chunk-boundary feature coming from the
         row's `feature`; on the final chunk the row's first output token is
         drawn with its own sampler. Rows at positions outside [0, max_seq)
@@ -266,6 +313,10 @@ class EagleChainEngine:
                 sample_batched(tout.logits[:, last], self.bsampler.row(slot), gumbel))
         st.feature[slot].copy_(feats[0, last])
         st.n_past[slot] = done
+        if feat_every:
+            assert ct % feat_every == 0, (ct, feat_every)
+            return feats[0, feat_every - 1::feat_every].clone()
+        return None
 
     def _cycle(self, state: SpecState, out: CycleOutput, ci: int,
                kv_limit: int | None = None, active: torch.Tensor | None = None) -> None:
@@ -383,8 +434,8 @@ class EagleChainEngine:
             for ci in range(n_cycles):
                 self._cycle(st, out, ci, kv_limit=kv_limit, **mask)
 
-        static = (st.tgt_kv.k, st.tgt_kv.v, st.tgt_kv.slot_pos, st.dft_kv.k, st.dft_kv.v,
-                  st.dft_kv.slot_pos, st.last_token, st.feature, st.n_past, st.rng.seed,
+        static = (*st.tgt_kv.tensors(), *st.dft_kv.tensors(), st.last_token, st.feature,
+                  st.n_past, st.rng.seed,
                   st.rng.counter, out.tokens, out.n_out, out.n_accepted, self._active,
                   *self.bsampler.tensors(),
                   *(() if self._q is None else (self._q,)))
@@ -406,7 +457,12 @@ class EagleChainEngine:
         are computed and discarded, left out of the stats. Near `max_seq`
         the dispatches wind down to single cycles. The reference's C = 1
         branch is the same loop with one cycle. Without
-        `cycles_per_dispatch`, C is the engine's `cycles_per_dispatch`."""
+        `cycles_per_dispatch`, C is the engine's `cycles_per_dispatch`. It
+        runs on the dense state: an engine whose state is a page pool serves
+        its `PagedBatcher` only."""
+        if self.paged:
+            raise ValueError("this engine's state is a page pool, driven by its PagedBatcher: "
+                             "generate through the batcher, or on an engine of its own")
         state = self.fresh_state()
         state.rng.reset(seed)
         prompt = np.asarray(prompt_tokens, dtype=np.int32)

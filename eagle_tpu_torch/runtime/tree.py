@@ -102,14 +102,19 @@ def _compact_kv(kv: KVCache, src: torch.Tensor, dst: torch.Tensor,
     distinct slots (accepted depth d lands at base + d). All P source rows
     are read before the run is written, and a row with keep False writes
     back its dst slot's current content, so an in-window permutation is
-    safe; a dropped row's tag write goes to its own src slot (no-op)."""
+    safe; a dropped row's tag write goes to its own src slot (no-op). An
+    int8 cache's scale planes move with their rows."""
     b, p = src.shape
     src, dst = src.long(), dst.long()
-    for buf in (kv.k, kv.v):  # [L, B, H, S, D]
-        shape = (buf.shape[0], b, buf.shape[2], p, buf.shape[4])
-        rows = buf.gather(3, src[None, :, None, :, None].expand(shape))
-        at = dst[None, :, None, :, None].expand(shape)
-        buf.scatter_(3, at, torch.where(keep[None, :, None, :, None], rows, buf.gather(3, at)))
+    for buf in (kv.k, kv.v, kv.k_scale, kv.v_scale):  # [L, B, H, S(, D)]
+        if buf is None:
+            continue
+        tail = (None,) * (buf.dim() - 4)
+        shape = (buf.shape[0], b, buf.shape[2], p) + tuple(buf.shape[4:])
+        rows = buf.gather(3, src[(None, slice(None), None, slice(None)) + tail].expand(shape))
+        at = dst[(None, slice(None), None, slice(None)) + tail].expand(shape)
+        k = keep[(None, slice(None), None, slice(None)) + tail]
+        buf.scatter_(3, at, torch.where(k, rows, buf.gather(3, at)))
     tags = kv.slot_pos.gather(1, src)
     kv.slot_pos.scatter_(1, torch.where(keep, dst, src), tags)
     return kv

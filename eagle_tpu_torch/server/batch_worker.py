@@ -137,6 +137,10 @@ class BatcherWorker(threading.Thread):
                 fut.set_result(fn(b))
             except Exception as e:  # surface to the caller
                 fut.set_exception(e)
+            # a slot an op freed or restored over is no longer its request's
+            for sid in list(live):
+                if b.slots[sid].state in ("free", "restored"):
+                    live.pop(sid).on_done(b.slots[sid].generated)
 
         if b.n_active > 0 or b.n_pending > 0:
             b.step()

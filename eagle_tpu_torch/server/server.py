@@ -3,7 +3,8 @@ eagle_tpu/server/server.py: `ServerMetrics`, `InferenceServer` and `main`).
 
 Usage:
   python -m eagle_tpu_torch.server.server -m target.gguf [--draft draft.gguf]
-      [-np 4] [--host 0.0.0.0] [--port 8080] [--ctx 2048] [--device cuda]
+      [-np 4 [--paged [--kv-pages N] [--page-size 64]]] [--host 0.0.0.0]
+      [--port 8080] [--ctx 2048] [--device cuda]
 
 Endpoints, bodies, SSE chunks and status codes as the reference's
 `build_app`:
@@ -14,15 +15,19 @@ Endpoints, bodies, SSE chunks and status codes as the reference's
        `data: {...}` lines; the chat stream ends with `data: [DONE]`)
   POST /embedding, /v1/embeddings, /rerank, /v1/rerank (`Engine.embed`,
        `Engine.rerank` on the target's params)
-What the port lacks answers 501 naming its ROADMAP item: /infill, POST
-/slots/{id} (slot save / restore), `tools` in a chat request, `grammar` /
-`json_schema`.
+  POST /slots/{id}?action=save|restore|erase (a body's `filename`, by
+       default `slot_{id}.bin`: save writes the slot's state file, restore
+       loads it into the slot and resumes it, erase frees the slot; 501
+       without a batcher, 409 for a paged slot that is not live)
+What the port lacks answers 501 naming its ROADMAP item: /infill, `tools`
+in a chat request, `grammar` / `json_schema`.
 
 The front is the standard library's `ThreadingHTTPServer` (the card's host
 has no aiohttp): one thread per connection. Device work runs on one
 thread: with `-np 1` an inference worker drains a queue of jobs for the
 single-stream engine; with `-np N` > 1 and a chain draft, `BatcherWorker`
-drives the `ContinuousBatcher` and every request, streamed or not, takes a
+drives the `ContinuousBatcher` (with `--paged` the `PagedBatcher` over a
+shared page pool) and every request, streamed or not, takes a
 slot with its own sampler (the reference drops a batched request's sampler
 and streams outside the batcher). Embeddings and rerank run outside the
 batcher, on the thread that drives the device: the inference worker, or
@@ -42,6 +47,7 @@ import signal
 import sys
 import threading
 import time
+import urllib.parse
 import uuid
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -49,7 +55,6 @@ from typing import Any
 
 from ..utils.args import sampler_from_request
 
-_ITEM6 = "ROADMAP queue 1, item 6"
 _ITEM7 = "ROADMAP queue 1, item 7"
 REFUSED_POSTS = {
     "/infill": f"fill-in-the-middle is not ported yet ({_ITEM7})",
@@ -203,6 +208,35 @@ class InferenceServer:
 
         return self.batch_worker.call(snap).result()
 
+    def handle_slot_action(self, slot_id: int, action: str, body: dict) -> dict:
+        """POST /slots/{id}?action=save|restore|erase (server.cpp:3690,
+        3760): on the batch worker, between two steps."""
+        if self.batch_worker is None:
+            raise HTTPError(501, "slot save / restore / erase need the continuous batcher "
+                                 "(-np > 1 with a draft)")
+        filename = body.get("filename", f"slot_{slot_id}.bin")
+        if action == "save":
+            def op(b):
+                return b.save_slot(slot_id, filename)
+        elif action == "restore":
+            def op(b):
+                s = b.restore_slot(filename, slot_id)
+                b.resume_slot(slot_id)
+                return {"id": s.id, "state": s.state, "n_generated": len(s.generated)}
+        elif action == "erase":
+            def op(b):
+                s = b.slots[slot_id]
+                if s.state != "free":
+                    b._free(s)
+                return {"id": slot_id, "state": "free"}
+        else:
+            raise HTTPError(400, f"unknown action {action!r}")
+        try:
+            res = self.batch_worker.call(op).result()
+        except ValueError as e:  # e.g. a paged save of a finished slot (its pages went back)
+            raise HTTPError(409, str(e)) from None
+        return {"id": slot_id, "result": res}
+
     def _complete(self, prompt: str, body: dict) -> dict:
         _refuse_constraints(body)
         t0 = time.time()
@@ -316,7 +350,9 @@ class InferenceServer:
                          for i, v in enumerate(vecs)]}
 
     def route(self, method: str, path: str, out, body_bytes: bytes | None):
-        """Answer one request through `out` (the handler)."""
+        """Answer one request through `out` (the handler); `path` may carry
+        a query."""
+        path, _, query = path.partition("?")
         if method == "GET":
             if path in ("/", "/index.html"):
                 from .webui import INDEX_HTML
@@ -331,9 +367,10 @@ class InferenceServer:
         elif method == "POST":
             if path in REFUSED_POSTS:
                 raise HTTPError(501, REFUSED_POSTS[path])
-            if path.startswith("/slots/"):
-                raise HTTPError(501, f"slot save / restore needs runtime/state_io.py, not "
-                                     f"ported yet ({_ITEM6})")
+            if path.startswith("/slots/") and path[7:].isdigit():
+                action = urllib.parse.parse_qs(query).get("action", [""])[0]
+                return out.send_json(200, self.handle_slot_action(
+                    int(path[7:]), action, self._json(body_bytes)))
             posts = {"/tokenize": self._tokenize, "/detokenize": self._detokenize,
                      "/completion": self.handle_completion,
                      "/v1/completions": self.handle_v1_completions,
@@ -342,15 +379,18 @@ class InferenceServer:
                      "/v1/embeddings": self.handle_v1_embeddings,
                      "/embedding": self.handle_v1_embeddings}
             if path in posts:
-                try:
-                    body = json.loads(body_bytes or b"{}")
-                except json.JSONDecodeError as e:
-                    raise HTTPError(400, f"the body is not JSON: {e}") from None
-                res = posts[path](out, body)
+                res = posts[path](out, self._json(body_bytes))
                 if res is not None:
                     out.send_json(200, res)
                 return None
         raise HTTPError(404, f"no {method} {path}")
+
+    @staticmethod
+    def _json(body_bytes: bytes | None) -> dict:
+        try:
+            return json.loads(body_bytes or b"{}")
+        except json.JSONDecodeError as e:
+            raise HTTPError(400, f"the body is not JSON: {e}") from None
 
     def _tokenize(self, out, body: dict) -> dict:
         return {"tokens": self.engine.tokenizer.encode(body.get("content", ""))}
@@ -429,7 +469,7 @@ def _handler(server: InferenceServer):
             n = int(self.headers.get("Content-Length") or 0)
             body = self.rfile.read(n) if n else None
             try:
-                server.route(method, self.path.split("?")[0], self, body)
+                server.route(method, self.path, self, body)
             except HTTPError as e:
                 self.send_json(e.status, {"error": str(e)})
             except NotImplementedError as e:
@@ -463,6 +503,9 @@ def main(argv=None) -> int:
         tree_branching=tuple(int(x) for x in args.tree.split(",")) if args.tree else None,
         max_seq=args.ctx,
         batch=args.parallel,
+        paged=args.paged,
+        kv_pages=args.kv_pages,
+        page_size=args.page_size,
         feature_source=args.feature_source,
         device=args.device,
     )

@@ -65,7 +65,6 @@ class Opt:
 TOOLS = ("cli", "server", "tokenize")
 
 _ITEM7 = "the rest of the runtime (ROADMAP queue 1, item 7)"
-_PAGED = "paged KV serving (ROADMAP queue 1, item 6: the paged pool and batcher)"
 _LORA = "LoRA adapters (ROADMAP queue 1, item 9)"
 _CS = ("cli", "server")
 
@@ -108,10 +107,10 @@ REGISTRY: tuple[Opt, ...] = (
         refused=f"grammar-constrained decoding: {_ITEM7}"),
     Opt(("--json-schema",), "JSON schema constraining output", tools=("cli",),
         refused=f"grammar-constrained decoding: {_ITEM7}"),
-    Opt(("--prompt-cache",), "session file: save/resume the prompt's KV state",
-        tools=("cli",), refused=f"prompt-cache sessions: {_ITEM7}"),
+    Opt(("--prompt-cache",), "session file: save/resume the prompt's KV state "
+        "(main.cpp --prompt-cache)", tools=("cli",)),
     Opt(("--prompt-cache-all",), "also cache generated output in the session",
-        action="store_true", tools=("cli",), refused=f"prompt-cache sessions: {_ITEM7}"),
+        action="store_true", tools=("cli",)),
     # ---- chat ---------------------------------------------------------------
     Opt(("--chat",), "interactive conversation mode", action="store_true", tools=("cli",)),
     Opt(("--system",), "system prompt (chat mode)", tools=("cli",)),
@@ -124,11 +123,10 @@ REGISTRY: tuple[Opt, ...] = (
     Opt(("--parallel", "-np"), "number of server slots (continuous batching)",
         type=int, default=1, tools=("server",), env="n_parallel"),
     Opt(("--paged",), "serve KV from a shared page pool with prefix reuse",
-        action="store_true", tools=("server",), refused=_PAGED),
+        action="store_true", tools=("server",)),
     Opt(("--kv-pages",), "page-pool size (< batch*ctx/page-size oversubscribes)",
-        type=int, tools=("server",), refused=_PAGED),
-    Opt(("--page-size",), "KV page size", type=int, default=64, tools=("server",),
-        refused=_PAGED),
+        type=int, tools=("server",)),
+    Opt(("--page-size",), "KV page size", type=int, default=64, tools=("server",)),
     # ---- logging ------------------------------------------------------------
     Opt(("--log-level",), "log verbosity", choices=(None, "error", "warn", "info", "debug")),
     Opt(("--log-file",), "log destination file"),

@@ -438,7 +438,6 @@ REFUSALS = {
     "jinja": (lambda port, pair: cli.main(["-m", str(pair[0]), "--chat", "--jinja",
                                            "--device", "cpu"]), "jinja2"),
     "stateful_sampler": (lambda port, pair: _stateful(port), "item 7"),
-    "self_extend": (lambda port, pair: port.engine.generate([1, 5], 4, grp_attn_n=2), "item 6"),
     "bert_target": (lambda port, pair: _bert(port), "item 8"),
     "cls_head": (lambda port, pair: _cls(port), "item 8"),
 }

@@ -3,7 +3,8 @@
 and the `[speculative]` line, `tools.tokenize` the ids; every flag of the
 CLI and the server, config and entry point the port does not have yet
 raises NotImplementedError naming its ROADMAP item; `batch` > 1 with a
-chain draft builds the continuous batcher; the entry points default to the
+chain draft builds the continuous batcher (`paged`: the paged one); the
+paged and prompt-cache flags parse; the entry points default to the
 card."""
 
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 from eagle_tpu_torch.api import Engine, EngineConfig
 from eagle_tpu_torch.runtime.generate import Generator
+from eagle_tpu_torch.runtime.paged_batcher import PagedBatcher
 from eagle_tpu_torch.runtime.sampling import SamplerConfig
 from eagle_tpu_torch.runtime.scheduler import ContinuousBatcher
 from eagle_tpu_torch.server import server
@@ -44,8 +46,7 @@ def test_cli_prints_text_and_speculative_line(pair, capsys):
 
 REFUSED_FLAGS = [(["--lora", "a.gguf"], "item 9"), (["--lora-scale", "0.5"], "item 9"),
                  (["--lookahead", "4,3,2"], "item 7"), (["--grammar", "root ::= \"a\""], "item 7"),
-                 (["--json-schema", "{}"], "item 7"), (["--prompt-cache", "s.bin"], "item 7"),
-                 (["--prompt-cache-all"], "item 7"),
+                 (["--json-schema", "{}"], "item 7"),
                  (["--jinja"], "jinja2"), (["--backend", "xla"], "--device"),
                  (["--repeat-penalty", "1.1"], "item 7")]
 
@@ -58,15 +59,13 @@ def test_cli_refuses_what_is_not_ported(pair, flags, item):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(lora_path="a.gguf"), "item 9"), (dict(lora_scale=0.5), "item 9"),
-    (dict(paged=True, batch=2), "item 6"),
     (dict(lookahead=(4, 3, 2)), "item 7"), (dict(sampler=SamplerConfig(mirostat=2)), "item 7")])
 def test_engine_config_refusals(pair, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Engine(EngineConfig(model_path=pair[0], device="cpu", **kw))
 
 
-SERVER_REFUSED = [(["--paged"], "item 6"), (["--kv-pages", "16"], "item 6"),
-                  (["--page-size", "16"], "item 6"), (["--jinja"], "jinja2"),
+SERVER_REFUSED = [(["--jinja"], "jinja2"),
                   (["--grammar", "root ::= \"a\""], "item 7"), (["--lora", "a.gguf"], "item 9"),
                   (["--lora-scale", "0.5"], "item 9"), (["--backend", "xla"], "--device")]
 
@@ -77,35 +76,66 @@ def test_server_refuses_what_is_not_ported(pair, flags, item):
         server.main(["-m", str(pair[0]), "--device", "cpu", "-np", "2", *flags])
 
 
-@pytest.mark.parametrize("kind", ["chain", "tree", "plain"])
+@pytest.mark.parametrize("kind", ["chain", "tree", "plain", "paged", "paged_int8"])
 def test_batch_engine_builds_the_batcher(pair, kind):
     """As the reference: a chain draft with batch > 1 gets a batcher over a
-    batch-row chain engine; the tree engines and Generator get none."""
-    extra = {"chain": {}, "tree": dict(tree_branching=(2,)), "plain": {}}[kind]
-    eng = Engine(EngineConfig(model_path=pair[0], draft_path=None if kind == "plain" else pair[1],
-                              batch=3, max_seq=128, compute_dtype=torch.float32,
-                              kv_dtype=torch.float32, device="cpu", **extra))
-    if kind == "chain":
+    batch-row chain engine (with `paged`, a PagedBatcher over a pool of
+    `kv_pages` pages, by default batch x pages per slot); the tree engines
+    and Generator get none."""
+    extra = {"chain": {}, "tree": dict(tree_branching=(2,)), "plain": {},
+             "paged": dict(paged=True, page_size=16),
+             "paged_int8": dict(paged=True, kv_pages=5, kv_dtype=torch.int8)}[kind]
+    cfg = dict(model_path=pair[0], draft_path=None if kind == "plain" else pair[1], batch=3,
+               max_seq=128, compute_dtype=torch.float32, kv_dtype=torch.float32, device="cpu")
+    eng = Engine(EngineConfig(**{**cfg, **extra}))
+    if kind in ("chain", "paged", "paged_int8"):
         assert isinstance(eng.batcher, ContinuousBatcher) and eng.batcher.batch == 3
         assert eng.engine.batch == 3 and eng.batcher.engine is eng.engine
+        assert isinstance(eng.batcher, PagedBatcher) == kind.startswith("paged")
     else:
         assert eng.batcher is None
+    if kind == "paged":  # 3 slots x 128 / 16 pages
+        assert eng.batcher.pools["tgt"].n_pages == 24 and eng.batcher.ps == 16
+        text, _ = eng.generate_text("the lazy dog", max_new_tokens=6)
+        assert text == Engine(EngineConfig(**cfg)).generate_text("the lazy dog",
+                                                                 max_new_tokens=6)[0]
+        with pytest.raises(ValueError, match="page pool"):  # the pool is the batcher's
+            eng.engine.generate([1, 5, 6], max_new_tokens=2)
+    if kind == "paged_int8":
+        assert eng.batcher.pools["tgt"].n_pages == 5 and eng.batcher.ps == 64
+        assert eng.engine.state.tgt_kv.k.dtype == torch.int8
+        assert eng.engine.state.tgt_kv.k_scale.shape == (2, 6, 2, 64)
+
+
+def test_paged_and_session_flags_parse():
+    """The flags that refused before parse with the reference's defaults and
+    pass `check_refused`."""
+    from eagle_tpu_torch.utils.args import build_parser, check_refused
+
+    args = build_parser("server").parse_args(["-m", "x", "--paged", "--kv-pages", "16",
+                                              "--page-size", "32"])
+    check_refused(args, "server")
+    assert (args.paged, args.kv_pages, args.page_size) == (True, 16, 32)
+    d = build_parser("server").parse_args(["-m", "x"])
+    assert (d.paged, d.kv_pages, d.page_size) == (False, None, 64)
+    args = build_parser("cli").parse_args(["-m", "x", "--prompt-cache", "s.bin",
+                                           "--prompt-cache-all"])
+    check_refused(args, "cli")
+    assert (args.prompt_cache, args.prompt_cache_all) == ("s.bin", True)
 
 
 def test_entry_point_refusals(engine):
     eng = engine
     for call, item in ((lambda: eng.generate_text("a", grammar="root ::= \"a\""), "item 7"),
                        (lambda: eng.generate_text("a", json_schema={"type": "object"}), "item 7"),
-                       (lambda: eng.generate_text("a", session_path="s.bin"), "item 7"),
                        (lambda: eng.infill("a", "b"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             call()
     gen = eng._plain_generator()
     assert isinstance(gen, Generator)
-    for kw, item in ((dict(grp_attn_n=2), "item 6"),
-                     (dict(session_path="s.bin"), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            gen.generate([1, 5, 6], 4, **kw)
+    # Self-Extend and prompt sessions, refused before, run (tests/test_torch_int8_kv.py and
+    # tests/test_torch_state_io.py hold them against the reference)
+    assert len(gen.generate([1, 5, 6], 4, grp_attn_n=2, grp_attn_w=4, stop_at_eos=False)) == 4
 
 
 def test_engine_defaults_to_the_card(pair):

@@ -1177,3 +1177,89 @@ def params_to(tree, dev):
         return dataclasses.replace(tree, **{k: None if v is None else v.to(dev)
                                             for k, v in tree.tensors().items()})
     return tree.to(dev)
+
+
+# ---- paged and int8 caches
+
+
+def test_int8_quantize_on_the_card_equals_the_cpu(cuda):
+    """`quantize_kv_vec` / `dequantize_kv` on the card give the CPU's codes,
+    scales and values bit for bit (f32 and bf16 inputs, zero rows, ties)."""
+    from eagle_tpu_torch.runtime.kvcache import dequantize_kv, quantize_kv_vec
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((3, 4, 33, 128), generator=gen) * 3
+    x[0, 1, 2] = 0
+    x[1, 0, 0] = (torch.randint(-126, 126, (128,), generator=gen) + 0.5) / 4
+    x[1, 0, 0, 0] = 127 / 4
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype)
+        c_cpu, s_cpu = quantize_kv_vec(xc)
+        c_gpu, s_gpu = quantize_kv_vec(xc.cuda())
+        assert torch.equal(c_gpu.cpu(), c_cpu)
+        assert torch.equal(s_gpu.cpu().view(torch.int32), s_cpu.view(torch.int32))
+        for out in (torch.bfloat16, torch.float32):
+            a = dequantize_kv(c_gpu, s_gpu, out).cpu()
+            b = dequantize_kv(c_cpu, s_cpu, out)
+            assert torch.equal(a.view(torch.int16 if out == torch.bfloat16 else torch.int32),
+                               b.view(torch.int16 if out == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_paged_read_equals_the_dense_read(cuda, kv_dtype):
+    """The same prompt written into a paged pool (its pages in a shuffled
+    order) and into a dense cache gives the same logits (rel err <= 2e-2):
+    the rows read through the page table (the plain read) as the dense
+    cache's read (flash_decode for bf16, the plain read for int8)."""
+    from eagle_tpu_torch.models.llama import llama_forward
+    from eagle_tpu_torch.runtime.kvcache import KVCache, causal_mask_from_tags
+    from eagle_tpu_torch.runtime.paged_kv import PagedKVCache
+
+    tp, _ = _tiny_bf16()
+    cfg, ps, s, b = TINY_CFG, 16, 128, 2
+    dense = KVCache.create(cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim, kv_dtype,
+                           device="cuda")
+    paged = PagedKVCache.create(cfg.n_layers, b, 2 * s // ps, s // ps, ps, cfg.n_kv_heads,
+                                cfg.head_dim, kv_dtype, device="cuda")
+    perm = torch.randperm(2 * s // ps, generator=torch.Generator().manual_seed(2))
+    paged.page_table.copy_(perm.view(b, s // ps).to(torch.int32))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, 512, (b, 40), generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.arange(40, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+    outs = []
+    for kv in (dense, paged):
+        kv.with_tags(pos, pos)
+        fo = llama_forward(tp, cfg, tokens, pos, kv, pos, causal_mask_from_tags(kv.slot_pos, pos),
+                           compute_dtype=torch.bfloat16, kv_limit=64)
+        outs.append(fo.logits.float())
+    _close(outs[1], outs[0], 2e-2)
+
+
+def test_paged_cycle_graphed_equals_eager(cuda):
+    """A paged B = 3 batcher (16-row pages, a pool of 24 pages, bf16), with a
+    prefix hit and page-table changes between replays: graphed tokens, tags
+    and stats equal the eager run's bit for bit, and no graph key is
+    captured twice (the tables are rewritten in place)."""
+    from eagle_tpu_torch.runtime.paged_batcher import PagedBatcher
+
+    tp, dp = _tiny_bf16()
+    shared = np.random.default_rng(3).integers(0, 512, size=48).tolist()
+    prompts = [shared + [5, 6, 7], shared + [9, 10], PROMPT]
+    runs = {}
+    for graphed in (False, True):
+        eng = _batch_engine(tp, dp, graphed)
+        b = PagedBatcher(eng, n_pages=24, page_size=16)
+        s0 = b.submit(prompts[0], max_new_tokens=60, stop_at_eos=False)
+        while len(s0.generated) < 3:
+            b.step()
+        s1 = b.submit(prompts[1], max_new_tokens=40, stop_at_eos=False)
+        s2 = b.submit(prompts[2], max_new_tokens=40, stop_at_eos=False)
+        b.run_until_done(max_steps=300)
+        runs[graphed] = ([s.generated for s in (s0, s1, s2)], dict(b.stats),
+                         eng.state.tgt_kv.slot_pos.clone(), eng.state.dft_kv.slot_pos.clone())
+        if graphed:  # each key captured once: a page-table change recaptures nothing
+            assert eng.graphs.replays > 0
+            assert eng.graphs.captures == len(eng.graphs._graphs) == eng.graphs.eager
+    assert runs[True][1]["prefix_hits"] == 1
+    for got, want in zip(runs[True], runs[False]):
+        assert (torch.equal(got, want) if isinstance(got, torch.Tensor) else got == want)

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that no numeric test shows:
 
-- nothing in `eagle_tpu_torch/` or `chip_smoke.py` imports jax or the JAX
-  package (an AST scan of every import);
+- nothing in `eagle_tpu_torch/` or `chip_smoke.py` imports jax, ml_dtypes
+  or the JAX package (an AST scan of every import; the paged pool, the
+  paged batcher and the state files among them);
 - an entry point built with its default device (the card) raises on a host
   without CUDA instead of falling back to the CPU (the engines, the loaders,
   `api.Engine` and the CLI among them);
@@ -24,7 +25,7 @@ from eagle_tpu_torch.ops.qmm import qmm, qmm_i4, qmm_i4_stacked, qmm_stacked
 from eagle_tpu_torch.quant.qtensor import QTensor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "eagle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "eagle_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -44,7 +45,9 @@ def _port_files():
                  "eagle_tpu_torch/tools/tokenize.py", "eagle_tpu_torch/runtime/scheduler.py",
                  "eagle_tpu_torch/server/server.py", "eagle_tpu_torch/server/batch_worker.py",
                  "eagle_tpu_torch/server/chat_templates.py", "eagle_tpu_torch/server/webui.py",
-                 "eagle_tpu_torch/runtime/chat.py"):
+                 "eagle_tpu_torch/runtime/chat.py", "eagle_tpu_torch/runtime/paged_kv.py",
+                 "eagle_tpu_torch/runtime/paged_batcher.py",
+                 "eagle_tpu_torch/runtime/state_io.py"):
         assert must in names
     return files
 
@@ -78,7 +81,8 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
                                    "EagleTreeEngine", "EagleTree2Engine",
                                    "params_from_numpy", "load_llama_params",
                                    "load_eagle_params", "Engine", "cli", "server",
-                                   "ChatSession", "cli --chat"])
+                                   "ChatSession", "cli --chat", "PagedKVCache.create",
+                                   "server --paged", "Engine paged int8"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from eagle_tpu_torch.api import Engine, EngineConfig
@@ -90,6 +94,7 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
     from eagle_tpu_torch.runtime.chat import ChatSession
     from eagle_tpu_torch.runtime.generate import Generator
     from eagle_tpu_torch.runtime.kvcache import KVCache
+    from eagle_tpu_torch.runtime.paged_kv import PagedKVCache
     from eagle_tpu_torch.runtime.speculative import EagleChainEngine
     from eagle_tpu_torch.runtime.tree import EagleTreeEngine
     from eagle_tpu_torch.runtime.tree2 import EagleTree2Engine
@@ -110,6 +115,11 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         "server": lambda: server.main(["-m", "no-such-file.gguf", "-np", "2"]),
         "ChatSession": lambda: ChatSession(Generator({}, TINY, max_seq=16), tokenizer=None),
         "cli --chat": lambda: cli.main(["-m", "no-such-file.gguf", "--chat"]),
+        "PagedKVCache.create": lambda: PagedKVCache.create(1, 2, 4, 2, 16, 2, 64),
+        "server --paged": lambda: server.main(["-m", "no-such-file.gguf", "-np", "2",
+                                               "--paged"]),
+        "Engine paged int8": lambda: Engine(EngineConfig(
+            model_path="no-such-file.gguf", batch=2, paged=True, kv_dtype=torch.int8)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

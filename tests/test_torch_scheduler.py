@@ -18,8 +18,8 @@ Also:
 - the rows outside the cache (the draft pair at -1 of a first chunk, a
   prompt ending one token below max_seq) leave every tag as the
   reference's;
-- saturation returns None; a prompt that leaves no room, and slot save /
-  restore, raise."""
+- saturation returns None; a prompt that leaves no room raises; slot save,
+  restore and resume work."""
 
 from __future__ import annotations
 
@@ -257,10 +257,29 @@ def test_prompt_without_room_is_refused(models, n):
 
 
 @pytest.mark.parametrize("call", ["save_slot", "restore_slot", "resume_slot"])
-def test_slot_state_io_names_its_item(models, call):
+def test_slot_state_io_names_its_item(models, call, tmp_path):
+    """Slot save / restore / resume, which refused before runtime/state_io.py
+    was ported, work: the save holds the slot's progress, the restore
+    brings back its tags and counters into a paused slot, and the resumed
+    slot goes on with the single-sequence engine's tokens."""
     b = ContinuousBatcher(port_engine(models, 1))
-    with pytest.raises(NotImplementedError, match="state_io.*ROADMAP queue 1, item 6"):
-        getattr(b, call)(0, "slot.bin")
+    (p,) = prompts(8, 5)
+    s = b.submit(p, max_new_tokens=4, stop_at_eos=False)
+    b.run_until_done(max_steps=20)
+    first, tags = list(s.generated), b.state.tgt_kv.slot_pos.clone()
+    extra = b.save_slot(0, tmp_path / "slot.bin")
+    assert extra == {"generated": first, "prompt_len": 5, "max_new": 4, "stop_at_eos": False}
+    if call == "save_slot":
+        return
+    b.state.tgt_kv.slot_pos.fill_(-1)
+    r = b.restore_slot(tmp_path / "slot.bin")
+    assert r is s and r.state == "restored" and r.generated == first
+    assert torch.equal(b.state.tgt_kv.slot_pos, tags) and b.n_active == 0
+    if call == "restore_slot":
+        return
+    b.resume_slot(0, max_new_tokens=12)
+    b.run_until_done(max_steps=40)
+    assert s.generated[:12] == single(models, p, 12)
 
 
 # ---- the repairs of the chain engine

@@ -13,6 +13,12 @@ at 3 slots (the continuous batcher):
 - /tokenize and /detokenize round trip, /metrics counts the requests,
   /slots lists the slots, /props and the web page are served;
 - what the port lacks answers 501 naming its ROADMAP item;
+- POST /slots/{id}?action=save|restore|erase answers the reference's bodies
+  (501 without a batcher), and the restored slot holds the saved one's
+  tags and tokens;
+- `--paged` at 3 slots (a pool of 16-row pages, oversubscribed) answers the
+  reference's `--paged` server's bodies, and a save of a finished paged
+  slot answers 409 as the reference's;
 - a batched request's temperature is honoured (the reference drops a
   batched request's sampler: a fault not copied);
 - a step fault reaches the waiting request as a 500."""
@@ -36,6 +42,7 @@ from eagle_tpu.api import Engine as JaxEngine
 from eagle_tpu.api import EngineConfig as JaxEngineConfig
 from eagle_tpu.server.server import InferenceServer as JaxServer
 from eagle_tpu_torch.api import Engine, EngineConfig
+from eagle_tpu_torch.runtime.paged_batcher import PagedBatcher
 from eagle_tpu_torch.server.server import InferenceServer
 from torch_port_util import ENGINE_PROMPT, background_cpu, tiny_engine_pair  # noqa: F401
 
@@ -67,11 +74,11 @@ def _wait_health(base: str) -> None:
     raise TimeoutError(base)
 
 
-def _reference(pair, slots: int):
+def _reference(pair, slots: int, **kw):
     """The reference server on a thread (as tests/test_server.py starts it)."""
     eng = JaxEngine(JaxEngineConfig(model_path=pair[0], draft_path=pair[1], n_draft=K,
                                     batch=slots, max_seq=128, backend="xla",
-                                    compute_dtype=jnp.float32, kv_dtype=jnp.float32))
+                                    compute_dtype=jnp.float32, kv_dtype=jnp.float32, **kw))
     srv, port, loop, holder = JaxServer(eng, model_name="tiny"), _free_port(), \
         asyncio.new_event_loop(), {}
 
@@ -197,7 +204,7 @@ def test_tokenize_props_slots_and_page(servers):
     assert ctype.startswith("text/html") and html == get(servers["ref"] + "/")[1]
 
 
-REFUSED = [("/infill", {"input_prefix": "a"}, "item 7"), ("/slots/0?action=save", {}, "item 6"),
+REFUSED = [("/infill", {"input_prefix": "a"}, "item 7"),
            ("/v1/chat/completions", {"messages": CHAT, "tools": [{"type": "function"}]},
             "item 7"),
            ("/completion", {"prompt": "a", "grammar": "root ::= \"a\""}, "item 7"),
@@ -283,19 +290,135 @@ def test_step_fault_reaches_the_request(servers, monkeypatch):
 
     if servers["slots"] == 1:
         monkeypatch.setattr(eng, "generate", broken)
-    else:  # a fresh worker over the same batcher, so the module's stays alive
+    else:  # a fresh worker over the same batcher: the module's is ended first, since two
+        # workers stepping one (not thread-safe) batcher race for its queue and counters
         from eagle_tpu_torch.server.batch_worker import BatcherWorker
 
+        srv.batch_worker.shutdown()
+        srv.batch_worker.join(30)
+        assert not srv.batch_worker.is_alive()
         monkeypatch.setattr(eng, "_multi_cycle", broken)
         worker = BatcherWorker(srv.engine.batcher)
         worker.start()
-        monkeypatch.setattr(srv, "batch_worker", worker)
-    with pytest.raises(urllib.error.HTTPError) as e:
-        post(servers["port"] + "/completion", {"prompt": "a dog", "n_predict": 4,
-                                               "temperature": 0})
-    assert e.value.code == 500 and "kernel launch failed" in json.loads(e.value.read())["error"]
-    if servers["slots"] > 1:
-        worker.join(10)
-        assert isinstance(worker.error, RuntimeError) and not worker.is_alive()
-        for slot in srv.engine.batcher.slots:  # leave the batcher as the module found it
-            srv.engine.batcher._free(slot)
+        srv.batch_worker = worker
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            post(servers["port"] + "/completion", {"prompt": "a dog", "n_predict": 4,
+                                                   "temperature": 0})
+        assert e.value.code == 500 and \
+            "kernel launch failed" in json.loads(e.value.read())["error"]
+        if servers["slots"] > 1:
+            worker.join(10)
+            assert isinstance(worker.error, RuntimeError) and not worker.is_alive()
+    finally:
+        if servers["slots"] > 1:  # leave the module a live worker over a clean batcher
+            for slot in srv.engine.batcher.slots:
+                srv.engine.batcher._free(slot)
+            monkeypatch.undo()
+            srv.batch_worker = BatcherWorker(srv.engine.batcher)
+            srv.batch_worker.start()
+
+
+def _slot_action(base, slot, action, body):
+    return _answer(f"{base}/slots/{slot}?action={action}", body)
+
+
+def test_slot_save_restore_erase(servers, tmp_path):
+    """A finished greedy request's slot saved, restored into another slot
+    (which resumes) and erased: the reference's bodies and status codes; at
+    one slot both answer 501. The restored slot's rows equal the saved
+    one's."""
+    results = {}
+    for side in ("port", "ref"):
+        base = servers[side]
+        post(base + "/completion", {"prompt": "the quick brown fox", "n_predict": 5,
+                                    "temperature": 0})
+        f = str(tmp_path / f"{side}.bin")
+        out = [_slot_action(base, 0, "save", {"filename": f}),
+               _slot_action(base, 1, "restore", {"filename": f}),
+               _slot_action(base, 1, "erase", {}),
+               _slot_action(base, 0, "bogus", {})]
+        results[side] = [(code, body if code == 200 else None) for code, body in out]
+    assert results["port"] == results["ref"]
+    codes = [c for c, _ in results["port"]]
+    if servers["slots"] == 1:
+        assert codes == [501] * 4
+        return
+    assert codes == [200, 200, 200, 400]
+    save = results["port"][0][1]["result"]
+    assert save["prompt_len"] == len(post(servers["port"] + "/tokenize",
+                                          {"content": "the quick brown fox"})["tokens"])
+    assert len(save["generated"]) == 5
+    assert results["port"][1][1]["result"] == {"id": 1, "state": "generating", "n_generated": 5}
+
+
+def test_erase_ends_the_slots_request(servers):
+    """Erasing a slot whose request is generating ends that request: its
+    reply comes back with the tokens it had, and the slot is free."""
+    if servers["slots"] == 1:
+        return
+    base = servers["port"]
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        reply = ex.submit(post, base + "/completion", {"prompt": "the lazy dog",
+                                                       "n_predict": 100, "temperature": 0,
+                                                       "ignore_eos": True})
+        for _ in range(600):
+            busy = [s for s in json.loads(get(base + "/slots")[1]) if s["state"] != "free"]
+            if busy and busy[0]["n_generated"] > 1:
+                break
+            time.sleep(0.05)
+        assert busy, "the request never took a slot"
+        assert _slot_action(base, busy[0]["id"], "erase", {}) == (
+            200, {"id": busy[0]["id"], "result": {"id": busy[0]["id"], "state": "free"}})
+        got = reply.result(timeout=60)
+    assert 1 <= got["tokens_predicted"] < 100
+    assert all(s["state"] == "free" for s in json.loads(get(base + "/slots")[1]))
+
+
+@pytest.fixture(scope="module")
+def paged_servers(pair):
+    """The port's and the reference's `--paged` servers at 3 slots, 16
+    pages of 16 rows against 3 x 128 addressable slots."""
+    kw = dict(paged=True, kv_pages=16, page_size=16)
+    eng = Engine(EngineConfig(model_path=pair[0], draft_path=pair[1], n_draft=K, batch=3,
+                              max_seq=128, compute_dtype=torch.float32, kv_dtype=torch.float32,
+                              device="cpu", **kw))
+    srv = InferenceServer(eng, model_name="tiny")
+    host, port = srv.start("127.0.0.1", 0)
+    ref, stop_ref = _reference(pair, 3, **kw)
+    yield dict(port=f"http://{host}:{port}", ref=ref, srv=srv)
+    srv.stop()
+    stop_ref()
+
+
+def test_paged_server_matches_reference(paged_servers, tmp_path):
+    """The greedy requests (streamed and not, in order), then four
+    concurrent ones sharing a prompt prefix, on both `--paged` servers: the
+    same bodies apart from ids and times. A finished slot's save answers
+    409 on both (its pages went back to the pool); erase answers 200."""
+    srv = paged_servers
+    assert isinstance(srv["srv"].engine.batcher, PagedBatcher)
+    for path, body in REQUESTS:
+        got = post(srv["port"] + path, body, raw=True)
+        want = post(srv["ref"] + path, body, raw=True)
+        if body.get("stream"):
+            assert [f == "[DONE]" or _strip(json.loads(f)) for f in _frames(got[1])] == \
+                [f == "[DONE]" or _strip(json.loads(f)) for f in _frames(want[1])], path
+        else:
+            assert _strip(json.loads(got[1])) == _strip(json.loads(want[1])), path
+    prompts = [ENGINE_PROMPT + tail for tail in (" the fox", " a dog", " over", " then the")]
+
+    def go(base, p):
+        return post(base + "/completion", {"prompt": p, "n_predict": 10,
+                                           "temperature": 0})["content"]
+
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        got = list(ex.map(lambda p: go(srv["port"], p), prompts))
+    assert got == [go(srv["ref"], p) for p in prompts]
+    stats = srv["srv"].engine.batcher.stats
+    assert stats["prefix_hits"] >= 1 and stats["prefill_tokens_skipped"] >= 16
+    for side in ("port", "ref"):
+        code, body = _slot_action(srv[side], 0, "save", {"filename": str(tmp_path / "x.bin")})
+        assert code == 409 and "pool" in body["error"], (side, body)
+        assert _slot_action(srv[side], 2, "erase", {}) == (200, {"id": 2, "result": {
+            "id": 2, "state": "free"}})
