@@ -209,6 +209,32 @@ paged. paged and int8 serving on phase 6's files (unfused, K = 5, greedy):
    with `--paged --kv-pages 64 -np 4` as subprocesses: a streamed
    /completion whose slot is saved mid-stream, a /completion, the slot
    restored, SIGTERM exit 0 (`[paged cli]`, `[paged http]`).
+constrained. stateful samplers and grammar-constrained decoding on phase
+   6's files (unfused, K = 5), one `Engine` (the chain, greedy, max_seq
+   2048) and its `Generator`, a ~100-word prompt: (a) the penalties
+   (repeat, frequency, presence), DRY, mirostat v1 and v2 through the
+   graphed decode step, 32 tokens: eager once and graphed twice, the same
+   tokens bit for bit, no capture or eager body on the second run, 129
+   qmm_gemv per token; device ms per token (CUDA events over 16 replays)
+   against the same engine's greedy step and phase cli's sampled one
+   (`[constrained stateful]`); (b) two chat turns with a repeat penalty,
+   graphed twice and eager, bit for bit (`[constrained chat]`); (c) a
+   letter grammar (`[a-h ]+`, 24 tokens) and a JSON schema (a boolean and
+   an enum, 48 tokens) through `Generator.generate_constrained` (graphed
+   twice, eager once for the letters) and `EagleChainEngine.generate_constrained`
+   (graphed twice): the grammar accepts each text, the schema's parses
+   where it closed, the chain's tokens equal the plain ones up to the
+   near-tie rule among the legal tokens, 129 qmm_mma and 30 qmm_gemv per
+   proposal; host ms per token of the mask walk, wall ms per token,
+   device ms per constrained step and per proposal, mean_accept_len
+   (`[constrained]`); (d) the engine freed, the CLI with `--draft
+   --grammar` and with `--repeat-penalty 1.3 --temp 0` (each text == the
+   in-process run's) and the server (`-np 1`: a `json_schema` completion
+   that parses, a `tools` request with `tool_choice: "required"` that
+   answers `tool_calls`; SIGTERM exit 0) as subprocesses started together
+   (`[constrained cli]`, `[constrained http]`). The chain's launches of the
+   timed letter-grammar run stand in the `kernels` line as
+   `constrained_path_launches`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -3752,6 +3778,445 @@ def paged_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
 I4_ROWS = (1, 2, 3, 6, 8, 37, 512)  # qmm_i4's SIMT (1), small-row (2-8) and wgmma rows
 
 
+CONSTRAINED_WORDS = 100  # the phase's prompt, in vocabulary words
+STATEFUL_NEW = 32  # new tokens of each stateful run
+#: new tokens of each constrained run: the grammar's stack deepens with every
+#: repetition of `+` (the reference's automaton, copied), so the letters'
+#: mask walk grows with the text
+CONSTRAINED_NEW = {"letters": 24, "json": 48}
+STATEFUL_CONFIGS = {  # SamplerConfig fields of each stateful cell
+    "penalties": dict(greedy=True, penalty_repeat=1.3, penalty_freq=0.2, penalty_present=0.2),
+    "dry": dict(greedy=True, dry_multiplier=0.8, dry_allowed_length=2),
+    "mirostat_v1": dict(mirostat=1, mirostat_tau=5.0, temperature=1.0),
+    "mirostat_v2": dict(mirostat=2, mirostat_tau=5.0, temperature=1.0),
+}
+CLI_PENALTY = dict(temperature=0.0, greedy=True, penalty_repeat=1.3)  # --temp 0 --repeat-penalty 1.3
+#: letters a-h and the space: 490 of the 32,000 pieces legal at a time. The
+#: walk over the vocabulary's trie grows with the legal pieces: at [a-z ]+
+#: (31,768 legal) it visits nearly the whole trie for every token
+LETTERS_GBNF = "root ::= [a-h ]+"
+CONSTRAINED_SCHEMA = {"type": "object", "properties": {"a": {"type": "boolean"},
+                                                       "b": {"enum": ["x", "y"]}},
+                      "required": ["a", "b"]}
+CONSTRAINED_TOOLS = [{"type": "function", "function": {
+    "name": "add", "description": "add two numbers",
+    "parameters": {"type": "object", "properties": {"a": {"type": "boolean"}},
+                   "required": ["a"]}}}]
+PROPOSAL_LAUNCHES = {"qmm_mma": VERIFY_QMM, "qmm_gemv": 5 * 6}  # the verify; K = 5 draft steps
+
+
+def timed_mask(grammar) -> dict:
+    """Wrap `grammar.token_mask` to add up its host time and its calls."""
+    real, acc = grammar.token_mask, {"calls": 0, "s": 0.0}
+
+    def token_mask(trie):
+        t0 = time.perf_counter()
+        try:
+            return real(trie)
+        finally:
+            acc["s"] += time.perf_counter() - t0
+            acc["calls"] += 1
+
+    grammar.token_mask = token_mask
+    return acc
+
+
+def constrained_near_tie(gen, ids, want: list, got: list, gbnf: str, pieces, trie, eos: int,
+                         what: str) -> dict | None:
+    """Where two constrained greedy streams first differ, the top-2 margin
+    of the target's logits among the tokens the grammar allows there (full
+    prefill of the common prefix) must be within 1e-2 of the logit range:
+    a bf16 near-tie, not a divergence."""
+    import numpy as np
+    import torch
+
+    from eagle_tpu_torch.runtime.grammar import Grammar
+
+    i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if i is None:
+        if len(want) != len(got):
+            raise AssertionError(f"{what}: {len(got)} tokens against {len(want)}")
+        log(f"[constrained] {what}: tokens identical ({len(got)} tokens)")
+        return None
+    g = Grammar(gbnf)
+    for t in want[:i]:
+        g.accept_token(t, pieces[t])
+    mask = g.token_mask(trie)
+    mask[eos] = bool(g.can_end)
+    seq = list(ids) + want[:i]
+    t = 1024 if len(seq) > 512 else 512
+    padded = np.zeros((1, t), np.int32)
+    padded[0, : len(seq)] = seq
+    lg, _, _ = gen._prefill(torch.from_numpy(padded).cuda(),
+                            torch.tensor([len(seq)], dtype=torch.int32, device="cuda"), t)
+    lg = lg[0].float().cpu().numpy()
+    legal = np.sort(lg[mask])[::-1]
+    margin = float(legal[0] - legal[1]) if len(legal) > 1 else float("inf")
+    rng = float(lg.max() - lg.min())
+    log(f"[constrained] {what}: tokens differ first at step {i}: top-2 margin among the legal "
+        f"tokens {margin:.4e}, logit range {rng:.4e}")
+    if margin > 1e-2 * rng:
+        raise AssertionError(f"{what}: tokens diverge beyond a bf16 near-tie")
+    return dict(step=i, margin=margin, logit_range=rng)
+
+
+def stateful_cells(gen, ids: list, greedy_ms: float, report: dict) -> dict:
+    """Each stateful sampler through the graphed `Generator`: eager once,
+    graphed twice from seed 0 (the first run captures), the same tokens bit
+    for bit, no capture and no eager body on the second run, 129 qmm_gemv
+    per decoded token; device ms per token over 16 replays against the
+    greedy step's (this phase) and phase cli's sampled step."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.runtime.sampling import SamplerConfig
+
+    cli_sampled = report["cli_path"]["sampler_share_ms"]["plain"]["sampled_ms"]
+    out = {}
+    for name, kw in STATEFUL_CONFIGS.items():
+        scfg = SamplerConfig(**kw)
+
+        def run():
+            return gen.generate(ids, STATEFUL_NEW, sampler=scfg, seed=0, stop_at_eos=False)
+
+        want = eager_tokens(gen, run)
+        if run() != want:  # the capture run
+            raise AssertionError(f"stateful {name}: graphed tokens differ from eager tokens")
+        captures, eager = gen.graphs.captures, gen.graphs.eager
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        again = run()
+        wall = time.perf_counter() - t0
+        if again != want or (gen.graphs.captures, gen.graphs.eager) != (captures, eager):
+            raise AssertionError(f"stateful {name}: a second graphed run differs, captured a "
+                                 "graph or ran a body eagerly")
+        if _build.launches["qmm_gemv"] != DECODE_QMM * (STATEFUL_NEW - 1) or any(
+                _build.plain_calls.values()):
+            raise AssertionError(f"stateful {name}: launches {dict(_build.launches)}")
+        pos = len(ids) + STATEFUL_NEW - 1
+        lim = gen.kv_read_bucket(pos + 16)
+        last = torch.tensor([want[-1]], dtype=torch.int32, device="cuda")
+        gen._decode_chunk(last, pos, scfg, 16, kv_limit=lim)  # the bucket's graph
+        eager = gen.graphs.eager
+        dev = timed_events(lambda: gen._decode_chunk(last, pos, scfg, 16, kv_limit=lim), 16)
+        if gen.graphs.eager != eager:
+            raise AssertionError(f"stateful {name}: a step ran eagerly while timed")
+        out[name] = dict(config=kw, distinct_tokens=len(set(want)), device=dev,
+                         share_ms=dev["ms"] - greedy_ms, wall_s=wall)
+        log(f"[constrained stateful] {name}: graphed == eager bit for bit, no recapture; "
+            f"{len(set(want))} distinct tokens of {len(want)}; device {dev['ms']:.3f} ms per "
+            f"token (greedy {greedy_ms:.3f}: +{dev['ms'] - greedy_ms:.3f}; phase cli's sampled "
+            f"step {cli_sampled:.3f}); 129 qmm_gemv per token")
+    return out
+
+
+def chat_penalty(eng, gen, texts: list) -> dict:
+    """Two chat turns with a repeat penalty (greedy): graphed once to
+    capture, again with no capture, and eager: the same tokens bit for bit;
+    the timed session's decode tokens/s."""
+    import torch
+
+    from eagle_tpu_torch.runtime.sampling import SamplerConfig
+
+    scfg = SamplerConfig(greedy=True, penalty_repeat=1.3)
+    marks: dict = {}
+
+    def session():
+        gen.kv.rollback(torch.zeros((1,), dtype=torch.int32, device="cuda"))
+        s = eng.chat_session(template="vicuna")
+        outs, decode = [], []
+        for t in texts:
+            n = [0]
+            first = []
+
+            def cb(_tok, n=n, first=first):
+                if not first:
+                    torch.cuda.synchronize()
+                    first.append(time.perf_counter())
+                n[0] += 1
+
+            s.ask(t, max_new_tokens=STATEFUL_NEW, sampler=scfg, on_token=cb)
+            torch.cuda.synchronize()
+            decode.append((n[0] - 1) / max(time.perf_counter() - first[0], 1e-9))
+            outs.append(list(s.last_out))
+        marks["decode_tps"] = decode
+        return outs
+
+    want = eager_tokens(gen, session)
+    if session() != want:
+        raise AssertionError("chat penalty: graphed tokens differ from eager tokens")
+    captures = gen.graphs.captures
+    if session() != want or gen.graphs.captures != captures:
+        raise AssertionError("chat penalty: a second session differs or captured a graph")
+    log(f"[constrained chat] 2 turns with repeat penalty 1.3: graphed == eager bit for bit, "
+        f"no recapture; decode tokens/s per turn {', '.join(f'{x:.1f}' for x in marks['decode_tps'])}")
+    return dict(turn_tokens=[len(t) for t in want], decode_tps=marks["decode_tps"])
+
+
+def constrained_cells(eng, gen, ids: list, tok, pieces, trie) -> tuple[dict, dict]:
+    """The letter grammar and the JSON schema, each through the plain
+    constrained generator (graphed twice, eager once for the letters) and
+    the chain (graphed twice): the grammar accepts every text, the schema's
+    parses where it closed, the chain's tokens equal the plain ones up to
+    the near-tie rule, no capture on a second run; launches per proposal
+    asserted; host ms per token of the mask walk, wall ms per token, device
+    ms per constrained step and per proposal (CUDA events over replays).
+    Returns (results, the chain's launches of the timed letters run)."""
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.runtime.grammar import Grammar
+    from eagle_tpu_torch.runtime.json_schema import json_schema_to_gbnf
+
+    ce, eos = eng.engine, tok.eos_id
+    out: dict = {}
+    chain_launches: dict = {}
+    for name, gbnf in (("letters", LETTERS_GBNF),
+                       ("json", json_schema_to_gbnf(CONSTRAINED_SCHEMA))):
+        res: dict = {}
+        n_new = CONSTRAINED_NEW[name]
+
+        def plain_run():
+            g = Grammar(gbnf)
+            acc = timed_mask(g)
+            t0 = time.perf_counter()
+            toks = gen.generate_constrained(ids, g, tok, max_new_tokens=n_new)
+            return toks, acc, time.perf_counter() - t0
+
+        def chain_run():
+            g = Grammar(gbnf)
+            acc = timed_mask(g)
+            t0 = time.perf_counter()
+            toks, stats = ce.generate_constrained(ids, g, tok, max_new_tokens=n_new)
+            return toks, stats, acc, time.perf_counter() - t0
+
+        want = plain_run()[0]  # the capture run
+        captures = gen.graphs.captures
+        _build.reset_counts()
+        toks, acc, wall = plain_run()
+        steps = len(toks) - (toks[-1] == eos)
+        if toks != want or gen.graphs.captures != captures:
+            raise AssertionError(f"constrained {name}: a second plain run differs or captured")
+        if _build.launches["qmm_gemv"] != DECODE_QMM * steps:
+            raise AssertionError(f"constrained {name}: {_build.launches['qmm_gemv']} qmm_gemv "
+                                 f"for {steps} steps")
+        if name == "letters" and eager_tokens(gen, lambda: plain_run()[0]) != want:
+            raise AssertionError(f"constrained {name}: eager tokens differ from graphed")
+        text = "".join(pieces[t] for t in want if t != eos)
+        closed = want[-1] == eos
+        if not Grammar(gbnf).accepts_text(text, partial=not closed):
+            raise AssertionError(f"constrained {name}: the grammar refuses {text[:200]!r}")
+        if name == "json" and closed:
+            obj = json.loads(text)
+            if not isinstance(obj["a"], bool) or obj["b"] not in ("x", "y"):
+                raise AssertionError(f"constrained json: {obj}")
+        pos = len(ids) + len(want)
+
+        def steps():
+            return [gen._constrained_step(want[-1], pos + i) for i in range(16)]
+
+        steps()  # the graphs of every read bucket the 16 steps take
+        eager = gen.graphs.eager
+        dev = timed_events(steps, 16)
+        if gen.graphs.eager != eager:
+            raise AssertionError(f"constrained {name}: a step ran eagerly while timed")
+        res["plain"] = dict(tokens=len(want), closed=closed, text=text[:400],
+                            mask_host_ms_per_token=acc["s"] * 1e3 / len(want),
+                            mask_calls=acc["calls"], wall_ms_per_token=wall * 1e3 / len(want),
+                            device_ms_per_step=dev["ms"])
+        got = chain_run()[0]  # the capture run
+        captures = ce.graphs.captures
+        _build.reset_counts()
+        got2, stats, cacc, cwall = chain_run()
+        launches = dict(_build.launches)
+        if got2 != got or ce.graphs.captures != captures:
+            raise AssertionError(f"constrained {name}: a second chain run differs or captured")
+        per = {k: launches[k] / stats["n_cycles"] for k in PROPOSAL_LAUNCHES}
+        if per != PROPOSAL_LAUNCHES or any(_build.plain_calls.values()):
+            raise AssertionError(f"constrained {name}: launches per proposal {per}")
+        if name == "letters":
+            chain_launches = launches
+        tie = constrained_near_tie(gen, ids, want, got, gbnf, pieces, trie, eos,
+                                   f"{name}: chain vs plain")
+        st, m = ce.state, int(ce.state.n_past[0])
+        lim = ce.kv_read_bucket(m + ce.K + 2)
+        ce._propose(lim, 256)  # the bucket's graph
+        eager = ce.graphs.eager
+        pdev = timed_events(lambda: [ce._propose(lim, 256) for _ in range(8)], 8)
+        if ce.graphs.eager != eager:
+            raise AssertionError(f"constrained {name}: a proposal ran eagerly while timed")
+        res["chain"] = dict(tokens=len(got), stats=stats, near_tie=tie,
+                            mask_host_ms_per_token=cacc["s"] * 1e3 / len(got),
+                            mask_calls=cacc["calls"], wall_ms_per_token=cwall * 1e3 / len(got),
+                            device_ms_per_proposal=pdev["ms"], launches_per_proposal=per)
+        p, c = res["plain"], res["chain"]
+        log(f"[constrained] {name}: plain {p['tokens']} tokens ({'closed' if closed else 'open'}, "
+            f"accepted by the grammar{', json.loads' if name == 'json' and closed else ''}): "
+            f"wall {p['wall_ms_per_token']:.2f} ms per token, the mask walk "
+            f"{p['mask_host_ms_per_token']:.2f} ms per token on the host, device "
+            f"{p['device_ms_per_step']:.3f} ms per step; chain {c['tokens']} tokens, "
+            f"mean_accept_len {stats['mean_accept_len']:.3f} over {stats['n_cycles']} "
+            f"proposals: wall {c['wall_ms_per_token']:.2f} ms per token, mask "
+            f"{c['mask_host_ms_per_token']:.2f} ms per token ({cacc['calls']} walks), device "
+            f"{c['device_ms_per_proposal']:.3f} ms per proposal; launches per proposal {per}; "
+            f"text {text[:60]!r}")
+        out[name] = res
+    return out, chain_launches
+
+
+def constrained_subprocesses(target, draft, prompt: str, want: dict, tmp: pathlib.Path) -> dict:
+    """The CLI with `--draft --grammar` and with `--repeat-penalty 1.3 --temp
+    0`, and the server (`-np 1`), as subprocesses started together: each
+    CLI's text must equal the in-process run's; the server must answer a
+    `json_schema` completion whose content parses with the schema's keys
+    and a `tools` request with `tool_choice: "required"` with a
+    `tool_calls` message, then end with exit 0 on SIGTERM."""
+    import signal
+    import socket
+    import urllib.request
+
+    env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
+    cwd = pathlib.Path(__file__).resolve().parent
+    base = [sys.executable, "-m", "eagle_tpu_torch.tools.cli", "-m", str(target), "-p", prompt]
+    clis = {"grammar": base + ["-n", str(CONSTRAINED_NEW["letters"]), "--draft", str(draft),
+                               "--grammar", LETTERS_GBNF],
+            "repeat_penalty": base + ["-n", str(STATEFUL_NEW), "--repeat-penalty", "1.3",
+                                      "--temp", "0"]}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    err_path = tmp / "constrained_server.stderr"
+    t0 = time.time()
+    procs = {k: subprocess.Popen(v, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k, v in clis.items()}
+    with open(err_path, "w") as err:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "eagle_tpu_torch.server.server", "-m", str(target), "--draft",
+             str(draft), "-np", "1", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=cwd, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    out: dict = {}
+    try:
+        while True:
+            if server.poll() is not None:
+                raise AssertionError(f"server exited {server.returncode} before it answered: "
+                                     f"{err_path.read_text()[-3000:]}")
+            try:
+                urllib.request.urlopen(url + "/health", timeout=2)
+                break
+            except OSError:
+                if time.time() - t0 > 300:
+                    raise
+                time.sleep(0.25)
+        out["server_up_s"] = time.time() - t0
+
+        def post(path, body):
+            req = urllib.request.Request(url + path, json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+
+        t1 = time.time()
+        res = post("/completion", {"prompt": prompt, "n_predict": 256,
+                                   "json_schema": CONSTRAINED_SCHEMA, "temperature": 0})
+        out["json_s"] = time.time() - t1
+        obj = json.loads(res["content"])
+        if not isinstance(obj["a"], bool) or obj["b"] not in ("x", "y"):
+            raise AssertionError(f"server json_schema: {res['content'][:300]!r}")
+        t1 = time.time()
+        res = post("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "add 1 and 2"}], "max_tokens": 256,
+            "temperature": 0, "tools": CONSTRAINED_TOOLS, "tool_choice": "required"})
+        out["tools_s"] = time.time() - t1
+        choice = res["choices"][0]
+        call = (choice["message"].get("tool_calls") or [{}])[0].get("function", {})
+        if choice["finish_reason"] != "tool_calls" or call.get("name") != "add" or \
+                not isinstance(json.loads(call["arguments"])["a"], bool):
+            raise AssertionError(f"server tools: {json.dumps(choice)[:600]}")
+        out["tool_call"] = call
+    finally:
+        if server.poll() is None:
+            server.send_signal(signal.SIGTERM)
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+        done = {k: (p, *p.communicate(timeout=600)) for k, p in procs.items()}
+    stderr = err_path.read_text()
+    if server.returncode != 0 or "Traceback" in stderr:
+        raise AssertionError(f"server: exit {server.returncode} after SIGTERM, stderr "
+                             f"{stderr[-3000:]}")
+    for name, (p, stdout, stderr_c) in done.items():
+        if p.returncode != 0 or stdout.rstrip("\n") != want[name]:
+            raise AssertionError(f"cli {name}: exit {p.returncode}, text {stdout[-300:]!r} "
+                                 f"against the in-process {want[name][-300:]!r}, stderr "
+                                 f"{stderr_c[-2000:]}")
+    out["seconds"] = time.time() - t0
+    log(f"[constrained cli] --draft --grammar and --repeat-penalty 1.3 --temp 0: exit 0, each "
+        f"text == the in-process run's; [constrained http] the server answered /health "
+        f"{out['server_up_s']:.1f} s after its start: a json_schema /completion in "
+        f"{out['json_s']:.2f} s (parses), a tools request (tool_choice required) in "
+        f"{out['tools_s']:.2f} s: tool_calls {call['name']}({call['arguments']}); SIGTERM exit 0; "
+        f"{out['seconds']:.1f} s in all")
+    return out
+
+
+def constrained_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
+    """Stateful samplers and grammar-constrained decoding on phase 6's files
+    (unfused, K = 5): one `Engine` (the chain, greedy, max_seq 2048) and its
+    plain `Generator`; `stateful_cells`, `chat_penalty`,
+    `constrained_cells`; then the engine freed and
+    `constrained_subprocesses`. Returns the chain's launches of the timed
+    letter-grammar run."""
+    import gc
+
+    import torch
+
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.gguf import GGUFReader
+    from eagle_tpu_torch.runtime.grammar import Grammar, TokenTrie
+    from eagle_tpu_torch.runtime.sampling import SamplerConfig
+
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    with GGUFReader(target) as reader:
+        vocab = reader.metadata["tokenizer.ggml.tokens"]
+    prompt = cli_prompt(vocab, n_words=CONSTRAINED_WORDS, seed=11)
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, draft_path=draft, max_seq=2048))
+    torch.cuda.synchronize()
+    out: dict = {"load_s": time.time() - t0}
+    tok = eng.tokenizer
+    ids = tok.encode(prompt)
+    gen = eng._plain_generator()
+    pieces = [tok.piece(i) for i in range(len(vocab))]
+    trie = TokenTrie(pieces)
+    brace = tok.piece(vocab.index("<0x7B>"))
+    log(f"[constrained] Engine loaded in {out['load_s']:.1f} s; the prompt is {len(ids)} "
+        f"tokens; the byte token <0x7B> is the piece {brace!r} (JSON is spelled with byte "
+        f"tokens)")
+    if brace != "{":
+        raise AssertionError("the byte tokens do not come through as pieces")
+    greedy_ms = decode_device_ms(gen, ids)
+    out["greedy_step_ms"] = greedy_ms
+    out["stateful"] = stateful_cells(gen, ids, greedy_ms, report)
+    out["chat"] = chat_penalty(eng, gen, chat_texts(vocab)[:2])
+    out["constrained"], launches = constrained_cells(eng, gen, ids, tok, pieces, trie)
+    # the CLI's runs in process, for the subprocesses' texts
+    eos = tok.eos_id
+    g_toks, _ = eng.engine.generate_constrained(ids, Grammar(LETTERS_GBNF), tok,
+                                                max_new_tokens=CONSTRAINED_NEW["letters"])
+    p_toks = gen.generate(ids, STATEFUL_NEW, sampler=SamplerConfig(**CLI_PENALTY))
+    want = {k: tok.decode([t for t in v if t != eos], skip_special=True)
+            for k, v in (("grammar", g_toks), ("repeat_penalty", p_toks))}
+    del eng, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["subprocesses"] = constrained_subprocesses(target, draft, prompt, want, tmp)
+    report["constrained_path"] = out
+    return launches
+
+
 def i4_route(rows: int) -> str:
     """qmm_i4's launch counter at `rows` bf16 rows at the 7B shapes."""
     return "qmm_i4" if rows == 1 else "qmm_i4_mma" if rows <= 8 else "qmm_i4_tc"
@@ -4049,6 +4514,8 @@ def main() -> int:
         chat_launches = phase("chat", chat_path, report, target, draft, pathlib.Path(tmp))
         serve_launches = phase("serve", serve_path, report, target, draft, pathlib.Path(tmp))
         paged_launches = phase("paged", paged_path, report, target, draft, pathlib.Path(tmp))
+        constrained_launches = phase("constrained", constrained_path, report, target, draft,
+                                     pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -4077,6 +4544,7 @@ def main() -> int:
                 "tree_path_launches": {k: c[name] for k, c in tree_launches.items()},
                 "serve_path_launches": serve_launches[name],
                 "paged_path_launches": paged_launches[name],
+                "constrained_path_launches": constrained_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     kernels = [

@@ -14,8 +14,14 @@ rows, as the reference (the tree engines and `Generator` take no batch
 there either). The caches are bf16, f32 or int8 (`kv_dtype`).
 A chat session and the embeddings run on a plain `Generator`'s forward
 over the same target params, as the reference's. It runs on the card
-unless `device="cpu"`. What the port lacks raises NotImplementedError
-naming its ROADMAP item."""
+unless `device="cpu"`. `generate_text` takes a GBNF grammar or a JSON
+schema: a chain engine of batch 1 speculates under it
+(`EagleChainEngine.generate_constrained`), any other runs the plain
+constrained generator. A stateful sampler (penalties, DRY, mirostat) runs
+on a plain `Generator` and in chat; with a draft, or with a grammar, the
+reference drops its state, and the port refuses it
+(`sampling.DroppedSamplerState`). What the port lacks raises
+NotImplementedError naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from .quant.serving import prepare_params_for_serving
 from .models.llama import llama_forward
 from .runtime.generate import Generator, pad_bucket
 from .runtime.kvcache import KVCache, causal_mask_from_tags
-from .runtime.sampling import SamplerConfig, check_sampler
+from .runtime.sampling import SamplerConfig, refuse_dropped_state
 from .runtime.paged_batcher import PagedBatcher
 from .runtime.scheduler import ContinuousBatcher
 from .runtime.speculative import EagleChainEngine
@@ -77,7 +83,8 @@ def _refuse(cfg: EngineConfig) -> None:
         raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP queue 1, item 9)")
     if cfg.lookahead:
         raise NotImplementedError(f"lookahead decoding is not ported yet ({_ITEM7})")
-    check_sampler(cfg.sampler)
+    if cfg.draft_path:
+        refuse_dropped_state(cfg.sampler, "a speculative engine")
 
 
 class Engine:
@@ -169,11 +176,18 @@ class Engine:
         runs on a plain `Generator` (the reference's main.cpp is not
         speculative), reusing and then rewriting the session file's cached
         prefix; stats holds `session_prefix_reused`. An engine whose state
-        is a page pool generates through its `PagedBatcher`."""
-        if grammar or json_schema:
-            raise NotImplementedError(f"grammar-constrained decoding is not ported yet ({_ITEM7})")
+        is a page pool generates through its `PagedBatcher`.
+
+        With `grammar` (GBNF) or `json_schema` (a dict or its JSON text) the
+        output is constrained: a chain engine speculates under the grammar
+        (greedy, stats with `constrained` and the cycle counts), a tree
+        engine or no draft runs the plain generator's constrained path with
+        `sampler` (stats `{"constrained": True}`)."""
         ids = self.tokenizer.encode(prompt)
         sampler = sampler or self.cfg.sampler
+        if grammar or json_schema:
+            return self._generate_constrained(ids, grammar, json_schema, max_new_tokens,
+                                              sampler, seed)
         if session_path or isinstance(self.engine, Generator):
             gen = self.engine if isinstance(self.engine, Generator) else self._plain_generator()
             out = gen.generate(ids, max_new_tokens=max_new_tokens, sampler=sampler, seed=seed,
@@ -188,6 +202,28 @@ class Engine:
             out, stats = list(slot.generated), {}
         else:
             out, stats = self.engine.generate(ids, max_new_tokens=max_new_tokens, seed=seed)
+        text = self.tokenizer.decode([t for t in out if t != self.tokenizer.eos_id],
+                                     skip_special=True)
+        return text, stats
+
+    def _generate_constrained(self, ids, grammar, json_schema, max_new_tokens, sampler,
+                              seed) -> tuple[str, dict]:
+        from .runtime.grammar import Grammar
+        from .runtime.json_schema import json_schema_to_gbnf
+
+        refuse_dropped_state(sampler, "grammar-constrained generation")
+        g = Grammar(grammar or json_schema_to_gbnf(json_schema))
+        # a tree engine's K counts its tree's nodes, not a chain's drafts:
+        # it runs the plain constrained path
+        if type(self.engine) is EagleChainEngine:
+            out, stats = self.engine.generate_constrained(ids, g, self.tokenizer,
+                                                          max_new_tokens=max_new_tokens,
+                                                          seed=seed)
+        else:
+            gen = self.engine if isinstance(self.engine, Generator) else self._plain_generator()
+            out = gen.generate_constrained(ids, g, self.tokenizer, max_new_tokens=max_new_tokens,
+                                           sampler=sampler, seed=seed)
+            stats = {"constrained": True}
         text = self.tokenizer.decode([t for t in out if t != self.tokenizer.eos_id],
                                      skip_special=True)
         return text, stats

@@ -19,7 +19,8 @@ dropped by tag (`KVCache.rollback`). When a feed or a chunk would overflow
 the cache, `_ensure_room` shifts the context in place (`Generator.
 shift_context`), so the step graphs keep replaying. A sampled turn draws
 from the generator's `CounterRNG`, seeded per turn by the reference's mix
-of the seed and the cache position."""
+of the seed and the cache position. A stateful sampler (penalties, DRY,
+mirostat) runs on the generator's `SamplerState`, reset at each turn."""
 
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 
 from ..server.chat_templates import apply_template, format_single
 from .generate import Generator, pad_bucket
-from .sampling import SamplerConfig, check_sampler, draw
+from .sampling import SamplerConfig, draw
 
 
 @dataclasses.dataclass
@@ -110,7 +111,6 @@ class ChatSession:
         """One user turn: feed the incremental prompt, decode the reply up
         to EOS, record both in the message history."""
         scfg = sampler or SamplerConfig(greedy=True)
-        check_sampler(scfg)
         gen = self.gen
         ids = self.turn_tokens(text)
         self.pending = None
@@ -123,7 +123,9 @@ class ChatSession:
         self.last_out: list[int] = []  # every token sampled this turn
 
         gen.rng.reset(seed ^ (self.pos * 0x9E3779B1 & 0x7FFFFFFF))
-        first = draw(logits, scfg, gen.rng)
+        # a stateful sampler starts afresh each turn, the turn's prompt not
+        # counted (the reference's `ask`, unlike its `generate`)
+        first = draw(logits, scfg, gen.rng, gen.sampler_state(scfg))
         out = [int(first[0])]
         eos = self.tokenizer.eos_id
         content: list[int] = []

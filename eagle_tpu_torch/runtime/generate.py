@@ -1,7 +1,8 @@
 """Autoregressive generation, non-speculative (port of
 eagle_tpu/runtime/generate.py: `pad_bucket`, `Generator` with `kv_read_bucket`,
 `_prefill`, `_extend`, `_decode_chunk`, `generate` with `context_shift_keep`,
-Self-Extend group attention (`grp_attn_n`) and prompt-cache sessions).
+Self-Extend group attention (`grp_attn_n`), prompt-cache sessions and the
+stateful samplers, and `generate_constrained`).
 
 The reference runs each decode chunk as one compiled `lax.scan`. Here the
 scan's carry (the token, its position and the chunk's tokens) lives in
@@ -17,11 +18,22 @@ A sampled step draws its Gumbel noise from the engine's `CounterRNG`
 (seeded by `generate(..., seed=)`, the reference's `PRNGKey(seed)`), whose
 counter the step advances on the device, so a replayed step draws anew and
 a graphed run gives the eager run's tokens. The step's graph key holds the
-sampler config its body bakes in. A context shift (`kvcache.context_shift`)
-and a Self-Extend step (`kvcache.self_extend_shift`) rewrite the cache in
-place, so the step graphs replay across them. The step's cache slot and
-rope position are separate carries: they differ under Self-Extend, where
+sampler config its body bakes in. A stateful sampler (penalties, DRY,
+mirostat) keeps its `SamplerState` in static tensors of the generator,
+reset in place for each sequence and read and written by the step body
+(the reference's scan carry); they are among the graph's inputs. As the
+reference, `generate` counts the prompt into the penalties' window before
+the first draw. A context shift (`kvcache.context_shift`) and a
+Self-Extend step (`kvcache.self_extend_shift`) rewrite the cache in place,
+so the step graphs replay across them. The step's cache slot and rope
+position are separate carries: they differ under Self-Extend, where
 positions are compressed and every token keeps its own slot.
+
+`generate_constrained` walks a GBNF grammar (`runtime/grammar.py`) on the
+host: each token's logits come to the host, where the grammar's mask and
+the draw (the argmax, or numpy's `choice` over f64 probabilities as the
+reference's) pick it; the forward of one token is a graphed step per read
+bucket whose logits land in a static buffer.
 
 The cache may be int8 (`kv_dtype=torch.int8`). A session file
 (`runtime/state_io.py`, the reference's format) seeds the cache with the
@@ -41,7 +53,14 @@ from ..models.llama import llama_forward
 from ..ops.rope import rope_freqs_cfg
 from .graphs import StepGraphs
 from .kvcache import KVCache, causal_mask_from_tags, context_shift, self_extend_shift
-from .sampling import CounterRNG, SamplerConfig, check_sampler, draw
+from .sampling import (
+    CounterRNG,
+    SamplerConfig,
+    SamplerState,
+    draw,
+    refuse_dropped_state,
+    transform_logits,
+)
 
 
 def pad_bucket(n: int, minimum: int = 16) -> int:
@@ -78,6 +97,8 @@ class Generator:
         self._slot = torch.zeros((b,), dtype=torch.int32, device=dev)
         self._hist = torch.zeros((b, self.max_seq), dtype=torch.int32, device=dev)
         self.rng = CounterRNG(device=dev)
+        self.sstate: SamplerState | None = None  # made at the first stateful sampler
+        self._logits: torch.Tensor | None = None  # a constrained step's logits [B, V]
         self.graphs = StepGraphs(self.cuda_graphs and dev.type == "cuda")
         self.session_prefix_reused = 0  # the last generate's session prefix
 
@@ -138,10 +159,19 @@ class Generator:
         inv_freq, _ = rope_freqs_cfg(self.cfg, device=self.device)
         return self_extend_shift(self.kv, inv_freq, n_past, ga_i, ga_n, ga_w)
 
-    def _step(self, scfg: SamplerConfig, kv_limit: int | None) -> None:
-        """One decode step in place: the token in `_tok` at position `_pos`
-        and cache slot `_slot` goes through the model, its successor lands
-        in `_tok` and in the history at `_slot`, and both advance."""
+    def sampler_state(self, scfg: SamplerConfig) -> SamplerState | None:
+        """The generator's `SamplerState`, reset for a new sequence under
+        `scfg` (made once, at the first stateful config: its tensors stay
+        put), or None for a stateless config."""
+        if not scfg.stateful:
+            return None
+        if self.sstate is None:
+            self.sstate = SamplerState(self.batch, self.cfg.vocab_size, device=self.device)
+        return self.sstate.reset(scfg.mirostat_tau)
+
+    def _forward_tok(self, kv_limit: int | None) -> torch.Tensor:
+        """The token in `_tok` at position `_pos` and cache slot `_slot`
+        through the model; returns its logits [B, V]."""
         p, sl = self._pos[:, None], self._slot[:, None]
         self.kv.with_tags(sl, p)
         mask = causal_mask_from_tags(self.kv.slot_pos, p)
@@ -149,7 +179,16 @@ class Generator:
             self.params, self.cfg, self._tok[:, None], p, self.kv, sl, mask,
             compute_dtype=self.compute_dtype, kv_limit=kv_limit,
         )
-        nxt = draw(fo.logits[:, 0], scfg, self.rng)
+        return fo.logits[:, 0]
+
+    def _step(self, scfg: SamplerConfig, kv_limit: int | None) -> None:
+        """One decode step in place: the token in `_tok` at position `_pos`
+        and cache slot `_slot` goes through the model, its successor
+        (drawn with the generator's `SamplerState` for a stateful config)
+        lands in `_tok` and in the history at `_slot`, and both advance."""
+        sl = self._slot[:, None]
+        nxt = draw(self._forward_tok(kv_limit), scfg, self.rng,
+                   self.sstate if scfg.stateful else None)
         self._hist.scatter_(1, sl.long(), nxt[:, None])
         self._tok.copy_(nxt)
         self._pos.add_(1)
@@ -161,8 +200,9 @@ class Generator:
                       ) -> torch.Tensor:
         """Decode `n_steps` tokens after `first_token` [B] at positions
         start_pos.. and cache slots start_slot.. (by default the positions),
-        one step body (or its graph's replay) each. Returns tokens [B,
-        n_steps] on the device."""
+        one step body (or its graph's replay) each. A stateful `scfg` draws
+        with the generator's `SamplerState` as it stands (`sampler_state`
+        resets it). Returns tokens [B, n_steps] on the device."""
         slot = start_pos if start_slot is None else start_slot
         if not 0 <= slot <= self.max_seq - n_steps:
             raise ValueError(f"steps at {slot}..{slot + n_steps} leave the "
@@ -171,7 +211,8 @@ class Generator:
         self._pos.fill_(start_pos)
         self._slot.fill_(slot)
         static = (*self.kv.tensors(), self._tok, self._pos, self._slot, self._hist,
-                  self.rng.seed, self.rng.counter)
+                  self.rng.seed, self.rng.counter,
+                  *(self.sstate.tensors() if scfg.stateful else ()))
         for _ in range(n_steps):
             self.graphs.run(("step", kv_limit, scfg), lambda: self._step(scfg, kv_limit),
                             static)
@@ -231,7 +272,6 @@ class Generator:
         are no longer token ordinals); `session_cache_all` caches the
         continuation too."""
         scfg = sampler or SamplerConfig(greedy=True)
-        check_sampler(scfg)
         prompt = np.asarray(prompt_tokens, dtype=np.int32)
         n = len(prompt)
         if n < 1:  # the last prompt row and the first decode slot would be -1
@@ -240,7 +280,10 @@ class Generator:
         self.kv.rollback(torch.zeros((self.batch,), dtype=torch.int32, device=self.device))
         logits = self._prompt(prompt, session_path)
         self.rng.reset(seed)
-        first = draw(logits, scfg, self.rng)
+        sstate = self.sampler_state(scfg)
+        if sstate is not None:  # the prompt's tokens enter the penalties' window
+            sstate.count(0, prompt)
+        first = draw(logits, scfg, self.rng, sstate)
         out = [int(first[0])]
         shifted = False  # a context shift or Self-Extend: slots no longer token ordinals
 
@@ -292,3 +335,74 @@ class Generator:
             slot += steps
             tok = toks[:, -1]
         return finish()
+
+    def _logits_step(self, kv_limit: int) -> None:
+        """A constrained step in place: the token in `_tok` through the
+        model at `_pos` / `_slot`, its logits into `_logits`; both advance."""
+        self._logits.copy_(self._forward_tok(kv_limit))
+        self._pos.add_(1)
+        self._slot.add_(1)
+
+    def _constrained_step(self, tok: int, pos: int) -> torch.Tensor:
+        """`tok` through the model at position (and slot) `pos`: on the card
+        the replay of the step's graph for its read bucket. Returns the
+        logits [B, V] (a static buffer)."""
+        if self._logits is None:
+            self._logits = torch.zeros((self.batch, self.cfg.vocab_size), dtype=torch.float32,
+                                       device=self.device)
+        self._tok.fill_(tok)
+        self._pos.fill_(pos)
+        self._slot.fill_(pos)
+        lim = self.kv_read_bucket(pos + 1)
+        static = (*self.kv.tensors(), self._tok, self._pos, self._slot, self._logits)
+        self.graphs.run(("logits", lim), lambda: self._logits_step(lim), static)
+        return self._logits
+
+    def generate_constrained(self, prompt_tokens, grammar, tokenizer,
+                             max_new_tokens: int = 128, sampler: SamplerConfig | None = None,
+                             seed: int = 0) -> list[int]:
+        """Grammar-constrained generation (GBNF), token by token with the
+        grammar's mask on the host, as the reference's grammar sampler
+        stage: the token is the argmax of the masked transformed logits, or
+        for a sampled config a draw from numpy's `default_rng(seed)` over
+        their f64 probabilities. EOS is allowed while the grammar awaits its
+        trigger or can end. `grammar` advances as the tokens are accepted.
+        A stateful `sampler` is refused: the reference transforms the logits
+        here without the sampler's state."""
+        from .grammar import TokenTrie
+
+        scfg = sampler or SamplerConfig(greedy=True)
+        refuse_dropped_state(scfg, "grammar-constrained generation")
+        prompt = np.asarray(prompt_tokens, dtype=np.int32)
+        n = len(prompt)
+        if n < 1:
+            raise ValueError("generate_constrained needs a prompt of at least one token")
+        self.kv.rollback(torch.zeros((self.batch,), dtype=torch.int32, device=self.device))
+        logits = self._prompt(prompt, None)
+        pieces = [tokenizer.piece(i) for i in range(self.cfg.vocab_size)]
+        trie = TokenTrie(pieces)
+        rng = np.random.default_rng(seed)
+        eos = tokenizer.eos_id
+        out: list[int] = []
+        pos = n
+        for _ in range(max_new_tokens):
+            l = transform_logits(logits[0], scfg).cpu().numpy().astype(np.float64)
+            mask = grammar.token_mask(trie)
+            if (grammar.awaiting_trigger or grammar.can_end) and eos >= 0:
+                mask[eos] = True
+            l[~mask] = -np.inf
+            if scfg.is_greedy:
+                tok = int(l.argmax())
+            else:
+                p = np.exp(l - l.max())
+                p /= p.sum()
+                tok = int(rng.choice(len(p), p=p))
+            out.append(tok)
+            if tok == eos:
+                break
+            grammar.accept_token(tok, pieces[tok])
+            if pos + 1 >= self.max_seq:
+                break
+            logits = self._constrained_step(tok, pos)
+            pos += 1
+        return out

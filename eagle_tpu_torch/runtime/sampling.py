@@ -1,8 +1,10 @@
 """The sampler chain and stochastic speculative acceptance (port of
-eagle_tpu/runtime/sampling.py: `SamplerConfig`, the masks, `transform_logits`,
-`sample`, `BatchedSamplerParams`, `_batched_transform`, `sample_batched`,
-`transformed_probs_batched`, `speculative_accept`), the exact `top_k` the
-tree engines expand with, and `CounterRNG`, the engines' random source.
+eagle_tpu/runtime/sampling.py: `SamplerState`, `SamplerConfig`, the masks,
+`apply_penalties`, `transform_logits`, `sample`, `BatchedSamplerParams`,
+`_batched_transform`, `sample_batched`, `transformed_probs_batched`,
+`speculative_accept`, `dry_penalty`, `_mirostat_v1`, `_mirostat_v2`,
+`sample_stateful`), the exact `top_k` the tree engines expand with, and
+`CounterRNG`, the engines' random source.
 
 Every function that draws takes its noise as an argument ("noise in, token
 out"): `jax.random.categorical(key, l)` is `argmax(l + gumbel)`, so a draw
@@ -11,13 +13,19 @@ here is `argmax(l + gumbel)` with the Gumbel noise given, and
 them the reference's own draws; the engines feed them `CounterRNG`'s.
 
 The stateful samplers (penalties, DRY, mirostat: `SamplerConfig.stateful`)
-are not ported yet (ROADMAP queue 1, item 7): `check_sampler` refuses them.
+keep their per-sequence state in a `SamplerState` of static tensors that
+`sample_stateful` updates in place, so a decode step that holds it can be
+replayed as a CUDA graph. Where the reference drops that state (its
+speculative cycles and batched rows sample without counts, its constrained
+generators transform without them), the port refuses the config instead:
+`refuse_dropped_state` raises `DroppedSamplerState`.
 `_NEG_INF` is finite (-1e30), as in the reference, so a masked logit plus
 noise stays finite."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -68,12 +76,58 @@ class SamplerConfig:
         return self.greedy or self.temperature <= 0
 
 
-def check_sampler(cfg: SamplerConfig) -> None:
-    """Refuse what needs per-sequence state (the reference's `SamplerState`)."""
-    if cfg.stateful:
-        raise NotImplementedError(
-            "penalties, DRY and mirostat need the stateful samplers, not ported yet "
-            "(ROADMAP queue 1, item 7)")
+class DroppedSamplerState(NotImplementedError):
+    """A stateful sampler on a path where the reference samples without its
+    state (the server answers it with 400)."""
+
+
+def refuse_dropped_state(cfg: SamplerConfig | None, path: str) -> None:
+    """Raise for a stateful `cfg` on `path`, one where the reference drops
+    the sampler's state and would silently sample without the penalties,
+    DRY or mirostat asked for."""
+    if cfg is not None and cfg.stateful:
+        raise DroppedSamplerState(
+            f"penalties, DRY and mirostat on {path}: the reference drops the sampler's "
+            "state on this path (ROADMAP queue 3)")
+
+
+class SamplerState:
+    """Per-sequence sampler state of static tensors, updated in place: the
+    occurrence counts [B, V] f32 (the penalties' window is the whole
+    context), mirostat's surprise target `mu` [B] f32 (2 tau at the start)
+    and the last `window` tokens [B, W] int32 for DRY (-1 before any). A
+    CUDA graph that holds the tensors reads and writes them at each replay;
+    `reset` starts a new sequence without moving them."""
+
+    def __init__(self, batch: int, vocab: int, tau: float = 5.0, window: int = 64,
+                 device="cpu"):
+        self.counts = torch.zeros((batch, vocab), dtype=torch.float32, device=device)
+        self.mu = torch.zeros((batch,), dtype=torch.float32, device=device)
+        self.recent = torch.zeros((batch, window), dtype=torch.int32, device=device)
+        self.reset(tau)
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return self.counts, self.mu, self.recent
+
+    def reset(self, tau: float = 5.0) -> "SamplerState":
+        self.counts.zero_()
+        self.mu.fill_(2.0 * tau)
+        self.recent.fill_(-1)
+        return self
+
+    def count(self, row: int, tokens) -> None:
+        """Add `tokens` (a sequence, repeats counted once per occurrence, as
+        the reference's `.at[...].add`) to row `row`'s counts."""
+        idx = torch.as_tensor(tokens, dtype=torch.int64).to(self.counts.device)
+        self.counts[row].scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+
+    def observe(self, tokens: torch.Tensor) -> None:
+        """Row b drew tokens[b]: count it and shift it into `recent`."""
+        t = tokens.long()[:, None]
+        self.counts.scatter_add_(1, t, torch.ones_like(t, dtype=torch.float32))
+        tail = self.recent[:, 1:].clone()  # the slices overlap: through a copy
+        self.recent[:, :-1].copy_(tail)
+        self.recent[:, -1:].copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -152,21 +206,43 @@ def xtc_mask(logits: torch.Tensor, uniform: torch.Tensor, prob: float,
 
 
 def apply_logit_bias(logits: torch.Tensor, bias: tuple) -> torch.Tensor:
-    """Add each (token, bias); a token named twice gets both."""
+    """Add each (token, bias) in order; a token named twice gets both. Each
+    is a scalar add: no tensor is built from host values, which a CUDA
+    graph's capture would refuse."""
     if not bias:
         return logits
-    ids = torch.tensor([b[0] for b in bias], dtype=torch.int64, device=logits.device)
-    vals = torch.tensor([b[1] for b in bias], dtype=torch.float32, device=logits.device)
-    return logits.index_add(-1, ids, vals.expand(*logits.shape[:-1], len(bias)))
+    out = logits.clone()
+    for tid, val in bias:
+        out[..., tid] += val
+    return out
+
+
+def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
+                    cfg: SamplerConfig) -> torch.Tensor:
+    """llama_sampler_penalties: the repeat penalty divides a seen token's
+    positive logit and multiplies its negative one; the frequency and
+    presence penalties subtract linearly in its count. `counts` [..., V]
+    broadcasts against `logits`."""
+    seen = counts > 0
+    l = logits
+    if cfg.penalty_repeat != 1.0:
+        rep = cfg.penalty_repeat
+        l = torch.where(seen, torch.where(l > 0, l / rep, l * rep), l)
+    if cfg.penalty_freq != 0.0 or cfg.penalty_present != 0.0:
+        l = l - counts * cfg.penalty_freq - seen.to(l.dtype) * cfg.penalty_present
+    return l
 
 
 def transform_logits(logits: torch.Tensor, cfg: SamplerConfig,
-                     xtc_uniform: torch.Tensor | None = None) -> torch.Tensor:
+                     xtc_uniform: torch.Tensor | None = None,
+                     penalty_counts: torch.Tensor | None = None) -> torch.Tensor:
     """The chain's logit transforms on [..., V] (everything but the draw):
-    logit bias, then (unless `greedy`) top-n-sigma, top-k, typical, top-p,
+    logit bias, the penalties (when `penalty_counts` is given and the config
+    has them), then (unless `greedy`) top-n-sigma, top-k, typical, top-p,
     min-p, XTC (when `xtc_uniform` [..., 1] is given) and the temperature."""
-    check_sampler(cfg)
     l = apply_logit_bias(logits.float(), cfg.logit_bias)
+    if cfg.needs_penalties and penalty_counts is not None:
+        l = apply_penalties(l, penalty_counts, cfg)
     if cfg.greedy:
         return l
     l = top_n_sigma_mask(l, cfg.top_n_sigma)
@@ -197,12 +273,19 @@ def sample(logits: torch.Tensor, cfg: SamplerConfig, gumbel: torch.Tensor | None
     return torch.argmax(gumbel + l, dim=-1).to(torch.int32)
 
 
-def draw(logits: torch.Tensor, cfg: SamplerConfig, rng: "CounterRNG") -> torch.Tensor:
-    """`sample` with its noise from `rng`: Gumbel noise unless the config is
-    greedy, and XTC's uniform [..., 1] when XTC is on."""
-    xtc_on = cfg.xtc_probability > 0 and not cfg.greedy
+def draw(logits: torch.Tensor, cfg: SamplerConfig, rng: "CounterRNG",
+         state: "SamplerState | None" = None) -> torch.Tensor:
+    """`sample` (with `state`: `sample_stateful`, which updates it) with its
+    noise from `rng`: XTC's uniform [..., 1] when XTC is on, then Gumbel
+    noise unless the draw is an argmax (mirostat always draws). The number
+    of draws depends on the config alone, so a graphed step advances the
+    counter as the eager one does."""
+    mirostat = state is not None and cfg.mirostat in (1, 2)
+    xtc_on = cfg.xtc_probability > 0 and not cfg.greedy and not mirostat
     xtc = rng.uniform((*logits.shape[:-1], 1)) if xtc_on else None
-    gumbel = None if cfg.is_greedy else rng.gumbel(logits.shape)
+    gumbel = rng.gumbel(logits.shape) if mirostat or not cfg.is_greedy else None
+    if state is not None:
+        return sample_stateful(logits, cfg, state, gumbel, xtc)
     return sample(logits, cfg, gumbel, xtc)
 
 
@@ -372,6 +455,125 @@ def speculative_accept(
     pos = torch.arange(k + 1, device=drafts.device)[None, :]
     tokens = torch.where(pos == n_acc[:, None], tok_corr[:, None], drafts_pad)
     return tokens, n_acc.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the stateful samplers: DRY, mirostat v1 / v2 and the stateful chain step
+
+
+def dry_penalty(logits: torch.Tensor, recent: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
+    """DRY ("don't repeat yourself", llama_sampler_dry) on logits [..., V]
+    with the recent tokens [..., W] (-1 before any): a candidate z that
+    would extend the longest suffix of the window also found earlier in it,
+    immediately followed by z, loses multiplier * base^(len - allowed) when
+    that length reaches `dry_allowed_length`. The match lengths of every
+    window position come from one [W, W] comparison; breaker tokens compare
+    unequal on both sides (-2 against -3), so no match runs through one."""
+    w, v = recent.shape[-1], logits.shape[-1]
+    dev = recent.device
+    brk = torch.zeros_like(recent, dtype=torch.bool)
+    for b in cfg.dry_sequence_breakers:
+        brk = brk | (recent == b)
+    left = torch.where(brk, -2, recent)
+    right = torch.where(brk, -3, recent)
+    valid = recent >= 0
+    # run[i]: how far left[i-1-j] == right[w-1-j] holds over j = 0, 1, ...
+    i_idx = torch.arange(w, device=dev)[:, None]
+    j_idx = torch.arange(w, device=dev)[None, :]
+    li, ri = i_idx - 1 - j_idx, (w - 1 - j_idx).expand(w, w)
+    ok = (li >= 0) & (li < ri)
+    lc = li.clamp(min=0)
+    eq = ok & (left[..., lc] == right[..., ri]) & valid[..., lc] & valid[..., ri]
+    run = torch.cumprod(eq.long(), dim=-1).sum(dim=-1)  # [..., W]
+    # candidate recent[i] extends the match of length run[i]; index v absorbs the rest
+    cand = torch.where((run > 0) & valid & ~brk, recent.long(), v)
+    pen_len = torch.zeros((*recent.shape[:-1], v + 1), dtype=torch.long, device=dev)
+    pen_len = pen_len.scatter_reduce(-1, cand, run, "amax")[..., :v]
+    fire = pen_len >= cfg.dry_allowed_length
+    pen = cfg.dry_multiplier * torch.pow(cfg.dry_base,
+                                         (pen_len - cfg.dry_allowed_length).float())
+    return torch.where(fire, logits - pen, logits)
+
+
+def _log2_surprise(logp: torch.Tensor) -> torch.Tensor:
+    return -logp / math.log(2.0)
+
+
+def _mirostat_v1_k(logits: torch.Tensor, mu: torch.Tensor, m: int = 100) -> torch.Tensor:
+    """Mirostat v1's truncation k [B] (int64): the Zipf exponent s_hat
+    regressed on the top-m probabilities, then k from the surprise target
+    mu, an f32 power cast down by truncation as the reference's."""
+    v = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.topk(probs, m, dim=-1).values  # [B, m], descending
+    idx = torch.arange(m - 1, dtype=torch.float32, device=logits.device)
+    t_i = torch.log((idx + 2.0) / (idx + 1.0))
+    ratio = top[:, :-1] / top[:, 1:].clamp(min=1e-10)
+    b_i = torch.log(ratio.clamp(min=1e-10))
+    s_hat = (t_i * b_i).sum(dim=-1) / (b_i * b_i).sum(dim=-1).clamp(min=1e-10)
+    eps = s_hat - 1.0
+    k = torch.pow((eps * torch.pow(2.0, mu)) / (1.0 - torch.pow(float(v), -eps)),
+                  1.0 / s_hat.clamp(min=1e-6))
+    return k.clamp(1, v).to(torch.int32).long()
+
+
+def _mirostat_v1(logits: torch.Tensor, gumbel: torch.Tensor, cfg: SamplerConfig,
+                 mu: torch.Tensor, m: int = 100) -> tuple[torch.Tensor, torch.Tensor]:
+    """llama_sampler_mirostat (v1) on [B, V]: keep the logits >= the k-th
+    largest (`_mirostat_v1_k`), draw at the temperature, then move mu by
+    eta times the draw's surprise (bits) less tau. Returns (tokens, mu)."""
+    v = logits.shape[-1]
+    k = _mirostat_v1_k(logits, mu, m)
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    kth = sorted_desc.gather(-1, (k - 1).clamp(0, v - 1)[:, None])
+    l = torch.where(logits < kth, _NEG_INF, logits) / max(cfg.temperature, 1e-6)
+    tok = torch.argmax(gumbel + l, dim=-1)
+    obs = _log2_surprise(torch.log_softmax(logits, dim=-1).gather(-1, tok[:, None])[:, 0])
+    return tok.to(torch.int32), mu - cfg.mirostat_eta * (obs - cfg.mirostat_tau)
+
+
+def _mirostat_v2(logits: torch.Tensor, gumbel: torch.Tensor, cfg: SamplerConfig,
+                 mu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """llama_sampler_mirostat_v2 on [B, V]: drop the tokens whose surprise
+    (-log2 p) exceeds mu (the argmax always stays), draw at the
+    temperature, then move mu toward tau. Returns (tokens, mu)."""
+    surprise = _log2_surprise(torch.log_softmax(logits, dim=-1))  # [B, V]
+    keep = (surprise <= mu[:, None]).scatter(-1, torch.argmax(logits, dim=-1)[:, None], True)
+    l = torch.where(keep, logits / max(cfg.temperature, 1e-6), _NEG_INF)
+    tok = torch.argmax(gumbel + l, dim=-1)
+    obs = surprise.gather(-1, tok[:, None])[:, 0]
+    return tok.to(torch.int32), mu - cfg.mirostat_eta * (obs - cfg.mirostat_tau)
+
+
+def sample_stateful(logits: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
+                    gumbel: torch.Tensor | None = None,
+                    xtc_uniform: torch.Tensor | None = None) -> torch.Tensor:
+    """One stateful chain step on [B, V]: DRY on `state.recent`, then either
+    mirostat (v1 / v2: logit bias, the penalties on `state.counts`, the
+    truncation, a draw with `gumbel`, mu updated in place) or the chain of
+    `transform_logits` with the penalties and an argmax (greedy) or a draw
+    with `gumbel`. The drawn tokens [B] (int32) are observed into `state`.
+    The reference draws from two keys of one split (`key` for the chain,
+    `mkey` for mirostat); here `gumbel` is whichever the branch takes."""
+    logits = logits.float()
+    if cfg.dry_multiplier > 0:
+        logits = dry_penalty(logits, state.recent, cfg)
+    counts = state.counts if cfg.needs_penalties else None
+    if cfg.mirostat in (1, 2):
+        l = apply_logit_bias(logits, cfg.logit_bias)
+        if counts is not None:
+            l = apply_penalties(l, counts, cfg)
+        fn = _mirostat_v1 if cfg.mirostat == 1 else _mirostat_v2
+        tok, mu = fn(l, gumbel, cfg, state.mu)
+        state.mu.copy_(mu)
+    else:
+        l = transform_logits(logits, cfg, xtc_uniform, penalty_counts=counts)
+        if cfg.is_greedy:
+            tok = torch.argmax(l, dim=-1).to(torch.int32)
+        else:
+            tok = torch.argmax(gumbel + l, dim=-1).to(torch.int32)
+    state.observe(tok)
+    return tok
 
 
 # ---------------------------------------------------------------------------

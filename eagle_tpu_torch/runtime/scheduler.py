@@ -105,6 +105,13 @@ class ContinuousBatcher:
         if not free:
             return None
         slot = free[0]
+        # always (re)configure the row: a reused slot must not inherit the
+        # previous request's sampler when this one carries none (a refused
+        # sampler leaves the slot free)
+        self.engine.set_row_sampler(
+            slot.id, sampler or self.engine.scfg,
+            spec_k=spec_k if spec_k is not None else self.engine.K,
+        )
         slot.state = "prefilling"
         slot.request_id = request_id
         slot.prompt = prompt
@@ -114,12 +121,6 @@ class ContinuousBatcher:
         slot.generated = []
         slot.on_token = on_token
         slot.stop_at_eos = stop_at_eos
-        # always (re)configure the row: a reused slot must not inherit the
-        # previous request's sampler when this one carries none
-        self.engine.set_row_sampler(
-            slot.id, sampler or self.engine.scfg,
-            spec_k=spec_k if spec_k is not None else self.engine.K,
-        )
         self._prefill_queue.append(slot)
         return slot
 

@@ -2,7 +2,9 @@
 eagle_tpu/runtime/speculative.py: `EagleChainEngine` with `fresh_state`,
 `fresh_paged_state`, `set_row_sampler`, `_prefill`, `_prefill_chunk` with
 `feat_every`, both branches of `_cycle` with its freeze of inactive rows,
-`_multi_cycle` and `generate` with `seed` and `cycles_per_dispatch`).
+`_multi_cycle`, `generate` with `seed` and `cycles_per_dispatch`, and
+grammar-constrained speculation: `_cycle_propose`, `_cycle_commit`,
+`generate_constrained`).
 
 A cycle: K draft steps (feature autoregression) -> one verify forward over
 [last token + K drafts] -> acceptance -> KV rollback by tag invalidation ->
@@ -47,7 +49,24 @@ both caches page pools (`runtime/paged_kv.py`) for the paged batcher
 (`runtime/paged_batcher.py`), which owns their allocators: the chunk, the
 cycle and the rollback run unchanged over them (the forward does the page
 indirection), and the graphs' static inputs include the page tables,
-which the batcher rewrites in place."""
+which the batcher rewrites in place.
+
+Grammar-constrained speculation splits a cycle in two. The proposal (K
+argmax drafts, the verify forward, the target's argmax, its top
+min(256, V) candidates per verify row and the features) writes the engine's
+caches in place and static buffers, and advances nothing: one graph per
+read bucket on the card. The host reads the drafts, argmaxes and
+candidates in one read, walks them through the grammar, and the commit
+(small in-place ops) rolls the tags back to what it kept and sets the last
+token, feature and n_past. The first token comes from the prompt's last
+logits row, kept by `_prefill`, as the plain constrained generator's. Where
+no candidate is legal, the vetoed row's logits (kept in a static buffer)
+give the masked argmax, where the reference takes the lowest legal token
+id and leaves the plain generator's text.
+
+The engine samples without a `SamplerState`, as the reference's cycles
+(which drop the state): a stateful sampler is refused here and in
+`set_row_sampler` (`sampling.refuse_dropped_state`)."""
 
 from __future__ import annotations
 
@@ -69,10 +88,11 @@ from .sampling import (
     BatchedSamplerParams,
     CounterRNG,
     SamplerConfig,
-    check_sampler,
     draw,
+    refuse_dropped_state,
     sample_batched,
     speculative_accept,
+    top_k,
     transformed_probs_batched,
 )
 
@@ -92,6 +112,14 @@ class CycleOutput(NamedTuple):
     tokens: torch.Tensor  # [C, B, out_width] output tokens (accepted drafts + correction)
     n_out: torch.Tensor  # [C, B] how many of `tokens` are real output (n_acc + 1)
     n_accepted: torch.Tensor  # [C, B] accepted draft tokens in each cycle
+
+
+class Proposal(NamedTuple):
+    """The static buffers of one uncommitted proposal (B = 1)."""
+
+    ids: torch.Tensor  # [B, K + (K+1) + (K+1) C] int32: drafts, t_true, cand_ids
+    feats: torch.Tensor  # [B, K+1, D] features for the next draft step
+    logits: torch.Tensor  # [B, K+1, V] the verify rows' logits (read where no candidate is legal)
 
 
 class EagleChainEngine:
@@ -129,7 +157,7 @@ class EagleChainEngine:
         self.compute_dtype = compute_dtype
         self.feature_source = feature_source
         self.scfg = sampler or SamplerConfig(greedy=True)
-        check_sampler(self.scfg)
+        refuse_dropped_state(self.scfg, "a speculative engine")
         #: per-row sampler parameters (every row the engine's sampler until
         #: `set_row_sampler`), written in place: the cycle's graphs hold them
         self.bsampler = BatchedSamplerParams.create(batch, self.scfg, n_draft=n_draft,
@@ -146,6 +174,8 @@ class EagleChainEngine:
         self._outs: dict[int, CycleOutput] = {}  # static output buffers per C
         self.graphs = StepGraphs(cuda_graphs and self.device.type == "cuda")
         self.cycles_run = 0  # cycles computed, overshoot included
+        self.prompt_logits: torch.Tensor | None = None  # `_prefill`'s last row [B, V]
+        self._prop: Proposal | None = None  # made at the first constrained proposal
 
     @property
     def fast_greedy(self) -> bool:
@@ -154,7 +184,7 @@ class EagleChainEngine:
     def set_row_sampler(self, i: int, cfg: SamplerConfig, spec_k: int | None = None) -> None:
         """Row i's sampler (and its cap on accepted drafts per cycle), in
         place; keeps the all-greedy flag that picks the cycle's branch."""
-        check_sampler(cfg)
+        refuse_dropped_state(cfg, "a batched row of a speculative engine")
         self.bsampler.set_row(i, cfg, spec_k=spec_k)
         self._row_greedy[i] = cfg.is_greedy
 
@@ -256,7 +286,8 @@ class EagleChainEngine:
         )
         b_idx = torch.arange(b, device=self.device)
         last = (n_valid - 1).long()
-        state.last_token.copy_(draw(tout.logits[b_idx, last], self.scfg, state.rng))
+        self.prompt_logits = tout.logits[b_idx, last]
+        state.last_token.copy_(draw(self.prompt_logits, self.scfg, state.rng))
         state.feature.copy_(feats[b_idx, last])
         state.n_past.copy_(n_valid)
         return state
@@ -516,3 +547,170 @@ class EagleChainEngine:
             "mean_accept_len": (n_accepted + n_cycles) / max(1, n_cycles),
         }
         return out, stats
+
+    # ------------------------------------------------------------------
+    # grammar-constrained speculation: the cycle splits into a proposal
+    # (drafts, verify, candidates; nothing committed) and a commit of what
+    # the host's grammar walk kept
+
+    def _cycle_propose(self, kv_limit: int | None, n_cand: int) -> None:
+        """K argmax drafts from the draft positions m-1 on, the K+1-row
+        verify forward, the target's argmax, its top `n_cand` candidates
+        per verify row (lower index first on ties, as jax.lax.top_k) and
+        the features, into the proposal's static buffers. The caches' K/V
+        rows and tags are written; n_past, the last token and the feature
+        stay as they were."""
+        st, K, prop = self.state, self.K, self._prop
+        m = st.n_past
+        tok, feat, dkv = st.last_token, st.feature, st.dft_kv
+        drafts = []
+        for k in range(K):
+            pos = (m - 1 + k)[:, None]
+            dkv.with_tags(pos, pos)
+            mask = causal_mask_from_tags(dkv.slot_pos, pos)
+            dout = eagle_forward(
+                self.dp, self.tp, self.dcfg, tok[:, None], feat[:, None], pos,
+                dkv, pos, mask, compute_dtype=self.compute_dtype, kv_limit=kv_limit,
+            )
+            tok = torch.argmax(dout.logits[:, 0], dim=-1).to(torch.int32)
+            feat = self._pick_feature(dout.feature, dout.feature_pre)[:, 0]
+            drafts.append(tok)
+        drafts = torch.stack(drafts, dim=1)
+        v_tokens = torch.cat([st.last_token[:, None], drafts], dim=1)
+        v_pos = m[:, None] + torch.arange(K + 1, dtype=torch.int32, device=self.device)[None, :]
+        tgt_kv = st.tgt_kv.with_tags(v_pos, v_pos)
+        mask = causal_mask_from_tags(tgt_kv.slot_pos, v_pos)
+        tout = llama_forward(
+            self.tp, self.tcfg, v_tokens, v_pos, tgt_kv, v_pos, mask,
+            compute_dtype=self.compute_dtype, kv_limit=kv_limit, slots_contiguous=True,
+        )
+        b = self.batch
+        prop.ids[:, :K].copy_(drafts)
+        prop.ids[:, K:2 * K + 1].copy_(torch.argmax(tout.logits, dim=-1))
+        prop.ids[:, 2 * K + 1:].copy_(top_k(tout.logits, n_cand)[1].view(b, -1))
+        prop.feats.copy_(self._pick_feature(tout.hidden, tout.hidden_pre))
+        prop.logits.copy_(tout.logits)
+
+    def _propose(self, kv_limit: int, n_cand: int) -> None:
+        """One proposal (`_cycle_propose`): on the card the replay of its
+        graph for (`kv_limit`, `n_cand`)."""
+        st, prop = self.state, self._prop
+        static = (*st.tgt_kv.tensors(), *st.dft_kv.tensors(), st.last_token, st.feature,
+                  st.n_past, prop.ids, prop.feats, prop.logits)
+        self.graphs.run(("propose", kv_limit, n_cand),
+                        lambda: self._cycle_propose(kv_limit, n_cand), static)
+
+    def _cycle_commit(self, m: int, n_final: int, final_token: int) -> None:
+        """Commit `n_final` output tokens of the proposal made at n_past
+        `m`, the last of them `final_token` (the grammar's pick where it
+        vetoed the target's): the target tags roll back to m + n_final, the
+        draft's to m + n_final - 1."""
+        st = self.state
+        new_m = torch.full((self.batch,), m + n_final, dtype=torch.int32, device=self.device)
+        st.tgt_kv.rollback(keep_below=new_m)
+        st.dft_kv.rollback(keep_below=new_m - 1)
+        st.last_token.fill_(final_token)
+        st.feature.copy_(self._prop.feats[:, n_final - 1])
+        st.n_past.copy_(new_m)
+
+    def generate_constrained(self, prompt_tokens, grammar, tokenizer,
+                             max_new_tokens: int = 128, seed: int = 0,
+                             stop_at_eos: bool = True) -> tuple[list[int], dict]:
+        """Grammar-constrained speculative decoding: every output token is
+        checked against (and advances) the grammar; a vetoed position ends
+        the cycle's acceptance and takes the best grammar-legal candidate
+        of the target's top min(256, V), or where none is legal the masked
+        argmax of the row's logits (EOS where nothing is legal). The first
+        token is the masked argmax of the prompt's last logits. Greedy,
+        whatever the sampler; `grammar` advances. Returns (tokens, stats).
+
+        So the tokens are the plain constrained generator's. The reference
+        takes the lowest legal token id where no candidate is legal, which
+        departs from them (ROADMAP queue 3); elsewhere the two agree."""
+        from .grammar import TokenTrie
+
+        if self.batch != 1:
+            raise ValueError(f"constrained generation is single-sequence: this engine has "
+                             f"batch {self.batch}, it needs batch 1")
+        if self.paged:
+            raise ValueError("this engine's state is a page pool, driven by its PagedBatcher")
+        prompt = np.asarray(prompt_tokens, dtype=np.int32)
+        n = len(prompt)
+        if n < 1:
+            raise ValueError("generate_constrained needs a prompt of at least one token")
+        K, V = self.K, self.tcfg.vocab_size
+        n_cand = min(256, V)
+        if self._prop is None:
+            self._prop = Proposal(
+                ids=torch.zeros((1, K + (K + 1) * (1 + n_cand)), dtype=torch.int32,
+                                device=self.device),
+                feats=torch.zeros((1, K + 1, self.tcfg.n_embd), dtype=torch.float32,
+                                  device=self.device),
+                logits=torch.zeros((1, K + 1, V), dtype=torch.float32, device=self.device))
+        pieces = [tokenizer.piece(i) for i in range(V)]
+        trie = TokenTrie(pieces)
+        eos = tokenizer.eos_id
+
+        def legal():
+            gmask = grammar.token_mask(trie)
+            if eos >= 0:
+                gmask[eos] = bool(grammar.can_end)
+            return gmask
+
+        def masked_argmax(row: torch.Tensor, gmask) -> int:
+            masked = np.where(gmask, row.float().cpu().numpy(), -np.inf)
+            return int(np.argmax(masked)) if np.isfinite(masked).any() else eos
+
+        state = self.fresh_state()
+        state.rng.reset(seed)
+        t = pad_bucket(n)
+        padded = np.zeros((1, t), np.int32)
+        padded[0, :n] = prompt
+        self._prefill(state, torch.from_numpy(padded).to(self.device),
+                      torch.tensor([n], dtype=torch.int32, device=self.device), t)
+        first = masked_argmax(self.prompt_logits[0], legal())
+        state.last_token.fill_(first)
+        out = [first]
+        if first != eos:
+            grammar.accept_token(first, pieces[first])
+
+        prop = self._prop
+        n_cycles = n_accepted = 0
+        n_past = n
+        while len(out) < max_new_tokens and not (stop_at_eos and out[-1] == eos):
+            if n_past + K + 2 >= self.max_seq:
+                break
+            self._propose(self.kv_read_bucket(n_past + K + 2), n_cand)
+            ids = prop.ids[0].tolist()  # one read: drafts, t_true, candidates
+            drafts, t_true = ids[:K], ids[K:2 * K + 1]
+            cands = ids[2 * K + 1:]
+            n_dev = 1  # the device's acceptance: the longest exact-match prefix
+            for p in range(K):
+                if drafts[p] != t_true[p]:
+                    break
+                n_dev += 1
+            kept: list[int] = []
+            for p in range(n_dev):  # the grammar's walk over the proposed tokens
+                tok = t_true[p]
+                gmask = legal()
+                if gmask[tok]:
+                    kept.append(tok)
+                    if tok == eos:
+                        break
+                    grammar.accept_token(tok, pieces[tok])
+                    continue
+                repl = next((c for c in cands[p * n_cand:(p + 1) * n_cand] if gmask[c]), None)
+                if repl is None:  # no candidate is legal: the masked argmax of the whole row
+                    repl = masked_argmax(prop.logits[0, p], gmask)
+                kept.append(repl)
+                if repl != eos:
+                    grammar.accept_token(repl, pieces[repl])
+                break
+            self._cycle_commit(n_past, len(kept), kept[-1])
+            n_past += len(kept)
+            out.extend(kept)
+            n_cycles += 1
+            n_accepted += len(kept) - 1
+        stats = {"constrained": True, "n_cycles": n_cycles, "n_accepted": n_accepted,
+                 "mean_accept_len": (n_accepted + n_cycles) / max(1, n_cycles)}
+        return out[:max_new_tokens], stats

@@ -19,8 +19,21 @@ Endpoints, bodies, SSE chunks and status codes as the reference's
        default `slot_{id}.bin`: save writes the slot's state file, restore
        loads it into the slot and resumes it, erase frees the slot; 501
        without a batcher, 409 for a paged slot that is not live)
-What the port lacks answers 501 naming its ROADMAP item: /infill, `tools`
-in a chat request, `grammar` / `json_schema`.
+What the port lacks answers 501 naming its ROADMAP item: /infill.
+
+A completion's `grammar` (GBNF), `json_schema` or `response_format.schema`
+(else the server's `--grammar`, its default grammar) runs through
+`Engine.generate_text` on the single-stream worker, also beside a batch
+worker: a chain engine of batch 1 speculates under the grammar, a plain
+engine runs the constrained generator, and a batched chain engine answers
+400 (constrained generation is single-sequence). A chat request's `tools`
+(the reference's `tool_choice` handling: a system prompt listing the
+tools, with "required" the tool grammar, the output parsed into
+`message.tool_calls` with `finish_reason: "tool_calls"`) rides the same
+path and answers without streaming, as the reference's. A constrained
+stream answers 400: the reference's streams ignore the grammar. So does a
+stateful sampler (a request's `repeat_penalty`) on a batched server, whose
+rows the reference samples without the sampler's state.
 
 The front is the standard library's `ThreadingHTTPServer` (the card's host
 has no aiohttp): one thread per connection. Device work runs on one
@@ -53,6 +66,7 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+from ..runtime.sampling import DroppedSamplerState, refuse_dropped_state
 from ..utils.args import sampler_from_request
 
 _ITEM7 = "ROADMAP queue 1, item 7"
@@ -94,21 +108,36 @@ class ServerMetrics:
         return "\n".join(lines) + "\n"
 
 
-def _refuse_constraints(body: dict) -> None:
-    fmt = body.get("response_format")
-    if body.get("grammar") or body.get("json_schema") or (
-            isinstance(fmt, dict) and fmt.get("schema")):
-        raise HTTPError(501, f"grammar-constrained decoding is not ported yet ({_ITEM7})")
+def _tool_system_prompt(tools: list[dict], fmt: str) -> str:
+    """The tools' schemas as a system preamble for templates that carry no
+    tools of their own (the reference's generic handler's JSON listing,
+    common/chat.cpp:660-710)."""
+    decls = json.dumps([t.get("function", t) for t in tools], ensure_ascii=False, indent=None)
+    if fmt == "hermes_2_pro":
+        how = ('To call a tool, reply with '
+               '<tool_call>{"name": <name>, "arguments": <args-object>}</tool_call>')
+    elif fmt == "mistral_nemo":
+        how = ('To call tools, reply with '
+               '[TOOL_CALLS][{"name": <name>, "arguments": <args-object>}]')
+    elif fmt.startswith("llama_3"):
+        how = 'To call a tool, reply with {"name": <name>, "parameters": <args-object>}'
+    else:
+        how = ('Respond with JSON: {"tool_call": {"name": <name>, '
+               '"arguments": <args-object>}} to call a tool, or '
+               '{"response": <text>} to answer directly.')
+    return f"You have access to these tools:\n{decls}\n{how}"
 
 
 class InferenceServer:
-    def __init__(self, engine, model_name: str = "eagle-tpu", use_jinja: bool = False):
+    def __init__(self, engine, model_name: str = "eagle-tpu", use_jinja: bool = False,
+                 grammar: str | None = None):
         if use_jinja:
             from .chat_templates import JINJA_REFUSED
 
             raise NotImplementedError(JINJA_REFUSED)
         self.engine = engine
         self.model_name = model_name
+        self.grammar = grammar  # --grammar: the default of requests without a constraint
         self.metrics = ServerMetrics()
         self._jobs: queue.Queue = queue.Queue()
         self._worker = threading.Thread(target=self._work, daemon=True,
@@ -154,6 +183,8 @@ class InferenceServer:
         if self.batch_worker is not None:
             from .batch_worker import BatchRequest
 
+            # refused before a stream's headers go out
+            refuse_dropped_state(sampler, "a batched server's rows")
             self.batch_worker.submit(BatchRequest(
                 prompt_ids=ids, max_new=max_new, on_token=on_token, sampler=sampler,
                 on_done=lambda toks: q.put(("done", list(toks), {"batched": True})),
@@ -237,15 +268,44 @@ class InferenceServer:
             raise HTTPError(409, str(e)) from None
         return {"id": slot_id, "result": res}
 
+    def _constraint(self, body: dict) -> tuple[str | None, Any]:
+        """The request's (grammar, json_schema): its own, else the server's
+        default grammar."""
+        fmt = body.get("response_format")
+        schema = body.get("json_schema") or (fmt.get("schema") if isinstance(fmt, dict)
+                                             else None)
+        grammar = body.get("grammar")
+        if not (grammar or schema):
+            grammar = self.grammar
+        return grammar, schema
+
+    def _refuse_constrained_stream(self, body: dict) -> None:
+        if any(self._constraint(body)):
+            raise HTTPError(400, "a grammar or JSON schema constrains only a request without "
+                                 "`stream`: the reference's streams ignore it")
+
     def _complete(self, prompt: str, body: dict) -> dict:
-        _refuse_constraints(body)
         t0 = time.time()
         ids = self.engine.tokenizer.encode(prompt)
         self.metrics.add(requests_total=1, tokens_prompt_total=len(ids))
-        *_, end = self._events(self._generate(ids, body))
-        if end[0] == "error":
-            raise end[1]
-        _, toks, stats = end
+        grammar, schema = self._constraint(body)
+        if grammar or schema:  # on the single-stream worker, batched server or not
+            sampler = sampler_from_request(body, self.engine.cfg.sampler)
+            max_new = int(body.get("max_tokens", body.get("n_predict", 128)))
+            seed = int(body.get("seed", 0))
+
+            def work():
+                text, st = self.engine.generate_text(prompt, max_new_tokens=max_new,
+                                                     sampler=sampler, seed=seed,
+                                                     grammar=grammar, json_schema=schema)
+                return self.engine.tokenizer.encode(text, add_bos=False), st
+
+            toks, stats = self._submit_job(work).result()
+        else:
+            *_, end = self._events(self._generate(ids, body))
+            if end[0] == "error":
+                raise end[1]
+            _, toks, stats = end
         self.metrics.add(tokens_generated_total=len(toks))
         eos = self.engine.tokenizer.eos_id
         text = self.engine.tokenizer.decode([t for t in toks if t != eos], skip_special=True)
@@ -291,7 +351,7 @@ class InferenceServer:
 
     def handle_completion(self, out, body: dict):
         if body.get("stream"):
-            _refuse_constraints(body)
+            self._refuse_constrained_stream(body)
             return self._stream(out, body.get("prompt", ""), body, chat=False)
         res = self._complete(body.get("prompt", ""), body)
         return {"content": res["text"], "tokens_predicted": res["timings"]["predicted_n"],
@@ -306,21 +366,43 @@ class InferenceServer:
                           "completion_tokens": res["timings"]["predicted_n"]}}
 
     def handle_v1_chat(self, out, body: dict):
+        """A chat completion; with `tools` (unless `tool_choice` is "none")
+        the format follows the template's markers (`detect_format`), a
+        system message lists the tools, "required" constrains the output to
+        a call (`build_tool_grammar`) and the output is parsed into
+        `tool_calls`. A request with tools answers without streaming."""
         from .chat_templates import apply_template
+        from .tool_calls import build_tool_grammar, detect_format
+        from .tool_calls import parse as parse_tool_output
 
-        if body.get("tools"):
-            raise HTTPError(501, f"tool calls are not ported yet ({_ITEM7})")
-        _refuse_constraints(body)
-        prompt = apply_template(list(body.get("messages", [])), template=body.get("template"),
-                                jinja_src=self.engine.metadata.get("tokenizer.chat_template"))
-        if body.get("stream"):
+        jinja_src = self.engine.metadata.get("tokenizer.chat_template")
+        messages = list(body.get("messages", []))
+        tools = body.get("tools") or []
+        fmt = "content_only"
+        if tools and body.get("tool_choice", "auto") != "none":
+            fmt = detect_format(jinja_src or "", has_tools=True)
+            messages = [{"role": "system", "content": _tool_system_prompt(tools, fmt)}] + messages
+            if body.get("tool_choice") == "required":
+                g, _ = build_tool_grammar(tools, fmt, required=True)
+                body = {**body, "grammar": g.gbnf_source}
+        prompt = apply_template(messages, template=body.get("template"), jinja_src=jinja_src,
+                                tools=tools or None)
+        if body.get("stream") and not tools:
+            self._refuse_constrained_stream(body)
             return self._stream(out, prompt, body, chat=True)
         res = self._complete(prompt, body)
+        msg = parse_tool_output(res["text"].strip(), fmt if tools else "content_only")
+        message: dict[str, Any] = {"role": "assistant", "content": msg.content or None}
+        if msg.reasoning_content:
+            message["reasoning_content"] = msg.reasoning_content
+        if msg.tool_calls:
+            message["tool_calls"] = [tc.as_openai() for tc in msg.tool_calls]
+        else:
+            message["content"] = res["text"].strip()
         return {"id": f"chatcmpl-{uuid.uuid4().hex[:12]}", "object": "chat.completion",
                 "created": int(time.time()), "model": self.model_name,
-                "choices": [{"index": 0,
-                             "message": {"role": "assistant", "content": res["text"].strip()},
-                             "finish_reason": "stop"}]}
+                "choices": [{"index": 0, "message": message,
+                             "finish_reason": "tool_calls" if msg.tool_calls else "stop"}]}
 
     def handle_rerank(self, out, body: dict) -> dict:
         """Jina/TEI-style rerank: {"query": ..., "documents"|"texts": [...],
@@ -472,8 +554,9 @@ def _handler(server: InferenceServer):
                 server.route(method, self.path, self, body)
             except HTTPError as e:
                 self.send_json(e.status, {"error": str(e)})
-            except NotImplementedError as e:
-                self.send_json(501, {"error": str(e)})
+            except NotImplementedError as e:  # not ported: 501; a dropped sampler state: 400
+                self.send_json(400 if isinstance(e, DroppedSamplerState) else 501,
+                               {"error": str(e)})
             except ValueError as e:
                 self.send_json(400, {"error": str(e)})
             except Exception as e:  # a failed kernel or step: the request gets it
@@ -509,7 +592,7 @@ def main(argv=None) -> int:
         feature_source=args.feature_source,
         device=args.device,
     )
-    InferenceServer(Engine(cfg)).run(host=args.host, port=args.port)
+    InferenceServer(Engine(cfg), grammar=args.grammar).run(host=args.host, port=args.port)
     return 0
 
 

@@ -5,7 +5,8 @@ Usage:
   python -m eagle_tpu_torch.tools.cli -m model.gguf -p "prompt" [-n 128]
       [--draft eagle.gguf] [--tree 4,2,2 | --tree2 8,6,32] [--temp 0.8]
       [--top-k 40] [--top-p 0.95] [--min-p 0.05] [--seed 0] [--device cuda]
-      [--prompt-cache session.bin [--prompt-cache-all]]
+      [--prompt-cache session.bin [--prompt-cache-all]] [--repeat-penalty 1.1]
+      [--grammar GBNF | --json-schema JSON]
   python -m eagle_tpu_torch.tools.cli -m model.gguf --chat
       [--chat-template vicuna] [--system "..."] [-n 128] [--temp 0]
 
@@ -14,7 +15,9 @@ Prints the text on stdout and `[load]`, `[perf]` and, with a draft,
 as the reference does. With `--prompt-cache` the prompt's longest prefix
 cached in the session file skips its prefill (on a plain generator, as the
 reference's main.cpp), `[session] reused N cached prompt tokens from ...`
-goes to stderr, and the file is rewritten. With `--chat` each line on stdin is one user turn
+goes to stderr, and the file is rewritten. `--grammar` (GBNF text) and
+`--json-schema` (a JSON text) constrain the output, speculating under the
+grammar with a chain draft. With `--chat` each line on stdin is one user turn
 (`/exit` or end of input quits): the reply streams to stdout and a
 `[perf]` line per turn goes to stderr; the session is non-speculative, as
 the reference's. It runs on the card unless `--device cpu`."""
@@ -98,6 +101,7 @@ def main(argv=None) -> int:
     text, stats = eng.generate_text(
         args.prompt if args.prompt is not None else "Hello",
         max_new_tokens=args.n_predict, sampler=sampler, seed=args.seed,
+        grammar=args.grammar, json_schema=args.json_schema,
         session_path=args.prompt_cache, session_cache_all=args.prompt_cache_all,
     )
     dt = time.time() - t0

@@ -97,16 +97,14 @@ REGISTRY: tuple[Opt, ...] = (
     Opt(("--top-k",), "top-k", type=int, default=40, tools=_CS),
     Opt(("--top-p",), "top-p", type=float, default=0.95, tools=_CS),
     Opt(("--min-p",), "min-p", type=float, default=0.05, tools=_CS),
-    Opt(("--repeat-penalty",), "repetition penalty (1.0: off; any other value needs the "
-        "stateful samplers, ROADMAP queue 1, item 7)", type=float, default=1.0, tools=_CS),
+    Opt(("--repeat-penalty",), "repetition penalty (1.0: off)", type=float, default=1.0,
+        tools=_CS),
     Opt(("--seed",), "sampling seed", type=int, default=0, tools=("cli",)),
     # ---- generation / prompt ------------------------------------------------
     Opt(("-p", "--prompt"), "prompt text", tools=("cli", "tokenize")),
     Opt(("-n", "--n-predict"), "tokens to generate", type=int, default=128, tools=("cli",)),
-    Opt(("--grammar",), "GBNF grammar constraining output", tools=_CS,
-        refused=f"grammar-constrained decoding: {_ITEM7}"),
-    Opt(("--json-schema",), "JSON schema constraining output", tools=("cli",),
-        refused=f"grammar-constrained decoding: {_ITEM7}"),
+    Opt(("--grammar",), "GBNF grammar constraining output", tools=_CS),
+    Opt(("--json-schema",), "JSON schema (its JSON text) constraining output", tools=("cli",)),
     Opt(("--prompt-cache",), "session file: save/resume the prompt's KV state "
         "(main.cpp --prompt-cache)", tools=("cli",)),
     Opt(("--prompt-cache-all",), "also cache generated output in the session",

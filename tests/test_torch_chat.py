@@ -23,8 +23,8 @@ sessions are module fixtures shared by the parametrised cases.
   (capture stubbed) and captures none;
 - `embed` (mean and last pooling) and `rerank` at rtol 1e-4;
 - the CLI's `--chat` over stdin prints the session's replies;
-- the refusals: `--jinja`, a stateful sampler, self-extend, a bert target,
-  a `cls` head."""
+- the refusals: `--jinja`, a stateful sampler with a draft (whose engine
+  would drop its state), a bert target, a `cls` head."""
 
 from __future__ import annotations
 
@@ -420,8 +420,12 @@ def _streamed(s, text):
 # ---- refusals ---------------------------------------------------------------
 
 
-def _stateful(port):
-    port.chat_session().ask("the fox", sampler=SamplerConfig(penalty_repeat=1.1))
+def _stateful(pair):
+    """A session runs a stateful sampler (tests/test_torch_sampling_stateful.py
+    holds it against the reference); `--chat` with a draft and a penalty is
+    refused with the engine, whose cycles would drop the sampler's state."""
+    cli.main(["-m", str(pair[0]), "--draft", str(pair[1]), "--chat", "--repeat-penalty", "1.1",
+              "--device", "cpu"])
 
 
 def _bert(port):
@@ -437,7 +441,7 @@ def _cls(port):
 REFUSALS = {
     "jinja": (lambda port, pair: cli.main(["-m", str(pair[0]), "--chat", "--jinja",
                                            "--device", "cpu"]), "jinja2"),
-    "stateful_sampler": (lambda port, pair: _stateful(port), "item 7"),
+    "stateful_sampler": (lambda port, pair: _stateful(pair), "drops the sampler's state"),
     "bert_target": (lambda port, pair: _bert(port), "item 8"),
     "cls_head": (lambda port, pair: _cls(port), "item 8"),
 }

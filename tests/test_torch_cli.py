@@ -2,10 +2,12 @@
 (`--device cpu`) on a tiny GGUF pair with an SPM vocabulary prints the text
 and the `[speculative]` line, `tools.tokenize` the ids; every flag of the
 CLI and the server, config and entry point the port does not have yet
-raises NotImplementedError naming its ROADMAP item; `batch` > 1 with a
-chain draft builds the continuous batcher (`paged`: the paged one); the
-paged and prompt-cache flags parse; the entry points default to the
-card."""
+raises NotImplementedError naming its ROADMAP item, and a stateful sampler
+(`--repeat-penalty`) where the reference drops its state (with a draft,
+with a grammar) raises `DroppedSamplerState`; the server's `--grammar`
+becomes its default grammar; `batch` > 1 with a chain draft builds the
+continuous batcher (`paged`: the paged one); the paged and prompt-cache
+flags parse; the entry points default to the card."""
 
 import pytest
 import torch
@@ -44,36 +46,58 @@ def test_cli_prints_text_and_speculative_line(pair, capsys):
     assert ids[0] == 1 and len(ids) == 3
 
 
+DROPS = "drops the sampler's state"
 REFUSED_FLAGS = [(["--lora", "a.gguf"], "item 9"), (["--lora-scale", "0.5"], "item 9"),
-                 (["--lookahead", "4,3,2"], "item 7"), (["--grammar", "root ::= \"a\""], "item 7"),
-                 (["--json-schema", "{}"], "item 7"),
+                 (["--lookahead", "4,3,2"], "item 7"),
+                 # the stateful samplers and grammars run; together, or a penalty under a
+                 # draft, the reference drops the sampler's state
+                 (["--grammar", "root ::= \"a\"", "--repeat-penalty", "1.1"], DROPS),
+                 (["--json-schema", "{}", "--temp", "0", "--repeat-penalty", "1.2"], DROPS),
                  (["--jinja"], "jinja2"), (["--backend", "xla"], "--device"),
-                 (["--repeat-penalty", "1.1"], "item 7")]
+                 (["--repeat-penalty", "1.1", "--draft", "DRAFT"], DROPS)]
 
 
 @pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=[f[0][0] for f in REFUSED_FLAGS])
 def test_cli_refuses_what_is_not_ported(pair, flags, item):
+    flags = [str(pair[1]) if f == "DRAFT" else f for f in flags]
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["-m", str(pair[0]), "-p", "a", "--device", "cpu", *flags])
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(lora_path="a.gguf"), "item 9"), (dict(lora_scale=0.5), "item 9"),
-    (dict(lookahead=(4, 3, 2)), "item 7"), (dict(sampler=SamplerConfig(mirostat=2)), "item 7")])
+ENGINE_REFUSALS = [(dict(lora_path="a.gguf"), "item 9"), (dict(lora_scale=0.5), "item 9"),
+                   (dict(lookahead=(4, 3, 2)), "item 7"),
+                   (dict(draft_path="DRAFT", sampler=SamplerConfig(mirostat=2)), DROPS)]
+
+
+@pytest.mark.parametrize("kw,item", ENGINE_REFUSALS,  # the ids of the cases before mirostat ran
+                         ids=["kw0-item 9", "kw1-item 9", "kw2-item 7", "kw3-item 7"])
 def test_engine_config_refusals(pair, kw, item):
+    kw = {k: pair[1] if v == "DRAFT" else v for k, v in kw.items()}
     with pytest.raises(NotImplementedError, match=item):
         Engine(EngineConfig(model_path=pair[0], device="cpu", **kw))
+    if "sampler" in kw:  # without the draft the port runs mirostat
+        Engine(EngineConfig(model_path=pair[0], device="cpu", sampler=kw["sampler"]))
 
 
 SERVER_REFUSED = [(["--jinja"], "jinja2"),
-                  (["--grammar", "root ::= \"a\""], "item 7"), (["--lora", "a.gguf"], "item 9"),
+                  (["--grammar", "root ::= \"a\""], None), (["--lora", "a.gguf"], "item 9"),
                   (["--lora-scale", "0.5"], "item 9"), (["--backend", "xla"], "--device")]
 
 
 @pytest.mark.parametrize("flags,item", SERVER_REFUSED, ids=[f[0][0] for f in SERVER_REFUSED])
-def test_server_refuses_what_is_not_ported(pair, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        server.main(["-m", str(pair[0]), "--device", "cpu", "-np", "2", *flags])
+def test_server_refuses_what_is_not_ported(pair, flags, item, monkeypatch):
+    """What the server lacks raises; `--grammar` (item None) is the
+    server's default grammar: `main` builds the server with it."""
+    argv = ["-m", str(pair[0]), "--device", "cpu", "-np", "2", *flags]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            server.main(argv)
+        return
+    served = []
+    monkeypatch.setattr(server.InferenceServer, "run", lambda self, **kw: served.append(self))
+    assert server.main(argv) == 0
+    assert served[0].grammar == flags[1]
+    served[0].stop()
 
 
 @pytest.mark.parametrize("kind", ["chain", "tree", "plain", "paged", "paged_int8"])
@@ -125,10 +149,18 @@ def test_paged_and_session_flags_parse():
 
 
 def test_entry_point_refusals(engine):
+    """`infill` names item 7; a grammar and a JSON schema run (the chain
+    engine speculates under them), and with a stateful sampler raise where
+    the reference would drop its state."""
     eng = engine
-    for call, item in ((lambda: eng.generate_text("a", grammar="root ::= \"a\""), "item 7"),
-                       (lambda: eng.generate_text("a", json_schema={"type": "object"}), "item 7"),
-                       (lambda: eng.infill("a", "b"), "item 7")):
+    text, stats = eng.generate_text("a", max_new_tokens=4, grammar="root ::= \"a\"")
+    assert text == "a" and stats["constrained"]
+    text, stats = eng.generate_text("a", max_new_tokens=6, json_schema={"type": "boolean"})
+    assert text in ("true", "false", "t", "tr", "tru", "f", "fa", "fal", "fals")
+    for call, item in ((lambda: eng.infill("a", "b"), "item 7"),
+                       (lambda: eng.generate_text("a", grammar="root ::= \"a\"",
+                                                  sampler=SamplerConfig(penalty_repeat=1.1)),
+                        DROPS)):
         with pytest.raises(NotImplementedError, match=item):
             call()
     gen = eng._plain_generator()

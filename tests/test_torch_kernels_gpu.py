@@ -24,7 +24,12 @@ graphed == eager from the same seed; the chat's kernels (`-k "offset or
 feed or shift or embed"`): flash_prefill as a feed at an offset runs it, a
 feed (`Generator._extend`) then graphed decode equal to eager, a context
 shift under live step graphs (no capture after it), `Engine.embed` and
-`rerank` on the card against the CPU.
+`rerank` on the card against the CPU; the stateful samplers and
+constrained decoding (`-k "stateful or constrained or proposal"`): the
+penalties, DRY and mirostat on the card against the CPU at V = 32,000,
+each stateful sampler's graphed `Generator` == eager (a new state
+recaptures), the graphed proposal == eager, the chain's constrained
+tokens == the plain generator's.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -1263,3 +1268,168 @@ def test_paged_cycle_graphed_equals_eager(cuda):
     assert runs[True][1]["prefix_hits"] == 1
     for got, want in zip(runs[True], runs[False]):
         assert (torch.equal(got, want) if isinstance(got, torch.Tensor) else got == want)
+
+
+# ---- stateful samplers and constrained decoding (`-k "stateful or constrained"`)
+
+STATEFUL_KINDS = {
+    "penalties": SamplerConfig(greedy=True, penalty_repeat=1.3, penalty_freq=0.2,
+                               penalty_present=0.2),
+    "dry": SamplerConfig(greedy=True, dry_multiplier=0.8, dry_allowed_length=1,
+                         dry_sequence_breakers=(7,)),
+    "mirostat_v1": SamplerConfig(mirostat=1, mirostat_tau=8.0, temperature=1.0,
+                                 penalty_repeat=1.1),
+    "mirostat_v2": SamplerConfig(mirostat=2, mirostat_tau=8.0, temperature=1.0,
+                                 logit_bias=((5, 2.0), (9, -1.0))),
+    "sampled_penalties": SamplerConfig(temperature=0.9, top_k=0, top_p=1.0, min_p=0.0,
+                                       penalty_freq=0.3, xtc_probability=0.5,
+                                       xtc_threshold=0.01),
+}
+
+
+def test_stateful_functions_on_the_card_match_the_cpu(cuda):
+    """At V = 32,000 with the same logits, state and noise: the penalties,
+    DRY and both mirostats on the card against the CPU (relative error <=
+    1e-5: CUDA divides by a Python scalar through its reciprocal), mirostat
+    v1's k equal, and four `sample_stateful` steps of each kind the same
+    tokens with the same state after them."""
+    from eagle_tpu_torch.runtime import sampling as S
+
+    v, b = 32000, 3
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy((rng.standard_normal((b, v)) * 3).astype(np.float32))
+    counts = torch.from_numpy(rng.integers(0, 3, (b, v)).astype(np.float32))
+    recent = torch.from_numpy(rng.integers(0, 12, (b, 64)).astype(np.int32))
+    g = torch.from_numpy(rng.gumbel(size=(b, v)).astype(np.float32))
+    mu = torch.tensor([4.0, 10.0, 16.0])
+    both = {"cpu": (logits, counts, recent, g, mu),
+            "cuda": tuple(t.cuda() for t in (logits, counts, recent, g, mu))}
+    cfg = STATEFUL_KINDS["penalties"]
+    dry = STATEFUL_KINDS["dry"]
+    res = {dev: dict(pen=S.apply_penalties(l, c, cfg), dry=S.dry_penalty(l, r, dry),
+                     k=S._mirostat_v1_k(l, m), v1=S._mirostat_v1(l, n, cfg, m),
+                     v2=S._mirostat_v2(l, n, cfg, m))
+           for dev, (l, c, r, n, m) in both.items()}
+    _close(res["cuda"]["pen"].cpu(), res["cpu"]["pen"], 1e-5)
+    _close(res["cuda"]["dry"].cpu(), res["cpu"]["dry"], 1e-5)
+    assert torch.equal(res["cuda"]["k"].cpu(), res["cpu"]["k"])
+    for name in ("v1", "v2"):
+        assert torch.equal(res["cuda"][name][0].cpu(), res["cpu"][name][0])
+        _close(res["cuda"][name][1].cpu(), res["cpu"][name][1], 1e-5)
+    for kind, scfg in STATEFUL_KINDS.items():
+        states = {dev: S.SamplerState(b, v, tau=scfg.mirostat_tau, device=dev)
+                  for dev in ("cpu", "cuda")}
+        for step in range(4):
+            lg = torch.from_numpy((rng.standard_normal((b, v)) * 3).astype(np.float32))
+            gn = torch.from_numpy(rng.gumbel(size=(b, v)).astype(np.float32))
+            u = torch.from_numpy(rng.random((b, 1)).astype(np.float32))
+            toks = {dev: S.sample_stateful(lg.to(dev), scfg, states[dev], gn.to(dev), u.to(dev))
+                    for dev in ("cpu", "cuda")}
+            assert torch.equal(toks["cuda"].cpu(), toks["cpu"]), (kind, step)
+        assert torch.equal(states["cuda"].counts.cpu(), states["cpu"].counts)
+        assert torch.equal(states["cuda"].recent.cpu(), states["cpu"].recent)
+        _close(states["cuda"].mu.cpu(), states["cpu"].mu, 1e-5)
+
+
+@pytest.mark.parametrize("kind", list(STATEFUL_KINDS))
+def test_graphed_stateful_generator_equals_eager(cuda, kind):
+    """Each stateful sampler rides the graphed decode step: graphed tokens
+    equal the eager path's bit for bit, a second graphed run captures
+    nothing and runs no body eagerly, and a state made anew recaptures."""
+    tp, _ = _tiny_bf16()
+    scfg = STATEFUL_KINDS[kind]
+    eager, graphed = _bf16_gen(tp, False), _bf16_gen(tp, True)
+    want = eager.generate(PROMPT, max_new_tokens=40, sampler=scfg, seed=3, stop_at_eos=False,
+                          chunk=8)
+    assert graphed.generate(PROMPT, max_new_tokens=40, sampler=scfg, seed=3,
+                            stop_at_eos=False, chunk=8) == want
+    captures, warm = graphed.graphs.captures, graphed.graphs.eager
+    _build.reset_counts()
+    assert graphed.generate(PROMPT, max_new_tokens=40, sampler=scfg, seed=3,
+                            stop_at_eos=False, chunk=8) == want
+    assert (graphed.graphs.captures, graphed.graphs.eager) == (captures, warm)
+    assert _build.launches["qmm_gemv"] > 0 and sum(_build.plain_calls.values()) == 0
+    old, graphed.sstate = graphed.sstate, None  # kept: the new state lies elsewhere
+    assert graphed.generate(PROMPT, max_new_tokens=40, sampler=scfg, seed=3,
+                            stop_at_eos=False, chunk=8) == want
+    assert graphed.graphs.captures == captures + 1
+    assert old.counts.data_ptr() != graphed.sstate.counts.data_ptr()
+
+
+class _Pieces:
+    """A tokenizer of 512 pieces for the grammar: digits, letters and the
+    space, repeated 1-3 times; 0-2 control (EOS 2)."""
+
+    eos_id = 2
+    chars = "0123456789abcdefghijklmnopqrstuvwxyz "
+
+    def piece(self, i: int) -> str:
+        return "" if i < 3 else self.chars[i % 37] * (1 + (i // 37) % 3)
+
+
+WORDS_GBNF = "root ::= [a-z ]+"
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_constrained_chain_equals_plain_on_the_card(cuda, graphed):
+    """f32 on the card: the chain's constrained tokens (proposals eager or
+    replayed as graphs) equal the plain constrained generator's, the
+    digits vetoed; graphed proposals equal eager ones, with their stats."""
+    from eagle_tpu_torch.runtime.grammar import Grammar
+
+    cfg = TINY_CFG
+    tp = synth_llama_params(cfg, qtype=Q4_K, seed=3, packed=True, coded=True, device="cuda")
+    dp = synth_eagle_params(cfg, qtype=Q4_K, seed=4, packed=True, device="cuda")
+    kw = dict(max_seq=256, kv_dtype=torch.float32, compute_dtype=torch.float32, eos_id=2,
+              device="cuda")
+    tok = _Pieces()
+    plain = Generator(tp, cfg, cuda_graphs=graphed, **kw)
+    want = plain.generate_constrained(PROMPT, Grammar(WORDS_GBNF), tok, max_new_tokens=40)
+    text = "".join(tok.piece(t) for t in want if t != 2)
+    assert Grammar(WORDS_GBNF).accepts_text(text) and len(want) > 1
+
+    def chain(g):
+        return EagleChainEngine(tp, dp, cfg, n_draft=3, cuda_graphs=g, **kw)
+
+    got, stats = chain(graphed).generate_constrained(PROMPT, Grammar(WORDS_GBNF), tok,
+                                                     max_new_tokens=40)
+    assert got == want and stats["constrained"] and stats["n_cycles"] >= 1
+    if graphed:
+        eng = chain(True)
+        eng.generate_constrained(PROMPT, Grammar(WORDS_GBNF), tok, max_new_tokens=40)
+        warm = eng.graphs.eager
+        _build.reset_counts()
+        again = eng.generate_constrained(PROMPT, Grammar(WORDS_GBNF), tok, max_new_tokens=40)
+        assert again == (got, stats) and eng.graphs.eager == warm and eng.graphs.replays > 0
+        assert sum(_build.plain_calls.values()) == 0
+        eager = chain(False).generate_constrained(PROMPT, Grammar(WORDS_GBNF), tok,
+                                                  max_new_tokens=40)
+        assert eager == (got, stats)
+
+
+def test_graphed_proposal_equals_eager(cuda):
+    """bf16: one proposal replayed as a graph writes the eager proposal's
+    drafts, argmaxes, candidates, features and logits bit for bit, and the
+    caches' tags; the verify's products are `qmm_mma` launches."""
+    from eagle_tpu_torch.runtime.grammar import Grammar
+
+    tp, dp = _tiny_bf16()
+    outs = []
+    for graphed in (False, True):
+        eng = EagleChainEngine(tp, dp, TINY_CFG, n_draft=3, max_seq=256,
+                               kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=2,
+                               device="cuda", cuda_graphs=graphed)
+        toks, _ = eng.generate_constrained(PROMPT, Grammar(WORDS_GBNF), _Pieces(),
+                                           max_new_tokens=12)
+        st, prop = eng.state, eng._prop
+        _build.reset_counts()
+        eng._propose(eng.kv_read_bucket(int(st.n_past[0]) + eng.K + 2), 256)
+        torch.cuda.synchronize()
+        assert _build.launches["qmm_mma"] == 2 * 4 + 1
+        outs.append((toks, prop.ids.clone(), prop.feats.clone(), prop.logits.clone(),
+                     st.tgt_kv.slot_pos.clone(), st.dft_kv.slot_pos.clone()))
+        if graphed:
+            assert eng.graphs.replays > 0
+    assert outs[0][0] == outs[1][0]
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert torch.equal(a, b)

@@ -6,8 +6,8 @@
 - an entry point built with its default device (the card) raises on a host
   without CUDA instead of falling back to the CPU (the engines, the loaders,
   `api.Engine` and the CLI among them);
-- `generate` refuses an empty prompt, the one input that would build a
-  negative cache slot;
+- `generate` and `generate_constrained` refuse an empty prompt, the one
+  input that would build a negative cache slot;
 - a kernel wrapper given a non-CPU tensor and no buildable kernel raises and
   never runs the plain version;
 - the codebook grids are read from the port's own copy of `iq_grids.npz`."""
@@ -47,7 +47,9 @@ def _port_files():
                  "eagle_tpu_torch/server/chat_templates.py", "eagle_tpu_torch/server/webui.py",
                  "eagle_tpu_torch/runtime/chat.py", "eagle_tpu_torch/runtime/paged_kv.py",
                  "eagle_tpu_torch/runtime/paged_batcher.py",
-                 "eagle_tpu_torch/runtime/state_io.py"):
+                 "eagle_tpu_torch/runtime/state_io.py", "eagle_tpu_torch/runtime/grammar.py",
+                 "eagle_tpu_torch/runtime/json_schema.py",
+                 "eagle_tpu_torch/server/tool_calls.py"):
         assert must in names
     return files
 
@@ -82,7 +84,10 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
                                    "params_from_numpy", "load_llama_params",
                                    "load_eagle_params", "Engine", "cli", "server",
                                    "ChatSession", "cli --chat", "PagedKVCache.create",
-                                   "server --paged", "Engine paged int8"])
+                                   "server --paged", "Engine paged int8",
+                                   "Generator.generate_constrained",
+                                   "EagleChainEngine.generate_constrained",
+                                   "cli --grammar"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from eagle_tpu_torch.api import Engine, EngineConfig
@@ -120,6 +125,12 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
                                                "--paged"]),
         "Engine paged int8": lambda: Engine(EngineConfig(
             model_path="no-such-file.gguf", batch=2, paged=True, kv_dtype=torch.int8)),
+        "Generator.generate_constrained": lambda: Generator({}, TINY, max_seq=16)
+        .generate_constrained([1, 2], None, None),
+        "EagleChainEngine.generate_constrained": lambda: EagleChainEngine(
+            {}, {}, TINY, max_seq=16).generate_constrained([1, 2], None, None),
+        "cli --grammar": lambda: cli.main(["-m", "no-such-file.gguf", "-p", "a", "--grammar",
+                                           'root ::= "a"']),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -141,6 +152,18 @@ def test_empty_prompt_raises(entry):
     runner = cls(*args, TINY, max_seq=16, device="cpu")
     with pytest.raises(ValueError, match="at least one token"):
         runner.generate([], max_new_tokens=4)
+
+
+@pytest.mark.parametrize("entry", ["Generator", "EagleChainEngine"])
+def test_empty_prompt_raises_constrained(entry):
+    """`generate_constrained` refuses an empty prompt as `generate` does."""
+    from eagle_tpu_torch.runtime.generate import Generator
+    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+
+    runner = (Generator({}, TINY, max_seq=16, device="cpu") if entry == "Generator"
+              else EagleChainEngine({}, {}, TINY, max_seq=16, device="cpu"))
+    with pytest.raises(ValueError, match="at least one token"):
+        runner.generate_constrained([], None, None, max_new_tokens=4)
 
 
 @pytest.fixture

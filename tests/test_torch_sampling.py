@@ -15,7 +15,10 @@ reference (eagle_tpu/runtime/sampling.py) on the CPU:
 - `CounterRNG`: uniforms in (0, 1) with a flat histogram, the same seed
   gives the same stream, another seed or the next counter another one,
   and two counters whose keys differ only in their low bits unrelated ones;
-- stateful configs (penalties, DRY, mirostat) raise."""
+- stateful configs (penalties, DRY, mirostat) raise where the reference
+  drops the sampler's state (a speculative engine's cycles, its batched
+  rows); `transform_logits` applies the penalties from the counts given
+  (tests/test_torch_sampling_stateful.py holds the rest)."""
 
 import dataclasses
 
@@ -319,8 +322,26 @@ def test_counter_rng_close_keys_give_unrelated_streams():
                                 dict(penalty_present=0.2), dict(dry_multiplier=0.8),
                                 dict(mirostat=2)])
 def test_stateful_configs_raise(kw):
+    from eagle_tpu_torch.models.config import ModelConfig
+    from eagle_tpu_torch.runtime.speculative import EagleChainEngine
+
     cfg = port.SamplerConfig(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        port.check_sampler(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        port.transform_logits(torch.zeros(2, V), cfg)
+    with pytest.raises(port.DroppedSamplerState, match="drops the sampler's state"):
+        port.refuse_dropped_state(cfg, "a speculative engine")
+    tiny = ModelConfig(vocab_size=V, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=2,
+                       head_dim=64, n_ff=512)
+    with pytest.raises(NotImplementedError, match="drops the sampler's state"):
+        EagleChainEngine({}, {}, tiny, max_seq=16, sampler=cfg, device="cpu")
+    eng = EagleChainEngine({}, {}, tiny, max_seq=16, batch=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="drops the sampler's state"):
+        eng.set_row_sampler(1, cfg)
+    port.refuse_dropped_state(port.SamplerConfig(), "anywhere")  # a stateless config passes
+    l = tied_logits(12, rows=2)
+    counts = torch.zeros(2, V)
+    counts[0, :5] = 2.0
+    got = port.transform_logits(torch.from_numpy(l), cfg, penalty_counts=counts)
+    want = port.transform_logits(torch.from_numpy(l), cfg)
+    if cfg.needs_penalties:  # only the seen tokens of row 0 move
+        assert not torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)

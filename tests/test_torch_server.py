@@ -13,6 +13,12 @@ at 3 slots (the continuous batcher):
 - /tokenize and /detokenize round trip, /metrics counts the requests,
   /slots lists the slots, /props and the web page are served;
 - what the port lacks answers 501 naming its ROADMAP item;
+- `grammar`, `json_schema`, `response_format.schema` and `tools` with
+  `tool_choice: "required"` (answering `tool_calls`) give the reference's
+  bodies at one chain slot; a
+  constraint on a batched server answers 400 naming batch 1, a constrained
+  stream 400, a batched request's repeat penalty 400 (the reference drops
+  the sampler's state there); `--grammar` is the server's default grammar;
 - POST /slots/{id}?action=save|restore|erase answers the reference's bodies
   (501 without a batcher), and the restored slot holds the saved one's
   tags and tokens;
@@ -74,10 +80,10 @@ def _wait_health(base: str) -> None:
     raise TimeoutError(base)
 
 
-def _reference(pair, slots: int, **kw):
+def _reference(pair, slots: int, draft: bool = True, max_seq: int = 128, **kw):
     """The reference server on a thread (as tests/test_server.py starts it)."""
-    eng = JaxEngine(JaxEngineConfig(model_path=pair[0], draft_path=pair[1], n_draft=K,
-                                    batch=slots, max_seq=128, backend="xla",
+    eng = JaxEngine(JaxEngineConfig(model_path=pair[0], draft_path=pair[1] if draft else None,
+                                    n_draft=K, batch=slots, max_seq=max_seq, backend="xla",
                                     compute_dtype=jnp.float32, kv_dtype=jnp.float32, **kw))
     srv, port, loop, holder = JaxServer(eng, model_name="tiny"), _free_port(), \
         asyncio.new_event_loop(), {}
@@ -206,17 +212,148 @@ def test_tokenize_props_slots_and_page(servers):
 
 REFUSED = [("/infill", {"input_prefix": "a"}, "item 7"),
            ("/v1/chat/completions", {"messages": CHAT, "tools": [{"type": "function"}]},
-            "item 7"),
-           ("/completion", {"prompt": "a", "grammar": "root ::= \"a\""}, "item 7"),
-           ("/completion", {"prompt": "a", "json_schema": {"type": "object"}}, "item 7")]
+            "does not fit"),
+           ("/completion", {"prompt": "a", "grammar": "root ::= \"a\""}, "batch 1"),
+           ("/completion", {"prompt": "a", "json_schema": {"type": "boolean"}}, "batch 1")]
 
 
 @pytest.mark.parametrize("path,body,item", REFUSED,
                          ids=[f"{r[0]}-{'-'.join(sorted(r[1]))}" for r in REFUSED])
 def test_not_ported_answers_501(servers, path, body, item):
-    with pytest.raises(urllib.error.HTTPError) as e:
-        post(servers["port"] + path, body)
-    assert e.value.code == 501 and item in json.loads(e.value.read())["error"]
+    """The requests that answered 501 before the constrained slice: /infill
+    still names item 7; `grammar` and `json_schema` answer the reference's
+    bodies at one slot (the chain engine speculating under the grammar),
+    and at 3 slots 400 naming batch 1 (the reference's chain engine asserts
+    it: a 500). `tools` add a system prompt listing them (295 tokens here),
+    which fits neither server's 128-slot cache: both answer an error (the
+    port's batcher a 400 naming the fit); `test_constrained_bodies_match_
+    reference` holds tools against the reference on servers that fit it."""
+    got = _answer(servers["port"] + path, body)
+    if item == "item 7":
+        assert got[0] == 501 and item in got[1]["error"]
+    elif item == "does not fit":  # at 3 slots the reference's batcher answers anyway
+        assert (got[0], _status(servers["ref"] + path, body)) == (500, 500) or (
+            got[0] == 400 and item in got[1]["error"] and servers["slots"] > 1)
+    elif servers["slots"] > 1:
+        assert got[0] == 400 and item in got[1]["error"], got
+        assert _status(servers["ref"] + path, body) == 500
+    else:
+        assert got[0] == 200 and _strip(got[1]) == _strip(_answer(servers["ref"] + path, body)[1])
+
+
+def _status(url, body) -> int:
+    try:
+        post(url, body, raw=True)
+        return 200
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+WORDS = "root ::= [a-z ]+"
+SCHEMA = {"type": "object", "properties": {"a": {"type": "boolean"}, "b": {"enum": ["x", "y"]}},
+          "required": ["a", "b"]}
+TOOLS = [{"type": "function", "function": {
+    "name": "add", "description": "add two numbers",
+    "parameters": {"type": "object", "properties": {"a": {"type": "boolean"}},
+                   "required": ["a"]}}}]
+CONSTRAINED = [  # (path, body): through Engine.generate_text on both servers
+    ("/completion", {"prompt": "the quick brown fox", "n_predict": 12, "grammar": WORDS,
+                     "temperature": 0}),
+    ("/v1/completions", {"prompt": "the lazy dog", "max_tokens": 24, "json_schema": SCHEMA,
+                         "temperature": 0}),
+    ("/v1/chat/completions", {"messages": CHAT, "max_tokens": 24, "temperature": 0,
+                              "response_format": {"type": "json_object", "schema": SCHEMA}}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "add 1 and 2"}],
+                              "max_tokens": 90, "temperature": 0, "tools": TOOLS,
+                              "tool_choice": "required", "stream": True}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "add 1 and 2"}],
+                              "max_tokens": 10, "temperature": 0, "tools": TOOLS}),
+]
+
+
+@pytest.fixture(scope="module")
+def spec_servers(pair):
+    """The port's and the reference's servers at one chain slot with
+    max_seq 512 (room for the tools' system prompt): both speculate under
+    the grammar (`generate_constrained` of their chain engine)."""
+    eng = Engine(EngineConfig(model_path=pair[0], draft_path=pair[1], n_draft=K, max_seq=512,
+                              compute_dtype=torch.float32, kv_dtype=torch.float32,
+                              device="cpu"))
+    srv = InferenceServer(eng, model_name="tiny")
+    host, port = srv.start("127.0.0.1", 0)
+    ref, stop_ref = _reference(pair, 1, draft=True, max_seq=512)
+    yield dict(port=f"http://{host}:{port}", ref=ref, srv=srv)
+    srv.stop()
+    stop_ref()
+
+
+@pytest.mark.parametrize("path,body", CONSTRAINED,
+                         ids=[f"{i}-{c[0]}" for i, c in enumerate(CONSTRAINED)])
+def test_constrained_bodies_match_reference(spec_servers, path, body):
+    """`grammar`, `json_schema`, `response_format.schema` and `tools`
+    (`tool_choice: "required"`: the tool grammar, answered without
+    streaming even when asked to stream, as the reference's): the
+    reference's bodies apart from ids and times. The schema's text parses
+    and the required tool call comes back as `tool_calls`."""
+    got = post(spec_servers["port"] + path, body)
+    assert _strip(got) == _strip(post(spec_servers["ref"] + path, body))
+    if "json_schema" in body:
+        obj = json.loads(got["choices"][0]["text"])
+        assert isinstance(obj["a"], bool) and obj["b"] in ("x", "y")
+    if body.get("tool_choice") == "required":
+        choice = got["choices"][0]
+        assert choice["finish_reason"] == "tool_calls", choice
+        call = choice["message"]["tool_calls"][0]["function"]
+        assert call["name"] == "add" and isinstance(json.loads(call["arguments"])["a"], bool)
+
+
+def test_server_default_grammar(spec_servers):
+    """The server's `--grammar` constrains the requests without one of
+    their own; a request's own grammar wins."""
+    srv = spec_servers["srv"]
+    body = {"prompt": "the quick brown fox", "n_predict": 12, "temperature": 0}
+    free = post(spec_servers["port"] + "/completion", body)["content"]
+    try:
+        srv.grammar = 'root ::= "yes" | "no"'
+        assert post(spec_servers["port"] + "/completion", body)["content"] in ("yes", "no")
+        own = post(spec_servers["port"] + "/completion", {**body, "grammar": WORDS})
+        assert own["content"] == post(spec_servers["port"] + "/completion", {
+            **body, "grammar": WORDS})["content"]
+        assert _answer(spec_servers["port"] + "/completion", {**body, "stream": True})[0] == 400
+    finally:
+        srv.grammar = None
+    assert post(spec_servers["port"] + "/completion", body)["content"] == free
+
+
+STREAMS = [("/completion", {"prompt": "a dog", "n_predict": 4, "grammar": WORDS,
+                            "stream": True}),
+           ("/v1/chat/completions", {"messages": CHAT, "max_tokens": 4, "stream": True,
+                                     "response_format": {"schema": SCHEMA}})]
+
+
+@pytest.mark.parametrize("path,body", STREAMS, ids=[s[0] for s in STREAMS])
+def test_constrained_stream_answers_400(servers, path, body):
+    """The reference's streams ignore a grammar or schema; the port's
+    answer 400 before any frame."""
+    code, err = _answer(servers["port"] + path, body)
+    assert code == 400 and "stream" in err["error"]
+
+
+def test_batched_stateful_request_answers_400(servers):
+    """A request's repeat penalty on a batched server: the reference's rows
+    sample without the sampler's state, the port's answers 400 before it
+    takes a slot (streamed or not). At one slot the chain engine samples
+    with its own sampler, as the reference's."""
+    body = {"prompt": "the lazy dog", "n_predict": 6, "temperature": 0, "repeat_penalty": 1.3}
+    for extra in ({}, {"stream": True}):
+        if servers["slots"] > 1:
+            code, got = _answer(servers["port"] + "/completion", {**body, **extra})
+            assert code == 400 and "drops the sampler's state" in got["error"]
+        else:
+            assert _status(servers["port"] + "/completion", {**body, **extra}) == 200
+    if servers["slots"] > 1:
+        slots = json.loads(get(servers["port"] + "/slots")[1])
+        assert all(s["state"] == "free" for s in slots)
 
 
 EMBEDS = [("/embedding", {"content": "the lazy dog"}),
