@@ -235,6 +235,30 @@ constrained. stateful samplers and grammar-constrained decoding on phase
    (`[constrained cli]`, `[constrained http]`). The chain's launches of the
    timed letter-grammar run stand in the `kernels` line as
    `constrained_path_launches`.
+runtime. model-free speculation, YaRN and fill-in-the-middle: (a) on phase
+   6's target (unfused, max_seq 2048, a 301-token prompt: 100 words three
+   times), `Engine(lookahead=(8, 4, 8))` and a `LookupEngine(n_draft=8)`,
+   each eager and graphed, 3 timed runs each, 64 tokens: graphed == eager
+   bit for bit, tokens == the graphed greedy `Generator`'s up to the
+   near-tie rule, 129 qmm_tc and 32 flash_decode per lookahead step (48
+   rows) and per lookup cycle (9 rows), t/s, TTFT, device ms per step by
+   CUDA events over 8 replays, idle share (`[runtime lookahead]`,
+   `[runtime lookup]`); an oracle lookup (its n-gram cache fed the greedy
+   continuation, prompt lookup off); qmm at 9 and 48 rows and flash_decode
+   at T = 48 under a lookahead mask against their plain versions, timed
+   (`[runtime kernel]`); (b) a minted Yarn-Llama-2-7b-64k-shape GGUF (YaRN
+   factor 16 over 4,096): the blend against its formula, greedy at max_seq
+   8,192 on a 5,000-token prompt eager and graphed (TTFT, t/s, device ms
+   per token; 129 qmm_tc and 32 flash_prefill at 8,192 rows), a context
+   shift against a recompute, flash_decode over 5,064 slots and
+   flash_prefill at T = 8,192 timed (`[runtime yarn]`); (c) a minted
+   CodeLlama-7b-shape GGUF (32,016 pieces, the FIM control pieces):
+   `Engine.infill` greedy in PSM and SPM order, eager and graphed, wall
+   and filter ms per token, then the server's /infill as a subprocess
+   (== the in-process text) and a phase-6 server's 400 (`[runtime
+   infill]`). Each minted file is deleted after its checks. The launches
+   of a graphed lookahead and lookup run, the YaRN run and the PSM infill
+   stand in the `kernels` line as `runtime_path_launches`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -1885,14 +1909,18 @@ def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -
 
 
 def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, v: int = 32000,
-                   n_layers: int = 32, n_heads: int = 32,
-                   tag: str = "vicuna-7b") -> tuple[pathlib.Path, pathlib.Path]:
+                   n_layers: int = 32, n_heads: int = 32, tag: str = "vicuna-7b",
+                   ctx: int = 2048, rope_base: float = 10000.0, metadata: dict | None = None,
+                   vocab: dict | None = None, with_draft: bool = True
+                   ) -> tuple[pathlib.Path, pathlib.Path | None]:
     """Write a Vicuna-7B-shape GGUF (or one of the widths given) laid out as
     llama-quantize's Q4_0 lays out a llama-7B file (every layer matmul and
     token_embd Q4_0, output Q6_K, norms F32, llama metadata and an SPM
-    vocabulary of `v` pieces, `spm_vocab`), and an EAGLE draft GGUF in Q8_0
-    (one layer, fc, token_embd; fc.bias F32). Weights are random quant
-    blocks."""
+    vocabulary of `v` pieces, `spm_vocab`, or `vocab`'s keys), and an EAGLE
+    draft GGUF in Q8_0 (one layer, fc, token_embd; fc.bias F32), unless
+    `with_draft` is False. `ctx` is the context length, `rope_base` the
+    rope frequency base; `metadata` adds target keys (rope scaling). Weights
+    are random quant blocks."""
     import torch
 
     from eagle_tpu_torch.gguf import GGMLType, GGUFWriter
@@ -1906,12 +1934,12 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
         w = GGUFWriter(path)
         for key, val in {
             "general.architecture": arch, "general.name": f"{arch} {tag}-shape random",
-            "general.file_type": file_type, f"{arch}.context_length": 2048,
+            "general.file_type": file_type, f"{arch}.context_length": ctx,
             f"{arch}.embedding_length": d, f"{arch}.block_count": blocks,
             f"{arch}.feed_forward_length": f, f"{arch}.attention.head_count": n_heads,
             f"{arch}.attention.head_count_kv": n_heads,
             f"{arch}.attention.layer_norm_rms_epsilon": 1e-6,
-            f"{arch}.rope.dimension_count": d // n_heads, f"{arch}.rope.freq_base": 10000.0,
+            f"{arch}.rope.dimension_count": d // n_heads, f"{arch}.rope.freq_base": rope_base,
             f"{arch}.vocab_size": v,
         }.items():
             w.add(key, val)
@@ -1925,7 +1953,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
 
     target = tmp / f"{tag}-q4_0.gguf"
     w = writer(target, "llama", n_layers, 2)  # LLAMA_FTYPE_MOSTLY_Q4_0
-    for key, val in spm_vocab(v, seed).items():
+    for key, val in {**(vocab or spm_vocab(v, seed)), **(metadata or {})}.items():
         w.add(key, val)
     add(w, "token_embd.weight", v, d, q4_0, 1.3e-3)
     for i in range(n_layers):
@@ -1937,6 +1965,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     add(w, "output.weight", v, d, q6_k, 1e-4, signed=False)
     w.write()
     del w
+    if not with_draft:
+        return target, None
 
     draft = tmp / f"eagle-{tag}-q8_0.gguf"
     w = writer(draft, "eagle", 1, 7)  # LLAMA_FTYPE_MOSTLY_Q8_0
@@ -4217,6 +4247,629 @@ def constrained_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase runtime: model-free speculation, YaRN and fill-in-the-middle
+
+
+RUNTIME_WORDS = 100  # the phase's distinct words, said three times: lookup drafts from them
+RUNTIME_NEW = 64  # new tokens of each lookahead / lookup run
+LOOKAHEAD = (8, 4, 8)  # (W, N, G): the reference's defaults, T = 48 rows a step
+LOOKAHEAD_ROWS = 1 + 8 * 3 + 7 + 2 * 8
+LOOKUP_K = 8  # 9 verify rows
+#: a step's launches: 4 products per layer and lm_head at 48 (9) rows, and
+#: one flash_decode per layer over the whole cache (the window included)
+STEP_LAUNCHES = {"qmm_tc": 129, "flash_decode": 32}
+YARN_PROMPT = 5000  # tokens, bucket 8,192: positions past the original 4,096
+YARN_SEQ = 8192
+YARN_NEW = 64
+YARN_SHIFT = (64, 1024)  # the context shift: keep, discard
+#: NousResearch/Yarn-Llama-2-7b-64k's config.json rope_scaling
+YARN_MD = {"llama.rope.scaling.type": "yarn", "llama.rope.scaling.factor": 16.0,
+           "llama.rope.scaling.original_context_length": 4096}
+#: CodeLlama-7b's vocabulary: 32,016 pieces, its four FIM control pieces at
+#: 32007-32010 and the GGUF keys naming them (convert_hf_to_gguf's CodeLlama)
+FIM_PIECES = {"prefix": (32007, "▁<PRE>"), "suffix": (32008, "▁<SUF>"),
+              "middle": (32009, "▁<MID>"), "eot": (32010, "▁<EOT>")}
+INFILL_NEW = 32
+INFILL_TEXT = ("def fib(n):\n    a, b = 0, 1\n    for _ in range(n):\n        ",
+               "\n    return a\n\nprint(fib(10))\n")
+
+
+def model_free_cell(tag: str, eng, ids: list, greedy: list, gen, make_replay) -> dict:
+    """`eng` (a LookaheadEngine or LookupEngine on the card) on `ids`, 64 new
+    tokens, stop at EOS off: eager (graphs off) and graphed, 3 timed runs
+    each after one graphed run that captures; graphed == eager bit for bit,
+    the tokens == greedy's up to the near-tie rule, the launches of a step
+    (`STEP_LAUNCHES`, a replay counting as an eager step) and of a whole
+    run (the prompt's forward one more step); device ms per step by CUDA
+    events over 8 replays of the last step (`make_replay()` gives the
+    replay) and the idle share of the median graphed run. A lookup
+    engine's n-gram cache starts empty in each run."""
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.runtime.lookup import NgramCache
+
+    def run(on_token):
+        if getattr(eng, "ngram", None) is not None:  # lookup's cache learns across calls
+            eng.ngram = NgramCache()
+        return eng.generate(ids, max_new_tokens=RUNTIME_NEW, stop_at_eos=False,
+                            on_token=on_token)
+
+    steps_key = "n_steps" if hasattr(eng, "lay") else "n_cycles"  # lookahead / lookup
+    eager = [timed_run(lambda cb: eager_tokens(eng, lambda: run(cb))) for _ in range(REPS)]
+    want = eager[0][0]
+    if any(r[0] != want for r in eager):
+        raise AssertionError(f"{tag}: two eager runs differ")
+    first = run(None)  # the capture
+    if first != want:
+        raise AssertionError(f"{tag}: graphed tokens or stats differ from eager")
+    captures = eng.graphs.captures
+    for key, g in eng.graphs._graphs.items():
+        counts = {k: v for k, v in g.counts.items() if v}
+        if counts != STEP_LAUNCHES:
+            raise AssertionError(f"{tag}: a step's launches {counts}, not {STEP_LAUNCHES}")
+    graphed = []
+    for _ in range(REPS):
+        eager_before = eng.graphs.eager
+        _build.reset_counts()
+        graphed.append(timed_run(run))
+        launches = {k: v for k, v in _build.launches.items() if v}
+        n_steps = graphed[-1][0][1][steps_key]
+        if graphed[-1][0] != want or eng.graphs.eager != eager_before or \
+                eng.graphs.captures != captures:
+            raise AssertionError(f"{tag}: a graphed run differs, captured or ran a body eagerly")
+        expect = {k: v * (n_steps + 1) for k, v in STEP_LAUNCHES.items()}  # + the prompt
+        if launches != expect or any(_build.plain_calls.values()):
+            raise AssertionError(f"{tag}: launches {launches}, not {expect}")
+    tokens, stats = want
+    near = check_near_tie(gen, ids, greedy, tokens[:len(greedy)], "runtime", f"{tag} vs greedy")
+    eager_before = eng.graphs.eager
+    replay = make_replay()
+    dev = timed_events(lambda: [replay() for _ in range(8)], 8)
+    if eng.graphs.eager != eager_before:
+        raise AssertionError(f"{tag}: a step ran eagerly while it was timed")
+    tps = [(RUNTIME_NEW - 1) / r[2] for r in graphed]
+    med = sorted(graphed, key=lambda r: r[2])[REPS // 2]
+    n_steps = stats[steps_key]
+    idle = 1 - dev["ms"] * n_steps / (med[2] * 1e3)
+    out = dict(stats=stats, launches_per_step=STEP_LAUNCHES, launches_per_run=launches,
+               tokens_per_s=spread(tps), ttft_ms=spread([r[1] * 1e3 for r in graphed]),
+               eager_tokens_per_s=spread([(RUNTIME_NEW - 1) / r[2] for r in eager]),
+               device_ms_per_step=dev["ms"], idle_share=idle, near_tie=near)
+    shown = ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in stats.items())
+    log(f"[runtime {tag}] graphed == eager bit for bit; {n_steps} steps for {RUNTIME_NEW} "
+        f"tokens ({shown}); "
+        f"t/s graphed {fmt(out['tokens_per_s'])}, eager {fmt(out['eager_tokens_per_s'])}; TTFT "
+        f"{fmt(out['ttft_ms'], 1)} ms; device {dev['ms']:.3f} ms per step (CUDA events over 8 "
+        f"replays), idle {100 * idle:.1f} % of the median graphed run; per step "
+        f"{STEP_LAUNCHES['qmm_tc']} qmm_tc and {STEP_LAUNCHES['flash_decode']} flash_decode")
+    return out
+
+
+def runtime_kernels(params, gen) -> dict:
+    """The slice's new shapes on the served Q4_0 weights and the attention
+    it reads: qmm at 9 rows (a lookup verify) and 48 rows (a lookahead
+    step), both on `qmm_tc` (`qmm_sum`: kernel, plain, bound and library ms
+    per call and per step); flash_decode at T = 48 under a lookahead step's
+    mask over a 2,048-slot cache (365 committed slots with holes, the
+    window in the last 48), against its plain version (rel err <= 1e-2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.ops import flash_attention as fa
+    from eagle_tpu_torch.runtime.lookahead import _Layout
+
+    out: dict = {"qmm": []}
+    specs = target_qmm_specs(params)
+    for what, rows in (("lookup verify", LOOKUP_K + 1), ("lookahead step", LOOKAHEAD_ROWS)):
+        out[f"qmm per {what}"] = qmm_sum("runtime kernel", what, rows, specs, "qmm_tc", gen,
+                                         out["qmm"])
+    lay = _Layout(*LOOKAHEAD)
+    b, t, h, d, s = 1, lay.T, 32, 128, 2048
+    k_cache = torch.randn((2, b, h, s + 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v_cache = torch.randn((2, b, h, s + 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    base, n_past = s - t, 365
+    tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+    tags[:, :n_past] = torch.arange(n_past, dtype=torch.int32, device="cuda")
+    tags[:, 200:203] = -1  # rolled-back verify rows
+    pos = n_past + torch.from_numpy(lay.pos_off).cuda()
+    ok = torch.ones(t, dtype=torch.bool, device="cuda")
+    ok[torch.from_numpy(lay.gram_rows[3:].reshape(-1)).long().cuda()] = False  # 3 live grams
+    tags[:, base:] = torch.where(ok, pos, -1)
+    committed = (tags >= 0) & (torch.arange(s, device="cuda") < base)
+    mask = committed[:, None, :] & (tags[:, None, :] <= pos[None, :, None])
+    mask[:, :, base:] = torch.from_numpy(lay.visible).cuda() & ok[None, :]
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+    got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s)
+    abs_err, rel = rel_err(got, fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, 1,
+                                                                 s_limit=s))
+    if rel > ATTN_TOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_decode T={t} lookahead mask: rel err {rel:.3e}")
+    ms = device_ms(lambda i: fa.flash_attention_cached(q, k_cache, v_cache, mask, i % 2,
+                                                       s_limit=s), 50)
+    plain = device_ms(lambda i: fa.flash_attention_cached_plain(q, k_cache, v_cache, mask,
+                                                               i % 2, s_limit=s), 10)
+    qb = q.transpose(1, 2).to(torch.bfloat16)
+    kl, vl = k_cache[1, :, :, :s], v_cache[1, :, :, :s]
+    lib = device_ms(lambda i: F.scaled_dot_product_attention(qb, kl, vl,
+                                                             attn_mask=mask[:, None]), 50)
+    seen = int(mask.any(dim=1).sum())  # slots some row sees: the bytes that must move
+    b_ms, b_by = bound_ms(2 * b * h * seen * d * 2 + nbytes(q, mask) + q.numel() * 4,
+                          4.0 * int(mask.sum()) * h * d)
+    out["flash_decode"] = dict(t=t, s=s, mask="lookahead", ms=ms, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                               max_abs_err=abs_err, rel_err=rel, slots_seen=seen)
+    log(f"[runtime kernel] flash_decode T={t} S={s} H={h} D={d} lookahead mask ({seen} slots "
+        f"seen)  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
+        f"library {lib:.4f} ms  rel err {rel:.2e}")
+    del k_cache, v_cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def lookahead_lookup(report: dict, target, tmp: pathlib.Path) -> tuple[dict, dict]:
+    """(a) On phase 6's Q4_0 target (unfused, max_seq 2,048), a ~300-token
+    prompt of 100 words said three times: `Engine(lookahead=(8, 4, 8))`
+    (greedy) and a `LookupEngine(n_draft=8)` over its params, each through
+    `model_free_cell`; an oracle lookup run (its n-gram cache fed the
+    prompt and the greedy continuation, prompt lookup off: it drafts the
+    greedy tokens), graphed; `runtime_kernels`. Returns (the cell results,
+    the launches of one graphed lookahead run and one lookup run)."""
+    import gc
+
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.gguf import GGUFReader
+    from eagle_tpu_torch.runtime import lookup as lookup_mod
+    from eagle_tpu_torch.runtime.lookup import LookupEngine
+
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    with GGUFReader(target) as reader:
+        vocab = reader.metadata["tokenizer.ggml.tokens"]
+    words = cli_prompt(vocab, n_words=RUNTIME_WORDS, seed=13)
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, max_seq=2048, lookahead=LOOKAHEAD))
+    torch.cuda.synchronize()
+    ids = eng.tokenizer.encode(" ".join([words] * 3))
+    gen = eng._plain_generator()
+    greedy = gen.generate(ids, max_new_tokens=RUNTIME_NEW, stop_at_eos=False)
+    out: dict = {"load_s": time.time() - t0, "prompt_tokens": len(ids)}
+    log(f"[runtime] phase 6's target loaded with lookahead {LOOKAHEAD} in {out['load_s']:.1f} s; "
+        f"the prompt is {len(ids)} tokens ({RUNTIME_WORDS} words, three times)")
+    out["greedy_step_ms"] = decode_device_ms(gen, ids)
+    la = eng.engine
+    out["lookahead"] = model_free_cell("lookahead", la, ids, greedy, gen, lambda: la._replay)
+    lu = LookupEngine(eng.params, eng.model_cfg, n_draft=LOOKUP_K, max_seq=2048,
+                      eos_id=eng.tokenizer.eos_id)
+
+    def lookup_replay():  # the last verify again, at its read bucket
+        lim = lu.kv_read_bucket(int(lu._in[-1]) + LOOKUP_K + 1)
+        return lambda: lu._replay(lim)
+
+    out["lookup"] = model_free_cell("lookup", lu, ids, greedy, gen, lookup_replay)
+    launches = {}
+    for name, e in (("lookahead", la), ("lookup", lu)):
+        _build.reset_counts()
+        e.generate(ids, max_new_tokens=RUNTIME_NEW, stop_at_eos=False)
+        for k, v in _build.launches.items():
+            launches[k] = launches.get(k, 0) + v
+
+    oracle = LookupEngine(eng.params, eng.model_cfg, n_draft=LOOKUP_K, max_seq=2048,
+                          eos_id=eng.tokenizer.eos_id)
+    oracle.ngram.update(list(ids) + greedy)
+    real = lookup_mod.prompt_lookup_draft
+    lookup_mod.prompt_lookup_draft = lambda *a, **k: []
+    try:
+        oracle.generate(ids, max_new_tokens=RUNTIME_NEW, stop_at_eos=False)  # the captures
+        (toks, stats), ttft, after, _, _ = timed_run(lambda cb: oracle.generate(
+            ids, max_new_tokens=RUNTIME_NEW, stop_at_eos=False, on_token=cb))
+    finally:
+        lookup_mod.prompt_lookup_draft = real
+    out["oracle_lookup"] = dict(stats=stats, tokens_per_s=(RUNTIME_NEW - 1) / after,
+                                ttft_ms=ttft * 1e3, near_tie=check_near_tie(
+                                    gen, ids, greedy, toks[:len(greedy)], "runtime",
+                                    "oracle lookup vs greedy"))
+    log(f"[runtime oracle lookup] drafts = the greedy continuation: mean_accept_len "
+        f"{stats['mean_accept_len']:.2f} over {stats['n_cycles']} cycles, "
+        f"{out['oracle_lookup']['tokens_per_s']:.1f} t/s graphed (the upper bound)")
+    gd = out["greedy_step_ms"]
+    log(f"[runtime] device ms: greedy step {gd:.3f}, lookahead step "
+        f"{out['lookahead']['device_ms_per_step']:.3f} ({LOOKAHEAD_ROWS} rows), lookup cycle "
+        f"{out['lookup']['device_ms_per_step']:.3f} ({LOOKUP_K + 1} rows)")
+    out["kernels"] = runtime_kernels(eng.params, torch.Generator(device="cuda").manual_seed(23))
+    del eng, gen, la, lu, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def yarn_inv_freq_np(head_dim: int, base: float, factor: float, orig: int):
+    """inv_freq of a YaRN config in f64 by the reference's formula
+    (ggml_rope_yarn_corr_dims and the ramp blend), written out here."""
+    import math
+
+    import numpy as np
+
+    def corr(n_rot):
+        return head_dim * math.log(orig / (n_rot * 2.0 * math.pi)) / (2.0 * math.log(base))
+
+    low = max(0.0, float(math.floor(corr(32.0))))
+    high = min(float(head_dim - 1), float(math.ceil(corr(1.0))))
+    i = np.arange(head_dim // 2, dtype=np.float64)
+    ramp = 1.0 - np.clip((i - low) / max(0.001, high - low), 0.0, 1.0)
+    blend = (1.0 / factor) * (1.0 - ramp) + ramp
+    return (1.0 / base ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim)) * blend
+
+
+def yarn_cell(tmp: pathlib.Path) -> tuple[dict, dict]:
+    """(b) A Yarn-Llama-2-7b-64k-shape GGUF (Llama-2-7B widths and depth, Q4_0
+    as phase 6's target, 32,000 SPM pieces, context 65,536, YaRN factor 16
+    over 4,096), minted, loaded and deleted: its blend against the formula
+    on the host; greedy `Generator` at max_seq 8,192 on a 5,000-token
+    prompt (bucket 8,192: 129 qmm_tc and 32 flash_prefill at 8,192 rows),
+    64 tokens eager and graphed (bit for bit); TTFT, t/s, device ms per
+    token at that context; a context shift (keep 64, discard 1,024) against
+    a recompute: the moved keys rotated by the formula's frequencies from
+    the cache before it (within one bf16 step), and the next token's
+    logits on the shifted cache against those on the recomputed one (rel
+    err <= 1e-2); flash_decode at T = 1 over that context and flash_prefill
+    at T = 8,192 against their plain versions, timed. Returns (the cell,
+    the launches of the graphed run)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.models.loader import load_llama_params
+    from eagle_tpu_torch.ops import flash_attention as fa
+    from eagle_tpu_torch.ops.rope import rope_freqs_cfg, rope_mscale_cfg
+    from eagle_tpu_torch.quant.serving import prepare_params_for_serving
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    if shutil.disk_usage(tmp).free < GGUF_FREE_BYTES:
+        raise RuntimeError("the YaRN file needs 5 GiB of disk")
+    t0 = time.time()
+    path, _ = mint_gguf_pair(tmp, seed=31, tag="yarn-llama-2-7b-64k", ctx=65536,
+                             metadata=YARN_MD, with_draft=False)
+    out: dict = {"mint_s": time.time() - t0}
+    t0 = time.time()
+    params, cfg, _ = load_llama_params(path, device="cuda")
+    params = prepare_params_for_serving(params, "f32")
+    torch.cuda.synchronize()
+    out["load_s"] = time.time() - t0
+    path.unlink()
+    if (cfg.rope_scaling, cfg.rope_scale_factor, cfg.rope_orig_ctx, cfg.n_ctx_train) != (
+            "yarn", 16.0, 4096, 65536):
+        raise AssertionError(f"YaRN keys not read: {cfg}")
+    inv, ms = rope_freqs_cfg(cfg, device="cuda")
+    want_inv = yarn_inv_freq_np(cfg.rope_dim, cfg.rope_base, 16.0, 4096)
+    blend_err = float(np.abs(inv.double().cpu().numpy() / want_inv - 1).max())
+    if blend_err > 1e-6 or abs(ms - (1 + 0.1 * np.log(16.0))) > 1e-12:
+        raise AssertionError(f"YaRN blend off the formula: rel {blend_err:.2e}, mscale {ms}")
+    log(f"[runtime yarn] minted in {out['mint_s']:.1f} s, loaded in {out['load_s']:.1f} s; the "
+        f"blended frequencies == the formula's (rel {blend_err:.1e}), mscale {ms:.6f}")
+
+    prompt = np.random.default_rng(7).integers(3, cfg.vocab_size, size=YARN_PROMPT).tolist()
+    gen = Generator(params, cfg, max_seq=YARN_SEQ, eos_id=-1)
+
+    def run(on_token):
+        return gen.generate(prompt, max_new_tokens=YARN_NEW, stop_at_eos=False,
+                            on_token=on_token)
+
+    want = eager_tokens(gen, lambda: run(None))
+    if run(None) != want:  # the captures
+        raise AssertionError("yarn: graphed tokens differ from eager")
+    eager = gen.graphs.eager
+    _build.reset_counts()
+    toks, ttft, after, at_first, _ = timed_run(run)
+    launches = {k: v for k, v in _build.launches.items() if v}
+    expect = {"qmm_tc": 129, "flash_prefill": 32, "qmm_gemv": 129 * (YARN_NEW - 1),
+              "flash_decode": 32 * (YARN_NEW - 1)}
+    if toks != want or gen.graphs.eager != eager or launches != expect or any(
+            _build.plain_calls.values()):
+        raise AssertionError(f"yarn: graphed run differs or launches {launches} != {expect}")
+    step_ms = decode_device_ms(gen, prompt)
+    out.update(ttft_ms=ttft * 1e3, tokens_per_s=(YARN_NEW - 1) / after, device_ms_per_token=step_ms,
+               launches=launches, distinct_tokens=len(set(want)))
+    log(f"[runtime yarn] greedy at max_seq {YARN_SEQ}, a {YARN_PROMPT}-token prompt: graphed == "
+        f"eager bit for bit; TTFT {ttft * 1e3:.1f} ms (129 qmm_tc and 32 flash_prefill at 8,192 "
+        f"rows), {out['tokens_per_s']:.1f} t/s, device {step_ms:.3f} ms per token at "
+        f"{YARN_PROMPT}-{YARN_PROMPT + YARN_NEW} tokens of context")
+
+    # the context shift against a recompute by the formula's frequencies
+    keep, discard = YARN_SHIFT
+    gen.generate(prompt, max_new_tokens=YARN_NEW, stop_at_eos=False)
+    kv, s = gen.kv, YARN_SEQ
+    start, m = keep + discard, YARN_SEQ - keep - discard
+    k_before = kv.k[:, :, :, start:s].clone()
+    t0 = time.perf_counter()
+    gen.shift_context(keep, discard)
+    torch.cuda.synchronize()
+    shift_ms = (time.perf_counter() - t0) * 1e3
+    ang = torch.from_numpy(-discard * want_inv).cuda()  # [D/2] f64
+    cos, sin = torch.cos(ang).float(), torch.sin(ang).float()
+    k1, k2 = k_before.float().chunk(2, dim=-1)
+    k_rec = torch.cat([k1 * cos - k2 * sin, k2 * cos + k1 * sin], dim=-1).to(kv.k.dtype)
+    del k_before, k1, k2
+    key_err = float((kv.k[:, :, :, keep:keep + m].float() - k_rec.float()).abs().max())
+    key_scale = float(k_rec.float().abs().max())
+    if key_err > 2.0 ** -7 * key_scale:
+        raise AssertionError(f"yarn shift: keys {key_err:.3e} off the recompute "
+                             f"(scale {key_scale:.3e})")
+    nxt = YARN_PROMPT + YARN_NEW - 1 - discard  # the last token was never fed
+    shifted = gen._constrained_step(want[-1], nxt)[0].clone()
+    kv.k[:, :, :, keep:keep + m] = k_rec
+    recomputed = gen._constrained_step(want[-1], nxt)[0].clone()
+    abs_err, rel = rel_err(shifted, recomputed)
+    if rel > ATTN_TOL or not bool(torch.isfinite(shifted).all()):
+        raise AssertionError(f"yarn shift: next logits rel err {rel:.3e} against the recompute")
+    out["shift"] = dict(keep=keep, discard=discard, host_ms=shift_ms, key_max_abs_err=key_err,
+                        key_scale=key_scale, logits_max_abs_err=abs_err, logits_rel_err=rel)
+    log(f"[runtime yarn] context shift keep {keep} discard {discard}: {shift_ms:.2f} ms; keys "
+        f"== the recompute within {key_err:.2e} (scale {key_scale:.2e}); the next token's "
+        f"logits rel err {rel:.2e} against the recomputed cache")
+    del k_rec, gen, params, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # flash_decode over that context and flash_prefill at the prompt's bucket
+    gen_r = torch.Generator(device="cuda").manual_seed(29)
+    h, d, n_ctx = cfg.n_heads, cfg.head_dim, YARN_PROMPT + YARN_NEW
+    kc = torch.randn((2, 1, h, s, d), generator=gen_r, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((2, 1, h, s, d), generator=gen_r, device="cuda").to(torch.bfloat16)
+    tags = torch.arange(s, dtype=torch.int32, device="cuda")[None]
+    rows = {}
+    q = torch.randn((1, 1, h, d), generator=gen_r, device="cuda")
+    dec_tags = torch.where(tags < n_ctx, tags, -1)
+    mask = (dec_tags[:, None, :] >= 0) & (dec_tags[:, None, :] <= n_ctx)
+    got = fa.flash_attention_cached(q, kc, vc, mask, 1, s_limit=s)
+    abs_err, rel = rel_err(got, fa.flash_attention_cached_plain(q, kc, vc, mask, 1, s_limit=s))
+    ms_k = device_ms(lambda i: fa.flash_attention_cached(q, kc, vc, mask, i % 2, s_limit=s), 50)
+    plain = device_ms(lambda i: fa.flash_attention_cached_plain(q, kc, vc, mask, i % 2,
+                                                               s_limit=s), 10)
+    qb = q.transpose(1, 2).to(torch.bfloat16)
+    lib = device_ms(lambda i: F.scaled_dot_product_attention(
+        qb, kc[1, :, :, :s], vc[1, :, :, :s], attn_mask=mask[:, None]), 50)
+    b_ms, b_by = bound_ms(2 * h * n_ctx * d * 2 + nbytes(q, mask) + q.numel() * 4,
+                          4.0 * h * n_ctx * d)
+    rows["flash_decode"] = dict(t=1, s=s, visible=n_ctx, ms=ms_k, plain_ms=plain, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
+    q = torch.randn((1, s, h, d), generator=gen_r, device="cuda")
+    q_pos = tags.clone()
+    pre_tags = torch.where(tags < YARN_PROMPT, tags, -1)
+    got = fa.flash_attention_prefill(q, kc, vc, q_pos, pre_tags, 1, s_limit=s)
+    want_p = fa.flash_attention_prefill_plain(q, kc, vc, q_pos, pre_tags, 1, s_limit=s)
+    abs_p, rel_p = rel_err(got, want_p)
+    del want_p
+    ms_p = device_ms(lambda i: fa.flash_attention_prefill(q, kc, vc, q_pos, pre_tags, i % 2,
+                                                         s_limit=s), 5)
+    plain_p = device_ms(lambda i: fa.flash_attention_prefill_plain(q, kc, vc, q_pos, pre_tags,
+                                                                  i % 2, s_limit=s), 1, warmup=1)
+    vis = (pre_tags[:, None, :] >= 0) & (pre_tags[:, None, :] <= q_pos[:, :, None])
+    qb = q.transpose(1, 2).to(torch.bfloat16)
+    lib_p = device_ms(lambda i: F.scaled_dot_product_attention(
+        qb, kc[1], vc[1], attn_mask=vis[:, None]), 3, warmup=1)
+    del vis, qb
+    bp_ms, bp_by = prefill_bound(q, kc, q_pos, pre_tags, s)
+    rows["flash_prefill"] = dict(t=s, s=s, visible=YARN_PROMPT, ms=ms_p, plain_ms=plain_p,
+                                 bound_ms=bp_ms, bound_by=bp_by, library_ms=lib_p,
+                                 max_abs_err=abs_p, rel_err=rel_p)
+    for name, r in rows.items():
+        if r["rel_err"] > ATTN_TOL:
+            raise AssertionError(f"yarn {name}: rel err {r['rel_err']:.3e}")
+        log(f"[runtime kernel] {name} T={r['t']} S={s} ({r['visible']} visible slots) H={h} "
+            f"D={d}  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  library {r['library_ms']:.4f} ms  "
+            f"rel err {r['rel_err']:.2e}")
+    out["kernels"] = rows
+    del kc, vc, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def codellama_vocab(seed: int) -> dict:
+    """`spm_vocab` at CodeLlama-7b's 32,016 pieces with its FIM control pieces
+    and their GGUF keys."""
+    import numpy as np
+
+    md = spm_vocab(32016, seed)
+    toks = list(md["tokenizer.ggml.tokens"])
+    ttype = np.asarray(md["tokenizer.ggml.token_type"]).copy()
+    for name, (i, piece) in FIM_PIECES.items():
+        toks[i] = piece
+        ttype[i] = 3  # control
+        md[f"tokenizer.ggml.{name}_token_id"] = i
+    md["tokenizer.ggml.tokens"] = toks
+    md["tokenizer.ggml.token_type"] = ttype
+    return md
+
+
+def infill_http(path, plain_target, want: str) -> dict:
+    """The server (`-np 1`) on the CodeLlama file and on phase 6's target
+    (no FIM tokens) as subprocesses started together: /infill on the first
+    answers the in-process PSM text, on the second 400; SIGTERM exit 0."""
+    import signal
+    import socket
+    import urllib.error
+    import urllib.request
+
+    env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
+    cwd = pathlib.Path(__file__).resolve().parent
+    servers = {}
+    t0 = time.time()
+    for name, model in (("codellama", path), ("no_fim", plain_target)):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "eagle_tpu_torch.server.server", "-m", str(model), "-np", "1",
+             "--host", "127.0.0.1", "--port", str(port)], cwd=cwd, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        servers[name] = (proc, f"http://127.0.0.1:{port}")
+    body = {"input_prefix": INFILL_TEXT[0], "input_suffix": INFILL_TEXT[1],
+            "n_predict": INFILL_NEW}
+    out: dict = {}
+    try:
+        for name, (proc, url) in servers.items():
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"server {name} exited {proc.returncode}: "
+                                         f"{proc.stderr.read()[-3000:]}")
+                try:
+                    urllib.request.urlopen(url + "/health", timeout=2)
+                    break
+                except OSError:
+                    if time.time() - t0 > 300:
+                        raise
+                    time.sleep(0.25)
+            req = urllib.request.Request(url + "/infill", json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            t1 = time.time()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    out[name] = (r.status, json.loads(r.read()))
+            except urllib.error.HTTPError as e:
+                out[name] = (e.code, json.loads(e.read()))
+            out[f"{name}_s"] = time.time() - t1
+    finally:
+        for proc, _ in servers.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, (proc, _) in servers.items():
+            try:
+                _, err = proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+            if proc.returncode != 0 or "Traceback" in err:
+                raise AssertionError(f"server {name}: exit {proc.returncode}, {err[-3000:]}")
+    if out["codellama"] != (200, {"content": want, "stop": True}):
+        raise AssertionError(f"/infill: {out['codellama']!r}, in process {want!r}")
+    status, err = out["no_fim"]
+    if status != 400 or "FIM" not in err.get("error", ""):
+        raise AssertionError(f"/infill without FIM tokens: {out['no_fim']!r}")
+    out["seconds"] = time.time() - t0
+    log(f"[runtime infill http] /infill content == the in-process call ({out['codellama_s']:.2f} "
+        f"s); a target without FIM tokens answers 400 ({err['error']!r}); SIGTERM exit 0; "
+        f"{out['seconds']:.1f} s in all")
+    return out
+
+
+def infill_cell(tmp: pathlib.Path, plain_target) -> tuple[dict, dict]:
+    """(c) A CodeLlama-7b-shape GGUF (Llama-2-7B widths and depth, Q4_0, rope
+    base 1,000,000, context 16,384, 32,016 SPM pieces with the FIM control
+    pieces at 32007-32010 and their keys), minted: `Engine.infill` greedy
+    in PSM and SPM order, 32 tokens, eager once and graphed twice (the
+    same tokens bit for bit); wall ms per token and the infill filter's
+    host ms per token; a step's launches 129 qmm_gemv and 32 flash_decode;
+    the engine freed, `infill_http`; the file deleted. Returns (the cell,
+    the launches of the graphed PSM run)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.runtime import infill as infill_mod
+
+    if shutil.disk_usage(tmp).free < GGUF_FREE_BYTES:
+        raise RuntimeError("the CodeLlama file needs 5 GiB of disk")
+    t0 = time.time()
+    path, _ = mint_gguf_pair(tmp, seed=41, tag="codellama-7b", v=32016, ctx=16384,
+                             rope_base=1e6, vocab=codellama_vocab(41), with_draft=False)
+    out: dict = {"mint_s": time.time() - t0}
+    eng = Engine(EngineConfig(model_path=path, max_seq=2048))
+    gen = eng.engine
+    filt = {"calls": 0, "s": 0.0}
+    real_filter = infill_mod.infill_filter
+
+    def timed_filter(*a, **k):
+        t1 = time.perf_counter()
+        try:
+            return real_filter(*a, **k)
+        finally:
+            filt["s"] += time.perf_counter() - t1
+            filt["calls"] += 1
+
+    fed: list = []
+    real_step = gen._constrained_step
+
+    def step(tok, pos):
+        fed.append(tok)
+        return real_step(tok, pos)
+
+    infill_mod.infill_filter = timed_filter
+    gen._constrained_step = step
+    launches = {}
+    try:
+        for order in ("psm", "spm"):
+            kw = dict(max_new_tokens=INFILL_NEW, spm_infill=order == "spm")
+            fed.clear()
+            want = eager_tokens(gen, lambda: eng.infill(*INFILL_TEXT, **kw))
+            want_fed = list(fed)
+            runs = []
+            for i in range(2):  # the capture, then the timed run
+                fed.clear()
+                filt.update(calls=0, s=0.0)
+                _build.reset_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                text = eng.infill(*INFILL_TEXT, **kw)
+                wall = time.perf_counter() - t1
+                runs.append(text)
+                if text != want or fed != want_fed:
+                    raise AssertionError(f"infill {order}: graphed tokens differ from eager")
+            n_tok = len(fed)  # every output token is fed for the next one's logits
+            got = {k: v for k, v in _build.launches.items() if v}
+            for key, g in gen.graphs._graphs.items():
+                if key[0][0] == "logits" and {k: v for k, v in g.counts.items() if v} != {
+                        "qmm_gemv": 129, "flash_decode": 32}:
+                    raise AssertionError(f"infill: a step's launches {g.counts}")
+            if order == "psm":
+                launches = got
+            out[order] = dict(text=want, tokens=n_tok, wall_ms_per_token=wall * 1e3 / n_tok,
+                              filter_host_ms_per_token=filt["s"] * 1e3 / max(1, filt["calls"]),
+                              launches=got)
+            log(f"[runtime infill] {order.upper()}: graphed == eager bit for bit, {n_tok} "
+                f"tokens ({want[:60]!r}...); wall {out[order]['wall_ms_per_token']:.2f} ms per "
+                f"token, the infill filter {out[order]['filter_host_ms_per_token']:.2f} ms of it "
+                f"on the host; per token 129 qmm_gemv and 32 flash_decode")
+            if n_tok < 4:
+                raise AssertionError(f"infill {order}: the fill ended after {n_tok} tokens")
+    finally:
+        infill_mod.infill_filter = real_filter
+    del eng, gen, real_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["http"] = infill_http(path, plain_target, out["psm"]["text"])
+    path.unlink()
+    log(f"[runtime infill] minted in {out['mint_s']:.1f} s")
+    return out, launches
+
+
+def runtime_path(report: dict, target, tmp: pathlib.Path) -> dict:
+    """Phase runtime: `lookahead_lookup`, `yarn_cell`, `infill_cell`.
+    Returns the launches of the path's graphed runs (a lookahead and a
+    lookup run, the YaRN run, the PSM infill), counted from 0 before each."""
+    out, launches = {}, {}
+    out["model_free"], la = lookahead_lookup(report, target, tmp)
+    out["yarn"], ya = yarn_cell(tmp)
+    out["infill"], inf = infill_cell(tmp, target)
+    for part in (la, ya, inf):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    report["runtime_path"] = out
+    return launches
+
+
 def i4_route(rows: int) -> str:
     """qmm_i4's launch counter at `rows` bf16 rows at the 7B shapes."""
     return "qmm_i4" if rows == 1 else "qmm_i4_mma" if rows <= 8 else "qmm_i4_tc"
@@ -4516,6 +5169,7 @@ def main() -> int:
         paged_launches = phase("paged", paged_path, report, target, draft, pathlib.Path(tmp))
         constrained_launches = phase("constrained", constrained_path, report, target, draft,
                                      pathlib.Path(tmp))
+        runtime_launches = phase("runtime", runtime_path, report, target, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -4545,6 +5199,7 @@ def main() -> int:
                 "serve_path_launches": serve_launches[name],
                 "paged_path_launches": paged_launches[name],
                 "constrained_path_launches": constrained_launches.get(name, 0),
+                "runtime_path_launches": runtime_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     kernels = [

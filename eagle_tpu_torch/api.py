@@ -1,14 +1,16 @@
 """High-level engine API: load a GGUF target (and an EAGLE draft), tokenize,
 generate, chat, embed (port of eagle_tpu/api.py: `EngineConfig`, `Engine`
 with its load, tokenizer and engine choice, `_plain_generator`,
-`chat_session`, `generate_text` with prompt-cache sessions, `rerank` and
-`embed` for llama targets).
+`chat_session`, `generate_text` with prompt-cache sessions, `infill`,
+`rerank` and `embed` for llama targets).
 
 One object owns the target (+ draft) params on the device, the tokenizer
 from the target's metadata and the engine: `Generator` without a draft,
 else `EagleChainEngine`, `EagleTreeEngine` (`tree_branching`) or
-`EagleTree2Engine` (`tree2`). With `batch` > 1 and a chain draft it also
-owns a `ContinuousBatcher` over a chain engine of `batch` rows, or with
+`EagleTree2Engine` (`tree2`); with `lookahead` and no draft a
+`LookaheadEngine` (the draft takes precedence, as in the reference). With
+`batch` > 1 and a chain draft it also owns a `ContinuousBatcher` over a
+chain engine of `batch` rows, or with
 `paged` a `PagedBatcher` over a pool of `kv_pages` pages of `page_size`
 rows, as the reference (the tree engines and `Generator` take no batch
 there either). The caches are bf16, f32 or int8 (`kv_dtype`).
@@ -20,8 +22,12 @@ schema: a chain engine of batch 1 speculates under it
 constrained generator. A stateful sampler (penalties, DRY, mirostat) runs
 on a plain `Generator` and in chat; with a draft, or with a grammar, the
 reference drops its state, and the port refuses it
-(`sampling.DroppedSamplerState`). What the port lacks raises
-NotImplementedError naming its ROADMAP item."""
+(`sampling.DroppedSamplerState`). Lookahead decoding is greedy: the
+reference ignores the sampler there, and the port refuses a sampled one
+(`sampling.SamplerIgnored`). `infill` fills in the middle with the
+reference's infill sampler on the host, one graphed forward per token of
+a plain `Generator`. What the port lacks raises NotImplementedError naming
+its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ from .quant.serving import prepare_params_for_serving
 from .models.llama import llama_forward
 from .runtime.generate import Generator, pad_bucket
 from .runtime.kvcache import KVCache, causal_mask_from_tags
-from .runtime.sampling import SamplerConfig, refuse_dropped_state
+from .runtime.lookahead import LookaheadEngine
+from .runtime.sampling import SamplerConfig, refuse_dropped_state, refuse_sampled
 from .runtime.paged_batcher import PagedBatcher
 from .runtime.scheduler import ContinuousBatcher
 from .runtime.speculative import EagleChainEngine
@@ -47,7 +54,6 @@ from .runtime.tree import EagleTreeEngine, TreeSpec
 from .runtime.tree2 import EagleTree2Engine
 from .tokenizer import tokenizer_from_gguf_metadata
 
-_ITEM7 = "ROADMAP queue 1, item 7"
 _ITEM8 = "ROADMAP queue 1, item 8"
 
 
@@ -65,7 +71,7 @@ class EngineConfig:
     cycles_per_dispatch: int = 1
     tree_branching: tuple[int, ...] | None = None  # static tree mode
     tree2: tuple[int, int, int] | None = None  # (beam, depth, n_verify): EAGLE-2
-    lookahead: tuple[int, int, int] | None = None  # not ported (ROADMAP queue 1, item 7)
+    lookahead: tuple[int, int, int] | None = None  # (W, N, G): model-free lookahead decoding
     compute_dtype: Any = torch.bfloat16
     kv_dtype: Any = torch.bfloat16
     feature_source: str = "pre_norm"
@@ -81,10 +87,10 @@ class EngineConfig:
 def _refuse(cfg: EngineConfig) -> None:
     if cfg.lora_path or cfg.lora_scale is not None:
         raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP queue 1, item 9)")
-    if cfg.lookahead:
-        raise NotImplementedError(f"lookahead decoding is not ported yet ({_ITEM7})")
     if cfg.draft_path:
         refuse_dropped_state(cfg.sampler, "a speculative engine")
+    elif cfg.lookahead:
+        refuse_sampled(cfg.sampler, "lookahead decoding")
 
 
 class Engine:
@@ -123,19 +129,24 @@ class Engine:
                     eos_id=self.tokenizer.eos_id, device=self.device)
 
     def make_engine(self, kind: str | None = None, sampler: SamplerConfig | None = None):
-        """An engine over the loaded params: "plain" (`Generator`), "chain",
-        "tree" (the config's `tree_branching`, else the reference's default
-        (4, 2, 2)) or "tree2" (the config's `tree2`, else beam 8, depth 6,
-        32 verify rows). By default the config's choice: without a draft
-        "plain", else "tree2", "tree" or "chain". Another sampler or engine
-        kind over the same params costs no load."""
+        """An engine over the loaded params: "plain" (`Generator`),
+        "lookahead" (the config's `lookahead` (W, N, G), else the reference's
+        default (8, 4, 8)), "chain", "tree" (the config's `tree_branching`,
+        else the reference's default (4, 2, 2)) or "tree2" (the config's
+        `tree2`, else beam 8, depth 6, 32 verify rows). By default the
+        config's choice: without a draft "lookahead" or "plain", else
+        "tree2", "tree" or "chain". Another sampler or engine kind over the
+        same params costs no load."""
         c = self.cfg
         if kind is None:
-            kind = ("plain" if self.draft_params is None else "tree2" if c.tree2
-                    else "tree" if c.tree_branching else "chain")
+            kind = (("lookahead" if c.lookahead else "plain") if self.draft_params is None
+                    else "tree2" if c.tree2 else "tree" if c.tree_branching else "chain")
         kw = self._engine_kw()
         if kind == "plain":
             return Generator(self.params, self.model_cfg, **kw)
+        if kind == "lookahead":
+            w, n, g = c.lookahead or (8, 4, 8)
+            return LookaheadEngine(self.params, self.model_cfg, W=w, N=n, G=g, **kw)
         if self.draft_params is None:
             raise ValueError(f"a {kind!r} engine needs a draft (draft_path)")
         spec = (self.params, self.draft_params, self.model_cfg, self.draft_cfg)
@@ -182,9 +193,14 @@ class Engine:
         output is constrained: a chain engine speculates under the grammar
         (greedy, stats with `constrained` and the cycle counts), a tree
         engine or no draft runs the plain generator's constrained path with
-        `sampler` (stats `{"constrained": True}`)."""
+        `sampler` (stats `{"constrained": True}`). A lookahead engine
+        decodes greedily and refuses a sampled `sampler`; its stats are the
+        reference's `n_steps`, `n_predict`, `n_accept`, `tokens_per_step`."""
         ids = self.tokenizer.encode(prompt)
         sampler = sampler or self.cfg.sampler
+        if isinstance(self.engine, LookaheadEngine) and not (session_path or grammar
+                                                             or json_schema):
+            refuse_sampled(sampler, "lookahead decoding")
         if grammar or json_schema:
             return self._generate_constrained(ids, grammar, json_schema, max_new_tokens,
                                               sampler, seed)
@@ -241,8 +257,60 @@ class Engine:
                            jinja_src=self.metadata.get("tokenizer.chat_template"),
                            use_jinja=use_jinja, system=system)
 
-    def infill(self, *args, **kwargs):
-        raise NotImplementedError(f"fill-in-the-middle is not ported yet ({_ITEM7})")
+    def infill(self, input_prefix: str, input_suffix: str, max_new_tokens: int = 128,
+               spm_infill: bool = False, seed: int = 0, top_k: int = 64) -> str:
+        """Fill-in-the-middle completion (examples/infill and the server's
+        /infill): the prompt [FIM_PRE] prefix [FIM_SUF] suffix [FIM_MID]
+        (the suffix first with `spm_infill`) through a plain `Generator`'s
+        prefill, then each token's logits from its graphed one-token
+        forward (`_constrained_step`); on the host, the top `top_k`
+        candidates of the softmax go through the reference's infill sampler
+        (`infill_filter`), and the token is the argmax of the filtered
+        probabilities for a greedy config, else a draw from numpy's
+        `default_rng(seed)`, as the reference. An end-of-generation token
+        (EOS or the GGUF's EOT) ends it. A vocabulary without FIM tokens
+        raises ValueError."""
+        from .runtime.infill import fim_tokens_from_metadata, format_infill, infill_filter
+
+        mc, tok = self.model_cfg, self.tokenizer
+        pieces = [tok.piece(i) for i in range(mc.vocab_size)]
+        fim = fim_tokens_from_metadata(self.metadata, pieces)
+        if fim is None:
+            raise ValueError("model vocab has no FIM tokens — cannot infill")
+        ids = format_infill(tok.encode(input_prefix, add_bos=False),
+                            tok.encode(input_suffix, add_bos=False), fim,
+                            spm_infill=spm_infill, bos_id=tok.bos_id,
+                            add_bos=getattr(tok, "add_bos", False))
+        is_eog = np.zeros(mc.vocab_size, bool)
+        if tok.eos_id >= 0:
+            is_eog[tok.eos_id] = True
+        eot = self.metadata.get("tokenizer.ggml.eot_token_id")
+        eot_id = int(eot) if eot is not None else tok.eos_id
+        if eot is not None:
+            is_eog[int(eot)] = True
+
+        gen = self.engine if isinstance(self.engine, Generator) else self._plain_generator()
+        gen.kv.rollback(torch.zeros((gen.batch,), dtype=torch.int32, device=self.device))
+        logits = gen._prompt(np.asarray(ids, np.int32), None)
+        rng = np.random.default_rng(seed)
+        out: list[int] = []
+        pos = len(ids)
+        for _ in range(max_new_tokens):
+            lg = logits[0].cpu().numpy()
+            p = np.exp(lg - lg.max())
+            p /= p.sum()
+            cand = np.argsort(-p)[:top_k]
+            f_ids, f_p = infill_filter(cand, p[cand], pieces, is_eog, eot_id)
+            nxt = int(f_ids[int(np.argmax(f_p))]) if self.cfg.sampler.greedy else int(
+                rng.choice(f_ids, p=f_p / f_p.sum()))
+            if is_eog[nxt]:
+                break
+            out.append(nxt)
+            if pos + 1 >= self.cfg.max_seq:
+                break
+            logits = gen._constrained_step(nxt, pos)
+            pos += 1
+        return tok.decode(out, skip_special=True)
 
     def rerank(self, query: str, documents: list[str]) -> list[float]:
         """Relevance scores query -> documents: the cosine of their

@@ -98,8 +98,9 @@ class ModelConfig:
         vocab_size = md.get(Keys.LLM.VOCAB_SIZE.format(arch=arch))
         if vocab_size is None:
             vocab_size = len(md[Keys.Tokenizer.LIST])
-        if md.get(f"{arch}.rope.scaling.yarn_log_multiplier"):
-            raise NotImplementedError("YaRN attention scaling is not ported yet")
+        if md.get(f"{arch}.rope.scaling.yarn_log_multiplier"):  # deepseek2's MLA only
+            raise NotImplementedError("YaRN's attention-scale multiplier (deepseek2's MLA) is "
+                                      "not ported yet (ROADMAP queue 1, item 8)")
         if f"{arch}.attention.scale" in md:
             attn_scale = float(md[f"{arch}.attention.scale"])
         elif f"{arch}.attention.query_pre_attn_scalar" in md:
@@ -148,7 +149,7 @@ _PLAIN = (
     ("parallel_blocks", False), ("logit_scale", 1.0), ("has_pos_embd", False),
     ("use_alibi", False), ("mrope_sections", ()), ("head_counts", ()),
     ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
-    ("clamp_kqv", 0.0), ("nonparam_norms", False),
+    ("clamp_kqv", 0.0), ("nonparam_norms", False), ("rope_yarn_log_mul", 0.0),
 )
 
 

@@ -1,10 +1,20 @@
 """Rotary position embedding, half-split ("NEOX"/HF) layout (port of
-eagle_tpu/ops/rope.py for the unscaled and linear-scaled cases; YaRN raises).
+eagle_tpu/ops/rope.py: `rope_freqs`, `_yarn_corr_dims`, `yarn_blend`,
+`_yarn_active`, `rope_mscale_cfg`, `rope_freqs_cfg` with linear and YaRN
+scaling, `apply_rope`).
 
-The two halves of each head rotate together — not interleaved pairs."""
+The two halves of each head rotate together — not interleaved pairs.
+
+YaRN's per-frequency blend is a static vector: the reference's numpy
+formula, computed once per (config, device) on the host and kept on the
+device, so a forward captured into a CUDA graph copies nothing from the
+host (a copy from pageable memory cannot be captured)."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -17,9 +27,39 @@ def rope_freqs(head_dim: int, base: float, scale_factor: float = 1.0, *,
     return inv_freq / scale_factor
 
 
+def _yarn_corr_dims(n_dims: int, n_ctx_orig: int, base: float, beta_fast: float,
+                    beta_slow: float) -> tuple[float, float]:
+    """Correction-range endpoints in frequency-index units
+    (ggml_rope_yarn_corr_dims): the dim where a frequency completes `beta`
+    rotations over the original context."""
+
+    def corr(n_rot: float) -> float:
+        return n_dims * math.log(n_ctx_orig / (n_rot * 2.0 * math.pi)) / (2.0 * math.log(base))
+
+    start = math.floor(corr(beta_fast))
+    end = math.ceil(corr(beta_slow))
+    return max(0.0, float(start)), min(float(n_dims - 1), float(end))
+
+
+def yarn_blend(head_dim: int, n_ctx_orig: int, base: float, scale_factor: float,
+               ext_factor: float, beta_fast: float = 32.0, beta_slow: float = 1.0
+               ) -> np.ndarray:
+    """Per-frequency YaRN interpolation multiplier [head_dim/2] (numpy f32):
+    ggml's rope_yarn mixes theta_interp = freq_scale * theta_extrap with
+    theta_extrap by mix = ramp * ext_factor per dim, which is inv_freq *
+    (freq_scale + mix * (1 - freq_scale))."""
+    freq_scale = 1.0 / scale_factor
+    low, high = _yarn_corr_dims(head_dim, n_ctx_orig, base, beta_fast, beta_slow)
+    i = np.arange(head_dim // 2, dtype=np.float32)
+    ramp = 1.0 - np.clip((i - low) / max(0.001, high - low), 0.0, 1.0)
+    mix = ramp * ext_factor
+    return (freq_scale * (1.0 - mix) + mix).astype(np.float32)
+
+
 def _yarn_active(cfg) -> tuple[float, int]:
     """(resolved ext_factor, resolved n_ctx_orig), as the reference resolves
-    them (ext_factor < 0 means 1.0 under rope_scaling == 'yarn', else 0)."""
+    them (ext_factor < 0 means 1.0 under rope_scaling == 'yarn', else 0;
+    n_ctx_orig falls back to the training context)."""
     ext = float(getattr(cfg, "rope_ext_factor", -1.0))
     if ext < 0.0:
         ext = 1.0 if getattr(cfg, "rope_scaling", None) == "yarn" else 0.0
@@ -29,26 +69,43 @@ def _yarn_active(cfg) -> tuple[float, int]:
     return ext, orig
 
 
-def _check_not_yarn(cfg) -> None:
-    ext, orig = _yarn_active(cfg)
-    if ext != 0.0 and orig > 0:
-        raise NotImplementedError("YaRN rope scaling is not ported yet")
-
-
 def rope_mscale_cfg(cfg) -> float:
-    """cos/sin magnitude multiplier: rope_attn_factor (YaRN's correction
-    raises, see `_check_not_yarn`)."""
-    _check_not_yarn(cfg)
-    return float(getattr(cfg, "rope_attn_factor", 1.0))
+    """cos/sin magnitude multiplier (a Python float): rope_attn_factor, times
+    YaRN's 1 + 0.1 ln(factor) where YaRN is on (q.k scales by its square).
+    A config with rope_yarn_log_mul (deepseek2) folds it into the score
+    scale instead, as the reference."""
+    mscale = float(getattr(cfg, "rope_attn_factor", 1.0))
+    ext, orig = _yarn_active(cfg)
+    factor = getattr(cfg, "rope_scale_factor", 1.0) or 1.0
+    if ext != 0.0 and orig > 0 and not getattr(cfg, "rope_yarn_log_mul", 0.0):
+        mscale *= 1.0 + 0.1 * math.log(factor)
+    return mscale
+
+
+#: (rope_dim, n_ctx_orig, base, factor, ext, beta_fast, beta_slow, device) -> blend
+_BLENDS: dict[tuple, torch.Tensor] = {}
+
+
+def _blend_on(device, *key) -> torch.Tensor:
+    dev = torch.device(device)
+    full = (*key, str(dev))
+    if full not in _BLENDS:
+        _BLENDS[full] = torch.from_numpy(yarn_blend(*key)).to(dev)
+    return _BLENDS[full]
 
 
 def rope_freqs_cfg(cfg, *, device) -> tuple[torch.Tensor, float]:
-    """(inv_freq [rope_dim/2], mscale) from a ModelConfig: unscaled or
-    linear (`rope_scale_factor`) frequencies."""
-    _check_not_yarn(cfg)
+    """(inv_freq [rope_dim/2], mscale) from a ModelConfig: unscaled, linear
+    (`rope_scale_factor`) or YaRN-blended frequencies, as ggml_rope_ext."""
     factor = getattr(cfg, "rope_scale_factor", 1.0) or 1.0
+    ext, orig = _yarn_active(cfg)
     inv_freq = rope_freqs(cfg.rope_dim, cfg.rope_base, 1.0, device=device)
-    if factor != 1.0:
+    if ext != 0.0 and orig > 0 and cfg.rope_dim > 0:
+        inv_freq = inv_freq * _blend_on(
+            device, cfg.rope_dim, orig, cfg.rope_base, factor, ext,
+            float(getattr(cfg, "rope_beta_fast", 32.0)),
+            float(getattr(cfg, "rope_beta_slow", 1.0)))
+    elif factor != 1.0:
         inv_freq = inv_freq / factor
     return inv_freq, rope_mscale_cfg(cfg)
 

@@ -18,7 +18,9 @@ keep their per-sequence state in a `SamplerState` of static tensors that
 replayed as a CUDA graph. Where the reference drops that state (its
 speculative cycles and batched rows sample without counts, its constrained
 generators transform without them), the port refuses the config instead:
-`refuse_dropped_state` raises `DroppedSamplerState`.
+`refuse_dropped_state` raises `DroppedSamplerState`. Where the reference
+ignores the sampler altogether and decodes greedily (lookahead), a sampled
+config is refused too (`refuse_sampled`, `SamplerIgnored`).
 `_NEG_INF` is finite (-1e30), as in the reference, so a masked logit plus
 noise stays finite."""
 
@@ -89,6 +91,22 @@ def refuse_dropped_state(cfg: SamplerConfig | None, path: str) -> None:
         raise DroppedSamplerState(
             f"penalties, DRY and mirostat on {path}: the reference drops the sampler's "
             "state on this path (ROADMAP queue 3)")
+
+
+class SamplerIgnored(DroppedSamplerState):
+    """A sampled config on a path where the reference decodes greedily
+    whatever the sampler (lookahead decoding)."""
+
+
+def refuse_sampled(cfg: SamplerConfig | None, path: str) -> None:
+    """Raise unless `cfg` draws the raw argmax (greedy, no logit bias, no
+    state): on `path` the reference ignores the sampler and decodes
+    greedily, so it would silently not sample."""
+    if cfg is not None and not (cfg.is_greedy and not cfg.logit_bias and not cfg.stateful):
+        raise SamplerIgnored(
+            f"a sampled or transformed sampler on {path}: the reference decodes greedily "
+            "there, whatever the sampler (ROADMAP queue 3); pass --temp 0 (a greedy "
+            "SamplerConfig)")
 
 
 class SamplerState:

@@ -15,11 +15,13 @@ Endpoints, bodies, SSE chunks and status codes as the reference's
        `data: {...}` lines; the chat stream ends with `data: [DONE]`)
   POST /embedding, /v1/embeddings, /rerank, /v1/rerank (`Engine.embed`,
        `Engine.rerank` on the target's params)
+  POST /infill (`input_prefix`, `input_suffix`, `n_predict` / `max_tokens`,
+       `spm_infill`, `seed`: `Engine.infill`; 400 for a vocabulary without
+       FIM tokens)
   POST /slots/{id}?action=save|restore|erase (a body's `filename`, by
        default `slot_{id}.bin`: save writes the slot's state file, restore
        loads it into the slot and resumes it, erase frees the slot; 501
        without a batcher, 409 for a paged slot that is not live)
-What the port lacks answers 501 naming its ROADMAP item: /infill.
 
 A completion's `grammar` (GBNF), `json_schema` or `response_format.schema`
 (else the server's `--grammar`, its default grammar) runs through
@@ -47,8 +49,9 @@ batcher, on the thread that drives the device: the inference worker, or
 the batch worker between two steps.
 
 A request's fault answers 400 (a bad body, a prompt that does not fit a
-slot), 501 (not ported) or 500 (any other exception, a failed kernel or
-step among them), with `{"error": ...}`. SIGTERM or SIGINT stops the
+slot, a vocabulary without FIM tokens), 501 (not ported) or 500 (any
+other exception, a failed kernel or step among them), with
+`{"error": ...}`. SIGTERM or SIGINT stops the
 server: it closes its socket, ends its workers and `main` returns 0."""
 
 from __future__ import annotations
@@ -68,12 +71,6 @@ from typing import Any
 
 from ..runtime.sampling import DroppedSamplerState, refuse_dropped_state
 from ..utils.args import sampler_from_request
-
-_ITEM7 = "ROADMAP queue 1, item 7"
-REFUSED_POSTS = {
-    "/infill": f"fill-in-the-middle is not ported yet ({_ITEM7})",
-}
-
 
 class HTTPError(Exception):
     def __init__(self, status: int, message: str):
@@ -404,6 +401,17 @@ class InferenceServer:
                 "choices": [{"index": 0, "message": message,
                              "finish_reason": "tool_calls" if msg.tool_calls else "stop"}]}
 
+    def handle_infill(self, out, body: dict) -> dict:
+        """Fill-in-the-middle (server.cpp's /infill): input_prefix +
+        input_suffix -> the middle, on the thread that drives the device. A
+        vocabulary without FIM tokens raises ValueError: 400."""
+        self.metrics.add(requests_total=1)
+        content = self._on_device(lambda: self.engine.infill(
+            body.get("input_prefix", ""), body.get("input_suffix", ""),
+            max_new_tokens=int(body.get("n_predict", body.get("max_tokens", 128))),
+            spm_infill=bool(body.get("spm_infill", False)), seed=int(body.get("seed", 0))))
+        return {"content": content, "stop": True}
+
     def handle_rerank(self, out, body: dict) -> dict:
         """Jina/TEI-style rerank: {"query": ..., "documents"|"texts": [...],
         "top_n": k, "return_documents": bool}."""
@@ -447,8 +455,6 @@ class InferenceServer:
             if path in gets:
                 return out.send_json(200, gets[path]())
         elif method == "POST":
-            if path in REFUSED_POSTS:
-                raise HTTPError(501, REFUSED_POSTS[path])
             if path.startswith("/slots/") and path[7:].isdigit():
                 action = urllib.parse.parse_qs(query).get("action", [""])[0]
                 return out.send_json(200, self.handle_slot_action(
@@ -457,6 +463,7 @@ class InferenceServer:
                      "/completion": self.handle_completion,
                      "/v1/completions": self.handle_v1_completions,
                      "/v1/chat/completions": self.handle_v1_chat,
+                     "/infill": self.handle_infill,
                      "/rerank": self.handle_rerank, "/v1/rerank": self.handle_rerank,
                      "/v1/embeddings": self.handle_v1_embeddings,
                      "/embedding": self.handle_v1_embeddings}

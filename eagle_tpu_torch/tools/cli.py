@@ -6,13 +6,16 @@ Usage:
       [--draft eagle.gguf] [--tree 4,2,2 | --tree2 8,6,32] [--temp 0.8]
       [--top-k 40] [--top-p 0.95] [--min-p 0.05] [--seed 0] [--device cuda]
       [--prompt-cache session.bin [--prompt-cache-all]] [--repeat-penalty 1.1]
-      [--grammar GBNF | --json-schema JSON]
+      [--grammar GBNF | --json-schema JSON] [--lookahead W,N,G --temp 0]
   python -m eagle_tpu_torch.tools.cli -m model.gguf --chat
       [--chat-template vicuna] [--system "..."] [-n 128] [--temp 0]
 
 Prints the text on stdout and `[load]`, `[perf]` and, with a draft,
-`[speculative] accept_rate=... mean_accept_len=... cycles=...` on stderr,
-as the reference does. With `--prompt-cache` the prompt's longest prefix
+`[speculative] accept_rate=... mean_accept_len=... cycles=...` (with
+`--lookahead`, `[lookahead] tokens_per_step=... n_accept=... steps=...`) on
+stderr, as the reference does. Lookahead decoding is greedy: the reference
+ignores the sampler there, so the port refuses the default (sampled) one
+and asks for `--temp 0`. With `--prompt-cache` the prompt's longest prefix
 cached in the session file skips its prefill (on a plain generator, as the
 reference's main.cpp), `[session] reused N cached prompt tokens from ...`
 goes to stderr, and the file is rewritten. `--grammar` (GBNF text) and
@@ -85,6 +88,7 @@ def main(argv=None) -> int:
         cycles_per_dispatch=args.cycles_per_dispatch,
         tree_branching=_ints(args.tree),
         tree2=_ints(args.tree2),
+        lookahead=_ints(args.lookahead),
         max_seq=args.ctx,
         feature_source=args.feature_source,
         sampler=sampler,
@@ -116,6 +120,9 @@ def main(argv=None) -> int:
             f"mean_accept_len={stats['mean_accept_len']:.2f} cycles={stats['n_cycles']}",
             file=sys.stderr,
         )
+    if stats and "tokens_per_step" in stats:
+        print(f"[lookahead] tokens_per_step={stats['tokens_per_step']:.2f} "
+              f"n_accept={stats['n_accept']} steps={stats['n_steps']}", file=sys.stderr)
     return 0
 
 

@@ -64,7 +64,6 @@ class Opt:
 
 TOOLS = ("cli", "server", "tokenize")
 
-_ITEM7 = "the rest of the runtime (ROADMAP queue 1, item 7)"
 _LORA = "LoRA adapters (ROADMAP queue 1, item 9)"
 _CS = ("cli", "server")
 
@@ -88,8 +87,8 @@ REGISTRY: tuple[Opt, ...] = (
     Opt(("--tree",), "tree branching factors, e.g. 4,2,2", tools=_CS),
     Opt(("--tree2",), "EAGLE-2 dynamic draft tree, e.g. 8,6,32",
         metavar="BEAM,DEPTH,NVERIFY", tools=("cli",)),
-    Opt(("--lookahead",), "model-free lookahead decoding (W,N,G)", metavar="W,N,G",
-        tools=("cli",), refused=f"lookahead decoding: {_ITEM7}"),
+    Opt(("--lookahead",), "model-free lookahead decoding (W,N,G); greedy: needs --temp 0",
+        metavar="W,N,G", tools=("cli",)),
     Opt(("--feature-source",), "EAGLE feature tap", default="pre_norm",
         choices=("pre_norm", "post_norm"), tools=_CS),
     # ---- sampling (the server's per-request overrides read these rows) ------

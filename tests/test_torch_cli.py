@@ -4,7 +4,11 @@ and the `[speculative]` line, `tools.tokenize` the ids; every flag of the
 CLI and the server, config and entry point the port does not have yet
 raises NotImplementedError naming its ROADMAP item, and a stateful sampler
 (`--repeat-penalty`) where the reference drops its state (with a draft,
-with a grammar) raises `DroppedSamplerState`; the server's `--grammar`
+with a grammar) raises `DroppedSamplerState`, and a sampled config under
+lookahead decoding (which the reference decodes greedily) raises
+`SamplerIgnored`, while `--lookahead W,N,G --temp 0` runs and prints the
+`[lookahead]` line; `Engine.infill` on a vocabulary without FIM tokens
+raises ValueError, as the reference's; the server's `--grammar`
 becomes its default grammar; `batch` > 1 with a chain draft builds the
 continuous batcher (`paged`: the paged one); the paged and prompt-cache
 flags parse; the entry points default to the card."""
@@ -14,6 +18,7 @@ import torch
 
 from eagle_tpu_torch.api import Engine, EngineConfig
 from eagle_tpu_torch.runtime.generate import Generator
+from eagle_tpu_torch.runtime.lookahead import LookaheadEngine
 from eagle_tpu_torch.runtime.paged_batcher import PagedBatcher
 from eagle_tpu_torch.runtime.sampling import SamplerConfig
 from eagle_tpu_torch.runtime.scheduler import ContinuousBatcher
@@ -47,8 +52,10 @@ def test_cli_prints_text_and_speculative_line(pair, capsys):
 
 
 DROPS = "drops the sampler's state"
+GREEDY = "decodes greedily"
 REFUSED_FLAGS = [(["--lora", "a.gguf"], "item 9"), (["--lora-scale", "0.5"], "item 9"),
-                 (["--lookahead", "4,3,2"], "item 7"),
+                 # lookahead runs greedy only: the CLI's default sampler is refused
+                 (["--lookahead", "4,3,2"], GREEDY),
                  # the stateful samplers and grammars run; together, or a penalty under a
                  # draft, the reference drops the sampler's state
                  (["--grammar", "root ::= \"a\"", "--repeat-penalty", "1.1"], DROPS),
@@ -58,14 +65,19 @@ REFUSED_FLAGS = [(["--lora", "a.gguf"], "item 9"), (["--lora-scale", "0.5"], "it
 
 
 @pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=[f[0][0] for f in REFUSED_FLAGS])
-def test_cli_refuses_what_is_not_ported(pair, flags, item):
+def test_cli_refuses_what_is_not_ported(pair, flags, item, capsys):
     flags = [str(pair[1]) if f == "DRAFT" else f for f in flags]
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["-m", str(pair[0]), "-p", "a", "--device", "cpu", *flags])
+    if item == GREEDY:  # greedy, it runs and prints the reference's [lookahead] line
+        assert cli.main(["-m", str(pair[0]), "-p", PROMPT, "-n", "8", "--device", "cpu",
+                         "--ctx", "128", "--temp", "0", *flags]) == 0
+        out, err = capsys.readouterr()
+        assert out.strip() and "[lookahead] tokens_per_step=" in err and "steps=" in err
 
 
 ENGINE_REFUSALS = [(dict(lora_path="a.gguf"), "item 9"), (dict(lora_scale=0.5), "item 9"),
-                   (dict(lookahead=(4, 3, 2)), "item 7"),
+                   (dict(lookahead=(4, 3, 2), sampler=SamplerConfig()), GREEDY),
                    (dict(draft_path="DRAFT", sampler=SamplerConfig(mirostat=2)), DROPS)]
 
 
@@ -75,7 +87,17 @@ def test_engine_config_refusals(pair, kw, item):
     kw = {k: pair[1] if v == "DRAFT" else v for k, v in kw.items()}
     with pytest.raises(NotImplementedError, match=item):
         Engine(EngineConfig(model_path=pair[0], device="cpu", **kw))
-    if "sampler" in kw:  # without the draft the port runs mirostat
+    if "lookahead" in kw:  # greedy, the lookahead engine runs; a sampled request is refused
+        eng = Engine(EngineConfig(model_path=pair[0], device="cpu", max_seq=128,
+                                  compute_dtype=torch.float32, kv_dtype=torch.float32,
+                                  lookahead=kw["lookahead"]))
+        assert isinstance(eng.engine, LookaheadEngine)
+        assert (eng.engine.lay.W, eng.engine.lay.N, eng.engine.lay.G) == kw["lookahead"]
+        text, stats = eng.generate_text("the fox", max_new_tokens=6)
+        assert text and stats["n_predict"] == 6 and stats["n_steps"] >= 1
+        with pytest.raises(NotImplementedError, match=item):
+            eng.generate_text("the fox", sampler=kw["sampler"])
+    elif "sampler" in kw:  # without the draft the port runs mirostat
         Engine(EngineConfig(model_path=pair[0], device="cpu", sampler=kw["sampler"]))
 
 
@@ -149,7 +171,8 @@ def test_paged_and_session_flags_parse():
 
 
 def test_entry_point_refusals(engine):
-    """`infill` names item 7; a grammar and a JSON schema run (the chain
+    """`infill` on a vocabulary without FIM tokens raises ValueError, as
+    the reference's; a grammar and a JSON schema run (the chain
     engine speculates under them), and with a stateful sampler raise where
     the reference would drop its state."""
     eng = engine
@@ -157,12 +180,10 @@ def test_entry_point_refusals(engine):
     assert text == "a" and stats["constrained"]
     text, stats = eng.generate_text("a", max_new_tokens=6, json_schema={"type": "boolean"})
     assert text in ("true", "false", "t", "tr", "tru", "f", "fa", "fal", "fals")
-    for call, item in ((lambda: eng.infill("a", "b"), "item 7"),
-                       (lambda: eng.generate_text("a", grammar="root ::= \"a\"",
-                                                  sampler=SamplerConfig(penalty_repeat=1.1)),
-                        DROPS)):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(ValueError, match="no FIM tokens"):
+        eng.infill("a", "b")
+    with pytest.raises(NotImplementedError, match=DROPS):
+        eng.generate_text("a", grammar="root ::= \"a\"", sampler=SamplerConfig(penalty_repeat=1.1))
     gen = eng._plain_generator()
     assert isinstance(gen, Generator)
     # Self-Extend and prompt sessions, refused before, run (tests/test_torch_int8_kv.py and

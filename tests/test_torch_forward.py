@@ -123,4 +123,5 @@ def test_unported_architecture_raises(models):
     with pytest.raises(NotImplementedError):
         llama_forward(tt, dataclasses.replace(tcfg, attn_softcap=50.0), pos, pos, tkv, pos, mask)
     with pytest.raises(NotImplementedError):
-        llama_forward(tt, dataclasses.replace(tcfg, rope_scaling="yarn"), pos, pos, tkv, pos, mask)
+        llama_forward(tt, dataclasses.replace(tcfg, rope_yarn_log_mul=0.1), pos, pos, tkv, pos,
+                      mask)

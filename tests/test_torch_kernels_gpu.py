@@ -29,7 +29,11 @@ constrained decoding (`-k "stateful or constrained or proposal"`): the
 penalties, DRY and mirostat on the card against the CPU at V = 32,000,
 each stateful sampler's graphed `Generator` == eager (a new state
 recaptures), the graphed proposal == eager, the chain's constrained
-tokens == the plain generator's.
+tokens == the plain generator's; model-free speculation, infill and YaRN
+(`-k "lookahead or lookup or infill or yarn"`): flash_decode under a
+lookahead step's mask, the graphed lookahead and lookup engines == eager,
+`_compact_kv` in a replay, infill's graphed logits steps against the CPU,
+a YaRN config's frequencies and graphed decode.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -1433,3 +1437,154 @@ def test_graphed_proposal_equals_eager(cuda):
     assert outs[0][0] == outs[1][0]
     for a, b in zip(outs[0][1:], outs[1][1:]):
         assert torch.equal(a, b)
+
+
+# ---- model-free speculation, infill and YaRN (runtime/lookahead.py, lookup.py,
+# infill via Generator._constrained_step, ops/rope.py; `-k "lookahead or lookup or
+# infill or yarn"`)
+
+
+@pytest.mark.parametrize("wng", [(4, 4, 3), (8, 4, 8)], ids=["w4n4g3", "w8n4g8"])
+@pytest.mark.parametrize("live", [3, 0], ids=["grams_live", "no_gram_live"])
+def test_flash_decode_lookahead_mask(cuda, wng, live):
+    """flash_decode under a lookahead step's mask: the committed prefix
+    (tags with holes) and the static window pattern in the cache's last T
+    slots, the columns of dead grams off, over the whole cache; T*g 22-96
+    rows per kv head, rows that see a handful of keys among hundreds."""
+    from eagle_tpu_torch.runtime.lookahead import _Layout
+
+    lay = _Layout(*wng)
+    t, g = lay.T, 2
+    k_cache, v_cache = _cache(cuda, torch.bfloat16, 128, 2, s=384)
+    s = k_cache.shape[3]
+    base, n_past = s - t, 200
+    tags = torch.full((2, s), -1, dtype=torch.int32, device="cuda")
+    tags[:, :n_past] = torch.arange(n_past, dtype=torch.int32, device="cuda")
+    tags[:, 17:25] = -1
+    pos = n_past + torch.from_numpy(lay.pos_off).cuda()
+    ok = torch.ones(t, dtype=torch.bool, device="cuda")
+    dead = lay.gram_rows[live:].reshape(-1)
+    ok[torch.from_numpy(dead).long().cuda()] = False
+    tags[:, base:] = torch.where(ok, pos, -1)
+    committed = (tags >= 0) & (torch.arange(s, device="cuda") < base)
+    mask = committed[:, None, :] & (tags[:, None, :] <= pos[None, :, None])
+    mask[:, :, base:] = torch.from_numpy(lay.visible).cuda() & ok[None, :]
+    q = torch.randn((2, t, 2 * g, 128), generator=cuda, device="cuda")
+    _build.reset_counts()
+    got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1)
+    assert _build.launches["flash_decode"] == 1 and _build.plain_calls["flash_decode"] == 0
+    _close(got, fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, 1),
+           TOL[torch.bfloat16])
+
+
+def _model_free(kind, tp, graphed):
+    from eagle_tpu_torch.runtime.lookahead import LookaheadEngine
+    from eagle_tpu_torch.runtime.lookup import LookupEngine
+
+    kw = dict(max_seq=256, kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, eos_id=-1,
+              device="cuda", cuda_graphs=graphed)
+    if kind == "lookahead":
+        return LookaheadEngine(tp, TINY_CFG, W=4, N=4, G=3, **kw)
+    return LookupEngine(tp, TINY_CFG, n_draft=8, **kw)
+
+
+@pytest.mark.parametrize("kind", ["lookahead", "lookup"])
+def test_graphed_model_free_engine_equals_eager(cuda, kind):
+    """A tiny lookahead engine (T = 22 rows, flash_decode over the whole
+    cache) and a lookup engine (9 verify rows, qmm_tc): graphed tokens and
+    stats equal the eager run's bit for bit, every step after the first
+    replays, and a replay counts the eager step's launches. The tokens
+    follow greedy decoding (up to a bf16 near-tie of the tiny model)."""
+    from eagle_tpu_torch.runtime.lookup import NgramCache
+
+    tp, _ = _tiny_bf16()
+    prompt = (PROMPT[:6] * 4)[:21]
+    want = _model_free(kind, tp, False).generate(prompt, max_new_tokens=40, stop_at_eos=False)
+    eng = _model_free(kind, tp, True)
+    eng.generate(prompt, max_new_tokens=40, stop_at_eos=False)
+    warm = eng.graphs.eager
+    if kind == "lookup":  # the n-gram cache learns across calls: start it afresh
+        eng.ngram = NgramCache()
+    _build.reset_counts()
+    got = eng.generate(prompt, max_new_tokens=40, stop_at_eos=False)
+    assert got == want and eng.graphs.eager == warm and eng.graphs.replays > 0
+    assert sum(_build.plain_calls.values()) == 0 and _build.launches["qmm_tc"] > 0
+    if kind == "lookahead":
+        assert _build.launches["flash_decode"] > 0
+
+
+def test_lookahead_compact_kv_in_a_replay(cuda):
+    """`tree._compact_kv` captured in a CUDA graph: with the accepted count
+    and the rows written on the device before each replay, the replay moves
+    the kept rows and tags as the eager call does, and leaves the dropped
+    ones."""
+    from eagle_tpu_torch.runtime.graphs import StepGraphs
+    from eagle_tpu_torch.runtime.tree import _compact_kv
+
+    def cache():
+        kv = KVCache.create(2, 1, 64, 2, 64, torch.bfloat16, device="cuda")
+        kv.k.copy_(torch.randn(kv.k.shape, generator=cuda, device="cuda"))
+        kv.v.copy_(torch.randn(kv.v.shape, generator=cuda, device="cuda"))
+        kv.slot_pos[:, 40:] = torch.arange(24, dtype=torch.int32, device="cuda") + 100
+        return kv
+
+    n_acc = torch.zeros((), dtype=torch.int32, device="cuda")
+    src_rows = torch.zeros((1, 4), dtype=torch.int64, device="cuda")
+    cols = torch.arange(4, dtype=torch.int32, device="cuda")[None, :]
+    graphed, g = cache(), StepGraphs(True)
+    for acc, rows in ((2, [0, 3, 7, 0]), (0, [0, 0, 0, 0]), (3, [0, 5, 6, 9])):
+        n_acc.fill_(acc)
+        src_rows.copy_(torch.tensor([rows]))
+        eager = cache()
+        eager.k.copy_(graphed.k)
+        eager.v.copy_(graphed.v)
+        eager.slot_pos.copy_(graphed.slot_pos)
+        for kv, run in ((eager, lambda f: f()), (graphed, None)):
+            def body(kv=kv):
+                _compact_kv(kv, 40 + src_rows, 10 + cols, cols <= n_acc)
+            if run is None:
+                g.run(("compact",), body, (*kv.tensors(), n_acc, src_rows, cols))
+            else:
+                run(body)
+        assert torch.equal(graphed.k, eager.k) and torch.equal(graphed.slot_pos, eager.slot_pos)
+    assert g.captures == 1 and g.replays == 2
+
+
+def test_infill_logits_steps_on_the_card_match_the_cpu(cuda):
+    """Infill's per-token forward (`Generator._constrained_step`, a graph
+    replay per read bucket) on the card against the CPU's plain path, f32:
+    the logits of a 30-token fill within 1e-3 of their scale."""
+    cpu_params = synth_llama_params(TINY_CFG, seed=3, packed=True, coded=True, device="cpu")
+    gens = {dev: Generator(params_to(cpu_params, dev), TINY_CFG, max_seq=256,
+                           kv_dtype=torch.float32, compute_dtype=torch.float32, eos_id=-1,
+                           device=dev)
+            for dev in ("cuda", "cpu")}
+    toks = PROMPT + [7] * 30
+    out = {}
+    for dev, gen in gens.items():
+        gen._prompt(np.asarray(PROMPT, np.int32), None)
+        out[dev] = torch.stack([gen._constrained_step(t, len(PROMPT) + i)[0].cpu().clone()
+                                for i, t in enumerate(toks[len(PROMPT):])])
+    assert gens["cuda"].graphs.replays > 0
+    _close(out["cuda"], out["cpu"], 1e-3)
+
+
+def test_yarn_graphed_decode_on_the_card(cuda):
+    """A YaRN config (factor 4, original context 32) past its original
+    context on the card: the blended frequencies equal the CPU's, and the
+    graphed greedy tokens equal the eager run's."""
+    from eagle_tpu_torch.ops.rope import rope_freqs_cfg
+
+    cfg = dataclasses.replace(TINY_CFG, rope_scaling="yarn", rope_scale_factor=4.0,
+                              rope_orig_ctx=32)
+    inv, ms = rope_freqs_cfg(cfg, device="cuda")
+    inv_cpu, ms_cpu = rope_freqs_cfg(cfg, device="cpu")
+    assert ms == ms_cpu > 1.0
+    torch.testing.assert_close(inv.cpu(), inv_cpu, rtol=1e-6, atol=0)
+    tp, _ = _tiny_bf16()
+    runs = [Generator(tp, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                      cuda_graphs=graphed).generate(PROMPT * 3, max_new_tokens=40,
+                                                    stop_at_eos=False)
+            for graphed in (False, True)]
+    assert runs[0] == runs[1]

@@ -49,7 +49,8 @@ def _port_files():
                  "eagle_tpu_torch/runtime/paged_batcher.py",
                  "eagle_tpu_torch/runtime/state_io.py", "eagle_tpu_torch/runtime/grammar.py",
                  "eagle_tpu_torch/runtime/json_schema.py",
-                 "eagle_tpu_torch/server/tool_calls.py"):
+                 "eagle_tpu_torch/server/tool_calls.py", "eagle_tpu_torch/runtime/lookahead.py",
+                 "eagle_tpu_torch/runtime/lookup.py", "eagle_tpu_torch/runtime/infill.py"):
         assert must in names
     return files
 
@@ -87,7 +88,8 @@ TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=
                                    "server --paged", "Engine paged int8",
                                    "Generator.generate_constrained",
                                    "EagleChainEngine.generate_constrained",
-                                   "cli --grammar"])
+                                   "cli --grammar", "LookaheadEngine", "LookupEngine",
+                                   "cli --lookahead"])
 def test_default_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from eagle_tpu_torch.api import Engine, EngineConfig
@@ -99,6 +101,8 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
     from eagle_tpu_torch.runtime.chat import ChatSession
     from eagle_tpu_torch.runtime.generate import Generator
     from eagle_tpu_torch.runtime.kvcache import KVCache
+    from eagle_tpu_torch.runtime.lookahead import LookaheadEngine
+    from eagle_tpu_torch.runtime.lookup import LookupEngine
     from eagle_tpu_torch.runtime.paged_kv import PagedKVCache
     from eagle_tpu_torch.runtime.speculative import EagleChainEngine
     from eagle_tpu_torch.runtime.tree import EagleTreeEngine
@@ -131,25 +135,33 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
             {}, {}, TINY, max_seq=16).generate_constrained([1, 2], None, None),
         "cli --grammar": lambda: cli.main(["-m", "no-such-file.gguf", "-p", "a", "--grammar",
                                            'root ::= "a"']),
+        "LookaheadEngine": lambda: LookaheadEngine({}, TINY, max_seq=64),
+        "LookupEngine": lambda: LookupEngine({}, TINY, max_seq=16),
+        "cli --lookahead": lambda: cli.main(["-m", "no-such-file.gguf", "-p", "a", "--temp", "0",
+                                             "--lookahead", "4,3,2"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
 
 
 @pytest.mark.parametrize("entry", ["Generator", "EagleChainEngine", "EagleTreeEngine",
-                                   "EagleTree2Engine"])
+                                   "EagleTree2Engine", "LookaheadEngine", "LookupEngine"])
 def test_empty_prompt_raises(entry):
     """An empty prompt would put the first decode or draft slot at -1, which
-    the reference's scatter drops and PyTorch's `scatter_` refuses."""
+    the reference's scatter drops and PyTorch's `scatter_` refuses (the
+    model-free engines' prefill would read its last row at -1)."""
     from eagle_tpu_torch.runtime.generate import Generator
+    from eagle_tpu_torch.runtime.lookahead import LookaheadEngine
+    from eagle_tpu_torch.runtime.lookup import LookupEngine
     from eagle_tpu_torch.runtime.speculative import EagleChainEngine
     from eagle_tpu_torch.runtime.tree import EagleTreeEngine
     from eagle_tpu_torch.runtime.tree2 import EagleTree2Engine
 
     cls = {"Generator": Generator, "EagleChainEngine": EagleChainEngine,
-           "EagleTreeEngine": EagleTreeEngine, "EagleTree2Engine": EagleTree2Engine}[entry]
-    args = ({},) if entry == "Generator" else ({}, {})
-    runner = cls(*args, TINY, max_seq=16, device="cpu")
+           "EagleTreeEngine": EagleTreeEngine, "EagleTree2Engine": EagleTree2Engine,
+           "LookaheadEngine": LookaheadEngine, "LookupEngine": LookupEngine}[entry]
+    args = ({},) if entry in ("Generator", "LookaheadEngine", "LookupEngine") else ({}, {})
+    runner = cls(*args, TINY, max_seq=64, device="cpu")
     with pytest.raises(ValueError, match="at least one token"):
         runner.generate([], max_new_tokens=4)
 

@@ -12,7 +12,7 @@ at 3 slots (the continuous batcher):
   bodies (floats to 1e-4) and status codes;
 - /tokenize and /detokenize round trip, /metrics counts the requests,
   /slots lists the slots, /props and the web page are served;
-- what the port lacks answers 501 naming its ROADMAP item;
+- /infill on a vocabulary without FIM tokens answers the reference's 400;
 - `grammar`, `json_schema`, `response_format.schema` and `tools` with
   `tool_choice: "required"` (answering `tool_calls`) give the reference's
   bodies at one chain slot; a
@@ -210,7 +210,7 @@ def test_tokenize_props_slots_and_page(servers):
     assert ctype.startswith("text/html") and html == get(servers["ref"] + "/")[1]
 
 
-REFUSED = [("/infill", {"input_prefix": "a"}, "item 7"),
+REFUSED = [("/infill", {"input_prefix": "a"}, "FIM tokens"),
            ("/v1/chat/completions", {"messages": CHAT, "tools": [{"type": "function"}]},
             "does not fit"),
            ("/completion", {"prompt": "a", "grammar": "root ::= \"a\""}, "batch 1"),
@@ -220,8 +220,9 @@ REFUSED = [("/infill", {"input_prefix": "a"}, "item 7"),
 @pytest.mark.parametrize("path,body,item", REFUSED,
                          ids=[f"{r[0]}-{'-'.join(sorted(r[1]))}" for r in REFUSED])
 def test_not_ported_answers_501(servers, path, body, item):
-    """The requests that answered 501 before the constrained slice: /infill
-    still names item 7; `grammar` and `json_schema` answer the reference's
+    """The requests that answered 501 before: /infill on a vocabulary
+    without FIM tokens answers 400 with the reference's body at one and at
+    3 slots; `grammar` and `json_schema` answer the reference's
     bodies at one slot (the chain engine speculating under the grammar),
     and at 3 slots 400 naming batch 1 (the reference's chain engine asserts
     it: a 500). `tools` add a system prompt listing them (295 tokens here),
@@ -229,8 +230,9 @@ def test_not_ported_answers_501(servers, path, body, item):
     port's batcher a 400 naming the fit); `test_constrained_bodies_match_
     reference` holds tools against the reference on servers that fit it."""
     got = _answer(servers["port"] + path, body)
-    if item == "item 7":
-        assert got[0] == 501 and item in got[1]["error"]
+    if item == "FIM tokens":
+        assert got[0] == 400 and item in got[1]["error"]
+        assert got == _answer(servers["ref"] + path, body)
     elif item == "does not fit":  # at 3 slots the reference's batcher answers anyway
         assert (got[0], _status(servers["ref"] + path, body)) == (500, 500) or (
             got[0] == 400 and item in got[1]["error"] and servers["slots"] > 1)

@@ -146,14 +146,16 @@ def has_encoder(qtype) -> bool:
 
 
 def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0,
-                         target_metadata: dict | None = None):
+                         target_metadata: dict | None = None, out_scale: float = 0.05):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
     `emb_type`, the draft's matmul weights and embedding in `draft_type`;
     norms and fc.bias F32. A format without an encoder (the codebook ones)
     gets `random_blocks`. `target_metadata` adds keys to the target's
-    metadata (a tokenizer). Returns (target path, draft path)."""
+    metadata (a tokenizer). `out_scale` is the output weights' standard
+    deviation (larger: more peaked logits). Returns (target path, draft
+    path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
@@ -190,7 +192,7 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     for i in range(jcfg.n_layers):
         layer(w, i, layer_type)
     w.add_tensor("output_norm.weight", norm())
-    qmat(w, "output.weight", v, d, out_type)
+    qmat(w, "output.weight", v, d, out_type, out_scale)
     w.write()
 
     draft = tmp_path / "draft.gguf"
@@ -287,3 +289,27 @@ def assert_bits_equal(got, want, what=""):
     if got.dtype.kind == "f":
         got, want = got.view(f"i{got.itemsize}"), want.view(f"i{want.itemsize}")
     np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+class ReplayGraph:
+    """A stand-in CUDA graph whose replay runs the captured body again."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def replay(self):
+        self.body()
+
+
+def stub_capture(monkeypatch, engine):
+    """Give `engine` enabled `StepGraphs` whose warm-up runs the body and
+    whose capture returns a `ReplayGraph`: on the CPU, the engine's graph
+    keys, captures and replays run as on the card."""
+    from eagle_tpu_torch.runtime import graphs
+
+    monkeypatch.setattr(graphs.StepGraphs, "_warm_up", lambda self, body: body())
+    monkeypatch.setattr(graphs.StepGraphs, "_capture", lambda self, body: ReplayGraph(body))
+    monkeypatch.delenv("EAGLE_TPU_FUSED_FFN", raising=False)
+    monkeypatch.setattr(engine, "graphs", graphs.StepGraphs(enabled=True))
+    return engine.graphs
+
