@@ -259,6 +259,29 @@ runtime. model-free speculation, YaRN and fill-in-the-middle: (a) on phase
    infill]`). Each minted file is deleted after its checks. The launches
    of a graphed lookahead and lookup run, the YaRN run and the PSM infill
    stand in the `kernels` line as `runtime_path_launches`.
+llama3. the Llama-3 family, after phase 6's files are gone: a minted
+   Meta-Llama-3.1-8B-Instruct-shape target (d 4,096, 32 layers, 32 heads
+   over 8 KV heads, n_ff 14,336, Q4_K layers and token_embd, Q6_K output,
+   rope base 500,000 with `rope_freqs.weight` by the llama3 rule at factor
+   8, context 131,072, a 128,256-piece byte-level BPE vocabulary with
+   consistent merges and Llama-3.1's specials, pre "llama-bpe", a llama3
+   template) and an EAGLE-LLaMA3-Instruct-8B-shape Q8_0 draft, loaded
+   through `api.Engine`; qmm on each route at the path's new shapes (wqkv N
+   6,144, w_gate_up N 28,672, w_down K 14,336, lm_head N 128,256, the
+   draft's fc K 8,192) at 1, 6 and 300 rows, the fused FFN kernels at n_ff
+   14,336 on the draft's layer at 1 and 6 rows, flash_decode (T 1, 6) and
+   flash_prefill (T 512) at g = 4, each against its plain version and
+   timed (`[llama3 kernel]`); `serve_cell` on a ~300-token prompt of BPE
+   text with multi-byte characters (`[llama3]`: 129 qmm_gemv per decoded
+   token, 129 qmm_mma per verify cycle); the CLI (`--draft --temp 0`) and
+   the server's /v1/chat/completions as subprocesses, each == the
+   in-process Engine's text; a 512-slot `ChatSession` whose third turn
+   shifts, the moved keys held against their rotation by the factored
+   frequencies; then a minted Llama-3.2-3B-Instruct-shape file with a tied
+   Q6_K head (`[llama3 tied]`: greedy eager == graphed, 112 qmm_gemv per
+   token, the "nk" head's device ms). Each minted file is deleted after its
+   checks; the 8B default path's and the tied run's launches stand in the
+   `kernels` line as `llama3_path_launches`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -1911,7 +1934,9 @@ def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -
 def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, v: int = 32000,
                    n_layers: int = 32, n_heads: int = 32, tag: str = "vicuna-7b",
                    ctx: int = 2048, rope_base: float = 10000.0, metadata: dict | None = None,
-                   vocab: dict | None = None, with_draft: bool = True
+                   vocab: dict | None = None, with_draft: bool = True,
+                   n_kv_heads: int | None = None, layer_type: str = "Q4_0",
+                   rope_factors=None, tied: bool = False
                    ) -> tuple[pathlib.Path, pathlib.Path | None]:
     """Write a Vicuna-7B-shape GGUF (or one of the widths given) laid out as
     llama-quantize's Q4_0 lays out a llama-7B file (every layer matmul and
@@ -1919,16 +1944,26 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     vocabulary of `v` pieces, `spm_vocab`, or `vocab`'s keys), and an EAGLE
     draft GGUF in Q8_0 (one layer, fc, token_embd; fc.bias F32), unless
     `with_draft` is False. `ctx` is the context length, `rope_base` the
-    rope frequency base; `metadata` adds target keys (rope scaling). Weights
-    are random quant blocks."""
+    rope frequency base of both files; `metadata` adds target keys (rope
+    scaling). `n_kv_heads` (both files; default `n_heads`) sets GQA,
+    `layer_type` "Q4_K" lays the target out as Q4_K_M does (layers and
+    token_embd Q4_K), `rope_factors` adds `rope_freqs.weight` (Llama-3.1),
+    and `tied` leaves out `output.weight` and makes token_embd Q6_K, the
+    head (Llama-3.2-1B / 3B). Weights are random quant blocks, at magnitudes
+    that give Q4_0's weight RMS (~6e-3) in either layout."""
     import torch
 
     from eagle_tpu_torch.gguf import GGMLType, GGUFWriter
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q4_0, q8_0, q6_k = GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q6_K
-    layer_mats = (("attn_q", d, d), ("attn_k", d, d), ("attn_v", d, d), ("attn_output", d, d),
-                  ("ffn_gate", f, d), ("ffn_up", f, d), ("ffn_down", d, f))
+    q8_0, q6_k = GGMLType.Q8_0, GGMLType.Q6_K
+    # Q4_0: w = d (q - 8), RMS ~4.8 d; Q4_K: w = d sc q - dmin m, RMS ~336 d
+    lt, l_mag = {"Q4_0": (GGMLType.Q4_0, 1.3e-3), "Q4_K": (GGMLType.Q4_K, 1.85e-5)}[layer_type]
+    kv = n_kv_heads or n_heads
+    d_kv = d // n_heads * kv
+    layer_mats = (("attn_q", d, d), ("attn_k", d_kv, d), ("attn_v", d_kv, d),
+                  ("attn_output", d, d), ("ffn_gate", f, d), ("ffn_up", f, d),
+                  ("ffn_down", d, f))
 
     def writer(path, arch, blocks, file_type):
         w = GGUFWriter(path)
@@ -1937,7 +1972,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             "general.file_type": file_type, f"{arch}.context_length": ctx,
             f"{arch}.embedding_length": d, f"{arch}.block_count": blocks,
             f"{arch}.feed_forward_length": f, f"{arch}.attention.head_count": n_heads,
-            f"{arch}.attention.head_count_kv": n_heads,
+            f"{arch}.attention.head_count_kv": kv,
             f"{arch}.attention.layer_norm_rms_epsilon": 1e-6,
             f"{arch}.rope.dimension_count": d // n_heads, f"{arch}.rope.freq_base": rope_base,
             f"{arch}.vocab_size": v,
@@ -1951,18 +1986,25 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     def norm():
         return (torch.rand(d, generator=gen, device="cuda") * 0.4 + 0.8).cpu().numpy()
 
-    target = tmp / f"{tag}-q4_0.gguf"
-    w = writer(target, "llama", n_layers, 2)  # LLAMA_FTYPE_MOSTLY_Q4_0
+    target = tmp / f"{tag}-{layer_type.lower()}.gguf"
+    # LLAMA_FTYPE_MOSTLY_Q4_0, LLAMA_FTYPE_MOSTLY_Q4_K_M
+    w = writer(target, "llama", n_layers, 2 if layer_type == "Q4_0" else 15)
     for key, val in {**(vocab or spm_vocab(v, seed)), **(metadata or {})}.items():
         w.add(key, val)
-    add(w, "token_embd.weight", v, d, q4_0, 1.3e-3)
+    if tied:
+        add(w, "token_embd.weight", v, d, q6_k, 1e-4, signed=False)
+    else:
+        add(w, "token_embd.weight", v, d, lt, l_mag)
     for i in range(n_layers):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
         for name, n, k in layer_mats:
-            add(w, f"blk.{i}.{name}.weight", n, k, q4_0, 1.3e-3)
+            add(w, f"blk.{i}.{name}.weight", n, k, lt, l_mag)
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
     w.add_tensor("output_norm.weight", norm())
-    add(w, "output.weight", v, d, q6_k, 1e-4, signed=False)
+    if rope_factors is not None:
+        w.add_tensor("rope_freqs.weight", rope_factors.astype("float32"))
+    if not tied:
+        add(w, "output.weight", v, d, q6_k, 1e-4, signed=False)
     w.write()
     del w
     if not with_draft:
@@ -4870,6 +4912,581 @@ def runtime_path(report: dict, target, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase llama3: the Llama-3 family at Meta-Llama-3.1-8B-Instruct's shape
+
+
+#: Meta-Llama-3.1-8B-Instruct (its config.json) and Llama-3.2-3B-Instruct's
+LLAMA3_8B = dict(d=4096, f=14336, v=128256, n_layers=32, n_heads=32, n_kv_heads=8,
+                 ctx=131072, rope_base=500000.0)
+LLAMA3_3B = dict(d=3072, f=8192, v=128256, n_layers=28, n_heads=24, n_kv_heads=8,
+                 ctx=131072, rope_base=500000.0)
+#: rope_scaling of the two configs: (factor, low_freq_factor, high_freq_factor, original ctx)
+LLAMA31_ROPE = (8.0, 1.0, 4.0, 8192)
+LLAMA32_ROPE = (32.0, 1.0, 4.0, 8192)
+LLAMA3_PROMPT_TOKENS = 300
+LLAMA3_NEW = 64
+LLAMA3_CLI_NEW = 32
+LLAMA3_CHAT_SEQ = 512  # the chat session's cache: its third turn shifts
+LLAMA3_CHAT_WORDS = (70, 35, 80)  # the user turns, in vocabulary words (~2.7 tokens each)
+LLAMA3_CHAT_NEW = 48
+#: named specials of Llama-3.1's 256 (the rest are reserved_special_token_N)
+LLAMA3_SPECIALS = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                   128004: "<|finetune_right_pad_id|>", 128006: "<|start_header_id|>",
+                   128007: "<|end_header_id|>", 128008: "<|eom_id|>", 128009: "<|eot_id|>",
+                   128010: "<|python_tag|>"}
+LLAMA3_TEMPLATE = ("{{- bos_token }}{%- for message in messages %}{{- '<|start_header_id|>' + "
+                   "message['role'] + '<|end_header_id|>\\n\\n' + message['content'] | trim + "
+                   "'<|eot_id|>' }}{%- endfor %}{%- if add_generation_prompt %}{{- "
+                   "'<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}{%- endif %}")
+LLAMA3_GEMV = 32 * 4 + 1  # per decoded 8B token: 4 stacked products a layer + lm_head
+TIED_GEMV = 28 * 4  # per decoded 3B token: the tied head is no qmm
+
+
+def llama3_factors(head_dim: int, base: float, factor: float, low: float, high: float,
+                   orig: int):
+    """Llama-3.1's `rope_freqs.weight` (f32): convert_hf_to_gguf's llama3
+    rule, written out here (the frequencies in f32, as the converter)."""
+    import math
+
+    import numpy as np
+
+    out = []
+    for f in 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim)):
+        wl = 2 * math.pi / f
+        if wl < orig / high:
+            out.append(1.0)
+        elif wl > orig / low:
+            out.append(factor)
+        else:
+            smooth = (orig / wl - low) / (high - low)
+            out.append(1.0 / ((1 - smooth) / factor + smooth))
+    return np.asarray(out, np.float32)
+
+
+def llama3_vocab(seed: int, v: int = 128256) -> tuple[dict, list]:
+    """A Llama-3-layout byte-level BPE vocabulary as GGUF metadata, and the
+    words it was built from: the 256 byte symbols, then seeded words (ASCII
+    letters, a few accented and CJK characters; 70 % with a leading space)
+    each merged left to right, every new prefix a piece and its merge the
+    next rank, up to 128,000 pieces; Llama-3.1's 256 specials at
+    128,000-128,255 (control); pre "llama-bpe", BOS <|begin_of_text|>, EOS
+    and EOT <|eot_id|> (the Instruct files'), a template with Llama-3's
+    header markers."""
+    import numpy as np
+
+    from eagle_tpu_torch.tokenizer.bpe import _BYTE_ENC
+
+    rng = np.random.default_rng(seed)
+    n_pieces = v - 256
+    pieces = [_BYTE_ENC[b] for b in range(256)]
+    seen, merges, words = set(pieces), [], []
+    chars = np.array(list("abcdefghijklmnopqrstuvwxyz") * 4 + list("éüßçñ日本語中文字"))
+    while len(pieces) < n_pieces:
+        word = "".join(chars[rng.integers(0, len(chars), int(rng.integers(2, 9)))])
+        words.append(word)
+        sym = [_BYTE_ENC[b] for b in ((" " if rng.random() < 0.7 else "") + word).encode()]
+        cur = sym[0]
+        for s in sym[1:]:
+            if cur + s not in seen and len(pieces) < n_pieces:
+                seen.add(cur + s)
+                pieces.append(cur + s)
+                merges.append(f"{cur} {s}")
+            cur = cur + s
+    specials = [LLAMA3_SPECIALS.get(i, f"<|reserved_special_token_{i - 128000}|>")
+                for i in range(n_pieces, v)]
+    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+          "tokenizer.ggml.tokens": pieces + specials, "tokenizer.ggml.merges": merges,
+          "tokenizer.ggml.token_type": np.asarray([1] * n_pieces + [3] * 256, np.int32),
+          "tokenizer.ggml.bos_token_id": 128000, "tokenizer.ggml.eos_token_id": 128009,
+          "tokenizer.ggml.eot_token_id": 128009, "tokenizer.ggml.add_bos_token": True,
+          "tokenizer.chat_template": LLAMA3_TEMPLATE}
+    return md, words
+
+
+def llama3_text(tok, words: list, n_tokens: int, seed: int) -> str:
+    """Seeded vocabulary words with digits, punctuation and multi-byte words
+    between them, grown until the text encodes to at least `n_tokens`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    extra = ["naïve", "café", "日本語", "Straße", "😀", "3.14", "don't", ",", "."]
+    parts: list = []
+    while True:
+        for _ in range(16):
+            parts.append(str(extra[rng.integers(0, len(extra))]) if rng.random() < 0.15
+                         else words[int(rng.integers(0, len(words)))])
+        text = " ".join(parts)
+        if len(tok.encode(text)) >= n_tokens:
+            return text
+
+
+def llama3_qmm_checks(params, draft, gen) -> dict:
+    """qmm at the 8B path's new shapes on each route, against the plain
+    version: the target's wqkv (N 6,144), wo, w_gate_up (N 28,672), w_down
+    (K 14,336) and its Q6_K lm_head (N 128,256) at 1 row (`qmm_gemv`, per
+    decoded token), 6 rows (`qmm_mma`, per verify cycle) and 300 rows
+    (`qmm_tc`, a prompt's), and the draft's Q8_0 fc (K 8,192) at the same
+    rows; each timed with its bound and library ms."""
+    rows_out: list = []
+    specs = target_qmm_specs(params)
+    totals = {}
+    for rows, route, what in ((1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma",
+                                                                 "verify cycle"),
+                              (LLAMA3_PROMPT_TOKENS, "qmm_tc", "300-row prompt")):
+        totals[what] = qmm_sum("llama3 kernel", what, rows, specs, route, gen, rows_out)
+        qmm_sum("llama3 kernel", f"draft fc at {rows} rows", rows,
+                [("draft fc", draft["fc_w"], 1)], route, gen, rows_out)
+    return dict(rows=rows_out, totals=totals)
+
+
+def llama3_ffn_checks(draft, gen) -> list:
+    """ffn_out_norm and gate_up_act at n_ff 14,336 on the draft's Q8_0 layer
+    (the form the fused kernels take on this path), 1 and 6 rows, against
+    their plain versions, timed with bound and library ms (torch.matmul on
+    the dequantized bf16 weight: the product alone)."""
+    import torch
+
+    from eagle_tpu_torch.ops.ffn import (ffn_out_norm, ffn_out_norm_plain, gate_up_act,
+                                         gate_up_act_plain)
+
+    lay, bf16, eps = draft["layers"], torch.bfloat16, 1e-6
+    out = []
+    for name, w in (("ffn_out_norm", lay["wo"]), ("gate_up_act", lay["w_gate_up"])):
+        n, k = w.layer(0).shape
+        dense = w.layer(0).dequantize(bf16).T.contiguous()
+        for rows in (1, VERIFY_ROWS):
+            if name == "ffn_out_norm":
+                attn = torch.randn((rows, k), generator=gen, device="cuda")
+                resid = torch.randn((rows, n), generator=gen, device="cuda")
+                nw = lay["ffn_norm"][0]
+                got = ffn_out_norm(attn, resid, nw, w, 0, eps, bf16)
+                want = ffn_out_norm_plain(attn, resid, nw, w.layer(0), eps, bf16)
+                run = lambda i: ffn_out_norm(attn, resid, nw, w, 0, eps, bf16)
+                plain_run = lambda i: ffn_out_norm_plain(attn, resid, nw, w.layer(0), eps, bf16)
+                lib_in, io = attn.to(bf16), rows * k * 4 + 2 * rows * n * 4 + n * 4 + rows * n * 2
+            else:
+                hin = torch.randn((rows, k), generator=gen, device="cuda").to(bf16)
+                got = (gate_up_act(hin, w, 0, "silu", bf16),)
+                want = (gate_up_act_plain(hin, w.layer(0), "silu", bf16),)
+                run = lambda i: gate_up_act(hin, w, 0, "silu", bf16)
+                plain_run = lambda i: gate_up_act_plain(hin, w.layer(0), "silu", bf16)
+                lib_in, io = hin, rows * k * 2 + rows * n // 2 * 2
+            abs_err = rel = 0.0
+            for g, ww in zip(got, want):
+                a, r = rel_err(g, ww)
+                abs_err, rel = max(abs_err, a), max(rel, r)
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"llama3 {name} rows={rows}: non-finite output")
+            if rel > QMM_TOL:
+                raise AssertionError(f"llama3 {name} rows={rows}: rel err {rel:.3e}")
+            ms = device_ms(run, 20)
+            plain = device_ms(plain_run, 3, warmup=1)
+            lib = device_ms(lambda i: torch.matmul(lib_in, dense), 20)
+            b_ms, b_by = bound_ms(nbytes(*w.layer(0).tensors().values()) + io, 2.0 * rows * k * n)
+            out.append(dict(name=name, form="q8_0_draft", n=n, k=k, rows=rows, ms=ms,
+                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                            max_abs_err=abs_err, rel_err=rel))
+            log(f"[llama3 kernel] {name:12s} Q8_0 draft N={n:5d} K={k:5d} rows={rows}  kernel "
+                f"{ms:.4f} ms  plain {plain:.3f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library "
+                f"{lib:.4f} ms  rel err {rel:.2e}")
+        del dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama3_attention_checks(gen) -> list:
+    """flash_decode at T = 1 and 6 over S = 1,024 (900 tokens, a hole) and
+    flash_prefill at T = 512 (300 real rows) at Llama-3-8B's g = 4 (32 query
+    heads over 8 KV heads of 128, bf16 cache), against their plain versions,
+    timed; the library is SDPA with `enable_gqa`."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.ops import flash_attention as fa
+    from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+
+    b, h, h_kv, d, s, layer = 1, 32, 8, 128, 1024, 1
+    kc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    out = []
+    for t in (1, VERIFY_ROWS):
+        tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+        tags[:, :900 + t] = torch.arange(900 + t, dtype=torch.int32, device="cuda")
+        tags[:, 100:140] = -1
+        pos = (900 + torch.arange(t, dtype=torch.int32, device="cuda"))[None]
+        mask = causal_mask_from_tags(tags, pos)
+        q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+        got = fa.flash_attention_cached(q, kc, vc, mask, layer, s_limit=s)
+        abs_err, rel = rel_err(got, fa.flash_attention_cached_plain(q, kc, vc, mask, layer,
+                                                                    s_limit=s))
+        ms = device_ms(lambda i: fa.flash_attention_cached(q, kc, vc, mask, layer, s_limit=s), 50)
+        plain = device_ms(lambda i: fa.flash_attention_cached_plain(q, kc, vc, mask, layer,
+                                                                   s_limit=s), 10)
+        qb = q.transpose(1, 2).to(torch.bfloat16)
+        lib = device_ms(lambda i: F.scaled_dot_product_attention(
+            qb, kc[layer], vc[layer], attn_mask=mask[:, None], enable_gqa=True), 50)
+        b_ms, b_by = bound_ms(2 * b * h_kv * s * d * 2 + nbytes(q, mask) + q.numel() * 4,
+                              4.0 * b * h * t * s * d)
+        out.append(dict(name="flash_decode", g=4, t=t, s=s, ms=ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
+                        rel_err=rel))
+    t, n, lim = 512, LLAMA3_PROMPT_TOKENS, 512
+    tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+    tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    q_pos = torch.arange(t, dtype=torch.int32, device="cuda")[None].clone()
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+    got = fa.flash_attention_prefill(q, kc, vc, q_pos, tags, layer, s_limit=lim)
+    abs_err, rel = rel_err(got, fa.flash_attention_prefill_plain(q, kc, vc, q_pos, tags, layer,
+                                                                 s_limit=lim))
+    ms = device_ms(lambda i: fa.flash_attention_prefill(q, kc, vc, q_pos, tags, layer,
+                                                       s_limit=lim), 10)
+    plain = device_ms(lambda i: fa.flash_attention_prefill_plain(q, kc, vc, q_pos, tags, layer,
+                                                                s_limit=lim), 5)
+    vis = (tags[:, None, :lim] >= 0) & (tags[:, None, :lim] <= q_pos[:, :, None])
+    qb = q.transpose(1, 2).to(torch.bfloat16)
+    lib = device_ms(lambda i: F.scaled_dot_product_attention(
+        qb, kc[layer, :, :, :lim], vc[layer, :, :, :lim], attn_mask=vis[:, None],
+        enable_gqa=True), 10)
+    b_ms, b_by = prefill_bound(q, kc, q_pos, tags, lim)
+    out.append(dict(name="flash_prefill", g=4, t=t, s=lim, ms=ms, plain_ms=plain,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
+                    rel_err=rel))
+    for r in out:
+        if r["rel_err"] > ATTN_TOL:
+            raise AssertionError(f"llama3 {r['name']} g=4 T={r['t']}: rel err {r['rel_err']:.3e}")
+        log(f"[llama3 kernel] {r['name']} g=4 T={r['t']} S={r['s']} H={h}/{h_kv} D={d}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']})  library {r['library_ms']:.4f} ms  rel err {r['rel_err']:.2e}")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama3_subprocesses(target, draft, text: str, eng, tmp: pathlib.Path) -> dict:
+    """The CLI (`--draft`, `--temp 0`) and the server (`-np 1`) as
+    subprocesses at once: the CLI's text and the server's
+    /v1/chat/completions content (the GGUF's template, read as llama3; a
+    system and a user message with multi-byte characters) must equal the
+    in-process greedy `Engine`'s on the same prompts; SIGTERM ends the
+    server with exit 0."""
+    import signal
+    import socket
+    import urllib.request
+
+    from eagle_tpu_torch.server.chat_templates import apply_template, detect_template
+
+    src = eng.metadata["tokenizer.chat_template"]
+    if detect_template(src) != "llama3":
+        raise AssertionError("llama3: the GGUF's template is not detected as llama3")
+    env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
+    cwd = pathlib.Path(__file__).resolve().parent
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    err_path = tmp / "llama3-server.stderr"
+    t0 = time.time()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "eagle_tpu_torch.tools.cli", "-m", str(target), "--draft",
+         str(draft), "-p", text, "-n", str(LLAMA3_CLI_NEW), "--temp", "0"],
+        cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    with open(err_path, "w") as err:
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "eagle_tpu_torch.server.server", "-m", str(target),
+             "--draft", str(draft), "-np", "1", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=cwd, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        stdout, stderr = cli.communicate(timeout=600)
+        cli_s = time.time() - t0
+        spec = [ln for ln in stderr.splitlines() if ln.startswith("[speculative]")]
+        if cli.returncode != 0 or not spec:
+            raise AssertionError(f"llama3 cli: exit {cli.returncode}: {stderr[-2000:]}")
+        want_cli, _ = eng.generate_text(text, max_new_tokens=LLAMA3_CLI_NEW)
+        if stdout.rstrip("\n") != want_cli:
+            raise AssertionError(f"llama3 cli: {stdout[:200]!r} != in-process {want_cli[:200]!r}")
+        while True:
+            if srv.poll() is not None:
+                raise AssertionError(f"llama3 server exited {srv.returncode}: "
+                                     f"{err_path.read_text()[-3000:]}")
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=2)
+                break
+            except OSError:
+                if time.time() - t0 > 300:
+                    raise
+                time.sleep(0.25)
+        msgs = [{"role": "system", "content": "Réponds en français, s'il te plaît."},
+                {"role": "user", "content": text[:200] + " 日本語?"}]
+        body = {"messages": msgs, "max_tokens": 24, "temperature": 0}
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions",
+                                     json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        t1 = time.time()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.loads(r.read())["choices"][0]["message"]["content"]
+        http_s = time.time() - t1
+        rendered = apply_template(msgs, jinja_src=src)
+        want, _ = eng.generate_text(rendered, max_new_tokens=24)
+        if got != want.strip():
+            raise AssertionError(f"llama3 server: {got[:200]!r} != in-process {want[:200]!r}")
+        srv.send_signal(signal.SIGTERM)
+        rc = srv.wait(timeout=60)
+        if rc != 0 or "Traceback" in err_path.read_text():
+            raise AssertionError(f"llama3 server: SIGTERM exit {rc}: "
+                                 f"{err_path.read_text()[-2000:]}")
+    finally:
+        for p in (cli, srv):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"[llama3 cli] --draft --temp 0: exit 0 in {cli_s:.1f} s, {spec[0]}; text == the "
+        f"in-process Engine's ({len(want_cli)} characters)")
+    n_prompt = len(eng.tokenizer.encode(rendered))
+    log(f"[llama3 http] /v1/chat/completions (llama3 template, {n_prompt} prompt tokens): "
+        f"content == the in-process Engine's, {http_s:.2f} s; SIGTERM exit 0")
+    return dict(cli_s=cli_s, cli_text=want_cli, http_s=http_s, http_content=got)
+
+
+def llama3_chat_shift(eng, words: list) -> dict:
+    """`ChatSession` (the GGUF's llama3 template) on a 512-slot `Generator`
+    over three turns; the third shifts the context. At each shift the moved
+    keys must equal the keys before it rotated by -discard with Llama-3.1's
+    factored frequencies by the formula (f64 on the host: base^(-2i/d) /
+    factors), within one bf16 step; graphed == eager tokens."""
+    import numpy as np
+    import torch
+
+    from eagle_tpu_torch.runtime.chat import ChatSession
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    cfg = eng.model_cfg
+    inv = (1.0 / cfg.rope_base ** (np.arange(0, cfg.head_dim, 2, dtype=np.float64)
+                                   / cfg.head_dim)) / llama3_factors(cfg.head_dim,
+                                                                     cfg.rope_base,
+                                                                     *LLAMA31_ROPE)
+    rng = np.random.default_rng(41)
+    texts = [" ".join(words[i] for i in rng.integers(0, len(words), n)) + " naïve 日本語?"
+             for n in LLAMA3_CHAT_WORDS]
+    kw = dict(eng._engine_kw(), max_seq=LLAMA3_CHAT_SEQ)
+    shifts, outs = [], {}
+    for graphed in (True, False):
+        gen = Generator(eng.params, cfg, cuda_graphs=graphed, **kw)
+        real = gen.shift_context
+
+        def shift(keep, discard, gen=gen, real=real):
+            s = gen.max_seq
+            start, m = keep + discard, gen.max_seq - keep - discard
+            before = gen.kv.k[:, :, :, start:s].clone()
+            real(keep, discard)
+            ang = torch.from_numpy(-discard * inv).cuda()
+            cos, sin = torch.cos(ang).float(), torch.sin(ang).float()
+            k1, k2 = before.float().chunk(2, dim=-1)
+            rec = torch.cat([k1 * cos - k2 * sin, k2 * cos + k1 * sin], dim=-1)
+            err = float((gen.kv.k[:, :, :, keep:keep + m].float() - rec.to(gen.kv.k.dtype)
+                         .float()).abs().max())
+            scale = float(rec.abs().max())
+            if err > 2.0 ** -7 * scale:
+                raise AssertionError(f"llama3 chat shift: keys {err:.3e} off the recompute "
+                                     f"(scale {scale:.3e})")
+            shifts.append(dict(keep=keep, discard=discard, key_max_abs_err=err,
+                               key_scale=scale))
+
+        gen.shift_context = shift
+        s = ChatSession(gen, eng.tokenizer, jinja_src=eng.metadata["tokenizer.chat_template"])
+        outs[graphed] = []
+        for text in texts:
+            s.ask(text, max_new_tokens=LLAMA3_CHAT_NEW)
+            outs[graphed].append(list(s.last_out))
+        del gen.shift_context, gen
+    if not shifts:
+        raise AssertionError("llama3 chat: no context shift")
+    if outs[True] != outs[False]:
+        raise AssertionError("llama3 chat: graphed and eager sessions differ")
+    sh = shifts[0]
+    log(f"[llama3 chat] max_seq {LLAMA3_CHAT_SEQ}, llama3 template, 3 turns: {len(shifts) // 2} "
+        f"shift(s) per session (keep {sh['keep']}, discard {sh['discard']}); the moved keys == "
+        f"the factored formula's rotation within {max(x['key_max_abs_err'] for x in shifts):.2e} "
+        f"(scale {sh['key_scale']:.2e}); graphed == eager bit for bit")
+    return dict(shifts=shifts)
+
+
+def tied_cell(tmp: pathlib.Path, vocab: dict, text: str) -> tuple[dict, dict]:
+    """A Llama-3.2-3B-Instruct-shape GGUF (d 3,072, 28 layers, 24 heads over
+    8 KV heads, n_ff 8,192, Q4_K layers, a tied Q6_K token_embd and no
+    output.weight, rope factors at factor 32), minted, loaded through
+    `Engine` and deleted: greedy `Generator` eager and graphed on the
+    prompt (bit for bit; 112 qmm_gemv per decoded token: the head is the
+    plain "nk" product), TTFT, t/s, device ms per token; the tied head
+    alone against its f32 plain version, timed with its bound and library
+    ms. Returns (the cell, the graphed run's launches)."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.ops.matmul import qmatmul
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    c = LLAMA3_3B
+    t0 = time.time()
+    path, _ = mint_gguf_pair(
+        tmp, seed=53, d=c["d"], f=c["f"], v=c["v"], n_layers=c["n_layers"],
+        n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"], tag="llama-3.2-3b-instruct",
+        ctx=c["ctx"], rope_base=c["rope_base"], vocab=vocab, with_draft=False,
+        layer_type="Q4_K", tied=True,
+        rope_factors=llama3_factors(c["d"] // c["n_heads"], c["rope_base"], *LLAMA32_ROPE))
+    out: dict = {"mint_s": time.time() - t0, "file_bytes": path.stat().st_size}
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=path, max_seq=1024))
+    torch.cuda.synchronize()
+    out["load_s"] = time.time() - t0
+    path.unlink()
+    params, cfg = eng.params, eng.model_cfg
+    head = params["output"]
+    if head is not params["tok_embd"] or head.layout != "nk" or "rope_factors" not in params:
+        raise AssertionError("llama3 tied: the head is not the tied 'nk' table")
+    ids = eng.tokenizer.encode(text)
+    gen = Generator(params, cfg, max_seq=1024, eos_id=-1)
+
+    def run(on_token):
+        return gen.generate(ids, max_new_tokens=LLAMA3_NEW, stop_at_eos=False, on_token=on_token)
+
+    want = eager_tokens(gen, lambda: run(None))
+    if run(None) != want:  # the captures
+        raise AssertionError("llama3 tied: graphed tokens differ from eager")
+    eager = gen.graphs.eager
+    _build.reset_counts()
+    toks, ttft, after, at_first, _ = timed_run(run)
+    per_tok = {k: (_build.launches[k] - at_first[k]) / (LLAMA3_NEW - 1) for k in _build.launches}
+    launches = {k: v for k, v in _build.launches.items() if v}
+    if (toks != want or gen.graphs.eager != eager or per_tok["qmm_gemv"] != TIED_GEMV
+            or any(_build.plain_calls.values())):
+        raise AssertionError(f"llama3 tied: graphed run differs or launches per token {per_tok}")
+    step_ms = decode_device_ms(gen, ids)
+    # the head alone: one decoded row
+    x = torch.randn((1, cfg.n_embd), generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda")
+    got = qmatmul(x, head, torch.bfloat16)
+    abs_err, rel = rel_err(got, x @ head.dequantize(torch.float32).T)
+    if rel > QMM_TOL:
+        raise AssertionError(f"llama3 tied head: rel err {rel:.3e}")
+    ms = device_ms(lambda i: qmatmul(x, head, torch.bfloat16), 20)
+    dense, xb = head.dequantize(torch.bfloat16), x.to(torch.bfloat16)
+    lib = device_ms(lambda i: F.linear(xb, dense), 20)
+    del dense
+    b_ms, b_by = bound_ms(nbytes(*head.tensors().values()) + x.numel() * 4 + got.numel() * 4,
+                          2.0 * cfg.n_embd * cfg.vocab_size)
+    out.update(ttft_ms=ttft * 1e3, tokens_per_s=(LLAMA3_NEW - 1) / after,
+               device_ms_per_token=step_ms, launches_per_decoded_token=per_tok,
+               head=dict(name="nk head", n=cfg.vocab_size, k=cfg.n_embd, rows=1, ms=ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
+                         rel_err=rel))
+    log(f"[llama3 tied] Llama-3.2-3B-shape tied Q6_K head ({out['file_bytes'] / 1e9:.3f} GB, "
+        f"minted {out['mint_s']:.1f} s, Engine load {out['load_s']:.1f} s): greedy graphed == "
+        f"eager bit for bit ({LLAMA3_NEW} tokens), {TIED_GEMV} qmm_gemv per token; TTFT "
+        f"{ttft * 1e3:.1f} ms, {out['tokens_per_s']:.1f} t/s, device {step_ms:.3f} ms per token")
+    log(f"[llama3 tied] the 'nk' head, 1 row, [{cfg.vocab_size} x {cfg.n_embd}] Q6_K: dequant + "
+        f"product {ms:.4f} ms per token, bound {b_ms * 1e3:.2f} us ({b_by}), library (F.linear "
+        f"on the dequantized bf16 table) {lib:.4f} ms, rel err {rel:.2e}")
+    del gen, eng, params, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
+    """Phase llama3: a Meta-Llama-3.1-8B-Instruct-shape Q4_K target (Q6_K
+    head, rope factors, a 128,256-piece byte-level BPE vocabulary) and an
+    EAGLE-LLaMA3-Instruct-8B-shape Q8_0 draft, minted into `tmp`, loaded
+    through `Engine`; the kernels at the path's new shapes against their
+    plain versions; `serve_cell` on a ~300-token prompt of BPE text (greedy
+    and the EAGLE chain at C = 1 and 4, eager and graphed, 3 runs each: 129
+    qmm_gemv per decoded token, 129 qmm_mma per verify cycle); the CLI and
+    the server as subprocesses; a chat session that shifts; then the tied
+    Llama-3.2-3B-shape file (`tied_cell`). Returns the launches of the 8B
+    default path (greedy + EAGLE graphed at C = 1) and the tied graphed run,
+    added."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.tokenizer import BPETokenizer
+    from eagle_tpu_torch.utils.args import build_parser, sampler_from_args
+
+    if shutil.disk_usage(tmp).free < 7 * 2**30:
+        raise RuntimeError("phase llama3 needs 7 GiB of disk")
+    out: dict = {}
+    c = LLAMA3_8B
+    head_dim = c["d"] // c["n_heads"]
+    factors = llama3_factors(head_dim, c["rope_base"], *LLAMA31_ROPE)
+    t0 = time.time()
+    vocab, words = llama3_vocab(seed=61)
+    out["vocab_s"] = time.time() - t0
+    t0 = time.time()
+    target, draft_path = mint_gguf_pair(
+        tmp, seed=67, d=c["d"], f=c["f"], v=c["v"], n_layers=c["n_layers"],
+        n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"], tag="meta-llama-3.1-8b-instruct",
+        ctx=c["ctx"], rope_base=c["rope_base"], vocab=vocab, layer_type="Q4_K",
+        rope_factors=factors)
+    out.update(mint_s=time.time() - t0, file_bytes={"target": target.stat().st_size,
+                                                    "draft": draft_path.stat().st_size})
+    greedy = sampler_from_args(build_parser("cli").parse_args(["-m", "-", "--temp", "0"]))
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, draft_path=draft_path, max_seq=2048,
+                              sampler=greedy))
+    torch.cuda.synchronize()
+    out["load_s"] = time.time() - t0
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    tok = eng.tokenizer
+    if not isinstance(tok, BPETokenizer) or (cfg.n_kv_heads, dcfg.n_kv_heads) != (8, 8) or \
+            not torch.equal(params["rope_factors"].cpu(), torch.from_numpy(factors)) or \
+            params["output"].layout != "kn":
+        raise AssertionError(f"llama3: the 8B file did not load as Llama-3.1: {cfg}")
+    text = llama3_text(tok, words, LLAMA3_PROMPT_TOKENS, seed=71)
+    ids = tok.encode(text)
+    if ids[0] != 128000 or tok.decode(ids[1:]) != text:
+        raise AssertionError("llama3: the prompt does not round-trip through the BPE tokenizer")
+    log(f"[llama3] vocabulary of {len(vocab['tokenizer.ggml.tokens'])} pieces and "
+        f"{len(vocab['tokenizer.ggml.merges'])} merges built in {out['vocab_s']:.1f} s; minted "
+        f"{target.name} ({out['file_bytes']['target'] / 1e9:.3f} GB) and {draft_path.name} "
+        f"({out['file_bytes']['draft'] / 1e9:.3f} GB) in {out['mint_s']:.1f} s; Engine load "
+        f"{out['load_s']:.2f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card); "
+        f"the prompt: {len(ids)} tokens of BPE text ({len(text)} characters, multi-byte among "
+        f"them), round trip exact")
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    out["qmm"] = llama3_qmm_checks(params, draft, gen)
+    out["ffn"] = llama3_ffn_checks(draft, gen)
+    out["attention"] = llama3_attention_checks(gen)
+
+    prompt = np.asarray(ids)
+    want_tok = {"qmm_gemv": LLAMA3_GEMV, "ffn_out_norm": 0, "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("llama3", params, draft, cfg, dcfg, prompt, LLAMA3_NEW, want_tok,
+                      VERIFY_QMM, fused=False)
+    cell.pop("gen")
+    out["cell"] = cell
+    launches = dict(cell["variants"]["eagle graphed C=1"]["launches"])
+    out["subprocesses"] = llama3_subprocesses(target, draft_path, text, eng, tmp)
+    out["chat"] = llama3_chat_shift(eng, words)
+    del eng, params, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    target.unlink()
+    draft_path.unlink()
+    out["tied"], tied_launches = tied_cell(tmp, vocab, text)
+    for k, v in tied_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    report["llama3_path"] = out
+    return launches
+
+
 def i4_route(rows: int) -> str:
     """qmm_i4's launch counter at `rows` bf16 rows at the 7B shapes."""
     return "qmm_i4" if rows == 1 else "qmm_i4_mma" if rows <= 8 else "qmm_i4_tc"
@@ -5170,6 +5787,8 @@ def main() -> int:
         constrained_launches = phase("constrained", constrained_path, report, target, draft,
                                      pathlib.Path(tmp))
         runtime_launches = phase("runtime", runtime_path, report, target, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="eagle_llama3_") as tmp:  # phase 6's files are gone
+        llama3_launches = phase("llama3", llama3_path, report, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -5200,6 +5819,7 @@ def main() -> int:
                 "paged_path_launches": paged_launches[name],
                 "constrained_path_launches": constrained_launches.get(name, 0),
                 "runtime_path_launches": runtime_launches.get(name, 0),
+                "llama3_path_launches": llama3_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     kernels = [

@@ -1,6 +1,6 @@
 """GGUF/GGML constants for the formats and keys the port reads (port of
 eagle_tpu/gguf/constants.py: `GGMLType`, `TypeTraits`, `GGUFValueType`,
-`Keys` with the SPM tokenizer's keys, `TokenType`, `ggml_row_bytes`).
+`Keys` with the SPM and BPE tokenizers' keys, `TokenType`, `ggml_row_bytes`).
 
 The tensor types listed are F32, F16 and the block formats the repack takes:
 the affine formats Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K,
@@ -156,6 +156,8 @@ class Keys:
         ADD_BOS = "tokenizer.ggml.add_bos_token"
         ADD_EOS = "tokenizer.ggml.add_eos_token"
         ADD_SPACE_PREFIX = "tokenizer.ggml.add_space_prefix"
+        PRE = "tokenizer.ggml.pre"
+        MERGES = "tokenizer.ggml.merges"
 
 
 class TokenType(enum.IntEnum):

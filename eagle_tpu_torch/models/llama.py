@@ -1,6 +1,7 @@
 """Llama forward pass, plain pre-norm block (port of
 eagle_tpu/models/llama.py: `ForwardOutput`, `embed_lookup`, `_layer_step`,
-`llama_forward`, with the int8 and paged cache branches).
+`llama_forward`, with the int8 and paged cache branches, Llama-3.1's rope
+factors and a tied ("nk") head).
 
 RMSNorm, rotary GQA attention over the position-tagged cache, SiLU-gated FFN,
 with fused `wqkv` and `w_gate_up` weights kept layer-stacked and read in
@@ -33,13 +34,13 @@ from ..ops.ffn import ffn_block, supports_ffn_block
 from ..ops.flash_attention import flash_attention_cached, flash_attention_prefill
 from ..ops.matmul import qmatmul, qmatmul_layer
 from ..ops.norms import rms_norm
-from ..ops.rope import apply_rope, rope_freqs_cfg, rope_mscale_cfg
+from ..ops.rope import apply_rope, rope_inv_freq, rope_mscale_cfg
 from ..quant.qtensor import QTensor
 from ..runtime.kvcache import KVCache, dequantize_kv, quantize_kv_vec
 from ..runtime.paged_kv import PagedKVCache, gather_pages
 from .config import ModelConfig, check_plain_llama
 
-_TOP_KEYS = {"tok_embd", "layers", "output_norm", "output"}
+_TOP_KEYS = {"tok_embd", "layers", "output_norm", "output", "rope_factors"}
 _LAYER_KEYS = {"attn_norm", "wqkv", "wo", "ffn_norm", "w_gate_up", "w_down"}
 
 
@@ -260,13 +261,14 @@ def llama_forward(
     layers = params["layers"]
     check_layer_keys(layers)
     x = embed_lookup(params["tok_embd"], tokens)
-    inv_freq, _ = rope_freqs_cfg(cfg, device=x.device)
+    inv_freq = rope_inv_freq(cfg, params.get("rope_factors"), device=x.device)
     kv_limit, mask = read_bound(kv, kv_limit, mask)
     fused = fused_ffn_mode()
     slot_tags = None
     if causal_tags_prefill and not isinstance(kv, PagedKVCache) and not kv.quantized:
         slot_tags = kv.slot_pos[:, : kv_limit if kv_limit else kv.slot_pos.shape[1]]
-    for li in range(layers["wqkv"].q.shape[0]):
+    wqkv = layers["wqkv"]  # layer-stacked: a QTensor, or dense f32 from an F32 / F16 file
+    for li in range((wqkv.q if isinstance(wqkv, QTensor) else wqkv).shape[0]):
         x = _layer_step(
             cfg, inv_freq, positions, slots, mask, compute_dtype, x, layers, li,
             kv.k, kv.v, kv_limit=kv_limit, slot_tags=slot_tags, fused_ffn=fused,

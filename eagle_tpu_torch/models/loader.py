@@ -15,8 +15,12 @@ Coded load (`EAGLE_TPU_CODED_LOAD`, default on; "0" or "false" turns it
 off, read at each load): k-quant matmul weights keep int8 sub-scale codes
 and f32 per-256 super-scales instead of materialized f32 products.
 
+A Llama-3.1 file's `rope_freqs.weight` loads as `params["rope_factors"]`
+(f32); a file without `output.weight` (tied embeddings, Llama-3.2-1B / 3B)
+takes `token_embd` as its head, which stays "nk".
+
 Anything outside the plain llama block (MoE, MLA, biases, q/k norms,
-per-layer head counts, recurrent layers, tied embeddings, ...) raises
+per-layer head counts, recurrent layers, ...) raises
 NotImplementedError."""
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ LAYER_KEY_MAP = {
     "w_up": "ffn_up.weight",
     "w_down": "ffn_down.weight",
 }
-_TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight"}
+_TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight",
+                "rope_freqs.weight"}
 _EAGLE_TOP_TENSORS = {"token_embd.weight", "fc.weight", "fc.bias"}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16)
 
@@ -195,8 +200,6 @@ def load_llama_params(path: str | Path, device="cuda",
     if cfg.arch != "llama":
         raise NotImplementedError(f"load_llama_params reads llama files, not {cfg.arch!r}")
     _check_names(reader, _TOP_TENSORS, LAYER_KEY_MAP.values(), cfg.n_layers)
-    if "output.weight" not in reader.tensors:
-        raise NotImplementedError("tied embeddings (no output.weight) are not ported yet")
     q_perm = unpermute_rows(cfg.n_q_dim, cfg.n_heads, cfg.rope_dim)
     k_perm = unpermute_rows(cfg.n_kv_dim, cfg.n_kv_heads, cfg.rope_dim)
     ld = _Loader(reader, dev, times)
@@ -211,8 +214,13 @@ def load_llama_params(path: str | Path, device="cuda",
         "tok_embd": ld.tensor("token_embd.weight"),
         "layers": fuse_layer_weights(stacked),
         "output_norm": ld.tensor("output_norm.weight"),
-        "output": ld.tensor("output.weight", layout="kn"),
     }
+    if "rope_freqs.weight" in reader.tensors:  # Llama-3.1's per-frequency divisors
+        params["rope_factors"] = ld.tensor("rope_freqs.weight")
+    if "output.weight" in reader.tensors:
+        params["output"] = ld.tensor("output.weight", layout="kn")
+    else:  # tied embeddings: the table is the head, "nk"
+        params["output"] = params["tok_embd"]
     return params, cfg, reader.metadata
 
 

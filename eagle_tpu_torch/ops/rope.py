@@ -1,14 +1,17 @@
 """Rotary position embedding, half-split ("NEOX"/HF) layout (port of
 eagle_tpu/ops/rope.py: `rope_freqs`, `_yarn_corr_dims`, `yarn_blend`,
 `_yarn_active`, `rope_mscale_cfg`, `rope_freqs_cfg` with linear and YaRN
-scaling, `apply_rope`).
+scaling, `apply_rope`; and `rope_inv_freq`, the frequencies divided by a
+Llama-3.1 file's per-frequency factors, as eagle_tpu/models/llama.py:683-688).
 
 The two halves of each head rotate together — not interleaved pairs.
 
 YaRN's per-frequency blend is a static vector: the reference's numpy
 formula, computed once per (config, device) on the host and kept on the
 device, so a forward captured into a CUDA graph copies nothing from the
-host (a copy from pageable memory cannot be captured)."""
+host (a copy from pageable memory cannot be captured). The factored
+frequencies are likewise computed once per factors tensor, config and
+device."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 
 def rope_freqs(head_dim: int, base: float, scale_factor: float = 1.0, *,
@@ -108,6 +112,28 @@ def rope_freqs_cfg(cfg, *, device) -> tuple[torch.Tensor, float]:
     elif factor != 1.0:
         inv_freq = inv_freq / factor
     return inv_freq, rope_mscale_cfg(cfg)
+
+
+#: rope_factors tensor -> {(rope fields, device): factored inv_freq}
+_FACTORED = WeakIdKeyDictionary()
+
+
+def rope_inv_freq(cfg, factors: torch.Tensor | None, *, device) -> torch.Tensor:
+    """`rope_freqs_cfg`'s inverse frequencies divided by `factors` (a
+    model's `rope_freqs.weight`, Llama-3.1's smooth interpolation: ggml_rope_ext
+    divides theta by freq_factors[i]), or undivided without factors. The
+    division commutes with the YaRN blend. The result is kept per factors
+    tensor, rope config and device, so a captured forward reuses it."""
+    inv_freq, _ = rope_freqs_cfg(cfg, device=device)
+    if factors is None:
+        return inv_freq
+    key = (cfg.rope_dim, cfg.rope_base, getattr(cfg, "rope_scale_factor", 1.0),
+           *_yarn_active(cfg), getattr(cfg, "rope_beta_fast", 32.0),
+           getattr(cfg, "rope_beta_slow", 1.0), str(torch.device(device)))
+    per = _FACTORED.setdefault(factors, {})
+    if key not in per:
+        per[key] = inv_freq / factors.to(inv_freq.device)
+    return per[key]
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,

@@ -50,7 +50,7 @@ import torch
 from .._device import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import llama_forward
-from ..ops.rope import rope_freqs_cfg
+from ..ops.rope import rope_inv_freq
 from .graphs import StepGraphs
 from .kvcache import KVCache, causal_mask_from_tags, context_shift, self_extend_shift
 from .sampling import (
@@ -146,18 +146,23 @@ class Generator:
         )
         return out.logits[:, n_valid - 1], out.kv
 
+    def _shift_freq(self) -> torch.Tensor:
+        """The rope frequencies a shift re-rotates the cached keys with: the
+        forward's own, Llama-3.1's factors included (the reference's shift
+        leaves them out, generate.py:332 and :365, so its shifted keys
+        differ from a recompute on such a file), without mscale (the keys
+        carry theirs from the forward)."""
+        return rope_inv_freq(self.cfg, self.params.get("rope_factors"), device=self.device)
+
     def shift_context(self, n_keep: int, n_discard: int) -> None:
-        """`kvcache.context_shift` on this engine's cache, with its rope
-        frequencies (no mscale: the keys carry theirs from the forward)."""
-        inv_freq, _ = rope_freqs_cfg(self.cfg, device=self.device)
-        context_shift(self.kv, inv_freq, n_keep, n_discard)
+        """`kvcache.context_shift` on this engine's cache, with the
+        forward's rope frequencies (`_shift_freq`)."""
+        context_shift(self.kv, self._shift_freq(), n_keep, n_discard)
 
     def self_extend(self, n_past: int, ga_i: int, ga_n: int, ga_w: int) -> tuple[int, int]:
-        """`kvcache.self_extend_shift` on this engine's cache (the rope
-        frequencies without mscale, as `shift_context`); returns (n_past,
-        ga_i) after it."""
-        inv_freq, _ = rope_freqs_cfg(self.cfg, device=self.device)
-        return self_extend_shift(self.kv, inv_freq, n_past, ga_i, ga_n, ga_w)
+        """`kvcache.self_extend_shift` on this engine's cache (the
+        frequencies of `_shift_freq`); returns (n_past, ga_i) after it."""
+        return self_extend_shift(self.kv, self._shift_freq(), n_past, ga_i, ga_n, ga_w)
 
     def sampler_state(self, scfg: SamplerConfig) -> SamplerState | None:
         """The generator's `SamplerState`, reset for a new sequence under

@@ -33,7 +33,9 @@ tokens == the plain generator's; model-free speculation, infill and YaRN
 (`-k "lookahead or lookup or infill or yarn"`): flash_decode under a
 lookahead step's mask, the graphed lookahead and lookup engines == eager,
 `_compact_kv` in a replay, infill's graphed logits steps against the CPU,
-a YaRN config's frequencies and graphed decode.
+a YaRN config's frequencies and graphed decode; the Llama-3 path (`-k
+llama3`): qmm on every route at the 8B path's new shapes, both flash
+kernels at g = 4, a tied "nk" head with rope factors graphed == eager.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -1583,6 +1585,88 @@ def test_yarn_graphed_decode_on_the_card(cuda):
     torch.testing.assert_close(inv.cpu(), inv_cpu, rtol=1e-6, atol=0)
     tp, _ = _tiny_bf16()
     runs = [Generator(tp, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                      cuda_graphs=graphed).generate(PROMPT * 3, max_new_tokens=40,
+                                                    stop_at_eos=False)
+            for graphed in (False, True)]
+    assert runs[0] == runs[1]
+
+
+# ---- the Llama-3 path (`-k llama3`) ------------------------------------------
+
+#: (name, weight form, N, K, stacked) of the Llama-3.1-8B path's new qmm shapes
+LLAMA3_SHAPES = [("wqkv", "q4k_packed_coded", 6144, 4096, True),
+                 ("w_gate_up", "q4k_packed_coded", 28672, 4096, True),
+                 ("w_down", "q4k_packed_coded", 4096, 14336, True),
+                 ("lm_head", "q6k_int8_coded", 128256, 4096, False),
+                 ("draft_fc", "q8_0_int8_f32", 4096, 8192, False)]
+
+
+@pytest.mark.parametrize("rows", [1, 6, 300])
+@pytest.mark.parametrize("name,form,n,k,stacked", LLAMA3_SHAPES,
+                         ids=[s[0] for s in LLAMA3_SHAPES])
+def test_llama3_qmm_shapes_every_route(cuda, name, form, n, k, stacked, rows):
+    """qmm at the 8B path's new shapes, bf16: 1 row on the 1-row body, 6 on
+    the small-row body, 300 on the wgmma body, each against the plain
+    version (a 2-layer stack read at layer 1)."""
+    w = WEIGHTS[form](cuda, n, k, 2 if stacked else None)
+    x = torch.randn((rows, k), generator=cuda, device="cuda")
+    _build.reset_counts()
+    got = qmm_stacked(x, w, 1) if stacked else qmm(x, w)
+    route = _counter("qmm", _route(rows, k, n, torch.bfloat16, tc_form(w)))
+    assert route == {1: "qmm_gemv", 6: "qmm_mma", 300: "qmm_tc"}[rows]
+    assert _build.launches[route] == 1 and _build.plain_calls["qmm"] == 0
+    _close(got, qmm_plain(x, w.layer(1) if stacked else w), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("name,t", [("flash_decode", 1), ("flash_decode", 6),
+                                    ("flash_prefill", 64)])
+def test_llama3_flash_gqa(cuda, name, t):
+    """Both kernels at Llama-3-8B's g = 4 (32 query heads over 8 KV heads
+    of 128, bf16 cache, 1,024 slots with a hole), against their plain
+    versions."""
+    b, h, h_kv, d, s = 1, 32, 8, 128, 1024
+    kc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    tags = torch.arange(s, dtype=torch.int32, device="cuda")[None].clone()
+    tags[:, 900 + t:] = -1
+    tags[:, 100:140] = -1
+    pos = (900 + torch.arange(t, dtype=torch.int32, device="cuda"))[None]
+    q = torch.randn((b, t, h, d), generator=cuda, device="cuda")
+    if name == "flash_decode":
+        mask = causal_mask_from_tags(tags, pos)
+        got = fa.flash_attention_cached(q, kc, vc, mask, 1)
+        want = fa.flash_attention_cached_plain(q, kc, vc, mask, 1)
+    else:
+        got = fa.flash_attention_prefill(q, kc, vc, pos, tags, 1)
+        want = fa.flash_attention_prefill_plain(q, kc, vc, pos, tags, 1)
+    _close(got, want, TOL[torch.bfloat16])
+
+
+def _nk_table(gen, v, d, g=16):
+    """A tied head: int8 codes [V, D] and f32 scales [V, D / g], "nk" (the
+    Q6_K embedding table as the loader gives it)."""
+    q = torch.randint(-32, 32, (v, d), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand((v, d // g), generator=gen, device="cuda") * 2e-3 + 1e-3
+    return QTensor(q=q, scale=scale, bias=None, group=g, ggml_type=int(Q6_K), layout="nk")
+
+
+def test_llama3_nk_head_graphed_equals_eager(cuda):
+    """A tiny target with a tied "nk" head and Llama-3.1 rope factors on the
+    card: the head's product against its f32 plain version, and graphed
+    greedy tokens equal to the eager run's past the factors' original
+    context."""
+    from eagle_tpu_torch.ops.matmul import qmatmul
+
+    tp, _ = _tiny_bf16()
+    head = _nk_table(cuda, TINY_CFG.vocab_size, TINY_CFG.n_embd)
+    tp = dict(tp, tok_embd=head, output=head,
+              rope_factors=torch.linspace(1.0, 8.0, TINY_CFG.head_dim // 2, device="cuda"))
+    x = torch.randn((3, TINY_CFG.n_embd), generator=cuda, device="cuda")
+    got = qmatmul(x, head, torch.bfloat16)
+    assert got.dtype == torch.float32
+    _close(got, x @ head.dequantize(torch.float32).T, TOL[torch.bfloat16])
+    runs = [Generator(tp, TINY_CFG, max_seq=256, kv_dtype=torch.bfloat16,
                       compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
                       cuda_graphs=graphed).generate(PROMPT * 3, max_new_tokens=40,
                                                     stop_at_eos=False)

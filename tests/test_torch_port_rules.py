@@ -1,8 +1,10 @@
 """Rules of the PyTorch port that no numeric test shows:
 
-- nothing in `eagle_tpu_torch/` or `chip_smoke.py` imports jax, ml_dtypes
-  or the JAX package (an AST scan of every import; the paged pool, the
-  paged batcher and the state files among them);
+- nothing in `eagle_tpu_torch/` or `chip_smoke.py` imports jax, ml_dtypes,
+  `regex` or the JAX package (an AST scan of every import; the paged pool,
+  the paged batcher, the state files and the BPE tokenizer among them), the
+  BPE tokenizer takes its Unicode classes from its own data, not from
+  `unicodedata`, and imports with `regex` blocked;
 - an entry point built with its default device (the card) raises on a host
   without CUDA instead of falling back to the CPU (the engines, the loaders,
   `api.Engine` and the CLI among them);
@@ -25,7 +27,7 @@ from eagle_tpu_torch.ops.qmm import qmm, qmm_i4, qmm_i4_stacked, qmm_stacked
 from eagle_tpu_torch.quant.qtensor import QTensor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "eagle_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "eagle_tpu", "ml_dtypes", "regex")
 
 
 def _port_files():
@@ -50,7 +52,9 @@ def _port_files():
                  "eagle_tpu_torch/runtime/state_io.py", "eagle_tpu_torch/runtime/grammar.py",
                  "eagle_tpu_torch/runtime/json_schema.py",
                  "eagle_tpu_torch/server/tool_calls.py", "eagle_tpu_torch/runtime/lookahead.py",
-                 "eagle_tpu_torch/runtime/lookup.py", "eagle_tpu_torch/runtime/infill.py"):
+                 "eagle_tpu_torch/runtime/lookup.py", "eagle_tpu_torch/runtime/infill.py",
+                 "eagle_tpu_torch/tokenizer/bpe.py",
+                 "eagle_tpu_torch/tokenizer/unicode_classes.py"):
         assert must in names
     return files
 
@@ -73,6 +77,25 @@ def test_no_jax_or_reference_imports():
             if mod.split(".")[0] in FORBIDDEN:
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+def test_bpe_tokenizer_needs_no_unicode_tables():
+    """The BPE tokenizer's classes are the port's data: it imports neither
+    `regex` nor `unicodedata`, and it tokenizes with `regex` blocked."""
+    import subprocess
+    import sys
+
+    for name in ("bpe.py", "unicode_classes.py"):
+        mods = set(_imported(ast.parse((ROOT / "eagle_tpu_torch/tokenizer" / name).read_text())))
+        assert not mods & {"regex", "unicodedata"}, (name, mods)
+    code = ("import sys; sys.modules['regex'] = None; sys.modules['unicodedata'] = None; "
+            "from eagle_tpu_torch.tokenizer import BPETokenizer; "
+            "from eagle_tpu_torch.tokenizer.bpe import _BYTE_ENC; "
+            "t = BPETokenizer([_BYTE_ENC[b] for b in range(256)], [], [1] * 256, pre='llama3'); "
+            "print(t.decode(t.encode('naïve 日本 123')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, check=True)
+    assert out.stdout.strip() == "naïve 日本 123"
 
 
 TINY = ModelConfig(vocab_size=64, n_embd=256, n_layers=1, n_heads=4, n_kv_heads=2,

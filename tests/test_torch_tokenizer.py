@@ -141,6 +141,9 @@ def test_gguf_vocab_read_by_both_packages(tmp_path):
 
 
 def test_factory_refuses_other_tokenizers():
-    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": ["a"]}
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tokenizer_from_gguf_metadata(md)
+    """WPM, UGM and RWKV come with their architectures (BPE, "gpt2", is
+    ported: tests/test_torch_bpe.py)."""
+    for model in ("bert", "t5", "rwkv"):
+        md = {"tokenizer.ggml.model": model, "tokenizer.ggml.tokens": ["a"]}
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+            tokenizer_from_gguf_metadata(md)

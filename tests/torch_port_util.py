@@ -14,6 +14,7 @@ to three cores busy per worker, whatever XLA's thread flags say. The
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import threading
 
@@ -146,7 +147,9 @@ def has_encoder(qtype) -> bool:
 
 
 def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0,
-                         target_metadata: dict | None = None, out_scale: float = 0.05):
+                         target_metadata: dict | None = None, out_scale: float = 0.05,
+                         n_kv_heads: int | None = None, rope_factors=None,
+                         tied: bool = False):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
@@ -154,12 +157,17 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     norms and fc.bias F32. A format without an encoder (the codebook ones)
     gets `random_blocks`. `target_metadata` adds keys to the target's
     metadata (a tokenizer). `out_scale` is the output weights' standard
-    deviation (larger: more peaked logits). Returns (target path, draft
-    path)."""
+    deviation (larger: more peaked logits). `n_kv_heads` sets both files'
+    KV heads (GQA), `rope_factors` [head_dim/2] adds the target's
+    `rope_freqs.weight` (Llama-3.1), `tied` leaves out its `output.weight`
+    (the head is token_embd, in `emb_type` at `out_scale`). Returns (target
+    path, draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
     jcfg, _ = tiny_cfgs()
+    if n_kv_heads is not None:
+        jcfg = dataclasses.replace(jcfg, n_kv_heads=n_kv_heads)
     rng = np.random.default_rng(seed)
     d, f, v = jcfg.n_embd, jcfg.n_ff, jcfg.vocab_size
     nq, nkv = jcfg.n_heads * jcfg.head_dim, jcfg.n_kv_heads * jcfg.head_dim
@@ -188,11 +196,14 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     w = GGUFWriter(target)
     for k, val in {**_base_metadata(jcfg, "llama"), **(target_metadata or {})}.items():
         w.add(k, val)
-    qmat(w, "token_embd.weight", v, d, emb_type, 0.5)
+    qmat(w, "token_embd.weight", v, d, emb_type, out_scale if tied else 0.5)
     for i in range(jcfg.n_layers):
         layer(w, i, layer_type)
     w.add_tensor("output_norm.weight", norm())
-    qmat(w, "output.weight", v, d, out_type, out_scale)
+    if rope_factors is not None:
+        w.add_tensor("rope_freqs.weight", np.asarray(rope_factors, np.float32))
+    if not tied:
+        qmat(w, "output.weight", v, d, out_type, out_scale)
     w.write()
 
     draft = tmp_path / "draft.gguf"
@@ -241,6 +252,122 @@ def tiny_engine_pair(tmp_path, words: str):
     q8 = GGMLType.Q8_0
     return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=3,
                                 target_metadata=spm_metadata(words))
+
+
+LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+                   "<|end_header_id|>", "<|eot_id|>")
+#: a chat template string the server's detection reads as "llama3"
+LLAMA3_TEMPLATE = ("{% for message in messages %}<|start_header_id|>{{ message['role'] }}"
+                   "<|end_header_id|>\n\n{{ message['content'] | trim }}<|eot_id|>"
+                   "{% endfor %}")
+
+
+def learn_merges(corpus: str, n_pieces: int) -> tuple[list[str], list[str]]:
+    """(pieces, merges) of a byte-level BPE vocabulary: the 256 byte
+    symbols, then merges learned greedily from `corpus` (split by the
+    Llama-3 pattern), the most frequent pair first (ties: the larger pair),
+    until there are `n_pieces` pieces. Each merge's result is a piece."""
+    from eagle_tpu_torch.tokenizer import bpe
+
+    words: dict[tuple, int] = {}
+    for w in bpe.regex_split(corpus, [bpe.compile_pattern(bpe._LLAMA3)]):
+        key = tuple(bpe._BYTE_ENC[b] for b in w.encode("utf-8"))
+        words[key] = words.get(key, 0) + 1
+    pieces = [bpe._BYTE_ENC[b] for b in range(256)]
+    seen, merges = set(pieces), []
+    while len(pieces) < n_pieces:
+        counts: dict = {}
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                counts[pair] = counts.get(pair, 0) + c
+        if not counts:
+            raise ValueError(f"the corpus makes only {len(pieces)} pieces")
+        (a, b), _ = max(counts.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append(f"{a} {b}")
+        if a + b not in seen:
+            seen.add(a + b)
+            pieces.append(a + b)
+        merged = {}
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + c
+        words = merged
+    return pieces, merges
+
+
+def bpe_metadata(corpus: str, v: int = 512) -> dict:
+    """A Llama-3-style byte-level BPE vocabulary of `v` pieces as GGUF
+    metadata: `learn_merges(corpus)` then LLAMA3_SPECIALS (control tokens;
+    BOS <|begin_of_text|>, EOS and EOT <|eot_id|>), pre "llama-bpe",
+    add_bos, and LLAMA3_TEMPLATE."""
+    pieces, merges = learn_merges(corpus, v - len(LLAMA3_SPECIALS))
+    tokens = pieces + list(LLAMA3_SPECIALS)
+    ids = {t: i for i, t in enumerate(tokens)}
+    return {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+            "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.merges": merges,
+            "tokenizer.ggml.token_type": np.asarray(
+                [1] * len(pieces) + [3] * len(LLAMA3_SPECIALS), np.int32),
+            "tokenizer.ggml.bos_token_id": ids["<|begin_of_text|>"],
+            "tokenizer.ggml.eos_token_id": ids["<|eot_id|>"],
+            "tokenizer.ggml.eot_token_id": ids["<|eot_id|>"],
+            "tokenizer.ggml.add_bos_token": True,
+            "tokenizer.chat_template": LLAMA3_TEMPLATE}
+
+
+def llama3_factors(head_dim: int, base: float, factor: float = 8.0, low: float = 1.0,
+                   high: float = 4.0, orig_ctx: int = 8192) -> np.ndarray:
+    """Llama-3.1's `rope_freqs.weight` by the reference converter's rule
+    (eagle_tpu/models/hf_convert.py:llama3_rope_factors)."""
+    from types import SimpleNamespace
+
+    from eagle_tpu.models.hf_convert import llama3_rope_factors
+
+    return llama3_rope_factors(SimpleNamespace(
+        rope_theta=base, head_dim=head_dim, rope_scaling={
+            "rope_type": "llama3", "factor": factor, "low_freq_factor": low,
+            "high_freq_factor": high, "original_max_position_embeddings": orig_ctx}))
+
+
+def llama3_corpus(n_words: int = 1500, seed: int = 0) -> str:
+    """Text to learn a tiny vocabulary's merges from: a fixed sentence with
+    multi-byte characters, contractions and digits, then `n_words` seeded
+    words of ASCII letters and a few accented and CJK characters."""
+    rng = np.random.default_rng(seed)
+    chars = list("abcdefghijklmnopqrstuvwxyz") * 4 + list("éüß日本語の")
+    words = ["".join(rng.choice(chars, size=int(rng.integers(1, 8)))) for _ in range(n_words)]
+    return ("the quick brown fox jumps over a lazy dog and then naïve café Straße 日本語 "
+            "😀 It's they're we'll I'd don't 12345 hello world, Hello World!\n\t " * 3
+            + " ".join(words))
+
+
+LLAMA3_PROMPT = "the quick brown fox jumps over a naïve café dog 日本語 and then"
+
+
+@functools.lru_cache(maxsize=None)
+def llama3_vocab() -> dict:
+    """`bpe_metadata(llama3_corpus())`, learned once per process."""
+    return bpe_metadata(llama3_corpus())
+
+
+def tiny_llama3_pair(tmp_path, tied: bool = False):
+    """A tiny Llama-3-style Q8_0 target and draft GGUF pair: GQA 4:1 (one KV
+    head), Llama-3.1 rope factors (factor 8 over an original 32 positions,
+    base 500,000), a 512-piece byte-level BPE vocabulary (`bpe_metadata`),
+    tied or not."""
+    from eagle_tpu.gguf.constants import GGMLType
+
+    q8 = GGMLType.Q8_0
+    md = {**llama3_vocab(), "llama.rope.freq_base": 500000.0}
+    return write_tiny_gguf_pair(
+        tmp_path, q8, q8, q8, q8, seed=5, target_metadata=md, n_kv_heads=1,
+        rope_factors=llama3_factors(64, 500000.0, orig_ctx=32), tied=tied)
 
 
 ENGINE_PROMPT = "the quick brown fox jumps over a lazy dog and then"
