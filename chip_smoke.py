@@ -282,6 +282,31 @@ llama3. the Llama-3 family, after phase 6's files are gone: a minted
    token, the "nk" head's device ms). Each minted file is deleted after its
    checks; the 8B default path's and the tied run's launches stand in the
    `kernels` line as `llama3_path_launches`.
+families. the Qwen2, Qwen3 and Gemma-2 families at their published shapes,
+   in a temporary directory of their own, one model at a time (minted with
+   random Q4_K blocks and a Q6_K head, loaded through `api.Engine`, its
+   file deleted, its kernels checked, run, freed): (a) Qwen2.5-7B-Instruct
+   (d 3,584, 28 layers, 28 query over 4 KV heads of 128: g = 7, n_ff
+   18,944, q/k/v biases, rope base 1e6, a 152,064-entry byte-level BPE
+   vocabulary with the "qwen2" pre-tokenizer and a chatml template) and an
+   EAGLE-Qwen2-7B-Instruct-shape Q8_0 draft: qmm at every product's shape
+   at 1, 6 and 300 rows (and the draft's fc), flash_decode at T = 1 and 6
+   (T·g 7 and 42) and flash_prefill at T = 512 (T·g 3,584) at g = 7, each
+   against its plain version with its bound and library ms (`[families
+   kernel]`); `serve_cell` on a ~300-token prompt (`[qwen2.5]`: 113
+   qmm_gemv and 28 flash_decode per decoded token, 113 qmm_mma per verify,
+   EAGLE == greedy under the near-tie rule); (b) Qwen3-8B (36 layers, 32
+   over 8 KV heads of 128, per-head q/k norms, 151,936 entries): qmm at 1
+   and 300 rows, then greedy eager once and graphed 3 times, bit for bit
+   (`[qwen3]`: 145 qmm_gemv and 36 flash_decode per token); (c) Gemma-2-9B
+   (42 layers, 16 over 8 KV heads of 256, n_ff 14,336, sandwich norms,
+   GELU, softcaps 50 / 30, a 4,096-slot window on even layers,
+   query_pre_attn_scalar 256, a tied Q6_K table of 256,000 SPM pieces, a
+   gemma template): qmm at 1 and 300 rows, the plain softcapped attention
+   (no kernel in either package) and the tied "nk" head timed, then greedy
+   as (b) (`[gemma2]`: 168 qmm_gemv per token, no flash kernel). The
+   launches of the Qwen2.5 default path and of the other two's first timed
+   graphed runs stand in the `kernels` line as `families_path_launches`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -1558,7 +1583,8 @@ def serve_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, want_tok:
             f"{fmt(r['wall_ms_per_step'])}{extra}")
     per_token = res["greedy graphed"]["launches_per_decoded_token"]
     log(f"[{tag}] launches per decoded token (graphed, replays counted): "
-        + ", ".join(f"{k} {per_token[k]:.1f}" for k in (*want_tok, "flash_decode")))
+        + ", ".join(f"{k} {per_token[k]:.1f}" for k in dict.fromkeys((*want_tok,
+                                                                       "flash_decode"))))
 
     greedy = tokens["greedy"]
     dev = graphed_device_ms(gens[True], engs[True], prompt, greedy[-1], len(prompt) + n_new - 1)
@@ -1936,7 +1962,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
                    ctx: int = 2048, rope_base: float = 10000.0, metadata: dict | None = None,
                    vocab: dict | None = None, with_draft: bool = True,
                    n_kv_heads: int | None = None, layer_type: str = "Q4_0",
-                   rope_factors=None, tied: bool = False
+                   rope_factors=None, tied: bool = False, arch: str = "llama",
+                   head_dim: int | None = None
                    ) -> tuple[pathlib.Path, pathlib.Path | None]:
     """Write a Vicuna-7B-shape GGUF (or one of the widths given) laid out as
     llama-quantize's Q4_0 lays out a llama-7B file (every layer matmul and
@@ -1949,8 +1976,12 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     `layer_type` "Q4_K" lays the target out as Q4_K_M does (layers and
     token_embd Q4_K), `rope_factors` adds `rope_freqs.weight` (Llama-3.1),
     and `tied` leaves out `output.weight` and makes token_embd Q6_K, the
-    head (Llama-3.2-1B / 3B). Weights are random quant blocks, at magnitudes
-    that give Q4_0's weight RMS (~6e-3) in either layout."""
+    head (Llama-3.2-1B / 3B). `arch` "qwen2", "qwen3" or "gemma2" writes the
+    target under that architecture with its tensors (qwen2: q/k/v biases;
+    qwen3: per-head q/k norms; gemma2: the post-attention and post-FFN
+    norms), `head_dim` a head width other than d / n_heads (both files).
+    Weights are random quant blocks, at magnitudes that give Q4_0's weight
+    RMS (~6e-3) in either layout."""
     import torch
 
     from eagle_tpu_torch.gguf import GGMLType, GGUFWriter
@@ -1960,9 +1991,10 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     # Q4_0: w = d (q - 8), RMS ~4.8 d; Q4_K: w = d sc q - dmin m, RMS ~336 d
     lt, l_mag = {"Q4_0": (GGMLType.Q4_0, 1.3e-3), "Q4_K": (GGMLType.Q4_K, 1.85e-5)}[layer_type]
     kv = n_kv_heads or n_heads
-    d_kv = d // n_heads * kv
-    layer_mats = (("attn_q", d, d), ("attn_k", d_kv, d), ("attn_v", d_kv, d),
-                  ("attn_output", d, d), ("ffn_gate", f, d), ("ffn_up", f, d),
+    hd = head_dim or d // n_heads
+    d_q, d_kv = n_heads * hd, kv * hd
+    layer_mats = (("attn_q", d_q, d), ("attn_k", d_kv, d), ("attn_v", d_kv, d),
+                  ("attn_output", d, d_q), ("ffn_gate", f, d), ("ffn_up", f, d),
                   ("ffn_down", d, f))
 
     def writer(path, arch, blocks, file_type):
@@ -1974,7 +2006,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             f"{arch}.feed_forward_length": f, f"{arch}.attention.head_count": n_heads,
             f"{arch}.attention.head_count_kv": kv,
             f"{arch}.attention.layer_norm_rms_epsilon": 1e-6,
-            f"{arch}.rope.dimension_count": d // n_heads, f"{arch}.rope.freq_base": rope_base,
+            f"{arch}.rope.dimension_count": hd, f"{arch}.rope.freq_base": rope_base,
+            f"{arch}.attention.key_length": hd, f"{arch}.attention.value_length": hd,
             f"{arch}.vocab_size": v,
         }.items():
             w.add(key, val)
@@ -1983,12 +2016,15 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     def add(w, name, n, k, qtype, mag, signed=True):
         w.add_tensor(name, random_blocks(gen, n, k, qtype, mag, signed), qtype, raw_shape=(n, k))
 
-    def norm():
-        return (torch.rand(d, generator=gen, device="cuda") * 0.4 + 0.8).cpu().numpy()
+    def norm(n=d):
+        return (torch.rand(n, generator=gen, device="cuda") * 0.4 + 0.8).cpu().numpy()
+
+    def bias(n):
+        return (torch.randn(n, generator=gen, device="cuda") * 0.1).cpu().numpy()
 
     target = tmp / f"{tag}-{layer_type.lower()}.gguf"
     # LLAMA_FTYPE_MOSTLY_Q4_0, LLAMA_FTYPE_MOSTLY_Q4_K_M
-    w = writer(target, "llama", n_layers, 2 if layer_type == "Q4_0" else 15)
+    w = writer(target, arch, n_layers, 2 if layer_type == "Q4_0" else 15)
     for key, val in {**(vocab or spm_vocab(v, seed)), **(metadata or {})}.items():
         w.add(key, val)
     if tied:
@@ -2000,6 +2036,15 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
         for name, n, k in layer_mats:
             add(w, f"blk.{i}.{name}.weight", n, k, lt, l_mag)
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
+        if arch == "qwen2":
+            for name, n in (("attn_q", d_q), ("attn_k", d_kv), ("attn_v", d_kv)):
+                w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
+        elif arch == "qwen3":
+            w.add_tensor(f"blk.{i}.attn_q_norm.weight", norm(hd))
+            w.add_tensor(f"blk.{i}.attn_k_norm.weight", norm(hd))
+        elif arch == "gemma2":
+            w.add_tensor(f"blk.{i}.attn_post_norm.weight", norm())
+            w.add_tensor(f"blk.{i}.ffn_post_norm.weight", norm())
     w.add_tensor("output_norm.weight", norm())
     if rope_factors is not None:
         w.add_tensor("rope_freqs.weight", rope_factors.astype("float32"))
@@ -3047,10 +3092,12 @@ def serve_http(target, draft, prompts: list, chat: list, want: dict, tmp: pathli
 
 def target_qmm_specs(params) -> list:
     """(name, weight, launches) of a target forward's products: the four
-    stacked projections of each of the 32 layers and lm_head."""
+    stacked projections of each layer and lm_head (none for a tied "nk"
+    head, which is no qmm)."""
     tl = params["layers"]
-    return ([(n, tl[n], 32) for n in ("wqkv", "wo", "w_gate_up", "w_down")]
-            + [("lm_head", params["output"], 1)])
+    n_layers = tl["wqkv"].q.shape[0]
+    head = [] if params["output"].layout == "nk" else [("lm_head", params["output"], 1)]
+    return [(n, tl[n], n_layers) for n in ("wqkv", "wo", "w_gate_up", "w_down")] + head
 
 
 def qmm_sum(tag: str, what: str, rows: int, specs: list, route: str, gen,
@@ -4964,21 +5011,16 @@ def llama3_factors(head_dim: int, base: float, factor: float, low: float, high: 
     return np.asarray(out, np.float32)
 
 
-def llama3_vocab(seed: int, v: int = 128256) -> tuple[dict, list]:
-    """A Llama-3-layout byte-level BPE vocabulary as GGUF metadata, and the
-    words it was built from: the 256 byte symbols, then seeded words (ASCII
-    letters, a few accented and CJK characters; 70 % with a leading space)
-    each merged left to right, every new prefix a piece and its merge the
-    next rank, up to 128,000 pieces; Llama-3.1's 256 specials at
-    128,000-128,255 (control); pre "llama-bpe", BOS <|begin_of_text|>, EOS
-    and EOT <|eot_id|> (the Instruct files'), a template with Llama-3's
-    header markers."""
+def bpe_pieces(seed: int, n_pieces: int) -> tuple[list, list, list]:
+    """(pieces, merges, words) of a byte-level BPE vocabulary: the 256 byte
+    symbols, then seeded words (ASCII letters, a few accented and CJK
+    characters; 70 % with a leading space) each merged left to right, every
+    new prefix a piece and its merge the next rank, up to `n_pieces`."""
     import numpy as np
 
     from eagle_tpu_torch.tokenizer.bpe import _BYTE_ENC
 
     rng = np.random.default_rng(seed)
-    n_pieces = v - 256
     pieces = [_BYTE_ENC[b] for b in range(256)]
     seen, merges, words = set(pieces), [], []
     chars = np.array(list("abcdefghijklmnopqrstuvwxyz") * 4 + list("éüßçñ日本語中文字"))
@@ -4993,6 +5035,19 @@ def llama3_vocab(seed: int, v: int = 128256) -> tuple[dict, list]:
                 pieces.append(cur + s)
                 merges.append(f"{cur} {s}")
             cur = cur + s
+    return pieces, merges, words
+
+
+def llama3_vocab(seed: int, v: int = 128256) -> tuple[dict, list]:
+    """A Llama-3-layout byte-level BPE vocabulary as GGUF metadata, and the
+    words it was built from: `bpe_pieces` up to 128,000 pieces; Llama-3.1's
+    256 specials at 128,000-128,255 (control); pre "llama-bpe", BOS
+    <|begin_of_text|>, EOS and EOT <|eot_id|> (the Instruct files'), a
+    template with Llama-3's header markers."""
+    import numpy as np
+
+    n_pieces = v - 256
+    pieces, merges, words = bpe_pieces(seed, n_pieces)
     specials = [LLAMA3_SPECIALS.get(i, f"<|reserved_special_token_{i - 128000}|>")
                 for i in range(n_pieces, v)]
     md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
@@ -5095,10 +5150,10 @@ def llama3_ffn_checks(draft, gen) -> list:
     return out
 
 
-def llama3_attention_checks(gen) -> list:
+def gqa_flash_checks(gen, tag: str, h: int, h_kv: int) -> list:
     """flash_decode at T = 1 and 6 over S = 1,024 (900 tokens, a hole) and
-    flash_prefill at T = 512 (300 real rows) at Llama-3-8B's g = 4 (32 query
-    heads over 8 KV heads of 128, bf16 cache), against their plain versions,
+    flash_prefill at T = 512 (300 real rows) at h query heads over h_kv KV
+    heads of 128 (g = h / h_kv; bf16 cache), against their plain versions,
     timed; the library is SDPA with `enable_gqa`."""
     import torch
     import torch.nn.functional as F
@@ -5106,7 +5161,7 @@ def llama3_attention_checks(gen) -> list:
     from eagle_tpu_torch.ops import flash_attention as fa
     from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
 
-    b, h, h_kv, d, s, layer = 1, 32, 8, 128, 1024, 1
+    b, d, s, layer, g = 1, 128, 1024, 1, h // h_kv
     kc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     vc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     out = []
@@ -5128,7 +5183,7 @@ def llama3_attention_checks(gen) -> list:
             qb, kc[layer], vc[layer], attn_mask=mask[:, None], enable_gqa=True), 50)
         b_ms, b_by = bound_ms(2 * b * h_kv * s * d * 2 + nbytes(q, mask) + q.numel() * 4,
                               4.0 * b * h * t * s * d)
-        out.append(dict(name="flash_decode", g=4, t=t, s=s, ms=ms, plain_ms=plain,
+        out.append(dict(name="flash_decode", g=g, t=t, s=s, ms=ms, plain_ms=plain,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
                         rel_err=rel))
     t, n, lim = 512, LLAMA3_PROMPT_TOKENS, 512
@@ -5149,13 +5204,15 @@ def llama3_attention_checks(gen) -> list:
         qb, kc[layer, :, :, :lim], vc[layer, :, :, :lim], attn_mask=vis[:, None],
         enable_gqa=True), 10)
     b_ms, b_by = prefill_bound(q, kc, q_pos, tags, lim)
-    out.append(dict(name="flash_prefill", g=4, t=t, s=lim, ms=ms, plain_ms=plain,
+    out.append(dict(name="flash_prefill", g=g, t=t, s=lim, ms=ms, plain_ms=plain,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
                     rel_err=rel))
     for r in out:
         if r["rel_err"] > ATTN_TOL:
-            raise AssertionError(f"llama3 {r['name']} g=4 T={r['t']}: rel err {r['rel_err']:.3e}")
-        log(f"[llama3 kernel] {r['name']} g=4 T={r['t']} S={r['s']} H={h}/{h_kv} D={d}  kernel "
+            raise AssertionError(f"{tag} {r['name']} g={g} T={r['t']}: rel err "
+                                 f"{r['rel_err']:.3e}")
+        log(f"[{tag}] {r['name']} g={g} T={r['t']} (T*g={r['t'] * g}) S={r['s']} H={h}/{h_kv} "
+            f"D={d}  kernel "
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']})  library {r['library_ms']:.4f} ms  rel err {r['rel_err']:.2e}")
     del kc, vc
@@ -5310,24 +5367,51 @@ def llama3_chat_shift(eng, words: list) -> dict:
     return dict(shifts=shifts)
 
 
+def nk_head_check(tag: str, head, cfg) -> dict:
+    """A tied "nk" head (`ops/matmul.py:_qmatmul_nk`: the plain dequant and
+    one product) at one decoded row against its f32 plain product, timed
+    with its bound and library ms (`F.linear` on the table dequantized once
+    to bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.gguf import GGMLType
+    from eagle_tpu_torch.ops.matmul import qmatmul
+
+    x = torch.randn((1, cfg.n_embd), generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda")
+    got = qmatmul(x, head, torch.bfloat16)
+    abs_err, rel = rel_err(got, x @ head.dequantize(torch.float32).T)
+    if rel > QMM_TOL:
+        raise AssertionError(f"{tag} head: rel err {rel:.3e}")
+    ms = device_ms(lambda i: qmatmul(x, head, torch.bfloat16), 20)
+    dense, xb = head.dequantize(torch.bfloat16), x.to(torch.bfloat16)
+    lib = device_ms(lambda i: F.linear(xb, dense), 20)
+    del dense
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound_ms(nbytes(*head.tensors().values()) + x.numel() * 4 + got.numel() * 4,
+                          2.0 * cfg.n_embd * cfg.vocab_size)
+    log(f"[{tag}] the tied 'nk' head, 1 row, [{cfg.vocab_size} x {cfg.n_embd}] "
+        f"{GGMLType(head.ggml_type).name}: dequant + product {ms:.4f} ms per token, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}), library (F.linear on the dequantized bf16 table) "
+        f"{lib:.4f} ms, rel err {rel:.2e}")
+    return dict(name="nk head", n=cfg.vocab_size, k=cfg.n_embd, rows=1, ms=ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
+
+
 def tied_cell(tmp: pathlib.Path, vocab: dict, text: str) -> tuple[dict, dict]:
     """A Llama-3.2-3B-Instruct-shape GGUF (d 3,072, 28 layers, 24 heads over
     8 KV heads, n_ff 8,192, Q4_K layers, a tied Q6_K token_embd and no
     output.weight, rope factors at factor 32), minted, loaded through
-    `Engine` and deleted: greedy `Generator` eager and graphed on the
-    prompt (bit for bit; 112 qmm_gemv per decoded token: the head is the
-    plain "nk" product), TTFT, t/s, device ms per token; the tied head
+    `Engine` and deleted: `greedy_cell` on the prompt (112 qmm_gemv per
+    decoded token: the head is the plain "nk" product); the tied head
     alone against its f32 plain version, timed with its bound and library
     ms. Returns (the cell, the graphed run's launches)."""
     import gc
 
     import torch
-    import torch.nn.functional as F
 
-    from eagle_tpu_torch import _build
     from eagle_tpu_torch.api import Engine, EngineConfig
-    from eagle_tpu_torch.ops.matmul import qmatmul
-    from eagle_tpu_torch.runtime.generate import Generator
 
     c = LLAMA3_3B
     t0 = time.time()
@@ -5347,50 +5431,12 @@ def tied_cell(tmp: pathlib.Path, vocab: dict, text: str) -> tuple[dict, dict]:
     head = params["output"]
     if head is not params["tok_embd"] or head.layout != "nk" or "rope_factors" not in params:
         raise AssertionError("llama3 tied: the head is not the tied 'nk' table")
-    ids = eng.tokenizer.encode(text)
-    gen = Generator(params, cfg, max_seq=1024, eos_id=-1)
-
-    def run(on_token):
-        return gen.generate(ids, max_new_tokens=LLAMA3_NEW, stop_at_eos=False, on_token=on_token)
-
-    want = eager_tokens(gen, lambda: run(None))
-    if run(None) != want:  # the captures
-        raise AssertionError("llama3 tied: graphed tokens differ from eager")
-    eager = gen.graphs.eager
-    _build.reset_counts()
-    toks, ttft, after, at_first, _ = timed_run(run)
-    per_tok = {k: (_build.launches[k] - at_first[k]) / (LLAMA3_NEW - 1) for k in _build.launches}
-    launches = {k: v for k, v in _build.launches.items() if v}
-    if (toks != want or gen.graphs.eager != eager or per_tok["qmm_gemv"] != TIED_GEMV
-            or any(_build.plain_calls.values())):
-        raise AssertionError(f"llama3 tied: graphed run differs or launches per token {per_tok}")
-    step_ms = decode_device_ms(gen, ids)
-    # the head alone: one decoded row
-    x = torch.randn((1, cfg.n_embd), generator=torch.Generator(device="cuda").manual_seed(5),
-                    device="cuda")
-    got = qmatmul(x, head, torch.bfloat16)
-    abs_err, rel = rel_err(got, x @ head.dequantize(torch.float32).T)
-    if rel > QMM_TOL:
-        raise AssertionError(f"llama3 tied head: rel err {rel:.3e}")
-    ms = device_ms(lambda i: qmatmul(x, head, torch.bfloat16), 20)
-    dense, xb = head.dequantize(torch.bfloat16), x.to(torch.bfloat16)
-    lib = device_ms(lambda i: F.linear(xb, dense), 20)
-    del dense
-    b_ms, b_by = bound_ms(nbytes(*head.tensors().values()) + x.numel() * 4 + got.numel() * 4,
-                          2.0 * cfg.n_embd * cfg.vocab_size)
-    out.update(ttft_ms=ttft * 1e3, tokens_per_s=(LLAMA3_NEW - 1) / after,
-               device_ms_per_token=step_ms, launches_per_decoded_token=per_tok,
-               head=dict(name="nk head", n=cfg.vocab_size, k=cfg.n_embd, rows=1, ms=ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
-                         rel_err=rel))
+    cell, launches = greedy_cell("llama3 tied", eng, eng.tokenizer.encode(text),
+                                 {"qmm_gemv": TIED_GEMV})
     log(f"[llama3 tied] Llama-3.2-3B-shape tied Q6_K head ({out['file_bytes'] / 1e9:.3f} GB, "
-        f"minted {out['mint_s']:.1f} s, Engine load {out['load_s']:.1f} s): greedy graphed == "
-        f"eager bit for bit ({LLAMA3_NEW} tokens), {TIED_GEMV} qmm_gemv per token; TTFT "
-        f"{ttft * 1e3:.1f} ms, {out['tokens_per_s']:.1f} t/s, device {step_ms:.3f} ms per token")
-    log(f"[llama3 tied] the 'nk' head, 1 row, [{cfg.vocab_size} x {cfg.n_embd}] Q6_K: dequant + "
-        f"product {ms:.4f} ms per token, bound {b_ms * 1e3:.2f} us ({b_by}), library (F.linear "
-        f"on the dequantized bf16 table) {lib:.4f} ms, rel err {rel:.2e}")
-    del gen, eng, params, head
+        f"minted {out['mint_s']:.1f} s, Engine load {out['load_s']:.1f} s)")
+    out.update(cell, head=nk_head_check("llama3 tied", head, cfg))
+    del eng, params, head
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
@@ -5462,7 +5508,7 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(73)
     out["qmm"] = llama3_qmm_checks(params, draft, gen)
     out["ffn"] = llama3_ffn_checks(draft, gen)
-    out["attention"] = llama3_attention_checks(gen)
+    out["attention"] = gqa_flash_checks(gen, "llama3 kernel", c["n_heads"], c["n_kv_heads"])
 
     prompt = np.asarray(ids)
     want_tok = {"qmm_gemv": LLAMA3_GEMV, "ffn_out_norm": 0, "gate_up_act": 0, "qmm": 0}
@@ -5484,6 +5530,345 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
         launches[k] = launches.get(k, 0) + v
     out["launches"] = launches
     report["llama3_path"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase families: the Qwen2, Qwen3 and Gemma-2 families at their published shapes
+
+
+#: the published configs (each model's config.json): Qwen2.5-7B-Instruct,
+#: Qwen3-8B and Gemma-2-9B
+QWEN25_7B = dict(d=3584, f=18944, v=152064, n_layers=28, n_heads=28, n_kv_heads=4,
+                 head_dim=128, ctx=32768, rope_base=1000000.0)
+QWEN3_8B = dict(d=4096, f=12288, v=151936, n_layers=36, n_heads=32, n_kv_heads=8,
+                head_dim=128, ctx=40960, rope_base=1000000.0)
+GEMMA2_9B = dict(d=3584, f=14336, v=256000, n_layers=42, n_heads=16, n_kv_heads=8,
+                 head_dim=256, ctx=8192, rope_base=10000.0)
+GEMMA2_MD = {"gemma2.attn_logit_softcapping": 50.0, "gemma2.final_logit_softcapping": 30.0,
+             "gemma2.attention.sliding_window": 4096,
+             "gemma2.attention.query_pre_attn_scalar": 256}
+#: Qwen2.5's named specials, from 151,643 (the rest of the table is [PAD] pieces)
+QWEN_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>",
+                 "<|object_ref_end|>", "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+                 "<|quad_end|>", "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>",
+                 "<|image_pad|>", "<|video_pad|>", "<tool_call>", "</tool_call>",
+                 "<|fim_prefix|>", "<|fim_middle|>", "<|fim_suffix|>", "<|fim_pad|>",
+                 "<|repo_name|>", "<|file_sep|>")
+QWEN_PIECES = 151643
+CHATML_TEMPLATE = ("{% for message in messages %}{{'<|im_start|>' + message['role'] + '\\n' + "
+                   "message['content'] + '<|im_end|>' + '\\n'}}{% endfor %}{% if "
+                   "add_generation_prompt %}{{ '<|im_start|>assistant\\n' }}{% endif %}")
+GEMMA_TEMPLATE = ("{{ bos_token }}{% for message in messages %}{{ '<start_of_turn>' + "
+                  "message['role'] + '\\n' + message['content'] | trim + '<end_of_turn>\\n' }}"
+                  "{% endfor %}{% if add_generation_prompt %}{{'<start_of_turn>model\\n'}}"
+                  "{% endif %}")
+FAMILY_NEW = 64  # new tokens of a `greedy_cell` and of the `families` serve cell
+FAMILY_PROMPT_TOKENS = 300
+#: launches per decoded token: 4 stacked products a layer + lm_head; a
+#: flash_decode a layer; Gemma-2's tied head and softcapped attention take none
+QWEN25_GEMV, QWEN25_FLASH = 28 * 4 + 1, 28
+QWEN3_GEMV, QWEN3_FLASH = 36 * 4 + 1, 36
+GEMMA2_GEMV = 42 * 4
+
+
+def qwen_vocab(seed: int, v: int) -> tuple[dict, list]:
+    """A Qwen2-layout byte-level BPE vocabulary of `v` entries as GGUF
+    metadata, and its words: `bpe_pieces` up to 151,643 pieces, Qwen2.5's 22
+    named specials, then [PAD] pieces (control); pre "qwen2", no BOS added,
+    EOS <|im_end|> (the Instruct files'), a chatml template."""
+    import numpy as np
+
+    pieces, merges, words = bpe_pieces(seed, QWEN_PIECES)
+    specials = list(QWEN_SPECIALS) + [f"[PAD{i}]" for i in range(v - QWEN_PIECES
+                                                                  - len(QWEN_SPECIALS))]
+    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "qwen2",
+          "tokenizer.ggml.tokens": pieces + specials, "tokenizer.ggml.merges": merges,
+          "tokenizer.ggml.token_type": np.asarray([1] * QWEN_PIECES + [3] * len(specials),
+                                                  np.int32),
+          "tokenizer.ggml.bos_token_id": QWEN_PIECES, "tokenizer.ggml.eos_token_id":
+              QWEN_PIECES + 2, "tokenizer.ggml.padding_token_id": QWEN_PIECES,
+          "tokenizer.ggml.add_bos_token": False, "tokenizer.chat_template": CHATML_TEMPLATE}
+    return md, words
+
+
+def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, arch: str,
+                with_draft: bool, metadata: dict | None = None, tied: bool = False):
+    """Mint a `c`-shape `arch` target (Q4_K layers, a Q6_K head or tied
+    table) and, `with_draft`, an EAGLE Q8_0 draft of its widths; load them
+    through `Engine` (greedy, max_seq 2,048) and delete the files. Returns
+    (Engine, the record: mint and load seconds, file bytes)."""
+    import torch
+
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.utils.args import build_parser, sampler_from_args
+
+    t0 = time.time()
+    target, draft = mint_gguf_pair(
+        tmp, seed=seed, d=c["d"], f=c["f"], v=c["v"], n_layers=c["n_layers"],
+        n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"], head_dim=c["head_dim"], tag=tag,
+        ctx=c["ctx"], rope_base=c["rope_base"], vocab=vocab, metadata=metadata,
+        with_draft=with_draft, layer_type="Q4_K", arch=arch, tied=tied)
+    rec = {"mint_s": time.time() - t0, "target_bytes": target.stat().st_size,
+           "draft_bytes": draft.stat().st_size if draft else 0}
+    greedy = sampler_from_args(build_parser("cli").parse_args(["-m", "-", "--temp", "0"]))
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, draft_path=draft, max_seq=2048, sampler=greedy))
+    torch.cuda.synchronize()
+    rec["load_s"] = time.time() - t0
+    rec["device_gib"] = torch.cuda.memory_allocated() / 2**30
+    target.unlink()
+    if draft:
+        draft.unlink()
+    cfg = eng.model_cfg
+    if (cfg.arch, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) != (
+            arch, c["n_layers"], c["n_heads"], c["n_kv_heads"], c["head_dim"]):
+        raise AssertionError(f"{tag}: the file loaded as {cfg}")
+    log(f"[families] {tag}: minted {rec['target_bytes'] / 1e9:.3f} GB"
+        + (f" + a {rec['draft_bytes'] / 1e9:.3f} GB EAGLE draft" if draft else "")
+        + f" in {rec['mint_s']:.1f} s; Engine load {rec['load_s']:.2f} s "
+        f"({rec['device_gib']:.2f} GiB on the card)")
+    return eng, rec
+
+
+def family_kernels(tag: str, params, gen, rows_list, draft=None) -> dict:
+    """qmm at the target's shapes (and the draft's fc) on each route of
+    `rows_list` ((rows, route, what)), against the plain version, timed."""
+    rows_out, totals = [], {}
+    specs = [(f"{tag} {name}", w, n) for name, w, n in target_qmm_specs(params)]
+    for rows, route, what in rows_list:
+        totals[what] = qmm_sum("families kernel", f"{tag} {what}", rows, specs, route, gen,
+                               rows_out)
+        if draft is not None:
+            qmm_sum("families kernel", f"{tag} draft fc at {rows} rows", rows,
+                    [(f"{tag} draft fc", draft["fc_w"], 1)], route, gen, rows_out)
+    return dict(rows=rows_out, totals=totals)
+
+
+def greedy_cell(tag: str, eng, ids: list, want_tok: dict) -> tuple[dict, dict]:
+    """Greedy `Generator` (max_seq 1,024, FAMILY_NEW new tokens) on the
+    prompt's ids: eager once,
+    graphed once to capture, then REPS timed graphed runs, every run's
+    tokens bit for bit the eager run's, no eager body after the capture, no
+    plain version; launches per decoded token == `want_tok` (keys absent
+    from it: any). TTFT, t/s, device ms per token (CUDA events over 16
+    replays) and the idle share. Returns (the cell, the first timed run's
+    launches)."""
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    gen = Generator(eng.params, eng.model_cfg, max_seq=1024, eos_id=-1)
+
+    def run(on_token):
+        return gen.generate(ids, max_new_tokens=FAMILY_NEW, stop_at_eos=False,
+                            on_token=on_token)
+
+    want = eager_tokens(gen, lambda: run(None))
+    if run(None) != want:  # the captures
+        raise AssertionError(f"{tag}: graphed tokens differ from eager")
+    eager = gen.graphs.eager
+    res: dict = {"ttft_ms": [], "tokens_per_s": [], "wall_ms_per_token": []}
+    launches: dict = {}
+    for rep in range(REPS):
+        _build.reset_counts()
+        toks, ttft, after, at_first, _ = timed_run(run)
+        per_tok = {k: (_build.launches[k] - at_first[k]) / (FAMILY_NEW - 1)
+                   for k in _build.launches}
+        if toks != want or gen.graphs.eager != eager:
+            raise AssertionError(f"{tag} run {rep}: tokens differ from eager, or a step ran "
+                                 "eagerly")
+        if any(per_tok[k] != v for k, v in want_tok.items()) or any(_build.plain_calls.values()):
+            raise AssertionError(f"{tag}: launches per decoded token {per_tok} (expected "
+                                 f"{want_tok}), plain {_build.plain_calls}")
+        if rep == 0:
+            launches = {k: v for k, v in _build.launches.items() if v}
+            res.update(launches_per_decoded_token=per_tok, launches_at_first_token=at_first)
+        res["ttft_ms"].append(ttft * 1e3)
+        res["tokens_per_s"].append((FAMILY_NEW - 1) / after)
+        res["wall_ms_per_token"].append(after / (FAMILY_NEW - 1) * 1e3)
+    for key in ("ttft_ms", "tokens_per_s", "wall_ms_per_token"):
+        res[key] = spread(res[key])
+    res["device_ms_per_token"] = decode_device_ms(gen, ids)
+    res["idle_share"] = 1 - res["device_ms_per_token"] / res["wall_ms_per_token"]["median"]
+    res["tokens"] = want
+    log(f"[{tag}] greedy, {len(ids)}-token prompt, {FAMILY_NEW} new: graphed == eager bit for "
+        f"bit ({REPS} runs), launches per decoded token "
+        + ", ".join(f"{k} {res['launches_per_decoded_token'][k]:.0f}" for k in want_tok)
+        + f"; tokens/s min / median / max {fmt(res['tokens_per_s'])}, TTFT ms "
+        f"{fmt(res['ttft_ms'], 1)}, device {res['device_ms_per_token']:.3f} ms per token, idle "
+        f"{100 * res['idle_share']:.1f}%")
+    return res, launches
+
+
+def qwen25_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
+    """Qwen2.5-7B-Instruct's shape (q/k/v biases, 28 query heads over 4 KV
+    heads: g = 7) with a 152,064-entry BPE vocabulary ("qwen2"
+    pre-tokenizer, chatml) and an EAGLE-Qwen2-7B-Instruct-shape Q8_0 draft;
+    qmm at the path's shapes at 1, 6 and 300 rows and both flash kernels at
+    g = 7; `serve_cell` (greedy and the chain at C = 1 and 4, eager and
+    graphed, 3 runs each): 113 qmm_gemv and 28 flash_decode per decoded
+    token, 113 qmm_mma per verify. Returns (the cell, the default path's
+    launches)."""
+    import numpy as np
+
+    from eagle_tpu_torch.server.chat_templates import detect_template
+    from eagle_tpu_torch.tokenizer import BPETokenizer
+
+    c = QWEN25_7B
+    t0 = time.time()
+    vocab, words = qwen_vocab(seed=89, v=c["v"])
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("qwen2.5-7b-instruct", c, tmp, 97, vocab, "qwen2",
+                                    with_draft=True)
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    tok = eng.tokenizer
+    if (not isinstance(tok, BPETokenizer) or "bqkv" not in params["layers"]
+            or not cfg.attn_bias or detect_template(eng.metadata["tokenizer.chat_template"])
+            != "chatml" or (dcfg.arch, dcfg.n_kv_heads) != ("eagle", 4)):
+        raise AssertionError(f"qwen2.5: the files did not load as Qwen2.5 + EAGLE: {cfg}")
+    text = llama3_text(tok, words, FAMILY_PROMPT_TOKENS, seed=101)
+    ids = tok.encode(text)
+    if tok.decode(ids) != text:
+        raise AssertionError("qwen2.5: the prompt does not round-trip through the tokenizer")
+    out["prompt_tokens"] = len(ids)
+    out["qmm"] = family_kernels("qwen2.5", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma", "verify cycle"),
+        (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft)
+    out["attention"] = gqa_flash_checks(gen, "families kernel", c["n_heads"], c["n_kv_heads"])
+    want_tok = {"qmm_gemv": QWEN25_GEMV, "flash_decode": QWEN25_FLASH, "ffn_out_norm": 0,
+                "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("qwen2.5", params, draft, cfg, dcfg, np.asarray(ids), FAMILY_NEW,
+                      want_tok, QWEN25_GEMV, fused=False)
+    cell.pop("gen")
+    out["cell"] = cell
+    return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
+
+
+def qwen3_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
+    """Qwen3-8B's shape (per-head q/k norms; 32 over 8 KV heads of 128: the
+    flash kernels' shapes of phase llama3) with a 151,936-entry vocabulary:
+    qmm at 1 and 300 rows, then `greedy_cell` (145 qmm_gemv, 36
+    flash_decode per decoded token)."""
+    c = QWEN3_8B
+    vocab, words = qwen_vocab(seed=103, v=c["v"])
+    eng, files = family_load("qwen3-8b", c, tmp, 107, vocab, "qwen3", with_draft=False)
+    if "attn_q_norm" not in eng.params["layers"]:
+        raise AssertionError("qwen3: no q/k norms loaded")
+    ids = eng.tokenizer.encode(llama3_text(eng.tokenizer, words, FAMILY_PROMPT_TOKENS, seed=109))
+    out = {"files": files, "prompt_tokens": len(ids)}
+    out["qmm"] = family_kernels("qwen3", eng.params, gen, (
+        (1, "qmm_gemv", "decoded token"), (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")))
+    out["cell"], launches = greedy_cell("qwen3", eng, ids, {
+        "qmm_gemv": QWEN3_GEMV, "flash_decode": QWEN3_FLASH, "qmm": 0})
+    return out, launches
+
+
+def gemma_attention_checks(gen, cfg) -> list:
+    """Gemma-2's attention, the plain `gqa_attention` (no kernel in either
+    package: the softcap), at 16 query over 8 KV heads of 256, bf16 cache,
+    softcap 50: one decoded row over 512 and 1,024 slots (364 visible) and a
+    512-row prompt (300 real rows); its own ms per call against the bound
+    (K and V of the visible slots once; the score and value products at the
+    bf16 rate). No library call computes the softcapped function."""
+    import torch
+
+    from eagle_tpu_torch.ops.attention import gqa_attention
+    from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+
+    h, h_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = []
+    for t, s, n in ((1, 512, 364), (1, 1024, 364), (512, 512, 300)):
+        kc = torch.randn((1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        vc = torch.randn((1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        tags = torch.full((1, s), -1, dtype=torch.int32, device="cuda")
+        tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+        pos = (torch.arange(t, dtype=torch.int32, device="cuda") + (n - 1 if t == 1 else 0))[None]
+        mask = causal_mask_from_tags(tags, pos)
+        q = torch.randn((1, t, h, d), generator=gen, device="cuda")
+        run = lambda i: gqa_attention(q, kc, vc, mask, scale=cfg.attn_scale,  # noqa: E731
+                                      softcap=cfg.attn_softcap)
+        got = run(0)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"gemma2 attention T={t}: non-finite output")
+        ms = device_ms(run, 20)
+        pairs = int(mask.sum())
+        b_ms, b_by = bound_ms(2 * n * h_kv * d * 2 + nbytes(q, mask) + q.numel() * 4,
+                              4.0 * pairs * h * d)
+        out.append(dict(name="gqa_attention (plain)", t=t, s=s, visible=n, ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        per_token_ms=ms * cfg.n_layers if t == 1 else None))
+        log(f"[families kernel] gemma2 plain attention T={t} S={s} ({n} visible) H={h}/{h_kv} D={d} "
+            f"softcap {cfg.attn_softcap:g}: {ms:.4f} ms per call"
+            + (f" ({ms * cfg.n_layers:.3f} ms per token over {cfg.n_layers} layers)"
+               if t == 1 else "")
+            + f", bound {b_ms * 1e3:.2f} us ({b_by}), library none (no call takes the softcap)")
+        del kc, vc
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
+    """Gemma-2-9B's shape (42 layers, 16 over 8 KV heads of 256, sandwich
+    norms, GELU, softcaps 50 / 30, a 4,096-slot window on even layers,
+    query_pre_attn_scalar 256, a tied Q6_K table of 256,000 SPM pieces, a
+    gemma template): qmm at 1 and 300 rows, the plain attention and the
+    tied head timed, then `greedy_cell` (168 qmm_gemv per decoded token, no
+    flash kernel at all)."""
+    from eagle_tpu_torch.server.chat_templates import detect_template
+
+    c = GEMMA2_9B
+    vocab = {**spm_vocab(c["v"], seed=113), "tokenizer.chat_template": GEMMA_TEMPLATE}
+    eng, files = family_load("gemma-2-9b", c, tmp, 127, vocab, "gemma2", with_draft=False,
+                             metadata=GEMMA2_MD, tied=True)
+    cfg, params = eng.model_cfg, eng.params
+    if ((cfg.attn_softcap, cfg.final_softcap, cfg.swa_window, cfg.swa_every, cfg.act)
+            != (50.0, 30.0, 4096, 2, "gelu") or params["output"] is not params["tok_embd"]
+            or "post_ffn_norm" not in params["layers"]
+            or detect_template(eng.metadata["tokenizer.chat_template"]) != "gemma"):
+        raise AssertionError(f"gemma2: the file did not load as Gemma-2: {cfg}")
+    ids = eng.tokenizer.encode(cli_prompt(vocab["tokenizer.ggml.tokens"], FAMILY_PROMPT_TOKENS,
+                                          seed=131))
+    out = {"files": files, "prompt_tokens": len(ids)}
+    out["qmm"] = family_kernels("gemma2", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")))
+    out["attention"] = gemma_attention_checks(gen, cfg)
+    out["head"] = nk_head_check("families kernel", params["output"], cfg)
+    out["cell"], launches = greedy_cell("gemma2", eng, ids, {
+        "qmm_gemv": GEMMA2_GEMV, "flash_decode": 0, "flash_prefill": 0, "qmm": 0})
+    if launches.get("flash_prefill") or launches.get("flash_decode"):
+        raise AssertionError(f"gemma2: a flash kernel ran: {launches}")
+    return out, launches
+
+
+def families_path(report: dict, tmp: pathlib.Path) -> dict:
+    """Phase families: the Qwen2.5-7B-Instruct (+ EAGLE), Qwen3-8B and
+    Gemma-2-9B cells, each minted into `tmp`, loaded through `Engine`, its
+    kernels checked at its shapes, run, and freed before the next. Returns
+    the launches of the Qwen2.5 default path (greedy + EAGLE graphed at C =
+    1) and of the first timed graphed run of the other two, added."""
+    import gc
+    import shutil
+
+    import torch
+
+    if shutil.disk_usage(tmp).free < 7 * 2**30:
+        raise RuntimeError("phase families needs 7 GiB of disk")
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    out: dict = {}
+    launches: dict = {}
+    for name, cell in (("qwen2.5", qwen25_cell), ("qwen3", qwen3_cell),
+                       ("gemma2", gemma2_cell)):
+        t0 = time.time()
+        out[name], part = cell(tmp, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name]["seconds"] = time.time() - t0
+        log(f"[time] families {name}: {out[name]['seconds']:.1f} s")
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    report["families_path"] = out
     return launches
 
 
@@ -5789,6 +6174,8 @@ def main() -> int:
         runtime_launches = phase("runtime", runtime_path, report, target, pathlib.Path(tmp))
     with tempfile.TemporaryDirectory(prefix="eagle_llama3_") as tmp:  # phase 6's files are gone
         llama3_launches = phase("llama3", llama3_path, report, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="eagle_families_") as tmp:
+        families_launches = phase("families", families_path, report, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -5820,6 +6207,7 @@ def main() -> int:
                 "constrained_path_launches": constrained_launches.get(name, 0),
                 "runtime_path_launches": runtime_launches.get(name, 0),
                 "llama3_path_launches": llama3_launches.get(name, 0),
+                "families_path_launches": families_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     kernels = [

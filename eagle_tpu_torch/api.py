@@ -40,6 +40,7 @@ import torch
 
 from ._device import resolve_device
 from .gguf import GGUFReader, Keys
+from .models.config import TARGET_ARCHS
 from .models.loader import load_eagle_params, load_llama_params
 from .quant.serving import prepare_params_for_serving
 from .models.llama import llama_forward
@@ -100,9 +101,9 @@ class Engine:
         self.device = resolve_device(cfg.device)
         with GGUFReader(cfg.model_path) as reader:
             arch = reader.metadata.get(Keys.General.ARCHITECTURE)
-        if arch != "llama":  # recurrent and every other architecture
-            raise NotImplementedError(f"architecture {arch!r} is not ported yet (ROADMAP queue "
-                                      "1, item 8); the port loads llama targets")
+        if arch not in TARGET_ARCHS:  # recurrent and every other architecture
+            raise NotImplementedError(f"architecture {arch!r} is not ported yet ({_ITEM8}); "
+                                      f"the port loads {', '.join(TARGET_ARCHS)} targets")
         self.params, self.model_cfg, self.metadata = load_llama_params(
             cfg.model_path, device=self.device)
         self.params = prepare_params_for_serving(self.params, scale_mode=cfg.scale_mode)

@@ -1,10 +1,15 @@
 """Model hyperparameters (the fields of eagle_tpu's `ModelConfig` that the
-plain pre-norm llama path reads, with the same names and defaults), and
-`ModelConfig.from_gguf_metadata` for the llama and EAGLE architectures.
+ported block reads, with the same names and defaults), and
+`ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3 and
+Gemma-2 architectures.
 
-Fields for other architectures are kept at their defaults so that a config
-carried across from the reference can be checked: `check_plain_llama`
-raises on any setting this slice does not implement."""
+The ported block is the pre-norm llama block and its config-driven
+branches: qkv biases (qwen2), per-head q/k RMSNorm (qwen3), sandwich norms,
+GELU, the embedding scale, `query_pre_attn_scalar`, the attention and final
+softcaps and the alternating sliding window (gemma2). Fields of other
+architectures are kept at their defaults so that a config carried across
+from the reference can be checked: `check_ported` raises on any setting the
+port does not implement."""
 
 from __future__ import annotations
 
@@ -12,10 +17,23 @@ import dataclasses
 from typing import Any
 
 from ..gguf.constants import Keys
+from ..ops.flash_attention import HEAD_DIMS
 
-#: GGUF architectures this slice reads; both store llama's adjacent-pair
-#: rope rows, which the loader un-permutes
-GGUF_ARCHS = ("llama", "eagle")
+#: GGUF architectures the port reads: the targets, and EAGLE drafts
+TARGET_ARCHS = ("llama", "qwen2", "qwen3", "gemma2")
+GGUF_ARCHS = TARGET_ARCHS + ("eagle",)
+
+#: archs whose GGUF q/k rows carry convert_hf_to_gguf's adjacent-pair rope
+#: permutation, which the loader inverts (a copy of eagle_tpu/models/config.py:
+#: PERMUTED_ROPE_ARCHS). NEOX-rope archs (qwen*, gemma*, ...) store the rows
+#: half-split already, as the runtime's rope takes them.
+PERMUTED_ROPE_ARCHS = frozenset(
+    {"llama", "mixtral", "eagle", "vicuna", "command-r", "granite", "olmo", "minicpm",
+     "xverse", "baichuan", "orion", "internlm2", "plamo", "cohere2", "chatglm", "arctic",
+     "deepseek", "deepseek2", "granitemoe", "chameleon", "deci"}
+)
+
+_ITEM8 = "ROADMAP queue 1, item 8"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +62,13 @@ class ModelConfig:
     # EAGLE draft head: one decoder layer fed by ReLU(FC([embed; hidden])),
     # no attn_norm / output_norm weight, lm_head borrowed from the target
     is_eagle: bool = False
-    swa_window: int = 0
+    attn_bias: bool = False  # qwen2: q/k/v biases (the weights say whether they exist)
+    swa_window: int = 0  # sliding-window attention; 0 = off
+    #: layers the window applies to: every n-th from layer 0 (gemma2: 2)
+    swa_every: int = 0
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
+    post_norms: bool = False  # gemma2: post-attention / post-FFN (sandwich) norms
     embd_scale: float = 1.0
     # attention score scale override; None = 1/sqrt(head_dim)
     attn_scale: float | None = None
@@ -79,12 +101,12 @@ class ModelConfig:
 
     @staticmethod
     def from_gguf_metadata(md: dict[str, Any]) -> "ModelConfig":
-        """The config of a llama or EAGLE GGUF, read as the reference reads
-        it (eagle_tpu/models/config.py:173); any other architecture raises
-        NotImplementedError."""
+        """The config of a llama, Qwen2, Qwen3, Gemma-2 or EAGLE GGUF, read
+        as the reference reads it (eagle_tpu/models/config.py:173); any
+        other architecture raises NotImplementedError."""
         arch = md[Keys.General.ARCHITECTURE]
         if arch not in GGUF_ARCHS:
-            raise NotImplementedError(f"GGUF architecture {arch!r} is not ported yet")
+            raise NotImplementedError(f"GGUF architecture {arch!r} is not ported yet ({_ITEM8})")
 
         def k(pattern: str, default=None):
             v = md.get(pattern.format(arch=arch), default)
@@ -100,16 +122,17 @@ class ModelConfig:
             vocab_size = len(md[Keys.Tokenizer.LIST])
         if md.get(f"{arch}.rope.scaling.yarn_log_multiplier"):  # deepseek2's MLA only
             raise NotImplementedError("YaRN's attention-scale multiplier (deepseek2's MLA) is "
-                                      "not ported yet (ROADMAP queue 1, item 8)")
+                                      f"not ported yet ({_ITEM8})")
         if f"{arch}.attention.scale" in md:
             attn_scale = float(md[f"{arch}.attention.scale"])
         elif f"{arch}.attention.query_pre_attn_scalar" in md:
             attn_scale = float(md[f"{arch}.attention.query_pre_attn_scalar"]) ** -0.5
         else:
             attn_scale = None
-        # keys the plain block does not implement are read all the same, so
-        # that check_plain_llama refuses such a file instead of ignoring them
+        # keys the ported block does not implement are read all the same, so
+        # that check_ported refuses such a file instead of ignoring them
         opt = lambda key, default: md.get(f"{arch}.{key}", default) or default
+        gemma = arch.startswith("gemma")
         return ModelConfig(
             arch=arch,
             vocab_size=int(vocab_size),
@@ -129,12 +152,16 @@ class ModelConfig:
             rope_attn_factor=float(
                 md.get(Keys.Rope.SCALING_ATTN_FACTOR.format(arch=arch), 1.0) or 1.0),
             is_eagle=(arch == "eagle"),
+            attn_bias=(arch == "qwen2"),
             swa_window=int(opt("attention.sliding_window", 0)),
+            swa_every=2 if arch == "gemma2" else 0,
             clamp_kqv=float(opt("attention.clamp_kqv", 0.0)),
             attn_softcap=float(opt("attn_logit_softcapping", 0.0)),
             final_softcap=float(opt("final_logit_softcapping", 0.0)),
-            embd_scale=float(opt("embedding_scale", 1.0)),
+            post_norms=(arch == "gemma2"),
+            embd_scale=float(opt("embedding_scale", 0.0) or (n_embd ** 0.5 if gemma else 1.0)),
             attn_scale=attn_scale,
+            act="gelu" if gemma else "silu",
             parallel_blocks=bool(opt("use_parallel_residual", False)),
             logit_scale=float(opt("logit_scale", 1.0)),
             resid_scale=float(opt("residual_scale", 1.0)),
@@ -142,24 +169,35 @@ class ModelConfig:
         )
 
 
-#: (field, value the plain llama block needs)
+#: (field, value the ported block needs): the other architectures' branches
 _PLAIN = (
-    ("swa_window", 0), ("attn_softcap", 0.0), ("final_softcap", 0.0),
-    ("embd_scale", 1.0), ("act", "silu"), ("norm_type", "rms"),
-    ("parallel_blocks", False), ("logit_scale", 1.0), ("has_pos_embd", False),
-    ("use_alibi", False), ("mrope_sections", ()), ("head_counts", ()),
-    ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
+    ("norm_type", "rms"), ("parallel_blocks", False), ("logit_scale", 1.0),
+    ("has_pos_embd", False), ("use_alibi", False), ("mrope_sections", ()),
+    ("head_counts", ()), ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
     ("clamp_kqv", 0.0), ("nonparam_norms", False), ("rope_yarn_log_mul", 0.0),
 )
 
 
-def check_plain_llama(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless `cfg` is the plain pre-norm llama
-    block (RMSNorm, rotary GQA, SiLU-gated FFN) this slice ports."""
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError, naming ROADMAP queue 1, item 8, unless
+    `cfg` is the pre-norm block with the branches the port implements:
+    RMSNorm, rotary GQA over the whole head, SiLU or GELU, the softcaps, the
+    embedding scale, the attention scale, sandwich norms and a sliding
+    window on every `swa_every`-th layer."""
     bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PLAIN if getattr(cfg, k) != v]
+    if cfg.act not in ("silu", "gelu"):
+        bad.append(f"act={cfg.act!r}")
     if cfg.rope_dim != cfg.head_dim:
         bad.append(f"rope_dim={cfg.rope_dim} (partial rotary)")
     if cfg.v_dim != cfg.head_dim:
         bad.append(f"v_head_dim={cfg.v_head_dim}")
+    if cfg.swa_window > 0 and cfg.swa_every <= 0:
+        # the reference turns flash prefill off there but windows no mask
+        # (eagle_tpu/models/llama.py:712-721): the window would be ignored
+        bad.append(f"swa_window={cfg.swa_window} on every layer (swa_every=0)")
+    if cfg.arch == "gemma2" and cfg.attn_softcap == 0 and cfg.head_dim not in HEAD_DIMS:
+        # without the softcap the attention would take a flash kernel
+        bad.append(f"gemma2 without attn_logit_softcapping at head_dim {cfg.head_dim} (flash "
+                   f"attention takes {HEAD_DIMS})")
     if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        raise NotImplementedError(f"not ported yet ({_ITEM8}): {', '.join(bad)}")

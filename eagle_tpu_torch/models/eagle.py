@@ -16,7 +16,7 @@ from ..ops.matmul import qmatmul
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_freqs_cfg
 from ..runtime.kvcache import KVCache
-from .config import ModelConfig, check_plain_llama
+from .config import ModelConfig, check_ported
 from .llama import _layer_step, cache_kw, check_layer_keys, embed_lookup, fused_ffn_mode, read_bound
 
 _DRAFT_KEYS = {"tok_embd", "fc_w", "fc_b", "layers"}
@@ -46,7 +46,7 @@ def eagle_forward(
     slots_contiguous: bool = False,
 ) -> EagleOutput:
     """Draft forward; `slots_contiguous` as in `llama_forward`."""
-    check_plain_llama(cfg)
+    check_ported(cfg)
     extra = set(draft_params) - _DRAFT_KEYS
     if extra:
         raise NotImplementedError(f"draft weights not ported yet: {sorted(extra)}")

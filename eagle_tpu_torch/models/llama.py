@@ -1,22 +1,36 @@
-"""Llama forward pass, plain pre-norm block (port of
-eagle_tpu/models/llama.py: `ForwardOutput`, `embed_lookup`, `_layer_step`,
-`llama_forward`, with the int8 and paged cache branches, Llama-3.1's rope
-factors and a tied ("nk") head).
+"""Llama-family forward pass (port of eagle_tpu/models/llama.py:
+`ForwardOutput`, `embed_lookup`, `_layer_step`, `llama_forward`, with the
+int8 and paged cache branches, Llama-3.1's rope factors, a tied ("nk") head,
+and the config-driven branches of the Qwen2, Qwen3 and Gemma-2 families).
 
-RMSNorm, rotary GQA attention over the position-tagged cache, SiLU-gated FFN,
-with fused `wqkv` and `w_gate_up` weights kept layer-stacked and read in
-place by the qmm kernel. One function serves prefill, decode and speculative
-verify. Any other architecture's weights or config raise
-NotImplementedError.
+RMSNorm, rotary GQA attention over the position-tagged cache, a gated FFN
+(SiLU, or GELU for gemma), with fused `wqkv` and `w_gate_up` weights kept
+layer-stacked and read in place by the qmm kernel. One function serves
+prefill, decode and speculative verify. The branches, each read from the
+config or from the weights present, as the reference reads them:
+- `bqkv`: q/k/v biases added after the `wqkv` product (qwen2);
+- `attn_q_norm` / `attn_k_norm` [Dh]: per-head RMSNorm of q and k before
+  rope (qwen3);
+- `post_attn_norm` / `post_ffn_norm`: sandwich norms on the attention and
+  FFN outputs before each residual add (gemma2);
+- `cfg.embd_scale` on the embeddings, `cfg.attn_scale` on the scores,
+  `cfg.attn_softcap` and `cfg.final_softcap` (gemma2);
+- `cfg.swa_window` on every `cfg.swa_every`-th layer from layer 0: the mask
+  there also hides slots `swa_window` or more behind the query (gemma2). The
+  layer index is a Python int, so the choice is made on the host.
+Any other architecture's weights or config raise NotImplementedError.
 
 The cache is updated in place: each layer writes its K/V rows into `kv.k` /
 `kv.v`, and the returned ForwardOutput carries the same cache object.
 
-Attention reads a bf16 or f32 dense cache through the flash kernels. An
-int8 cache (its rows quantized as they are written) and a paged pool
+Attention reads a bf16 or f32 dense cache through the flash kernels, as the
+reference's dispatch (llama.py:516-543) takes its Pallas kernels:
+`flash_prefill` for a prompt whose mask is the tags' (not with a window),
+`flash_decode` otherwise. A softcapped model (gemma2) reads through the
+plain `ops/attention.py:gqa_attention`, as the reference's einsums. So do
+an int8 cache (its rows quantized as they are written) and a paged pool
 (`runtime/paged_kv.py`: written through the row's page table, read as the
-mapped pages gathered per row) are read through the plain
-`ops/attention.py:gqa_attention`, as the reference reads both with XLA's
+mapped pages gathered per row), which the reference reads with XLA's
 einsums, outside any Pallas kernel: an int8 dense read dequantizes to bf16,
 an int8 paged read to the compute dtype, as the reference's."""
 
@@ -38,10 +52,11 @@ from ..ops.rope import apply_rope, rope_inv_freq, rope_mscale_cfg
 from ..quant.qtensor import QTensor
 from ..runtime.kvcache import KVCache, dequantize_kv, quantize_kv_vec
 from ..runtime.paged_kv import PagedKVCache, gather_pages
-from .config import ModelConfig, check_plain_llama
+from .config import ModelConfig, check_ported
 
 _TOP_KEYS = {"tok_embd", "layers", "output_norm", "output", "rope_factors"}
-_LAYER_KEYS = {"attn_norm", "wqkv", "wo", "ffn_norm", "w_gate_up", "w_down"}
+_LAYER_KEYS = {"attn_norm", "wqkv", "wo", "ffn_norm", "w_gate_up", "w_down", "bqkv",
+               "attn_q_norm", "attn_k_norm", "post_attn_norm", "post_ffn_norm"}
 
 
 class ForwardOutput(NamedTuple):
@@ -51,13 +66,21 @@ class ForwardOutput(NamedTuple):
     kv: KVCache
 
 
-def check_layer_keys(layers: dict[str, Any]) -> None:
+def check_layer_keys(layers: dict[str, Any], cfg: ModelConfig | None = None) -> None:
     extra = set(layers) - _LAYER_KEYS
     if extra:
         raise NotImplementedError(f"layer weights not ported yet: {sorted(extra)}")
     missing = {"wqkv", "wo", "w_gate_up", "w_down"} - set(layers)
     if missing:
         raise NotImplementedError(f"only fused wqkv / w_gate_up layers are ported; missing {sorted(missing)}")
+    if ("attn_q_norm" in layers) != ("attn_k_norm" in layers):
+        raise NotImplementedError("a q norm without a k norm (or the reverse) is not ported")
+    if cfg is not None and "attn_q_norm" in layers:
+        widths = (layers["attn_q_norm"].shape[-1], layers["attn_k_norm"].shape[-1])
+        if widths != (cfg.head_dim, cfg.head_dim):
+            # olmo2's one norm over the flat [H * Dh] projection
+            raise NotImplementedError(f"q/k norms of widths {widths}: only per-head norms "
+                                      f"[{cfg.head_dim}] are ported (ROADMAP queue 1, item 8)")
 
 
 def embed_lookup(tok_embd: QTensor | torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -135,21 +158,30 @@ def _layer_step(
     v_scale: torch.Tensor | None = None,
     page_table: torch.Tensor | None = None,  # [B, MP]: the caches are page pools
     page_size: int = 0,
+    mask_swa: torch.Tensor | None = None,  # [B, T, S_read]: `mask` within the window
 ) -> torch.Tensor:
     """One transformer layer; returns the new residual stream. With
     `fused_ffn` "1"/"all"/"wo", at most 64 rows and weights that
     `supports_ffn_block` admits, the attention output, residual add, FFN
     norm and FFN go through the fused block (ops/ffn.py), as the reference's
-    llama.py:549-577 does; otherwise through qmm and plain ops."""
+    llama.py:549-577 does; otherwise through qmm and plain ops. `mask_swa`
+    replaces `mask` on every `cfg.swa_every`-th layer from layer 0."""
     b, t, _ = x.shape
     h, h_kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn_in = rms_norm(x, layers["attn_norm"][li], cfg.rms_eps) if "attn_norm" in layers else x
+    if mask_swa is not None and li % cfg.swa_every == 0:
+        mask = mask_swa
 
     qkv = qmatmul_layer(attn_in, layers["wqkv"], li, compute_dtype)
+    if "bqkv" in layers:  # qwen2's q/k/v biases
+        qkv = qkv + layers["bqkv"][li].to(qkv.dtype)
     q, k, v = torch.split(qkv, [h * dh, h_kv * dh, h_kv * dh], dim=-1)
     q = q.reshape(b, t, h, dh)
     k = k.reshape(b, t, h_kv, dh)
     v = v.reshape(b, t, h_kv, dh)
+    if "attn_q_norm" in layers:  # qwen3: per-head RMSNorm (weight [Dh]) before rope
+        q = rms_norm(q, layers["attn_q_norm"][li], cfg.rms_eps)
+        k = rms_norm(k, layers["attn_k_norm"][li], cfg.rms_eps)
     ms = rope_mscale_cfg(cfg)
     q = apply_rope(q, positions, inv_freq, ms)
     k = apply_rope(k, positions, inv_freq, ms)
@@ -173,19 +205,22 @@ def _layer_step(
             v_read = dequantize_kv(v_read, gather_pages(v_scale, li, page_table, n_read),
                                    compute_dtype)
         attn = gqa_attention(q, k_read, v_read, mask[..., :n_read * page_size],
-                             scale=cfg.attn_scale)
+                             scale=cfg.attn_scale, softcap=cfg.attn_softcap)
     elif k_scale is not None:
         for cache, upd in ((k_cache, k_hm), (v_cache, v_hm), (k_scale, k_s), (v_scale, v_s)):
             _write_rows(cache, li, slots, upd)
         lim = kv_limit if kv_limit is not None else k_cache.shape[3]
         attn = gqa_attention(q, dequantize_kv(k_cache[li, :, :, :lim], k_scale[li, :, :, :lim]),
                              dequantize_kv(v_cache[li, :, :, :lim], v_scale[li, :, :, :lim]),
-                             mask[..., :lim], scale=cfg.attn_scale)
+                             mask[..., :lim], scale=cfg.attn_scale, softcap=cfg.attn_softcap)
     else:
         _write_rows(k_cache, li, slots, k_hm)
         _write_rows(v_cache, li, slots, v_hm)
         lim = kv_limit if kv_limit is not None else k_cache.shape[3]
-        if slot_tags is not None:
+        if cfg.attn_softcap != 0:  # no flash kernel takes the softcap, as in the reference
+            attn = gqa_attention(q, k_cache[li, :, :, :lim], v_cache[li, :, :, :lim], mask,
+                                 scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+        elif slot_tags is not None:
             attn = flash_attention_prefill(q, k_cache, v_cache, positions, slot_tags, li,
                                            scale=cfg.attn_scale, s_limit=lim)
         else:
@@ -203,11 +238,18 @@ def _layer_step(
             stages="wo" if fused_ffn == "wo" else "all",
         )
         return out.reshape(b, t, d)
-    x = x + qmatmul_layer(attn.reshape(b, t, -1), layers["wo"], li, compute_dtype)
+    attn_out = qmatmul_layer(attn.reshape(b, t, -1), layers["wo"], li, compute_dtype)
+    if "post_attn_norm" in layers:  # gemma2's sandwich norm
+        attn_out = rms_norm(attn_out, layers["post_attn_norm"][li], cfg.rms_eps)
+    x = x + attn_out
     ffn_in = rms_norm(x, layers["ffn_norm"][li], cfg.rms_eps) if "ffn_norm" in layers else x
     gate_up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype)
     gate, up = gate_up.chunk(2, dim=-1)
-    return x + qmatmul_layer(F.silu(gate) * up, layers["w_down"], li, compute_dtype)
+    act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
+    ffn_out = qmatmul_layer(act * up, layers["w_down"], li, compute_dtype)
+    if "post_ffn_norm" in layers:
+        ffn_out = rms_norm(ffn_out, layers["post_ffn_norm"][li], cfg.rms_eps)
+    return x + ffn_out
 
 
 def read_bound(kv, kv_limit: int | None, mask: torch.Tensor):
@@ -253,27 +295,43 @@ def llama_forward(
     last-layer output. `kv_limit` bounds attention reads to cache slots
     [0, kv_limit); writes still address the full cache. `slots_contiguous`
     is accepted for parity with the reference, where it picks a
-    dynamic_update_slice over a scatter; here one scatter serves both."""
-    check_plain_llama(cfg)
+    dynamic_update_slice over a scatter; here one scatter serves both.
+    With a sliding window the prefill kernel is not taken (the reference's
+    llama.py:712) and the windowed mask is `mask` less the slots whose index
+    lies `swa_window` or more behind the query's position (slot == position
+    is the engines' cache invariant, as the reference assumes)."""
+    check_ported(cfg)
     extra = set(params) - _TOP_KEYS
     if extra:
         raise NotImplementedError(f"model weights not ported yet: {sorted(extra)}")
     layers = params["layers"]
-    check_layer_keys(layers)
+    check_layer_keys(layers, cfg)
     x = embed_lookup(params["tok_embd"], tokens)
+    if cfg.embd_scale != 1.0:  # gemma: embeddings times sqrt(n_embd)
+        x = x * cfg.embd_scale
     inv_freq = rope_inv_freq(cfg, params.get("rope_factors"), device=x.device)
     kv_limit, mask = read_bound(kv, kv_limit, mask)
     fused = fused_ffn_mode()
     slot_tags = None
-    if causal_tags_prefill and not isinstance(kv, PagedKVCache) and not kv.quantized:
+    if (causal_tags_prefill and cfg.swa_window == 0 and not isinstance(kv, PagedKVCache)
+            and not kv.quantized):
         slot_tags = kv.slot_pos[:, : kv_limit if kv_limit else kv.slot_pos.shape[1]]
+    mask_swa = None
+    if cfg.swa_window > 0:  # check_ported admits it only with swa_every > 0
+        s_idx = torch.arange(mask.shape[-1], dtype=torch.int32, device=mask.device)
+        mask_swa = mask & (positions[:, :, None] - s_idx < cfg.swa_window)
     wqkv = layers["wqkv"]  # layer-stacked: a QTensor, or dense f32 from an F32 / F16 file
     for li in range((wqkv.q if isinstance(wqkv, QTensor) else wqkv).shape[0]):
         x = _layer_step(
             cfg, inv_freq, positions, slots, mask, compute_dtype, x, layers, li,
             kv.k, kv.v, kv_limit=kv_limit, slot_tags=slot_tags, fused_ffn=fused,
-            **cache_kw(kv),
+            mask_swa=mask_swa, **cache_kw(kv),
         )
     hidden = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
-    logits = qmatmul(hidden, params["output"], compute_dtype) if return_logits else None
+    logits = None
+    if return_logits:
+        logits = qmatmul(hidden, params["output"], compute_dtype)
+        if cfg.final_softcap > 0:  # gemma2's final logit softcapping
+            c = cfg.final_softcap
+            logits = c * torch.tanh(logits / c)
     return ForwardOutput(logits=logits, hidden=hidden, hidden_pre=x, kv=kv)

@@ -1,6 +1,7 @@
 """GGUF -> params on the device (port of eagle_tpu/models/loader.py:
-`unpermute_rows`, `_load_tensor`, `_stack`, `fuse_layer_weights`, the plain
-llama branch of `load_llama_params`, and `load_eagle_params`).
+`unpermute_rows`, `_load_tensor`, `_stack`, `fuse_layer_weights`, the
+llama, Qwen2, Qwen3 and Gemma-2 branches of `load_llama_params`, and
+`load_eagle_params`).
 
 Each tensor's raw block bytes are copied from the file's map into a pinned
 staging buffer ("read"), uploaded ("upload") and repacked on the device
@@ -9,7 +10,8 @@ never sees a float weight. Matmul weights are stored "kn" (K-major, the qmm
 layout), stacked over layers, with q/k and gate/up fused along N. The q/k
 rows of llama-family GGUFs carry convert_hf_to_gguf's adjacent-pair rope
 permutation; it is inverted along N at load, so the runtime's rope is
-half-split.
+half-split. Qwen2, Qwen3 and Gemma-2 rows (NEOX rope) are half-split in the
+file already and load as they are (`PERMUTED_ROPE_ARCHS`).
 
 Coded load (`EAGLE_TPU_CODED_LOAD`, default on; "0" or "false" turns it
 off, read at each load): k-quant matmul weights keep int8 sub-scale codes
@@ -19,9 +21,12 @@ A Llama-3.1 file's `rope_freqs.weight` loads as `params["rope_factors"]`
 (f32); a file without `output.weight` (tied embeddings, Llama-3.2-1B / 3B)
 takes `token_embd` as its head, which stays "nk".
 
-Anything outside the plain llama block (MoE, MLA, biases, q/k norms,
-per-layer head counts, recurrent layers, ...) raises
-NotImplementedError."""
+The optional layer tensors of these families load as the reference's do:
+q/k/v biases (qwen2) into a layer-stacked f32 `bqkv` [L, (H + 2 H_kv) Dh],
+per-head q/k norms (qwen3) and the sandwich norms (gemma2) as f32 stacks.
+Anything else (MoE, MLA, flat q/k norms, per-layer head counts, recurrent
+layers, ...) raises NotImplementedError, as does an EAGLE draft with
+biases (the reference's `load_eagle_params` drops them)."""
 
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from .._device import resolve_device
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader
 from ..quant.qtensor import CODED_TYPES, REPACKABLE_TYPES, QTensor, concat_qtensors, repack, repack_coded
-from .config import ModelConfig
+from .config import PERMUTED_ROPE_ARCHS, TARGET_ARCHS, ModelConfig
 
 #: our name -> GGUF tensor suffix (src/llama-arch.cpp's names)
 LAYER_KEY_MAP = {
@@ -52,6 +57,15 @@ LAYER_KEY_MAP = {
     "w_up": "ffn_up.weight",
     "w_down": "ffn_down.weight",
 }
+#: our name -> GGUF suffix of the layer tensors a file may carry: the
+#: reference's optional tensors of the ported families (loader.py:697-703)
+OPTIONAL_NORMS = {
+    "attn_q_norm": "attn_q_norm.weight",
+    "attn_k_norm": "attn_k_norm.weight",
+    "post_attn_norm": "attn_post_norm.weight",
+    "post_ffn_norm": "ffn_post_norm.weight",
+}
+BIASES = ("attn_q.bias", "attn_k.bias", "attn_v.bias")  # qwen2, fused into `bqkv`
 _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight",
                 "rope_freqs.weight"}
 _EAGLE_TOP_TENSORS = {"token_embd.weight", "fc.weight", "fc.bias"}
@@ -191,25 +205,47 @@ def _check_names(reader: GGUFReader, top: set[str], layer_suffixes, n_layers: in
 
 def load_llama_params(path: str | Path, device="cuda",
                       times: dict | None = None) -> tuple[dict[str, Any], ModelConfig, dict]:
-    """Load a plain llama GGUF. Returns (params, config, metadata); every
-    weight lies on `device`. `times`, when given, gathers the seconds spent
-    reading, uploading and repacking."""
+    """Load a llama, Qwen2, Qwen3 or Gemma-2 GGUF. Returns (params, config,
+    metadata); every weight lies on `device`. `times`, when given, gathers
+    the seconds spent reading, uploading and repacking."""
     dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = ModelConfig.from_gguf_metadata(reader.metadata)
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"load_llama_params reads llama files, not {cfg.arch!r}")
-    _check_names(reader, _TOP_TENSORS, LAYER_KEY_MAP.values(), cfg.n_layers)
-    q_perm = unpermute_rows(cfg.n_q_dim, cfg.n_heads, cfg.rope_dim)
-    k_perm = unpermute_rows(cfg.n_kv_dim, cfg.n_kv_heads, cfg.rope_dim)
+    if cfg.arch not in TARGET_ARCHS:
+        raise NotImplementedError(f"load_llama_params reads {TARGET_ARCHS} files, not "
+                                  f"{cfg.arch!r}")
+    _check_names(reader, _TOP_TENSORS,
+                 [*LAYER_KEY_MAP.values(), *OPTIONAL_NORMS.values(), *BIASES], cfg.n_layers)
+    q_perm = k_perm = None
+    if cfg.arch in PERMUTED_ROPE_ARCHS:  # NEOX rows are half-split already
+        q_perm = unpermute_rows(cfg.n_q_dim, cfg.n_heads, cfg.rope_dim)
+        k_perm = unpermute_rows(cfg.n_kv_dim, cfg.n_kv_heads, cfg.rope_dim)
     ld = _Loader(reader, dev, times)
     layers: dict[str, list] = {k: [] for k in LAYER_KEY_MAP}
+    for ours, suffix in OPTIONAL_NORMS.items():
+        if f"blk.0.{suffix}" in reader.tensors:
+            layers[ours] = []
     for i in range(cfg.n_layers):
-        for ours, suffix in LAYER_KEY_MAP.items():
+        for ours in layers:
+            suffix = LAYER_KEY_MAP.get(ours) or OPTIONAL_NORMS[ours]
             perm = q_perm if ours == "wq" else k_perm if ours == "wk" else None
             layout = "nk" if ours.endswith("norm") else "kn"
             layers[ours].append(ld.tensor(f"blk.{i}.{suffix}", row_perm=perm, layout=layout))
+    if "blk.0.attn_q.bias" in reader.tensors:  # qwen2 (loader.py:805-813)
+        rows = []
+        for i in range(cfg.n_layers):
+            bq, bk, bv = (ld.tensor(f"blk.{i}.{name}") for name in BIASES)
+            if q_perm is not None:
+                bq = bq.index_select(0, torch.from_numpy(q_perm).to(dev))
+                bk = bk.index_select(0, torch.from_numpy(k_perm).to(dev))
+            rows.append(torch.cat([bq, bk, bv]))
+        layers["bqkv"] = rows
     stacked = {k: _stack(v) for k, v in layers.items()}
+    for ours in ("attn_q_norm", "attn_k_norm"):
+        if ours in stacked and stacked[ours].shape[-1] != cfg.head_dim:
+            raise NotImplementedError(
+                f"{ours} of width {stacked[ours].shape[-1]}: only per-head q/k norms "
+                f"[{cfg.head_dim}] are ported (olmo2's flat norm: ROADMAP queue 1, item 8)")
     params = {
         "tok_embd": ld.tensor("token_embd.weight"),
         "layers": fuse_layer_weights(stacked),
@@ -235,6 +271,9 @@ def load_eagle_params(path: str | Path, device="cuda",
     if cfg.arch != "eagle":
         raise NotImplementedError(f"load_eagle_params reads eagle files, not {cfg.arch!r}")
     key_map = {k: v for k, v in LAYER_KEY_MAP.items() if k != "attn_norm"}
+    if any(f"blk.0.{name}" in reader.tensors for name in BIASES):
+        raise NotImplementedError("an EAGLE draft with q/k/v biases: the reference's "
+                                  "load_eagle_params drops them (ROADMAP queue 3); not ported")
     _check_names(reader, _EAGLE_TOP_TENSORS, key_map.values(), 1)
     q_perm = unpermute_rows(cfg.n_q_dim, cfg.n_heads)
     k_perm = unpermute_rows(cfg.n_kv_dim, cfg.n_kv_heads)

@@ -1,6 +1,8 @@
 """Synthetic models: random weights in the real serving layouts and shapes
 (port of eagle_tpu/models/synth.py: `VICUNA_7B`, `synth_qtensor`,
-`synth_llama_params`, `synth_eagle_params`).
+`synth_llama_params`, `synth_eagle_params`), with the optional tensors of
+the Qwen2, Qwen3 and Gemma-2 branches (`bqkv`, per-head q/k norms, sandwich
+norms).
 
 Weights are generated on the device with a seeded `torch.Generator` — no
 host upload — in the fused (`wqkv`, `w_gate_up`), layer-stacked "kn" layout
@@ -93,8 +95,11 @@ def synth_llama_params(
     scale_dtype=torch.float32,
     coded: bool = False,
     device="cuda",
+    qk_norm: bool = False,
 ) -> dict[str, Any]:
-    """Target params: fused qkv and gate+up along N, layer-stacked."""
+    """Target params: fused qkv and gate+up along N, layer-stacked. With
+    `cfg.attn_bias` also `bqkv` (qwen2), with `qk_norm` per-head q/k norms
+    (qwen3), with `cfg.post_norms` the sandwich norms (gemma2)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d, dh, h, hkv, f, v = (
@@ -111,6 +116,14 @@ def synth_llama_params(
         "w_down": synth_qtensor(gen, d, f, stack=L, **qa),
     }
     emb = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(embed_dtype)
+    if cfg.attn_bias:
+        layers["bqkv"] = torch.randn((L, (h + 2 * hkv) * dh), generator=gen, device=dev) * 0.02
+    if qk_norm:
+        layers["attn_q_norm"] = torch.ones((L, dh), device=dev)
+        layers["attn_k_norm"] = torch.ones((L, dh), device=dev)
+    if cfg.post_norms:
+        layers["post_attn_norm"] = torch.ones((L, d), device=dev)
+        layers["post_ffn_norm"] = torch.ones((L, d), device=dev)
     return {
         "tok_embd": emb,
         "layers": layers,

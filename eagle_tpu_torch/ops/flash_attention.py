@@ -47,6 +47,7 @@ _WARPS = 4  # warps per block (csrc/flash_attention.cu)
 _TILE = 32  # SIMT body: keys per tile
 _KEYS = 64  # tensor-core body: keys per ring tile
 _ROW_BLOCKS = (128, 64, 32, 16)  # tensor-core body: query rows per block, largest first
+HEAD_DIMS = (64, 128)  # the head widths both kernels take
 _TWO_BLOCK_SMEM = 115712  # a ring that lets two blocks share an SM
 
 
@@ -118,7 +119,7 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
     n_layers, cb, h_kv, s_full, dk = k_cache.shape
     if v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
         raise ValueError("k and v caches must share shape and dtype")
-    if (cb, dk) != (b, d) or h % h_kv or d not in (64, 128):
+    if (cb, dk) != (b, d) or h % h_kv or d not in HEAD_DIMS:
         raise ValueError(f"shapes q {tuple(q.shape)} / cache {tuple(k_cache.shape)} "
                          "not taken (head_dim must be 64 or 128)")
     if k_cache.dtype not in (torch.float32, torch.bfloat16):

@@ -107,10 +107,16 @@ class KVCache:
         return self
 
 
-def causal_mask_from_tags(slot_pos: torch.Tensor, q_positions: torch.Tensor) -> torch.Tensor:
+def causal_mask_from_tags(slot_pos: torch.Tensor, q_positions: torch.Tensor,
+                          swa_window: int = 0) -> torch.Tensor:
     """Boolean attention mask [B, T, S]: slot visible iff non-empty and its
-    position <= the query token's position."""
-    return (slot_pos[:, None, :] >= 0) & (slot_pos[:, None, :] <= q_positions[:, :, None])
+    position <= the query token's position; with `swa_window` > 0 also
+    less than `swa_window` positions behind it (the reference's
+    kvcache.py:198)."""
+    vis = (slot_pos[:, None, :] >= 0) & (slot_pos[:, None, :] <= q_positions[:, :, None])
+    if swa_window > 0:
+        vis = vis & (q_positions[:, :, None] - slot_pos[:, None, :] < swa_window)
+    return vis
 
 
 def quantize_kv_vec(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -121,7 +121,7 @@ def test_unported_architecture_raises(models):
     with pytest.raises(NotImplementedError):
         llama_forward(bad, tcfg, pos, pos, tkv, pos, mask, compute_dtype=torch.float32)
     with pytest.raises(NotImplementedError):
-        llama_forward(tt, dataclasses.replace(tcfg, attn_softcap=50.0), pos, pos, tkv, pos, mask)
+        llama_forward(tt, dataclasses.replace(tcfg, use_alibi=True), pos, pos, tkv, pos, mask)
     with pytest.raises(NotImplementedError):
         llama_forward(tt, dataclasses.replace(tcfg, rope_yarn_log_mul=0.1), pos, pos, tkv, pos,
                       mask)

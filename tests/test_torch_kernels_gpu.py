@@ -470,8 +470,10 @@ def test_flash_prefill_matches_plain(cuda, dtype, d, h, h_kv):
 
 # (T*g, g) of the tensor-core body's cases: one 16-row tile (1, 6), a 16-row
 # edge (24), 64-row blocks (64), a 64-row edge (80), a ragged 128-row block
-# (120) and the prompt bucket (512)
-TC_ROWS = [(tg, g) for tg in (1, 6, 24, 64, 80, 120, 512) for g in (1, 2, 4) if tg % g == 0]
+# (120) and the prompt bucket (512); then Qwen2.5's g = 7 (28 query heads over
+# 4 KV heads): a decoded token (7), a K = 5 verify (42), a 512-row prompt (3,584)
+TC_ROWS = [(tg, g) for tg in (1, 6, 24, 64, 80, 120, 512) for g in (1, 2, 4)
+           if tg % g == 0] + [(7, 7), (42, 7), (3584, 7)]
 
 
 def _tc_case(gen, tg, g, d, s_limit):
@@ -505,7 +507,8 @@ def test_flash_decode_tensor_core_body(cuda, tg, g, d, s_limit):
     mask = causal_mask_from_tags(tags[:, :lim], pos)
     mask[1, t // 2] = False  # a row that sees nothing: the uniform average
     plan = fa._plan(tg, lim, d, torch.bfloat16, 2 * 2, False)
-    assert plan.body == "mma" and plan.splits > 1  # 4 kv-head units: always split
+    # 4 kv-head units split their keys up to 512 rows; 3,584 rows fill the SMs
+    assert plan.body == "mma" and (plan.splits > 1) == (tg <= 512)
     _build.reset_counts()
     got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
     assert _build.launches["flash_decode"] == 1 and _build.plain_calls["flash_decode"] == 0
@@ -1609,6 +1612,10 @@ def test_llama3_qmm_shapes_every_route(cuda, name, form, n, k, stacked, rows):
     """qmm at the 8B path's new shapes, bf16: 1 row on the 1-row body, 6 on
     the small-row body, 300 on the wgmma body, each against the plain
     version (a 2-layer stack read at layer 1)."""
+    _qmm_route_case(cuda, form, n, k, stacked, rows)
+
+
+def _qmm_route_case(cuda, form, n, k, stacked, rows):
     w = WEIGHTS[form](cuda, n, k, 2 if stacked else None)
     x = torch.randn((rows, k), generator=cuda, device="cuda")
     _build.reset_counts()
@@ -1671,4 +1678,90 @@ def test_llama3_nk_head_graphed_equals_eager(cuda):
                       cuda_graphs=graphed).generate(PROMPT * 3, max_new_tokens=40,
                                                     stop_at_eos=False)
             for graphed in (False, True)]
+    assert runs[0] == runs[1]
+
+
+# ---- the Qwen2, Qwen3 and Gemma-2 paths (`-k families`) ----------------------
+
+#: (name, weight form, N, K, stacked) of the families' new qmm shapes: Qwen2.5-7B
+#: (K 3,584; lm_head N 152,064; w_down K 18,944; its EAGLE draft's fc),
+#: Qwen3-8B (w_gate_up N 24,576, w_down K 12,288, lm_head N 151,936) and
+#: Gemma-2-9B (wqkv N 8,192, wo K 4,096, w_down K 14,336 at N 3,584)
+FAMILY_SHAPES = [("qwen2.5_wqkv", "q4k_packed_coded", 4608, 3584, True),
+                 ("qwen2.5_w_gate_up", "q4k_packed_coded", 37888, 3584, True),
+                 ("qwen2.5_w_down", "q4k_packed_coded", 3584, 18944, True),
+                 ("qwen2.5_lm_head", "q6k_int8_coded", 152064, 3584, False),
+                 ("qwen2.5_draft_fc", "q8_0_int8_f32", 3584, 7168, False),
+                 ("qwen3_w_gate_up", "q4k_packed_coded", 24576, 4096, True),
+                 ("qwen3_w_down", "q4k_packed_coded", 4096, 12288, True),
+                 ("qwen3_lm_head", "q6k_int8_coded", 151936, 4096, False),
+                 ("gemma2_wqkv", "q4k_packed_coded", 8192, 3584, True),
+                 ("gemma2_wo", "q4k_packed_coded", 3584, 4096, True),
+                 ("gemma2_w_down", "q4k_packed_coded", 3584, 14336, True)]
+
+
+@pytest.mark.parametrize("rows", [1, 6, 300])
+@pytest.mark.parametrize("name,form,n,k,stacked", FAMILY_SHAPES,
+                         ids=[s[0] for s in FAMILY_SHAPES])
+def test_families_qmm_shapes_every_route(cuda, name, form, n, k, stacked, rows):
+    """qmm at the families' new shapes, bf16: 1 row on the 1-row body, 6 on
+    the small-row body, 300 on the wgmma body, each against the plain
+    version (a 2-layer stack read at layer 1); K splits on whole 256-row
+    super-blocks at K = 3,584 (14 of them) and 18,944 (74)."""
+    _qmm_route_case(cuda, form, n, k, stacked, rows)
+
+
+FAMILY_CFGS = {
+    "qwen2": dict(arch="qwen2", attn_bias=True, n_kv_heads=1, rope_base=1e6),
+    "qwen3": dict(arch="qwen3", head_dim=128, rope_dim=128),
+    "gemma2": dict(arch="gemma2", n_layers=4, swa_window=8, swa_every=2, attn_softcap=50.0,
+                   final_softcap=30.0, post_norms=True, embd_scale=16.0,
+                   attn_scale=96 ** -0.5, act="gelu"),
+}
+
+
+def _family(arch):
+    cfg = dataclasses.replace(TINY_CFG, **FAMILY_CFGS[arch])
+    return cfg, synth_llama_params(cfg, seed=5, packed=True, coded=True, device="cuda",
+                                   qk_norm=arch == "qwen3")
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, **{k: None if v is None else v.cpu()
+                                            for k, v in tree.tensors().items()})
+    return tree.cpu()
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CFGS))
+def test_families_tokens_card_equal_cpu(cuda, arch):
+    """A tiny model of each family (qwen2's biases, qwen3's q/k norms at
+    head_dim 128, gemma2's window of 8 over 45 tokens, softcaps and sandwich
+    norms): greedy tokens through the kernels on the card, f32, equal the
+    plain path's on the CPU."""
+    cfg, params = _family(arch)
+    toks = []
+    for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        gen = Generator(p, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device=dev)
+        toks.append(gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8))
+    assert toks[0] == toks[1]
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CFGS))
+def test_families_graphed_equals_eager(cuda, arch):
+    """bf16 greedy tokens of each tiny family graphed and eager, bit for
+    bit; gemma2 (softcapped) launches no flash kernel, the others do."""
+    cfg, params = _family(arch)
+    runs = []
+    for graphed in (False, True):
+        _build.reset_counts()
+        gen = Generator(params, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                        compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                        cuda_graphs=graphed)
+        runs.append(gen.generate(PROMPT * 2, max_new_tokens=40, stop_at_eos=False))
+        flash = _build.launches["flash_decode"] + _build.launches["flash_prefill"]
+        assert (flash == 0) == (arch == "gemma2") and _build.plain_calls["flash_decode"] == 0
     assert runs[0] == runs[1]

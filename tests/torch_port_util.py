@@ -149,7 +149,8 @@ def has_encoder(qtype) -> bool:
 def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0,
                          target_metadata: dict | None = None, out_scale: float = 0.05,
                          n_kv_heads: int | None = None, rope_factors=None,
-                         tied: bool = False):
+                         tied: bool = False, arch: str = "llama", head_dim: int | None = None,
+                         n_layers: int | None = None):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
@@ -160,17 +161,24 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     deviation (larger: more peaked logits). `n_kv_heads` sets both files'
     KV heads (GQA), `rope_factors` [head_dim/2] adds the target's
     `rope_freqs.weight` (Llama-3.1), `tied` leaves out its `output.weight`
-    (the head is token_embd, in `emb_type` at `out_scale`). Returns (target
-    path, draft path)."""
+    (the head is token_embd, in `emb_type` at `out_scale`). `arch` "qwen2",
+    "qwen3" or "gemma2" writes the target under that architecture with its
+    optional tensors (qwen2: q/k/v biases; qwen3: per-head q/k norms [Dh];
+    gemma2: the post-attention and post-FFN norms), the q/k rows as they
+    come (NEOX: no permutation to invert); `head_dim` and `n_layers` set the
+    target's (the draft keeps the tiny llama's). Returns (target path,
+    draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
-    jcfg, _ = tiny_cfgs()
+    dcfg, _ = tiny_cfgs()
     if n_kv_heads is not None:
-        jcfg = dataclasses.replace(jcfg, n_kv_heads=n_kv_heads)
+        dcfg = dataclasses.replace(dcfg, n_kv_heads=n_kv_heads)
+    hd = head_dim or dcfg.head_dim
+    jcfg = dataclasses.replace(dcfg, head_dim=hd, rope_dim=hd,
+                               n_layers=n_layers or dcfg.n_layers)
     rng = np.random.default_rng(seed)
     d, f, v = jcfg.n_embd, jcfg.n_ff, jcfg.vocab_size
-    nq, nkv = jcfg.n_heads * jcfg.head_dim, jcfg.n_kv_heads * jcfg.head_dim
 
     def qmat(w, name, n, k, qtype, scale=0.05):
         if has_encoder(qtype):
@@ -183,7 +191,8 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     def norm():
         return rng.uniform(0.8, 1.2, d).astype(np.float32)
 
-    def layer(w, i, qtype, attn_norm=True):
+    def layer(w, i, qtype, cfg, attn_norm=True, arch="llama"):
+        nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
         if attn_norm:
             w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
         for name, (n, k) in (("attn_q", (nq, d)), ("attn_k", (nkv, d)), ("attn_v", (nkv, d)),
@@ -191,14 +200,25 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
                              ("ffn_down", (d, f))):
             qmat(w, f"blk.{i}.{name}.weight", n, k, qtype)
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
+        if arch == "qwen2":
+            for name, n in (("attn_q", nq), ("attn_k", nkv), ("attn_v", nkv)):
+                w.add_tensor(f"blk.{i}.{name}.bias",
+                             (rng.standard_normal(n) * 0.5).astype(np.float32))
+        elif arch == "qwen3":
+            for name in ("attn_q_norm", "attn_k_norm"):
+                w.add_tensor(f"blk.{i}.{name}.weight",
+                             rng.uniform(0.5, 1.5, cfg.head_dim).astype(np.float32))
+        elif arch == "gemma2":
+            for name in ("attn_post_norm", "ffn_post_norm"):
+                w.add_tensor(f"blk.{i}.{name}.weight", norm())
 
     target = tmp_path / "target.gguf"
     w = GGUFWriter(target)
-    for k, val in {**_base_metadata(jcfg, "llama"), **(target_metadata or {})}.items():
+    for k, val in {**_base_metadata(jcfg, arch), **(target_metadata or {})}.items():
         w.add(k, val)
     qmat(w, "token_embd.weight", v, d, emb_type, out_scale if tied else 0.5)
     for i in range(jcfg.n_layers):
-        layer(w, i, layer_type)
+        layer(w, i, layer_type, jcfg, arch=arch)
     w.add_tensor("output_norm.weight", norm())
     if rope_factors is not None:
         w.add_tensor("rope_freqs.weight", np.asarray(rope_factors, np.float32))
@@ -208,12 +228,13 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
 
     draft = tmp_path / "draft.gguf"
     w = GGUFWriter(draft)
-    for k, val in _base_metadata(dataclasses.replace(jcfg, n_layers=1), "eagle").items():
+    dcfg = dataclasses.replace(dcfg, n_layers=1)
+    for k, val in _base_metadata(dcfg, "eagle").items():
         w.add(k, val)
     qmat(w, "token_embd.weight", v, d, draft_type, 0.5)
     qmat(w, "fc.weight", d, 2 * d, draft_type)
     w.add_tensor("fc.bias", (rng.standard_normal(d) * 0.01).astype(np.float32))
-    layer(w, 0, draft_type, attn_norm=False)
+    layer(w, 0, draft_type, dcfg, attn_norm=False)
     w.write()
     return target, draft
 
@@ -440,3 +461,59 @@ def stub_capture(monkeypatch, engine):
     monkeypatch.setattr(engine, "graphs", graphs.StepGraphs(enabled=True))
     return engine.graphs
 
+
+
+QWEN_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+#: chat templates the server's detection reads as "chatml" and "gemma"
+CHATML_TEMPLATE = ("{% for message in messages %}{{'<|im_start|>' + message['role'] + '\\n' + "
+                   "message['content'] + '<|im_end|>' + '\\n'}}{% endfor %}")
+GEMMA_TEMPLATE = ("{% for message in messages %}{{ '<start_of_turn>' + message['role'] + '\\n' "
+                  "+ message['content'] | trim + '<end_of_turn>\\n' }}{% endfor %}")
+
+
+@functools.lru_cache(maxsize=None)
+def qwen_vocab() -> dict:
+    """A Qwen2-style byte-level BPE vocabulary of 512 pieces as GGUF
+    metadata: merges learned from `llama3_corpus()`, then QWEN_SPECIALS
+    (control), pre "qwen2", no BOS added, EOS <|im_end|>, CHATML_TEMPLATE."""
+    pieces, merges = learn_merges(llama3_corpus(), 512 - len(QWEN_SPECIALS))
+    tokens = pieces + list(QWEN_SPECIALS)
+    ids = {t: i for i, t in enumerate(tokens)}
+    return {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "qwen2",
+            "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.merges": merges,
+            "tokenizer.ggml.token_type": np.asarray(
+                [1] * len(pieces) + [3] * len(QWEN_SPECIALS), np.int32),
+            "tokenizer.ggml.bos_token_id": ids["<|endoftext|>"],
+            "tokenizer.ggml.eos_token_id": ids["<|im_end|>"],
+            "tokenizer.ggml.add_bos_token": False,
+            "tokenizer.chat_template": CHATML_TEMPLATE}
+
+
+#: the tiny families: write_tiny_gguf_pair's arguments and the target's metadata
+FAMILIES = {
+    # Qwen2.5: qkv biases, rope base 1e6, GQA 4:1
+    "qwen2": dict(kw=dict(n_kv_heads=1), md={"qwen2.rope.freq_base": 1e6}),
+    # Qwen3: per-head q/k norms, head_dim 128 decoupled from n_embd / n_heads = 64
+    "qwen3": dict(kw=dict(head_dim=128), md={"qwen3.rope.freq_base": 1e6}),
+    # Gemma-2: 4 layers, a window of 8 on layers 0 and 2, softcaps small enough
+    # to move the logits, query_pre_attn_scalar 96 over head_dim 64, tied
+    "gemma2": dict(kw=dict(n_layers=4, tied=True, out_scale=0.1),
+                   md={"gemma2.attn_logit_softcapping": 1.0,
+                       "gemma2.final_logit_softcapping": 2.0,
+                       "gemma2.attention.sliding_window": 8,
+                       "gemma2.attention.query_pre_attn_scalar": 96}),
+}
+
+
+def tiny_family_pair(tmp_path, arch: str):
+    """A tiny Q8_0 target of `arch` (FAMILIES) and an EAGLE draft: qwen2 and
+    qwen3 with `qwen_vocab()` (BPE, pre "qwen2", chatml), gemma2 with
+    `spm_metadata(ENGINE_PROMPT)` and a gemma template."""
+    from eagle_tpu.gguf.constants import GGMLType
+
+    q8 = GGMLType.Q8_0
+    fam = FAMILIES[arch]
+    vocab = (qwen_vocab() if arch.startswith("qwen")
+             else {**spm_metadata(ENGINE_PROMPT), "tokenizer.chat_template": GEMMA_TEMPLATE})
+    return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=11, arch=arch,
+                                target_metadata={**vocab, **fam["md"]}, **fam["kw"])
