@@ -42,7 +42,12 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    1e-2), and as a chat turn's feed at an offset runs it: T = 16, 32 and
    64 rows (3 of them padding) from positions 300, 700 and 960, s_limit 512
    or 1024, at g = 1 and 4 (T = 32 from 700 at S = 1024 timed); both kernels at g = 4 (8 kv heads) for T = 6 and 20 at s_limit
-   300, with a fully masked row (checks only). Each prints kernel ms, plain
+   300, with a fully masked row (checks only); both kernels at head width
+   256, bf16 and f32 caches, at Gemma-7B's 16 / 16, Gemma-2-9B's 16 / 8
+   and Gemma-2B's 8 / 1 heads: T = 1 and 6 over S = 1,024 at s_limit 300
+   and 1,024, a 512-row prompt over 300 slots, fully masked rows inside a
+   tile equal to the uniform average of V (`[flash d256]` lines; the
+   s_limit 1,024 calls and the prompt timed, SDPA with `enable_gqa`). Each prints kernel ms, plain
    ms, the bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
    whichever is larger) and library_ms (one PyTorch call computing the
    same function, or for the fused FFN kernels the same product: torch.matmul
@@ -63,7 +68,7 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    decode step and per dispatch of EAGLE cycles, `runtime/graphs.py`), EAGLE
    graphed at 1 and 4 cycles per dispatch; the graphed engines are warmed
    first (their graphs captured at the runs' buckets), then every graphed
-   variant is timed 3 times (min / median / max of tokens/s, TTFT and wall
+   variant is timed twice (min / median / max of tokens/s, TTFT and wall
    ms per token or cycle: the host's spread) and every eager one once.
    Graphed tokens must equal eager
    tokens bit for bit, greedy and EAGLE alike, and no step or cycle of a
@@ -88,7 +93,7 @@ tree. the tree engines on phase 3's model after the same prompt:
    EagleTreeEngine at the reference's default TreeSpec((4, 2, 2)) (29
    verify rows; draft levels of 1, 4 and 8 rows) eager and graphed, and
    EagleTree2Engine at its defaults (beam 8, depth 6, 32 verify rows) eager
-   and graphed at 1 and 4 cycles per dispatch, 64 new tokens, 3 timed runs
+   and graphed at 1 and 4 cycles per dispatch, 64 new tokens, 2 timed runs
    of each graphed variant and 1 of each eager one (`[q4_k tree]` lines:
    tokens/s, TTFT, wall ms per cycle, mean_accept_len; graphed: device ms
    per cycle from CUDA events over 8 replayed cycles, idle share). Every
@@ -116,7 +121,7 @@ tree. the tree engines on phase 3's model after the same prompt:
    kernels > 0 only when on; plain versions 0), whether the fused block
    pays under graphs (graphed device ms per token and median tokens/s,
    fused against unfused), and fused = unfused greedy tokens up to the
-   near-tie rule; then EagleTree2Engine graphed at C = 1 on each (3 runs;
+   near-tie rule; then EagleTree2Engine graphed at C = 1 on each (2 runs;
    fused: 32 of each fused kernel per verify, plus the draft's), its
    tokens fused against unfused under the same rule.
 cli. the normal entry point on phase 6's files (unfused): three runs of
@@ -129,7 +134,7 @@ cli. the normal entry point on phase 6's files (unfused): three runs of
    max_seq 2048, graphed) and from its loaded params `Generator`, the chain
    at C = 1 and 4, the static tree (4, 2, 2) and EAGLE-2 (8, 6, 32), all
    sampled at the defaults from seed 0: eager once, graphed once to
-   capture and 3 timed graphed runs (`[cli sampled]` lines: tokens/s, TTFT,
+   capture and 2 timed graphed runs (`[cli sampled]` lines: tokens/s, TTFT,
    wall and device ms per token or cycle, idle share, accept_rate and
    mean_accept_len), every run's tokens equal bit for bit, no eager body
    after the capture, launches per token or cycle as the greedy cells'
@@ -170,7 +175,7 @@ serve. continuous batching on phase 6's files (unfused, K = 5, greedy):
    64 new tokens each) must give the graphed single-sequence chain's
    tokens up to the near-tie rule, a second graphed run the same tokens
    with no eager body, the eager batched run the same tokens bit for bit.
-   Then 1, 2 and 4 concurrent requests of the 300-token prompt, 3 timed
+   Then 1, 2 and 4 concurrent requests of the 300-token prompt, 2 timed
    runs each (`[serve]` lines: aggregate tokens/s, TTFT per request, the
    host's ms per step, the idle share against the device ms of a batched
    cycle at B = 4 from CUDA events over 8 replays); launches per batched
@@ -187,7 +192,7 @@ serve. continuous batching on phase 6's files (unfused, K = 5, greedy):
 paged. paged and int8 serving on phase 6's files (unfused, K = 5, greedy):
    `Engine(batch=4, max_seq=2048, paged=True, page_size=64, kv_pages=64)`,
    64 pages of 64 rows against 4 x 2,048 addressable slots. (a) 1, 2 and 4
-   streams of phase serve's 301-token prompt, the prefix cache off, 3 timed
+   streams of phase serve's 301-token prompt, the prefix cache off, 2 timed
    runs each (`[paged]` lines: aggregate tokens/s, TTFT, host ms per step,
    idle share, pool pages in use; the batched cycle's device ms): a slot
    against phase serve's dense batcher up to the near-tie rule, graphed ==
@@ -238,7 +243,7 @@ constrained. stateful samplers and grammar-constrained decoding on phase
 runtime. model-free speculation, YaRN and fill-in-the-middle: (a) on phase
    6's target (unfused, max_seq 2048, a 301-token prompt: 100 words three
    times), `Engine(lookahead=(8, 4, 8))` and a `LookupEngine(n_draft=8)`,
-   each eager and graphed, 3 timed runs each, 64 tokens: graphed == eager
+   each eager and graphed, 2 timed runs each, 64 tokens: graphed == eager
    bit for bit, tokens == the graphed greedy `Generator`'s up to the
    near-tie rule, 129 qmm_tc and 32 flash_decode per lookahead step (48
    rows) and per lookup cycle (9 rows), t/s, TTFT, device ms per step by
@@ -282,7 +287,7 @@ llama3. the Llama-3 family, after phase 6's files are gone: a minted
    token, the "nk" head's device ms). Each minted file is deleted after its
    checks; the 8B default path's and the tied run's launches stand in the
    `kernels` line as `llama3_path_launches`.
-families. the Qwen2, Qwen3 and Gemma-2 families at their published shapes,
+families. the Qwen2, Qwen3, Gemma-2 and Gemma families at their published shapes,
    in a temporary directory of their own, one model at a time (minted with
    random Q4_K blocks and a Q6_K head, loaded through `api.Engine`, its
    file deleted, its kernels checked, run, freed): (a) Qwen2.5-7B-Instruct
@@ -295,18 +300,29 @@ families. the Qwen2, Qwen3 and Gemma-2 families at their published shapes,
    against its plain version with its bound and library ms (`[families
    kernel]`); `serve_cell` on a ~300-token prompt (`[qwen2.5]`: 113
    qmm_gemv and 28 flash_decode per decoded token, 113 qmm_mma per verify,
-   EAGLE == greedy under the near-tie rule); (b) Qwen3-8B (36 layers, 32
-   over 8 KV heads of 128, per-head q/k norms, 151,936 entries): qmm at 1
-   and 300 rows, then greedy eager once and graphed 3 times, bit for bit
-   (`[qwen3]`: 145 qmm_gemv and 36 flash_decode per token); (c) Gemma-2-9B
-   (42 layers, 16 over 8 KV heads of 256, n_ff 14,336, sandwich norms,
+   EAGLE == greedy under the near-tie rule); (b) Qwen3-8B (18 of its 36
+   layers, 32 over 8 KV heads of 128, per-head q/k norms, 151,936
+   entries): qmm at 1 and 300 rows, then greedy eager once and graphed 2
+   times, bit for bit (`[qwen3]`: 73 qmm_gemv and 18 flash_decode per
+   token); (c) Gemma-2-9B (21 of its 42 layers, 16 over 8 KV heads of 256,
+   n_ff 14,336, sandwich norms,
    GELU, softcaps 50 / 30, a 4,096-slot window on even layers,
    query_pre_attn_scalar 256, a tied Q6_K table of 256,000 SPM pieces, a
    gemma template): qmm at 1 and 300 rows, the plain softcapped attention
    (no kernel in either package) and the tied "nk" head timed, then greedy
-   as (b) (`[gemma2]`: 168 qmm_gemv per token, no flash kernel). The
-   launches of the Qwen2.5 default path and of the other two's first timed
-   graphed runs stand in the `kernels` line as `families_path_launches`.
+   as (b) (`[gemma2]`: 84 qmm_gemv per token, no flash kernel); (d)
+   Gemma-7B (google/gemma-7b: d 3,072, 28 layers, 16 / 16 heads of 256, a
+   4,096-wide query, n_ff 24,576, GELU, the sqrt(n_embd) embedding scale,
+   no softcap or window, a tied Q6_K table of 256,000 SPM pieces, a gemma
+   template) and an EAGLE Q8_0 draft at its widths: qmm at 1, 6 and 300
+   rows and the draft's fc, the tied head timed, `serve_cell` (`[gemma]`:
+   112 qmm_gemv and 28 flash_decode per decoded token, 112 qmm_mma per
+   verify, 28 flash_prefill per greedy prompt, EAGLE == greedy under the
+   near-tie rule). The launches of the Qwen2.5 and Gemma-7B default paths
+   and of the other two's first timed graphed runs stand in the `kernels`
+   line as `families_path_launches`; the flash rows also carry
+   `head_dim_256` (phase 2's Gemma-7B bf16 times, the gemma cell's
+   launches).
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -990,7 +1006,120 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
     del k_cache, v_cache
     torch.cuda.empty_cache()
     report["attention_gqa"] = gqa_checks(gen)
+    report["attention_d256"] = head256_checks(gen)
     return decode, prefill
+
+
+#: (query heads, KV heads) of the head-width-256 layouts (each config.json):
+#: Gemma-7B (g = 1), Gemma-2-9B (g = 2), Gemma-2B (g = 8)
+GEMMA_HEADS = {"gemma-7b": (16, 16), "gemma-2-9b": (16, 8), "gemma-2b": (8, 1)}
+F32_ATTN_TOL = 1e-4  # f32 cache: the SIMT body's exact FMAs, summed in another order
+
+
+def head256_checks(gen) -> list[dict]:
+    """Both flash kernels at D = 256 against their plain versions, bf16
+    and f32 caches, at GEMMA_HEADS' layouts: decode (T = 1) and a K = 5
+    verify (T = 6) over S = 1,024 (906 tokens with a hole) at s_limit 300
+    and 1,024, row 3 of each T = 6 call fully masked; a 512-row prompt over
+    300 tagged slots, its rows 100 (inside a 64-row tile) and 504-511 with
+    q_pos = -1. Each fully masked row must be the uniform average of V over
+    [0, s_limit). The s_limit 1,024 calls and the prompt are timed: kernel,
+    plain, bound and SDPA (`enable_gqa` where g > 1). Tolerance: bf16
+    ATTN_TOL, f32 F32_ATTN_TOL."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.ops import flash_attention as fa
+    from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+
+    b, d, s, layer = 1, 256, 1024, 1
+    out = []
+    for model, (h, h_kv) in GEMMA_HEADS.items():
+        g = h // h_kv
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL if dtype == torch.bfloat16 else F32_ATTN_TOL
+            kc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(dtype)
+            vc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(dtype)
+            cases = []
+            for t in (1, VERIFY_ROWS):
+                tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+                tags[:, :900 + t] = torch.arange(900 + t, dtype=torch.int32, device="cuda")
+                tags[:, 100:140] = -1
+                pos = (900 + torch.arange(t, dtype=torch.int32, device="cuda"))[None]
+                for lim in (300, s):
+                    mask = causal_mask_from_tags(tags[:, :lim], pos)
+                    masked = 3 if t > 1 else None
+                    if masked is not None:
+                        mask[:, masked] = False
+                    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+                    cases.append(("flash_decode", t, lim, masked, q, dict(mask=mask)))
+            t, n, lim = 512, 300, 512
+            tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+            tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+            q_pos = torch.arange(t, dtype=torch.int32, device="cuda")[None].clone()
+            q_pos[:, -8:] = -1
+            q_pos[:, 100] = -1
+            q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+            cases.append(("flash_prefill", t, lim, 100, q, dict(q_pos=q_pos, tags=tags)))
+            for name, t, lim, masked, q, kw in cases:
+                if name == "flash_decode":
+                    run = lambda i: fa.flash_attention_cached(  # noqa: E731
+                        q, kc, vc, kw["mask"], layer, s_limit=lim)
+                    plain = lambda i: fa.flash_attention_cached_plain(  # noqa: E731
+                        q, kc, vc, kw["mask"], layer, s_limit=lim)
+                    vis = kw["mask"]
+                else:
+                    run = lambda i: fa.flash_attention_prefill(  # noqa: E731
+                        q, kc, vc, kw["q_pos"], kw["tags"], layer, s_limit=lim)
+                    plain = lambda i: fa.flash_attention_prefill_plain(  # noqa: E731
+                        q, kc, vc, kw["q_pos"], kw["tags"], layer, s_limit=lim)
+                    tg = kw["tags"][:, None, :lim]
+                    vis = (tg >= 0) & (tg <= kw["q_pos"][:, :, None])
+                got = run(0)
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(got, plain(0))
+                rel_u = 0.0
+                if masked is not None:
+                    uniform = vc[layer, :, :, :lim].float().mean(dim=2).repeat_interleave(g, dim=1)
+                    rel_u = rel_err(got[:, masked], uniform)[1]
+                    if name == "flash_prefill":
+                        rel_u = max(rel_u, rel_err(got[:, -1], uniform)[1])
+                if rel > tol or rel_u > tol or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{name} D=256 {model} {dtype} T={t} s_limit={lim}: "
+                                         f"rel err {rel:.3e}, masked row {rel_u:.3e} > {tol}")
+                res = dict(name=name, model=model, h=h, h_kv=h_kv, g=g, d=d,
+                           dtype=str(dtype).replace("torch.", ""), t=t, s=lim,
+                           max_abs_err=abs_err, rel_err=rel, masked_row_rel_err=rel_u,
+                           plan=fa._plan(t * g, lim, d, dtype, b * h_kv,
+                                         name == "flash_prefill")._asdict())
+                if lim == s or name == "flash_prefill":
+                    reps = 50 if t < 512 else 10
+                    res["ms"] = device_ms(run, reps)
+                    res["plain_ms"] = device_ms(plain, 10 if t < 512 else 5)
+                    qs = q.transpose(1, 2).to(dtype)
+                    am = vis[:, None].clone()
+                    am[..., 0] |= ~am.any(dim=-1)  # SDPA gives NaN on rows that see nothing
+                    kl, vl = kc[layer, :, :, :lim], vc[layer, :, :, :lim]
+                    res["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
+                        qs, kl, vl, attn_mask=am, enable_gqa=g > 1), reps)
+                    if name == "flash_decode":
+                        b_ms, b_by = bound_ms(2 * b * h_kv * lim * d * kc.element_size()
+                                              + nbytes(q, kw["mask"]) + q.numel() * 4,
+                                              4.0 * b * h * t * lim * d)
+                    else:
+                        b_ms, b_by = prefill_bound(q, kc, kw["q_pos"], kw["tags"], lim)
+                    res.update(bound_ms=b_ms, bound_by=b_by)
+                out.append(res)
+                timed = (f"  kernel {res['ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  bound "
+                         f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']})  SDPA "
+                         f"{res['library_ms']:.4f} ms" if "ms" in res else "")
+                log(f"[flash d256] {name} {model} H={h}/{h_kv} (g={g}) {res['dtype']} T={t} "
+                    f"S={lim}{timed}  rel err {rel:.2e}"
+                    + (f", masked row = uniform ({rel_u:.1e})" if masked is not None else "")
+                    + f"; rows {res['plan']['rows_per_block']}, splits {res['plan']['splits']}")
+            del kc, vc
+            torch.cuda.empty_cache()
+    return out
 
 
 #: a chat turn's feed at an offset (`Generator._extend`): (T, real rows n,
@@ -1312,7 +1441,9 @@ def profile_cycles(eng, prompt, tag: str, cycles: int = 4) -> dict:
     return out
 
 
-REPS = 3  # timed runs of each variant: min / median / max, the host's spread
+#: timed runs of each variant: min / median / max, the host's spread; two,
+#: not three, keep the script in its time budget
+REPS = 2
 #: an eager variant runs once: it holds the graphed runs' tokens, and no user
 #: path runs eagerly (it kept the script's time within its budget)
 EAGER_REPS = 1
@@ -1324,8 +1455,9 @@ VARIANTS = (("greedy graphed", True, None), ("eagle graphed C=1", True, 1),
 
 
 def spread(xs: list) -> dict:
-    s = sorted(xs)
-    return {"min": s[0], "median": s[len(s) // 2], "max": s[-1], "in_run_order": xs}
+    s, n = sorted(xs), len(xs)
+    return {"min": s[0], "median": (s[(n - 1) // 2] + s[n // 2]) / 2, "max": s[-1],
+            "in_run_order": xs}
 
 
 def fmt(s: dict, digits: int = 2) -> str:
@@ -1976,10 +2108,11 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     `layer_type` "Q4_K" lays the target out as Q4_K_M does (layers and
     token_embd Q4_K), `rope_factors` adds `rope_freqs.weight` (Llama-3.1),
     and `tied` leaves out `output.weight` and makes token_embd Q6_K, the
-    head (Llama-3.2-1B / 3B). `arch` "qwen2", "qwen3" or "gemma2" writes the
-    target under that architecture with its tensors (qwen2: q/k/v biases;
-    qwen3: per-head q/k norms; gemma2: the post-attention and post-FFN
-    norms), `head_dim` a head width other than d / n_heads (both files).
+    head (Llama-3.2-1B / 3B). `arch` "qwen2", "qwen3", "gemma" or "gemma2"
+    writes the target under that architecture with its tensors (qwen2:
+    q/k/v biases; qwen3: per-head q/k norms; gemma2: the post-attention and
+    post-FFN norms; gemma: none), `head_dim` a head width other than d /
+    n_heads (both files).
     Weights are random quant blocks, at magnitudes that give Q4_0's weight
     RMS (~6e-3) in either layout."""
     import torch
@@ -2367,7 +2500,7 @@ def cli_path(report: dict, target, draft) -> None:
     subprocesses, then one `Engine` (the chain, the CLI's defaults, graphed)
     and from its loaded params `Generator`, the chain at C = 1 and 4, the
     static tree (4, 2, 2) and EAGLE-2 (8, 6, 32), all sampled at the CLI's
-    defaults: each eager once, graphed once to capture and 3 timed graphed
+    defaults: each eager once, graphed once to capture and 2 timed graphed
     runs, all from seed 0 and all giving the same tokens bit for bit, no
     eager body after the capture, launches per token and per cycle as the
     greedy cells'. Then `flat_sampler_checks`, and at temp 0 each engine
@@ -3222,7 +3355,7 @@ def serve_path(report: dict, target, draft, tmp: pathlib.Path) -> dict:
     each slot's tokens equal the graphed single-sequence chain's up to the
     near-tie rule; a second graphed run gives the same tokens with no eager
     body; the eager batched run the same tokens bit for bit. Then 1, 2 and
-    4 concurrent requests of the 300-token prompt, 3 runs each (`[serve]`
+    4 concurrent requests of the 300-token prompt, 2 runs each (`[serve]`
     lines: aggregate tokens/s, TTFT per request, the host's ms per step),
     the device ms per batched cycle at B = 4 (CUDA events over replays),
     the idle share and the launches per cycle; the spec_k check
@@ -4366,7 +4499,7 @@ INFILL_TEXT = ("def fib(n):\n    a, b = 0, 1\n    for _ in range(n):\n        ",
 
 def model_free_cell(tag: str, eng, ids: list, greedy: list, gen, make_replay) -> dict:
     """`eng` (a LookaheadEngine or LookupEngine on the card) on `ids`, 64 new
-    tokens, stop at EOS off: eager (graphs off) and graphed, 3 timed runs
+    tokens, stop at EOS off: eager (graphs off) and graphed, 2 timed runs
     each after one graphed run that captures; graphed == eager bit for bit,
     the tokens == greedy's up to the near-tie rule, the launches of a step
     (`STEP_LAUNCHES`, a replay counting as an eager step) and of a whole
@@ -5448,7 +5581,7 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
     EAGLE-LLaMA3-Instruct-8B-shape Q8_0 draft, minted into `tmp`, loaded
     through `Engine`; the kernels at the path's new shapes against their
     plain versions; `serve_cell` on a ~300-token prompt of BPE text (greedy
-    and the EAGLE chain at C = 1 and 4, eager and graphed, 3 runs each: 129
+    and the EAGLE chain at C = 1 and 4, eager and graphed, 2 runs each: 129
     qmm_gemv per decoded token, 129 qmm_mma per verify cycle); the CLI and
     the server as subprocesses; a chat session that shifts; then the tied
     Llama-3.2-3B-shape file (`tied_cell`). Returns the launches of the 8B
@@ -5538,13 +5671,18 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
 
 
 #: the published configs (each model's config.json): Qwen2.5-7B-Instruct,
-#: Qwen3-8B and Gemma-2-9B
+#: Qwen3-8B, Gemma-2-9B and Gemma-7B (google/gemma-7b: the query 16 x 256 =
+#: 4,096 wide over n_embd 3,072). Qwen3-8B and Gemma-2-9B run at half their
+#: published depth (18 of 36, 21 of 42 layers; widths whole) to keep the
+#: script in its time budget
 QWEN25_7B = dict(d=3584, f=18944, v=152064, n_layers=28, n_heads=28, n_kv_heads=4,
                  head_dim=128, ctx=32768, rope_base=1000000.0)
-QWEN3_8B = dict(d=4096, f=12288, v=151936, n_layers=36, n_heads=32, n_kv_heads=8,
+QWEN3_8B = dict(d=4096, f=12288, v=151936, n_layers=18, n_heads=32, n_kv_heads=8,
                 head_dim=128, ctx=40960, rope_base=1000000.0)
-GEMMA2_9B = dict(d=3584, f=14336, v=256000, n_layers=42, n_heads=16, n_kv_heads=8,
+GEMMA2_9B = dict(d=3584, f=14336, v=256000, n_layers=21, n_heads=16, n_kv_heads=8,
                  head_dim=256, ctx=8192, rope_base=10000.0)
+GEMMA_7B = dict(d=3072, f=24576, v=256000, n_layers=28, n_heads=16, n_kv_heads=16,
+                head_dim=256, ctx=8192, rope_base=10000.0)
 GEMMA2_MD = {"gemma2.attn_logit_softcapping": 50.0, "gemma2.final_logit_softcapping": 30.0,
              "gemma2.attention.sliding_window": 4096,
              "gemma2.attention.query_pre_attn_scalar": 256}
@@ -5568,8 +5706,9 @@ FAMILY_PROMPT_TOKENS = 300
 #: launches per decoded token: 4 stacked products a layer + lm_head; a
 #: flash_decode a layer; Gemma-2's tied head and softcapped attention take none
 QWEN25_GEMV, QWEN25_FLASH = 28 * 4 + 1, 28
-QWEN3_GEMV, QWEN3_FLASH = 36 * 4 + 1, 36
-GEMMA2_GEMV = 42 * 4
+QWEN3_GEMV, QWEN3_FLASH = QWEN3_8B["n_layers"] * 4 + 1, QWEN3_8B["n_layers"]
+GEMMA2_GEMV = GEMMA2_9B["n_layers"] * 4
+GEMMA7_GEMV, GEMMA7_FLASH = 28 * 4, 28  # the tied head is no qmm
 
 
 def qwen_vocab(seed: int, v: int) -> tuple[dict, list]:
@@ -5706,7 +5845,7 @@ def qwen25_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     pre-tokenizer, chatml) and an EAGLE-Qwen2-7B-Instruct-shape Q8_0 draft;
     qmm at the path's shapes at 1, 6 and 300 rows and both flash kernels at
     g = 7; `serve_cell` (greedy and the chain at C = 1 and 4, eager and
-    graphed, 3 runs each): 113 qmm_gemv and 28 flash_decode per decoded
+    graphed, 2 runs each): 113 qmm_gemv and 28 flash_decode per decoded
     token, 113 qmm_mma per verify. Returns (the cell, the default path's
     launches)."""
     import numpy as np
@@ -5748,8 +5887,8 @@ def qwen25_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
 def qwen3_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     """Qwen3-8B's shape (per-head q/k norms; 32 over 8 KV heads of 128: the
     flash kernels' shapes of phase llama3) with a 151,936-entry vocabulary:
-    qmm at 1 and 300 rows, then `greedy_cell` (145 qmm_gemv, 36
-    flash_decode per decoded token)."""
+    qmm at 1 and 300 rows, then `greedy_cell` (4 qmm_gemv a layer + 1 and a
+    flash_decode a layer per decoded token)."""
     c = QWEN3_8B
     vocab, words = qwen_vocab(seed=103, v=c["v"])
     eng, files = family_load("qwen3-8b", c, tmp, 107, vocab, "qwen3", with_draft=False)
@@ -5809,12 +5948,12 @@ def gemma_attention_checks(gen, cfg) -> list:
 
 
 def gemma2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
-    """Gemma-2-9B's shape (42 layers, 16 over 8 KV heads of 256, sandwich
+    """Gemma-2-9B's shape (GEMMA2_9B's layers, 16 over 8 KV heads of 256, sandwich
     norms, GELU, softcaps 50 / 30, a 4,096-slot window on even layers,
     query_pre_attn_scalar 256, a tied Q6_K table of 256,000 SPM pieces, a
     gemma template): qmm at 1 and 300 rows, the plain attention and the
-    tied head timed, then `greedy_cell` (168 qmm_gemv per decoded token, no
-    flash kernel at all)."""
+    tied head timed, then `greedy_cell` (4 qmm_gemv a layer per decoded
+    token, no flash kernel at all)."""
     from eagle_tpu_torch.server.chat_templates import detect_template
 
     c = GEMMA2_9B
@@ -5841,12 +5980,66 @@ def gemma2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     return out, launches
 
 
+def gemma_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
+    """Gemma-7B's shape (28 layers, 16 / 16 heads of 256 over n_embd
+    3,072, n_ff 24,576, GELU, the sqrt(n_embd) embedding scale, no softcap
+    or window: its attention on the flash kernels at D = 256) with a tied
+    Q6_K table of 256,000 SPM pieces and a gemma template, and an EAGLE
+    Q8_0 draft minted at the target's widths: qmm at the path's shapes
+    (wqkv N 12,288, wo K 4,096, w_gate_up N 49,152, w_down K 24,576) at 1,
+    6 and 300 rows and the draft's fc, the tied "nk" head timed (the draft
+    borrows it: 6 calls a chain cycle); `serve_cell` (greedy and the chain
+    at C = 1 and 4, eager and graphed, 2 runs each): 112 qmm_gemv and 28
+    flash_decode per decoded token, 112 qmm_mma per verify, 28
+    flash_prefill per greedy prompt. Returns (the cell, the default path's
+    launches)."""
+    import numpy as np
+
+    from eagle_tpu_torch.server.chat_templates import detect_template
+
+    c = GEMMA_7B
+    vocab = {**spm_vocab(c["v"], seed=137), "tokenizer.chat_template": GEMMA_TEMPLATE}
+    eng, files = family_load("gemma-7b", c, tmp, 139, vocab, "gemma", with_draft=True,
+                             tied=True)
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    if ((cfg.act, cfg.embd_scale, cfg.attn_softcap, cfg.swa_window, cfg.post_norms)
+            != ("gelu", c["d"] ** 0.5, 0.0, 0, False) or cfg.n_q_dim != 4096
+            or params["output"] is not params["tok_embd"]
+            or detect_template(eng.metadata["tokenizer.chat_template"]) != "gemma"
+            or (dcfg.arch, dcfg.n_heads, dcfg.head_dim) != ("eagle", 16, 256)):
+        raise AssertionError(f"gemma: the files did not load as Gemma-7B + EAGLE: {cfg}, "
+                             f"{dcfg}")
+    ids = eng.tokenizer.encode(cli_prompt(vocab["tokenizer.ggml.tokens"], FAMILY_PROMPT_TOKENS,
+                                          seed=149))
+    out = {"files": files, "prompt_tokens": len(ids)}
+    out["qmm"] = family_kernels("gemma", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma", "verify cycle"),
+        (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft)
+    out["head"] = nk_head_check("families kernel", params["output"], cfg)
+    want_tok = {"qmm_gemv": GEMMA7_GEMV, "flash_decode": GEMMA7_FLASH, "ffn_out_norm": 0,
+                "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("gemma", params, draft, cfg, dcfg, np.asarray(ids), FAMILY_NEW,
+                      want_tok, GEMMA7_GEMV, fused=False)
+    cell.pop("gen")
+    prompt = cell["variants"]["greedy graphed"]["launches_at_first_token"]
+    if prompt["flash_prefill"] != GEMMA7_FLASH or prompt["flash_decode"]:
+        raise AssertionError(f"gemma: the greedy prompt's attention launches {prompt}, "
+                             f"expected {GEMMA7_FLASH} flash_prefill")
+    log(f"[gemma] the greedy prompt: {prompt['flash_prefill']} flash_prefill, "
+        f"{prompt['qmm_tc']} qmm_tc; EAGLE == greedy: "
+        f"{cell['eagle_tokens'] == cell['greedy_tokens']}")
+    out["cell"] = cell
+    return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
+
+
 def families_path(report: dict, tmp: pathlib.Path) -> dict:
-    """Phase families: the Qwen2.5-7B-Instruct (+ EAGLE), Qwen3-8B and
-    Gemma-2-9B cells, each minted into `tmp`, loaded through `Engine`, its
-    kernels checked at its shapes, run, and freed before the next. Returns
-    the launches of the Qwen2.5 default path (greedy + EAGLE graphed at C =
-    1) and of the first timed graphed run of the other two, added."""
+    """Phase families: the Qwen2.5-7B-Instruct (+ EAGLE), Qwen3-8B,
+    Gemma-2-9B and Gemma-7B (+ EAGLE) cells, each minted into `tmp`, loaded
+    through `Engine`, its kernels checked at its shapes, run, and freed
+    before the next. Returns the launches of the Qwen2.5 and Gemma-7B
+    default paths (greedy + EAGLE graphed at C = 1) and of the first timed
+    graphed run of the other two, added."""
     import gc
     import shutil
 
@@ -5858,7 +6051,7 @@ def families_path(report: dict, tmp: pathlib.Path) -> dict:
     out: dict = {}
     launches: dict = {}
     for name, cell in (("qwen2.5", qwen25_cell), ("qwen3", qwen3_cell),
-                       ("gemma2", gemma2_cell)):
+                       ("gemma2", gemma2_cell), ("gemma", gemma_cell)):
         t0 = time.time()
         out[name], part = cell(tmp, gen)
         gc.collect()
@@ -6187,10 +6380,10 @@ def main() -> int:
                "qmm_gemv": "eagle_tpu_torch/csrc/qmm_gemv.cuh",
                "flash_decode": "eagle_tpu_torch/csrc/flash_attention.cu",
                "flash_prefill": "eagle_tpu_torch/csrc/flash_attention.cu",
-               "ffn_out_norm": "eagle_tpu_torch/csrc/ffn.cu",
-               "gate_up_act": "eagle_tpu_torch/csrc/ffn.cu",
+               "ffn_out_norm": "eagle_tpu_torch/csrc/ffn_tensor_core.cu",
+               "gate_up_act": "eagle_tpu_torch/csrc/ffn_tensor_core.cu",
                "qmm_i4": "eagle_tpu_torch/csrc/qmm_i4.cu",
-               "qmm_tc": "eagle_tpu_torch/csrc/qmm.cu",
+               "qmm_tc": "eagle_tpu_torch/csrc/qmm_tc.cuh",
                "qmm_i4_tc": "eagle_tpu_torch/csrc/qmm_i4.cu",
                "qmm_mma": "eagle_tpu_torch/csrc/qmm_mma.cuh",
                "qmm_i4_mma": "eagle_tpu_torch/csrc/qmm_mma.cuh"}
@@ -6210,6 +6403,19 @@ def main() -> int:
                 "families_path_launches": families_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
+    def d256_row(name, t):
+        """The kernel at Gemma-7B's D = 256 shape (bf16, phase 2) and its
+        launches in the gemma cell's default path."""
+        r = next(r for r in report["attention_d256"] if (r["name"], r["model"], r["dtype"],
+                                                         r["t"]) == (name, "gemma-7b",
+                                                                     "bfloat16", t)
+                 and "ms" in r)
+        gemma = report["families_path"]["gemma"]["cell"]["variants"]["eagle graphed C=1"]
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "max_abs_err")} | {
+            "shape": f"T={t}, S={r['s']}, 16 heads x 256 (Gemma-7B), bf16 cache",
+            "gemma_path_launches": gemma["launches"][name]}
+
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
              shape="SIMT body (csrc/qmm_body.cuh): Q4_0 [4001 x 4096], 1 row (N % 4 != 0)",
@@ -6223,9 +6429,11 @@ def main() -> int:
                  "qmm_gemv"],
              launches_from="phases 3-4: greedy decode and the EAGLE draft"),
         dict(row("flash_decode", "eagle_tpu/ops/pallas_attention.py:116", dec_row),
-             shape="T=1, S=1024, 32 heads x 128, bf16 cache"),
+             shape="T=1, S=1024, 32 heads x 128, bf16 cache",
+             head_dim_256=d256_row("flash_decode", 1)),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
              shape="T=512, S=512, 32 heads x 128, bf16 cache",
+             head_dim_256=d256_row("flash_prefill", 512),
              chat_feeds=[{k: v for k, v in r.items() if k in (
                  "t", "n", "q0", "s", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err")} for r in report["attention"] if "feed" in r.get("what", "")]),

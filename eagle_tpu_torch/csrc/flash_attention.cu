@@ -45,10 +45,20 @@
 //   runs in the log2 domain (exp2 with a log2(e) factor on the scaled
 //   score); a masked score is the constant -1e30 * log2(e) and m starts
 //   there, so a fully masked row still gets p = 1 for every key.
+//   At D = 256 a lane's q fragments (64 registers) and output (128) would
+//   leave too few registers for the scores: the block's q rows stay in
+//   shared memory instead (bf16, swizzled as K, after the ring), and each
+//   k16 step of QK^T reloads its A fragments with ldmatrix, as
+//   FlashAttention-2 does at that width. A stage is then 64 KB of K and V,
+//   so the ring has two stages and a block has the SM to itself. There a
+//   warp that sees every key of its rows (64 and 128 rows) still runs out
+//   of registers under flash_decode's mask reads, so flash_decode takes
+//   blocks of 16 or 32 rows at D = 256 (flash_prefill all four).
 // - f32 cache: the SIMT body (flash_body): one warp owns RPW query rows and
 //   one lane one key of a 32-key tile; exact f32 FMAs, as the tests and the
 //   tiny model's f32 path expect (the tensor cores' TF32 would change the
-//   numbers).
+//   numbers). Its tiles live in dynamic shared memory; at D = 256 a warp
+//   owns one row (four rows' outputs would not fit in registers).
 // Few query rows give few blocks, so both bodies also split the key range
 // across blocks (flash-decoding): each split writes its (m, l, acc) and a
 // combine kernel merges them. No key tile is skipped: a row that sees no
@@ -90,17 +100,27 @@ struct Args {
   float scale;
 };
 
+// Dynamic shared memory of the SIMT body: q [rows][D] f32, then the K tile
+// [32][D + one 32-bit word] and the V tile [32][D].
+template <typename T, int D, int RPW>
+struct SimtShape {
+  static constexpr int kRows = kWarps * RPW;
+  static constexpr int kStride = D + 4 / sizeof(T);  // one 32-bit word per key row
+  static constexpr int kQs = kRows * D * 4;
+  static constexpr int kKs = kTile * kStride * sizeof(T);
+  static constexpr int kSmem = kQs + kKs + kTile * D * sizeof(T);
+};
+
 template <typename T, int D, int RPW, bool TAGS>
 __device__ __forceinline__ void flash_body(const Args& a) {
-  constexpr int kPad = 4 / sizeof(T);  // one 32-bit word per key row
-  constexpr int kStride = D + kPad;
-  constexpr int kRows = kWarps * RPW;
+  using Sh = SimtShape<T, D, RPW>;
+  constexpr int kStride = Sh::kStride;
+  constexpr int kRows = Sh::kRows;
   constexpr int kDL = D / 32;  // output features per lane
-  __shared__ float qs[kRows][D];
-  __shared__ __align__(16) unsigned char ks_raw[kTile * kStride * sizeof(T)];
-  __shared__ __align__(16) unsigned char vs_raw[kTile * D * sizeof(T)];
-  T* ks = reinterpret_cast<T*>(ks_raw);
-  T* vs = reinterpret_cast<T*>(vs_raw);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*qs)[D] = reinterpret_cast<float(*)[D]>(smem);
+  T* ks = reinterpret_cast<T*>(smem + Sh::kQs);
+  T* vs = reinterpret_cast<T*>(smem + Sh::kQs + Sh::kKs);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = a.H / a.H_kv;
@@ -244,23 +264,31 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;  // a masked score, log2 domain
 constexpr int kTwoBlockSmem = 115712;  // a ring that lets two blocks share an SM
+constexpr int kMaxSmem = 232448;  // what one block may opt into
 
 // Shared memory of one block (ops/flash_attention.py:_plan computes the same
 // sizes). A stage holds K [64][D] and V [64][D] bf16, then the mask tile
 // [RB][64] bytes (decode) or 64 int32 tags (prefill). The 16-byte chunk c of
 // key row r lies at chunk c ^ (r & 7) of its row, so the eight rows that one
-// ldmatrix reads hit 32 distinct banks without padding. After the key loop
-// the ring is reused to merge the warps' (acc, m, l).
+// ldmatrix reads hit 32 distinct banks without padding. At D = 256 the
+// block's q rows [RB][D] bf16 follow the ring, swizzled the same way. A
+// third stage is taken where it fits: beside a second block on the SM below
+// 128 rows, in one block's limit at 128. After the key loop the ring is
+// reused to merge the warps' (acc, m, l).
 template <int D, int RB, bool TAGS>
 struct TcShape {
   static constexpr int kWarps = RB > 64 ? RB / 16 : 4;  // 128 rows: 8 warps
   static constexpr int kKV = kKeys * D * 2;
   static constexpr int kExtra = TAGS ? kKeys * 4 : RB * kKeys;
   static constexpr int kStage = 2 * kKV + kExtra;
-  static constexpr int kStages = RB > 64 || 3 * kStage <= kTwoBlockSmem ? 3 : 2;
+  static constexpr bool kQSmem = D > 128;  // q fragments reloaded from shared memory
+  static constexpr int kQ = kQSmem ? RB * D * 2 : 0;
+  static constexpr int kStages = 3 * kStage + kQ <= (RB > 64 ? kMaxSmem : kTwoBlockSmem) ? 3 : 2;
+  static constexpr int kRing = kStages * kStage;
   static constexpr int kMergeStride = D + 4;  // floats per merged row: no bank conflicts
   static constexpr int kMerge = kWarps * 16 * (kMergeStride + 2) * 4;
-  static constexpr int kSmem = kStages * kStage > kMerge ? kStages * kStage : kMerge;
+  static constexpr int kSmem = kRing + kQ > kMerge ? kRing + kQ : kMerge;
+  static constexpr int kMinBlocks = RB > 64 || kQSmem ? 1 : 2;  // blocks per SM
 };
 
 __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0, exp2(0) = 1
@@ -270,7 +298,8 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0, exp2(0
 }
 
 template <int D, int RB, bool TAGS>
-__global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32, RB > 64 ? 1 : 2)
+__global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
+                                  TcShape<D, RB, TAGS>::kMinBlocks)
     flash_tc_kernel(Args a) {
   using S = TcShape<D, RB, TAGS>;
   constexpr int kWarps = S::kWarps;
@@ -343,7 +372,7 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32, RB > 64 ? 1
   // q fragments of the warp's 16 rows, rounded to bf16 (A layout of m16n8k16)
   const int rA = row0 + (warp / KW) * 16 + qr;
   const int rows[2] = {rA, rA + 8};
-  uint32_t qa[KD][4];
+  uint32_t qa[S::kQSmem ? 1 : KD][4];
   int qpos[2], tl[2], tlr[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -354,16 +383,36 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32, RB > 64 ? 1
     qpos[hr] = (TAGS && real) ? a.q_pos[(size_t)b * a.T + t] : -1;
     tl[hr] = real ? t - t_lo : -1;
     tlr[hr] = real ? t - t_lo : 0;  // a mask tile row that may be read
+    if constexpr (!S::kQSmem) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+      for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        // the wrapper passes q 16-byte aligned and D is even: float2 loads
-        const float2 v = real ? *reinterpret_cast<const float2*>(qrow + kk * 16 + half * 8 + 2 * qc)
-                              : make_float2(0.f, 0.f);
-        qa[kk][half * 2 + hr] = pack_bf16(v.x, v.y);
+        for (int half = 0; half < 2; ++half) {
+          // the wrapper passes q 16-byte aligned and D is even: float2 loads
+          const float2 v =
+              real ? *reinterpret_cast<const float2*>(qrow + kk * 16 + half * 8 + 2 * qc)
+                   : make_float2(0.f, 0.f);
+          qa[kk][half * 2 + hr] = pack_bf16(v.x, v.y);
+        }
       }
     }
+  }
+  if constexpr (S::kQSmem) {  // the block's q rows, bf16, into shared memory after the ring
+    unsigned char* qs = smem + S::kRing;
+    constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
+    for (int c = threadIdx.x; c < RB * kChunks; c += kThreads) {
+      const int rr = c / kChunks, part = c % kChunks, r = row0 + rr;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < TG) {  // 16-byte aligned: the wrapper aligns q and D * 4 is a multiple of 16
+        const int t = r / gq;
+        const float4* src = reinterpret_cast<const float4*>(
+            a.q + (((size_t)b * a.T + t) * a.H + kvh * gq + (r - t * gq)) * D + part * 8);
+        const float4 x0 = src[0], x1 = src[1];
+        val = make_uint4(pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w), pack_bf16(x1.x, x1.y),
+                         pack_bf16(x1.z, x1.w));
+      }
+      *reinterpret_cast<uint4*>(qs + rr * D * 2 + ((part ^ (rr & 7)) << 4)) = val;
+    }  // read after the key loop's first __syncthreads
   }
 
   float o[ND][4];
@@ -388,18 +437,41 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32, RB > 64 ? 1
     const int s0 = s_begin + j * kKeys;
 
     float sc[NB][4];
+    if constexpr (S::kQSmem) {
+      // row (warp / KW) * 16 + (lane & 15) of the q tile: lanes 16-31 read
+      // the second 8 columns of a k16 step (A fragments' register order)
+      const uint32_t qrow = smem_u32(smem + S::kRing) + ((warp / KW) * 16 + (lane & 15)) * D * 2;
 #pragma unroll
-    for (int jb = 0; jb < NB; ++jb) {
-      sc[jb][0] = sc[jb][1] = sc[jb][2] = sc[jb][3] = 0.f;
+      for (int jb = 0; jb < NB; ++jb) sc[jb][0] = sc[jb][1] = sc[jb][2] = sc[jb][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; kk += 2) {
-        uint32_t kb[4];  // B fragments of k16 steps kk and kk + 1
-        // rows kw0 + jb*8 + (lane & 7): chunks 2kk .. 2kk + 3, swizzled
-        ldmatrix_x4(ks + (kw0 + jb * 8 + (lane & 7)) * D * 2 +
-                        (((kk * 2 + (lane >> 3)) ^ (lane & 7)) << 4),
-                    kb);
-        mma_bf16(sc[jb], qa[kk], kb[0], kb[1]);
-        mma_bf16(sc[jb], qa[kk + 1], kb[2], kb[3]);
+        uint32_t qf[2][4];  // A fragments of k16 steps kk and kk + 1
+        ldmatrix_x4(qrow + (((kk * 2 + (lane >> 4)) ^ (lane & 7)) << 4), qf[0]);
+        ldmatrix_x4(qrow + (((kk * 2 + 2 + (lane >> 4)) ^ (lane & 7)) << 4), qf[1]);
+#pragma unroll
+        for (int jb = 0; jb < NB; ++jb) {
+          uint32_t kb[4];  // B fragments of k16 steps kk and kk + 1
+          ldmatrix_x4(ks + (kw0 + jb * 8 + (lane & 7)) * D * 2 +
+                          (((kk * 2 + (lane >> 3)) ^ (lane & 7)) << 4),
+                      kb);
+          mma_bf16(sc[jb], qf[0], kb[0], kb[1]);
+          mma_bf16(sc[jb], qf[1], kb[2], kb[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb) {
+        sc[jb][0] = sc[jb][1] = sc[jb][2] = sc[jb][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; kk += 2) {
+          uint32_t kb[4];  // B fragments of k16 steps kk and kk + 1
+          // rows kw0 + jb*8 + (lane & 7): chunks 2kk .. 2kk + 3, swizzled
+          ldmatrix_x4(ks + (kw0 + jb * 8 + (lane & 7)) * D * 2 +
+                          (((kk * 2 + (lane >> 3)) ^ (lane & 7)) << 4),
+                      kb);
+          mma_bf16(sc[jb], qa[kk], kb[0], kb[1]);
+          mma_bf16(sc[jb], qa[kk + 1], kb[2], kb[3]);
+        }
       }
     }
 
@@ -601,13 +673,20 @@ int grid_y(const Args& a, int rows_per_block) {
 }
 
 template <int D, int RPW>
-void launch_simt(bool tags, const Args& a, cudaStream_t st) {
-  const dim3 grid(a.B * a.H_kv, grid_y(a, kWarps * RPW), a.splits);
-  if (tags) {
-    flash_prefill_kernel<float, D, RPW><<<grid, kWarps * 32, 0, st>>>(a);
-  } else {
-    flash_decode_kernel<float, D, RPW><<<grid, kWarps * 32, 0, st>>>(a);
+int launch_simt(bool tags, const Args& a, cudaStream_t st) {
+  constexpr int kSmem = SimtShape<float, D, RPW>::kSmem;
+  void (*kern)(Args) = flash_decode_kernel<float, D, RPW>;
+  if (tags) kern = flash_prefill_kernel<float, D, RPW>;
+  static bool attr_set[2] = {false, false};  // above 48 KB a block must ask for its shared memory
+  if (kSmem > 48 * 1024 && !attr_set[tags]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[tags] = true;
   }
+  const dim3 grid(a.B * a.H_kv, grid_y(a, kWarps * RPW), a.splits);
+  kern<<<grid, kWarps * 32, kSmem, st>>>(a);
+  return 0;
 }
 
 template <int D, int RB, bool TAGS>
@@ -631,10 +710,12 @@ int dispatch_tc_rb(int rows_per_block, const Args& a, int smem_bytes, cudaStream
   switch (rows_per_block) {
     case 16: return launch_tc<D, 16, TAGS>(a, smem_bytes, st);
     case 32: return launch_tc<D, 32, TAGS>(a, smem_bytes, st);
-    case 64: return launch_tc<D, 64, TAGS>(a, smem_bytes, st);
-    case 128: return launch_tc<D, 128, TAGS>(a, smem_bytes, st);
-    default: return (int)cudaErrorInvalidValue;
   }
+  if constexpr (D <= 128 || TAGS) {  // D = 256 flash_decode: 16 or 32 rows
+    if (rows_per_block == 64) return launch_tc<D, 64, TAGS>(a, smem_bytes, st);
+    if (rows_per_block == 128) return launch_tc<D, 128, TAGS>(a, smem_bytes, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -644,14 +725,11 @@ int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_b
     return tags ? dispatch_tc_rb<D, true>(rows_per_block, a, smem_bytes, st)
                 : dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
   }
-  if (rows_per_block == kWarps) {
-    launch_simt<D, 1>(tags, a, st);
-  } else if (rows_per_block == 4 * kWarps) {
-    launch_simt<D, 4>(tags, a, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  if (rows_per_block == kWarps) return launch_simt<D, 1>(tags, a, st);
+  if constexpr (D <= 128) {  // D = 256: one row per warp
+    if (rows_per_block == 4 * kWarps) return launch_simt<D, 4>(tags, a, st);
   }
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -659,11 +737,12 @@ int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_b
 // tags = 0: flash_decode (mask given); tags = 1: flash_prefill (q_pos and
 // slot_pos given). k/v point at the layer's [B, H_kv, S_full, D] block,
 // batch rows batch_stride elements apart (H_kv * S_full * D when whole).
-// D in {64, 128}. A bf16 cache takes the tensor-core body with
-// rows_per_block in {16, 32, 64, 128} and smem_bytes its dynamic shared memory;
-// an f32 cache the SIMT body with rows_per_block in {4, 16} (1 or 4 rows per
-// warp). With splits > 1 the part_* buffers hold the per-split state and a
-// combine kernel runs.
+// D in {64, 128, 256}. A bf16 cache takes the tensor-core body with
+// rows_per_block in {16, 32, 64, 128} (D = 256 flash_decode: {16, 32}) and
+// smem_bytes its dynamic shared memory; an f32 cache the SIMT body with
+// rows_per_block in {4, 16} (1 or 4 rows per warp; D = 256: 4). With
+// splits > 1 the part_* buffers hold the per-split state and a combine
+// kernel runs.
 extern "C" int flash_launch(int tags, const void* q, const void* k, const void* v,
                             const void* mask, const void* q_pos, const void* slot_pos,
                             void* out, void* part_m, void* part_l, void* part_acc,
@@ -693,6 +772,8 @@ extern "C" int flash_launch(int tags, const void* q, const void* k, const void* 
     rc = dispatch<64>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
   } else if (D == 128) {
     rc = dispatch<128>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
+  } else if (D == 256) {
+    rc = dispatch<256>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }

@@ -291,4 +291,15 @@ __global__ void __launch_bounds__(256) qmm_kernel(
   }
 }
 
+// out[i] = sum over splits of partial[s][i], in split order (the K splits
+// of every qmm body).
+__global__ void qmm_reduce_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ out, size_t count, int splits) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += partial[(size_t)s * count + i];
+  out[i] = v;
+}
+
 }  // namespace

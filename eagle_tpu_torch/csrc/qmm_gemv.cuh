@@ -1,6 +1,6 @@
 // The 1-row tensor-core body (qmm_gemv_kernel): qmm's route for one row in
 // bf16 (decode; csrc/qmm.cu) and the matmul pass of both fused FFN kernels
-// at one bf16 row (csrc/ffn.cu), as qmm_mma.cuh is the 2-64-row body of
+// at one bf16 row (csrc/ffn_tensor_core.cu), as qmm_mma.cuh is the 2-64-row body of
 // all three. One definition, so the fused kernels' sums (x of ffn_out_norm,
 // g and u of gate_up_act) are qmm's to the bit where both take this body
 // with the same plan (ops/qmm.py:_gemv_plan).

@@ -1,6 +1,6 @@
 // The small-row tensor-core body (qmm_mma_kernel): the route of qmm and of
-// qmm_i4 for 2-8 rows in bf16 (csrc/qmm.cu, csrc/qmm_i4.cu) and the matmul
-// pass of the fused FFN kernels for 2-64 rows in bf16 (csrc/ffn.cu), as
+// qmm_i4 for 2-8 rows in bf16 (csrc/qmm_tensor_core.cu, csrc/qmm_i4.cu) and the matmul
+// pass of the fused FFN kernels for 2-64 rows in bf16 (csrc/ffn_tensor_core.cu), as
 // qmm_body.cuh is the SIMT body of qmm and the fused kernels and qmm_tc.cuh
 // the wgmma prefill body of qmm and qmm_i4. One definition, so the fused
 // kernels' matmul sums are qmm's to the bit where both take this body with

@@ -1,4 +1,4 @@
-// The tensor-core main loop of qmm (csrc/qmm.cu) and qmm_i4 (csrc/qmm_i4.cu)
+// The tensor-core main loop of qmm (csrc/qmm_tensor_core.cu) and qmm_i4 (csrc/qmm_i4.cu)
 // for bf16 compute at more than 8 rows (prefill), as qmm_body.cuh is the
 // SIMT body of qmm and the fused FFN kernels. The two instantiations differ
 // only in their dequant step and rounding points:

@@ -1,12 +1,13 @@
 """Model hyperparameters (the fields of eagle_tpu's `ModelConfig` that the
 ported block reads, with the same names and defaults), and
-`ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3 and
-Gemma-2 architectures.
+`ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3, Gemma
+and Gemma-2 architectures.
 
 The ported block is the pre-norm llama block and its config-driven
 branches: qkv biases (qwen2), per-head q/k RMSNorm (qwen3), sandwich norms,
-GELU, the embedding scale, `query_pre_attn_scalar`, the attention and final
-softcaps and the alternating sliding window (gemma2). Fields of other
+GELU and the embedding scale (gemma, gemma2), `query_pre_attn_scalar`, the
+attention and final softcaps and the alternating sliding window (gemma2).
+Fields of other
 architectures are kept at their defaults so that a config carried across
 from the reference can be checked: `check_ported` raises on any setting the
 port does not implement."""
@@ -17,10 +18,9 @@ import dataclasses
 from typing import Any
 
 from ..gguf.constants import Keys
-from ..ops.flash_attention import HEAD_DIMS
 
 #: GGUF architectures the port reads: the targets, and EAGLE drafts
-TARGET_ARCHS = ("llama", "qwen2", "qwen3", "gemma2")
+TARGET_ARCHS = ("llama", "qwen2", "qwen3", "gemma", "gemma2")
 GGUF_ARCHS = TARGET_ARCHS + ("eagle",)
 
 #: archs whose GGUF q/k rows carry convert_hf_to_gguf's adjacent-pair rope
@@ -101,7 +101,7 @@ class ModelConfig:
 
     @staticmethod
     def from_gguf_metadata(md: dict[str, Any]) -> "ModelConfig":
-        """The config of a llama, Qwen2, Qwen3, Gemma-2 or EAGLE GGUF, read
+        """The config of a llama, Qwen2, Qwen3, Gemma, Gemma-2 or EAGLE GGUF, read
         as the reference reads it (eagle_tpu/models/config.py:173); any
         other architecture raises NotImplementedError."""
         arch = md[Keys.General.ARCHITECTURE]
@@ -181,9 +181,11 @@ _PLAIN = (
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming ROADMAP queue 1, item 8, unless
     `cfg` is the pre-norm block with the branches the port implements:
-    RMSNorm, rotary GQA over the whole head, SiLU or GELU, the softcaps, the
-    embedding scale, the attention scale, sandwich norms and a sliding
-    window on every `swa_every`-th layer."""
+    RMSNorm, rotary GQA over the whole head at any head width, SiLU or GELU,
+    the softcaps, the embedding scale, the attention scale, sandwich norms
+    and a sliding window on every `swa_every`-th layer. That is the llama,
+    Qwen2, Qwen3, Gemma and Gemma-2 families (`TARGET_ARCHS`) and EAGLE
+    drafts."""
     bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PLAIN if getattr(cfg, k) != v]
     if cfg.act not in ("silu", "gelu"):
         bad.append(f"act={cfg.act!r}")
@@ -195,9 +197,5 @@ def check_ported(cfg: ModelConfig) -> None:
         # the reference turns flash prefill off there but windows no mask
         # (eagle_tpu/models/llama.py:712-721): the window would be ignored
         bad.append(f"swa_window={cfg.swa_window} on every layer (swa_every=0)")
-    if cfg.arch == "gemma2" and cfg.attn_softcap == 0 and cfg.head_dim not in HEAD_DIMS:
-        # without the softcap the attention would take a flash kernel
-        bad.append(f"gemma2 without attn_logit_softcapping at head_dim {cfg.head_dim} (flash "
-                   f"attention takes {HEAD_DIMS})")
     if bad:
         raise NotImplementedError(f"not ported yet ({_ITEM8}): {', '.join(bad)}")

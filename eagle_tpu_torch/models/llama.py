@@ -1,10 +1,11 @@
 """Llama-family forward pass (port of eagle_tpu/models/llama.py:
 `ForwardOutput`, `embed_lookup`, `_layer_step`, `llama_forward`, with the
 int8 and paged cache branches, Llama-3.1's rope factors, a tied ("nk") head,
-and the config-driven branches of the Qwen2, Qwen3 and Gemma-2 families).
+and the config-driven branches of the Qwen2, Qwen3, Gemma and Gemma-2
+families).
 
 RMSNorm, rotary GQA attention over the position-tagged cache, a gated FFN
-(SiLU, or GELU for gemma), with fused `wqkv` and `w_gate_up` weights kept
+(SiLU, or GELU for the Gemma families), with fused `wqkv` and `w_gate_up` weights kept
 layer-stacked and read in place by the qmm kernel. One function serves
 prefill, decode and speculative verify. The branches, each read from the
 config or from the weights present, as the reference reads them:
@@ -13,8 +14,8 @@ config or from the weights present, as the reference reads them:
   rope (qwen3);
 - `post_attn_norm` / `post_ffn_norm`: sandwich norms on the attention and
   FFN outputs before each residual add (gemma2);
-- `cfg.embd_scale` on the embeddings, `cfg.attn_scale` on the scores,
-  `cfg.attn_softcap` and `cfg.final_softcap` (gemma2);
+- `cfg.embd_scale` on the embeddings (gemma, gemma2), `cfg.attn_scale` on
+  the scores, `cfg.attn_softcap` and `cfg.final_softcap` (gemma2);
 - `cfg.swa_window` on every `cfg.swa_every`-th layer from layer 0: the mask
   there also hides slots `swa_window` or more behind the query (gemma2). The
   layer index is a Python int, so the choice is made on the host.
@@ -26,8 +27,11 @@ The cache is updated in place: each layer writes its K/V rows into `kv.k` /
 Attention reads a bf16 or f32 dense cache through the flash kernels, as the
 reference's dispatch (llama.py:516-543) takes its Pallas kernels:
 `flash_prefill` for a prompt whose mask is the tags' (not with a window),
-`flash_decode` otherwise. A softcapped model (gemma2) reads through the
-plain `ops/attention.py:gqa_attention`, as the reference's einsums. So do
+`flash_decode` otherwise. A softcapped model (gemma2) and a head width the
+kernels do not take (outside 64 / 128 / 256, where the reference's `d % 128`
+gate sends it to XLA) read through the plain `ops/attention.py:
+gqa_attention`, as the reference's einsums: a choice made from the config
+on the host. So do
 an int8 cache (its rows quantized as they are written) and a paged pool
 (`runtime/paged_kv.py`: written through the row's page table, read as the
 mapped pages gathered per row), which the reference reads with XLA's
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 from ..ops.attention import gqa_attention
 from ..ops.ffn import MAX_ROWS as FFN_MAX_ROWS
 from ..ops.ffn import ffn_block, supports_ffn_block
-from ..ops.flash_attention import flash_attention_cached, flash_attention_prefill
+from ..ops.flash_attention import HEAD_DIMS, flash_attention_cached, flash_attention_prefill
 from ..ops.matmul import qmatmul, qmatmul_layer
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_inv_freq, rope_mscale_cfg
@@ -217,7 +221,9 @@ def _layer_step(
         _write_rows(k_cache, li, slots, k_hm)
         _write_rows(v_cache, li, slots, v_hm)
         lim = kv_limit if kv_limit is not None else k_cache.shape[3]
-        if cfg.attn_softcap != 0:  # no flash kernel takes the softcap, as in the reference
+        # no flash kernel takes the softcap or a head width outside HEAD_DIMS:
+        # the reference reads both through its einsums (llama.py:516-543)
+        if cfg.attn_softcap != 0 or dh not in HEAD_DIMS:
             attn = gqa_attention(q, k_cache[li, :, :, :lim], v_cache[li, :, :, :lim], mask,
                                  scale=cfg.attn_scale, softcap=cfg.attn_softcap)
         elif slot_tags is not None:

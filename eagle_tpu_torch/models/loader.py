@@ -1,6 +1,6 @@
 """GGUF -> params on the device (port of eagle_tpu/models/loader.py:
 `unpermute_rows`, `_load_tensor`, `_stack`, `fuse_layer_weights`, the
-llama, Qwen2, Qwen3 and Gemma-2 branches of `load_llama_params`, and
+llama, Qwen2, Qwen3, Gemma and Gemma-2 branches of `load_llama_params`, and
 `load_eagle_params`).
 
 Each tensor's raw block bytes are copied from the file's map into a pinned
@@ -10,16 +10,18 @@ never sees a float weight. Matmul weights are stored "kn" (K-major, the qmm
 layout), stacked over layers, with q/k and gate/up fused along N. The q/k
 rows of llama-family GGUFs carry convert_hf_to_gguf's adjacent-pair rope
 permutation; it is inverted along N at load, so the runtime's rope is
-half-split. Qwen2, Qwen3 and Gemma-2 rows (NEOX rope) are half-split in the
-file already and load as they are (`PERMUTED_ROPE_ARCHS`).
+half-split. Qwen2, Qwen3, Gemma and Gemma-2 rows (NEOX rope) are half-split
+in the file already and load as they are (`PERMUTED_ROPE_ARCHS`). A Gemma
+file's norm weights load as they are: the converter folds Gemma's (1 + w)
+into them (eagle_tpu/models/hf_convert.py).
 
 Coded load (`EAGLE_TPU_CODED_LOAD`, default on; "0" or "false" turns it
 off, read at each load): k-quant matmul weights keep int8 sub-scale codes
 and f32 per-256 super-scales instead of materialized f32 products.
 
 A Llama-3.1 file's `rope_freqs.weight` loads as `params["rope_factors"]`
-(f32); a file without `output.weight` (tied embeddings, Llama-3.2-1B / 3B)
-takes `token_embd` as its head, which stays "nk".
+(f32); a file without `output.weight` (tied embeddings: Llama-3.2-1B / 3B,
+Gemma, Gemma-2) takes `token_embd` as its head, which stays "nk".
 
 The optional layer tensors of these families load as the reference's do:
 q/k/v biases (qwen2) into a layer-stacked f32 `bqkv` [L, (H + 2 H_kv) Dh],
@@ -205,7 +207,7 @@ def _check_names(reader: GGUFReader, top: set[str], layer_suffixes, n_layers: in
 
 def load_llama_params(path: str | Path, device="cuda",
                       times: dict | None = None) -> tuple[dict[str, Any], ModelConfig, dict]:
-    """Load a llama, Qwen2, Qwen3 or Gemma-2 GGUF. Returns (params, config,
+    """Load a llama, Qwen2, Qwen3, Gemma or Gemma-2 GGUF. Returns (params, config,
     metadata); every weight lies on `device`. `times`, when given, gathers
     the seconds spent reading, uploading and repacking."""
     dev = resolve_device(device)

@@ -17,9 +17,14 @@ dtype and the shapes alone:
   scores kept in registers, K/V tiles of 64 keys in a ring of shared memory
   filled by cp.async, blocks of 16, 32, 64 or 128 query rows (4 warps, 8
   at 128 rows; below 64 rows the warps of a 16-row tile split each key
-  tile, so no warp works on rows that do not exist);
+  tile, so no warp works on rows that do not exist); at D = 256 the q rows
+  wait in shared memory, not registers, the ring has two stages, and
+  flash_decode takes 16 or 32 rows (a warp holding all keys of 16 rows
+  would spill under the mask reads);
 - an f32 cache takes the SIMT body (exact f32 FMAs, 32-key tiles), so the
-  f32 path's numbers stay those of an f32 dot.
+  f32 path's numbers stay those of an f32 dot (one row per warp at D = 256).
+Both take head widths 64, 128 and 256 (`HEAD_DIMS`); the model reads any
+other width through the plain `gqa_attention`, as the reference does.
 Both split the key range across blocks (flash-decoding) when the query rows
 alone give fewer than 132 blocks, merging the splits with a combine kernel.
 The cache may be a view whose batch rows are apart (the batcher's row of a
@@ -47,8 +52,10 @@ _WARPS = 4  # warps per block (csrc/flash_attention.cu)
 _TILE = 32  # SIMT body: keys per tile
 _KEYS = 64  # tensor-core body: keys per ring tile
 _ROW_BLOCKS = (128, 64, 32, 16)  # tensor-core body: query rows per block, largest first
-HEAD_DIMS = (64, 128)  # the head widths both kernels take
+_ROW_BLOCKS_256 = (32, 16)  # flash_decode at D = 256
+HEAD_DIMS = (64, 128, 256)  # the head widths both kernels take
 _TWO_BLOCK_SMEM = 115712  # a ring that lets two blocks share an SM
+_MAX_SMEM = 232448  # what one block may opt into
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -60,7 +67,7 @@ class Plan(NamedTuple):
     rows_per_block: int
     splits: int
     keys_per_split: int
-    smem_bytes: int  # dynamic shared memory ("mma"; the SIMT body's is static)
+    smem_bytes: int  # dynamic shared memory ("mma"; the SIMT body sizes its own)
 
 
 def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool) -> Plan:
@@ -69,10 +76,11 @@ def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool)
     for flash_prefill. Splits are whole tiles, none empty."""
     if dtype == torch.bfloat16:
         # the largest row block that leaves no 16-row warp tile wholly padded
-        rb = next(r for r in _ROW_BLOCKS if _cdiv(tg, r) * r - tg < 16)
+        blocks = _ROW_BLOCKS_256 if d > 128 and not tags else _ROW_BLOCKS
+        rb = next(r for r in blocks if _cdiv(tg, r) * r - tg < 16)
         tile = _KEYS
     else:
-        rb = _WARPS * (1 if tg <= 2 * _WARPS else 4)
+        rb = _WARPS * (1 if tg <= 2 * _WARPS or d > 128 else 4)
         tile = _TILE
     warps = max(_WARPS, rb // 16) if dtype == torch.bfloat16 else _WARPS
     blocks = units * _cdiv(tg, rb) * warps // _WARPS  # in blocks of 4 warps
@@ -84,11 +92,13 @@ def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool)
     if dtype != torch.bfloat16:
         return Plan("simt", rb, splits, kps, 0)
     # csrc/flash_attention.cu:TcShape: K and V [64][d] bf16 per stage, then
-    # the mask tile [rb][64] bytes or 64 int32 tags
+    # the mask tile [rb][64] bytes or 64 int32 tags; at d = 256 the q rows
+    # [rb][d] bf16 after the ring; a third stage where it fits
     stage = 2 * _KEYS * d * 2 + (_KEYS * 4 if tags else rb * _KEYS)
-    stages = 3 if rb > 64 or 3 * stage <= _TWO_BLOCK_SMEM else 2
+    q_rows = rb * d * 2 if d > 128 else 0
+    stages = 3 if 3 * stage + q_rows <= (_MAX_SMEM if rb > 64 else _TWO_BLOCK_SMEM) else 2
     merge = warps * 16 * (d + 4 + 2) * 4
-    return Plan("mma", rb, splits, kps, max(stages * stage, merge))
+    return Plan("mma", rb, splits, kps, max(stages * stage + q_rows, merge))
 
 
 def flash_attention_cached_plain(q, k_cache, v_cache, mask, layer, scale=None, s_limit=None):
@@ -121,7 +131,7 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
         raise ValueError("k and v caches must share shape and dtype")
     if (cb, dk) != (b, d) or h % h_kv or d not in HEAD_DIMS:
         raise ValueError(f"shapes q {tuple(q.shape)} / cache {tuple(k_cache.shape)} "
-                         "not taken (head_dim must be 64 or 128)")
+                         f"not taken (head_dim must be one of {HEAD_DIMS})")
     if k_cache.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cache dtype {k_cache.dtype} not taken")
     if not 0 <= layer < n_layers:

@@ -23,7 +23,7 @@ import re
 import subprocess
 
 KERNEL = "qmm_gemv_kernelILi32ELb1E"  # mangled qmm_gemv_kernel<32, true>
-SOURCE = "qmm_cu"  # the instance in qmm.cu (ffn.cu has its own)
+SOURCE = "qmm_cu"  # the instance in qmm.cu (ffn_tensor_core.cu has its own)
 WEIGHTS_PER_STEP = 64  # weights a lane takes per step of the loop
 WQKV_WEIGHTS = 12288 * 4096
 SMS, ISSUE_PER_CLOCK = 132, 4

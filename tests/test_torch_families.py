@@ -21,8 +21,9 @@ shapes (g = 7; K = 3,584 and 18,944). Then
 one int8 and one paged case (gemma2: the window and the softcap on both
 branches), `ChatSession` over a shifting qwen2 cache against the reference
 and its shifted keys against a recompute, `causal_mask_from_tags`'
-`swa_window` against the reference's, and the refusals (ROADMAP queue 1,
-item 8)."""
+`swa_window` against the reference's, a gemma2 at head_dim 256 without its
+attention softcap (the flash functions at D = 256) against the reference,
+and the refusals (ROADMAP queue 1, item 8)."""
 
 import dataclasses
 import functools
@@ -122,12 +123,14 @@ def _tokens(n, seed=3, v=512):
     return np.random.default_rng(seed).integers(0, v, size=(1, n)).astype(np.int32)
 
 
-def _forward(params, cfg, kv, tokens, positions):
+def _forward(params, cfg, kv, tokens, positions, prefill=False):
+    """The port's forward in f32; `prefill` passes the tag mask for the
+    prompt path (`causal_tags_prefill`)."""
     positions = torch.from_numpy(np.asarray(positions, np.int32))
     kv.with_tags(positions, positions)
     mask = causal_mask_from_tags(kv.slot_pos, positions)
     return llama_forward(params, cfg, torch.from_numpy(tokens), positions, kv, positions, mask,
-                         compute_dtype=torch.float32)
+                         compute_dtype=torch.float32, causal_tags_prefill=prefill)
 
 
 def _jax_forward(params, cfg, kv, tokens, positions):
@@ -466,8 +469,14 @@ def test_causal_mask_window_matches_reference():
 
 # ---- the kernels' plans at the published shapes --------------------------------
 
-#: (N, K) of the published shapes' products (Qwen2.5-7B, Qwen3-8B, Gemma-2-9B)
-FAMILY_SHAPES = {"qwen2.5_wqkv": (4608, 3584), "qwen2.5_wo": (3584, 3584),
+#: (N, K) of the published shapes' products (Qwen2.5-7B, Qwen3-8B, Gemma-2-9B;
+#: Gemma-7B: the query 4,096 wide over n_embd 3,072; Gemma-2B: 8 heads of 256
+#: over 1 KV head on 2,048)
+FAMILY_SHAPES = {"gemma_7b_wqkv": (12288, 3072), "gemma_7b_wo": (3072, 4096),
+                 "gemma_7b_w_gate_up": (49152, 3072), "gemma_7b_w_down": (3072, 24576),
+                 "gemma_2b_wqkv": (2560, 2048), "gemma_2b_w_gate_up": (32768, 2048),
+                 "gemma_2b_w_down": (2048, 16384),
+                 "qwen2.5_wqkv": (4608, 3584), "qwen2.5_wo": (3584, 3584),
                  "qwen2.5_w_gate_up": (37888, 3584), "qwen2.5_w_down": (3584, 18944),
                  "qwen2.5_lm_head": (152064, 3584), "qwen2.5_draft_fc": (3584, 7168),
                  "qwen3_w_gate_up": (24576, 4096), "qwen3_w_down": (4096, 12288),
@@ -516,13 +525,68 @@ def test_flash_plan_at_g7(tg):
         assert p.splits * p.keys_per_split >= 1024 > (p.splits - 1) * p.keys_per_split
 
 
+# ---- Gemma-2 without its attention softcap: the flash kernels at D = 256 -------
+
+
+@pytest.fixture(scope="module")
+def gemma2_256(tmp_path_factory):
+    """A tiny gemma2 at head_dim 256 (2 query heads over 1 KV head) with
+    no attention softcap: the window, sandwich norms, final softcap and tied
+    head as `tiny_family_pair`'s, its attention on the flash functions."""
+    from eagle_tpu.gguf.constants import GGMLType
+
+    from torch_port_util import FAMILIES, GEMMA_TEMPLATE, spm_metadata
+
+    q8 = GGMLType.Q8_0
+    md = {k: v for k, v in FAMILIES["gemma2"]["md"].items() if "attn_logit" not in k}
+    pair = write_tiny_gguf_pair(
+        tmp_path_factory.mktemp("gemma2_256"), q8, q8, q8, q8, seed=17, arch="gemma2",
+        target_metadata={**spm_metadata(ENGINE_PROMPT), "tokenizer.chat_template":
+                         GEMMA_TEMPLATE, **md},
+        n_layers=4, tied=True, out_scale=0.1, n_heads=2, n_kv_heads=1, head_dim=256)
+    tt, tcfg, _ = load_llama_params(pair[0], device="cpu")
+    jt, jcfg, _ = jax_load(pair[0])
+    return pair, dict(tt=tt, tcfg=tcfg, jt=jt, jcfg=jcfg)
+
+
+def test_gemma2_without_softcap_matches_reference(gemma2_256):
+    """Once refused (no kernel took D = 256): the config admitted, every
+    layer's attention on the flash functions (their plain versions here,
+    the window's layers on `flash_decode` under the windowed mask), the
+    prefill and decode logits at rtol 1e-4 and `Generator`'s greedy tokens
+    equal to the reference's."""
+    from eagle_tpu_torch import _build
+
+    pair, m = gemma2_256
+    cfg = m["tcfg"]
+    check_ported(cfg)
+    assert (cfg.head_dim, cfg.attn_softcap, cfg.swa_window) == (256, 0.0, 8)
+    toks = _tokens(N_PROMPT + 2)
+    jcache, cache = _caches(cfg)
+    pos = np.arange(N_PROMPT, dtype=np.int32)[None]
+    want = _jax_forward(m["jt"], m["jcfg"], jcache, toks[:, :N_PROMPT], pos)
+    before = _build.plain_calls["flash_decode"]
+    _close(_forward(m["tt"], cfg, cache, toks[:, :N_PROMPT], pos).logits, want.logits)
+    assert _build.plain_calls["flash_decode"] - before == cfg.n_layers
+    jcache = want.kv
+    for i in range(N_PROMPT, N_PROMPT + 2):
+        p = np.asarray([[i]], np.int32)
+        want = _jax_forward(m["jt"], m["jcfg"], jcache, toks[:, i:i + 1], p)
+        jcache = want.kv
+        _close(_forward(m["tt"], cfg, cache, toks[:, i:i + 1], p).logits, want.logits)
+    jeng, eng = _jax_engine(pair, "plain"), _port_engine(pair, "plain")
+    ids = eng.tokenizer.encode(PROMPT)
+    assert ids == jeng.tokenizer.encode(PROMPT)
+    want = jeng.engine.generate(ids, max_new_tokens=24, stop_at_eos=False)
+    assert eng.engine.generate(ids, max_new_tokens=24, stop_at_eos=False) == [int(t)
+                                                                             for t in want]
+
+
 # ---- what stays refused -----------------------------------------------------
 
 
 REFUSED = {"swa_window on every layer": dict(swa_window=8, swa_every=0),
            "partial rotary": dict(rope_dim=32), "v_head_dim": dict(v_head_dim=32),
-           "gemma2 flash at head_dim 256": dict(arch="gemma2", head_dim=256, rope_dim=256,
-                                                attn_softcap=0.0),
            "alibi": dict(use_alibi=True), "relu2": dict(act="relu2"),
            "parallel blocks": dict(parallel_blocks=True)}
 

@@ -3,7 +3,8 @@ of the flash_decode / flash_prefill CUDA kernels) against the JAX Pallas
 flash kernels run in interpret mode: decode T=1 and chain verify T=K+1,
 GQA g=2, tag masks with rolled-back holes, an s_limit read bound, and
 prefill rows with q_pos = -1 (they see nothing and come out as the uniform
-average of V, in both).
+average of V, in both); at head widths 64 and 256 (the reference's kernels
+take any `d % 128 == 0`, so a Gemma model reaches them at 256).
 
 Tolerance: f32 cache, rtol 1e-5 (the online softmax and the one-pass
 softmax sum in another order). A bf16 cache rounds q and p to bf16 in both;
@@ -26,9 +27,9 @@ L, B, H, HKV, D, S = 3, 2, 4, 2, 64, 256
 TOL = {"f32": 1e-5, "bf16": 1e-2}
 
 
-def _cache(rng, dtype):
-    k = rng.standard_normal((L, B, HKV, S, D)).astype(np.float32)
-    v = rng.standard_normal((L, B, HKV, S, D)).astype(np.float32)
+def _cache(rng, dtype, d=D):
+    k = rng.standard_normal((L, B, HKV, S, d)).astype(np.float32)
+    v = rng.standard_normal((L, B, HKV, S, d)).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
     jk, jv = jnp.asarray(k, jdt), jnp.asarray(v, jdt)
     return jk, jv, torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt)
@@ -53,7 +54,19 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("t,s_limit", [(1, None), (6, None), (1, 128), (6, 128)])
 def test_decode_verify_matches_pallas(rng, dtype, t, s_limit):
-    jk, jv, tk, tv = _cache(rng, dtype)
+    _decode_verify_case(rng, dtype, t, s_limit, D)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("t,s_limit", [(1, None), (6, None), (1, 128), (6, 128)])
+def test_decode_verify_matches_pallas_at_head_width_256(rng, dtype, t, s_limit):
+    """The same cases at D = 256 (Gemma's width), against `_flash_call` in
+    interpret mode at that width."""
+    _decode_verify_case(rng, dtype, t, s_limit, 256)
+
+
+def _decode_verify_case(rng, dtype, t, s_limit, d):
+    jk, jv, tk, tv = _cache(rng, dtype, d)
     m = 90
     tags = _tags(m + t, holes=(17, 18, 40))  # rolled-back rows stay tagged -1
     q_pos = (m + np.arange(t, dtype=np.int32))[None].repeat(B, 0)
@@ -61,7 +74,7 @@ def test_decode_verify_matches_pallas(rng, dtype, t, s_limit):
     mask = np.array(causal_mask_from_tags(jnp.asarray(tags), jnp.asarray(q_pos)))[..., :lim]
     mask = np.ascontiguousarray(mask)
     mask[1, 0] = False  # one fully masked row: uniform average in both
-    q = rng.standard_normal((B, t, H, D)).astype(np.float32)
+    q = rng.standard_normal((B, t, H, d)).astype(np.float32)
     want = flash_attention_cached(jnp.asarray(q), jk, jv, jnp.asarray(mask), jnp.int32(1),
                                   interpret=True, s_limit=s_limit)
     before = _build.plain_calls["flash_decode"]
@@ -74,12 +87,24 @@ def test_decode_verify_matches_pallas(rng, dtype, t, s_limit):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("s_limit", [None, 128])
 def test_prefill_matches_pallas(rng, dtype, s_limit):
-    jk, jv, tk, tv = _cache(rng, dtype)
+    _prefill_case(rng, dtype, s_limit, D)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("s_limit", [None, 128])
+def test_prefill_matches_pallas_at_head_width_256(rng, dtype, s_limit):
+    """The same cases at D = 256, against `_flash_prefill_call` in
+    interpret mode at that width."""
+    _prefill_case(rng, dtype, s_limit, 256)
+
+
+def _prefill_case(rng, dtype, s_limit, d):
+    jk, jv, tk, tv = _cache(rng, dtype, d)
     t, n = 32, 27  # a padded prompt bucket: rows >= n are padding
     tags = _tags(n)
     q_pos = np.arange(t, dtype=np.int32)[None].repeat(B, 0)
     q_pos[:, n + 2:] = -1  # padded query rows that see nothing
-    q = rng.standard_normal((B, t, H, D)).astype(np.float32)
+    q = rng.standard_normal((B, t, H, d)).astype(np.float32)
     want = flash_attention_prefill(jnp.asarray(q), jk, jv, jnp.asarray(q_pos),
                                    jnp.asarray(tags), jnp.int32(2), interpret=True,
                                    s_limit=s_limit)
@@ -271,6 +296,45 @@ def test_plan_covers_keys_and_card(tg, lim, d, dtype, tags):
         assert plan.smem_bytes >= 2 * stage  # a K/V ring of at least two tiles
     else:
         assert plan.rows_per_block in (4, 16) and plan.smem_bytes == 0
+
+
+def _stage(d: int, rows: int, tags: bool) -> int:
+    """Bytes of one ring stage: K and V [64][d] bf16, then 64 int32 tags or
+    the mask tile [rows][64]."""
+    return 2 * 64 * d * 2 + (256 if tags else rows * 64)
+
+
+@pytest.mark.parametrize("tags", [False, True], ids=["decode", "prefill"])
+def test_plan_at_head_width_256(tags):
+    """D = 256 on the tensor-core body, at Gemma-2B's 1, Gemma-2-9B's 8
+    and Gemma-7B's 16 kv-head units: every T·g in 1-4,096 at 15 read
+    bounds, and every s_limit in 96-8,192 at 7 row counts. Each plan fits
+    one block's shared memory, has a ring of two stages beside the block's
+    q rows (bf16, after the ring) below 128 rows, takes at most 32 rows a
+    block for flash_decode, leaves no 16-row warp tile only padding, and
+    splits the keys into whole 64-key tiles that cover [0, s_limit) once,
+    none empty."""
+    cases = [(tg, lim) for tg in range(1, 4097)
+             for lim in (96, 97, 127, 128, 300, 511, 512, 1000, 1024, 2047, 2048, 4096, 5000,
+                         8191, 8192)]
+    cases += [(tg, lim) for lim in range(96, 8193) for tg in (1, 6, 8, 16, 42, 512, 4096)]
+    for units, (tg, lim) in ((u, c) for u in (1, 8, 16) for c in cases):
+        plan = fa._plan(tg, lim, 256, torch.bfloat16, units, tags)
+        rb, kps = plan.rows_per_block, plan.keys_per_split
+        assert plan.body == "mma" and plan.smem_bytes <= SMEM_BLOCK, (tg, lim, plan)
+        assert rb in ((128, 64, 32, 16) if tags else (32, 16))
+        assert -(-tg // rb) * rb - tg < 16
+        assert kps % 64 == 0 and (plan.splits - 1) * kps < lim <= plan.splits * kps
+        if rb < 128:
+            assert plan.smem_bytes == 2 * _stage(256, rb, tags) + rb * 256 * 2, (tg, lim, plan)
+    # a prompt's 128-row blocks: a third stage does not fit beside the q rows either
+    big = fa._plan(4096, 1024, 256, torch.bfloat16, 1, tags)
+    assert big.rows_per_block == (128 if tags else 32)
+    if tags:
+        assert big.smem_bytes == 2 * _stage(256, 128, tags) + 128 * 256 * 2
+        assert 3 * _stage(256, 128, tags) + 128 * 256 * 2 > SMEM_BLOCK
+    # the SIMT body (f32 cache) takes one row per warp at D = 256
+    assert fa._plan(4096, 1024, 256, torch.float32, 1, tags).rows_per_block == 4
 
 
 @pytest.mark.parametrize("tg,lim,tags,want", [

@@ -8,8 +8,8 @@ compute, 2-D and stacked, and the shapes only the SIMT body takes: N % 4
 scale and bias, bias or none, G = 32 and 16, f32 and bf16 compute, the
 SIMT, small-row and wgmma bodies, ragged row tiles and K splits),
 flash_decode and flash_prefill (f32 and bf16
-caches, head_dim 64 and 128, GQA, key splits, s_limit, rows that see
-nothing), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
+caches, head_dim 64, 128 and 256, GQA up to g = 8, key splits, s_limit,
+rows that see nothing), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
 scales, bias or none, G = 32, 16 and 8, SiLU / tanh-GELU, 1 to 64 rows,
 L = 1 and stacked, f32 and bf16 compute; at 1 bf16 row gate_up_act bit for
 bit against act(g) * u from qmm's sums), greedy tokens of a tiny model
@@ -35,7 +35,11 @@ lookahead step's mask, the graphed lookahead and lookup engines == eager,
 `_compact_kv` in a replay, infill's graphed logits steps against the CPU,
 a YaRN config's frequencies and graphed decode; the Llama-3 path (`-k
 llama3`): qmm on every route at the 8B path's new shapes, both flash
-kernels at g = 4, a tied "nk" head with rope factors graphed == eager.
+kernels at g = 4, a tied "nk" head with rope factors graphed == eager; the
+families (`-k families`): qmm at their shapes, tiny Qwen2 / Qwen3 /
+Gemma-2 / Gemma (head_dim 256) models and a Gemma-2 without its softcap
+card == CPU and graphed == eager, a Gemma with the fused FFN block, and a
+llama at head_dim 96 (`-k head_width`), read through the plain attention.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -430,9 +434,10 @@ def _cache(gen, dtype, d, h_kv, s=256, n_layers=2):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("t,h,h_kv,s_limit", [(1, 4, 4, None), (6, 8, 2, None), (6, 8, 2, 96),
-                                              (40, 4, 2, 128)])
+                                              (40, 4, 2, 128), (1, 8, 1, None), (6, 8, 1, 200),
+                                              (64, 16, 2, 200)])
 def test_flash_decode_matches_plain(cuda, dtype, d, t, h, h_kv, s_limit):
     k_cache, v_cache = _cache(cuda, dtype, d, h_kv)
     lim = s_limit or k_cache.shape[3]
@@ -451,8 +456,8 @@ def test_flash_decode_matches_plain(cuda, dtype, d, t, h, h_kv, s_limit):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("h,h_kv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("h,h_kv", [(4, 4), (8, 2), (8, 1)])
 def test_flash_prefill_matches_plain(cuda, dtype, d, h, h_kv):
     k_cache, v_cache = _cache(cuda, dtype, d, h_kv)
     t, n = 64, 45  # a padded prompt bucket
@@ -471,9 +476,10 @@ def test_flash_prefill_matches_plain(cuda, dtype, d, h, h_kv):
 # (T*g, g) of the tensor-core body's cases: one 16-row tile (1, 6), a 16-row
 # edge (24), 64-row blocks (64), a 64-row edge (80), a ragged 128-row block
 # (120) and the prompt bucket (512); then Qwen2.5's g = 7 (28 query heads over
-# 4 KV heads): a decoded token (7), a K = 5 verify (42), a 512-row prompt (3,584)
+# 4 KV heads): a decoded token (7), a K = 5 verify (42), a 512-row prompt (3,584);
+# then Gemma-2B's g = 8 (8 query heads over 1 KV head): 8, 48 and 4,096 rows
 TC_ROWS = [(tg, g) for tg in (1, 6, 24, 64, 80, 120, 512) for g in (1, 2, 4)
-           if tg % g == 0] + [(7, 7), (42, 7), (3584, 7)]
+           if tg % g == 0] + [(7, 7), (42, 7), (3584, 7), (8, 8), (48, 8), (4096, 8)]
 
 
 def _tc_case(gen, tg, g, d, s_limit):
@@ -497,7 +503,7 @@ def _uniform_rows(got, v_cache, layer, lim, g, b, t):
 
 
 @pytest.mark.parametrize("s_limit", [96, 300, None], ids=["s96", "s300", "full"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("tg,g", TC_ROWS)
 def test_flash_decode_tensor_core_body(cuda, tg, g, d, s_limit):
     """The bf16 body at every row-block size, ragged key ends, GQA, key
@@ -507,7 +513,7 @@ def test_flash_decode_tensor_core_body(cuda, tg, g, d, s_limit):
     mask = causal_mask_from_tags(tags[:, :lim], pos)
     mask[1, t // 2] = False  # a row that sees nothing: the uniform average
     plan = fa._plan(tg, lim, d, torch.bfloat16, 2 * 2, False)
-    # 4 kv-head units split their keys up to 512 rows; 3,584 rows fill the SMs
+    # 4 kv-head units split their keys up to 512 rows; 3,584 rows and more fill the SMs
     assert plan.body == "mma" and (plan.splits > 1) == (tg <= 512)
     _build.reset_counts()
     got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
@@ -518,7 +524,7 @@ def test_flash_decode_tensor_core_body(cuda, tg, g, d, s_limit):
 
 
 @pytest.mark.parametrize("s_limit", [96, 300, None], ids=["s96", "s300", "full"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("tg,g", TC_ROWS)
 def test_flash_prefill_tensor_core_body(cuda, tg, g, d, s_limit):
     """flash_prefill's bf16 body over the same cases: the tag mask built in
@@ -1717,6 +1723,13 @@ FAMILY_CFGS = {
     "gemma2": dict(arch="gemma2", n_layers=4, swa_window=8, swa_every=2, attn_softcap=50.0,
                    final_softcap=30.0, post_norms=True, embd_scale=16.0,
                    attn_scale=96 ** -0.5, act="gelu"),
+    # Gemma-7B's head width: 2 query heads over 1 KV head of 256 (the flash kernels at D 256)
+    "gemma": dict(arch="gemma", n_heads=2, n_kv_heads=1, head_dim=256, rope_dim=256,
+                  embd_scale=16.0, act="gelu"),
+    # Gemma-2 without its attention softcap, at head_dim 256: the kernels under the window
+    "gemma2_256": dict(arch="gemma2", n_layers=4, n_heads=2, n_kv_heads=1, head_dim=256,
+                       rope_dim=256, swa_window=8, swa_every=2, final_softcap=30.0,
+                       post_norms=True, embd_scale=16.0, act="gelu"),
 }
 
 
@@ -1739,8 +1752,9 @@ def _to_cpu(tree):
 def test_families_tokens_card_equal_cpu(cuda, arch):
     """A tiny model of each family (qwen2's biases, qwen3's q/k norms at
     head_dim 128, gemma2's window of 8 over 45 tokens, softcaps and sandwich
-    norms): greedy tokens through the kernels on the card, f32, equal the
-    plain path's on the CPU."""
+    norms, gemma and a softcap-free gemma2 at head_dim 256): greedy tokens
+    through the kernels on the card, f32, equal the plain path's on the
+    CPU."""
     cfg, params = _family(arch)
     toks = []
     for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
@@ -1753,7 +1767,8 @@ def test_families_tokens_card_equal_cpu(cuda, arch):
 @pytest.mark.parametrize("arch", list(FAMILY_CFGS))
 def test_families_graphed_equals_eager(cuda, arch):
     """bf16 greedy tokens of each tiny family graphed and eager, bit for
-    bit; gemma2 (softcapped) launches no flash kernel, the others do."""
+    bit; gemma2 (softcapped) launches no flash kernel, the others do (gemma
+    and gemma2_256 at D = 256)."""
     cfg, params = _family(arch)
     runs = []
     for graphed in (False, True):
@@ -1763,5 +1778,48 @@ def test_families_graphed_equals_eager(cuda, arch):
                         cuda_graphs=graphed)
         runs.append(gen.generate(PROMPT * 2, max_new_tokens=40, stop_at_eos=False))
         flash = _build.launches["flash_decode"] + _build.launches["flash_prefill"]
-        assert (flash == 0) == (arch == "gemma2") and _build.plain_calls["flash_decode"] == 0
+        assert (flash == 0) == (cfg.attn_softcap != 0) and _build.plain_calls["flash_decode"] == 0
     assert runs[0] == runs[1]
+
+
+def test_families_gemma_fused_ffn_equals_unfused(cuda, monkeypatch):
+    """A tiny Q8_0-form gemma (head_dim 256, GELU) on the card: greedy
+    tokens with the fused FFN block (`gate_up_act` with GELU, then
+    `ffn_out_norm`) equal the unfused ones, f32."""
+    cfg = dataclasses.replace(TINY_CFG, **FAMILY_CFGS["gemma"])
+    params = synth_llama_params(cfg, qtype=Q8_0, seed=5, device="cuda")
+    toks = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("EAGLE_TPU_FUSED_FFN", mode)
+        _build.reset_counts()
+        gen = Generator(params, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device="cuda")
+        toks[mode] = gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8)
+        assert (_build.launches["gate_up_act"] > 0) == (mode == "1")
+        assert _build.launches["flash_decode"] > 0 and _build.plain_calls["flash_decode"] == 0
+    assert toks["0"] == toks["1"]
+
+
+def test_head_width_96_tokens_card_equal_cpu(cuda):
+    """A tiny llama at head_dim 96 (8 heads over 2 KV heads): a width no
+    flash kernel takes, read through the plain attention on every layer, as
+    the reference reads it. f32 greedy tokens on the card equal the CPU's,
+    and no flash kernel or plain flash function ran; bf16 graphed == eager."""
+    cfg = dataclasses.replace(TINY_CFG, n_heads=8, head_dim=96, rope_dim=96)
+    params = synth_llama_params(cfg, seed=7, packed=True, coded=True, device="cuda")
+    toks = []
+    _build.reset_counts()
+    for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        gen = Generator(p, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device=dev)
+        toks.append(gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8))
+    assert toks[0] == toks[1]
+    runs = []
+    for graphed in (False, True):
+        gen = Generator(params, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                        compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                        cuda_graphs=graphed)
+        runs.append(gen.generate(PROMPT * 2, max_new_tokens=40, stop_at_eos=False))
+    assert runs[0] == runs[1]
+    assert all(_build.launches[k] == _build.plain_calls[k] == 0
+               for k in ("flash_decode", "flash_prefill"))

@@ -150,7 +150,7 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
                          target_metadata: dict | None = None, out_scale: float = 0.05,
                          n_kv_heads: int | None = None, rope_factors=None,
                          tied: bool = False, arch: str = "llama", head_dim: int | None = None,
-                         n_layers: int | None = None):
+                         n_layers: int | None = None, n_heads: int | None = None):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
@@ -162,12 +162,12 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     KV heads (GQA), `rope_factors` [head_dim/2] adds the target's
     `rope_freqs.weight` (Llama-3.1), `tied` leaves out its `output.weight`
     (the head is token_embd, in `emb_type` at `out_scale`). `arch` "qwen2",
-    "qwen3" or "gemma2" writes the target under that architecture with its
-    optional tensors (qwen2: q/k/v biases; qwen3: per-head q/k norms [Dh];
-    gemma2: the post-attention and post-FFN norms), the q/k rows as they
-    come (NEOX: no permutation to invert); `head_dim` and `n_layers` set the
-    target's (the draft keeps the tiny llama's). Returns (target path,
-    draft path)."""
+    "qwen3", "gemma" or "gemma2" writes the target under that architecture
+    with its optional tensors (qwen2: q/k/v biases; qwen3: per-head q/k
+    norms [Dh]; gemma2: the post-attention and post-FFN norms; gemma: none),
+    the q/k rows as they come (NEOX: no permutation to invert); `head_dim`,
+    `n_heads` and `n_layers` set the target's (the draft keeps the tiny
+    llama's). Returns (target path, draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
@@ -176,7 +176,8 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
         dcfg = dataclasses.replace(dcfg, n_kv_heads=n_kv_heads)
     hd = head_dim or dcfg.head_dim
     jcfg = dataclasses.replace(dcfg, head_dim=hd, rope_dim=hd,
-                               n_layers=n_layers or dcfg.n_layers)
+                               n_layers=n_layers or dcfg.n_layers,
+                               n_heads=n_heads or dcfg.n_heads)
     rng = np.random.default_rng(seed)
     d, f, v = jcfg.n_embd, jcfg.n_ff, jcfg.vocab_size
 
@@ -502,13 +503,18 @@ FAMILIES = {
                        "gemma2.final_logit_softcapping": 2.0,
                        "gemma2.attention.sliding_window": 8,
                        "gemma2.attention.query_pre_attn_scalar": 96}),
+    # Gemma (Gemma-7B's head width): 2 query heads over 1 KV head of 256 on a
+    # width of 256 (the query is twice n_embd), GELU, the sqrt(n_embd)
+    # embedding scale, tied; no softcap, window or sandwich norm
+    "gemma": dict(kw=dict(n_heads=2, n_kv_heads=1, head_dim=256, tied=True, out_scale=0.1),
+                  md={}),
 }
 
 
 def tiny_family_pair(tmp_path, arch: str):
     """A tiny Q8_0 target of `arch` (FAMILIES) and an EAGLE draft: qwen2 and
-    qwen3 with `qwen_vocab()` (BPE, pre "qwen2", chatml), gemma2 with
-    `spm_metadata(ENGINE_PROMPT)` and a gemma template."""
+    qwen3 with `qwen_vocab()` (BPE, pre "qwen2", chatml), gemma and gemma2
+    with `spm_metadata(ENGINE_PROMPT)` and a gemma template."""
     from eagle_tpu.gguf.constants import GGMLType
 
     q8 = GGMLType.Q8_0
