@@ -300,17 +300,17 @@ families. the Qwen2, Qwen3, Gemma-2 and Gemma families at their published shapes
    against its plain version with its bound and library ms (`[families
    kernel]`); `serve_cell` on a ~300-token prompt (`[qwen2.5]`: 113
    qmm_gemv and 28 flash_decode per decoded token, 113 qmm_mma per verify,
-   EAGLE == greedy under the near-tie rule); (b) Qwen3-8B (18 of its 36
+   EAGLE == greedy under the near-tie rule); (b) Qwen3-8B (12 of its 36
    layers, 32 over 8 KV heads of 128, per-head q/k norms, 151,936
    entries): qmm at 1 and 300 rows, then greedy eager once and graphed 2
-   times, bit for bit (`[qwen3]`: 73 qmm_gemv and 18 flash_decode per
-   token); (c) Gemma-2-9B (21 of its 42 layers, 16 over 8 KV heads of 256,
+   times, bit for bit (`[qwen3]`: 49 qmm_gemv and 12 flash_decode per
+   token); (c) Gemma-2-9B (14 of its 42 layers, 16 over 8 KV heads of 256,
    n_ff 14,336, sandwich norms,
    GELU, softcaps 50 / 30, a 4,096-slot window on even layers,
    query_pre_attn_scalar 256, a tied Q6_K table of 256,000 SPM pieces, a
    gemma template): qmm at 1 and 300 rows, the plain softcapped attention
    (no kernel in either package) and the tied "nk" head timed, then greedy
-   as (b) (`[gemma2]`: 84 qmm_gemv per token, no flash kernel); (d)
+   as (b) (`[gemma2]`: 56 qmm_gemv per token, no flash kernel); (d)
    Gemma-7B (google/gemma-7b: d 3,072, 28 layers, 16 / 16 heads of 256, a
    4,096-wide query, n_ff 24,576, GELU, the sqrt(n_embd) embedding scale,
    no softcap or window, a tied Q6_K table of 256,000 SPM pieces, a gemma
@@ -323,6 +323,31 @@ families. the Qwen2, Qwen3, Gemma-2 and Gemma families at their published shapes
    line as `families_path_launches`; the flash rows also carry
    `head_dim_256` (phase 2's Gemma-7B bf16 times, the gemma cell's
    launches).
+layernorm. the rotary LayerNorm families at their published shapes, in a
+   temporary directory of their own, minted as phase families mints (Q4_K
+   layers, a Q6_K head, random blocks, llama.cpp's tensors of the arch:
+   norm biases, q/k/v biases, attn_output.bias, ffn_up / ffn_down biases,
+   no ffn_gate, output.bias): (a) StarCoder2-7B (bigcode/starcoder2-7b: d
+   4,608, 32 layers, 36 query over 4 KV heads of 128: g = 9, n_ff 18,432,
+   LayerNorm eps 1e-5 with biases, a no-gate tanh-GELU MLP, rope base 1e6,
+   a 49,152-entry BPE vocabulary, pre "starcoder") and an EAGLE Q8_0 draft
+   at its widths: qmm at every product's shape at 1, 6 and 300 rows (and
+   the draft's fc), flash_decode at T = 1 and 6 and flash_prefill at T =
+   512 at g = 9, each against its plain version with its bound and library
+   ms (`[layernorm kernel]`); `serve_cell` on a ~300-token prompt
+   (`[starcoder2]`: 129 qmm_gemv and 32 flash_decode per decoded token, 129
+   qmm_mma per verify, 32 flash_prefill per greedy prompt, EAGLE == greedy
+   under the near-tie rule); (b) Phi-2 (microsoft/phi-2: d 2,560, 32
+   layers, 32 heads of 80, 32 of 80 features rotary, one shared LayerNorm
+   feeding attention and the FFN in parallel, biases on q/k/v, dense, fc1 /
+   fc2 and the head, a 51,200-entry BPE vocabulary, pre "phi-2"): qmm at 1
+   and 300 rows, the plain attention at D = 80 timed beside SDPA, greedy
+   eager once and graphed 2 times, bit for bit (`[phi2]`: 129 qmm_gemv per
+   token, no flash kernel), then the CLI (`--temp 0`) and the server's
+   /v1/chat/completions as subprocesses, each == the in-process Engine's
+   text (`[phi2 cli]`, `[phi2 http]`). The StarCoder2 default path's and
+   the Phi-2 run's launches stand in the `kernels` line as
+   `layernorm_path_launches`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -2055,6 +2080,12 @@ def tree_phase(report: dict, q4k: dict) -> dict:
 
 
 GGUF_FREE_BYTES = 5 * 2**30  # the two files take 4.2 GB
+#: the rotary LayerNorm families' minted tensors beside the llama layer's
+#: (llama.cpp's tensor tables): no ffn_gate, and a bias on every norm, q/k/v,
+#: attn_output, ffn_up and ffn_down; phi2 has one shared input norm (no
+#: ffn_norm) and an output.bias
+LN_MINT = {"starcoder2": dict(ffn_norm=True, out_b=False),
+           "phi2": dict(ffn_norm=False, out_b=True)}
 
 
 def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -> "np.ndarray":
@@ -2095,7 +2126,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
                    vocab: dict | None = None, with_draft: bool = True,
                    n_kv_heads: int | None = None, layer_type: str = "Q4_0",
                    rope_factors=None, tied: bool = False, arch: str = "llama",
-                   head_dim: int | None = None
+                   head_dim: int | None = None, rope_dim: int | None = None
                    ) -> tuple[pathlib.Path, pathlib.Path | None]:
     """Write a Vicuna-7B-shape GGUF (or one of the widths given) laid out as
     llama-quantize's Q4_0 lays out a llama-7B file (every layer matmul and
@@ -2111,8 +2142,10 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     head (Llama-3.2-1B / 3B). `arch` "qwen2", "qwen3", "gemma" or "gemma2"
     writes the target under that architecture with its tensors (qwen2:
     q/k/v biases; qwen3: per-head q/k norms; gemma2: the post-attention and
-    post-FFN norms; gemma: none), `head_dim` a head width other than d /
-    n_heads (both files).
+    post-FFN norms; gemma: none; an arch of `LN_MINT`, starcoder2 or phi2:
+    the tensors its layout names, and `layer_norm_epsilon` 1e-5), `head_dim`
+    a head width other than d / n_heads (both files), `rope_dim` the
+    target's rotary features (partial rotary).
     Weights are random quant blocks, at magnitudes that give Q4_0's weight
     RMS (~6e-3) in either layout."""
     import torch
@@ -2130,6 +2163,9 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
                   ("attn_output", d, d_q), ("ffn_gate", f, d), ("ffn_up", f, d),
                   ("ffn_down", d, f))
 
+    ln = LN_MINT.get(arch)
+    mats = layer_mats if ln is None else tuple(m for m in layer_mats if m[0] != "ffn_gate")
+
     def writer(path, arch, blocks, file_type):
         w = GGUFWriter(path)
         for key, val in {
@@ -2139,7 +2175,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             f"{arch}.feed_forward_length": f, f"{arch}.attention.head_count": n_heads,
             f"{arch}.attention.head_count_kv": kv,
             f"{arch}.attention.layer_norm_rms_epsilon": 1e-6,
-            f"{arch}.rope.dimension_count": hd, f"{arch}.rope.freq_base": rope_base,
+            f"{arch}.rope.dimension_count": rope_dim if arch != "eagle" and rope_dim else hd,
+            f"{arch}.rope.freq_base": rope_base,
             f"{arch}.attention.key_length": hd, f"{arch}.attention.value_length": hd,
             f"{arch}.vocab_size": v,
         }.items():
@@ -2158,6 +2195,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     target = tmp / f"{tag}-{layer_type.lower()}.gguf"
     # LLAMA_FTYPE_MOSTLY_Q4_0, LLAMA_FTYPE_MOSTLY_Q4_K_M
     w = writer(target, arch, n_layers, 2 if layer_type == "Q4_0" else 15)
+    if ln is not None:
+        w.add(f"{arch}.attention.layer_norm_epsilon", 1e-5)
     for key, val in {**(vocab or spm_vocab(v, seed)), **(metadata or {})}.items():
         w.add(key, val)
     if tied:
@@ -2166,10 +2205,18 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
         add(w, "token_embd.weight", v, d, lt, l_mag)
     for i in range(n_layers):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
-        for name, n, k in layer_mats:
+        for name, n, k in mats:
             add(w, f"blk.{i}.{name}.weight", n, k, lt, l_mag)
-        w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
-        if arch == "qwen2":
+        if ln is None or ln["ffn_norm"]:
+            w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
+        if ln is not None:
+            w.add_tensor(f"blk.{i}.attn_norm.bias", bias(d))
+            if ln["ffn_norm"]:
+                w.add_tensor(f"blk.{i}.ffn_norm.bias", bias(d))
+            for name, n in (("attn_q", d_q), ("attn_k", d_kv), ("attn_v", d_kv),
+                            ("attn_output", d), ("ffn_up", f), ("ffn_down", d)):
+                w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
+        elif arch == "qwen2":
             for name, n in (("attn_q", d_q), ("attn_k", d_kv), ("attn_v", d_kv)):
                 w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
         elif arch == "qwen3":
@@ -2179,10 +2226,14 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             w.add_tensor(f"blk.{i}.attn_post_norm.weight", norm())
             w.add_tensor(f"blk.{i}.ffn_post_norm.weight", norm())
     w.add_tensor("output_norm.weight", norm())
+    if ln is not None:
+        w.add_tensor("output_norm.bias", bias(d))
     if rope_factors is not None:
         w.add_tensor("rope_freqs.weight", rope_factors.astype("float32"))
     if not tied:
         add(w, "output.weight", v, d, q6_k, 1e-4, signed=False)
+    if ln is not None and ln["out_b"]:
+        w.add_tensor("output.bias", bias(v))
     w.write()
     del w
     if not with_draft:
@@ -3230,7 +3281,8 @@ def target_qmm_specs(params) -> list:
     tl = params["layers"]
     n_layers = tl["wqkv"].q.shape[0]
     head = [] if params["output"].layout == "nk" else [("lm_head", params["output"], 1)]
-    return [(n, tl[n], n_layers) for n in ("wqkv", "wo", "w_gate_up", "w_down")] + head
+    ffn_in = "w_gate_up" if "w_gate_up" in tl else "w_up"  # the no-gate MLP's up
+    return [(n, tl[n], n_layers) for n in ("wqkv", "wo", ffn_in, "w_down")] + head
 
 
 def qmm_sum(tag: str, what: str, rows: int, specs: list, route: str, gen,
@@ -5171,6 +5223,23 @@ def bpe_pieces(seed: int, n_pieces: int) -> tuple[list, list, list]:
     return pieces, merges, words
 
 
+def bpe_vocab(seed: int, v: int, n_pieces: int, specials: tuple, pre: str) -> tuple[dict, list]:
+    """A byte-level BPE vocabulary of `v` entries as GGUF metadata, and its
+    words: `bpe_pieces` up to `n_pieces`, then `specials` (control), then
+    [PAD] pieces to `v` (control); pre `pre`, BOS and EOS the first special,
+    no BOS added, no chat template."""
+    import numpy as np
+
+    pieces, merges, words = bpe_pieces(seed, n_pieces)
+    rest = list(specials) + [f"[PAD{i}]" for i in range(v - n_pieces - len(specials))]
+    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": pre,
+          "tokenizer.ggml.tokens": pieces + rest, "tokenizer.ggml.merges": merges,
+          "tokenizer.ggml.token_type": np.asarray([1] * n_pieces + [3] * len(rest), np.int32),
+          "tokenizer.ggml.bos_token_id": n_pieces, "tokenizer.ggml.eos_token_id": n_pieces,
+          "tokenizer.ggml.add_bos_token": False}
+    return md, words
+
+
 def llama3_vocab(seed: int, v: int = 128256) -> tuple[dict, list]:
     """A Llama-3-layout byte-level BPE vocabulary as GGUF metadata, and the
     words it was built from: `bpe_pieces` up to 128,000 pieces; Llama-3.1's
@@ -5353,11 +5422,12 @@ def gqa_flash_checks(gen, tag: str, h: int, h_kv: int) -> list:
     return out
 
 
-def llama3_subprocesses(target, draft, text: str, eng, tmp: pathlib.Path) -> dict:
-    """The CLI (`--draft`, `--temp 0`) and the server (`-np 1`) as
-    subprocesses at once: the CLI's text and the server's
-    /v1/chat/completions content (the GGUF's template, read as llama3; a
-    system and a user message with multi-byte characters) must equal the
+def cli_server_subprocesses(target, draft, text: str, eng, tmp: pathlib.Path,
+                            tag: str = "llama3", template: str = "llama3") -> dict:
+    """The CLI (`--draft` unless `draft` is None, `--temp 0`) and the server
+    (`-np 1`) as subprocesses at once: the CLI's text and the server's
+    /v1/chat/completions content (the GGUF's template, read as `template`;
+    a system and a user message with multi-byte characters) must equal the
     in-process greedy `Engine`'s on the same prompts; SIGTERM ends the
     server with exit 0."""
     import signal
@@ -5366,37 +5436,38 @@ def llama3_subprocesses(target, draft, text: str, eng, tmp: pathlib.Path) -> dic
 
     from eagle_tpu_torch.server.chat_templates import apply_template, detect_template
 
-    src = eng.metadata["tokenizer.chat_template"]
-    if detect_template(src) != "llama3":
-        raise AssertionError("llama3: the GGUF's template is not detected as llama3")
+    src = eng.metadata.get("tokenizer.chat_template")
+    if detect_template(src) != template:
+        raise AssertionError(f"{tag}: the GGUF's template is not detected as {template}")
+    with_draft = ["--draft", str(draft)] if draft is not None else []
     env = {k: v for k, v in os.environ.items() if k != "EAGLE_TPU_FUSED_FFN"}
     cwd = pathlib.Path(__file__).resolve().parent
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    err_path = tmp / "llama3-server.stderr"
+    err_path = tmp / f"{tag}-server.stderr"
     t0 = time.time()
     cli = subprocess.Popen(
-        [sys.executable, "-m", "eagle_tpu_torch.tools.cli", "-m", str(target), "--draft",
-         str(draft), "-p", text, "-n", str(LLAMA3_CLI_NEW), "--temp", "0"],
+        [sys.executable, "-m", "eagle_tpu_torch.tools.cli", "-m", str(target), *with_draft,
+         "-p", text, "-n", str(LLAMA3_CLI_NEW), "--temp", "0"],
         cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     with open(err_path, "w") as err:
         srv = subprocess.Popen(
             [sys.executable, "-m", "eagle_tpu_torch.server.server", "-m", str(target),
-             "--draft", str(draft), "-np", "1", "--host", "127.0.0.1", "--port", str(port)],
+             *with_draft, "-np", "1", "--host", "127.0.0.1", "--port", str(port)],
             cwd=cwd, env=env, stdout=subprocess.DEVNULL, stderr=err)
     try:
         stdout, stderr = cli.communicate(timeout=600)
         cli_s = time.time() - t0
         spec = [ln for ln in stderr.splitlines() if ln.startswith("[speculative]")]
-        if cli.returncode != 0 or not spec:
-            raise AssertionError(f"llama3 cli: exit {cli.returncode}: {stderr[-2000:]}")
+        if cli.returncode != 0 or (draft is not None and not spec):
+            raise AssertionError(f"{tag} cli: exit {cli.returncode}: {stderr[-2000:]}")
         want_cli, _ = eng.generate_text(text, max_new_tokens=LLAMA3_CLI_NEW)
         if stdout.rstrip("\n") != want_cli:
-            raise AssertionError(f"llama3 cli: {stdout[:200]!r} != in-process {want_cli[:200]!r}")
+            raise AssertionError(f"{tag} cli: {stdout[:200]!r} != in-process {want_cli[:200]!r}")
         while True:
             if srv.poll() is not None:
-                raise AssertionError(f"llama3 server exited {srv.returncode}: "
+                raise AssertionError(f"{tag} server exited {srv.returncode}: "
                                      f"{err_path.read_text()[-3000:]}")
             try:
                 urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=2)
@@ -5418,21 +5489,22 @@ def llama3_subprocesses(target, draft, text: str, eng, tmp: pathlib.Path) -> dic
         rendered = apply_template(msgs, jinja_src=src)
         want, _ = eng.generate_text(rendered, max_new_tokens=24)
         if got != want.strip():
-            raise AssertionError(f"llama3 server: {got[:200]!r} != in-process {want[:200]!r}")
+            raise AssertionError(f"{tag} server: {got[:200]!r} != in-process {want[:200]!r}")
         srv.send_signal(signal.SIGTERM)
         rc = srv.wait(timeout=60)
         if rc != 0 or "Traceback" in err_path.read_text():
-            raise AssertionError(f"llama3 server: SIGTERM exit {rc}: "
+            raise AssertionError(f"{tag} server: SIGTERM exit {rc}: "
                                  f"{err_path.read_text()[-2000:]}")
     finally:
         for p in (cli, srv):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    log(f"[llama3 cli] --draft --temp 0: exit 0 in {cli_s:.1f} s, {spec[0]}; text == the "
-        f"in-process Engine's ({len(want_cli)} characters)")
+    log(f"[{tag} cli] {' '.join(with_draft[:1])} --temp 0: exit 0 in {cli_s:.1f} s"
+        + (f", {spec[0]}" if spec else "") + f"; text == the in-process Engine's "
+        f"({len(want_cli)} characters)")
     n_prompt = len(eng.tokenizer.encode(rendered))
-    log(f"[llama3 http] /v1/chat/completions (llama3 template, {n_prompt} prompt tokens): "
+    log(f"[{tag} http] /v1/chat/completions ({template} template, {n_prompt} prompt tokens): "
         f"content == the in-process Engine's, {http_s:.2f} s; SIGTERM exit 0")
     return dict(cli_s=cli_s, cli_text=want_cli, http_s=http_s, http_content=got)
 
@@ -5651,7 +5723,7 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
     cell.pop("gen")
     out["cell"] = cell
     launches = dict(cell["variants"]["eagle graphed C=1"]["launches"])
-    out["subprocesses"] = llama3_subprocesses(target, draft_path, text, eng, tmp)
+    out["subprocesses"] = cli_server_subprocesses(target, draft_path, text, eng, tmp)
     out["chat"] = llama3_chat_shift(eng, words)
     del eng, params, draft
     gc.collect()
@@ -5672,14 +5744,14 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
 
 #: the published configs (each model's config.json): Qwen2.5-7B-Instruct,
 #: Qwen3-8B, Gemma-2-9B and Gemma-7B (google/gemma-7b: the query 16 x 256 =
-#: 4,096 wide over n_embd 3,072). Qwen3-8B and Gemma-2-9B run at half their
-#: published depth (18 of 36, 21 of 42 layers; widths whole) to keep the
+#: 4,096 wide over n_embd 3,072). Qwen3-8B and Gemma-2-9B run at a third of
+#: their published depth (12 of 36, 14 of 42 layers; widths whole) to keep the
 #: script in its time budget
 QWEN25_7B = dict(d=3584, f=18944, v=152064, n_layers=28, n_heads=28, n_kv_heads=4,
                  head_dim=128, ctx=32768, rope_base=1000000.0)
-QWEN3_8B = dict(d=4096, f=12288, v=151936, n_layers=18, n_heads=32, n_kv_heads=8,
+QWEN3_8B = dict(d=4096, f=12288, v=151936, n_layers=12, n_heads=32, n_kv_heads=8,
                 head_dim=128, ctx=40960, rope_base=1000000.0)
-GEMMA2_9B = dict(d=3584, f=14336, v=256000, n_layers=21, n_heads=16, n_kv_heads=8,
+GEMMA2_9B = dict(d=3584, f=14336, v=256000, n_layers=14, n_heads=16, n_kv_heads=8,
                  head_dim=256, ctx=8192, rope_base=10000.0)
 GEMMA_7B = dict(d=3072, f=24576, v=256000, n_layers=28, n_heads=16, n_kv_heads=16,
                 head_dim=256, ctx=8192, rope_base=10000.0)
@@ -5713,26 +5785,19 @@ GEMMA7_GEMV, GEMMA7_FLASH = 28 * 4, 28  # the tied head is no qmm
 
 def qwen_vocab(seed: int, v: int) -> tuple[dict, list]:
     """A Qwen2-layout byte-level BPE vocabulary of `v` entries as GGUF
-    metadata, and its words: `bpe_pieces` up to 151,643 pieces, Qwen2.5's 22
-    named specials, then [PAD] pieces (control); pre "qwen2", no BOS added,
-    EOS <|im_end|> (the Instruct files'), a chatml template."""
-    import numpy as np
-
-    pieces, merges, words = bpe_pieces(seed, QWEN_PIECES)
-    specials = list(QWEN_SPECIALS) + [f"[PAD{i}]" for i in range(v - QWEN_PIECES
-                                                                  - len(QWEN_SPECIALS))]
-    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "qwen2",
-          "tokenizer.ggml.tokens": pieces + specials, "tokenizer.ggml.merges": merges,
-          "tokenizer.ggml.token_type": np.asarray([1] * QWEN_PIECES + [3] * len(specials),
-                                                  np.int32),
-          "tokenizer.ggml.bos_token_id": QWEN_PIECES, "tokenizer.ggml.eos_token_id":
-              QWEN_PIECES + 2, "tokenizer.ggml.padding_token_id": QWEN_PIECES,
-          "tokenizer.ggml.add_bos_token": False, "tokenizer.chat_template": CHATML_TEMPLATE}
+    metadata, and its words: `bpe_vocab` with 151,643 pieces, Qwen2.5's 22
+    named specials and pre "qwen2"; EOS <|im_end|> (the Instruct files'), a
+    chatml template."""
+    md, words = bpe_vocab(seed, v, QWEN_PIECES, QWEN_SPECIALS, "qwen2")
+    md.update({"tokenizer.ggml.eos_token_id": QWEN_PIECES + 2,
+               "tokenizer.ggml.padding_token_id": QWEN_PIECES,
+               "tokenizer.chat_template": CHATML_TEMPLATE})
     return md, words
 
 
 def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, arch: str,
-                with_draft: bool, metadata: dict | None = None, tied: bool = False):
+                with_draft: bool, metadata: dict | None = None, tied: bool = False,
+                phase: str = "families"):
     """Mint a `c`-shape `arch` target (Q4_K layers, a Q6_K head or tied
     table) and, `with_draft`, an EAGLE Q8_0 draft of its widths; load them
     through `Engine` (greedy, max_seq 2,048) and delete the files. Returns
@@ -5763,23 +5828,23 @@ def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, ar
     if (cfg.arch, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) != (
             arch, c["n_layers"], c["n_heads"], c["n_kv_heads"], c["head_dim"]):
         raise AssertionError(f"{tag}: the file loaded as {cfg}")
-    log(f"[families] {tag}: minted {rec['target_bytes'] / 1e9:.3f} GB"
+    log(f"[{phase}] {tag}: minted {rec['target_bytes'] / 1e9:.3f} GB"
         + (f" + a {rec['draft_bytes'] / 1e9:.3f} GB EAGLE draft" if draft else "")
         + f" in {rec['mint_s']:.1f} s; Engine load {rec['load_s']:.2f} s "
         f"({rec['device_gib']:.2f} GiB on the card)")
     return eng, rec
 
 
-def family_kernels(tag: str, params, gen, rows_list, draft=None) -> dict:
+def family_kernels(tag: str, params, gen, rows_list, draft=None,
+                   log_tag: str = "families kernel") -> dict:
     """qmm at the target's shapes (and the draft's fc) on each route of
     `rows_list` ((rows, route, what)), against the plain version, timed."""
     rows_out, totals = [], {}
     specs = [(f"{tag} {name}", w, n) for name, w, n in target_qmm_specs(params)]
     for rows, route, what in rows_list:
-        totals[what] = qmm_sum("families kernel", f"{tag} {what}", rows, specs, route, gen,
-                               rows_out)
+        totals[what] = qmm_sum(log_tag, f"{tag} {what}", rows, specs, route, gen, rows_out)
         if draft is not None:
-            qmm_sum("families kernel", f"{tag} draft fc at {rows} rows", rows,
+            qmm_sum(log_tag, f"{tag} draft fc at {rows} rows", rows,
                     [(f"{tag} draft fc", draft["fc_w"], 1)], route, gen, rows_out)
     return dict(rows=rows_out, totals=totals)
 
@@ -5903,14 +5968,16 @@ def qwen3_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     return out, launches
 
 
-def gemma_attention_checks(gen, cfg) -> list:
-    """Gemma-2's attention, the plain `gqa_attention` (no kernel in either
-    package: the softcap), at 16 query over 8 KV heads of 256, bf16 cache,
-    softcap 50: one decoded row over 512 and 1,024 slots (364 visible) and a
-    512-row prompt (300 real rows); its own ms per call against the bound
-    (K and V of the visible slots once; the score and value products at the
-    bf16 rate). No library call computes the softcapped function."""
+def plain_attention_checks(gen, cfg, tag: str) -> list:
+    """A model's attention on the plain `gqa_attention` (no kernel in either
+    package: a softcap, or a head width the flash kernels do not take), at
+    its heads, bf16 cache: one decoded row over 512 and 1,024 slots (364
+    visible) and a 512-row prompt (300 real rows); its ms per call against
+    the bound (K and V of the visible slots once; the score and value
+    products at the bf16 rate) and, without a softcap, SDPA's on the same
+    inputs (`enable_gqa`)."""
     import torch
+    import torch.nn.functional as F
 
     from eagle_tpu_torch.ops.attention import gqa_attention
     from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
@@ -5929,19 +5996,26 @@ def gemma_attention_checks(gen, cfg) -> list:
                                       softcap=cfg.attn_softcap)
         got = run(0)
         if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"gemma2 attention T={t}: non-finite output")
+            raise AssertionError(f"{tag} attention T={t}: non-finite output")
         ms = device_ms(run, 20)
+        lib = None
+        if cfg.attn_softcap == 0:
+            qb = q.transpose(1, 2).to(torch.bfloat16)
+            lib = device_ms(lambda i: F.scaled_dot_product_attention(
+                qb, kc, vc, attn_mask=mask[:, None], scale=cfg.attn_scale,
+                enable_gqa=h != h_kv), 20)
         pairs = int(mask.sum())
         b_ms, b_by = bound_ms(2 * n * h_kv * d * 2 + nbytes(q, mask) + q.numel() * 4,
                               4.0 * pairs * h * d)
         out.append(dict(name="gqa_attention (plain)", t=t, s=s, visible=n, ms=ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                         per_token_ms=ms * cfg.n_layers if t == 1 else None))
-        log(f"[families kernel] gemma2 plain attention T={t} S={s} ({n} visible) H={h}/{h_kv} D={d} "
+        log(f"[{tag}] plain attention T={t} S={s} ({n} visible) H={h}/{h_kv} D={d} "
             f"softcap {cfg.attn_softcap:g}: {ms:.4f} ms per call"
             + (f" ({ms * cfg.n_layers:.3f} ms per token over {cfg.n_layers} layers)"
                if t == 1 else "")
-            + f", bound {b_ms * 1e3:.2f} us ({b_by}), library none (no call takes the softcap)")
+            + f", bound {b_ms * 1e3:.2f} us ({b_by}), library "
+            + (f"{lib:.4f} ms (SDPA)" if lib is not None else "none (no call takes the softcap)"))
         del kc, vc
     torch.cuda.empty_cache()
     return out
@@ -5971,7 +6045,7 @@ def gemma2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     out = {"files": files, "prompt_tokens": len(ids)}
     out["qmm"] = family_kernels("gemma2", params, gen, (
         (1, "qmm_gemv", "decoded token"), (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")))
-    out["attention"] = gemma_attention_checks(gen, cfg)
+    out["attention"] = plain_attention_checks(gen, cfg, "families kernel")
     out["head"] = nk_head_check("families kernel", params["output"], cfg)
     out["cell"], launches = greedy_cell("gemma2", eng, ids, {
         "qmm_gemv": GEMMA2_GEMV, "flash_decode": 0, "flash_prefill": 0, "qmm": 0})
@@ -6062,6 +6136,175 @@ def families_path(report: dict, tmp: pathlib.Path) -> dict:
             launches[k] = launches.get(k, 0) + v
     out["launches"] = launches
     report["families_path"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase layernorm: the rotary LayerNorm families at their published shapes
+
+
+#: the published configs (config.json): bigcode/starcoder2-7b (its
+#: sliding_window of 4,096 does not bite at max_seq 1,024 and llama.cpp's
+#: files carry none) and microsoft/phi-2 (partial_rotary_factor 0.4)
+STARCODER2_7B = dict(d=4608, f=18432, v=49152, n_layers=32, n_heads=36, n_kv_heads=4,
+                     head_dim=128, ctx=16384, rope_base=1000000.0)
+PHI2 = dict(d=2560, f=10240, v=51200, n_layers=32, n_heads=32, n_kv_heads=32, head_dim=80,
+            ctx=2048, rope_base=10000.0, rope_dim=32)
+#: launches per decoded token: wqkv, wo, w_up, w_down a layer + lm_head
+STARCODER2_GEMV, STARCODER2_FLASH = 32 * 4 + 1, 32
+PHI2_GEMV = 32 * 4 + 1
+#: the vocabularies' specials: StarCoder2's (its first 38 ids in the
+#: published file; here at the end of the minted pieces) and GPT-2's
+STARCODER2_SPECIALS = ("<|endoftext|>", "<fim_prefix>", "<fim_middle>", "<fim_suffix>",
+                       "<fim_pad>", "<repo_name>", "<file_sep>", "<issue_start>",
+                       "<issue_comment>", "<issue_closed>", "<jupyter_start>",
+                       "<jupyter_text>", "<jupyter_code>", "<jupyter_output>",
+                       "<jupyter_script>", "<empty_output>", "<code_to_intermediate>",
+                       "<intermediate_to_code>", "<pr>", "<pr_status>", "<pr_is_merged>",
+                       "<pr_base>", "<pr_file>", "<pr_base_code>", "<pr_diff>",
+                       "<pr_diff_hunk>", "<pr_comment>", "<pr_event_id>", "<pr_review>",
+                       "<pr_review_state>", "<pr_review_comment>", "<pr_in_reply_to>",
+                       "<pr_in_reply_to_review_id>", "<pr_diff_hunk_comment_line>",
+                       "<NAME>", "<EMAIL>", "<KEY>", "<PASSWORD>")
+
+
+def starcoder2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
+    """StarCoder2-7B's shape (LayerNorm with biases, q/k/v and output biases,
+    a no-gate GELU MLP with biases, 36 query over 4 KV heads of 128: g = 9)
+    with a 49,152-entry BPE vocabulary ("starcoder" pre-tokenizer) and an
+    EAGLE Q8_0 draft at its widths; qmm at the path's shapes at 1, 6 and 300
+    rows and the draft's fc, both flash kernels at g = 9; `serve_cell`
+    (greedy and the chain at C = 1 and 4, eager and graphed, 2 runs each):
+    129 qmm_gemv and 32 flash_decode per decoded token, 129 qmm_mma per
+    verify, 32 flash_prefill per greedy prompt. Returns (the cell, the
+    default path's launches)."""
+    import numpy as np
+
+    from eagle_tpu_torch.tokenizer import BPETokenizer
+
+    c = STARCODER2_7B
+    t0 = time.time()
+    vocab, words = bpe_vocab(157, c["v"], c["v"] - len(STARCODER2_SPECIALS), STARCODER2_SPECIALS,
+                            "starcoder")
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("starcoder2-7b", c, tmp, 163, vocab, "starcoder2",
+                                    with_draft=True, phase="layernorm")
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    tok = eng.tokenizer
+    layers = params["layers"]
+    if (not isinstance(tok, BPETokenizer) or cfg.norm_type != "layer" or cfg.parallel_blocks
+            or cfg.act != "gelu" or cfg.rope_dim != cfg.head_dim or "w_gate_up" in layers
+            or not {"bqkv", "bo", "b_up", "b_down", "attn_norm_b", "ffn_norm_b"} <= set(layers)
+            or "output_norm_b" not in params or (dcfg.arch, dcfg.n_kv_heads) != ("eagle", 4)):
+        raise AssertionError(f"starcoder2: the files did not load as StarCoder2 + EAGLE: {cfg}")
+    text = llama3_text(tok, words, FAMILY_PROMPT_TOKENS, seed=167)
+    ids = tok.encode(text)
+    if tok.decode(ids) != text:
+        raise AssertionError("starcoder2: the prompt does not round-trip through the tokenizer")
+    out["prompt_tokens"] = len(ids)
+    out["qmm"] = family_kernels("starcoder2", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma", "verify cycle"),
+        (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft,
+        log_tag="layernorm kernel")
+    out["attention"] = gqa_flash_checks(gen, "layernorm kernel", c["n_heads"], c["n_kv_heads"])
+    want_tok = {"qmm_gemv": STARCODER2_GEMV, "flash_decode": STARCODER2_FLASH,
+                "ffn_out_norm": 0, "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("starcoder2", params, draft, cfg, dcfg, np.asarray(ids), FAMILY_NEW,
+                      want_tok, STARCODER2_GEMV, fused=False)
+    cell.pop("gen")
+    prompt = cell["variants"]["greedy graphed"]["launches_at_first_token"]
+    if prompt["flash_prefill"] != STARCODER2_FLASH or prompt["flash_decode"]:
+        raise AssertionError(f"starcoder2: the greedy prompt's attention launches {prompt}, "
+                             f"expected {STARCODER2_FLASH} flash_prefill")
+    log(f"[starcoder2] the greedy prompt: {prompt['flash_prefill']} flash_prefill, "
+        f"{prompt['qmm_tc']} qmm_tc; EAGLE == greedy: "
+        f"{cell['eagle_tokens'] == cell['greedy_tokens']}")
+    out["cell"] = cell
+    return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
+
+
+def phi2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
+    """Phi-2's shape (32 heads of 80: the plain attention; 32 of 80 features
+    rotary; one shared LayerNorm feeding attention and a no-gate GELU MLP in
+    parallel; biases on q/k/v, dense, fc1 / fc2 and the head) with a
+    51,200-entry BPE vocabulary ("phi-2" pre-tokenizer): qmm at 1 and 300
+    rows, the plain attention timed, `greedy_cell` (129 qmm_gemv per decoded
+    token, no flash kernel), then the CLI and the server as subprocesses on
+    the file, each == the in-process Engine's text; the file is deleted
+    after them."""
+    import torch
+
+    from eagle_tpu_torch.api import Engine, EngineConfig
+    from eagle_tpu_torch.utils.args import build_parser, sampler_from_args
+
+    c = PHI2
+    vocab, words = bpe_vocab(173, c["v"], 50256, ("<|endoftext|>",), "phi-2")
+    t0 = time.time()
+    target, _ = mint_gguf_pair(
+        tmp, seed=179, d=c["d"], f=c["f"], v=c["v"], n_layers=c["n_layers"],
+        n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"], head_dim=c["head_dim"], tag="phi-2",
+        ctx=c["ctx"], rope_base=c["rope_base"], vocab=vocab, with_draft=False,
+        layer_type="Q4_K", arch="phi2", rope_dim=c["rope_dim"])
+    files = {"mint_s": time.time() - t0, "target_bytes": target.stat().st_size}
+    greedy = sampler_from_args(build_parser("cli").parse_args(["-m", "-", "--temp", "0"]))
+    t0 = time.time()
+    eng = Engine(EngineConfig(model_path=target, max_seq=2048, sampler=greedy))
+    torch.cuda.synchronize()
+    files["load_s"] = time.time() - t0
+    cfg, params = eng.model_cfg, eng.params
+    layers = params["layers"]
+    if ((cfg.arch, cfg.norm_type, cfg.parallel_blocks, cfg.rope_dim, cfg.head_dim, cfg.act)
+            != ("phi2", "layer", True, 32, 80, "gelu") or "ffn_norm" in layers
+            or "w_gate_up" in layers or "output_b" not in params
+            or not {"bqkv", "bo", "b_up", "b_down", "attn_norm_b"} <= set(layers)):
+        raise AssertionError(f"phi2: the file did not load as Phi-2: {cfg}")
+    log(f"[layernorm] phi-2: minted {files['target_bytes'] / 1e9:.3f} GB in "
+        f"{files['mint_s']:.1f} s; Engine load {files['load_s']:.2f} s")
+    text = llama3_text(eng.tokenizer, words, FAMILY_PROMPT_TOKENS, seed=181)
+    ids = eng.tokenizer.encode(text)
+    out = {"files": files, "prompt_tokens": len(ids)}
+    out["qmm"] = family_kernels("phi2", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")),
+        log_tag="layernorm kernel")
+    out["attention"] = plain_attention_checks(gen, cfg, "layernorm kernel")
+    out["cell"], launches = greedy_cell("phi2", eng, ids, {
+        "qmm_gemv": PHI2_GEMV, "flash_decode": 0, "flash_prefill": 0, "qmm": 0})
+    if launches.get("flash_prefill") or launches.get("flash_decode"):
+        raise AssertionError(f"phi2: a flash kernel ran: {launches}")
+    out["subprocesses"] = cli_server_subprocesses(target, None, text, eng, tmp, tag="phi2",
+                                                  template="chatml")
+    target.unlink()
+    return out, launches
+
+
+def layernorm_path(report: dict, tmp: pathlib.Path) -> dict:
+    """Phase layernorm: the StarCoder2-7B (+ EAGLE) and Phi-2 cells, each
+    minted into `tmp`, loaded through `Engine`, its kernels checked at its
+    shapes, run, and freed before the next. Returns the launches of the
+    StarCoder2 default path (greedy + EAGLE graphed at C = 1) and of the
+    Phi-2 cell's first timed graphed run, added."""
+    import gc
+    import shutil
+
+    import torch
+
+    if shutil.disk_usage(tmp).free < 6 * 2**30:
+        raise RuntimeError("phase layernorm needs 6 GiB of disk")
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    out: dict = {}
+    launches: dict = {}
+    for name, cell in (("starcoder2", starcoder2_cell), ("phi2", phi2_cell)):
+        t0 = time.time()
+        out[name], part = cell(tmp, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name]["seconds"] = time.time() - t0
+        log(f"[time] layernorm {name}: {out[name]['seconds']:.1f} s")
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    report["layernorm_path"] = out
     return launches
 
 
@@ -6369,6 +6612,8 @@ def main() -> int:
         llama3_launches = phase("llama3", llama3_path, report, pathlib.Path(tmp))
     with tempfile.TemporaryDirectory(prefix="eagle_families_") as tmp:
         families_launches = phase("families", families_path, report, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="eagle_layernorm_") as tmp:
+        layernorm_launches = phase("layernorm", layernorm_path, report, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -6401,6 +6646,7 @@ def main() -> int:
                 "runtime_path_launches": runtime_launches.get(name, 0),
                 "llama3_path_launches": llama3_launches.get(name, 0),
                 "families_path_launches": families_launches.get(name, 0),
+                "layernorm_path_launches": layernorm_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     def d256_row(name, t):

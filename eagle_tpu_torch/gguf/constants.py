@@ -134,6 +134,7 @@ class Keys:
         HEAD_COUNT = "{arch}.attention.head_count"
         HEAD_COUNT_KV = "{arch}.attention.head_count_kv"
         LAYERNORM_RMS_EPS = "{arch}.attention.layer_norm_rms_epsilon"
+        LAYERNORM_EPS = "{arch}.attention.layer_norm_epsilon"
         KEY_LENGTH = "{arch}.attention.key_length"
 
     class Rope:

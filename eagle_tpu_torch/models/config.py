@@ -1,12 +1,14 @@
 """Model hyperparameters (the fields of eagle_tpu's `ModelConfig` that the
 ported block reads, with the same names and defaults), and
-`ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3, Gemma
-and Gemma-2 architectures.
+`ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3, Gemma,
+Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX and Command-R architectures.
 
 The ported block is the pre-norm llama block and its config-driven
 branches: qkv biases (qwen2), per-head q/k RMSNorm (qwen3), sandwich norms,
 GELU and the embedding scale (gemma, gemma2), `query_pre_attn_scalar`, the
-attention and final softcaps and the alternating sliding window (gemma2).
+attention and final softcaps and the alternating sliding window (gemma2);
+LayerNorm with biases, the parallel residual, partial rotary and the
+logit scale (phi2, starcoder2, stablelm, gptneox, command-r).
 Fields of other
 architectures are kept at their defaults so that a config carried across
 from the reference can be checked: `check_ported` raises on any setting the
@@ -19,8 +21,11 @@ from typing import Any
 
 from ..gguf.constants import Keys
 
+#: the rotary LayerNorm families: mean-subtracted LayerNorm (with biases
+#: where the file has them) and no learned positions or ALiBi
+LAYERNORM_TARGETS = ("phi2", "starcoder2", "stablelm", "gptneox", "command-r")
 #: GGUF architectures the port reads: the targets, and EAGLE drafts
-TARGET_ARCHS = ("llama", "qwen2", "qwen3", "gemma", "gemma2")
+TARGET_ARCHS = ("llama", "qwen2", "qwen3", "gemma", "gemma2") + LAYERNORM_TARGETS
 GGUF_ARCHS = TARGET_ARCHS + ("eagle",)
 
 #: archs whose GGUF q/k rows carry convert_hf_to_gguf's adjacent-pair rope
@@ -101,9 +106,9 @@ class ModelConfig:
 
     @staticmethod
     def from_gguf_metadata(md: dict[str, Any]) -> "ModelConfig":
-        """The config of a llama, Qwen2, Qwen3, Gemma, Gemma-2 or EAGLE GGUF, read
-        as the reference reads it (eagle_tpu/models/config.py:173); any
-        other architecture raises NotImplementedError."""
+        """The config of a GGUF of `GGUF_ARCHS`, read as the reference reads
+        it (eagle_tpu/models/config.py:173); any other architecture raises
+        NotImplementedError."""
         arch = md[Keys.General.ARCHITECTURE]
         if arch not in GGUF_ARCHS:
             raise NotImplementedError(f"GGUF architecture {arch!r} is not ported yet ({_ITEM8})")
@@ -133,6 +138,10 @@ class ModelConfig:
         # that check_ported refuses such a file instead of ignoring them
         opt = lambda key, default: md.get(f"{arch}.{key}", default) or default
         gemma = arch.startswith("gemma")
+        # LayerNorm archs store layer_norm_epsilon, RMSNorm archs
+        # layer_norm_rms_epsilon (the reference's eps_key)
+        layer = arch in LAYERNORM_TARGETS
+        eps_key = Keys.Attention.LAYERNORM_EPS if layer else Keys.Attention.LAYERNORM_RMS_EPS
         return ModelConfig(
             arch=arch,
             vocab_size=int(vocab_size),
@@ -142,7 +151,7 @@ class ModelConfig:
             n_kv_heads=int(k(Keys.Attention.HEAD_COUNT_KV, n_heads)),
             head_dim=head_dim,
             n_ff=int(k(Keys.LLM.FEED_FORWARD_LENGTH)),
-            rms_eps=float(k(Keys.Attention.LAYERNORM_RMS_EPS, 1e-5)),
+            rms_eps=float(k(eps_key, 1e-5)),
             rope_base=float(md.get(Keys.Rope.FREQ_BASE.format(arch=arch), 10000.0)),
             rope_dim=int(md.get(Keys.Rope.DIMENSION_COUNT.format(arch=arch), head_dim)),
             n_ctx_train=int(k(Keys.LLM.CONTEXT_LENGTH, 2048)),
@@ -152,7 +161,7 @@ class ModelConfig:
             rope_attn_factor=float(
                 md.get(Keys.Rope.SCALING_ATTN_FACTOR.format(arch=arch), 1.0) or 1.0),
             is_eagle=(arch == "eagle"),
-            attn_bias=(arch == "qwen2"),
+            attn_bias=(arch in ("qwen2", "starcoder2")),
             swa_window=int(opt("attention.sliding_window", 0)),
             swa_every=2 if arch == "gemma2" else 0,
             clamp_kqv=float(opt("attention.clamp_kqv", 0.0)),
@@ -161,8 +170,12 @@ class ModelConfig:
             post_norms=(arch == "gemma2"),
             embd_scale=float(opt("embedding_scale", 0.0) or (n_embd ** 0.5 if gemma else 1.0)),
             attn_scale=attn_scale,
-            act="gelu" if gemma else "silu",
-            parallel_blocks=bool(opt("use_parallel_residual", False)),
+            # the reference's GELU_ARCHS and PARALLEL_BLOCK_ARCHS among the ported
+            # archs; gptneox and stablelm opt in to the parallel residual per file
+            act="gelu" if gemma or arch in ("starcoder2", "phi2", "gptneox") else "silu",
+            norm_type="layer" if layer else "rms",
+            parallel_blocks=(arch in ("command-r", "phi2")
+                             or bool(opt("use_parallel_residual", False))),
             logit_scale=float(opt("logit_scale", 1.0)),
             resid_scale=float(opt("residual_scale", 1.0)),
             v_head_dim=int(opt("attention.value_length", 0)),
@@ -171,7 +184,6 @@ class ModelConfig:
 
 #: (field, value the ported block needs): the other architectures' branches
 _PLAIN = (
-    ("norm_type", "rms"), ("parallel_blocks", False), ("logit_scale", 1.0),
     ("has_pos_embd", False), ("use_alibi", False), ("mrope_sections", ()),
     ("head_counts", ()), ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
     ("clamp_kqv", 0.0), ("nonparam_norms", False), ("rope_yarn_log_mul", 0.0),
@@ -181,16 +193,24 @@ _PLAIN = (
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming ROADMAP queue 1, item 8, unless
     `cfg` is the pre-norm block with the branches the port implements:
-    RMSNorm, rotary GQA over the whole head at any head width, SiLU or GELU,
-    the softcaps, the embedding scale, the attention scale, sandwich norms
-    and a sliding window on every `swa_every`-th layer. That is the llama,
-    Qwen2, Qwen3, Gemma and Gemma-2 families (`TARGET_ARCHS`) and EAGLE
-    drafts."""
+    RMSNorm, or LayerNorm for `LAYERNORM_TARGETS`; rotary GQA over the whole
+    head or its first `rope_dim` features, at any head width; SiLU or GELU;
+    the sequential or the parallel residual; the softcaps, the embedding,
+    attention and logit scales, sandwich norms and a sliding window on
+    every `swa_every`-th layer. That is the llama, Qwen2, Qwen3, Gemma,
+    Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX and Command-R families
+    (`TARGET_ARCHS`) and EAGLE drafts."""
     bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PLAIN if getattr(cfg, k) != v]
+    if cfg.norm_type not in ("rms", "layer"):
+        bad.append(f"norm_type={cfg.norm_type!r}")
+    elif cfg.norm_type == "layer" and cfg.arch not in LAYERNORM_TARGETS:
+        bad.append(f"norm_type='layer' for arch {cfg.arch!r}")
     if cfg.act not in ("silu", "gelu"):
         bad.append(f"act={cfg.act!r}")
-    if cfg.rope_dim != cfg.head_dim:
-        bad.append(f"rope_dim={cfg.rope_dim} (partial rotary)")
+    if cfg.rope_dim <= 0:
+        bad.append(f"rope_dim={cfg.rope_dim} (no rotary: learned positions or ALiBi)")
+    elif cfg.rope_dim > cfg.head_dim or cfg.rope_dim % 2:
+        bad.append(f"rope_dim={cfg.rope_dim} over head_dim {cfg.head_dim}")
     if cfg.v_dim != cfg.head_dim:
         bad.append(f"v_head_dim={cfg.v_head_dim}")
     if cfg.swa_window > 0 and cfg.swa_every <= 0:

@@ -1,15 +1,28 @@
 """Llama-family forward pass (port of eagle_tpu/models/llama.py:
-`ForwardOutput`, `embed_lookup`, `_layer_step`, `llama_forward`, with the
-int8 and paged cache branches, Llama-3.1's rope factors, a tied ("nk") head,
-and the config-driven branches of the Qwen2, Qwen3, Gemma and Gemma-2
-families).
+`ForwardOutput`, `embed_lookup`, `_block_norm`, `_ffn`, `_layer_step`,
+`llama_forward`, with the int8 and paged cache branches, Llama-3.1's rope
+factors, a tied ("nk") head, and the config-driven branches of the Qwen2,
+Qwen3, Gemma, Gemma-2 and rotary LayerNorm families).
 
 RMSNorm, rotary GQA attention over the position-tagged cache, a gated FFN
 (SiLU, or GELU for the Gemma families), with fused `wqkv` and `w_gate_up` weights kept
 layer-stacked and read in place by the qmm kernel. One function serves
 prefill, decode and speculative verify. The branches, each read from the
 config or from the weights present, as the reference reads them:
-- `bqkv`: q/k/v biases added after the `wqkv` product (qwen2);
+- `bqkv`: q/k/v biases added after the `wqkv` product (qwen2, starcoder2,
+  stablelm, phi2, gptneox);
+- `cfg.norm_type == "layer"`: mean-subtracted LayerNorm for every block
+  norm and the final norm, with `attn_norm_b` / `ffn_norm_b` /
+  `output_norm_b` where the file has them (phi2, starcoder2, stablelm,
+  gptneox, command-r);
+- `cfg.rope_dim < head_dim`: only the first `rope_dim` features of q and k
+  rotate (phi2, stablelm, gptneox);
+- `bo`: the attention output's bias; `w_up` without a gate: the no-gate
+  MLP act(x W_up + b_up) W_down + b_down (phi2, starcoder2, gptneox);
+- `cfg.parallel_blocks`: x + attn + ffn, the FFN fed by `ffn_norm` where the
+  tensor exists (gptneox, stablelm) or by the attention's input norm
+  (phi2, command-r);
+- `output_b` and `cfg.logit_scale` on the logits (phi2; command-r);
 - `attn_q_norm` / `attn_k_norm` [Dh]: per-head RMSNorm of q and k before
   rope (qwen3);
 - `post_attn_norm` / `post_ffn_norm`: sandwich norms on the attention and
@@ -40,6 +53,7 @@ an int8 paged read to the compute dtype, as the reference's."""
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, NamedTuple
 
@@ -51,16 +65,18 @@ from ..ops.ffn import MAX_ROWS as FFN_MAX_ROWS
 from ..ops.ffn import ffn_block, supports_ffn_block
 from ..ops.flash_attention import HEAD_DIMS, flash_attention_cached, flash_attention_prefill
 from ..ops.matmul import qmatmul, qmatmul_layer
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope, rope_inv_freq, rope_mscale_cfg
 from ..quant.qtensor import QTensor
 from ..runtime.kvcache import KVCache, dequantize_kv, quantize_kv_vec
 from ..runtime.paged_kv import PagedKVCache, gather_pages
 from .config import ModelConfig, check_ported
 
-_TOP_KEYS = {"tok_embd", "layers", "output_norm", "output", "rope_factors"}
-_LAYER_KEYS = {"attn_norm", "wqkv", "wo", "ffn_norm", "w_gate_up", "w_down", "bqkv",
-               "attn_q_norm", "attn_k_norm", "post_attn_norm", "post_ffn_norm"}
+_TOP_KEYS = {"tok_embd", "layers", "output_norm", "output_norm_b", "output", "output_b",
+             "rope_factors"}
+_LAYER_KEYS = {"attn_norm", "wqkv", "wo", "ffn_norm", "w_gate_up", "w_up", "w_down", "bqkv",
+               "attn_q_norm", "attn_k_norm", "post_attn_norm", "post_ffn_norm",
+               "attn_norm_b", "ffn_norm_b", "bo", "b_up", "b_down"}
 
 
 class ForwardOutput(NamedTuple):
@@ -74,9 +90,16 @@ def check_layer_keys(layers: dict[str, Any], cfg: ModelConfig | None = None) -> 
     extra = set(layers) - _LAYER_KEYS
     if extra:
         raise NotImplementedError(f"layer weights not ported yet: {sorted(extra)}")
-    missing = {"wqkv", "wo", "w_gate_up", "w_down"} - set(layers)
+    missing = {"wqkv", "wo", "w_down"} - set(layers)
+    if ("w_gate_up" in layers) == ("w_up" in layers):
+        missing.add("w_gate_up or w_up")
     if missing:
-        raise NotImplementedError(f"only fused wqkv / w_gate_up layers are ported; missing {sorted(missing)}")
+        raise NotImplementedError(f"only fused wqkv layers with a fused w_gate_up or a no-gate "
+                                  f"w_up are ported; missing {sorted(missing)}")
+    if "b_up" in layers and "w_up" not in layers:
+        # the reference adds b_up to a gated FFN only beside b_gate (jais)
+        raise NotImplementedError("an up bias on a gated FFN is not ported (ROADMAP queue 1, "
+                                  "item 8)")
     if ("attn_q_norm" in layers) != ("attn_k_norm" in layers):
         raise NotImplementedError("a q norm without a k norm (or the reverse) is not ported")
     if cfg is not None and "attn_q_norm" in layers:
@@ -85,6 +108,11 @@ def check_layer_keys(layers: dict[str, Any], cfg: ModelConfig | None = None) -> 
             # olmo2's one norm over the flat [H * Dh] projection
             raise NotImplementedError(f"q/k norms of widths {widths}: only per-head norms "
                                       f"[{cfg.head_dim}] are ported (ROADMAP queue 1, item 8)")
+        if cfg.norm_type == "layer":
+            # command-r-plus's q/k LayerNorms: the reference applies RMSNorm
+            # there (llama.py:355-357), llama.cpp a LayerNorm
+            raise NotImplementedError("q/k norms of a LayerNorm model are not ported "
+                                      "(ROADMAP queue 1, item 8)")
 
 
 def embed_lookup(tok_embd: QTensor | torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -143,6 +171,38 @@ def _write_pages(cache: torch.Tensor, li: int, phys: torch.Tensor, rows: torch.T
     cache[li][phys, :, rows] = upd.transpose(1, 2).to(cache.dtype)
 
 
+def _block_norm(cfg: ModelConfig, layers: dict, key: str, x: torch.Tensor, li: int
+                ) -> torch.Tensor:
+    """The block norm `key` of layer `li` (the reference's `_block_norm`,
+    llama.py:167): RMSNorm, or LayerNorm with the `key + "_b"` bias where the
+    layers carry one."""
+    w = layers[key][li] if key in layers else None
+    if cfg.norm_type == "layer":
+        b = layers[key + "_b"][li] if key + "_b" in layers else None
+        return layer_norm(x, w, b, cfg.rms_eps)
+    return rms_norm(x, w, cfg.rms_eps)
+
+
+def _ffn(cfg: ModelConfig, layers: dict, li: int, ffn_in: torch.Tensor, compute_dtype
+         ) -> torch.Tensor:
+    """The FFN (the reference's `_ffn`, llama.py:178-200): the fused gated
+    act(gate) * up, or the no-gate MLP act(x W_up + b_up), then W_down and
+    `b_down` where the layers carry it."""
+    act = F.silu if cfg.act == "silu" else functools.partial(F.gelu, approximate="tanh")
+    if "w_gate_up" in layers:
+        gate, up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype).chunk(2, dim=-1)
+        h = act(gate) * up
+    else:
+        up = qmatmul_layer(ffn_in, layers["w_up"], li, compute_dtype)
+        if "b_up" in layers:
+            up = up + layers["b_up"][li].to(up.dtype)
+        h = act(up)
+    out = qmatmul_layer(h, layers["w_down"], li, compute_dtype)
+    if "b_down" in layers:
+        out = out + layers["b_down"][li].to(out.dtype)
+    return out
+
+
 def _layer_step(
     cfg: ModelConfig,
     inv_freq: torch.Tensor,
@@ -172,7 +232,7 @@ def _layer_step(
     replaces `mask` on every `cfg.swa_every`-th layer from layer 0."""
     b, t, _ = x.shape
     h, h_kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn_in = rms_norm(x, layers["attn_norm"][li], cfg.rms_eps) if "attn_norm" in layers else x
+    attn_in = _block_norm(cfg, layers, "attn_norm", x, li) if "attn_norm" in layers else x
     if mask_swa is not None and li % cfg.swa_every == 0:
         mask = mask_swa
 
@@ -245,14 +305,16 @@ def _layer_step(
         )
         return out.reshape(b, t, d)
     attn_out = qmatmul_layer(attn.reshape(b, t, -1), layers["wo"], li, compute_dtype)
+    if "bo" in layers:
+        attn_out = attn_out + layers["bo"][li].to(attn_out.dtype)
     if "post_attn_norm" in layers:  # gemma2's sandwich norm
         attn_out = rms_norm(attn_out, layers["post_attn_norm"][li], cfg.rms_eps)
+    if cfg.parallel_blocks:  # the reference's llama.py:591-602
+        ffn_in = _block_norm(cfg, layers, "ffn_norm", x, li) if "ffn_norm" in layers else attn_in
+        return x + attn_out + _ffn(cfg, layers, li, ffn_in, compute_dtype)
     x = x + attn_out
-    ffn_in = rms_norm(x, layers["ffn_norm"][li], cfg.rms_eps) if "ffn_norm" in layers else x
-    gate_up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype)
-    gate, up = gate_up.chunk(2, dim=-1)
-    act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
-    ffn_out = qmatmul_layer(act * up, layers["w_down"], li, compute_dtype)
+    ffn_in = _block_norm(cfg, layers, "ffn_norm", x, li) if "ffn_norm" in layers else x
+    ffn_out = _ffn(cfg, layers, li, ffn_in, compute_dtype)
     if "post_ffn_norm" in layers:
         ffn_out = rms_norm(ffn_out, layers["post_ffn_norm"][li], cfg.rms_eps)
     return x + ffn_out
@@ -333,10 +395,18 @@ def llama_forward(
             kv.k, kv.v, kv_limit=kv_limit, slot_tags=slot_tags, fused_ffn=fused,
             mask_swa=mask_swa, **cache_kw(kv),
         )
-    hidden = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
+    if cfg.norm_type == "layer":
+        hidden = layer_norm(x, params.get("output_norm"), params.get("output_norm_b"),
+                            cfg.rms_eps)
+    else:
+        hidden = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     logits = None
     if return_logits:
         logits = qmatmul(hidden, params["output"], compute_dtype)
+        if "output_b" in params:  # phi2's lm_head bias
+            logits = logits + params["output_b"].to(logits.dtype)
+        if cfg.logit_scale != 1.0:  # command-r
+            logits = logits * cfg.logit_scale
         if cfg.final_softcap > 0:  # gemma2's final logit softcapping
             c = cfg.final_softcap
             logits = c * torch.tanh(logits / c)

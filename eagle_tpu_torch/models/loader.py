@@ -1,7 +1,7 @@
 """GGUF -> params on the device (port of eagle_tpu/models/loader.py:
 `unpermute_rows`, `_load_tensor`, `_stack`, `fuse_layer_weights`, the
-llama, Qwen2, Qwen3, Gemma and Gemma-2 branches of `load_llama_params`, and
-`load_eagle_params`).
+branches of `load_llama_params` for the architectures of `TARGET_ARCHS`,
+and `load_eagle_params`).
 
 Each tensor's raw block bytes are copied from the file's map into a pinned
 staging buffer ("read"), uploaded ("upload") and repacked on the device
@@ -24,10 +24,18 @@ A Llama-3.1 file's `rope_freqs.weight` loads as `params["rope_factors"]`
 Gemma, Gemma-2) takes `token_embd` as its head, which stays "nk".
 
 The optional layer tensors of these families load as the reference's do:
-q/k/v biases (qwen2) into a layer-stacked f32 `bqkv` [L, (H + 2 H_kv) Dh],
-per-head q/k norms (qwen3) and the sandwich norms (gemma2) as f32 stacks.
-Anything else (MoE, MLA, flat q/k norms, per-layer head counts, recurrent
-layers, ...) raises NotImplementedError, as does an EAGLE draft with
+q/k/v biases (qwen2, starcoder2, stablelm, phi2) or a pre-fused
+`attn_qkv.bias` (gptneox) into a layer-stacked f32 `bqkv` [L, (H + 2 H_kv)
+Dh], per-head q/k norms (qwen3), the sandwich norms (gemma2), the norm
+biases (`attn_norm_b`, `ffn_norm_b`), the attention output bias `bo` and
+the FFN biases `b_up` / `b_down` (the LayerNorm families) as f32 stacks. A
+pre-fused `attn_qkv.weight` (gptneox) loads as `wqkv`, its q/k rows
+un-permuted where the arch is permuted; a file without `ffn_gate` keeps
+`w_up` alone (the no-gate MLP), and one without `ffn_norm` (phi2,
+command-r: one shared input norm) has no `ffn_norm`. `output_norm.bias` and
+`output.bias` load as `output_norm_b` and `output_b`. Anything else (MoE,
+MLA, flat q/k norms, per-layer head counts, recurrent layers, learned
+positions, ...) raises NotImplementedError, as does an EAGLE draft with
 biases (the reference's `load_eagle_params` drops them)."""
 
 from __future__ import annotations
@@ -67,9 +75,18 @@ OPTIONAL_NORMS = {
     "post_attn_norm": "attn_post_norm.weight",
     "post_ffn_norm": "ffn_post_norm.weight",
 }
-BIASES = ("attn_q.bias", "attn_k.bias", "attn_v.bias")  # qwen2, fused into `bqkv`
-_TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight",
-                "rope_freqs.weight"}
+#: our name -> GGUF suffix of the LayerNorm families' biases (loader.py:720-726)
+OPTIONAL_BIASES = {
+    "attn_norm_b": "attn_norm.bias",
+    "ffn_norm_b": "ffn_norm.bias",
+    "bo": "attn_output.bias",
+    "b_up": "ffn_up.bias",
+    "b_down": "ffn_down.bias",
+}
+BIASES = ("attn_q.bias", "attn_k.bias", "attn_v.bias")  # fused into `bqkv`
+FUSED_QKV = ("attn_qkv.weight", "attn_qkv.bias")  # gptneox's pre-fused projection
+_TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output_norm.bias", "output.weight",
+                "output.bias", "rope_freqs.weight"}
 _EAGLE_TOP_TENSORS = {"token_embd.weight", "fc.weight", "fc.bias"}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16)
 
@@ -207,9 +224,9 @@ def _check_names(reader: GGUFReader, top: set[str], layer_suffixes, n_layers: in
 
 def load_llama_params(path: str | Path, device="cuda",
                       times: dict | None = None) -> tuple[dict[str, Any], ModelConfig, dict]:
-    """Load a llama, Qwen2, Qwen3, Gemma or Gemma-2 GGUF. Returns (params, config,
-    metadata); every weight lies on `device`. `times`, when given, gathers
-    the seconds spent reading, uploading and repacking."""
+    """Load a GGUF of `TARGET_ARCHS`. Returns (params, config, metadata);
+    every weight lies on `device`. `times`, when given, gathers the seconds
+    spent reading, uploading and repacking."""
     dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = ModelConfig.from_gguf_metadata(reader.metadata)
@@ -217,23 +234,38 @@ def load_llama_params(path: str | Path, device="cuda",
         raise NotImplementedError(f"load_llama_params reads {TARGET_ARCHS} files, not "
                                   f"{cfg.arch!r}")
     _check_names(reader, _TOP_TENSORS,
-                 [*LAYER_KEY_MAP.values(), *OPTIONAL_NORMS.values(), *BIASES], cfg.n_layers)
-    q_perm = k_perm = None
+                 [*LAYER_KEY_MAP.values(), *OPTIONAL_NORMS.values(), *OPTIONAL_BIASES.values(),
+                  *BIASES, *FUSED_QKV], cfg.n_layers)
+    q_perm = k_perm = qkv_perm = None
     if cfg.arch in PERMUTED_ROPE_ARCHS:  # NEOX rows are half-split already
         q_perm = unpermute_rows(cfg.n_q_dim, cfg.n_heads, cfg.rope_dim)
         k_perm = unpermute_rows(cfg.n_kv_dim, cfg.n_kv_heads, cfg.rope_dim)
-    ld = _Loader(reader, dev, times)
-    layers: dict[str, list] = {k: [] for k in LAYER_KEY_MAP}
-    for ours, suffix in OPTIONAL_NORMS.items():
+        nq, nkv = cfg.n_q_dim, cfg.n_kv_dim
+        qkv_perm = np.concatenate([q_perm, nq + k_perm, nq + nkv + np.arange(nkv)])
+    key_map = dict(LAYER_KEY_MAP)
+    if "blk.0.attn_qkv.weight" in reader.tensors:  # pre-fused (loader.py:728-732)
+        for ours in ("wq", "wk", "wv"):
+            key_map.pop(ours)
+        key_map["wqkv"] = "attn_qkv.weight"
+    # a missing norm or gate (loader.py:756-758): command-r / phi2 share one
+    # input norm, the no-gate MLP has no ffn_gate
+    for ours in ("attn_norm", "ffn_norm", "w_gate"):
+        if f"blk.0.{key_map[ours]}" not in reader.tensors:
+            key_map.pop(ours)
+    for ours, suffix in {**OPTIONAL_NORMS, **OPTIONAL_BIASES}.items():
         if f"blk.0.{suffix}" in reader.tensors:
-            layers[ours] = []
+            key_map[ours] = suffix
+    ld = _Loader(reader, dev, times)
+    layers: dict[str, list] = {k: [] for k in key_map}
     for i in range(cfg.n_layers):
-        for ours in layers:
-            suffix = LAYER_KEY_MAP.get(ours) or OPTIONAL_NORMS[ours]
-            perm = q_perm if ours == "wq" else k_perm if ours == "wk" else None
-            layout = "nk" if ours.endswith("norm") else "kn"
+        for ours, suffix in key_map.items():
+            perm = {"wq": q_perm, "wk": k_perm, "wqkv": qkv_perm}.get(ours)
+            layout = "kn" if ours[0] == "w" else "nk"  # the matmul weights are "kn"
             layers[ours].append(ld.tensor(f"blk.{i}.{suffix}", row_perm=perm, layout=layout))
-    if "blk.0.attn_q.bias" in reader.tensors:  # qwen2 (loader.py:805-813)
+    if "blk.0.attn_qkv.bias" in reader.tensors:  # pre-fused (loader.py:790-797)
+        layers["bqkv"] = [ld.tensor(f"blk.{i}.attn_qkv.bias", row_perm=qkv_perm)
+                          for i in range(cfg.n_layers)]
+    if "blk.0.attn_q.bias" in reader.tensors:  # qwen2, starcoder2, ... (loader.py:798-808)
         rows = []
         for i in range(cfg.n_layers):
             bq, bk, bv = (ld.tensor(f"blk.{i}.{name}") for name in BIASES)
@@ -253,12 +285,16 @@ def load_llama_params(path: str | Path, device="cuda",
         "layers": fuse_layer_weights(stacked),
         "output_norm": ld.tensor("output_norm.weight"),
     }
+    if "output_norm.bias" in reader.tensors:
+        params["output_norm_b"] = ld.tensor("output_norm.bias")
     if "rope_freqs.weight" in reader.tensors:  # Llama-3.1's per-frequency divisors
         params["rope_factors"] = ld.tensor("rope_freqs.weight")
     if "output.weight" in reader.tensors:
         params["output"] = ld.tensor("output.weight", layout="kn")
     else:  # tied embeddings: the table is the head, "nk"
         params["output"] = params["tok_embd"]
+    if "output.bias" in reader.tensors:  # phi2's lm_head bias
+        params["output_b"] = ld.tensor("output.bias")
     return params, cfg, reader.metadata
 
 

@@ -1,9 +1,25 @@
-"""RMSNorm (port of eagle_tpu/ops/norms.py:rms_norm): f32 math regardless of
-the activation dtype."""
+"""RMSNorm and LayerNorm (port of eagle_tpu/ops/norms.py: `rms_norm`,
+`layer_norm`): f32 math regardless of the activation dtype."""
 
 from __future__ import annotations
 
 import torch
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None,
+               eps: float) -> torch.Tensor:
+    """Mean-subtracted LayerNorm with f32 statistics; the weight and the
+    bias are each optional (the LayerNorm families: phi2, starcoder2,
+    stablelm, gptneox, command-r)."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    out = xc * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float) -> torch.Tensor:

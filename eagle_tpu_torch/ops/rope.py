@@ -4,7 +4,8 @@ eagle_tpu/ops/rope.py: `rope_freqs`, `_yarn_corr_dims`, `yarn_blend`,
 scaling, `apply_rope`; and `rope_inv_freq`, the frequencies divided by a
 Llama-3.1 file's per-frequency factors, as eagle_tpu/models/llama.py:683-688).
 
-The two halves of each head rotate together — not interleaved pairs.
+The two halves of each head (of its first `rope_dim` features, under
+partial rotary) rotate together — not interleaved pairs.
 
 YaRN's per-frequency blend is a static vector: the reference's numpy
 formula, computed once per (config, device) on the host and kept on the
@@ -139,7 +140,15 @@ def rope_inv_freq(cfg, factors: torch.Tensor | None, *, device) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
                mscale: float = 1.0) -> torch.Tensor:
     """Rotate features. x: [..., T, H, D]; positions broadcastable to
-    [..., T] (int); inv_freq [D/2]; mscale scales cos and sin."""
+    [..., T] (int); inv_freq [R/2] with R <= D; mscale scales cos and sin.
+    With R < D (partial rotary: phi2, stablelm, gptneox) only the first R
+    features rotate, half-split within them, mscale on them alone, and the
+    other D - R pass through, as the reference's forward
+    (eagle_tpu/models/llama.py:366-379)."""
+    rd = 2 * inv_freq.shape[-1]
+    if rd < x.shape[-1]:
+        return torch.cat([apply_rope(x[..., :rd], positions, inv_freq, mscale),
+                          x[..., rd:]], dim=-1)
     angles = positions[..., None].float() * inv_freq  # [..., T, D/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
@@ -150,4 +159,3 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
     x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
-

@@ -586,9 +586,9 @@ def test_gemma2_without_softcap_matches_reference(gemma2_256):
 
 
 REFUSED = {"swa_window on every layer": dict(swa_window=8, swa_every=0),
-           "partial rotary": dict(rope_dim=32), "v_head_dim": dict(v_head_dim=32),
+           "learned positions": dict(has_pos_embd=True), "v_head_dim": dict(v_head_dim=32),
            "alibi": dict(use_alibi=True), "relu2": dict(act="relu2"),
-           "parallel blocks": dict(parallel_blocks=True)}
+           "hetero GQA": dict(head_counts=(4, 2))}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))

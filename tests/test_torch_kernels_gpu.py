@@ -39,7 +39,11 @@ kernels at g = 4, a tied "nk" head with rope factors graphed == eager; the
 families (`-k families`): qmm at their shapes, tiny Qwen2 / Qwen3 /
 Gemma-2 / Gemma (head_dim 256) models and a Gemma-2 without its softcap
 card == CPU and graphed == eager, a Gemma with the fused FFN block, and a
-llama at head_dim 96 (`-k head_width`), read through the plain attention.
+llama at head_dim 96 (`-k head_width`), read through the plain attention;
+the rotary LayerNorm families (`-k layernorm`): qmm at StarCoder2-7B's and
+Phi-2's shapes on every route, both flash kernels at g = 9, tiny phi2 /
+starcoder2 / stablelm / gptneox / command-r models card == CPU and graphed
+== eager (greedy and the EAGLE chain), a stablelm kept off the fused FFN.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -1823,3 +1827,157 @@ def test_head_width_96_tokens_card_equal_cpu(cuda):
     assert runs[0] == runs[1]
     assert all(_build.launches[k] == _build.plain_calls[k] == 0
                for k in ("flash_decode", "flash_prefill"))
+
+
+# ---- the rotary LayerNorm families (`-k layernorm`) ----------------------------
+
+#: (name, weight form, N, K, stacked) of the LayerNorm cells' new qmm shapes:
+#: StarCoder2-7B (wqkv N 5,632 and w_up N 18,432 over K 4,608; w_down K
+#: 18,432; lm_head N 49,152; its EAGLE draft's fc K 9,216) and Phi-2 (wqkv N
+#: 7,680 over K 2,560; w_up N 10,240; w_down K 10,240; lm_head N 51,200)
+LN_SHAPES = [("starcoder2_wqkv", "q4k_packed_coded", 5632, 4608, True),
+             ("starcoder2_w_up", "q4k_packed_coded", 18432, 4608, True),
+             ("starcoder2_w_down", "q4k_packed_coded", 4608, 18432, True),
+             ("starcoder2_lm_head", "q6k_int8_coded", 49152, 4608, False),
+             ("starcoder2_draft_fc", "q8_0_int8_f32", 4608, 9216, False),
+             ("phi2_wqkv", "q4k_packed_coded", 7680, 2560, True),
+             ("phi2_w_up", "q4k_packed_coded", 10240, 2560, True),
+             ("phi2_w_down", "q4k_packed_coded", 2560, 10240, True),
+             ("phi2_lm_head", "q6k_int8_coded", 51200, 2560, False)]
+
+
+@pytest.mark.parametrize("rows", [1, 6, 300])
+@pytest.mark.parametrize("name,form,n,k,stacked", LN_SHAPES, ids=[s[0] for s in LN_SHAPES])
+def test_layernorm_qmm_shapes_every_route(cuda, name, form, n, k, stacked, rows):
+    """qmm at the LayerNorm cells' new shapes, bf16, on each route (1 row:
+    the 1-row body; 6: the small-row body; 300: wgmma), against the plain
+    version; K splits on whole super-blocks at K = 4,608 (18), 18,432 (72),
+    2,560 (10) and 10,240 (40)."""
+    _qmm_route_case(cuda, form, n, k, stacked, rows)
+
+
+@pytest.mark.parametrize("name,t", [("flash_decode", 1), ("flash_decode", 6),
+                                    ("flash_prefill", 64)])
+def test_layernorm_flash_g9(cuda, name, t):
+    """Both kernels at StarCoder2-7B's g = 9 (36 query heads over 4 KV heads
+    of 128, bf16 cache, 1,024 slots with a hole; T·g 9, 54 and 576),
+    against their plain versions."""
+    b, h, h_kv, d, s = 1, 36, 4, 128, 1024
+    kc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    tags = torch.arange(s, dtype=torch.int32, device="cuda")[None].clone()
+    tags[:, 900 + t:] = -1
+    tags[:, 100:140] = -1
+    pos = (900 + torch.arange(t, dtype=torch.int32, device="cuda"))[None]
+    q = torch.randn((b, t, h, d), generator=cuda, device="cuda")
+    _build.reset_counts()
+    if name == "flash_decode":
+        mask = causal_mask_from_tags(tags, pos)
+        got = fa.flash_attention_cached(q, kc, vc, mask, 1)
+        want = fa.flash_attention_cached_plain(q, kc, vc, mask, 1)
+    else:
+        got = fa.flash_attention_prefill(q, kc, vc, pos, tags, 1)
+        want = fa.flash_attention_prefill_plain(q, kc, vc, pos, tags, 1)
+    assert _build.launches[name] == 1
+    _close(got, want, TOL[torch.bfloat16])
+
+
+#: tiny models of the five families: (config changes, an FFN gate, an
+#: ffn_norm, biases on the norms / q/k/v / attn_output / the FFN, a head bias)
+LN_CFGS = {
+    "phi2": (dict(arch="phi2", norm_type="layer", parallel_blocks=True, n_kv_heads=4,
+                  head_dim=80, rope_dim=32, act="gelu"), False, False, True, True),
+    "starcoder2": (dict(arch="starcoder2", norm_type="layer", act="gelu", attn_bias=True,
+                        rope_base=1e6), False, True, True, False),
+    "stablelm": (dict(arch="stablelm", norm_type="layer", rope_dim=16), True, True, True, False),
+    "gptneox": (dict(arch="gptneox", norm_type="layer", parallel_blocks=True, rope_dim=16,
+                     act="gelu"), False, True, True, False),
+    "command-r": (dict(arch="command-r", norm_type="layer", parallel_blocks=True,
+                       logit_scale=0.25), True, False, False, False),
+}
+
+
+def _layernorm_family(name):
+    """A tiny target of `LN_CFGS[name]` on the card: Q4_K packed weights
+    (coded, except Phi-2's, whose wo K of 320 holds no whole super-block),
+    the family's tensors added to the synthesized llama layers."""
+    change, gate, ffn_norm, biases, head_b = LN_CFGS[name]
+    cfg = dataclasses.replace(TINY_CFG, **change)
+    coded = name != "phi2"
+    p = synth_llama_params(cfg, seed=9, packed=True, coded=coded, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    L, d, f = cfg.n_layers, cfg.n_embd, cfg.n_ff
+    lay = p["layers"]
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 0.1  # noqa: E731
+    if not gate:
+        lay.pop("w_gate_up")
+        lay["w_up"] = synth_qtensor(gen, f, d, stack=L, packed=True, coded=coded)
+        if biases:
+            lay["b_up"], lay["b_down"] = rnd(L, f), rnd(L, d)
+    if not ffn_norm:
+        lay.pop("ffn_norm")
+    if biases:
+        lay["attn_norm_b"], lay["bo"] = rnd(L, d), rnd(L, d)
+        lay["bqkv"] = rnd(L, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim)
+        if ffn_norm:
+            lay["ffn_norm_b"] = rnd(L, d)
+        p["output_norm_b"] = rnd(d)
+    if head_b:
+        p["output_b"] = rnd(cfg.vocab_size)
+    return cfg, p
+
+
+@pytest.mark.parametrize("name", list(LN_CFGS))
+def test_layernorm_tokens_card_equal_cpu(cuda, name):
+    """A tiny model of each LayerNorm family: f32 greedy tokens through the
+    kernels on the card equal the plain path's on the CPU; Phi-2's head
+    width 80 reads the plain attention (no flash kernel), the others the
+    flash kernels."""
+    cfg, params = _layernorm_family(name)
+    toks = []
+    _build.reset_counts()
+    for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        gen = Generator(p, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device=dev)
+        toks.append(gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8))
+    assert toks[0] == toks[1]
+    assert (_build.launches["flash_decode"] > 0) == (name != "phi2")
+
+
+@pytest.mark.parametrize("name", list(LN_CFGS))
+def test_layernorm_graphed_equals_eager(cuda, name):
+    """bf16 greedy tokens of each tiny LayerNorm family graphed and eager,
+    bit for bit; then the EAGLE chain (a llama draft) at 1 and 3 cycles
+    per dispatch, graphed == eager."""
+    cfg, params = _layernorm_family(name)
+    runs = [Generator(params, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                      cuda_graphs=graphed).generate(PROMPT * 2, max_new_tokens=40,
+                                                    stop_at_eos=False)
+            for graphed in (False, True)]
+    assert runs[0] == runs[1]
+    _, dp = _tiny_bf16()
+    dcfg = dataclasses.replace(TINY_CFG, n_layers=1, is_eagle=True)
+    for c in (1, 3):
+        runs = [EagleChainEngine(params, dp, cfg, dcfg, n_draft=3, max_seq=256,
+                                 kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                 eos_id=-1, device="cuda", cuda_graphs=graphed).generate(
+                    PROMPT, max_new_tokens=30, stop_at_eos=False, cycles_per_dispatch=c)
+                for graphed in (False, True)]
+        assert runs[0] == runs[1], c
+
+
+def test_layernorm_fused_ffn_stays_off(cuda, monkeypatch):
+    """Under EAGLE_TPU_FUSED_FFN=1 a tiny stablelm (a gated FFN with its own
+    LayerNorm and bias) launches neither fused kernel, and its f32 tokens
+    equal those with the fused FFN off."""
+    cfg, params = _layernorm_family("stablelm")
+    toks = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("EAGLE_TPU_FUSED_FFN", mode)
+        _build.reset_counts()
+        gen = Generator(params, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device="cuda")
+        toks[mode] = gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8)
+        assert _build.launches["gate_up_act"] == _build.launches["ffn_out_norm"] == 0
+    assert toks["0"] == toks["1"]

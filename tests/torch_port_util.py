@@ -146,11 +146,29 @@ def has_encoder(qtype) -> bool:
     return qtype in SUPPORTED_QUANT_TYPES
 
 
+#: the tensors of a llama-family layer
+LLAMA_LAYOUT = dict(fused_qkv=False, gate=True, ffn_norm=True, norm_b=False, qkv_b=False,
+                    bo=False, ffn_b=False, out_b=False)
+#: the LayerNorm families' tensors, as llama.cpp's tensor tables hold them:
+#: a fused attn_qkv, an FFN gate, an ffn_norm, the norms' biases, q/k/v
+#: biases, attn_output.bias, ffn_up / ffn_down biases, output.bias
+LN_LAYOUTS = {
+    "phi2": dict(LLAMA_LAYOUT, gate=False, ffn_norm=False, norm_b=True, qkv_b=True, bo=True,
+                 ffn_b=True, out_b=True),
+    "starcoder2": dict(LLAMA_LAYOUT, gate=False, norm_b=True, qkv_b=True, bo=True, ffn_b=True),
+    "stablelm": dict(LLAMA_LAYOUT, norm_b=True, qkv_b=True),
+    "gptneox": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False, norm_b=True, qkv_b=True, bo=True,
+                    ffn_b=True),
+    "command-r": dict(LLAMA_LAYOUT, ffn_norm=False),
+}
+
+
 def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, seed=0,
                          target_metadata: dict | None = None, out_scale: float = 0.05,
                          n_kv_heads: int | None = None, rope_factors=None,
                          tied: bool = False, arch: str = "llama", head_dim: int | None = None,
-                         n_layers: int | None = None, n_heads: int | None = None):
+                         n_layers: int | None = None, n_heads: int | None = None,
+                         rope_dim: int | None = None):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
@@ -165,8 +183,13 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     "qwen3", "gemma" or "gemma2" writes the target under that architecture
     with its optional tensors (qwen2: q/k/v biases; qwen3: per-head q/k
     norms [Dh]; gemma2: the post-attention and post-FFN norms; gemma: none),
-    the q/k rows as they come (NEOX: no permutation to invert); `head_dim`,
-    `n_heads` and `n_layers` set the target's (the draft keeps the tiny
+    the q/k rows as they come (NEOX: no permutation to invert); an arch of
+    `LN_LAYOUTS` (phi2, starcoder2, stablelm, gptneox, command-r) writes its
+    tensors as llama.cpp names them: the norms' biases, q/k/v biases or a
+    fused `attn_qkv`, `attn_output.bias`, the FFN without a gate and with
+    biases, no `ffn_norm`, `output.bias`, each as the layout says, and
+    `layer_norm_epsilon` 1e-5; `head_dim`, `n_heads`, `n_layers` and
+    `rope_dim` (partial rotary) set the target's (the draft keeps the tiny
     llama's). Returns (target path, draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
@@ -175,7 +198,7 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     if n_kv_heads is not None:
         dcfg = dataclasses.replace(dcfg, n_kv_heads=n_kv_heads)
     hd = head_dim or dcfg.head_dim
-    jcfg = dataclasses.replace(dcfg, head_dim=hd, rope_dim=hd,
+    jcfg = dataclasses.replace(dcfg, head_dim=hd, rope_dim=rope_dim or hd,
                                n_layers=n_layers or dcfg.n_layers,
                                n_heads=n_heads or dcfg.n_heads)
     rng = np.random.default_rng(seed)
@@ -192,20 +215,42 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     def norm():
         return rng.uniform(0.8, 1.2, d).astype(np.float32)
 
+    def bias(n):
+        return (rng.standard_normal(n) * 0.5).astype(np.float32)
+
+    ln = LN_LAYOUTS.get(arch)
+
     def layer(w, i, qtype, cfg, attn_norm=True, arch="llama"):
         nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        lay = LN_LAYOUTS.get(arch, LLAMA_LAYOUT)
+        mats = [("attn_output", (d, nq)), ("ffn_up", (f, d)), ("ffn_down", (d, f))]
+        if lay["fused_qkv"]:
+            mats.insert(0, ("attn_qkv", (nq + 2 * nkv, d)))
+        else:
+            mats[:0] = [("attn_q", (nq, d)), ("attn_k", (nkv, d)), ("attn_v", (nkv, d))]
+        if lay["gate"]:
+            mats.insert(-2, ("ffn_gate", (f, d)))
         if attn_norm:
             w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
-        for name, (n, k) in (("attn_q", (nq, d)), ("attn_k", (nkv, d)), ("attn_v", (nkv, d)),
-                             ("attn_output", (d, nq)), ("ffn_gate", (f, d)), ("ffn_up", (f, d)),
-                             ("ffn_down", (d, f))):
+            if lay["norm_b"]:
+                w.add_tensor(f"blk.{i}.attn_norm.bias", bias(d) * 0.2)
+        for name, (n, k) in mats:
             qmat(w, f"blk.{i}.{name}.weight", n, k, qtype)
-        w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
-        if arch == "qwen2":
+        if lay["ffn_norm"]:
+            w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
+            if lay["norm_b"]:
+                w.add_tensor(f"blk.{i}.ffn_norm.bias", bias(d) * 0.2)
+        if lay["qkv_b"] and lay["fused_qkv"]:
+            w.add_tensor(f"blk.{i}.attn_qkv.bias", bias(nq + 2 * nkv))
+        elif lay["qkv_b"] or arch == "qwen2":
             for name, n in (("attn_q", nq), ("attn_k", nkv), ("attn_v", nkv)):
-                w.add_tensor(f"blk.{i}.{name}.bias",
-                             (rng.standard_normal(n) * 0.5).astype(np.float32))
-        elif arch == "qwen3":
+                w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
+        if lay["bo"]:
+            w.add_tensor(f"blk.{i}.attn_output.bias", bias(d) * 0.1)
+        if lay["ffn_b"]:
+            w.add_tensor(f"blk.{i}.ffn_up.bias", bias(f) * 0.2)
+            w.add_tensor(f"blk.{i}.ffn_down.bias", bias(d) * 0.1)
+        if arch == "qwen3":
             for name in ("attn_q_norm", "attn_k_norm"):
                 w.add_tensor(f"blk.{i}.{name}.weight",
                              rng.uniform(0.5, 1.5, cfg.head_dim).astype(np.float32))
@@ -215,16 +260,23 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
 
     target = tmp_path / "target.gguf"
     w = GGUFWriter(target)
-    for k, val in {**_base_metadata(jcfg, arch), **(target_metadata or {})}.items():
+    md = _base_metadata(jcfg, arch)
+    if ln is not None:
+        md[f"{arch}.attention.layer_norm_epsilon"] = 1e-5
+    for k, val in {**md, **(target_metadata or {})}.items():
         w.add(k, val)
     qmat(w, "token_embd.weight", v, d, emb_type, out_scale if tied else 0.5)
     for i in range(jcfg.n_layers):
         layer(w, i, layer_type, jcfg, arch=arch)
     w.add_tensor("output_norm.weight", norm())
+    if ln is not None and ln["norm_b"]:
+        w.add_tensor("output_norm.bias", bias(d) * 0.2)
     if rope_factors is not None:
         w.add_tensor("rope_freqs.weight", np.asarray(rope_factors, np.float32))
     if not tied:
         qmat(w, "output.weight", v, d, out_type, out_scale)
+    if ln is not None and ln["out_b"]:
+        w.add_tensor("output.bias", bias(v))
     w.write()
 
     draft = tmp_path / "draft.gguf"
@@ -523,3 +575,80 @@ def tiny_family_pair(tmp_path, arch: str):
              else {**spm_metadata(ENGINE_PROMPT), "tokenizer.chat_template": GEMMA_TEMPLATE})
     return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=11, arch=arch,
                                 target_metadata={**vocab, **fam["md"]}, **fam["kw"])
+
+
+COMMAND_R_SPECIALS = ("<BOS_TOKEN>", "<|END_OF_TURN_TOKEN|>", "<|START_OF_TURN_TOKEN|>",
+                      "<|USER_TOKEN|>", "<|CHATBOT_TOKEN|>", "<|SYSTEM_TOKEN|>")
+#: a chat template string the server's detection reads as "command-r"
+COMMAND_R_TEMPLATE = ("{{ bos_token }}{% for message in messages %}<|START_OF_TURN_TOKEN|>"
+                      "{% if message['role'] == 'user' %}<|USER_TOKEN|>{% else %}"
+                      "<|CHATBOT_TOKEN|>{% endif %}{{ message['content'] }}"
+                      "<|END_OF_TURN_TOKEN|>{% endfor %}")
+#: each LayerNorm family's pre-tokenizer (llama.cpp's names for its files)
+LN_PRE = {"phi2": "phi-2", "starcoder2": "starcoder", "stablelm": "stablelm2",
+          "gptneox": "gpt-2", "command-r": "command-r"}
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_pieces() -> tuple:
+    return learn_merges(llama3_corpus(), 512 - 1 - len(COMMAND_R_SPECIALS))
+
+
+def ln_vocab(arch: str) -> dict:
+    """A byte-level BPE vocabulary of 512 pieces for a LayerNorm family's
+    tiny file: merges learned from `llama3_corpus()`, then <|endoftext|>
+    and COMMAND_R_SPECIALS (control), pre `LN_PRE[arch]`. command-r: BOS
+    <BOS_TOKEN> added, EOS <|END_OF_TURN_TOKEN|>, COMMAND_R_TEMPLATE; the
+    others: no BOS added, EOS <|endoftext|>, no template."""
+    pieces, merges = _ln_pieces()
+    specials = ["<|endoftext|>", *COMMAND_R_SPECIALS]
+    tokens = list(pieces) + specials
+    ids = {t: i for i, t in enumerate(tokens)}
+    md = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": LN_PRE[arch],
+          "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.merges": list(merges),
+          "tokenizer.ggml.token_type": np.asarray([1] * len(pieces) + [3] * len(specials),
+                                                  np.int32)}
+    if arch == "command-r":
+        md.update({"tokenizer.ggml.bos_token_id": ids["<BOS_TOKEN>"],
+                   "tokenizer.ggml.eos_token_id": ids["<|END_OF_TURN_TOKEN|>"],
+                   "tokenizer.ggml.add_bos_token": True,
+                   "tokenizer.chat_template": COMMAND_R_TEMPLATE})
+    else:
+        md.update({"tokenizer.ggml.bos_token_id": ids["<|endoftext|>"],
+                   "tokenizer.ggml.eos_token_id": ids["<|endoftext|>"],
+                   "tokenizer.ggml.add_bos_token": False})
+    return md
+
+
+#: the tiny LayerNorm families: (arch, write_tiny_gguf_pair's arguments, the
+#: target's metadata). "gptneox-seq" is gptneox with the sequential residual.
+LN_FAMILIES = {
+    # Phi-2: 4 heads of 80 (Phi-2's width: the plain attention) over n_embd
+    # 256, 32 of 80 features rotary, one shared LayerNorm, parallel
+    "phi2": ("phi2", dict(n_heads=4, n_kv_heads=4, head_dim=80, rope_dim=32), {}),
+    # StarCoder2: GQA 4:2, rope base 1e6, full rotary, sequential
+    "starcoder2": ("starcoder2", dict(), {"starcoder2.rope.freq_base": 1e6}),
+    # StableLM-2: a gated SiLU FFN with its own LayerNorm, 16 of 64 rotary
+    "stablelm": ("stablelm", dict(n_kv_heads=4, rope_dim=16), {}),
+    # GPT-NeoX / Pythia: a fused attn_qkv, 16 of 64 rotary, parallel with its
+    # own FFN norm, or sequential
+    "gptneox": ("gptneox", dict(n_kv_heads=4, rope_dim=16),
+                {"gptneox.use_parallel_residual": True}),
+    "gptneox-seq": ("gptneox", dict(n_kv_heads=4, rope_dim=16),
+                    {"gptneox.use_parallel_residual": False}),
+    # Command-R: LayerNorm without biases, parallel from one norm, the
+    # adjacent-pair rope rows, a logit scale, a tied head
+    "command-r": ("command-r", dict(tied=True, out_scale=0.1),
+                  {"command-r.logit_scale": 0.25}),
+}
+
+
+def tiny_layernorm_pair(tmp_path, name: str):
+    """A tiny Q8_0 target of `LN_FAMILIES[name]` (2 layers, width 256) with
+    `ln_vocab(arch)`, and an EAGLE draft."""
+    from eagle_tpu.gguf.constants import GGMLType
+
+    q8 = GGMLType.Q8_0
+    arch, kw, md = LN_FAMILIES[name]
+    return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=19, arch=arch,
+                                target_metadata={**ln_vocab(arch), **md}, **kw)
