@@ -46,8 +46,13 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    256, bf16 and f32 caches, at Gemma-7B's 16 / 16, Gemma-2-9B's 16 / 8
    and Gemma-2B's 8 / 1 heads: T = 1 and 6 over S = 1,024 at s_limit 300
    and 1,024, a 512-row prompt over 300 slots, fully masked rows inside a
-   tile equal to the uniform average of V (`[flash d256]` lines; the
-   s_limit 1,024 calls and the prompt timed, SDPA with `enable_gqa`). Each prints kernel ms, plain
+   tile equal to the uniform average of V; with a bf16 cache also the
+   prompt in `Generator._prefill`'s layout, flash_decode over the EAGLE
+   engine's 512-row prompt, and phase chat's feeds at g = 1 and 2
+   (`[flash d256]` lines with the plan and the key tiles that
+   flash_prefill's wgmma body reads; the s_limit 1,024 calls, the prompts
+   and the feeds timed, SDPA with `enable_gqa`; with --parent-report every
+   timed flash row also beside the parent's time). Each prints kernel ms, plain
    ms, the bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
    whichever is larger) and library_ms (one PyTorch call computing the
    same function, or for the fused FFN kernels the same product: torch.matmul
@@ -321,7 +326,8 @@ families. the Qwen2, Qwen3, Gemma-2 and Gemma families at their published shapes
    near-tie rule). The launches of the Qwen2.5 and Gemma-7B default paths
    and of the other two's first timed graphed runs stand in the `kernels`
    line as `families_path_launches`; the flash rows also carry
-   `head_dim_256` (phase 2's Gemma-7B bf16 times, the gemma cell's
+   `head_dim_256` (phase 2's Gemma-7B bf16 times, flash_prefill's in
+   `Generator._prefill`'s layout on the wgmma body; the gemma cell's
    launches).
 layernorm. the rotary LayerNorm families at their published shapes, in a
    temporary directory of their own, minted as phase families mints (Q4_K
@@ -431,6 +437,24 @@ def load_parent(path: str | None) -> None:
     tok = rep.get("qmm_per_decoded_token")
     if tok:
         PARENT[("qmm_token", "per_token", 1)] = tok["ms"]
+    for r in rep.get("attention", []) + rep.get("attention_d256", []):
+        if "ms" in r:
+            PARENT[("flash", flash_label(r), 0)] = r["ms"]
+
+
+def flash_label(r: dict) -> str:
+    """A timed flash row's name across trees' reports ("attention" at
+    head width 128, "attention_d256")."""
+    parts = [r["name"], r.get("model", ""), r.get("dtype", ""), r.get("case", ""),
+             r.get("mask", r.get("what", "")), f"T={r['t']}", f"q0={r['q0']}" if "q0" in r else "",
+             f"S={r['s']}"]
+    return " ".join(p for p in parts if p)
+
+
+def vs_parent(r: dict) -> str:
+    """", parent X ms = Yx this" for a timed flash row, with --parent-report."""
+    parent = PARENT.get(("flash", flash_label(r), 0))
+    return f", parent {parent:.4f} ms = {parent / r['ms']:.2f}x this" if parent else ""
 
 
 def log_ratios(kernel: str, res: dict) -> None:
@@ -987,7 +1011,7 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
         results.append(res)
         log(f"[flash_decode] T={t} S={lim} H={h} D={d} {kind} mask  kernel {ms:.4f} ms  plain "
             f"{plain:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library {lib:.4f} ms  rel err "
-            f"{rel:.2e}")
+            f"{rel:.2e}{vs_parent(res)}")
         if t == 1:
             decode = dict(res)
     decode["max_abs_err"] = worst
@@ -1025,7 +1049,8 @@ def attention_checks(report: dict) -> tuple[dict, dict]:
                    bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
     results.append(prefill)
     log(f"[flash_prefill] T={t} S={lim} H={h} D={d}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-        f"bound {b_ms * 1e3:.2f} us ({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
+        f"bound {b_ms * 1e3:.2f} us ({b_by})  library {lib:.4f} ms  rel err {rel:.2e}"
+        f"{vs_parent(prefill)}")
     results += prefill_offset_checks(gen, k_cache, v_cache, layer)
     report["attention"] = results
     del k_cache, v_cache
@@ -1047,10 +1072,18 @@ def head256_checks(gen) -> list[dict]:
     verify (T = 6) over S = 1,024 (906 tokens with a hole) at s_limit 300
     and 1,024, row 3 of each T = 6 call fully masked; a 512-row prompt over
     300 tagged slots, its rows 100 (inside a 64-row tile) and 504-511 with
-    q_pos = -1. Each fully masked row must be the uniform average of V over
-    [0, s_limit). The s_limit 1,024 calls and the prompt are timed: kernel,
-    plain, bound and SDPA (`enable_gqa` where g > 1). Tolerance: bf16
-    ATTN_TOL, f32 F32_ATTN_TOL."""
+    q_pos = -1. With a bf16 cache also: the prompt as `Generator._prefill`
+    lays it out (rows at positions 0-511, the 212 past the prompt padding,
+    tags -1 past slot 299, no q_pos = -1 row: case "generator"); the EAGLE
+    engine's prompt through flash_decode (T = 512 under the causal tag mask,
+    s_limit 512); and phase chat's feeds (`CHAT_FEEDS`) at g = 1 and 2
+    (case "chat feed"). Each fully masked row must be the uniform average
+    of V over [0, s_limit). The s_limit 1,024 calls, the prompts and the
+    feeds are timed: kernel, plain, bound and SDPA (`enable_gqa` where
+    g > 1); each flash_prefill line names the plan (body, rows, splits) and
+    the 64-key tiles the wgmma body reads and skips, from the Python mirror
+    of its rule (`flash_attention.tile_reads`). Tolerance: bf16 ATTN_TOL,
+    f32 F32_ATTN_TOL."""
     import torch
     import torch.nn.functional as F
 
@@ -1058,6 +1091,7 @@ def head256_checks(gen) -> list[dict]:
     from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
 
     b, d, s, layer = 1, 256, 1024, 1
+    slots = torch.arange(s, dtype=torch.int32, device="cuda")[None]
     out = []
     for model, (h, h_kv) in GEMMA_HEADS.items():
         g = h // h_kv
@@ -1065,7 +1099,7 @@ def head256_checks(gen) -> list[dict]:
             tol = ATTN_TOL if dtype == torch.bfloat16 else F32_ATTN_TOL
             kc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(dtype)
             vc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(dtype)
-            cases = []
+            cases = []  # (name, case, T, s_limit, masked row, q, inputs)
             for t in (1, VERIFY_ROWS):
                 tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
                 tags[:, :900 + t] = torch.arange(900 + t, dtype=torch.int32, device="cuda")
@@ -1077,16 +1111,28 @@ def head256_checks(gen) -> list[dict]:
                     if masked is not None:
                         mask[:, masked] = False
                     q = torch.randn((b, t, h, d), generator=gen, device="cuda")
-                    cases.append(("flash_decode", t, lim, masked, q, dict(mask=mask)))
+                    cases.append(("flash_decode", "", t, lim, masked, q, dict(mask=mask)))
             t, n, lim = 512, 300, 512
-            tags = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
-            tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
-            q_pos = torch.arange(t, dtype=torch.int32, device="cuda")[None].clone()
+            tags = torch.where(slots < n, slots, -1)
+            pos = torch.arange(t, dtype=torch.int32, device="cuda")[None]
+            q_pos = pos.clone()
             q_pos[:, -8:] = -1
             q_pos[:, 100] = -1
             q = torch.randn((b, t, h, d), generator=gen, device="cuda")
-            cases.append(("flash_prefill", t, lim, 100, q, dict(q_pos=q_pos, tags=tags)))
-            for name, t, lim, masked, q, kw in cases:
+            cases.append(("flash_prefill", "", t, lim, 100, q, dict(q_pos=q_pos, tags=tags)))
+            if dtype == torch.bfloat16:
+                q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+                cases.append(("flash_prefill", "generator", t, lim, None, q,
+                              dict(q_pos=pos, tags=tags)))
+                q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+                cases.append(("flash_decode", "eagle prompt", t, lim, None, q,
+                              dict(mask=causal_mask_from_tags(tags[:, :lim], pos))))
+                for t, n, q0, lim in CHAT_FEEDS if g <= 2 else ():
+                    q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+                    cases.append(("flash_prefill", "chat feed", t, lim, None, q, dict(
+                        q_pos=q0 + torch.arange(t, dtype=torch.int32, device="cuda")[None],
+                        tags=torch.where(slots < q0 + n, slots, -1), q0=q0)))
+            for name, case, t, lim, masked, q, kw in cases:
                 if name == "flash_decode":
                     run = lambda i: fa.flash_attention_cached(  # noqa: E731
                         q, kc, vc, kw["mask"], layer, s_limit=lim)
@@ -1109,15 +1155,25 @@ def head256_checks(gen) -> list[dict]:
                     rel_u = rel_err(got[:, masked], uniform)[1]
                     if name == "flash_prefill":
                         rel_u = max(rel_u, rel_err(got[:, -1], uniform)[1])
+                what = f"{name} D=256 {model} {dtype} T={t} s_limit={lim} {case}".rstrip()
                 if rel > tol or rel_u > tol or not bool(torch.isfinite(got).all()):
-                    raise AssertionError(f"{name} D=256 {model} {dtype} T={t} s_limit={lim}: "
-                                         f"rel err {rel:.3e}, masked row {rel_u:.3e} > {tol}")
+                    raise AssertionError(f"{what}: rel err {rel:.3e}, masked row {rel_u:.3e} > "
+                                         f"{tol}")
+                plan = fa._plan(t * g, lim, d, dtype, b * h_kv, name == "flash_prefill")
                 res = dict(name=name, model=model, h=h, h_kv=h_kv, g=g, d=d,
                            dtype=str(dtype).replace("torch.", ""), t=t, s=lim,
                            max_abs_err=abs_err, rel_err=rel, masked_row_rel_err=rel_u,
-                           plan=fa._plan(t * g, lim, d, dtype, b * h_kv,
-                                         name == "flash_prefill")._asdict())
-                if lim == s or name == "flash_prefill":
+                           plan=plan._asdict())
+                if case:
+                    res["case"] = case
+                if "q0" in kw:
+                    res["q0"] = kw["q0"]
+                reads = ""
+                if plan.body == "wgmma":
+                    read = fa.tile_reads(kw["q_pos"], kw["tags"], lim, g)
+                    res.update(tiles_read=int(read.sum()), tiles=read.numel())
+                    reads = f", tiles read {res['tiles_read']} of {res['tiles']}"
+                if lim == s or t >= 128:
                     reps = 50 if t < 512 else 10
                     res["ms"] = device_ms(run, reps)
                     res["plain_ms"] = device_ms(plain, 10 if t < 512 else 5)
@@ -1137,11 +1193,12 @@ def head256_checks(gen) -> list[dict]:
                 out.append(res)
                 timed = (f"  kernel {res['ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  bound "
                          f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']})  SDPA "
-                         f"{res['library_ms']:.4f} ms" if "ms" in res else "")
+                         f"{res['library_ms']:.4f} ms{vs_parent(res)}" if "ms" in res else "")
                 log(f"[flash d256] {name} {model} H={h}/{h_kv} (g={g}) {res['dtype']} T={t} "
-                    f"S={lim}{timed}  rel err {rel:.2e}"
+                    f"S={lim}" + (f" {case}" if case else "")
+                    + (f" from q={kw['q0']}" if "q0" in kw else "") + f"{timed}  rel err {rel:.2e}"
                     + (f", masked row = uniform ({rel_u:.1e})" if masked is not None else "")
-                    + f"; rows {res['plan']['rows_per_block']}, splits {res['plan']['splits']}")
+                    + f"; {plan.body}, rows {plan.rows_per_block}, splits {plan.splits}{reads}")
             del kc, vc
             torch.cuda.empty_cache()
     return out
@@ -1211,7 +1268,7 @@ def prefill_offset_checks(gen, k_cache, v_cache, layer: int) -> list[dict]:
                             max_abs_err=abs_err, rel_err=rel, plan=plan._asdict()))
             log(f"[flash_prefill] {what}: T={t} ({t - n} padded) from q={q0} S={lim} H={h} "
                 f"D={d}  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms * 1e3:.2f} us "
-                f"({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
+                f"({b_by})  library {lib:.4f} ms  rel err {rel:.2e}{vs_parent(out[-1])}")
     log(f"[flash_prefill] feeds at an offset: T 16-64 from q 300 / 700 / 960, S 512 / 1024, "
         f"and phase chat's three, g 1 and 4 ({2 * len(OFFSET_FEEDS)} checks): worst rel err "
         f"{worst:.2e}")
@@ -6559,7 +6616,8 @@ def main() -> int:
     ap.add_argument("--out", default="chiprun_out", help="directory for the detailed report")
     ap.add_argument("--parent-report", default=None,
                     help="chip_smoke_report.json written by another tree on the same card: "
-                         "print each qmm/qmm_i4 time as a ratio to its kernel there")
+                         "print each qmm/qmm_i4 and timed flash time as a ratio to its kernel "
+                         "there")
     args = ap.parse_args()
 
     import torch
@@ -6649,18 +6707,18 @@ def main() -> int:
                 "layernorm_path_launches": layernorm_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
-    def d256_row(name, t):
+    def d256_row(name, t, case=""):
         """The kernel at Gemma-7B's D = 256 shape (bf16, phase 2) and its
         launches in the gemma cell's default path."""
-        r = next(r for r in report["attention_d256"] if (r["name"], r["model"], r["dtype"],
-                                                         r["t"]) == (name, "gemma-7b",
-                                                                     "bfloat16", t)
-                 and "ms" in r)
+        r = next(r for r in report["attention_d256"] if (
+            r["name"], r["model"], r["dtype"], r["t"], r.get("case", "")) == (
+                name, "gemma-7b", "bfloat16", t, case) and "ms" in r)
         gemma = report["families_path"]["gemma"]["cell"]["variants"]["eagle graphed C=1"]
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                   "max_abs_err")} | {
-            "shape": f"T={t}, S={r['s']}, 16 heads x 256 (Gemma-7B), bf16 cache",
-            "gemma_path_launches": gemma["launches"][name]}
+            "shape": f"T={t}, S={r['s']}, 16 heads x 256 (Gemma-7B), bf16 cache"
+                     + (f", {case} layout" if case else ""),
+            "body": r["plan"]["body"], "gemma_path_launches": gemma["launches"][name]}
 
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
@@ -6679,7 +6737,8 @@ def main() -> int:
              head_dim_256=d256_row("flash_decode", 1)),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
              shape="T=512, S=512, 32 heads x 128, bf16 cache",
-             head_dim_256=d256_row("flash_prefill", 512),
+             head_dim_256=dict(d256_row("flash_prefill", 512, "generator"),
+                               source="eagle_tpu_torch/csrc/flash_prefill_wgmma.cu"),
              chat_feeds=[{k: v for k, v in r.items() if k in (
                  "t", "n", "q0", "s", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err")} for r in report["attention"] if "feed" in r.get("what", "")]),

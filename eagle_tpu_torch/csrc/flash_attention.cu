@@ -1,5 +1,6 @@
 // Flash attention over the layer-stacked, head-major, position-tagged KV
-// cache [L, B, H_kv, S, D]. Two kernels, each with two bodies:
+// cache [L, B, H_kv, S, D]. Two kernels, each with a tensor-core and a SIMT
+// body (and flash_prefill a wgmma body at D = 256):
 //   flash_decode  <- eagle_tpu/ops/pallas_attention.py:_flash_kernel
 //                    (flash_attention_cached): a bool mask [B, T, S_read]
 //                    computed outside, read per key tile — decode (T=1),
@@ -18,7 +19,8 @@
 // at 1e-20; only keys [0, s_limit) are read; the output is f32 [B, T, H, D].
 //
 // Which body serves which cache (ops/flash_attention.py:_plan picks it):
-// - bf16 cache: the tensor-core body (flash_tc_kernel). Decode and verify
+// - bf16 cache: the tensor-core body (flash_tc_kernel), except flash_prefill
+//   at D = 256 (below). Decode and verify
 //   (T*g <= 16) are bound by the bytes of K and V (2 x S x D x 2 per kv
 //   head per layer: 5.0 us at S = 1024, 32 heads of 128, on 3.35 TB/s); so
 //   is T = S = 512 (7.5 us against 4.3 GFLOP, 4.4 us at 989 TFLOP/s), if
@@ -40,34 +42,38 @@
 //   do not exist while keys wait; their (m, l, acc) merge in shared memory
 //   at the end (a warp that saw all keys of its rows stores them from its
 //   registers). At T = S = 512 the loop is held by the mma.sync pipe and
-//   its latencies with two warps per scheduler (4.3 GFLOP); wgmma is the
-//   next step there. The softmax
+//   its latencies with two warps per scheduler (4.3 GFLOP). The softmax
 //   runs in the log2 domain (exp2 with a log2(e) factor on the scaled
 //   score); a masked score is the constant -1e30 * log2(e) and m starts
 //   there, so a fully masked row still gets p = 1 for every key.
-//   At D = 256 a lane's q fragments (64 registers) and output (128) would
-//   leave too few registers for the scores: the block's q rows stay in
-//   shared memory instead (bf16, swizzled as K, after the ring), and each
-//   k16 step of QK^T reloads its A fragments with ldmatrix, as
-//   FlashAttention-2 does at that width. A stage is then 64 KB of K and V,
-//   so the ring has two stages and a block has the SM to itself. There a
-//   warp that sees every key of its rows (64 and 128 rows) still runs out
-//   of registers under flash_decode's mask reads, so flash_decode takes
-//   blocks of 16 or 32 rows at D = 256 (flash_prefill all four).
+//   flash_decode at D = 256: a lane's q fragments (64 registers) and output
+//   (128) would leave too few registers for the scores, so the block's q
+//   rows stay in shared memory instead (bf16, swizzled as K, after the
+//   ring), and each k16 step of QK^T reloads its A fragments with ldmatrix,
+//   as FlashAttention-2 does at that width. A stage is then 64 KB of K and
+//   V, so the ring has two stages and a block has the SM to itself; a warp
+//   that sees every key of its rows (64 and 128 rows) would still run out
+//   of registers under the mask reads, so blocks have 16 or 32 rows.
+// - bf16 cache, flash_prefill at D = 256: the wgmma body
+//   (flash_prefill_wgmma.cu): 64-row blocks of one consumer warpgroup, K/V
+//   tiles by TMA under mbarriers, S and O in wgmma accumulators, one wave
+//   without key splits at Gemma's prompts, and key tiles that no row of a
+//   block sees skipped (rule B there).
 // - f32 cache: the SIMT body (flash_body): one warp owns RPW query rows and
 //   one lane one key of a 32-key tile; exact f32 FMAs, as the tests and the
 //   tiny model's f32 path expect (the tensor cores' TF32 would change the
 //   numbers). Its tiles live in dynamic shared memory; at D = 256 a warp
 //   owns one row (four rows' outputs would not fit in registers).
-// Few query rows give few blocks, so both bodies also split the key range
+// Few query rows give few blocks, so every body also splits the key range
 // across blocks (flash-decoding): each split writes its (m, l, acc) and a
-// combine kernel merges them. No key tile is skipped: a row that sees no
-// key averages every key of [0, s_limit), so causal tile skipping would be
-// exact only for rows that see some key.
+// combine kernel merges them. Only the wgmma body skips key tiles: in the
+// others a row that sees no key averages every key of [0, s_limit), and a
+// tile is read whether or not a row of the block sees it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "mma_sync.cuh"
 
 namespace {
@@ -83,22 +89,7 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <typename T> __device__ __forceinline__ float round_t(float v);
 template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
 
-struct Args {
-  const float* q;          // [B, T, H, D]
-  const void* k;           // layer base of [B, H_kv, S_full, D]
-  const void* v;
-  const uint8_t* mask;     // [B, T, s_lim] (decode)
-  const int32_t* q_pos;    // [B, T] (prefill)
-  const int32_t* slot_pos; // [B, tag_stride] (prefill)
-  float* out;              // [B, T, H, D]
-  float* part_m;           // [splits, B, H_kv, TG]
-  float* part_l;
-  float* part_acc;         // [splits, B, H_kv, TG, D]
-  int B, T, H, H_kv, S_full, s_lim, tag_stride, splits, keys_per_split;
-  long long batch_stride;  // elements between batch rows of k and v
-  int mask_vec16;          // mask rows 16-byte aligned: copied with cp.async
-  float scale;
-};
+using Args = FlashArgs;  // flash_common.cuh
 
 // Dynamic shared memory of the SIMT body: q [rows][D] f32, then the K tile
 // [32][D + one 32-bit word] and the V tile [32][D].
@@ -711,7 +702,7 @@ int dispatch_tc_rb(int rows_per_block, const Args& a, int smem_bytes, cudaStream
     case 16: return launch_tc<D, 16, TAGS>(a, smem_bytes, st);
     case 32: return launch_tc<D, 32, TAGS>(a, smem_bytes, st);
   }
-  if constexpr (D <= 128 || TAGS) {  // D = 256 flash_decode: 16 or 32 rows
+  if constexpr (D <= 128) {  // D = 256 flash_decode: 16 or 32 rows
     if (rows_per_block == 64) return launch_tc<D, 64, TAGS>(a, smem_bytes, st);
     if (rows_per_block == 128) return launch_tc<D, 128, TAGS>(a, smem_bytes, st);
   }
@@ -722,8 +713,13 @@ template <int D>
 int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_bytes,
              cudaStream_t st) {
   if (bf16) {
-    return tags ? dispatch_tc_rb<D, true>(rows_per_block, a, smem_bytes, st)
-                : dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
+    if constexpr (D > 128) {  // flash_prefill at D = 256: the wgmma body
+      if (tags) return flash_prefill_wg_launch(a, smem_bytes, st);
+      return dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
+    } else {
+      return tags ? dispatch_tc_rb<D, true>(rows_per_block, a, smem_bytes, st)
+                  : dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
+    }
   }
   if (rows_per_block == kWarps) return launch_simt<D, 1>(tags, a, st);
   if constexpr (D <= 128) {  // D = 256: one row per warp
@@ -739,7 +735,8 @@ int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_b
 // batch rows batch_stride elements apart (H_kv * S_full * D when whole).
 // D in {64, 128, 256}. A bf16 cache takes the tensor-core body with
 // rows_per_block in {16, 32, 64, 128} (D = 256 flash_decode: {16, 32}) and
-// smem_bytes its dynamic shared memory; an f32 cache the SIMT body with
+// smem_bytes its dynamic shared memory, flash_prefill at D = 256 the wgmma
+// body (64 rows, its own shared memory); an f32 cache the SIMT body with
 // rows_per_block in {4, 16} (1 or 4 rows per warp; D = 256: 4). With
 // splits > 1 the part_* buffers hold the per-split state and a combine
 // kernel runs.

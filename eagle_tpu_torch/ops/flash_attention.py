@@ -1,6 +1,7 @@
 """Flash attention over the layer-stacked cache: the `flash_decode` and
-`flash_prefill` CUDA kernels (csrc/flash_attention.cu), their wrappers and
-their plain PyTorch versions.
+`flash_prefill` CUDA kernels (csrc/flash_attention.cu, and
+csrc/flash_prefill_wgmma.cu for flash_prefill's wgmma body), their
+wrappers and their plain PyTorch versions.
 
 `flash_attention_cached` replaces eagle_tpu/ops/pallas_attention.py:
 _flash_kernel (via `flash_attention_cached`): decode, chain verify and the
@@ -11,22 +12,31 @@ the mask is rebuilt in the kernel from query positions and slot tags.
 Bound on the H100: at decode and verify the bytes of K and V over [0,
 s_limit) (5.0 us at S = 1024, 32 kv heads of 128, bf16); at T = S = 512 the
 bytes too (7.5 us), if QK^T and PV run on the tensor cores (4.3 GFLOP, 4.4
-us at 989 TFLOP/s). `_plan` picks each call's body and grid from the cache
-dtype and the shapes alone:
+us at 989 TFLOP/s); at Gemma-7B's 512-row prompt (D = 256) the bytes, 6.5
+us, 16.8 MB of them the f32 q and output. `_plan` picks each call's body
+and grid from the cache dtype and the shapes alone:
 - a bf16 cache takes the tensor-core body: mma.sync bf16 products with the
   scores kept in registers, K/V tiles of 64 keys in a ring of shared memory
   filled by cp.async, blocks of 16, 32, 64 or 128 query rows (4 warps, 8
   at 128 rows; below 64 rows the warps of a 16-row tile split each key
-  tile, so no warp works on rows that do not exist); at D = 256 the q rows
-  wait in shared memory, not registers, the ring has two stages, and
-  flash_decode takes 16 or 32 rows (a warp holding all keys of 16 rows
+  tile, so no warp works on rows that do not exist); at D = 256
+  flash_decode keeps the q rows in shared memory, not registers, a ring of
+  two stages, and 16- or 32-row blocks (a warp holding all keys of 16 rows
   would spill under the mask reads);
+- flash_prefill on a bf16 cache at D = 256 takes the wgmma body
+  (csrc/flash_prefill_wgmma.cu, `_wg_plan`): 64-row blocks of one consumer
+  warpgroup and a producer warp, one wave without a key split at Gemma's
+  prompts, K/V tiles by TMA under mbarriers, S and O in wgmma accumulators,
+  tile n's QK^T and softmax beside tile n - 1's PV, and the key tiles that
+  no row of a block sees skipped, exactly (rule B; `tile_reads` is its
+  mirror);
 - an f32 cache takes the SIMT body (exact f32 FMAs, 32-key tiles), so the
   f32 path's numbers stay those of an f32 dot (one row per warp at D = 256).
 Both take head widths 64, 128 and 256 (`HEAD_DIMS`); the model reads any
 other width through the plain `gqa_attention`, as the reference does.
 Both split the key range across blocks (flash-decoding) when the query rows
-alone give fewer than 132 blocks, merging the splits with a combine kernel.
+alone give fewer than 132 blocks (the wgmma body: see `_wg_plan`), merging
+the splits with a combine kernel.
 The cache may be a view whose batch rows are apart (the batcher's row of a
 [L, B, ...] cache, `KVCache.row`): the kernels take the batch stride, and
 each row's [H_kv, S, D] must be contiguous.
@@ -56,6 +66,14 @@ _ROW_BLOCKS_256 = (32, 16)  # flash_decode at D = 256
 HEAD_DIMS = (64, 128, 256)  # the head widths both kernels take
 _TWO_BLOCK_SMEM = 115712  # a ring that lets two blocks share an SM
 _MAX_SMEM = 232448  # what one block may opt into
+_WG_ROWS = 64  # flash_prefill's wgmma body (bf16, D = 256): query rows per block
+_WG_STAGES = 3
+_WG_MAX_KEYS = 32 * 256 * 64  # keys a split: the body's 256 words of skip bits, one per tile
+# csrc/flash_prefill_wgmma.cu: the q rows [64][256] bf16, the ring (K and V
+# [64][256] bf16 a stage), the stages' 64 tags, 16 bytes of flags, 1 KB of
+# skip bits, a full and an empty mbarrier a stage, 1 KB to align the base
+_WG_SMEM = (64 * 256 * 2 + _WG_STAGES * (2 * _KEYS * 256 * 2 + _KEYS * 4 + 16) + 16 + 1024
+            + 1024)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -63,20 +81,22 @@ def _cdiv(a: int, b: int) -> int:
 
 
 class Plan(NamedTuple):
-    body: str  # "mma" (bf16 cache, tensor cores) or "simt" (f32 cache)
+    body: str  # "mma" (bf16 cache, mma.sync), "wgmma" (bf16 flash_prefill at D = 256), "simt" (f32)
     rows_per_block: int
     splits: int
     keys_per_split: int
-    smem_bytes: int  # dynamic shared memory ("mma"; the SIMT body sizes its own)
+    smem_bytes: int  # dynamic shared memory ("mma", "wgmma"; the SIMT body sizes its own)
 
 
 def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool) -> Plan:
     """Body, block and key split of one call: `tg` = T*g query rows per kv
     head, keys [0, lim), head_dim d, cache dtype, `units` = B*H_kv, `tags`
     for flash_prefill. Splits are whole tiles, none empty."""
+    if dtype == torch.bfloat16 and tags and d > 128:
+        return _wg_plan(tg, lim, units)
     if dtype == torch.bfloat16:
         # the largest row block that leaves no 16-row warp tile wholly padded
-        blocks = _ROW_BLOCKS_256 if d > 128 and not tags else _ROW_BLOCKS
+        blocks = _ROW_BLOCKS_256 if d > 128 else _ROW_BLOCKS  # d = 256: flash_decode
         rb = next(r for r in blocks if _cdiv(tg, r) * r - tg < 16)
         tile = _KEYS
     else:
@@ -99,6 +119,58 @@ def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool)
     stages = 3 if 3 * stage + q_rows <= (_MAX_SMEM if rb > 64 else _TWO_BLOCK_SMEM) else 2
     merge = warps * 16 * (d + 4 + 2) * 4
     return Plan("mma", rb, splits, kps, max(stages * stage + q_rows, merge))
+
+
+def _wg_plan(tg: int, lim: int, units: int) -> Plan:
+    """flash_prefill's wgmma body (bf16 cache, D = 256): 64-row blocks, one
+    per SM. The keys are split only where the row blocks alone would leave
+    most SMs idle (at most half of them busy) and a block's key tiles
+    outnumber the blocks; then into as many whole-tile splits as keep the
+    grid within one wave of 132 blocks. Below that the splits' round trip
+    of (m, l, acc) through memory and the combine kernel cost more than the
+    idle SMs: on the H100 a 512-row Gemma-2B prompt (64 blocks, 8 tiles)
+    takes 0.0120 ms unsplit and 0.0265 in two, a 256-row chat feed over
+    1,024 slots (64 blocks, 16 tiles) 0.0167 and 0.0323, while a 16-row feed
+    over 1,024 (16 blocks) takes 0.0131 in 8 against 0.0185 unsplit, and 256
+    rows over 4,096 slots (64 blocks, 64 tiles) 0.0681 in 2 against 0.0805
+    (PERF.md §6). A split holds at most `_WG_MAX_KEYS` keys."""
+    blocks = units * _cdiv(tg, _WG_ROWS)
+    tiles = _cdiv(lim, _KEYS)
+    splits = 1
+    if 2 * blocks <= _SMS and tiles >= blocks:
+        splits = min(_SMS // blocks, tiles)
+    splits = max(splits, _cdiv(lim, _WG_MAX_KEYS))
+    kps = _cdiv(_cdiv(lim, splits), _KEYS) * _KEYS
+    return Plan("wgmma", _WG_ROWS, _cdiv(lim, kps), kps, _WG_SMEM)
+
+
+def tile_reads(q_pos: torch.Tensor, slot_pos: torch.Tensor, lim: int, g: int,
+               rows_per_block: int = _WG_ROWS) -> torch.Tensor:
+    """Which 64-key tiles of [0, lim) the wgmma body reads, as a bool
+    [B, row blocks, tiles] (csrc/flash_prefill_wgmma.cu, rule B): a block of
+    `rows_per_block` query rows (row r = t*g + i reads q_pos[:, t]) skips a
+    tile iff every real row of the block sees some key (its q_pos >= 0 and
+    >= the least non-negative tag of [0, lim)) and the tile's least
+    non-negative tag is greater than the block's greatest q_pos. Key splits
+    do not change it: they are whole tiles."""
+    big = 2**40  # above any tag or position
+    b, n_t = q_pos.shape
+    n_tiles = _cdiv(lim, _KEYS)
+    n_blocks = _cdiv(n_t * g, rows_per_block)
+    tags = slot_pos[:, :lim].long()
+    least = torch.full((b, n_tiles * _KEYS), big, dtype=torch.long, device=tags.device)
+    least[:, :lim] = torch.where(tags >= 0, tags, big)
+    tile_min = least.view(b, n_tiles, _KEYS).amin(dim=2)  # [B, tiles]
+    seen_min = least.amin(dim=1)  # [B]
+    rows = q_pos.long().repeat_interleave(g, dim=1)  # [B, T*g]: row r = t*g + i
+    lo = torch.full((b, n_blocks * rows_per_block), big, dtype=torch.long, device=rows.device)
+    hi = torch.full_like(lo, -big)
+    lo[:, :n_t * g] = rows
+    hi[:, :n_t * g] = rows
+    lo = lo.view(b, n_blocks, -1).amin(dim=2)
+    hi = hi.view(b, n_blocks, -1).amax(dim=2)
+    may_skip = (lo >= 0) & (lo >= seen_min[:, None])  # [B, blocks]
+    return ~(may_skip[:, :, None] & (tile_min[:, None, :] > hi[:, :, None]))
 
 
 def flash_attention_cached_plain(q, k_cache, v_cache, mask, layer, scale=None, s_limit=None):

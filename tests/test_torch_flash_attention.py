@@ -19,6 +19,7 @@ from eagle_tpu.ops.pallas_attention import flash_attention_cached, flash_attenti
 from eagle_tpu.runtime.kvcache import causal_mask_from_tags
 from eagle_tpu_torch import _build
 from eagle_tpu_torch.ops import flash_attention as fa
+from eagle_tpu_torch.ops.attention import gqa_attention
 from torch_port_util import background_cpu  # noqa: F401  (background_cpu: a fixture)
 
 pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
@@ -304,16 +305,26 @@ def _stage(d: int, rows: int, tags: bool) -> int:
     return 2 * 64 * d * 2 + (256 if tags else rows * 64)
 
 
+def _wg_smem() -> int:
+    """Shared memory of flash_prefill's wgmma body (csrc/flash_prefill_wgmma.cu):
+    the q rows [64][256] bf16, three stages of K and V [64][256] bf16, 64
+    int32 tags a stage, 16 bytes of flags, 1 KB of skip bits (one per tile
+    of a split), a full and an empty mbarrier a stage, 1 KB to align the
+    base."""
+    return 64 * 256 * 2 + 3 * (2 * 64 * 256 * 2 + 64 * 4) + 16 + 1024 + 3 * 2 * 8 + 1024
+
+
 @pytest.mark.parametrize("tags", [False, True], ids=["decode", "prefill"])
 def test_plan_at_head_width_256(tags):
-    """D = 256 on the tensor-core body, at Gemma-2B's 1, Gemma-2-9B's 8
-    and Gemma-7B's 16 kv-head units: every T·g in 1-4,096 at 15 read
-    bounds, and every s_limit in 96-8,192 at 7 row counts. Each plan fits
-    one block's shared memory, has a ring of two stages beside the block's
-    q rows (bf16, after the ring) below 128 rows, takes at most 32 rows a
-    block for flash_decode, leaves no 16-row warp tile only padding, and
-    splits the keys into whole 64-key tiles that cover [0, s_limit) once,
-    none empty."""
+    """D = 256 on the tensor cores, at Gemma-2B's 1, Gemma-2-9B's 8 and
+    Gemma-7B's 16 kv-head units: every T·g in 1-4,096 at 15 read bounds,
+    and every s_limit in 96-8,192 at 7 row counts. Each plan fits one
+    block's shared memory and splits the keys into whole 64-key tiles that
+    cover [0, s_limit) once, none empty. flash_decode takes the mma.sync
+    body: at most 32 rows a block, no 16-row warp tile only padding, a ring
+    of two stages beside the block's q rows (bf16, after the ring).
+    flash_prefill takes the wgmma body: 64-row blocks, its own shared
+    memory, and a grid within one wave of 132 blocks wherever it splits."""
     cases = [(tg, lim) for tg in range(1, 4097)
              for lim in (96, 97, 127, 128, 300, 511, 512, 1000, 1024, 2047, 2048, 4096, 5000,
                          8191, 8192)]
@@ -321,20 +332,65 @@ def test_plan_at_head_width_256(tags):
     for units, (tg, lim) in ((u, c) for u in (1, 8, 16) for c in cases):
         plan = fa._plan(tg, lim, 256, torch.bfloat16, units, tags)
         rb, kps = plan.rows_per_block, plan.keys_per_split
-        assert plan.body == "mma" and plan.smem_bytes <= SMEM_BLOCK, (tg, lim, plan)
-        assert rb in ((128, 64, 32, 16) if tags else (32, 16))
-        assert -(-tg // rb) * rb - tg < 16
+        assert plan.smem_bytes <= SMEM_BLOCK, (tg, lim, plan)
         assert kps % 64 == 0 and (plan.splits - 1) * kps < lim <= plan.splits * kps
-        if rb < 128:
+        if tags:
+            assert plan.body == "wgmma" and rb == 64 and plan.smem_bytes == _wg_smem()
+            assert plan.splits == 1 or units * -(-tg // 64) * plan.splits <= SMS, (tg, lim, plan)
+        else:
+            assert plan.body == "mma" and rb in (32, 16)
+            assert -(-tg // rb) * rb - tg < 16
             assert plan.smem_bytes == 2 * _stage(256, rb, tags) + rb * 256 * 2, (tg, lim, plan)
-    # a prompt's 128-row blocks: a third stage does not fit beside the q rows either
+    # a prompt: flash_decode's 32-row blocks, flash_prefill's 64-row wgmma blocks
     big = fa._plan(4096, 1024, 256, torch.bfloat16, 1, tags)
-    assert big.rows_per_block == (128 if tags else 32)
-    if tags:
-        assert big.smem_bytes == 2 * _stage(256, 128, tags) + 128 * 256 * 2
-        assert 3 * _stage(256, 128, tags) + 128 * 256 * 2 > SMEM_BLOCK
+    assert big.rows_per_block == (64 if tags else 32)
     # the SIMT body (f32 cache) takes one row per warp at D = 256
     assert fa._plan(4096, 1024, 256, torch.float32, 1, tags).rows_per_block == 4
+
+
+#: (query heads, KV heads) of the head-width-256 layouts (each config.json)
+GEMMA_HEADS = {"gemma-7b": (16, 16), "gemma-2-9b": (16, 8), "gemma-2b": (8, 1)}
+
+
+@pytest.mark.parametrize("model", sorted(GEMMA_HEADS))
+def test_wgmma_plan_at_gemma_prompts_is_one_wave(model):
+    """A 512-row prompt over 512 slots at each Gemma layout takes one wave
+    of 64-row blocks (16 x 8 = 128, 8 x 16 = 128, 1 x 64 = 64) with no key
+    split, so no combine kernel runs; its shared memory fits one block."""
+    h, h_kv = GEMMA_HEADS[model]
+    tg = 512 * (h // h_kv)
+    plan = fa._plan(tg, 512, 256, torch.bfloat16, h_kv, True)
+    assert plan == fa.Plan("wgmma", 64, 1, 512, _wg_smem())
+    assert h_kv * -(-tg // 64) <= SMS and _wg_smem() <= SMEM_BLOCK
+
+
+@pytest.mark.parametrize("tg,lim,units,splits", [
+    (16, 1024, 16, 8),  # a 16-row feed: 16 blocks, 16 tiles
+    (64, 1024, 16, 8),
+    (64, 1024, 2, 16),  # 2 kv-head units: 2 blocks, 16 tiles
+    (256, 4096, 16, 2),  # 256 rows over 4,096 slots: 64 blocks, 64 tiles
+    (64, 4096, 16, 8),
+    (128, 8192, 16, 4),
+    (1, 96, 1, 2),  # one row over two tiles
+    (256, 256, 16, 1),  # phase chat's feeds: 64 / 32 / 64 blocks, fewer tiles
+    (128, 512, 16, 1),
+    (256, 1024, 16, 1),
+    (512, 1024, 8, 1),  # the same at g 2
+    (4096, 8192, 1, 2),  # Gemma-2B's 64 blocks over 128 tiles: two splits
+    (4096, 512, 1, 1),  # its prompt: 64 blocks over 8 tiles
+    (8192, 8192, 1, 1),  # 128 blocks: most SMs busy
+])
+def test_wgmma_plan_splits(tg, lim, units, splits):
+    """Where the wgmma body still splits its keys (the row blocks leave more
+    than half the SMs idle and a block's key tiles outnumber the blocks),
+    the splits are whole 64-key tiles that cover [0, lim) once, none empty,
+    within one wave; elsewhere it does not split."""
+    plan = fa._plan(tg, lim, 256, torch.bfloat16, units, True)
+    blocks = units * -(-tg // 64)
+    assert plan.splits == splits, plan
+    assert plan.keys_per_split % 64 == 0
+    assert (plan.splits - 1) * plan.keys_per_split < lim <= plan.splits * plan.keys_per_split
+    assert blocks * plan.splits <= max(SMS, blocks)
 
 
 @pytest.mark.parametrize("tg,lim,tags,want", [
@@ -347,3 +403,134 @@ def test_plan_at_head_width_256(tags):
 def test_plan_at_main_path_shapes(tg, lim, tags, want):
     plan = fa._plan(tg, lim, 128, torch.bfloat16, 32, tags)
     assert (plan.rows_per_block, plan.splits, plan.keys_per_split) == want
+
+
+# --- rule B: the key tiles the wgmma body skips (pure Python mirror) ------------
+
+
+def _shifted_tags(rng, s: int, n: int) -> np.ndarray:
+    """Tags of one row of a cache that has lived: n tokens written in slot
+    order, a context shift (a kept prefix, a discarded span whose slots
+    return to -1, the rest's tags lowered by the span), new tokens written
+    into the freed slots with the highest tags (out of slot order), and
+    rolled-back holes."""
+    tags = np.full(s, -1, np.int64)
+    tags[:n] = np.arange(n)
+    keep = int(rng.integers(1, n // 2))
+    span = int(rng.integers(1, n - keep))
+    tags[keep:keep + span] = -1
+    tags[keep + span:n] -= span
+    top = n - span
+    refill = int(rng.integers(0, span + 1))
+    tags[keep:keep + refill] = top + np.arange(refill)
+    holes = rng.choice(s, size=int(rng.integers(0, s // 8)), replace=False)
+    tags[holes] = -1
+    return tags
+
+
+def _tag_case(seed: int, g: int, min_rows: int = 1):
+    """q_pos [B, T] and tags [B, S] with out-of-order tags and holes: row 0
+    sorted positions, row 1 random ones; at some seeds a q_pos = -1 row.
+    T*g >= min_rows."""
+    rng = np.random.default_rng(seed)
+    b, s = 2, int(rng.integers(100, 400))
+    t = int(rng.integers(-(-min_rows // g), 300 // g + 2))
+    tags = np.stack([_shifted_tags(rng, s, int(rng.integers(8, s))) for _ in range(b)])
+    top = int(tags.max()) + 1
+    q_pos = np.stack([np.sort(rng.integers(0, top + 40, size=t)),
+                      rng.integers(-1, top + 40, size=t)]).astype(np.int64)
+    if seed % 3 == 0:
+        q_pos[rng.integers(0, b), rng.integers(0, t)] = -1
+    lim = int(rng.integers(1 if min_rows == 1 else 65, s + 1))
+    return q_pos, tags, lim
+
+
+def _brute_reads(q_pos, tags, lim, g, rows=64):
+    """Which tiles a block must read, from the (query, key) visibility: a
+    tile is skipped iff every row of the block sees some key of [0, lim)
+    and no row of the block sees a key of the tile."""
+    b, t = q_pos.shape
+    n_blocks, n_tiles = -(-t * g // rows), -(-lim // 64)
+    out = np.ones((b, n_blocks, n_tiles), bool)
+    for bi in range(b):
+        pos = np.repeat(q_pos[bi], g)  # row r = t*g + i reads q_pos[t]
+        vis = (tags[bi, None, :lim] >= 0) & (tags[bi, None, :lim] <= pos[:, None])
+        for blk in range(n_blocks):
+            v = vis[blk * rows:(blk + 1) * rows]
+            if not v.any(axis=1).all():
+                continue  # a row that sees nothing: every tile is read
+            for j in range(n_tiles):
+                out[bi, blk, j] = v[:, 64 * j:64 * j + 64].any()
+    return out
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("seed", range(10))
+def test_tile_reads_matches_brute_force(seed, g):
+    """`tile_reads` (the mirror of the wgmma body's rule B, from tag values)
+    against the visibility itself, on out-of-order tags with holes and
+    q_pos = -1 rows."""
+    q_pos, tags, lim = _tag_case(seed, g)
+    got = fa.tile_reads(torch.from_numpy(q_pos).int(), torch.from_numpy(tags).int(), lim, g)
+    np.testing.assert_array_equal(got.numpy(), _brute_reads(q_pos, tags, lim, g))
+
+
+@pytest.mark.parametrize("model,minus,read", [
+    ("gemma-7b", (), 30), ("gemma-2-9b", (), 60), ("gemma-2b", (), 240),
+    ("gemma-7b", (100, *range(504, 512)), 39),  # 2 of 8 blocks read whole
+    ("gemma-2b", (100, 511), 249)])
+def test_tile_reads_at_gemma_prompts(model, minus, read):
+    """A 512-row prompt over 300 tagged slots of 512, as `Generator._prefill`
+    lays it out (positions 0-511, tags -1 past slot 299) and with q_pos = -1
+    rows: the tiles the wgmma body reads of the 8 per block (16 / 16 heads:
+    1, 2, 3, 4, then 5 for each later block)."""
+    h, h_kv = GEMMA_HEADS[model]
+    g = h // h_kv
+    slots = torch.arange(1024, dtype=torch.int32)[None]
+    tags = torch.where(slots < 300, slots, -1)
+    q_pos = torch.arange(512, dtype=torch.int32)[None].clone()
+    q_pos[:, list(minus)] = -1
+    got = fa.tile_reads(q_pos, tags, 512, g)
+    assert got.shape == (1, 512 * g // 64, 8) and int(got.sum()) == read
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("seed", range(6))
+def test_skipped_tiles_change_no_output(seed, g):
+    """For every block that rule B lets skip tiles, attention (f32) over the
+    tiles it reads equals attention over all keys of [0, lim) at each of the
+    block's rows (rtol 1e-6): a skipped tile holds no key the rows see."""
+    for draw in range(100 * seed, 100 * seed + 100):  # the first case that lets a block skip
+        q_pos, tags, lim = _tag_case(draw, g, min_rows=128)  # two blocks or more
+        b, t = q_pos.shape
+        # row 0: a prompt over the cache's tags, so its first blocks see only
+        # the low ones; no q_pos = -1 row (a row that sees nothing forbids skipping)
+        q_pos[0] = np.arange(t) * (int(tags[0].max()) + 1) // t
+        q_pos[q_pos < 0] = 0
+        if not fa.tile_reads(torch.from_numpy(q_pos).int(), torch.from_numpy(tags).int(), lim,
+                             g).all():
+            break
+    rng = np.random.default_rng(draw)
+    s, d, h_kv = tags.shape[1], 16, 2
+    k = torch.from_numpy(rng.standard_normal((b, h_kv, s, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, h_kv, s, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, t, h_kv * g, d)).astype(np.float32))
+    tq, tt = torch.from_numpy(q_pos), torch.from_numpy(tags)
+    vis = (tt[:, None, :lim] >= 0) & (tt[:, None, :lim] <= tq[:, :, None])
+    full = gqa_attention(q, k[:, :, :lim], v[:, :, :lim], vis)
+    reads = fa.tile_reads(tq.int(), tt.int(), lim, g)
+    skipping = 0
+    for bi in range(b):
+        for blk in range(reads.shape[1]):
+            keep = reads[bi, blk].repeat_interleave(64)[:lim]
+            if keep.all():
+                continue
+            skipping += 1
+            kept = torch.nonzero(keep).flatten()
+            part = gqa_attention(q[bi:bi + 1], k[bi:bi + 1][:, :, kept],
+                                 v[bi:bi + 1][:, :, kept], vis[bi:bi + 1][:, :, kept])
+            ts = sorted({r // g for r in range(blk * 64, min(t * g, blk * 64 + 64))})
+            want = full[bi, ts].numpy()
+            np.testing.assert_allclose(part[0, ts].numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * float(np.abs(want).max()))
+    assert skipping, "the case should let some block skip"

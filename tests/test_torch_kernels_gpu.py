@@ -9,7 +9,8 @@ scale and bias, bias or none, G = 32 and 16, f32 and bf16 compute, the
 SIMT, small-row and wgmma bodies, ragged row tiles and K splits),
 flash_decode and flash_prefill (f32 and bf16
 caches, head_dim 64, 128 and 256, GQA up to g = 8, key splits, s_limit,
-rows that see nothing), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
+rows that see nothing; flash_prefill's wgmma body at 256 over shifted and
+rolled-back tags, row views and B = 2, where it skips key tiles), ffn_out_norm and gate_up_act (packed / unpacked, f32 / bf16
 scales, bias or none, G = 32, 16 and 8, SiLU / tanh-GELU, 1 to 64 rows,
 L = 1 and stacked, f32 and bf16 compute; at 1 bf16 row gate_up_act bit for
 bit against act(g) * u from qmm's sums), greedy tokens of a tiny model
@@ -544,6 +545,70 @@ def test_flash_prefill_tensor_core_body(cuda, tg, g, d, s_limit):
     _close(got, want, TOL[torch.bfloat16])
     _uniform_rows(got, v_cache, 0, lim, g, 1, t // 2)
     _uniform_rows(got, v_cache, 0, lim, g, 0, t - 1)
+
+
+def _wg_tags(layout: str, b: int, s: int, seed: int) -> torch.Tensor:
+    """Slot tags [b, s] of a cache that has lived: "prompt", 300 tokens in
+    slot order with rolled-back holes; "shifted", 400 tokens, then a context
+    shift (slots 32-127 freed, later tags lowered by 96), new tokens with the
+    highest tags written into slots 32-79 (out of slot order), and holes."""
+    rng = np.random.default_rng(seed)
+    tags = np.full((b, s), -1, np.int32)
+    for r in range(b):
+        if layout == "prompt":
+            tags[r, :300] = np.arange(300)
+        else:
+            tags[r, :400] = np.arange(400)
+            tags[r, 32:128] = -1
+            tags[r, 128:400] -= 96
+            tags[r, 32:80] = 304 + np.arange(48)
+        tags[r, rng.choice(300, size=12, replace=False)] = -1
+    return torch.from_numpy(tags).cuda()
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("layout,rows,lim,t", [
+    ("prompt", None, 384, 320), ("shifted", None, 420, 320), ("prompt", "row2", 320, 320),
+    ("shifted", "every_other", 448, 320), ("prompt", None, 448, 64)])
+def test_flash_prefill_tensor_core_body_d256_layouts(cuda, layout, rows, lim, t, g):
+    """flash_prefill's bf16 body at D = 256 (wgmma, key tiles that no row of
+    a block sees skipped) against the plain version: a prompt's rows
+    (positions 0 to T-1, some past the tagged slots) over tags in slot order
+    or out of it (a shifted, rolled-back cache), B = 2, the batcher's row
+    view of a B = 4 cache (`KVCache.row`) and every other row of it (batch
+    strides), an s_limit inside a tile, and one 64-row block a kv head whose
+    keys are split (positions 0-63: later tiles skipped). Each case has
+    blocks that skip tiles (`tile_reads`) and one q_pos = -1 row, whose
+    block reads every tile and which comes out as the uniform average of V."""
+    d, s, h_kv = 256, 448, 2
+    t = t // g if t < 128 else t
+    if rows is None:
+        k_cache, v_cache = _cache(cuda, torch.bfloat16, d, h_kv, s=s)
+    else:
+        k_full, v_full = _cache(cuda, torch.bfloat16, d, h_kv, s=s)
+        k_full, v_full = (torch.cat([x, x.flip(1)], dim=1) for x in (k_full, v_full))  # B = 4
+        sel = slice(2, 3) if rows == "row2" else slice(0, 4, 2)
+        k_cache, v_cache = k_full[:, sel], v_full[:, sel]
+        assert not k_cache.is_contiguous()
+    b = k_cache.shape[1]
+    tags = _wg_tags(layout, b, s, seed=g)
+    top = int(tags.max()) + 1 if t * g > 64 else t  # positions over the tags, or 0 to t-1
+    q_pos = (torch.arange(t, device="cuda") * top // t).to(torch.int32)[None].repeat(b, 1)
+    minus = (b - 1, 100 // g + 1 if t * g > 64 else t // 2)  # inside a row block
+    q_pos[minus] = -1
+    q = torch.randn((b, t, h_kv * g, d), generator=cuda, device="cuda")
+    reads = fa.tile_reads(q_pos, tags, lim, g)
+    assert not bool(reads.all())  # rule B skips somewhere
+    assert bool(reads[minus[0], minus[1] * g // 64].all())  # not where a row sees nothing
+    plan = fa._plan(t * g, lim, d, torch.bfloat16, b * h_kv, True)
+    assert plan.body == "wgmma" and (plan.splits > 1) == (t * g <= 64)
+    _build.reset_counts()
+    got = fa.flash_attention_prefill(q, k_cache, v_cache, q_pos, tags, 1, s_limit=lim)
+    assert _build.launches["flash_prefill"] == 1 and _build.plain_calls["flash_prefill"] == 0
+    want = fa.flash_attention_prefill_plain(q, k_cache.contiguous(), v_cache.contiguous(), q_pos,
+                                            tags, 1, s_limit=lim)
+    _close(got, want, TOL[torch.bfloat16])
+    _uniform_rows(got, v_cache, 1, lim, g, *minus)
 
 
 def test_tiny_greedy_tokens_card_equal_cpu(cuda):
