@@ -48,9 +48,11 @@ Phases (any failed check raises and exits nonzero; nothing is caught):
    and 1,024, a 512-row prompt over 300 slots, fully masked rows inside a
    tile equal to the uniform average of V; with a bf16 cache also the
    prompt in `Generator._prefill`'s layout, flash_decode over the EAGLE
-   engine's 512-row prompt, and phase chat's feeds at g = 1 and 2
-   (`[flash d256]` lines with the plan and the key tiles that
-   flash_prefill's wgmma body reads; the s_limit 1,024 calls, the prompts
+   engine's 512-row prompt (also with a row masked whole inside a 64-row
+   block), and phase chat's feeds at g = 1 and 2 (`[flash d256]` lines with
+   the plan, flash_decode's body below 64 rows per kv head merging its key
+   splits in the launch, and the key tiles that the wgmma body reads under
+   rules B and M; the s_limit 1,024 calls, the prompts
    and the feeds timed, SDPA with `enable_gqa`; with --parent-report every
    timed flash row also beside the parent's time). Each prints kernel ms, plain
    ms, the bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
@@ -473,6 +475,17 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def decode_bound(q, k_cache, mask) -> tuple[float, str]:
+    """bound_ms of one flash_decode call on this run's data: K and V of the
+    slots that some query row sees, each read once, the mask [B, T, lim], q
+    read and the f32 output written; two matmuls over the visible (query,
+    key) pairs."""
+    b, t, h, d = q.shape
+    slots, pairs = int(mask.any(dim=1).sum()), int(mask.sum())
+    kv_bytes = 2 * slots * k_cache.shape[2] * d * k_cache.element_size()
+    return bound_ms(kv_bytes + nbytes(q, mask) + q.numel() * 4, 4.0 * pairs * h * d)
 
 
 def prefill_bound(q, k_cache, q_pos, tags, lim: int) -> tuple[float, str]:
@@ -1069,21 +1082,27 @@ F32_ATTN_TOL = 1e-4  # f32 cache: the SIMT body's exact FMAs, summed in another 
 def head256_checks(gen) -> list[dict]:
     """Both flash kernels at D = 256 against their plain versions, bf16
     and f32 caches, at GEMMA_HEADS' layouts: decode (T = 1) and a K = 5
-    verify (T = 6) over S = 1,024 (906 tokens with a hole) at s_limit 300
-    and 1,024, row 3 of each T = 6 call fully masked; a 512-row prompt over
-    300 tagged slots, its rows 100 (inside a 64-row tile) and 504-511 with
-    q_pos = -1. With a bf16 cache also: the prompt as `Generator._prefill`
-    lays it out (rows at positions 0-511, the 212 past the prompt padding,
-    tags -1 past slot 299, no q_pos = -1 row: case "generator"); the EAGLE
-    engine's prompt through flash_decode (T = 512 under the causal tag mask,
-    s_limit 512); and phase chat's feeds (`CHAT_FEEDS`) at g = 1 and 2
-    (case "chat feed"). Each fully masked row must be the uniform average
-    of V over [0, s_limit). The s_limit 1,024 calls, the prompts and the
-    feeds are timed: kernel, plain, bound and SDPA (`enable_gqa` where
-    g > 1); each flash_prefill line names the plan (body, rows, splits) and
-    the 64-key tiles the wgmma body reads and skips, from the Python mirror
-    of its rule (`flash_attention.tile_reads`). Tolerance: bf16 ATTN_TOL,
-    f32 F32_ATTN_TOL."""
+    verify (T = 6; Gemma-2B's is 48 rows per kv head) over S = 1,024 (906
+    tokens with a hole) at s_limit 300 and 1,024, row 3 of each T = 6 call
+    fully masked; a 512-row prompt over 300 tagged slots, its rows 100
+    (inside a 64-row tile) and 504-511 with q_pos = -1. With a bf16 cache
+    also: the prompt as `Generator._prefill` lays it out (rows at positions
+    0-511, the 212 past the prompt padding, tags -1 past slot 299, no q_pos
+    = -1 row: case "generator"); the EAGLE engine's prompt through
+    flash_decode (T = 512 under the causal tag mask, s_limit 512: case
+    "eagle prompt", and with its row 100 masked whole, inside a 64-row
+    block: "eagle prompt masked row"); and phase chat's feeds (`CHAT_FEEDS`)
+    at g = 1 and 2 (case "chat feed"). Each fully masked row must be the
+    uniform average of V over [0, s_limit). The s_limit 1,024 calls, the
+    prompts and the feeds are timed: kernel, plain, bound and SDPA
+    (`enable_gqa` where g > 1); the bound counts K and V of the slots some
+    row sees and the (query, key) pairs seen (`prefill_bound`,
+    `decode_bound`). Each line names the plan (body: flash_decode's
+    "mma_cluster" below 64 rows per kv head, its splits merged in the
+    launch, or "wgmma"; rows, splits) and, for the wgmma body, the 64-key
+    tiles it reads and skips, from the Python mirrors of its rules
+    (`flash_attention.tile_reads`: rule B; `tile_reads_mask`: rule M).
+    Tolerance: bf16 ATTN_TOL, f32 F32_ATTN_TOL."""
     import torch
     import torch.nn.functional as F
 
@@ -1092,6 +1111,9 @@ def head256_checks(gen) -> list[dict]:
 
     b, d, s, layer = 1, 256, 1024, 1
     slots = torch.arange(s, dtype=torch.int32, device="cuda")[None]
+    log(f"[flash d256] mma_cluster: clusters of 1-8 blocks a wave "
+        f"(cudaOccupancyMaxActiveClusters) at 16 rows {fa.cluster_wave(16)}, at 32 rows "
+        f"{fa.cluster_wave(32)}; _plan's table {fa._CLUSTER_WAVE}")
     out = []
     for model, (h, h_kv) in GEMMA_HEADS.items():
         g = h // h_kv
@@ -1125,8 +1147,13 @@ def head256_checks(gen) -> list[dict]:
                 cases.append(("flash_prefill", "generator", t, lim, None, q,
                               dict(q_pos=pos, tags=tags)))
                 q = torch.randn((b, t, h, d), generator=gen, device="cuda")
-                cases.append(("flash_decode", "eagle prompt", t, lim, None, q,
-                              dict(mask=causal_mask_from_tags(tags[:, :lim], pos))))
+                mask = causal_mask_from_tags(tags[:, :lim], pos)
+                cases.append(("flash_decode", "eagle prompt", t, lim, None, q, dict(mask=mask)))
+                q = torch.randn((b, t, h, d), generator=gen, device="cuda")
+                mask = mask.clone()
+                mask[:, 100] = False  # its block reads every tile
+                cases.append(("flash_decode", "eagle prompt masked row", t, lim, 100, q,
+                              dict(mask=mask)))
                 for t, n, q0, lim in CHAT_FEEDS if g <= 2 else ():
                     q = torch.randn((b, t, h, d), generator=gen, device="cuda")
                     cases.append(("flash_prefill", "chat feed", t, lim, None, q, dict(
@@ -1170,9 +1197,13 @@ def head256_checks(gen) -> list[dict]:
                     res["q0"] = kw["q0"]
                 reads = ""
                 if plan.body == "wgmma":
-                    read = fa.tile_reads(kw["q_pos"], kw["tags"], lim, g)
+                    read = (fa.tile_reads_mask(kw["mask"], g) if name == "flash_decode"
+                            else fa.tile_reads(kw["q_pos"], kw["tags"], lim, g))
                     res.update(tiles_read=int(read.sum()), tiles=read.numel())
-                    reads = f", tiles read {res['tiles_read']} of {res['tiles']}"
+                    reads = (f", rule {'M' if name == 'flash_decode' else 'B'}: tiles read "
+                             f"{res['tiles_read']} of {res['tiles']}")
+                elif plan.body == "mma_cluster":
+                    reads = " merged in the launch"
                 if lim == s or t >= 128:
                     reps = 50 if t < 512 else 10
                     res["ms"] = device_ms(run, reps)
@@ -1184,9 +1215,7 @@ def head256_checks(gen) -> list[dict]:
                     res["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
                         qs, kl, vl, attn_mask=am, enable_gqa=g > 1), reps)
                     if name == "flash_decode":
-                        b_ms, b_by = bound_ms(2 * b * h_kv * lim * d * kc.element_size()
-                                              + nbytes(q, kw["mask"]) + q.numel() * 4,
-                                              4.0 * b * h * t * lim * d)
+                        b_ms, b_by = decode_bound(q, kc, kw["mask"])
                     else:
                         b_ms, b_by = prefill_bound(q, kc, kw["q_pos"], kw["tags"], lim)
                     res.update(bound_ms=b_ms, bound_by=b_by)
@@ -1195,7 +1224,7 @@ def head256_checks(gen) -> list[dict]:
                          f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']})  SDPA "
                          f"{res['library_ms']:.4f} ms{vs_parent(res)}" if "ms" in res else "")
                 log(f"[flash d256] {name} {model} H={h}/{h_kv} (g={g}) {res['dtype']} T={t} "
-                    f"S={lim}" + (f" {case}" if case else "")
+                    f"({t * g} rows a kv head) S={lim}" + (f" {case}" if case else "")
                     + (f" from q={kw['q0']}" if "q0" in kw else "") + f"{timed}  rel err {rel:.2e}"
                     + (f", masked row = uniform ({rel_u:.1e})" if masked is not None else "")
                     + f"; {plan.body}, rows {plan.rows_per_block}, splits {plan.splits}{reads}")
@@ -6148,7 +6177,7 @@ def gemma_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
         (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft)
     out["head"] = nk_head_check("families kernel", params["output"], cfg)
     want_tok = {"qmm_gemv": GEMMA7_GEMV, "flash_decode": GEMMA7_FLASH, "ffn_out_norm": 0,
-                "gate_up_act": 0, "qmm": 0}
+                "gate_up_act": 0, "qmm": 0, "flash_decode_mma_cluster": GEMMA7_FLASH}
     os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
     cell = serve_cell("gemma", params, draft, cfg, dcfg, np.asarray(ids), FAMILY_NEW,
                       want_tok, GEMMA7_GEMV, fused=False)
@@ -6157,8 +6186,20 @@ def gemma_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     if prompt["flash_prefill"] != GEMMA7_FLASH or prompt["flash_decode"]:
         raise AssertionError(f"gemma: the greedy prompt's attention launches {prompt}, "
                              f"expected {GEMMA7_FLASH} flash_prefill")
+    # flash_decode's D = 256 routes on the default path (greedy + EAGLE at C =
+    # 1): the cluster body for decode, verify and draft steps, the wgmma body
+    # for the EAGLE prompt (the target's 28 layers and the draft's one)
+    main = cell["variants"]["eagle graphed C=1"]["launches"]
+    routes = {k: main[f"flash_decode_{k}"] for k in ("mma_cluster", "wgmma")}
+    if routes["wgmma"] != GEMMA7_FLASH + 1 or routes["mma_cluster"] + routes["wgmma"] != \
+            main["flash_decode"]:
+        raise AssertionError(f"gemma: flash_decode's routes on the default path {routes} of "
+                             f"{main['flash_decode']} launches; expected {GEMMA7_FLASH + 1} "
+                             f"wgmma (the EAGLE prompt) and the rest mma_cluster")
     log(f"[gemma] the greedy prompt: {prompt['flash_prefill']} flash_prefill, "
-        f"{prompt['qmm_tc']} qmm_tc; EAGLE == greedy: "
+        f"{prompt['qmm_tc']} qmm_tc; flash_decode on the default path: "
+        f"{routes['mma_cluster']} mma_cluster (decode, verify, draft steps), {routes['wgmma']} "
+        f"wgmma (the EAGLE prompt); EAGLE == greedy: "
         f"{cell['eagle_tokens'] == cell['greedy_tokens']}")
     out["cell"] = cell
     return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
@@ -6707,18 +6748,30 @@ def main() -> int:
                 "layernorm_path_launches": layernorm_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
+    vs_parent_d256 = {}  # --parent-report: the parent's time of each D = 256 row
+
     def d256_row(name, t, case=""):
-        """The kernel at Gemma-7B's D = 256 shape (bf16, phase 2) and its
-        launches in the gemma cell's default path."""
+        """The kernel at Gemma-7B's D = 256 shape (bf16, phase 2), its body
+        and its launches in the gemma cell's default path (flash_decode
+        also by route). The parent's time there, measured by another run,
+        goes to the report's "vs_parent", not to this row."""
         r = next(r for r in report["attention_d256"] if (
             r["name"], r["model"], r["dtype"], r["t"], r.get("case", "")) == (
                 name, "gemma-7b", "bfloat16", t, case) and "ms" in r)
         gemma = report["families_path"]["gemma"]["cell"]["variants"]["eagle graphed C=1"]
-        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                  "max_abs_err")} | {
-            "shape": f"T={t}, S={r['s']}, 16 heads x 256 (Gemma-7B), bf16 cache"
-                     + (f", {case} layout" if case else ""),
-            "body": r["plan"]["body"], "gemma_path_launches": gemma["launches"][name]}
+        shape = (f"T={t}, S={r['s']}, 16 heads x 256 (Gemma-7B), bf16 cache"
+                 + (f", {case} layout" if case else ""))
+        if PARENT:
+            vs_parent_d256[f"{name} {shape}"] = {
+                "ms": r["ms"], "parent_ms": PARENT.get(("flash", flash_label(r), 0))}
+        out = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "max_abs_err")} | {
+            "shape": shape, "body": r["plan"]["body"],
+            "gemma_path_launches": gemma["launches"][name]}
+        if name == "flash_decode":
+            out["gemma_path_launches_by_route"] = {
+                k: gemma["launches"][f"flash_decode_{k}"] for k in ("mma_cluster", "wgmma")}
+        return out
 
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
@@ -6734,11 +6787,16 @@ def main() -> int:
              launches_from="phases 3-4: greedy decode and the EAGLE draft"),
         dict(row("flash_decode", "eagle_tpu/ops/pallas_attention.py:116", dec_row),
              shape="T=1, S=1024, 32 heads x 128, bf16 cache",
-             head_dim_256=d256_row("flash_decode", 1)),
+             head_dim_256=[dict(d256_row("flash_decode", 1),
+                                source="eagle_tpu_torch/csrc/flash_attention.cu"),
+                           dict(d256_row("flash_decode", VERIFY_ROWS),
+                                source="eagle_tpu_torch/csrc/flash_attention.cu"),
+                           dict(d256_row("flash_decode", 512, "eagle prompt"),
+                                source="eagle_tpu_torch/csrc/flash_wgmma.cu")]),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
              shape="T=512, S=512, 32 heads x 128, bf16 cache",
              head_dim_256=dict(d256_row("flash_prefill", 512, "generator"),
-                               source="eagle_tpu_torch/csrc/flash_prefill_wgmma.cu"),
+                               source="eagle_tpu_torch/csrc/flash_wgmma.cu"),
              chat_feeds=[{k: v for k, v in r.items() if k in (
                  "t", "n", "q0", "s", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err")} for r in report["attention"] if "feed" in r.get("what", "")]),
@@ -6775,6 +6833,8 @@ def main() -> int:
              launches_from="phases 3-4: the EAGLE chain's verify forwards"),
     ]
     report["kernels"] = kernels
+    if vs_parent_d256:
+        report["vs_parent"] = vs_parent_d256
     report["seconds"] = time.time() - t_start
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['seconds']:.1f} s; report in {out_dir / 'chip_smoke_report.json'}")

@@ -30,11 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last reset (one per wrapper call that
 #: launched the kernel); "qmm_tc" and "qmm_i4_tc" count the wgmma route of
 #: qmm and qmm_i4, "qmm_mma" and "qmm_i4_mma" their small-row mma.sync
-#: route, "qmm_gemv" qmm's 1-row route, "qmm" and "qmm_i4" their SIMT route
+#: route, "qmm_gemv" qmm's 1-row route, "qmm" and "qmm_i4" their SIMT route;
+#: "flash_decode_mma_cluster" and "flash_decode_wgmma" count flash_decode's
+#: two routes at head width 256 (bf16), each launch also counted under
+#: "flash_decode"
 launches: dict[str, int] = {"qmm": 0, "flash_decode": 0, "flash_prefill": 0,
                              "ffn_out_norm": 0, "gate_up_act": 0, "qmm_i4": 0,
                              "qmm_tc": 0, "qmm_i4_tc": 0, "qmm_mma": 0, "qmm_gemv": 0,
-                             "qmm_i4_mma": 0}
+                             "qmm_i4_mma": 0, "flash_decode_mma_cluster": 0,
+                             "flash_decode_wgmma": 0}
 #: kernel name -> calls of its plain PyTorch version since the last reset
 plain_calls: dict[str, int] = {k: 0 for k in launches}
 

@@ -1,6 +1,6 @@
 // Flash attention over the layer-stacked, head-major, position-tagged KV
 // cache [L, B, H_kv, S, D]. Two kernels, each with a tensor-core and a SIMT
-// body (and flash_prefill a wgmma body at D = 256):
+// body (and a wgmma body at D = 256, flash_wgmma.cu):
 //   flash_decode  <- eagle_tpu/ops/pallas_attention.py:_flash_kernel
 //                    (flash_attention_cached): a bool mask [B, T, S_read]
 //                    computed outside, read per key tile — decode (T=1),
@@ -19,8 +19,9 @@
 // at 1e-20; only keys [0, s_limit) are read; the output is f32 [B, T, H, D].
 //
 // Which body serves which cache (ops/flash_attention.py:_plan picks it):
-// - bf16 cache: the tensor-core body (flash_tc_kernel), except flash_prefill
-//   at D = 256 (below). Decode and verify
+// - bf16 cache: the tensor-core body (flash_tc_kernel), except at D = 256
+//   for flash_prefill and for flash_decode at 64 rows and more (below).
+//   Decode and verify
 //   (T*g <= 16) are bound by the bytes of K and V (2 x S x D x 2 per kv
 //   head per layer: 5.0 us at S = 1024, 32 heads of 128, on 3.35 TB/s); so
 //   is T = S = 512 (7.5 us against 4.3 GFLOP, 4.4 us at 989 TFLOP/s), if
@@ -46,19 +47,37 @@
 //   runs in the log2 domain (exp2 with a log2(e) factor on the scaled
 //   score); a masked score is the constant -1e30 * log2(e) and m starts
 //   there, so a fully masked row still gets p = 1 for every key.
-//   flash_decode at D = 256: a lane's q fragments (64 registers) and output
-//   (128) would leave too few registers for the scores, so the block's q
-//   rows stay in shared memory instead (bf16, swizzled as K, after the
-//   ring), and each k16 step of QK^T reloads its A fragments with ldmatrix,
-//   as FlashAttention-2 does at that width. A stage is then 64 KB of K and
-//   V, so the ring has two stages and a block has the SM to itself; a warp
-//   that sees every key of its rows (64 and 128 rows) would still run out
-//   of registers under the mask reads, so blocks have 16 or 32 rows.
-// - bf16 cache, flash_prefill at D = 256: the wgmma body
-//   (flash_prefill_wgmma.cu): 64-row blocks of one consumer warpgroup, K/V
-//   tiles by TMA under mbarriers, S and O in wgmma accumulators, one wave
-//   without key splits at Gemma's prompts, and key tiles that no row of a
-//   block sees skipped (rule B there).
+//   flash_decode at D = 256 below 64 rows per kv head (decode, verify,
+//   trees, Gemma-2B's g = 8 verify): a lane's q fragments (64 registers)
+//   and output (128) would leave too few registers for the scores, so the
+//   block's q rows stay in shared memory instead (bf16, swizzled as K, after
+//   the ring), and each k16 step of QK^T reloads its A fragments with
+//   ldmatrix, as FlashAttention-2 does at that width. Blocks have 16 or 32
+//   rows; a stage is 64 KB of K and V, and a block has the SM to itself, so
+//   the ring takes three stages (a block's first two tiles are in flight
+//   together). K and V come by TMA (eight [64 keys][64 features] boxes a
+//   tile, 128-byte swizzle, issued by one thread onto the stage's
+//   mbarrier): 16-byte cp.async from 128 threads spent 1.5 us of each
+//   block issuing its first two tiles on the H100. q's loads are in flight
+//   before the tiles are asked for. The few row blocks split the keys, and
+//   the splits of a row block are one thread-block cluster: each block
+//   merges its warps' rows into its own shared memory, and after a cluster
+//   barrier each block merges a share of the rows' (row, feature) pieces
+//   over all the blocks' shared memory (distributed shared memory), splits
+//   in rank order, and writes the output. One launch: no (m, l, acc) round
+//   trip through device memory and no combine kernel; the merge order is
+//   fixed, so graphed and eager calls agree bit for bit, and nothing is
+//   reset between calls. At most 8 splits, and as many as keep every
+//   cluster in one wave (ops/flash_attention.py:_cluster_plan: 15 clusters
+//   of 8 fit the H100 at one block an SM, 17 of 6). Bound at decode
+//   (Gemma-7B, T = 1, S = 1,024): the K and V bytes, 16 MB, 5.0 us on
+//   3.35 TB/s; its 16 kv heads take 16 x 6 blocks of up to three tiles.
+// - bf16 cache at D = 256, flash_prefill and flash_decode at 64 rows and
+//   more (the EAGLE engine's prompt): the wgmma body (flash_wgmma.cu):
+//   64-row blocks of one consumer warpgroup, K/V tiles (and flash_decode's
+//   mask tile) by TMA under mbarriers, S and O in wgmma accumulators, one
+//   wave without key splits at Gemma's prompts, and key tiles that no row
+//   of a block sees skipped (rules B and M there).
 // - f32 cache: the SIMT body (flash_body): one warp owns RPW query rows and
 //   one lane one key of a 32-key tile; exact f32 FMAs, as the tests and the
 //   tiny model's f32 path expect (the tensor cores' TF32 would change the
@@ -66,15 +85,20 @@
 //   owns one row (four rows' outputs would not fit in registers).
 // Few query rows give few blocks, so every body also splits the key range
 // across blocks (flash-decoding): each split writes its (m, l, acc) and a
-// combine kernel merges them. Only the wgmma body skips key tiles: in the
+// combine kernel merges them (the D = 256 tensor-core body merges its
+// splits in the launch, above). Only the wgmma body skips key tiles: in the
 // others a row that sees no key averages every key of [0, s_limit), and a
 // tile is read whether or not a row of the block sees it.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 #include "mma_sync.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -256,30 +280,44 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;  // a masked score, log2 domain
 constexpr int kTwoBlockSmem = 115712;  // a ring that lets two blocks share an SM
 constexpr int kMaxSmem = 232448;  // what one block may opt into
+constexpr int kMaxCluster = 8;  // D = 256 flash_decode: key splits a cluster (portable size)
 
 // Shared memory of one block (ops/flash_attention.py:_plan computes the same
 // sizes). A stage holds K [64][D] and V [64][D] bf16, then the mask tile
 // [RB][64] bytes (decode) or 64 int32 tags (prefill). The 16-byte chunk c of
 // key row r lies at chunk c ^ (r & 7) of its row, so the eight rows that one
-// ldmatrix reads hit 32 distinct banks without padding. At D = 256 the
-// block's q rows [RB][D] bf16 follow the ring, swizzled the same way. A
+// ldmatrix reads hit 32 distinct banks without padding (at D = 256 K and V
+// come by TMA as four [64 keys][64 features] boxes each, the same swizzle
+// within a box's 128-byte rows: kv_chunk). At D = 256 the block's q rows
+// [RB][D] bf16 follow the ring, swizzled as at D = 128, then an mbarrier a
+// stage, all from a 1024-aligned base (1 KB of slack). A
 // third stage is taken where it fits: beside a second block on the SM below
-// 128 rows, in one block's limit at 128. After the key loop the ring is
-// reused to merge the warps' (acc, m, l).
+// 128 rows, in one block's limit at 128 and at D = 256 (the block has the SM
+// to itself there). After the key loop the ring is reused to merge the
+// warps' (acc, m, l), and at D = 256 to hold the block's merged rows
+// [RB][D] f32 and their m and l for the cluster's merge (kPart, after the
+// warps' merge).
 template <int D, int RB, bool TAGS>
 struct TcShape {
   static constexpr int kWarps = RB > 64 ? RB / 16 : 4;  // 128 rows: 8 warps
   static constexpr int kKV = kKeys * D * 2;
   static constexpr int kExtra = TAGS ? kKeys * 4 : RB * kKeys;
   static constexpr int kStage = 2 * kKV + kExtra;
-  static constexpr bool kQSmem = D > 128;  // q fragments reloaded from shared memory
-  static constexpr int kQ = kQSmem ? RB * D * 2 : 0;
-  static constexpr int kStages = 3 * kStage + kQ <= (RB > 64 ? kMaxSmem : kTwoBlockSmem) ? 3 : 2;
+  // D = 256 (flash_decode below 64 rows, "mma_cluster"): q fragments
+  // reloaded from shared memory, K/V by TMA, the key splits one cluster
+  // merged in the launch
+  static constexpr bool kWide = D > 128;
+  static constexpr int kQ = kWide ? RB * D * 2 : 0;
+  static constexpr int kStages =
+      3 * kStage + kQ <= (RB > 64 || kWide ? kMaxSmem : kTwoBlockSmem) ? 3 : 2;
   static constexpr int kRing = kStages * kStage;
   static constexpr int kMergeStride = D + 4;  // floats per merged row: no bank conflicts
   static constexpr int kMerge = kWarps * 16 * (kMergeStride + 2) * 4;
-  static constexpr int kSmem = kRing + kQ > kMerge ? kRing + kQ : kMerge;
-  static constexpr int kMinBlocks = RB > 64 || kQSmem ? 1 : 2;  // blocks per SM
+  static constexpr int kPart = kWide ? RB * (D + 2) * 4 : 0;
+  static constexpr int kBars = kWide ? kStages * 8 + 1024 : 0;  // + the base's alignment slack
+  static constexpr int kSmem =
+      (kRing + kQ > kMerge + kPart ? kRing + kQ : kMerge + kPart) + kBars;
+  static constexpr int kMinBlocks = RB > 64 || kWide ? 1 : 2;  // blocks per SM
 };
 
 __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0, exp2(0) = 1
@@ -288,10 +326,17 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0, exp2(0
   return y;
 }
 
+// byte offset of 16-byte chunk c (features 8c..8c+7) of key row kr in a
+// D = 256 K or V tile: four TMA boxes of [64 keys][64 features], 128-byte
+// rows with the 128-byte swizzle (chunk c % 8 at c % 8 ^ kr % 8)
+__device__ __forceinline__ uint32_t kv_chunk(int kr, int c) {
+  return (c >> 3) * 8192 + kr * 128 + (((c & 7) ^ (kr & 7)) << 4);
+}
+
 template <int D, int RB, bool TAGS>
 __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
                                   TcShape<D, RB, TAGS>::kMinBlocks)
-    flash_tc_kernel(Args a) {
+    flash_tc_kernel(Args a, const __grid_constant__ FlashKVMaps maps) {
   using S = TcShape<D, RB, TAGS>;
   constexpr int kWarps = S::kWarps;
   constexpr int RT = RB / 16;      // 16-row tiles per block
@@ -301,7 +346,12 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
   constexpr int KD = D / 16;       // k16 steps over D
   constexpr int ND = D / 8;        // n8 output blocks
   constexpr int kThreads = kWarps * 32;
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // D = 256: the TMA boxes' swizzle wants 1024-aligned stages
+  unsigned char* smem = smem_raw;
+  if constexpr (S::kWide)
+    smem += ((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw);
+  const uint32_t full0 = smem_u32(smem) + S::kRing + S::kQ;  // D = 256: a stage's mbarrier
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = a.H / a.H_kv, TG = a.T * gq;
@@ -324,16 +374,30 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
     unsigned char* st = smem + (j % S::kStages) * S::kStage;
     const uint32_t st32 = smem_u32(st);
     const int s0 = s_begin + j * kKeys;
-    constexpr int kChunks = D / 8;  // 16-byte chunks per key row
+    if constexpr (S::kWide) {
+      // K's four boxes, then V's, by one thread, completing on the stage's
+      // mbarrier; keys past s_limit fill zeros, keys of the next split are
+      // masked by index
+      if (threadIdx.x == 0) {
+        const uint32_t bar = full0 + 8 * (j % S::kStages);
+        mbar_expect_tx(bar, 2 * S::kKV);
 #pragma unroll
-    for (int c = threadIdx.x; c < kKeys * kChunks; c += kThreads) {
-      const int key = c / kChunks, part = c % kChunks;
-      const int s = s0 + key;
-      const bool in = s < s_end;
-      const size_t off = (size_t)(in ? s : 0) * D + part * 8;
-      const uint32_t dst = st32 + key * D * 2 + ((part ^ (key & 7)) << 4);
-      cp_async16(dst, kg + off, in);
-      cp_async16(dst + S::kKV, vg + off, in);
+        for (int box = 0; box < 8; ++box)
+          tma_4d(st32 + (box >> 2) * S::kKV + (box & 3) * 8192, (box >> 2) ? &maps.v : &maps.k,
+                 64 * (box & 3), s0, kvh, b, bar);
+      }
+    } else {
+      constexpr int kChunks = D / 8;  // 16-byte chunks per key row
+#pragma unroll
+      for (int c = threadIdx.x; c < kKeys * kChunks; c += kThreads) {
+        const int key = c / kChunks, part = c % kChunks;
+        const int s = s0 + key;
+        const bool in = s < s_end;
+        const size_t off = (size_t)(in ? s : 0) * D + part * 8;
+        const uint32_t dst = st32 + key * D * 2 + ((part ^ (key & 7)) << 4);
+        cp_async16(dst, kg + off, in);
+        cp_async16(dst + S::kKV, vg + off, in);
+      }
     }
     unsigned char* ex = st + 2 * S::kKV;
     if (TAGS) {
@@ -360,10 +424,18 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
     }
   };
 
+  auto prologue = [&] {
+#pragma unroll
+    for (int j = 0; j < S::kStages - 1; ++j) {
+      if (j < n_tiles) load_tile(j);
+      cp_async_commit();
+    }
+  };
+
   // q fragments of the warp's 16 rows, rounded to bf16 (A layout of m16n8k16)
   const int rA = row0 + (warp / KW) * 16 + qr;
   const int rows[2] = {rA, rA + 8};
-  uint32_t qa[S::kQSmem ? 1 : KD][4];
+  uint32_t qa[S::kWide ? 1 : KD][4];
   int qpos[2], tl[2], tlr[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -374,7 +446,7 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
     qpos[hr] = (TAGS && real) ? a.q_pos[(size_t)b * a.T + t] : -1;
     tl[hr] = real ? t - t_lo : -1;
     tlr[hr] = real ? t - t_lo : 0;  // a mask tile row that may be read
-    if constexpr (!S::kQSmem) {
+    if constexpr (!S::kWide) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
@@ -388,21 +460,39 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
       }
     }
   }
-  if constexpr (S::kQSmem) {  // the block's q rows, bf16, into shared memory after the ring
+  if constexpr (S::kWide) {
+    // the block's q rows, bf16, into shared memory after the ring. Every
+    // load is in flight before the ring's first tiles are asked for, and
+    // those before q is stored: the round trips overlap.
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < S::kStages; ++st) mbar_init(full0 + 8 * st, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
     unsigned char* qs = smem + S::kRing;
     constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
-    for (int c = threadIdx.x; c < RB * kChunks; c += kThreads) {
-      const int rr = c / kChunks, part = c % kChunks, r = row0 + rr;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    constexpr int kPer = RB * kChunks / kThreads;  // chunks a thread
+    float4 x[kPer][2];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = threadIdx.x + i * kThreads, rr = c / kChunks, part = c % kChunks;
+      const int r = row0 + rr;
+      x[i][0] = x[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < TG) {  // 16-byte aligned: the wrapper aligns q and D * 4 is a multiple of 16
         const int t = r / gq;
         const float4* src = reinterpret_cast<const float4*>(
             a.q + (((size_t)b * a.T + t) * a.H + kvh * gq + (r - t * gq)) * D + part * 8);
-        const float4 x0 = src[0], x1 = src[1];
-        val = make_uint4(pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w), pack_bf16(x1.x, x1.y),
-                         pack_bf16(x1.z, x1.w));
+        x[i][0] = src[0];
+        x[i][1] = src[1];
       }
-      *reinterpret_cast<uint4*>(qs + rr * D * 2 + ((part ^ (rr & 7)) << 4)) = val;
+    }
+    prologue();
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = threadIdx.x + i * kThreads, rr = c / kChunks, part = c % kChunks;
+      *reinterpret_cast<uint4*>(qs + rr * D * 2 + ((part ^ (rr & 7)) << 4)) =
+          make_uint4(pack_bf16(x[i][0].x, x[i][0].y), pack_bf16(x[i][0].z, x[i][0].w),
+                     pack_bf16(x[i][1].x, x[i][1].y), pack_bf16(x[i][1].z, x[i][1].w));
     }  // read after the key loop's first __syncthreads
   }
 
@@ -412,13 +502,10 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
   float m2[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
   const float scale2 = a.scale * kLog2e;
 
-#pragma unroll
-  for (int j = 0; j < S::kStages - 1; ++j) {
-    if (j < n_tiles) load_tile(j);
-    cp_async_commit();
-  }
+  if constexpr (!S::kWide) prologue();
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait<S::kStages - 2>();
+    if constexpr (S::kWide) mbar_wait(full0 + 8 * (j % S::kStages), (j / S::kStages) & 1);
     __syncthreads();  // tile j landed; every warp is done with tile j - 1's slot
     if (j + S::kStages - 1 < n_tiles) load_tile(j + S::kStages - 1);
     cp_async_commit();
@@ -428,7 +515,7 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
     const int s0 = s_begin + j * kKeys;
 
     float sc[NB][4];
-    if constexpr (S::kQSmem) {
+    if constexpr (S::kWide) {
       // row (warp / KW) * 16 + (lane & 15) of the q tile: lanes 16-31 read
       // the second 8 columns of a k16 step (A fragments' register order)
       const uint32_t qrow = smem_u32(smem + S::kRing) + ((warp / KW) * 16 + (lane & 15)) * D * 2;
@@ -442,9 +529,7 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
 #pragma unroll
         for (int jb = 0; jb < NB; ++jb) {
           uint32_t kb[4];  // B fragments of k16 steps kk and kk + 1
-          ldmatrix_x4(ks + (kw0 + jb * 8 + (lane & 7)) * D * 2 +
-                          (((kk * 2 + (lane >> 3)) ^ (lane & 7)) << 4),
-                      kb);
+          ldmatrix_x4(ks + kv_chunk(kw0 + jb * 8 + (lane & 7), kk * 2 + (lane >> 3)), kb);
           mma_bf16(sc[jb], qf[0], kb[0], kb[1]);
           mma_bf16(sc[jb], qf[1], kb[2], kb[3]);
         }
@@ -532,9 +617,12 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t vb[4];  // B fragments of output blocks n and n + 1
-        ldmatrix_x4_trans(vs + (kw0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * D * 2 +
-                              (((n + (lane >> 4)) ^ (lane & 7)) << 4),
-                          vb);
+        const int vr = kw0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        if constexpr (S::kWide) {
+          ldmatrix_x4_trans(vs + kv_chunk(vr, n + (lane >> 4)), vb);
+        } else {
+          ldmatrix_x4_trans(vs + vr * D * 2 + (((n + (lane >> 4)) ^ (lane & 7)) << 4), vb);
+        }
         mma_bf16(o[n], pa[kk], vb[0], vb[1]);
         mma_bf16(o[n + 1], pa[kk], vb[2], vb[3]);
       }
@@ -573,12 +661,17 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
     return;
   }
   // Below 64 rows the warps of a row tile saw different keys: merge them in
-  // shared memory, then write the rows or the split's partial state.
+  // shared memory, then write the rows or the split's partial state (at
+  // D = 256: into shared memory, for the cluster's merge below).
   cp_async_wait<0>();
   __syncthreads();  // the ring is no longer read
   float* macc = reinterpret_cast<float*>(smem);  // [warps][16][kMergeStride]
   float* mm = macc + kWarps * 16 * S::kMergeStride;  // [warps][16]
   float* ml = mm + kWarps * 16;
+  float* pacc = reinterpret_cast<float*>(smem + S::kMerge);  // D = 256: [RB][D], then m, l [RB]
+  float* pm = pacc + RB * D;
+  float* pl = pm + RB;
+  const bool cluster = S::kWide && a.splits > 1;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
@@ -591,8 +684,10 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     float* p = macc + (warp * 16 + qr) * S::kMergeStride + n * 8 + 2 * qc;
-    *reinterpret_cast<float2*>(p) = make_float2(o[n][0], o[n][1]);
-    *reinterpret_cast<float2*>(p + 8 * S::kMergeStride) = make_float2(o[n][2], o[n][3]);
+    if (!S::kWide || rows[0] < TG)  // D = 256: only the rows that exist
+      *reinterpret_cast<float2*>(p) = make_float2(o[n][0], o[n][1]);
+    if (!S::kWide || rows[1] < TG)
+      *reinterpret_cast<float2*>(p + 8 * S::kMergeStride) = make_float2(o[n][2], o[n][3]);
   }
   __syncthreads();
   constexpr int kLanesPerRow = D / 4;  // each thread merges 4 features of a row
@@ -619,11 +714,17 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
       acc.w += v.w * wt;
     }
     const int t = gq == 1 ? r : r / gq, h = kvh * gq + (r - t * gq);
-    if (a.splits == 1) {
+    if (cluster) {
+      *reinterpret_cast<float4*>(pacc + rr * D + d0) = acc;
+      if (d0 == 0) {
+        pm[rr] = mmax;
+        pl[rr] = lsum;
+      }
+    } else if (a.splits == 1) {
       const float inv = 1.f / fmaxf(lsum, 1e-20f);
       *reinterpret_cast<float4*>(a.out + (((size_t)b * a.T + t) * a.H + h) * D + d0) =
           make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
-    } else {
+    } else if constexpr (!S::kWide) {  // D = 256's splits merge in the cluster, below
       const size_t pr = (((size_t)split * a.B + b) * a.H_kv + kvh) * TG + r;
       if (d0 == 0) {
         a.part_m[pr] = mmax * kLn2;  // the combine kernel works in the natural domain
@@ -631,6 +732,54 @@ __global__ void __launch_bounds__(TcShape<D, RB, TAGS>::kWarps * 32,
       }
       *reinterpret_cast<float4*>(a.part_acc + pr * D + d0) = acc;
     }
+  }
+  if constexpr (S::kWide) {
+    if (!cluster) return;
+    // The key splits of these rows are the blocks of one cluster (rank =
+    // split): once every block holds its rows, each merges a share of the
+    // (row, 4 features) pieces over the blocks' shared memory, splits in
+    // rank order, so the sum's order is fixed (graphed == eager, bit for bit).
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();  // every split's rows are in its shared memory
+    const int n_splits = a.splits, rank = (int)cl.block_rank();
+    const int n_pieces = min(RB, TG - row0) * (D / 4);
+    const int lo = rank * n_pieces / n_splits, hi = (rank + 1) * n_pieces / n_splits;
+    for (int piece = lo + threadIdx.x; piece < hi; piece += kThreads) {
+      const int rr = piece / (D / 4), d0 = (piece % (D / 4)) * 4;
+      // every split's m, l and 4 features in flight at once (one round trip)
+      float mk[kMaxCluster], lk[kMaxCluster];
+      float4 vk[kMaxCluster];
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k) {
+        if (k < n_splits) {
+          mk[k] = cl.map_shared_rank(pm, k)[rr];
+          lk[k] = cl.map_shared_rank(pl, k)[rr];
+          vk[k] = *reinterpret_cast<const float4*>(cl.map_shared_rank(pacc, k) + rr * D + d0);
+        }
+      }
+      float mmax = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k)
+        if (k < n_splits) mmax = fmaxf(mmax, mk[k]);
+      float lsum = 0.f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k) {  // in split order
+        if (k < n_splits) {
+          const float wt = fast_exp2(mk[k] - mmax);
+          lsum += lk[k] * wt;
+          acc.x += vk[k].x * wt;
+          acc.y += vk[k].y * wt;
+          acc.z += vk[k].z * wt;
+          acc.w += vk[k].w * wt;
+        }
+      }
+      const int r = row0 + rr, t = r / gq, h = kvh * gq + (r - t * gq);
+      const float inv = 1.f / fmaxf(lsum, 1e-20f);
+      *reinterpret_cast<float4*>(a.out + (((size_t)b * a.T + t) * a.H + h) * D + d0) =
+          make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    }
+    cl.sync();  // no block leaves while another reads its shared memory
   }
 }
 
@@ -684,6 +833,9 @@ template <int D, int RB, bool TAGS>
 int launch_tc(const Args& a, int smem_bytes, cudaStream_t st) {
   using S = TcShape<D, RB, TAGS>;
   if (smem_bytes != S::kSmem) return (int)cudaErrorInvalidValue;  // the plan disagrees
+  FlashKVMaps maps = {};
+  if (S::kWide && !(flash_kv_map(&maps.k, a.k, a) && flash_kv_map(&maps.v, a.v, a)))
+    return (int)cudaErrorInvalidValue;
   static bool attr_set = false;  // above 48 KB a block must ask for its shared memory
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -692,8 +844,49 @@ int launch_tc(const Args& a, int smem_bytes, cudaStream_t st) {
     attr_set = true;
   }
   const dim3 grid(a.B * a.H_kv, grid_y(a, RB), a.splits);
-  flash_tc_kernel<D, RB, TAGS><<<grid, S::kWarps * 32, S::kSmem, st>>>(a);
-  return 0;
+  if constexpr (S::kWide) {  // the splits of a row block form one cluster
+    if (a.splits > kMaxCluster) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = a.splits;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(S::kWarps * 32);
+    cfg.dynamicSmemBytes = S::kSmem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(&cfg, flash_tc_kernel<D, RB, TAGS>, a, maps);
+  } else {
+    flash_tc_kernel<D, RB, TAGS><<<grid, S::kWarps * 32, S::kSmem, st>>>(a, maps);
+    return 0;
+  }
+}
+
+// Clusters of `cluster` blocks of the "mma_cluster" body at RB rows that
+// the card runs at once (cudaOccupancyMaxActiveClusters), or -1.
+template <int RB>
+int cluster_wave(int cluster) {
+  using S = TcShape<256, RB, false>;
+  if (cudaFuncSetAttribute(flash_tc_kernel<256, RB, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem) != cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, cluster);
+  cfg.blockDim = dim3(S::kWarps * 32);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, flash_tc_kernel<256, RB, false>, &cfg) == cudaSuccess
+             ? n : -1;
 }
 
 template <int D, bool TAGS>
@@ -702,28 +895,38 @@ int dispatch_tc_rb(int rows_per_block, const Args& a, int smem_bytes, cudaStream
     case 16: return launch_tc<D, 16, TAGS>(a, smem_bytes, st);
     case 32: return launch_tc<D, 32, TAGS>(a, smem_bytes, st);
   }
-  if constexpr (D <= 128) {  // D = 256 flash_decode: 16 or 32 rows
+  if constexpr (D <= 128) {  // D = 256 flash_decode: 16 or 32 rows (64: the wgmma body)
     if (rows_per_block == 64) return launch_tc<D, 64, TAGS>(a, smem_bytes, st);
     if (rows_per_block == 128) return launch_tc<D, 128, TAGS>(a, smem_bytes, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// the body ops/flash_attention.py:_plan chose (Plan.body, in _BODIES order)
+enum Body { kBodySimt = 0, kBodyMma = 1, kBodyCluster = 2, kBodyWgmma = 3 };
+
 template <int D>
-int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_bytes,
+int dispatch(int body, bool tags, int rows_per_block, const Args& a, int smem_bytes,
              cudaStream_t st) {
-  if (bf16) {
-    if constexpr (D > 128) {  // flash_prefill at D = 256: the wgmma body
-      if (tags) return flash_prefill_wg_launch(a, smem_bytes, st);
-      return dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
-    } else {
-      return tags ? dispatch_tc_rb<D, true>(rows_per_block, a, smem_bytes, st)
-                  : dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
-    }
-  }
-  if (rows_per_block == kWarps) return launch_simt<D, 1>(tags, a, st);
-  if constexpr (D <= 128) {  // D = 256: one row per warp
-    if (rows_per_block == 4 * kWarps) return launch_simt<D, 4>(tags, a, st);
+  switch (body) {
+    case kBodyMma:  // bf16 at D 64 / 128
+      if constexpr (D <= 128)
+        return tags ? dispatch_tc_rb<D, true>(rows_per_block, a, smem_bytes, st)
+                    : dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
+      break;
+    case kBodyCluster:  // bf16 flash_decode at D = 256 below 64 rows
+      if constexpr (D > 128)
+        if (!tags) return dispatch_tc_rb<D, false>(rows_per_block, a, smem_bytes, st);
+      break;
+    case kBodyWgmma:  // bf16 at D = 256: flash_prefill, flash_decode from 64 rows
+      if constexpr (D > 128) return flash_wg_launch(!tags, a, smem_bytes, st);
+      break;
+    case kBodySimt:  // f32
+      if (rows_per_block == kWarps) return launch_simt<D, 1>(tags, a, st);
+      if constexpr (D <= 128) {  // D = 256: one row per warp
+        if (rows_per_block == 4 * kWarps) return launch_simt<D, 4>(tags, a, st);
+      }
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -733,18 +936,20 @@ int dispatch(bool bf16, bool tags, int rows_per_block, const Args& a, int smem_b
 // tags = 0: flash_decode (mask given); tags = 1: flash_prefill (q_pos and
 // slot_pos given). k/v point at the layer's [B, H_kv, S_full, D] block,
 // batch rows batch_stride elements apart (H_kv * S_full * D when whole).
-// D in {64, 128, 256}. A bf16 cache takes the tensor-core body with
-// rows_per_block in {16, 32, 64, 128} (D = 256 flash_decode: {16, 32}) and
-// smem_bytes its dynamic shared memory, flash_prefill at D = 256 the wgmma
-// body (64 rows, its own shared memory); an f32 cache the SIMT body with
-// rows_per_block in {4, 16} (1 or 4 rows per warp; D = 256: 4). With
-// splits > 1 the part_* buffers hold the per-split state and a combine
-// kernel runs.
+// D in {64, 128, 256}. `body` is the plan's (enum Body): the tensor-core
+// body (kBodyMma, bf16 at D 64 / 128) with rows_per_block in {16, 32, 64,
+// 128} and smem_bytes its dynamic shared memory; at D = 256 on a bf16 cache
+// the wgmma body (kBodyWgmma: flash_prefill, flash_decode from 64 rows, its
+// own shared memory) or the tensor-core body at 16 or 32 rows with its key
+// splits (at most 8) merged in the launch (kBodyCluster: flash_decode below
+// 64 rows); the SIMT body (kBodySimt, f32 cache) with rows_per_block in
+// {4, 16} (1 or 4 rows per warp; D = 256: 4). Other bodies with splits > 1
+// keep the per-split state in the part_* buffers, and a combine kernel runs.
 extern "C" int flash_launch(int tags, const void* q, const void* k, const void* v,
                             const void* mask, const void* q_pos, const void* slot_pos,
                             void* out, void* part_m, void* part_l, void* part_acc,
                             int B, int T, int H, int H_kv, int D, int S_full, int s_lim,
-                            int tag_stride, int cache_bf16, int rows_per_block, int splits,
+                            int tag_stride, int body, int rows_per_block, int splits,
                             int keys_per_split, int smem_bytes, long long batch_stride,
                             float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -766,18 +971,28 @@ extern "C" int flash_launch(int tags, const void* q, const void* k, const void* 
   a.scale = scale;
   int rc;
   if (D == 64) {
-    rc = dispatch<64>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
+    rc = dispatch<64>(body, tags != 0, rows_per_block, a, smem_bytes, st);
   } else if (D == 128) {
-    rc = dispatch<128>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
+    rc = dispatch<128>(body, tags != 0, rows_per_block, a, smem_bytes, st);
   } else if (D == 256) {
-    rc = dispatch<256>(cache_bf16 != 0, tags != 0, rows_per_block, a, smem_bytes, st);
+    rc = dispatch<256>(body, tags != 0, rows_per_block, a, smem_bytes, st);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
-  if (splits > 1) {
+  if (splits > 1 && body != kBodyCluster) {  // kBodyCluster merges in the launch
     const size_t n = (size_t)B * H_kv * T * (H / H_kv) * D;
     flash_combine_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(a, D);
   }
   return (int)cudaGetLastError();
+}
+
+// ops/flash_attention.py:cluster_wave: clusters of `cluster` (1-8) blocks of
+// flash_decode's D = 256 body below 64 rows, at rows_per_block 16 or 32,
+// that the card runs at once; -1 for other arguments or on an error.
+extern "C" int flash_cluster_wave(int rows_per_block, int cluster) {
+  if (cluster < 1 || cluster > kMaxCluster) return -1;
+  if (rows_per_block == 16) return cluster_wave<16>(cluster);
+  if (rows_per_block == 32) return cluster_wave<32>(cluster);
+  return -1;
 }

@@ -1,19 +1,27 @@
-// flash_prefill's body for a bf16 cache at head width 256 (Gemma's), on
-// Hopper's warpgroup MMA; it replaces eagle_tpu/ops/pallas_attention.py:
-// _flash_prefill_kernel (via flash_attention_prefill) at that width, with
-// the semantics of flash_attention.cu's header: the mask is tag >= 0 &&
-// tag <= q_pos, rebuilt from the slot tags; q rounded to bf16; f32 scores
-// times the scale, in the log2 domain; a masked score and the initial m are
-// -1e30 * log2(e), so a row that sees no key comes out as the uniform
+// The wgmma body of both flash kernels for a bf16 cache at head width 256
+// (Gemma's), on Hopper's warpgroup MMA, templated on where the mask comes
+// from:
+//   MASK = false: flash_prefill, replacing eagle_tpu/ops/pallas_attention.py:
+//     _flash_prefill_kernel (via flash_attention_prefill) at that width: the
+//     mask is tag >= 0 && tag <= q_pos, rebuilt from the slot tags;
+//   MASK = true: flash_decode at 64 query rows per kv head and more (T*g >=
+//     64: the EAGLE engine's prompt, Gemma-2B's tree verifies), replacing
+//     pallas_attention.py:_flash_kernel (via flash_attention_cached): a bool
+//     mask [B, T, s_limit] computed outside, row r = t*g + i reading row t.
+// The semantics are flash_attention.cu's header: q rounded to bf16; f32
+// scores times the scale, in the log2 domain; a masked score and the initial
+// m are -1e30 * log2(e), so a row that sees no key comes out as the uniform
 // average of V over [0, s_limit); l sums the unrounded p, p is rounded to
-// bf16 for PV, the denominator is clamped at 1e-20; the output is f32
-// [B, T, H, D]. ops/flash_attention.py:_plan sends it every bf16
-// flash_prefill call at D = 256.
+// bf16 for PV, the denominator is clamped at 1e-20; only [0, s_limit) is
+// read; the output is f32 [B, T, H, D]. ops/flash_attention.py:_plan sends
+// it every bf16 flash_prefill call at D = 256 and every bf16 flash_decode
+// call at D = 256 with T*g >= 64 (flash_attention.cu takes fewer rows).
 //
 // Bound on the H100, at Gemma-7B's 512-row prompt (16 / 16 heads, 300 slots
-// seen): bytes, 6.5 us at 3.35 TB/s, 16.8 MB of it the f32 q read and the
-// f32 output written; the two products over the seen (query, key) pairs
-// take 2.3 GFLOP, 2.3 us at 989 TFLOP/s. What it does about that:
+// seen): bytes, 6.5 us at 3.35 TB/s (flash_decode: 7.6 us, its mask read
+// once), 16.8 MB of it the f32 q read and the f32 output written; the two
+// products over the seen (query, key) pairs take 2.3 GFLOP, 2.3 us at 989
+// TFLOP/s. What it does about that:
 // - One wave, no key-split round trip. A block is 64 query rows of one kv
 //   head (one consumer warpgroup) and one producer warp: 16 heads x 8 row
 //   blocks = 128 blocks at Gemma-7B's prompt, 8 x 16 at 16 / 8 heads, 64
@@ -22,23 +30,29 @@
 //   outnumber the blocks (long contexts, short feeds; the combine kernel
 //   then merges the splits); the blocks of the latest query positions,
 //   which see the most keys, start first (blockIdx.y reversed).
-// - Key tiles that no row of the block sees are not read (rule B). In a
-//   prologue the producer warp takes the least and the greatest q_pos of
-//   the block's real rows and, in one pass over the tags of [0, s_limit),
-//   the least non-negative tag of each 64-key tile of its split and of the
-//   whole range. A tile is skipped iff its least tag > the greatest q_pos
-//   and every real row of the block sees some key (its q_pos >= 0 and >=
-//   the least tag of [0, s_limit)); one bit a tile, in shared memory. The
-//   rule reads tag values, never slot indices, so shifted, rolled-back and
-//   chat-fed caches with tags out of order are skipped exactly. Exact,
-//   because: a row that sees some key gets p = 0 from every key of a tile
-//   it does not see once its m is a real score, and before that (m still
-//   -1e30 * log2(e)) whatever l and acc gathered is wiped by alpha =
-//   exp2(-1e30 * log2(e) - m) = 0 at its first seen key; a split it sees
-//   nothing of ends with m at that floor and weighs 0 in the combine. So
-//   the output values equal those of reading every tile. A block with a
-//   row that sees no key reads every tile: that row is the average of all
-//   of them. ops/flash_attention.py:tile_reads mirrors the rule.
+// - Key tiles that no row of the block sees are not read. In a prologue the
+//   producer warp decides, for each 64-key tile of its split, whether some
+//   real row of the block (r < T*g) sees a key in it, and whether every real
+//   row sees some key of [0, s_limit); one skip bit a tile, in shared
+//   memory. A tile is skipped iff no real row sees a key in it and every
+//   real row sees some key. Rule B (flash_prefill) reads this from the tags
+//   in one pass over [0, s_limit): the least and the greatest q_pos of the
+//   real rows, each tile's least non-negative tag (seen by some row iff it
+//   is <= the greatest q_pos) and the least of the whole range (every row
+//   sees some key iff the least q_pos is >= 0 and >= it). Rule M
+//   (flash_decode) reads the mask rows of the block's real t rows over
+//   [0, s_limit) (64 x 512 bytes at the EAGLE prompt, against 64 KB a K/V
+//   tile), 16 bytes a load where the rows allow it. Both read values,
+//   never slot order, so shifted, rolled-back and chat-fed caches, tree
+//   masks and any mask given are skipped exactly. Exact, because: a row
+//   that sees some key gets p = 0 from every key of a tile it does not see
+//   once its m is a real score, and before that (m still -1e30 * log2(e))
+//   whatever l and acc gathered is wiped by alpha = exp2(-1e30 * log2(e) -
+//   m) = 0 at its first seen key; a split it sees nothing of ends with m at
+//   that floor and weighs 0 in the combine. So the output values equal
+//   those of reading every tile. A block with a row that sees no key reads
+//   every tile: that row is the average of all of them.
+//   ops/flash_attention.py:tile_reads and tile_reads_mask mirror the rules.
 // - The products run on wgmma fed by TMA. The block's 64 q rows are
 //   rounded to bf16 once by the consumer threads (every load in flight
 //   before the first store) and stored, 128-byte swizzled, as four
@@ -51,21 +65,27 @@
 //   transpose bit); O lives in registers (128 f32 a thread). Tile n's
 //   QK^T and softmax run while tile n - 1's PV is in flight (wgmma groups
 //   retire in order), so the softmax's exp2 and the tensor cores overlap.
-// - The ring: 3 stages of K and V (64 keys each), filled by the producer
-//   warp as the consumers free them (full / empty mbarriers). For a tile
-//   it reads, eight lanes issue one TMA box each (4 of K, 4 of V, 64
-//   features wide: the 128-byte swizzle's width) from 4-D tensor maps (D,
-//   slots, kv heads, batch) over the cache's own strides, so row views
-//   (batch_stride) are read in place; the slot extent is s_limit, so TMA
-//   fills zeros past it. Every lane copies two of the tile's tags beside it
-//   with cp.async, whose completion arrives on the same barrier; keys at
-//   or past the split's end are masked by index (p = 0). The maps are
-//   built per call on the host and passed as __grid_constant__
-//   parameters, so a captured launch holds them.
-// - Shared memory: q 32 KB + 3 x 64 KB stages + tags, flags, skip bits and
-//   barriers = 232,256 bytes with the 1 KB alignment slack
+// - The ring: K and V (64 keys each) a stage, filled by the producer warp
+//   as the consumers free them (full / empty mbarriers). For a tile it
+//   reads, eight lanes issue one TMA box each (4 of K, 4 of V, 64 features
+//   wide: the 128-byte swizzle's width) from 4-D tensor maps (D, slots, kv
+//   heads, batch) over the cache's own strides, so row views (batch_stride)
+//   are read in place; the slot extent is s_limit, so TMA fills zeros past
+//   it. Beside K comes what the softmax masks with: flash_prefill's 64 tags
+//   (every lane copies two with cp.async, whose completion arrives on the
+//   same barrier); flash_decode's mask tile, 64 keys x the block's t rows
+//   (63 / g + 1 of them, at most 64) as bytes, by a ninth TMA box from a
+//   3-D map (s_limit, T, B) where the rows are 16-byte aligned (s_limit %
+//   16 == 0), by the producer lanes' own loads otherwise (zeros past the
+//   split's end and past T). Keys at or past the split's end are masked by
+//   index (p = 0). The maps are built per call on the host and passed as
+//   __grid_constant__ parameters, so a captured launch holds them.
+// - Shared memory: q 32 KB; flash_prefill 3 stages of 64 KB + their tags,
+//   flash_decode 2 stages of 64 KB + their 4 KB mask tiles (a third stage
+//   and its mask tile would pass one block's 227 KB); flags, skip bits,
+//   barriers and 1 KB of alignment slack: 232,256 and 174,128 bytes
 //   (ops/flash_attention.py:_plan computes the same; a disagreeing plan is
-//   refused). 216 registers a thread, no spill, one block an SM.
+//   refused). One block an SM.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,30 +101,47 @@ namespace {
 constexpr int kD = 256;            // head width
 constexpr int kRows = 64;          // query rows per block: one consumer warpgroup
 constexpr int kKeys = 64;          // keys per tile
-constexpr int kStages = 3;         // ring stages
 constexpr int kConsumers = 128;    // the consumer warpgroup
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kBox = 64 * 128;     // one TMA box: 64 rows of 64 bf16 features (128 bytes)
 constexpr int kTileKV = 4 * kBox;  // K (or V) of one tile, [64 keys][256]
-constexpr int kMaskWords = 256;    // rule B's bits: up to 8,192 tiles a split
-// offsets from the block's 1024-aligned base: q [64][256] bf16, the ring
-// (stage s: K then V), the stages' tags [64] int32, their flags (the
-// tile's first key, -1: the end), the skip bits of the split's tiles, the
-// full and empty mbarriers
-constexpr int kOffRing = 4 * kBox;
-constexpr int kOffTags = kOffRing + kStages * 2 * kTileKV;
-constexpr int kOffFlags = kOffTags + kStages * kKeys * 4;
-constexpr int kOffMask = kOffFlags + 16;
-constexpr int kOffBars = kOffMask + kMaskWords * 4;
-constexpr int kSmem = kOffBars + kStages * 16 + 1024;  // + slack to align the base
+constexpr int kMaskWords = 256;    // the skip bits: up to 8,192 tiles a split
+constexpr int kMaskRows = 64;      // flash_decode's mask tile: at most 64 t rows a block
 constexpr float kNegInf2 = -1e30f * 1.4426950408889634f;  // a masked score, log2 domain
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-static_assert(kSmem <= 232448, "one block's shared memory");
+
+// Offsets from the block's 1024-aligned base: q [64][256] bf16, the ring
+// (stage s: K then V), the stages' mask sources (64 int32 tags, or the mask
+// tile [64 t rows][64 keys] bytes), their flags (the tile's first key, -1:
+// the end), the skip bits of the split's tiles, the full and empty
+// mbarriers. ops/flash_attention.py:_WG_SMEM mirrors kSmem.
+template <bool MASK>
+struct WgShape {
+  static constexpr int kStages = MASK ? 2 : 3;  // a third stage with its mask tile passes 227 KB
+  static constexpr int kExtra = MASK ? kMaskRows * kKeys : kKeys * 4;
+  static constexpr int kOffRing = 4 * kBox;
+  static constexpr int kOffExtra = kOffRing + kStages * 2 * kTileKV;
+  static constexpr int kOffFlags = kOffExtra + kStages * kExtra;
+  static constexpr int kOffMask = kOffFlags + 16;
+  static constexpr int kOffBars = kOffMask + kMaskWords * 4;
+  static constexpr int kSmem = kOffBars + kStages * 16 + 1024;  // + slack to align the base
+  static_assert(kSmem <= 232448, "one block's shared memory");
+};
 
 struct Maps {
   CUtensorMap k, v;  // [B][H_kv][s_lim][D] bf16, boxes of 64 x 64, 128-byte swizzle
+  CUtensorMap m;     // flash_decode, 16-byte mask rows: [B][T][s_lim] bytes, boxes of 64 x t rows
 };
+
+// the t rows of flash_decode's mask tile: the most distinct t that a block's
+// 64 rows r = t*g + i span, at most T. A block starts at a multiple of 64:
+// where g divides 64 at t = 0 of a group, 64 / g rows; else up to g - 1
+// rows into one, (62 + g) / g + 1 = 62 / g + 2 rows (g = 6: 12, not 11).
+__host__ __device__ __forceinline__ int mask_box_rows(int g, int T) {
+  const int n = kRows % g == 0 ? kRows / g : (kRows - 2) / g + 2;
+  return n < T ? n : T;
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0, exp2(0) = 1
   float y;
@@ -179,39 +216,59 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// grid (B * H_kv, ceil(T * g / 64), splits), 160 threads.
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_prefill_wg_kernel(const __grid_constant__ FlashArgs a, const __grid_constant__ Maps maps) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw_u32 = smem_u32(smem_raw);
-  const uint32_t base = (raw_u32 + 1023u) & ~1023u;  // 128-byte swizzle atoms: 1 KB
-  uint8_t* sm = smem_raw + (base - raw_u32);
-  int32_t* tags_s = reinterpret_cast<int32_t*>(sm + kOffTags);   // [stage][64]
-  int32_t* flags_s = reinterpret_cast<int32_t*>(sm + kOffFlags);  // [stage]
-  uint32_t* mask_s = reinterpret_cast<uint32_t*>(sm + kOffMask);  // bit j: skip tile j
-  const uint32_t full0 = base + kOffBars, empty0 = full0 + 8 * kStages;
-
-  const int tid = threadIdx.x;
+// The producer warp's prologue: the skip bit of each tile of the split
+// (mask_s, bit j: skip tile j), by rule B from the tags (MASK = false) or
+// rule M from the mask rows (MASK = true).
+template <bool MASK>
+__device__ __forceinline__ void skip_bits(const FlashArgs& a, uint32_t* mask_s, int b, int row0,
+                                          int s_begin, int s_end, int lane) {
   const int gq = a.H / a.H_kv, TG = a.T * gq;
-  const int b = blockIdx.x / a.H_kv, kvh = blockIdx.x % a.H_kv;
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // the latest positions first
-  const int s_begin = blockIdx.z * a.keys_per_split;
-  const int s_end = min(a.s_lim, s_begin + a.keys_per_split);
-
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 33);           // the producer's lanes' tag copies + lane 0
-      mbar_init(empty0 + 8 * s, kConsumers);  // every consumer thread, done with the stage
+  const int n_tiles = (s_end - s_begin + kKeys - 1) / kKeys;
+  for (int w = lane; w < (n_tiles + 31) / 32; w += 32) mask_s[w] = 0u;
+  __syncwarp();
+  bool may_skip;  // every real row of the block sees some key of [0, s_limit)
+  if constexpr (MASK) {
+    // bit j of mask_s: some real row sees a key of tile j (set below, then flipped)
+    const int t_lo = row0 / gq;
+    const int n_t = (min(row0 + kRows, TG) - 1) / gq - t_lo + 1;  // real t rows, <= 64
+    const uint8_t* mrow = a.mask + ((size_t)b * a.T + t_lo) * a.s_lim;
+    unsigned long long rows_seen = 0ull;  // bit tr: this lane saw a visible key of row t_lo + tr
+    if (a.mask_vec16) {  // 16 bytes a load
+      for (int c = lane; c < a.s_lim / 16; c += 32) {
+        uint32_t any = 0u;
+#pragma unroll 16
+        for (int tr = 0; tr < n_t; ++tr) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(mrow + (size_t)tr * a.s_lim) + c);
+          const uint32_t nz = (v.x | v.y | v.z | v.w) != 0u;
+          any |= nz;
+          rows_seen |= (unsigned long long)nz << tr;
+        }
+        const int s = 16 * c;
+        if (any && s >= s_begin && s < s_end)
+          atomicOr(mask_s + ((s - s_begin) >> 11), 1u << (((s - s_begin) >> 6) & 31));
+      }
+    } else {  // unaligned rows: a byte a load
+      for (int s = lane; s < a.s_lim; s += 32) {
+        uint32_t any = 0u;
+#pragma unroll 16
+        for (int tr = 0; tr < n_t; ++tr) {
+          const uint32_t nz = __ldg(mrow + (size_t)tr * a.s_lim + s) != 0;
+          any |= nz;
+          rows_seen |= (unsigned long long)nz << tr;
+        }
+        if (any && s >= s_begin && s < s_end)
+          atomicOr(mask_s + ((s - s_begin) >> 11), 1u << (((s - s_begin) >> 6) & 31));
+      }
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {
-    // ---- producer warp: rule B, then the ring ----
-    const int lane = tid & 31;
+    const unsigned long long seen =
+        (unsigned long long)__reduce_or_sync(0xffffffffu, (uint32_t)(rows_seen >> 32)) << 32 |
+        __reduce_or_sync(0xffffffffu, (uint32_t)rows_seen);
+    may_skip = seen == (n_t >= 64 ? ~0ull : (1ull << n_t) - 1ull);
+    __syncwarp();
+    for (int w = lane; w < (n_tiles + 31) / 32; w += 32)
+      mask_s[w] = may_skip ? ~mask_s[w] : 0u;
+  } else {
     const int32_t* tg = a.slot_pos + (size_t)b * a.tag_stride;
-    const int n_tiles = (s_end - s_begin + kKeys - 1) / kKeys;
     int qmin = INT_MAX, qmax = INT_MIN;  // over the block's real rows
     for (int i = lane; i < kRows && row0 + i < TG; i += 32) {
       const int p = a.q_pos[(size_t)b * a.T + (row0 + i) / gq];
@@ -222,8 +279,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     qmax = __reduce_max_sync(0xffffffffu, qmax);
     // one pass over the split's tiles: each tile's least non-negative tag
     // (bit j of mask_s: above every row's q_pos) and the least of them
-    for (int w = lane; w < (n_tiles + 31) / 32; w += 32) mask_s[w] = 0u;
-    __syncwarp();
     int gmin = INT_MAX;  // least non-negative tag of [0, s_limit)
 #pragma unroll 4
     for (int j = 0; j < n_tiles; ++j) {
@@ -247,10 +302,54 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (v >= 0) gmin = min(gmin, v);
     }
     gmin = __reduce_min_sync(0xffffffffu, gmin);
+    may_skip = qmin >= 0 && qmin >= gmin;
     __syncwarp();
-    if (!(qmin >= 0 && qmin >= gmin))  // a real row sees no key: every tile is read
+    if (!may_skip)  // a real row sees no key: every tile is read
       for (int w = lane; w < (n_tiles + 31) / 32; w += 32) mask_s[w] = 0u;
-    __syncwarp();
+  }
+  __syncwarp();
+}
+
+// grid (B * H_kv, ceil(T * g / 64), splits), 160 threads.
+template <bool MASK>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wg_kernel(const __grid_constant__ FlashArgs a, const __grid_constant__ Maps maps) {
+  using W = WgShape<MASK>;
+  constexpr int kStages = W::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_u32 = smem_u32(smem_raw);
+  const uint32_t base = (raw_u32 + 1023u) & ~1023u;  // 128-byte swizzle atoms: 1 KB
+  uint8_t* sm = smem_raw + (base - raw_u32);
+  uint8_t* extra_s = sm + W::kOffExtra;  // [stage][kExtra]: tags or the mask tile
+  int32_t* flags_s = reinterpret_cast<int32_t*>(sm + W::kOffFlags);  // [stage]
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(sm + W::kOffMask);  // bit j: skip tile j
+  const uint32_t full0 = base + W::kOffBars, empty0 = full0 + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const int gq = a.H / a.H_kv, TG = a.T * gq;
+  const int b = blockIdx.x / a.H_kv, kvh = blockIdx.x % a.H_kv;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // the latest positions first
+  const int t_lo = row0 / gq;  // the mask tile's row 0
+  const int s_begin = blockIdx.z * a.keys_per_split;
+  const int s_end = min(a.s_lim, s_begin + a.keys_per_split);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 33);           // the producer's lanes + lane 0's expect_tx
+      mbar_init(empty0 + 8 * s, kConsumers);  // every consumer thread, done with the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warp: the skip bits, then the ring ----
+    const int lane = tid & 31;
+    skip_bits<MASK>(a, mask_s, b, row0, s_begin, s_end, lane);
+    const int n_tiles = (s_end - s_begin + kKeys - 1) / kKeys;
+    const int32_t* tg = MASK ? nullptr : a.slot_pos + (size_t)b * a.tag_stride;
+    const int n_box = MASK ? mask_box_rows(gq, a.T) : 0;  // flash_decode's mask tile rows
+    const uint8_t* mrow = MASK ? a.mask + ((size_t)b * a.T + t_lo) * a.s_lim : nullptr;
     int n = 0;  // stages filled
     for (int j = 0;; ++j) {
       const bool end = j >= n_tiles;
@@ -258,28 +357,45 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int st = n % kStages, s0 = s_begin + j * kKeys;
       if (n >= kStages) mbar_wait(empty0 + 8 * st, ((n - kStages) / kStages) & 1);
       const uint32_t bar = full0 + 8 * st;
+      uint8_t* ex = extra_s + st * W::kExtra;
       if (!end) {
-        // the tile's tags beside it (zeros past the split's end: the
-        // consumers mask those keys by index), arriving on `bar` when landed
-        const uint32_t td = smem_u32(tags_s + st * kKeys);
-        const bool in0 = s0 + lane < s_end, in1 = s0 + 32 + lane < s_end;
-        cp_async4(td + 4 * lane, tg + (in0 ? s0 + lane : 0), in0);
-        cp_async4(td + 4 * (32 + lane), tg + (in1 ? s0 + 32 + lane : 0), in1);
+        if constexpr (MASK) {
+          if (!a.mask_vec16) {  // the mask tile by the lanes' own loads, zeros past the split or T
+            for (int e = lane; e < n_box * kKeys; e += 32) {
+              const int tr = e / kKeys, s = s0 + e % kKeys;
+              ex[e] = (t_lo + tr < a.T && s < s_end) ? mrow[(size_t)tr * a.s_lim + s] : 0;
+            }
+          }
+        } else {
+          // the tile's tags beside it (zeros past the split's end: the
+          // consumers mask those keys by index), arriving on `bar` when landed
+          const uint32_t td = smem_u32(ex);
+          const bool in0 = s0 + lane < s_end, in1 = s0 + 32 + lane < s_end;
+          cp_async4(td + 4 * lane, tg + (in0 ? s0 + lane : 0), in0);
+          cp_async4(td + 4 * (32 + lane), tg + (in1 ? s0 + 32 + lane : 0), in1);
+        }
+        const bool mask_tma = MASK && a.mask_vec16;
         if (lane == 0) {
           flags_s[st] = s0;
-          mbar_expect_tx(bar, 2 * kTileKV);
+          mbar_expect_tx(bar, 2 * kTileKV + (mask_tma ? n_box * kKeys : 0));
         }
         __syncwarp();  // the TMA bytes are expected before any lands
         if (lane < 8) {  // K's four boxes, then V's
-          const uint32_t dst = base + kOffRing + st * 2 * kTileKV + (lane >> 2) * kTileKV;
+          const uint32_t dst = base + W::kOffRing + st * 2 * kTileKV + (lane >> 2) * kTileKV;
           tma_4d(dst + (lane & 3) * kBox, (lane >> 2) ? &maps.v : &maps.k, 64 * (lane & 3), s0,
                  kvh, b, bar);
+        } else if (mask_tma && lane == 8) {  // the mask tile: keys s0.., t rows t_lo..
+          tma_3d(smem_u32(ex), &maps.m, s0, t_lo, b, bar);
         }
       } else if (lane == 0) {
         flags_s[st] = -1;
         mbar_arrive(bar);
       }
-      cp_async_arrive(bar);
+      if constexpr (MASK) {
+        mbar_arrive(bar);  // releases this lane's mask bytes
+      } else {
+        cp_async_arrive(bar);
+      }
       ++n;
       if (end) break;
     }
@@ -320,10 +436,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int rA = row0 + 16 * w + qr;
   const int rows[2] = {rA, rA + 8};
-  int qpos[2];
+  int qpos[2];  // flash_prefill: the row's query position (-1: not a real row)
+  int moff[2];  // flash_decode: the row's byte offset in the mask tile (-1: not a real row)
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr)
-    qpos[hr] = rows[hr] < TG ? a.q_pos[(size_t)b * a.T + rows[hr] / gq] : -1;
+  for (int hr = 0; hr < 2; ++hr) {
+    const bool real = rows[hr] < TG;
+    qpos[hr] = !MASK && real ? a.q_pos[(size_t)b * a.T + rows[hr] / gq] : -1;
+    moff[hr] = real ? (rows[hr] / gq - t_lo) * kKeys + 2 * qc : -1;
+  }
 
   float o[128];
 #pragma unroll
@@ -333,7 +453,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // S = Q K^T of the tile in stage st: 16 k16 steps over D (not waited for)
   auto qk = [&](float (&s)[32], int st) {
-    const uint32_t kb = base + kOffRing + st * 2 * kTileKV;
+    const uint32_t kb = base + W::kOffRing + st * 2 * kTileKV;
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
       const uint32_t off = (kk >> 2) * kBox + (kk & 3) * 32;
@@ -342,7 +462,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   // O += P V of the tile in stage st (not waited for)
   auto pv = [&](const uint32_t (&pa)[kKeys / 16][4], int st) {
-    const uint32_t vb = base + kOffRing + st * 2 * kTileKV + kTileKV;
+    const uint32_t vb = base + W::kOffRing + st * 2 * kTileKV + kTileKV;
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
       wgmma_pv(o, pa[kk], desc_sw128(vb + kk * 16 * 128, 8192, 1024));
@@ -351,19 +471,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   // 8j + 2qc + c), keys from s0: s becomes p, m2 and l move on, alpha is
   // the factor for O.
   auto softmax = [&](float (&s)[32], int st, int s0, float (&alpha)[2]) {
-    const int32_t* tags = tags_s + st * kKeys;
+    const uint8_t* ex = extra_s + st * W::kExtra;
     float mx[2] = {m2[0], m2[1]};
 #pragma unroll
     for (int j = 0; j < kKeys / 8; ++j) {
       const int key = s0 + 8 * j + 2 * qc;
-      const int2 tg = *reinterpret_cast<const int2*>(tags + 8 * j + 2 * qc);
+      bool vis[2][2];  // [row hr][key / key + 1]
+      if constexpr (MASK) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const uint32_t mb =
+              moff[hr] >= 0 ? *reinterpret_cast<const uint16_t*>(ex + moff[hr] + 8 * j) : 0u;
+          vis[hr][0] = (mb & 0xffu) != 0u;
+          vis[hr][1] = (mb >> 8) != 0u;
+        }
+      } else {
+        const int2 tg = *reinterpret_cast<const int2*>(ex + 4 * (8 * j + 2 * qc));
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          vis[hr][0] = tg.x >= 0 && tg.x <= qpos[hr];
+          vis[hr][1] = tg.y >= 0 && tg.y <= qpos[hr];
+        }
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1, tag = (e & 1) ? tg.y : tg.x;
+        const int hr = e >> 1, c = e & 1;
         // past the split: -inf, so p = 0 and m is unchanged
-        const float v = key + (e & 1) >= s_end                ? -INFINITY
-                        : tag >= 0 && tag <= qpos[hr] ? s[4 * j + e] * scale2
-                                                      : kNegInf2;
+        const float v = key + c >= s_end ? -INFINITY
+                        : vis[hr][c]     ? s[4 * j + e] * scale2
+                                         : kNegInf2;
         s[4 * j + e] = v;
         mx[hr] = fmaxf(mx[hr], v);
       }
@@ -384,6 +520,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + ls[hr];
   };
+
   // p rounded to bf16 as register A fragments, one per k16 step of keys
   // (the accumulator's layout is the A operand's)
   auto pack = [&](const float (&s)[32], uint32_t (&pa)[kKeys / 16][4]) {
@@ -475,10 +612,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// K or V of the layer as a 4-D tensor map (D, slots, kv heads, batch) over
-// the cache's strides, the slot extent cut at s_limit (TMA fills zeros
-// past it), boxes of 64 features x 64 slots with the 128-byte swizzle.
-bool kv_map(CUtensorMap* map, const void* p, const FlashArgs& a) {
+}  // namespace
+
+bool flash_kv_map(CUtensorMap* map, const void* p, const FlashArgs& a) {
+  if (tc_encoder() == nullptr) return false;
   const long long row = (long long)a.H_kv * a.S_full * kD;  // a batch row's elements
   const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)a.s_lim, (cuuint64_t)a.H_kv,
                               (cuuint64_t)a.B};
@@ -492,21 +629,44 @@ bool kv_map(CUtensorMap* map, const void* p, const FlashArgs& a) {
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
+namespace {
 
-int flash_prefill_wg_launch(const FlashArgs& a, int smem_bytes, cudaStream_t st) {
+// flash_decode's mask [B][T][s_lim] bytes as a 3-D tensor map (rows 16-byte
+// aligned: s_lim % 16 == 0), boxes of 64 keys x the block's t rows; keys
+// past s_limit and rows past T fill zeros.
+bool mask_map(CUtensorMap* map, const FlashArgs& a) {
+  const cuuint64_t dims[3] = {(cuuint64_t)a.s_lim, (cuuint64_t)a.T, (cuuint64_t)a.B};
+  const cuuint64_t strides[2] = {(cuuint64_t)a.s_lim, (cuuint64_t)a.T * a.s_lim};
+  const cuuint32_t box[3] = {kKeys, (cuuint32_t)mask_box_rows(a.H / a.H_kv, a.T), 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return tc_encoder()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<uint8_t*>(a.mask), dims,
+                      strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool MASK>
+int wg_launch(const FlashArgs& a, int smem_bytes, cudaStream_t st) {
+  constexpr int kSmem = WgShape<MASK>::kSmem;
   if (smem_bytes != kSmem || a.keys_per_split > 32 * kMaskWords * kKeys || tc_encoder() == nullptr)
     return (int)cudaErrorInvalidValue;  // a plan other than ops/flash_attention.py:_wg_plan's
-  Maps m;
-  if (!kv_map(&m.k, a.k, a) || !kv_map(&m.v, a.v, a)) return (int)cudaErrorInvalidValue;
+  Maps m = {};
+  if (!flash_kv_map(&m.k, a.k, a) || !flash_kv_map(&m.v, a.v, a)) return (int)cudaErrorInvalidValue;
+  if (MASK && a.mask_vec16 && !mask_map(&m.m, a)) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;  // above 48 KB a block must ask for its shared memory
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_wg_kernel<MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid(a.B * a.H_kv, (a.T * (a.H / a.H_kv) + kRows - 1) / kRows, a.splits);
-  flash_prefill_wg_kernel<<<grid, kThreads, kSmem, st>>>(a, m);
+  flash_wg_kernel<MASK><<<grid, kThreads, kSmem, st>>>(a, m);
   return 0;
+}
+
+}  // namespace
+
+int flash_wg_launch(bool mask, const FlashArgs& a, int smem_bytes, cudaStream_t st) {
+  return mask ? wg_launch<true>(a, smem_bytes, st) : wg_launch<false>(a, smem_bytes, st);
 }

@@ -1,5 +1,5 @@
 // The Hopper pieces that the wgmma bodies share (qmm_tc.cuh, used by qmm,
-// qmm_i4 and the fused FFN kernels' headers, and flash_prefill_wgmma.cu):
+// qmm_i4 and the fused FFN kernels' headers, and flash_wgmma.cu):
 // warpgroup MMA ordering (wgmma.fence / commit_group / wait_group and the
 // async-proxy fence for operands written with st.shared), mbarriers (init,
 // arrive, expect_tx, parity wait), TMA tensor loads completing on an
@@ -65,6 +65,16 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// the same for a 3-D tensor map: the box at (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
 

@@ -1,7 +1,7 @@
 """Flash attention over the layer-stacked cache: the `flash_decode` and
 `flash_prefill` CUDA kernels (csrc/flash_attention.cu, and
-csrc/flash_prefill_wgmma.cu for flash_prefill's wgmma body), their
-wrappers and their plain PyTorch versions.
+csrc/flash_wgmma.cu for the wgmma body at head width 256), their wrappers
+and their plain PyTorch versions.
 
 `flash_attention_cached` replaces eagle_tpu/ops/pallas_attention.py:
 _flash_kernel (via `flash_attention_cached`): decode, chain verify and the
@@ -19,24 +19,29 @@ and grid from the cache dtype and the shapes alone:
   scores kept in registers, K/V tiles of 64 keys in a ring of shared memory
   filled by cp.async, blocks of 16, 32, 64 or 128 query rows (4 warps, 8
   at 128 rows; below 64 rows the warps of a 16-row tile split each key
-  tile, so no warp works on rows that do not exist); at D = 256
-  flash_decode keeps the q rows in shared memory, not registers, a ring of
-  two stages, and 16- or 32-row blocks (a warp holding all keys of 16 rows
-  would spill under the mask reads);
-- flash_prefill on a bf16 cache at D = 256 takes the wgmma body
-  (csrc/flash_prefill_wgmma.cu, `_wg_plan`): 64-row blocks of one consumer
+  tile, so no warp works on rows that do not exist);
+- flash_decode on a bf16 cache at D = 256 below 64 rows per kv head
+  (decode, verify, trees) takes that body as "mma_cluster"
+  (`_cluster_plan`): the q rows in shared memory, not registers, 16- or
+  32-row blocks (a warp holding all keys of 16 rows would spill under the
+  mask reads), a ring of three stages, and at most 8 key splits that form
+  one thread-block cluster and merge over distributed shared memory in the
+  same launch, in split order (no combine kernel);
+- at D = 256 on a bf16 cache, flash_prefill and flash_decode at 64 rows per
+  kv head and more (the EAGLE engine's prompt) take the wgmma body
+  (csrc/flash_wgmma.cu, `_wg_plan`): 64-row blocks of one consumer
   warpgroup and a producer warp, one wave without a key split at Gemma's
   prompts, K/V tiles by TMA under mbarriers, S and O in wgmma accumulators,
   tile n's QK^T and softmax beside tile n - 1's PV, and the key tiles that
-  no row of a block sees skipped, exactly (rule B; `tile_reads` is its
-  mirror);
+  no row of a block sees skipped, exactly (rule B from the tags, rule M
+  from the mask; `tile_reads` and `tile_reads_mask` are their mirrors);
 - an f32 cache takes the SIMT body (exact f32 FMAs, 32-key tiles), so the
   f32 path's numbers stay those of an f32 dot (one row per warp at D = 256).
 Both take head widths 64, 128 and 256 (`HEAD_DIMS`); the model reads any
 other width through the plain `gqa_attention`, as the reference does.
 Both split the key range across blocks (flash-decoding) when the query rows
 alone give fewer than 132 blocks (the wgmma body: see `_wg_plan`), merging
-the splits with a combine kernel.
+the splits with a combine kernel ("mma_cluster": in the launch).
 The cache may be a view whose batch rows are apart (the batcher's row of a
 [L, B, ...] cache, `KVCache.row`): the kernels take the batch stride, and
 each row's [H_kv, S, D] must be contiguous.
@@ -51,6 +56,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .attention import gqa_attention
@@ -62,42 +68,70 @@ _WARPS = 4  # warps per block (csrc/flash_attention.cu)
 _TILE = 32  # SIMT body: keys per tile
 _KEYS = 64  # tensor-core body: keys per ring tile
 _ROW_BLOCKS = (128, 64, 32, 16)  # tensor-core body: query rows per block, largest first
-_ROW_BLOCKS_256 = (32, 16)  # flash_decode at D = 256
+_ROW_BLOCKS_256 = (32, 16)  # flash_decode at D = 256 below 64 rows ("mma_cluster")
+_MAX_CLUSTER = 8  # "mma_cluster": key splits a cluster (the portable cluster size)
+#: "mma_cluster": clusters of c blocks, one block an SM (the body's shared
+#: memory), that the H100 80GB HBM3 runs at once, as `cluster_wave` reads them
+#: there at 16 and 32 rows (cudaOccupancyMaxActiveClusters; chip_smoke.py prints
+#: them beside this table; its SMs sit in GPCs of 14 to 18, so 15 clusters of 8
+#: fit, not 16)
+_CLUSTER_WAVE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 HEAD_DIMS = (64, 128, 256)  # the head widths both kernels take
 _TWO_BLOCK_SMEM = 115712  # a ring that lets two blocks share an SM
 _MAX_SMEM = 232448  # what one block may opt into
-_WG_ROWS = 64  # flash_prefill's wgmma body (bf16, D = 256): query rows per block
-_WG_STAGES = 3
+_WG_ROWS = 64  # the wgmma body (bf16, D = 256): query rows per block
 _WG_MAX_KEYS = 32 * 256 * 64  # keys a split: the body's 256 words of skip bits, one per tile
-# csrc/flash_prefill_wgmma.cu: the q rows [64][256] bf16, the ring (K and V
-# [64][256] bf16 a stage), the stages' 64 tags, 16 bytes of flags, 1 KB of
-# skip bits, a full and an empty mbarrier a stage, 1 KB to align the base
-_WG_SMEM = (64 * 256 * 2 + _WG_STAGES * (2 * _KEYS * 256 * 2 + _KEYS * 4 + 16) + 16 + 1024
-            + 1024)
+
+
+def _wg_smem(mask: bool) -> int:
+    """csrc/flash_wgmma.cu:WgShape::kSmem: the q rows [64][256] bf16, the ring
+    (K and V [64][256] bf16 a stage: 3 stages for flash_prefill, 2 for
+    flash_decode) with each stage's 64 tags or [64][64]-byte mask tile, 16
+    bytes of flags, 1 KB of skip bits, a full and an empty mbarrier a stage,
+    1 KB to align the base."""
+    stages, extra = (2, 64 * _KEYS) if mask else (3, _KEYS * 4)
+    return 64 * 256 * 2 + stages * (2 * _KEYS * 256 * 2 + extra + 16) + 16 + 1024 + 1024
+
+
+_WG_SMEM = _wg_smem(False)  # flash_prefill
+_WG_SMEM_MASK = _wg_smem(True)  # flash_decode
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+#: the bodies, in the order of csrc/flash_attention.cu's enum Body (the
+#: launch routes on the index): "simt" (f32 cache), "mma" (bf16, mma.sync),
+#: "mma_cluster" (the same body, its key splits merged in the launch: bf16
+#: flash_decode at D = 256 below 64 rows), "wgmma" (bf16 at D = 256:
+#: flash_prefill, flash_decode at 64 rows and more)
+_BODIES = ("simt", "mma", "mma_cluster", "wgmma")
+
+
 class Plan(NamedTuple):
-    body: str  # "mma" (bf16 cache, mma.sync), "wgmma" (bf16 flash_prefill at D = 256), "simt" (f32)
+    body: str  # one of _BODIES
     rows_per_block: int
     splits: int
     keys_per_split: int
-    smem_bytes: int  # dynamic shared memory ("mma", "wgmma"; the SIMT body sizes its own)
+    smem_bytes: int  # dynamic shared memory (the SIMT body sizes its own)
+
+
+def _row_block(tg: int, blocks: tuple) -> int:
+    """The largest row block that leaves no 16-row warp tile wholly padded."""
+    return next(r for r in blocks if _cdiv(tg, r) * r - tg < 16)
 
 
 def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool) -> Plan:
     """Body, block and key split of one call: `tg` = T*g query rows per kv
     head, keys [0, lim), head_dim d, cache dtype, `units` = B*H_kv, `tags`
     for flash_prefill. Splits are whole tiles, none empty."""
-    if dtype == torch.bfloat16 and tags and d > 128:
-        return _wg_plan(tg, lim, units)
+    if dtype == torch.bfloat16 and d > 128:
+        if tags or tg >= _WG_ROWS:
+            return _wg_plan(tg, lim, units, mask=not tags)
+        return _cluster_plan(tg, lim, d, units)
     if dtype == torch.bfloat16:
-        # the largest row block that leaves no 16-row warp tile wholly padded
-        blocks = _ROW_BLOCKS_256 if d > 128 else _ROW_BLOCKS  # d = 256: flash_decode
-        rb = next(r for r in blocks if _cdiv(tg, r) * r - tg < 16)
+        rb = _row_block(tg, _ROW_BLOCKS)
         tile = _KEYS
     else:
         rb = _WARPS * (1 if tg <= 2 * _WARPS or d > 128 else 4)
@@ -112,23 +146,49 @@ def _plan(tg: int, lim: int, d: int, dtype: torch.dtype, units: int, tags: bool)
     if dtype != torch.bfloat16:
         return Plan("simt", rb, splits, kps, 0)
     # csrc/flash_attention.cu:TcShape: K and V [64][d] bf16 per stage, then
-    # the mask tile [rb][64] bytes or 64 int32 tags; at d = 256 the q rows
-    # [rb][d] bf16 after the ring; a third stage where it fits
+    # the mask tile [rb][64] bytes or 64 int32 tags; a third stage where it
+    # fits beside a second block (one block's limit at 128 rows)
     stage = 2 * _KEYS * d * 2 + (_KEYS * 4 if tags else rb * _KEYS)
-    q_rows = rb * d * 2 if d > 128 else 0
-    stages = 3 if 3 * stage + q_rows <= (_MAX_SMEM if rb > 64 else _TWO_BLOCK_SMEM) else 2
+    stages = 3 if 3 * stage <= (_MAX_SMEM if rb > 64 else _TWO_BLOCK_SMEM) else 2
     merge = warps * 16 * (d + 4 + 2) * 4
-    return Plan("mma", rb, splits, kps, max(stages * stage + q_rows, merge))
+    return Plan("mma", rb, splits, kps, max(stages * stage, merge))
 
 
-def _wg_plan(tg: int, lim: int, units: int) -> Plan:
-    """flash_prefill's wgmma body (bf16 cache, D = 256): 64-row blocks, one
-    per SM. The keys are split only where the row blocks alone would leave
-    most SMs idle (at most half of them busy) and a block's key tiles
-    outnumber the blocks; then into as many whole-tile splits as keep the
-    grid within one wave of 132 blocks. Below that the splits' round trip
-    of (m, l, acc) through memory and the combine kernel cost more than the
-    idle SMs: on the H100 a 512-row Gemma-2B prompt (64 blocks, 8 tiles)
+def _cluster_plan(tg: int, lim: int, d: int, units: int) -> Plan:
+    """flash_decode's tensor-core body at D = 256 below 64 rows ("mma_cluster"):
+    16- or 32-row blocks of 4 warps, one to an SM; the splits of a row block
+    (whole tiles, none empty) form one cluster and merge in the launch. As
+    many splits as keep every cluster in one wave (`_CLUSTER_WAVE`), at most
+    8 and one a tile: at Gemma-2-9B's decode (8 kv heads, 1,024 keys) 8 x 8
+    blocks of two tiles, at Gemma-2B's (1 kv head) 8; at Gemma-7B's 16 kv
+    heads 16 x 6 blocks of up to three tiles (on the H100 0.0082 ms, against
+    0.0119 with 16 clusters of 8 in two waves and 0.0086 with 4: PERF.md §6)."""
+    rb = _row_block(tg, _ROW_BLOCKS_256)
+    clusters = units * _cdiv(tg, rb)
+    tiles = _cdiv(lim, _KEYS)
+    splits = max((c for c in range(1, _MAX_CLUSTER + 1)
+                  if c <= tiles and clusters <= _CLUSTER_WAVE[c]), default=1)
+    kps = _cdiv(_cdiv(lim, splits), _KEYS) * _KEYS
+    # csrc/flash_attention.cu:TcShape at D = 256: three stages of K and V
+    # [64][d] bf16 and the mask tile [rb][64] bytes, the q rows [rb][d] bf16
+    # after them (after the loop: the warps' merge [4][16][d + 6] f32, then
+    # the block's rows [rb][d + 2] f32 for the cluster's), a stage's
+    # mbarrier, 1 KB to align the base
+    stage = 2 * _KEYS * d * 2 + rb * _KEYS
+    merge = 4 * 16 * (d + 4 + 2) * 4 + rb * (d + 2) * 4
+    smem = max(3 * stage + rb * d * 2, merge) + 3 * 8 + 1024
+    return Plan("mma_cluster", rb, _cdiv(lim, kps), kps, smem)
+
+
+def _wg_plan(tg: int, lim: int, units: int, mask: bool = False) -> Plan:
+    """The wgmma body (bf16 cache, D = 256; flash_decode's with `mask`, else
+    flash_prefill's): 64-row blocks, one per SM. The keys are split only
+    where the row blocks alone would leave most SMs idle (at most half of
+    them busy) and a block's key tiles outnumber the blocks; then into as
+    many whole-tile splits as keep the grid within one wave of 132 blocks.
+    Below that the splits' round trip of (m, l, acc) through memory and the
+    combine kernel cost more than the idle SMs: on the H100 a 512-row
+    Gemma-2B prompt (64 blocks, 8 tiles)
     takes 0.0120 ms unsplit and 0.0265 in two, a 256-row chat feed over
     1,024 slots (64 blocks, 16 tiles) 0.0167 and 0.0323, while a 16-row feed
     over 1,024 (16 blocks) takes 0.0131 in 8 against 0.0185 unsplit, and 256
@@ -141,13 +201,25 @@ def _wg_plan(tg: int, lim: int, units: int) -> Plan:
         splits = min(_SMS // blocks, tiles)
     splits = max(splits, _cdiv(lim, _WG_MAX_KEYS))
     kps = _cdiv(_cdiv(lim, splits), _KEYS) * _KEYS
-    return Plan("wgmma", _WG_ROWS, _cdiv(lim, kps), kps, _WG_SMEM)
+    return Plan("wgmma", _WG_ROWS, _cdiv(lim, kps), kps, _WG_SMEM_MASK if mask else _WG_SMEM)
+
+
+def cluster_wave(rows_per_block: int) -> dict[int, int]:
+    """Clusters of c = 1 to 8 blocks of the "mma_cluster" body at
+    `rows_per_block` (16 or 32) rows that the card runs at once
+    (cudaOccupancyMaxActiveClusters): what `_CLUSTER_WAVE` holds for the
+    H100 80GB HBM3."""
+    fn = _build.kernel("flash_cluster_wave", [ctypes.c_int, ctypes.c_int])
+    wave = {c: fn(rows_per_block, c) for c in range(1, _MAX_CLUSTER + 1)}
+    if min(wave.values()) < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed at {rows_per_block} rows")
+    return wave
 
 
 def tile_reads(q_pos: torch.Tensor, slot_pos: torch.Tensor, lim: int, g: int,
                rows_per_block: int = _WG_ROWS) -> torch.Tensor:
     """Which 64-key tiles of [0, lim) the wgmma body reads, as a bool
-    [B, row blocks, tiles] (csrc/flash_prefill_wgmma.cu, rule B): a block of
+    [B, row blocks, tiles] (csrc/flash_wgmma.cu, rule B): a block of
     `rows_per_block` query rows (row r = t*g + i reads q_pos[:, t]) skips a
     tile iff every real row of the block sees some key (its q_pos >= 0 and
     >= the least non-negative tag of [0, lim)) and the tile's least
@@ -171,6 +243,28 @@ def tile_reads(q_pos: torch.Tensor, slot_pos: torch.Tensor, lim: int, g: int,
     hi = hi.view(b, n_blocks, -1).amax(dim=2)
     may_skip = (lo >= 0) & (lo >= seen_min[:, None])  # [B, blocks]
     return ~(may_skip[:, :, None] & (tile_min[:, None, :] > hi[:, :, None]))
+
+
+def tile_reads_mask(mask: torch.Tensor, g: int, rows_per_block: int = _WG_ROWS) -> torch.Tensor:
+    """Which 64-key tiles of [0, lim) flash_decode's wgmma body reads under
+    the bool `mask` [B, T, lim], as a bool [B, row blocks, tiles]
+    (csrc/flash_wgmma.cu, rule M): a block of `rows_per_block` query rows
+    (row r = t*g + i reads mask row t; rows past T*g are not real) skips a
+    tile iff no real row of the block sees a key of the tile and every real
+    row of the block sees some key of [0, lim). Key splits do not change
+    it: they are whole tiles."""
+    b, n_t, lim = mask.shape
+    n_tiles = _cdiv(lim, _KEYS)
+    n_blocks = _cdiv(n_t * g, rows_per_block)
+    tiles = torch.zeros((b, n_t, n_tiles * _KEYS), dtype=torch.bool, device=mask.device)
+    tiles[:, :, :lim] = mask
+    tile_any = tiles.view(b, n_t, n_tiles, _KEYS).any(dim=3)  # [B, T, tiles]
+    pad = n_blocks * rows_per_block - n_t * g  # rows past T*g: no tile, no veto on skipping
+    rows_any = F.pad(tile_any.repeat_interleave(g, dim=1), (0, 0, 0, pad))
+    rows_see = F.pad(mask.any(dim=2).repeat_interleave(g, dim=1), (0, pad), value=True)
+    seen = rows_any.view(b, n_blocks, rows_per_block, n_tiles).any(dim=2)
+    may_skip = rows_see.view(b, n_blocks, rows_per_block).all(dim=2)
+    return ~(may_skip[:, :, None] & ~seen)
 
 
 def flash_attention_cached_plain(q, k_cache, v_cache, mask, layer, scale=None, s_limit=None):
@@ -244,7 +338,7 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
     splits = plan.splits
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     part = [None, None, None]
-    if splits > 1:
+    if splits > 1 and plan.body != "mma_cluster":  # "mma_cluster" merges in the launch
         part = [torch.empty((splits, b, h_kv, tg), dtype=torch.float32, device=q.device),
                 torch.empty((splits, b, h_kv, tg), dtype=torch.float32, device=q.device),
                 torch.empty((splits, b, h_kv, tg, d), dtype=torch.float32, device=q.device)]
@@ -256,13 +350,15 @@ def _launch(tags: bool, q, k_cache, v_cache, layer: int, scale, s_limit,
         q_pos.data_ptr() if tags else None, slot_pos.data_ptr() if tags else None,
         out.data_ptr(), *[None if p is None else p.data_ptr() for p in part],
         b, t, h, h_kv, d, s_full, lim, tag_stride,
-        int(k_cache.dtype == torch.bfloat16), plan.rows_per_block, splits,
+        _BODIES.index(plan.body), plan.rows_per_block, splits,
         plan.keys_per_split, plan.smem_bytes, batch_stride,
         float(d**-0.5 if scale is None else scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_launch")
     _build.launches["flash_prefill" if tags else "flash_decode"] += 1
+    if not tags and plan.body in ("mma_cluster", "wgmma"):  # the D = 256 routes, counted apart too
+        _build.launches[f"flash_decode_{plan.body}"] += 1
     return out
 
 

@@ -20,6 +20,7 @@ from eagle_tpu.runtime.kvcache import causal_mask_from_tags
 from eagle_tpu_torch import _build
 from eagle_tpu_torch.ops import flash_attention as fa
 from eagle_tpu_torch.ops.attention import gqa_attention
+from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags as port_causal_mask
 from torch_port_util import background_cpu  # noqa: F401  (background_cpu: a fixture)
 
 pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
@@ -59,10 +60,13 @@ def test_decode_verify_matches_pallas(rng, dtype, t, s_limit):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("t,s_limit", [(1, None), (6, None), (1, 128), (6, 128)])
+@pytest.mark.parametrize("t,s_limit", [(1, None), (6, None), (1, 128), (6, 128), (32, None),
+                                       (40, 128)])
 def test_decode_verify_matches_pallas_at_head_width_256(rng, dtype, t, s_limit):
     """The same cases at D = 256 (Gemma's width), against `_flash_call` in
-    interpret mode at that width."""
+    interpret mode at that width; T = 32 and 40 give 64 and 80 rows per kv
+    head (g = 2), which the card's wgmma body takes (fewer: the cluster
+    body)."""
     _decode_verify_case(rng, dtype, t, s_limit, 256)
 
 
@@ -305,13 +309,27 @@ def _stage(d: int, rows: int, tags: bool) -> int:
     return 2 * 64 * d * 2 + (256 if tags else rows * 64)
 
 
-def _wg_smem() -> int:
-    """Shared memory of flash_prefill's wgmma body (csrc/flash_prefill_wgmma.cu):
-    the q rows [64][256] bf16, three stages of K and V [64][256] bf16, 64
-    int32 tags a stage, 16 bytes of flags, 1 KB of skip bits (one per tile
-    of a split), a full and an empty mbarrier a stage, 1 KB to align the
-    base."""
-    return 64 * 256 * 2 + 3 * (2 * 64 * 256 * 2 + 64 * 4) + 16 + 1024 + 3 * 2 * 8 + 1024
+def _wg_smem(mask: bool = False) -> int:
+    """Shared memory of the wgmma body (csrc/flash_wgmma.cu): the q rows
+    [64][256] bf16, the stages of K and V [64][256] bf16 (flash_prefill
+    three, each with its 64 int32 tags; flash_decode two, each with its mask
+    tile of 64 t rows x 64 keys), 16 bytes of flags, 1 KB of skip bits (one
+    per tile of a split), a full and an empty mbarrier a stage, 1 KB to
+    align the base."""
+    stages, extra = (2, 64 * 64) if mask else (3, 64 * 4)
+    return 64 * 256 * 2 + stages * (2 * 64 * 256 * 2 + extra) + 16 + 1024 + stages * 16 + 1024
+
+
+def _cluster_smem(rows: int) -> int:
+    """Shared memory of flash_decode's tensor-core body at D = 256 below 64
+    rows (csrc/flash_attention.cu:TcShape): three ring stages and the q rows
+    [rows][256] bf16, which hold more than what the loop's end reuses them
+    for (the warps' merge [4][16][262] f32, then the block's rows
+    [rows][258] f32 for the cluster's merge), an mbarrier a stage and 1 KB
+    to align the base."""
+    ring = 3 * _stage(256, rows, False) + rows * 256 * 2
+    assert ring >= 4 * 16 * 262 * 4 + rows * 258 * 4
+    return ring + 3 * 8 + 1024
 
 
 @pytest.mark.parametrize("tags", [False, True], ids=["decode", "prefill"])
@@ -320,11 +338,18 @@ def test_plan_at_head_width_256(tags):
     Gemma-7B's 16 kv-head units: every T·g in 1-4,096 at 15 read bounds,
     and every s_limit in 96-8,192 at 7 row counts. Each plan fits one
     block's shared memory and splits the keys into whole 64-key tiles that
-    cover [0, s_limit) once, none empty. flash_decode takes the mma.sync
-    body: at most 32 rows a block, no 16-row warp tile only padding, a ring
-    of two stages beside the block's q rows (bf16, after the ring).
-    flash_prefill takes the wgmma body: 64-row blocks, its own shared
-    memory, and a grid within one wave of 132 blocks wherever it splits."""
+    cover [0, s_limit) once, none empty. flash_prefill, and flash_decode at
+    T·g >= 64, take the wgmma body: 64-row blocks, its own shared memory,
+    and a grid within one wave of 132 blocks wherever it splits.
+    flash_decode below 64 rows takes the mma.sync body with its splits
+    merged in one cluster ("mma_cluster"): at most 32 rows a block, no
+    16-row warp tile only padding, at most 8 splits and every cluster in one
+    wave (`_CLUSTER_WAVE`, read on the card: at most 132 blocks in all, and
+    no more clusters of c + 1 than of c) where the row blocks allow, a ring of three stages
+    beside the block's q rows (bf16, after the ring)."""
+    wave = fa._CLUSTER_WAVE
+    assert sorted(wave) == list(range(1, 9)) and wave[1] == SMS
+    assert all(c * wave[c] <= SMS and wave[c + 1] <= wave[c] for c in range(1, 8))
     cases = [(tg, lim) for tg in range(1, 4097)
              for lim in (96, 97, 127, 128, 300, 511, 512, 1000, 1024, 2047, 2048, 4096, 5000,
                          8191, 8192)]
@@ -334,16 +359,25 @@ def test_plan_at_head_width_256(tags):
         rb, kps = plan.rows_per_block, plan.keys_per_split
         assert plan.smem_bytes <= SMEM_BLOCK, (tg, lim, plan)
         assert kps % 64 == 0 and (plan.splits - 1) * kps < lim <= plan.splits * kps
-        if tags:
-            assert plan.body == "wgmma" and rb == 64 and plan.smem_bytes == _wg_smem()
+        if tags or tg >= 64:
+            assert plan.body == "wgmma" and rb == 64, (tg, lim, plan)
+            assert plan.smem_bytes == _wg_smem(mask=not tags)
             assert plan.splits == 1 or units * -(-tg // 64) * plan.splits <= SMS, (tg, lim, plan)
         else:
-            assert plan.body == "mma" and rb in (32, 16)
+            assert plan.body == "mma_cluster" and rb in (32, 16)
             assert -(-tg // rb) * rb - tg < 16
-            assert plan.smem_bytes == 2 * _stage(256, rb, tags) + rb * 256 * 2, (tg, lim, plan)
-    # a prompt: flash_decode's 32-row blocks, flash_prefill's 64-row wgmma blocks
+            assert plan.smem_bytes == _cluster_smem(rb), (tg, lim, plan)
+            clusters = units * -(-tg // rb)
+            assert plan.splits <= 8 and clusters * plan.splits <= max(SMS, clusters)
+            assert plan.splits == 1 or clusters <= wave[plan.splits], (tg, lim, plan)
+            # as many splits as keep the clusters in one wave, at most 8 and one a
+            # tile, in whole tiles
+            want = max([c for c in range(1, 9) if c <= -(-lim // 64)
+                        and clusters <= wave[c]], default=1)
+            assert kps == -(-(-(-lim // want)) // 64) * 64, (tg, lim, plan)
+    # a prompt: both kernels' 64-row wgmma blocks
     big = fa._plan(4096, 1024, 256, torch.bfloat16, 1, tags)
-    assert big.rows_per_block == (64 if tags else 32)
+    assert big.rows_per_block == 64 and big.body == "wgmma"
     # the SIMT body (f32 cache) takes one row per warp at D = 256
     assert fa._plan(4096, 1024, 256, torch.float32, 1, tags).rows_per_block == 4
 
@@ -401,8 +435,66 @@ def test_wgmma_plan_splits(tg, lim, units, splits):
     (512, 512, True, (128, 1, 512)),  # the greedy prompt
 ])
 def test_plan_at_main_path_shapes(tg, lim, tags, want):
+    """(rows per block, splits, keys per split) at Vicuna-7B's 32 kv heads of
+    128; and the same calls at Gemma-7B's 16 kv heads of 256, where
+    flash_decode below 64 rows merges its 8 splits in the launch and the
+    prompts take one wave of 64-row wgmma blocks."""
     plan = fa._plan(tg, lim, 128, torch.bfloat16, 32, tags)
     assert (plan.rows_per_block, plan.splits, plan.keys_per_split) == want
+    gemma = fa._plan(tg, lim, 256, torch.bfloat16, 16, tags)
+    assert gemma[:4] == GEMMA7B_MAIN_PATH_PLANS[tg, lim, tags]
+
+
+#: test_plan_at_main_path_shapes' calls at Gemma-7B's 16 kv heads of 256:
+#: (body, rows per block, splits, keys per split)
+GEMMA7B_MAIN_PATH_PLANS = {
+    (1, 1024, False): ("mma_cluster", 16, 6, 192),  # 16 clusters of 6 in one wave, not 8
+    (6, 1024, False): ("mma_cluster", 16, 6, 192),
+    (1, 512, False): ("mma_cluster", 16, 4, 128),  # at most 6: two tiles a split
+    (512, 512, False): ("wgmma", 64, 1, 512),  # the EAGLE engine's prompt: 16 x 8 blocks
+    (512, 512, True): ("wgmma", 64, 1, 512),
+}
+
+
+#: T of the D = 256 flash_decode calls on the Gemma cells' paths: a decoded
+#: token, a K = 5 verify, the static tree's and EAGLE-2's verifies, the
+#: EAGLE engine's prompt bucket
+GEMMA_DECODE_T = (1, 6, 29, 32, 512)
+#: (body, rows per block, splits, keys per split) of those calls at S = 1,024
+#: (the prompt at 512), per GEMMA_HEADS layout
+GEMMA_DECODE_PLANS = {
+    "gemma-7b": [("mma_cluster", 16, 6, 192), ("mma_cluster", 16, 6, 192),  # 16 clusters
+                 ("mma_cluster", 32, 6, 192), ("mma_cluster", 32, 6, 192),
+                 ("wgmma", 64, 1, 512)],
+    "gemma-2-9b": [("mma_cluster", 16, 8, 128), ("mma_cluster", 16, 8, 128),  # 8 clusters
+                   ("mma_cluster", 32, 6, 192), ("wgmma", 64, 16, 64),  # 8 blocks: 16 splits
+                   ("wgmma", 64, 1, 512)],
+    "gemma-2b": [("mma_cluster", 16, 8, 128), ("mma_cluster", 16, 8, 128),  # 48 rows: 3 blocks
+                 ("wgmma", 64, 16, 64), ("wgmma", 64, 16, 64), ("wgmma", 64, 1, 512)],
+}
+
+
+@pytest.mark.parametrize("model", sorted(GEMMA_HEADS))
+def test_decode_plan_at_gemma_shapes(model):
+    """flash_decode at D = 256 on the Gemma layouts' paths: below 64 rows
+    per kv head one launch of the cluster body (no combine kernel: its
+    splits, at most 8, merge in the launch) within one wave; from 64 rows
+    the wgmma body, one wave of 64-row blocks at the prompt, key splits
+    (merged by the combine kernel) only where the row blocks leave most SMs
+    idle. Each plan's shared memory is the body's."""
+    h, h_kv = GEMMA_HEADS[model]
+    g = h // h_kv
+    for t, want in zip(GEMMA_DECODE_T, GEMMA_DECODE_PLANS[model]):
+        lim = 512 if t == 512 else 1024
+        plan = fa._plan(t * g, lim, 256, torch.bfloat16, h_kv, False)
+        assert plan[:4] == want, (t, plan)
+        rows = h_kv * -(-t * g // plan.rows_per_block)
+        if plan.body == "mma_cluster":
+            assert plan.smem_bytes == _cluster_smem(plan.rows_per_block)
+            assert rows * plan.splits <= SMS and plan.splits <= 8
+        else:
+            assert plan.smem_bytes == _wg_smem(mask=True) <= SMEM_BLOCK
+            assert rows * plan.splits <= SMS
 
 
 # --- rule B: the key tiles the wgmma body skips (pure Python mirror) ------------
@@ -449,14 +541,19 @@ def _brute_reads(q_pos, tags, lim, g, rows=64):
     """Which tiles a block must read, from the (query, key) visibility: a
     tile is skipped iff every row of the block sees some key of [0, lim)
     and no row of the block sees a key of the tile."""
-    b, t = q_pos.shape
+    vis = (tags[:, None, :lim] >= 0) & (tags[:, None, :lim] <= q_pos[:, :, None])
+    return _brute_reads_vis(vis, g, rows)
+
+
+def _brute_reads_vis(vis, g, rows=64):
+    """_brute_reads from the visibility [B, T, lim] itself."""
+    b, t, lim = vis.shape
     n_blocks, n_tiles = -(-t * g // rows), -(-lim // 64)
     out = np.ones((b, n_blocks, n_tiles), bool)
     for bi in range(b):
-        pos = np.repeat(q_pos[bi], g)  # row r = t*g + i reads q_pos[t]
-        vis = (tags[bi, None, :lim] >= 0) & (tags[bi, None, :lim] <= pos[:, None])
+        vis_r = np.repeat(vis[bi], g, axis=0)  # row r = t*g + i reads row t
         for blk in range(n_blocks):
-            v = vis[blk * rows:(blk + 1) * rows]
+            v = vis_r[blk * rows:(blk + 1) * rows]
             if not v.any(axis=1).all():
                 continue  # a row that sees nothing: every tile is read
             for j in range(n_tiles):
@@ -519,6 +616,126 @@ def test_skipped_tiles_change_no_output(seed, g):
     vis = (tt[:, None, :lim] >= 0) & (tt[:, None, :lim] <= tq[:, :, None])
     full = gqa_attention(q, k[:, :, :lim], v[:, :, :lim], vis)
     reads = fa.tile_reads(tq.int(), tt.int(), lim, g)
+    skipping = 0
+    for bi in range(b):
+        for blk in range(reads.shape[1]):
+            keep = reads[bi, blk].repeat_interleave(64)[:lim]
+            if keep.all():
+                continue
+            skipping += 1
+            kept = torch.nonzero(keep).flatten()
+            part = gqa_attention(q[bi:bi + 1], k[bi:bi + 1][:, :, kept],
+                                 v[bi:bi + 1][:, :, kept], vis[bi:bi + 1][:, :, kept])
+            ts = sorted({r // g for r in range(blk * 64, min(t * g, blk * 64 + 64))})
+            want = full[bi, ts].numpy()
+            np.testing.assert_allclose(part[0, ts].numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * float(np.abs(want).max()))
+    assert skipping, "the case should let some block skip"
+
+
+# --- rule M: the key tiles flash_decode's wgmma body skips (pure Python mirror)
+
+
+def _tree_mask(rng, b: int, s: int, n: int) -> np.ndarray:
+    """A tree verify's mask [b, n, s]: a committed prefix with holes seen by
+    every row, then n tree nodes in slots after it (each node's parent an
+    earlier node), each row seeing its ancestors and itself."""
+    m = int(rng.integers(1, s - n + 1))
+    prefix = np.zeros((b, s), bool)
+    prefix[:, :m] = True
+    prefix[:, rng.choice(m, size=m // 8, replace=False)] = False
+    anc = np.eye(n, dtype=bool)
+    for j in range(1, n):
+        anc[j] |= anc[int(rng.integers(0, j))]
+    mask = np.repeat(prefix[:, None], n, axis=1)
+    mask[:, :, m:m + n] = anc[None]
+    return mask
+
+
+def _mask_case(seed: int, g: int, min_rows: int = 1):
+    """A flash_decode mask [B, T, lim] of one of three kinds: the causal mask
+    of `_tag_case`'s out-of-order tags and positions, a tree verify's, or
+    random tiles of keys per row group; at some seeds rows that see
+    nothing. T*g >= min_rows."""
+    rng = np.random.default_rng(seed)
+    kind = seed % 3
+    if kind == 0:
+        q_pos, tags, lim = _tag_case(seed, g, min_rows)
+        mask = (tags[:, None, :lim] >= 0) & (tags[:, None, :lim] <= q_pos[:, :, None])
+    elif kind == 1:
+        t = int(rng.integers(-(-min_rows // g), 300 // g + 2))
+        s = int(rng.integers(t + 1, t + 300))
+        mask = _tree_mask(rng, 2, s, t)
+        lim = int(rng.integers(1 if min_rows == 1 else 65, s + 1))
+        mask = mask[:, :, :lim]
+    else:
+        t = int(rng.integers(-(-min_rows // g), 300 // g + 2))
+        lim = int(rng.integers(1 if min_rows == 1 else 65, 400))
+        groups = -(-t // 8)
+        live = rng.random((2, groups, -(-lim // 64))) < 0.4  # each 8-row group's tiles
+        mask = (np.repeat(np.repeat(live, 8, axis=1)[:, :t], 64, axis=2)[:, :, :lim]
+                & (rng.random((2, t, lim)) < 0.3))
+    if seed % 4 == 0:
+        mask[int(rng.integers(0, 2)), int(rng.integers(0, mask.shape[1]))] = False
+    return np.ascontiguousarray(mask)
+
+
+@pytest.mark.parametrize("g", [1, 2, 6, 8])
+@pytest.mark.parametrize("seed", range(12))
+def test_tile_reads_mask_matches_brute_force(seed, g):
+    """`tile_reads_mask` (the mirror of flash_decode's wgmma body's rule M)
+    against the visibility itself, on causal masks over out-of-order tags,
+    tree masks and random ones, with rows that see nothing."""
+    mask = _mask_case(seed, g)
+    got = fa.tile_reads_mask(torch.from_numpy(mask), g)
+    np.testing.assert_array_equal(got.numpy(), _brute_reads_vis(mask, g))
+
+
+@pytest.mark.parametrize("model,minus,read", [
+    ("gemma-7b", (), 30), ("gemma-2-9b", (), 60), ("gemma-2b", (), 240),
+    ("gemma-7b", (100, 511), 39),  # 2 of 8 blocks read whole
+    ("gemma-2b", (100, 511), 249)])
+def test_tile_reads_mask_at_gemma_prompts(model, minus, read):
+    """The EAGLE engine's 512-row prompt over 300 tagged slots of 512
+    (`speculative.py`'s prompt through flash_decode under
+    `causal_mask_from_tags`): rule M reads what rule B reads in
+    `Generator._prefill`'s layout (30 of 64 tiles at 16 / 16 heads); a block
+    with a row that sees nothing (here made so) reads all 8 of its tiles."""
+    h, h_kv = GEMMA_HEADS[model]
+    g = h // h_kv
+    slots = torch.arange(1024, dtype=torch.int32)[None]
+    tags = torch.where(slots < 300, slots, -1)
+    pos = torch.arange(512, dtype=torch.int32)[None]
+    mask = port_causal_mask(tags[:, :512], pos).clone()
+    mask[:, list(minus)] = False
+    got = fa.tile_reads_mask(mask, g)
+    assert got.shape == (1, 512 * g // 64, 8) and int(got.sum()) == read
+    if not minus:
+        assert torch.equal(got, fa.tile_reads(pos, tags, 512, g))
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("seed", range(9))
+def test_skipped_tiles_change_no_output_under_a_mask(seed, g):
+    """For every block that rule M lets skip tiles, attention (f32) over the
+    tiles it reads equals attention over all keys of [0, lim) at each of the
+    block's real rows (rtol 1e-6), under causal, tree and random masks with
+    rows that see nothing (their blocks read every tile; others still skip)."""
+    for draw in range(100 * seed, 100 * seed + 300):  # the first case that lets a block skip
+        if draw % 3 != seed % 3:
+            continue  # each seed keeps its kind of mask
+        mask = _mask_case(draw, g, min_rows=128)  # two blocks or more
+        if not fa.tile_reads_mask(torch.from_numpy(mask), g).all():
+            break
+    b, t, lim = mask.shape
+    rng = np.random.default_rng(draw)
+    d, h_kv = 16, 2
+    k = torch.from_numpy(rng.standard_normal((b, h_kv, lim, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, h_kv, lim, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, t, h_kv * g, d)).astype(np.float32))
+    vis = torch.from_numpy(mask)
+    full = gqa_attention(q, k, v, vis)
+    reads = fa.tile_reads_mask(vis, g)
     skipping = 0
     for bi in range(b):
         for blk in range(reads.shape[1]):

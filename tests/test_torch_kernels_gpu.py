@@ -518,11 +518,16 @@ def test_flash_decode_tensor_core_body(cuda, tg, g, d, s_limit):
     mask = causal_mask_from_tags(tags[:, :lim], pos)
     mask[1, t // 2] = False  # a row that sees nothing: the uniform average
     plan = fa._plan(tg, lim, d, torch.bfloat16, 2 * 2, False)
-    # 4 kv-head units split their keys up to 512 rows; 3,584 rows and more fill the SMs
-    assert plan.body == "mma" and (plan.splits > 1) == (tg <= 512)
+    if d < 256:
+        # 4 kv-head units split their keys up to 512 rows; 3,584 rows and more fill the SMs
+        assert plan.body == "mma" and (plan.splits > 1) == (tg <= 512)
+    else:  # the cluster body below 64 rows, the wgmma body from 64
+        assert plan.body == ("mma_cluster" if tg < 64 else "wgmma")
     _build.reset_counts()
     got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
     assert _build.launches["flash_decode"] == 1 and _build.plain_calls["flash_decode"] == 0
+    assert _build.launches["flash_decode_mma_cluster"] + _build.launches["flash_decode_wgmma"] \
+        == (d == 256)
     _close(got, fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, 1, s_limit=s_limit),
            TOL[torch.bfloat16])
     _uniform_rows(got, v_cache, 1, lim, g, 1, t // 2)
@@ -609,6 +614,107 @@ def test_flash_prefill_tensor_core_body_d256_layouts(cuda, layout, rows, lim, t,
                                             tags, 1, s_limit=lim)
     _close(got, want, TOL[torch.bfloat16])
     _uniform_rows(got, v_cache, 1, lim, g, *minus)
+
+
+# ---- flash_decode at head width 256, bf16: the cluster body below 64 rows per
+# kv head, the wgmma body (rule M) from 64
+
+#: (T*g, g): below 64 rows 1, 6, 8, 32, 48 (Gemma-2B's verify), 63; from 64
+#: rows 64, 65, 512 (the EAGLE engine's prompt); and g = 5 and 6, which do not
+#: divide 64: the second row block starts 4 rows into a t, so its mask tile
+#: spans 14 (12) t rows, one more than 64 / g rounded up
+D256_ROWS = [(tg, g) for tg in (1, 6, 8, 32, 48, 63, 64, 65, 512) for g in (1, 2, 8)
+             if tg % g == 0] + [(160, 5), (192, 6)]
+
+
+def _d256_case(gen, tg, g, lim, view=None):
+    """A bf16 cache of B = 2 and 2 kv heads of 256 over 1,024 slots (with
+    `view`, a batch row view of a B = 4 one), 900 of them tagged with
+    rolled-back holes; T = tg / g query positions spread over the tagged
+    slots below `lim`, causal masks, and row t // 2 of batch row 1 masked
+    whole (inside a 64-row block from 64 rows)."""
+    k_cache, v_cache = _cache(gen, torch.bfloat16, 256, 2, s=1024)
+    if view is not None:
+        k_cache, v_cache = (torch.cat([x, x.flip(1)], dim=1) for x in (k_cache, v_cache))
+        sel = slice(2, 3) if view == "row2" else slice(0, 4, 2)
+        k_cache, v_cache = k_cache[:, sel], v_cache[:, sel]
+        assert not k_cache.is_contiguous()
+    b, t, n = k_cache.shape[1], tg // g, min(900, lim)
+    tags = torch.full((b, 1024), -1, dtype=torch.int32, device="cuda")
+    tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    tags[:, 10:14] = -1
+    pos = (torch.arange(t, device="cuda") * n // t + (n - 1 if t == 1 else 0)).to(torch.int32)
+    mask = causal_mask_from_tags(tags[:, :lim], pos[None].repeat(b, 1)).clone()
+    mask[b - 1, t // 2] = False  # a row that sees nothing: the uniform average
+    q = torch.randn((b, t, 2 * g, 256), generator=gen, device="cuda")
+    return k_cache, v_cache, mask, q
+
+
+@pytest.mark.parametrize("s_limit", [300, 1024])
+@pytest.mark.parametrize("tg,g", D256_ROWS)
+def test_flash_decode_d256_routes(cuda, tg, g, s_limit):
+    """flash_decode at D = 256 on each route against the plain version: one
+    launch, counted on its route, at s_limit 300 (mask rows not 16-byte
+    aligned: the wgmma body's producer copies the mask tile itself) and
+    1,024 (the mask tile by TMA); the fully masked row is the uniform
+    average of V; the wgmma body's rule M skips tiles where its mirror
+    says so (at 1,024 keys the slots past 900 are seen by no row)."""
+    k_cache, v_cache, mask, q = _d256_case(cuda, tg, g, s_limit)
+    plan = fa._plan(tg, s_limit, 256, torch.bfloat16, 2 * 2, False)
+    assert plan.body == ("mma_cluster" if tg < 64 else "wgmma")
+    if tg >= 64 and s_limit == 1024:
+        assert not bool(fa.tile_reads_mask(mask, g).all())
+    _build.reset_counts()
+    got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
+    assert _build.launches["flash_decode"] == 1 and _build.plain_calls["flash_decode"] == 0
+    assert _build.launches[f"flash_decode_{plan.body}"] == 1
+    want = fa.flash_attention_cached_plain(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
+    _close(got, want, TOL[torch.bfloat16])
+    _uniform_rows(got, v_cache, 1, s_limit, g, 1, q.shape[1] // 2)
+
+
+@pytest.mark.parametrize("view", ["row2", "every_other"])
+@pytest.mark.parametrize("tg,g", [(40, 2), (128, 2)])
+def test_flash_decode_d256_on_a_row_view(cuda, view, tg, g):
+    """Both D = 256 routes on a view of a B = 4 cache whose batch rows are
+    apart (the batcher's `KVCache.row`, and every other row): the cluster
+    body's cp.async and the wgmma body's tensor maps take the batch
+    stride, nothing is copied, and the result is the plain version's."""
+    k_cache, v_cache, mask, q = _d256_case(cuda, tg, g, 1024, view=view)
+    _build.reset_counts()
+    got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=1024)
+    assert _build.launches["flash_decode"] == 1
+    want = fa.flash_attention_cached_plain(q, k_cache.contiguous(), v_cache.contiguous(), mask,
+                                           1, s_limit=1024)
+    _close(got, want, TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("tg,g,s_limit", [(1, 1, 1024), (6, 2, 300), (48, 8, 1024),
+                                          (512, 1, 512), (64, 2, 300)])
+def test_flash_decode_d256_bit_equal_and_graphed(cuda, tg, g, s_limit):
+    """The D = 256 routes are deterministic: two calls on the same inputs
+    agree bit for bit, and so does a CUDA-graph replay of the call with the
+    eager call (the cluster body merges its splits in rank order inside
+    the launch; nothing is reset between calls)."""
+    k_cache, v_cache, mask, q = _d256_case(cuda, tg, g, s_limit)
+
+    def call():
+        return fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
+
+    first, second = call(), call()
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
 
 
 def test_tiny_greedy_tokens_card_equal_cpu(cuda):
@@ -845,16 +951,19 @@ def test_graph_per_fused_ffn_mode(cuda, monkeypatch):
 # ---- the tree engines (runtime/tree.py, runtime/tree2.py)
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("s_limit", [96, 300, None], ids=["s96", "s300", "full"])
 @pytest.mark.parametrize("kind,t,g", [("tree", 4, 1), ("tree", 29, 2), ("tree2", 8, 2),
-                                      ("tree2", 16, 4), ("tree2", 32, 2)])
-def test_flash_decode_tree_masks(cuda, kind, t, g, s_limit):
+                                      ("tree2", 16, 4), ("tree2", 32, 2), ("tree", 29, 8)])
+def test_flash_decode_tree_masks(cuda, kind, t, g, s_limit, d):
     """flash_decode under the tree engines' masks, where a row sees the
     committed prefix (holed tags) and its own ancestors in the node window:
     `_tree_mask` for a drafted level of TreeSpec((4, 2, 2)) (4 rows) and
     its whole verify (29 rows), `_window_tree_mask` for EAGLE-2 windows of
-    a random tree (8-32 rows); T*g 4-64 rows per kv head."""
-    k_cache, v_cache = _cache(cuda, torch.bfloat16, 64, 2, s=384)
+    a random tree (8-32 rows); T*g 4-232 rows per kv head; at D = 256 both
+    routes (the cluster body below 64 rows, the wgmma body and rule M from
+    64)."""
+    k_cache, v_cache = _cache(cuda, torch.bfloat16, d, 2, s=384)
     lim = s_limit or k_cache.shape[3]
     spec = tree.TreeSpec((4, 2, 2))
     n = spec.n_nodes if kind == "tree" else t
@@ -881,7 +990,7 @@ def test_flash_decode_tree_masks(cuda, kind, t, g, s_limit):
         tags[:, base:base + t] = base + depth
         mask = tree2._window_tree_mask(tags[:, :lim], (base + depth)[None].repeat(2, 1), bases,
                                        anc.cuda()[None].repeat(2, 1, 1))
-    q = torch.randn((2, t, 2 * g, 64), generator=cuda, device="cuda")
+    q = torch.randn((2, t, 2 * g, d), generator=cuda, device="cuda")
     _build.reset_counts()
     got = fa.flash_attention_cached(q, k_cache, v_cache, mask, 1, s_limit=s_limit)
     assert _build.launches["flash_decode"] == 1 and _build.plain_calls["flash_decode"] == 0
