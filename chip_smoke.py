@@ -272,7 +272,7 @@ runtime. model-free speculation, YaRN and fill-in-the-middle: (a) on phase
    of a graphed lookahead and lookup run, the YaRN run and the PSM infill
    stand in the `kernels` line as `runtime_path_launches`.
 llama3. the Llama-3 family, after phase 6's files are gone: a minted
-   Meta-Llama-3.1-8B-Instruct-shape target (d 4,096, 32 layers, 32 heads
+   Meta-Llama-3.1-8B-Instruct-shape target (d 4,096, 16 of its 32 layers, 32 heads
    over 8 KV heads, n_ff 14,336, Q4_K layers and token_embd, Q6_K output,
    rope base 500,000 with `rope_freqs.weight` by the llama3 rule at factor
    8, context 131,072, a 128,256-piece byte-level BPE vocabulary with
@@ -284,13 +284,13 @@ llama3. the Llama-3 family, after phase 6's files are gone: a minted
    14,336 on the draft's layer at 1 and 6 rows, flash_decode (T 1, 6) and
    flash_prefill (T 512) at g = 4, each against its plain version and
    timed (`[llama3 kernel]`); `serve_cell` on a ~300-token prompt of BPE
-   text with multi-byte characters (`[llama3]`: 129 qmm_gemv per decoded
-   token, 129 qmm_mma per verify cycle); the CLI (`--draft --temp 0`) and
+   text with multi-byte characters (`[llama3]`: 65 qmm_gemv per decoded
+   token, 65 qmm_mma per verify cycle); the CLI (`--draft --temp 0`) and
    the server's /v1/chat/completions as subprocesses, each == the
    in-process Engine's text; a 512-slot `ChatSession` whose third turn
    shifts, the moved keys held against their rotation by the factored
    frequencies; then a minted Llama-3.2-3B-Instruct-shape file with a tied
-   Q6_K head (`[llama3 tied]`: greedy eager == graphed, 112 qmm_gemv per
+   Q6_K head at 14 of its 28 layers (`[llama3 tied]`: greedy eager == graphed, 56 qmm_gemv per
    token, the "nk" head's device ms). Each minted file is deleted after its
    checks; the 8B default path's and the tied run's launches stand in the
    `kernels` line as `llama3_path_launches`.
@@ -298,15 +298,15 @@ families. the Qwen2, Qwen3, Gemma-2 and Gemma families at their published shapes
    in a temporary directory of their own, one model at a time (minted with
    random Q4_K blocks and a Q6_K head, loaded through `api.Engine`, its
    file deleted, its kernels checked, run, freed): (a) Qwen2.5-7B-Instruct
-   (d 3,584, 28 layers, 28 query over 4 KV heads of 128: g = 7, n_ff
+   (d 3,584, 14 of its 28 layers, 28 query over 4 KV heads of 128: g = 7, n_ff
    18,944, q/k/v biases, rope base 1e6, a 152,064-entry byte-level BPE
    vocabulary with the "qwen2" pre-tokenizer and a chatml template) and an
    EAGLE-Qwen2-7B-Instruct-shape Q8_0 draft: qmm at every product's shape
    at 1, 6 and 300 rows (and the draft's fc), flash_decode at T = 1 and 6
    (T·g 7 and 42) and flash_prefill at T = 512 (T·g 3,584) at g = 7, each
    against its plain version with its bound and library ms (`[families
-   kernel]`); `serve_cell` on a ~300-token prompt (`[qwen2.5]`: 113
-   qmm_gemv and 28 flash_decode per decoded token, 113 qmm_mma per verify,
+   kernel]`); `serve_cell` on a ~300-token prompt (`[qwen2.5]`: 57
+   qmm_gemv and 14 flash_decode per decoded token, 57 qmm_mma per verify,
    EAGLE == greedy under the near-tie rule); (b) Qwen3-8B (12 of its 36
    layers, 32 over 8 KV heads of 128, per-head q/k norms, 151,936
    entries): qmm at 1 and 300 rows, then greedy eager once and graphed 2
@@ -318,13 +318,13 @@ families. the Qwen2, Qwen3, Gemma-2 and Gemma families at their published shapes
    gemma template): qmm at 1 and 300 rows, the plain softcapped attention
    (no kernel in either package) and the tied "nk" head timed, then greedy
    as (b) (`[gemma2]`: 56 qmm_gemv per token, no flash kernel); (d)
-   Gemma-7B (google/gemma-7b: d 3,072, 28 layers, 16 / 16 heads of 256, a
+   Gemma-7B (google/gemma-7b: d 3,072, 14 of its 28 layers, 16 / 16 heads of 256, a
    4,096-wide query, n_ff 24,576, GELU, the sqrt(n_embd) embedding scale,
    no softcap or window, a tied Q6_K table of 256,000 SPM pieces, a gemma
    template) and an EAGLE Q8_0 draft at its widths: qmm at 1, 6 and 300
    rows and the draft's fc, the tied head timed, `serve_cell` (`[gemma]`:
-   112 qmm_gemv and 28 flash_decode per decoded token, 112 qmm_mma per
-   verify, 28 flash_prefill per greedy prompt, EAGLE == greedy under the
+   56 qmm_gemv and 14 flash_decode per decoded token, 56 qmm_mma per
+   verify, 14 flash_prefill per greedy prompt, EAGLE == greedy under the
    near-tie rule). The launches of the Qwen2.5 and Gemma-7B default paths
    and of the other two's first timed graphed runs stand in the `kernels`
    line as `families_path_launches`; the flash rows also carry
@@ -336,26 +336,50 @@ layernorm. the rotary LayerNorm families at their published shapes, in a
    layers, a Q6_K head, random blocks, llama.cpp's tensors of the arch:
    norm biases, q/k/v biases, attn_output.bias, ffn_up / ffn_down biases,
    no ffn_gate, output.bias): (a) StarCoder2-7B (bigcode/starcoder2-7b: d
-   4,608, 32 layers, 36 query over 4 KV heads of 128: g = 9, n_ff 18,432,
+   4,608, 16 of its 32 layers, 36 query over 4 KV heads of 128: g = 9, n_ff 18,432,
    LayerNorm eps 1e-5 with biases, a no-gate tanh-GELU MLP, rope base 1e6,
    a 49,152-entry BPE vocabulary, pre "starcoder") and an EAGLE Q8_0 draft
    at its widths: qmm at every product's shape at 1, 6 and 300 rows (and
    the draft's fc), flash_decode at T = 1 and 6 and flash_prefill at T =
    512 at g = 9, each against its plain version with its bound and library
    ms (`[layernorm kernel]`); `serve_cell` on a ~300-token prompt
-   (`[starcoder2]`: 129 qmm_gemv and 32 flash_decode per decoded token, 129
-   qmm_mma per verify, 32 flash_prefill per greedy prompt, EAGLE == greedy
-   under the near-tie rule); (b) Phi-2 (microsoft/phi-2: d 2,560, 32
-   layers, 32 heads of 80, 32 of 80 features rotary, one shared LayerNorm
+   (`[starcoder2]`: 65 qmm_gemv and 16 flash_decode per decoded token, 65
+   qmm_mma per verify, 16 flash_prefill per greedy prompt, EAGLE == greedy
+   under the near-tie rule); (b) Phi-2 (microsoft/phi-2: d 2,560, 16 of
+   its 32 layers, 32 heads of 80, 32 of 80 features rotary, one shared LayerNorm
    feeding attention and the FFN in parallel, biases on q/k/v, dense, fc1 /
    fc2 and the head, a 51,200-entry BPE vocabulary, pre "phi-2"): qmm at 1
    and 300 rows, the plain attention at D = 80 timed beside SDPA, greedy
-   eager once and graphed 2 times, bit for bit (`[phi2]`: 129 qmm_gemv per
+   eager once and graphed 2 times, bit for bit (`[phi2]`: 65 qmm_gemv per
    token, no flash kernel), then the CLI (`--temp 0`) and the server's
    /v1/chat/completions as subprocesses, each == the in-process Engine's
    text (`[phi2 cli]`, `[phi2 http]`). The StarCoder2 default path's and
    the Phi-2 run's launches stand in the `kernels` line as
    `layernorm_path_launches`.
+positions. the position families at their published shapes, cut in depth,
+   in a temporary directory of their own, minted as phase layernorm mints
+   (a fused attn_qkv, no ffn_gate, LayerNorm eps 1e-5): (a) StarCoder-15B
+   (bigcode/starcoder: d 6,144, 10 of its 40 layers, 48 query heads over
+   one KV head of 128: g = 48, n_inner 24,576, learned positions [8,192 x
+   6,144] F32, biases on the norms, attn_qkv, attn_output, the MLP and the
+   final norm, a Q6_K output.weight, a 49,152-entry BPE vocabulary, pre
+   "starcoder") and an EAGLE Q8_0 draft at its widths: qmm at 1, 6 and 300
+   rows (and the draft's fc), flash_decode at T = 1, 6 and 512 (the EAGLE
+   prompt) and flash_prefill at T = 512 at g = 48, each against its plain
+   version with its bound and library ms (`[positions kernel]`), the CPU
+   port's first 3 greedy tokens on a copy of the weights (computed in a
+   thread beside those checks) against the card's, then `serve_cell`
+   (`[starcoder]`: 41 qmm_gemv and 10 flash_decode per decoded token, 41
+   qmm_mma per verify, 10 flash_prefill per greedy prompt); (b) MPT-7B
+   (mosaicml/mpt-7b: d 4,096, 8 of its 32 layers, 32 heads of 128, ALiBi
+   at a maximum bias of 8, no bias anywhere, expansion 4, a tied Q6_K
+   table of 50,432 rows, pre "mpt") and an EAGLE Q8_0 draft: qmm as (a),
+   the plain ALiBi read at T = 1, 6 and 512 beside SDPA given the bias as
+   a float mask, the tied head timed, the CPU check, `serve_cell`
+   (`[mpt]`: 32 qmm_gemv per decoded token and no flash kernel on the
+   target; the draft's attention is flash_decode). Both default paths'
+   launches stand in the `kernels` line as `positions_path_launches`; the
+   flash rows carry the g = 48 checks as `g48`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -1697,13 +1721,14 @@ def graphed_device_ms(gen, eng, prompt, token: int, pos: int, steps: int = 16,
 
 
 def serve_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, want_tok: dict,
-               per_cycle: int, fused: bool) -> dict:
+               per_cycle: int, fused: bool, kernels: tuple = CORE_KERNELS) -> dict:
     """Greedy and the EAGLE chain engine (K = 5) on one model, eager and
     graphed, each variant of VARIANTS timed REPS times. Every run's launch
     counts are read from zero: per greedily decoded token they must equal
-    `want_tok`, per EAGLE cycle computed `per_cycle` qmm_mma, and no plain
-    version runs. Graphed tokens must equal eager tokens bit for bit, and no
-    step or cycle of a graphed engine may run eagerly after its warm-up."""
+    `want_tok`, per EAGLE cycle computed `per_cycle` qmm_mma, each of
+    `kernels` runs on the default path, and no plain version runs.
+    Graphed tokens must equal eager tokens bit for bit, and no step or
+    cycle of a graphed engine may run eagerly after its warm-up."""
     import torch
 
     from eagle_tpu_torch import _build
@@ -1800,7 +1825,7 @@ def serve_cell(tag: str, params, draft, cfg, dcfg, prompt, n_new: int, want_tok:
     if any(eager_after.values()):
         raise AssertionError(f"{tag}: a graphed engine ran a body eagerly: {eager_after}")
     main = res["eagle graphed C=1"]["launches"]  # the default path: greedy + EAGLE, graphed
-    for k in CORE_KERNELS:
+    for k in kernels:
         if main[k] <= 0:
             raise AssertionError(f"{tag}: kernel {k} was not launched on the default path")
     if (main["ffn_out_norm"] > 0 and main["gate_up_act"] > 0) != fused or (
@@ -2172,6 +2197,14 @@ GGUF_FREE_BYTES = 5 * 2**30  # the two files take 4.2 GB
 #: ffn_norm) and an output.bias
 LN_MINT = {"starcoder2": dict(ffn_norm=True, out_b=False),
            "phi2": dict(ffn_norm=False, out_b=True)}
+#: the position families' minted tensors (llama.cpp's tensor tables): a fused
+#: attn_qkv, no ffn_gate, LayerNorm; with `biases` a bias on every norm,
+#: attn_qkv, attn_output, ffn_up and ffn_down (StarCoder, BLOOM; MPT has none);
+#: StarCoder's learned positions `position_embd` [ctx, d] F32, BLOOM's
+#: embedding LayerNorm `token_embd_norm` (weight and bias)
+POS_MINT = {"starcoder": dict(biases=True, pos_embd=True, embd_norm=False),
+            "bloom": dict(biases=True, pos_embd=False, embd_norm=True),
+            "mpt": dict(biases=False, pos_embd=False, embd_norm=False)}
 
 
 def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -> "np.ndarray":
@@ -2228,8 +2261,9 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     head (Llama-3.2-1B / 3B). `arch` "qwen2", "qwen3", "gemma" or "gemma2"
     writes the target under that architecture with its tensors (qwen2:
     q/k/v biases; qwen3: per-head q/k norms; gemma2: the post-attention and
-    post-FFN norms; gemma: none; an arch of `LN_MINT`, starcoder2 or phi2:
-    the tensors its layout names, and `layer_norm_epsilon` 1e-5), `head_dim`
+    post-FFN norms; gemma: none; an arch of `LN_MINT`, starcoder2 or phi2,
+    or of `POS_MINT`, starcoder, bloom or mpt: the tensors its layout names,
+    and `layer_norm_epsilon` 1e-5), `head_dim`
     a head width other than d / n_heads (both files), `rope_dim` the
     target's rotary features (partial rotary).
     Weights are random quant blocks, at magnitudes that give Q4_0's weight
@@ -2249,8 +2283,11 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
                   ("attn_output", d, d_q), ("ffn_gate", f, d), ("ffn_up", f, d),
                   ("ffn_down", d, f))
 
-    ln = LN_MINT.get(arch)
+    ln, pos = LN_MINT.get(arch), POS_MINT.get(arch)
     mats = layer_mats if ln is None else tuple(m for m in layer_mats if m[0] != "ffn_gate")
+    if pos is not None:  # a fused attn_qkv and no gate
+        mats = (("attn_qkv", d_q + 2 * d_kv, d),) + tuple(
+            m for m in layer_mats[3:] if m[0] != "ffn_gate")
 
     def writer(path, arch, blocks, file_type):
         w = GGUFWriter(path)
@@ -2281,7 +2318,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     target = tmp / f"{tag}-{layer_type.lower()}.gguf"
     # LLAMA_FTYPE_MOSTLY_Q4_0, LLAMA_FTYPE_MOSTLY_Q4_K_M
     w = writer(target, arch, n_layers, 2 if layer_type == "Q4_0" else 15)
-    if ln is not None:
+    if ln is not None or pos is not None:
         w.add(f"{arch}.attention.layer_norm_epsilon", 1e-5)
     for key, val in {**(vocab or spm_vocab(v, seed)), **(metadata or {})}.items():
         w.add(key, val)
@@ -2289,13 +2326,25 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
         add(w, "token_embd.weight", v, d, q6_k, 1e-4, signed=False)
     else:
         add(w, "token_embd.weight", v, d, lt, l_mag)
+    if pos is not None and pos["pos_embd"]:
+        w.add_tensor("position_embd.weight",
+                     (torch.randn((ctx, d), generator=gen, device="cuda") * 1e-2).cpu().numpy())
+    if pos is not None and pos["embd_norm"]:
+        w.add_tensor("token_embd_norm.weight", norm())
+        w.add_tensor("token_embd_norm.bias", bias(d))
     for i in range(n_layers):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
         for name, n, k in mats:
             add(w, f"blk.{i}.{name}.weight", n, k, lt, l_mag)
         if ln is None or ln["ffn_norm"]:
             w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
-        if ln is not None:
+        if pos is not None and pos["biases"]:
+            w.add_tensor(f"blk.{i}.attn_norm.bias", bias(d))
+            w.add_tensor(f"blk.{i}.ffn_norm.bias", bias(d))
+            for name, n in (("attn_qkv", d_q + 2 * d_kv), ("attn_output", d), ("ffn_up", f),
+                            ("ffn_down", d)):
+                w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
+        elif ln is not None:
             w.add_tensor(f"blk.{i}.attn_norm.bias", bias(d))
             if ln["ffn_norm"]:
                 w.add_tensor(f"blk.{i}.ffn_norm.bias", bias(d))
@@ -2312,7 +2361,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             w.add_tensor(f"blk.{i}.attn_post_norm.weight", norm())
             w.add_tensor(f"blk.{i}.ffn_post_norm.weight", norm())
     w.add_tensor("output_norm.weight", norm())
-    if ln is not None:
+    if ln is not None or (pos is not None and pos["biases"]):
         w.add_tensor("output_norm.bias", bias(d))
     if rope_factors is not None:
         w.add_tensor("rope_freqs.weight", rope_factors.astype("float32"))
@@ -5234,10 +5283,11 @@ def runtime_path(report: dict, target, tmp: pathlib.Path) -> dict:
 # phase llama3: the Llama-3 family at Meta-Llama-3.1-8B-Instruct's shape
 
 
-#: Meta-Llama-3.1-8B-Instruct (its config.json) and Llama-3.2-3B-Instruct's
-LLAMA3_8B = dict(d=4096, f=14336, v=128256, n_layers=32, n_heads=32, n_kv_heads=8,
+#: Meta-Llama-3.1-8B-Instruct (its config.json) and Llama-3.2-3B-Instruct's,
+#: at 16 of 32 and 14 of 28 layers to fit the script's time
+LLAMA3_8B = dict(d=4096, f=14336, v=128256, n_layers=16, n_heads=32, n_kv_heads=8,
                  ctx=131072, rope_base=500000.0)
-LLAMA3_3B = dict(d=3072, f=8192, v=128256, n_layers=28, n_heads=24, n_kv_heads=8,
+LLAMA3_3B = dict(d=3072, f=8192, v=128256, n_layers=14, n_heads=24, n_kv_heads=8,
                  ctx=131072, rope_base=500000.0)
 #: rope_scaling of the two configs: (factor, low_freq_factor, high_freq_factor, original ctx)
 LLAMA31_ROPE = (8.0, 1.0, 4.0, 8192)
@@ -5257,8 +5307,10 @@ LLAMA3_TEMPLATE = ("{{- bos_token }}{%- for message in messages %}{{- '<|start_h
                    "message['role'] + '<|end_header_id|>\\n\\n' + message['content'] | trim + "
                    "'<|eot_id|>' }}{%- endfor %}{%- if add_generation_prompt %}{{- "
                    "'<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}{%- endif %}")
-LLAMA3_GEMV = 32 * 4 + 1  # per decoded 8B token: 4 stacked products a layer + lm_head
-TIED_GEMV = 28 * 4  # per decoded 3B token: the tied head is no qmm
+#: per decoded 8B token: 4 stacked products a layer + lm_head; per 3B
+#: token the same without a head (the tied head is no qmm)
+LLAMA3_GEMV = LLAMA3_8B["n_layers"] * 4 + 1
+TIED_GEMV = LLAMA3_3B["n_layers"] * 4
 
 
 def llama3_factors(head_dim: int, base: float, factor: float, low: float, high: float,
@@ -5691,10 +5743,10 @@ def nk_head_check(tag: str, head, cfg) -> dict:
 
 
 def tied_cell(tmp: pathlib.Path, vocab: dict, text: str) -> tuple[dict, dict]:
-    """A Llama-3.2-3B-Instruct-shape GGUF (d 3,072, 28 layers, 24 heads over
+    """A Llama-3.2-3B-Instruct-shape GGUF (d 3,072, 14 of its 28 layers, 24 heads over
     8 KV heads, n_ff 8,192, Q4_K layers, a tied Q6_K token_embd and no
     output.weight, rope factors at factor 32), minted, loaded through
-    `Engine` and deleted: `greedy_cell` on the prompt (112 qmm_gemv per
+    `Engine` and deleted: `greedy_cell` on the prompt (56 qmm_gemv per
     decoded token: the head is the plain "nk" product); the tied head
     alone against its f32 plain version, timed with its bound and library
     ms. Returns (the cell, the graphed run's launches)."""
@@ -5739,8 +5791,8 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
     EAGLE-LLaMA3-Instruct-8B-shape Q8_0 draft, minted into `tmp`, loaded
     through `Engine`; the kernels at the path's new shapes against their
     plain versions; `serve_cell` on a ~300-token prompt of BPE text (greedy
-    and the EAGLE chain at C = 1 and 4, eager and graphed, 2 runs each: 129
-    qmm_gemv per decoded token, 129 qmm_mma per verify cycle); the CLI and
+    and the EAGLE chain at C = 1 and 4, eager and graphed, 2 runs each: 65
+    qmm_gemv per decoded token, 65 qmm_mma per verify cycle); the CLI and
     the server as subprocesses; a chat session that shifts; then the tied
     Llama-3.2-3B-shape file (`tied_cell`). Returns the launches of the 8B
     default path (greedy + EAGLE graphed at C = 1) and the tied graphed run,
@@ -5805,7 +5857,7 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
     want_tok = {"qmm_gemv": LLAMA3_GEMV, "ffn_out_norm": 0, "gate_up_act": 0, "qmm": 0}
     os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
     cell = serve_cell("llama3", params, draft, cfg, dcfg, prompt, LLAMA3_NEW, want_tok,
-                      VERIFY_QMM, fused=False)
+                      LLAMA3_GEMV, fused=False)
     cell.pop("gen")
     out["cell"] = cell
     launches = dict(cell["variants"]["eagle graphed C=1"]["launches"])
@@ -5833,13 +5885,13 @@ def llama3_path(report: dict, tmp: pathlib.Path) -> dict:
 #: 4,096 wide over n_embd 3,072). Qwen3-8B and Gemma-2-9B run at a third of
 #: their published depth (12 of 36, 14 of 42 layers; widths whole) to keep the
 #: script in its time budget
-QWEN25_7B = dict(d=3584, f=18944, v=152064, n_layers=28, n_heads=28, n_kv_heads=4,
+QWEN25_7B = dict(d=3584, f=18944, v=152064, n_layers=14, n_heads=28, n_kv_heads=4,
                  head_dim=128, ctx=32768, rope_base=1000000.0)
 QWEN3_8B = dict(d=4096, f=12288, v=151936, n_layers=12, n_heads=32, n_kv_heads=8,
                 head_dim=128, ctx=40960, rope_base=1000000.0)
 GEMMA2_9B = dict(d=3584, f=14336, v=256000, n_layers=14, n_heads=16, n_kv_heads=8,
                  head_dim=256, ctx=8192, rope_base=10000.0)
-GEMMA_7B = dict(d=3072, f=24576, v=256000, n_layers=28, n_heads=16, n_kv_heads=16,
+GEMMA_7B = dict(d=3072, f=24576, v=256000, n_layers=14, n_heads=16, n_kv_heads=16,
                 head_dim=256, ctx=8192, rope_base=10000.0)
 GEMMA2_MD = {"gemma2.attn_logit_softcapping": 50.0, "gemma2.final_logit_softcapping": 30.0,
              "gemma2.attention.sliding_window": 4096,
@@ -5863,10 +5915,10 @@ FAMILY_NEW = 64  # new tokens of a `greedy_cell` and of the `families` serve cel
 FAMILY_PROMPT_TOKENS = 300
 #: launches per decoded token: 4 stacked products a layer + lm_head; a
 #: flash_decode a layer; Gemma-2's tied head and softcapped attention take none
-QWEN25_GEMV, QWEN25_FLASH = 28 * 4 + 1, 28
+QWEN25_GEMV, QWEN25_FLASH = QWEN25_7B["n_layers"] * 4 + 1, QWEN25_7B["n_layers"]
 QWEN3_GEMV, QWEN3_FLASH = QWEN3_8B["n_layers"] * 4 + 1, QWEN3_8B["n_layers"]
 GEMMA2_GEMV = GEMMA2_9B["n_layers"] * 4
-GEMMA7_GEMV, GEMMA7_FLASH = 28 * 4, 28  # the tied head is no qmm
+GEMMA7_GEMV, GEMMA7_FLASH = GEMMA_7B["n_layers"] * 4, GEMMA_7B["n_layers"]  # tied: no qmm
 
 
 def qwen_vocab(seed: int, v: int) -> tuple[dict, list]:
@@ -5996,8 +6048,8 @@ def qwen25_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     pre-tokenizer, chatml) and an EAGLE-Qwen2-7B-Instruct-shape Q8_0 draft;
     qmm at the path's shapes at 1, 6 and 300 rows and both flash kernels at
     g = 7; `serve_cell` (greedy and the chain at C = 1 and 4, eager and
-    graphed, 2 runs each): 113 qmm_gemv and 28 flash_decode per decoded
-    token, 113 qmm_mma per verify. Returns (the cell, the default path's
+    graphed, 2 runs each): 57 qmm_gemv and 14 flash_decode per decoded
+    token, 57 qmm_mma per verify. Returns (the cell, the default path's
     launches)."""
     import numpy as np
 
@@ -6141,7 +6193,7 @@ def gemma2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
 
 
 def gemma_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
-    """Gemma-7B's shape (28 layers, 16 / 16 heads of 256 over n_embd
+    """Gemma-7B's shape (14 of its 28 layers, 16 / 16 heads of 256 over n_embd
     3,072, n_ff 24,576, GELU, the sqrt(n_embd) embedding scale, no softcap
     or window: its attention on the flash kernels at D = 256) with a tied
     Q6_K table of 256,000 SPM pieces and a gemma template, and an EAGLE
@@ -6149,8 +6201,8 @@ def gemma_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     (wqkv N 12,288, wo K 4,096, w_gate_up N 49,152, w_down K 24,576) at 1,
     6 and 300 rows and the draft's fc, the tied "nk" head timed (the draft
     borrows it: 6 calls a chain cycle); `serve_cell` (greedy and the chain
-    at C = 1 and 4, eager and graphed, 2 runs each): 112 qmm_gemv and 28
-    flash_decode per decoded token, 112 qmm_mma per verify, 28
+    at C = 1 and 4, eager and graphed, 2 runs each): 56 qmm_gemv and 14
+    flash_decode per decoded token, 56 qmm_mma per verify, 14
     flash_prefill per greedy prompt. Returns (the cell, the default path's
     launches)."""
     import numpy as np
@@ -6188,7 +6240,7 @@ def gemma_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
                              f"expected {GEMMA7_FLASH} flash_prefill")
     # flash_decode's D = 256 routes on the default path (greedy + EAGLE at C =
     # 1): the cluster body for decode, verify and draft steps, the wgmma body
-    # for the EAGLE prompt (the target's 28 layers and the draft's one)
+    # for the EAGLE prompt (the target's layers and the draft's one)
     main = cell["variants"]["eagle graphed C=1"]["launches"]
     routes = {k: main[f"flash_decode_{k}"] for k in ("mma_cluster", "wgmma")}
     if routes["wgmma"] != GEMMA7_FLASH + 1 or routes["mma_cluster"] + routes["wgmma"] != \
@@ -6243,14 +6295,16 @@ def families_path(report: dict, tmp: pathlib.Path) -> dict:
 
 #: the published configs (config.json): bigcode/starcoder2-7b (its
 #: sliding_window of 4,096 does not bite at max_seq 1,024 and llama.cpp's
-#: files carry none) and microsoft/phi-2 (partial_rotary_factor 0.4)
-STARCODER2_7B = dict(d=4608, f=18432, v=49152, n_layers=32, n_heads=36, n_kv_heads=4,
+#: files carry none) and microsoft/phi-2 (partial_rotary_factor 0.4), at
+#: 16 of their 32 layers to fit the script's time
+STARCODER2_7B = dict(d=4608, f=18432, v=49152, n_layers=16, n_heads=36, n_kv_heads=4,
                      head_dim=128, ctx=16384, rope_base=1000000.0)
-PHI2 = dict(d=2560, f=10240, v=51200, n_layers=32, n_heads=32, n_kv_heads=32, head_dim=80,
+PHI2 = dict(d=2560, f=10240, v=51200, n_layers=16, n_heads=32, n_kv_heads=32, head_dim=80,
             ctx=2048, rope_base=10000.0, rope_dim=32)
 #: launches per decoded token: wqkv, wo, w_up, w_down a layer + lm_head
-STARCODER2_GEMV, STARCODER2_FLASH = 32 * 4 + 1, 32
-PHI2_GEMV = 32 * 4 + 1
+STARCODER2_GEMV = STARCODER2_7B["n_layers"] * 4 + 1
+STARCODER2_FLASH = STARCODER2_7B["n_layers"]
+PHI2_GEMV = PHI2["n_layers"] * 4 + 1
 #: the vocabularies' specials: StarCoder2's (its first 38 ids in the
 #: published file; here at the end of the minted pieces) and GPT-2's
 STARCODER2_SPECIALS = ("<|endoftext|>", "<fim_prefix>", "<fim_middle>", "<fim_suffix>",
@@ -6267,14 +6321,14 @@ STARCODER2_SPECIALS = ("<|endoftext|>", "<fim_prefix>", "<fim_middle>", "<fim_su
 
 
 def starcoder2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
-    """StarCoder2-7B's shape (LayerNorm with biases, q/k/v and output biases,
-    a no-gate GELU MLP with biases, 36 query over 4 KV heads of 128: g = 9)
-    with a 49,152-entry BPE vocabulary ("starcoder" pre-tokenizer) and an
+    """StarCoder2-7B's shape at 16 of its 32 layers (LayerNorm with biases,
+    q/k/v and output biases, a no-gate GELU MLP with biases, 36 query over
+    4 KV heads of 128: g = 9) with a 49,152-entry BPE vocabulary ("starcoder" pre-tokenizer) and an
     EAGLE Q8_0 draft at its widths; qmm at the path's shapes at 1, 6 and 300
     rows and the draft's fc, both flash kernels at g = 9; `serve_cell`
     (greedy and the chain at C = 1 and 4, eager and graphed, 2 runs each):
-    129 qmm_gemv and 32 flash_decode per decoded token, 129 qmm_mma per
-    verify, 32 flash_prefill per greedy prompt. Returns (the cell, the
+    65 qmm_gemv and 16 flash_decode per decoded token, 65 qmm_mma per
+    verify, 16 flash_prefill per greedy prompt. Returns (the cell, the
     default path's launches)."""
     import numpy as np
 
@@ -6327,7 +6381,7 @@ def phi2_cell(tmp: pathlib.Path, gen) -> tuple[dict, dict]:
     rotary; one shared LayerNorm feeding attention and a no-gate GELU MLP in
     parallel; biases on q/k/v, dense, fc1 / fc2 and the head) with a
     51,200-entry BPE vocabulary ("phi-2" pre-tokenizer): qmm at 1 and 300
-    rows, the plain attention timed, `greedy_cell` (129 qmm_gemv per decoded
+    rows, the plain attention timed, `greedy_cell` (65 qmm_gemv per decoded
     token, no flash kernel), then the CLI and the server as subprocesses on
     the file, each == the in-process Engine's text; the file is deleted
     after them."""
@@ -6403,6 +6457,369 @@ def layernorm_path(report: dict, tmp: pathlib.Path) -> dict:
             launches[k] = launches.get(k, 0) + v
     out["launches"] = launches
     report["layernorm_path"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase positions: learned positions and ALiBi at their published shapes
+
+
+#: the published configs (config.json), cut in depth to fit the script's
+#: time (widths untouched): bigcode/starcoder (GPTBigCode: n_embd 6,144, 48
+#: heads, multi-query, n_inner 24,576, n_positions 8,192; 10 of its 40
+#: layers) and mosaicml/mpt-7b (d_model 4,096, 32 heads, expansion_ratio 4,
+#: no_bias, alibi_bias_max 8, tied embeddings; 8 of its 32 layers)
+STARCODER_15B = dict(d=6144, f=24576, v=49152, n_layers=10, n_heads=48, n_kv_heads=1,
+                     head_dim=128, ctx=8192, rope_base=10000.0)
+MPT_7B = dict(d=4096, f=16384, v=50432, n_layers=8, n_heads=32, n_kv_heads=32, head_dim=128,
+              ctx=2048, rope_base=10000.0)
+#: launches per decoded token: wqkv, wo, w_up, w_down a layer (+ lm_head;
+#: MPT's tied head is no qmm); StarCoder's attention a layer, MPT's none
+STARCODER_GEMV, STARCODER_FLASH = STARCODER_15B["n_layers"] * 4 + 1, STARCODER_15B["n_layers"]
+MPT_GEMV = MPT_7B["n_layers"] * 4
+#: GPT-NeoX-20B's tokenizer (MPT-7B's): 50,254 BPE pieces, its specials,
+#: padded to the model's 50,432 rows
+MPT_PIECES, MPT_SPECIALS = 50254, ("<|endoftext|>", "<|padding|>")
+MPT_MD = {"mpt.attention.max_alibi_bias": 8.0}
+#: the CPU port's run on each cell's weights: a prompt's first tokens and
+#: the greedy tokens after them (the prompt's, then one decode step's)
+CPU_CHECK_PROMPT, CPU_CHECK_NEW = 16, 2
+
+
+def cpu_copy(tree):
+    """A copy of a params tree on the CPU (QTensors field by field)."""
+    import dataclasses
+
+    from eagle_tpu_torch.quant.qtensor import QTensor
+
+    if isinstance(tree, dict):
+        return {k: cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, **{k: None if v is None else v.cpu()
+                                            for k, v in tree.tensors().items()})
+    return tree if tree is None else tree.cpu()
+
+
+def cpu_tokens(params, cfg, ids: list) -> dict:
+    """The CPU port (plain versions, bf16 compute and cache) on `params`
+    (a CPU copy of a cell's weights): greedy `CPU_CHECK_NEW` tokens after
+    `ids`, and the seconds it took. Runs on the phase's worker thread."""
+    import torch
+
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    t0 = time.time()
+    gen = Generator(params, cfg, max_seq=64, kv_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, eos_id=-1, device="cpu")
+    toks = gen.generate(ids, max_new_tokens=CPU_CHECK_NEW, stop_at_eos=False)
+    return dict(tokens=toks, seconds=time.time() - t0)
+
+
+def cpu_tokens_finish(tag: str, eng, ids: list, future) -> dict:
+    """Wait for a cell's CPU run (`cpu_tokens` on the worker thread); the
+    card's greedy tokens (the same Generator settings, the kernels) must
+    equal its tokens up to the near-tie rule."""
+    import torch
+
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    t0 = time.time()
+    cpu = future.result()  # re-raises what the worker raised
+    wait = time.time() - t0
+    # max_seq 1,024: `check_near_tie` prefills a 512-row bucket on it
+    gen = Generator(eng.params, eng.model_cfg, max_seq=1024, kv_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, eos_id=-1)
+    card = gen.generate(ids, max_new_tokens=CPU_CHECK_NEW, stop_at_eos=False)
+    tie = check_near_tie(gen, ids, card, cpu["tokens"], tag, "the CPU port vs the card")
+    log(f"[{tag}] the CPU port's greedy tokens on the same weights ({len(ids)}-token prompt, "
+        f"{CPU_CHECK_NEW} new): {cpu['tokens']}, the card's {card}; the CPU run took "
+        f"{cpu['seconds']:.1f} s, waited for {wait:.1f} s after the kernel checks")
+    return dict(prompt_tokens=len(ids), cpu_tokens=cpu["tokens"], card_tokens=card,
+                equal=cpu["tokens"] == card, near_tie=tie, cpu_seconds=cpu["seconds"],
+                wait_seconds=wait)
+
+
+def g48_prompt_check(gen) -> dict:
+    """flash_decode at the EAGLE engine's prompt at StarCoder-15B's g = 48
+    (the chain's prefill reads through decode attention): T = 512 over 512
+    slots, 300 tagged, the causal tag mask (T·g 24,576), against its plain
+    version, timed beside SDPA (`enable_gqa`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.ops import flash_attention as fa
+    from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+
+    h, h_kv, d, s, t, n, layer = 48, 1, 128, 512, 512, 300, 1
+    kc = torch.randn((2, 1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((2, 1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    tags = torch.full((1, s), -1, dtype=torch.int32, device="cuda")
+    tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    pos = torch.arange(t, dtype=torch.int32, device="cuda")[None]
+    mask = causal_mask_from_tags(tags, pos)
+    q = torch.randn((1, t, h, d), generator=gen, device="cuda")
+    got = fa.flash_attention_cached(q, kc, vc, mask, layer, s_limit=s)
+    abs_err, rel = rel_err(got, fa.flash_attention_cached_plain(q, kc, vc, mask, layer,
+                                                                s_limit=s))
+    if rel > ATTN_TOL:
+        raise AssertionError(f"positions flash_decode g=48 T={t}: rel err {rel:.3e}")
+    ms = device_ms(lambda i: fa.flash_attention_cached(q, kc, vc, mask, layer, s_limit=s), 10)
+    plain = device_ms(lambda i: fa.flash_attention_cached_plain(q, kc, vc, mask, layer,
+                                                               s_limit=s), 5)
+    qb = q.transpose(1, 2).to(torch.bfloat16)
+    lib = device_ms(lambda i: F.scaled_dot_product_attention(
+        qb, kc[layer], vc[layer], attn_mask=mask[:, None], enable_gqa=True), 10)
+    b_ms, b_by = decode_bound(q, kc, mask)
+    log(f"[positions kernel] flash_decode g=48 T={t} (T*g={t * 48}) S={s} ({n} tagged, the "
+        f"EAGLE prompt) kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms * 1e3:.2f} us "
+        f"({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return dict(name="flash_decode", g=48, t=t, s=s, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
+
+
+def alibi_attention_checks(gen, cfg, tag: str) -> list:
+    """An ALiBi model's attention on the plain `gqa_attention` (the
+    reference's flash gates refuse ALiBi), at its heads, bf16 cache: a
+    decoded row and a K = 5 verify over 1,024 slots (364 visible) and a
+    512-row prompt (300 real rows). Its ms per call against the bound (K and
+    V of the visible slots once; the score and value products at the bf16
+    rate) and against SDPA given the bias and the mask as one float
+    attn_mask [1, H, T, S] (made outside the timed call): in f32 on the
+    cache's values, as the plain read computes (the library time; its output
+    held against the plain one at ATTN_TOL), and in bf16 (timed and its
+    error logged: bf16 rounds the bias, by up to 1 at a distance of 300)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.models.llama import alibi_slopes
+    from eagle_tpu_torch.ops.attention import gqa_attention
+    from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
+
+    h, h_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    slopes = alibi_slopes(h, "cuda")
+    out = []
+    for t, s, n in ((1, 1024, 364), (VERIFY_ROWS, 1024, 364), (512, 512, 300)):
+        kc = torch.randn((1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        vc = torch.randn((1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        tags = torch.full((1, s), -1, dtype=torch.int32, device="cuda")
+        tags[:, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+        pos = (torch.arange(t, dtype=torch.int32, device="cuda") + (n - t if t < n else 0))[None]
+        mask = causal_mask_from_tags(tags, pos)
+        q = torch.randn((1, t, h, d), generator=gen, device="cuda")
+        run = lambda i: gqa_attention(q, kc, vc, mask, scale=cfg.attn_scale,  # noqa: E731
+                                      alibi=slopes, q_pos=pos, k_pos=tags)
+        got = run(0)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag} ALiBi attention T={t}: non-finite output")
+        ms = device_ms(run, 20)
+        dist = (pos[:, :, None] - tags[:, None, :]).float()
+        bias = torch.where(mask[:, None], -slopes[None, :, None, None] * dist[:, None],
+                           float("-inf"))
+        libs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd, bd = (t.to(dt) for t in (q.to(kc.dtype).transpose(1, 2), kc, vc, bias))
+            fn = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                qd, kd, vd, attn_mask=bd, scale=cfg.attn_scale, enable_gqa=h != h_kv)
+            libs[dt] = (device_ms(fn, 20), rel_err(fn(0).transpose(1, 2), got)[1])
+        (lib, lib_err), (lib_bf16, bf16_err) = libs[torch.float32], libs[torch.bfloat16]
+        if lib_err > ATTN_TOL:
+            raise AssertionError(f"{tag} ALiBi attention T={t}: SDPA (f32) against the plain "
+                                 f"read: rel err {lib_err:.3e}")
+        pairs = int(mask.sum())
+        b_ms, b_by = bound_ms(2 * n * h_kv * d * 2 + nbytes(q, mask) + q.numel() * 4,
+                              4.0 * pairs * h * d)
+        out.append(dict(name="gqa_attention (plain, ALiBi)", t=t, s=s, visible=n, ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib, library_rel_err=lib_err,
+                        library_bf16_ms=lib_bf16, library_bf16_rel_err=bf16_err,
+                        per_token_ms=ms * cfg.n_layers if t == 1 else None))
+        log(f"[{tag}] plain ALiBi attention T={t} S={s} ({n} visible) H={h}/{h_kv} D={d}: "
+            f"{ms:.4f} ms per call"
+            + (f" ({ms * cfg.n_layers:.3f} ms per token over {cfg.n_layers} layers)"
+               if t == 1 else "")
+            + f", bound {b_ms * 1e3:.2f} us ({b_by}), library {lib:.4f} ms (SDPA in f32, the "
+            f"bias and mask as one attn_mask; rel err {lib_err:.2e}), in bf16 {lib_bf16:.4f} ms "
+            f"(rel err {bf16_err:.2e})")
+        del kc, vc, bias
+    torch.cuda.empty_cache()
+    return out
+
+
+def starcoder_setup(tmp: pathlib.Path, gen, cpu) -> dict:
+    """StarCoder-15B's shape (learned positions, LayerNorm with biases, a
+    fused attn_qkv with its bias, a no-gate GELU MLP with biases, 48 query
+    heads over one KV head of 128: g = 48) at 10 of its 40 layers, with a
+    49,152-entry BPE vocabulary ("starcoder" pre-tokenizer) and an EAGLE
+    Q8_0 draft at its widths, minted and loaded through `Engine`; the CPU
+    port's greedy tokens submitted to `cpu` (the phase's worker thread);
+    qmm at the path's shapes at 1, 6 and 300 rows and the draft's fc, both
+    flash kernels at g = 48. Returns the cell's state for `starcoder_run`."""
+    from eagle_tpu_torch.tokenizer import BPETokenizer
+
+    c = STARCODER_15B
+    t0 = time.time()
+    vocab, words = bpe_vocab(191, c["v"], c["v"] - len(STARCODER2_SPECIALS), STARCODER2_SPECIALS,
+                            "starcoder")
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("starcoder-15b", c, tmp, 193, vocab, "starcoder",
+                                    with_draft=True, phase="positions")
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    tok = eng.tokenizer
+    layers = params["layers"]
+    if (not isinstance(tok, BPETokenizer) or cfg.norm_type != "layer" or cfg.rope_dim != 0
+            or not cfg.has_pos_embd or cfg.use_alibi or cfg.act != "gelu"
+            or "w_gate_up" in layers or tuple(params["pos_embd"].shape) != (c["ctx"], c["d"])
+            or not {"bqkv", "bo", "b_up", "b_down", "attn_norm_b", "ffn_norm_b"} <= set(layers)
+            or params["output"].layout != "kn" or (dcfg.arch, dcfg.n_kv_heads) != ("eagle", 1)):
+        raise AssertionError(f"starcoder: the files did not load as StarCoder + EAGLE: {cfg}")
+    text = llama3_text(tok, words, FAMILY_PROMPT_TOKENS, seed=197)
+    ids = tok.encode(text)
+    if tok.decode(ids) != text:
+        raise AssertionError("starcoder: the prompt does not round-trip through the tokenizer")
+    out["prompt_tokens"] = len(ids)
+    head = ids[:CPU_CHECK_PROMPT]
+    future = cpu.submit(cpu_tokens, cpu_copy(params), cfg, head)
+    out["qmm"] = family_kernels("starcoder", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma", "verify cycle"),
+        (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft,
+        log_tag="positions kernel")
+    out["attention"] = (gqa_flash_checks(gen, "positions kernel", c["n_heads"], c["n_kv_heads"])
+                        + [g48_prompt_check(gen)])
+    return dict(tag="starcoder", eng=eng, ids=ids, head=head, future=future, out=out)
+
+
+def starcoder_run(st: dict) -> tuple[dict, dict]:
+    """`serve_cell` on the StarCoder cell (greedy and the chain at C = 1 and
+    4, eager and graphed, 2 runs each): 41 qmm_gemv and 10 flash_decode per
+    decoded token, 41 qmm_mma per verify, 10 flash_prefill per greedy
+    prompt. Returns (the cell, the default path's launches)."""
+    import numpy as np
+
+    eng, out = st["eng"], st["out"]
+    want_tok = {"qmm_gemv": STARCODER_GEMV, "flash_decode": STARCODER_FLASH,
+                "ffn_out_norm": 0, "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("starcoder", eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg,
+                      np.asarray(st["ids"]), FAMILY_NEW, want_tok, STARCODER_GEMV, fused=False)
+    cell.pop("gen")
+    prompt = cell["variants"]["greedy graphed"]["launches_at_first_token"]
+    if prompt["flash_prefill"] != STARCODER_FLASH or prompt["flash_decode"]:
+        raise AssertionError(f"starcoder: the greedy prompt's attention launches {prompt}, "
+                             f"expected {STARCODER_FLASH} flash_prefill")
+    log(f"[starcoder] the greedy prompt: {prompt['flash_prefill']} flash_prefill, "
+        f"{prompt['qmm_tc']} qmm_tc; EAGLE == greedy: "
+        f"{cell['eagle_tokens'] == cell['greedy_tokens']}")
+    out["cell"] = cell
+    return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
+
+
+def mpt_setup(tmp: pathlib.Path, gen, cpu) -> dict:
+    """MPT-7B's shape (ALiBi over 32 heads of 128, LayerNorm without biases,
+    a fused attn_qkv, a no-gate GELU MLP, no bias anywhere, a tied Q6_K
+    head) at 8 of its 32 layers, with a 50,432-entry BPE vocabulary ("mpt"
+    pre-tokenizer) and an EAGLE Q8_0 draft at its widths, minted and loaded
+    through `Engine`; the CPU port's greedy tokens submitted to `cpu`; qmm
+    at the path's shapes at 1, 6 and 300 rows and the draft's fc, the plain
+    ALiBi read beside SDPA, the tied head. Returns the cell's state for
+    `mpt_run`."""
+    from eagle_tpu_torch.tokenizer import BPETokenizer
+
+    c = MPT_7B
+    t0 = time.time()
+    vocab, words = bpe_vocab(199, c["v"], MPT_PIECES, MPT_SPECIALS, "mpt")
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("mpt-7b", c, tmp, 211, vocab, "mpt", with_draft=True,
+                                    metadata=MPT_MD, tied=True, phase="positions")
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    tok = eng.tokenizer
+    layers = params["layers"]
+    if (not isinstance(tok, BPETokenizer) or cfg.norm_type != "layer" or cfg.rope_dim != 0
+            or cfg.has_pos_embd or not cfg.use_alibi or cfg.act != "gelu"
+            or set(layers) != {"attn_norm", "ffn_norm", "wqkv", "wo", "w_up", "w_down"}
+            or params["output"].layout != "nk" or "output_norm_b" in params
+            or dcfg.arch != "eagle"):
+        raise AssertionError(f"mpt: the files did not load as MPT + EAGLE: {cfg}")
+    text = llama3_text(tok, words, FAMILY_PROMPT_TOKENS, seed=223)
+    ids = tok.encode(text)
+    if tok.decode(ids) != text:
+        raise AssertionError("mpt: the prompt does not round-trip through the tokenizer")
+    out["prompt_tokens"] = len(ids)
+    head = ids[:CPU_CHECK_PROMPT]
+    future = cpu.submit(cpu_tokens, cpu_copy(params), cfg, head)
+    out["qmm"] = family_kernels("mpt", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma", "verify cycle"),
+        (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft,
+        log_tag="positions kernel")
+    out["attention"] = alibi_attention_checks(gen, cfg, "positions kernel")
+    out["head"] = nk_head_check("mpt", params["output"], cfg)
+    return dict(tag="mpt", eng=eng, ids=ids, head=head, future=future, out=out)
+
+
+def mpt_run(st: dict) -> tuple[dict, dict]:
+    """`serve_cell` on the MPT cell (greedy and the chain at C = 1 and 4,
+    eager and graphed, 2 runs each): 32 qmm_gemv and no flash kernel per
+    decoded token (the draft's attention is flash_decode), 32 qmm_mma per
+    verify. Returns (the cell, the default path's launches)."""
+    import numpy as np
+
+    eng, out = st["eng"], st["out"]
+    want_tok = {"qmm_gemv": MPT_GEMV, "flash_decode": 0, "flash_prefill": 0,
+                "ffn_out_norm": 0, "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("mpt", eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg,
+                      np.asarray(st["ids"]), FAMILY_NEW, want_tok, MPT_GEMV, fused=False,
+                      kernels=tuple(k for k in CORE_KERNELS if k != "flash_prefill"))
+    cell.pop("gen")
+    prompt = cell["variants"]["greedy graphed"]["launches_at_first_token"]
+    if prompt["flash_prefill"] or prompt["flash_decode"]:
+        raise AssertionError(f"mpt: a flash kernel ran in the greedy prompt: {prompt}")
+    log(f"[mpt] the greedy prompt: no flash kernel (the plain ALiBi read), {prompt['qmm_tc']} "
+        f"qmm_tc; EAGLE == greedy: {cell['eagle_tokens'] == cell['greedy_tokens']}")
+    out["cell"] = cell
+    return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
+
+
+def positions_path(report: dict, tmp: pathlib.Path) -> dict:
+    """Phase positions: the StarCoder-15B (+ EAGLE) and MPT-7B (+ EAGLE)
+    cells, minted into `tmp` and loaded through `Engine` both, their kernels
+    checked at their shapes while one worker thread runs the CPU port on a
+    copy of each cell's weights (its tokens then held against the card's),
+    then each run (host-timed, with the worker done) and freed. Returns the
+    launches of both default paths (greedy + EAGLE graphed at C = 1),
+    added."""
+    import gc
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    if shutil.disk_usage(tmp).free < 6 * 2**30:
+        raise RuntimeError("phase positions needs 6 GiB of disk")
+    gen = torch.Generator(device="cuda").manual_seed(187)
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu-port") as cpu:
+        cells = [starcoder_setup(tmp, gen, cpu), mpt_setup(tmp, gen, cpu)]
+        for st in cells:
+            st["out"]["cpu"] = cpu_tokens_finish(st["tag"], st["eng"], st["head"],
+                                                 st.pop("future"))
+    log(f"[time] positions setup (both cells' loads, kernel checks and CPU runs): "
+        f"{time.time() - t0:.1f} s")
+    out: dict = {}
+    launches: dict = {}
+    for st, run in zip(cells, (starcoder_run, mpt_run)):
+        t0 = time.time()
+        tag = st["tag"]
+        out[tag], part = run(st)
+        st.clear()  # the engine and its weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag]["seconds"] = time.time() - t0
+        log(f"[time] positions {tag}: {out[tag]['seconds']:.1f} s (the run)")
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    report["positions_path"] = out
     return launches
 
 
@@ -6713,6 +7130,8 @@ def main() -> int:
         families_launches = phase("families", families_path, report, pathlib.Path(tmp))
     with tempfile.TemporaryDirectory(prefix="eagle_layernorm_") as tmp:
         layernorm_launches = phase("layernorm", layernorm_path, report, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="eagle_positions_") as tmp:
+        positions_launches = phase("positions", positions_path, report, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -6746,6 +7165,7 @@ def main() -> int:
                 "llama3_path_launches": llama3_launches.get(name, 0),
                 "families_path_launches": families_launches.get(name, 0),
                 "layernorm_path_launches": layernorm_launches.get(name, 0),
+                "positions_path_launches": positions_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     vs_parent_d256 = {}  # --parent-report: the parent's time of each D = 256 row
@@ -6773,6 +7193,12 @@ def main() -> int:
                 k: gemma["launches"][f"flash_decode_{k}"] for k in ("mma_cluster", "wgmma")}
         return out
 
+    def g48(name):
+        """The kernel's checks at StarCoder-15B's g = 48 (phase positions)."""
+        return [{k: r[k] for k in ("t", "s", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}
+                for r in report["positions_path"]["starcoder"]["attention"] if r["name"] == name]
+
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
              shape="SIMT body (csrc/qmm_body.cuh): Q4_0 [4001 x 4096], 1 row (N % 4 != 0)",
@@ -6792,11 +7218,13 @@ def main() -> int:
                            dict(d256_row("flash_decode", VERIFY_ROWS),
                                 source="eagle_tpu_torch/csrc/flash_attention.cu"),
                            dict(d256_row("flash_decode", 512, "eagle prompt"),
-                                source="eagle_tpu_torch/csrc/flash_wgmma.cu")]),
+                                source="eagle_tpu_torch/csrc/flash_wgmma.cu")],
+             g48=g48("flash_decode")),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
              shape="T=512, S=512, 32 heads x 128, bf16 cache",
              head_dim_256=dict(d256_row("flash_prefill", 512, "generator"),
                                source="eagle_tpu_torch/csrc/flash_wgmma.cu"),
+             g48=g48("flash_prefill"),
              chat_feeds=[{k: v for k, v in r.items() if k in (
                  "t", "n", "q0", "s", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err")} for r in report["attention"] if "feed" in r.get("what", "")]),

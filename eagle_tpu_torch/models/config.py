@@ -1,14 +1,18 @@
 """Model hyperparameters (the fields of eagle_tpu's `ModelConfig` that the
 ported block reads, with the same names and defaults), and
 `ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3, Gemma,
-Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX and Command-R architectures.
+Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX, Command-R, GPT-2, StarCoder,
+BLOOM, MPT, Refact and JAIS architectures.
 
 The ported block is the pre-norm llama block and its config-driven
 branches: qkv biases (qwen2), per-head q/k RMSNorm (qwen3), sandwich norms,
 GELU and the embedding scale (gemma, gemma2), `query_pre_attn_scalar`, the
 attention and final softcaps and the alternating sliding window (gemma2);
 LayerNorm with biases, the parallel residual, partial rotary and the
-logit scale (phi2, starcoder2, stablelm, gptneox, command-r).
+logit scale (phi2, starcoder2, stablelm, gptneox, command-r); no rotary at
+all, with learned absolute positions (gpt2, starcoder) or ALiBi (bloom,
+mpt, refact, jais), the embedding LayerNorm (bloom), the gated FFN's
+biases and the 1 / head_dim score scale (jais).
 Fields of other
 architectures are kept at their defaults so that a config carried across
 from the reference can be checked: `check_ported` raises on any setting the
@@ -24,9 +28,26 @@ from ..gguf.constants import Keys
 #: the rotary LayerNorm families: mean-subtracted LayerNorm (with biases
 #: where the file has them) and no learned positions or ALiBi
 LAYERNORM_TARGETS = ("phi2", "starcoder2", "stablelm", "gptneox", "command-r")
+#: the architectures without rotary positions (a copy of eagle_tpu/models/
+#: config.py:NO_ROPE_ARCHS): learned absolute positions added to the token
+#: embedding (POS_EMBD_ARCHS) or an ALiBi bias on the scores (ALIBI_ARCHS)
+NO_ROPE_ARCHS = frozenset({"gpt2", "starcoder", "bloom", "mpt", "refact", "jais"})
+POS_EMBD_ARCHS = frozenset({"gpt2", "starcoder"})
+#: the reference's ALIBI_ARCHS less jina-bert-v2 (an encoder); Baichuan-13B,
+#: which the reference also reads as ALiBi, stays refused
+ALIBI_ARCHS = frozenset({"bloom", "mpt", "refact", "jais"})
+#: the position families: LayerNorm but refact (RMSNorm)
+POSITION_TARGETS = ("gpt2", "starcoder", "bloom", "mpt", "refact", "jais")
+#: architectures on the mean-subtracted LayerNorm (the reference's
+#: LAYERNORM_ARCHS among the ported ones)
+LAYERNORM_ARCHS = frozenset(LAYERNORM_TARGETS) | {"gpt2", "starcoder", "bloom", "mpt", "jais"}
 #: GGUF architectures the port reads: the targets, and EAGLE drafts
-TARGET_ARCHS = ("llama", "qwen2", "qwen3", "gemma", "gemma2") + LAYERNORM_TARGETS
+TARGET_ARCHS = (("llama", "qwen2", "qwen3", "gemma", "gemma2") + LAYERNORM_TARGETS
+                + POSITION_TARGETS)
 GGUF_ARCHS = TARGET_ARCHS + ("eagle",)
+#: the reference's GELU_ARCHS among the ported architectures (and the
+#: Gemma family)
+GELU_ARCHS = frozenset({"starcoder2", "phi2", "gptneox", "gpt2", "starcoder", "bloom", "mpt"})
 
 #: archs whose GGUF q/k rows carry convert_hf_to_gguf's adjacent-pair rope
 #: permutation, which the loader inverts (a copy of eagle_tpu/models/config.py:
@@ -112,6 +133,10 @@ class ModelConfig:
         arch = md[Keys.General.ARCHITECTURE]
         if arch not in GGUF_ARCHS:
             raise NotImplementedError(f"GGUF architecture {arch!r} is not ported yet ({_ITEM8})")
+        if float(md.get(f"{arch}.attention.max_alibi_bias", 8.0) or 8.0) != 8.0:
+            # the reference's slopes take ggml's default maximum bias of 8
+            raise NotImplementedError(f"an ALiBi maximum bias other than 8 is not ported "
+                                      f"yet ({_ITEM8})")
 
         def k(pattern: str, default=None):
             v = md.get(pattern.format(arch=arch), default)
@@ -132,15 +157,15 @@ class ModelConfig:
             attn_scale = float(md[f"{arch}.attention.scale"])
         elif f"{arch}.attention.query_pre_attn_scalar" in md:
             attn_scale = float(md[f"{arch}.attention.query_pre_attn_scalar"]) ** -0.5
-        else:
-            attn_scale = None
+        else:  # jais: muP's 1 / d_head, hard-coded (the reference's build_jais)
+            attn_scale = 1.0 / head_dim if arch == "jais" else None
         # keys the ported block does not implement are read all the same, so
         # that check_ported refuses such a file instead of ignoring them
         opt = lambda key, default: md.get(f"{arch}.{key}", default) or default
         gemma = arch.startswith("gemma")
         # LayerNorm archs store layer_norm_epsilon, RMSNorm archs
         # layer_norm_rms_epsilon (the reference's eps_key)
-        layer = arch in LAYERNORM_TARGETS
+        layer = arch in LAYERNORM_ARCHS
         eps_key = Keys.Attention.LAYERNORM_EPS if layer else Keys.Attention.LAYERNORM_RMS_EPS
         return ModelConfig(
             arch=arch,
@@ -153,7 +178,8 @@ class ModelConfig:
             n_ff=int(k(Keys.LLM.FEED_FORWARD_LENGTH)),
             rms_eps=float(k(eps_key, 1e-5)),
             rope_base=float(md.get(Keys.Rope.FREQ_BASE.format(arch=arch), 10000.0)),
-            rope_dim=int(md.get(Keys.Rope.DIMENSION_COUNT.format(arch=arch), head_dim)),
+            rope_dim=(0 if arch in NO_ROPE_ARCHS
+                      else int(md.get(Keys.Rope.DIMENSION_COUNT.format(arch=arch), head_dim))),
             n_ctx_train=int(k(Keys.LLM.CONTEXT_LENGTH, 2048)),
             rope_scaling=md.get(Keys.Rope.SCALING_TYPE.format(arch=arch)),
             rope_scale_factor=float(md.get(Keys.Rope.SCALING_FACTOR.format(arch=arch), 1.0)),
@@ -172,19 +198,21 @@ class ModelConfig:
             attn_scale=attn_scale,
             # the reference's GELU_ARCHS and PARALLEL_BLOCK_ARCHS among the ported
             # archs; gptneox and stablelm opt in to the parallel residual per file
-            act="gelu" if gemma or arch in ("starcoder2", "phi2", "gptneox") else "silu",
+            act="gelu" if gemma or arch in GELU_ARCHS else "silu",
             norm_type="layer" if layer else "rms",
             parallel_blocks=(arch in ("command-r", "phi2")
                              or bool(opt("use_parallel_residual", False))),
             logit_scale=float(opt("logit_scale", 1.0)),
             resid_scale=float(opt("residual_scale", 1.0)),
             v_head_dim=int(opt("attention.value_length", 0)),
+            has_pos_embd=arch in POS_EMBD_ARCHS,
+            use_alibi=arch in ALIBI_ARCHS,
         )
 
 
 #: (field, value the ported block needs): the other architectures' branches
 _PLAIN = (
-    ("has_pos_embd", False), ("use_alibi", False), ("mrope_sections", ()),
+    ("mrope_sections", ()),
     ("head_counts", ()), ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
     ("clamp_kqv", 0.0), ("nonparam_norms", False), ("rope_yarn_log_mul", 0.0),
 )
@@ -193,24 +221,34 @@ _PLAIN = (
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming ROADMAP queue 1, item 8, unless
     `cfg` is the pre-norm block with the branches the port implements:
-    RMSNorm, or LayerNorm for `LAYERNORM_TARGETS`; rotary GQA over the whole
-    head or its first `rope_dim` features, at any head width; SiLU or GELU;
-    the sequential or the parallel residual; the softcaps, the embedding,
-    attention and logit scales, sandwich norms and a sliding window on
-    every `swa_every`-th layer. That is the llama, Qwen2, Qwen3, Gemma,
-    Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX and Command-R families
-    (`TARGET_ARCHS`) and EAGLE drafts."""
+    RMSNorm, or LayerNorm for `LAYERNORM_ARCHS`; rotary GQA over the whole
+    head or its first `rope_dim` features, at any head width, or no rotary
+    for `NO_ROPE_ARCHS`, with learned positions for `POS_EMBD_ARCHS` and
+    ALiBi for `ALIBI_ARCHS`; SiLU or GELU; the sequential or the parallel
+    residual; the softcaps, the embedding, attention and logit scales,
+    sandwich norms and a sliding window on every `swa_every`-th layer. That
+    is the llama, Qwen2, Qwen3, Gemma, Gemma-2, Phi-2, StarCoder2, StableLM,
+    GPT-NeoX, Command-R, GPT-2, StarCoder, BLOOM, MPT, Refact and JAIS
+    families (`TARGET_ARCHS`) and EAGLE drafts. Each position branch is
+    admitted on its own architectures only."""
     bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PLAIN if getattr(cfg, k) != v]
     if cfg.norm_type not in ("rms", "layer"):
         bad.append(f"norm_type={cfg.norm_type!r}")
-    elif cfg.norm_type == "layer" and cfg.arch not in LAYERNORM_TARGETS:
+    elif cfg.norm_type == "layer" and cfg.arch not in LAYERNORM_ARCHS:
         bad.append(f"norm_type='layer' for arch {cfg.arch!r}")
     if cfg.act not in ("silu", "gelu"):
         bad.append(f"act={cfg.act!r}")
+    if cfg.has_pos_embd and cfg.arch not in POS_EMBD_ARCHS:
+        bad.append(f"has_pos_embd (learned positions) for arch {cfg.arch!r}")
+    if cfg.use_alibi and cfg.arch not in ALIBI_ARCHS:
+        bad.append(f"use_alibi for arch {cfg.arch!r}")
     if cfg.rope_dim <= 0:
-        bad.append(f"rope_dim={cfg.rope_dim} (no rotary: learned positions or ALiBi)")
+        if cfg.rope_dim < 0 or cfg.arch not in NO_ROPE_ARCHS:
+            bad.append(f"rope_dim={cfg.rope_dim} (no rotary) for arch {cfg.arch!r}")
     elif cfg.rope_dim > cfg.head_dim or cfg.rope_dim % 2:
         bad.append(f"rope_dim={cfg.rope_dim} over head_dim {cfg.head_dim}")
+    elif cfg.arch in NO_ROPE_ARCHS:
+        bad.append(f"rope_dim={cfg.rope_dim} for arch {cfg.arch!r}, which has no rotary")
     if cfg.v_dim != cfg.head_dim:
         bad.append(f"v_head_dim={cfg.v_head_dim}")
     if cfg.swa_window > 0 and cfg.swa_every <= 0:

@@ -2,7 +2,7 @@
 `ForwardOutput`, `embed_lookup`, `_block_norm`, `_ffn`, `_layer_step`,
 `llama_forward`, with the int8 and paged cache branches, Llama-3.1's rope
 factors, a tied ("nk") head, and the config-driven branches of the Qwen2,
-Qwen3, Gemma, Gemma-2 and rotary LayerNorm families).
+Qwen3, Gemma, Gemma-2, rotary LayerNorm and position families).
 
 RMSNorm, rotary GQA attention over the position-tagged cache, a gated FFN
 (SiLU, or GELU for the Gemma families), with fused `wqkv` and `w_gate_up` weights kept
@@ -31,7 +31,12 @@ config or from the weights present, as the reference reads them:
   the scores, `cfg.attn_softcap` and `cfg.final_softcap` (gemma2);
 - `cfg.swa_window` on every `cfg.swa_every`-th layer from layer 0: the mask
   there also hides slots `swa_window` or more behind the query (gemma2). The
-  layer index is a Python int, so the choice is made on the host.
+  layer index is a Python int, so the choice is made on the host;
+- `cfg.rope_dim == 0`: no rotary (gpt2, starcoder, bloom, mpt, refact,
+  jais); `pos_embd`: the learned position row added to the embedding
+  (gpt2, starcoder); `tok_embd_norm(_b)`: a LayerNorm of the embedding
+  (bloom); `cfg.use_alibi`: the scores biased by -slope_h * distance
+  (bloom, mpt, refact, jais); `b_gate_up`: the gated FFN's biases (jais).
 Any other architecture's weights or config raise NotImplementedError.
 
 The cache is updated in place: each layer writes its K/V rows into `kv.k` /
@@ -44,7 +49,9 @@ reference's dispatch (llama.py:516-543) takes its Pallas kernels:
 kernels do not take (outside 64 / 128 / 256, where the reference's `d % 128`
 gate sends it to XLA) read through the plain `ops/attention.py:
 gqa_attention`, as the reference's einsums: a choice made from the config
-on the host. So do
+on the host. So does an ALiBi model on every cache form (the reference's
+flash gates require `alibi is None`), its key positions the slots' tags. So
+do
 an int8 cache (its rows quantized as they are written) and a paged pool
 (`runtime/paged_kv.py`: written through the row's page table, read as the
 mapped pages gathered per row), which the reference reads with XLA's
@@ -54,9 +61,11 @@ an int8 paged read to the compute dtype, as the reference's."""
 from __future__ import annotations
 
 import functools
+import math
 import os
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -73,10 +82,10 @@ from ..runtime.paged_kv import PagedKVCache, gather_pages
 from .config import ModelConfig, check_ported
 
 _TOP_KEYS = {"tok_embd", "layers", "output_norm", "output_norm_b", "output", "output_b",
-             "rope_factors"}
+             "rope_factors", "pos_embd", "tok_embd_norm", "tok_embd_norm_b"}
 _LAYER_KEYS = {"attn_norm", "wqkv", "wo", "ffn_norm", "w_gate_up", "w_up", "w_down", "bqkv",
                "attn_q_norm", "attn_k_norm", "post_attn_norm", "post_ffn_norm",
-               "attn_norm_b", "ffn_norm_b", "bo", "b_up", "b_down"}
+               "attn_norm_b", "ffn_norm_b", "bo", "b_up", "b_down", "b_gate_up"}
 
 
 class ForwardOutput(NamedTuple):
@@ -96,6 +105,8 @@ def check_layer_keys(layers: dict[str, Any], cfg: ModelConfig | None = None) -> 
     if missing:
         raise NotImplementedError(f"only fused wqkv layers with a fused w_gate_up or a no-gate "
                                   f"w_up are ported; missing {sorted(missing)}")
+    if "b_gate_up" in layers and "w_gate_up" not in layers:
+        raise NotImplementedError("a gate/up bias without a fused w_gate_up is not ported")
     if "b_up" in layers and "w_up" not in layers:
         # the reference adds b_up to a gated FFN only beside b_gate (jais)
         raise NotImplementedError("an up bias on a gated FFN is not ported (ROADMAP queue 1, "
@@ -131,6 +142,39 @@ def embed_lookup(tok_embd: QTensor | torch.Tensor, tokens: torch.Tensor) -> torc
             out = out + tok_embd.bias[tokens].float()[..., None]
         return out.reshape(q.shape)
     return tok_embd[tokens].float()
+
+
+#: (n_heads, device) -> ALiBi slopes [H] f32 on the device, made once, so a
+#: forward captured into a CUDA graph copies nothing from the host
+_SLOPES: dict[tuple, torch.Tensor] = {}
+
+
+def alibi_slopes(n_heads: int, device) -> torch.Tensor:
+    """Per-head ALiBi slopes [H] f32 (a copy of eagle_tpu/models/llama.py:
+    alibi_slopes: Press et al.'s, as HF and ggml give them at a maximum bias
+    of 8): a geometric 2^(-8/n) series over the largest power-of-two head
+    count n, then 2^(-4/n)-stepped odd powers for the rest."""
+    key = (n_heads, str(torch.device(device)))
+    if key not in _SLOPES:
+        n = 2 ** math.floor(math.log2(n_heads))
+        base = 2.0 ** (-8.0 / n)
+        slopes = [base ** (i + 1) for i in range(n)]
+        if n < n_heads:
+            base2 = 2.0 ** (-4.0 / n)
+            slopes += [base2 ** (2 * i + 1) for i in range(n_heads - n)]
+        _SLOPES[key] = torch.from_numpy(np.asarray(slopes, np.float32)).to(device)
+    return _SLOPES[key]
+
+
+def position_rows(pos_embd: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """pos_embd[positions] with JAX's gather semantics, as the reference
+    indexes it: a negative index wraps once (+ n_pos), then the index is
+    clamped into [0, n_pos), so a pad row (position -1) takes the last row
+    and a position past the table its last row too. PyTorch's indexing
+    raises there on the CPU and asserts on CUDA."""
+    n = pos_embd.shape[0]
+    idx = torch.where(positions < 0, positions + n, positions).clamp(0, n - 1)
+    return pos_embd[idx.long()]
 
 
 def fused_ffn_mode() -> str:
@@ -186,11 +230,15 @@ def _block_norm(cfg: ModelConfig, layers: dict, key: str, x: torch.Tensor, li: i
 def _ffn(cfg: ModelConfig, layers: dict, li: int, ffn_in: torch.Tensor, compute_dtype
          ) -> torch.Tensor:
     """The FFN (the reference's `_ffn`, llama.py:178-200): the fused gated
-    act(gate) * up, or the no-gate MLP act(x W_up + b_up), then W_down and
-    `b_down` where the layers carry it."""
+    act(gate) * up (with `b_gate_up` added first where the layers carry
+    it), or the no-gate MLP act(x W_up + b_up), then W_down and `b_down`
+    where the layers carry it."""
     act = F.silu if cfg.act == "silu" else functools.partial(F.gelu, approximate="tanh")
     if "w_gate_up" in layers:
-        gate, up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype).chunk(2, dim=-1)
+        gate_up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype)
+        if "b_gate_up" in layers:  # jais's gate and up biases
+            gate_up = gate_up + layers["b_gate_up"][li].to(gate_up.dtype)
+        gate, up = gate_up.chunk(2, dim=-1)
         h = act(gate) * up
     else:
         up = qmatmul_layer(ffn_in, layers["w_up"], li, compute_dtype)
@@ -223,13 +271,17 @@ def _layer_step(
     page_table: torch.Tensor | None = None,  # [B, MP]: the caches are page pools
     page_size: int = 0,
     mask_swa: torch.Tensor | None = None,  # [B, T, S_read]: `mask` within the window
+    alibi: torch.Tensor | None = None,  # [H] ALiBi slopes
+    key_tags: torch.Tensor | None = None,  # [B, >= S_read] the slots' tags (ALiBi)
 ) -> torch.Tensor:
     """One transformer layer; returns the new residual stream. With
     `fused_ffn` "1"/"all"/"wo", at most 64 rows and weights that
     `supports_ffn_block` admits, the attention output, residual add, FFN
     norm and FFN go through the fused block (ops/ffn.py), as the reference's
     llama.py:549-577 does; otherwise through qmm and plain ops. `mask_swa`
-    replaces `mask` on every `cfg.swa_every`-th layer from layer 0."""
+    replaces `mask` on every `cfg.swa_every`-th layer from layer 0. With
+    `alibi`, every cache form reads through the plain `gqa_attention`,
+    the key positions `key_tags` sliced to the read bound."""
     b, t, _ = x.shape
     h, h_kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn_in = _block_norm(cfg, layers, "attn_norm", x, li) if "attn_norm" in layers else x
@@ -246,9 +298,14 @@ def _layer_step(
     if "attn_q_norm" in layers:  # qwen3: per-head RMSNorm (weight [Dh]) before rope
         q = rms_norm(q, layers["attn_q_norm"][li], cfg.rms_eps)
         k = rms_norm(k, layers["attn_k_norm"][li], cfg.rms_eps)
-    ms = rope_mscale_cfg(cfg)
-    q = apply_rope(q, positions, inv_freq, ms)
-    k = apply_rope(k, positions, inv_freq, ms)
+    if cfg.rope_dim > 0:  # the position families have no rotary
+        ms = rope_mscale_cfg(cfg)
+        q = apply_rope(q, positions, inv_freq, ms)
+        k = apply_rope(k, positions, inv_freq, ms)
+    # the plain read's keyword arguments: an ALiBi bias by the slots' tags
+    plain = dict(scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+    if alibi is not None:
+        plain.update(alibi=alibi, q_pos=positions)
 
     k_hm, v_hm = k.transpose(1, 2), v.transpose(1, 2)  # [B, H_kv, T, D]
     if k_scale is not None:  # int8: per-vector absmax codes, quantized on write
@@ -268,24 +325,31 @@ def _layer_step(
                                    compute_dtype)
             v_read = dequantize_kv(v_read, gather_pages(v_scale, li, page_table, n_read),
                                    compute_dtype)
-        attn = gqa_attention(q, k_read, v_read, mask[..., :n_read * page_size],
-                             scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+        n_slots = n_read * page_size
+        if alibi is not None:
+            plain["k_pos"] = key_tags[:, :n_slots]
+        attn = gqa_attention(q, k_read, v_read, mask[..., :n_slots], **plain)
     elif k_scale is not None:
         for cache, upd in ((k_cache, k_hm), (v_cache, v_hm), (k_scale, k_s), (v_scale, v_s)):
             _write_rows(cache, li, slots, upd)
         lim = kv_limit if kv_limit is not None else k_cache.shape[3]
+        if alibi is not None:
+            plain["k_pos"] = key_tags[:, :lim]
         attn = gqa_attention(q, dequantize_kv(k_cache[li, :, :, :lim], k_scale[li, :, :, :lim]),
                              dequantize_kv(v_cache[li, :, :, :lim], v_scale[li, :, :, :lim]),
-                             mask[..., :lim], scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+                             mask[..., :lim], **plain)
     else:
         _write_rows(k_cache, li, slots, k_hm)
         _write_rows(v_cache, li, slots, v_hm)
         lim = kv_limit if kv_limit is not None else k_cache.shape[3]
-        # no flash kernel takes the softcap or a head width outside HEAD_DIMS:
-        # the reference reads both through its einsums (llama.py:516-543)
-        if cfg.attn_softcap != 0 or dh not in HEAD_DIMS:
+        # no flash kernel takes the softcap, ALiBi or a head width outside
+        # HEAD_DIMS: the reference reads them through its einsums
+        # (llama.py:516-543)
+        if cfg.attn_softcap != 0 or alibi is not None or dh not in HEAD_DIMS:
+            if alibi is not None:
+                plain["k_pos"] = key_tags[:, :lim]
             attn = gqa_attention(q, k_cache[li, :, :, :lim], v_cache[li, :, :, :lim], mask,
-                                 scale=cfg.attn_scale, softcap=cfg.attn_softcap)
+                                 **plain)
         elif slot_tags is not None:
             attn = flash_attention_prefill(q, k_cache, v_cache, positions, slot_tags, li,
                                            scale=cfg.attn_scale, s_limit=lim)
@@ -377,6 +441,11 @@ def llama_forward(
     x = embed_lookup(params["tok_embd"], tokens)
     if cfg.embd_scale != 1.0:  # gemma: embeddings times sqrt(n_embd)
         x = x * cfg.embd_scale
+    if cfg.has_pos_embd:  # gpt2 / starcoder learned absolute positions
+        x = x + position_rows(params["pos_embd"], positions).to(x.dtype)
+    if "tok_embd_norm" in params:  # bloom's embedding LayerNorm
+        x = layer_norm(x, params["tok_embd_norm"], params.get("tok_embd_norm_b"), cfg.rms_eps)
+    alibi = alibi_slopes(cfg.n_heads, x.device) if cfg.use_alibi else None
     inv_freq = rope_inv_freq(cfg, params.get("rope_factors"), device=x.device)
     kv_limit, mask = read_bound(kv, kv_limit, mask)
     fused = fused_ffn_mode()
@@ -393,7 +462,7 @@ def llama_forward(
         x = _layer_step(
             cfg, inv_freq, positions, slots, mask, compute_dtype, x, layers, li,
             kv.k, kv.v, kv_limit=kv_limit, slot_tags=slot_tags, fused_ffn=fused,
-            mask_swa=mask_swa, **cache_kw(kv),
+            mask_swa=mask_swa, alibi=alibi, key_tags=kv.slot_pos, **cache_kw(kv),
         )
     if cfg.norm_type == "layer":
         hidden = layer_norm(x, params.get("output_norm"), params.get("output_norm_b"),

@@ -33,10 +33,16 @@ pre-fused `attn_qkv.weight` (gptneox) loads as `wqkv`, its q/k rows
 un-permuted where the arch is permuted; a file without `ffn_gate` keeps
 `w_up` alone (the no-gate MLP), and one without `ffn_norm` (phi2,
 command-r: one shared input norm) has no `ffn_norm`. `output_norm.bias` and
-`output.bias` load as `output_norm_b` and `output_b`. Anything else (MoE,
-MLA, flat q/k norms, per-layer head counts, recurrent layers, learned
-positions, ...) raises NotImplementedError, as does an EAGLE draft with
-biases (the reference's `load_eagle_params` drops them)."""
+`output.bias` load as `output_norm_b` and `output_b`. The position
+families' tensors load as the reference's (loader.py:831-843): GPT-2's and
+StarCoder's learned positions `position_embd.weight` as `pos_embd` (f32 [n_pos,
+D]), BLOOM's embedding LayerNorm `token_embd_norm.weight` / `.bias` as
+`tok_embd_norm(_b)`, and JAIS's gate bias `ffn_gate.bias`, fused with
+`ffn_up.bias` into `b_gate_up` as `w_gate_up` fuses their weights
+(loader.py:160-164). Anything else (MoE, MLA, flat q/k norms, per-layer
+head counts, recurrent layers, ...) raises NotImplementedError, as does an
+EAGLE draft with biases (the reference's `load_eagle_params` drops
+them)."""
 
 from __future__ import annotations
 
@@ -82,11 +88,13 @@ OPTIONAL_BIASES = {
     "bo": "attn_output.bias",
     "b_up": "ffn_up.bias",
     "b_down": "ffn_down.bias",
+    "b_gate": "ffn_gate.bias",  # jais: fused with b_up into b_gate_up
 }
 BIASES = ("attn_q.bias", "attn_k.bias", "attn_v.bias")  # fused into `bqkv`
 FUSED_QKV = ("attn_qkv.weight", "attn_qkv.bias")  # gptneox's pre-fused projection
 _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output_norm.bias", "output.weight",
-                "output.bias", "rope_freqs.weight"}
+                "output.bias", "rope_freqs.weight", "position_embd.weight",
+                "token_embd_norm.weight", "token_embd_norm.bias"}
 _EAGLE_TOP_TENSORS = {"token_embd.weight", "fc.weight", "fc.bias"}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16)
 
@@ -206,12 +214,15 @@ def _stack(items: list) -> QTensor | torch.Tensor:
 
 
 def fuse_layer_weights(stacked: dict[str, Any]) -> dict[str, Any]:
-    """Fuse q/k/v into `wqkv` and gate/up into `w_gate_up` along N."""
+    """Fuse q/k/v into `wqkv` and gate/up into `w_gate_up` along N, and a
+    gate bias with the up bias into `b_gate_up` (jais)."""
     out = dict(stacked)
     if "wq" in out:
         out["wqkv"] = concat_qtensors([out.pop("wq"), out.pop("wk"), out.pop("wv")])
     if "w_gate" in out:
         out["w_gate_up"] = concat_qtensors([out.pop("w_gate"), out.pop("w_up")])
+        if "b_gate" in out:
+            out["b_gate_up"] = torch.cat([out.pop("b_gate"), out.pop("b_up")], dim=-1)
     return out
 
 
@@ -295,6 +306,17 @@ def load_llama_params(path: str | Path, device="cuda",
         params["output"] = params["tok_embd"]
     if "output.bias" in reader.tensors:  # phi2's lm_head bias
         params["output_b"] = ld.tensor("output.bias")
+    if "token_embd_norm.weight" in reader.tensors:  # bloom's embedding LayerNorm
+        params["tok_embd_norm"] = ld.tensor("token_embd_norm.weight")
+        if "token_embd_norm.bias" in reader.tensors:
+            params["tok_embd_norm_b"] = ld.tensor("token_embd_norm.bias")
+    if "position_embd.weight" in reader.tensors:  # gpt2 / starcoder learned positions
+        if reader.tensors["position_embd.weight"].ggml_type not in _DENSE_TYPES:
+            # the reference dequantizes it; the port's dense read of block
+            # formats is ROADMAP queue 1, item 3
+            raise NotImplementedError("a quantized position_embd.weight is not ported yet "
+                                      "(ROADMAP queue 1, item 3)")
+        params["pos_embd"] = ld.tensor("position_embd.weight").reshape(-1, cfg.n_embd)
     return params, cfg, reader.metadata
 
 

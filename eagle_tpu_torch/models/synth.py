@@ -2,7 +2,8 @@
 (port of eagle_tpu/models/synth.py: `VICUNA_7B`, `synth_qtensor`,
 `synth_llama_params`, `synth_eagle_params`), with the optional tensors of
 the Qwen2, Qwen3 and Gemma-2 branches (`bqkv`, per-head q/k norms, sandwich
-norms).
+norms) and of the position families (learned positions `pos_embd`, the
+embedding LayerNorm `tok_embd_norm(_b)`, a no-gate `w_up`, a tied head).
 
 Weights are generated on the device with a seeded `torch.Generator` — no
 host upload — in the fused (`wqkv`, `w_gate_up`), layer-stacked "kn" layout
@@ -96,10 +97,18 @@ def synth_llama_params(
     coded: bool = False,
     device="cuda",
     qk_norm: bool = False,
+    gate: bool = True,
+    embd_norm: bool = False,
+    tied: bool = False,
 ) -> dict[str, Any]:
     """Target params: fused qkv and gate+up along N, layer-stacked. With
-    `cfg.attn_bias` also `bqkv` (qwen2), with `qk_norm` per-head q/k norms
-    (qwen3), with `cfg.post_norms` the sandwich norms (gemma2)."""
+    `cfg.attn_bias` also `bqkv` (qwen2; the bias of a pre-fused `attn_qkv`),
+    with `qk_norm` per-head q/k norms (qwen3), with `cfg.post_norms` the
+    sandwich norms (gemma2). Without `gate` the FFN is the no-gate MLP's
+    `w_up` (gpt2, starcoder, bloom, mpt); `cfg.has_pos_embd` adds learned
+    positions `pos_embd` [n_ctx_train, D] f32 (gpt2, starcoder), `embd_norm`
+    the embedding LayerNorm's weight and bias (bloom), and `tied` makes the
+    embedding table the head (gpt2, bloom, mpt)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d, dh, h, hkv, f, v = (
@@ -112,7 +121,8 @@ def synth_llama_params(
         "wqkv": synth_qtensor(gen, (h + 2 * hkv) * dh, d, stack=L, **qa),
         "wo": synth_qtensor(gen, d, h * dh, stack=L, **qa),
         "ffn_norm": torch.ones((L, d), device=dev),
-        "w_gate_up": synth_qtensor(gen, 2 * f, d, stack=L, **qa),
+        "w_gate_up" if gate else "w_up": synth_qtensor(gen, (2 if gate else 1) * f, d, stack=L,
+                                                        **qa),
         "w_down": synth_qtensor(gen, d, f, stack=L, **qa),
     }
     emb = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(embed_dtype)
@@ -124,12 +134,18 @@ def synth_llama_params(
     if cfg.post_norms:
         layers["post_attn_norm"] = torch.ones((L, d), device=dev)
         layers["post_ffn_norm"] = torch.ones((L, d), device=dev)
-    return {
+    params = {
         "tok_embd": emb,
         "layers": layers,
         "output_norm": torch.ones((d,), device=dev),
-        "output": synth_qtensor(gen, v, d, **qa),
+        "output": emb if tied else synth_qtensor(gen, v, d, **qa),
     }
+    if cfg.has_pos_embd:
+        params["pos_embd"] = torch.randn((cfg.n_ctx_train, d), generator=gen, device=dev) * 0.02
+    if embd_norm:
+        params["tok_embd_norm"] = torch.ones((d,), device=dev)
+        params["tok_embd_norm_b"] = torch.zeros((d,), device=dev)
+    return params
 
 
 def synth_eagle_params(

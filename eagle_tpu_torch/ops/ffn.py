@@ -59,16 +59,17 @@ _GATE_UP_MMA_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void
 
 def supports_ffn_block(layers: dict, cfg) -> bool:
     """The plain pre-norm FFN with a fused gate_up: RMSNorm, the sequential
-    residual, no biases after the attention (`bo`, `b_up`, `b_down`, the FFN
-    norm's `ffn_norm_b`), no sandwich norms, no MoE router, quantized "kn"
-    layer-stacked weights with materialized scales and 128-aligned extents
+    residual, no biases after the attention (`bo`, `b_up`, `b_down`, jais's
+    `b_gate_up`, the FFN norm's `ffn_norm_b`), no sandwich norms, no MoE
+    router, quantized "kn" layer-stacked weights with materialized scales
+    and 128-aligned extents
     (the reference's gate, `pallas_ffn.py:47`, which reads neither the norm
     type, the residual form nor the biases: under it a stablelm's FFN norm
     would become an RMSNorm without its bias)."""
     if getattr(cfg, "norm_type", "rms") != "rms" or getattr(cfg, "parallel_blocks", False):
         return False
     if any(k in layers for k in ("post_attn_norm", "post_ffn_norm", "ffn_gate_inp", "bo",
-                                 "b_up", "b_down", "ffn_norm_b")):
+                                 "b_up", "b_down", "b_gate_up", "ffn_norm_b")):
         return False
     if "ffn_norm" not in layers or "w_gate_up" not in layers:
         return False

@@ -101,7 +101,8 @@ def _blend_on(device, *key) -> torch.Tensor:
 
 def rope_freqs_cfg(cfg, *, device) -> tuple[torch.Tensor, float]:
     """(inv_freq [rope_dim/2], mscale) from a ModelConfig: unscaled, linear
-    (`rope_scale_factor`) or YaRN-blended frequencies, as ggml_rope_ext."""
+    (`rope_scale_factor`) or YaRN-blended frequencies, as ggml_rope_ext;
+    empty where `rope_dim` is 0 (no rotary)."""
     factor = getattr(cfg, "rope_scale_factor", 1.0) or 1.0
     ext, orig = _yarn_active(cfg)
     inv_freq = rope_freqs(cfg.rope_dim, cfg.rope_base, 1.0, device=device)
@@ -144,8 +145,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
     With R < D (partial rotary: phi2, stablelm, gptneox) only the first R
     features rotate, half-split within them, mscale on them alone, and the
     other D - R pass through, as the reference's forward
-    (eagle_tpu/models/llama.py:366-379)."""
+    (eagle_tpu/models/llama.py:366-379). R = 0 (an empty `inv_freq`: the
+    architectures without rotary, `rope_dim` 0) returns x itself."""
     rd = 2 * inv_freq.shape[-1]
+    if rd == 0:
+        return x
     if rd < x.shape[-1]:
         return torch.cat([apply_rope(x[..., :rd], positions, inv_freq, mscale),
                           x[..., rd:]], dim=-1)

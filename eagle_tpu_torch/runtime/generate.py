@@ -159,9 +159,23 @@ class Generator:
         forward's rope frequencies (`_shift_freq`)."""
         context_shift(self.kv, self._shift_freq(), n_keep, n_discard)
 
+    def refuse_self_extend(self) -> None:
+        """Self-Extend remaps the tags and never moves a slot. Under ALiBi the
+        port reads the key's distance from its tag, which would follow the
+        remap; the reference reads it from the slot index, which does not,
+        so there is no reference result to hold such a run to (ROADMAP
+        queue 3)."""
+        if self.cfg.use_alibi:
+            raise NotImplementedError(
+                f"Self-Extend on an ALiBi model ({self.cfg.arch}) is not ported: the reference "
+                "takes the ALiBi distance from the slot index, which the remap leaves alone "
+                "(ROADMAP queue 3)")
+
     def self_extend(self, n_past: int, ga_i: int, ga_n: int, ga_w: int) -> tuple[int, int]:
         """`kvcache.self_extend_shift` on this engine's cache (the
-        frequencies of `_shift_freq`); returns (n_past, ga_i) after it."""
+        frequencies of `_shift_freq`); returns (n_past, ga_i) after it.
+        Refused on an ALiBi model (`refuse_self_extend`)."""
+        self.refuse_self_extend()
         return self_extend_shift(self.kv, self._shift_freq(), n_past, ga_i, ga_n, ga_w)
 
     def sampler_state(self, scfg: SamplerConfig) -> SamplerState | None:
@@ -281,6 +295,8 @@ class Generator:
         n = len(prompt)
         if n < 1:  # the last prompt row and the first decode slot would be -1
             raise ValueError("generate needs a prompt of at least one token")
+        if grp_attn_n > 1:
+            self.refuse_self_extend()
         # a reused Generator must not leak stale rows into the mask
         self.kv.rollback(torch.zeros((self.batch,), dtype=torch.int32, device=self.device))
         logits = self._prompt(prompt, session_path)

@@ -146,7 +146,12 @@ def _rotate_keys(kv: KVCache, k: torch.Tensor, positions: torch.Tensor, inv_freq
     """Rotate keys k [L, B, H, T, D] (views into kv.k) by `positions`
     (broadcastable to [L, B, T]): a float cache on its own values cast back
     to its dtype, an int8 cache dequantized to f32, rotated and requantized.
-    Returns (keys, their scales or None), to be written by the caller."""
+    Returns (keys, their scales or None), to be written by the caller. An
+    empty `inv_freq` (no rotary: learned positions or ALiBi) leaves the keys,
+    codes and scales as they are: copies, since the caller's target range
+    may overlap theirs."""
+    if inv_freq.shape[-1] == 0:
+        return k.clone(), None if scale is None else scale.clone()
     src = k if scale is None else dequantize_kv(k, scale, torch.float32)
     out = apply_rope(src.transpose(2, 3), positions, inv_freq).transpose(2, 3)
     if scale is None:
@@ -163,7 +168,10 @@ def context_shift(kv: KVCache, inv_freq: torch.Tensor, n_keep: int, n_discard: i
     scales move as they are. The tags of the moved slots drop by n_discard
     and the tail that slid away empties. The source and target ranges
     overlap, so the moved rows go through a temporary. Slots past `max_seq`
-    (the spill) are untouched."""
+    (the spill) are untouched. Each moved slot's tag drops with its index,
+    so a cache whose slots held their own positions still does: an ALiBi
+    distance (tag to tag) is what a recompute at the new positions gives,
+    and without rotary the keys move as they are."""
     s = kv.max_seq
     start = n_keep + n_discard
     if n_keep < 0 or n_discard <= 0 or start > s:

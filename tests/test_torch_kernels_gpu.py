@@ -2155,3 +2155,146 @@ def test_layernorm_fused_ffn_stays_off(cuda, monkeypatch):
         toks[mode] = gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8)
         assert _build.launches["gate_up_act"] == _build.launches["ffn_out_norm"] == 0
     assert toks["0"] == toks["1"]
+
+
+# ---- the position families (`-k positions`) -----------------------------------
+
+#: (name, weight form, N, K, stacked) of the position cells' new qmm shapes:
+#: StarCoder-15B (wqkv N 6,400 over K 6,144 with one KV head; w_up N 24,576;
+#: w_down K 24,576; lm_head N 49,152; its EAGLE draft's fc K 12,288) and
+#: MPT-7B (wqkv N 12,288 over K 4,096; w_up N 16,384; w_down K 16,384; the
+#: draft's fc K 8,192; the head is tied, "nk")
+POS_SHAPES = [("starcoder_wqkv", "q4k_packed_coded", 6400, 6144, True),
+              ("starcoder_w_up", "q4k_packed_coded", 24576, 6144, True),
+              ("starcoder_w_down", "q4k_packed_coded", 6144, 24576, True),
+              ("starcoder_lm_head", "q6k_int8_coded", 49152, 6144, False),
+              ("starcoder_draft_fc", "q8_0_int8_f32", 6144, 12288, False),
+              ("mpt_wqkv", "q4k_packed_coded", 12288, 4096, True),
+              ("mpt_w_up", "q4k_packed_coded", 16384, 4096, True),
+              ("mpt_w_down", "q4k_packed_coded", 4096, 16384, True),
+              ("mpt_draft_fc", "q8_0_int8_f32", 4096, 8192, False)]
+
+
+@pytest.mark.parametrize("rows", [1, 6, 300])
+@pytest.mark.parametrize("name,form,n,k,stacked", POS_SHAPES, ids=[s[0] for s in POS_SHAPES])
+def test_positions_qmm_shapes_every_route(cuda, name, form, n, k, stacked, rows):
+    """qmm at the position cells' new shapes, bf16, on each route (1 row:
+    the 1-row body; 6: the small-row body; 300: wgmma), against the plain
+    version; K splits on whole super-blocks at K = 6,144 (24), 24,576 (96),
+    4,096 (16) and 16,384 (64)."""
+    _qmm_route_case(cuda, form, n, k, stacked, rows)
+
+
+@pytest.mark.parametrize("t", [1, 6, 300])
+@pytest.mark.parametrize("name", ["flash_decode", "flash_prefill"])
+def test_positions_flash_g48(cuda, name, t):
+    """Both kernels at StarCoder-15B's g = 48 (48 query heads over one KV
+    head of 128, bf16 cache, 1,024 slots with a hole; T·g 48, 288 and
+    14,400) against their plain versions, with a row that sees nothing
+    (the uniform average) in flash_decode's mask."""
+    b, h, h_kv, d, s = 1, 48, 1, 128, 1024
+    kc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    t0 = 700 if t < 300 else 0
+    tags = torch.arange(s, dtype=torch.int32, device="cuda")[None].clone()
+    tags[:, t0 + t:] = -1
+    tags[:, 100:140] = -1
+    pos = (t0 + torch.arange(t, dtype=torch.int32, device="cuda"))[None]
+    q = torch.randn((b, t, h, d), generator=cuda, device="cuda")
+    mask = causal_mask_from_tags(tags, pos)
+    mask[0, t // 2] = False
+    _build.reset_counts()
+    if name == "flash_decode":
+        got = fa.flash_attention_cached(q, kc, vc, mask, 1)
+    else:
+        got = fa.flash_attention_prefill(q, kc, vc, pos, tags, 1)
+    assert _build.launches[name] == 1 and _build.plain_calls[name] == 0
+    if name == "flash_decode":
+        want = fa.flash_attention_cached_plain(q, kc, vc, mask, 1)
+        _uniform_rows(got, vc, 1, s, h, 0, t // 2)
+    else:
+        want = fa.flash_attention_prefill_plain(q, kc, vc, pos, tags, 1)
+    _close(got, want, TOL[torch.bfloat16])
+
+
+#: tiny models of the six position families: (config changes, synth_llama_
+#: params' layout: an FFN gate, tied, the embedding LayerNorm; biases on the
+#: norms / q/k/v / attn_output / the FFN; jais's gate bias)
+POS_CFGS = {
+    "gpt2": (dict(arch="gpt2", norm_type="layer", act="gelu", rope_dim=0, has_pos_embd=True,
+                  n_kv_heads=4), dict(gate=False, tied=True), True, False),
+    "starcoder": (dict(arch="starcoder", norm_type="layer", act="gelu", rope_dim=0,
+                       has_pos_embd=True, n_kv_heads=1), dict(gate=False), True, False),
+    "bloom": (dict(arch="bloom", norm_type="layer", act="gelu", rope_dim=0, use_alibi=True,
+                   n_kv_heads=4), dict(gate=False, tied=True, embd_norm=True), True, False),
+    "mpt": (dict(arch="mpt", norm_type="layer", act="gelu", rope_dim=0, use_alibi=True,
+                 n_kv_heads=4), dict(gate=False, tied=True), False, False),
+    "refact": (dict(arch="refact", rope_dim=0, use_alibi=True, n_kv_heads=1), {}, False, False),
+    "jais": (dict(arch="jais", norm_type="layer", rope_dim=0, use_alibi=True, n_kv_heads=4,
+                  attn_scale=1 / 64, embd_scale=1.5), {}, True, True),
+}
+
+
+def _position_family(name):
+    """A tiny target of `POS_CFGS[name]` on the card: Q4_K packed coded
+    weights in synth_llama_params' layout for the family, its biases added."""
+    change, layout, biases, gate_b = POS_CFGS[name]
+    cfg = dataclasses.replace(TINY_CFG, **change)
+    p = synth_llama_params(cfg, seed=13, packed=True, coded=True, device="cuda", **layout)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    L, d, f = cfg.n_layers, cfg.n_embd, cfg.n_ff
+    lay = p["layers"]
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 0.1  # noqa: E731
+    if biases:
+        lay["attn_norm_b"], lay["ffn_norm_b"], lay["bo"] = rnd(L, d), rnd(L, d), rnd(L, d)
+        lay["bqkv"] = rnd(L, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim)
+        lay["b_down"] = rnd(L, d)
+        if "w_up" in lay:
+            lay["b_up"] = rnd(L, f)
+        p["output_norm_b"] = rnd(d)
+    if gate_b:
+        lay["b_gate_up"] = rnd(L, 2 * f)
+    return cfg, p
+
+
+@pytest.mark.parametrize("name", list(POS_CFGS))
+def test_positions_tokens_card_equal_cpu(cuda, name):
+    """A tiny model of each position family: f32 greedy tokens through the
+    kernels on the card equal the plain path's on the CPU (learned positions
+    and ALiBi slopes made on the device); the ALiBi models read the plain
+    attention (no flash kernel), the learned-position ones the flash
+    kernels."""
+    cfg, params = _position_family(name)
+    toks = []
+    _build.reset_counts()
+    for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        gen = Generator(p, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device=dev)
+        toks.append(gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8))
+    assert toks[0] == toks[1]
+    assert (_build.launches["flash_decode"] > 0) == (not cfg.use_alibi)
+    assert (_build.launches["flash_prefill"] > 0) == (not cfg.use_alibi)
+
+
+@pytest.mark.parametrize("name", list(POS_CFGS))
+def test_positions_graphed_equals_eager(cuda, name):
+    """bf16 greedy tokens of each tiny position family graphed and eager,
+    bit for bit (the slopes and the position rows come from the device, so
+    the step graphs capture them); then the EAGLE chain (a llama draft) at 1
+    and 3 cycles per dispatch, graphed == eager."""
+    cfg, params = _position_family(name)
+    runs = [Generator(params, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                      cuda_graphs=graphed).generate(PROMPT * 2, max_new_tokens=40,
+                                                    stop_at_eos=False)
+            for graphed in (False, True)]
+    assert runs[0] == runs[1]
+    _, dp = _tiny_bf16()
+    dcfg = dataclasses.replace(TINY_CFG, n_layers=1, is_eagle=True)
+    for c in (1, 3):
+        runs = [EagleChainEngine(params, dp, cfg, dcfg, n_draft=3, max_seq=256,
+                                 kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                 eos_id=-1, device="cuda", cuda_graphs=graphed).generate(
+                    PROMPT, max_new_tokens=30, stop_at_eos=False, cycles_per_dispatch=c)
+                for graphed in (False, True)]
+        assert runs[0] == runs[1], c

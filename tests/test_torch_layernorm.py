@@ -629,4 +629,4 @@ def test_refused_weights_name_item_8(models):
             llama_forward(params, cfg, pos, pos, kv, pos,
                           causal_mask_from_tags(kv.slot_pos, pos))
     with pytest.raises(NotImplementedError, match="item 8"):
-        ModelConfig.from_gguf_metadata({"general.architecture": "gpt2"})
+        ModelConfig.from_gguf_metadata({"general.architecture": "falcon"})

@@ -148,7 +148,8 @@ def has_encoder(qtype) -> bool:
 
 #: the tensors of a llama-family layer
 LLAMA_LAYOUT = dict(fused_qkv=False, gate=True, ffn_norm=True, norm_b=False, qkv_b=False,
-                    bo=False, ffn_b=False, out_b=False)
+                    bo=False, ffn_b=False, out_b=False, gate_b=False, pos_embd=False,
+                    embd_norm=False)
 #: the LayerNorm families' tensors, as llama.cpp's tensor tables hold them:
 #: a fused attn_qkv, an FFN gate, an ffn_norm, the norms' biases, q/k/v
 #: biases, attn_output.bias, ffn_up / ffn_down biases, output.bias
@@ -160,6 +161,19 @@ LN_LAYOUTS = {
     "gptneox": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False, norm_b=True, qkv_b=True, bo=True,
                     ffn_b=True),
     "command-r": dict(LLAMA_LAYOUT, ffn_norm=False),
+    # the position families (no rotary): GPT-2 and StarCoder with learned
+    # positions, BLOOM with its embedding LayerNorm, MPT without any bias,
+    # JAIS with a gated FFN whose gate carries a bias too (refact is the
+    # llama layout: RMSNorm, separate q/k/v, a gated FFN, no biases)
+    "gpt2": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False, norm_b=True, qkv_b=True, bo=True,
+                 ffn_b=True, pos_embd=True),
+    "starcoder": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False, norm_b=True, qkv_b=True,
+                      bo=True, ffn_b=True, pos_embd=True),
+    "bloom": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False, norm_b=True, qkv_b=True, bo=True,
+                  ffn_b=True, embd_norm=True),
+    "mpt": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False),
+    "jais": dict(LLAMA_LAYOUT, fused_qkv=True, norm_b=True, qkv_b=True, bo=True, ffn_b=True,
+                 gate_b=True),
 }
 
 
@@ -168,7 +182,7 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
                          n_kv_heads: int | None = None, rope_factors=None,
                          tied: bool = False, arch: str = "llama", head_dim: int | None = None,
                          n_layers: int | None = None, n_heads: int | None = None,
-                         rope_dim: int | None = None):
+                         rope_dim: int | None = None, n_pos: int = 160):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
@@ -188,7 +202,10 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     tensors as llama.cpp names them: the norms' biases, q/k/v biases or a
     fused `attn_qkv`, `attn_output.bias`, the FFN without a gate and with
     biases, no `ffn_norm`, `output.bias`, each as the layout says, and
-    `layer_norm_epsilon` 1e-5; `head_dim`, `n_heads`, `n_layers` and
+    `layer_norm_epsilon` 1e-5 (the position families of `LN_LAYOUTS` also
+    `position_embd.weight` [n_pos, D] f32, `token_embd_norm` and an
+    `ffn_gate.bias`, each as the layout says; refact is written with the
+    llama layout); `head_dim`, `n_heads`, `n_layers` and
     `rope_dim` (partial rotary) set the target's (the draft keeps the tiny
     llama's). Returns (target path, draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
@@ -250,6 +267,8 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
         if lay["ffn_b"]:
             w.add_tensor(f"blk.{i}.ffn_up.bias", bias(f) * 0.2)
             w.add_tensor(f"blk.{i}.ffn_down.bias", bias(d) * 0.1)
+        if lay["gate_b"]:
+            w.add_tensor(f"blk.{i}.ffn_gate.bias", bias(f) * 0.2)
         if arch == "qwen3":
             for name in ("attn_q_norm", "attn_k_norm"):
                 w.add_tensor(f"blk.{i}.{name}.weight",
@@ -266,6 +285,12 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     for k, val in {**md, **(target_metadata or {})}.items():
         w.add(k, val)
     qmat(w, "token_embd.weight", v, d, emb_type, out_scale if tied else 0.5)
+    if ln is not None and ln["pos_embd"]:
+        w.add_tensor("position_embd.weight",
+                     (rng.standard_normal((n_pos, d)) * 0.3).astype(np.float32))
+    if ln is not None and ln["embd_norm"]:
+        w.add_tensor("token_embd_norm.weight", norm())
+        w.add_tensor("token_embd_norm.bias", bias(d) * 0.2)
     for i in range(jcfg.n_layers):
         layer(w, i, layer_type, jcfg, arch=arch)
     w.add_tensor("output_norm.weight", norm())
@@ -586,7 +611,9 @@ COMMAND_R_TEMPLATE = ("{{ bos_token }}{% for message in messages %}<|START_OF_TU
                       "<|END_OF_TURN_TOKEN|>{% endfor %}")
 #: each LayerNorm family's pre-tokenizer (llama.cpp's names for its files)
 LN_PRE = {"phi2": "phi-2", "starcoder2": "starcoder", "stablelm": "stablelm2",
-          "gptneox": "gpt-2", "command-r": "command-r"}
+          "gptneox": "gpt-2", "command-r": "command-r", "gpt2": "gpt-2",
+          "starcoder": "starcoder", "bloom": "bloom", "mpt": "mpt", "refact": "refact",
+          "jais": "jais"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -652,3 +679,36 @@ def tiny_layernorm_pair(tmp_path, name: str):
     arch, kw, md = LN_FAMILIES[name]
     return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=19, arch=arch,
                                 target_metadata={**ln_vocab(arch), **md}, **kw)
+
+
+#: the tiny position families (no rotary): (arch, write_tiny_gguf_pair's
+#: arguments, the target's metadata); 4 heads of 64 over n_embd 256
+POS_FAMILIES = {
+    # GPT-2: learned positions, LayerNorm with biases, a fused attn_qkv with
+    # its bias, a no-gate GELU MLP with biases, a tied head
+    "gpt2": ("gpt2", dict(n_kv_heads=4, tied=True, out_scale=0.1), {}),
+    # StarCoder: the same layers with multi-query attention (one KV head)
+    # and an output.weight
+    "starcoder": ("starcoder", dict(n_kv_heads=1), {}),
+    # BLOOM: ALiBi, the embedding LayerNorm, biases everywhere, tied
+    "bloom": ("bloom", dict(n_kv_heads=4, tied=True, out_scale=0.1), {}),
+    # MPT: ALiBi, LayerNorm without biases, no bias anywhere, tied
+    "mpt": ("mpt", dict(n_kv_heads=4, tied=True, out_scale=0.1), {}),
+    # Refact: ALiBi, RMSNorm, multi-query attention, a gated SiLU FFN
+    "refact": ("refact", dict(n_kv_heads=1), {}),
+    # JAIS: ALiBi, a gated SiLU FFN with gate / up / down biases, the
+    # 1 / head_dim score scale and an embedding scale
+    "jais": ("jais", dict(n_kv_heads=4), {"jais.embedding_scale": 1.5}),
+}
+
+
+def tiny_position_pair(tmp_path, name: str, n_pos: int = 160):
+    """A tiny Q8_0 target of `POS_FAMILIES[name]` (2 layers, width 256,
+    learned positions [n_pos, 256] where the family has them) with
+    `ln_vocab(arch)`, and an EAGLE draft."""
+    from eagle_tpu.gguf.constants import GGMLType
+
+    q8 = GGMLType.Q8_0
+    arch, kw, md = POS_FAMILIES[name]
+    return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=23, arch=arch,
+                                target_metadata={**ln_vocab(arch), **md}, n_pos=n_pos, **kw)
