@@ -380,6 +380,38 @@ positions. the position families at their published shapes, cut in depth,
    target; the draft's attention is flash_decode). Both default paths'
    launches stand in the `kernels` line as `positions_path_launches`; the
    flash rows carry the g = 48 checks as `g48`.
+lnfamilies. the other LayerNorm families at their published shapes, in a
+   temporary directory of their own, minted as phase positions mints
+   (`LNF_MINT`: each arch's tensors as llama.cpp's tables name them): (a)
+   Falcon-7B (tiiuae/falcon-7b: d 4,544, 8 of its 32 layers, 71 query heads
+   over one KV head of 64: g = 71, FFN 18,176, one shared LayerNorm with its
+   bias feeding attention and a no-bias GELU MLP in parallel, a fused
+   attn_qkv, laid out as llama-quantize's Q4_K_M falls back at K = 4,544:
+   Q5_0 attn_qkv / attn_output / ffn_up / token_embd, a Q4_K ffn_down, a
+   Q8_0 output.weight; a 65,024-entry BPE vocabulary, pre "falcon") and an
+   EAGLE Q8_0 draft at its widths: qmm at 1, 6 and 300 rows (and the draft's
+   fc), flash_decode at T = 1, 6 and 512 (the EAGLE prompt: 36,352 rows)
+   and flash_prefill at T = 512 at g = 71 and D = 64, each against its
+   plain version with its bound and library ms (`[lnfamilies kernel]`), the
+   CPU port's first 2 greedy tokens on a copy of the weights against the
+   card's, then `serve_cell` (`[falcon]`: 33 qmm_gemv and 8 flash_decode
+   per decoded token, 33 qmm_mma per verify, 8 flash_prefill per greedy
+   prompt); (b) Minitron-8B (nvidia/Minitron-8B-Base, nemotron: d 4,096, 8
+   of its 32 layers, 48 query heads over 8 KV heads of 128, a 6,144-wide
+   query, FFN 16,384 with a squared ReLU, 64 of 128 features rotary,
+   LayerNorms with biases, Q4_K layers, a Q6_K head of 256,000 rows, an SPM
+   vocabulary of 256,000 pieces): qmm at 1 and 300 rows, both flash kernels
+   at g = 6, the CPU check, `greedy_cell` (`[minitron]`: 33 qmm_gemv, the
+   head one of them, and 8 flash_decode per token); (c) 2-layer checks at
+   the published widths of OLMo-1.7-7B (no norm tensor, q/k/v clamped at
+   8), Orion-14B (SPM), CodeShell-7B (GQA 32 / 8, pre "codeshell") and
+   GPT-J-6B (16 heads of 256, 64 rotary, an lm_head bias; its flash
+   kernels timed at D = 256), each through `Engine`: 8 greedy tokens eager
+   and graphed twice, bit for bit, flash_decode, flash_prefill and
+   qmm_gemv launched, the CPU port's first 2 greedy tokens == the card's.
+   The Falcon default path's, the Minitron run's and the checks' launches
+   stand in the `kernels` line as `lnfamilies_path_launches`; the flash
+   rows carry the cells' checks as `lnfamilies`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -2205,6 +2237,30 @@ LN_MINT = {"starcoder2": dict(ffn_norm=True, out_b=False),
 POS_MINT = {"starcoder": dict(biases=True, pos_embd=True, embd_norm=False),
             "bloom": dict(biases=True, pos_embd=False, embd_norm=True),
             "mpt": dict(biases=False, pos_embd=False, embd_norm=False)}
+#: the other LayerNorm families' minted tensors (llama.cpp's tensor tables):
+#: a fused attn_qkv, an ffn_gate, an ffn_norm, any norm tensor at all
+#: (`norms`: OLMo has none), biases on the norms, on the matmuls of
+#: `mat_b`, and output.bias
+LNF_MINT = {
+    "nemotron": dict(fused=False, gate=False, ffn_norm=True, norms=True, norm_b=True, mat_b=(),
+                     out_b=False),
+    "olmo": dict(fused=False, gate=True, ffn_norm=True, norms=False, norm_b=False, mat_b=(),
+                 out_b=False),
+    "orion": dict(fused=False, gate=True, ffn_norm=True, norms=True, norm_b=True, mat_b=(),
+                  out_b=False),
+    "codeshell": dict(fused=True, gate=False, ffn_norm=True, norms=True, norm_b=True,
+                      mat_b=("attn_qkv", "attn_output", "ffn_up", "ffn_down"), out_b=False),
+    "falcon": dict(fused=True, gate=False, ffn_norm=False, norms=True, norm_b=True, mat_b=(),
+                   out_b=False),
+    "gptj": dict(fused=False, gate=False, ffn_norm=False, norms=True, norm_b=True,
+                 mat_b=("ffn_up", "ffn_down"), out_b=True),
+}
+#: random blocks' f16 magnitude of each minted format: Q4_0 (w = d (q - 8)),
+#: Q4_K (w = d sc q - dmin m), Q5_0 (w = d (q - 16)) and Q8_0 (w = d q) at a
+#: weight RMS of ~6e-3; the heads' (unsigned d: peaked logits) Q6_K and Q8_0
+#: at an RMS of ~0.14
+LAYER_MAGS = {"Q4_0": 1.3e-3, "Q4_K": 1.85e-5, "Q5_0": 6.7e-4, "Q8_0": 8e-5}
+HEAD_MAGS = {"Q6_K": 1e-4, "Q8_0": 1.85e-3}
 
 
 def random_blocks(gen, n: int, k: int, qtype: int, d_mag: float, signed: bool) -> "np.ndarray":
@@ -2245,7 +2301,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
                    vocab: dict | None = None, with_draft: bool = True,
                    n_kv_heads: int | None = None, layer_type: str = "Q4_0",
                    rope_factors=None, tied: bool = False, arch: str = "llama",
-                   head_dim: int | None = None, rope_dim: int | None = None
+                   head_dim: int | None = None, rope_dim: int | None = None,
+                   types: dict | None = None
                    ) -> tuple[pathlib.Path, pathlib.Path | None]:
     """Write a Vicuna-7B-shape GGUF (or one of the widths given) laid out as
     llama-quantize's Q4_0 lays out a llama-7B file (every layer matmul and
@@ -2265,9 +2322,13 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     or of `POS_MINT`, starcoder, bloom or mpt: the tensors its layout names,
     and `layer_norm_epsilon` 1e-5), `head_dim`
     a head width other than d / n_heads (both files), `rope_dim` the
-    target's rotary features (partial rotary).
+    target's rotary features (partial rotary); an arch of `LNF_MINT`
+    (nemotron, olmo, orion, codeshell, falcon, gptj) the tensors its layout
+    names. `types` sets the format of a target tensor by its GGUF name
+    ("attn_qkv", ..., "token_embd", "output"), as llama-quantize's Q4_K_M
+    falls back to Q5_0 and Q8_0 where K % 256 != 0 (Falcon-7B).
     Weights are random quant blocks, at magnitudes that give Q4_0's weight
-    RMS (~6e-3) in either layout."""
+    RMS (~6e-3) in every layer format (`LAYER_MAGS`)."""
     import torch
 
     from eagle_tpu_torch.gguf import GGMLType, GGUFWriter
@@ -2275,7 +2336,12 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q8_0, q6_k = GGMLType.Q8_0, GGMLType.Q6_K
     # Q4_0: w = d (q - 8), RMS ~4.8 d; Q4_K: w = d sc q - dmin m, RMS ~336 d
-    lt, l_mag = {"Q4_0": (GGMLType.Q4_0, 1.3e-3), "Q4_K": (GGMLType.Q4_K, 1.85e-5)}[layer_type]
+    types = types or {}
+
+    def fmt(name: str, default: str = layer_type) -> tuple:
+        t = types.get(name, default)
+        return GGMLType[t], (HEAD_MAGS if name == "output" else LAYER_MAGS)[t]
+
     kv = n_kv_heads or n_heads
     hd = head_dim or d // n_heads
     d_q, d_kv = n_heads * hd, kv * hd
@@ -2283,11 +2349,13 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
                   ("attn_output", d, d_q), ("ffn_gate", f, d), ("ffn_up", f, d),
                   ("ffn_down", d, f))
 
-    ln, pos = LN_MINT.get(arch), POS_MINT.get(arch)
+    ln, pos, lnf = LN_MINT.get(arch), POS_MINT.get(arch), LNF_MINT.get(arch)
     mats = layer_mats if ln is None else tuple(m for m in layer_mats if m[0] != "ffn_gate")
-    if pos is not None:  # a fused attn_qkv and no gate
-        mats = (("attn_qkv", d_q + 2 * d_kv, d),) + tuple(
-            m for m in layer_mats[3:] if m[0] != "ffn_gate")
+    if pos is not None or (lnf is not None and lnf["fused"]):  # a fused attn_qkv
+        mats = (("attn_qkv", d_q + 2 * d_kv, d),) + mats[3:]
+    if pos is not None or (lnf is not None and not lnf["gate"]):  # no gate
+        mats = tuple(m for m in mats if m[0] != "ffn_gate")
+    norms = lnf is None or lnf["norms"]
 
     def writer(path, arch, blocks, file_type):
         w = GGUFWriter(path)
@@ -2318,14 +2386,14 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     target = tmp / f"{tag}-{layer_type.lower()}.gguf"
     # LLAMA_FTYPE_MOSTLY_Q4_0, LLAMA_FTYPE_MOSTLY_Q4_K_M
     w = writer(target, arch, n_layers, 2 if layer_type == "Q4_0" else 15)
-    if ln is not None or pos is not None:
+    if ln is not None or pos is not None or lnf is not None:
         w.add(f"{arch}.attention.layer_norm_epsilon", 1e-5)
     for key, val in {**(vocab or spm_vocab(v, seed)), **(metadata or {})}.items():
         w.add(key, val)
     if tied:
         add(w, "token_embd.weight", v, d, q6_k, 1e-4, signed=False)
     else:
-        add(w, "token_embd.weight", v, d, lt, l_mag)
+        add(w, "token_embd.weight", v, d, *fmt("token_embd"))
     if pos is not None and pos["pos_embd"]:
         w.add_tensor("position_embd.weight",
                      (torch.randn((ctx, d), generator=gen, device="cuda") * 1e-2).cpu().numpy())
@@ -2333,10 +2401,11 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
         w.add_tensor("token_embd_norm.weight", norm())
         w.add_tensor("token_embd_norm.bias", bias(d))
     for i in range(n_layers):
-        w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
+        if norms:
+            w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
         for name, n, k in mats:
-            add(w, f"blk.{i}.{name}.weight", n, k, lt, l_mag)
-        if ln is None or ln["ffn_norm"]:
+            add(w, f"blk.{i}.{name}.weight", n, k, *fmt(name))
+        if (ln is None or ln["ffn_norm"]) and (lnf is None or lnf["ffn_norm"] and norms):
             w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
         if pos is not None and pos["biases"]:
             w.add_tensor(f"blk.{i}.attn_norm.bias", bias(d))
@@ -2351,6 +2420,14 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             for name, n in (("attn_q", d_q), ("attn_k", d_kv), ("attn_v", d_kv),
                             ("attn_output", d), ("ffn_up", f), ("ffn_down", d)):
                 w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
+        elif lnf is not None:
+            if lnf["norm_b"]:
+                w.add_tensor(f"blk.{i}.attn_norm.bias", bias(d))
+                if lnf["ffn_norm"]:
+                    w.add_tensor(f"blk.{i}.ffn_norm.bias", bias(d))
+            for name, n, _ in mats:
+                if name in lnf["mat_b"]:
+                    w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
         elif arch == "qwen2":
             for name, n in (("attn_q", d_q), ("attn_k", d_kv), ("attn_v", d_kv)):
                 w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
@@ -2360,14 +2437,15 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
         elif arch == "gemma2":
             w.add_tensor(f"blk.{i}.attn_post_norm.weight", norm())
             w.add_tensor(f"blk.{i}.ffn_post_norm.weight", norm())
-    w.add_tensor("output_norm.weight", norm())
-    if ln is not None or (pos is not None and pos["biases"]):
+    if norms:
+        w.add_tensor("output_norm.weight", norm())
+    if ln is not None or (pos is not None and pos["biases"]) or (lnf and lnf["norm_b"]):
         w.add_tensor("output_norm.bias", bias(d))
     if rope_factors is not None:
         w.add_tensor("rope_freqs.weight", rope_factors.astype("float32"))
     if not tied:
-        add(w, "output.weight", v, d, q6_k, 1e-4, signed=False)
-    if ln is not None and ln["out_b"]:
+        add(w, "output.weight", v, d, *fmt("output", "Q6_K"), signed=False)
+    if (ln is not None and ln["out_b"]) or (lnf is not None and lnf["out_b"]):
         w.add_tensor("output.bias", bias(v))
     w.write()
     del w
@@ -5490,10 +5568,10 @@ def llama3_ffn_checks(draft, gen) -> list:
     return out
 
 
-def gqa_flash_checks(gen, tag: str, h: int, h_kv: int) -> list:
+def gqa_flash_checks(gen, tag: str, h: int, h_kv: int, d: int = 128) -> list:
     """flash_decode at T = 1 and 6 over S = 1,024 (900 tokens, a hole) and
     flash_prefill at T = 512 (300 real rows) at h query heads over h_kv KV
-    heads of 128 (g = h / h_kv; bf16 cache), against their plain versions,
+    heads of `d` (g = h / h_kv; bf16 cache), against their plain versions,
     timed; the library is SDPA with `enable_gqa`."""
     import torch
     import torch.nn.functional as F
@@ -5501,7 +5579,7 @@ def gqa_flash_checks(gen, tag: str, h: int, h_kv: int) -> list:
     from eagle_tpu_torch.ops import flash_attention as fa
     from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
 
-    b, d, s, layer, g = 1, 128, 1024, 1, h // h_kv
+    b, s, layer, g = 1, 1024, 1, h // h_kv
     kc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     vc = torch.randn((2, b, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     out = []
@@ -5523,7 +5601,7 @@ def gqa_flash_checks(gen, tag: str, h: int, h_kv: int) -> list:
             qb, kc[layer], vc[layer], attn_mask=mask[:, None], enable_gqa=True), 50)
         b_ms, b_by = bound_ms(2 * b * h_kv * s * d * 2 + nbytes(q, mask) + q.numel() * 4,
                               4.0 * b * h * t * s * d)
-        out.append(dict(name="flash_decode", g=g, t=t, s=s, ms=ms, plain_ms=plain,
+        out.append(dict(name="flash_decode", g=g, d=d, t=t, s=s, ms=ms, plain_ms=plain,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
                         rel_err=rel))
     t, n, lim = 512, LLAMA3_PROMPT_TOKENS, 512
@@ -5544,7 +5622,7 @@ def gqa_flash_checks(gen, tag: str, h: int, h_kv: int) -> list:
         qb, kc[layer, :, :, :lim], vc[layer, :, :, :lim], attn_mask=vis[:, None],
         enable_gqa=True), 10)
     b_ms, b_by = prefill_bound(q, kc, q_pos, tags, lim)
-    out.append(dict(name="flash_prefill", g=g, t=t, s=lim, ms=ms, plain_ms=plain,
+    out.append(dict(name="flash_prefill", g=g, d=d, t=t, s=lim, ms=ms, plain_ms=plain,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib, max_abs_err=abs_err,
                     rel_err=rel))
     for r in out:
@@ -5935,11 +6013,12 @@ def qwen_vocab(seed: int, v: int) -> tuple[dict, list]:
 
 def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, arch: str,
                 with_draft: bool, metadata: dict | None = None, tied: bool = False,
-                phase: str = "families"):
+                phase: str = "families", **mint):
     """Mint a `c`-shape `arch` target (Q4_K layers, a Q6_K head or tied
-    table) and, `with_draft`, an EAGLE Q8_0 draft of its widths; load them
-    through `Engine` (greedy, max_seq 2,048) and delete the files. Returns
-    (Engine, the record: mint and load seconds, file bytes)."""
+    table; `mint`: more of `mint_gguf_pair`'s arguments) and, `with_draft`,
+    an EAGLE Q8_0 draft of its widths; load them through `Engine` (greedy,
+    max_seq 2,048) and delete the files. Returns (Engine, the record: mint
+    and load seconds, file bytes)."""
     import torch
 
     from eagle_tpu_torch.api import Engine, EngineConfig
@@ -5950,7 +6029,7 @@ def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, ar
         tmp, seed=seed, d=c["d"], f=c["f"], v=c["v"], n_layers=c["n_layers"],
         n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"], head_dim=c["head_dim"], tag=tag,
         ctx=c["ctx"], rope_base=c["rope_base"], vocab=vocab, metadata=metadata,
-        with_draft=with_draft, layer_type="Q4_K", arch=arch, tied=tied)
+        with_draft=with_draft, layer_type="Q4_K", arch=arch, tied=tied, **mint)
     rec = {"mint_s": time.time() - t0, "target_bytes": target.stat().st_size,
            "draft_bytes": draft.stat().st_size if draft else 0}
     greedy = sampler_from_args(build_parser("cli").parse_args(["-m", "-", "--temp", "0"]))
@@ -6539,10 +6618,12 @@ def cpu_tokens_finish(tag: str, eng, ids: list, future) -> dict:
                 wait_seconds=wait)
 
 
-def g48_prompt_check(gen) -> dict:
-    """flash_decode at the EAGLE engine's prompt at StarCoder-15B's g = 48
-    (the chain's prefill reads through decode attention): T = 512 over 512
-    slots, 300 tagged, the causal tag mask (T·g 24,576), against its plain
+def gqa_prompt_check(gen, tag: str = "positions kernel", h: int = 48, h_kv: int = 1,
+                     d: int = 128) -> dict:
+    """flash_decode at the EAGLE engine's prompt (the chain's prefill reads
+    through decode attention) at h query heads over h_kv KV heads of `d`
+    (StarCoder-15B's g = 48 by default): T = 512 over 512 slots, 300
+    tagged, the causal tag mask (T·g 24,576 at g = 48), against its plain
     version, timed beside SDPA (`enable_gqa`)."""
     import torch
     import torch.nn.functional as F
@@ -6550,7 +6631,7 @@ def g48_prompt_check(gen) -> dict:
     from eagle_tpu_torch.ops import flash_attention as fa
     from eagle_tpu_torch.runtime.kvcache import causal_mask_from_tags
 
-    h, h_kv, d, s, t, n, layer = 48, 1, 128, 512, 512, 300, 1
+    s, t, n, layer, g = 512, 512, 300, 1, h // h_kv
     kc = torch.randn((2, 1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     vc = torch.randn((2, 1, h_kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     tags = torch.full((1, s), -1, dtype=torch.int32, device="cuda")
@@ -6562,7 +6643,7 @@ def g48_prompt_check(gen) -> dict:
     abs_err, rel = rel_err(got, fa.flash_attention_cached_plain(q, kc, vc, mask, layer,
                                                                 s_limit=s))
     if rel > ATTN_TOL:
-        raise AssertionError(f"positions flash_decode g=48 T={t}: rel err {rel:.3e}")
+        raise AssertionError(f"{tag} flash_decode g={g} T={t}: rel err {rel:.3e}")
     ms = device_ms(lambda i: fa.flash_attention_cached(q, kc, vc, mask, layer, s_limit=s), 10)
     plain = device_ms(lambda i: fa.flash_attention_cached_plain(q, kc, vc, mask, layer,
                                                                s_limit=s), 5)
@@ -6570,12 +6651,12 @@ def g48_prompt_check(gen) -> dict:
     lib = device_ms(lambda i: F.scaled_dot_product_attention(
         qb, kc[layer], vc[layer], attn_mask=mask[:, None], enable_gqa=True), 10)
     b_ms, b_by = decode_bound(q, kc, mask)
-    log(f"[positions kernel] flash_decode g=48 T={t} (T*g={t * 48}) S={s} ({n} tagged, the "
+    log(f"[{tag}] flash_decode g={g} T={t} (T*g={t * g}) S={s} D={d} ({n} tagged, the "
         f"EAGLE prompt) kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms * 1e3:.2f} us "
         f"({b_by})  library {lib:.4f} ms  rel err {rel:.2e}")
     del kc, vc
     torch.cuda.empty_cache()
-    return dict(name="flash_decode", g=48, t=t, s=s, ms=ms, plain_ms=plain, bound_ms=b_ms,
+    return dict(name="flash_decode", g=g, d=d, t=t, s=s, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib, max_abs_err=abs_err, rel_err=rel)
 
 
@@ -6685,7 +6766,7 @@ def starcoder_setup(tmp: pathlib.Path, gen, cpu) -> dict:
         (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft,
         log_tag="positions kernel")
     out["attention"] = (gqa_flash_checks(gen, "positions kernel", c["n_heads"], c["n_kv_heads"])
-                        + [g48_prompt_check(gen)])
+                        + [gqa_prompt_check(gen)])
     return dict(tag="starcoder", eng=eng, ids=ids, head=head, future=future, out=out)
 
 
@@ -6820,6 +6901,322 @@ def positions_path(report: dict, tmp: pathlib.Path) -> dict:
             launches[k] = launches.get(k, 0) + v
     out["launches"] = launches
     report["positions_path"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase lnfamilies: the other LayerNorm families at their published shapes
+
+
+#: the published configs (config.json), cut in depth to fit the script's
+#: time (widths untouched): tiiuae/falcon-7b (hidden 4,544, 71 heads of 64,
+#: multi_query, FFN 4 x 4,544, vocab 65,024, parallel_attn, one LayerNorm;
+#: 8 of its 32 layers) and nvidia/Minitron-8B-Base (hidden 4,096, 48 heads
+#: of 128 over 8 KV heads, intermediate 16,384, relu2, partial_rotary_factor
+#: 0.5, vocab 256,000, untied; 8 of its 32 layers)
+FALCON_7B = dict(d=4544, f=18176, v=65024, n_layers=8, n_heads=71, n_kv_heads=1, head_dim=64,
+                 ctx=2048, rope_base=10000.0)
+MINITRON_8B = dict(d=4096, f=16384, v=256000, n_layers=8, n_heads=48, n_kv_heads=8,
+                   head_dim=128, ctx=4096, rope_base=10000.0, rope_dim=64)
+#: llama-quantize's Q4_K_M on Falcon-7B: K = 4,544 is no multiple of 256, so
+#: its Q4_K tensors fall back to Q5_0 and the Q6_K head to Q8_0; w_down (K =
+#: 18,176) stays Q4_K (Q4_K_M's Q6_K layers left out, as in every minted cell)
+FALCON_TYPES = {"attn_qkv": "Q5_0", "attn_output": "Q5_0", "ffn_up": "Q5_0",
+                "ffn_down": "Q4_K", "token_embd": "Q5_0", "output": "Q8_0"}
+#: Falcon's specials (its first 12 ids in the published file; here at the
+#: end of the minted pieces)
+FALCON_SPECIALS = (">>TITLE<<", ">>ABSTRACT<<", ">>INTRODUCTION<<", ">>SUMMARY<<",
+                   ">>COMMENT<<", ">>ANSWER<<", ">>QUESTION<<", ">>DOMAIN<<", ">>PREFIX<<",
+                   ">>SUFFIX<<", ">>MIDDLE<<", "<|endoftext|>")
+#: launches per decoded token: wqkv, wo, w_up, w_down a layer + lm_head; a
+#: flash_decode a layer
+FALCON_GEMV, FALCON_FLASH = FALCON_7B["n_layers"] * 4 + 1, FALCON_7B["n_layers"]
+MINITRON_GEMV, MINITRON_FLASH = MINITRON_8B["n_layers"] * 4 + 1, MINITRON_8B["n_layers"]
+#: the 2-layer checks at published widths (config.json): allenai/OLMo-1.7-7B-hf
+#: (4,096, 32 heads, 11,008, clip_qkv 8, vocab 50,304), OrionStarAI/
+#: Orion-14B-Base (5,120, 40 heads, 15,360, vocab 84,608), WisdomShell/
+#: CodeShell-7B (4,096, 32 heads over 8 KV heads, 16,384, vocab 70,144) and
+#: EleutherAI/gpt-j-6b (4,096, 16 heads of 256, rotary_dim 64, 16,384, vocab
+#: 50,400); each with its tokenizer and the minting arguments of its layout
+LNF_CHECKS = {
+    "olmo": dict(d=4096, f=11008, v=50304, n_layers=2, n_heads=32, n_kv_heads=32,
+                 head_dim=128, ctx=4096, rope_base=10000.0, pieces=50280,
+                 specials=("<|endoftext|>", "<|padding|>"), pre="gpt-2",
+                 metadata={"olmo.attention.clamp_kqv": 8.0}),
+    "orion": dict(d=5120, f=15360, v=84608, n_layers=2, n_heads=40, n_kv_heads=40,
+                  head_dim=128, ctx=4096, rope_base=10000.0, pre="spm", metadata={}),
+    "codeshell": dict(d=4096, f=16384, v=70144, n_layers=2, n_heads=32, n_kv_heads=8,
+                      head_dim=128, ctx=8192, rope_base=10000.0, pieces=70000,
+                      specials=("<|endoftext|>",), pre="codeshell", metadata={}),
+    "gptj": dict(d=4096, f=16384, v=50400, n_layers=2, n_heads=16, n_kv_heads=16,
+                 head_dim=256, ctx=2048, rope_base=10000.0, pieces=50256,
+                 specials=("<|endoftext|>",), pre="gpt-2", metadata={}, rope_dim=64),
+}
+LNF_CHECK_NEW = 8  # greedy tokens of a 2-layer check, graphed and eager
+LNF_CHECK_PROMPT = 64  # tokens of its prompt
+
+
+def falcon_setup(tmp: pathlib.Path, gen, cpu) -> dict:
+    """Falcon-7B's shape (one shared LayerNorm with its bias feeding
+    attention and a no-bias GELU MLP in parallel, 71 query heads over one
+    KV head of 64: g = 71, a fused attn_qkv, Q4_K_M's Q5_0 / Q4_K / Q8_0
+    fallbacks at K = 4,544) at 8 of its 32 layers, with a 65,024-entry BPE
+    vocabulary ("falcon" pre-tokenizer) and an EAGLE Q8_0 draft at its
+    widths, minted and loaded through `Engine`; the CPU port's greedy
+    tokens submitted to `cpu`; qmm at the path's shapes at 1, 6 and 300
+    rows and the draft's fc, both flash kernels at g = 71 and D = 64 (the
+    EAGLE prompt's 36,352 rows too). Returns the cell's state for
+    `falcon_run`."""
+    from eagle_tpu_torch.gguf import GGMLType
+    from eagle_tpu_torch.tokenizer import BPETokenizer
+
+    c = FALCON_7B
+    t0 = time.time()
+    vocab, words = bpe_vocab(227, c["v"], c["v"] - len(FALCON_SPECIALS), FALCON_SPECIALS,
+                            "falcon")
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("falcon-7b", c, tmp, 229, vocab, "falcon", with_draft=True,
+                                    phase="lnfamilies", types=FALCON_TYPES)
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    tok = eng.tokenizer
+    layers = params["layers"]
+    types = {k: GGMLType(w.ggml_type).name for k, w in (
+        *((k, layers[k]) for k in ("wqkv", "wo", "w_up", "w_down")),
+        ("output", params["output"]), ("tok_embd", params["tok_embd"]))}
+    want_types = {"wqkv": "Q5_0", "wo": "Q5_0", "w_up": "Q5_0", "w_down": "Q4_K",
+                  "output": "Q8_0", "tok_embd": "Q5_0"}
+    if (not isinstance(tok, BPETokenizer) or eng.metadata["tokenizer.ggml.pre"] != "falcon"
+            or (cfg.norm_type, cfg.parallel_blocks, cfg.act, cfg.rope_dim) != (
+                "layer", True, "gelu", 64)
+            or set(layers) != {"attn_norm", "attn_norm_b", "wqkv", "wo", "w_up", "w_down"}
+            or types != want_types or params["output"].layout != "kn"
+            or "output_norm_b" not in params or (dcfg.arch, dcfg.n_kv_heads) != ("eagle", 1)):
+        raise AssertionError(f"falcon: the files did not load as Falcon-7B + EAGLE: {cfg}, "
+                             f"{types}")
+    text = llama3_text(tok, words, FAMILY_PROMPT_TOKENS, seed=233)
+    ids = tok.encode(text)
+    if tok.decode(ids) != text:
+        raise AssertionError("falcon: the prompt does not round-trip through the tokenizer")
+    out["prompt_tokens"] = len(ids)
+    head = ids[:CPU_CHECK_PROMPT]
+    future = cpu.submit(cpu_tokens, cpu_copy(params), cfg, head)
+    out["qmm"] = family_kernels("falcon", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma", "verify cycle"),
+        (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft,
+        log_tag="lnfamilies kernel")
+    out["attention"] = (gqa_flash_checks(gen, "lnfamilies kernel", c["n_heads"], c["n_kv_heads"],
+                                         d=c["head_dim"])
+                        + [gqa_prompt_check(gen, "lnfamilies kernel", c["n_heads"],
+                                            c["n_kv_heads"], c["head_dim"])])
+    return dict(tag="falcon", eng=eng, ids=ids, head=head, future=future, out=out)
+
+
+def falcon_run(st: dict) -> tuple[dict, dict]:
+    """`serve_cell` on the Falcon cell (greedy and the chain at C = 1 and 4,
+    eager and graphed, 2 runs each): 33 qmm_gemv and 8 flash_decode per
+    decoded token, 33 qmm_mma per verify, 8 flash_prefill per greedy prompt.
+    Returns (the cell, the default path's launches)."""
+    import numpy as np
+
+    eng, out = st["eng"], st["out"]
+    want_tok = {"qmm_gemv": FALCON_GEMV, "flash_decode": FALCON_FLASH, "ffn_out_norm": 0,
+                "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("falcon", eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg,
+                      np.asarray(st["ids"]), FAMILY_NEW, want_tok, FALCON_GEMV, fused=False)
+    cell.pop("gen")
+    prompt = cell["variants"]["greedy graphed"]["launches_at_first_token"]
+    if prompt["flash_prefill"] != FALCON_FLASH or prompt["flash_decode"]:
+        raise AssertionError(f"falcon: the greedy prompt's attention launches {prompt}, "
+                             f"expected {FALCON_FLASH} flash_prefill")
+    log(f"[falcon] the greedy prompt: {prompt['flash_prefill']} flash_prefill, "
+        f"{prompt['qmm_tc']} qmm_tc; EAGLE == greedy: "
+        f"{cell['eagle_tokens'] == cell['greedy_tokens']}")
+    out["cell"] = cell
+    return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
+
+
+def minitron_setup(tmp: pathlib.Path, gen, cpu) -> dict:
+    """Minitron-8B's shape (nemotron: LayerNorm with biases, a no-gate
+    squared-ReLU MLP, 64 of 128 features rotary, a 6,144-wide query over
+    n_embd 4,096, 48 query heads over 8 KV heads: g = 6, a Q6_K head of
+    256,000 rows) at 8 of its 32 layers, with an SPM vocabulary of 256,000
+    pieces, minted and loaded through `Engine`; the CPU port's greedy tokens
+    submitted to `cpu`; qmm at the path's shapes at 1 and 300 rows, both
+    flash kernels at g = 6. Returns the cell's state for `minitron_run`."""
+    from eagle_tpu_torch.tokenizer import SPMTokenizer
+
+    c = MINITRON_8B
+    t0 = time.time()
+    vocab = spm_vocab(c["v"], seed=239)
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("minitron-8b", c, tmp, 241, vocab, "nemotron",
+                                    with_draft=False, phase="lnfamilies", rope_dim=c["rope_dim"])
+    params, cfg = eng.params, eng.model_cfg
+    layers = params["layers"]
+    if (not isinstance(eng.tokenizer, SPMTokenizer)
+            or (cfg.norm_type, cfg.parallel_blocks, cfg.act, cfg.rope_dim) != (
+                "layer", False, "relu2", 64) or cfg.n_q_dim != 6144
+            or set(layers) != {"attn_norm", "attn_norm_b", "ffn_norm", "ffn_norm_b", "wqkv",
+                               "wo", "w_up", "w_down"}
+            or params["output"].layout != "kn" or params["output"].shape != (c["v"], c["d"])):
+        raise AssertionError(f"minitron: the file did not load as Minitron-8B: {cfg}")
+    ids = eng.tokenizer.encode(cli_prompt(vocab["tokenizer.ggml.tokens"], FAMILY_PROMPT_TOKENS,
+                                          seed=251))
+    out["prompt_tokens"] = len(ids)
+    head = ids[:CPU_CHECK_PROMPT]
+    future = cpu.submit(cpu_tokens, cpu_copy(params), cfg, head)
+    out["qmm"] = family_kernels("minitron", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")),
+        log_tag="lnfamilies kernel")
+    out["attention"] = gqa_flash_checks(gen, "lnfamilies kernel", c["n_heads"], c["n_kv_heads"])
+    return dict(tag="minitron", eng=eng, ids=ids, head=head, future=future, out=out)
+
+
+def minitron_run(st: dict) -> tuple[dict, dict]:
+    """`greedy_cell` on the Minitron cell: 33 qmm_gemv (the 256,000-row head
+    one of them) and 8 flash_decode per decoded token. Returns (the cell,
+    the first timed run's launches)."""
+    eng, out = st["eng"], st["out"]
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    out["cell"], launches = greedy_cell("minitron", eng, st["ids"], {
+        "qmm_gemv": MINITRON_GEMV, "flash_decode": MINITRON_FLASH, "qmm": 0})
+    if launches.get("flash_prefill") != MINITRON_FLASH:
+        raise AssertionError(f"minitron: {launches.get('flash_prefill')} flash_prefill in the "
+                             f"run, expected {MINITRON_FLASH} (the prompt)")
+    return out, launches
+
+
+def lnf_check(name: str, tmp: pathlib.Path, gen, cpu) -> tuple[dict, dict]:
+    """A 2-layer model of `LNF_CHECKS[name]` at its published widths, minted
+    (Q4_K layers, a Q6_K head) and loaded through `Engine`, its layout and
+    config checked; `LNF_CHECK_NEW` greedy tokens eager, graphed to capture
+    and graphed again, bit for bit, no eager body after the capture, no
+    plain version; flash_decode, flash_prefill and qmm_gemv launched; then
+    the CPU port's first greedy tokens on a copy of its weights (on `cpu`,
+    after the card's runs: the CPU's plain versions count in the same
+    counters) against the card's. GPT-J's flash kernels at its 16 heads of
+    256 are timed meanwhile. Returns (the check, its graphed run's
+    launches)."""
+    from eagle_tpu_torch import _build
+    from eagle_tpu_torch.runtime.generate import Generator
+
+    c = LNF_CHECKS[name]
+    seed = 257 + 6 * list(LNF_CHECKS).index(name)
+    t0 = time.time()
+    if c["pre"] == "spm":
+        vocab = spm_vocab(c["v"], seed=seed)
+        text = cli_prompt(vocab["tokenizer.ggml.tokens"], LNF_CHECK_PROMPT, seed=seed + 1)
+    else:
+        vocab, words = bpe_vocab(seed, c["v"], c["pieces"], c["specials"], c["pre"])
+    out: dict = {"vocab_s": time.time() - t0}
+    mint = {"rope_dim": c["rope_dim"]} if "rope_dim" in c else {}
+    eng, out["files"] = family_load(f"{name}-2-layer", c, tmp, seed + 2, vocab, name,
+                                    with_draft=False, metadata=c["metadata"],
+                                    phase="lnfamilies", **mint)
+    params, cfg, tok = eng.params, eng.model_cfg, eng.tokenizer
+    layers = set(params["layers"])
+    want = {"olmo": (cfg.nonparam_norms and cfg.clamp_kqv == 8.0 and cfg.act == "silu"
+                     and layers == {"wqkv", "wo", "w_gate_up", "w_down"}
+                     and "output_norm" not in params),
+            "orion": (cfg.act == "silu" and not cfg.parallel_blocks
+                      and {"attn_norm_b", "ffn_norm_b", "w_gate_up"} <= layers
+                      and "output_norm_b" in params),
+            "codeshell": (cfg.act == "gelu" and not cfg.parallel_blocks and cfg.n_kv_heads == 8
+                          and {"bqkv", "bo", "w_up", "b_up", "b_down"} <= layers),
+            "gptj": (cfg.act == "gelu" and cfg.parallel_blocks and cfg.rope_dim == 64
+                     and "ffn_norm" not in layers and {"b_up", "b_down"} <= layers
+                     and "output_b" in params)}[name]
+    if not want or cfg.norm_type != "layer" or cfg.arch != name:
+        raise AssertionError(f"{name}: the file did not load as its family: {cfg}, {layers}")
+    if c["pre"] != "spm":
+        text = llama3_text(tok, words, LNF_CHECK_PROMPT, seed=seed + 1)
+    ids = tok.encode(text)[:LNF_CHECK_PROMPT]
+    out["prompt_tokens"] = len(ids)
+    g = Generator(params, cfg, max_seq=1024, eos_id=-1)
+
+    def run():
+        return g.generate(ids, max_new_tokens=LNF_CHECK_NEW, stop_at_eos=False)
+
+    want_toks = eager_tokens(g, run)
+    if run() != want_toks:  # the captures
+        raise AssertionError(f"{name}: graphed tokens differ from eager")
+    eager = g.graphs.eager
+    _build.reset_counts()
+    toks = run()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    if toks != want_toks or g.graphs.eager != eager or any(_build.plain_calls.values()):
+        raise AssertionError(f"{name}: the replayed run's tokens differ from eager, or a step "
+                             f"ran eagerly, or a plain version ran")
+    if not all(launches.get(k) for k in ("flash_decode", "flash_prefill", "qmm_gemv")):
+        raise AssertionError(f"{name}: launches {launches}: a kernel of the path was not taken")
+    out.update(tokens=toks, launches=launches)
+    log(f"[{name}] 2 layers at its published widths: {LNF_CHECK_NEW} greedy tokens graphed == "
+        f"eager bit for bit; launches of the replayed run "
+        + ", ".join(f"{k} {launches.get(k, 0)}" for k in CORE_KERNELS))
+    # the CPU run only now: its plain versions count in `_build.plain_calls`
+    head = ids[:CPU_CHECK_PROMPT]
+    future = cpu.submit(cpu_tokens, cpu_copy(params), cfg, head)
+    if name == "gptj":
+        out["attention"] = gqa_flash_checks(gen, "lnfamilies kernel", c["n_heads"],
+                                            c["n_kv_heads"], d=c["head_dim"])
+    out["cpu"] = cpu_tokens_finish(name, eng, head, future)
+    return out, launches
+
+
+def lnfamilies_path(report: dict, tmp: pathlib.Path) -> dict:
+    """Phase lnfamilies: the Falcon-7B (+ EAGLE) and Minitron-8B cells,
+    minted into `tmp` and loaded through `Engine` both, their kernels
+    checked at their shapes while one worker thread runs the CPU port on a
+    copy of each cell's weights (its tokens then held against the card's),
+    then each run and freed; then the 2-layer OLMo, Orion, CodeShell and
+    GPT-J checks, one at a time. Returns the launches of the Falcon default
+    path (greedy + EAGLE graphed at C = 1), of the Minitron cell's first
+    timed graphed run and of the checks' replayed runs, added."""
+    import gc
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    if shutil.disk_usage(tmp).free < 8 * 2**30:
+        raise RuntimeError("phase lnfamilies needs 8 GiB of disk")
+    gen = torch.Generator(device="cuda").manual_seed(223)
+    out: dict = {}
+    launches: dict = {}
+
+    def add(part):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu-port") as cpu:
+        cells = [falcon_setup(tmp, gen, cpu), minitron_setup(tmp, gen, cpu)]
+        for st in cells:
+            st["out"]["cpu"] = cpu_tokens_finish(st["tag"], st["eng"], st["head"],
+                                                 st.pop("future"))
+        log(f"[time] lnfamilies setup (both cells' loads, kernel checks and CPU runs): "
+            f"{time.time() - t0:.1f} s")
+        for st, run in zip(cells, (falcon_run, minitron_run)):
+            t0 = time.time()
+            tag = st["tag"]
+            out[tag], part = run(st)
+            st.clear()  # the engine and its weights
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[tag]["seconds"] = time.time() - t0
+            log(f"[time] lnfamilies {tag}: {out[tag]['seconds']:.1f} s (the run)")
+            add(part)
+        for name in LNF_CHECKS:
+            t0 = time.time()
+            out[name], part = lnf_check(name, tmp, gen, cpu)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[name]["seconds"] = time.time() - t0
+            log(f"[time] lnfamilies {name}: {out[name]['seconds']:.1f} s")
+            add(part)
+    out["launches"] = launches
+    report["lnfamilies_path"] = out
     return launches
 
 
@@ -7132,6 +7529,8 @@ def main() -> int:
         layernorm_launches = phase("layernorm", layernorm_path, report, pathlib.Path(tmp))
     with tempfile.TemporaryDirectory(prefix="eagle_positions_") as tmp:
         positions_launches = phase("positions", positions_path, report, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="eagle_lnfamilies_") as tmp:
+        lnfamilies_launches = phase("lnfamilies", lnfamilies_path, report, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -7166,6 +7565,7 @@ def main() -> int:
                 "families_path_launches": families_launches.get(name, 0),
                 "layernorm_path_launches": layernorm_launches.get(name, 0),
                 "positions_path_launches": positions_launches.get(name, 0),
+                "lnfamilies_path_launches": lnfamilies_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     vs_parent_d256 = {}  # --parent-report: the parent's time of each D = 256 row
@@ -7193,11 +7593,22 @@ def main() -> int:
                 k: gemma["launches"][f"flash_decode_{k}"] for k in ("mma_cluster", "wgmma")}
         return out
 
-    def g48(name):
-        """The kernel's checks at StarCoder-15B's g = 48 (phase positions)."""
+    def cell_checks(path, cell, name):
+        """The kernel's checks in one cell of a phase: g = 48 (StarCoder-15B,
+        phase positions), g = 71 at D = 64 (Falcon-7B), g = 6 (Minitron-8B)
+        and GPT-J's 16 / 16 heads of 256 (phase lnfamilies)."""
         return [{k: r[k] for k in ("t", "s", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "max_abs_err")}
-                for r in report["positions_path"]["starcoder"]["attention"] if r["name"] == name]
+                for r in report[path][cell]["attention"] if r["name"] == name]
+
+    def g48(name):
+        return cell_checks("positions_path", "starcoder", name)
+
+    def lnf(name):
+        return {f"{cell} ({shape})": cell_checks("lnfamilies_path", cell, name)
+                for cell, shape in (("falcon", "g = 71, 71 / 1 heads of 64"),
+                                    ("minitron", "g = 6, 48 / 8 heads of 128"),
+                                    ("gptj", "16 / 16 heads of 256"))}
 
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
@@ -7219,12 +7630,12 @@ def main() -> int:
                                 source="eagle_tpu_torch/csrc/flash_attention.cu"),
                            dict(d256_row("flash_decode", 512, "eagle prompt"),
                                 source="eagle_tpu_torch/csrc/flash_wgmma.cu")],
-             g48=g48("flash_decode")),
+             g48=g48("flash_decode"), lnfamilies=lnf("flash_decode")),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
              shape="T=512, S=512, 32 heads x 128, bf16 cache",
              head_dim_256=dict(d256_row("flash_prefill", 512, "generator"),
                                source="eagle_tpu_torch/csrc/flash_wgmma.cu"),
-             g48=g48("flash_prefill"),
+             g48=g48("flash_prefill"), lnfamilies=lnf("flash_prefill"),
              chat_feeds=[{k: v for k, v in r.items() if k in (
                  "t", "n", "q0", "s", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err")} for r in report["attention"] if "feed" in r.get("what", "")]),

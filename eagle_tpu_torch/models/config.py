@@ -1,15 +1,18 @@
 """Model hyperparameters (the fields of eagle_tpu's `ModelConfig` that the
 ported block reads, with the same names and defaults), and
 `ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3, Gemma,
-Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX, Command-R, GPT-2, StarCoder,
-BLOOM, MPT, Refact and JAIS architectures.
+Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX, Command-R, Nemotron, OLMo,
+Orion, CodeShell, Falcon, GPT-J, GPT-2, StarCoder, BLOOM, MPT, Refact and
+JAIS architectures.
 
 The ported block is the pre-norm llama block and its config-driven
 branches: qkv biases (qwen2), per-head q/k RMSNorm (qwen3), sandwich norms,
 GELU and the embedding scale (gemma, gemma2), `query_pre_attn_scalar`, the
 attention and final softcaps and the alternating sliding window (gemma2);
 LayerNorm with biases, the parallel residual, partial rotary and the
-logit scale (phi2, starcoder2, stablelm, gptneox, command-r); no rotary at
+logit scale (phi2, starcoder2, stablelm, gptneox, command-r, falcon,
+gptj, codeshell, orion); the squared ReLU (nemotron), the non-parametric
+LayerNorm and the q/k/v clamp (olmo; the clamp also mpt); no rotary at
 all, with learned absolute positions (gpt2, starcoder) or ALiBi (bloom,
 mpt, refact, jais), the embedding LayerNorm (bloom), the gated FFN's
 biases and the 1 / head_dim score scale (jais).
@@ -26,8 +29,10 @@ from typing import Any
 from ..gguf.constants import Keys
 
 #: the rotary LayerNorm families: mean-subtracted LayerNorm (with biases
-#: where the file has them) and no learned positions or ALiBi
-LAYERNORM_TARGETS = ("phi2", "starcoder2", "stablelm", "gptneox", "command-r")
+#: where the file has them, none at all for olmo) and no learned positions
+#: or ALiBi
+LAYERNORM_TARGETS = ("phi2", "starcoder2", "stablelm", "gptneox", "command-r", "nemotron",
+                     "olmo", "orion", "codeshell", "falcon", "gptj")
 #: the architectures without rotary positions (a copy of eagle_tpu/models/
 #: config.py:NO_ROPE_ARCHS): learned absolute positions added to the token
 #: embedding (POS_EMBD_ARCHS) or an ALiBi bias on the scores (ALIBI_ARCHS)
@@ -47,7 +52,17 @@ TARGET_ARCHS = (("llama", "qwen2", "qwen3", "gemma", "gemma2") + LAYERNORM_TARGE
 GGUF_ARCHS = TARGET_ARCHS + ("eagle",)
 #: the reference's GELU_ARCHS among the ported architectures (and the
 #: Gemma family)
-GELU_ARCHS = frozenset({"starcoder2", "phi2", "gptneox", "gpt2", "starcoder", "bloom", "mpt"})
+GELU_ARCHS = frozenset({"starcoder2", "phi2", "gptneox", "gpt2", "starcoder", "bloom", "mpt",
+                        "falcon", "gptj", "codeshell"})
+#: the reference's PARALLEL_BLOCK_ARCHS among the ported architectures: one
+#: shared input norm feeds attention and the FFN, summed into the residual
+PARALLEL_BLOCK_ARCHS = frozenset({"command-r", "phi2", "falcon", "gptj"})
+#: the reference's NONPARAM_NORM_ARCHS: the block and final LayerNorms apply
+#: with no weight and no bias, and the file has no norm tensors
+NONPARAM_NORM_ARCHS = frozenset({"olmo"})
+#: architectures whose q/k/v the reference clamps to +-clamp_kqv after the
+#: projection: olmo (`attention.clamp_kqv`) and mpt (its `clip_qkv`)
+CLAMP_KQV_ARCHS = frozenset({"olmo", "mpt"})
 
 #: archs whose GGUF q/k rows carry convert_hf_to_gguf's adjacent-pair rope
 #: permutation, which the loader inverts (a copy of eagle_tpu/models/config.py:
@@ -191,6 +206,7 @@ class ModelConfig:
             swa_window=int(opt("attention.sliding_window", 0)),
             swa_every=2 if arch == "gemma2" else 0,
             clamp_kqv=float(opt("attention.clamp_kqv", 0.0)),
+            nonparam_norms=arch in NONPARAM_NORM_ARCHS,
             attn_softcap=float(opt("attn_logit_softcapping", 0.0)),
             final_softcap=float(opt("final_logit_softcapping", 0.0)),
             post_norms=(arch == "gemma2"),
@@ -198,9 +214,10 @@ class ModelConfig:
             attn_scale=attn_scale,
             # the reference's GELU_ARCHS and PARALLEL_BLOCK_ARCHS among the ported
             # archs; gptneox and stablelm opt in to the parallel residual per file
-            act="gelu" if gemma or arch in GELU_ARCHS else "silu",
+            act=("relu2" if arch == "nemotron"  # squared ReLU (build_nemotron)
+                 else "gelu" if gemma or arch in GELU_ARCHS else "silu"),
             norm_type="layer" if layer else "rms",
-            parallel_blocks=(arch in ("command-r", "phi2")
+            parallel_blocks=(arch in PARALLEL_BLOCK_ARCHS
                              or bool(opt("use_parallel_residual", False))),
             logit_scale=float(opt("logit_scale", 1.0)),
             resid_scale=float(opt("residual_scale", 1.0)),
@@ -214,7 +231,7 @@ class ModelConfig:
 _PLAIN = (
     ("mrope_sections", ()),
     ("head_counts", ()), ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
-    ("clamp_kqv", 0.0), ("nonparam_norms", False), ("rope_yarn_log_mul", 0.0),
+    ("rope_yarn_log_mul", 0.0),
 )
 
 
@@ -226,18 +243,26 @@ def check_ported(cfg: ModelConfig) -> None:
     for `NO_ROPE_ARCHS`, with learned positions for `POS_EMBD_ARCHS` and
     ALiBi for `ALIBI_ARCHS`; SiLU or GELU; the sequential or the parallel
     residual; the softcaps, the embedding, attention and logit scales,
-    sandwich norms and a sliding window on every `swa_every`-th layer. That
-    is the llama, Qwen2, Qwen3, Gemma, Gemma-2, Phi-2, StarCoder2, StableLM,
-    GPT-NeoX, Command-R, GPT-2, StarCoder, BLOOM, MPT, Refact and JAIS
-    families (`TARGET_ARCHS`) and EAGLE drafts. Each position branch is
-    admitted on its own architectures only."""
+    sandwich norms and a sliding window on every `swa_every`-th layer; the
+    squared ReLU on nemotron, the non-parametric norms on olmo and the q/k/v
+    clamp on `CLAMP_KQV_ARCHS`. That is the llama, Qwen2, Qwen3, Gemma,
+    Gemma-2, the LayerNorm (`LAYERNORM_TARGETS`), GPT-2, StarCoder, BLOOM,
+    MPT, Refact and JAIS families (`TARGET_ARCHS`) and EAGLE drafts. Each
+    position, activation, norm and clamp branch is admitted on its own
+    architectures only."""
     bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PLAIN if getattr(cfg, k) != v]
     if cfg.norm_type not in ("rms", "layer"):
         bad.append(f"norm_type={cfg.norm_type!r}")
     elif cfg.norm_type == "layer" and cfg.arch not in LAYERNORM_ARCHS:
         bad.append(f"norm_type='layer' for arch {cfg.arch!r}")
-    if cfg.act not in ("silu", "gelu"):
+    if cfg.act not in ("silu", "gelu", "relu2"):
         bad.append(f"act={cfg.act!r}")
+    elif cfg.act == "relu2" and cfg.arch != "nemotron":
+        bad.append(f"act='relu2' (squared ReLU) for arch {cfg.arch!r}")
+    if cfg.nonparam_norms and (cfg.arch not in NONPARAM_NORM_ARCHS or cfg.norm_type != "layer"):
+        bad.append(f"nonparam_norms for arch {cfg.arch!r}")
+    if cfg.clamp_kqv < 0 or (cfg.clamp_kqv > 0 and cfg.arch not in CLAMP_KQV_ARCHS):
+        bad.append(f"clamp_kqv={cfg.clamp_kqv} for arch {cfg.arch!r}")
     if cfg.has_pos_embd and cfg.arch not in POS_EMBD_ARCHS:
         bad.append(f"has_pos_embd (learned positions) for arch {cfg.arch!r}")
     if cfg.use_alibi and cfg.arch not in ALIBI_ARCHS:

@@ -2,7 +2,7 @@
 `ForwardOutput`, `embed_lookup`, `_block_norm`, `_ffn`, `_layer_step`,
 `llama_forward`, with the int8 and paged cache branches, Llama-3.1's rope
 factors, a tied ("nk") head, and the config-driven branches of the Qwen2,
-Qwen3, Gemma, Gemma-2, rotary LayerNorm and position families).
+Qwen3, Gemma, Gemma-2, LayerNorm and position families).
 
 RMSNorm, rotary GQA attention over the position-tagged cache, a gated FFN
 (SiLU, or GELU for the Gemma families), with fused `wqkv` and `w_gate_up` weights kept
@@ -14,15 +14,21 @@ config or from the weights present, as the reference reads them:
 - `cfg.norm_type == "layer"`: mean-subtracted LayerNorm for every block
   norm and the final norm, with `attn_norm_b` / `ffn_norm_b` /
   `output_norm_b` where the file has them (phi2, starcoder2, stablelm,
-  gptneox, command-r);
+  gptneox, command-r, nemotron, orion, codeshell, falcon, gptj);
+- `cfg.nonparam_norms`: the block and final LayerNorms apply with no
+  weight and no bias where the file has no norm tensor (olmo);
+- `cfg.clamp_kqv`: q, k and v clipped to +-clamp_kqv after the projection
+  and its bias, before rope (olmo, mpt);
 - `cfg.rope_dim < head_dim`: only the first `rope_dim` features of q and k
-  rotate (phi2, stablelm, gptneox);
+  rotate (phi2, stablelm, gptneox, nemotron, gptj);
 - `bo`: the attention output's bias; `w_up` without a gate: the no-gate
-  MLP act(x W_up + b_up) W_down + b_down (phi2, starcoder2, gptneox);
+  MLP act(x W_up + b_up) W_down + b_down (phi2, starcoder2, gptneox,
+  nemotron, codeshell, falcon, gptj), `cfg.act == "relu2"` its squared
+  ReLU (nemotron);
 - `cfg.parallel_blocks`: x + attn + ffn, the FFN fed by `ffn_norm` where the
   tensor exists (gptneox, stablelm) or by the attention's input norm
-  (phi2, command-r);
-- `output_b` and `cfg.logit_scale` on the logits (phi2; command-r);
+  (phi2, command-r, falcon, gptj);
+- `output_b` and `cfg.logit_scale` on the logits (phi2, gptj; command-r);
 - `attn_q_norm` / `attn_k_norm` [Dh]: per-head RMSNorm of q and k before
   rope (qwen3);
 - `post_attn_norm` / `post_ffn_norm`: sandwich norms on the attention and
@@ -227,13 +233,20 @@ def _block_norm(cfg: ModelConfig, layers: dict, key: str, x: torch.Tensor, li: i
     return rms_norm(x, w, cfg.rms_eps)
 
 
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    """The squared ReLU (nemotron's FFN act: the reference's `_relu2`)."""
+    r = F.relu(x)
+    return r * r
+
+
 def _ffn(cfg: ModelConfig, layers: dict, li: int, ffn_in: torch.Tensor, compute_dtype
          ) -> torch.Tensor:
     """The FFN (the reference's `_ffn`, llama.py:178-200): the fused gated
     act(gate) * up (with `b_gate_up` added first where the layers carry
     it), or the no-gate MLP act(x W_up + b_up), then W_down and `b_down`
     where the layers carry it."""
-    act = F.silu if cfg.act == "silu" else functools.partial(F.gelu, approximate="tanh")
+    act = (F.silu if cfg.act == "silu" else _relu2 if cfg.act == "relu2"
+           else functools.partial(F.gelu, approximate="tanh"))
     if "w_gate_up" in layers:
         gate_up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype)
         if "b_gate_up" in layers:  # jais's gate and up biases
@@ -284,13 +297,16 @@ def _layer_step(
     the key positions `key_tags` sliced to the read bound."""
     b, t, _ = x.shape
     h, h_kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn_in = _block_norm(cfg, layers, "attn_norm", x, li) if "attn_norm" in layers else x
+    attn_in = (_block_norm(cfg, layers, "attn_norm", x, li)
+               if "attn_norm" in layers or cfg.nonparam_norms else x)
     if mask_swa is not None and li % cfg.swa_every == 0:
         mask = mask_swa
 
     qkv = qmatmul_layer(attn_in, layers["wqkv"], li, compute_dtype)
     if "bqkv" in layers:  # qwen2's q/k/v biases
         qkv = qkv + layers["bqkv"][li].to(qkv.dtype)
+    if cfg.clamp_kqv > 0:  # olmo: q/k/v clipped, a tensor op the step graphs capture
+        qkv = qkv.clamp(-cfg.clamp_kqv, cfg.clamp_kqv)
     q, k, v = torch.split(qkv, [h * dh, h_kv * dh, h_kv * dh], dim=-1)
     q = q.reshape(b, t, h, dh)
     k = k.reshape(b, t, h_kv, dh)
@@ -377,7 +393,8 @@ def _layer_step(
         ffn_in = _block_norm(cfg, layers, "ffn_norm", x, li) if "ffn_norm" in layers else attn_in
         return x + attn_out + _ffn(cfg, layers, li, ffn_in, compute_dtype)
     x = x + attn_out
-    ffn_in = _block_norm(cfg, layers, "ffn_norm", x, li) if "ffn_norm" in layers else x
+    ffn_in = (_block_norm(cfg, layers, "ffn_norm", x, li)
+              if "ffn_norm" in layers or cfg.nonparam_norms else x)
     ffn_out = _ffn(cfg, layers, li, ffn_in, compute_dtype)
     if "post_ffn_norm" in layers:
         ffn_out = rms_norm(ffn_out, layers["post_ffn_norm"][li], cfg.rms_eps)

@@ -33,7 +33,10 @@ pre-fused `attn_qkv.weight` (gptneox) loads as `wqkv`, its q/k rows
 un-permuted where the arch is permuted; a file without `ffn_gate` keeps
 `w_up` alone (the no-gate MLP), and one without `ffn_norm` (phi2,
 command-r: one shared input norm) has no `ffn_norm`. `output_norm.bias` and
-`output.bias` load as `output_norm_b` and `output_b`. The position
+`output.bias` load as `output_norm_b` and `output_b`; a file without
+`output_norm.weight` (olmo: non-parametric norms, no norm tensor at all)
+has no `output_norm`. A Falcon-40B / 180B file's `attn_norm_2` (its FFN's
+own norm) is refused: the reference never reads it. The position
 families' tensors load as the reference's (loader.py:831-843): GPT-2's and
 StarCoder's learned positions `position_embd.weight` as `pos_embd` (f32 [n_pos,
 D]), BLOOM's embedding LayerNorm `token_embd_norm.weight` / `.bias` as
@@ -244,6 +247,11 @@ def load_llama_params(path: str | Path, device="cuda",
     if cfg.arch not in TARGET_ARCHS:
         raise NotImplementedError(f"load_llama_params reads {TARGET_ARCHS} files, not "
                                   f"{cfg.arch!r}")
+    if "blk.0.attn_norm_2.weight" in reader.tensors:
+        # Falcon-40B / 180B's FFN norm (new_decoder_architecture): the
+        # reference never reads it, and its FFN would share the attention's
+        raise NotImplementedError("attn_norm_2 (the FFN norm of Falcon-40B / 180B) is not "
+                                  "ported yet (ROADMAP queue 1, item 8)")
     _check_names(reader, _TOP_TENSORS,
                  [*LAYER_KEY_MAP.values(), *OPTIONAL_NORMS.values(), *OPTIONAL_BIASES.values(),
                   *BIASES, *FUSED_QKV], cfg.n_layers)
@@ -294,8 +302,9 @@ def load_llama_params(path: str | Path, device="cuda",
     params = {
         "tok_embd": ld.tensor("token_embd.weight"),
         "layers": fuse_layer_weights(stacked),
-        "output_norm": ld.tensor("output_norm.weight"),
     }
+    if "output_norm.weight" in reader.tensors:  # olmo's final norm has none
+        params["output_norm"] = ld.tensor("output_norm.weight")
     if "output_norm.bias" in reader.tensors:
         params["output_norm_b"] = ld.tensor("output_norm.bias")
     if "rope_freqs.weight" in reader.tensors:  # Llama-3.1's per-frequency divisors

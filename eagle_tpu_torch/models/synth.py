@@ -2,8 +2,10 @@
 (port of eagle_tpu/models/synth.py: `VICUNA_7B`, `synth_qtensor`,
 `synth_llama_params`, `synth_eagle_params`), with the optional tensors of
 the Qwen2, Qwen3 and Gemma-2 branches (`bqkv`, per-head q/k norms, sandwich
-norms) and of the position families (learned positions `pos_embd`, the
-embedding LayerNorm `tok_embd_norm(_b)`, a no-gate `w_up`, a tied head).
+norms), of the position families (learned positions `pos_embd`, the
+embedding LayerNorm `tok_embd_norm(_b)`, a no-gate `w_up`, a tied head)
+and of the other LayerNorm families (no norm tensor at all under
+`cfg.nonparam_norms`, one shared input norm, an lm_head bias).
 
 Weights are generated on the device with a seeded `torch.Generator` — no
 host upload — in the fused (`wqkv`, `w_gate_up`), layer-stacked "kn" layout
@@ -100,6 +102,8 @@ def synth_llama_params(
     gate: bool = True,
     embd_norm: bool = False,
     tied: bool = False,
+    ffn_norm: bool = True,
+    out_bias: bool = False,
 ) -> dict[str, Any]:
     """Target params: fused qkv and gate+up along N, layer-stacked. With
     `cfg.attn_bias` also `bqkv` (qwen2; the bias of a pre-fused `attn_qkv`),
@@ -108,7 +112,10 @@ def synth_llama_params(
     `w_up` (gpt2, starcoder, bloom, mpt); `cfg.has_pos_embd` adds learned
     positions `pos_embd` [n_ctx_train, D] f32 (gpt2, starcoder), `embd_norm`
     the embedding LayerNorm's weight and bias (bloom), and `tied` makes the
-    embedding table the head (gpt2, bloom, mpt)."""
+    embedding table the head (gpt2, bloom, mpt). `cfg.nonparam_norms` leaves
+    out every norm tensor (olmo), `ffn_norm=False` the FFN's own norm (the
+    parallel block's one shared input norm: falcon, gptj), and `out_bias`
+    adds the lm_head bias `output_b` (gptj)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d, dh, h, hkv, f, v = (
@@ -134,12 +141,19 @@ def synth_llama_params(
     if cfg.post_norms:
         layers["post_attn_norm"] = torch.ones((L, d), device=dev)
         layers["post_ffn_norm"] = torch.ones((L, d), device=dev)
+    if not ffn_norm or cfg.nonparam_norms:
+        del layers["ffn_norm"]
+    if cfg.nonparam_norms:
+        del layers["attn_norm"]
     params = {
         "tok_embd": emb,
         "layers": layers,
-        "output_norm": torch.ones((d,), device=dev),
         "output": emb if tied else synth_qtensor(gen, v, d, **qa),
     }
+    if not cfg.nonparam_norms:
+        params["output_norm"] = torch.ones((d,), device=dev)
+    if out_bias:
+        params["output_b"] = torch.randn((v,), generator=gen, device=dev) * 0.02
     if cfg.has_pos_embd:
         params["pos_embd"] = torch.randn((cfg.n_ctx_train, d), generator=gen, device=dev) * 0.02
     if embd_norm:

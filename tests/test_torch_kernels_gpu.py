@@ -44,7 +44,11 @@ llama at head_dim 96 (`-k head_width`), read through the plain attention;
 the rotary LayerNorm families (`-k layernorm`): qmm at StarCoder2-7B's and
 Phi-2's shapes on every route, both flash kernels at g = 9, tiny phi2 /
 starcoder2 / stablelm / gptneox / command-r models card == CPU and graphed
-== eager (greedy and the EAGLE chain), a stablelm kept off the fused FFN.
+== eager (greedy and the EAGLE chain), a stablelm kept off the fused FFN;
+the other LayerNorm families (`-k lnfamilies`): qmm at Falcon-7B's (Q5_0,
+K = 4,544) and Minitron-8B's shapes (the 256,000-column Q6_K head) on every
+route, both flash kernels at g = 71 (D = 64), tiny nemotron / olmo / orion /
+codeshell / falcon / gptj models card == CPU and graphed == eager.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -125,6 +129,16 @@ def _g8(gen, n, k, stack=None, packed=False):
                    layout="kn", packed=packed)
 
 
+def _q5_0(gen, n, k, stack=None):
+    """The Q5_0 serving form: int8 codes in [0, 32), an f32 scale d and an f32
+    bias -16 d a group of 32."""
+    lead = () if stack is None else (stack,)
+    q = torch.randint(0, 32, lead + (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = (torch.rand(lead + (k // 32, n), generator=gen, device="cuda") + 0.5) * 1e-3
+    return QTensor(q=q, scale=scale, bias=-16 * scale, group=32,
+                   ggml_type=int(GGMLType.Q5_0), layout="kn")
+
+
 # name -> weight maker (gen, n, k, stack)
 WEIGHTS = {
     "q4k_packed_coded": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_K, s, packed=True, coded=True),
@@ -142,6 +156,8 @@ WEIGHTS = {
     # and Q8_0 (int8 codes over the whole [-128, 127], f32 scale, no bias)
     "q4_0_packed_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q4_0, s, packed=True),
     "q8_0_int8_f32": lambda g, n, k, s: synth_qtensor(g, n, k, Q8_0, s),
+    # Q5_0 (int8 codes, f32 scale and bias -16d): Falcon-7B's layers
+    "q5_0_int8_f32": _q5_0,
     # groups of 8: the IQ1_M form, and packed nibbles
     "iq1m_int8_g8": lambda g, n, k, s: _g8(g, n, k, s),
     "packed_g8_f32": lambda g, n, k, s: _g8(g, n, k, s, packed=True),
@@ -2283,6 +2299,152 @@ def test_positions_graphed_equals_eager(cuda, name):
     the step graphs capture them); then the EAGLE chain (a llama draft) at 1
     and 3 cycles per dispatch, graphed == eager."""
     cfg, params = _position_family(name)
+    runs = [Generator(params, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                      cuda_graphs=graphed).generate(PROMPT * 2, max_new_tokens=40,
+                                                    stop_at_eos=False)
+            for graphed in (False, True)]
+    assert runs[0] == runs[1]
+    _, dp = _tiny_bf16()
+    dcfg = dataclasses.replace(TINY_CFG, n_layers=1, is_eagle=True)
+    for c in (1, 3):
+        runs = [EagleChainEngine(params, dp, cfg, dcfg, n_draft=3, max_seq=256,
+                                 kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                 eos_id=-1, device="cuda", cuda_graphs=graphed).generate(
+                    PROMPT, max_new_tokens=30, stop_at_eos=False, cycles_per_dispatch=c)
+                for graphed in (False, True)]
+        assert runs[0] == runs[1], c
+
+
+# ---- the other LayerNorm families (`-k lnfamilies`) -----------------------------
+
+
+#: (name, weight form, N, K, stacked) of the lnfamilies cells' new qmm shapes:
+#: Falcon-7B (K 4,544 = 71 x 64, not a multiple of 256: Q5_0 wqkv N 4,672 /
+#: wo / w_up N 18,176, the Q4_K w_down at K 18,176 = 71 super-blocks, a Q8_0
+#: head N 65,024, its EAGLE draft's fc K 9,088) and Minitron-8B (wqkv N 8,192,
+#: wo K 6,144 over N 4,096, w_up N 16,384, w_down K 16,384, a Q6_K head N
+#: 256,000)
+LNF_SHAPES = [("falcon_wqkv", "q5_0_int8_f32", 4672, 4544, True),
+              ("falcon_wo", "q5_0_int8_f32", 4544, 4544, True),
+              ("falcon_w_up", "q5_0_int8_f32", 18176, 4544, True),
+              ("falcon_w_down", "q4k_packed_coded", 4544, 18176, True),
+              ("falcon_lm_head", "q8_0_int8_f32", 65024, 4544, False),
+              ("falcon_draft_fc", "q8_0_int8_f32", 4544, 9088, False),
+              ("minitron_wqkv", "q4k_packed_coded", 8192, 4096, True),
+              ("minitron_wo", "q4k_packed_coded", 4096, 6144, True),
+              ("minitron_w_down", "q4k_packed_coded", 4096, 16384, True),
+              ("minitron_lm_head", "q6k_int8_coded", 256000, 4096, False)]
+
+
+@pytest.mark.parametrize("rows", [1, 6, 300])
+@pytest.mark.parametrize("name,form,n,k,stacked", LNF_SHAPES, ids=[s[0] for s in LNF_SHAPES])
+def test_lnfamilies_qmm_shapes_every_route(cuda, name, form, n, k, stacked, rows):
+    """qmm at the lnfamilies cells' new shapes, bf16, on each route (1 row:
+    the 1-row body; 6: the small-row body; 300: wgmma), against the plain
+    version: K = 4,544 cut on 64-row steps (71), the coded K = 18,176 on 71
+    super-blocks, and the 256,000-column head."""
+    _qmm_route_case(cuda, form, n, k, stacked, rows)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("t", [1, 6, 512])
+@pytest.mark.parametrize("name", ["flash_decode", "flash_prefill"])
+def test_lnfamilies_flash_g71(cuda, name, t):
+    """Both kernels at Falcon-7B's g = 71 (71 query heads over one KV head
+    of 64, bf16 cache, 1,024 slots with a hole; T·g 71 and 426, prime-sized
+    and ragged against every row tile, and 36,352 at the 512-row prompt)
+    against their plain versions, with a row that sees nothing (the uniform
+    average) in flash_decode's mask."""
+    b, h, h_kv, d, s = 1, 71, 1, 64, 1024
+    kc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((2, b, h_kv, s, d), generator=cuda, device="cuda").to(torch.bfloat16)
+    t0 = 700 if t < 300 else 0
+    tags = torch.arange(s, dtype=torch.int32, device="cuda")[None].clone()
+    tags[:, t0 + t:] = -1
+    tags[:, 100:140] = -1
+    pos = (t0 + torch.arange(t, dtype=torch.int32, device="cuda"))[None]
+    q = torch.randn((b, t, h, d), generator=cuda, device="cuda")
+    mask = causal_mask_from_tags(tags, pos)
+    mask[0, t // 2] = False
+    _build.reset_counts()
+    if name == "flash_decode":
+        got = fa.flash_attention_cached(q, kc, vc, mask, 1)
+    else:
+        got = fa.flash_attention_prefill(q, kc, vc, pos, tags, 1)
+    assert _build.launches[name] == 1 and _build.plain_calls[name] == 0
+    if name == "flash_decode":
+        want = fa.flash_attention_cached_plain(q, kc, vc, mask, 1)
+        _uniform_rows(got, vc, 1, s, h, 0, t // 2)
+    else:
+        want = fa.flash_attention_prefill_plain(q, kc, vc, pos, tags, 1)
+    _close(got, want, TOL[torch.bfloat16])
+
+
+#: tiny models of the six families: (config changes, synth_llama_params'
+#: layout, biases on the norms, on q/k/v / attn_output / the FFN)
+LNF_CFGS = {
+    "nemotron": (dict(arch="nemotron", norm_type="layer", act="relu2", n_heads=8, rope_dim=32),
+                 dict(gate=False), True, False),
+    "olmo": (dict(arch="olmo", norm_type="layer", nonparam_norms=True, clamp_kqv=0.05), {},
+             False, False),
+    "orion": (dict(arch="orion", norm_type="layer"), {}, True, False),
+    "codeshell": (dict(arch="codeshell", norm_type="layer", act="gelu"), dict(gate=False), True,
+                  True),
+    "falcon": (dict(arch="falcon", norm_type="layer", act="gelu", parallel_blocks=True,
+                    n_kv_heads=1), dict(gate=False, ffn_norm=False), True, False),
+    "gptj": (dict(arch="gptj", norm_type="layer", act="gelu", parallel_blocks=True, n_heads=2,
+                  head_dim=256, rope_dim=64), dict(gate=False, ffn_norm=False, out_bias=True),
+             True, True),
+}
+
+
+def _lnfamily(name):
+    """A tiny target of `LNF_CFGS[name]` on the card: Q4_K packed coded
+    weights in the family's layout, its biases added."""
+    change, layout, norm_b, biases = LNF_CFGS[name]
+    cfg = dataclasses.replace(TINY_CFG, **change)
+    p = synth_llama_params(cfg, seed=21, packed=True, coded=True, device="cuda", **layout)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    L, d, f = cfg.n_layers, cfg.n_embd, cfg.n_ff
+    lay = p["layers"]
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 0.1  # noqa: E731
+    if norm_b:
+        lay["attn_norm_b"] = rnd(L, d)
+        if "ffn_norm" in lay:
+            lay["ffn_norm_b"] = rnd(L, d)
+        p["output_norm_b"] = rnd(d)
+    if biases:
+        lay["b_up"], lay["b_down"] = rnd(L, f), rnd(L, d)
+        if name == "codeshell":
+            lay["bo"] = rnd(L, d)
+            lay["bqkv"] = rnd(L, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim)
+    return cfg, p
+
+
+@pytest.mark.parametrize("name", list(LNF_CFGS))
+def test_lnfamilies_tokens_card_equal_cpu(cuda, name):
+    """A tiny model of each family: f32 greedy tokens through the kernels on
+    the card equal the plain path's on the CPU (the squared ReLU, the
+    weightless norms and the clamp as tensor ops), through the flash
+    kernels (gptj's at D = 256)."""
+    cfg, params = _lnfamily(name)
+    toks = []
+    _build.reset_counts()
+    for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        gen = Generator(p, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device=dev)
+        toks.append(gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8))
+    assert toks[0] == toks[1]
+    assert _build.launches["flash_decode"] > 0 and _build.launches["flash_prefill"] > 0
+
+
+@pytest.mark.parametrize("name", list(LNF_CFGS))
+def test_lnfamilies_graphed_equals_eager(cuda, name):
+    """bf16 greedy tokens of each tiny family graphed and eager, bit for bit
+    (the clamp is a tensor op the step graphs capture); then the EAGLE chain
+    (a llama draft) at 1 and 3 cycles per dispatch, graphed == eager."""
+    cfg, params = _lnfamily(name)
     runs = [Generator(params, cfg, max_seq=256, kv_dtype=torch.bfloat16,
                       compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
                       cuda_graphs=graphed).generate(PROMPT * 2, max_new_tokens=40,

@@ -60,10 +60,12 @@ from test_torch_families import (  # noqa: F401  (f32_configs: a fixture)
 from test_torch_loader import _same_tree
 from torch_port_util import (  # noqa: F401  (background_cpu: a fixture)
     LN_FAMILIES,
+    LN_FAMILIES2,
     LN_PRE,
     background_cpu,
     jax_cfg_to_torch,
     tiny_layernorm_pair,
+    tiny_lnfamily_pair,
 )
 
 pytestmark = pytest.mark.usefixtures("background_cpu")  # yields the CPU to other files
@@ -509,13 +511,15 @@ def test_chat_session_shifts_with_partial_rotary(pairs):
 # ---- the fused-FFN gate -------------------------------------------------------
 
 
-def test_fused_ffn_gate_keeps_layernorm_models_off(models, monkeypatch):
+def test_fused_ffn_gate_keeps_layernorm_models_off(models, monkeypatch, tmp_path):
     """stablelm (a gated FFN with its own LayerNorm) is what the reference's
     gate would admit: under EAGLE_TPU_FUSED_FFN=1 its FFN norm would become
     an RMSNorm without its bias. The gate reads False for it, for the
-    parallel and biased families, and True for the same weights under an
-    RMSNorm config without the biases (the weights themselves fit the
-    block); fused and unfused logits are equal at decode and verify rows."""
+    parallel and biased families and for the other LayerNorm families
+    (nemotron, olmo, orion, codeshell, falcon, gptj: orion's and olmo's
+    gated FFNs too), and True for the same weights under an RMSNorm config
+    without the biases (the weights themselves fit the block); fused and
+    unfused logits are equal at decode and verify rows."""
     m = models["stablelm"]
     cfg, layers = m["tcfg"], m["tt"]["layers"]
     assert not supports_ffn_block(layers, cfg)
@@ -525,6 +529,11 @@ def test_fused_ffn_gate_keeps_layernorm_models_off(models, monkeypatch):
                                                              parallel_blocks=True))
     for name in ("phi2", "starcoder2", "gptneox", "command-r"):
         assert not supports_ffn_block(models[name]["tt"]["layers"], models[name]["tcfg"]), name
+    for name in LN_FAMILIES2:
+        (tmp_path / name).mkdir()
+        tt, tcfg, _ = load_llama_params(tiny_lnfamily_pair(tmp_path / name, name)[0],
+                                        device="cpu")
+        assert not supports_ffn_block(tt["layers"], tcfg), name
     toks = _tokens(N_PROMPT + 6)
     for mode in ("0", "1"):
         monkeypatch.setenv("EAGLE_TPU_FUSED_FFN", mode)
@@ -601,7 +610,7 @@ REFUSED = {"learned positions": dict(has_pos_embd=True), "alibi": dict(use_alibi
            "hetero GQA": dict(head_counts=(4, 2)), "m-rope": dict(mrope_sections=(8, 8, 16)),
            "mla": dict(kv_lora_rank=16), "relu2": dict(act="relu2"),
            "non-parametric norms": dict(nonparam_norms=True), "no rotary": dict(rope_dim=0),
-           "LayerNorm of another arch": dict(arch="falcon"),
+           "LayerNorm of another arch": dict(arch="cohere2"),
            "LayerNorm of a llama": dict(arch="llama")}
 
 
@@ -629,4 +638,4 @@ def test_refused_weights_name_item_8(models):
             llama_forward(params, cfg, pos, pos, kv, pos,
                           causal_mask_from_tags(kv.slot_pos, pos))
     with pytest.raises(NotImplementedError, match="item 8"):
-        ModelConfig.from_gguf_metadata({"general.architecture": "falcon"})
+        ModelConfig.from_gguf_metadata({"general.architecture": "cohere2"})

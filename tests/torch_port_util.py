@@ -149,7 +149,7 @@ def has_encoder(qtype) -> bool:
 #: the tensors of a llama-family layer
 LLAMA_LAYOUT = dict(fused_qkv=False, gate=True, ffn_norm=True, norm_b=False, qkv_b=False,
                     bo=False, ffn_b=False, out_b=False, gate_b=False, pos_embd=False,
-                    embd_norm=False)
+                    embd_norm=False, norms=True)
 #: the LayerNorm families' tensors, as llama.cpp's tensor tables hold them:
 #: a fused attn_qkv, an FFN gate, an ffn_norm, the norms' biases, q/k/v
 #: biases, attn_output.bias, ffn_up / ffn_down biases, output.bias
@@ -174,6 +174,17 @@ LN_LAYOUTS = {
     "mpt": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False),
     "jais": dict(LLAMA_LAYOUT, fused_qkv=True, norm_b=True, qkv_b=True, bo=True, ffn_b=True,
                  gate_b=True),
+    # the other LayerNorm families: Nemotron's no-gate MLP; OLMo without any
+    # norm tensor (`norms`); Orion's gated FFN under LayerNorms with biases;
+    # CodeShell's gpt2-style layer; Falcon's and GPT-J's one shared input
+    # norm (GPT-J with separate q/k/v and an output.bias)
+    "nemotron": dict(LLAMA_LAYOUT, gate=False, norm_b=True),
+    "olmo": dict(LLAMA_LAYOUT, norms=False),
+    "orion": dict(LLAMA_LAYOUT, norm_b=True),
+    "codeshell": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False, norm_b=True, qkv_b=True,
+                      bo=True, ffn_b=True),
+    "falcon": dict(LLAMA_LAYOUT, fused_qkv=True, gate=False, ffn_norm=False, norm_b=True),
+    "gptj": dict(LLAMA_LAYOUT, gate=False, ffn_norm=False, norm_b=True, ffn_b=True, out_b=True),
 }
 
 
@@ -182,7 +193,8 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
                          n_kv_heads: int | None = None, rope_factors=None,
                          tied: bool = False, arch: str = "llama", head_dim: int | None = None,
                          n_layers: int | None = None, n_heads: int | None = None,
-                         rope_dim: int | None = None, n_pos: int = 160):
+                         rope_dim: int | None = None, n_pos: int = 160,
+                         extra: dict | None = None):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
@@ -207,7 +219,9 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     `ffn_gate.bias`, each as the layout says; refact is written with the
     llama layout); `head_dim`, `n_heads`, `n_layers` and
     `rope_dim` (partial rotary) set the target's (the draft keeps the tiny
-    llama's). Returns (target path, draft path)."""
+    llama's); the other LayerNorm families of `LN_LAYOUTS` likewise (olmo:
+    no norm tensor at all), and `extra` adds F32 tensors (name -> array) to
+    the target. Returns (target path, draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
@@ -247,13 +261,13 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
             mats[:0] = [("attn_q", (nq, d)), ("attn_k", (nkv, d)), ("attn_v", (nkv, d))]
         if lay["gate"]:
             mats.insert(-2, ("ffn_gate", (f, d)))
-        if attn_norm:
+        if attn_norm and lay["norms"]:
             w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
             if lay["norm_b"]:
                 w.add_tensor(f"blk.{i}.attn_norm.bias", bias(d) * 0.2)
         for name, (n, k) in mats:
             qmat(w, f"blk.{i}.{name}.weight", n, k, qtype)
-        if lay["ffn_norm"]:
+        if lay["ffn_norm"] and lay["norms"]:
             w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
             if lay["norm_b"]:
                 w.add_tensor(f"blk.{i}.ffn_norm.bias", bias(d) * 0.2)
@@ -293,11 +307,14 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
         w.add_tensor("token_embd_norm.bias", bias(d) * 0.2)
     for i in range(jcfg.n_layers):
         layer(w, i, layer_type, jcfg, arch=arch)
-    w.add_tensor("output_norm.weight", norm())
+    if ln is None or ln["norms"]:
+        w.add_tensor("output_norm.weight", norm())
     if ln is not None and ln["norm_b"]:
         w.add_tensor("output_norm.bias", bias(d) * 0.2)
     if rope_factors is not None:
         w.add_tensor("rope_freqs.weight", np.asarray(rope_factors, np.float32))
+    for name, arr in (extra or {}).items():
+        w.add_tensor(name, np.asarray(arr, np.float32))
     if not tied:
         qmat(w, "output.weight", v, d, out_type, out_scale)
     if ln is not None and ln["out_b"]:
@@ -613,7 +630,8 @@ COMMAND_R_TEMPLATE = ("{{ bos_token }}{% for message in messages %}<|START_OF_TU
 LN_PRE = {"phi2": "phi-2", "starcoder2": "starcoder", "stablelm": "stablelm2",
           "gptneox": "gpt-2", "command-r": "command-r", "gpt2": "gpt-2",
           "starcoder": "starcoder", "bloom": "bloom", "mpt": "mpt", "refact": "refact",
-          "jais": "jais"}
+          "jais": "jais", "olmo": "gpt-2", "gptj": "gpt-2", "codeshell": "codeshell",
+          "falcon": "falcon"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -712,3 +730,44 @@ def tiny_position_pair(tmp_path, name: str, n_pos: int = 160):
     arch, kw, md = POS_FAMILIES[name]
     return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=23, arch=arch,
                                 target_metadata={**ln_vocab(arch), **md}, n_pos=n_pos, **kw)
+
+
+#: the other LayerNorm families (ROADMAP queue 1, item 8's last LayerNorm
+#: archs): (arch, write_tiny_gguf_pair's arguments, the target's metadata,
+#: the vocabulary: "spm" or a BPE pre-tokenizer of `LN_PRE`)
+LN_FAMILIES2 = {
+    # Nemotron / Minitron: LayerNorm with biases, a no-gate squared-ReLU MLP,
+    # 32 of 64 features rotary (NEOX rows), a query (6 heads of 64) wider
+    # than the model (256) over 2 KV heads
+    "nemotron": ("nemotron", dict(n_heads=6, n_kv_heads=2, rope_dim=32), {}, "spm"),
+    # OLMo: no norm tensor (non-parametric LayerNorms), q/k/v clipped to
+    # +-0.6 (binding at these weights), the adjacent-pair rope rows, a gated
+    # SiLU FFN
+    "olmo": ("olmo", dict(n_kv_heads=4), {"olmo.attention.clamp_kqv": 0.6}, "bpe"),
+    # Orion: a gated SiLU FFN under LayerNorms with biases, interleaved rows
+    "orion": ("orion", dict(n_kv_heads=4), {}, "spm"),
+    # CodeShell: a fused attn_qkv with its bias over GQA 4:2, a no-gate GELU
+    # MLP with biases, attn_output.bias
+    "codeshell": ("codeshell", dict(n_kv_heads=2), {}, "bpe"),
+    # Falcon-7B: one shared LayerNorm (with its bias) feeding attention and a
+    # no-bias GELU MLP in parallel, multi-query attention, a fused attn_qkv
+    "falcon": ("falcon", dict(n_kv_heads=1), {}, "bpe"),
+    # GPT-J: the parallel block, separate q/k/v, 64 of 256 features rotary
+    # (2 heads of 256: a query twice the model's width), FFN biases and an
+    # lm_head bias
+    "gptj": ("gptj", dict(n_heads=2, n_kv_heads=2, head_dim=256, rope_dim=64), {}, "bpe"),
+}
+
+
+def tiny_lnfamily_pair(tmp_path, name: str, extra: dict | None = None):
+    """A tiny Q8_0 target of `LN_FAMILIES2[name]` (2 layers, width 256)
+    with an SPM vocabulary (`spm_metadata(ENGINE_PROMPT)`) or `ln_vocab(arch)`,
+    and an EAGLE draft. `extra` adds F32 tensors to the target (name ->
+    array)."""
+    from eagle_tpu.gguf.constants import GGMLType
+
+    q8 = GGMLType.Q8_0
+    arch, kw, md, vocab = LN_FAMILIES2[name]
+    vocab_md = spm_metadata(ENGINE_PROMPT) if vocab == "spm" else ln_vocab(arch)
+    return write_tiny_gguf_pair(tmp_path, q8, q8, q8, q8, seed=29, arch=arch,
+                                target_metadata={**vocab_md, **md}, extra=extra, **kw)
