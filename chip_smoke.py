@@ -412,6 +412,35 @@ lnfamilies. the other LayerNorm families at their published shapes, in a
    The Falcon default path's, the Minitron run's and the checks' launches
    stand in the `kernels` line as `lnfamilies_path_launches`; the flash
    rows carry the cells' checks as `lnfamilies`.
+moe. the mixture-of-experts families at their published widths, in a
+   temporary directory of their own, minted as phase lnfamilies mints (an
+   F32 router, the experts' [E, F, d] / [E, d, F] stacks and the shared
+   expert as llama.cpp names them): (a) Mixtral-8x7B (mistralai/
+   Mixtral-8x7B-v0.1: d 4,096, 4 of its 32 layers, 32 query heads over 8
+   KV heads of 128, 8 experts of 14,336, 2 a token, Q4_K attention and
+   experts, a Q6_K head, an SPM vocabulary of 32,000 pieces; written as
+   `llama` with `llama.expert_count`) and an EAGLE Q8_0 draft at its widths
+   (one dense layer, FFN 14,336); (b) Qwen1.5-MoE-A2.7B (Qwen/
+   Qwen1.5-MoE-A2.7B: d 2,048, 8 of its 24 layers, 16 / 16 heads of 128,
+   60 experts of 1,408, 4 a token, a shared expert of 5,632 under its
+   sigmoid gate, q/k/v biases, Q4_K with the experts' down products Q5_0
+   (K = 1,408), a Q6_K head, a 151,936-entry BPE vocabulary, pre "qwen2").
+   Each through `Engine`: the experts read densely on the card into bf16
+   stacks (one expert of each of two stacks held bit for bit against the
+   CPU's decode of the file's bytes), the load's seconds and the card's
+   peak memory; qmm at the path's shapes (1, 6 and 300 rows; the draft's
+   fc), flash_decode and flash_prefill at g = 4 and g = 1 against their
+   plain versions with bound and library ms (`[moe kernel]`); the MoE FFN
+   (`models/llama.py:_moe_ffn`: every expert a dense cuBLAS product) at 1,
+   6 and 300 rows against its f32 version (rel err <= 1e-2), timed as a
+   CUDA graph beside its byte bound; the CPU port's first 2 greedy tokens
+   on a copy of the weights against the card's (the host's resident memory
+   before and after); then `serve_cell` on Mixtral (`[mixtral]`: 9
+   qmm_gemv and 4 flash_decode per decoded token, 9 qmm_mma per verify)
+   and `greedy_cell` on Qwen1.5-MoE (`[qwen1.5-moe]`: 17 qmm_gemv and 8
+   flash_decode per token). The Mixtral default path's and the Qwen run's
+   launches stand in the `kernels` line as `moe_path_launches`; the flash
+   rows carry the cells' checks as `moe`.
 7. the kernel benchmark (`python -m eagle_tpu_torch.tools.kernel_bench`) at
    its defaults (K 4096, N 11008, 8 rows, G 32) with every ported variant:
    each variant held against its plain version (relative error <= 1e-2),
@@ -2302,7 +2331,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
                    n_kv_heads: int | None = None, layer_type: str = "Q4_0",
                    rope_factors=None, tied: bool = False, arch: str = "llama",
                    head_dim: int | None = None, rope_dim: int | None = None,
-                   types: dict | None = None
+                   types: dict | None = None, moe: dict | None = None
                    ) -> tuple[pathlib.Path, pathlib.Path | None]:
     """Write a Vicuna-7B-shape GGUF (or one of the widths given) laid out as
     llama-quantize's Q4_0 lays out a llama-7B file (every layer matmul and
@@ -2326,7 +2355,16 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     (nemotron, olmo, orion, codeshell, falcon, gptj) the tensors its layout
     names. `types` sets the format of a target tensor by its GGUF name
     ("attn_qkv", ..., "token_embd", "output"), as llama-quantize's Q4_K_M
-    falls back to Q5_0 and Q8_0 where K % 256 != 0 (Falcon-7B).
+    falls back to Q5_0 and Q8_0 where K % 256 != 0 (Falcon-7B). `moe`
+    (n_expert, n_used, f_exp, shexp: the shared expert's width or 0) gives
+    the target's layers experts in place of the dense FFN, as llama.cpp
+    writes them: an F32 router `ffn_gate_inp` [E, d], the stacks
+    `ffn_{gate,up}_exps` [E, f_exp, d] and `ffn_down_exps` [E, d, f_exp]
+    (formats by `types`, as the other tensors), and with `shexp` the shared
+    expert `ffn_{gate,up,down}_shexp` with its F32 gate
+    `ffn_gate_inp_shexp` [1, d]; `{arch}.expert_count` and
+    `{arch}.expert_used_count` (and for qwen2moe the experts' widths) in
+    the metadata; the draft keeps its dense FFN of `f`.
     Weights are random quant blocks, at magnitudes that give Q4_0's weight
     RMS (~6e-3) in every layer format (`LAYER_MAGS`)."""
     import torch
@@ -2351,6 +2389,8 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
 
     ln, pos, lnf = LN_MINT.get(arch), POS_MINT.get(arch), LNF_MINT.get(arch)
     mats = layer_mats if ln is None else tuple(m for m in layer_mats if m[0] != "ffn_gate")
+    if moe is not None:  # the experts replace the dense FFN
+        mats = tuple(m for m in mats if not m[0].startswith("ffn_"))
     if pos is not None or (lnf is not None and lnf["fused"]):  # a fused attn_qkv
         mats = (("attn_qkv", d_q + 2 * d_kv, d),) + mats[3:]
     if pos is not None or (lnf is not None and not lnf["gate"]):  # no gate
@@ -2388,6 +2428,12 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
     w = writer(target, arch, n_layers, 2 if layer_type == "Q4_0" else 15)
     if ln is not None or pos is not None or lnf is not None:
         w.add(f"{arch}.attention.layer_norm_epsilon", 1e-5)
+    if moe is not None:
+        w.add(f"{arch}.expert_count", moe["n_expert"])
+        w.add(f"{arch}.expert_used_count", moe["n_used"])
+        if arch == "qwen2moe":
+            w.add(f"{arch}.expert_feed_forward_length", moe["f_exp"])
+            w.add(f"{arch}.expert_shared_feed_forward_length", moe["shexp"])
     for key, val in {**(vocab or spm_vocab(v, seed)), **(metadata or {})}.items():
         w.add(key, val)
     if tied:
@@ -2405,6 +2451,23 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
         for name, n, k in mats:
             add(w, f"blk.{i}.{name}.weight", n, k, *fmt(name))
+        if moe is not None:
+            n_exp, f_exp, fs = moe["n_expert"], moe["f_exp"], moe["shexp"]
+            # the router at a logit spread of ~1.3 over normed inputs
+            w.add_tensor(f"blk.{i}.ffn_gate_inp.weight", (torch.randn(
+                (n_exp, d), generator=gen, device="cuda") * 0.02).cpu().numpy())
+            for name, n, k in (("ffn_gate_exps", f_exp, d), ("ffn_up_exps", f_exp, d),
+                               ("ffn_down_exps", d, f_exp)):
+                qt, mag = fmt(name)
+                w.add_tensor(f"blk.{i}.{name}.weight",
+                             random_blocks(gen, n_exp * n, k, qt, mag, True), qt,
+                             raw_shape=(n_exp, n, k))
+            if fs:
+                for name, n, k in (("ffn_gate_shexp", fs, d), ("ffn_up_shexp", fs, d),
+                                   ("ffn_down_shexp", d, fs)):
+                    add(w, f"blk.{i}.{name}.weight", n, k, *fmt(name))
+                w.add_tensor(f"blk.{i}.ffn_gate_inp_shexp.weight", (torch.randn(
+                    (1, d), generator=gen, device="cuda") * 0.02).cpu().numpy())
         if (ln is None or ln["ffn_norm"]) and (lnf is None or lnf["ffn_norm"] and norms):
             w.add_tensor(f"blk.{i}.ffn_norm.weight", norm())
         if pos is not None and pos["biases"]:
@@ -2428,7 +2491,7 @@ def mint_gguf_pair(tmp: pathlib.Path, seed: int, d: int = 4096, f: int = 11008, 
             for name, n, _ in mats:
                 if name in lnf["mat_b"]:
                     w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
-        elif arch == "qwen2":
+        elif arch in ("qwen2", "qwen2moe"):
             for name, n in (("attn_q", d_q), ("attn_k", d_kv), ("attn_v", d_kv)):
                 w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
         elif arch == "qwen3":
@@ -3489,11 +3552,14 @@ def serve_http(target, draft, prompts: list, chat: list, want: dict, tmp: pathli
 
 def target_qmm_specs(params) -> list:
     """(name, weight, launches) of a target forward's products: the four
-    stacked projections of each layer and lm_head (none for a tied "nk"
-    head, which is no qmm)."""
+    stacked projections of each layer (wqkv and wo of a MoE layer, whose
+    experts are dense products) and lm_head (none for a tied "nk" head,
+    which is no qmm)."""
     tl = params["layers"]
     n_layers = tl["wqkv"].q.shape[0]
     head = [] if params["output"].layout == "nk" else [("lm_head", params["output"], 1)]
+    if "ffn_gate_inp" in tl:  # the experts are dense products, no qmm
+        return [(n, tl[n], n_layers) for n in ("wqkv", "wo")] + head
     ffn_in = "w_gate_up" if "w_gate_up" in tl else "w_up"  # the no-gate MLP's up
     return [(n, tl[n], n_layers) for n in ("wqkv", "wo", ffn_in, "w_down")] + head
 
@@ -6013,12 +6079,13 @@ def qwen_vocab(seed: int, v: int) -> tuple[dict, list]:
 
 def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, arch: str,
                 with_draft: bool, metadata: dict | None = None, tied: bool = False,
-                phase: str = "families", **mint):
+                phase: str = "families", check=None, **mint):
     """Mint a `c`-shape `arch` target (Q4_K layers, a Q6_K head or tied
     table; `mint`: more of `mint_gguf_pair`'s arguments) and, `with_draft`,
     an EAGLE Q8_0 draft of its widths; load them through `Engine` (greedy,
-    max_seq 2,048) and delete the files. Returns (Engine, the record: mint
-    and load seconds, file bytes)."""
+    max_seq 2,048), call `check(eng, target)` where given, and delete the
+    files. Returns (Engine, the record: mint and load seconds, file bytes,
+    the card's memory after the load and its peak during it)."""
     import torch
 
     from eagle_tpu_torch.api import Engine, EngineConfig
@@ -6033,11 +6100,15 @@ def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, ar
     rec = {"mint_s": time.time() - t0, "target_bytes": target.stat().st_size,
            "draft_bytes": draft.stat().st_size if draft else 0}
     greedy = sampler_from_args(build_parser("cli").parse_args(["-m", "-", "--temp", "0"]))
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     eng = Engine(EngineConfig(model_path=target, draft_path=draft, max_seq=2048, sampler=greedy))
     torch.cuda.synchronize()
     rec["load_s"] = time.time() - t0
     rec["device_gib"] = torch.cuda.memory_allocated() / 2**30
+    rec["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if check is not None:
+        rec["check"] = check(eng, target)
     target.unlink()
     if draft:
         draft.unlink()
@@ -6048,7 +6119,8 @@ def family_load(tag: str, c: dict, tmp: pathlib.Path, seed: int, vocab: dict, ar
     log(f"[{phase}] {tag}: minted {rec['target_bytes'] / 1e9:.3f} GB"
         + (f" + a {rec['draft_bytes'] / 1e9:.3f} GB EAGLE draft" if draft else "")
         + f" in {rec['mint_s']:.1f} s; Engine load {rec['load_s']:.2f} s "
-        f"({rec['device_gib']:.2f} GiB on the card)")
+        f"({rec['device_gib']:.2f} GiB on the card, {rec['device_peak_gib']:.2f} at the "
+        f"load's peak)")
     return eng, rec
 
 
@@ -7220,6 +7292,341 @@ def lnfamilies_path(report: dict, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase moe: the mixture-of-experts families at their published widths
+
+
+#: the published configs (config.json), cut in depth to fit the script's time
+#: (widths untouched): mistralai/Mixtral-8x7B-v0.1 (hidden 4,096, 32 heads
+#: over 8 KV heads of 128, 8 experts of 14,336, 2 a token, vocab 32,000,
+#: rope_theta 1e6; 4 of its 32 layers), written as llama.cpp writes it
+#: (`llama` with `llama.expert_count`), and Qwen/Qwen1.5-MoE-A2.7B (hidden
+#: 2,048, 16 / 16 heads of 128, 60 experts of 1,408, 4 a token, a shared
+#: expert of 5,632 under a sigmoid gate, q/k/v biases, vocab 151,936,
+#: rope_theta 1e6; 8 of its 24 layers)
+MIXTRAL_8X7B = dict(d=4096, f=14336, v=32000, n_layers=4, n_heads=32, n_kv_heads=8,
+                    head_dim=128, ctx=32768, rope_base=1e6)
+MIXTRAL_MOE = dict(n_expert=8, n_used=2, f_exp=14336, shexp=0)
+QWEN_MOE_A27B = dict(d=2048, f=5632, v=151936, n_layers=8, n_heads=16, n_kv_heads=16,
+                     head_dim=128, ctx=8192, rope_base=1e6)
+QWEN_MOE = dict(n_expert=60, n_used=4, f_exp=1408, shexp=5632)
+#: llama-quantize's Q4_K_M less its Q6_K layers: Q4_K everywhere, and the
+#: experts' down products of Qwen1.5-MoE (K = 1,408, no multiple of 256)
+#: fall back to Q5_0
+QWEN_MOE_TYPES = {"ffn_down_exps": "Q5_0"}
+#: launches per decoded token: wqkv and wo a layer + lm_head (the experts
+#: are dense cuBLAS products, no qmm); a flash_decode a layer
+MIXTRAL_GEMV, MIXTRAL_FLASH = MIXTRAL_8X7B["n_layers"] * 2 + 1, MIXTRAL_8X7B["n_layers"]
+QWEN_MOE_GEMV, QWEN_MOE_FLASH = QWEN_MOE_A27B["n_layers"] * 2 + 1, QWEN_MOE_A27B["n_layers"]
+#: the dense MoE weights of a layer (the router, the experts, the shared
+#: expert and its gate)
+MOE_KEYS = ("ffn_gate_inp", "w_gate_exps", "w_up_exps", "w_down_exps", "w_gate_shexp",
+            "w_up_shexp", "w_down_shexp", "ffn_gate_inp_shexp")
+
+
+def host_gib() -> dict:
+    """This process's resident host memory now (/proc/self/status VmRSS)
+    and its peak so far (getrusage's ru_maxrss), GiB."""
+    import resource
+
+    out = {"peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
+    for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            out["now"] = int(line.split()[1]) / 2**20
+    return out
+
+
+def moe_dense_check(eng, target) -> dict:
+    """The card's dense experts against the CPU's decode of the file's
+    bytes: expert 0 of layer 0's gate stack and the last expert of its down
+    stack, each `quant/qtensor.py:dequantize` on the CPU rounded to bf16,
+    equal bit for bit to the loaded tensors."""
+    import torch
+
+    from eagle_tpu_torch.gguf.constants import ggml_row_bytes
+    from eagle_tpu_torch.gguf.reader import GGUFReader
+    from eagle_tpu_torch.quant.qtensor import dequantize
+
+    out = {}
+    reader = GGUFReader(target)
+    for suffix, key, e in (("ffn_gate_exps", "w_gate_exps", 0), ("ffn_down_exps", "w_down_exps",
+                                                                   -1)):
+        info = reader.tensors[f"blk.0.{suffix}.weight"]
+        n_exp, n, k = info.shape
+        e %= n_exp
+        size = n * ggml_row_bytes(info.ggml_type, k)
+        raw = torch.from_numpy(reader.tensor_bytes(info.name)[e * size:(e + 1) * size].copy())
+        want = dequantize(raw, info.ggml_type, (n, k)).to(torch.bfloat16)
+        got = eng.params["layers"][key][0, e].cpu()
+        if got.dtype != torch.bfloat16 or not torch.equal(got.view(torch.int16),
+                                                          want.view(torch.int16)):
+            raise AssertionError(f"{info.name} expert {e}: the card's dense read differs from "
+                                 "the CPU's")
+        out[key] = f"{info.ggml_type.name} [{n} x {k}] expert {e}: bit-equal"
+    reader.close()
+    return out
+
+
+def moe_ffn_times(tag: str, eng, gen) -> list:
+    """`_moe_ffn` of the cell at 1, 6 and 300 rows (a decoded token's, a
+    verify's and the prompt's rows) of bf16 values: held against the same
+    function on the f32 copy of layer 0's weights (rel err <= 1e-2), then
+    timed as a CUDA graph of one call a layer, cycled over the layers, with
+    its bound: the layer's dense weights read once (bf16), x read and the
+    f32 output written; two operations per weight and row."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.models.llama import _moe_ffn
+
+    cfg, lay = eng.model_cfg, eng.params["layers"]
+    n_layers, d = cfg.n_layers, cfg.n_embd
+    keys = [k for k in MOE_KEYS if k in lay]
+    w_bytes = nbytes(*(lay[k][0] for k in keys))
+    w_numel = sum(lay[k][0].numel() for k in keys)
+    f32 = {k: lay[k][:1].float() for k in keys}
+    out = []
+    for rows, what in ((1, "decoded token"), (VERIFY_ROWS, "verify cycle"),
+                       (FAMILY_PROMPT_TOKENS, "300-row prompt")):
+        # bf16 values in f32: both versions route on the same logits up to
+        # the order of their f32 sums (a bf16-rounded x would move rows at a
+        # near tie of the k-th logit onto other experts)
+        x32 = torch.randn((1, rows, d), generator=gen, device="cuda")
+        x = x32.to(torch.bfloat16).float()
+        got = _moe_ffn(cfg, lay, 0, x, F.silu, torch.bfloat16)
+        abs_err, rel = rel_err(got, _moe_ffn(cfg, f32, 0, x, F.silu, torch.float32))
+        if rel > QMM_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag} experts at {rows} rows: rel err {rel:.3e}")
+        ms = device_ms(lambda i: _moe_ffn(cfg, lay, i % n_layers, x, F.silu, torch.bfloat16),
+                       2 * n_layers)
+        b_ms, b_by = bound_ms(w_bytes + x.numel() * 4 + rows * d * 4, 2.0 * rows * w_numel)
+        r = dict(rows=rows, per=what, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                 ms_per_forward=ms * n_layers, bound_ms_per_forward=b_ms * n_layers,
+                 max_abs_err=abs_err, rel_err=rel, layer_bytes=w_bytes)
+        out.append(r)
+        log(f"[moe kernel] {tag} experts (dense cuBLAS products, {w_bytes / 1e9:.3f} GB of bf16 "
+            f"weights a layer) at {rows} rows: {ms:.4f} ms a layer, bound {b_ms:.4f} ms "
+            f"({b_by}, {ms / b_ms:.2f}x); per {what} ({n_layers} layers) {ms * n_layers:.3f} ms, "
+            f"bound {b_ms * n_layers:.3f} ms; rel err vs f32 {rel:.2e}")
+    out[-1]["route_witness"] = moe_route_witness(tag, cfg, lay, f32, x32)
+    del f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_route_witness(tag: str, cfg, lay: dict, f32: dict, x) -> dict:
+    """Why `moe_ffn_times` feeds bf16 values: on f32 x (its last draw before
+    the rounding), the bf16 path routes on x rounded to bf16 and the f32
+    path on x itself, so rows near a tie at the k-th router logit keep
+    other experts. Counts the rows whose kept set differs between the two
+    routers, and the bf16 path's rel err against the f32 path's over all
+    rows and over the rows that kept the same experts."""
+    import torch
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.models.llama import _moe_ffn
+
+    rows = x.shape[1]
+    w_router = f32["ffn_gate_inp"][0]
+
+    def kept(xs):
+        logits = xs[0] @ w_router.t()
+        return logits >= torch.topk(logits, cfg.n_expert_used, dim=-1).values[..., -1:]
+
+    same = (kept(x.to(torch.bfloat16).float()) == kept(x)).all(-1)
+    got = _moe_ffn(cfg, lay, 0, x, F.silu, torch.bfloat16)[0]
+    want = _moe_ffn(cfg, f32, 0, x, F.silu, torch.float32)[0]
+    _, rel_all = rel_err(got, want)
+    _, rel_same = rel_err(got[same], want[same])
+    moved = rows - int(same.sum())
+    log(f"[moe kernel] {tag} experts at {rows} rows of f32 x (not bf16 values): {moved} rows "
+        f"keep other experts under x rounded to bf16; rel err vs f32 {rel_all:.3e} over all "
+        f"rows, {rel_same:.3e} over the {rows - moved} others")
+    return dict(rows=rows, rows_moved=moved, rel_err_all=rel_all, rel_err_same=rel_same)
+
+
+def moe_load_check(tag: str, eng, c: dict, moe: dict, shared: bool) -> None:
+    """The file loaded as the MoE family: its experts' config, the dense
+    stacks' shapes and bf16 storage, no dense FFN, the fused FFN off."""
+    import torch
+
+    from eagle_tpu_torch.ops.ffn import supports_ffn_block
+
+    cfg, lay = eng.model_cfg, eng.params["layers"]
+    want = {"attn_norm", "ffn_norm", "wqkv", "wo", "ffn_gate_inp", "w_gate_exps", "w_up_exps",
+            "w_down_exps"}
+    if shared:
+        want |= {"bqkv", "w_gate_shexp", "w_up_shexp", "w_down_shexp", "ffn_gate_inp_shexp"}
+    e, f, d = moe["n_expert"], moe["f_exp"], c["d"]
+    shapes = {"w_gate_exps": (c["n_layers"], e, f, d), "w_down_exps": (c["n_layers"], e, d, f),
+              "ffn_gate_inp": (c["n_layers"], e, d)}
+    if ((cfg.n_expert, cfg.n_expert_used, cfg.moe_softmax_all) != (e, moe["n_used"], shared)
+            or set(lay) != want or supports_ffn_block(lay, cfg)
+            or any(tuple(lay[k].shape) != v for k, v in shapes.items())
+            or any(lay[k].dtype != torch.bfloat16 for k in MOE_KEYS if k in lay)):
+        raise AssertionError(f"{tag}: the file did not load as its MoE family: {cfg}, "
+                             f"{sorted(lay)}")
+
+
+def mixtral_setup(tmp: pathlib.Path, gen, cpu) -> dict:
+    """Mixtral-8x7B's shape (`MIXTRAL_8X7B`, `MIXTRAL_MOE`: Q4_K attention
+    and experts, a Q6_K head, an SPM vocabulary of 32,000 pieces) at 4 of
+    its 32 layers, and an EAGLE Q8_0 draft at its widths (one dense layer
+    with an FFN of 14,336: yuhuili/EAGLE-mixtral-instruct-8x7B's layout),
+    minted and loaded through `Engine`, the dense read checked against the
+    CPU's; the CPU port's greedy tokens submitted to `cpu`; qmm at the
+    path's shapes at 1, 6 and 300 rows and the draft's fc, both flash
+    kernels at g = 4 (and the EAGLE prompt's 512 rows), the experts timed.
+    Returns the cell's state for `mixtral_run`."""
+    from eagle_tpu_torch.tokenizer import SPMTokenizer
+
+    c = MIXTRAL_8X7B
+    t0 = time.time()
+    vocab = spm_vocab(c["v"], seed=263)
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("mixtral-8x7b", c, tmp, 269, vocab, "llama", with_draft=True,
+                                    phase="moe", moe=MIXTRAL_MOE, check=moe_dense_check)
+    params, draft, cfg, dcfg = eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg
+    moe_load_check("mixtral", eng, c, MIXTRAL_MOE, shared=False)
+    if (not isinstance(eng.tokenizer, SPMTokenizer) or cfg.arch != "llama"
+            or (dcfg.arch, dcfg.n_kv_heads) != ("eagle", 8)
+            or "w_gate_up" not in draft["layers"]):
+        raise AssertionError(f"mixtral: the files did not load as Mixtral + EAGLE: {cfg}")
+    ids = eng.tokenizer.encode(cli_prompt(vocab["tokenizer.ggml.tokens"], FAMILY_PROMPT_TOKENS,
+                                          seed=271))
+    out["prompt_tokens"] = len(ids)
+    head = ids[:CPU_CHECK_PROMPT]
+    future = cpu.submit(cpu_tokens, cpu_copy(params), cfg, head)
+    out["qmm"] = family_kernels("mixtral", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (VERIFY_ROWS, "qmm_mma", "verify cycle"),
+        (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")), draft=draft, log_tag="moe kernel")
+    out["attention"] = (gqa_flash_checks(gen, "moe kernel", c["n_heads"], c["n_kv_heads"])
+                        + [gqa_prompt_check(gen, "moe kernel", c["n_heads"], c["n_kv_heads"])])
+    out["experts"] = moe_ffn_times("mixtral", eng, gen)
+    return dict(tag="mixtral", eng=eng, ids=ids, head=head, future=future, out=out)
+
+
+def mixtral_run(st: dict) -> tuple[dict, dict]:
+    """`serve_cell` on the Mixtral cell (greedy and the chain at C = 1 and
+    4, eager and graphed, 2 runs each): 9 qmm_gemv and 4 flash_decode per
+    decoded token, 9 qmm_mma per verify, 4 flash_prefill per greedy prompt.
+    Returns (the cell, the default path's launches)."""
+    import numpy as np
+
+    eng, out = st["eng"], st["out"]
+    want_tok = {"qmm_gemv": MIXTRAL_GEMV, "flash_decode": MIXTRAL_FLASH, "ffn_out_norm": 0,
+                "gate_up_act": 0, "qmm": 0}
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    cell = serve_cell("mixtral", eng.params, eng.draft_params, eng.model_cfg, eng.draft_cfg,
+                      np.asarray(st["ids"]), FAMILY_NEW, want_tok, MIXTRAL_GEMV, fused=False)
+    cell.pop("gen")
+    prompt = cell["variants"]["greedy graphed"]["launches_at_first_token"]
+    if prompt["flash_prefill"] != MIXTRAL_FLASH or prompt["flash_decode"]:
+        raise AssertionError(f"mixtral: the greedy prompt's attention launches {prompt}, "
+                             f"expected {MIXTRAL_FLASH} flash_prefill")
+    log(f"[mixtral] the greedy prompt: {prompt['flash_prefill']} flash_prefill, "
+        f"{prompt['qmm_tc']} qmm_tc; EAGLE == greedy: "
+        f"{cell['eagle_tokens'] == cell['greedy_tokens']}")
+    out["cell"] = cell
+    return out, dict(cell["variants"]["eagle graphed C=1"]["launches"])
+
+
+def qwen_moe_setup(tmp: pathlib.Path, gen, cpu) -> dict:
+    """Qwen1.5-MoE-A2.7B's shape (`QWEN_MOE_A27B`, `QWEN_MOE`: Q4_K
+    attention, experts and shared expert, the experts' down products Q5_0,
+    F32 routers, a Q6_K head, a 151,936-entry BPE vocabulary, pre "qwen2")
+    at 8 of its 24 layers, minted and loaded through `Engine`, the dense
+    read checked against the CPU's; the CPU port's greedy tokens submitted
+    to `cpu`; qmm at 1 and 300 rows, both flash kernels at g = 1, the
+    experts timed. Returns the cell's state for `qwen_moe_run`."""
+    from eagle_tpu_torch.tokenizer import BPETokenizer
+
+    c = QWEN_MOE_A27B
+    t0 = time.time()
+    vocab, words = qwen_vocab(seed=277, v=c["v"])
+    out: dict = {"vocab_s": time.time() - t0}
+    eng, out["files"] = family_load("qwen1.5-moe-a2.7b", c, tmp, 281, vocab, "qwen2moe",
+                                    with_draft=False, phase="moe", moe=QWEN_MOE,
+                                    types=QWEN_MOE_TYPES, check=moe_dense_check)
+    params, cfg, tok = eng.params, eng.model_cfg, eng.tokenizer
+    moe_load_check("qwen1.5-moe", eng, c, QWEN_MOE, shared=True)
+    if not isinstance(tok, BPETokenizer) or not cfg.attn_bias or cfg.n_ff_exp != QWEN_MOE["f_exp"]:
+        raise AssertionError(f"qwen1.5-moe: the file did not load as Qwen1.5-MoE: {cfg}")
+    text = llama3_text(tok, words, FAMILY_PROMPT_TOKENS, seed=283)
+    ids = tok.encode(text)
+    if tok.decode(ids) != text:
+        raise AssertionError("qwen1.5-moe: the prompt does not round-trip through the tokenizer")
+    out["prompt_tokens"] = len(ids)
+    head = ids[:CPU_CHECK_PROMPT]
+    future = cpu.submit(cpu_tokens, cpu_copy(params), cfg, head)
+    out["qmm"] = family_kernels("qwen1.5-moe", params, gen, (
+        (1, "qmm_gemv", "decoded token"), (FAMILY_PROMPT_TOKENS, "qmm_tc", "300-row prompt")),
+        log_tag="moe kernel")
+    out["attention"] = gqa_flash_checks(gen, "moe kernel", c["n_heads"], c["n_kv_heads"])
+    out["experts"] = moe_ffn_times("qwen1.5-moe", eng, gen)
+    return dict(tag="qwen1.5-moe", eng=eng, ids=ids, head=head, future=future, out=out)
+
+
+def qwen_moe_run(st: dict) -> tuple[dict, dict]:
+    """`greedy_cell` on the Qwen1.5-MoE cell: 17 qmm_gemv (the 151,936-row
+    head one of them) and 8 flash_decode per decoded token, 8 flash_prefill
+    in the prompt. Returns (the cell, the first timed run's launches)."""
+    eng, out = st["eng"], st["out"]
+    os.environ.pop("EAGLE_TPU_FUSED_FFN", None)
+    out["cell"], launches = greedy_cell("qwen1.5-moe", eng, st["ids"], {
+        "qmm_gemv": QWEN_MOE_GEMV, "flash_decode": QWEN_MOE_FLASH, "qmm": 0})
+    if launches.get("flash_prefill") != QWEN_MOE_FLASH:
+        raise AssertionError(f"qwen1.5-moe: {launches.get('flash_prefill')} flash_prefill in "
+                             f"the run, expected {QWEN_MOE_FLASH} (the prompt)")
+    return out, launches
+
+
+def moe_path(report: dict, tmp: pathlib.Path) -> dict:
+    """Phase moe: the Mixtral-8x7B (+ EAGLE) and Qwen1.5-MoE-A2.7B cells,
+    minted into `tmp` and loaded through `Engine` both, their kernels and
+    experts checked and timed at their shapes while one worker thread runs
+    the CPU port on a copy of each cell's weights (its tokens then held
+    against the card's), then each run and freed. The host's resident
+    memory is read before and after. Returns the launches of the Mixtral
+    default path (greedy + EAGLE graphed at C = 1) and of the Qwen cell's
+    first timed graphed run, added."""
+    import gc
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    if shutil.disk_usage(tmp).free < 6 * 2**30:
+        raise RuntimeError("phase moe needs 6 GiB of disk")
+    gen = torch.Generator(device="cuda").manual_seed(259)
+    out: dict = {"host_before": host_gib()}
+    launches: dict = {}
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu-port") as cpu:
+        cells = [mixtral_setup(tmp, gen, cpu), qwen_moe_setup(tmp, gen, cpu)]
+        for st in cells:
+            st["out"]["cpu"] = cpu_tokens_finish(st["tag"], st["eng"], st["head"],
+                                                 st.pop("future"))
+    out["host_after_cpu_runs"] = host_gib()
+    log(f"[time] moe setup (both cells' loads, kernel checks and CPU runs): "
+        f"{time.time() - t0:.1f} s; host memory (GiB) before the phase "
+        f"{out['host_before']}, after the CPU runs {out['host_after_cpu_runs']}")
+    for st, run in zip(cells, (mixtral_run, qwen_moe_run)):
+        t0 = time.time()
+        tag = st["tag"]
+        out[tag], part = run(st)
+        st.clear()  # the engine and its weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag]["seconds"] = time.time() - t0
+        log(f"[time] moe {tag}: {out[tag]['seconds']:.1f} s (the run)")
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    report["moe_path"] = out
+    return launches
+
+
 def i4_route(rows: int) -> str:
     """qmm_i4's launch counter at `rows` bf16 rows at the 7B shapes."""
     return "qmm_i4" if rows == 1 else "qmm_i4_mma" if rows <= 8 else "qmm_i4_tc"
@@ -7531,6 +7938,8 @@ def main() -> int:
         positions_launches = phase("positions", positions_path, report, pathlib.Path(tmp))
     with tempfile.TemporaryDirectory(prefix="eagle_lnfamilies_") as tmp:
         lnfamilies_launches = phase("lnfamilies", lnfamilies_path, report, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="eagle_moe_") as tmp:
+        moe_launches = phase("moe", moe_path, report, pathlib.Path(tmp))
     for k in ("ffn_out_norm", "gate_up_act"):
         launches[k] = gguf_launches[k]
     i4_row, i4_mma_row, i4_tc_row = phase("7 qmm_i4", qmm_i4_checks, report)
@@ -7566,6 +7975,7 @@ def main() -> int:
                 "layernorm_path_launches": layernorm_launches.get(name, 0),
                 "positions_path_launches": positions_launches.get(name, 0),
                 "lnfamilies_path_launches": lnfamilies_launches.get(name, 0),
+                "moe_path_launches": moe_launches.get(name, 0),
                 "chat_path_launches": chat_launches.get(name, 0)}
 
     vs_parent_d256 = {}  # --parent-report: the parent's time of each D = 256 row
@@ -7596,7 +8006,8 @@ def main() -> int:
     def cell_checks(path, cell, name):
         """The kernel's checks in one cell of a phase: g = 48 (StarCoder-15B,
         phase positions), g = 71 at D = 64 (Falcon-7B), g = 6 (Minitron-8B)
-        and GPT-J's 16 / 16 heads of 256 (phase lnfamilies)."""
+        and GPT-J's 16 / 16 heads of 256 (phase lnfamilies), g = 4
+        (Mixtral-8x7B) and g = 1 (Qwen1.5-MoE, phase moe)."""
         return [{k: r[k] for k in ("t", "s", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "max_abs_err")}
                 for r in report[path][cell]["attention"] if r["name"] == name]
@@ -7609,6 +8020,11 @@ def main() -> int:
                 for cell, shape in (("falcon", "g = 71, 71 / 1 heads of 64"),
                                     ("minitron", "g = 6, 48 / 8 heads of 128"),
                                     ("gptj", "16 / 16 heads of 256"))}
+
+    def moe(name):
+        return {f"{cell} ({shape})": cell_checks("moe_path", cell, name)
+                for cell, shape in (("mixtral", "g = 4, 32 / 8 heads of 128"),
+                                    ("qwen1.5-moe", "g = 1, 16 / 16 heads of 128"))}
 
     kernels = [
         dict(row("qmm", "eagle_tpu/ops/pallas_qmm.py:513 and :758", simt_row),
@@ -7630,12 +8046,13 @@ def main() -> int:
                                 source="eagle_tpu_torch/csrc/flash_attention.cu"),
                            dict(d256_row("flash_decode", 512, "eagle prompt"),
                                 source="eagle_tpu_torch/csrc/flash_wgmma.cu")],
-             g48=g48("flash_decode"), lnfamilies=lnf("flash_decode")),
+             g48=g48("flash_decode"), lnfamilies=lnf("flash_decode"), moe=moe("flash_decode")),
         dict(row("flash_prefill", "eagle_tpu/ops/pallas_attention.py:249", pre_row),
              shape="T=512, S=512, 32 heads x 128, bf16 cache",
              head_dim_256=dict(d256_row("flash_prefill", 512, "generator"),
                                source="eagle_tpu_torch/csrc/flash_wgmma.cu"),
              g48=g48("flash_prefill"), lnfamilies=lnf("flash_prefill"),
+             moe=moe("flash_prefill"),
              chat_feeds=[{k: v for k, v in r.items() if k in (
                  "t", "n", "q0", "s", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err")} for r in report["attention"] if "feed" in r.get("what", "")]),

@@ -104,8 +104,9 @@ class Engine:
         if arch not in TARGET_ARCHS:  # recurrent and every other architecture
             raise NotImplementedError(f"architecture {arch!r} is not ported yet ({_ITEM8}); "
                                       f"the port loads {', '.join(TARGET_ARCHS)} targets")
+        # the dense MoE weights are stored in the compute dtype they are read in
         self.params, self.model_cfg, self.metadata = load_llama_params(
-            cfg.model_path, device=self.device)
+            cfg.model_path, device=self.device, dense_dtype=cfg.compute_dtype)
         self.params = prepare_params_for_serving(self.params, scale_mode=cfg.scale_mode)
         self.tokenizer = tokenizer_from_gguf_metadata(self.metadata)
         self.draft_params = self.draft_cfg = None

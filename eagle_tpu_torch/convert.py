@@ -7,7 +7,9 @@ a dict of arrays plus its static fields (`q`, `scale`, `bias`, `sup`,
 never sees a JAX type. Layouts stay the reference's ("kn" QTensors,
 layer-stacked). A `q` of dtype int4 (`np.asarray` of a JAX int4 array gives
 ml_dtypes' int4, one value per byte) becomes the port's `int4` form: signed
-nibbles, two per byte."""
+nibbles, two per byte. Every other leaf (norms, biases, and a MoE layer's
+router, its 3-D expert stacks [L, E, F, D] and its shared expert) becomes
+a tensor of its own dtype."""
 
 from __future__ import annotations
 

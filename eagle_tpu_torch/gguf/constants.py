@@ -129,6 +129,8 @@ class Keys:
         BLOCK_COUNT = "{arch}.block_count"
         FEED_FORWARD_LENGTH = "{arch}.feed_forward_length"
         VOCAB_SIZE = "{arch}.vocab_size"
+        EXPERT_COUNT = "{arch}.expert_count"
+        EXPERT_USED_COUNT = "{arch}.expert_used_count"
 
     class Attention:
         HEAD_COUNT = "{arch}.attention.head_count"

@@ -148,15 +148,16 @@ class GGUFReader:
                              offset=self.data_offset + info.offset)
 
     def tensor_f32(self, name: str) -> np.ndarray:
-        """An F32 or F16 tensor as float32, numpy-convention shape. Block
-        formats are repacked by quant/qtensor.py instead."""
+        """A tensor as float32, numpy-convention shape: F32 and F16 as they
+        are, every block format decoded as the reference's `dequantize`
+        decodes it (`quant/qtensor.py:dequantize`, torch ops on the CPU)."""
+        import torch
+
+        from ..quant.qtensor import dequantize
+
         info = self.tensors[name]
-        raw = self.tensor_bytes(name)
-        if info.ggml_type == GGMLType.F32:
-            return raw.view("<f4").astype(np.float32).reshape(info.shape)
-        if info.ggml_type == GGMLType.F16:
-            return raw.view("<f2").astype(np.float32).reshape(info.shape)
-        raise NotImplementedError(f"{name}: dense read of {info.ggml_type.name} is not ported")
+        return dequantize(torch.from_numpy(self.tensor_bytes(name)), info.ggml_type,
+                          info.shape).numpy()
 
     def close(self):
         self._buf = None

@@ -1,9 +1,9 @@
 """Model hyperparameters (the fields of eagle_tpu's `ModelConfig` that the
 ported block reads, with the same names and defaults), and
 `ModelConfig.from_gguf_metadata` for the llama, EAGLE, Qwen2, Qwen3, Gemma,
-Gemma-2, Phi-2, StarCoder2, StableLM, GPT-NeoX, Command-R, Nemotron, OLMo,
-Orion, CodeShell, Falcon, GPT-J, GPT-2, StarCoder, BLOOM, MPT, Refact and
-JAIS architectures.
+Gemma-2, Mixtral, Qwen2-MoE, Phi-2, StarCoder2, StableLM, GPT-NeoX,
+Command-R, Nemotron, OLMo, Orion, CodeShell, Falcon, GPT-J, GPT-2,
+StarCoder, BLOOM, MPT, Refact and JAIS architectures.
 
 The ported block is the pre-norm llama block and its config-driven
 branches: qkv biases (qwen2), per-head q/k RMSNorm (qwen3), sandwich norms,
@@ -15,7 +15,10 @@ gptj, codeshell, orion); the squared ReLU (nemotron), the non-parametric
 LayerNorm and the q/k/v clamp (olmo; the clamp also mpt); no rotary at
 all, with learned absolute positions (gpt2, starcoder) or ALiBi (bloom,
 mpt, refact, jais), the embedding LayerNorm (bloom), the gated FFN's
-biases and the 1 / head_dim score scale (jais).
+biases and the 1 / head_dim score scale (jais); the mixture-of-experts
+FFN of Mixtral (a llama file with `expert_count`, or the `mixtral`
+architecture: softmax over the top k) and Qwen2-MoE (softmax over every
+expert, the rest zeroed, and a shared expert under a sigmoid gate).
 Fields of other
 architectures are kept at their defaults so that a config carried across
 from the reference can be checked: `check_ported` raises on any setting the
@@ -46,9 +49,17 @@ POSITION_TARGETS = ("gpt2", "starcoder", "bloom", "mpt", "refact", "jais")
 #: architectures on the mean-subtracted LayerNorm (the reference's
 #: LAYERNORM_ARCHS among the ported ones)
 LAYERNORM_ARCHS = frozenset(LAYERNORM_TARGETS) | {"gpt2", "starcoder", "bloom", "mpt", "jais"}
-#: GGUF architectures the port reads: the targets, and EAGLE drafts
+#: the mixture-of-experts targets: llama.cpp writes Mixtral as `llama` with
+#: `llama.expert_count`, the reference's converter as `mixtral`
+MOE_TARGETS = ("mixtral", "qwen2moe")
 TARGET_ARCHS = (("llama", "qwen2", "qwen3", "gemma", "gemma2") + LAYERNORM_TARGETS
-                + POSITION_TARGETS)
+                + POSITION_TARGETS + MOE_TARGETS)
+#: the architectures whose experts the port runs, and those among them
+#: that route by a softmax over every expert (the reference's
+#: `moe_softmax_all` archs that the port reads)
+MOE_ARCHS = frozenset({"llama"} | set(MOE_TARGETS))
+SOFTMAX_ALL_ARCHS = frozenset({"qwen2moe"})
+#: GGUF architectures the port reads: the targets, and EAGLE drafts
 GGUF_ARCHS = TARGET_ARCHS + ("eagle",)
 #: the reference's GELU_ARCHS among the ported architectures (and the
 #: Gemma family)
@@ -127,6 +138,19 @@ class ModelConfig:
     v_head_dim: int = 0  # 0 = same as head_dim
     clamp_kqv: float = 0.0
     nonparam_norms: bool = False
+    # MoE (the reference's names and defaults): experts, experts used per
+    # token, the router's rule (softmax over the top k; over every expert,
+    # the rest zeroed; phimoe's sparsemixer) and deepseek's fields
+    n_expert: int = 0
+    n_expert_used: int = 0
+    moe_softmax_all: bool = False
+    moe_sparsemixer: bool = False
+    router_jitter: float = 0.01
+    n_dense_layers: int = 0
+    n_shared_experts: int = 0
+    n_ff_exp: int = 0
+    expert_weights_scale: float = 1.0
+    expert_weights_norm: bool = False
 
     @property
     def v_dim(self) -> int:
@@ -202,7 +226,7 @@ class ModelConfig:
             rope_attn_factor=float(
                 md.get(Keys.Rope.SCALING_ATTN_FACTOR.format(arch=arch), 1.0) or 1.0),
             is_eagle=(arch == "eagle"),
-            attn_bias=(arch in ("qwen2", "starcoder2")),
+            attn_bias=(arch in ("qwen2", "qwen2moe", "starcoder2")),
             swa_window=int(opt("attention.sliding_window", 0)),
             swa_every=2 if arch == "gemma2" else 0,
             clamp_kqv=float(opt("attention.clamp_kqv", 0.0)),
@@ -224,6 +248,17 @@ class ModelConfig:
             v_head_dim=int(opt("attention.value_length", 0)),
             has_pos_embd=arch in POS_EMBD_ARCHS,
             use_alibi=arch in ALIBI_ARCHS,
+            n_expert=int(opt("expert_count", 0)),
+            n_expert_used=int(opt("expert_used_count", 0)),
+            moe_softmax_all=arch in SOFTMAX_ALL_ARCHS,
+            # a stored 0 is a jitter of 0, not the default (as the reference)
+            router_jitter=(0.01 if md.get(f"{arch}.router_jitter") is None
+                           else float(md[f"{arch}.router_jitter"])),
+            n_dense_layers=int(opt("leading_dense_block_count", 0)),
+            n_shared_experts=int(opt("expert_shared_count", 0)),
+            n_ff_exp=int(opt("expert_feed_forward_length", 0)),
+            expert_weights_scale=float(opt("expert_weights_scale", 1.0)),
+            expert_weights_norm=bool(opt("expert_weights_norm", False)),
         )
 
 
@@ -232,6 +267,8 @@ _PLAIN = (
     ("mrope_sections", ()),
     ("head_counts", ()), ("kv_head_counts", ()), ("resid_scale", 1.0), ("kv_lora_rank", 0),
     ("rope_yarn_log_mul", 0.0),
+    ("moe_sparsemixer", False),  # phimoe
+    ("n_dense_layers", 0),  # deepseek v1's leading dense layers
 )
 
 
@@ -245,11 +282,13 @@ def check_ported(cfg: ModelConfig) -> None:
     residual; the softcaps, the embedding, attention and logit scales,
     sandwich norms and a sliding window on every `swa_every`-th layer; the
     squared ReLU on nemotron, the non-parametric norms on olmo and the q/k/v
-    clamp on `CLAMP_KQV_ARCHS`. That is the llama, Qwen2, Qwen3, Gemma,
-    Gemma-2, the LayerNorm (`LAYERNORM_TARGETS`), GPT-2, StarCoder, BLOOM,
-    MPT, Refact and JAIS families (`TARGET_ARCHS`) and EAGLE drafts. Each
-    position, activation, norm and clamp branch is admitted on its own
-    architectures only."""
+    clamp on `CLAMP_KQV_ARCHS`; the experts on `MOE_ARCHS`, routed by a
+    softmax over the top k, or over every expert on `SOFTMAX_ALL_ARCHS`.
+    That is the llama, Qwen2, Qwen3, Gemma, Gemma-2, the LayerNorm
+    (`LAYERNORM_TARGETS`), GPT-2, StarCoder, BLOOM, MPT, Refact, JAIS,
+    Mixtral and Qwen2-MoE families (`TARGET_ARCHS`) and EAGLE drafts. Each
+    position, activation, norm, clamp and routing branch is admitted on
+    its own architectures only."""
     bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PLAIN if getattr(cfg, k) != v]
     if cfg.norm_type not in ("rms", "layer"):
         bad.append(f"norm_type={cfg.norm_type!r}")
@@ -280,5 +319,12 @@ def check_ported(cfg: ModelConfig) -> None:
         # the reference turns flash prefill off there but windows no mask
         # (eagle_tpu/models/llama.py:712-721): the window would be ignored
         bad.append(f"swa_window={cfg.swa_window} on every layer (swa_every=0)")
+    if cfg.n_expert > 0 or cfg.n_expert_used > 0:
+        if cfg.arch not in MOE_ARCHS:  # qwen3moe, olmoe, granitemoe, dbrx, ...
+            bad.append(f"a mixture of experts on arch {cfg.arch!r}")
+        elif not 1 <= cfg.n_expert_used <= cfg.n_expert:
+            bad.append(f"n_expert_used={cfg.n_expert_used} of {cfg.n_expert} experts")
+    if cfg.moe_softmax_all != (cfg.arch in SOFTMAX_ALL_ARCHS):
+        bad.append(f"moe_softmax_all={cfg.moe_softmax_all} for arch {cfg.arch!r}")
     if bad:
         raise NotImplementedError(f"not ported yet ({_ITEM8}): {', '.join(bad)}")

@@ -1,5 +1,5 @@
 """Llama-family forward pass (port of eagle_tpu/models/llama.py:
-`ForwardOutput`, `embed_lookup`, `_block_norm`, `_ffn`, `_layer_step`,
+`ForwardOutput`, `embed_lookup`, `_block_norm`, `_moe_ffn`, `_ffn`, `_layer_step`,
 `llama_forward`, with the int8 and paged cache branches, Llama-3.1's rope
 factors, a tied ("nk") head, and the config-driven branches of the Qwen2,
 Qwen3, Gemma, Gemma-2, LayerNorm and position families).
@@ -42,7 +42,10 @@ config or from the weights present, as the reference reads them:
   jais); `pos_embd`: the learned position row added to the embedding
   (gpt2, starcoder); `tok_embd_norm(_b)`: a LayerNorm of the embedding
   (bloom); `cfg.use_alibi`: the scores biased by -slope_h * distance
-  (bloom, mpt, refact, jais); `b_gate_up`: the gated FFN's biases (jais).
+  (bloom, mpt, refact, jais); `b_gate_up`: the gated FFN's biases (jais);
+- `ffn_gate_inp`: the mixture-of-experts FFN in place of the dense one
+  (mixtral, qwen2moe; `_moe_ffn`), every expert computed densely and
+  combined with the router's zero-masked weights, as the reference does.
 Any other architecture's weights or config raise NotImplementedError.
 
 The cache is updated in place: each layer writes its K/V rows into `kv.k` /
@@ -89,9 +92,12 @@ from .config import ModelConfig, check_ported
 
 _TOP_KEYS = {"tok_embd", "layers", "output_norm", "output_norm_b", "output", "output_b",
              "rope_factors", "pos_embd", "tok_embd_norm", "tok_embd_norm_b"}
+_MOE_KEYS = {"ffn_gate_inp", "w_gate_exps", "w_up_exps", "w_down_exps"}
+_SHEXP_KEYS = {"w_gate_shexp", "w_up_shexp", "w_down_shexp"}
 _LAYER_KEYS = {"attn_norm", "wqkv", "wo", "ffn_norm", "w_gate_up", "w_up", "w_down", "bqkv",
                "attn_q_norm", "attn_k_norm", "post_attn_norm", "post_ffn_norm",
-               "attn_norm_b", "ffn_norm_b", "bo", "b_up", "b_down", "b_gate_up"}
+               "attn_norm_b", "ffn_norm_b", "bo", "b_up", "b_down", "b_gate_up",
+               "ffn_gate_inp_shexp"} | _MOE_KEYS | _SHEXP_KEYS
 
 
 class ForwardOutput(NamedTuple):
@@ -105,12 +111,24 @@ def check_layer_keys(layers: dict[str, Any], cfg: ModelConfig | None = None) -> 
     extra = set(layers) - _LAYER_KEYS
     if extra:
         raise NotImplementedError(f"layer weights not ported yet: {sorted(extra)}")
-    missing = {"wqkv", "wo", "w_down"} - set(layers)
-    if ("w_gate_up" in layers) == ("w_up" in layers):
-        missing.add("w_gate_up or w_up")
+    if "ffn_gate_inp" in layers:  # a MoE layer: the experts replace the dense FFN
+        missing = ({"wqkv", "wo"} | _MOE_KEYS) - set(layers)
+        dense = {"w_gate_up", "w_up", "w_down", "b_gate_up", "b_up", "b_down"} & set(layers)
+        shexp = _SHEXP_KEYS & set(layers)
+        if dense or shexp not in (set(), _SHEXP_KEYS) or (
+                "ffn_gate_inp_shexp" in layers and not shexp):
+            raise NotImplementedError(
+                f"a MoE layer with {sorted(dense | shexp)}: only the experts, with or without "
+                "a whole shared expert (and its gate), are ported (ROADMAP queue 1, item 8)")
+    else:
+        missing = {"wqkv", "wo", "w_down"} - set(layers)
+        if ("w_gate_up" in layers) == ("w_up" in layers):
+            missing.add("w_gate_up or w_up")
+        if (_MOE_KEYS | _SHEXP_KEYS | {"ffn_gate_inp_shexp"}) & set(layers):
+            missing.add("ffn_gate_inp (the router of the experts)")
     if missing:
-        raise NotImplementedError(f"only fused wqkv layers with a fused w_gate_up or a no-gate "
-                                  f"w_up are ported; missing {sorted(missing)}")
+        raise NotImplementedError(f"only fused wqkv layers with a fused w_gate_up, a no-gate "
+                                  f"w_up or experts are ported; missing {sorted(missing)}")
     if "b_gate_up" in layers and "w_gate_up" not in layers:
         raise NotImplementedError("a gate/up bias without a fused w_gate_up is not ported")
     if "b_up" in layers and "w_up" not in layers:
@@ -239,14 +257,79 @@ def _relu2(x: torch.Tensor) -> torch.Tensor:
     return r * r
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (2-D, or batched 3-D) with f32 sums and an f32 result, as the
+    reference's `preferred_element_type=jnp.float32` einsums: f32 operands
+    as they are; compute-dtype operands on the card through cuBLAS with an
+    f32 output; on the CPU upcast first (exact products)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    return mm(a, b, out_dtype=torch.float32)
+
+
+def _moe_ffn(cfg: ModelConfig, layers: dict, li: int, x: torch.Tensor, act, compute_dtype
+             ) -> torch.Tensor:
+    """The mixture-of-experts FFN (the reference's `_moe_ffn`,
+    llama.py:81-141): the router's f32 logits, then its weights over the
+    experts, every expert computed and combined with them (zero off the
+    chosen ones). Mixtral's rule: a softmax over the kept experts;
+    `moe_softmax_all` (qwen2moe): a softmax over all, the others zeroed,
+    then `expert_weights_norm` / `expert_weights_scale`. An expert is kept
+    where its logit is >= the k-th largest (the reference's `top_k(...)[0]
+    [..., -1:]`), so a tie at the k-th value keeps more than k. A shared
+    expert (`w_*_shexp`) adds to the sum, under a sigmoid gate where
+    `ffn_gate_inp_shexp` is given. Gate and up are f32 products of
+    compute-dtype operands, h = act(gate) * up in the compute dtype, and
+    the down products f32 (`_mm_f32`)."""
+    b, t, d = x.shape
+    xe = x.reshape(b * t, d).to(compute_dtype)
+
+    def w(key):
+        return layers[key][li].to(compute_dtype)
+
+    router = _mm_f32(xe, w("ffn_gate_inp").t())  # [R, E]
+    k = max(cfg.n_expert_used, 1)
+    kth = torch.topk(router, k, dim=-1).values[..., -1:]
+    kept = router >= kth
+    if cfg.moe_softmax_all:
+        probs = torch.where(kept, torch.softmax(router, dim=-1), 0.0)
+        if cfg.expert_weights_norm:
+            probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-20)
+        if cfg.expert_weights_scale != 1.0:
+            probs = probs * cfg.expert_weights_scale
+    else:
+        probs = torch.softmax(torch.where(kept, router, float("-inf")), dim=-1)
+    wg, wu, wd = w("w_gate_exps"), w("w_up_exps"), w("w_down_exps")
+    n_exp, f = wg.shape[0], wg.shape[1]
+    gate = _mm_f32(xe, wg.reshape(n_exp * f, d).t()).reshape(-1, n_exp, f)
+    up = _mm_f32(xe, wu.reshape(n_exp * f, d).t()).reshape(-1, n_exp, f)
+    h = (act(gate) * up).to(compute_dtype)
+    out = _mm_f32(h.transpose(0, 1), wd.transpose(1, 2))  # [E, R, D]
+    moe = (out * probs.t()[:, :, None]).sum(0)
+    if "w_gate_shexp" in layers:  # qwen2moe's shared expert
+        g = _mm_f32(xe, w("w_gate_shexp").t())
+        u = _mm_f32(xe, w("w_up_shexp").t())
+        sh = _mm_f32((act(g) * u).to(compute_dtype), w("w_down_shexp").t())
+        if "ffn_gate_inp_shexp" in layers:  # its sigmoid gate
+            sh = sh * torch.sigmoid(_mm_f32(xe, w("ffn_gate_inp_shexp").t()))
+        moe = moe + sh
+    return moe.reshape(b, t, d)
+
+
 def _ffn(cfg: ModelConfig, layers: dict, li: int, ffn_in: torch.Tensor, compute_dtype
          ) -> torch.Tensor:
-    """The FFN (the reference's `_ffn`, llama.py:178-200): the fused gated
+    """The FFN (the reference's `_ffn`, llama.py:178-200): the experts
+    where the layers carry a router (`_moe_ffn`); the fused gated
     act(gate) * up (with `b_gate_up` added first where the layers carry
     it), or the no-gate MLP act(x W_up + b_up), then W_down and `b_down`
     where the layers carry it."""
     act = (F.silu if cfg.act == "silu" else _relu2 if cfg.act == "relu2"
            else functools.partial(F.gelu, approximate="tanh"))
+    if "ffn_gate_inp" in layers:
+        return _moe_ffn(cfg, layers, li, ffn_in, act, compute_dtype)
     if "w_gate_up" in layers:
         gate_up = qmatmul_layer(ffn_in, layers["w_gate_up"], li, compute_dtype)
         if "b_gate_up" in layers:  # jais's gate and up biases

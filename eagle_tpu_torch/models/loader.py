@@ -42,10 +42,26 @@ StarCoder's learned positions `position_embd.weight` as `pos_embd` (f32 [n_pos,
 D]), BLOOM's embedding LayerNorm `token_embd_norm.weight` / `.bias` as
 `tok_embd_norm(_b)`, and JAIS's gate bias `ffn_gate.bias`, fused with
 `ffn_up.bias` into `b_gate_up` as `w_gate_up` fuses their weights
-(loader.py:160-164). Anything else (MoE, MLA, flat q/k norms, per-layer
-head counts, recurrent layers, ...) raises NotImplementedError, as does an
-EAGLE draft with biases (the reference's `load_eagle_params` drops
-them)."""
+(loader.py:160-164); a quantized `position_embd` is read densely, as the
+reference dequantizes it (loader.py:839-841).
+
+A mixture-of-experts file (`blk.0.ffn_gate_inp.weight` present: Mixtral as
+`llama` or `mixtral`, Qwen2-MoE) loads the reference's MoE tensors
+(loader.py:731-747) in place of the dense FFN: the router `ffn_gate_inp`
+[L, E, D], the experts `w_gate_exps` / `w_up_exps` [L, E, F, D] and
+`w_down_exps` [L, E, D, F], and Qwen2-MoE's shared expert `w_gate_shexp` /
+`w_up_shexp` [L, F_sh, D], `w_down_shexp` [L, D, F_sh] with its gate
+`ffn_gate_inp_shexp` [L, 1, D]. They are read densely: their raw blocks
+are uploaded and decoded on the device (`quant/qtensor.py:dequantize`,
+bit for bit the reference's f32 values) into layer-stacked tensors of
+`dense_dtype`, the caller's compute dtype (`Engine` passes its
+`compute_dtype`: bf16 on the card; the tests f32), which is the value the
+reference's einsums read after their `.astype(compute_dtype)`, so no
+product casts a weight per call. Arctic's `ffn_norm_exps` is refused.
+
+Anything else (MLA, flat q/k norms, per-layer head counts, recurrent
+layers, ...) raises NotImplementedError, as does an EAGLE draft with biases
+(the reference's `load_eagle_params` drops them)."""
 
 from __future__ import annotations
 
@@ -61,7 +77,8 @@ import torch
 from .._device import resolve_device
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader
-from ..quant.qtensor import CODED_TYPES, REPACKABLE_TYPES, QTensor, concat_qtensors, repack, repack_coded
+from ..quant.qtensor import (CODED_TYPES, REPACKABLE_TYPES, QTensor, concat_qtensors, dequantize,
+                             repack, repack_coded)
 from .config import PERMUTED_ROPE_ARCHS, TARGET_ARCHS, ModelConfig
 
 #: our name -> GGUF tensor suffix (src/llama-arch.cpp's names)
@@ -100,6 +117,19 @@ _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output_norm.bias", "
                 "token_embd_norm.weight", "token_embd_norm.bias"}
 _EAGLE_TOP_TENSORS = {"token_embd.weight", "fc.weight", "fc.bias"}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16)
+#: our name -> GGUF suffix of the MoE layer tensors, read densely (the
+#: reference's loader.py:736-747 less arctic's ffn_norm_exps); the first
+#: four are every MoE layer's, the shared expert's are optional
+MOE_KEY_MAP = {
+    "ffn_gate_inp": "ffn_gate_inp.weight",
+    "w_gate_exps": "ffn_gate_exps.weight",
+    "w_up_exps": "ffn_up_exps.weight",
+    "w_down_exps": "ffn_down_exps.weight",
+    "ffn_gate_inp_shexp": "ffn_gate_inp_shexp.weight",
+    "w_gate_shexp": "ffn_gate_shexp.weight",
+    "w_up_shexp": "ffn_up_shexp.weight",
+    "w_down_shexp": "ffn_down_shexp.weight",
+}
 
 
 def coded_load() -> bool:
@@ -120,7 +150,8 @@ def unpermute_rows(n_rows: int, n_heads: int, rope_dim: int | None = None) -> np
 
 class _Loader:
     """One file's reads onto one device, with the time of each phase added
-    to `times` ("read", "upload", "repack" seconds) when it is given."""
+    to `times` ("read", "upload", "repack", "dequantize" seconds) when it
+    is given."""
 
     def __init__(self, reader: GGUFReader, device: torch.device, times: dict | None):
         self.reader, self.dev, self.times = reader, device, times
@@ -155,6 +186,21 @@ class _Loader:
             torch.cuda.current_stream(self.dev).synchronize()
         return out
 
+    def dense(self, names: list[str], dtype) -> torch.Tensor:
+        """Tensors of one shape (a weight of each layer), stacked along a
+        new leading axis as `dtype`: each one's raw blocks uploaded and
+        decoded on the device into its slot of the stack."""
+        infos = [self.reader.tensors[n] for n in names]
+        shape = infos[0].shape
+        if any(i.shape != shape for i in infos):
+            raise NotImplementedError(f"{names[0]}: layers of different shapes do not stack")
+        out = torch.empty((len(names), *shape), dtype=dtype, device=self.dev)
+        for i, (name, info) in enumerate(zip(names, infos)):
+            raw = self.raw(name)
+            with self.phase("dequantize"):
+                dequantize(raw, info.ggml_type, shape, out=out[i])
+        return out
+
     def tensor(self, name: str, row_perm: np.ndarray | None = None,
                layout: str = "nk") -> QTensor | torch.Tensor:
         """One tensor: a QTensor for the block formats, f32 for F32/F16.
@@ -163,10 +209,7 @@ class _Loader:
         info = self.reader.tensors[name]
         perm = None if row_perm is None else torch.from_numpy(row_perm).to(self.dev)
         if info.ggml_type in _DENSE_TYPES:
-            with self.phase("read"):
-                w = torch.from_numpy(self.reader.tensor_f32(name))
-            with self.phase("upload"):
-                w = w.to(self.dev)
+            w = self.dense([name], torch.float32)[0]
             return w if perm is None else w.index_select(0, perm)
         if info.ggml_type not in REPACKABLE_TYPES or len(info.shape) != 2:
             raise NotImplementedError(
@@ -236,11 +279,13 @@ def _check_names(reader: GGUFReader, top: set[str], layer_suffixes, n_layers: in
         raise NotImplementedError(f"tensors not ported yet: {extra[:8]}")
 
 
-def load_llama_params(path: str | Path, device="cuda",
-                      times: dict | None = None) -> tuple[dict[str, Any], ModelConfig, dict]:
+def load_llama_params(path: str | Path, device="cuda", times: dict | None = None,
+                      dense_dtype=torch.bfloat16) -> tuple[dict[str, Any], ModelConfig, dict]:
     """Load a GGUF of `TARGET_ARCHS`. Returns (params, config, metadata);
     every weight lies on `device`. `times`, when given, gathers the seconds
-    spent reading, uploading and repacking."""
+    spent reading, uploading, repacking and decoding. A MoE file's dense
+    expert, shared-expert and router weights are stored as `dense_dtype`
+    (the compute dtype of the engine that runs them)."""
     dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = ModelConfig.from_gguf_metadata(reader.metadata)
@@ -252,9 +297,14 @@ def load_llama_params(path: str | Path, device="cuda",
         # reference never reads it, and its FFN would share the attention's
         raise NotImplementedError("attn_norm_2 (the FFN norm of Falcon-40B / 180B) is not "
                                   "ported yet (ROADMAP queue 1, item 8)")
+    if "blk.0.ffn_norm_exps.weight" in reader.tensors:
+        # arctic's residual MoE beside its dense FFN (build_arctic)
+        raise NotImplementedError("ffn_norm_exps (arctic's residual mixture of experts) is not "
+                                  "ported yet (ROADMAP queue 1, item 8)")
+    moe = "blk.0.ffn_gate_inp.weight" in reader.tensors
     _check_names(reader, _TOP_TENSORS,
                  [*LAYER_KEY_MAP.values(), *OPTIONAL_NORMS.values(), *OPTIONAL_BIASES.values(),
-                  *BIASES, *FUSED_QKV], cfg.n_layers)
+                  *BIASES, *FUSED_QKV, *(MOE_KEY_MAP.values() if moe else ())], cfg.n_layers)
     q_perm = k_perm = qkv_perm = None
     if cfg.arch in PERMUTED_ROPE_ARCHS:  # NEOX rows are half-split already
         q_perm = unpermute_rows(cfg.n_q_dim, cfg.n_heads, cfg.rope_dim)
@@ -266,10 +316,13 @@ def load_llama_params(path: str | Path, device="cuda",
         for ours in ("wq", "wk", "wv"):
             key_map.pop(ours)
         key_map["wqkv"] = "attn_qkv.weight"
+    if moe:  # the experts replace the dense FFN (loader.py:731-735)
+        for ours in ("w_gate", "w_up", "w_down"):
+            key_map.pop(ours)
     # a missing norm or gate (loader.py:756-758): command-r / phi2 share one
     # input norm, the no-gate MLP has no ffn_gate
     for ours in ("attn_norm", "ffn_norm", "w_gate"):
-        if f"blk.0.{key_map[ours]}" not in reader.tensors:
+        if ours in key_map and f"blk.0.{key_map[ours]}" not in reader.tensors:
             key_map.pop(ours)
     for ours, suffix in {**OPTIONAL_NORMS, **OPTIONAL_BIASES}.items():
         if f"blk.0.{suffix}" in reader.tensors:
@@ -294,6 +347,14 @@ def load_llama_params(path: str | Path, device="cuda",
             rows.append(torch.cat([bq, bk, bv]))
         layers["bqkv"] = rows
     stacked = {k: _stack(v) for k, v in layers.items()}
+    if moe:  # read densely, every layer's (loader.py:771-786)
+        for ours, suffix in MOE_KEY_MAP.items():
+            if f"blk.0.{suffix}" in reader.tensors:
+                stacked[ours] = ld.dense([f"blk.{i}.{suffix}" for i in range(cfg.n_layers)],
+                                         dense_dtype)
+        if "ffn_gate_inp_shexp" in stacked:  # llama.cpp's [D] or the converter's [1, D]
+            stacked["ffn_gate_inp_shexp"] = stacked["ffn_gate_inp_shexp"].reshape(
+                cfg.n_layers, -1, cfg.n_embd)
     for ours in ("attn_q_norm", "attn_k_norm"):
         if ours in stacked and stacked[ours].shape[-1] != cfg.head_dim:
             raise NotImplementedError(
@@ -320,12 +381,9 @@ def load_llama_params(path: str | Path, device="cuda",
         if "token_embd_norm.bias" in reader.tensors:
             params["tok_embd_norm_b"] = ld.tensor("token_embd_norm.bias")
     if "position_embd.weight" in reader.tensors:  # gpt2 / starcoder learned positions
-        if reader.tensors["position_embd.weight"].ggml_type not in _DENSE_TYPES:
-            # the reference dequantizes it; the port's dense read of block
-            # formats is ROADMAP queue 1, item 3
-            raise NotImplementedError("a quantized position_embd.weight is not ported yet "
-                                      "(ROADMAP queue 1, item 3)")
-        params["pos_embd"] = ld.tensor("position_embd.weight").reshape(-1, cfg.n_embd)
+        # f32, any format read densely, as the reference's tensor_f32
+        params["pos_embd"] = ld.dense(["position_embd.weight"], torch.float32).reshape(
+            -1, cfg.n_embd)
     return params, cfg, reader.metadata
 
 

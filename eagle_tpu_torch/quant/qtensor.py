@@ -1,7 +1,8 @@
 """QTensor — group-quantized weights on the device, and the repack of GGUF
 block bytes into it (port of eagle_tpu/quant/qtensor.py: `QTensor`, the
 `_repack_*` functions behind `repack_numpy` and `repack_coded_numpy`, and
-`concat_qtensors`; the helpers they use from eagle_tpu/quant/blocks.py).
+`concat_qtensors`; the helpers they use from eagle_tpu/quant/blocks.py,
+and its `dequantize`: the dense read of every repackable format).
 
     w[n, k] = scale[n, k // G] * q[n, k] + bias[n, k // G]
 
@@ -26,7 +27,9 @@ The repackers are torch ops on whatever device holds the bytes, so the
 loader uploads a tensor's raw blocks and repacks them on the card. They are
 bit-exact with the reference's numpy and native repackers: f16 -> f32 is
 exact, -8*d and -16*d are exact, and each k-quant product d*sc is one f32
-multiply."""
+multiply. `dequantize` builds dense values from the same parts in ggml's
+order of operations, so they equal the reference's `dequantize` bit for
+bit, signed zeros included."""
 
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import dataclasses
 
 import torch
 
-from ..gguf.constants import GGMLType
+from ..gguf.constants import GGMLType, ggml_row_bytes
 
 Q4_K = int(GGMLType.Q4_K)
 Q6_K = int(GGMLType.Q6_K)
@@ -446,6 +449,57 @@ def repack_coded(data: torch.Tensor, ggml_type, shape):
     `repack_coded_numpy`)."""
     n, k = _nk(shape)
     return _CODED_REPACKERS[GGMLType(ggml_type)](data, n, k)
+
+
+#: formats whose ggml formula subtracts the zero point from the code before
+#: the scale, (q - z) * d: the repack's q * d + (-z * d) gives +0 where
+#: ggml gives -0 (q == z under a negative d)
+_ZERO_POINT = {GGMLType.Q4_0: 8, GGMLType.Q5_0: 16}
+#: values decoded at once by `dequantize` (its f32 temporaries: ~1 GiB)
+DENSE_CHUNK = 1 << 26
+
+
+def _dense_rows(data: torch.Tensor, ggml_type: GGMLType, n: int, k: int) -> torch.Tensor:
+    """n rows of k values of one format -> f32 [n, k], as ggml's dequantize
+    (the reference's `quant/blocks.py:dequantize`) computes each value."""
+    if ggml_type == GGMLType.F32:
+        return data.view(torch.float32).reshape(n, k).clone()
+    if ggml_type == GGMLType.F16:
+        return data.view(torch.float16).float().reshape(n, k)
+    q, scale, bias, g = _REPACKERS[ggml_type](data, n, k)
+    q = q.reshape(n, k // g, g)
+    if ggml_type in _ZERO_POINT:
+        return ((q.to(torch.int16) - _ZERO_POINT[ggml_type]).float()
+                * scale[:, :, None]).reshape(n, k)
+    w = q.float() * scale[:, :, None]
+    if bias is not None:
+        w = w + bias[:, :, None]
+    return w.reshape(n, k)
+
+
+def dequantize(data: torch.Tensor, ggml_type, shape, out: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """GGUF bytes (uint8, on any device) -> dense f32 values of
+    numpy-convention `shape` (2-D, or 3-D for an [E, N, K] expert stack),
+    decoded on the bytes' device (counterpart of the reference's
+    `quant/blocks.py:dequantize`, bit for bit for F32, F16 and every
+    repackable format). Rows are decoded `DENSE_CHUNK` values at a time, so the
+    f32 temporaries stay bounded; with `out` (any float dtype) each chunk
+    is rounded into it."""
+    t = GGMLType(ggml_type)
+    n, k = _nk(shape)
+    if out is None:
+        out = torch.empty(tuple(shape), dtype=torch.float32, device=data.device)
+    flat = out.view(n, k)
+    row_bytes = ggml_row_bytes(t, k)
+    if data.numel() != n * row_bytes:
+        raise ValueError(f"{t.name} {tuple(shape)}: {data.numel()} bytes, expected "
+                         f"{n * row_bytes}")
+    step = max(1, DENSE_CHUNK // k)
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        flat[r0:r1] = _dense_rows(data[r0 * row_bytes:r1 * row_bytes], t, r1 - r0, k)
+    return out
 
 
 def concat_qtensors(tensors: list) -> "QTensor | torch.Tensor":

@@ -48,7 +48,11 @@ starcoder2 / stablelm / gptneox / command-r models card == CPU and graphed
 the other LayerNorm families (`-k lnfamilies`): qmm at Falcon-7B's (Q5_0,
 K = 4,544) and Minitron-8B's shapes (the 256,000-column Q6_K head) on every
 route, both flash kernels at g = 71 (D = 64), tiny nemotron / olmo / orion /
-codeshell / falcon / gptj models card == CPU and graphed == eager.
+codeshell / falcon / gptj models card == CPU and graphed == eager; the
+mixture of experts (`-k moe`): tiny Mixtral and Qwen2-MoE models card ==
+CPU (f32) and graphed == eager (bf16, greedy and the EAGLE chain), the
+experts' bf16 products with an f32 result, and every block format's dense
+read on the card bit for bit the CPU's.
 
 Marked `gpu`: they skip without a CUDA card. On the card, where JAX is not
 installed, run them without the repository's conftest:
@@ -2460,3 +2464,116 @@ def test_lnfamilies_graphed_equals_eager(cuda, name):
                     PROMPT, max_new_tokens=30, stop_at_eos=False, cycles_per_dispatch=c)
                 for graphed in (False, True)]
         assert runs[0] == runs[1], c
+
+
+# ---- mixture of experts (`-k moe`) ------------------------------------------
+
+
+#: tiny MoE models: (config changes, the shared expert's width or 0)
+MOE_CFGS = {
+    "mixtral": (dict(arch="mixtral", n_expert=4, n_expert_used=2), 0),
+    "qwen2moe": (dict(arch="qwen2moe", n_expert=4, n_expert_used=2, moe_softmax_all=True,
+                      attn_bias=True), 384),
+}
+
+
+def _moe_model(name, dtype):
+    """A tiny target of `MOE_CFGS[name]` on the card: Q4_K packed coded
+    attention, and the router, 4 experts of 256 (and a shared expert with
+    its gate) dense in `dtype` in place of the dense FFN."""
+    change, shexp = MOE_CFGS[name]
+    cfg = dataclasses.replace(TINY_CFG, **change)
+    p = synth_llama_params(cfg, seed=25, packed=True, coded=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    L, d, e, f = cfg.n_layers, cfg.n_embd, cfg.n_expert, 256
+    lay = p["layers"]
+    for k in ("w_gate_up", "w_down"):
+        lay.pop(k)
+
+    def rnd(*shape, s=0.05):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
+
+    lay.update(ffn_gate_inp=rnd(L, e, d, s=0.1), w_gate_exps=rnd(L, e, f, d),
+               w_up_exps=rnd(L, e, f, d), w_down_exps=rnd(L, e, d, f))
+    if shexp:
+        lay.update(w_gate_shexp=rnd(L, shexp, d), w_up_shexp=rnd(L, shexp, d),
+                   w_down_shexp=rnd(L, d, shexp), ffn_gate_inp_shexp=rnd(L, 1, d, s=0.2))
+    return cfg, p
+
+
+@pytest.mark.parametrize("name", list(MOE_CFGS))
+def test_moe_tokens_card_equal_cpu(cuda, name):
+    """A tiny MoE model: f32 greedy tokens on the card (qmm and the flash
+    kernels around the experts' cuBLAS products) equal the plain path's on
+    the CPU."""
+    cfg, params = _moe_model(name, torch.float32)
+    toks = []
+    _build.reset_counts()
+    for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        gen = Generator(p, cfg, max_seq=256, kv_dtype=torch.float32,
+                        compute_dtype=torch.float32, eos_id=-1, device=dev)
+        toks.append(gen.generate(PROMPT, max_new_tokens=24, stop_at_eos=False, chunk=8))
+    assert toks[0] == toks[1]
+    assert _build.launches["flash_decode"] > 0 and _build.launches["flash_prefill"] > 0
+
+
+@pytest.mark.parametrize("name", list(MOE_CFGS))
+def test_moe_graphed_equals_eager(cuda, name):
+    """bf16 greedy tokens of each tiny MoE model graphed and eager, bit for
+    bit (the router's top k and the experts' products captured in the step
+    graphs); then the EAGLE chain (a dense llama draft) at 1 and 3 cycles
+    per dispatch, graphed == eager."""
+    from eagle_tpu_torch.models import llama
+
+    cfg, params = _moe_model(name, torch.bfloat16)
+    runs = [Generator(params, cfg, max_seq=256, kv_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, eos_id=-1, device="cuda",
+                      cuda_graphs=graphed).generate(PROMPT * 2, max_new_tokens=40,
+                                                    stop_at_eos=False)
+            for graphed in (False, True)]
+    assert runs[0] == runs[1]
+    x = torch.randn(3, cfg.n_embd, device="cuda", dtype=torch.bfloat16)
+    w = params["layers"]["w_gate_exps"][0].reshape(-1, cfg.n_embd)
+    y = llama._mm_f32(x, w.t())
+    assert y.dtype == torch.float32
+    _close(y, x.float() @ w.float().t(), TOL[torch.float32])
+    _, dp = _tiny_bf16()
+    dcfg = dataclasses.replace(TINY_CFG, n_layers=1, is_eagle=True)
+    for c in (1, 3):
+        runs = [EagleChainEngine(params, dp, cfg, dcfg, n_draft=3, max_seq=256,
+                                 kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                                 eos_id=-1, device="cuda", cuda_graphs=graphed).generate(
+                    PROMPT, max_new_tokens=30, stop_at_eos=False, cycles_per_dispatch=c)
+                for graphed in (False, True)]
+        assert runs[0] == runs[1], c
+
+
+@pytest.mark.parametrize("fmt", [t.name for t in GGMLType if t not in (GGMLType.F32,
+                                                                           GGMLType.F16)])
+def test_moe_dense_read_card_equals_cpu(cuda, fmt, monkeypatch):
+    """Each block format's dense read (`quant/qtensor.py:dequantize`) of an
+    [E, N, K] stack on the card: the CPU's f32 values bit for bit, in
+    chunks, and into a bf16 stack slot the same values rounded to bf16."""
+    from eagle_tpu_torch.gguf.constants import F16_FIELDS, GGML_TYPE_TRAITS
+    from eagle_tpu_torch.quant import qtensor
+    from eagle_tpu_torch.quant.qtensor import dequantize
+
+    t = GGMLType[fmt]
+    tr = GGML_TYPE_TRAITS[t]
+    shape = (3, 64, 512)
+    nb = 3 * 64 * 512 // tr.block_size
+    rng = np.random.default_rng(int(t))
+    raw = rng.integers(0, 256, (nb, tr.type_size), dtype=np.uint8)
+    for at in F16_FIELDS[t]:
+        d = rng.uniform(0.5, 1.5, nb) * 1e-3 * rng.choice([-1.0, 1.0], nb)
+        raw[:, at:at + 2] = d.astype(np.float16).view(np.uint8).reshape(nb, 2)
+    cpu = dequantize(torch.from_numpy(raw.reshape(-1)), t, shape)
+    dev = torch.from_numpy(raw.reshape(-1)).cuda()
+    monkeypatch.setattr(qtensor, "DENSE_CHUNK", 5000)
+    got = dequantize(dev, t, shape)
+    finite = torch.isfinite(cpu)
+    assert torch.equal(got.cpu().view(torch.int32)[finite], cpu.view(torch.int32)[finite])
+    assert torch.equal(torch.isfinite(got.cpu()), finite)
+    out = torch.empty((2, *shape), dtype=torch.bfloat16, device="cuda")
+    dequantize(dev, t, shape, out=out[1])
+    assert torch.equal(out[1].cpu()[finite], cpu.to(torch.bfloat16)[finite])

@@ -194,7 +194,8 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
                          tied: bool = False, arch: str = "llama", head_dim: int | None = None,
                          n_layers: int | None = None, n_heads: int | None = None,
                          rope_dim: int | None = None, n_pos: int = 160,
-                         extra: dict | None = None):
+                         extra: dict | None = None, moe: dict | None = None,
+                         pos_type=None):
     """A tiny llama target GGUF and EAGLE draft GGUF (the tiny_cfgs shapes),
     minted with the reference's GGUFWriter, which quantizes float weights:
     layer matmul weights in `layer_type`, output in `out_type`, token_embd in
@@ -215,13 +216,19 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     fused `attn_qkv`, `attn_output.bias`, the FFN without a gate and with
     biases, no `ffn_norm`, `output.bias`, each as the layout says, and
     `layer_norm_epsilon` 1e-5 (the position families of `LN_LAYOUTS` also
-    `position_embd.weight` [n_pos, D] f32, `token_embd_norm` and an
+    `position_embd.weight` [n_pos, D], f32 or `pos_type`, `token_embd_norm` and an
     `ffn_gate.bias`, each as the layout says; refact is written with the
     llama layout); `head_dim`, `n_heads`, `n_layers` and
     `rope_dim` (partial rotary) set the target's (the draft keeps the tiny
     llama's); the other LayerNorm families of `LN_LAYOUTS` likewise (olmo:
     no norm tensor at all), and `extra` adds F32 tensors (name -> array) to
-    the target. Returns (target path, draft path)."""
+    the target. `moe` (a dict: n_expert, n_used, n_ff_exp, type, shexp: the
+    shared expert's width or 0) gives the target's layers experts in place of the dense
+    FFN, as llama.cpp names them: an F32 router `ffn_gate_inp` [E, D], the
+    stacks `ffn_{gate,up}_exps` [E, F, D] and `ffn_down_exps` [E, D, F] in
+    `type`, and with `shexp` the shared expert `ffn_{gate,up,down}_shexp`
+    with its F32 gate `ffn_gate_inp_shexp` [1, D]. Returns (target path,
+    draft path)."""
     from eagle_tpu.gguf.writer import GGUFWriter
     from eagle_tpu.tools.train_draft import _base_metadata
 
@@ -251,6 +258,23 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
 
     ln = LN_LAYOUTS.get(arch)
 
+    def experts(w, i):
+        n_exp, f_exp, etype = moe["n_expert"], moe["n_ff_exp"], moe["type"]
+        w.add_tensor(f"blk.{i}.ffn_gate_inp.weight",
+                     (rng.standard_normal((n_exp, d)) * 0.05).astype(np.float32))
+        for name, shape in (("ffn_gate_exps", (n_exp, f_exp, d)),
+                            ("ffn_up_exps", (n_exp, f_exp, d)),
+                            ("ffn_down_exps", (n_exp, d, f_exp))):
+            w.add_tensor(f"blk.{i}.{name}.weight",
+                         (rng.standard_normal(shape) * 0.05).astype(np.float32), ggml_type=etype)
+        if moe["shexp"]:
+            fs = moe["shexp"]
+            for name, (n, k) in (("ffn_gate_shexp", (fs, d)), ("ffn_up_shexp", (fs, d)),
+                                 ("ffn_down_shexp", (d, fs))):
+                qmat(w, f"blk.{i}.{name}.weight", n, k, etype)
+            w.add_tensor(f"blk.{i}.ffn_gate_inp_shexp.weight",
+                         (rng.standard_normal((1, d)) * 0.1).astype(np.float32))
+
     def layer(w, i, qtype, cfg, attn_norm=True, arch="llama"):
         nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
         lay = LN_LAYOUTS.get(arch, LLAMA_LAYOUT)
@@ -261,6 +285,9 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
             mats[:0] = [("attn_q", (nq, d)), ("attn_k", (nkv, d)), ("attn_v", (nkv, d))]
         if lay["gate"]:
             mats.insert(-2, ("ffn_gate", (f, d)))
+        if moe is not None and attn_norm:  # the target's experts replace its FFN
+            mats = [m for m in mats if not m[0].startswith("ffn_")]
+            experts(w, i)
         if attn_norm and lay["norms"]:
             w.add_tensor(f"blk.{i}.attn_norm.weight", norm())
             if lay["norm_b"]:
@@ -273,7 +300,7 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
                 w.add_tensor(f"blk.{i}.ffn_norm.bias", bias(d) * 0.2)
         if lay["qkv_b"] and lay["fused_qkv"]:
             w.add_tensor(f"blk.{i}.attn_qkv.bias", bias(nq + 2 * nkv))
-        elif lay["qkv_b"] or arch == "qwen2":
+        elif lay["qkv_b"] or arch in ("qwen2", "qwen2moe"):
             for name, n in (("attn_q", nq), ("attn_k", nkv), ("attn_v", nkv)):
                 w.add_tensor(f"blk.{i}.{name}.bias", bias(n))
         if lay["bo"]:
@@ -296,12 +323,18 @@ def write_tiny_gguf_pair(tmp_path, layer_type, out_type, emb_type, draft_type, s
     md = _base_metadata(jcfg, arch)
     if ln is not None:
         md[f"{arch}.attention.layer_norm_epsilon"] = 1e-5
+    if moe is not None:
+        md.update({f"{arch}.expert_count": moe["n_expert"],
+                   f"{arch}.expert_used_count": moe["n_used"]})
+        if arch == "qwen2moe":
+            md[f"{arch}.expert_feed_forward_length"] = moe["n_ff_exp"]
     for k, val in {**md, **(target_metadata or {})}.items():
         w.add(k, val)
     qmat(w, "token_embd.weight", v, d, emb_type, out_scale if tied else 0.5)
     if ln is not None and ln["pos_embd"]:
         w.add_tensor("position_embd.weight",
-                     (rng.standard_normal((n_pos, d)) * 0.3).astype(np.float32))
+                     (rng.standard_normal((n_pos, d)) * 0.3).astype(np.float32),
+                     ggml_type=pos_type)
     if ln is not None and ln["embd_norm"]:
         w.add_tensor("token_embd_norm.weight", norm())
         w.add_tensor("token_embd_norm.bias", bias(d) * 0.2)
